@@ -1,0 +1,749 @@
+"""Graph compiler of the port: effect graph -> render program.
+
+This replaces the reference's runtime layer (task-per-node + SPSC pipes +
+emergent dataflow scheduling, runtime.rs:614-752, node.rs:267-352) with a
+plan made once per graph:
+
+* links dissolve into values (fan-out = value reuse);
+* fan-in becomes the reference's averaging mix ``sum / (n + 1e-4)``
+  (node.rs:162-194, divisor quirk SURVEY.md 2.4 #1);
+* modulation (`as_input`) ports apply the [-1,1] -> slider-range mapping
+  of the derive macro (dsp-stuff-derive/src/lib.rs:135-153);
+* nodes evaluate one *full sequence* at a time in topological order;
+  under the ``fast`` policy maximal chains of linear + shaper + comb nodes
+  run as ONE ops/chain_segment (the chain kernel on a CUDA device) and
+  the remaining linear runs as one ops/cascade solve each;
+* Input nodes bind external source columns, Output nodes produce rendered
+  channels.
+
+Only the acyclic path is ported: a graph with a feedback cycle raises at
+``compile_graph`` (ROADMAP Queue 1, Slice B).  Streams batch as leading
+dimensions of every signal; node states broadcast against them.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from dsp_stuff_tpu_torch.compiler.scc import condensation_topo_order
+from dsp_stuff_tpu_torch.graph import Graph, GraphNode
+from dsp_stuff_tpu_torch.ops import cascade
+from dsp_stuff_tpu_torch.ops import chain_segment as _cs
+from dsp_stuff_tpu_torch.ops.delay_line import delay_samples
+from dsp_stuff_tpu_torch.registry import ParamSpec
+from dsp_stuff_tpu_torch.utils import precision
+
+EXTERNAL = "__external__"
+
+_F32 = torch.float32
+
+
+def _fanin_divisor(n: int) -> np.float32:
+    """num_frames starts at 0.0001 and gains 1.0 per connected pipe, in f32
+    (node.rs:166,179,190-192)."""
+    d = np.float32(0.0001)
+    for _ in range(n):
+        d = np.float32(d + np.float32(1.0))
+    return d
+
+
+def _avg(sources: list, T: int, device=None):
+    """Fan-in average; returns (signal [..., T], n_connected).
+
+    Sources sum in ``graph.links`` insertion order (== ascending LinkId in
+    the reference, runtime.rs:118-120) as the f32 chain ``(s0+s1)+s2``,
+    then one true f32 divide (node.rs:190-192) under every policy: eager
+    torch has no divide rewrite to fence."""
+    n = len(sources)
+    if n == 0:
+        return torch.zeros((T,), dtype=_F32, device=device), 0
+    acc = sources[0]
+    for s in sources[1:]:
+        acc = acc + s
+    return acc / float(_fanin_divisor(n)), n
+
+
+def _map_mod(sig, p: ParamSpec):
+    """Modulation-signal -> slider-range mapping (lib.rs:140-148):
+    y=(x+1)/2; z=clamp(y,0,1); lo + (hi-lo)*z, all f32."""
+    y = (sig + 1.0) / 2.0
+    z = torch.clamp(y, 0.0, 1.0)
+    span = float(np.float32(np.float32(p.hi) - np.float32(p.lo)))
+    return float(np.float32(p.lo)) + span * z
+
+
+def _active_nodes(graph: Graph) -> set[int]:
+    """Nodes with at least one connected link (the reference never starts a
+    node with zero connections, runtime.rs:661-668)."""
+    act = set()
+    for l in graph.links:
+        act.add(l.src)
+        act.add(l.dst)
+    return act
+
+
+#: graph node types that are linear systems fusable into one blocked
+#: solve (ops/cascade.py), and their section kinds
+_LINEAR_KINDS = {"gain": "gain", "low_pass": "lp", "high_pass": "hp",
+                 "biquad": "bq"}
+
+#: stateful node types that keep a chain segment worthwhile
+_MEGA_STATEFUL = ("low_pass", "high_pass", "biquad", "reverb")
+
+
+def _concrete(v) -> bool:
+    return isinstance(v, (int, float, np.floating))
+
+
+def _out_links(graph: Graph):
+    out: dict[int, list] = {}
+    modded = set()
+    for l in graph.links:
+        out.setdefault(l.src, []).append(l)
+        if l.dst_port != "in":
+            modded.add(l.dst)
+    return out, modded
+
+
+def _sole_joint(graph: Graph, out_links, nid, ok) -> int | None:
+    """The downstream node id when nid's output has exactly one chain-joint
+    candidate: a link into an ``ok`` node's "in" port that is that port's
+    sole source.  Other outgoing links are allowed (they become taps); two
+    candidates make the chain ambiguous, so none is taken."""
+    joints = [l.dst for l in out_links.get(nid, [])
+              if l.dst_port == "in" and l.dst != nid
+              and len(graph.in_links(l.dst, "in")) == 1 and ok(l.dst)]
+    return joints[0] if len(joints) == 1 else None
+
+
+def _chains(nxt: dict) -> list[list[int]]:
+    """Maximal chains of the successor map ``nxt``, by ascending head id."""
+    targets = set(nxt.values())
+    chains = []
+    for nid in sorted(nxt):
+        if nid in targets:
+            continue
+        chain = [nid]
+        while chain[-1] in nxt:
+            chain.append(nxt[chain[-1]])
+        chains.append(chain)
+    return chains
+
+
+def _plan_mega_fusion(graph: Graph, nodes: dict) -> list:
+    """Maximal chains of mega-fusable nodes (the linear kinds +
+    distort/overdrive/chebyshev at base rate + reverb) joined by chain
+    links, evaluated as ONE ops/chain_segment.
+
+    Extra consumers of a member's output do not end the chain: the
+    segment emits that intermediate with a ("tap", ti) stage.  A run must
+    have >= 2 nodes, >= 1 stateful member and >= 1 non-linear member
+    (pure-linear runs belong to _plan_linear_fusion)."""
+    out_links, modded = _out_links(graph)
+
+    def mega_ok(nid) -> bool:
+        node = nodes.get(nid)
+        if node is None or nid in modded:
+            return False
+        cn = node.cfg_name
+        if cn in _LINEAR_KINDS or cn in ("chebyshev", "reverb"):
+            return True
+        if cn in ("distort", "overdrive"):
+            return str(node.params.get("oversample", "1")) == "1"
+        return False
+
+    nxt = {}
+    for nid in nodes:
+        if mega_ok(nid):
+            dst = _sole_joint(graph, out_links, nid, mega_ok)
+            if dst is not None:
+                nxt[nid] = dst
+    runs = []
+    for chain in _chains(nxt):
+        kinds = [nodes[n].cfg_name for n in chain]
+        if (len(chain) >= 2
+                and any(k in _MEGA_STATEFUL for k in kinds)
+                and any(k not in _LINEAR_KINDS for k in kinds)):
+            runs.append(chain)
+    return runs
+
+
+def _plan_linear_fusion(graph: Graph, nodes: dict,
+                        exclude: frozenset = frozenset()) -> list:
+    """Maximal runs of adjacent linear nodes fusable into one
+    ops/cascade.linear_cascade solve, as lists of node ids in signal order.
+
+    Consecutive nodes are joined by a chain link (the downstream "in" has
+    exactly that one source); no member receives links on any other port;
+    the composite state dimension is capped at cascade.MAX_RUN_DIM (longer
+    chains split greedily); a run keeps >= 2 nodes and >= 1 stateful
+    section.  Other consumers of an intermediate become emitted taps, so
+    runs evaluate at their HEAD node's position."""
+    out_links, modded = _out_links(graph)
+
+    def linear(nid) -> bool:
+        node = nodes.get(nid)
+        return (node is not None and node.cfg_name in _LINEAR_KINDS
+                and nid not in modded and nid not in exclude)
+
+    def dim(nid) -> int:
+        return cascade.SECTION_DIMS[_LINEAR_KINDS[nodes[nid].cfg_name]]
+
+    nxt = {}
+    for nid in nodes:
+        if linear(nid):
+            dst = _sole_joint(graph, out_links, nid, linear)
+            if dst is not None:
+                nxt[nid] = dst
+    runs = []
+    for chain in _chains(nxt):
+        seg: list = []
+        d = 0
+        for n in chain + [None]:
+            if n is None or d + dim(n) > cascade.MAX_RUN_DIM:
+                if len(seg) >= 2 and d >= 1:
+                    runs.append(seg)
+                seg, d = [], 0
+            if n is not None:
+                seg.append(n)
+                d += dim(n)
+    return runs
+
+
+def _linear_section(node: GraphNode):
+    """The (kind, param) cascade section of a linear node, or None for a
+    non-concrete parameter."""
+    kind = _LINEAR_KINDS[node.cfg_name]
+    if kind == "gain":
+        lvl = node.params["level"]
+        return ("gain", float(np.float32(lvl))) if _concrete(lvl) else None
+    if kind in ("lp", "hp"):
+        r = node.params["ratio"]
+        return (kind, float(r)) if _concrete(r) else None
+    raw = [node.params[k] for k in ("a0", "a1", "a2", "b0", "b1", "b2")]
+    if not all(_concrete(v) for v in raw):
+        return None
+    # same f32 division as BiQuad (biquad.rs:64-71)
+    a0 = np.float32(raw[0])
+    return ("bq", tuple(float(np.float32(np.float32(v) / a0))
+                        for v in raw[1:]))
+
+
+def _resolve_device(device) -> torch.device:
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+class CompiledGraph:
+    """A graph planned for rendering on one ``device``.
+
+    ``render`` evaluates it; states and parameters are dicts keyed by
+    ``str(node_id)``, as in the JAX package (convert.py carries them
+    across).  Every tensor the object makes lives on ``device``, and
+    tensors handed in on another device raise."""
+
+    def __init__(self, graph: Graph, block_size: int, device, nodes: dict,
+                 order: list, mega_plan: list, fusion_plan: list):
+        self.graph = graph
+        self.block_size = block_size
+        self.device = _resolve_device(device)
+        self.input_ids = sorted(n.id for n in nodes.values()
+                                if getattr(n.spec.impl, "graph_input", False))
+        self.output_ids = sorted(n.id for n in nodes.values()
+                                 if getattr(n.spec.impl, "graph_output", False))
+        self._nodes = nodes
+        self._order = order
+        self._mega_plan = mega_plan
+        self._fusion_plan = fusion_plan
+
+    # -- state and parameters ---------------------------------------------
+
+    def _on_device(self, v, what: str):
+        if isinstance(v, torch.Tensor):
+            if v.device != self.device:
+                raise ValueError(f"{what} is on {v.device}; the graph was "
+                                 f"compiled for {self.device}")
+            return v.to(_F32)
+        return torch.as_tensor(np.asarray(v, np.float32), device=self.device)
+
+    def init_state(self) -> dict:
+        out = {}
+        for nid, node in self._nodes.items():
+            st = node.spec.impl.init_state(node.params, self.block_size)
+            if isinstance(st, dict):
+                st = {k: (v.to(self.device) if isinstance(v, torch.Tensor)
+                          else v) for k, v in st.items()}
+            out[str(nid)] = st
+        return out
+
+    def init_params(self) -> dict:
+        """{node_id: {param: f32 scalar tensor}} holding every non-static
+        slider at the graph's value.  Pass (a changed copy of) it as
+        ``render(params=...)`` to override the graph's values."""
+        out = {}
+        for nid, node in self._nodes.items():
+            entry = {p.name: torch.tensor(float(np.float32(node.params[p.name])),
+                                          dtype=_F32, device=self.device)
+                     for p in node.spec.params
+                     if isinstance(p, ParamSpec) and not p.static}
+            if entry:
+                out[str(nid)] = entry
+        return out
+
+    def broadcast_state(self, state: dict, batch_shape: tuple[int, ...]):
+        """Tile a state across leading batch dimensions (each stream gets
+        its own copy); Python ints (lockstep positions) stay shared."""
+        def tile(v):
+            if isinstance(v, torch.Tensor):
+                return v.expand(*batch_shape, *v.shape).clone()
+            return v
+        return {k: ({kk: tile(vv) for kk, vv in st.items()}
+                    if isinstance(st, dict) else st)
+                for k, st in state.items()}
+
+    # -- rendering ----------------------------------------------------------
+
+    def render(self, inputs=None, T: int | None = None, state=None,
+               batch_shape: tuple[int, ...] = (), params=None):
+        """One-call offline render.
+
+        inputs -- None (silence), an [n_inputs, T] array or tensor, a dict
+                  {node_id: [T]}, or with leading batch dimensions
+                  [..., n_inputs, T] matching batch_shape.
+        Returns (outs [..., n_out, T], aux dict, state)."""
+        batch_shape = tuple(batch_shape)
+        ext = self._pack_inputs(inputs, T, batch_shape)
+        T = next(iter(ext.values())).shape[-1] if ext else T
+        if T is None:
+            raise ValueError("T is required when the graph has no Input nodes")
+        if T % self.block_size:
+            raise ValueError(f"T={T} must be a multiple of "
+                             f"block_size={self.block_size}")
+        if state is None:
+            state = self.init_state()
+        else:
+            for k, st in state.items():
+                for kk, v in (st or {}).items():
+                    if isinstance(v, torch.Tensor):
+                        self._on_device(v, f"state[{k!r}][{kk!r}]")
+        state, outs, aux = self.fn(state, ext, params)
+        if self.output_ids:
+            sigs = [outs[i] for i in self.output_ids]
+            shape = torch.broadcast_shapes(*(s.shape for s in sigs),
+                                           (*batch_shape, T))
+            out_arr = torch.stack([s.expand(shape) for s in sigs], dim=-2)
+        else:
+            out_arr = torch.zeros((*batch_shape, 0, T), dtype=_F32,
+                                  device=self.device)
+        return out_arr, aux, state
+
+    def _pack_inputs(self, inputs, T, batch_shape):
+        if inputs is None:
+            if T is None:
+                raise ValueError("T required to synthesize silent inputs")
+            ext = {str(i): torch.zeros((*batch_shape, T), dtype=_F32,
+                                       device=self.device)
+                   for i in self.input_ids}
+            if not ext:
+                # length-carrying dummy so fn can infer T
+                ext["__len__"] = torch.zeros((*batch_shape, T), dtype=_F32,
+                                             device=self.device)
+            return ext
+        if isinstance(inputs, dict):
+            ext = {str(k): self._on_device(v, f"input {k!r}")
+                   for k, v in inputs.items()}
+            want = 1 + len(batch_shape)
+            for k, v in ext.items():
+                if v.dim() != want:
+                    raise ValueError(
+                        f"input {k!r} has shape {tuple(v.shape)}; expected "
+                        f"{want}-d [*batch_shape, T] for "
+                        f"batch_shape={batch_shape}")
+            Td = next(iter(ext.values())).shape[-1] if ext else T
+            for i in self.input_ids:
+                if str(i) not in ext:
+                    ext[str(i)] = torch.zeros((*batch_shape, Td), dtype=_F32,
+                                              device=self.device)
+            return ext
+        arr = self._on_device(inputs, "inputs")
+        if arr.dim() == 1:
+            arr = arr[None]
+        if arr.shape[-2] != len(self.input_ids):
+            raise ValueError(f"inputs of shape {tuple(arr.shape)} do not "
+                             f"match the graph's {len(self.input_ids)} "
+                             f"Input nodes")
+        return {str(nid): arr[..., i, :]
+                for i, nid in enumerate(self.input_ids)}
+
+    def fn(self, state, ext, params=None):
+        """(state, ext, params) -> (new_state, outs {output id: signal},
+        aux): one render of ``ext`` (dict of [..., T] input signals)."""
+        T = None
+        for k, v in ext.items():
+            if T is not None and v.shape[-1] != T:
+                raise ValueError(
+                    f"external inputs disagree on render length: input "
+                    f"node {k!r} has T={v.shape[-1]}, others had T={T}")
+            T = v.shape[-1]
+        if T is None:
+            raise ValueError("graphs without Input nodes need a length "
+                             "hint; use CompiledGraph.render(T=...)")
+        return self._eval(state, ext, T, params)
+
+    # -- evaluation ---------------------------------------------------------
+
+    def _resolve_params(self, node: GraphNode, in_sigs: dict, pdict):
+        """params dict with modulation ports resolved; in_sigs maps port ->
+        (avg signal, n_connected); pdict (if given) overrides non-static
+        sliders."""
+        over = (pdict or {}).get(str(node.id), {})
+        params: dict[str, Any] = {}
+        for p in node.spec.params:
+            if isinstance(p, ParamSpec) and p.as_input:
+                sig, n = in_sigs.get(p.name, (None, 0))
+                if n > 0:
+                    params[p.name] = _map_mod(sig, p)
+                elif p.name in over:
+                    params[p.name] = float(over[p.name])
+                else:
+                    params[p.name] = float(node.params[p.name])
+            elif isinstance(p, ParamSpec) and p.name in over:
+                params[p.name] = float(over[p.name])
+            else:
+                params[p.name] = node.params[p.name]
+        return params
+
+    def _run_sections(self, run, pdict):
+        """(sections, member_end) for a fusable linear run: the section
+        tuple with the link fan-in scales interleaved as gain sections, and
+        each node id's last section index (the emit point of a tapped
+        intermediate) -- or None when a member has overrides or a
+        non-concrete parameter."""
+        h = 1.0 / float(_fanin_divisor(1))
+        secs: list = []
+        member_end: dict[int, int] = {}
+        for i, nid in enumerate(run):
+            if str(nid) in (pdict or {}):
+                return None
+            sec = _linear_section(self._nodes[nid])
+            if sec is None:
+                return None
+            if i:
+                secs.append(("gain", h))
+            secs.append(sec)
+            member_end[nid] = len(secs) - 1
+        return tuple(secs), member_end
+
+    def _run_taps(self, run) -> list[int]:
+        """Non-tail run members whose output has a consumer besides the
+        chain link to the next member: the fused solve must emit them."""
+        internal = set(zip(run[:-1], run[1:]))
+        return [nid for nid in run[:-1]
+                if any(l.src == nid and (nid, l.dst) not in internal
+                       for l in self.graph.links)]
+
+    def _mega_stages(self, run, pdict):
+        """(stages, state_specs, head_single, out_fold, tapped) for a mega
+        run in ops/chain_segment's stage grammar, or None when a member has
+        overrides or a non-concrete parameter.
+
+        Adjacent linear members collapse into shared ("cascade", sections)
+        stages (split at cascade.MAX_RUN_DIM) with the link fan-in scales
+        interleaved as gain sections; scales between non-linear stages
+        accumulate into one ("scale", s).  state_specs parallels the
+        stateful stages: ("cascade", sections, stateful_ids) | ("comb",
+        nid).  ``tapped`` lists the members emitted by ("tap", ti) stages.
+
+        Two boundary scale folds keep the segment one read and one write:
+        ``head_single`` (the head's single in-link scale seeds the pending
+        scale, so the eval skips _avg) and ``out_fold`` (the tail's sole
+        consumer is a single-source Output, whose fan-in scale appends as
+        a trailing stage).  Both replace the fan-in divide by a multiply
+        with the f32 reciprocal, the fast policy's documented 1-ulp class."""
+        graph = self.graph
+        h = 1.0 / float(_fanin_divisor(1))
+        stages: list = []
+        specs: list = []
+        cur: list = []          # open cascade: (kind, param) sections
+        cur_ids: list = []      # stateful member node ids of cur
+        cur_dim = 0
+        head_single = len(graph.in_links(run[0], "in")) == 1
+        pend = h if head_single else 1.0   # pending scale before next stage
+        tail_out = [l for l in graph.links if l.src == run[-1]]
+        out_fold = None
+        if (len(tail_out) == 1 and tail_out[0].dst_port == "in"
+                and tail_out[0].dst in self.output_ids
+                and len(graph.in_links(tail_out[0].dst, "in")) == 1):
+            out_fold = tail_out[0].dst
+
+        def close():
+            nonlocal cur, cur_ids, cur_dim, pend
+            if not cur:
+                return
+            if cur_dim == 0:
+                # stateless (pure-gain) group: fold into the running scale
+                for _, v in cur:
+                    pend *= float(v)
+            else:
+                stages.append(("cascade", tuple(cur)))
+                specs.append(("cascade", tuple(cur), tuple(cur_ids)))
+            cur, cur_ids, cur_dim = [], [], 0
+
+        def flush_scale():
+            nonlocal pend
+            if pend != 1.0:
+                stages.append(("scale", float(np.float32(pend))))
+                pend = 1.0
+
+        tap_set = set(self._run_taps(run))
+        tapped: list[int] = []
+        for i, nid in enumerate(run):
+            if str(nid) in (pdict or {}):
+                return None
+            node = self._nodes[nid]
+            cn = node.cfg_name
+            if cn in _LINEAR_KINDS:
+                sec = _linear_section(node)
+                if sec is None:
+                    return None
+                d = cascade.SECTION_DIMS[sec[0]]
+                if cur and cur_dim + d > cascade.MAX_RUN_DIM:
+                    close()
+                if cur:
+                    cur.append(("gain", h))
+                else:
+                    if i:
+                        pend *= h
+                    if pend != 1.0:
+                        cur.append(("gain", float(np.float32(pend))))
+                        pend = 1.0
+                cur.append(sec)
+                if d:
+                    cur_ids.append(nid)
+                cur_dim += d
+            else:
+                close()
+                if i:
+                    pend *= h
+                if cn == "reverb":
+                    dec = node.params["decay"]
+                    if not _concrete(dec):
+                        return None
+                    flush_scale()
+                    D = delay_samples(float(node.params["seconds"]))
+                    stages.append(("comb", float(np.float32(dec)), int(D)))
+                    specs.append(("comb", nid))
+                else:
+                    keys = {"overdrive": ("boost", "drive", "level"),
+                            "chebyshev": ("level_pos", "level_neg")
+                            }.get(cn, ("level",))
+                    ps = [node.params[k] for k in keys]
+                    if not all(_concrete(v) for v in ps):
+                        return None
+                    flush_scale()
+                    kind = cn if cn != "distort" \
+                        else f"distort:{node.params['mode']}"
+                    stages.append(("ew", kind,
+                                   tuple(float(np.float32(v)) for v in ps)))
+            if nid in tap_set:
+                # the tap point is the node's OWN output: close the open
+                # cascade and flush any folded scale before emitting
+                close()
+                flush_scale()
+                stages.append(("tap", len(tapped)))
+                tapped.append(nid)
+        close()
+        if out_fold is not None:
+            pend *= h
+        flush_scale()
+        return (tuple(stages), tuple(specs), head_single, out_fold,
+                tuple(tapped))
+
+    def _active_mega(self, pdict):
+        """(head id -> (run, stages, specs, head_single, out_fold, tapped),
+        non-head member ids) for the mega runs this render fuses: fast
+        policy only."""
+        if not self._mega_plan or precision.get_policy().name != "fast":
+            return {}, set()
+        heads: dict[int, tuple] = {}
+        interior: set = set()
+        for run in self._mega_plan:
+            got = self._mega_stages(run, pdict)
+            if got is not None:
+                heads[run[0]] = (run, *got)
+                interior.update(run[1:])
+        return heads, interior
+
+    def _mega_run_eval(self, run, stages, specs, tapped, x1, st):
+        """Evaluate a mega run over its head input ``x1`` [..., T] as one
+        ops/chain_segment, updating the member states in ``st``; returns
+        {(nid, "out"): signal} for the tail and every tapped member."""
+        state_in = []
+        for sp in specs:
+            if sp[0] == "cascade":
+                _, secs, ids = sp
+                state_in.append(cascade.cascade_state_in(
+                    secs, [st[str(n)] for n in ids]))
+            else:
+                nst = st[str(sp[1])]
+                # the reverb ring oldest-first
+                state_in.append(torch.roll(nst["ring"], -int(nst["pos"]),
+                                           dims=-1))
+        y, cinfos, hists, tap_sigs = _cs.chain_segment(x1, stages,
+                                                       tuple(state_in))
+        ci = hi = 0
+        for sp in specs:
+            if sp[0] == "cascade":
+                _, secs, ids = sp
+                for n, ns in zip(ids, cascade.cascade_state_out(
+                        secs, *cinfos[ci])):
+                    st[str(n)] = ns
+                ci += 1
+            else:
+                st[str(sp[1])] = {"ring": hists[hi], "pos": 0}
+                hi += 1
+        out = {(run[-1], "out"): y}
+        for n, sig in zip(tapped, tap_sigs):
+            out[(n, "out")] = sig
+        return out
+
+    def _active_fusion(self, pdict):
+        """(head id -> (run, sections, emits, tapped), non-head member ids)
+        for the linear runs this render fuses: fast policy only."""
+        if not self._fusion_plan or precision.get_policy().name != "fast":
+            return {}, set()
+        heads: dict[int, tuple] = {}
+        interior: set = set()
+        for run in self._fusion_plan:
+            got = self._run_sections(run, pdict)
+            if got is None:
+                continue
+            secs, member_end = got
+            tapped = self._run_taps(run)
+            heads[run[0]] = (run, secs, tuple(member_end[n] for n in tapped),
+                             tapped)
+            interior.update(run[1:])
+        return heads, interior
+
+    def _fused_run_eval(self, run, secs, emits, tapped, x1, st):
+        """Evaluate a fused linear run over its head input ``x1`` (T >= 2),
+        updating the per-node states in ``st``; returns {(nid, "out"):
+        signal} for the tail and every tapped member."""
+        stateful = [n for n in run if cascade.SECTION_DIMS[
+            _LINEAR_KINDS[self._nodes[n].cfg_name]] > 0]
+        s_in = cascade.cascade_state_in(secs, [st[str(n)] for n in stateful])
+        res = cascade.linear_cascade(x1, secs, s_in, emits)
+        y, s_tm1, s_tm2 = res[:3]
+        emit_sigs = res[3] if emits else ()
+        for n, st_new in zip(stateful, cascade.cascade_state_out(
+                secs, s_tm1, s_tm2, x1[..., -1], x1[..., -2])):
+            st[str(n)] = st_new
+        out = {(run[-1], "out"): y}
+        for n, sig in zip(tapped, emit_sigs):
+            out[(n, "out")] = sig
+        return out
+
+    def _eval(self, state, ext, T: int, pdict=None):
+        graph = self.graph
+        state = dict(state)
+        values: dict[tuple[int, str], Any] = {}
+        fused_heads, fused_interior = self._active_fusion(pdict)
+        mega_heads, mega_interior = self._active_mega(pdict)
+        # Output ids whose fan-in scale a mega run already applied
+        mega_out_folds: dict[int, tuple[int, str]] = {}
+
+        def sources(nid, port):
+            return [values[(l.src, l.src_port)]
+                    for l in graph.in_links(nid, port)]
+
+        for nid in self._order:
+            if nid in mega_interior or nid in fused_interior:
+                continue                      # evaluated at the run head
+            if nid in mega_heads:
+                run, stages, specs, head_single, out_fold, tapped = \
+                    mega_heads[nid]
+                srcs = sources(run[0], "in")
+                # head_single: the fan-in scale is folded into the stages
+                x1 = srcs[0] if head_single else _avg(srcs, T, self.device)[0]
+                values.update(self._mega_run_eval(run, stages, specs, tapped,
+                                                  x1, state))
+                if out_fold is not None:
+                    mega_out_folds[out_fold] = (run[-1], "out")
+                continue
+            if nid in fused_heads:
+                run, secs, emits, tapped = fused_heads[nid]
+                x1, _ = _avg(sources(run[0], "in"), T, self.device)
+                values.update(self._fused_run_eval(run, secs, emits, tapped,
+                                                   x1, state))
+                continue
+            node = self._nodes[nid]
+            impl = node.spec.impl
+            in_sigs = {port: _avg(sources(nid, port), T, self.device)
+                       for port in node.spec.all_inputs}
+            if getattr(impl, "graph_input", False):
+                inputs = {EXTERNAL: ext[str(nid)]}
+            else:
+                inputs = {p: in_sigs[p][0] for p in node.spec.inputs}
+            params = self._resolve_params(node, in_sigs, pdict)
+            outs, state[str(nid)] = impl.process_seq(params, state[str(nid)],
+                                                     inputs)
+            for port in node.spec.outputs:
+                values[(nid, port)] = outs[port]
+
+        # graph outputs: fan-in average into each Output node
+        # (output.rs:215-250)
+        outs = {}
+        for nid in self.output_ids:
+            if nid in mega_out_folds:
+                outs[nid] = values[mega_out_folds[nid]]
+            else:
+                outs[nid] = _avg(sources(nid, "in"), T, self.device)[0]
+
+        # modulation knob writeback (reference quirk SURVEY.md 2.4 #9): the
+        # knob ends at the mapped value of the last block's first sample
+        knobs = {}
+        for nid, node in self._nodes.items():
+            for p in node.spec.params:
+                if isinstance(p, ParamSpec) and p.as_input:
+                    srcs = sources(nid, p.name)
+                    if srcs:
+                        sig, _ = _avg(srcs, T, self.device)
+                        knobs[f"{nid}:{p.name}"] = _map_mod(
+                            sig[..., T - self.block_size], p)
+        aux = {"__knobs__": knobs} if knobs else {}
+        return state, outs, aux
+
+
+def compile_graph(graph: Graph, block_size: int = 128,
+                  device="cpu") -> CompiledGraph:
+    """Plan ``graph`` for rendering on ``device`` ("cpu" or "cuda")."""
+    if block_size % 128:
+        # the reference frame (node.rs:257) is semantically visible: Fuzz
+        # block-max is pinned to the 128 grid (SURVEY 2.4 #5)
+        raise ValueError(
+            f"block_size must be a multiple of 128 (the reference frame, "
+            f"node.rs:257); got {block_size}")
+    active = _active_nodes(graph)
+    nodes = {nid: n for nid, n in graph.nodes.items() if nid in active}
+    edges: dict[int, set[int]] = {nid: set() for nid in nodes}
+    for l in graph.links:
+        if l.src in nodes and l.dst in nodes:
+            edges[l.src].add(l.dst)
+    sccs = condensation_topo_order(sorted(nodes), edges)
+    for comp in sccs:
+        if len(comp) > 1 or any(l.src == l.dst == comp[0]
+                                for l in graph.links):
+            raise NotImplementedError(
+                f"graph has a feedback cycle through nodes {sorted(comp)}; "
+                f"the cycle path is not ported to dsp_stuff_tpu_torch yet "
+                f"(ROADMAP Queue 1, Slice B)")
+    mega_plan = _plan_mega_fusion(graph, nodes)
+    mega_members = frozenset(n for run in mega_plan for n in run)
+    fusion_plan = _plan_linear_fusion(graph, nodes, exclude=mega_members)
+    return CompiledGraph(graph, block_size, device, nodes,
+                         [comp[0] for comp in sccs], mega_plan, fusion_plan)

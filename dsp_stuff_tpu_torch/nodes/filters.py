@@ -1,0 +1,96 @@
+"""Filter nodes: BiQuad, LowPass, HighPass.  Envelope and Fir are
+registry.NOT_PORTED."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dsp_stuff_tpu_torch.registry import register_node, ParamSpec
+from dsp_stuff_tpu_torch.ops.scan import first_order_affine, biquad_df1
+
+
+def _zero():
+    return torch.zeros((), dtype=torch.float32)
+
+
+@register_node(
+    title="Biquad", cfg_name="biquad", description="Generic biquad filter",
+    inputs=("in",), outputs=("out",),
+    params=(
+        ParamSpec("a0", -10.0, 10.0, 1.0),
+        ParamSpec("a1", -10.0, 10.0, -0.24),
+        ParamSpec("a2", -10.0, 10.0, 0.0),
+        ParamSpec("b0", -10.0, 10.0, 0.758),
+        ParamSpec("b1", -10.0, 10.0, 0.0),
+        ParamSpec("b2", -10.0, 10.0, 0.0),
+    ),
+)
+class BiQuad:
+    """DirectForm1 biquad; all coefficients are divided by a0 when settings
+    change (biquad.rs:62-76), and the 4-sample IIR state resets on every
+    slider change (biquad.rs:74).  Offline, params are static per render,
+    so state is fresh at t=0."""
+
+    @staticmethod
+    def init_state(cfg, block_size):
+        return {"x1": _zero(), "x2": _zero(), "y1": _zero(), "y2": _zero()}
+
+    @staticmethod
+    def process_seq(params, state, inputs):
+        # f32 division by a0 as in regenerate_filter (biquad.rs:64-71)
+        raw = [float(params[k]) for k in ("a0", "a1", "a2", "b0", "b1", "b2")]
+        a0 = np.float32(raw[0])
+        a1, a2, b0, b1, b2 = (np.float32(np.float32(v) / a0) for v in raw[1:])
+        y, (x1, x2, y1, y2) = biquad_df1(
+            inputs["in"], a1, a2, b0, b1, b2,
+            (state["x1"], state["x2"], state["y1"], state["y2"]))
+        return {"out": y}, {"x1": x1, "x2": x2, "y1": y1, "y2": y2}
+
+
+@register_node(
+    # The reference's LowPass declares cfg_name = "high_pass" (low_pass.rs:9)
+    # so its saves restore as HighPass over there (nodes/mod.rs:119).  We
+    # write the unambiguous name, which the reference RESTORE table also
+    # accepts (nodes/mod.rs:118); reads of "high_pass" resolve to HighPass
+    # here exactly as there.
+    title="Low Pass", cfg_name="low_pass",
+    description="Attenuates higher frequencies",
+    inputs=("in",), outputs=("out",),
+    params=(ParamSpec("ratio", 0.0, 1.0, 0.5),),
+)
+class LowPass:
+    """y[i] = x[i]*(1-r) + r*z; z = y[i] (low_pass.rs:36-41)."""
+
+    @staticmethod
+    def init_state(cfg, block_size):
+        return {"z": _zero()}
+
+    @staticmethod
+    def process_seq(params, state, inputs):
+        r = float(params["ratio"])
+        b = inputs["in"] * float(np.float32(1.0) - np.float32(r))
+        y = first_order_affine(r, b, state["z"])
+        return {"out": y}, {"z": y[..., -1]}
+
+
+@register_node(
+    title="High Pass", cfg_name="high_pass",
+    description="Attenuates lower frequencies",
+    inputs=("in",), outputs=("out",),
+    params=(ParamSpec("ratio", 0.0, 1.0, 0.5),),
+)
+class HighPass:
+    """z = x*(1-r) + r*z; y = x - z (high_pass.rs:36-41)."""
+
+    @staticmethod
+    def init_state(cfg, block_size):
+        return {"z": _zero()}
+
+    @staticmethod
+    def process_seq(params, state, inputs):
+        x = inputs["in"]
+        r = float(params["ratio"])
+        z = first_order_affine(
+            r, x * float(np.float32(1.0) - np.float32(r)), state["z"])
+        return {"out": x - z}, {"z": z[..., -1]}

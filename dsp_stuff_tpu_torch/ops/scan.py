@@ -1,0 +1,327 @@
+"""Linear-recurrence lowering: IIR filters as blocked Toeplitz solves.
+
+The reference evaluates all IIR state sequentially per sample on the CPU
+(one-pole smoothers low_pass.rs:36-41 / high_pass.rs:36-41, DirectForm1
+biquad biquad.rs:79-89).  Here a constant-coefficient recurrence splits
+into chunks of C = 128 samples: the zero-state response of every chunk is
+one triangular-Toeplitz matrix product, and only the chunk-end carries
+recur, over T/C elements (recursively blocked the same way).
+
+The precision policy picks the dtype of the whole solve: float32 under
+``fast`` (the constants are built in f64 NumPy and cast once, as in the
+JAX package), native float64 under ``parity``.  Coefficients are concrete
+Python floats; time-varying coefficients are not ported.  All functions
+take ``[..., T]`` tensors with any leading batch dimensions.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dsp_stuff_tpu_torch.utils.precision import get_policy
+
+# chunk length of the blocked solves: y_chunk = B @ Lt is a [K, C] @ [C, C]
+# product, ~C multiply-adds per sample
+_BLOCK_C = 128
+
+
+def policy_dtype() -> torch.dtype:
+    """The solve dtype of the current precision policy."""
+    return (torch.float64 if get_policy().scan_internal_dtype == "float64"
+            else torch.float32)
+
+
+def _np_dtype(dtype: torch.dtype):
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+def _const(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A NumPy constant as a tensor on ``like``'s device."""
+    return torch.as_tensor(arr, device=like.device)
+
+
+def _pad_last(x: torch.Tensor, pad: int) -> torch.Tensor:
+    return F.pad(x, (0, pad)) if pad else x
+
+
+@functools.lru_cache(maxsize=256)
+def scalar_power_toeplitz(a: float, n: int, row_ge_col: bool = False,
+                          dtype=np.float32):
+    """(pows [n+1], Lt [n, n], a^n) NumPy constants for a scalar ``a``.
+
+    Default orientation: Lt[j, i] = a^(i-j) for i >= j (column form, the
+    ``B @ Lt`` zero-state response); ``row_ge_col`` flips to
+    Lt[i, j] = a^(i-j) for i >= j.  Powers accumulate by cumulative product
+    in ``dtype`` (float32 for the fast policy, as in the JAX package)."""
+    i = np.arange(n)
+    pows = np.concatenate([np.ones(1, dtype),
+                           np.cumprod(np.full(n, a, dtype), dtype=dtype)])
+    diff = (i[:, None] - i[None, :]) if row_ge_col else \
+        (i[None, :] - i[:, None])
+    Lt = np.where(diff >= 0, pows[np.clip(diff, 0, n)], 0.0).astype(dtype)
+    return pows, Lt, pows[n]
+
+
+def first_order_affine(a, b, y0):
+    """y[t] = a * y[t-1] + b[t] along the last axis, y[-1] = y0.
+
+    ``a`` is a scalar (Python float or 0-d tensor); ``b`` is [..., T];
+    ``y0`` broadcasts to b[..., 0].  Returns y with b's shape, f32."""
+    if isinstance(a, torch.Tensor):
+        if a.dim():
+            raise NotImplementedError(
+                "first_order_affine: time-varying coefficients are not "
+                "ported; pass a scalar")
+        a = float(a)
+    b = torch.as_tensor(b, dtype=torch.float32)
+    y0 = torch.as_tensor(y0, dtype=torch.float32, device=b.device)
+    dt = policy_dtype()
+    y = _first_order_blocked(float(np.float32(a)), b.to(dt), y0.to(dt),
+                             dtype=dt)
+    return y.to(torch.float32)
+
+
+def _first_order_blocked(a: float, b, y0, C: int = _BLOCK_C, scale=1.0,
+                         dtype=torch.float32):
+    """Constant-coefficient first-order recurrence as matrix products.
+
+    ``scale`` solves  y[t] = a y[t-1] + scale b[t]  with the factor folded
+    into the tap constants.  Split T into K chunks of C.  Within a chunk
+    the zero-state response is
+
+        z[k, i] = sum_{j<=i} a^(i-j) b[k, j]  =  (B @ Lt)[k, i].
+
+    Chunk carries follow  e_k = a^C e_{k-1} + z[k, C-1], itself a
+    first-order recurrence of length K: solved recursively above C chunks,
+    by one Toeplitz product above 8, sequentially below.  The carry folds
+    back as  y[k, i] = z[k, i] + e_{k-1} a^(i+1)."""
+    npdt = _np_dtype(dtype)
+    b = b.to(dtype)
+    T = b.shape[-1]
+    batch = b.shape[:-1]
+    K = -(-T // C)
+    B = _pad_last(b, K * C - T).reshape(*batch, K, C)
+
+    pows, Lt, aC = scalar_power_toeplitz(a, C, False, npdt)
+    ends_taps = pows[C - 1::-1]
+    if scale != 1.0:
+        s = npdt(scale)
+        Lt = (Lt * s).astype(npdt)
+        ends_taps = (ends_taps * s).astype(npdt)
+
+    ends = B @ _const(np.ascontiguousarray(ends_taps), b)        # [..., K]
+    y0b = torch.as_tensor(y0, dtype=dtype, device=b.device).expand(batch)
+    aC = float(aC)
+    if K > C:
+        e = _first_order_blocked(aC, ends, y0b, C, dtype=dtype)
+    elif K > 8:
+        _, Lt2, _ = scalar_power_toeplitz(aC, K, False, npdt)
+        ends0 = ends.clone()
+        ends0[..., 0] += aC * y0b
+        e = ends0 @ _const(Lt2, b)
+    else:
+        prev = y0b
+        es = []
+        for k in range(K):
+            prev = aC * prev + ends[..., k]
+            es.append(prev)
+        e = torch.stack(es, dim=-1)
+    # carry INTO chunk k is e_{k-1} (y0 for k = 0)
+    carry_in = torch.cat([y0b[..., None], e[..., :-1]], dim=-1)  # [..., K]
+    y = B @ _const(Lt, b) + carry_in[..., :, None] * _const(pows[1:], b)
+    return y.reshape(*batch, K * C)[..., :T]
+
+
+def biquad_df1(x, a1, a2, b0, b1, b2, state=None):
+    """DirectForm1 biquad (biquad crate semantics, used by biquad.rs:79-89):
+
+        y[t] = b0*x[t] + b1*x[t-1] + b2*x[t-2] - a1*y[t-1] - a2*y[t-2]
+
+    ``state = (x1, x2, y1, y2)`` (previous inputs/outputs, defaults 0).
+    Returns (y, new_state).  Coefficients are concrete scalars, already
+    divided by a0.  Under ``fast`` the two degenerate forms take cheaper
+    paths: a1 == a2 == 0 is a 3-tap FIR, and a2 == b1 == b2 == 0 a scaled
+    first-order recurrence (the bench chain's biquad is this shape)."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    batch = x.shape[:-1]
+    if x.shape[-1] < 2:
+        raise ValueError("biquad_df1 needs T >= 2")
+    if state is None:
+        state = (0.0, 0.0, 0.0, 0.0)
+    state = tuple(torch.as_tensor(s, dtype=torch.float32, device=x.device)
+                  .expand(batch) for s in state)
+    cf = tuple(float(np.float32(c)) for c in (a1, a2, b0, b1, b2))
+    if policy_dtype() == torch.float32:
+        if cf[0] == 0.0 and cf[1] == 0.0:
+            return _biquad_pure_fir(x, cf, state)
+        if cf[1] == 0.0 and cf[3] == 0.0 and cf[4] == 0.0:
+            return _biquad_degenerate(x, cf, state)
+        return _biquad_blocked(x, cf, state, torch.float32)
+    return _biquad_blocked(x, cf, state, torch.float64)
+
+
+def _biquad_pure_fir(x, cf: tuple, state):
+    """DF1 biquad with a1 == a2 == 0: a pure 3-tap FIR with the carried
+    x-history prefix.  State layout matches the full biquad."""
+    _a1, _a2, b0, b1, b2 = cf
+    x1, x2, _y1, _y2 = state
+    if b1 == 0.0 and b2 == 0.0:
+        y = x * b0
+    else:
+        xp = torch.cat([x2[..., None], x1[..., None], x], dim=-1)
+        y = b0 * xp[..., 2:] + b1 * xp[..., 1:-1] + b2 * xp[..., :-2]
+    return y, (x[..., -1], x[..., -2], y[..., -1], y[..., -2])
+
+
+def _biquad_degenerate(x, cf: tuple, state):
+    """DF1 biquad with a2 == b1 == b2 == 0:  y[t] = b0 x[t] - a1 y[t-1],
+    the first-order blocked solve with b0 folded into its taps.  The
+    y-history seed y1 is the recurrence's y0."""
+    a1, _a2, b0, _b1, _b2 = cf
+    _x1, _x2, y1, _y2 = state
+    y = _first_order_blocked(float(np.float32(-np.float32(a1))), x, y1,
+                             scale=b0)
+    return y, (x[..., -1], x[..., -2], y[..., -1], y[..., -2])
+
+
+@functools.lru_cache(maxsize=128)
+def _biquad_ir(cf: tuple, C: int):
+    """(h [C+1], g [C+1]) f64: the recursive-part impulse response of
+    y[t] = -a1 y[t-1] - a2 y[t-2] and the numerator-folded response
+    g[t] = b0 h[t] + b1 h[t-1] + b2 h[t-2]."""
+    a1, a2, b0, b1, b2 = cf
+    h = np.empty(C + 1, np.float64)
+    h[0] = 1.0
+    hm1, hm2 = 1.0, 0.0
+    for t in range(1, C + 1):
+        cur = -a1 * hm1 - a2 * hm2
+        h[t] = cur
+        hm2, hm1 = hm1, cur
+    g = b0 * h
+    g[1:] += b1 * h[:-1]
+    g[2:] += b2 * h[:-2]
+    return h, g
+
+
+def _biquad_blocked(x, cf: tuple, state, dtype, C: int = _BLOCK_C):
+    """Second-order recurrence as blocked matrix products.
+
+    Per chunk of C: the zero-state response is one GEMM against the
+    Toeplitz of g (the numerator folded into the impulse response); each
+    chunk's first two outputs reach back two inputs into the previous
+    chunk (a rank-2 correction d0 h[i] + d1 h[i-1]); the chunk-end pair
+    drives the 2-vector boundary recurrence s_k = M s_{k-1} + w_k
+    (_vec2_recurrence), folded back as  s1 h[i+1] - a2 s2 h[i]."""
+    npdt = _np_dtype(dtype)
+    a1, a2, b0, b1, b2 = cf
+    x1, x2, y1, y2 = (s.to(dtype) for s in state)
+    T = x.shape[-1]
+    batch = x.shape[:-1]
+    h64, g64 = _biquad_ir(cf, C)
+    h = h64.astype(npdt)
+    g = g64.astype(npdt)
+
+    K = -(-T // C)
+    X = _pad_last(x.to(dtype), K * C - T).reshape(*batch, K, C)
+    hs = np.concatenate([np.zeros(1, npdt), h[:C - 1]])      # h[i-1], [C]
+
+    i = np.arange(C)
+    Ltg = np.where(i[:, None] <= i[None, :],
+                   g[np.clip(i[None, :] - i[:, None], 0, C)], 0.0).astype(npdt)
+    # one [C, 4] side product: chunk-end zero-state responses z[k, C-1] /
+    # z[k, C-2] and the raw samples x[k, C-1] / x[k, C-2] the next
+    # chunk's numerator reaches back to
+    S = np.zeros((C, 4), npdt)
+    S[:, 0] = g[C - 1 - np.arange(C)]
+    S[:C - 1, 1] = g[C - 2 - np.arange(C - 1)]
+    S[C - 1, 2] = 1.0
+    S[C - 2, 3] = 1.0
+    side = X @ _const(S, X)                                   # [..., K, 4]
+
+    xlast1 = torch.cat([x1[..., None], side[..., :-1, 2]], dim=-1)  # [..., K]
+    xlast2 = torch.cat([x2[..., None], side[..., :-1, 3]], dim=-1)
+    d0 = b1 * xlast1 + b2 * xlast2
+    d1 = b2 * xlast1
+    hC1, hC2, hC3 = float(h[C - 1]), float(h[C - 2]), float(h[C - 3])
+    w = torch.stack([side[..., :, 0] + d0 * hC1 + d1 * hC2,
+                     side[..., :, 1] + d0 * hC2 + d1 * hC3], dim=-1)
+
+    M_np = np.asarray([[h64[C], -a2 * h64[C - 1]],
+                       [h64[C - 1], -a2 * h64[C - 2]]]).astype(npdt)
+    s0 = torch.stack([y1, y2], dim=-1)                        # [..., 2]
+    w[..., 0, :] += torch.einsum("ij,...j->...i", _const(M_np, X), s0)
+    s = _vec2_recurrence(M_np, w)
+    # carry INTO chunk k is s_{k-1} (s0 for k = 0)
+    s_in = torch.cat([s0[..., None, :], s[..., :-1, :]], dim=-2)
+
+    y = (X @ _const(Ltg, X)
+         + s_in[..., :, 0:1] * _const(h[1:], X)
+         - a2 * s_in[..., :, 1:2] * _const(h[:-1], X)
+         + d0[..., :, None] * _const(h[:C], X)
+         + d1[..., :, None] * _const(hs, X))
+    y = y.reshape(*batch, K * C)[..., :T].to(torch.float32)
+    return y, (x[..., -1], x[..., -2], y[..., -1], y[..., -2])
+
+
+@functools.lru_cache(maxsize=64)
+def _power_tensor(M_bytes: bytes, n: int, C2: int, dtype):
+    """(Mpow [C2+1, n, n], Lt [C2, C2, n, n]) with Lt[j, i] = M^(i-j) for
+    j <= i: powers chained in f64, cast once to ``dtype``."""
+    M64 = np.frombuffer(M_bytes, dtype).reshape(n, n).astype(np.float64)
+    Mpow = np.empty((C2 + 1, n, n), np.float64)
+    Mpow[0] = np.eye(n)
+    for t in range(1, C2 + 1):
+        Mpow[t] = M64 @ Mpow[t - 1]
+    Mpow = Mpow.astype(dtype)
+    i = np.arange(C2)
+    Lt = np.where((i[:, None] <= i[None, :])[..., None, None],
+                  Mpow[np.clip(i[None, :] - i[:, None], 0, C2)],
+                  0.0).astype(dtype)
+    return Mpow, Lt
+
+
+def _vecn_recurrence(M_np: np.ndarray, w, C2: int = 128):
+    """s_k = M s_{k-1} + w_k with a constant [n, n] NumPy M, s_{-1} = 0,
+    w [..., K, n].  Within a chunk of C2 steps the zero-state response is
+    one product against the masked power tensor Lt[j, i] = M^(i-j); chunk
+    carries recurse.  Eight steps or fewer run sequentially."""
+    M_np = np.ascontiguousarray(M_np, _np_dtype(w.dtype))
+    n = M_np.shape[0]
+    K = w.shape[-2]
+    batch = w.shape[:-2]
+    if K <= 8:
+        M = _const(M_np, w)
+        prev = torch.zeros_like(w[..., 0, :])
+        out = []
+        for k in range(K):
+            prev = torch.einsum("ij,...j->...i", M, prev) + w[..., k, :]
+            out.append(prev)
+        return torch.stack(out, dim=-2)
+
+    KG = -(-K // C2)
+    pad = KG * C2 - K
+    wp = F.pad(w, (0, 0, 0, pad)) if pad else w
+    W = wp.reshape(*batch, KG, C2, n)
+    Mpow, Lt = _power_tensor(M_np.tobytes(), n, C2, M_np.dtype.type)
+    zs = torch.einsum("jiab,...kjb->...kia", _const(Lt, w), W)
+    ends = zs[..., :, C2 - 1, :]                            # [..., KG, n]
+    e = _vecn_recurrence(Mpow[C2], ends, C2)
+    carry_in = torch.cat([torch.zeros_like(e[..., :1, :]), e[..., :-1, :]],
+                         dim=-2)
+    s = zs + torch.einsum("iab,...kb->...kia", _const(Mpow[1:], w), carry_in)
+    return s.reshape(*batch, KG * C2, n)[..., :K, :]
+
+
+def _vec2_recurrence(M_np: np.ndarray, w, C2: int = 128):
+    """s_k = M s_{k-1} + w_k for a constant [2, 2] M: the biquad's
+    boundary chain.  The JAX package keeps a separate traced-M solver
+    here; the port's coefficients are always concrete, so this is the
+    n-dim solver at n = 2."""
+    if np.shape(M_np) != (2, 2):
+        raise ValueError(f"_vec2_recurrence needs a [2, 2] M, got "
+                         f"{np.shape(M_np)}")
+    return _vecn_recurrence(M_np, w, C2)

@@ -1,0 +1,150 @@
+"""The port's framework-free core (dsp_stuff_tpu_torch ids / registry /
+graph) against the JAX package's: the same graph JSON byte for byte,
+loadable in either direction, and a clear error for node types the port
+does not implement yet.  Also pins that the port never imports JAX."""
+
+import dataclasses
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import dsp_stuff_tpu as dj
+import dsp_stuff_tpu_torch as dt
+from dsp_stuff_tpu.ids import IdSpace as JIdSpace
+from dsp_stuff_tpu_torch.ids import IdSpace as TIdSpace
+from dsp_stuff_tpu_torch.registry import NOT_PORTED
+from dsp_stuff_tpu_torch.utils import precision as tprec
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def _torch_env():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    prev = tprec.get_policy()
+    yield
+    tprec.set_policy(prev)
+    torch.set_num_threads(threads)
+
+
+def _bench_chain(pkg, ids):
+    """bench.py's 10-node chain (bench.py:100-114)."""
+    g = pkg.Graph(ids)
+    inp = g.add("input")
+    gn = g.add("gain", level=1.2)
+    bq = g.add("biquad", a0=1.0, a1=-0.24, a2=0.0, b0=0.758, b1=0.0, b2=0.0)
+    od = g.add("overdrive", boost=4.0, drive=0.6, level=0.9)
+    lp = g.add("low_pass", ratio=0.6)
+    hp = g.add("high_pass", ratio=0.2)
+    ds = g.add("distort", mode="Tanh", level=3.0)
+    ch = g.add("chebyshev", level_pos=2.0, level_neg=4.0)
+    rv = g.add("reverb", seconds=0.05, decay=0.4)
+    out = g.add("output")
+    g.chain(inp, gn, bq, od, lp, hp, ds, ch, rv, out)
+    return g
+
+
+def _config1(pkg, ids):
+    """models/presets.config1_gain_biquad, built with ``pkg``."""
+    g = pkg.Graph(ids)
+    inp = g.add("input")
+    gn = g.add("gain", level=1.5)
+    w0 = 2 * np.pi * 1000.0 / 48_000.0
+    alpha = np.sin(w0) / (2 * 0.7071)
+    cw = np.cos(w0)
+    bq = g.add("biquad", a0=1 + alpha, a1=-2 * cw, a2=1 - alpha,
+               b0=(1 - cw) / 2, b1=1 - cw, b2=(1 - cw) / 2)
+    out = g.add("output")
+    g.chain(inp, gn, bq, out)
+    return g
+
+
+BUILDERS = {"bench_chain": _bench_chain, "config1": _config1}
+
+
+@pytest.mark.parametrize("name", sorted(BUILDERS))
+def test_dumps_byte_identical(name):
+    build = BUILDERS[name]
+    text_j = dj.dumps_graph(build(dj, JIdSpace()))
+    text_t = dt.dumps_graph(build(dt, TIdSpace()))
+    assert text_t == text_j
+
+
+def test_config1_matches_jax_preset():
+    from dsp_stuff_tpu.models import presets
+    g, _ = presets.config1_gain_biquad()
+    assert dt.dumps_graph(_config1(dt, TIdSpace())) == dj.dumps_graph(g)
+
+
+@pytest.mark.parametrize("name", sorted(BUILDERS))
+@pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
+def test_json_loads_in_other_package(name, direction):
+    build = BUILDERS[name]
+    if direction == "jax_to_torch":
+        text = dj.dumps_graph(build(dj, JIdSpace()))
+        g = dt.loads_graph(text, ids=TIdSpace())
+        again = dt.dumps_graph(g)
+    else:
+        text = dt.dumps_graph(build(dt, TIdSpace()))
+        g = dj.loads_graph(text, ids=JIdSpace())
+        again = dj.dumps_graph(g)
+    assert again == text
+    assert sorted(g.nodes) == sorted(int(n["id"]) for n in
+                                     json.loads(text)["nodes"])
+
+
+@pytest.mark.parametrize("typename", sorted(NOT_PORTED))
+def test_unported_node_type_raises(typename):
+    """Every JAX node type the port lacks is named as not ported, both
+    when added by hand and when read from JSON the JAX package wrote."""
+    assert typename in dj.REGISTRY and typename not in dt.REGISTRY
+    with pytest.raises(KeyError, match="not ported"):
+        dt.Graph(TIdSpace()).add(typename)
+    g = dj.Graph(JIdSpace())
+    g.add(typename)
+    with pytest.raises(KeyError, match="not ported"):
+        dt.loads_graph(dj.dumps_graph(g), ids=TIdSpace())
+
+
+def test_port_registry_covers_jax_registry():
+    """Ported + not ported == the JAX package's node types."""
+    jax_names = {s.cfg_name for s in dj.REGISTRY}
+    port_names = {s.cfg_name for s in dt.REGISTRY}
+    assert port_names | NOT_PORTED == jax_names
+    assert not port_names & NOT_PORTED
+    for spec in dt.REGISTRY:
+        js = dj.REGISTRY.by_cfg_name(spec.cfg_name)
+        assert (spec.title, spec.inputs, spec.outputs) == \
+            (js.title, js.inputs, js.outputs)
+        assert [(type(p).__name__, dataclasses.astuple(p))
+                for p in spec.params] == \
+            [(type(p).__name__, dataclasses.astuple(p)) for p in js.params]
+
+
+def test_unknown_node_type_raises():
+    with pytest.raises(KeyError, match="unknown node typename"):
+        dt.loads_graph('{"nodes": [{"id": 0, "typename": "nope", "cfg": {}}],'
+                       ' "links": []}', ids=TIdSpace())
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, dsp_stuff_tpu_torch; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'dsp_stuff_tpu' or "
+            "m.startswith('dsp_stuff_tpu.')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_no_jax_import_in_port_sources():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|dsp_stuff_tpu)\b", re.M)
+    for path in (ROOT / "dsp_stuff_tpu_torch").rglob("*.py"):
+        assert not pat.search(path.read_text()), path
