@@ -3,19 +3,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from csrc/ with nvcc, holds it against its
-plain PyTorch version on the card, drives the port's main path (the
-10-node bench chain over 512 streams x 10 s at 48 kHz through
-``compile_graph(..., device="cuda")`` and ``render``), checks the output
-against the repo's NumPy oracle, checks the state handoff and the parity
-policy, and times the kernel against the plain version.  Every phase
-raises on failure.  Needs a CUDA device; imports nothing of JAX.
+Builds the port's three CUDA kernels from csrc/ with nvcc (one nvcc per
+source, all started together) and holds each against its plain PyTorch
+version on the card: the chain kernel (with its mtap stage), the cycle
+kernel and the envelope kernel (chunked and sequential).  Then it drives
+the port's two main paths through ``compile_graph(..., device="cuda")``
+and ``render``:
+
+* the 10-node bench chain over 512 streams x 10 s at 48 kHz, with the
+  chain kernel's launch count, the NumPy oracle, the state handoff and
+  the parity policy;
+* config5, the 16-node feedback graph (models/presets.py), over 128
+  streams x 10 s, with each kernel's launch count, the composed NumPy
+  oracle, a 2 x 5 s handoff and the parity policy (4 streams x 1 s, the
+  sequential envelope kernel's path, where that kernel is also held
+  against its plain version at that shape);
+
+and times every kernel against its plain version and the whole config5
+render at 128 and 512 streams.  Every phase raises on failure.  Needs a
+CUDA device; imports nothing of JAX.
 
 Output: progress lines, then one JSON line with the per-kernel record,
 then the card's identity as the last line.  Error figures are in dBFS:
 20 log10(max |got - want| / max |want|).
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -35,6 +48,8 @@ ORACLE_FAST_DB = -80.0    # main path (fast) vs the oracle
 HANDOFF_DB = -100.0       # two chained renders vs one
 PARITY_DB = -90.0         # parity policy vs the oracle (README bound)
 N_TIMED = 5
+N_TIMED_SLOW = 2          # plain versions that loop over time in Python
+B_C5, B_C5_WIDE = 128, 512
 
 
 def dbfs(got, want) -> float:
@@ -84,20 +99,49 @@ def check_lists():
     return lists
 
 
-def seeded_states(stages, B, rng, device):
+def planned_stages(graph):
+    """(stages, lfos) of the graph's one chain segment, as the planner
+    builds it under the fast policy: lfos holds the chorus LFO (rate Hz,
+    depth s, base s) of each mtap stage, in stage order."""
+    import dsp_stuff_tpu_torch as dst
+    cg = dst.compile_graph(graph, device="cpu")
+    (run,) = cg._mega_plan
+    with dst.policy("fast"):
+        stages, specs = cg._mega_stages(run, None)[:2]
+    return stages, tuple(sp[2:5] for sp in specs if sp[0] == "mtap")
+
+
+def mtap_lists():
+    """The planner's (stages, lfos) around a chorus: config2's reverb ->
+    chorus -> gain and config5's high_pass -> chorus."""
+    from dsp_stuff_tpu_torch.models import presets
+    return {f"mtap {name}": planned_stages(build()[0])
+            for name, build in (("config2", presets.config2_delay_chorus),
+                                ("config5", presets.config5_feedback_16node))}
+
+
+def seeded_states(stages, B, rng, device, T=None, t0=1280, lfos=()):
+    """Random per-stream states for a stage list; an mtap stage also gets
+    its shared trajectory operands, from its entry of ``lfos`` (see
+    planned_stages), for a render of T samples from t0."""
     import torch
+    from dsp_stuff_tpu_torch.ops import modfx
     from dsp_stuff_tpu_torch.ops.cascade import _embed_dim, composite_dim
+    lfos = iter(lfos)
     out = []
     for st in stages:
         if st[0] == "cascade":
             n = _embed_dim(composite_dim(st[1]))
-        elif st[0] == "comb":
+        elif st[0] in ("comb", "mtap"):
             n = st[2]
         else:
             continue
         out.append(torch.as_tensor(
             (rng.standard_normal((B, n)) * 0.1).astype(np.float32),
             device=device))
+        if st[0] == "mtap":
+            out.extend(modfx.mtap_shared(*next(lfos), st[2], T, t0,
+                                         device=device))
     return tuple(out)
 
 
@@ -131,6 +175,209 @@ def compare(name, k, p):
     check(tap_db <= Y_BOUND_DB, f"{name}: taps {tap_db:.1f} dBFS")
     check(st_err <= STATE_ATOL, f"{name}: states {st_err:.2e} > {STATE_ATOL}")
     return y_db, abs_err
+
+
+def compare_cycle(name, k, p):
+    """Cycle kernel outputs ``k`` (taps, regs, cinfos, hists) against
+    interpret's ``p``; returns the largest absolute tap error."""
+    tap_db = max(dbfs(host(a), host(b)) for a, b in zip(k[0], p[0]))
+    st_err = 0.0
+    for a, b in zip(k[1], p[1]):
+        st_err = max(st_err, float(np.abs(host(a) - host(b)).max()))
+    for ik, ip in zip(k[2], p[2]):
+        for a, b in zip(ik, ip):
+            st_err = max(st_err, float(np.abs(host(a) - host(b)).max()))
+    for a, b in zip(k[3], p[3]):
+        st_err = max(st_err, float(np.abs(host(a) - host(b)).max()))
+    abs_err = max(float(np.abs(host(a) - host(b)).max())
+                  for a, b in zip(k[0], p[0]))
+    print(f"  {name:22s} taps {tap_db:8.1f} dBFS  regs+states max abs "
+          f"{st_err:.2e}")
+    check(all(len(a) == len(b) for a, b in zip(k, p)),
+          f"{name}: output structure differs")
+    check(tap_db <= Y_BOUND_DB, f"{name}: taps {tap_db:.1f} dBFS")
+    check(st_err <= STATE_ATOL, f"{name}: states {st_err:.2e} > {STATE_ATOL}")
+    return abs_err
+
+
+def compare_env(name, k, p):
+    """Envelope kernel (env, final) against the plain version's."""
+    y_db = dbfs(host(k[0]), host(p[0]))
+    st_err = float(np.abs(host(k[1]) - host(p[1])).max())
+    abs_err = float(np.abs(host(k[0]) - host(p[0])).max())
+    print(f"  {name:22s} y {y_db:8.1f} dBFS  final max abs {st_err:.2e}")
+    check(y_db <= Y_BOUND_DB, f"{name}: y {y_db:.1f} dBFS > {Y_BOUND_DB}")
+    check(st_err <= STATE_ATOL, f"{name}: final {st_err:.2e}")
+    return abs_err
+
+
+def handoff(cg, x, name):
+    """Two chained renders of the halves of ``x`` [B, 1, T] against one
+    render of the whole, under the current policy."""
+    import torch
+    B, half = x.shape[0], x.shape[-1] // 2
+    full, _, _ = cg.render(x, batch_shape=(B,))
+    a, _, st = cg.render(x[..., :half].contiguous(), batch_shape=(B,))
+    b, _, _ = cg.render(x[..., half:].contiguous(), state=st,
+                        batch_shape=(B,))
+    d = dbfs(host(torch.cat([a, b], dim=-1)), host(full))
+    print(f"{name} state handoff, B={B}: 2 x {half / SR:g} s vs "
+          f"{2 * half / SR:g} s: {d:.1f} dBFS")
+    check(d <= HANDOFF_DB, f"{name} state handoff {d:.1f} dBFS")
+
+
+def parity(graph, xp, oracle, name):
+    """Render ``xp`` [B, 1, T] (NumPy) under the parity policy on the card
+    and hold each stream against ``oracle``; returns the kernel launches
+    of that render."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    with dst.policy("parity"):
+        cgp = dst.compile_graph(graph, device="cuda")
+        reset_launches()
+        yp, _, _ = cgp.render(xp, batch_shape=(len(xp),))
+        torch.cuda.synchronize()
+        launches = read_launches()
+    worst = max(dbfs(host(yp[i, 0]), oracle(xp[i, 0]))
+                for i in range(len(xp)))
+    print(f"{name} parity, B={len(xp)} x {xp.shape[-1] / SR:g} s vs "
+          f"{oracle.__name__}: {worst:.1f} dBFS, launches {launches}")
+    check(worst <= PARITY_DB, f"{name} parity {worst:.1f} dBFS > "
+                              f"{PARITY_DB}")
+    return launches
+
+
+def loop_graph():
+    """input -> add -> distort -> reverb -> low_pass -> gain -> add (the
+    back edge), the reverb also to the output."""
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ids import IdSpace
+    g = dst.Graph(IdSpace())
+    inp = g.add("input")
+    mixa = g.add("add")
+    ds = g.add("distort", mode="SoftClip", level=2.0)
+    rv = g.add("reverb", seconds=0.004, decay=0.5)
+    lp = g.add("low_pass", ratio=0.4)
+    fbg = g.add("gain", level=0.45)
+    out = g.add("output")
+    g.connect(inp, "out", mixa, "a")
+    g.chain(mixa, ds, rv, lp, fbg)
+    g.connect(fbg, "out", mixa, "b")
+    g.connect(rv, "out", out, "in")
+    return g
+
+
+def cycle_program(graph):
+    """(program, n_taps) the planner lowers the graph's one SCC to."""
+    import dsp_stuff_tpu_torch as dst
+    cg = dst.compile_graph(graph, device="cpu")
+    comp = next(c for c in cg._sccs if len(c) > 1)
+    with dst.policy("fast"):
+        program, _, _, taps, _ = cg._cycle_program(comp, None)
+    return program, len(taps)
+
+
+def cycle_inputs(program, B, T, rng, device):
+    import torch
+    from dsp_stuff_tpu_torch.ops import cycle_segment
+    from dsp_stuff_tpu_torch.ops.cascade import _embed_dim, composite_dim
+    _, _, n_r, _, n_e = cycle_segment._program_counts(program)
+
+    def t(*shape, scale):
+        return torch.as_tensor((rng.standard_normal(shape) * scale)
+                               .astype(np.float32), device=device)
+
+    exts = tuple(t(B, T, scale=0.3) for _ in range(n_e))
+    regs = tuple(t(B, 128, scale=0.1) for _ in range(n_r))
+    states = []
+    for ins in program:
+        if ins[0] == "cascade":
+            states.append(t(B, _embed_dim(composite_dim(ins[1])), scale=0.1))
+        elif ins[0] == "comb":
+            states.append(t(B, ins[2], scale=0.1))
+    return exts, regs, tuple(states)
+
+
+def cycle_kernel_run(exts, regs, states, program, n_taps):
+    from dsp_stuff_tpu_torch.ops import cycle_kernel, cycle_segment
+    taps, regs_f, casc_raw, ring_raw = cycle_kernel.cycle_kernel_call(
+        exts, regs, states, program, n_taps)
+    cinfos, hists = cycle_segment.rebuild(program, exts[0].shape[-1],
+                                          casc_raw, ring_raw)
+    return taps, regs_f, cinfos, hists
+
+
+def oracle_config5(x):
+    """The composed NumPy oracle of config5 (tests/oracle per-node
+    semantics; the feedback SCC per 128-block with the back edge reading
+    the previous block), as tests/test_presets.py composes it."""
+    import oracle
+    F32 = np.float32
+    h = oracle.fanin_average
+    T = len(x)
+    pre = (h([x]) * F32(1.2)).astype(F32)
+    lfo, _ = oracle.signal_gen("Sine", 0.6, 0.5, T)
+    drive = oracle.mod_map(h([lfo]), 0.0, 1.0)
+    od = oracle.overdrive(h([pre]), 6.0, drive, 0.8)
+    dist = oracle.soft_clip(h([od]), 4.0)
+    ring = np.zeros(int(F32(0.15) * F32(48000.0)), F32)
+    z_lp = F32(0.0)
+    prev_fbg = np.zeros(128, F32)
+    rv_seq = np.empty(T, F32)
+    for b in range(0, T, 128):
+        mixa = (h([dist[b:b + 128]]) + h([prev_fbg])).astype(F32)
+        rv, ring = oracle.reverb(h([mixa]), 0.15, 0.5, ring)
+        lp, z_lp = oracle.low_pass(h([rv]), 0.4, z_lp)
+        prev_fbg = (h([lp]) * F32(0.45)).astype(F32)
+        rv_seq[b:b + 128] = rv
+    hp, _ = oracle.high_pass(h([rv_seq]), 0.05)
+    ch, _, _ = oracle.chorus(h([hp]), 1.2, 0.003, 0.008, 0.4)
+    a, bb, r = h([pre]), h([ch]), F32(0.6)
+    mx = ((bb * r).astype(F32) + (a * F32(F32(1.0) - r)).astype(F32)
+          ).astype(F32)
+    env, _ = oracle.envelope(h([mx]), 50.0, 400.0)
+    bq, _ = oracle.biquad_df1(h([env]), 1.0, -0.2, 0.0, 0.8, 0.0, 0.0)
+    return h([bq])
+
+
+def reset_launches():
+    from dsp_stuff_tpu_torch.ops import (chain_kernel, cycle_kernel,
+                                         envelope_kernel)
+    for m in (chain_kernel, cycle_kernel, envelope_kernel):
+        m.LAUNCHES = 0
+
+
+def read_launches():
+    from dsp_stuff_tpu_torch.ops import (chain_kernel, cycle_kernel,
+                                         envelope_kernel)
+    return {"chain": chain_kernel.LAUNCHES, "cycle": cycle_kernel.LAUNCHES,
+            "envelope": envelope_kernel.LAUNCHES}
+
+
+@contextlib.contextmanager
+def plain_versions_counted(counts: dict):
+    """Count calls of the kernels' plain versions while the block runs
+    (the main path on the card must call none of them)."""
+    from dsp_stuff_tpu_torch.ops import (chain_segment, cycle_segment,
+                                         envelope)
+    targets = [(chain_segment, "segment_fallback"),
+               (cycle_segment, "interpret"), (envelope, "_chunked_batched"),
+               (envelope, "_seq_scan")]
+    saved = [(m, n, getattr(m, n)) for m, n in targets]
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **k)
+        return wrapped
+
+    for m, n, fn in saved:
+        setattr(m, n, counting(n, fn))
+    try:
+        yield counts
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
 
 
 def bench_graph():
@@ -176,7 +423,10 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import dsp_stuff_tpu_torch as dst
-    from dsp_stuff_tpu_torch.ops import chain_kernel, chain_segment
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.ops import (chain_segment, cuda_build,
+                                         cycle_segment, envelope,
+                                         envelope_kernel)
     from bench import oracle_chain
 
     dev = torch.device("cuda", 0)
@@ -189,44 +439,96 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    # -- 2. build --------------------------------------------------------
+    # -- 2. build: one nvcc per kernel source, all started together -------
     t0 = time.time()
-    lib, log = chain_kernel.build()
-    print(f"nvcc build: {time.time() - t0:.1f} s -> {os.path.relpath(lib, ROOT)}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    built = cuda_build.build()
+    print(f"nvcc build of {len(built)} kernels: {time.time() - t0:.1f} s")
+    for name, (lib, log) in built.items():
+        print(f"  {name} -> {os.path.relpath(lib, ROOT)}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
 
     rng = np.random.default_rng(0)
+    # the new kernels' checks draw from their own generator, so the bench
+    # chain's phases see the same inputs as before they existed
+    rng5 = np.random.default_rng(5)
+    rec = {}
     with dst.policy("fast"):
-        # -- 3. kernel against plain on the card -------------------------
-        print(f"kernel vs segment_fallback, B={B_CHECK}, T={T_CHECK}:")
+        # -- 3. each kernel against its plain version on the card ---------
+        print(f"chain kernel vs segment_fallback, B={B_CHECK}, T={T_CHECK}:")
         for name, stages in check_lists().items():
             x = torch.as_tensor((rng.standard_normal((B_CHECK, T_CHECK))
                                  * 0.3).astype(np.float32), device=dev)
-            st = seeded_states(stages, B_CHECK, rng, dev)
+            st = seeded_states(stages, B_CHECK, rng, dev, T=T_CHECK)
+            k = kernel_segment(x, stages, st)
+            p = chain_segment.segment_fallback(x, stages, st)
+            torch.cuda.synchronize()
+            compare(name, k, p)
+        for name, (stages, lfos) in mtap_lists().items():
+            x = torch.as_tensor((rng5.standard_normal((B_CHECK, T_CHECK))
+                                 * 0.3).astype(np.float32), device=dev)
+            st = seeded_states(stages, B_CHECK, rng5, dev, T=T_CHECK,
+                               lfos=lfos)
             k = kernel_segment(x, stages, st)
             p = chain_segment.segment_fallback(x, stages, st)
             torch.cuda.synchronize()
             compare(name, k, p)
 
-        # -- 4. the main path --------------------------------------------
+        print(f"cycle kernel vs cycle_segment.interpret, B={B_CHECK}, "
+              f"T={T_CHECK}:")
+        programs = {"config5": cycle_program(
+                        presets.config5_feedback_16node()[0]),
+                    "loop graph": cycle_program(loop_graph())}
+        for name, (program, n_taps) in programs.items():
+            ins = cycle_inputs(program, B_CHECK, T_CHECK, rng5, dev)
+            k = cycle_kernel_run(*ins, program, n_taps)
+            p = cycle_segment.interpret(*ins, program, n_taps)
+            torch.cuda.synchronize()
+            compare_cycle(name, k, p)
+
+        atk = envelope.gain_from_frames(50.0)
+        rel = envelope.gain_from_frames(400.0)
+        print("envelope kernel vs plain:")
+        xe = torch.as_tensor((rng5.standard_normal((B_CHECK, T_CHECK))
+                              * 0.5).astype(np.float32), device=dev)
+        e0 = torch.as_tensor(rng5.random(B_CHECK).astype(np.float32),
+                             device=dev)
+        seq_k = envelope_kernel.peak_envelope_cuda(xe, atk, rel, e0,
+                                                   chunk=T_CHECK)
+        seq_p = envelope._seq_scan(xe, atk, rel, e0)
+        torch.cuda.synchronize()
+        compare_env(f"sequential B={B_CHECK} T={T_CHECK}", seq_k, seq_p)
+        xc = torch.as_tensor((rng5.standard_normal((B_C5, T_MAIN)) * 0.5)
+                             .astype(np.float32), device=dev)
+        ec0 = torch.as_tensor(rng5.random(B_C5).astype(np.float32),
+                              device=dev)
+        ch_k = envelope_kernel.peak_envelope_cuda(xc, atk, rel, ec0,
+                                                  chunk=envelope._CHUNK)
+        ch_p = envelope._chunked_batched(xc, atk, rel, ec0, envelope._CHUNK)
+        torch.cuda.synchronize()
+        rec["chunk_err"] = compare_env(f"chunked B={B_C5} T={T_MAIN}",
+                                       ch_k, ch_p)
+        del ch_k, ch_p, seq_k, seq_p
+
+        # -- 4. the bench chain's main path -------------------------------
         g = bench_graph()
         cg = dst.compile_graph(g, device="cuda")
         x_np = (rng.standard_normal((B_MAIN, 1, T_MAIN), dtype=np.float32)
                 * np.float32(0.25))
         x = torch.as_tensor(x_np, device=dev)
         torch.cuda.synchronize()
-        chain_kernel.LAUNCHES = 0
+        reset_launches()
         t0 = time.time()
         outs, _aux, _state = cg.render(x, batch_shape=(B_MAIN,))
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = chain_kernel.LAUNCHES
-        print(f"main path: render [{B_MAIN}, 1, {T_MAIN}] in {wall:.3f} s "
-              f"(first call), chain kernel launches {launches}")
-        check(launches == 1, f"main path launched the kernel {launches} "
-                             f"times, expected 1")
+        bench_launches = read_launches()
+        print(f"main path (bench chain): render [{B_MAIN}, 1, {T_MAIN}] in "
+              f"{wall:.3f} s (first call), launches {bench_launches}")
+        check(bench_launches == {"chain": 1, "cycle": 0, "envelope": 0},
+              f"bench chain launched {bench_launches}, expected one chain "
+              f"kernel launch")
         check(tuple(outs.shape) == (B_MAIN, 1, T_MAIN),
               f"output shape {tuple(outs.shape)}")
         check(bool(torch.isfinite(outs).all()), "main path output not finite")
@@ -237,29 +539,12 @@ def main() -> int:
         del outs, _state
 
         # -- 5. state handoff ---------------------------------------------
-        xh = x[:B_CHECK]
-        full, _, _ = cg.render(xh, batch_shape=(B_CHECK,))
-        half = T_MAIN // 2
-        a, _, st = cg.render(xh[..., :half].contiguous(),
-                             batch_shape=(B_CHECK,))
-        b, _, _ = cg.render(xh[..., half:].contiguous(), state=st,
-                            batch_shape=(B_CHECK,))
-        d = dbfs(host(torch.cat([a, b], dim=-1)), host(full))
-        print(f"state handoff, B={B_CHECK}: 2 x 5 s vs 10 s: {d:.1f} dBFS")
-        check(d <= HANDOFF_DB, f"state handoff {d:.1f} dBFS")
-        del full, a, b, st
+        handoff(cg, x[:B_CHECK], "bench chain")
 
     # -- 6. parity on the card ----------------------------------------------
-    with dst.policy("parity"):
-        cgp = dst.compile_graph(g, device="cuda")
-        xp = x_np[:4, :, :SR]
-        yp, _, _ = cgp.render(xp, batch_shape=(4,))
-        worst = max(dbfs(host(yp[i, 0]), oracle_chain(xp[i, 0]))
-                    for i in range(4))
-        print(f"parity, B=4 x 1 s vs bench.oracle_chain: {worst:.1f} dBFS")
-        check(worst <= PARITY_DB, f"parity {worst:.1f} dBFS > {PARITY_DB}")
+    parity(g, x_np[:4, :, :SR], oracle_chain, "bench chain")
 
-    # -- 7. times -------------------------------------------------------------
+    # -- 7. times of the chain kernel (bench stage list) ----------------------
     with dst.policy("fast"):
         stages = bench_stages()
         xs = x.reshape(B_MAIN, T_MAIN)
@@ -281,13 +566,151 @@ def main() -> int:
         print(f"{what}: {t:.3f} ms median of {N_TIMED} = "
               f"{audio_s / (t / 1e3):,.0f} audio-s/s at B={B_MAIN} x 10 s "
               f"[{card}]")
+    del x, xs, st
 
-    print(json.dumps({"kernels": [{
-        "name": "chain_kernel", "route": "cuda",
-        "source": "dsp_stuff_tpu_torch/csrc/chain_kernel.cu",
-        "replaces": "dsp_stuff_tpu/ops/pallas_chain.py:459",
-        "launches": launches, "max_abs_err": abs_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    # -- 8. config5's main path ---------------------------------------------
+    g5, meta5 = presets.config5_feedback_16node()
+    x5_np = (rng5.standard_normal((B_C5, 1, T_MAIN), dtype=np.float32)
+             * np.float32(0.3))
+    x5 = torch.as_tensor(x5_np, device=dev)
+    with dst.policy("fast"):
+        cg5 = dst.compile_graph(g5, device="cuda")
+        torch.cuda.synchronize()
+        plain = {}
+        reset_launches()
+        t0 = time.time()
+        with plain_versions_counted(plain):
+            y5, aux5, _ = cg5.render(x5, batch_shape=(B_C5,))
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        c5_launches = read_launches()
+        print(f"main path (config5): render [{B_C5}, 1, {T_MAIN}] in "
+              f"{wall:.3f} s (first call), launches {c5_launches}, plain "
+              f"versions called {plain}")
+        check(not plain, f"config5's main path called plain versions "
+                         f"{plain}")
+        check(c5_launches == {"chain": 1, "cycle": 1, "envelope": 2},
+              f"config5 launched {c5_launches}, expected one chain (mtap) "
+              f"and one cycle launch and the two chunked envelope passes")
+        check(tuple(y5.shape) == (B_C5, 1, T_MAIN),
+              f"config5 output shape {tuple(y5.shape)}")
+        check(bool(torch.isfinite(y5).all()), "config5 output not finite")
+        cols = aux5[f"spectrogram:{meta5['spectrogram']}"]["columns"]
+        check(tuple(cols.shape[:2]) == (B_C5, 250)
+              and bool(torch.isfinite(cols).all()),
+              f"config5 spectrogram columns {tuple(cols.shape)}")
+        d = dbfs(host(y5[0, 0, :SR]), oracle_config5(x5_np[0, 0, :SR]))
+        print(f"  stream 0, first second vs the composed oracle: "
+              f"{d:.1f} dBFS")
+        check(d <= ORACLE_FAST_DB, f"config5 vs oracle {d:.1f} dBFS")
+        del y5, aux5, cols
+
+        # -- 9. config5 state handoff -------------------------------------
+        handoff(cg5, x5[:B_CHECK], "config5")
+
+    # -- 10. config5 parity (the sequential envelope kernel's path) -----------
+    par_launches = parity(g5, x5_np[:4, :, :SR], oracle_config5, "config5")
+    check(par_launches == {"chain": 0, "cycle": 0, "envelope": 1},
+          f"config5 parity launched {par_launches}, expected one "
+          f"sequential envelope launch")
+    # the sequential kernel against _seq_scan at the shape that path gives
+    # it (its own generator: the later phases' inputs stay as they were)
+    rng10 = np.random.default_rng(10)
+    xs_env = torch.as_tensor((rng10.standard_normal((4, SR)) * 0.5)
+                             .astype(np.float32), device=dev)
+    es0 = torch.as_tensor(rng10.random(4).astype(np.float32), device=dev)
+    seq_k = envelope_kernel.peak_envelope_cuda(xs_env, atk, rel, es0,
+                                               chunk=SR)
+    seq_p = envelope._seq_scan(xs_env, atk, rel, es0)
+    torch.cuda.synchronize()
+    rec["seq_err"] = compare_env(f"sequential B=4 T={SR}", seq_k, seq_p)
+    del seq_k, seq_p
+
+    # -- 11. times: each kernel against its plain version, and config5 --------
+    with dst.policy("fast"):
+        times = {}                 # (kernel ms, plain ms) by kernel
+        stages5, lfos5 = planned_stages(g5)
+        x5r = x5.reshape(B_C5, T_MAIN)
+        st5 = seeded_states(stages5, B_C5, rng5, dev, T=T_MAIN, lfos=lfos5)
+        k = kernel_segment(x5r, stages5, st5)
+        p = chain_segment.segment_fallback(x5r, stages5, st5)
+        torch.cuda.synchronize()
+        print(f"kernel vs segment_fallback, B={B_C5}, T={T_MAIN}:")
+        _, mtap_err = compare("mtap config5 (main-path shape)", k, p)
+        del k, p
+        times["chain_mtap"] = (
+            cuda_ms(lambda: kernel_segment(x5r, stages5, st5)),
+            cuda_ms(lambda: chain_segment.segment_fallback(x5r, stages5,
+                                                           st5)))
+        program, n_taps = programs["config5"]
+        ins = cycle_inputs(program, B_C5, T_MAIN, rng5, dev)
+        k = cycle_kernel_run(*ins, program, n_taps)
+        p = cycle_segment.interpret(*ins, program, n_taps)
+        torch.cuda.synchronize()
+        print(f"cycle kernel vs interpret, B={B_C5}, T={T_MAIN}:")
+        cycle_err = compare_cycle("config5 (main-path shape)", k, p)
+        del k, p
+        times["cycle"] = (
+            cuda_ms(lambda: cycle_kernel_run(*ins, program, n_taps)),
+            cuda_ms(lambda: cycle_segment.interpret(*ins, program, n_taps),
+                    N_TIMED_SLOW))
+        del ins
+        times["env_chunk"] = (
+            cuda_ms(lambda: envelope_kernel.peak_envelope_cuda(
+                xc, atk, rel, ec0, chunk=envelope._CHUNK)),
+            cuda_ms(lambda: envelope._chunked_batched(
+                xc, atk, rel, ec0, envelope._CHUNK), N_TIMED_SLOW))
+        times["env_seq"] = (
+            cuda_ms(lambda: envelope_kernel.peak_envelope_cuda(
+                xs_env, atk, rel, es0, chunk=SR)),
+            cuda_ms(lambda: envelope._seq_scan(xs_env, atk, rel, es0),
+                    N_TIMED_SLOW))
+        del xc, xs_env
+        render5_ms = cuda_ms(lambda: cg5.render(x5, batch_shape=(B_C5,)))
+        del x5r, st5
+        x5w = torch.as_tensor(
+            (rng5.standard_normal((B_C5_WIDE, 1, T_MAIN), dtype=np.float32)
+             * np.float32(0.3)), device=dev)
+        render5w_ms = cuda_ms(lambda: cg5.render(x5w,
+                                                 batch_shape=(B_C5_WIDE,)))
+        del x5w
+    for what, (tk, tp), shape in (
+            ("chain segment with mtap (config5)", times["chain_mtap"],
+             f"B={B_C5} x 10 s"),
+            ("cycle kernel (config5 program)", times["cycle"],
+             f"B={B_C5} x 10 s"),
+            ("envelope, chunked", times["env_chunk"], f"B={B_C5} x 10 s"),
+            ("envelope, sequential", times["env_seq"], "B=4 x 1 s")):
+        print(f"{what}: kernel {tk:.3f} ms, plain {tp:.3f} ms at {shape} "
+              f"[{card}]")
+    for b_, t in ((B_C5, render5_ms), (B_C5_WIDE, render5w_ms)):
+        print(f"config5 whole render: {t:.3f} ms median of {N_TIMED} = "
+              f"{b_ * T_MAIN / SR / (t / 1e3):,.0f} audio-s/s at B={b_} x "
+              f"10 s [{card}]")
+
+    def entry(name, source, replaces, launches, err, t):
+        return {"name": name, "route": "cuda",
+                "source": f"dsp_stuff_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t[0], "plain_ms": t[1]}
+
+    print(json.dumps({"kernels": [
+        entry("chain_kernel", "chain_kernel.cu",
+              "dsp_stuff_tpu/ops/pallas_chain.py:459",
+              bench_launches["chain"], abs_err, (ms, plain_ms)),
+        entry("chain_kernel:mtap", "chain_kernel.cu",
+              "dsp_stuff_tpu/ops/pallas_chain.py:459",
+              c5_launches["chain"], mtap_err, times["chain_mtap"]),
+        entry("cycle_kernel", "cycle_kernel.cu",
+              "dsp_stuff_tpu/ops/pallas_cycle.py:220",
+              c5_launches["cycle"], cycle_err, times["cycle"]),
+        entry("envelope_kernel:chunked", "envelope_kernel.cu",
+              "dsp_stuff_tpu/ops/pallas_envelope.py:203",
+              c5_launches["envelope"], rec["chunk_err"], times["env_chunk"]),
+        entry("envelope_kernel:sequential", "envelope_kernel.cu",
+              "dsp_stuff_tpu/ops/pallas_envelope.py:65",
+              par_launches["envelope"], rec["seq_err"], times["env_seq"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,10 +5,13 @@ graph JSON, node semantics, precision policies and state handoff, with
 tensors on an explicit device and, on an NVIDIA GPU, hand-written CUDA
 kernels in place of the JAX package's Pallas TPU kernels.
 
-This first slice carries the acyclic render path of the bench chain
-(input -> gain -> biquad -> overdrive -> low_pass -> high_pass ->
-distort -> chebyshev -> reverb -> output) and the chain kernel
-(csrc/chain_kernel.cu).  ROADMAP.md lists what is still to port.
+The port carries the bench chain (input -> gain -> biquad -> overdrive ->
+low_pass -> high_pass -> distort -> chebyshev -> reverb -> output) and the
+presets config1, config2 and config5 (models/presets.py), feedback cycles
+included, with three CUDA kernels: the chain kernel
+(csrc/chain_kernel.cu, with the chorus's mtap stage), the cycle kernel
+(csrc/cycle_kernel.cu) and the envelope kernel (csrc/envelope_kernel.cu).
+ROADMAP.md lists what is still to port.
 
 Public API:
     Graph, load_graph, loads_graph, save_graph, dumps_graph

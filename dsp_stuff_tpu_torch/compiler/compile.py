@@ -9,20 +9,27 @@ plan made once per graph:
   (node.rs:162-194, divisor quirk SURVEY.md 2.4 #1);
 * modulation (`as_input`) ports apply the [-1,1] -> slider-range mapping
   of the derive macro (dsp-stuff-derive/src/lib.rs:135-153);
-* nodes evaluate one *full sequence* at a time in topological order;
-  under the ``fast`` policy maximal chains of linear + shaper + comb nodes
-  run as ONE ops/chain_segment (the chain kernel on a CUDA device) and
-  the remaining linear runs as one ops/cascade solve each;
+* acyclic nodes evaluate one *full sequence* at a time in topological
+  order; under the ``fast`` policy maximal chains of linear + shaper +
+  comb + chorus nodes run as ONE ops/chain_segment (the chain kernel on a
+  CUDA device) and the remaining linear runs as one ops/cascade solve
+  each;
+* each feedback SCC evaluates over 128-sample blocks, an intra-cycle edge
+  from a not-yet-run member carrying exactly one block of delay (the
+  defined semantic of the reference's emergent pipe latency): under
+  ``fast``, when every member lowers, as ONE ops/cycle_segment block
+  program (the cycle kernel on a CUDA device), otherwise as a per-node
+  scan over the blocks;
 * Input nodes bind external source columns, Output nodes produce rendered
-  channels.
+  channels, analysis sinks produce aux arrays.
 
-Only the acyclic path is ported: a graph with a feedback cycle raises at
-``compile_graph`` (ROADMAP Queue 1, Slice B).  Streams batch as leading
-dimensions of every signal; node states broadcast against them.
+Streams batch as leading dimensions of every signal; node states
+broadcast against them.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
@@ -32,7 +39,10 @@ from dsp_stuff_tpu_torch.compiler.scc import condensation_topo_order
 from dsp_stuff_tpu_torch.graph import Graph, GraphNode
 from dsp_stuff_tpu_torch.ops import cascade
 from dsp_stuff_tpu_torch.ops import chain_segment as _cs
+from dsp_stuff_tpu_torch.ops.cycle_segment import cycle_segment
 from dsp_stuff_tpu_torch.ops.delay_line import delay_samples
+from dsp_stuff_tpu_torch.ops.modfx import (max_delay_samples, mtap_shared,
+                                           mtap_static)
 from dsp_stuff_tpu_torch.registry import ParamSpec
 from dsp_stuff_tpu_torch.utils import precision
 
@@ -75,6 +85,34 @@ def _map_mod(sig, p: ParamSpec):
     return float(np.float32(p.lo)) + span * z
 
 
+def _call(impl, params, state, inputs, T: int, block_size: int):
+    """A node's full-sequence evaluation; a source that needs the render
+    length (``needs_length``) gets T and the block size."""
+    if getattr(impl, "needs_length", False):
+        return impl.process_seq(params, state, inputs, T=T,
+                                block_size=block_size)
+    return impl.process_seq(params, state, inputs)
+
+
+def _call_block(impl, params, state, inputs, block_size: int):
+    """A node's evaluation of one block inside the per-node cycle scan
+    (``process_block`` where the node has one)."""
+    fn = getattr(impl, "process_block", impl.process_seq)
+    if getattr(impl, "needs_length", False):
+        return fn(params, state, inputs, T=block_size, block_size=block_size)
+    return fn(params, state, inputs)
+
+
+def _cycle_key(comp) -> str:
+    """State key of a feedback SCC's carried previous-block outputs."""
+    return f"__cycle__{min(comp)}"
+
+
+def _is_cycle(graph: Graph, comp) -> bool:
+    return len(comp) > 1 or any(l.src == l.dst == comp[0]
+                                for l in graph.links)
+
+
 def _active_nodes(graph: Graph) -> set[int]:
     """Nodes with at least one connected link (the reference never starts a
     node with zero connections, runtime.rs:661-668)."""
@@ -91,11 +129,30 @@ _LINEAR_KINDS = {"gain": "gain", "low_pass": "lp", "high_pass": "hp",
                  "biquad": "bq"}
 
 #: stateful node types that keep a chain segment worthwhile
-_MEGA_STATEFUL = ("low_pass", "high_pass", "biquad", "reverb")
+_MEGA_STATEFUL = ("low_pass", "high_pass", "biquad", "reverb", "chorus")
+
+#: stateless shapers a cycle block program takes
+_CYCLE_EW = ("distort", "overdrive", "chebyshev")
 
 
 def _concrete(v) -> bool:
     return isinstance(v, (int, float, np.floating))
+
+
+def _chorus_mega_geo(node):
+    """(L, NH, EV, RS) of a chorus node's mtap stage, or None when its LFO
+    geometry does not lower (non-concrete params, too fast or deep an LFO,
+    too small a minimum delay: ops/modfx.mtap_static)."""
+    ps = [node.params.get(k) for k in ("rate", "depth", "base", "mix")]
+    if not all(_concrete(v) for v in ps):
+        return None
+    L = max_delay_samples(float(ps[2]), float(ps[1]))
+    geo = mtap_static(float(ps[0]), float(ps[1]), float(ps[2]), L)
+    return None if geo is None else (L, *geo)
+
+
+def _cyclic(graph: Graph, sccs) -> set[int]:
+    return {n for comp in sccs if _is_cycle(graph, comp) for n in comp}
 
 
 def _out_links(graph: Graph):
@@ -133,26 +190,30 @@ def _chains(nxt: dict) -> list[list[int]]:
     return chains
 
 
-def _plan_mega_fusion(graph: Graph, nodes: dict) -> list:
-    """Maximal chains of mega-fusable nodes (the linear kinds +
-    distort/overdrive/chebyshev at base rate + reverb) joined by chain
-    links, evaluated as ONE ops/chain_segment.
+def _plan_mega_fusion(graph: Graph, nodes: dict, sccs) -> list:
+    """Maximal ACYCLIC chains of mega-fusable nodes (the linear kinds +
+    distort/overdrive/chebyshev at base rate + reverb + a chorus whose LFO
+    lowers) joined by chain links, evaluated as ONE ops/chain_segment.
+    Members of a feedback SCC never join a run.
 
     Extra consumers of a member's output do not end the chain: the
     segment emits that intermediate with a ("tap", ti) stage.  A run must
     have >= 2 nodes, >= 1 stateful member and >= 1 non-linear member
     (pure-linear runs belong to _plan_linear_fusion)."""
     out_links, modded = _out_links(graph)
+    cyclic = _cyclic(graph, sccs)
 
     def mega_ok(nid) -> bool:
         node = nodes.get(nid)
-        if node is None or nid in modded:
+        if node is None or nid in modded or nid in cyclic:
             return False
         cn = node.cfg_name
         if cn in _LINEAR_KINDS or cn in ("chebyshev", "reverb"):
             return True
         if cn in ("distort", "overdrive"):
             return str(node.params.get("oversample", "1")) == "1"
+        if cn == "chorus":
+            return _chorus_mega_geo(node) is not None
         return False
 
     nxt = {}
@@ -171,18 +232,27 @@ def _plan_mega_fusion(graph: Graph, nodes: dict) -> list:
     return runs
 
 
-def _plan_linear_fusion(graph: Graph, nodes: dict,
+def _plan_linear_fusion(graph: Graph, nodes: dict, sccs,
                         exclude: frozenset = frozenset()) -> list:
     """Maximal runs of adjacent linear nodes fusable into one
-    ops/cascade.linear_cascade solve, as lists of node ids in signal order.
+    ops/cascade.linear_cascade solve, as lists of node ids in signal order:
+    acyclic runs and in-cycle runs alike (the eval sites tell them apart
+    by membership).
 
     Consecutive nodes are joined by a chain link (the downstream "in" has
     exactly that one source); no member receives links on any other port;
     the composite state dimension is capped at cascade.MAX_RUN_DIM (longer
     chains split greedily); a run keeps >= 2 nodes and >= 1 stateful
     section.  Other consumers of an intermediate become emitted taps, so
-    runs evaluate at their HEAD node's position."""
+    runs evaluate at their HEAD node's position.
+
+    A run inside a feedback SCC must also occupy CONSECUTIVE positions of
+    the cycle's execution order (ascending ids): then every link inside
+    the run is a same-block forward edge and every edge in or out of it
+    reads the current or the previous block exactly as unfused.  Runs
+    never span SCC boundaries."""
     out_links, modded = _out_links(graph)
+    cyclic = _cyclic(graph, sccs)
 
     def linear(nid) -> bool:
         node = nodes.get(nid)
@@ -192,24 +262,45 @@ def _plan_linear_fusion(graph: Graph, nodes: dict,
     def dim(nid) -> int:
         return cascade.SECTION_DIMS[_LINEAR_KINDS[nodes[nid].cfg_name]]
 
+    def segments(nxt) -> list:
+        runs = []
+        for chain in _chains(nxt):
+            seg: list = []
+            d = 0
+            for n in chain + [None]:
+                if n is None or d + dim(n) > cascade.MAX_RUN_DIM:
+                    if len(seg) >= 2 and d >= 1:
+                        runs.append(seg)
+                    seg, d = [], 0
+                if n is not None:
+                    seg.append(n)
+                    d += dim(n)
+        return runs
+
+    def acyclic_linear(nid) -> bool:
+        return linear(nid) and nid not in cyclic
+
     nxt = {}
     for nid in nodes:
-        if linear(nid):
-            dst = _sole_joint(graph, out_links, nid, linear)
+        if acyclic_linear(nid):
+            dst = _sole_joint(graph, out_links, nid, acyclic_linear)
             if dst is not None:
                 nxt[nid] = dst
-    runs = []
-    for chain in _chains(nxt):
-        seg: list = []
-        d = 0
-        for n in chain + [None]:
-            if n is None or d + dim(n) > cascade.MAX_RUN_DIM:
-                if len(seg) >= 2 and d >= 1:
-                    runs.append(seg)
-                seg, d = [], 0
-            if n is not None:
-                seg.append(n)
-                d += dim(n)
+    runs = segments(nxt)
+
+    for comp in sccs:
+        if not _is_cycle(graph, comp):
+            continue
+        pos = {nid: i for i, nid in enumerate(sorted(comp))}
+        cnxt = {}
+        for nid in comp:
+            if not linear(nid):
+                continue
+            dst = _sole_joint(graph, out_links, nid,
+                              lambda d: linear(d) and d in pos)
+            if dst is not None and pos[dst] == pos[nid] + 1:
+                cnxt[nid] = dst
+        runs.extend(segments(cnxt))
     return runs
 
 
@@ -248,7 +339,7 @@ class CompiledGraph:
     tensors handed in on another device raise."""
 
     def __init__(self, graph: Graph, block_size: int, device, nodes: dict,
-                 order: list, mega_plan: list, fusion_plan: list):
+                 sccs: list, mega_plan: list, fusion_plan: list):
         self.graph = graph
         self.block_size = block_size
         self.device = _resolve_device(device)
@@ -256,8 +347,12 @@ class CompiledGraph:
                                 if getattr(n.spec.impl, "graph_input", False))
         self.output_ids = sorted(n.id for n in nodes.values()
                                  if getattr(n.spec.impl, "graph_output", False))
+        self.sink_ids = sorted(
+            n.id for n in nodes.values()
+            if n.spec.is_sink and not getattr(n.spec.impl, "graph_output",
+                                              False))
         self._nodes = nodes
-        self._order = order
+        self._sccs = sccs
         self._mega_plan = mega_plan
         self._fusion_plan = fusion_plan
 
@@ -279,6 +374,14 @@ class CompiledGraph:
                 st = {k: (v.to(self.device) if isinstance(v, torch.Tensor)
                           else v) for k, v in st.items()}
             out[str(nid)] = st
+        # per-cycle previous-block outputs: the one block of delay on an
+        # intra-cycle back edge is real state and chains across renders
+        for comp in self._sccs:
+            if _is_cycle(self.graph, comp):
+                out[_cycle_key(comp)] = {
+                    f"{nid}:{port}": torch.zeros((self.block_size,),
+                                                 dtype=_F32, device=self.device)
+                    for nid in comp for port in self._nodes[nid].spec.outputs}
         return out
 
     def init_params(self) -> dict:
@@ -303,6 +406,30 @@ class CompiledGraph:
                 return v.expand(*batch_shape, *v.shape).clone()
             return v
         return {k: ({kk: tile(vv) for kk, vv in st.items()}
+                    if isinstance(st, dict) else st)
+                for k, st in state.items()}
+
+    @functools.cached_property
+    def _state_ndims(self) -> dict:
+        """{state key: {entry: ndim of the unbatched tensor}}."""
+        return {k: {kk: v.dim() for kk, v in st.items()
+                    if isinstance(v, torch.Tensor)}
+                for k, st in self.init_state().items()
+                if isinstance(st, dict)}
+
+    def _batched_state(self, state: dict, batch_shape: tuple[int, ...]):
+        """Every per-stream state tensor on the batch shape, as the JAX
+        package's batched state has it: a node that saw no batched signal
+        (an LFO, a cycle entry no member wrote) returns an unbatched state,
+        which broadcasts here.  Python ints (lockstep counters) stay
+        shared."""
+        nd = self._state_ndims
+
+        def tile(v, n):
+            if not isinstance(v, torch.Tensor):
+                return v
+            return v.expand(*batch_shape, *v.shape[v.dim() - n:])
+        return {k: ({kk: tile(v, nd[k].get(kk, 0)) for kk, v in st.items()}
                     if isinstance(st, dict) else st)
                 for k, st in state.items()}
 
@@ -332,6 +459,8 @@ class CompiledGraph:
                     if isinstance(v, torch.Tensor):
                         self._on_device(v, f"state[{k!r}][{kk!r}]")
         state, outs, aux = self.fn(state, ext, params)
+        if batch_shape:
+            state = self._batched_state(state, batch_shape)
         if self.output_ids:
             sigs = [outs[i] for i in self.output_ids]
             shape = torch.broadcast_shapes(*(s.shape for s in sigs),
@@ -457,7 +586,8 @@ class CompiledGraph:
         interleaved as gain sections; scales between non-linear stages
         accumulate into one ("scale", s).  state_specs parallels the
         stateful stages: ("cascade", sections, stateful_ids) | ("comb",
-        nid).  ``tapped`` lists the members emitted by ("tap", ti) stages.
+        nid) | ("mtap", nid, rate, depth, base, L).  ``tapped`` lists the
+        members emitted by ("tap", ti) stages.
 
         Two boundary scale folds keep the segment one read and one write:
         ``head_single`` (the head's single in-link scale seeds the pending
@@ -538,6 +668,18 @@ class CompiledGraph:
                     D = delay_samples(float(node.params["seconds"]))
                     stages.append(("comb", float(np.float32(dec)), int(D)))
                     specs.append(("comb", nid))
+                elif cn == "chorus":
+                    geo = _chorus_mega_geo(node)
+                    if geo is None:
+                        return None
+                    L, NH, EV, RS = geo
+                    flush_scale()
+                    stages.append(("mtap",
+                                   float(np.float32(node.params["mix"])),
+                                   int(L), int(NH), int(EV), int(RS)))
+                    specs.append(("mtap", nid, float(node.params["rate"]),
+                                  float(node.params["depth"]),
+                                  float(node.params["base"]), int(L)))
                 else:
                     keys = {"overdrive": ("boost", "drive", "level"),
                             "chebyshev": ("level_pos", "level_neg")
@@ -583,12 +725,21 @@ class CompiledGraph:
         """Evaluate a mega run over its head input ``x1`` [..., T] as one
         ops/chain_segment, updating the member states in ``st``; returns
         {(nid, "out"): signal} for the tail and every tapped member."""
+        T_run = x1.shape[-1]
         state_in = []
         for sp in specs:
             if sp[0] == "cascade":
                 _, secs, ids = sp
                 state_in.append(cascade.cascade_state_in(
                     secs, [st[str(n)] for n in ids]))
+            elif sp[0] == "mtap":
+                _, nid_m, rate, depth, base, L = sp
+                nst = st[str(nid_m)]
+                # the trajectory operands are shared by all streams: the
+                # chorus clock t0 is lockstep state
+                state_in += [nst["hist"], *mtap_shared(
+                    rate, depth, base, L, T_run, nst["t0"],
+                    device=x1.device)]
             else:
                 nst = st[str(sp[1])]
                 # the reverb ring oldest-first
@@ -604,6 +755,10 @@ class CompiledGraph:
                         secs, *cinfos[ci])):
                     st[str(n)] = ns
                 ci += 1
+            elif sp[0] == "mtap":
+                st[str(sp[1])] = {"hist": hists[hi],
+                                  "t0": int(st[str(sp[1])]["t0"]) + T_run}
+                hi += 1
             else:
                 st[str(sp[1])] = {"ring": hists[hi], "pos": 0}
                 hi += 1
@@ -648,6 +803,310 @@ class CompiledGraph:
             out[(n, "out")] = sig
         return out
 
+    def _cycle_program(self, comp, pdict):
+        """Lower a feedback SCC to the ops/cycle_segment block program, or
+        None when any member (or this render) cannot.
+
+        Members evaluate in ascending-id order, as in the per-node scan;
+        every member output read by another member flows through a
+        REGISTER (read before its write, a back edge sees the previous
+        block), every output read outside the SCC is TAPPED as a full
+        sequence.  Linear members contiguous in that order and joined by
+        sole links fold into one cascade (split at MAX_RUN_DIM), with the
+        link fan-in scales interleaved as gain sections.  Fan-in divides
+        become multiplies by the f32 reciprocal (the fast policy's 1-ulp
+        class).  Returns (program, ext_keys, reg_ports, tap_ports,
+        state_specs), state_specs in program order:
+        ("cascade", sections, stateful_ids) | ("comb", nid)."""
+        if self.block_size != 128:
+            return None          # the program's block frame is 128
+        graph, nodes = self.graph, self._nodes
+        order = sorted(comp)
+        comp_set = set(order)
+        ports_of = {}
+        for nid in order:
+            node = nodes[nid]
+            cn = node.cfg_name
+            if str(nid) in (pdict or {}):
+                return None
+            if cn in ("add", "mix"):
+                ports_of[nid] = ("a", "b")
+            elif cn in _LINEAR_KINDS or cn == "reverb" or cn in _CYCLE_EW:
+                if cn in ("distort", "overdrive") and str(
+                        node.params.get("oversample", "1")) != "1":
+                    return None
+                ports_of[nid] = ("in",)
+            else:
+                return None
+            if cn == "mix" and not _concrete(node.params["ratio"]):
+                return None
+
+        in_links: dict[tuple[int, str], list] = {}
+        out_links: dict[int, list] = {}
+        for l in graph.links:
+            if l.dst in comp_set:
+                if l.dst_port not in ports_of[l.dst]:
+                    return None          # modulated member: the scan path
+                in_links.setdefault((l.dst, l.dst_port), []).append(l)
+            if l.src in comp_set:
+                out_links.setdefault(l.src, []).append(l)
+
+        # member i absorbs the NEXT member in order when both are linear,
+        # the link between them is i's only out-link and the next's only
+        # source, and the composite dim fits the cap
+        units = []
+        i = 0
+        while i < len(order):
+            members = [order[i]]
+            if nodes[order[i]].cfg_name in _LINEAR_KINDS:
+                dim = cascade.SECTION_DIMS[
+                    _LINEAR_KINDS[nodes[order[i]].cfg_name]]
+                while i + 1 < len(order):
+                    nxt = order[i + 1]
+                    ls = out_links.get(order[i], [])
+                    if not (nodes[nxt].cfg_name in _LINEAR_KINDS
+                            and len(ls) == 1 and ls[0].dst == nxt
+                            and ls[0].dst_port == "in"
+                            and len(in_links.get((nxt, "in"), [])) == 1):
+                        break
+                    d2 = cascade.SECTION_DIMS[
+                        _LINEAR_KINDS[nodes[nxt].cfg_name]]
+                    if dim + d2 > cascade.MAX_RUN_DIM:
+                        break
+                    members.append(nxt)
+                    dim += d2
+                    i += 1
+            i += 1
+            units.append(members)
+
+        reg_of: dict[tuple[int, str], int] = {}
+        tap_of: dict[tuple[int, str], int] = {}
+        reg_ports: list = []
+        tap_ports: list = []
+        for members in units:
+            tail = members[-1]
+            for port in nodes[tail].spec.outputs:
+                kp = (tail, port)
+                ls = [l for l in out_links.get(tail, []) if l.src_port == port]
+                if any(l.dst in comp_set for l in ls):
+                    reg_of[kp] = len(reg_ports)
+                    reg_ports.append(kp)
+                if any(l.dst not in comp_set for l in ls):
+                    tap_of[kp] = len(tap_ports)
+                    tap_ports.append(kp)
+
+        ext_keys: list = []
+        ext_of: dict = {}
+
+        def port_join(nid, port):
+            ls = in_links.get((nid, port), [])
+            terms = []
+            for l in ls:
+                key = (l.src, l.src_port)
+                if l.src in comp_set:
+                    if key not in reg_of:
+                        return None      # an interior member's port
+                    terms.append(("reg", reg_of[key]))
+                else:
+                    if key not in ext_of:
+                        ext_of[key] = len(ext_keys)
+                        ext_keys.append(key)
+                    terms.append(("ext", ext_of[key]))
+            return tuple(terms), 1.0 / float(_fanin_divisor(len(ls)))
+
+        h1 = 1.0 / float(_fanin_divisor(1))
+        program: list = []
+        specs: list = []
+        for members in units:
+            head = members[0]
+            node = nodes[head]
+            cn = node.cfg_name
+            if cn in ("add", "mix"):
+                ja, jb = port_join(head, "a"), port_join(head, "b")
+                if ja is None or jb is None or not ja[0] or not jb[0]:
+                    return None
+                if cn == "add":
+                    cA = cB = 1.0
+                else:
+                    r = np.float32(node.params["ratio"])
+                    cA, cB = float(np.float32(1.0) - r), float(r)
+                program.append(("lin2", ja[0], ja[1], jb[0], jb[1], cA, cB))
+            else:
+                j = port_join(head, "in")
+                if j is None or not j[0]:
+                    return None
+                program.append(("join", j[0], j[1]))
+                if cn == "reverb":
+                    dec, sec = node.params["decay"], node.params["seconds"]
+                    if not (_concrete(dec) and _concrete(sec)):
+                        return None
+                    program.append(("comb", float(np.float32(dec)),
+                                    int(delay_samples(float(sec))),
+                                    sum(1 for sp in specs if sp[0] == "comb")))
+                    specs.append(("comb", head))
+                elif cn in _CYCLE_EW:
+                    keys = {"overdrive": ("boost", "drive", "level"),
+                            "chebyshev": ("level_pos", "level_neg")
+                            }.get(cn, ("level",))
+                    ps = [node.params[k] for k in keys]
+                    if not all(_concrete(v) for v in ps):
+                        return None
+                    kind = cn if cn != "distort" \
+                        else f"distort:{node.params['mode']}"
+                    program.append(("ew", kind,
+                                    tuple(float(np.float32(v)) for v in ps)))
+                else:                    # a linear unit of 1..k members
+                    secs: list = []
+                    ids: list = []
+                    for m_i, m in enumerate(members):
+                        sec = _linear_section(nodes[m])
+                        if sec is None:
+                            return None
+                        if m_i:
+                            secs.append(("gain", h1))
+                        secs.append(sec)
+                        if cascade.SECTION_DIMS[sec[0]]:
+                            ids.append(m)
+                    if not ids:
+                        for _, v in secs:
+                            program.append(("scale", float(v)))
+                    else:
+                        program.append(("cascade", tuple(secs),
+                                        sum(1 for sp in specs
+                                            if sp[0] == "cascade")))
+                        specs.append(("cascade", tuple(secs), tuple(ids)))
+            tail = members[-1]
+            for port in nodes[tail].spec.outputs:
+                kp = (tail, port)
+                if kp in reg_of:
+                    program.append(("setreg", reg_of[kp]))
+                if kp in tap_of:
+                    program.append(("tap", tap_of[kp]))
+        if not ext_keys:
+            return None          # a self-oscillator: no feed sets the length
+        return (tuple(program), tuple(ext_keys), tuple(reg_ports),
+                tuple(tap_ports), tuple(specs))
+
+    def _needs_sequence(self, comp_set, nid, port) -> bool:
+        """Whether a member port's full sequence is read: by a node
+        outside the cycle, or (for the knob writeback) by a modulation
+        port inside it."""
+        for l in self.graph.links:
+            if l.src != nid or l.src_port != port:
+                continue
+            if (l.dst not in comp_set
+                    or l.dst_port in self._nodes[l.dst].spec.mod_inputs):
+                return True
+        return False
+
+    def _eval_cycle(self, comp, state, values, T: int, pdict,
+                    fused_heads, fused_interior):
+        """Evaluate one feedback SCC over T/128 blocks.
+
+        Members run in ascending-id order within a block; an intra-cycle
+        edge from a not-yet-run member reads the previous block's value
+        (one BLOCK of delay), the defined semantic of the reference's
+        emergent feedback latency.  Under ``fast``, when every member
+        lowers, the whole SCC runs as ONE ops/cycle_segment block program.
+        Otherwise (``parity``, a modulated member, a member the program
+        does not take) a per-node scan over the blocks runs, in which the
+        in-cycle linear runs (``fast`` only) are one cascade solve per
+        block at the head's position."""
+        B = self.block_size
+        ckey = _cycle_key(comp)
+        planned = (self._cycle_program(comp, pdict)
+                   if precision.get_policy().name == "fast" else None)
+        if planned is not None:
+            program, ext_keys, reg_ports, tap_ports, cspecs = planned
+            regs0 = tuple(state[ckey][f"{nid}:{port}"]
+                          for nid, port in reg_ports)
+            st_in = []
+            for sp in cspecs:
+                if sp[0] == "cascade":
+                    st_in.append(cascade.cascade_state_in(
+                        sp[1], [state[str(n)] for n in sp[2]]))
+                else:
+                    nst = state[str(sp[1])]
+                    st_in.append(torch.roll(nst["ring"], -int(nst["pos"]),
+                                            dims=-1))
+            taps, regs_f, cinfos, hists = cycle_segment(
+                tuple(values[k] for k in ext_keys), regs0, tuple(st_in),
+                program, len(tap_ports))
+            ci = hi = 0
+            for sp in cspecs:
+                if sp[0] == "cascade":
+                    for n, ns in zip(sp[2], cascade.cascade_state_out(
+                            sp[1], *cinfos[ci])):
+                        state[str(n)] = ns
+                    ci += 1
+                else:
+                    state[str(sp[1])] = {"ring": hists[hi], "pos": 0}
+                    hi += 1
+            prev = dict(state[ckey])
+            for (nid, port), r in zip(reg_ports, regs_f):
+                prev[f"{nid}:{port}"] = r
+            for kp, seq in zip(tap_ports, taps):
+                values[kp] = seq
+                if kp not in reg_ports:
+                    prev[f"{kp[0]}:{kp[1]}"] = seq[..., -B:]
+            state[ckey] = prev
+            return
+
+        graph, nodes = self.graph, self._nodes
+        order = sorted(comp)
+        comp_set = set(order)
+        member_ports = [(nid, port) for nid in order
+                        for port in nodes[nid].spec.outputs]
+        emit = {kp: [] for kp in member_ports
+                if self._needs_sequence(comp_set, *kp)}
+        st = {str(nid): state[str(nid)] for nid in order}
+        prev = {kp: state[ckey][f"{kp[0]}:{kp[1]}"] for kp in member_ports}
+        for b in range(T // B):
+            cur: dict = {}
+
+            def lookup(src, src_port):
+                key = (src, src_port)
+                if src in comp_set:
+                    return cur[key] if key in cur else prev[key]
+                return values[key][..., b * B:(b + 1) * B]
+
+            for nid in order:
+                if nid in fused_interior:
+                    continue                  # evaluated at the run head
+                if nid in fused_heads:
+                    run, secs, emits, tapped = fused_heads[nid]
+                    x1, _ = _avg([lookup(l.src, l.src_port) for l in
+                                  graph.in_links(run[0], "in")], B,
+                                 self.device)
+                    cur.update(self._fused_run_eval(run, secs, emits,
+                                                    tapped, x1, st))
+                    continue
+                node = nodes[nid]
+                in_sigs = {port: _avg([lookup(l.src, l.src_port) for l in
+                                       graph.in_links(nid, port)], B,
+                                      self.device)
+                           for port in node.spec.all_inputs}
+                inputs = {p: in_sigs[p][0] for p in node.spec.inputs}
+                params = self._resolve_params(node, in_sigs, pdict)
+                outs, st[str(nid)] = _call_block(node.spec.impl, params,
+                                                 st[str(nid)], inputs, B)
+                for port in node.spec.outputs:
+                    cur[(nid, port)] = outs[port]
+            # members a fused run skipped without emitting: nothing reads
+            # them, their carried entries pass through unchanged
+            for kp in member_ports:
+                if kp not in cur:
+                    cur[kp] = prev[kp]
+            for kp, blocks in emit.items():
+                blocks.append(cur[kp])
+            prev = cur
+        for nid in order:
+            state[str(nid)] = st[str(nid)]
+        state[ckey] = {f"{nid}:{port}": prev[(nid, port)]
+                       for nid, port in member_ports}
+        for kp, blocks in emit.items():
+            values[kp] = torch.cat(torch.broadcast_tensors(*blocks), dim=-1)
+
     def _eval(self, state, ext, T: int, pdict=None):
         graph = self.graph
         state = dict(state)
@@ -661,7 +1120,12 @@ class CompiledGraph:
             return [values[(l.src, l.src_port)]
                     for l in graph.in_links(nid, port)]
 
-        for nid in self._order:
+        for comp in self._sccs:
+            if _is_cycle(graph, comp):
+                self._eval_cycle(comp, state, values, T, pdict,
+                                 fused_heads, fused_interior)
+                continue
+            nid = comp[0]
             if nid in mega_interior or nid in fused_interior:
                 continue                      # evaluated at the run head
             if nid in mega_heads:
@@ -690,8 +1154,8 @@ class CompiledGraph:
             else:
                 inputs = {p: in_sigs[p][0] for p in node.spec.inputs}
             params = self._resolve_params(node, in_sigs, pdict)
-            outs, state[str(nid)] = impl.process_seq(params, state[str(nid)],
-                                                     inputs)
+            outs, state[str(nid)] = _call(impl, params, state[str(nid)],
+                                          inputs, T, self.block_size)
             for port in node.spec.outputs:
                 values[(nid, port)] = outs[port]
 
@@ -716,6 +1180,18 @@ class CompiledGraph:
                         knobs[f"{nid}:{p.name}"] = _map_mod(
                             sig[..., T - self.block_size], p)
         aux = {"__knobs__": knobs} if knobs else {}
+
+        # analysis sinks, under "<cfg_name>:<node id>"
+        for nid in self.sink_ids:
+            node = self._nodes[nid]
+            impl = node.spec.impl
+            if not hasattr(impl, "analyze"):
+                continue
+            in_sigs = {port: _avg(sources(nid, port), T, self.device)
+                       for port in node.spec.all_inputs}
+            inputs = {p: in_sigs[p][0] for p in node.spec.inputs}
+            params = self._resolve_params(node, in_sigs, pdict)
+            aux[f"{node.cfg_name}:{nid}"] = impl.analyze(params, inputs)
         return state, outs, aux
 
 
@@ -735,15 +1211,9 @@ def compile_graph(graph: Graph, block_size: int = 128,
         if l.src in nodes and l.dst in nodes:
             edges[l.src].add(l.dst)
     sccs = condensation_topo_order(sorted(nodes), edges)
-    for comp in sccs:
-        if len(comp) > 1 or any(l.src == l.dst == comp[0]
-                                for l in graph.links):
-            raise NotImplementedError(
-                f"graph has a feedback cycle through nodes {sorted(comp)}; "
-                f"the cycle path is not ported to dsp_stuff_tpu_torch yet "
-                f"(ROADMAP Queue 1, Slice B)")
-    mega_plan = _plan_mega_fusion(graph, nodes)
+    mega_plan = _plan_mega_fusion(graph, nodes, sccs)
     mega_members = frozenset(n for run in mega_plan for n in run)
-    fusion_plan = _plan_linear_fusion(graph, nodes, exclude=mega_members)
-    return CompiledGraph(graph, block_size, device, nodes,
-                         [comp[0] for comp in sccs], mega_plan, fusion_plan)
+    fusion_plan = _plan_linear_fusion(graph, nodes, sccs,
+                                      exclude=mega_members)
+    return CompiledGraph(graph, block_size, device, nodes, sccs, mega_plan,
+                         fusion_plan)

@@ -1,7 +1,11 @@
 """Carry render state and parameters between the JAX package and the port.
 
 Both packages key a compiled graph's state and parameters by
-``str(node_id)``, each entry the node's own dict, with the same keys.
+``str(node_id)``, each entry the node's own dict, with the same keys; a
+feedback SCC's previous-block outputs sit under ``__cycle__<min id>``,
+keyed ``"<node id>:<port>"``.  Lockstep counters (the reverb ring's
+``pos``, the chorus clock ``t0``) are integer scalars there and Python
+ints here.
 Graphs cross with ``dumps_graph`` / ``loads_graph``, which keep node ids.
 The JAX side hands over plain NumPy trees (``jax.tree.map(np.asarray,
 state)``); nothing here imports JAX.
@@ -19,21 +23,15 @@ def _leaf_to_torch(v, device):
         if a.ndim:
             raise ValueError(f"integer state arrays are not part of the "
                              f"port's state, got shape {a.shape}")
-        return int(a)                   # lockstep positions (Reverb pos)
+        return int(a)           # lockstep counters (reverb pos, chorus t0)
     # float64 leaks from the JAX package's x64 mode come back as f32
     return torch.tensor(np.asarray(a, np.float32), device=device)
 
 
 def _tree(tree, leaf):
-    out = {}
-    for k, entry in tree.items():
-        if str(k).startswith("__cycle__"):
-            raise NotImplementedError(
-                "feedback-cycle state is not ported yet (ROADMAP Queue 1, "
-                "Slice B)")
-        out[str(k)] = (None if entry is None
-                       else {kk: leaf(vv) for kk, vv in entry.items()})
-    return out
+    return {str(k): (None if entry is None
+                     else {kk: leaf(vv) for kk, vv in entry.items()})
+            for k, entry in tree.items()}
 
 
 def state_from_jax(tree: dict, device) -> dict:

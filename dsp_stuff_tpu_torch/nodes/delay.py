@@ -1,12 +1,13 @@
-"""Delay-family nodes: Reverb (feedback echo).  Chorus is
-registry.NOT_PORTED."""
+"""Delay-family nodes: Reverb (feedback echo) and Chorus (modulated tap)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dsp_stuff_tpu_torch.registry import register_node, ParamSpec
 from dsp_stuff_tpu_torch.ops.delay_line import feedback_comb, delay_samples
+from dsp_stuff_tpu_torch.ops.modfx import max_delay_samples, modulated_delay
 
 
 @register_node(
@@ -25,9 +26,9 @@ class Reverb:
     (reverb.rs:55-71).
 
     State is the JAX package's circular buffer + write position; ``pos``
-    (a Python int, shared by all streams) is non-zero only in a state
-    carried over from the JAX package's block path, and is canonicalized
-    away before the comb runs."""
+    (a Python int, shared by all streams) is non-zero only after the
+    per-block path (``process_block``, which the feedback-cycle scan
+    calls), and is canonicalized away before the comb runs."""
 
     @staticmethod
     def init_state(cfg, block_size):
@@ -40,3 +41,53 @@ class Reverb:
         y, ring = feedback_comb(inputs["in"], params["decay"],
                                 ring.shape[-1], ring)
         return {"out": y}, {"ring": ring, "pos": 0}
+
+    @staticmethod
+    def process_block(params, state, inputs):
+        """One block no longer than the line: read the T oldest samples of
+        the ring at ``pos``, overwrite them with the outputs."""
+        x = inputs["in"]
+        ring, pos = state["ring"], int(state["pos"])
+        D = ring.shape[-1]
+        T = x.shape[-1]
+        if T > D:
+            return Reverb.process_seq(params, state, inputs)
+        idx = (pos + torch.arange(T, device=x.device)) % D
+        batch = torch.broadcast_shapes(x.shape[:-1], ring.shape[:-1])
+        ring = ring.expand(*batch, D).clone()
+        decay = float(np.float32(params["decay"]))
+        y = x + ring[..., idx] * decay
+        ring[..., idx] = y.expand(*batch, T)
+        return {"out": y}, {"ring": ring, "pos": (pos + T) % D}
+
+
+@register_node(
+    title="Chorus", cfg_name="chorus",
+    description="Sine-modulated fractional delay (chorus/flanger/vibrato)",
+    inputs=("in",), outputs=("out",),
+    params=(
+        ParamSpec("rate", 0.05, 10.0, 1.0, suffix=" hz", as_input=True),
+        ParamSpec("depth", 0.0, 0.02, 0.003, suffix="s", static=True),
+        ParamSpec("base", 0.0, 0.05, 0.01, suffix="s", static=True),
+        ParamSpec("mix", 0.0, 1.0, 0.5, as_input=True),
+    ),
+)
+class Chorus:
+    """Extension node (no reference analog; BASELINE.json config #2 needs
+    modulated fractional taps).  base/depth fix the history length, so
+    they are structural; rate and mix are modulatable.  See ops/modfx.py.
+
+    The sample clock ``t0`` is lockstep state: a Python int shared by all
+    streams, so the tap trajectory is shared too."""
+
+    @staticmethod
+    def init_state(cfg, block_size):
+        L = max_delay_samples(float(cfg["base"]), float(cfg["depth"]))
+        return {"hist": torch.zeros((L,), dtype=torch.float32), "t0": 0}
+
+    @staticmethod
+    def process_seq(params, state, inputs):
+        y, hist, t0 = modulated_delay(
+            inputs["in"], params["rate"], params["depth"], params["base"],
+            params["mix"], state["hist"], state["t0"])
+        return {"out": y}, {"hist": hist, "t0": t0}

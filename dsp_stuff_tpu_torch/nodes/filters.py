@@ -1,4 +1,4 @@
-"""Filter nodes: BiQuad, LowPass, HighPass.  Envelope and Fir are
+"""Filter nodes: BiQuad, LowPass, HighPass, Envelope.  Fir is
 registry.NOT_PORTED."""
 
 from __future__ import annotations
@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from dsp_stuff_tpu_torch.registry import register_node, ParamSpec
+from dsp_stuff_tpu_torch.ops.envelope import peak_envelope
 from dsp_stuff_tpu_torch.ops.scan import first_order_affine, biquad_df1
 
 
@@ -94,3 +95,30 @@ class HighPass:
         z = first_order_affine(
             r, x * float(np.float32(1.0) - np.float32(r)), state["z"])
         return {"out": x - z}, {"z": z[..., -1]}
+
+
+@register_node(
+    title="Envelope", cfg_name="envelope", description="Envelope detection",
+    inputs=("in",), outputs=("out",),
+    params=(
+        ParamSpec("attack", 0.0, 1000.0, 0.0),
+        ParamSpec("release", 0.0, 1000.0, 0.0),
+    ),
+)
+class Envelope:
+    """dasp_envelope full-wave peak detector (envelope.rs:43-51); attack and
+    release are frame counts re-applied every block."""
+
+    @staticmethod
+    def init_state(cfg, block_size):
+        return {"env": _zero()}
+
+    @staticmethod
+    def process_seq(params, state, inputs):
+        # clamp to the sliders' 0..1000 frames (envelope.rs): a frame count
+        # below 0 would make exp(-1/f) > 1, an amplifying recurrence the
+        # reference node cannot express
+        atk = float(np.clip(np.float32(params["attack"]), 0.0, 1000.0))
+        rel = float(np.clip(np.float32(params["release"]), 0.0, 1000.0))
+        y, env = peak_envelope(inputs["in"], atk, rel, state["env"])
+        return {"out": y}, {"env": env}

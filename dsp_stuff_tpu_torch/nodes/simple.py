@@ -1,5 +1,5 @@
-"""Stateless combinator nodes.  Only Gain is ported; Add, Mix, Mux and
-Demux are registry.NOT_PORTED."""
+"""Stateless combinator nodes: Gain, Add, Mix.  Mux and Demux are
+registry.NOT_PORTED."""
 
 from __future__ import annotations
 
@@ -22,3 +22,33 @@ class Gain:
         level = torch.as_tensor(params["level"], dtype=torch.float32,
                                 device=x.device)
         return {"out": x * level}, state
+
+
+@register_node(
+    title="add", cfg_name="add", description="add two signals together",
+    inputs=("a", "b"), outputs=("out",),
+)
+class Add:
+    """out = a + b (add.rs:24-34)."""
+
+    @staticmethod
+    def process_seq(params, state, inputs):
+        return {"out": inputs["a"] + inputs["b"]}, state
+
+
+@register_node(
+    title="Mix", cfg_name="mix", description="Mix two signals together",
+    inputs=("a", "b"), outputs=("out",),
+    params=(ParamSpec("ratio", 0.0, 1.0, 0.5, as_input=True,
+                      label="Ratio (a:b)"),),
+)
+class Mix:
+    """out = b*ratio + a*(1-ratio) (mix.rs:33-47); 1 - ratio is an f32
+    subtraction, as the reference reads the f32 ratio atomic."""
+
+    @staticmethod
+    def process_seq(params, state, inputs):
+        a = inputs["a"]
+        r = torch.as_tensor(params["ratio"], dtype=torch.float32,
+                            device=a.device)
+        return {"out": inputs["b"] * r + a * (1.0 - r)}, state

@@ -1,10 +1,10 @@
-"""Wrapper of the chain kernel (csrc/chain_kernel.cu): build, bind, launch.
+"""Wrapper of the chain kernel (csrc/chain_kernel.cu): bind and launch.
 
-The kernel replaces dsp_stuff_tpu/ops/pallas_chain.py:chain_kernel_call.
-It is CUDA C++ for sm_90a, compiled with ``nvcc`` at first use into
-``build/torch_kernels/`` (keyed by a hash of the source) and bound with
-``ctypes`` through a plain C entry point.  Nothing is imported, built or
-loaded when this module is imported.
+The kernel replaces dsp_stuff_tpu/ops/pallas_chain.py:chain_kernel_call,
+every stage included (cascade, scale, ew, tap, comb and the chorus's
+mtap).  It is CUDA C++ for sm_90a, built by ops/cuda_build.py at first
+use and bound with ``ctypes`` through a plain C entry point.  Nothing is
+imported, built or loaded when this module is imported.
 
 ``chain_kernel_call`` takes only CUDA tensors and raises on anything the
 kernel cannot take; there is no fallback.  The plain PyTorch version of
@@ -16,36 +16,28 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 
 import numpy as np
 import torch
+
+from dsp_stuff_tpu_torch.ops import cuda_build
 
 C = 128        # samples per block
 NS = 8         # padded carry lanes (cascade.MAX_RUN_DIM embeds <= 8)
 MAX_STAGES = 32
 MAX_CASC = 8
-MAX_COMB = 8
+MAX_RING = 8   # comb and mtap rings together
 MAX_TAP = 8
 
-#: elementwise stage kinds in the kernel's EW_* code order
+#: elementwise stage kinds in the kernel's EW_* code order (csrc/stages.cuh)
 EW_CODES = ("overdrive", "chebyshev", "distort:HardClip", "distort:SoftClip",
             "distort:Tanh", "distort:RecipSoftClip", "distort:Fuzz",
             "distort:Sin", "distort:Atan", "distort:Square",
             "distort:Chebyshev4")
-_KIND = {"cascade": 0, "scale": 1, "ew": 2, "tap": 3, "comb": 4}
+_KIND = {"cascade": 0, "scale": 1, "ew": 2, "tap": 3, "comb": 4, "mtap": 5}
 
 #: launches of the kernel in this process (a test or a smoke run resets it)
 LAUNCHES = 0
-
-_SRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "chain_kernel.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 
 class _Stage(ctypes.Structure):
@@ -63,45 +55,16 @@ class _Program(ctypes.Structure):
                 ("s0", ctypes.c_void_p * MAX_CASC),
                 ("carry_out", ctypes.c_void_p * MAX_CASC),
                 ("xlast_out", ctypes.c_void_p * MAX_CASC),
-                ("ring", ctypes.c_void_p * MAX_COMB),
+                ("ring", ctypes.c_void_p * MAX_RING),
+                ("mq", ctypes.c_void_p * MAX_RING),
+                ("mr", ctypes.c_void_p * MAX_RING),
+                ("mfr", ctypes.c_void_p * MAX_RING),
                 ("tap", ctypes.c_void_p * MAX_TAP)]
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = pathlib.Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("chain kernel: nvcc is neither on PATH nor at "
-                       "/usr/local/cuda/bin/nvcc; the CUDA toolkit is needed "
-                       "to build csrc/chain_kernel.cu")
-
-
-def build() -> tuple[pathlib.Path, str]:
-    """Compile the kernel library if the source changed since the last
-    build; returns (library path, nvcc's output, empty when cached)."""
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"chain_kernel_{digest}.so"
-    if lib.exists():
-        return lib, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed to build {_SRC} "
-                           f"(rc {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+    lib = cuda_build.load("chain_kernel")
     lib.chain_kernel_abi.argtypes = []
     lib.chain_kernel_abi.restype = ctypes.c_int
     lib.chain_kernel_launch.argtypes = [
@@ -141,34 +104,56 @@ def _casc_device_consts(sections: tuple, device: torch.device):
 
 
 def _check_stages(stages: tuple) -> None:
-    counts = {"cascade": 0, "comb": 0, "tap": 0}
+    counts = {"cascade": 0, "ring": 0, "tap": 0}
     for st in stages:
-        if st[0] == "mtap":
-            raise NotImplementedError(
-                "chain kernel: the 'mtap' stage (chorus) is not ported yet")
         if st[0] not in _KIND:
             raise ValueError(f"chain kernel: unknown stage {st[0]!r}")
         if st[0] == "ew" and st[1] not in EW_CODES:
             raise ValueError(f"chain kernel: unknown shaper {st[1]!r}")
-        if st[0] in counts:
-            counts[st[0]] += 1
+        kind = "ring" if st[0] in ("comb", "mtap") else st[0]
+        if kind in counts:
+            counts[kind] += 1
     if len(stages) > MAX_STAGES:
         raise ValueError(f"chain kernel: {len(stages)} stages > {MAX_STAGES}")
-    for kind, cap in (("cascade", MAX_CASC), ("comb", MAX_COMB),
+    for kind, cap in (("cascade", MAX_CASC), ("ring", MAX_RING),
                       ("tap", MAX_TAP)):
         if counts[kind] > cap:
             raise ValueError(f"chain kernel: {counts[kind]} {kind} stages "
                              f"> {cap}")
 
 
+def _seeded_ring(hist, B: int, n: int, RL: int, dev, what: str):
+    """A [B, RL] ring holding ``hist`` [B, n] in its last n samples:
+    linear position p is the sample at time p - RL (mod RL)."""
+    if hist.shape != (B, n) or hist.device != dev:
+        raise ValueError(f"kernel {what} must be [{B}, {n}] on {dev}, got "
+                         f"{tuple(hist.shape)} on {hist.device}")
+    ring = torch.zeros((B, RL), dtype=torch.float32, device=dev)
+    ring[:, RL - n:] = hist
+    return ring
+
+
+def _shared_operand(t, shape, dtype, dev, what: str):
+    if (not isinstance(t, torch.Tensor) or t.shape != shape
+            or t.dtype != dtype or t.device != dev):
+        got = (f"{t.dtype} {tuple(t.shape)} on {t.device}"
+               if isinstance(t, torch.Tensor) else type(t).__name__)
+        raise ValueError(f"chain kernel: mtap {what} must be {dtype} "
+                         f"{tuple(shape)} on {dev}, got {got}")
+    return t.contiguous()
+
+
 def chain_kernel_call(x: torch.Tensor, stages: tuple, state_in: tuple):
     """x [B, T] f32 CUDA, contiguous, T % 128 == 0 -> (y [B, T],
     per-cascade (carry_last [B, NS], x_last [B, C]),
-    per-comb ring [B, NR, C],
+    per-comb or mtap ring [B, NR, C] in stage order,
     per-tap emitted sequence [B, T]).
 
-    ``state_in`` holds, per cascade and comb stage in order, the composite
-    state [B, N] and the history [B, D]."""
+    ``state_in`` holds, per stateful stage in order: for a cascade the
+    composite state [B, N]; for a comb the history [B, D]; for an mtap
+    four entries, the input history [B, L] and the shared trajectory
+    operands q [T/128] int32, r [T] int32 and frac [T] float32
+    (modfx.mtap_shared)."""
     global LAUNCHES
     stages = tuple(stages)
     _check_stages(stages)
@@ -181,10 +166,11 @@ def chain_kernel_call(x: torch.Tensor, stages: tuple, state_in: tuple):
     if B < 1 or T < C or T % C:
         raise ValueError(f"chain kernel: T={T} must be a positive multiple "
                          f"of {C}; B={B} must be >= 1")
-    n_state = sum(1 for st in stages if st[0] in ("cascade", "comb"))
+    n_state = sum({"cascade": 1, "comb": 1, "mtap": 4}.get(st[0], 0)
+                  for st in stages)
     if len(state_in) != n_state:
-        raise ValueError(f"chain kernel: {len(state_in)} states for "
-                         f"{n_state} stateful stages")
+        raise ValueError(f"chain kernel: {len(state_in)} state entries for "
+                         f"the stages' {n_state}")
 
     dev = x.device
     prog = _Program()
@@ -217,21 +203,36 @@ def chain_kernel_call(x: torch.Tensor, stages: tuple, state_in: tuple):
         elif st[0] == "comb":
             bi = len(rings)
             D = int(st[2])
-            hist = state_in[si]
+            if D < 1:
+                raise ValueError(f"chain kernel: comb delay {D} < 1")
+            RL = -(-D // C) * C
+            ring = _seeded_ring(state_in[si], B, D, RL, dev, "comb history")
             si += 1
-            if D < 1 or hist.shape != (B, D) or hist.device != dev:
-                raise ValueError(f"chain kernel: comb history must be "
-                                 f"[{B}, {D}] on {dev}, got "
-                                 f"{tuple(hist.shape)} on {hist.device}")
-            NR = -(-D // C)
-            # the ring holds the history in its last D samples: linear
-            # position p is the output at time p - NR*C (mod NR*C)
-            ring = torch.zeros((B, NR * C), dtype=torch.float32, device=dev)
-            ring[:, NR * C - D:] = hist
             s.idx, s.n = bi, D
             s.p[0] = float(np.float32(st[1]))
             prog.ring[bi] = ring.data_ptr()
-            rings.append(ring.view(B, NR, C))
+            rings.append(ring.view(B, RL // C, C))
+        elif st[0] == "mtap":
+            bi = len(rings)
+            _, mix, L, NH, _EV, _RS = st
+            L, NH = int(L), int(NH)
+            if L < 1 or NH != -(-L // C):
+                raise ValueError(f"chain kernel: mtap NH={NH} must be "
+                                 f"ceil(L/{C}) for L={L}")
+            RL = (NH + 1) * C
+            ring = _seeded_ring(state_in[si], B, L, RL, dev, "mtap history")
+            q = _shared_operand(state_in[si + 1], (T // C,), torch.int32,
+                                dev, "q")
+            r = _shared_operand(state_in[si + 2], (T,), torch.int32, dev, "r")
+            fr = _shared_operand(state_in[si + 3], (T,), torch.float32, dev,
+                                 "frac")
+            si += 4
+            s.idx, s.n = bi, NH
+            s.p[0] = float(np.float32(mix))
+            prog.ring[bi] = ring.data_ptr()
+            prog.mq[bi], prog.mr[bi], prog.mfr[bi] = (
+                q.data_ptr(), r.data_ptr(), fr.data_ptr())
+            rings.append(ring.view(B, NH + 1, C))
         elif st[0] == "tap":
             ti = int(st[1])
             if not 0 <= ti < MAX_TAP:
@@ -250,8 +251,7 @@ def chain_kernel_call(x: torch.Tensor, stages: tuple, state_in: tuple):
     if any(t is None for t in taps):
         raise ValueError("chain kernel: tap indices must be 0..n_taps-1")
     y = torch.empty_like(x)
-    lib = _lib()
-    rc = lib.chain_kernel_launch(
+    rc = _lib().chain_kernel_launch(
         ctypes.byref(prog), x.data_ptr(), y.data_ptr(), B, T,
         dev.index,
         torch.cuda.current_stream(dev).cuda_stream)

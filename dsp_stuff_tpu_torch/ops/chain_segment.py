@@ -21,16 +21,22 @@ Stage descriptors (static tuples; the compiler builds them in
     ("tap", ti)               -- emit the current flow as output
                                  sequence ti (an intermediate node output
                                  with extra consumers, node.rs:321-325)
-
-The JAX package's ``("mtap", ...)`` stage (the chorus) is not ported yet
-and raises.
+    ("mtap", mix, L, NH, EV, RS)
+                              -- the chorus: a sine-modulated fractional
+                                 tap on the stage input (ops/modfx.py);
+                                 state: FOUR entries, the input history
+                                 [..., L], then the trajectory operands
+                                 q [T//128] int32, r [T] int32 and
+                                 frac [T] f32 from modfx.mtap_shared,
+                                 shared by all streams (never broadcast)
 
 ``chain_segment(x, stages, state_in)`` returns
 ``(y, cascade_infos, comb_hists, taps)``:
 
     cascade_infos -- per cascade stage (s_tm1, s_tm2, x_tm1, x_tm2),
                      everything ops/cascade.cascade_state_out needs;
-    comb_hists    -- per comb stage the new [..., D] history;
+    comb_hists    -- per comb stage the new [..., D] history and per mtap
+                     stage the new [..., L] input history, in stage order;
     taps          -- tuple of [..., T] emitted sequences, tap order.
 
 Dispatch is by device alone: a CUDA tensor goes to the kernel (which
@@ -46,6 +52,7 @@ import torch
 from dsp_stuff_tpu_torch.ops import chain_kernel, shaping
 from dsp_stuff_tpu_torch.ops.cascade import cascade_tail_states, linear_cascade
 from dsp_stuff_tpu_torch.ops.delay_line import feedback_comb
+from dsp_stuff_tpu_torch.ops.modfx import mtap_apply
 
 
 def _ew_fn(kind: str):
@@ -64,11 +71,6 @@ def _ew_fn(kind: str):
 def apply_ew(kind: str, v, params):
     """One elementwise stage on ``v``."""
     return _ew_fn(kind)(v, *(float(np.float32(p)) for p in params))
-
-
-def _mtap_not_ported():
-    return NotImplementedError(
-        "chain_segment: the 'mtap' stage (chorus) is not ported yet")
 
 
 def segment_fallback(x, stages: tuple, state_in: tuple):
@@ -97,10 +99,13 @@ def segment_fallback(x, stages: tuple, state_in: tuple):
             si += 1
             v, nh = feedback_comb(v, st[1], st[2], hist)
             hists.append(nh)
+        elif st[0] == "mtap":
+            hist, q, r, fr = state_in[si:si + 4]
+            si += 4
+            v, nh = mtap_apply(v, hist, q, r, fr, st[1])
+            hists.append(nh)
         elif st[0] == "tap":
             taps[st[1]] = v
-        elif st[0] == "mtap":
-            raise _mtap_not_ported()
         else:
             raise ValueError(f"unknown stage {st[0]!r}")
     return v, tuple(cinfos), tuple(hists), tuple(taps)
@@ -111,8 +116,10 @@ def rebuild_states(stages: tuple, T: int, casc_raw, ring_raw):
 
     casc_raw -- per cascade (carry entering the last block [B, >= N], that
                 block's stage input [B, 128]);
-    ring_raw -- per comb the ring [B, NR, 128], NR = ceil(D/128), slot s
-                holding block b == s (mod NR) of the stage output.
+    ring_raw -- per comb and mtap, in stage order, the ring [B, NR, 128],
+                slot s holding block b == s (mod NR): for a comb
+                NR = ceil(D/128) blocks of the stage output, for an mtap
+                NR = NH + 1 blocks of the stage input.
     T must be a multiple of 128."""
     cinfos = []
     hists = []
@@ -124,20 +131,21 @@ def rebuild_states(stages: tuple, T: int, casc_raw, ring_raw):
             ci += 1
             s1, s2 = cascade_tail_states(st[1], x_last, carry_last)
             cinfos.append((s1, s2, x_last[..., -1], x_last[..., -2]))
-        elif st[0] == "comb":
-            ring = ring_raw[hi]
+        elif st[0] in ("comb", "mtap"):
+            # comb: the last D outputs; mtap: the last L inputs
+            hists.append(ring_history(ring_raw[hi], K, st[2]))
             hi += 1
-            D = st[2]
-            NR = -(-D // 128)
-            # the last NR blocks, oldest first: block K - NR sits in slot
-            # (K - NR) mod NR
-            s_old = (K - NR) % NR
-            lin = torch.roll(ring, -s_old, dims=-2).reshape(
-                *ring.shape[:-2], NR * 128)
-            hists.append(lin[..., -D:])
-        elif st[0] == "mtap":
-            raise _mtap_not_ported()
     return tuple(cinfos), tuple(hists)
+
+
+def ring_history(ring, K: int, n: int):
+    """The last ``n`` samples, oldest first, of a kernel ring [..., NR,
+    128] after K blocks: slot s holds block b == s (mod NR), so the
+    oldest of the last NR blocks, K - NR, sits in slot (K - NR) mod NR."""
+    NR = ring.shape[-2]
+    lin = torch.roll(ring, -((K - NR) % NR), dims=-2).reshape(
+        *ring.shape[:-2], NR * 128)
+    return lin[..., -n:]
 
 
 def chain_segment(x, stages, state_in):
@@ -152,14 +160,33 @@ def chain_segment(x, stages, state_in):
     return _kernel_segment(x, stages, state_in)
 
 
+def _shared_slots(stages: tuple) -> frozenset:
+    """State-entry indices of the mtap trajectory operands (q, r, frac):
+    shared by all streams, they pass to the kernel as they are."""
+    shared = set()
+    si = 0
+    for st in stages:
+        if st[0] in ("cascade", "comb"):
+            si += 1
+        elif st[0] == "mtap":
+            shared.update((si + 1, si + 2, si + 3))
+            si += 4
+    return frozenset(shared)
+
+
 def _kernel_segment(x, stages: tuple, state_in):
-    """The kernel path: leading dimensions flatten into kernel rows (states
-    broadcast to them), and come back on every output."""
+    """The kernel path: leading dimensions flatten into kernel rows
+    (per-stream states broadcast to them), and come back on every
+    output."""
     batch = tuple(x.shape[:-1])
     T = x.shape[-1]
     B = int(np.prod(batch, dtype=np.int64))
+    shared = _shared_slots(stages)
     flat = []
-    for s in state_in:
+    for i, s in enumerate(state_in):
+        if i in shared:
+            flat.append(s)
+            continue
         s = torch.as_tensor(s, dtype=torch.float32, device=x.device)
         flat.append(s.expand(*batch, s.shape[-1]).reshape(B, s.shape[-1]))
     y, casc_raw, ring_raw, taps = chain_kernel.chain_kernel_call(

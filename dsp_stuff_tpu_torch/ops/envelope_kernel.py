@@ -1,0 +1,88 @@
+"""Wrapper of the envelope kernel (csrc/envelope_kernel.cu): bind, launch.
+
+The kernel replaces dsp_stuff_tpu/ops/pallas_envelope.py's two TPU
+kernels: ``peak_envelope_pallas_chunked`` (two passes over chunks) and
+``peak_envelope_pallas`` (one sequential pass, here one chunk of length
+T).  It is CUDA C++ for sm_90a, built by ops/cuda_build.py at first use
+and bound with ``ctypes``.  Nothing is imported, built or loaded when this
+module is imported.
+
+``peak_envelope_cuda`` takes only CUDA tensors and raises on anything the
+kernel cannot take; there is no fallback.  The plain PyTorch versions are
+ops/envelope._chunked_batched and ops/envelope._seq_scan.  ``LAUNCHES``
+counts the kernel's launches (two per chunked call, one per sequential
+call).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from dsp_stuff_tpu_torch.ops import cuda_build
+
+#: launches of the kernel in this process (a test or a smoke run resets it)
+LAUNCHES = 0
+
+
+@functools.lru_cache(maxsize=1)
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("envelope_kernel")
+    lib.envelope_kernel_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.envelope_kernel_launch.restype = ctypes.c_int
+    return lib
+
+
+def _launch(x, chunk: int, P: int, atk: float, rel: float, starts, y):
+    global LAUNCHES
+    B, T = x.shape
+    finals = torch.empty((B, P), dtype=torch.float32, device=x.device)
+    rc = _lib().envelope_kernel_launch(
+        x.data_ptr(), B, T, chunk, P, atk, rel, starts.data_ptr(),
+        finals.data_ptr(), 0 if y is None else y.data_ptr(),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"envelope kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return finals
+
+
+def peak_envelope_cuda(x: torch.Tensor, atk: float, rel: float,
+                       env0: torch.Tensor, chunk: int):
+    """x [B, T] f32 CUDA, contiguous; gains from envelope.gain_from_frames;
+    env0 [B] -> (env [B, T], final [B]).
+
+    ``chunk >= T`` runs the sequential follower (one pass); a shorter
+    chunk the two-pass chunk-parallel one."""
+    if not (isinstance(x, torch.Tensor) and x.is_cuda):
+        raise ValueError("envelope kernel: x must be a CUDA tensor")
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"envelope kernel: x must be a contiguous [B, T] "
+                         f"float32 tensor, got {x.dtype} {tuple(x.shape)}")
+    B, T = x.shape
+    if B < 1 or T < 1 or chunk < 1:
+        raise ValueError(f"envelope kernel: B={B}, T={T}, chunk={chunk} "
+                         f"must be positive")
+    if (not isinstance(env0, torch.Tensor) or env0.shape != (B,)
+            or env0.dtype != torch.float32 or env0.device != x.device
+            or not env0.is_contiguous()):
+        raise ValueError(f"envelope kernel: env0 must be a contiguous "
+                         f"float32 [{B}] tensor on {x.device}")
+    atk, rel = float(np.float32(atk)), float(np.float32(rel))
+    y = torch.empty_like(x)
+    if chunk >= T:
+        fin = _launch(x, T, 1, atk, rel, env0[:, None].contiguous(), y)
+        return y, fin[:, 0]
+    P = -(-T // chunk)
+    starts = torch.zeros((B, P), dtype=torch.float32, device=x.device)
+    starts[:, 0] = env0
+    finals = _launch(x, chunk, P, atk, rel, starts, None)
+    starts2 = torch.cat([env0[:, None], finals[:, :-1]], dim=1).contiguous()
+    fin = _launch(x, chunk, P, atk, rel, starts2, y)
+    return y, fin[:, -1]

@@ -14,7 +14,10 @@ semantics as plain functions on torch tensors:
 * ``init_state(cfg, block_size)``          -> dict of tensors (or None)
 * ``process_seq(params, state, inputs)``   -> (outputs, state)
       full-sequence semantics; signals are tensors shaped ``[..., T]``
-      with any leading batch dimensions.
+      with any leading batch dimensions.  A source that needs the render
+      length (``needs_length = True``, signal_gen) also takes ``T`` and
+      ``block_size``; a node may add ``process_block`` for the per-node
+      feedback-cycle scan (Reverb).
 
 ``params`` maps param name -> resolved value: a per-sample f32 tensor for
 ``as_input`` (modulation) sliders that have a connected source, a python
@@ -143,9 +146,7 @@ class Registry:
 
 #: node types of the JAX package that this package does not implement yet;
 #: naming one raises a KeyError that says so instead of "unknown"
-NOT_PORTED = frozenset((
-    "add", "mix", "mux", "demux", "muff", "envelope", "fir", "chorus",
-    "signal_gen", "wave_view", "spectrogram", "pitch"))
+NOT_PORTED = frozenset(("mux", "demux", "muff", "fir", "pitch"))
 
 REGISTRY = Registry()
 

@@ -229,12 +229,13 @@ def test_kernel_constants_match_jax(sections):
 
 def test_shaper_codes_match_cuda_source():
     """EW_CODES covers every elementwise kind and follows the EW_* codes
-    of csrc/chain_kernel.cu."""
+    of csrc/stages.cuh, the shaper code the chain and cycle kernels
+    share."""
     kinds = {"overdrive", "chebyshev"} | {f"distort:{m}"
                                          for m in tshaping.DISTORT_MODES}
     assert set(tck.EW_CODES) == kinds
     src = (pathlib.Path(tck.__file__).parent.parent / "csrc"
-           / "chain_kernel.cu").read_text()
+           / "stages.cuh").read_text()
     defs = dict((int(n), name) for name, n in
                 re.findall(r"#define EW_(\w+) (\d+)", src))
     assert len(defs) == len(tck.EW_CODES)
@@ -254,14 +255,22 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_mtap_stage_not_ported():
+    """The mtap stage is ported: the plain composition runs it, and the
+    kernel wrapper takes the stage kind but refuses a CPU tensor (and an
+    unknown stage kind) before anything launches."""
     stages = (("mtap", 0.5, 700, 6, 3, 200),)
     x = torch.zeros((2, 256))
-    with pytest.raises(NotImplementedError, match="mtap"):
+    before = tck.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
         tck.chain_kernel_call(x, stages, ())
-    with pytest.raises(NotImplementedError, match="mtap"):
-        tcs.segment_fallback(x, stages, ())
-    with pytest.raises(NotImplementedError, match="mtap"):
-        tcs.rebuild_states(stages, 256, (), ())
+    with pytest.raises(ValueError, match="unknown stage"):
+        tck.chain_kernel_call(x, (("ntap",),), ())
+    assert tck.LAUNCHES == before
+    q = torch.full((2,), 40, dtype=torch.int32)
+    r = torch.zeros((256,), dtype=torch.int32)
+    y, _, hists, _ = tcs.segment_fallback(
+        x + 1.0, stages, (torch.zeros(700), q, r, torch.zeros(256)))
+    assert y.shape == (2, 256) and hists[0].shape == (2, 700)
 
 
 @pytest.mark.parametrize("batch", [(), (2, 3)])
