@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from csrc/ with nvcc (one nvcc per
+Builds the port's four CUDA kernels from csrc/ with nvcc (one nvcc per
 source, all started together) and holds each against its plain PyTorch
 version on the card: the chain kernel (with its mtap stage), the cycle
-kernel and the envelope kernel (chunked and sequential).  Then it drives
-the port's two main paths through ``compile_graph(..., device="cuda")``
-and ``render``:
+kernel, the envelope kernel (chunked and sequential) and the first-order
+recurrence kernel (forward, reverse and per-sample, each also against a
+float64 solve, and its autograd Function against the float64 one).  Then
+it drives the port's main paths through ``compile_graph(...,
+device="cuda")``:
 
 * the 10-node bench chain over 512 streams x 10 s at 48 kHz, with the
   chain kernel's launch count, the NumPy oracle, the state handoff and
@@ -18,10 +20,18 @@ and ``render``:
   oracle, a 2 x 5 s handoff and the parity policy (4 streams x 1 s, the
   sequential envelope kernel's path, where that kernel is also held
   against its plain version at that shape);
+* gradient fitting (train/fit.py) of the bench chain's 16 sliders: one
+  loss gradient at 2 streams x 1 s against the CPU port, then five Adam
+  steps over 128 streams x 10 s with the first-order kernel's launch count
+  (two solves forward, two backward per step) and no plain version
+  called; and the graph input -> gain -> envelope -> output, whose
+  gradient at 2 x 2 s is held against the CPU port and is taken once at
+  128 x 10 s (the chunked envelope kernel forward, the per-sample
+  first-order kernel backward);
 
-and times every kernel against its plain version and the whole config5
-render at 128 and 512 streams.  Every phase raises on failure.  Needs a
-CUDA device; imports nothing of JAX.
+and times every kernel against its plain version, the whole config5
+render at 128 and 512 streams, and the training step.  Every phase raises
+on failure.  Needs a CUDA device; imports nothing of JAX.
 
 Output: progress lines, then one JSON line with the per-kernel record,
 then the card's identity as the last line.  Error figures are in dBFS:
@@ -50,6 +60,14 @@ PARITY_DB = -90.0         # parity policy vs the oracle (README bound)
 N_TIMED = 5
 N_TIMED_SLOW = 2          # plain versions that loop over time in Python
 B_C5, B_C5_WIDE = 128, 512
+FO_F64_DB = -90.0         # first-order kernel vs the float64 solve
+FO_VS_PLAIN_DB = 6.0      # ... and at most this much worse than plain f32
+FO_GRAD_RTOL = 1e-4       # its Function's gradients vs the float64 one
+FO_COEFFS = (0.2, 0.6, 0.9, 0.99)
+FIT_GRAD_RTOL = 1e-3      # fitting gradients, card vs CPU port
+FIT_GRAD_ATOL = 1e-6      # ... for a gradient that is about 0
+B_FIT = 128               # the training steps' streams (x 10 s)
+N_STEPS = 5
 
 
 def dbfs(got, want) -> float:
@@ -340,29 +358,44 @@ def oracle_config5(x):
     return h([bq])
 
 
-def reset_launches():
+def _kernel_modules():
     from dsp_stuff_tpu_torch.ops import (chain_kernel, cycle_kernel,
-                                         envelope_kernel)
-    for m in (chain_kernel, cycle_kernel, envelope_kernel):
+                                         envelope_kernel, first_order_kernel)
+    return {"chain": chain_kernel, "cycle": cycle_kernel,
+            "envelope": envelope_kernel, "first_order": first_order_kernel}
+
+
+def reset_launches():
+    for m in _kernel_modules().values():
         m.LAUNCHES = 0
 
 
 def read_launches():
-    from dsp_stuff_tpu_torch.ops import (chain_kernel, cycle_kernel,
-                                         envelope_kernel)
-    return {"chain": chain_kernel.LAUNCHES, "cycle": cycle_kernel.LAUNCHES,
-            "envelope": envelope_kernel.LAUNCHES}
+    return {k: m.LAUNCHES for k, m in _kernel_modules().items()}
+
+
+def only_launches(**launches):
+    """The launch counts of a run that launched only ``launches``."""
+    out = {k: 0 for k in _kernel_modules()}
+    out.update(launches)
+    return out
 
 
 @contextlib.contextmanager
-def plain_versions_counted(counts: dict):
+def plain_versions_counted(counts: dict, first_order: bool = False):
     """Count calls of the kernels' plain versions while the block runs
-    (the main path on the card must call none of them)."""
+    (the main path on the card must call none of them).  ``first_order``
+    adds the first-order kernel's plain versions (a render calls
+    _first_order_blocked for a concrete degenerate biquad, which takes no
+    kernel in either package)."""
     from dsp_stuff_tpu_torch.ops import (chain_segment, cycle_segment,
-                                         envelope)
+                                         envelope, scan)
     targets = [(chain_segment, "segment_fallback"),
                (cycle_segment, "interpret"), (envelope, "_chunked_batched"),
                (envelope, "_seq_scan")]
+    if first_order:
+        targets += [(scan, "_first_order_blocked"),
+                    (scan, "_first_order_scan")]
     saved = [(m, n, getattr(m, n)) for m, n in targets]
 
     def counting(name, fn):
@@ -412,6 +445,275 @@ def cuda_ms(fn, n=N_TIMED):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def dbfs_dev(got, want) -> float:
+    """dbfs of two tensors on the card, in float64 (no host copy)."""
+    err = float((got.double() - want.double()).abs().max())
+    ref = float(want.double().abs().max())
+    return 20.0 * np.log10(max(err, 1e-30) / max(ref, 1e-30))
+
+
+def fo_inputs(a_val, B, T, seed, dev, per_sample):
+    """(a, b, y0) of a first-order check from a seeded card generator:
+    b = 0.3 N(0, 1), y0 = N(0, 1) (not 0); a the scalar a_val as a 0-d
+    card tensor, or per sample a_val * U(0.9, 1)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = torch.randn((B, T), generator=gen, device=dev) * 0.3
+    y0 = torch.randn((B,), generator=gen, device=dev)
+    if per_sample:
+        a = a_val * (0.9 + 0.1 * torch.rand((B, T), generator=gen,
+                                            device=dev))
+    else:
+        a = torch.full((), a_val, device=dev)
+    return a, b, y0
+
+
+def fo_plain(a, b, y0, reverse, dtype):
+    """The first-order kernel's plain version in ``dtype`` (float64: the
+    reference solve); ``reverse`` on the time-flipped arrays."""
+    from dsp_stuff_tpu_torch.ops import scan
+    return scan.first_order_plain(a.to(dtype), b.to(dtype), y0.to(dtype),
+                                  reverse)
+
+
+def fo_check(a_val, form, B, T, seed, dev, vs_plain=True):
+    """The first-order kernel and its plain f32 version, each against the
+    float64 solve; returns the largest absolute kernel - plain error.
+    ``vs_plain`` also bounds the kernel against the plain version's
+    error."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import first_order_kernel
+    per_sample, reverse = "per-sample" in form, "reverse" in form
+    a, b, y0 = fo_inputs(a_val, B, T, seed, dev, per_sample)
+    k = first_order_kernel.first_order_cuda(a, b, y0, reverse)
+    p = fo_plain(a, b, y0, reverse, torch.float32)
+    ref = fo_plain(a, b, y0, reverse, torch.float64)
+    torch.cuda.synchronize()
+    dk, dp = dbfs_dev(k, ref), dbfs_dev(p, ref)
+    abs_err = float((k - p).abs().max())
+    print(f"  a={a_val:<5} {form:19s} vs f64: kernel {dk:7.1f} dBFS, plain "
+          f"f32 {dp:7.1f} dBFS; kernel - plain max abs {abs_err:.2e}")
+    check(bool(torch.isfinite(k).all()), f"first-order {form} a={a_val}: "
+                                         f"kernel output not finite")
+    check(dk <= FO_F64_DB, f"first-order {form} a={a_val}: kernel {dk:.1f} "
+                           f"dBFS vs f64 > {FO_F64_DB}")
+    check(not vs_plain or dk <= dp + FO_VS_PLAIN_DB,
+          f"first-order {form} a={a_val}: kernel {dk:.1f} dBFS is more than "
+          f"{FO_VS_PLAIN_DB} dB worse than plain f32 ({dp:.1f})")
+    return abs_err
+
+
+def fo_function_check(a_val, B, T, seed, dev):
+    """FirstOrderAffine's gradients (abar, bbar, y0bar) under ``fast`` on
+    the card (the kernel forward and reverse) against the float64 plain
+    Function under ``parity``; returns the worst relative error."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import scan
+    a, b, y0 = fo_inputs(a_val, B, T, seed, dev, False)
+    ybar = torch.randn((B, T), generator=torch.Generator(
+        device=dev).manual_seed(seed + 1), device=dev)
+    grads = {}
+    for pol, dtype in (("fast", torch.float32), ("parity", torch.float64)):
+        ins = [v.detach().to(dtype).requires_grad_(True)
+               for v in (a, b, y0)]
+        with dst.policy(pol):
+            y = scan.FirstOrderAffine.apply(*ins)
+            (y * ybar.to(dtype)).sum().backward()
+        grads[pol] = [v.grad for v in ins]
+    errs = [float((g.double() - r).abs().max() / r.abs().max())
+            for g, r in zip(grads["fast"], grads["parity"])]
+    print(f"  a={a_val:<5} Function gradients vs f64: abar {errs[0]:.2e}, "
+          f"bbar {errs[1]:.2e}, y0bar {errs[2]:.2e} (relative)")
+    check(max(errs) <= FO_GRAD_RTOL, f"FirstOrderAffine a={a_val}: gradient "
+                                     f"error {max(errs):.2e} > {FO_GRAD_RTOL}")
+    return max(errs)
+
+
+def envelope_graph():
+    """input -> gain -> envelope -> output (tests/test_fit.py:130)."""
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ids import IdSpace
+    g = dst.Graph(IdSpace())
+    inp = g.add("input")
+    gn = g.add("gain", level=0.5)
+    en = g.add("envelope", attack=10.0, release=60.0)
+    out = g.add("output")
+    g.chain(inp, gn, en, out)
+    return g
+
+
+def hidden_params(cg, **values):
+    """cg.init_params() with the first slider of each named node type set:
+    values maps cfg_name -> (param, value)."""
+    import torch
+    p = cg.init_params()
+    for cfg, (name, v) in values.items():
+        nid = next(str(n.id) for n in cg.graph.nodes.values()
+                   if n.cfg_name == cfg)
+        p[nid][name] = torch.tensor(v, device=cg.device)
+    return p
+
+
+def render_target(cg, ext, params):
+    """The graph's outputs [..., n_out, T] for ``params``, without grad."""
+    import torch
+    with torch.no_grad():
+        _, outs, _ = cg.fn(cg.init_state(), ext, params)
+        return torch.stack([outs[i] for i in cg.output_ids], dim=-2)
+
+
+def loss_grads(cg, ext, target):
+    """(loss, {node/param: gradient}) of make_loss_fn at the graph's own
+    slider values."""
+    from dsp_stuff_tpu_torch.train import fit
+    p = cg.init_params(requires_grad=True)
+    loss = fit.make_loss_fn(cg)(p, cg.init_state(), ext, target)
+    loss.backward()
+    return loss.detach(), {f"{n}/{k}": v.grad for n, e in sorted(p.items())
+                           for k, v in sorted(e.items())}
+
+
+def grads_card_vs_cpu(name, graph, x_np, hidden):
+    """One loss gradient of every slider on the card against the CPU port
+    (its plain versions), the target rendered on the CPU from ``hidden``."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    cgs = {d: dst.compile_graph(graph, device=d) for d in ("cpu", "cuda")}
+    inp = str(cgs["cpu"].input_ids[0])
+    tgt = render_target(cgs["cpu"], {inp: torch.from_numpy(x_np)},
+                        hidden_params(cgs["cpu"], **hidden))
+    got = {}
+    for d, cg in cgs.items():
+        got[d] = loss_grads(cg, {inp: torch.as_tensor(x_np, device=d)},
+                            tgt.to(d))
+    worst = 0.0
+    for key, w in got["cpu"][1].items():
+        g, w = float(got["cuda"][1][key]), float(w)
+        worst = max(worst, abs(g - w) / max(abs(w), 1e-30))
+        check(abs(g - w) <= max(FIT_GRAD_RTOL * abs(w), FIT_GRAD_ATOL),
+              f"{name}: gradient of {key} {g:.6e} on the card vs {w:.6e} on "
+              f"the CPU")
+    print(f"{name}, B={x_np.shape[0]} x {x_np.shape[-1] / SR:g} s: "
+          f"{len(got['cpu'][1])} slider gradients, card vs CPU port worst "
+          f"relative {worst:.2e}; loss {float(got['cuda'][0]):.6e} / "
+          f"{float(got['cpu'][0]):.6e}")
+
+
+def fit_phase(dev, card) -> dict:
+    """Gradient fitting on the card (train/fit.py), then the first-order
+    kernel's times.  Returns the kernel's launches over the training
+    steps and its (kernel, plain) ms."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import first_order_kernel
+    from dsp_stuff_tpu_torch.train import fit
+    out = {}
+    rngf = np.random.default_rng(12)
+    bench_hidden = {"gain": ("level", 2.0), "low_pass": ("ratio", 0.7)}
+    with dst.policy("fast"):
+        # -- 12. (a) one loss gradient, card vs CPU port ------------------
+        grads_card_vs_cpu(
+            "bench chain fit", bench_graph(),
+            (rngf.standard_normal((2, SR)) * 0.25).astype(np.float32),
+            bench_hidden)
+
+        # -- 12. (b) five Adam steps at B_FIT x 10 s ----------------------
+        cg = dst.compile_graph(bench_graph(), device="cuda")
+        inp = str(cg.input_ids[0])
+        gen = torch.Generator(device=dev).manual_seed(13)
+        ext = {inp: torch.randn((B_FIT, T_MAIN), generator=gen,
+                                device=dev) * 0.25}
+        target = render_target(cg, ext, hidden_params(cg, **bench_hidden))
+        params = cg.init_params(requires_grad=True)
+        step, init_opt = fit.make_train_step(cg, fit.adam(0.03))
+        opt = init_opt(params)
+        state = cg.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, launches, plain = [], [], [], {}
+        with plain_versions_counted(plain, first_order=True):
+            for _ in range(N_STEPS):
+                reset_launches()
+                t0 = time.time()
+                params, opt, loss = step(params, opt, state, ext, target)
+                torch.cuda.synchronize()
+                secs.append(time.time() - t0)
+                launches.append(read_launches())
+                losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated()
+        print(f"main path (bench chain fit): {N_STEPS} Adam steps over "
+              f"[{B_FIT}, {T_MAIN}], losses {losses}, step times "
+              f"{[round(t, 4) for t in secs]} s, launches per step "
+              f"{launches[-1]}, plain versions called {plain}")
+        check(not plain, f"the training steps called plain versions {plain}")
+        check(all(la == only_launches(first_order=4) for la in launches),
+              f"launches per step {launches}: expected the first-order "
+              f"kernel twice forward and twice backward")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"training losses {losses} are not finite and falling")
+        check(all(bool(torch.isfinite(v).all())
+                  for e in params.values() for v in e.values()),
+              "fitted sliders not finite")
+        out["launches"] = sum(la["first_order"] for la in launches)
+        print(f"training step (bench chain, 16 sliders): median "
+              f"{np.median(secs) * 1e3:.3f} ms at B={B_FIT} x 10 s, peak "
+              f"device memory {peak / 2**30:.3f} GiB [{card}]")
+        del ext, target, params, opt, cg
+        torch.cuda.empty_cache()
+
+        # -- 12. (c) through the envelope ---------------------------------
+        grads_card_vs_cpu(
+            "envelope graph fit", envelope_graph(),
+            (rngf.standard_normal((2, 2 * SR)) * 0.5).astype(np.float32),
+            {"gain": ("level", 1.7)})
+        cg = dst.compile_graph(envelope_graph(), device="cuda")
+        inp = str(cg.input_ids[0])
+        ext = {inp: torch.randn((B_FIT, T_MAIN), generator=gen,
+                                device=dev) * 0.5}
+        target = render_target(cg, ext, hidden_params(
+            cg, gain=("level", 1.7)))
+        torch.cuda.synchronize()
+        plain = {}
+        reset_launches()
+        t0 = time.time()
+        with plain_versions_counted(plain, first_order=True):
+            loss, grads = loss_grads(cg, ext, target)
+            torch.cuda.synchronize()
+        sec = time.time() - t0
+        env_launches = read_launches()
+        print(f"main path (envelope graph fit): loss gradient over "
+              f"[{B_FIT}, {T_MAIN}] in {sec * 1e3:.3f} ms (first call), "
+              f"launches {env_launches}, plain versions called {plain}, "
+              f"gradients { {k: float(v) for k, v in grads.items()} } "
+              f"[{card}]")
+        check(not plain, f"the envelope fit called plain versions {plain}")
+        check(env_launches == only_launches(envelope=2, first_order=1),
+              f"envelope fit launched {env_launches}: expected the two "
+              f"chunked envelope passes and one per-sample first-order "
+              f"solve")
+        check(bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(v)) for v in grads.values()),
+            "envelope fit: loss or gradients not finite")
+        out["launches"] += env_launches["first_order"]
+        del ext, target, cg
+
+    # -- 13. times of the first-order kernel at the fit's shape -------------
+    times = {}
+    for name, per_sample, reverse in (("scalar forward", False, False),
+                                      ("per-sample reverse", True, True)):
+        a, b, y0 = fo_inputs(0.6, B_FIT, T_MAIN, 300, dev, per_sample)
+        times[name] = (
+            cuda_ms(lambda: first_order_kernel.first_order_cuda(
+                a, b, y0, reverse)),
+            cuda_ms(lambda: fo_plain(a, b, y0, reverse, torch.float32)))
+        print(f"first-order kernel, {name}: kernel {times[name][0]:.3f} ms, "
+              f"plain {times[name][1]:.3f} ms at B={B_FIT} x 10 s [{card}]")
+        del a, b, y0
+    out["fo_times"] = times["scalar forward"]
+    return out
 
 
 def main() -> int:
@@ -511,6 +813,18 @@ def main() -> int:
                                        ch_k, ch_p)
         del ch_k, ch_p, seq_k, seq_p
 
+        print(f"first-order kernel vs plain f32 vs float64, B={B_C5}, "
+              f"T={T_MAIN}:")
+        rec["fo_err"] = max(
+            fo_check(a, form, B_C5, T_MAIN, 100 + i, dev)
+            for i, a in enumerate(FO_COEFFS)
+            for form in ("forward", "reverse", "per-sample forward",
+                         "per-sample reverse"))
+        rec["fo_grad_err"] = max(fo_function_check(a, B_C5, T_MAIN, 200 + i,
+                                                   dev)
+                                 for i, a in enumerate(FO_COEFFS))
+        torch.cuda.empty_cache()
+
         # -- 4. the bench chain's main path -------------------------------
         g = bench_graph()
         cg = dst.compile_graph(g, device="cuda")
@@ -526,7 +840,7 @@ def main() -> int:
         bench_launches = read_launches()
         print(f"main path (bench chain): render [{B_MAIN}, 1, {T_MAIN}] in "
               f"{wall:.3f} s (first call), launches {bench_launches}")
-        check(bench_launches == {"chain": 1, "cycle": 0, "envelope": 0},
+        check(bench_launches == only_launches(chain=1),
               f"bench chain launched {bench_launches}, expected one chain "
               f"kernel launch")
         check(tuple(outs.shape) == (B_MAIN, 1, T_MAIN),
@@ -589,7 +903,7 @@ def main() -> int:
               f"versions called {plain}")
         check(not plain, f"config5's main path called plain versions "
                          f"{plain}")
-        check(c5_launches == {"chain": 1, "cycle": 1, "envelope": 2},
+        check(c5_launches == only_launches(chain=1, cycle=1, envelope=2),
               f"config5 launched {c5_launches}, expected one chain (mtap) "
               f"and one cycle launch and the two chunked envelope passes")
         check(tuple(y5.shape) == (B_C5, 1, T_MAIN),
@@ -610,7 +924,7 @@ def main() -> int:
 
     # -- 10. config5 parity (the sequential envelope kernel's path) -----------
     par_launches = parity(g5, x5_np[:4, :, :SR], oracle_config5, "config5")
-    check(par_launches == {"chain": 0, "cycle": 0, "envelope": 1},
+    check(par_launches == only_launches(envelope=1),
           f"config5 parity launched {par_launches}, expected one "
           f"sequential envelope launch")
     # the sequential kernel against _seq_scan at the shape that path gives
@@ -688,6 +1002,10 @@ def main() -> int:
               f"{b_ * T_MAIN / SR / (t / 1e3):,.0f} audio-s/s at B={b_} x "
               f"10 s [{card}]")
 
+    del x5
+    torch.cuda.empty_cache()
+    fit_rec = fit_phase(dev, card)
+
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",
                 "source": f"dsp_stuff_tpu_torch/csrc/{source}",
@@ -710,6 +1028,9 @@ def main() -> int:
         entry("envelope_kernel:sequential", "envelope_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_envelope.py:65",
               par_launches["envelope"], rec["seq_err"], times["env_seq"]),
+        entry("first_order_kernel", "first_order_kernel.cu",
+              "dsp_stuff_tpu/ops/pallas_scan.py:102",
+              fit_rec["launches"], rec["fo_err"], fit_rec["fo_times"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,15 +8,18 @@ kernels in place of the JAX package's Pallas TPU kernels.
 The port carries the bench chain (input -> gain -> biquad -> overdrive ->
 low_pass -> high_pass -> distort -> chebyshev -> reverb -> output) and the
 presets config1, config2 and config5 (models/presets.py), feedback cycles
-included, with three CUDA kernels: the chain kernel
-(csrc/chain_kernel.cu, with the chorus's mtap stage), the cycle kernel
-(csrc/cycle_kernel.cu) and the envelope kernel (csrc/envelope_kernel.cu).
+included, and gradient fitting of a graph's sliders (train), with four
+CUDA kernels: the chain kernel (csrc/chain_kernel.cu, with the chorus's
+mtap stage), the cycle kernel (csrc/cycle_kernel.cu), the envelope kernel
+(csrc/envelope_kernel.cu) and the first-order recurrence kernel
+(csrc/first_order_kernel.cu, forward and backward of the fitted filters).
 ROADMAP.md lists what is still to port.
 
 Public API:
     Graph, load_graph, loads_graph, save_graph, dumps_graph
     compile_graph, CompiledGraph       -- graph -> render program on a device
     render                             -- one-call offline render
+    train.fit                          -- fit, make_train_step, make_loss_fn
     policy, get_policy, set_policy     -- precision policy ('fast', 'parity')
     REGISTRY                           -- the port's node-type registry
 """
@@ -31,13 +34,14 @@ from dsp_stuff_tpu_torch.runtime.session import render
 
 # Importing the node library registers every ported node type.
 import dsp_stuff_tpu_torch.nodes  # noqa: F401
+from dsp_stuff_tpu_torch import train
 
 BLOCK_SIZE = 128        # reference block size (node.rs:257 BUF_SIZE)
 SAMPLE_RATE = 48_000    # reference fixed rate (devices.rs:281, README.md:48)
 
 __all__ = [
     "Graph", "load_graph", "loads_graph", "save_graph", "dumps_graph",
-    "compile_graph", "CompiledGraph", "render",
+    "compile_graph", "CompiledGraph", "render", "train",
     "REGISTRY", "PrecisionPolicy", "get_policy", "set_policy", "policy",
     "BLOCK_SIZE", "SAMPLE_RATE",
 ]

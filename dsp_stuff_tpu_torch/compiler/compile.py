@@ -384,14 +384,16 @@ class CompiledGraph:
                     for nid in comp for port in self._nodes[nid].spec.outputs}
         return out
 
-    def init_params(self) -> dict:
+    def init_params(self, requires_grad: bool = False) -> dict:
         """{node_id: {param: f32 scalar tensor}} holding every non-static
-        slider at the graph's value.  Pass (a changed copy of) it as
-        ``render(params=...)`` to override the graph's values."""
+        slider at the graph's value: leaf tensors on the graph's device,
+        which an optimizer takes (train/fit.py).  Pass (a changed copy of)
+        it as ``render(params=...)`` to override the graph's values."""
         out = {}
         for nid, node in self._nodes.items():
             entry = {p.name: torch.tensor(float(np.float32(node.params[p.name])),
-                                          dtype=_F32, device=self.device)
+                                          dtype=_F32, device=self.device,
+                                          requires_grad=requires_grad)
                      for p in node.spec.params
                      if isinstance(p, ParamSpec) and not p.static}
             if entry:
@@ -526,23 +528,31 @@ class CompiledGraph:
 
     # -- evaluation ---------------------------------------------------------
 
+    def _override(self, v, what: str):
+        """An override slider: a tensor stays a tensor (on this graph's
+        device, f32, its autograd history kept), anything else a float."""
+        if isinstance(v, torch.Tensor):
+            return self._on_device(v, what)
+        return float(v)
+
     def _resolve_params(self, node: GraphNode, in_sigs: dict, pdict):
         """params dict with modulation ports resolved; in_sigs maps port ->
         (avg signal, n_connected); pdict (if given) overrides non-static
-        sliders."""
+        sliders, its tensors passed through to the nodes unchanged."""
         over = (pdict or {}).get(str(node.id), {})
         params: dict[str, Any] = {}
         for p in node.spec.params:
+            what = f"params[{str(node.id)!r}][{p.name!r}]"
             if isinstance(p, ParamSpec) and p.as_input:
                 sig, n = in_sigs.get(p.name, (None, 0))
                 if n > 0:
                     params[p.name] = _map_mod(sig, p)
                 elif p.name in over:
-                    params[p.name] = float(over[p.name])
+                    params[p.name] = self._override(over[p.name], what)
                 else:
                     params[p.name] = float(node.params[p.name])
             elif isinstance(p, ParamSpec) and p.name in over:
-                params[p.name] = float(over[p.name])
+                params[p.name] = self._override(over[p.name], what)
             else:
                 params[p.name] = node.params[p.name]
         return params

@@ -41,11 +41,14 @@ def state_from_jax(tree: dict, device) -> dict:
     return _tree(tree, lambda v: _leaf_to_torch(v, device))
 
 
-def params_from_jax(tree: dict, device) -> dict:
+def params_from_jax(tree: dict, device, requires_grad: bool = False) -> dict:
     """The port's params from a JAX ``CompiledGraph.init_params()`` tree
-    (NumPy leaves): f32 scalar tensors on ``device``."""
+    (NumPy leaves): f32 scalar leaf tensors on ``device``, as
+    ``CompiledGraph.init_params`` makes them, so a fit in either package
+    can start from the same numbers."""
     return _tree(tree, lambda v: torch.tensor(
-        np.asarray(v, np.float32), device=device))
+        np.asarray(v, np.float32), device=device,
+        requires_grad=requires_grad))
 
 
 def state_to_numpy(state: dict) -> dict:

@@ -55,7 +55,9 @@ class Reverb:
         idx = (pos + torch.arange(T, device=x.device)) % D
         batch = torch.broadcast_shapes(x.shape[:-1], ring.shape[:-1])
         ring = ring.expand(*batch, D).clone()
-        decay = float(np.float32(params["decay"]))
+        decay = params["decay"]
+        if not isinstance(decay, torch.Tensor):
+            decay = float(np.float32(decay))
         y = x + ring[..., idx] * decay
         ring[..., idx] = y.expand(*batch, T)
         return {"out": y}, {"ring": ring, "pos": (pos + T) % D}

@@ -1,5 +1,9 @@
 """Filter nodes: BiQuad, LowPass, HighPass, Envelope.  Fir is
-registry.NOT_PORTED."""
+registry.NOT_PORTED.
+
+A slider is a Python float (the graph's value: host-constant solves) or,
+from ``render(params=...)`` and the fitting path, a 0-d tensor that may
+require grad, which each node keeps a tensor (no host read)."""
 
 from __future__ import annotations
 
@@ -13,6 +17,18 @@ from dsp_stuff_tpu_torch.ops.scan import first_order_affine, biquad_df1
 
 def _zero():
     return torch.zeros((), dtype=torch.float32)
+
+
+def _ratio(params):
+    r = params["ratio"]
+    return r.to(torch.float32) if isinstance(r, torch.Tensor) else float(r)
+
+
+def _one_minus(r):
+    """1 - r in f32 (a tensor ratio stays a tensor)."""
+    if isinstance(r, torch.Tensor):
+        return 1.0 - r
+    return float(np.float32(1.0) - np.float32(r))
 
 
 @register_node(
@@ -40,9 +56,17 @@ class BiQuad:
     @staticmethod
     def process_seq(params, state, inputs):
         # f32 division by a0 as in regenerate_filter (biquad.rs:64-71)
-        raw = [float(params[k]) for k in ("a0", "a1", "a2", "b0", "b1", "b2")]
-        a0 = np.float32(raw[0])
-        a1, a2, b0, b1, b2 = (np.float32(np.float32(v) / a0) for v in raw[1:])
+        raw = [params[k] for k in ("a0", "a1", "a2", "b0", "b1", "b2")]
+        if any(isinstance(v, torch.Tensor) for v in raw):
+            x = inputs["in"]
+            a0 = torch.as_tensor(raw[0], dtype=torch.float32, device=x.device)
+            a1, a2, b0, b1, b2 = (torch.as_tensor(v, dtype=torch.float32,
+                                                  device=x.device) / a0
+                                  for v in raw[1:])
+        else:
+            a0 = np.float32(raw[0])
+            a1, a2, b0, b1, b2 = (np.float32(np.float32(v) / a0)
+                                  for v in raw[1:])
         y, (x1, x2, y1, y2) = biquad_df1(
             inputs["in"], a1, a2, b0, b1, b2,
             (state["x1"], state["x2"], state["y1"], state["y2"]))
@@ -69,9 +93,8 @@ class LowPass:
 
     @staticmethod
     def process_seq(params, state, inputs):
-        r = float(params["ratio"])
-        b = inputs["in"] * float(np.float32(1.0) - np.float32(r))
-        y = first_order_affine(r, b, state["z"])
+        r = _ratio(params)
+        y = first_order_affine(r, inputs["in"] * _one_minus(r), state["z"])
         return {"out": y}, {"z": y[..., -1]}
 
 
@@ -91,9 +114,8 @@ class HighPass:
     @staticmethod
     def process_seq(params, state, inputs):
         x = inputs["in"]
-        r = float(params["ratio"])
-        z = first_order_affine(
-            r, x * float(np.float32(1.0) - np.float32(r)), state["z"])
+        r = _ratio(params)
+        z = first_order_affine(r, x * _one_minus(r), state["z"])
         return {"out": x - z}, {"z": z[..., -1]}
 
 
@@ -118,7 +140,9 @@ class Envelope:
         # clamp to the sliders' 0..1000 frames (envelope.rs): a frame count
         # below 0 would make exp(-1/f) > 1, an amplifying recurrence the
         # reference node cannot express
-        atk = float(np.clip(np.float32(params["attack"]), 0.0, 1000.0))
-        rel = float(np.clip(np.float32(params["release"]), 0.0, 1000.0))
+        atk, rel = (torch.clamp(v.to(torch.float32), 0.0, 1000.0)
+                    if isinstance(v, torch.Tensor)
+                    else float(np.clip(np.float32(v), 0.0, 1000.0))
+                    for v in (params["attack"], params["release"]))
         y, env = peak_envelope(inputs["in"], atk, rel, state["env"])
         return {"out": y}, {"env": env}

@@ -160,6 +160,19 @@ def chain_segment(x, stages, state_in):
     return _kernel_segment(x, stages, state_in)
 
 
+def refuse_grad(what: str, tensors) -> None:
+    """The chain and cycle kernels have no backward (the JAX package's
+    custom_vjp over a fused segment is not ported): a CUDA input that
+    carries autograd history raises rather than cut the gradient.  A fit
+    overrides every slider, so its nodes never fuse."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"gradients through {what} on the card are not ported; pass "
+            f"every slider of the graph as a tensor (init_params) so that "
+            f"its nodes run unfused")
+
+
 def _shared_slots(stages: tuple) -> frozenset:
     """State-entry indices of the mtap trajectory operands (q, r, frac):
     shared by all streams, they pass to the kernel as they are."""
@@ -178,6 +191,7 @@ def _kernel_segment(x, stages: tuple, state_in):
     """The kernel path: leading dimensions flatten into kernel rows
     (per-stream states broadcast to them), and come back on every
     output."""
+    refuse_grad("a fused chain segment", (x, *state_in))
     batch = tuple(x.shape[:-1])
     T = x.shape[-1]
     B = int(np.prod(batch, dtype=np.int64))

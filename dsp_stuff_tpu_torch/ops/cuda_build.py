@@ -26,7 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 #: the kernel sources, by name
-KERNELS = ("chain_kernel", "cycle_kernel", "envelope_kernel")
+KERNELS = ("chain_kernel", "cycle_kernel", "envelope_kernel",
+           "first_order_kernel")
 
 
 def _nvcc() -> str:

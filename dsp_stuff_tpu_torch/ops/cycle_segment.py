@@ -54,7 +54,8 @@ import torch
 from dsp_stuff_tpu_torch.ops import cycle_kernel
 from dsp_stuff_tpu_torch.ops.cascade import (_cascade_constants,
                                              cascade_tail_states)
-from dsp_stuff_tpu_torch.ops.chain_segment import apply_ew, ring_history
+from dsp_stuff_tpu_torch.ops.chain_segment import (apply_ew, refuse_grad,
+                                                   ring_history)
 from dsp_stuff_tpu_torch.ops.scan import _const
 
 C = 128
@@ -201,6 +202,7 @@ def _kernel_cycle(exts, regs0, states, program, n_taps):
     """The kernel path: leading dimensions flatten into kernel rows
     (registers and states broadcast to them) and come back on every
     output."""
+    refuse_grad("a feedback cycle's block program", (*exts, *regs0, *states))
     dev = exts[0].device
     batch = tuple(_batch_of(exts, regs0, states))
     T = exts[0].shape[-1]

@@ -19,16 +19,24 @@ runs sample by sample (`_seq_scan`).
 Dispatch is by device: a CPU tensor takes those plain PyTorch versions, a
 CUDA tensor the envelope kernel (ops/envelope_kernel.py), which computes
 the same recurrence with the same roundings, chunked or in one sequential
-chunk; there is no fallback.  The analytic backward of the JAX package
-(``_env_core_bwd``) belongs to the training path and is not ported.
+chunk; there is no fallback.
+
+``EnvCore`` makes the follower differentiable with the JAX package's
+analytic adjoint (``_env_core_bwd``): with g_t the gain the forward chose
+at step t, the cotangent obeys the LINEAR reverse recurrence
+lam_t = ybar_t + g_{t+1} lam_{t+1}, a time-varying first-order solve
+(ops/scan.first_order_solve: the first-order kernel on the card).  Frame
+counts that are tensors (fitted sliders) give tensor gains; the kernels
+take their gains as host floats, read once per render.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from dsp_stuff_tpu_torch.ops import envelope_kernel
+from dsp_stuff_tpu_torch.ops import envelope_kernel, scan
 from dsp_stuff_tpu_torch.utils.precision import get_policy
 
 _F32 = torch.float32
@@ -43,11 +51,20 @@ _CHUNK = 32768
 _MAX_CHUNKED_FRAMES = 1500.0
 
 
-def gain_from_frames(frames) -> float:
-    """exp(-1/frames) in NumPy f32 on the host; 0 when frames == 0
-    (dasp_envelope calc_gain).  The recurrence amplifies a 1-ulp gain
-    difference over thousands of samples, so the gain is one host
-    constant, identical on every device, never a device exp."""
+def gain_from_frames(frames):
+    """exp(-1/frames); 0 when frames == 0 (dasp_envelope calc_gain).
+
+    A concrete frame count gives a NumPy f32 host float: the recurrence
+    amplifies a 1-ulp gain difference over thousands of samples, so the
+    gain is one host constant, identical on every device.  A tensor frame
+    count (a fitted slider) gives a differentiable tensor gain, the JAX
+    package's device branch; the 0 case is guarded so its gradient stays
+    finite."""
+    if isinstance(frames, torch.Tensor):
+        f = frames.to(_F32)
+        zero = f == 0.0
+        safe = torch.where(zero, torch.ones_like(f), f)
+        return torch.where(zero, torch.zeros_like(f), torch.exp(-1.0 / safe))
     f = np.float32(frames)
     if f == 0.0:
         return 0.0
@@ -55,6 +72,8 @@ def gain_from_frames(frames) -> float:
 
 
 def _frames_in_range(frames) -> bool:
+    if isinstance(frames, torch.Tensor):
+        frames = frames.detach()
     return 0.0 <= float(frames) <= _MAX_CHUNKED_FRAMES
 
 
@@ -111,10 +130,75 @@ def _chunked_batched(x, atk: float, rel: float, env0, chunk: int):
     return env, env[:, -1]
 
 
+def _forward(x2, atk: float, rel: float, e0, chunked: bool):
+    """The follower over [B, T]: the plain versions on the CPU, the
+    envelope kernel on the card."""
+    T = x2.shape[-1]
+    if x2.device.type == "cpu":
+        return (_chunked_batched(x2, atk, rel, e0, _CHUNK) if chunked
+                else _seq_scan(x2, atk, rel, e0))
+    if x2.device.type == "cuda":
+        return envelope_kernel.peak_envelope_cuda(
+            x2.contiguous(), atk, rel, e0.contiguous(),
+            chunk=_CHUNK if chunked else T)
+    raise ValueError(f"peak_envelope: no kernel for device {x2.device}")
+
+
+def _host_gain(g) -> float:
+    return float(g.detach()) if isinstance(g, torch.Tensor) else g
+
+
+class EnvCore(torch.autograd.Function):
+    """The follower over x [B, T] from env0 [B] with gains atk, rel (host
+    floats, or 0-d tensors that may require grad): forward ``_forward``,
+    backward the JAX package's analytic adjoint (ops/envelope.py:
+    _env_core_bwd)."""
+
+    @staticmethod
+    def forward(ctx, x, atk, rel, env0, chunked):
+        a, r = _host_gain(atk), _host_gain(rel)
+        env, fin = _forward(x, a, r, env0, chunked)
+        ctx.save_for_backward(x, env, env0)
+        ctx.gains = (a, r)
+        return env, fin.clone()      # fin may be a view of env
+
+    @staticmethod
+    def backward(ctx, ybar, fbar):
+        x, env, env0 = ctx.saved_tensors
+        a, r = ctx.gains
+        ybar = (torch.zeros_like(env) if ybar is None
+                else ybar.to(_F32).clone())
+        if fbar is not None:
+            ybar[:, -1] += fbar
+        d = torch.abs(x)
+        env_prev = torch.cat([env0[:, None], env[:, :-1]], dim=1)
+        is_atk = env_prev < d
+        g = torch.where(is_atk, torch.tensor(a, dtype=_F32, device=x.device),
+                        torch.tensor(r, dtype=_F32, device=x.device))
+        # lam_t = ybar_t + g_{t+1} lam_{t+1}: the reverse solve with the
+        # next sample's gain (none after the last)
+        lam = scan.first_order_solve(F.pad(g[:, 1:], (0, 1)), ybar,
+                                     torch.zeros_like(env0), reverse=True)
+        xbar = lam * (1.0 - g) * torch.sign(x) if ctx.needs_input_grad[0] \
+            else None
+        atkbar = relbar = None
+        dem = lam * (env_prev - d)             # lam_t d env_t / d gain_t
+        if ctx.needs_input_grad[1]:
+            atkbar = torch.sum(torch.where(is_atk, dem, 0.0),
+                               dtype=torch.float64).to(_F32)
+        if ctx.needs_input_grad[2]:
+            relbar = torch.sum(torch.where(is_atk, 0.0, dem),
+                               dtype=torch.float64).to(_F32)
+        env0bar = lam[:, 0] * g[:, 0] if ctx.needs_input_grad[3] else None
+        return xbar, atkbar, relbar, env0bar, None
+
+
 def peak_envelope(x, attack_frames=0.0, release_frames=0.0, env0=0.0):
     """Full-wave peak detection along the last axis of ``x`` [..., T].
 
-    Frame counts are concrete numbers.  Returns (env [..., T] f32,
+    Frame counts are concrete numbers or 0-d tensors (fitted sliders; the
+    chunk decision reads them on the host).  Differentiable in x, env0 and
+    tensor frame counts through ``EnvCore``.  Returns (env [..., T] f32,
     final_env [...])."""
     x = torch.as_tensor(x, dtype=_F32)
     batch, T = x.shape[:-1], x.shape[-1]
@@ -127,13 +211,5 @@ def peak_envelope(x, attack_frames=0.0, release_frames=0.0, env0=0.0):
     chunked = (get_policy().name == "fast" and T > 2 * _CHUNK
                and _frames_in_range(attack_frames)
                and _frames_in_range(release_frames))
-    if x.device.type == "cpu":
-        env, fin = (_chunked_batched(x2, atk, rel, e0, _CHUNK) if chunked
-                    else _seq_scan(x2, atk, rel, e0))
-    elif x.device.type == "cuda":
-        env, fin = envelope_kernel.peak_envelope_cuda(
-            x2.contiguous(), atk, rel, e0.contiguous(),
-            chunk=_CHUNK if chunked else T)
-    else:
-        raise ValueError(f"peak_envelope: no kernel for device {x.device}")
+    env, fin = EnvCore.apply(x2, atk, rel, e0, chunked)
     return env.reshape(*batch, T), fin.reshape(batch)

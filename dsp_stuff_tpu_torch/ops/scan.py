@@ -9,9 +9,15 @@ recur, over T/C elements (recursively blocked the same way).
 
 The precision policy picks the dtype of the whole solve: float32 under
 ``fast`` (the constants are built in f64 NumPy and cast once, as in the
-JAX package), native float64 under ``parity``.  Coefficients are concrete
-Python floats; time-varying coefficients are not ported.  All functions
-take ``[..., T]`` tensors with any leading batch dimensions.
+JAX package), native float64 under ``parity``.  All functions take
+``[..., T]`` tensors with any leading batch dimensions.
+
+Concrete (Python float) coefficients build their constants on the host.
+Tensor coefficients are the gradient-fitting path: ``first_order_affine``
+runs ``FirstOrderAffine``, whose forward and backward are the first-order
+kernel (ops/first_order_kernel.py) for a CUDA tensor under ``fast`` and
+the plain versions otherwise; ``biquad_df1`` builds its impulse response
+from the tensors, so autograd reaches every coefficient.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dsp_stuff_tpu_torch.ops import first_order_kernel
 from dsp_stuff_tpu_torch.utils.precision import get_policy
 
 # chunk length of the blocked solves: y_chunk = B @ Lt is a [K, C] @ [C, C]
@@ -67,22 +74,131 @@ def scalar_power_toeplitz(a: float, n: int, row_ge_col: bool = False,
 
 
 def first_order_affine(a, b, y0):
-    """y[t] = a * y[t-1] + b[t] along the last axis, y[-1] = y0.
+    """y[t] = a[t] * y[t-1] + b[t] along the last axis, y[-1] = y0.
 
-    ``a`` is a scalar (Python float or 0-d tensor); ``b`` is [..., T];
-    ``y0`` broadcasts to b[..., 0].  Returns y with b's shape, f32."""
-    if isinstance(a, torch.Tensor):
-        if a.dim():
-            raise NotImplementedError(
-                "first_order_affine: time-varying coefficients are not "
-                "ported; pass a scalar")
-        a = float(a)
+    ``a`` is a scalar (a Python float, or a 0-d tensor that may require
+    grad) or a per-sample tensor of b's shape; ``b`` is [..., T]; ``y0``
+    broadcasts to b[..., 0].  Returns y with b's shape, f32.
+
+    A Python float on the CPU, or under ``parity``, keeps the host-constant
+    blocked solve.  Everything else runs ``FirstOrderAffine``: on a CUDA
+    tensor under ``fast`` that is the first-order kernel, at any T and
+    batch (a float becomes a device scalar)."""
     b = torch.as_tensor(b, dtype=torch.float32)
     y0 = torch.as_tensor(y0, dtype=torch.float32, device=b.device)
+    fast = policy_dtype() == torch.float32
+    if not isinstance(a, torch.Tensor):
+        a = float(np.float32(a))
+        if not (fast and b.is_cuda):
+            dt = policy_dtype()
+            y = _first_order_blocked(a, b.to(dt), y0.to(dt), dtype=dt)
+            return y.to(torch.float32)
+        a = torch.full((), a, dtype=torch.float32, device=b.device)
+    if a.device != b.device:
+        raise ValueError(f"first_order_affine: a is on {a.device}, b on "
+                         f"{b.device}")
+    if a.dim() and a.shape != b.shape:
+        raise ValueError(f"first_order_affine: a per-sample a must have b's "
+                         f"shape {tuple(b.shape)}, got {tuple(a.shape)}")
+    return FirstOrderAffine.apply(a.to(torch.float32), b,
+                                  y0.expand(b.shape[:-1]))
+
+
+def first_order_solve(a, b, y0, reverse: bool = False):
+    """The recurrence at the current policy, outside autograd: the
+    first-order kernel for a CUDA tensor under ``fast``, the plain versions
+    (``_first_order_blocked``, ``_first_order_scan``) otherwise.
+
+    a is a 0-d tensor or a per-sample tensor of b's shape, b [..., T], y0
+    b's batch shape.  ``reverse`` runs  y[t] = a[t] y[t+1] + b[t],
+    y[T] = y0.  Returns y of b's shape, f32 (f64 for an f64 b under
+    ``parity``, so that the Function can be checked in float64)."""
     dt = policy_dtype()
-    y = _first_order_blocked(float(np.float32(a)), b.to(dt), y0.to(dt),
-                             dtype=dt)
-    return y.to(torch.float32)
+    out_dt = torch.float64 if (dt == torch.float64
+                               and b.dtype == torch.float64) else torch.float32
+    shape = b.shape
+    if dt == torch.float32 and b.is_cuda:
+        R = int(np.prod(shape[:-1], dtype=np.int64))
+        T = shape[-1]
+        y = first_order_kernel.first_order_cuda(
+            a.detach().to(torch.float32).reshape(
+                (R, T) if a.dim() else ()).contiguous(),
+            b.detach().to(torch.float32).reshape(R, T).contiguous(),
+            y0.detach().to(torch.float32).reshape(R).contiguous(), reverse)
+        return y.reshape(shape)
+    return first_order_plain(a.detach().to(dt), b.detach().to(dt),
+                             y0.detach().to(dt), reverse).to(out_dt)
+
+
+def first_order_plain(a, b, y0, reverse: bool = False):
+    """The first-order kernel's plain version in b's dtype, on any device:
+    ``_first_order_blocked`` for a 0-d a, ``_first_order_scan`` for a
+    per-sample one; ``reverse`` solves the time-flipped arrays."""
+    if reverse:
+        b = b.flip(-1)
+        a = a.flip(-1) if a.dim() else a
+    y = (_first_order_scan(a, b, y0) if a.dim()
+         else _first_order_blocked(float(a), b, y0, dtype=b.dtype))
+    return y.flip(-1) if reverse else y
+
+
+class FirstOrderAffine(torch.autograd.Function):
+    """y[t] = a[t] y[t-1] + b[t], y[-1] = y0, differentiable in a, b, y0.
+
+    The JAX package differentiates its XLA blocked solve (its Pallas kernel
+    has no derivative rule).  Here the adjoint is the same recurrence run
+    backwards in time with the next sample's coefficient,
+
+        lam[t] = ybar[t] + a[t+1] lam[t+1],   lam[T] = 0,
+
+    solved by ``first_order_solve(..., reverse=True)``: the first-order
+    kernel on the card, the plain version otherwise.  Then bbar = lam,
+    y0bar = a[0] lam[0] and abar[t] = lam[t] y[t-1] (y[-1] = y0), summed
+    over every sample in float64 for a scalar a."""
+
+    @staticmethod
+    def forward(ctx, a, b, y0):
+        y = first_order_solve(a, b, y0)
+        ctx.save_for_backward(a, y, y0)
+        return y
+
+    @staticmethod
+    def backward(ctx, ybar):
+        a, y, y0 = ctx.saved_tensors
+        a_next = a if a.dim() == 0 else F.pad(a[..., 1:], (0, 1))
+        lam = first_order_solve(a_next, ybar,
+                                torch.zeros(y.shape[:-1], dtype=y.dtype,
+                                            device=y.device), reverse=True)
+        abar = y0bar = None
+        if ctx.needs_input_grad[0]:
+            if a.dim() == 0:
+                abar = (torch.sum(lam[..., 1:] * y[..., :-1],
+                                  dtype=torch.float64)
+                        + torch.sum(lam[..., 0] * y0, dtype=torch.float64)
+                        ).to(a.dtype)
+            else:
+                abar = lam * torch.cat([y0[..., None], y[..., :-1]], dim=-1)
+        if ctx.needs_input_grad[2]:
+            y0bar = (a if a.dim() == 0 else a[..., 0]) * lam[..., 0]
+        return abar, lam, y0bar
+
+
+def _first_order_scan(a, b, y0):
+    """y[t] = a[t] y[t-1] + b[t] for a per-sample a [..., T]: a
+    Hillis-Steele scan over the affine maps (a, b), log2 T passes in the
+    inputs' dtype -- the plain version of the kernel's per-sample form,
+    and the counterpart of the JAX package's associative scan."""
+    T = b.shape[-1]
+    b = b.clone()
+    b[..., 0] += a[..., 0] * y0
+    d = 1
+    while d < T:
+        # (a, b)[t] <- (a[t] a[t-d], a[t] b[t-d] + b[t]) for t >= d
+        b = torch.cat([b[..., :d], a[..., d:] * b[..., :-d] + b[..., d:]],
+                      dim=-1)
+        a = torch.cat([a[..., :d], a[..., d:] * a[..., :-d]], dim=-1)
+        d *= 2
+    return b
 
 
 def _first_order_blocked(a: float, b, y0, C: int = _BLOCK_C, scale=1.0,
@@ -142,10 +258,15 @@ def biquad_df1(x, a1, a2, b0, b1, b2, state=None):
         y[t] = b0*x[t] + b1*x[t-1] + b2*x[t-2] - a1*y[t-1] - a2*y[t-2]
 
     ``state = (x1, x2, y1, y2)`` (previous inputs/outputs, defaults 0).
-    Returns (y, new_state).  Coefficients are concrete scalars, already
-    divided by a0.  Under ``fast`` the two degenerate forms take cheaper
-    paths: a1 == a2 == 0 is a 3-tap FIR, and a2 == b1 == b2 == 0 a scaled
-    first-order recurrence (the bench chain's biquad is this shape)."""
+    Returns (y, new_state).  Coefficients are scalars, already divided by
+    a0.  Concrete ones build the solve's constants on the host, and under
+    ``fast`` the two degenerate forms take cheaper paths: a1 == a2 == 0 is
+    a 3-tap FIR, and a2 == b1 == b2 == 0 a scaled first-order recurrence
+    (the bench chain's biquad is this shape).  Any 0-d tensor coefficient
+    takes the full blocked solve built from the tensors
+    (``_biquad_blocked_traced``), whatever their values, as the JAX
+    package's traced route does: that is how a2, b1 and b2 get gradients
+    while they sit at 0."""
     x = torch.as_tensor(x, dtype=torch.float32)
     batch = x.shape[:-1]
     if x.shape[-1] < 2:
@@ -154,7 +275,12 @@ def biquad_df1(x, a1, a2, b0, b1, b2, state=None):
         state = (0.0, 0.0, 0.0, 0.0)
     state = tuple(torch.as_tensor(s, dtype=torch.float32, device=x.device)
                   .expand(batch) for s in state)
-    cf = tuple(float(np.float32(c)) for c in (a1, a2, b0, b1, b2))
+    cvals = (a1, a2, b0, b1, b2)
+    if any(isinstance(c, torch.Tensor) for c in cvals):
+        coeffs = tuple(torch.as_tensor(c, dtype=torch.float32,
+                                       device=x.device) for c in cvals)
+        return _biquad_blocked_traced(x, coeffs, state, policy_dtype())
+    cf = tuple(float(np.float32(c)) for c in cvals)
     if policy_dtype() == torch.float32:
         if cf[0] == 0.0 and cf[1] == 0.0:
             return _biquad_pure_fir(x, cf, state)
@@ -267,6 +393,82 @@ def _biquad_blocked(x, cf: tuple, state, dtype, C: int = _BLOCK_C):
     return y, (x[..., -1], x[..., -2], y[..., -1], y[..., -2])
 
 
+def _powers(M, n: int):
+    """[M^1, ..., M^n] of a square tensor M by repeated doubling: log2 n
+    batched products, differentiable."""
+    P = M[None]
+    while P.shape[0] < n:
+        P = torch.cat([P, P @ P[-1]])     # M^k M^m = M^(k+m), k <= m
+    return P[:n]
+
+
+def _toeplitz(v, C: int):
+    """Lt[j, i] = v[i - j] for j <= i, else 0 ([C, C, *v.shape[1:]]) from
+    a tensor v of at least C entries along its first axis.  index_select,
+    whose backward is one index_add (an indexing backward would sort)."""
+    i = torch.arange(C, device=v.device)
+    diff = i[None, :] - i[:, None]
+    keep = (diff >= 0).reshape(C, C, *(1,) * (v.dim() - 1))
+    taps = v.index_select(0, diff.clamp(0, C).flatten()).reshape(
+        C, C, *v.shape[1:])
+    return torch.where(keep, taps, torch.zeros((), dtype=v.dtype,
+                                               device=v.device))
+
+
+def _biquad_blocked_traced(x, coeffs, state, dtype, C: int = _BLOCK_C):
+    """``_biquad_blocked`` with 0-d tensor coefficients (the JAX package's
+    traced route, ops/scan.py:_biquad_blocked): the impulse response
+    h[t] = (A^t)[0, 0] comes from the powers of the companion matrix
+    A = [[-a1, -a2], [1, 0]], every constant of the solve (the Toeplitz of
+    g, the side product, the boundary matrix M) is built from h, and the
+    boundary chain runs ``_vec2_recurrence`` with a tensor M, so autograd
+    reaches all five coefficients."""
+    a1, a2, b0, b1, b2 = (c.to(dtype) for c in coeffs)
+    x1, x2, y1, y2 = (s.to(dtype) for s in state)
+    T = x.shape[-1]
+    batch = x.shape[:-1]
+    one = torch.ones((1,), dtype=dtype, device=x.device)
+    zero = torch.zeros((1,), dtype=dtype, device=x.device)
+    A = torch.stack([torch.stack([-a1, -a2]), torch.cat([one, zero])])
+    h = torch.cat([one, _powers(A, C)[:, 0, 0]])             # [C+1]
+    g = (b0 * h + b1 * torch.cat([zero, h[:-1]])
+         + b2 * torch.cat([zero, zero, h[:-2]]))
+
+    K = -(-T // C)
+    X = _pad_last(x.to(dtype), K * C - T).reshape(*batch, K, C)
+    hs = torch.cat([zero, h[:C - 1]])                        # h[i-1], [C]
+    Ltg = _toeplitz(g, C)
+    pick = torch.zeros((C, 2), dtype=dtype, device=x.device)
+    pick[C - 1, 0] = 1.0
+    pick[C - 2, 1] = 1.0
+    S = torch.cat([torch.stack([g[:C].flip(0),
+                                torch.cat([g[:C - 1].flip(0), zero])], -1),
+                   pick], dim=-1)                            # [C, 4]
+    side = X @ S                                             # [..., K, 4]
+
+    xlast1 = torch.cat([x1[..., None], side[..., :-1, 2]], dim=-1)
+    xlast2 = torch.cat([x2[..., None], side[..., :-1, 3]], dim=-1)
+    d0 = b1 * xlast1 + b2 * xlast2
+    d1 = b2 * xlast1
+    w = torch.stack([side[..., :, 0] + d0 * h[C - 1] + d1 * h[C - 2],
+                     side[..., :, 1] + d0 * h[C - 2] + d1 * h[C - 3]], dim=-1)
+    M = torch.stack([torch.stack([h[C], -a2 * h[C - 1]]),
+                     torch.stack([h[C - 1], -a2 * h[C - 2]])])
+    s0 = torch.stack([y1, y2], dim=-1)                       # [..., 2]
+    w = torch.cat([w[..., :1, :] + torch.einsum("ij,...j->...i", M, s0)[
+        ..., None, :], w[..., 1:, :]], dim=-2)
+    s = _vec2_recurrence(M, w)
+    s_in = torch.cat([s0[..., None, :], s[..., :-1, :]], dim=-2)
+
+    y = (X @ Ltg
+         + s_in[..., :, 0:1] * h[1:]
+         - a2 * s_in[..., :, 1:2] * h[:-1]
+         + d0[..., :, None] * h[:C]
+         + d1[..., :, None] * hs)
+    y = y.reshape(*batch, K * C)[..., :T].to(torch.float32)
+    return y, (x[..., -1], x[..., -2], y[..., -1], y[..., -2])
+
+
 @functools.lru_cache(maxsize=64)
 def _power_tensor(M_bytes: bytes, n: int, C2: int, dtype):
     """(Mpow [C2+1, n, n], Lt [C2, C2, n, n]) with Lt[j, i] = M^(i-j) for
@@ -316,12 +518,35 @@ def _vecn_recurrence(M_np: np.ndarray, w, C2: int = 128):
     return s.reshape(*batch, KG * C2, n)[..., :K, :]
 
 
-def _vec2_recurrence(M_np: np.ndarray, w, C2: int = 128):
-    """s_k = M s_{k-1} + w_k for a constant [2, 2] M: the biquad's
-    boundary chain.  The JAX package keeps a separate traced-M solver
-    here; the port's coefficients are always concrete, so this is the
-    n-dim solver at n = 2."""
-    if np.shape(M_np) != (2, 2):
+def _vec2_recurrence(M, w, C2: int = 128):
+    """s_k = M s_{k-1} + w_k for a constant [2, 2] M, s_{-1} = 0: the
+    biquad's boundary chain.  A NumPy M takes the n-dim solver with host
+    constants; a tensor M (fitted coefficients) the JAX package's traced-M
+    solver, with the power tensor built from M on the device."""
+    if tuple(M.shape) != (2, 2):
         raise ValueError(f"_vec2_recurrence needs a [2, 2] M, got "
-                         f"{np.shape(M_np)}")
-    return _vecn_recurrence(M_np, w, C2)
+                         f"{tuple(M.shape)}")
+    if not isinstance(M, torch.Tensor):
+        return _vecn_recurrence(M, w, C2)
+    K = w.shape[-2]
+    batch = w.shape[:-2]
+    if K <= 8:
+        prev = torch.zeros_like(w[..., 0, :])
+        out = []
+        for k in range(K):
+            prev = torch.einsum("ij,...j->...i", M, prev) + w[..., k, :]
+            out.append(prev)
+        return torch.stack(out, dim=-2)
+    KG = -(-K // C2)
+    pad = KG * C2 - K
+    wp = F.pad(w, (0, 0, 0, pad)) if pad else w
+    W = wp.reshape(*batch, KG, C2, 2)
+    Mpow = torch.cat([torch.eye(2, dtype=M.dtype, device=M.device)[None],
+                      _powers(M, C2)])                        # M^0..M^C2
+    zs = torch.einsum("jiab,...kjb->...kia", _toeplitz(Mpow, C2), W)
+    ends = zs[..., :, C2 - 1, :]                              # [..., KG, 2]
+    e = _vec2_recurrence(Mpow[C2], ends, C2)
+    carry_in = torch.cat([torch.zeros_like(e[..., :1, :]), e[..., :-1, :]],
+                         dim=-2)
+    s = zs + torch.einsum("iab,...kb->...kia", Mpow[1:], carry_in)
+    return s.reshape(*batch, KG * C2, 2)[..., :K, :]

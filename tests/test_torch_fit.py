@@ -1,0 +1,356 @@
+"""The port's gradient fitting (dsp_stuff_tpu_torch/train/fit.py) against
+the JAX package's (dsp_stuff_tpu/train/fit.py): the ports of
+tests/test_fit.py (all but the sharded-mesh and the chorus tests, which
+wait for parallel/mesh.py and fitting through modfx), the bench chain's
+loss gradients and ten Adam steps against jax.grad and optax, and the
+envelope's analytic backward against jax.grad through the JAX follower.
+
+Everything runs on the CPU under ``fast``, where the port takes the plain
+versions of its kernels (the CUDA kernels are held against them on the
+card by chip_smoke.py).  Tolerances, each with the worst the CPU measured:
+  bench chain loss gradients vs jax.grad, all 16 sliders  rtol 1e-3 (5.2e-6)
+  ten Adam steps vs optax.adam, every slider and loss     rtol 1e-3 (5.2e-7)
+  envelope gradients vs jax.grad (x, attack, release, env0),
+    max-normalized                                        1e-3 (2.9e-7)
+  comb with a tensor decay vs JAX: output, max-normalized 1e-6 (9.9e-8);
+    gradients (x, decay, history), max-normalized         1e-3 (5.2e-7)
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import __graft_entry__
+import dsp_stuff_tpu as dj
+from dsp_stuff_tpu.ops import delay_line as jdl
+from dsp_stuff_tpu.ops import envelope as je
+from dsp_stuff_tpu.train import fit as jfit
+from dsp_stuff_tpu.utils import precision as jprec
+import dsp_stuff_tpu_torch as dt
+from dsp_stuff_tpu_torch import convert
+from dsp_stuff_tpu_torch.ids import IdSpace
+from dsp_stuff_tpu_torch.ops import chain_segment, cycle_segment
+from dsp_stuff_tpu_torch.ops import delay_line as tdl
+from dsp_stuff_tpu_torch.ops import envelope as te
+from dsp_stuff_tpu_torch.train import fit as tfit
+from dsp_stuff_tpu_torch.utils import precision as tprec
+
+GRAD_RTOL = 1e-3
+ADAM_RTOL = 1e-3
+ENV_RTOL = 1e-3
+COMB_RTOL = 1e-6
+B, T = 2, 2048
+
+
+@pytest.fixture(autouse=True)
+def _torch_env():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    prev = tprec.get_policy()
+    yield
+    tprec.set_policy(prev)
+    torch.set_num_threads(threads)
+
+
+def _chain_graph():
+    g = dt.Graph(IdSpace())
+    inp = g.add("input")
+    gn = g.add("gain", level=1.0)
+    lp = g.add("low_pass", ratio=0.3)
+    out = g.add("output")
+    g.chain(inp, gn, lp, out)
+    return g, inp, gn, lp
+
+
+def test_init_params_pytree():
+    g, inp, gn, lp = _chain_graph()
+    cg = dt.compile_graph(g)
+    p = cg.init_params()
+    assert float(p[str(gn.id)]["level"]) == 1.0
+    assert float(p[str(lp.id)]["ratio"]) == pytest.approx(0.3)
+    # static / field params excluded
+    assert str(inp.id) not in p
+    leaves = [v for e in p.values() for v in e.values()]
+    assert all(v.is_leaf and not v.requires_grad and v.shape == ()
+               and v.dtype == torch.float32 for v in leaves)
+    pg = cg.init_params(requires_grad=True)
+    assert all(v.is_leaf and v.requires_grad
+               for e in pg.values() for v in e.values())
+
+
+def test_params_override_render():
+    g, inp, gn, lp = _chain_graph()
+    cg = dt.compile_graph(g)
+    x = np.random.default_rng(0).standard_normal(512).astype(np.float32) * 0.3
+    ext = {str(inp.id): x}
+    base, _, _ = cg.render(ext)
+    p = cg.init_params()
+    p[str(gn.id)]["level"] = torch.tensor(2.0)
+    doubled, _, _ = cg.render(ext, params=p)
+    # low_pass(2x) == 2*low_pass(x) only up to f32 rounding
+    np.testing.assert_allclose(doubled.numpy(), base.numpy() * 2.0,
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_reverb_seconds_is_static():
+    g = dt.Graph(IdSpace())
+    inp = g.add("input")
+    rv = g.add("reverb", seconds=0.01, decay=0.5)
+    out = g.add("output")
+    g.chain(inp, rv, out)
+    cg = dt.compile_graph(g)
+    p = cg.init_params()
+    assert "seconds" not in p[str(rv.id)]
+    assert "decay" in p[str(rv.id)]
+
+
+def test_fit_recovers_gain():
+    """Render a target with level=2.5, fit starting from level=1.0."""
+    with tprec.policy("fast"):
+        g, inp, gn, lp = _chain_graph()
+        cg = dt.compile_graph(g)
+        rng = np.random.default_rng(1)
+        x = rng.standard_normal((4, 512)).astype(np.float32) * 0.3
+        ext = {str(inp.id): torch.from_numpy(x)}
+        true = cg.init_params()
+        true[str(gn.id)]["level"] = torch.tensor(2.5)
+        _, outs, _ = cg.fn(cg.init_state(), ext, true)
+        target = torch.stack([outs[i] for i in cg.output_ids], dim=-2)
+        params, losses = tfit.fit(cg, ext, target, steps=250,
+                                  optimizer=tfit.adam(0.05))
+    assert losses[-1] < 1e-6, losses[-1]
+    assert float(params[str(gn.id)]["level"]) == pytest.approx(2.5, abs=0.02)
+
+
+def test_grad_finite_at_bypass_levels():
+    """Distortion sliders at/below the bypass epsilon must yield finite
+    gradients (the where-NaN-grad pitfall in clip(x*l)/l at l=0)."""
+    g = dt.Graph(IdSpace())
+    inp = g.add("input")
+    ds = g.add("distort", mode="HardClip", level=0.0)
+    ch = g.add("chebyshev", level_pos=0.0, level_neg=0.0)
+    out = g.add("output")
+    g.chain(inp, ds, ch, out)
+    with tprec.policy("fast"):
+        cg = dt.compile_graph(g)
+        loss = tfit.make_loss_fn(cg)
+        x = np.random.default_rng(0).standard_normal((2, 256)).astype(
+            np.float32) * 0.3
+        ext = {str(inp.id): torch.from_numpy(x)}
+        params = cg.init_params(requires_grad=True)
+        loss(params, cg.init_state(), ext, torch.zeros((2, 1, 256))).backward()
+    leaves = [v for e in params.values() for v in e.values()]
+    assert leaves and all(v.grad is not None and torch.isfinite(v.grad)
+                          for v in leaves)
+
+
+def test_fit_through_envelope():
+    """Gradients flow THROUGH an envelope node (EnvCore's analytic
+    backward) and recover an upstream gain."""
+    g = dt.Graph(IdSpace())
+    inp = g.add("input")
+    gn = g.add("gain", level=0.5)
+    en = g.add("envelope", attack=10.0, release=60.0)
+    out = g.add("output")
+    g.chain(inp, gn, en, out)
+    cg = dt.compile_graph(g)
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(1024) * 0.5).astype(np.float32)
+    ext = {str(inp.id): x}
+    with tprec.policy("fast"):
+        target_p = cg.init_params()
+        target_p[str(gn.id)]["level"] = torch.tensor(1.7)
+        target, _, _ = cg.render(ext, params=target_p)
+        fitted, losses = tfit.fit(cg, ext, target, steps=250,
+                                  optimizer=tfit.adam(0.05))
+    assert losses[-1] < 1e-4, losses[-1]
+    assert abs(float(fitted[str(gn.id)]["level"]) - 1.7) < 0.08
+    # the envelope's own sliders picked up finite (possibly zero) grads
+    assert np.isfinite(float(fitted[str(en.id)]["attack"]))
+
+
+def test_clamp_params_projects_in_place():
+    g, inp, gn, lp = _chain_graph()
+    cg = dt.compile_graph(g)
+    p = cg.init_params(requires_grad=True)
+    with torch.no_grad():
+        p[str(gn.id)]["level"].fill_(12.0)
+        p[str(lp.id)]["ratio"].fill_(-0.5)
+    leaf = p[str(lp.id)]["ratio"]
+    assert tfit.clamp_params(cg, p) is p
+    assert float(p[str(gn.id)]["level"].detach()) == 10.0
+    assert float(leaf.detach()) == 0.0 and p[str(lp.id)]["ratio"] is leaf
+
+
+def test_distances_match_jax():
+    """mse_loss and spectral_loss of one stream equal the JAX package's."""
+    rng = np.random.default_rng(3)
+    y, tg = (rng.standard_normal((2, 1, 4096)).astype(np.float32)
+             for _ in range(2))
+    for tf, jf in ((tfit.mse_loss, jfit.mse_loss),
+                   (tfit.spectral_loss, jfit.spectral_loss)):
+        got = tf(torch.from_numpy(y), torch.from_numpy(tg)).numpy()
+        want = [float(jf(jnp.asarray(y[i]), jnp.asarray(tg[i])))
+                for i in range(2)]
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def bench():
+    """The bench chain (__graft_entry__._build, reverb seconds=0.003 as in
+    dryrun_multichip) in both packages, its inputs, and the JAX package's
+    jitted value_and_grad of make_loss_fn."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((B, T)) * 0.25).astype(np.float32)
+    target = (rng.standard_normal((B, 1, T)) * 0.1).astype(np.float32)
+    with jprec.policy("fast"):
+        cgj, inp = __graft_entry__._build(T, seconds=0.003)
+        vg = jax.jit(jax.value_and_grad(jfit.make_loss_fn(cgj)))
+        vg(cgj.init_params(), cgj.init_state(), {str(inp): x}, target)
+    gt = dt.loads_graph(dj.dumps_graph(cgj.graph), ids=IdSpace())
+    return cgj, vg, dt.compile_graph(gt), str(inp), x, target
+
+
+def _port_params(pj, requires_grad=True):
+    return convert.params_from_jax(jax.tree.map(np.asarray, pj), "cpu",
+                                   requires_grad=requires_grad)
+
+
+def _rel(got, want):
+    return abs(float(got) - float(want)) / max(abs(float(want)), 1e-30)
+
+
+def test_bench_chain_gradients_match_jax(bench):
+    """All 16 non-static sliders of the bench chain: the port's loss
+    gradients against jax.grad(make_loss_fn(cg)), B = 2, T = 2048."""
+    cgj, vg, cgt, inp, x, target = bench
+    pj = cgj.init_params()
+    with jprec.policy("fast"):
+        lj, gj = vg(pj, cgj.init_state(), {inp: x}, target)
+    pt = _port_params(pj)
+    with tprec.policy("fast"):
+        lt = tfit.make_loss_fn(cgt)(pt, cgt.init_state(),
+                                    {inp: torch.from_numpy(x)},
+                                    torch.from_numpy(target))
+        lt.backward()
+    assert _rel(lt.detach(), lj) <= GRAD_RTOL
+    leaves = [(n, k) for n in sorted(pt) for k in sorted(pt[n])]
+    assert len(leaves) == 16
+    for n, k in leaves:
+        assert _rel(pt[n][k].grad, gj[n][k]) <= GRAD_RTOL, (n, k)
+
+
+def test_adam_steps_match_optax(bench):
+    """Ten steps of the port's make_train_step (torch Adam) against ten
+    optax.adam steps of the JAX package, both from the same
+    params_from_jax start and clamped after every step."""
+    cgj, vg, cgt, inp, x, target = bench
+    pj = cgj.init_params()
+    opt = optax.adam(1e-2)
+    ost = opt.init(pj)
+    jl = []
+    with jprec.policy("fast"):
+        for _ in range(10):
+            loss, g = vg(pj, cgj.init_state(), {inp: x}, target)
+            upd, ost = opt.update(g, ost, pj)
+            pj = jfit.clamp_params(cgj, optax.apply_updates(pj, upd))
+            jl.append(float(loss))
+    pt = _port_params(cgj.init_params(), requires_grad=True)
+    step, init_opt = tfit.make_train_step(cgt, tfit.adam(1e-2))
+    opt_t = init_opt(pt)
+    ext = {inp: torch.from_numpy(x)}
+    tl = []
+    with tprec.policy("fast"):
+        for _ in range(10):
+            pt, opt_t, loss = step(pt, opt_t, cgt.init_state(), ext,
+                                   torch.from_numpy(target))
+            tl.append(float(loss))
+    np.testing.assert_allclose(tl, jl, rtol=ADAM_RTOL)
+    for n in pj:
+        for k in pj[n]:
+            np.testing.assert_allclose(float(pt[n][k].detach()),
+                                       float(pj[n][k]),
+                                       rtol=ADAM_RTOL, atol=1e-6,
+                                       err_msg=f"{n}/{k}")
+
+
+@pytest.mark.parametrize("path", ["chain", "cycle"])
+def test_fused_kernel_paths_refuse_gradients(path):
+    """The chain and cycle kernels have no backward: an input with autograd
+    history raises before any launch instead of losing its gradient, and
+    without grad mode the guard lets the wrapper decide (here it refuses
+    the CPU tensor)."""
+    x = torch.zeros((2, 256), requires_grad=True)
+    if path == "chain":
+        def run():
+            return chain_segment._kernel_segment(x, (("scale", 0.5),), ())
+    else:
+        def run():
+            return cycle_segment._kernel_cycle(
+                (x,), (), (), (("join", (("ext", 0),), 1.0), ("tap", 0)), 1)
+    with pytest.raises(NotImplementedError, match="gradients through"):
+        run()
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        run()
+
+
+@pytest.mark.parametrize("D,T_comb", [(144, 2048), (128, 128 * 300)])
+def test_comb_tensor_decay_matches_jax(D, T_comb):
+    """feedback_comb with a tensor decay (the fitting path's Toeplitz
+    route over the chunks: one product for 15 chunks, super-chunks for
+    300) against the JAX package's traced-decay route: the output, and the
+    gradients of x, the decay and the history."""
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal((2, T_comb)) * 0.3).astype(np.float32)
+    hist = (rng.standard_normal((2, D)) * 0.1).astype(np.float32)
+    ybar = rng.standard_normal((2, T_comb)).astype(np.float32)
+    decay = np.float32(0.6)
+
+    def f(xx, dd, hh):
+        return jnp.sum(jdl.feedback_comb(xx, dd, D, hh)[0] * ybar)
+    with jprec.policy("fast"):
+        yj = jax.jit(lambda xx, dd, hh: jdl.feedback_comb(
+            xx, dd, D, hh)[0])(x, decay, hist)
+        want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(x, decay, hist)
+    ins = [torch.tensor(v, requires_grad=True) for v in (x, decay, hist)]
+    with tprec.policy("fast"):
+        y, _ = tdl.feedback_comb(ins[0], ins[1], D, ins[2])
+        torch.sum(y * torch.from_numpy(ybar)).backward()
+    yj = np.asarray(yj, np.float64)
+    assert np.abs(y.detach().numpy() - yj).max() <= COMB_RTOL * np.abs(
+        yj).max()
+    for name, t, w in zip(("x", "decay", "history"), ins, want):
+        w = np.asarray(w, np.float64)
+        err = np.abs(t.grad.numpy() - w).max() / max(np.abs(w).max(), 1e-30)
+        assert err <= GRAD_RTOL, (name, err)
+
+
+@pytest.mark.parametrize("T_env", [2048, 70_016])
+def test_envelope_backward_matches_jax_grad(T_env):
+    """EnvCore's backward against jax.grad through the JAX package's
+    peak_envelope (its analytic custom_vjp), with traced frame counts: the
+    sequential branch, and the chunked one (T > 2 x 32768)."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((2, T_env)) * 0.5).astype(np.float32)
+    e0 = np.float32([0.2, 0.0])
+    ybar = rng.standard_normal((2, T_env)).astype(np.float32)
+    fbar = rng.standard_normal(2).astype(np.float32)
+    atk, rel = np.float32(10.0), np.float32(60.0)
+
+    def f(xx, aa, rr, ee):
+        env, fin = je.peak_envelope(xx, aa, rr, ee)
+        return jnp.sum(env * ybar) + jnp.sum(fin * fbar)
+    with jprec.policy("fast"):
+        want = jax.jit(jax.grad(f, argnums=(0, 1, 2, 3)))(x, atk, rel, e0)
+    ins = [torch.tensor(v, requires_grad=True) for v in (x, atk, rel, e0)]
+    with tprec.policy("fast"):
+        env, fin = te.peak_envelope(*ins)
+        (torch.sum(env * torch.from_numpy(ybar))
+         + torch.sum(fin * torch.from_numpy(fbar))).backward()
+    for name, t, w in zip(("x", "attack", "release", "env0"), ins, want):
+        w = np.asarray(w, np.float64)
+        err = np.abs(t.grad.numpy() - w).max() / max(np.abs(w).max(), 1e-30)
+        assert err <= ENV_RTOL, (name, err)
