@@ -5,11 +5,14 @@
 
 Builds the port's four CUDA kernels from csrc/ with nvcc (one nvcc per
 source, all started together) and holds each against its plain PyTorch
-version on the card: the chain kernel (with its mtap stage), the cycle
-kernel, the envelope kernel (chunked and sequential) and the first-order
-recurrence kernel (forward, reverse and per-sample, each also against a
-float64 solve, and its autograd Function against the float64 one).  Then
-it drives the port's main paths through ``compile_graph(...,
+version on the card: the chain kernel (every check list, both mtap lists
+and a 40-stage list, at one tile and at a walk of three tiles and a
+ragged one, also four rows a CTA with B no multiple of four), the cycle
+kernel (config5's program, a loop graph's and one past the capacity the
+kernel once had), the envelope kernel (chunked and sequential) and the
+first-order recurrence kernel (forward, reverse and per-sample, each also
+against a float64 solve, and its autograd Function against the float64
+one).  Then it drives the port's main paths through ``compile_graph(...,
 device="cuda")``:
 
 * the 10-node bench chain over 512 streams x 10 s at 48 kHz, with the
@@ -29,12 +32,18 @@ device="cuda")``:
   128 x 10 s (the chunked envelope kernel forward, the per-sample
   first-order kernel backward);
 
-and times every kernel against its plain version, the whole config5
-render at 128 and 512 streams, and the training step.  Every phase raises
-on failure.  Needs a CUDA device; imports nothing of JAX.
+and times every kernel against its plain version (the chain kernel on
+the bench list at 1, 128, 512 and 1024 streams and on config5's list at
+128, each in turns with the plain version, which it must beat at 512 and
+128), the whole config5 render at 128 and 512 streams, and the training
+step.  Every phase raises on failure.  Needs a CUDA device; imports
+nothing of JAX.
 
-Output: progress lines, then one JSON line with the per-kernel record,
-then the card's identity as the last line.  Error figures are in dBFS:
+Output: progress lines, then one JSON line with the per-kernel record
+(each kernel's bound: the larger of its bytes over 3.35 TB/s and its
+FP32 operations over 67 TFLOP/s, from this run's shapes; for the chain
+kernel also one cascade's product as one torch.matmul), then the card's
+identity as the last line.  Error figures are in dBFS:
 20 log10(max |got - want| / max |want|).
 """
 
@@ -52,6 +61,11 @@ SR = 48_000
 B_MAIN = 512
 T_MAIN = 10 * SR
 B_CHECK, T_CHECK = 64, 4096
+# the chain kernel's tile walk: three tiles of 64 blocks and a ragged one,
+# and (through R = 4 rows a CTA) a row count that is no multiple of R
+B_TILES, T_TILES, R_TILES = 67, 3 * 64 * 128 + 5 * 128, 4
+B_TIMED = (1, 128, 512, 1024)     # the bench list's timed batch sizes
+HBM_TBPS, FP32_TFLOPS = 3.35, 67.0   # H100 SXM peaks (data sheet, 700 W)
 Y_BOUND_DB = -100.0       # kernel vs plain, y and taps
 STATE_ATOL = 1e-4         # kernel vs plain, rebuilt states
 ORACLE_FAST_DB = -80.0    # main path (fast) vs the oracle
@@ -115,6 +129,43 @@ def check_lists():
         ("ew", "overdrive", (2.0, 0.5, 0.8)), ("tap", 1),
         ("comb", 0.3, 200))
     return lists
+
+
+def long_list():
+    """40 stages (9 cascades, 9 shapers, 9 taps, 11 scales, 2 combs): past
+    the fixed capacity the chain kernel once had (32 stages; 8 cascades,
+    rings and taps).  The shapers are the nine bounded ones."""
+    from dsp_stuff_tpu_torch.ops.chain_kernel import EW_CODES
+    params = {"overdrive": (2.0, 0.5, 0.8), "chebyshev": (2.0, 3.0)}
+    out = []
+    for i, kind in enumerate(EW_CODES[:9]):
+        secs = ((("lp", 0.2 + 0.07 * i),),
+                (("hp", 0.1 + 0.03 * i), ("gain", 1.3)),
+                (("bq", (-0.3, 0.05, 0.8, 0.1, 0.0)),))[i % 3]
+        out += [("cascade", secs), ("ew", kind, params.get(kind, (1.5,))),
+                ("scale", 0.95), ("tap", i)]
+    return tuple(out) + (("comb", 0.3, 300), ("scale", 0.9),
+                         ("comb", 0.25, 100), ("scale", 0.9))
+
+
+def oversized_cycle_program():
+    """(program, n_taps): a block program of 9 feeds, 10 registers, 9
+    taps, 9 cascades and 9 combs in 56 instructions with 36 join terms,
+    past the fixed capacity the cycle kernel once had (32 instructions
+    and terms; 8 feeds, registers, taps, cascades and combs).  Register
+    i feeds back into stage i with the mix register 9."""
+    from dsp_stuff_tpu_torch.ops.chain_kernel import EW_CODES
+    prog = []
+    for i, kind in enumerate(EW_CODES[:9]):
+        prog += [("join", (("ext", i), ("reg", i), ("reg", 9)), 0.4),
+                 ("cascade", (("lp", 0.2 + 0.07 * i),), i),
+                 ("comb", 0.3, 128 + 37 * i, i),
+                 ("ew", kind, {"overdrive": (2.0, 0.5, 0.8),
+                               "chebyshev": (2.0, 3.0)}.get(kind, (1.5,))),
+                 ("setreg", i), ("tap", i)]
+    prog.append(("join", tuple(("reg", i) for i in range(9)), 0.1))
+    prog.append(("setreg", 9))
+    return tuple(prog), 9
 
 
 def planned_stages(graph):
@@ -447,6 +498,86 @@ def cuda_ms(fn, n=N_TIMED):
     return float(np.median(times))
 
 
+def in_turns(fk, fp, n_plain=N_TIMED):
+    """(kernel ms, plain ms): each timed twice, in turns kernel, plain,
+    plain, kernel, the medians of both rounds."""
+    k = [cuda_ms(fk)]
+    p = [cuda_ms(fp, n_plain), cuda_ms(fp, n_plain)]
+    k.append(cuda_ms(fk))
+    return float(np.median(k)), float(np.median(p))
+
+
+def bound(n_bytes, flops):
+    """(bound ms, what sets it): the least time for moving ``n_bytes``
+    over HBM and doing ``flops`` FP32 operations, at the card's peaks."""
+    ms_b = n_bytes / (HBM_TBPS * 1e12) * 1e3
+    ms_f = flops / (FP32_TFLOPS * 1e12) * 1e3
+    return (ms_b, "bytes") if ms_b >= ms_f else (ms_f, "operations")
+
+
+def casc_flops(sections, blocks):
+    """One cascade's operations over ``blocks`` 128-sample blocks: the
+    triangular Toeplitz product (128 * 129 / 2 multiply-adds a block) and
+    the N-lane carry's products (X W, C Ecb, C ACt)."""
+    from dsp_stuff_tpu_torch.ops.cascade import _embed_dim, composite_dim
+    N = _embed_dim(composite_dim(sections))
+    return 2.0 * blocks * (128 * 129 / 2 + 2 * 128 * N + N * N)
+
+
+def chain_bound(stages, B, T):
+    """The chain kernel's bound at [B, T]: bytes of x, y and the taps, the
+    states in and out; operations of the cascades, one a sample a scale or
+    shaper, two a comb sample, seven an mtap sample."""
+    n_taps = sum(1 for st in stages if st[0] == "tap")
+    n_bytes = 4.0 * B * T * (2 + n_taps)
+    flops = 0.0
+    for st in stages:
+        if st[0] == "cascade":
+            flops += casc_flops(st[1], B * T // 128)
+            n_bytes += 4.0 * B * (2 * 8 + 128)
+        elif st[0] in ("scale", "ew"):
+            flops += B * T
+        elif st[0] == "comb":
+            flops += 2.0 * B * T
+            n_bytes += 4.0 * B * (st[2] + -(-st[2] // 128) * 128)
+        elif st[0] == "mtap":
+            flops += 7.0 * B * T
+            n_bytes += 4.0 * (B * (st[2] + (st[3] + 1) * 128) + 2 * T)
+    return bound(n_bytes, flops)
+
+
+def cycle_bound(program, B, T):
+    """The cycle kernel's bound: bytes of the feeds and taps; operations
+    of the cascades, the join terms, two a comb sample, one a shaper or
+    scale sample."""
+    from dsp_stuff_tpu_torch.ops import cycle_segment
+    _, _, _, n_t, n_e = cycle_segment._program_counts(program)
+    flops = 0.0
+    for ins in program:
+        if ins[0] == "cascade":
+            flops += casc_flops(ins[1], B * T // 128)
+        elif ins[0] == "join":
+            flops += B * T * len(ins[1])
+        elif ins[0] == "lin2":
+            flops += B * T * (len(ins[1]) + len(ins[3]) + 3)
+        elif ins[0] == "comb":
+            flops += 2.0 * B * T
+        elif ins[0] in ("ew", "scale"):
+            flops += B * T
+    return bound(4.0 * B * T * (n_e + n_t), flops)
+
+
+def matmul_ms(sections, B, T, dev):
+    """One torch.matmul of a cascade stage's product, [B*K, 128] x [128,
+    136] ([Ltg | W]) in float32: the library yardstick of one stage."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import chain_kernel
+    Ltg, Wp, _, _, _ = chain_kernel._casc_consts(sections)
+    L = torch.as_tensor(np.concatenate([Ltg, Wp], axis=1), device=dev)
+    X = torch.randn((B * T // 128, 128), device=dev)
+    return cuda_ms(lambda: torch.matmul(X, L))
+
+
 def dbfs_dev(got, want) -> float:
     """dbfs of two tensors on the card, in float64 (no host copy)."""
     err = float((got.double() - want.double()).abs().max())
@@ -777,6 +908,32 @@ def main() -> int:
             torch.cuda.synchronize()
             compare(name, k, p)
 
+        # the tile walk: three tiles and a ragged one at the wrapper's
+        # geometry (R = 1), then four rows a CTA with B no multiple of 4
+        from dsp_stuff_tpu_torch.ops import chain_kernel
+        rng14 = np.random.default_rng(14)
+        tile_lists = {name: (st_, ()) for name, st_ in check_lists().items()}
+        tile_lists.update(mtap_lists())
+        tile_lists["40 stages"] = (long_list(), ())
+        print(f"chain kernel vs segment_fallback, B={B_TILES}, "
+              f"T={T_TILES} (4 tiles, the last ragged):")
+        runs = [(name, stages, lfos, None)
+                for name, (stages, lfos) in tile_lists.items()]
+        runs += [(f"{name} R={R_TILES}", *tile_lists[name], R_TILES)
+                 for name in ("bench", "mtap config5")]
+        for name, stages, lfos, R in runs:
+            x = torch.as_tensor((rng14.standard_normal((B_TILES, T_TILES))
+                                 * 0.3).astype(np.float32), device=dev)
+            st = seeded_states(stages, B_TILES, rng14, dev, T=T_TILES,
+                               lfos=lfos)
+            y, casc_raw, ring_raw, taps = chain_kernel.launch(x, stages, st,
+                                                              R)
+            k = (y, *chain_segment.rebuild_states(stages, T_TILES, casc_raw,
+                                                  ring_raw), taps)
+            p = chain_segment.segment_fallback(x, stages, st)
+            torch.cuda.synchronize()
+            compare(name, k, p)
+
         print(f"cycle kernel vs cycle_segment.interpret, B={B_CHECK}, "
               f"T={T_CHECK}:")
         programs = {"config5": cycle_program(
@@ -788,6 +945,16 @@ def main() -> int:
             p = cycle_segment.interpret(*ins, program, n_taps)
             torch.cuda.synchronize()
             compare_cycle(name, k, p)
+        # a program past the capacity the kernel once had (its own
+        # generator: the later phases' inputs stay as they were)
+        program, n_taps = oversized_cycle_program()
+        ins = cycle_inputs(program, B_CHECK, T_CHECK,
+                           np.random.default_rng(15), dev)
+        k = cycle_kernel_run(*ins, program, n_taps)
+        p = cycle_segment.interpret(*ins, program, n_taps)
+        torch.cuda.synchronize()
+        compare_cycle(f"{len(program)} instructions", k, p)
+        del k, p, ins
 
         atk = envelope.gain_from_frames(50.0)
         rel = envelope.gain_from_frames(400.0)
@@ -869,18 +1036,37 @@ def main() -> int:
         print(f"kernel vs segment_fallback, B={B_MAIN}, T={T_MAIN}:")
         _, abs_err = compare("bench (main-path shape)", k, p)
         del k, p
-        ms = cuda_ms(lambda: kernel_segment(xs, stages, st))
-        plain_ms = cuda_ms(lambda: chain_segment.segment_fallback(
-            xs, stages, st))
         render_ms = cuda_ms(lambda: cg.render(x, batch_shape=(B_MAIN,)))
-    audio_s = B_MAIN * T_MAIN / SR
-    for what, t in (("chain segment, kernel", ms),
-                    ("chain segment, segment_fallback", plain_ms),
-                    ("whole render (kernel path)", render_ms)):
-        print(f"{what}: {t:.3f} ms median of {N_TIMED} = "
-              f"{audio_s / (t / 1e3):,.0f} audio-s/s at B={B_MAIN} x 10 s "
-              f"[{card}]")
-    del x, xs, st
+        del x, xs, st
+        # the bench list at each timed B, kernel and plain version in turns
+        # (their own generator: the later phases' inputs stay as they were)
+        rng7 = np.random.default_rng(7)
+        chain_times = {}
+        for b in B_TIMED:
+            xb = torch.as_tensor((rng7.standard_normal((b, T_MAIN),
+                                                       dtype=np.float32)
+                                  * np.float32(0.25)), device=dev)
+            stb = seeded_states(stages, b, rng7, dev)
+            chain_times[b] = in_turns(
+                lambda: kernel_segment(xb, stages, stb),
+                lambda: chain_segment.segment_fallback(xb, stages, stb))
+            del xb, stb
+        bench_lib_ms = matmul_ms(stages[0][1], B_MAIN, T_MAIN, dev)
+    for b, (tk, tp) in chain_times.items():
+        bms, bby = chain_bound(stages, b, T_MAIN)
+        print(f"chain kernel, bench list, B={b} x 10 s: kernel {tk:.3f} ms "
+              f"({b * T_MAIN / SR / (tk / 1e3):,.0f} audio-s/s), plain "
+              f"{tp:.3f} ms, bound {bms:.3f} ms by {bby} "
+              f"({bms / tk:.1%} of it) [{card}]")
+    check(chain_times[B_MAIN][0] < chain_times[B_MAIN][1],
+          f"the chain kernel is not faster than segment_fallback at "
+          f"B={B_MAIN}: {chain_times[B_MAIN]}")
+    ms, plain_ms = chain_times[B_MAIN]
+    print(f"one cascade's product as one torch.matmul, [{B_MAIN} x "
+          f"{T_MAIN // 128}, 128] x [128, 136]: {bench_lib_ms:.3f} ms [{card}]")
+    print(f"whole render (kernel path): {render_ms:.3f} ms median of "
+          f"{N_TIMED} = {B_MAIN * T_MAIN / SR / (render_ms / 1e3):,.0f} "
+          f"audio-s/s at B={B_MAIN} x 10 s [{card}]")
 
     # -- 8. config5's main path ---------------------------------------------
     g5, meta5 = presets.config5_feedback_16node()
@@ -952,10 +1138,13 @@ def main() -> int:
         print(f"kernel vs segment_fallback, B={B_C5}, T={T_MAIN}:")
         _, mtap_err = compare("mtap config5 (main-path shape)", k, p)
         del k, p
-        times["chain_mtap"] = (
-            cuda_ms(lambda: kernel_segment(x5r, stages5, st5)),
-            cuda_ms(lambda: chain_segment.segment_fallback(x5r, stages5,
-                                                           st5)))
+        times["chain_mtap"] = in_turns(
+            lambda: kernel_segment(x5r, stages5, st5),
+            lambda: chain_segment.segment_fallback(x5r, stages5, st5))
+        check(times["chain_mtap"][0] < times["chain_mtap"][1],
+              f"the chain kernel is not faster than segment_fallback on "
+              f"config5's list at B={B_C5}: {times['chain_mtap']}")
+        mtap_lib_ms = matmul_ms(stages5[0][1], B_C5, T_MAIN, dev)
         program, n_taps = programs["config5"]
         ins = cycle_inputs(program, B_C5, T_MAIN, rng5, dev)
         k = cycle_kernel_run(*ins, program, n_taps)
@@ -997,6 +1186,10 @@ def main() -> int:
             ("envelope, sequential", times["env_seq"], "B=4 x 1 s")):
         print(f"{what}: kernel {tk:.3f} ms, plain {tp:.3f} ms at {shape} "
               f"[{card}]")
+    bms, bby = chain_bound(stages5, B_C5, T_MAIN)
+    print(f"chain kernel, config5's list: bound {bms:.3f} ms by {bby} "
+          f"({bms / times['chain_mtap'][0]:.1%} of it); its cascade's product "
+          f"as one torch.matmul {mtap_lib_ms:.3f} ms [{card}]")
     for b_, t in ((B_C5, render5_ms), (B_C5_WIDE, render5w_ms)):
         print(f"config5 whole render: {t:.3f} ms median of {N_TIMED} = "
               f"{b_ * T_MAIN / SR / (t / 1e3):,.0f} audio-s/s at B={b_} x "
@@ -1005,32 +1198,42 @@ def main() -> int:
     del x5
     torch.cuda.empty_cache()
     fit_rec = fit_phase(dev, card)
+    fit_launches = fit_rec["launches"]
 
-    def entry(name, source, replaces, launches, err, t):
+    def entry(name, source, replaces, launches, err, t, bnd, lib_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"dsp_stuff_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": t[0], "plain_ms": t[1]}
+                "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "bound_share": bnd[0] / t[0], "library_ms": lib_ms}
 
+    program5 = programs["config5"][0]
     print(json.dumps({"kernels": [
         entry("chain_kernel", "chain_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_chain.py:459",
-              bench_launches["chain"], abs_err, (ms, plain_ms)),
+              bench_launches["chain"], abs_err, (ms, plain_ms),
+              chain_bound(bench_stages(), B_MAIN, T_MAIN), bench_lib_ms),
         entry("chain_kernel:mtap", "chain_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_chain.py:459",
-              c5_launches["chain"], mtap_err, times["chain_mtap"]),
+              c5_launches["chain"], mtap_err, times["chain_mtap"],
+              chain_bound(stages5, B_C5, T_MAIN), mtap_lib_ms),
         entry("cycle_kernel", "cycle_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_cycle.py:220",
-              c5_launches["cycle"], cycle_err, times["cycle"]),
+              c5_launches["cycle"], cycle_err, times["cycle"],
+              cycle_bound(program5, B_C5, T_MAIN)),
         entry("envelope_kernel:chunked", "envelope_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_envelope.py:203",
-              c5_launches["envelope"], rec["chunk_err"], times["env_chunk"]),
+              c5_launches["envelope"], rec["chunk_err"], times["env_chunk"],
+              bound(8.0 * B_C5 * T_MAIN, 3.0 * B_C5 * T_MAIN)),
         entry("envelope_kernel:sequential", "envelope_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_envelope.py:65",
-              par_launches["envelope"], rec["seq_err"], times["env_seq"]),
+              par_launches["envelope"], rec["seq_err"], times["env_seq"],
+              bound(8.0 * 4 * SR, 3.0 * 4 * SR)),
         entry("first_order_kernel", "first_order_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_scan.py:102",
-              fit_rec["launches"], rec["fo_err"], fit_rec["fo_times"]),
+              fit_launches, rec["fo_err"], fit_rec["fo_times"],
+              bound(8.0 * B_FIT * T_MAIN, 2.0 * B_FIT * T_MAIN)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,53 +3,108 @@
 // Replaces dsp_stuff_tpu/ops/pallas_chain.py:chain_kernel_call (the Pallas
 // megakernel of the JAX package) in the PyTorch port.  Its plain PyTorch
 // version is dsp_stuff_tpu_torch/ops/chain_segment.py:segment_fallback;
-// the wrapper that builds, binds and launches it is
-// dsp_stuff_tpu_torch/ops/chain_kernel.py.
+// the wrapper that packs the stage program, builds, binds and launches
+// it is dsp_stuff_tpu_torch/ops/chain_kernel.py.
 //
-// Design.  One CTA of 128 threads per stream row; thread c owns sample
-// column c of every 128-sample block, and the CTA walks the K = T/128
-// blocks in order.  A block passes through every stage while it sits in
-// registers (stage code in stages.cuh, shared with the cycle kernel):
-//   cascade  y[c] = sum_{i<=c} X[i] Ltg[i,c] + sum_j carry[j] Ecb[j,c]
-//            carry' = X.W + carry.ACt   (N <= 8 lanes, warp-shuffle sums)
-//   scale    the folded fan-in scale
-//   ew       the shapers (all nine distort modes, overdrive, chebyshev);
-//            Fuzz takes three block-wide max reductions
-//   tap      writes the flow out as an extra sequence
-//   comb     y = x + d * y[n-D] from a ring of ceil(D/128)*128 samples
-//            per row in global memory (wrapper-allocated, seeded with the
-//            history); a comb with D < 128 has feedback inside the block
-//            and runs in rounds of D columns
-//   mtap     the chorus: a modulated fractional tap on a ring of the
-//            stage INPUT, (NH+1)*128 samples per row in global memory.
-//            The block is written into the ring first; after a barrier
-//            each sample gathers a = ring[t'], b = ring[t'+1] at the
-//            shared trajectory's tap time t' = q[b] + r[t] + t - NH*128
-//            (modfx.mtap_shared) and mixes
-//            y = x*(1-mix) + (a*(1-frac) + b*frac)*mix.  The TPU kernel's
-//            3-block window, pltpu.roll and EV-way one-hot select were
-//            Mosaic workarounds; a direct gather replaces them.
-// At the last block each cascade writes the carry entering it and its
-// stage input, and the rings are left holding slot s = block b mod NR:
-// the raw-output layout of the TPU kernel, which
-// chain_segment.rebuild_states turns into node states.
+// What bounds it.  The signal moves once in and once out (2 x 0.98 GB at
+// 512 rows x 10 s, 0.59 ms of HBM time on an H100), and each cascade is
+// a triangular Toeplitz product of every 128-sample block (about 34 GFLOP
+// a cascade at that size, 0.5 ms at the card's FP32 rate).  An earlier
+// design ran one CTA per row through its blocks one at a time, with the
+// product on the CUDA cores behind three barriers per block: bound by that
+// per-block latency.  This one is bound by each tile's walk through its
+// stages (tools/measure_torch_chain.py --phases counts the cycles of each
+// phase): the tensor-core products and the shapers' arithmetic, then the
+// comb, the carry scan (one thread a row) and the barriers between stages.
 //
-// What bounds it.  At B = 512 rows x 10 s the signal I/O is 2 x 0.98 GB,
-// well under a millisecond of HBM time on an H100.  The kernel is bound
-// instead by the sequential loop over 3750 blocks per row and, per block
-// and cascade, the triangular 128 x 128 product (8,256 FMAs fed from the
-// read-only cache) plus three CTA barriers.  512 CTAs of 4 warps put only
-// about 16 warps on each SM, too few to hide that latency.  Later PRs:
-// several rows per CTA so the cascade becomes a [rows,128]x[128,128] GEMM
-// on the tensor cores (Ltg is Toeplitz, so one 128-tap row in shared
-// memory describes it), and the rings in shared memory where they fit.
+// Design.  A CTA of 256 threads owns R consecutive rows and walks them in
+// tiles of KT consecutive blocks, R * KT = 64: a tile is [64, 128] f32
+// in shared memory, M-row m = r * KT + j holding block j of row r.  The
+// wrapper picks R so that the grid fills the SMs: up to one row an SM, a
+// CTA per row with the whole register file (chain_kernel<1>); past that
+// two CTAs an SM (chain_kernel<2>).  The stages run on the tile in order:
+//   cascade  Z = X [Ltg | W] is one [64, 128] x [128, 136] product on the
+//            tensor cores (mma.sync m16n8k8 in 3xTF32: hi*hi + hi*lo +
+//            lo*hi, f32 accumulate), skipping the zero k-tiles below
+//            Ltg's diagonal.  Ltg[i, c] = h[c - i] is Toeplitz, so a
+//            fragment depends on n - k alone: each warp reads its 16 from
+//            the 128-tap row h in shared memory into registers.  Only the
+//            carry runs block by block, a thread a row scanning
+//            c_{j+1} = u_j + c_j ACt over the tile's blocks (u = Z[:,
+//            128:]); Y = Z[:, :128] + C Ecb is one more product.  The
+//            running carry lives in device memory between tiles.
+//   scale, ew, tap
+//            elementwise: warp w holds M-rows w, w + 8, ... in registers
+//            through a whole run of them, so Fuzz's three block maxima
+//            are warp reductions and the run needs no barrier.
+//   comb     y = x + d * y[n - D] as min(D, KT * 128) independent chains
+//            a row (positions c, c + D, ...), each from one load of a ring
+//            of ceil(D/128)*128 outputs a row in device memory (the L2
+//            holds it; config2's 12,032 samples a row would not fit in
+//            shared memory), which takes the tile's last outputs.
+//   mtap     the chorus: a modulated fractional tap on the stage INPUT,
+//            t' = q[b] + r[t] + t - NH*128 (modfx.mtap_shared),
+//            y = x*(1-mix) + (a*(1-frac) + b*frac)*mix.  Taps inside the
+//            tile gather from the tile in shared memory, taps before it
+//            from a ring of (NH+1)*128 input samples a row in device
+//            memory, which takes the tile's last inputs after the gather.
+// While a tile is in the stages, the next x tile loads into the other of
+// two shared-memory buffers with cp.async, and the TMA engine stores the
+// finished tile (cp.async.bulk); the ragged last tile and rows past B are
+// masked (zero-filled, never stored).
+//
+// The stage program is a packed array in device memory (header, stage
+// records, per-cascade and per-ring pointer records, tap pointers), so no
+// list length is fixed here; shared memory does not grow with it either.
+// Raw outputs, in the TPU kernel's layout: per cascade the carry entering
+// the render's last block and that block's stage input; per comb or mtap
+// the ring, slot s = block b mod NR; the taps.  chain_segment.
+// rebuild_states turns them into node states.
+
+#include <stdint.h>
 
 #include "stages.cuh"
 
-#define CK_MAX_STAGES 32
-#define CK_MAX_CASC 8
-#define CK_MAX_RING 8
-#define CK_MAX_TAP 8
+#define CK_M 64             // M-rows of a tile (R * KT)
+#define CK_NT 256           // threads of a CTA
+#define CK_NW (CK_NT / 32)  // warps
+#define CK_MT (CK_M / 16)   // m-tiles of a tile
+#define CK_P (CK_NW / CK_MT)  // warps sharing an m-tile, splitting its n-tiles
+#define CK_NQ (CK_M / CK_NW)  // M-rows a warp holds in the elementwise pass
+#define CK_LD 132           // row stride of a tile in shared memory
+#define CK_CLD 12           // row stride of the carry buffers
+#define CK_HP 136           // padded Toeplitz row: 8 zeros, h[0..127]
+#define CK_CB 8             // comb positions a thread loads at once
+
+// Phase probes, built only by tools/measure_torch_chain.py --phases
+// (-DCK_PHASES): thread 0 of each CTA adds the cycles since its last probe
+// to the phase's counter, and the counters go to ck_phases at the exit.
+#define PH_WAIT 0           // the tile's x in
+#define PH_OPEN 1           // the barrier before a cascade, comb or mtap
+#define PH_PRODUCT 2        // Z = X [Ltg | W]
+#define PH_SCAN 3           // the carry scan
+#define PH_ECB 4            // Y = Z + C Ecb
+#define PH_EW 5             // a run of scale, ew and tap stages
+#define PH_COMB 6
+#define PH_MTAP 7
+#define PH_OUT 8            // the output tile to the TMA engine
+#define CK_NPH 9
+#ifdef CK_PHASES
+#define CK_PH_CTAS 4096
+__device__ unsigned long long ck_phases[CK_PH_CTAS][CK_NPH];
+__shared__ unsigned long long ck_acc[CK_NPH];
+__shared__ long long ck_last;
+#define PHASE(i)                                          \
+  do {                                                    \
+    if (threadIdx.x == 0) {                               \
+      const long long now_ = clock64();                   \
+      ck_acc[i] += now_ - ck_last;                        \
+      ck_last = now_;                                     \
+    }                                                     \
+  } while (0)
+#else
+#define PHASE(i) do {} while (0)
+#endif
 
 // stage kinds
 #define CK_CASCADE 0
@@ -59,106 +114,596 @@
 #define CK_COMB 4
 #define CK_MTAP 5
 
-// Mirrored field for field by ops/chain_kernel.py (_Stage, _Program);
-// chain_kernel_abi() lets the wrapper check the size.
+// The packed program, mirrored by ops/chain_kernel.py (_HEADER, _STAGE,
+// _CASC, _RING); chain_kernel_abi() lets the wrapper check the sizes.
+typedef struct {
+  int n_stages, n_casc, n_ring, n_tap;
+  long long off_stage, off_casc, off_ring, off_tap;   // bytes from the base
+  long long pad_[2];
+} CkHeader;
+
 typedef struct {
   int kind;     // CK_*
   int idx;      // cascade / ew op / tap / ring index
   int n;        // cascade: carry lanes N; comb: delay D; mtap: NH
-  float p[3];   // scale factor, shaper params, comb decay or mtap mix
+  int pad_;
+  float p[4];   // scale factor, shaper params, comb decay or mtap mix
 } CkStage;
 
 typedef struct {
-  int n_stages;
-  int pad_;
-  CkStage st[CK_MAX_STAGES];
-  const float* ltg[CK_MAX_CASC];   // [128, 128]
-  const float* w[CK_MAX_CASC];     // [128, 8]
-  const float* ecb[CK_MAX_CASC];   // [8, 128]
-  const float* act[CK_MAX_CASC];   // [8, 8]
-  const float* s0[CK_MAX_CASC];    // [B, 8] carry entering block 0
-  float* carry_out[CK_MAX_CASC];   // [B, 8] carry entering block K-1
-  float* xlast_out[CK_MAX_CASC];   // [B, 128] stage input of block K-1
-  float* ring[CK_MAX_RING];        // comb: [B, NR*128]; mtap: [B, (NH+1)*128]
-  const int* mq[CK_MAX_RING];      // mtap: [K] per-block window start
-  const int* mr[CK_MAX_RING];      // mtap: [T] residual offset
-  const float* mfr[CK_MAX_RING];   // mtap: [T] interpolation weight
-  float* tap[CK_MAX_TAP];          // [B, T]
-} CkProgram;
+  const float* hp;    // [2][136] hi, lo TF32 parts of the padded row h
+  const float* w;     // [2][128][8] hi, lo of W
+  const float* ecb;   // [2][8][128] hi, lo of Ecb
+  const float* act;   // [8][8] ACt, the carry's step over one block
+  float* carry;       // [B][8] running carry: the state entering the tile
+  float* carry_out;   // [B][8] carry entering block K-1
+  float* xlast_out;   // [B][128] stage input of block K-1
+  const void* pad_;
+} CkCasc;
 
-__global__ void __launch_bounds__(CK_C)
-chain_kernel(const CkProgram P, const float* __restrict__ x,
-             float* __restrict__ y, int T) {
-  __shared__ StageScratch sh;
-  __shared__ float carry[CK_MAX_CASC][CK_NS];
-  const int c = threadIdx.x;
-  const long long row = blockIdx.x;
-  const int K = T / CK_C;
-  const long long base = row * (long long)T;
+typedef struct {
+  float* ring;        // comb: [B][NR*128] outputs;
+                      // mtap: [B][(NH+1)*128] inputs
+  const int* mq;      // mtap: [K] per-block window start
+  const int* mr;      // mtap: [T] residual offset
+  const float* mfr;   // mtap: [T] interpolation weight
+} CkRing;
 
-  if (c < CK_NS) {
-    for (int s = 0; s < P.n_stages; ++s)
-      if (P.st[s].kind == CK_CASCADE)
-        carry[P.st[s].idx][c] = P.s0[P.st[s].idx][row * CK_NS + c];
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo, each part a TF32 value
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B in 3xTF32; b0/b1 hold the hi parts, c0/c1 the lo parts of B
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1, float c0, float c1) {
+  mma_tf32(d, al, __float_as_uint(b0), __float_as_uint(b1));
+  mma_tf32(d, ah, __float_as_uint(c0), __float_as_uint(c1));
+  mma_tf32(d, ah, __float_as_uint(b0), __float_as_uint(b1));
+}
+
+// The A fragment of rows m0 + gid (+8), columns k0 + tig (+4) of a
+// row-major buffer with stride ld, split into TF32 hi and lo parts.
+__device__ __forceinline__ void load_a(const float* base, int ld, int m0,
+                                       int k0, uint32_t (&ah)[4],
+                                       uint32_t (&al)[4]) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const float* p = base + (m0 + gid) * ld + k0 + tig;
+  split_tf32(p[0], ah[0], al[0]);
+  split_tf32(p[8 * ld], ah[1], al[1]);
+  split_tf32(p[4], ah[2], al[2]);
+  split_tf32(p[8 * ld + 4], ah[3], al[3]);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+struct Tile {
+  int row0, Rv, R, KT, K, T;   // rows [row0, row0 + Rv) of B; R * KT = 64
+  int b0, KTv;                 // first block of the tile, blocks present
+  __device__ bool valid(int m) const { return m / KT < Rv && m % KT < KTv; }
+  __device__ long long off(int m) const {     // global offset of M-row m
+    return (long long)(row0 + m / KT) * T + (long long)(b0 + m % KT) * CK_C;
   }
-  __syncthreads();
+};
 
-  for (int b = 0; b < K; ++b) {
-    const long long t = (long long)b * CK_C + c;   // time within the render
-    const long long off = base + t;
-    float v = x[off];
-    for (int s = 0; s < P.n_stages; ++s) {
-      const int kind = P.st[s].kind;
-      const int idx = P.st[s].idx;
-      if (kind == CK_CASCADE) {
-        float* cr = carry[idx];
-        if (b == K - 1) {
-          P.xlast_out[idx][row * CK_C + c] = v;
-          if (c < CK_NS) P.carry_out[idx][row * CK_NS + c] = cr[c];
-        }
-        v = cascade_step(v, P.st[s].n, cr, P.ltg[idx], P.w[idx],
-                         P.ecb[idx], P.act[idx], sh);
-      } else if (kind == CK_SCALE) {
-        v = v * P.st[s].p[0];
-      } else if (kind == CK_EW) {
-        v = apply_ew(idx, P.st[s].p, v, sh.redm);
-      } else if (kind == CK_TAP) {
-        P.tap[idx][off] = v;
-      } else if (kind == CK_COMB) {
-        const int D = P.st[s].n;
-        const int RL = ((D + CK_C - 1) / CK_C) * CK_C;
-        v = comb_step(v, P.ring[idx] + row * RL, RL, D, P.st[s].p[0], t);
-      } else {                               // CK_MTAP
-        const int NH = P.st[s].n;
-        const int RL = (NH + 1) * CK_C;
-        float* ring = P.ring[idx] + row * RL;
-        ring[(int)(t % RL)] = v;
-        __syncthreads();                     // the block is in the ring
-        long long tm = (long long)__ldg(P.mq[idx] + b)
-            + __ldg(P.mr[idx] + t) + t - (long long)NH * CK_C;
-        int ia = (int)(tm % RL);
-        if (ia < 0) ia += RL;
-        const int ib = ia + 1 == RL ? 0 : ia + 1;
-        const float fr = __ldg(P.mfr[idx] + t);
-        const float wet = ring[ia] * (1.0f - fr) + ring[ib] * fr;
-        const float mix = P.st[s].p[0];
-        v = v * (1.0f - mix) + wet * mix;
-        __syncthreads();                     // reads before the next write
+// Start the copy of x's tile at block b0 into F: 16 bytes a thread and
+// chunk, zeros where the tile runs past the render or past B.  Thread
+// (warp w, lane l) copies the columns 4l..4l+3 of M-rows w, w + 8, ...,
+// the chunks it later stores.
+__device__ __forceinline__ void load_tile(float* F,
+                                          const float* __restrict__ x, Tile t,
+                                          int b0) {
+  t.b0 = b0;
+  t.KTv = min(t.KT, t.K - b0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int m = warp; m < CK_M; m += CK_NW) {
+    const bool ok = t.valid(m);
+    const float* src = ok ? x + t.off(m) + 4 * lane : x;
+    cp_async16(F + m * CK_LD + 4 * lane, src, ok ? 16 : 0);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// A run of elementwise stages [s0, s1) over the tile: warp w holds M-rows
+// w, w + 8, ... (four samples a lane, 32 a thread) in registers while
+// every stage of the run passes over them, each stage read once.  Rows
+// past the render or past B are shaped too (they are never read into a
+// row that is), but not stored as taps.
+__device__ __forceinline__ void ew_run(float* F,
+                                       const CkStage* __restrict__ st, int s0,
+                                       int s1,
+                                       float* const* __restrict__ taps,
+                                       const Tile t) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float v[CK_NQ * 4];
+#pragma unroll
+  for (int q = 0; q < CK_NQ; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(
+        F + (warp + q * CK_NW) * CK_LD)[lane];
+    v[4 * q] = f.x;
+    v[4 * q + 1] = f.y;
+    v[4 * q + 2] = f.z;
+    v[4 * q + 3] = f.w;
+  }
+  for (int s = s0; s < s1; ++s) {
+    const CkStage S = st[s];
+    if (S.kind == CK_SCALE) {
+      const float h = S.p[0];
+      each(v, [=](float x) { return x * h; });
+    } else if (S.kind == CK_EW && S.idx != EW_FUZZ) {
+      ew_points(S.idx, S.p, v);
+    } else if (S.kind == CK_EW) {             // Fuzz: per block, a warp max
+#pragma unroll
+      for (int q = 0; q < CK_NQ; ++q)
+        apply_ew(S.idx, S.p, *reinterpret_cast<float(*)[4]>(v + 4 * q),
+                 WarpMax());
+    } else {                                   // CK_TAP
+#pragma unroll
+      for (int q = 0; q < CK_NQ; ++q) {
+        const int m = warp + q * CK_NW;
+        if (t.valid(m))
+          reinterpret_cast<float4*>(taps[S.idx] + t.off(m))[lane] =
+              make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
       }
     }
-    y[off] = v;
+  }
+#pragma unroll
+  for (int q = 0; q < CK_NQ; ++q)
+    reinterpret_cast<float4*>(F + (warp + q * CK_NW) * CK_LD)[lane] =
+        make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+
+// The carry scan of row r over the tile's blocks, c_{j+1} = u_j + c_j ACt,
+// by one thread holding the N live lanes (2, 4 or 8): N FMAs deep a
+// block.  c0 is the running carry entering the tile; Cb takes the carry
+// entering each block, and the running carry leaves for the next tile.
+template <int N>
+__device__ __forceinline__ void scan_row(const CkCasc& cc,
+                                         const float* __restrict__ Ub,
+                                         float* __restrict__ Cb, const Tile t,
+                                         int r, const float (&c0)[CK_NS]) {
+  float a[N][N], c[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int j = 0; j < N; ++j) a[k][j] = __ldg(cc.act + k * CK_NS + j);
+  const long long g = (long long)(t.row0 + r) * CK_NS;
+  const float* u = Ub + r * t.KT * CK_CLD;
+  float* cb = Cb + r * t.KT * CK_CLD;
+#pragma unroll
+  for (int j = 0; j < N; ++j) c[j] = c0[j];
+  float un[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) un[j] = u[j];
+  for (int jb = 0; jb < t.KTv; ++jb) {
+    float nc[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) nc[j] = un[j];
+    if (jb + 1 < t.KTv) {                // the next block's u, ahead
+#pragma unroll
+      for (int j = 0; j < N; ++j) un[j] = u[(jb + 1) * CK_CLD + j];
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) cb[jb * CK_CLD + j] = c[j];
+    if (t.b0 + jb == t.K - 1) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) cc.carry_out[g + j] = c[j];
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+#pragma unroll
+      for (int j = 0; j < N; ++j) nc[j] = fmaf(c[k], a[k][j], nc[j]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) c[j] = nc[j];
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) cc.carry[g + j] = c[j];
+}
+
+// Z = X [Ltg | W] for the warp of m-tile m0 and n-tiles n = P i + PAR
+// (PAR 0 also the W column tile, n = 16).  The fragments of Ltg depend
+// on d = n - k alone (Toeplitz), so the warp reads its 16 from the row h
+// in shared memory once and keeps them in registers.
+template <int PAR>
+__device__ __forceinline__ void ltg_product(const float* F, const float* hs,
+                                            const float* __restrict__ w,
+                                            int m0,
+                                            float (&acc)[16 / CK_P + 1][4]) {
+  constexpr int NI = 16 / CK_P;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  float b[16][4];
+#pragma unroll
+  for (int d = 0; d < 16; ++d) {
+    const float* hb = hs + 8 * d + gid - tig + 8;     // h[8d + gid - tig]
+    b[d][0] = hb[0];
+    b[d][1] = hb[-4];
+    b[d][2] = hb[CK_HP];
+    b[d][3] = hb[CK_HP - 4];
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    uint32_t ah[4], al[4];
+    load_a(F, CK_LD, m0, 8 * k, ah, al);
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int d = CK_P * i + PAR - k;   // n-tile n uses k-tiles k <= n
+      if (d >= 0) mma3(acc[i], ah, al, b[d][0], b[d][1], b[d][2], b[d][3]);
+    }
+    if (PAR == 0) {
+      const float* wb = w + (8 * k + tig) * CK_NS + gid;
+      mma3(acc[NI], ah, al, __ldg(wb), __ldg(wb + 4 * CK_NS),
+           __ldg(wb + CK_C * CK_NS), __ldg(wb + CK_C * CK_NS + 4 * CK_NS));
+    }
   }
 }
 
-extern "C" int chain_kernel_abi(void) { return (int)sizeof(CkProgram); }
+template <int PAR = 0>
+__device__ __forceinline__ void ltg_product_of(int par, const float* F,
+                                               const float* hs,
+                                               const float* w, int m0,
+                                               float (&acc)[16 / CK_P + 1][4]) {
+  if (par == PAR) {
+    ltg_product<PAR>(F, hs, w, m0, acc);
+  } else if constexpr (PAR + 1 < CK_P) {
+    ltg_product_of<PAR + 1>(par, F, hs, w, m0, acc);
+  }
+}
 
-// Launch on `stream` (the caller's current PyTorch stream); returns the
-// cudaGetLastError() code of the launch, 0 on success.
-extern "C" int chain_kernel_launch(const CkProgram* prog, const float* x,
-                                   float* y, int B, int T, int device,
+// One cascade stage of N carry lanes on the tile (see the header).  Ub
+// and Cb are [64][12] scratch for u and the carries; hs holds the stage's
+// [2][136] row h, copied in before the barrier that opens the stage.
+__device__ __forceinline__ void cascade_tile(float* F, const CkCasc& cc,
+                                             int N, float* Ub, float* Cb,
+                                             float* hs, const Tile t) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  float c0[CK_NS];                       // the scan's carry, read ahead
+#pragma unroll
+  for (int j = 0; j < CK_NS; ++j)
+    c0[j] = tid < t.Rv ? cc.carry[(long long)(t.row0 + tid) * CK_NS + j]
+                       : 0.0f;
+  // raw outputs: the stage input of the render's last block
+  if (t.b0 + t.KTv == t.K) {
+    for (int i = tid; i < t.Rv * CK_C; i += CK_NT) {
+      const int r = i / CK_C, c = i % CK_C;
+      cc.xlast_out[(long long)(t.row0 + r) * CK_C + c] =
+          F[(r * t.KT + t.KTv - 1) * CK_LD + c];
+    }
+  }
+
+  // Z = X [Ltg | W]: warp (mt, par) takes the 16 M-rows of m-tile mt and
+  // the n-tiles n = P i + par; par 0 also the W column tile (n = 16)
+  constexpr int NI = 16 / CK_P;
+  const int mt = warp % CK_MT, par = warp / CK_MT, m0 = mt * 16;
+  float acc[NI + 1][4];
+#pragma unroll
+  for (int i = 0; i <= NI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  ltg_product_of(par, F, hs, cc.w, m0, acc);
+  float eh[NI][4];                     // Ecb's fragments, ahead of the scan
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const float* eb = cc.ecb + tig * CK_C + 8 * (CK_P * i + par) + gid;
+    eh[i][0] = __ldg(eb);
+    eh[i][1] = __ldg(eb + 4 * CK_C);
+    eh[i][2] = __ldg(eb + CK_NS * CK_C);
+    eh[i][3] = __ldg(eb + CK_NS * CK_C + 4 * CK_C);
+  }
+  if (par == 0) {
+    float* u = Ub + (m0 + gid) * CK_CLD + 2 * tig;
+    u[0] = acc[NI][0];
+    u[1] = acc[NI][1];
+    u[8 * CK_CLD] = acc[NI][2];
+    u[8 * CK_CLD + 1] = acc[NI][3];
+  }
+  __syncthreads();
+  PHASE(PH_PRODUCT);
+
+  // the carry scan, a thread a row (R <= 64 < CK_NT)
+  if (tid < t.Rv) {
+    if (N <= 2) scan_row<2>(cc, Ub, Cb, t, tid, c0);
+    else if (N <= 4) scan_row<4>(cc, Ub, Cb, t, tid, c0);
+    else scan_row<8>(cc, Ub, Cb, t, tid, c0);
+  }
+  __syncthreads();
+  PHASE(PH_SCAN);
+
+  // Y = Z[:, :128] + C Ecb, into the tile
+  {
+    uint32_t ah[4], al[4];
+    load_a(Cb, CK_CLD, m0, 0, ah, al);
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int n = CK_P * i + par;
+      mma3(acc[i], ah, al, eh[i][0], eh[i][1], eh[i][2], eh[i][3]);
+      float* o = F + (m0 + gid) * CK_LD + 8 * n + 2 * tig;
+      o[0] = acc[i][0];
+      o[1] = acc[i][1];
+      o[8 * CK_LD] = acc[i][2];
+      o[8 * CK_LD + 1] = acc[i][3];
+    }
+  }
+}
+
+// One feedback comb on the tile.  y[s] = x[s] + d y[s - D] splits into
+// min(D, KTv*128) chains a row, positions s = c, c + D, c + 2D, ...;
+// a thread walks CK_CB chains at once, each from one ring load (the
+// output D before its first position) through its positions in the
+// tile, so no barrier separates the steps.
+__device__ __forceinline__ void comb_tile(float* F, const CkStage& S,
+                                          float* rings, const Tile t) {
+  const int D = S.n;
+  const float decay = S.p[0];
+  const int RL = ((D + CK_C - 1) / CK_C) * CK_C;
+  const int Lv = t.KTv * CK_C;
+  const int t0m = (int)((long long)t.b0 * CK_C % RL);   // tile start mod RL
+  const int nch = min(D, Lv), total = t.Rv * nch;
+  for (int i0 = threadIdx.x; i0 < total; i0 += CK_CB * CK_NT) {
+    float prev[CK_CB];
+    int c[CK_CB];
+    float* Fr[CK_CB];
+#pragma unroll
+    for (int u = 0; u < CK_CB; ++u) {
+      const int i = min(i0 + u * CK_NT, total - 1), r = i / nch;
+      c[u] = i0 + u * CK_NT < total ? i - r * nch : Lv;   // Lv: no chain
+      Fr[u] = F + r * t.KT * CK_LD;
+      const int p = t0m + min(c[u], D - 1) - D;        // in (t0m - RL, t0m)
+      prev[u] = rings[(long long)(t.row0 + r) * RL + (p < 0 ? p + RL : p)];
+    }
+    for (int k = 0; k * D < Lv; ++k) {
+#pragma unroll
+      for (int u = 0; u < CK_CB; ++u) {
+        const int s = c[u] + k * D;
+        if (s < Lv) {
+          float* f = Fr[u] + (s >> 7) * CK_LD + (s & (CK_C - 1));
+          prev[u] = __fadd_rn(*f, __fmul_rn(prev[u], decay));
+          *f = prev[u];
+        }
+      }
+    }
+  }
+  __syncthreads();                         // the ring takes other columns
+  const int first = Lv - min(RL, Lv);     // the samples the ring keeps
+  const int p0 = (t0m + first) % RL;       // and where the first goes
+  for (int r = 0; r < t.Rv; ++r) {
+    float* ring = rings + (long long)(t.row0 + r) * RL;
+    const float* Fr = F + r * t.KT * CK_LD;
+    for (int s = first + threadIdx.x; s < Lv; s += CK_NT) {
+      const int p = p0 + s - first;
+      ring[p < RL ? p : p - RL] = Fr[(s >> 7) * CK_LD + (s & (CK_C - 1))];
+    }
+  }
+}
+
+// One mtap stage on the tile: gather from the tile's input and the ring,
+// then (after a barrier) the ring takes the tile's input and the tile the
+// outputs, each thread writing the samples it gathered for.
+__device__ __forceinline__ void mtap_tile(float* F, const CkStage& S,
+                                          const CkRing& rg, const Tile t) {
+  const int NH = S.n;
+  const float mix = S.p[0];
+  const int RL = (NH + 1) * CK_C;
+  const int Lv = t.KTv * CK_C;
+  const int t0 = t.b0 * CK_C;            // times within a row fit an int
+  const int t0m = t0 % RL;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float out[CK_NQ][4];
+#pragma unroll
+  for (int q = 0; q < CK_NQ; ++q) {
+    // rows past the tile or past B gather (from real addresses) too; their
+    // outputs are never stored, and no branch holds the loads apart
+    const int m = warp + q * CK_NW;
+    const int r = min(m / t.KT, t.Rv - 1);
+    const int blk = min(t.b0 + m % t.KT, t.K - 1);
+    const float* ring = rg.ring + (long long)(t.row0 + r) * RL;
+    const float* Fr = F + (m / t.KT) * t.KT * CK_LD;
+    const int tt0 = blk * CK_C + 4 * lane;
+    const int base = __ldg(rg.mq + blk) - NH * CK_C + tt0;
+    const int4 rr = __ldg(reinterpret_cast<const int4*>(rg.mr + tt0));
+    const float4 ff = __ldg(reinterpret_cast<const float4*>(rg.mfr + tt0));
+    const int ro[4] = {rr.x, rr.y, rr.z, rr.w};
+    const float fr[4] = {ff.x, ff.y, ff.z, ff.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int tm = base + ro[e] + e;   // the tap time, in (t0 - RL, t0 + Lv)
+      float ab[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int s = tm + h - t0;        // both addresses stay in bounds
+        const int sf = max(s, 0), p = t0m + min(s, -1);
+        ab[h] = s >= 0 ? Fr[(sf >> 7) * CK_LD + (sf & (CK_C - 1))]
+                       : ring[p < 0 ? p + RL : p];
+      }
+      const float wet = ab[0] * (1.0f - fr[e]) + ab[1] * fr[e];
+      out[q][e] = F[m * CK_LD + 4 * lane + e] * (1.0f - mix) + wet * mix;
+    }
+  }
+  __syncthreads();                       // every gather has read its input
+  const int first = Lv - min(RL, Lv);    // the samples the ring keeps
+  const int p0 = (t0m + first) % RL;      // and where the first goes
+#pragma unroll
+  for (int q = 0; q < CK_NQ; ++q) {
+    const int m = warp + q * CK_NW;
+    if (!t.valid(m)) continue;
+    const int r = m / t.KT, j = m % t.KT;
+    float* ring = rg.ring + (long long)(t.row0 + r) * RL;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 4 * lane + e, s = j * CK_C + c;
+      float* f = F + m * CK_LD + c;
+      const int p = p0 + s - first;
+      if (s >= first) ring[p < RL ? p : p - RL] = *f;
+      *f = out[q][e];
+    }
+  }
+}
+
+// CTAS: the CTAs an SM the register budget allows (1: up to 255 a thread)
+template <int CTAS>
+__global__ void __launch_bounds__(CK_NT, CTAS)
+chain_kernel(const char* __restrict__ prog, const float* __restrict__ x,
+             float* __restrict__ y, int B, int T, int R) {
+  extern __shared__ float4 smem4[];
+  float* F0 = reinterpret_cast<float*>(smem4);
+  float* F1 = F0 + CK_M * CK_LD;
+  float* Ub = F1 + CK_M * CK_LD;
+  float* Cb = Ub + CK_M * CK_CLD;
+  float* hs = Cb + CK_M * CK_CLD;
+  const CkHeader* H = reinterpret_cast<const CkHeader*>(prog);
+  const CkStage* st = reinterpret_cast<const CkStage*>(prog + H->off_stage);
+  const CkCasc* casc = reinterpret_cast<const CkCasc*>(prog + H->off_casc);
+  const CkRing* rings = reinterpret_cast<const CkRing*>(prog + H->off_ring);
+  float* const* taps = reinterpret_cast<float* const*>(prog + H->off_tap);
+  const int n_stages = H->n_stages;
+
+  Tile t;
+  t.R = R;
+  t.KT = CK_M / R;
+  t.row0 = blockIdx.x * R;
+  t.Rv = min(R, B - t.row0);
+  t.T = T;
+  t.K = T / CK_C;
+  const int n_tiles = (t.K + t.KT - 1) / t.KT;
+
+  // the carry buffers' rows past a ragged tile are read (never used) by
+  // the product: keep them finite
+  for (int i = threadIdx.x; i < 2 * CK_M * CK_CLD; i += CK_NT) Ub[i] = 0.0f;
+#ifdef CK_PHASES
+  if (threadIdx.x < CK_NPH) ck_acc[threadIdx.x] = 0;
+  if (threadIdx.x == 0) ck_last = clock64();
+#endif
+  load_tile(F0, x, t, 0);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    float* F = (tile & 1) ? F1 : F0;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if ((threadIdx.x & 31) == 0)         // the TMA has read the other buffer
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    __syncthreads();                     // the tile is in; the other
+                                         // buffer is free
+    PHASE(PH_WAIT);
+    if (tile + 1 < n_tiles) load_tile((tile & 1) ? F0 : F1, x, t,
+                                      (tile + 1) * t.KT);
+    t.b0 = tile * t.KT;
+    t.KTv = min(t.KT, t.K - t.b0);
+
+    for (int s = 0; s < n_stages;) {
+      const int kind = st[s].kind;
+      if (kind == CK_SCALE || kind == CK_EW || kind == CK_TAP) {
+        int e = s + 1;
+        while (e < n_stages && (st[e].kind == CK_SCALE || st[e].kind == CK_EW
+                                || st[e].kind == CK_TAP))
+          ++e;
+        ew_run(F, st, s, e, taps, t);
+        PHASE(PH_EW);
+        s = e;
+        continue;
+      }
+      const CkStage S = st[s];
+      if (kind == CK_CASCADE)            // its Toeplitz row
+        for (int i = threadIdx.x; i < 2 * CK_HP; i += CK_NT)
+          hs[i] = __ldg(casc[S.idx].hp + i);
+      __syncthreads();                   // the tile is consistent
+      PHASE(PH_OPEN);
+      if (kind == CK_CASCADE) {
+        cascade_tile(F, casc[S.idx], S.n, Ub, Cb, hs, t);
+      } else if (kind == CK_COMB) {
+        comb_tile(F, S, rings[S.idx].ring, t);
+      } else {                           // CK_MTAP
+        mtap_tile(F, S, rings[S.idx], t);
+      }
+      __syncthreads();                   // its writes are visible
+      PHASE(kind == CK_CASCADE ? PH_ECB : kind == CK_COMB ? PH_COMB : PH_MTAP);
+      ++s;
+    }
+
+    // y: each block row to device memory by the TMA engine, which reads
+    // shared memory while the next tile starts; lane 0 of each warp sends
+    // the rows its warp owns
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if ((threadIdx.x & 31) == 0) {
+      for (int m = threadIdx.x >> 5; m < CK_M; m += CK_NW)
+        if (t.valid(m))
+          asm volatile(
+              "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+              :: "l"(y + t.off(m)),
+                 "r"((uint32_t)__cvta_generic_to_shared(F + m * CK_LD)),
+                 "n"(CK_C * 4) : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+    PHASE(PH_OUT);
+  }
+  if ((threadIdx.x & 31) == 0)             // y is written before the exit
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+#ifdef CK_PHASES
+  if (threadIdx.x < CK_NPH && blockIdx.x < CK_PH_CTAS)
+    ck_phases[blockIdx.x][threadIdx.x] = ck_acc[threadIdx.x];
+#endif
+}
+
+// Dynamic shared memory of a CTA: two tiles, the carry buffers, the row h.
+static const int SMEM_BYTES =
+    (2 * CK_M * CK_LD + 2 * CK_M * CK_CLD + 2 * CK_HP) * (int)sizeof(float);
+
+// Struct sizes for the wrapper's layout check: header, stage, cascade and
+// ring records, one byte each.
+extern "C" int chain_kernel_abi(void) {
+  return (int)sizeof(CkHeader) | (int)sizeof(CkStage) << 8
+      | (int)sizeof(CkCasc) << 16 | (int)sizeof(CkRing) << 24;
+}
+
+#ifdef CK_PHASES
+// The phase counters of the first n CTAs of the last launch into host[n][9].
+extern "C" int chain_kernel_phases(unsigned long long* host, int n) {
+  return (int)cudaMemcpyFromSymbol(host, ck_phases, sizeof(unsigned long long)
+                                   * CK_NPH * min(n, CK_PH_CTAS));
+}
+#endif
+
+// The tile height the wrapper's geometry assumes (M-rows of a tile).
+extern "C" int chain_kernel_shape(void) { return CK_M; }
+
+// Launch ceil(B / R) CTAs of the kernel built for `ctas` CTAs an SM (1 or
+// 2) on `stream` (the caller's current PyTorch stream); returns the
+// cudaGetLastError() code of the launch, 0 on success.  `prog` is the
+// packed program in device memory.
+extern "C" int chain_kernel_launch(const void* prog, const float* x, float* y,
+                                   int B, int T, int R, int ctas, int device,
                                    void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  chain_kernel<<<B, CK_C, 0, (cudaStream_t)stream>>>(*prog, x, y, T);
+  if (R < 1 || R > CK_M || CK_M % R || (ctas != 1 && ctas != 2))
+    return (int)cudaErrorInvalidValue;
+  void (*kern)(const char*, const float*, float*, int, int, int) =
+      ctas == 1 ? chain_kernel<1> : chain_kernel<2>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(B + R - 1) / R, CK_NT, SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const char*)prog, x, y, B, T, R);
   return (int)cudaGetLastError();
 }

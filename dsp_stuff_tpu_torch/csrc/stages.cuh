@@ -1,10 +1,13 @@
 // stages.cuh -- device code shared by the chain kernel (chain_kernel.cu)
 // and the cycle kernel (cycle_kernel.cu), so that both round alike.
 //
-// Both kernels run one CTA of CK_C = 128 threads per stream row; thread c
-// owns sample column c of every 128-sample block and the CTA walks the
-// blocks in order.  Every function here is called by all 128 threads of
-// the CTA at the same point (several contain __syncthreads).
+// The shapers (apply_ew) serve both kernels: each thread passes the NV
+// samples it holds of one 128-sample block and a functor that takes the
+// max of a value over that block (the chain kernel's warp per block, the
+// cycle kernel's CTA per block).  The cascade and comb steps below them
+// are the cycle kernel's: one CTA of CK_C = 128 threads per stream row,
+// thread c owning sample column c of every block, every thread calling
+// at the same point (they contain __syncthreads).
 //
 // Arithmetic is plain FP32 and the build passes -fmad=false, so each
 // operation rounds once, as in eager PyTorch; the cascade products use
@@ -69,63 +72,138 @@ __device__ float block_max(float v, float* red) {
   return maxn(maxn(red[0], red[1]), maxn(red[2], red[3]));
 }
 
-// One elementwise shaper on this thread's sample (ops/shaping.py).
-__device__ float apply_ew(int op, const float* p, float v, float* red) {
+// Block max over one CTA of 128 threads, one sample each.
+struct CtaMax {
+  float* red;
+  __device__ float operator()(float v) const { return block_max(v, red); }
+};
+
+// Block max over one warp holding a block, four samples a lane.
+struct WarpMax {
+  __device__ float operator()(float v) const {
+    for (int o = 16; o > 0; o >>= 1)
+      v = maxn(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+  }
+};
+
+// v[i] = f(v[i]) over a thread's NV samples, unrolled so that the
+// samples' chains interleave
+template <int NV, class F>
+__device__ __forceinline__ void each(float (&v)[NV], F f) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v[i] = f(v[i]);
+}
+
+// The elementwise shapers other than Fuzz (ops/shaping.py) on the NV
+// samples a thread holds; the op and its bypass are decided once.
+template <int NV>
+__device__ __forceinline__ void ew_points(int op, const float* p,
+                                          float (&v)[NV]) {
   if (op == EW_OVERDRIVE) {
     const float boost = p[0], drive = p[1], level = p[2];
-    const float a = v * boost;
-    const float b = (float)(3.141592653589793 / 4.0) * a;
-    const float d = (float)(2.0 / 3.141592653589793) * atanf(b);
-    const float mix = drive * d + (1.0f - drive) * v;
-    return level < BYPASS ? v : mix * level;
+    if (level < BYPASS) return;
+    each(v, [=](float x) {
+      const float a = x * boost;
+      const float b = (float)(3.141592653589793 / 4.0) * a;
+      const float d = (float)(2.0 / 3.141592653589793) * atanf(b);
+      const float mix = drive * d + (1.0f - drive) * x;
+      return mix * level;
+    });
+    return;
   }
   if (op == EW_CHEBYSHEV) {
     const float lp = p[0], ln = p[1];
-    const bool pos = v >= 0.0f;
-    const float l = pos ? lp : ln;
-    const float safe = pos ? (lp < BYPASS ? 1.0f : lp)
-                           : (ln < BYPASS ? 1.0f : ln);
-    return l < BYPASS ? v : tanh20(v * l) / tanh20(safe);
+    const float tp = tanh20(lp < BYPASS ? 1.0f : lp);
+    const float tn = tanh20(ln < BYPASS ? 1.0f : ln);
+    each(v, [=](float x) {
+      const bool pos = x >= 0.0f;
+      const float l = pos ? lp : ln;
+      return l < BYPASS ? x : tanh20(x * l) / (pos ? tp : tn);
+    });
+    return;
   }
   const float level = p[0];
-  if (op == EW_FUZZ) {                  // no bypass (distort.rs:146-172)
-    const float mx = block_max(fabsf(v), red);
-    const float q = clampn(v * level, -1.0f, 1.0f) / mx;
-    const float z = -(1.0f - expf(-fabsf(q)));
-    const float mz = block_max(fabsf(z), red);
-    const float y = clampn(z * mx, -1.0f, 1.0f) / mz;
-    const float my = block_max(fabsf(y), red);
-    return y * mx / my;
-  }
-  if (level < BYPASS) return v;
-  const float w = v * level;
+  if (level < BYPASS) return;
   switch (op) {
     case EW_HARDCLIP:
-      return clampn(w, -1.0f, 1.0f) / level;
-    case EW_SOFTCLIP: {
-      const float inner = w - (w * w) * w / 3.0f;
-      const float two3 = (float)(2.0 / 3.0);
-      const float shaped = w > 1.0f ? two3
-          : ((w >= -1.0f && w <= 1.0f) ? inner : -two3);
-      return clampn(shaped, -1.0f, 1.0f) / level;
-    }
+      each(v, [=](float x) { return clampn(x * level, -1.0f, 1.0f) / level; });
+      return;
+    case EW_SOFTCLIP:
+      each(v, [=](float x) {
+        const float w = x * level;
+        const float inner = w - (w * w) * w / 3.0f;
+        const float two3 = (float)(2.0 / 3.0);
+        const float shaped = w > 1.0f ? two3
+            : ((w >= -1.0f && w <= 1.0f) ? inner : -two3);
+        return clampn(shaped, -1.0f, 1.0f) / level;
+      });
+      return;
     case EW_TANH:
-      return tanh20(w);
+      each(v, [=](float x) { return tanh20(x * level); });
+      return;
     case EW_RECIPSOFTCLIP:
-      return signn(v) * (1.0f - 1.0f / (fabsf(v) * level + 1.0f));
+      each(v, [=](float x) {
+        return signn(x) * (1.0f - 1.0f / (fabsf(x) * level + 1.0f));
+      });
+      return;
     case EW_SIN:
-      return sinf(w);
+      each(v, [=](float x) { return sinf(x * level); });
+      return;
     case EW_ATAN:
-      return atanf(w);
+      each(v, [=](float x) { return atanf(x * level); });
+      return;
     case EW_SQUARE:
-      return w * w * signn(w);
-    case EW_CHEBYSHEV4: {
-      const float w2 = w * w;
-      const float w4 = w2 * w2;
-      return 8.0f * w4 - 8.0f * w2 + 1.0f;
-    }
+      each(v, [=](float x) {
+        const float w = x * level;
+        return w * w * signn(w);
+      });
+      return;
+    case EW_CHEBYSHEV4:
+      each(v, [=](float x) {
+        const float w = x * level;
+        const float w2 = w * w;
+        const float w4 = w2 * w2;
+        return 8.0f * w4 - 8.0f * w2 + 1.0f;
+      });
+      return;
   }
-  return v;
+}
+
+// NaN-propagating max of |v[i]| over this thread's samples
+template <int NV>
+__device__ __forceinline__ float abs_max(const float (&v)[NV]) {
+  float m = fabsf(v[0]);
+#pragma unroll
+  for (int i = 1; i < NV; ++i) m = maxn(m, fabsf(v[i]));
+  return m;
+}
+
+// One elementwise shaper on the NV samples this thread holds of one
+// 128-sample block.  Fuzz (distort.rs:146-172, no bypass) takes three
+// block maxima through `bmax`, which every thread holding a sample of
+// the block calls together.
+template <int NV, class BlockMax>
+__device__ __forceinline__ void apply_ew(int op, const float* p,
+                                         float (&v)[NV], BlockMax bmax) {
+  if (op != EW_FUZZ) {
+    ew_points(op, p, v);
+    return;
+  }
+  const float level = p[0];
+  const float mx = bmax(abs_max(v));
+  float z[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float q = clampn(v[i] * level, -1.0f, 1.0f) / mx;
+    z[i] = -(1.0f - expf(-fabsf(q)));
+  }
+  const float mz = bmax(abs_max(z));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) z[i] = clampn(z[i] * mx, -1.0f, 1.0f) / mz;
+  const float my = bmax(abs_max(z));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) v[i] = z[i] * mx / my;
 }
 
 // One 128-sample cascade step (ops/cascade.py blocked solve):

@@ -1,10 +1,16 @@
-"""Wrapper of the chain kernel (csrc/chain_kernel.cu): bind and launch.
+"""Wrapper of the chain kernel (csrc/chain_kernel.cu): pack, bind, launch.
 
 The kernel replaces dsp_stuff_tpu/ops/pallas_chain.py:chain_kernel_call,
 every stage included (cascade, scale, ew, tap, comb and the chorus's
 mtap).  It is CUDA C++ for sm_90a, built by ops/cuda_build.py at first
 use and bound with ``ctypes`` through a plain C entry point.  Nothing is
 imported, built or loaded when this module is imported.
+
+The stage list goes to the card as one packed program (``pack_program``):
+a header, the stage records, a pointer record per cascade and per ring,
+and the tap pointers, sized from the list and copied once per call, so
+the kernel has no fixed stage capacity.  ``geometry`` picks the tile
+shape (R rows x KT blocks, R * KT = 64) from B.
 
 ``chain_kernel_call`` takes only CUDA tensors and raises on anything the
 kernel cannot take; there is no fallback.  The plain PyTorch version of
@@ -24,10 +30,9 @@ from dsp_stuff_tpu_torch.ops import cuda_build
 
 C = 128        # samples per block
 NS = 8         # padded carry lanes (cascade.MAX_RUN_DIM embeds <= 8)
-MAX_STAGES = 32
-MAX_CASC = 8
-MAX_RING = 8   # comb and mtap rings together
-MAX_TAP = 8
+M_TILE = 64    # M-rows of a tile: R rows x KT blocks
+CTAS_PER_SM = 2  # CTAs an SM past one row an SM (shared memory, registers)
+WAVES = 4        # rounds of CTAs a grid may take before rows share CTAs
 
 #: elementwise stage kinds in the kernel's EW_* code order (csrc/stages.cuh)
 EW_CODES = ("overdrive", "chebyshev", "distort:HardClip", "distort:SoftClip",
@@ -39,44 +44,79 @@ _KIND = {"cascade": 0, "scale": 1, "ew": 2, "tap": 3, "comb": 4, "mtap": 5}
 #: launches of the kernel in this process (a test or a smoke run resets it)
 LAUNCHES = 0
 
-
-class _Stage(ctypes.Structure):
-    _fields_ = [("kind", ctypes.c_int), ("idx", ctypes.c_int),
-                ("n", ctypes.c_int), ("p", ctypes.c_float * 3)]
-
-
-class _Program(ctypes.Structure):
-    _fields_ = [("n_stages", ctypes.c_int), ("pad_", ctypes.c_int),
-                ("st", _Stage * MAX_STAGES),
-                ("ltg", ctypes.c_void_p * MAX_CASC),
-                ("w", ctypes.c_void_p * MAX_CASC),
-                ("ecb", ctypes.c_void_p * MAX_CASC),
-                ("act", ctypes.c_void_p * MAX_CASC),
-                ("s0", ctypes.c_void_p * MAX_CASC),
-                ("carry_out", ctypes.c_void_p * MAX_CASC),
-                ("xlast_out", ctypes.c_void_p * MAX_CASC),
-                ("ring", ctypes.c_void_p * MAX_RING),
-                ("mq", ctypes.c_void_p * MAX_RING),
-                ("mr", ctypes.c_void_p * MAX_RING),
-                ("mfr", ctypes.c_void_p * MAX_RING),
-                ("tap", ctypes.c_void_p * MAX_TAP)]
+# The packed program's records, mirrored field for field by
+# csrc/chain_kernel.cu (CkHeader, CkStage, CkCasc, CkRing).
+HEADER = np.dtype([("n_stages", "<i4"), ("n_casc", "<i4"), ("n_ring", "<i4"),
+                   ("n_tap", "<i4"), ("off_stage", "<i8"),
+                   ("off_casc", "<i8"), ("off_ring", "<i8"),
+                   ("off_tap", "<i8"), ("pad", "<i8", (2,))])
+STAGE = np.dtype([("kind", "<i4"), ("idx", "<i4"), ("n", "<i4"),
+                  ("pad", "<i4"), ("p", "<f4", (4,))])
+CASC = np.dtype([(f, "<u8") for f in ("hp", "w", "ecb", "act", "carry",
+                                      "carry_out", "xlast_out", "pad")])
+RING = np.dtype([(f, "<u8") for f in ("ring", "mq", "mr", "mfr")])
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("chain_kernel")
+    return bind(cuda_build.load("chain_kernel"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a built chain kernel library and check
+    its record sizes and tile height against this module's."""
     lib.chain_kernel_abi.argtypes = []
     lib.chain_kernel_abi.restype = ctypes.c_int
     lib.chain_kernel_launch.argtypes = [
-        ctypes.POINTER(_Program), ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     lib.chain_kernel_launch.restype = ctypes.c_int
-    if lib.chain_kernel_abi() != ctypes.sizeof(_Program):
+    lib.chain_kernel_shape.restype = ctypes.c_int
+    if lib.chain_kernel_shape() != M_TILE:
+        raise RuntimeError(f"chain kernel built for tiles of "
+                           f"{lib.chain_kernel_shape()} M-rows, the wrapper's "
+                           f"geometry assumes {M_TILE}")
+    want = (HEADER.itemsize | STAGE.itemsize << 8 | CASC.itemsize << 16
+            | RING.itemsize << 24)
+    if lib.chain_kernel_abi() != want:
         raise RuntimeError(
-            f"chain kernel ABI mismatch: the library's program struct is "
-            f"{lib.chain_kernel_abi()} bytes, ctypes' "
-            f"{ctypes.sizeof(_Program)}")
+            f"chain kernel ABI mismatch: the library's record sizes are "
+            f"{lib.chain_kernel_abi():#x}, the packer's {want:#x}")
     return lib
+
+
+def geometry(B: int, n_sm: int = 132) -> tuple[int, int, int]:
+    """(R, KT, ctas) of the launch for B rows on a card of ``n_sm`` SMs.
+    Up to one row an SM, a CTA per row with the whole register file (the
+    kernel built for one CTA an SM); past that the kernel built for two,
+    with the fewest rows a CTA (R, a power of two up to 64) that keep the
+    grid of ceil(B / R) CTAs within WAVES rounds of two CTAs an SM (one
+    row a CTA up to B = 1,056 on an H100).  KT = 64 / R."""
+    if B < 1 or n_sm < 1:
+        raise ValueError(f"geometry: B={B} and n_sm={n_sm} must be >= 1")
+    if B <= n_sm:
+        return 1, M_TILE, 1
+    R = 1
+    while R < M_TILE and -(-B // R) > WAVES * CTAS_PER_SM * n_sm:
+        R *= 2
+    return R, M_TILE // R, CTAS_PER_SM
+
+
+def _tf32_rna(a):
+    """float32 ``a`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as cvt.rna.tf32.f32 rounds; the low 13 bits clear."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def tf32_split(a):
+    """(hi, lo) TF32 parts of float32 ``a``: hi = rna(a), lo =
+    rna(a - hi), the 3xTF32 operands of the kernel's products."""
+    a = np.asarray(a, np.float32)
+    hi = _tf32_rna(a)
+    return hi, _tf32_rna(a - hi)
 
 
 @functools.lru_cache(maxsize=64)
@@ -96,6 +136,28 @@ def _casc_consts(sections: tuple):
 
 
 @functools.lru_cache(maxsize=64)
+def casc_tile_consts(sections: tuple):
+    """The chain kernel's constants of one cascade, one flat f32 array:
+    hp [2, 136] (the Toeplitz row h = Ltg[0] after 8 zeros, TF32 hi and
+    lo), W [2, C, NS], Ecb [2, NS, C] (hi and lo) and ACt [NS, NS];
+    returns (array, offsets of the four parts, N)."""
+    Ltg, Wp, Ecb, ACt, N = _casc_consts(sections)
+    h = Ltg[0]
+    i = np.arange(C)
+    toe = np.where(i[None, :] >= i[:, None],
+                   h[np.clip(i[None, :] - i[:, None], 0, C - 1)], 0.0)
+    if not np.array_equal(toe.astype(np.float32), Ltg):
+        raise AssertionError("cascade taps Ltg are not Toeplitz")
+    hp = np.zeros(C + 8, np.float32)
+    hp[8:] = h
+    parts = (np.stack(tf32_split(hp)), np.stack(tf32_split(Wp)),
+             np.stack(tf32_split(Ecb)), ACt)
+    offs = np.cumsum([0] + [p.size for p in parts])
+    return (np.concatenate([p.ravel() for p in parts]).astype(np.float32),
+            tuple(int(o) for o in offs[:4]), N)
+
+
+@functools.lru_cache(maxsize=64)
 def _casc_device_consts(sections: tuple, device: torch.device):
     """The cascade constants as contiguous f32 tensors on ``device``."""
     Ltg, Wp, Ecb, ACt, N = _casc_consts(sections)
@@ -103,23 +165,106 @@ def _casc_device_consts(sections: tuple, device: torch.device):
                  for a in (Ltg, Wp, Ecb, ACt)) + (N,)
 
 
-def _check_stages(stages: tuple) -> None:
-    counts = {"cascade": 0, "ring": 0, "tap": 0}
-    for st in stages:
+@functools.lru_cache(maxsize=64)
+def _casc_tile_device(sections: tuple, device: torch.device):
+    arr, offs, N = casc_tile_consts(sections)
+    return torch.as_tensor(arr, device=device), offs, N
+
+
+def plan(stages: tuple):
+    """The stage records of a stage list, checked: a STAGE array (kind,
+    index into the cascade / ring / tap / shaper tables, n, params) and
+    the counts (n_casc, n_ring, n_tap).  Raises on what the kernel cannot
+    take; pointers come later (``pack_program``)."""
+    rec = np.zeros(len(stages), STAGE)
+    n_casc = n_ring = 0
+    taps = set()
+    for k, st in enumerate(stages):
         if st[0] not in _KIND:
             raise ValueError(f"chain kernel: unknown stage {st[0]!r}")
-        if st[0] == "ew" and st[1] not in EW_CODES:
-            raise ValueError(f"chain kernel: unknown shaper {st[1]!r}")
-        kind = "ring" if st[0] in ("comb", "mtap") else st[0]
-        if kind in counts:
-            counts[kind] += 1
-    if len(stages) > MAX_STAGES:
-        raise ValueError(f"chain kernel: {len(stages)} stages > {MAX_STAGES}")
-    for kind, cap in (("cascade", MAX_CASC), ("ring", MAX_RING),
-                      ("tap", MAX_TAP)):
-        if counts[kind] > cap:
-            raise ValueError(f"chain kernel: {counts[kind]} {kind} stages "
-                             f"> {cap}")
+        r = rec[k]
+        r["kind"] = _KIND[st[0]]
+        if st[0] == "cascade":
+            r["idx"], r["n"] = n_casc, casc_tile_consts(st[1])[2]
+            n_casc += 1
+        elif st[0] == "comb":
+            D = int(st[2])
+            if D < 1:
+                raise ValueError(f"chain kernel: comb delay {D} < 1")
+            r["idx"], r["n"] = n_ring, D
+            r["p"][0] = np.float32(st[1])
+            n_ring += 1
+        elif st[0] == "mtap":
+            _, mix, L, NH, _EV, _RS = st
+            L, NH = int(L), int(NH)
+            if L < 1 or NH != -(-L // C):
+                raise ValueError(f"chain kernel: mtap NH={NH} must be "
+                                 f"ceil(L/{C}) for L={L}")
+            r["idx"], r["n"] = n_ring, NH
+            r["p"][0] = np.float32(mix)
+            n_ring += 1
+        elif st[0] == "tap":
+            ti = int(st[1])
+            if ti < 0 or ti in taps:
+                raise ValueError(f"chain kernel: tap index {ti}")
+            taps.add(ti)
+            r["idx"] = ti
+        elif st[0] == "scale":
+            r["p"][0] = np.float32(st[1])
+        else:                                   # ew
+            if st[1] not in EW_CODES:
+                raise ValueError(f"chain kernel: unknown shaper {st[1]!r}")
+            if len(st[2]) > 4:
+                raise ValueError(f"chain kernel: shaper {st[1]!r} has "
+                                 f"{len(st[2])} params")
+            r["idx"] = EW_CODES.index(st[1])
+            r["p"][:len(st[2])] = np.asarray(st[2], np.float32)
+    if taps != set(range(len(taps))):
+        raise ValueError("chain kernel: tap indices must be 0..n_taps-1")
+    return rec, (n_casc, n_ring, len(taps))
+
+
+def _align(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def layout(n_stages: int, n_casc: int, n_ring: int, n_tap: int):
+    """Byte offsets (stage, casc, ring, tap, end) of the packed program's
+    sections, each 16-byte aligned."""
+    off_stage = _align(HEADER.itemsize)
+    off_casc = _align(off_stage + n_stages * STAGE.itemsize)
+    off_ring = _align(off_casc + n_casc * CASC.itemsize)
+    off_tap = _align(off_ring + n_ring * RING.itemsize)
+    return off_stage, off_casc, off_ring, off_tap, _align(off_tap + 8 * n_tap)
+
+
+def pack_program(records, casc_ptrs, ring_ptrs, tap_ptrs) -> np.ndarray:
+    """The packed program, a uint8 array: the header, ``records`` (from
+    ``plan``), then per cascade its 7 pointers (hp, w, ecb, act, carry,
+    carry_out, xlast_out), per ring its 4 (ring, mq, mr, mfr; 0 where a
+    comb has none) and the tap pointers, all as integers."""
+    n_casc, n_ring, n_tap = len(casc_ptrs), len(ring_ptrs), len(tap_ptrs)
+    offs = layout(len(records), n_casc, n_ring, n_tap)
+    buf = np.zeros(offs[4], np.uint8)
+    hdr = np.zeros((), HEADER)
+    hdr["n_stages"], hdr["n_casc"] = len(records), n_casc
+    hdr["n_ring"], hdr["n_tap"] = n_ring, n_tap
+    for name, o in zip(("off_stage", "off_casc", "off_ring", "off_tap"),
+                       offs):
+        hdr[name] = o
+    buf[:HEADER.itemsize] = np.frombuffer(hdr.tobytes(), np.uint8)
+
+    def put(off, arr):
+        raw = np.frombuffer(np.ascontiguousarray(arr).tobytes(), np.uint8)
+        buf[off:off + raw.size] = raw
+
+    put(offs[0], np.asarray(records, STAGE))
+    put(offs[1], np.array([tuple(p) + (0,) for p in casc_ptrs], CASC)
+        if n_casc else np.zeros(0, CASC))
+    put(offs[2], np.array([tuple(p) for p in ring_ptrs], RING)
+        if n_ring else np.zeros(0, RING))
+    put(offs[3], np.asarray(tap_ptrs, np.uint64))
+    return buf
 
 
 def _seeded_ring(hist, B: int, n: int, RL: int, dev, what: str):
@@ -140,7 +285,16 @@ def _shared_operand(t, shape, dtype, dev, what: str):
                if isinstance(t, torch.Tensor) else type(t).__name__)
         raise ValueError(f"chain kernel: mtap {what} must be {dtype} "
                          f"{tuple(shape)} on {dev}, got {got}")
-    return t.contiguous()
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t    # read 16 bytes a lane
+
+
+def to_device(buf: np.ndarray, dev) -> torch.Tensor:
+    """A packed program on ``dev``: copied from pinned memory without
+    waiting for the stream (the caching host allocator keeps the pinned
+    block until the copy is done)."""
+    pinned = torch.from_numpy(buf).pin_memory()
+    return pinned.to(dev, non_blocking=True)
 
 
 def chain_kernel_call(x: torch.Tensor, stages: tuple, state_in: tuple):
@@ -154,9 +308,18 @@ def chain_kernel_call(x: torch.Tensor, stages: tuple, state_in: tuple):
     four entries, the input history [B, L] and the shared trajectory
     operands q [T/128] int32, r [T] int32 and frac [T] float32
     (modfx.mtap_shared)."""
+    return launch(x, stages, state_in)
+
+
+def launch(x: torch.Tensor, stages: tuple, state_in: tuple, R=None,
+           ctas=None):
+    """``chain_kernel_call`` with R rows a CTA (a power of two up to 64)
+    and the kernel built for ``ctas`` CTAs an SM (1 or 2); ``geometry(B)``
+    picks what is None.  tools/measure_torch_chain.py times other tile
+    shapes through it."""
     global LAUNCHES
     stages = tuple(stages)
-    _check_stages(stages)
+    records, (n_casc, n_ring, n_tap) = plan(stages)
     if not (isinstance(x, torch.Tensor) and x.is_cuda):
         raise ValueError("chain kernel: x must be a CUDA tensor")
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
@@ -173,52 +336,38 @@ def chain_kernel_call(x: torch.Tensor, stages: tuple, state_in: tuple):
                          f"the stages' {n_state}")
 
     dev = x.device
-    prog = _Program()
-    prog.n_stages = len(stages)
-    casc_raw, rings, taps = [], [], []
+    casc_raw, rings, taps = [], [], [None] * n_tap
+    casc_ptrs, ring_ptrs = [], []
+    keep = []        # what the kernel reads, alive until it is queued
     si = 0
-    for k, st in enumerate(stages):
-        s = prog.st[k]
-        s.kind = _KIND[st[0]]
+    for st in stages:
         if st[0] == "cascade":
-            ci = len(casc_raw)
-            Ltg, Wp, Ecb, ACt, N = _casc_device_consts(st[1], dev)
+            consts, offs, N = _casc_tile_device(st[1], dev)
             s0 = state_in[si]
             si += 1
             if s0.shape != (B, N) or s0.device != dev:
                 raise ValueError(f"chain kernel: cascade state must be "
                                  f"[{B}, {N}] on {dev}, got "
                                  f"{tuple(s0.shape)} on {s0.device}")
-            s0p = torch.zeros((B, NS), dtype=torch.float32, device=dev)
-            s0p[:, :N] = s0
-            carry_out = torch.empty((B, NS), dtype=torch.float32, device=dev)
+            carry = torch.zeros((B, NS), dtype=torch.float32, device=dev)
+            carry[:, :N] = s0
+            # the kernel writes the N live lanes of carry_out
+            carry_out = torch.zeros((B, NS), dtype=torch.float32, device=dev)
             xlast = torch.empty((B, C), dtype=torch.float32, device=dev)
-            s.idx, s.n = ci, N
-            prog.ltg[ci], prog.w[ci] = Ltg.data_ptr(), Wp.data_ptr()
-            prog.ecb[ci], prog.act[ci] = Ecb.data_ptr(), ACt.data_ptr()
-            prog.s0[ci] = s0p.data_ptr()
-            prog.carry_out[ci] = carry_out.data_ptr()
-            prog.xlast_out[ci] = xlast.data_ptr()
+            base = consts.data_ptr()
+            casc_ptrs.append(tuple(base + 4 * o for o in offs) + (
+                carry.data_ptr(), carry_out.data_ptr(), xlast.data_ptr()))
+            keep += [consts, carry]
             casc_raw.append((carry_out, xlast))
         elif st[0] == "comb":
-            bi = len(rings)
             D = int(st[2])
-            if D < 1:
-                raise ValueError(f"chain kernel: comb delay {D} < 1")
             RL = -(-D // C) * C
             ring = _seeded_ring(state_in[si], B, D, RL, dev, "comb history")
             si += 1
-            s.idx, s.n = bi, D
-            s.p[0] = float(np.float32(st[1]))
-            prog.ring[bi] = ring.data_ptr()
+            ring_ptrs.append((ring.data_ptr(), 0, 0, 0))
             rings.append(ring.view(B, RL // C, C))
         elif st[0] == "mtap":
-            bi = len(rings)
-            _, mix, L, NH, _EV, _RS = st
-            L, NH = int(L), int(NH)
-            if L < 1 or NH != -(-L // C):
-                raise ValueError(f"chain kernel: mtap NH={NH} must be "
-                                 f"ceil(L/{C}) for L={L}")
+            L, NH = int(st[2]), int(st[3])
             RL = (NH + 1) * C
             ring = _seeded_ring(state_in[si], B, L, RL, dev, "mtap history")
             q = _shared_operand(state_in[si + 1], (T // C,), torch.int32,
@@ -227,32 +376,22 @@ def chain_kernel_call(x: torch.Tensor, stages: tuple, state_in: tuple):
             fr = _shared_operand(state_in[si + 3], (T,), torch.float32, dev,
                                  "frac")
             si += 4
-            s.idx, s.n = bi, NH
-            s.p[0] = float(np.float32(mix))
-            prog.ring[bi] = ring.data_ptr()
-            prog.mq[bi], prog.mr[bi], prog.mfr[bi] = (
-                q.data_ptr(), r.data_ptr(), fr.data_ptr())
+            ring_ptrs.append((ring.data_ptr(), q.data_ptr(), r.data_ptr(),
+                              fr.data_ptr()))
+            keep += [q, r, fr]
             rings.append(ring.view(B, NH + 1, C))
         elif st[0] == "tap":
-            ti = int(st[1])
-            if not 0 <= ti < MAX_TAP:
-                raise ValueError(f"chain kernel: tap index {ti}")
-            while len(taps) <= ti:
-                taps.append(None)
-            taps[ti] = torch.empty((B, T), dtype=torch.float32, device=dev)
-            s.idx = ti
-            prog.tap[ti] = taps[ti].data_ptr()
-        elif st[0] == "scale":
-            s.p[0] = float(np.float32(st[1]))
-        else:                                   # ew
-            s.idx = EW_CODES.index(st[1])
-            for j, pv in enumerate(st[2]):
-                s.p[j] = float(np.float32(pv))
-    if any(t is None for t in taps):
-        raise ValueError("chain kernel: tap indices must be 0..n_taps-1")
+            taps[int(st[1])] = torch.empty((B, T), dtype=torch.float32,
+                                           device=dev)
+    prog = to_device(pack_program(records, casc_ptrs, ring_ptrs,
+                                  [t.data_ptr() for t in taps]), dev)
+    R0, _, ctas0 = geometry(B, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    R = R0 if R is None else R
+    ctas = ctas0 if ctas is None else ctas
     y = torch.empty_like(x)
     rc = _lib().chain_kernel_launch(
-        ctypes.byref(prog), x.data_ptr(), y.data_ptr(), B, T,
+        prog.data_ptr(), x.data_ptr(), y.data_ptr(), B, T, R, ctas,
         dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

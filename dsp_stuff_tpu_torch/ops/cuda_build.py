@@ -42,34 +42,37 @@ def _nvcc() -> str:
                        "kernels in dsp_stuff_tpu_torch/csrc")
 
 
-def lib_path(name: str) -> pathlib.Path:
-    """Where the library of kernel ``name`` lives once built."""
+def lib_path(name: str, defines: tuple = ()) -> pathlib.Path:
+    """Where the library of kernel ``name`` (built with the preprocessor
+    ``defines``, names such as "CK_PHASES") lives once built."""
     if name not in KERNELS:
         raise ValueError(f"unknown kernel {name!r}")
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.name.encode() + hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(*names: str) -> dict[str, tuple[pathlib.Path, str]]:
+def build(*names: str,
+          defines: tuple = ()) -> dict[str, tuple[pathlib.Path, str]]:
     """Compile the named kernels (all of them by default) whose sources
     changed since their last build, one ``nvcc`` each, all started
-    together.  Returns {name: (library path, nvcc's output, empty when
-    cached)}; raises if any build fails."""
+    together, with ``-D`` for each of ``defines``.  Returns {name:
+    (library path, nvcc's output, empty when cached)}; raises if any
+    build fails."""
     out: dict[str, tuple[pathlib.Path, str]] = {}
     running = []
     for name in names or KERNELS:
-        lib = lib_path(name)
+        lib = lib_path(name, defines)
         if lib.exists():
             out[name] = (lib, "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-             str(CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I",
+             str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, lib, tmp, proc))
     failed = []

@@ -1,4 +1,4 @@
-"""Wrapper of the cycle kernel (csrc/cycle_kernel.cu): bind and launch.
+"""Wrapper of the cycle kernel (csrc/cycle_kernel.cu): pack, bind, launch.
 
 The kernel replaces dsp_stuff_tpu/ops/pallas_cycle.py:cycle_kernel_call:
 a feedback SCC's block program (ops/cycle_segment.py) over a whole
@@ -6,6 +6,11 @@ render, with registers, cascade carries and comb rings kept on the card.
 It is CUDA C++ for sm_90a, built by ops/cuda_build.py at first use and
 bound with ``ctypes``.  Nothing is imported, built or loaded when this
 module is imported.
+
+The program goes to the card packed (``pack_program``): a header, the
+instruction records, the join terms and the pointer tables, sized from
+the program and copied once per call, so the kernel has no fixed
+program capacity.
 
 ``cycle_kernel_call`` takes only CUDA tensors and raises on anything the
 kernel cannot take; there is no fallback.  The plain PyTorch version of
@@ -23,16 +28,10 @@ import torch
 
 from dsp_stuff_tpu_torch.ops import cuda_build
 from dsp_stuff_tpu_torch.ops.chain_kernel import (C, EW_CODES, NS,
+                                                  _casc_consts,
                                                   _casc_device_consts,
-                                                  _seeded_ring)
+                                                  _seeded_ring, to_device)
 
-MAX_INS = 32
-MAX_TERMS = 32
-MAX_EXT = 8
-MAX_REG = 8
-MAX_TAP = 8
-MAX_CASC = 8
-MAX_COMB = 8
 _REG = 0x10000
 _OPS = {"join": 0, "lin2": 1, "cascade": 2, "comb": 3, "ew": 4, "scale": 5,
         "setreg": 6, "tap": 7}
@@ -40,31 +39,20 @@ _OPS = {"join": 0, "lin2": 1, "cascade": 2, "comb": 3, "ew": 4, "scale": 5,
 #: launches of the kernel in this process (a test or a smoke run resets it)
 LAUNCHES = 0
 
-
-class _Ins(ctypes.Structure):
-    _fields_ = [("op", ctypes.c_int), ("idx", ctypes.c_int),
-                ("n", ctypes.c_int), ("ta", ctypes.c_int),
-                ("na", ctypes.c_int), ("tb", ctypes.c_int),
-                ("nb", ctypes.c_int), ("pad_", ctypes.c_int),
-                ("p", ctypes.c_float * 4)]
-
-
-class _Program(ctypes.Structure):
-    _fields_ = [("n_ins", ctypes.c_int), ("n_regs", ctypes.c_int),
-                ("ins", _Ins * MAX_INS),
-                ("terms", ctypes.c_int * MAX_TERMS),
-                ("ext", ctypes.c_void_p * MAX_EXT),
-                ("tap", ctypes.c_void_p * MAX_TAP),
-                ("reg0", ctypes.c_void_p * MAX_REG),
-                ("reg_out", ctypes.c_void_p * MAX_REG),
-                ("ltg", ctypes.c_void_p * MAX_CASC),
-                ("w", ctypes.c_void_p * MAX_CASC),
-                ("ecb", ctypes.c_void_p * MAX_CASC),
-                ("act", ctypes.c_void_p * MAX_CASC),
-                ("s0", ctypes.c_void_p * MAX_CASC),
-                ("carry_out", ctypes.c_void_p * MAX_CASC),
-                ("xlast_out", ctypes.c_void_p * MAX_CASC),
-                ("ring", ctypes.c_void_p * MAX_COMB)]
+# The packed program's records, mirrored field for field by
+# csrc/cycle_kernel.cu (CyHeader, CyIns, CyCasc).
+HEADER = np.dtype([("n_ins", "<i4"), ("n_regs", "<i4"), ("n_casc", "<i4"),
+                   ("n_comb", "<i4")]
+                  + [(f"off_{f}", "<i8") for f in (
+                      "ins", "terms", "ext", "tap", "reg0", "reg_out",
+                      "casc", "ring")])
+INS = np.dtype([("op", "<i4"), ("idx", "<i4"), ("n", "<i4"), ("ta", "<i4"),
+                ("na", "<i4"), ("tb", "<i4"), ("nb", "<i4"), ("pad", "<i4"),
+                ("p", "<f4", (4,))])
+CASC = np.dtype([(f, "<u8") for f in ("ltg", "w", "ecb", "act", "s0",
+                                      "carry_out", "xlast_out", "pad")])
+#: the pointer tables after the terms, in order
+_TABLES = ("ext", "tap", "reg0", "reg_out", "casc", "ring")
 
 
 @functools.lru_cache(maxsize=1)
@@ -73,14 +61,14 @@ def _lib() -> ctypes.CDLL:
     lib.cycle_kernel_abi.argtypes = []
     lib.cycle_kernel_abi.restype = ctypes.c_int
     lib.cycle_kernel_launch.argtypes = [
-        ctypes.POINTER(_Program), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.cycle_kernel_launch.restype = ctypes.c_int
-    if lib.cycle_kernel_abi() != ctypes.sizeof(_Program):
+    want = HEADER.itemsize | INS.itemsize << 8 | CASC.itemsize << 16
+    if lib.cycle_kernel_abi() != want:
         raise RuntimeError(
-            f"cycle kernel ABI mismatch: the library's program struct is "
-            f"{lib.cycle_kernel_abi()} bytes, ctypes' "
-            f"{ctypes.sizeof(_Program)}")
+            f"cycle kernel ABI mismatch: the library's record sizes are "
+            f"{lib.cycle_kernel_abi():#x}, the packer's {want:#x}")
     return lib
 
 
@@ -99,6 +87,124 @@ def _rows(t, B: int, n: int, dev, what: str):
     return t
 
 
+def plan(program: tuple):
+    """The instruction records and join terms of a block program, checked:
+    (INS array, int32 terms, (n_casc, n_comb, n_regs, n_taps, n_exts)).
+    Raises on what the kernel cannot take; pointers come later
+    (``pack_program``)."""
+    from dsp_stuff_tpu_torch.ops.cycle_segment import _program_counts
+    program = tuple(program)
+    counts = _program_counts(program)
+    n_r = counts[2]
+    rec = np.zeros(len(program), INS)
+    terms: list[int] = []
+
+    def add_terms(ts) -> tuple[int, int]:
+        if not ts:
+            raise ValueError("cycle kernel: a join needs at least one term")
+        start = len(terms)
+        for kind, j in ts:
+            if kind == "ext" and 0 <= j < _REG:
+                terms.append(int(j))
+            elif kind == "reg" and 0 <= j < n_r:
+                terms.append(_REG | int(j))
+            else:
+                raise ValueError(f"cycle kernel: bad term {(kind, j)!r} "
+                                 f"for {n_r} registers")
+        return start, len(ts)
+
+    n_casc = n_comb = 0
+    for k, ins in enumerate(program):
+        op = ins[0]
+        if op not in _OPS:
+            raise ValueError(f"cycle kernel: unknown instruction {op!r}")
+        r = rec[k]
+        r["op"] = _OPS[op]
+        if op == "join":
+            r["ta"], r["na"] = add_terms(ins[1])
+            r["p"][0] = np.float32(ins[2])
+        elif op == "lin2":
+            _, tA, sA, tB, sB, cA, cB = ins
+            r["ta"], r["na"] = add_terms(tA)
+            r["tb"], r["nb"] = add_terms(tB)
+            r["p"][:] = np.asarray((sA, sB, cA, cB), np.float32)
+        elif op == "cascade":
+            if ins[2] != n_casc:
+                raise ValueError("cycle kernel: cascade indices must count "
+                                 "up from 0 in program order")
+            r["idx"], r["n"] = n_casc, _casc_consts(ins[1])[4]
+            n_casc += 1
+        elif op == "comb":
+            _, decay, D, bi = ins
+            D = int(D)
+            if bi != n_comb or D < C:
+                raise ValueError(f"cycle kernel: comb {bi} (D={D}) must have "
+                                 f"D >= {C} and indices counting up from 0")
+            r["idx"], r["n"] = n_comb, D
+            r["p"][0] = np.float32(decay)
+            n_comb += 1
+        elif op == "ew":
+            if ins[1] not in EW_CODES:
+                raise ValueError(f"cycle kernel: unknown shaper {ins[1]!r}")
+            r["idx"] = EW_CODES.index(ins[1])
+            r["p"][:len(ins[2])] = np.asarray(ins[2], np.float32)
+        elif op == "scale":
+            r["p"][0] = np.float32(ins[1])
+        else:                                   # setreg, tap
+            r["idx"] = int(ins[1])
+    return rec, np.asarray(terms, np.int32), counts
+
+
+def _align(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def layout(n_ins: int, n_terms: int, sizes: dict):
+    """Byte offsets of the packed program's sections (ins, terms, then the
+    pointer tables of ``_TABLES`` with ``sizes`` entries each) and its
+    end, each 16-byte aligned."""
+    offs = {"ins": _align(HEADER.itemsize)}
+    offs["terms"] = _align(offs["ins"] + n_ins * INS.itemsize)
+    end = offs["terms"] + 4 * n_terms
+    for name in _TABLES:
+        offs[name] = _align(end)
+        end = offs[name] + (CASC.itemsize if name == "casc" else 8) * sizes[
+            name]
+    return offs, _align(end)
+
+
+def pack_program(records, terms, n_regs: int, tables: dict) -> np.ndarray:
+    """The packed program, a uint8 array: the header, ``records`` and
+    ``terms`` (from ``plan``), then the pointer tables: ``tables`` maps
+    each name of ``_TABLES`` to its pointers (integers; for "casc" one
+    7-tuple ltg, w, ecb, act, s0, carry_out, xlast_out per cascade)."""
+    sizes = {k: len(tables[k]) for k in _TABLES}
+    offs, end = layout(len(records), len(terms), sizes)
+    buf = np.zeros(end, np.uint8)
+    hdr = np.zeros((), HEADER)
+    hdr["n_ins"], hdr["n_regs"] = len(records), n_regs
+    hdr["n_casc"], hdr["n_comb"] = sizes["casc"], sizes["ring"]
+    for name, o in offs.items():
+        hdr[f"off_{name}"] = o
+
+    def put(off, arr):
+        raw = np.frombuffer(np.ascontiguousarray(arr).tobytes(), np.uint8)
+        buf[off:off + raw.size] = raw
+
+    put(0, hdr)
+    put(offs["ins"], np.asarray(records, INS))
+    put(offs["terms"], np.asarray(terms, np.int32))
+    for name in _TABLES:
+        if name == "casc":
+            arr = np.zeros(sizes[name], CASC)
+            for i, p in enumerate(tables[name]):
+                arr[i] = tuple(p) + (0,)
+        else:
+            arr = np.asarray(tables[name], np.uint64)
+        put(offs[name], arr)
+    return buf
+
+
 def cycle_kernel_call(exts: tuple, regs0: tuple, states: tuple,
                       program: tuple, n_taps: int):
     """exts: n_e x [B, T] f32 CUDA (T % 128 == 0); regs0: n_r x [B, 128];
@@ -107,23 +213,9 @@ def cycle_kernel_call(exts: tuple, regs0: tuple, states: tuple,
      per cascade (carry_last [B, 8], x_last [B, 128]),
      per comb ring [B, NR, 128])."""
     global LAUNCHES
-    from dsp_stuff_tpu_torch.ops.cycle_segment import _program_counts
     program = tuple(program)
-    n_c, n_b, n_r, n_t, n_e = _program_counts(program)
-    n_terms = sum(len(ins[1]) if ins[0] == "join"
-                  else len(ins[1]) + len(ins[3]) if ins[0] == "lin2" else 0
-                  for ins in program)
-    # the capacity is checked first, whatever the tensors: a program the
-    # planner lowers may exceed it, and the kernel refuses it on any device
-    if (len(program) > MAX_INS or n_terms > MAX_TERMS or n_e > MAX_EXT
-            or n_r > MAX_REG or n_t > MAX_TAP or n_c > MAX_CASC
-            or n_b > MAX_COMB):
-        raise ValueError(
-            f"cycle kernel: the program ({len(program)} instructions, "
-            f"{n_terms} join terms, {n_e} feeds, {n_r} registers, {n_t} "
-            f"taps, {n_c} cascades, {n_b} combs) exceeds the kernel's "
-            f"capacity ({MAX_INS}, {MAX_TERMS}, {MAX_EXT}, {MAX_REG}, "
-            f"{MAX_TAP}, {MAX_CASC}, {MAX_COMB})")
+    # the program is checked and packed first, whatever the tensors
+    records, terms, (n_c, n_b, n_r, n_t, n_e) = plan(program)
     if not exts or not all(isinstance(e, torch.Tensor) and e.is_cuda
                            for e in exts):
         raise ValueError("cycle kernel: the external feeds must be CUDA "
@@ -144,59 +236,21 @@ def cycle_kernel_call(exts: tuple, regs0: tuple, states: tuple,
         raise ValueError(f"cycle kernel: {len(states)} states for "
                          f"{n_c + n_b} stateful instructions")
 
-    prog = _Program()
-    prog.n_ins = len(program)
-    prog.n_regs = n_r
-    for i, e in enumerate(exts):
-        prog.ext[i] = _rows(e, B, T, dev, f"feed {i}").data_ptr()
+    tables = {k: [] for k in _TABLES}
+    tables["ext"] = [_rows(e, B, T, dev, f"feed {i}").data_ptr()
+                     for i, e in enumerate(exts)]
     taps = tuple(torch.empty((B, T), dtype=torch.float32, device=dev)
                  for _ in range(n_t))
-    for i, t in enumerate(taps):
-        prog.tap[i] = t.data_ptr()
+    tables["tap"] = [t.data_ptr() for t in taps]
     regs_f = tuple(torch.empty((B, C), dtype=torch.float32, device=dev)
                    for _ in range(n_r))
-    for i, (r0, rf) in enumerate(zip(regs0, regs_f)):
-        prog.reg0[i] = _rows(r0, B, C, dev, f"register {i}").data_ptr()
-        prog.reg_out[i] = rf.data_ptr()
-
-    terms: list[int] = []
-
-    def add_terms(ts) -> tuple[int, int]:
-        start = len(terms)
-        for kind, j in ts:
-            if kind == "ext":
-                terms.append(int(j))
-            elif kind == "reg" and 0 <= j < n_r:
-                terms.append(_REG | int(j))
-            else:
-                raise ValueError(f"cycle kernel: bad term {(kind, j)!r} "
-                                 f"for {n_r} registers")
-        if not ts or len(terms) > MAX_TERMS:
-            raise ValueError("cycle kernel: a join needs 1..32 terms in all")
-        return start, len(ts)
-
-    casc_raw, rings = [], []
+    tables["reg0"] = [_rows(r0, B, C, dev, f"register {i}").data_ptr()
+                      for i, r0 in enumerate(regs0)]
+    tables["reg_out"] = [rf.data_ptr() for rf in regs_f]
+    casc_raw, rings, keep = [], [], []
     si = 0
-    for k, ins in enumerate(program):
-        I = prog.ins[k]
-        op = ins[0]
-        if op not in _OPS:
-            raise ValueError(f"cycle kernel: unknown instruction {op!r}")
-        I.op = _OPS[op]
-        if op == "join":
-            I.ta, I.na = add_terms(ins[1])
-            I.p[0] = _f32(ins[2])
-        elif op == "lin2":
-            _, tA, sA, tB, sB, cA, cB = ins
-            I.ta, I.na = add_terms(tA)
-            I.tb, I.nb = add_terms(tB)
-            I.p[0], I.p[1], I.p[2], I.p[3] = (_f32(sA), _f32(sB), _f32(cA),
-                                              _f32(cB))
-        elif op == "cascade":
-            ci = len(casc_raw)
-            if ins[2] != ci:
-                raise ValueError("cycle kernel: cascade indices must count "
-                                 "up from 0 in program order")
+    for ins in program:
+        if ins[0] == "cascade":
             Ltg, Wp, Ecb, ACt, N = _casc_device_consts(ins[1], dev)
             s0 = states[si]
             si += 1
@@ -209,42 +263,26 @@ def cycle_kernel_call(exts: tuple, regs0: tuple, states: tuple,
             s0p[:, :s0.shape[-1]] = s0
             carry_out = torch.empty((B, NS), dtype=torch.float32, device=dev)
             xlast = torch.empty((B, C), dtype=torch.float32, device=dev)
-            I.idx, I.n = ci, N
-            prog.ltg[ci], prog.w[ci] = Ltg.data_ptr(), Wp.data_ptr()
-            prog.ecb[ci], prog.act[ci] = Ecb.data_ptr(), ACt.data_ptr()
-            prog.s0[ci] = s0p.data_ptr()
-            prog.carry_out[ci] = carry_out.data_ptr()
-            prog.xlast_out[ci] = xlast.data_ptr()
+            tables["casc"].append(tuple(t.data_ptr() for t in (
+                Ltg, Wp, Ecb, ACt, s0p, carry_out, xlast)))
+            keep.append(s0p)
             casc_raw.append((carry_out, xlast))
-        elif op == "comb":
-            _, decay, D, bi = ins
-            D = int(D)
-            if bi != len(rings) or D < C:
-                raise ValueError(f"cycle kernel: comb {bi} (D={D}) must have "
-                                 f"D >= {C} and indices counting up from 0")
+        elif ins[0] == "comb":
+            D = int(ins[2])
             RL = -(-D // C) * C
             ring = _seeded_ring(states[si], B, D, RL, dev, "comb history")
             si += 1
-            I.idx, I.n = len(rings), D
-            I.p[0] = _f32(decay)
-            prog.ring[len(rings)] = ring.data_ptr()
+            tables["ring"].append(ring.data_ptr())
             rings.append(ring.view(B, RL // C, C))
-        elif op == "ew":
-            if ins[1] not in EW_CODES:
-                raise ValueError(f"cycle kernel: unknown shaper {ins[1]!r}")
-            I.idx = EW_CODES.index(ins[1])
-            for j, pv in enumerate(ins[2]):
-                I.p[j] = _f32(pv)
-        elif op == "scale":
-            I.p[0] = _f32(ins[1])
-        else:                                   # setreg, tap
-            I.idx = int(ins[1])
-    prog.terms[:len(terms)] = terms
 
+    buf = pack_program(records, terms, n_r, tables)
+    prog = to_device(buf, dev)
     rc = _lib().cycle_kernel_launch(
-        ctypes.byref(prog), B, T, dev.index,
+        prog.data_ptr(), buf.size, n_r, n_c, B, T, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"cycle kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"cycle kernel launch failed: CUDA error {rc} "
+                           f"(a program of {buf.size} bytes, {n_r} "
+                           f"registers, {n_c} cascades)")
     LAUNCHES += 1
     return taps, regs_f, tuple(casc_raw), tuple(rings)

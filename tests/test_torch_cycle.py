@@ -345,32 +345,43 @@ def test_dispatch_and_kernel_refusals():
 
 
 _J0 = ("join", (("ext", 0),), 1.0)
+# one past each limit the kernel once had: 32 instructions, 32 join terms,
+# 8 registers, 8 taps
 OVERSIZED = {
-    "instructions": (_J0, *(("scale", 1.0),) * tck.MAX_INS, ("setreg", 0),
+    "instructions": (_J0, *(("scale", 1.0),) * 32, ("setreg", 0),
                      ("tap", 0)),
-    "join terms": (("join", (("ext", 0),) * (tck.MAX_TERMS + 1), 1.0),
-                   ("tap", 0)),
-    "registers": (("join", tuple(("reg", i) for i in range(tck.MAX_REG + 1)),
-                   1.0),
-                  *(("setreg", i) for i in range(tck.MAX_REG + 1)),
-                  ("tap", 0)),
-    "taps": (_J0, *(("tap", i) for i in range(tck.MAX_TAP + 1))),
+    "join terms": (("join", (("ext", 0),) * 33, 1.0), ("tap", 0)),
+    "registers": (("join", tuple(("reg", i) for i in range(9)), 1.0),
+                  *(("setreg", i) for i in range(9)), ("tap", 0)),
+    "taps": (_J0, *(("tap", i) for i in range(9))),
 }
 
 
 @pytest.mark.parametrize("what", sorted(OVERSIZED))
 def test_kernel_refuses_oversized_program(what):
-    """A program past the CUDA kernel's fixed capacity runs in the
-    interpreter, and the kernel wrapper refuses it before it looks at the
-    tensors or launches anything."""
+    """A program past the capacity the CUDA kernel once had runs in the
+    interpreter, and the kernel wrapper now packs it (the program lives
+    in device memory, sized from it) and refuses only the CPU tensors,
+    before anything launches."""
     prog = OVERSIZED[what]
     _, _, n_r, n_t, _ = tcyc._program_counts(prog)
     x = torch.zeros((2, 256))
     regs = tuple(torch.zeros((2, 128)) for _ in range(n_r))
     taps, _, _, _ = tcyc.cycle_segment((x,), regs, (), prog, n_t)
     assert len(taps) == n_t and taps[0].shape == (2, 256)
+    records, terms, counts = tck.plan(prog)
+    assert len(records) == len(prog) and counts[2:4] == (n_r, n_t)
+    assert len(terms) == sum(len(i[1]) for i in prog if i[0] == "join")
+    tables = {k: [] for k in tck._TABLES}
+    tables.update(ext=[1], tap=[2] * n_t, reg0=[3] * n_r, reg_out=[4] * n_r)
+    buf = tck.pack_program(records, terms, n_r, tables)
+    hdr = np.frombuffer(buf[:tck.HEADER.itemsize].tobytes(), tck.HEADER)[0]
+    assert (hdr["n_ins"], hdr["n_regs"]) == (len(prog), n_r)
+    off = int(hdr["off_ins"])
+    np.testing.assert_array_equal(np.frombuffer(
+        buf[off:off + records.nbytes].tobytes(), tck.INS), records)
     before = tck.LAUNCHES
-    with pytest.raises(ValueError, match="capacity"):
+    with pytest.raises(ValueError, match="CUDA"):
         tck.cycle_kernel_call((x,), regs, (), prog, n_t)
     assert tck.LAUNCHES == before
 

@@ -1,22 +1,40 @@
 #!/usr/bin/env python3
-"""Where the chain kernel's time goes, on one NVIDIA GPU.
+"""Check, time and profile the chain kernel on one NVIDIA GPU.
 
-    python3 tools/measure_torch_chain.py
+    python3 tools/measure_torch_chain.py [--check | --phases]
 
-Times dsp_stuff_tpu_torch's chain kernel (csrc/chain_kernel.cu) with CUDA
-events (median of 5 after a warm-up) at T = 10 s of 48 kHz audio:
+Builds dsp_stuff_tpu_torch's kernels (printing ptxas' register and spill
+lines), then holds the chain kernel (csrc/chain_kernel.cu) against
+``segment_fallback`` on the card at B = 67 rows and T = 3 tiles of 64
+blocks plus 5 blocks (y and taps in dBFS, rebuilt states in max abs):
 
-* the bench chain's stage list at B = 128, 256, 512 and 1024 rows: a time
-  that stays flat as B grows means the kernel is bound by each row's
-  sequential latency, one that doubles means by the SMs' throughput;
-* at B = 512, each stage kind of the bench chain alone (one cascade, one
-  shaper, the comb) and a lone scale stage, which is the block loop and
-  the signal I/O with no work.
+* the bench list at every tile shape R = 1, 2, 4, ..., 64 rows a CTA;
+* at the wrapper's own shape: every list of chip_smoke.check_lists(),
+  both mtap lists, the 40-stage list, and combs with D < 128, D = KT*128
+  and D > KT*128;
+* the cycle kernel on an oversized program (chip_smoke) against
+  cycle_segment.interpret.
 
-Prints one line per measurement with the card's name and power limit.
-Needs a CUDA device; imports nothing of JAX.
+With --check it stops there.  Otherwise it times with CUDA events (median
+of 5 after a warm-up) at T = 10 s of 48 kHz audio:
+
+* the bench list at B = 1, 128, 512 and 1024, beside segment_fallback;
+* the bench list at B = 128 and 512 at every R from 1 to 16;
+* at B = 128 and 512, each stage kind of the bench list alone (a lone
+  scale stage is the tile walk and the signal I/O with no work), and
+  config5's [hp, mtap], its hp and its mtap at B = 128 beside
+  segment_fallback.
+
+--phases builds the kernel with its phase probes (-DCK_PHASES) and prints,
+for the bench list and config5's [hp, mtap] at B = 128 (one CTA an SM)
+and 512 (two), the clock cycles of thread 0 of each CTA in each phase of
+the tile walk, averaged over the CTAs, per tile: where a tile's time goes.
+
+Prints one line per measurement with the card's name and power limit and
+exits 1 if a check failed.  Needs a CUDA device; imports nothing of JAX.
 """
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -26,6 +44,154 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 48_000
 T = 10 * SR
+B_CHK = 67
+T_CHK = 3 * 64 * 128 + 5 * 128
+PHASES = ("wait", "open", "product", "scan", "C Ecb", "elementwise", "comb",
+          "mtap", "out")   # the PH_* order of csrc/chain_kernel.cu
+
+
+def checks(cs, dev, rng) -> list:
+    """The correctness checks of the module docstring; returns the names
+    of the failed ones."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import chain_kernel, chain_segment
+    from dsp_stuff_tpu_torch.ops import cycle_segment
+    failed = []
+
+    def check(name, stages, lfos=(), R=None):
+        x = torch.as_tensor((rng.standard_normal((B_CHK, T_CHK)) * 0.3)
+                            .astype(np.float32), device=dev)
+        st = cs.seeded_states(stages, B_CHK, rng, dev, T=T_CHK, lfos=lfos)
+        try:
+            y, casc_raw, ring_raw, taps = chain_kernel.launch(x, stages, st,
+                                                              R)
+            cinfos, hists = chain_segment.rebuild_states(
+                stages, T_CHK, casc_raw, ring_raw)
+            p = chain_segment.segment_fallback(x, stages, st)
+            torch.cuda.synchronize()
+            cs.compare(name, (y, cinfos, hists, taps), p)
+        except Exception as e:               # report every case, then fail
+            print(f"  FAILED {name}: {type(e).__name__}: {e}")
+            failed.append(name)
+
+    print(f"chain kernel vs segment_fallback, B={B_CHK}, T={T_CHK}:")
+    for R in (1, 2, 4, 8, 16, 32, 64):
+        check(f"bench R={R}", cs.bench_stages(), R=R)
+    KT0 = chain_kernel.geometry(B_CHK)[1]
+    lists = dict(cs.check_lists())
+    lists["40 stages"] = cs.long_list()
+    for D in (100, KT0 * 128, KT0 * 128 + 808):
+        lists[f"comb D={D}"] = (("cascade", (("lp", 0.4),)),
+                                ("comb", 0.45, D))
+    for name, stages in lists.items():
+        check(name, stages)
+    for name, (stages, lfos) in cs.mtap_lists().items():
+        check(name, stages, lfos)
+
+    program, n_taps = cs.oversized_cycle_program()
+    ins = cs.cycle_inputs(program, 8, 1024, rng, dev)
+    try:
+        k = cs.cycle_kernel_run(*ins, program, n_taps)
+        p = cycle_segment.interpret(*ins, program, n_taps)
+        torch.cuda.synchronize()
+        cs.compare_cycle(f"cycle, {len(program)} instructions", k, p)
+    except Exception as e:
+        print(f"  FAILED oversized cycle program: {type(e).__name__}: {e}")
+        failed.append("cycle")
+    return failed
+
+
+def times(cs, dev, rng, card) -> None:
+    import torch
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.ops import chain_kernel, chain_segment
+    x_all = torch.as_tensor(
+        rng.standard_normal((1024, T), dtype=np.float32) * np.float32(0.25),
+        device=dev)
+
+    def line(name, b, ms, extra=""):
+        print(f"{name:40s} {ms:9.3f} ms {b * T / SR / (ms / 1e3):>12,.0f} "
+              f"audio-s/s{extra}  [{card}]")
+
+    bench = cs.bench_stages()
+    for b in (1, 128, 512, 1024):
+        x = x_all[:b]
+        st = cs.seeded_states(bench, b, rng, dev)
+        ms = cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(x, bench, st))
+        plain = cs.cuda_ms(lambda: chain_segment.segment_fallback(
+            x, bench, st))
+        R, _, ctas = chain_kernel.geometry(b)
+        line(f"bench, B={b}, R={R}, {ctas} CTA/SM", b, ms,
+             f", plain {plain:.3f} ms")
+    for b in (128, 512):
+        x = x_all[:b]
+        st = cs.seeded_states(bench, b, rng, dev)
+        for R in (1, 2, 4, 8, 16):
+            ms = cs.cuda_ms(lambda: chain_kernel.launch(x, bench, st, R))
+            line(f"bench, B={b}, R={R} KT={64 // R}", b, ms)
+    h = bench[1]
+    kinds = [("scale only", (h,)),
+             ("cascade gain+biquad (N=2)", (bench[0],)),
+             ("cascade lp+hp (N=2)", (bench[3],)),
+             ("ew overdrive", (bench[2],)),
+             ("ew distort:Tanh", (bench[5],)),
+             ("ew chebyshev", (bench[7],)),
+             ("comb D=2400", (bench[9],)),
+             ("tap", (("tap", 0),))]
+    for b in (128, 512):
+        x = x_all[:b]
+        for name, stages in kinds:
+            st = cs.seeded_states(stages, b, rng, dev)
+            ms = cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(
+                x, stages, st))
+            line(f"{name}, B={b}", b, ms)
+    stages5, lfos5 = cs.planned_stages(presets.config5_feedback_16node()[0])
+    x = x_all[:128]
+    for name, stages in (("config5 [hp, mtap]", stages5),
+                         ("config5 hp alone", stages5[:1]),
+                         ("config5 mtap alone", stages5[1:])):
+        st = cs.seeded_states(stages, 128, rng, dev, T=T,
+                              lfos=lfos5 if "mtap" in name else ())
+        ms = cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(x, stages, st))
+        plain = cs.cuda_ms(lambda: chain_segment.segment_fallback(
+            x, stages, st))
+        line(f"{name}, B=128", 128, ms, f", plain {plain:.3f} ms")
+
+
+def phases(cs, dev, rng, card) -> None:
+    """Cycles per tile in each phase, from the kernel's probe build."""
+    import torch
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.ops import chain_kernel, cuda_build
+    (path, _log), = cuda_build.build("chain_kernel",
+                                     defines=("CK_PHASES",)).values()
+    lib = chain_kernel.bind(ctypes.CDLL(str(path)))
+    lib.chain_kernel_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.chain_kernel_phases.restype = ctypes.c_int
+    chain_kernel._lib = lambda: lib          # launches take the probe build
+    x_all = torch.as_tensor(
+        rng.standard_normal((512, T), dtype=np.float32) * np.float32(0.25),
+        device=dev)
+    stages5, lfos5 = cs.planned_stages(presets.config5_feedback_16node()[0])
+    for name, stages, lfos in (("bench", cs.bench_stages(), ()),
+                               ("config5 [hp, mtap]", stages5, lfos5)):
+        for b in (128, 512):
+            x = x_all[:b]
+            st = cs.seeded_states(stages, b, rng, dev, T=T, lfos=lfos)
+            ms = cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(
+                x, stages, st))
+            R, KT, ctas = chain_kernel.geometry(b)
+            n = -(-b // R)
+            buf = np.zeros((n, len(PHASES)), np.uint64)
+            rc = lib.chain_kernel_phases(buf.ctypes.data, n)
+            if rc:
+                raise RuntimeError(f"reading the phase counters: CUDA "
+                                   f"error {rc}")
+            per = buf.astype(np.float64).mean(axis=0) / -(-(T // 128) // KT)
+            print(f"{name}, B={b} (R={R}, {ctas} CTA/SM): {ms:.3f} ms with "
+                  f"probes, {per.sum():,.0f} cycles a tile: " + ", ".join(
+                      f"{p} {v:,.0f}" for p, v in zip(PHASES, per) if v)
+                  + f"  [{card}]")
 
 
 def main() -> int:
@@ -35,36 +201,30 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from chip_smoke import bench_stages, cuda_ms, seeded_states
-    from dsp_stuff_tpu_torch.ops import chain_kernel
+    import chip_smoke as cs
+    from dsp_stuff_tpu_torch.ops import cuda_build
     from dsp_stuff_tpu_torch.utils import precision
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    for name, (lib, log) in cuda_build.build().items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name} ptxas: {line.strip()}")
     precision.set_policy("fast")
     rng = np.random.default_rng(0)
     dev = torch.device("cuda", 0)
-    bench = bench_stages()
-    h = bench[1]
-    cases = [(f"bench, B={b}", bench, b) for b in (128, 256, 512, 1024)]
-    cases += [("scale only, B=512", (h,), 512),
-              ("cascade gain+biquad (N=2), B=512", (bench[0],), 512),
-              ("cascade lp+hp (N=2), B=512", (bench[3],), 512),
-              ("ew overdrive, B=512", (bench[2],), 512),
-              ("ew distort:Tanh, B=512", (bench[5],), 512),
-              ("ew chebyshev, B=512", (bench[7],), 512),
-              ("comb D=2400, B=512", (bench[9],), 512)]
-    x_all = torch.as_tensor(
-        rng.standard_normal((1024, T), dtype=np.float32) * np.float32(0.25),
-        device=dev)
-    for name, stages, b in cases:
-        x = x_all[:b]
-        st = seeded_states(stages, b, rng, dev)
-        ms = cuda_ms(lambda: chain_kernel.chain_kernel_call(x, stages, st))
-        print(f"{name:36s} {ms:9.3f} ms  {b * T / SR / (ms / 1e3):>12,.0f} "
-              f"audio-s/s  [{card}]")
+    if "--phases" in sys.argv:
+        phases(cs, dev, rng, card)
+        return 0
+    failed = checks(cs, dev, rng)
+    if failed or "--check" in sys.argv:
+        print(f"failed: {failed}" if failed else "all checks passed")
+        return 1 if failed else 0
+    times(cs, dev, rng, card)
     return 0
 
 

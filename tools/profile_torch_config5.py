@@ -51,7 +51,9 @@ def profile_render(cg, x, B, card):
     dev_ms = {e.key: e.self_device_time_total / 1e3 for e in avgs
               if e.device_type == DeviceType.CUDA}
     total = sum(dev_ms.values())
-    ours = {k: sum(v for key, v in dev_ms.items() if key.startswith(k))
+    # a kernel's name, as "void chain_kernel<2>(...)" for a template
+    ours = {k: sum(v for key, v in dev_ms.items()
+                   if key.split("(")[0].split("<")[0].split()[-1] == k)
             for k in KERNELS}
     print(f"config5, B={B} x 10 s, fast policy [{card}]")
     print(f"  wall time of the render   {wall:9.3f} ms (median of 5)")

@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Time the port's kernel entry points and main paths of one checkout.
+
+    python3 tools/time_torch_paths.py [--root DIR]
+
+Imports dsp_stuff_tpu_torch and chip_smoke from DIR (default: this
+checkout), so that two commits can be compared in one call on one card:
+unpack the other commit into a git-ignored directory (git archive) and run
+this script against each in turns (A, B, B, A).  It uses only entry points
+both sides share (chain_kernel.chain_kernel_call, cycle_kernel.
+cycle_kernel_call, compile_graph(...).render) and times with CUDA events,
+median of 5 after a warm-up, at 10 s of 48 kHz audio, inputs from fixed
+seeds:
+
+* the chain kernel on the bench list at B = 128 and 512;
+* the chain kernel on config5's [hp, mtap] list at B = 128;
+* the cycle kernel on config5's program at B = 128;
+* the bench chain's render at B = 512 and config5's at B = 128.
+
+Prints one line per measurement with the root and the card's name and
+power limit.  Needs a CUDA device; imports nothing of JAX.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+SR = 48_000
+T = 10 * SR
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("time_torch_paths: needs a CUDA device", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.abspath(sys.argv[sys.argv.index("--root") + 1]
+                           if "--root" in sys.argv else here)
+    sys.path[:0] = [root, os.path.join(root, "tests")]
+    import chip_smoke as cs
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.ops import chain_kernel, cycle_kernel
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    tag = f"[{os.path.relpath(root, here)}] [{card}]"
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(3)
+    x_all = torch.as_tensor(
+        rng.standard_normal((512, T), dtype=np.float32) * np.float32(0.25),
+        device=dev)
+    g5 = presets.config5_feedback_16node()[0]
+    with dst.policy("fast"):
+        bench = cs.bench_stages()
+        for b in (128, 512):
+            st = cs.seeded_states(bench, b, rng, dev)
+            x = x_all[:b]
+            ms = cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(
+                x, bench, st))
+            print(f"chain kernel, bench list, B={b}: {ms:.3f} ms {tag}")
+        stages5, lfos5 = cs.planned_stages(g5)
+        st5 = cs.seeded_states(stages5, 128, rng, dev, T=T, lfos=lfos5)
+        x = x_all[:128]
+        ms = cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(
+            x, stages5, st5))
+        print(f"chain kernel, config5 list, B=128: {ms:.3f} ms {tag}")
+        program, n_taps = cs.cycle_program(g5)
+        ins = cs.cycle_inputs(program, 128, T, rng, dev)
+        ms = cs.cuda_ms(lambda: cycle_kernel.cycle_kernel_call(
+            *ins, program, n_taps))
+        print(f"cycle kernel, config5 program, B=128: {ms:.3f} ms {tag}")
+        del ins
+        for name, graph, b in (("bench chain", cs.bench_graph(), 512),
+                               ("config5", g5, 128)):
+            cg = dst.compile_graph(graph, device="cuda")
+            xr = x_all[:b].reshape(b, 1, T)
+            ms = cs.cuda_ms(lambda: cg.render(xr, batch_shape=(b,)))
+            print(f"{name} render, B={b}: {ms:.3f} ms {tag}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
