@@ -7,7 +7,7 @@ Builds the port's four CUDA kernels from csrc/ with nvcc (one nvcc per
 source, all started together) and holds each against its plain PyTorch
 version on the card: the chain kernel (every check list, both mtap lists
 and a 40-stage list, at one tile and at a walk of three tiles and a
-ragged one, also four rows a CTA with B no multiple of four), the cycle
+ragged one, also past one row an SM, the build for two CTAs an SM), the cycle
 kernel (config5's program, a loop graph's and one past the capacity the
 kernel once had), the envelope kernel (chunked and sequential) and the
 first-order recurrence kernel (forward, reverse and per-sample, each also
@@ -41,8 +41,11 @@ nothing of JAX.
 
 Output: progress lines, then one JSON line with the per-kernel record
 (each kernel's bound: the larger of its bytes over 3.35 TB/s and its
-FP32 operations over 67 TFLOP/s, from this run's shapes; for the chain
-kernel also one cascade's product as one torch.matmul), then the card's
+operations over the peak of the units that do them, from this run's
+shapes: 67 TFLOP/s for FP32 on the CUDA cores, 495 TFLOP/s for the chain
+kernel's cascade products on the tensor cores, three TF32 products each
+for 3xTF32; for the chain kernel also one cascade's product as one
+torch.matmul), then the card's
 identity as the last line.  Error figures are in dBFS:
 20 log10(max |got - want| / max |want|).
 """
@@ -61,11 +64,12 @@ SR = 48_000
 B_MAIN = 512
 T_MAIN = 10 * SR
 B_CHECK, T_CHECK = 64, 4096
-# the chain kernel's tile walk: three tiles of 64 blocks and a ragged one,
-# and (through R = 4 rows a CTA) a row count that is no multiple of R
-B_TILES, T_TILES, R_TILES = 67, 3 * 64 * 128 + 5 * 128, 4
+# the chain kernel's tile walk: three tiles of 64 blocks and a ragged one
+B_TILES, T_TILES = 67, 3 * 64 * 128 + 5 * 128
 B_TIMED = (1, 128, 512, 1024)     # the bench list's timed batch sizes
-HBM_TBPS, FP32_TFLOPS = 3.35, 67.0   # H100 SXM peaks (data sheet, 700 W)
+# H100 SXM peaks (data sheet, 700 W, dense): HBM, FP32 on the CUDA cores,
+# TF32 on the tensor cores
+HBM_TBPS, FP32_TFLOPS, TF32_TFLOPS = 3.35, 67.0, 495.0
 Y_BOUND_DB = -100.0       # kernel vs plain, y and taps
 STATE_ATOL = 1e-4         # kernel vs plain, rebuilt states
 ORACLE_FAST_DB = -80.0    # main path (fast) vs the oracle
@@ -507,33 +511,41 @@ def in_turns(fk, fp, n_plain=N_TIMED):
     return float(np.median(k)), float(np.median(p))
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, tc_flops=0.0):
     """(bound ms, what sets it): the least time for moving ``n_bytes``
-    over HBM and doing ``flops`` FP32 operations, at the card's peaks."""
+    over HBM and doing ``flops`` FP32 operations on the CUDA cores and
+    ``tc_flops`` TF32 operations on the tensor cores, at the card's peaks
+    (the two kinds added: the same warp schedulers dispatch both)."""
     ms_b = n_bytes / (HBM_TBPS * 1e12) * 1e3
-    ms_f = flops / (FP32_TFLOPS * 1e12) * 1e3
+    ms_f = (flops / FP32_TFLOPS + tc_flops / TF32_TFLOPS) / 1e12 * 1e3
     return (ms_b, "bytes") if ms_b >= ms_f else (ms_f, "operations")
 
 
 def casc_flops(sections, blocks):
-    """One cascade's operations over ``blocks`` 128-sample blocks: the
-    triangular Toeplitz product (128 * 129 / 2 multiply-adds a block) and
-    the N-lane carry's products (X W, C Ecb, C ACt)."""
+    """(product, scan) operations of one cascade over ``blocks``
+    128-sample blocks: the triangular Toeplitz product (128 * 129 / 2
+    multiply-adds a block) with the N-lane carry's products X W and C Ecb,
+    and the carry's step C ACt."""
     from dsp_stuff_tpu_torch.ops.cascade import _embed_dim, composite_dim
     N = _embed_dim(composite_dim(sections))
-    return 2.0 * blocks * (128 * 129 / 2 + 2 * 128 * N + N * N)
+    return (2.0 * blocks * (128 * 129 / 2 + 2 * 128 * N),
+            2.0 * blocks * N * N)
 
 
 def chain_bound(stages, B, T):
     """The chain kernel's bound at [B, T]: bytes of x, y and the taps, the
-    states in and out; operations of the cascades, one a sample a scale or
-    shaper, two a comb sample, seven an mtap sample."""
+    states in and out; operations of the cascades (the products on the
+    tensor cores, three TF32 products each in 3xTF32; the carry's step on
+    the CUDA cores), one a sample a scale or shaper, two a comb sample,
+    seven an mtap sample."""
     n_taps = sum(1 for st in stages if st[0] == "tap")
     n_bytes = 4.0 * B * T * (2 + n_taps)
-    flops = 0.0
+    flops = tc_flops = 0.0
     for st in stages:
         if st[0] == "cascade":
-            flops += casc_flops(st[1], B * T // 128)
+            prod, scan = casc_flops(st[1], B * T // 128)
+            tc_flops += 3.0 * prod
+            flops += scan
             n_bytes += 4.0 * B * (2 * 8 + 128)
         elif st[0] in ("scale", "ew"):
             flops += B * T
@@ -543,19 +555,19 @@ def chain_bound(stages, B, T):
         elif st[0] == "mtap":
             flops += 7.0 * B * T
             n_bytes += 4.0 * (B * (st[2] + (st[3] + 1) * 128) + 2 * T)
-    return bound(n_bytes, flops)
+    return bound(n_bytes, flops, tc_flops)
 
 
 def cycle_bound(program, B, T):
-    """The cycle kernel's bound: bytes of the feeds and taps; operations
-    of the cascades, the join terms, two a comb sample, one a shaper or
-    scale sample."""
+    """The cycle kernel's bound: bytes of the feeds and taps; FP32
+    operations (the CUDA cores do them all) of the cascades, the join
+    terms, two a comb sample, one a shaper or scale sample."""
     from dsp_stuff_tpu_torch.ops import cycle_segment
     _, _, _, n_t, n_e = cycle_segment._program_counts(program)
     flops = 0.0
     for ins in program:
         if ins[0] == "cascade":
-            flops += casc_flops(ins[1], B * T // 128)
+            flops += sum(casc_flops(ins[1], B * T // 128))
         elif ins[0] == "join":
             flops += B * T * len(ins[1])
         elif ins[0] == "lin2":
@@ -908,28 +920,24 @@ def main() -> int:
             torch.cuda.synchronize()
             compare(name, k, p)
 
-        # the tile walk: three tiles and a ragged one at the wrapper's
-        # geometry (R = 1), then four rows a CTA with B no multiple of 4
-        from dsp_stuff_tpu_torch.ops import chain_kernel
+        # the tile walk: three tiles and a ragged one, at B_TILES rows (one
+        # CTA an SM), then past one row an SM (the build for two)
         rng14 = np.random.default_rng(14)
         tile_lists = {name: (st_, ()) for name, st_ in check_lists().items()}
         tile_lists.update(mtap_lists())
         tile_lists["40 stages"] = (long_list(), ())
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         print(f"chain kernel vs segment_fallback, B={B_TILES}, "
               f"T={T_TILES} (4 tiles, the last ragged):")
-        runs = [(name, stages, lfos, None)
+        runs = [(name, stages, lfos, B_TILES)
                 for name, (stages, lfos) in tile_lists.items()]
-        runs += [(f"{name} R={R_TILES}", *tile_lists[name], R_TILES)
+        runs += [(f"{name} B={n_sm + 1}", *tile_lists[name], n_sm + 1)
                  for name in ("bench", "mtap config5")]
-        for name, stages, lfos, R in runs:
-            x = torch.as_tensor((rng14.standard_normal((B_TILES, T_TILES))
+        for name, stages, lfos, b in runs:
+            x = torch.as_tensor((rng14.standard_normal((b, T_TILES))
                                  * 0.3).astype(np.float32), device=dev)
-            st = seeded_states(stages, B_TILES, rng14, dev, T=T_TILES,
-                               lfos=lfos)
-            y, casc_raw, ring_raw, taps = chain_kernel.launch(x, stages, st,
-                                                              R)
-            k = (y, *chain_segment.rebuild_states(stages, T_TILES, casc_raw,
-                                                  ring_raw), taps)
+            st = seeded_states(stages, b, rng14, dev, T=T_TILES, lfos=lfos)
+            k = kernel_segment(x, stages, st)
             p = chain_segment.segment_fallback(x, stages, st)
             torch.cuda.synchronize()
             compare(name, k, p)

@@ -7,29 +7,31 @@
 // it is dsp_stuff_tpu_torch/ops/chain_kernel.py.
 //
 // What bounds it.  The signal moves once in and once out (2 x 0.98 GB at
-// 512 rows x 10 s, 0.59 ms of HBM time on an H100), and each cascade is
-// a triangular Toeplitz product of every 128-sample block (about 34 GFLOP
-// a cascade at that size, 0.5 ms at the card's FP32 rate).  An earlier
-// design ran one CTA per row through its blocks one at a time, with the
-// product on the CUDA cores behind three barriers per block: bound by that
-// per-block latency.  This one is bound by each tile's walk through its
-// stages (tools/measure_torch_chain.py --phases counts the cycles of each
-// phase): the tensor-core products and the shapers' arithmetic, then the
-// comb, the carry scan (one thread a row) and the barriers between stages.
+// 512 rows x 10 s, 0.59 ms of HBM time on an H100).  Each cascade is a
+// triangular Toeplitz product of every 128-sample block (about 34 GFLOP a
+// cascade at that size), done as three TF32 products on the tensor cores:
+// about 0.2 ms a cascade at the card's TF32 rate, so the bytes set the
+// bound.  An earlier design ran one CTA per row through its blocks one at
+// a time, with the product on the CUDA cores behind three barriers per
+// block: bound by that per-block latency.  This one is bound by each
+// tile's walk through its stages (tools/measure_torch_chain.py --phases
+// counts the cycles of each phase): the tensor-core products and the
+// shapers' arithmetic, then the comb, the carry scan (one thread) and the
+// barriers between stages.
 //
-// Design.  A CTA of 256 threads owns R consecutive rows and walks them in
-// tiles of KT consecutive blocks, R * KT = 64: a tile is [64, 128] f32
-// in shared memory, M-row m = r * KT + j holding block j of row r.  The
-// wrapper picks R so that the grid fills the SMs: up to one row an SM, a
-// CTA per row with the whole register file (chain_kernel<1>); past that
-// two CTAs an SM (chain_kernel<2>).  The stages run on the tile in order:
+// Design.  A CTA of 256 threads owns one row and walks it in tiles of 64
+// consecutive blocks: a tile is [64, 128] f32 in shared memory, M-row m
+// holding the tile's block m.  Up to one row an SM the wrapper launches
+// the kernel built for one CTA an SM, with the whole register file
+// (chain_kernel<1>); past that the one built for two (chain_kernel<2>).
+// The stages run on the tile in order:
 //   cascade  Z = X [Ltg | W] is one [64, 128] x [128, 136] product on the
 //            tensor cores (mma.sync m16n8k8 in 3xTF32: hi*hi + hi*lo +
 //            lo*hi, f32 accumulate), skipping the zero k-tiles below
 //            Ltg's diagonal.  Ltg[i, c] = h[c - i] is Toeplitz, so a
 //            fragment depends on n - k alone: each warp reads its 16 from
 //            the 128-tap row h in shared memory into registers.  Only the
-//            carry runs block by block, a thread a row scanning
+//            carry runs block by block, one thread scanning
 //            c_{j+1} = u_j + c_j ACt over the tile's blocks (u = Z[:,
 //            128:]); Y = Z[:, :128] + C Ecb is one more product.  The
 //            running carry lives in device memory between tiles.
@@ -37,9 +39,9 @@
 //            elementwise: warp w holds M-rows w, w + 8, ... in registers
 //            through a whole run of them, so Fuzz's three block maxima
 //            are warp reductions and the run needs no barrier.
-//   comb     y = x + d * y[n - D] as min(D, KT * 128) independent chains
-//            a row (positions c, c + D, ...), each from one load of a ring
-//            of ceil(D/128)*128 outputs a row in device memory (the L2
+//   comb     y = x + d * y[n - D] as min(D, 64 * 128) independent chains
+//            (positions c, c + D, ...), each from one load of a ring of
+//            ceil(D/128)*128 outputs a row in device memory (the L2
 //            holds it; config2's 12,032 samples a row would not fit in
 //            shared memory), which takes the tile's last outputs.
 //   mtap     the chorus: a modulated fractional tap on the stage INPUT,
@@ -50,8 +52,9 @@
 //            memory, which takes the tile's last inputs after the gather.
 // While a tile is in the stages, the next x tile loads into the other of
 // two shared-memory buffers with cp.async, and the TMA engine stores the
-// finished tile (cp.async.bulk); the ragged last tile and rows past B are
-// masked (zero-filled, never stored).
+// finished tile (cp.async.bulk); the ragged last tile is masked
+// (zero-filled, never stored).  x and y rows start 16-byte aligned (the
+// wrapper sees to x's start; T is a multiple of 128).
 //
 // The stage program is a packed array in device memory (header, stage
 // records, per-cascade and per-ring pointer records, tap pointers), so no
@@ -65,7 +68,7 @@
 
 #include "stages.cuh"
 
-#define CK_M 64             // M-rows of a tile (R * KT)
+#define CK_M 64             // M-rows of a tile: its blocks
 #define CK_NT 256           // threads of a CTA
 #define CK_NW (CK_NT / 32)  // warps
 #define CK_MT (CK_M / 16)   // m-tiles of a tile
@@ -201,23 +204,23 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 }
 
 struct Tile {
-  int row0, Rv, R, KT, K, T;   // rows [row0, row0 + Rv) of B; R * KT = 64
+  int row, K, T;               // the CTA's row of x, its blocks and samples
   int b0, KTv;                 // first block of the tile, blocks present
-  __device__ bool valid(int m) const { return m / KT < Rv && m % KT < KTv; }
+  __device__ bool valid(int m) const { return m < KTv; }
   __device__ long long off(int m) const {     // global offset of M-row m
-    return (long long)(row0 + m / KT) * T + (long long)(b0 + m % KT) * CK_C;
+    return (long long)row * T + (long long)(b0 + m) * CK_C;
   }
 };
 
 // Start the copy of x's tile at block b0 into F: 16 bytes a thread and
-// chunk, zeros where the tile runs past the render or past B.  Thread
-// (warp w, lane l) copies the columns 4l..4l+3 of M-rows w, w + 8, ...,
-// the chunks it later stores.
+// chunk, zeros where the tile runs past the render.  Thread (warp w,
+// lane l) copies the columns 4l..4l+3 of M-rows w, w + 8, ..., the chunks
+// it later stores.
 __device__ __forceinline__ void load_tile(float* F,
                                           const float* __restrict__ x, Tile t,
                                           int b0) {
   t.b0 = b0;
-  t.KTv = min(t.KT, t.K - b0);
+  t.KTv = min(CK_M, t.K - b0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int m = warp; m < CK_M; m += CK_NW) {
     const bool ok = t.valid(m);
@@ -229,9 +232,9 @@ __device__ __forceinline__ void load_tile(float* F,
 
 // A run of elementwise stages [s0, s1) over the tile: warp w holds M-rows
 // w, w + 8, ... (four samples a lane, 32 a thread) in registers while
-// every stage of the run passes over them, each stage read once.  Rows
-// past the render or past B are shaped too (they are never read into a
-// row that is), but not stored as taps.
+// every stage of the run passes over them, each stage read once.  M-rows
+// past the render are shaped too (they are never read into one that is
+// not), but not stored as taps.
 __device__ __forceinline__ void ew_run(float* F,
                                        const CkStage* __restrict__ st, int s0,
                                        int s1,
@@ -276,23 +279,21 @@ __device__ __forceinline__ void ew_run(float* F,
         make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
 }
 
-// The carry scan of row r over the tile's blocks, c_{j+1} = u_j + c_j ACt,
-// by one thread holding the N live lanes (2, 4 or 8): N FMAs deep a
-// block.  c0 is the running carry entering the tile; Cb takes the carry
-// entering each block, and the running carry leaves for the next tile.
+// The carry scan over the tile's blocks, c_{j+1} = u_j + c_j ACt, by one
+// thread holding the N live lanes (2, 4 or 8): N FMAs deep a block.  c0
+// is the running carry entering the tile; cb takes the carry entering
+// each block, and the running carry leaves for the next tile.
 template <int N>
 __device__ __forceinline__ void scan_row(const CkCasc& cc,
-                                         const float* __restrict__ Ub,
-                                         float* __restrict__ Cb, const Tile t,
-                                         int r, const float (&c0)[CK_NS]) {
+                                         const float* __restrict__ u,
+                                         float* __restrict__ cb, const Tile t,
+                                         const float (&c0)[CK_NS]) {
   float a[N][N], c[N];
 #pragma unroll
   for (int k = 0; k < N; ++k)
 #pragma unroll
     for (int j = 0; j < N; ++j) a[k][j] = __ldg(cc.act + k * CK_NS + j);
-  const long long g = (long long)(t.row0 + r) * CK_NS;
-  const float* u = Ub + r * t.KT * CK_CLD;
-  float* cb = Cb + r * t.KT * CK_CLD;
+  const long long g = (long long)t.row * CK_NS;
 #pragma unroll
   for (int j = 0; j < N; ++j) c[j] = c0[j];
   float un[N];
@@ -383,16 +384,11 @@ __device__ __forceinline__ void cascade_tile(float* F, const CkCasc& cc,
   float c0[CK_NS];                       // the scan's carry, read ahead
 #pragma unroll
   for (int j = 0; j < CK_NS; ++j)
-    c0[j] = tid < t.Rv ? cc.carry[(long long)(t.row0 + tid) * CK_NS + j]
-                       : 0.0f;
+    c0[j] = tid == 0 ? cc.carry[(long long)t.row * CK_NS + j] : 0.0f;
   // raw outputs: the stage input of the render's last block
-  if (t.b0 + t.KTv == t.K) {
-    for (int i = tid; i < t.Rv * CK_C; i += CK_NT) {
-      const int r = i / CK_C, c = i % CK_C;
-      cc.xlast_out[(long long)(t.row0 + r) * CK_C + c] =
-          F[(r * t.KT + t.KTv - 1) * CK_LD + c];
-    }
-  }
+  if (t.b0 + t.KTv == t.K && tid < CK_C)
+    cc.xlast_out[(long long)t.row * CK_C + tid] =
+        F[(t.KTv - 1) * CK_LD + tid];
 
   // Z = X [Ltg | W]: warp (mt, par) takes the 16 M-rows of m-tile mt and
   // the n-tiles n = P i + par; par 0 also the W column tile (n = 16)
@@ -423,11 +419,11 @@ __device__ __forceinline__ void cascade_tile(float* F, const CkCasc& cc,
   __syncthreads();
   PHASE(PH_PRODUCT);
 
-  // the carry scan, a thread a row (R <= 64 < CK_NT)
-  if (tid < t.Rv) {
-    if (N <= 2) scan_row<2>(cc, Ub, Cb, t, tid, c0);
-    else if (N <= 4) scan_row<4>(cc, Ub, Cb, t, tid, c0);
-    else scan_row<8>(cc, Ub, Cb, t, tid, c0);
+  // the carry scan, by thread 0
+  if (tid == 0) {
+    if (N <= 2) scan_row<2>(cc, Ub, Cb, t, c0);
+    else if (N <= 4) scan_row<4>(cc, Ub, Cb, t, c0);
+    else scan_row<8>(cc, Ub, Cb, t, c0);
   }
   __syncthreads();
   PHASE(PH_SCAN);
@@ -450,10 +446,10 @@ __device__ __forceinline__ void cascade_tile(float* F, const CkCasc& cc,
 }
 
 // One feedback comb on the tile.  y[s] = x[s] + d y[s - D] splits into
-// min(D, KTv*128) chains a row, positions s = c, c + D, c + 2D, ...;
-// a thread walks CK_CB chains at once, each from one ring load (the
-// output D before its first position) through its positions in the
-// tile, so no barrier separates the steps.
+// min(D, KTv*128) chains, positions s = c, c + D, c + 2D, ...; a thread
+// walks CK_CB chains at once, each from one ring load (the output D
+// before its first position) through its positions in the tile, so no
+// barrier separates the steps.
 __device__ __forceinline__ void comb_tile(float* F, const CkStage& S,
                                           float* rings, const Tile t) {
   const int D = S.n;
@@ -461,25 +457,24 @@ __device__ __forceinline__ void comb_tile(float* F, const CkStage& S,
   const int RL = ((D + CK_C - 1) / CK_C) * CK_C;
   const int Lv = t.KTv * CK_C;
   const int t0m = (int)((long long)t.b0 * CK_C % RL);   // tile start mod RL
-  const int nch = min(D, Lv), total = t.Rv * nch;
-  for (int i0 = threadIdx.x; i0 < total; i0 += CK_CB * CK_NT) {
+  const int nch = min(D, Lv);
+  float* const ring = rings + (long long)t.row * RL;
+  for (int i0 = threadIdx.x; i0 < nch; i0 += CK_CB * CK_NT) {
     float prev[CK_CB];
     int c[CK_CB];
-    float* Fr[CK_CB];
 #pragma unroll
     for (int u = 0; u < CK_CB; ++u) {
-      const int i = min(i0 + u * CK_NT, total - 1), r = i / nch;
-      c[u] = i0 + u * CK_NT < total ? i - r * nch : Lv;   // Lv: no chain
-      Fr[u] = F + r * t.KT * CK_LD;
+      const int i = i0 + u * CK_NT;
+      c[u] = i < nch ? i : Lv;                          // Lv: no chain
       const int p = t0m + min(c[u], D - 1) - D;        // in (t0m - RL, t0m)
-      prev[u] = rings[(long long)(t.row0 + r) * RL + (p < 0 ? p + RL : p)];
+      prev[u] = ring[p < 0 ? p + RL : p];
     }
     for (int k = 0; k * D < Lv; ++k) {
 #pragma unroll
       for (int u = 0; u < CK_CB; ++u) {
         const int s = c[u] + k * D;
         if (s < Lv) {
-          float* f = Fr[u] + (s >> 7) * CK_LD + (s & (CK_C - 1));
+          float* f = F + (s >> 7) * CK_LD + (s & (CK_C - 1));
           prev[u] = __fadd_rn(*f, __fmul_rn(prev[u], decay));
           *f = prev[u];
         }
@@ -489,13 +484,9 @@ __device__ __forceinline__ void comb_tile(float* F, const CkStage& S,
   __syncthreads();                         // the ring takes other columns
   const int first = Lv - min(RL, Lv);     // the samples the ring keeps
   const int p0 = (t0m + first) % RL;       // and where the first goes
-  for (int r = 0; r < t.Rv; ++r) {
-    float* ring = rings + (long long)(t.row0 + r) * RL;
-    const float* Fr = F + r * t.KT * CK_LD;
-    for (int s = first + threadIdx.x; s < Lv; s += CK_NT) {
-      const int p = p0 + s - first;
-      ring[p < RL ? p : p - RL] = Fr[(s >> 7) * CK_LD + (s & (CK_C - 1))];
-    }
+  for (int s = first + threadIdx.x; s < Lv; s += CK_NT) {
+    const int p = p0 + s - first;
+    ring[p < RL ? p : p - RL] = F[(s >> 7) * CK_LD + (s & (CK_C - 1))];
   }
 }
 
@@ -511,16 +502,14 @@ __device__ __forceinline__ void mtap_tile(float* F, const CkStage& S,
   const int t0 = t.b0 * CK_C;            // times within a row fit an int
   const int t0m = t0 % RL;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* const ring = rg.ring + (long long)t.row * RL;
   float out[CK_NQ][4];
 #pragma unroll
   for (int q = 0; q < CK_NQ; ++q) {
-    // rows past the tile or past B gather (from real addresses) too; their
+    // M-rows past the render gather (from real addresses) too; their
     // outputs are never stored, and no branch holds the loads apart
     const int m = warp + q * CK_NW;
-    const int r = min(m / t.KT, t.Rv - 1);
-    const int blk = min(t.b0 + m % t.KT, t.K - 1);
-    const float* ring = rg.ring + (long long)(t.row0 + r) * RL;
-    const float* Fr = F + (m / t.KT) * t.KT * CK_LD;
+    const int blk = min(t.b0 + m, t.K - 1);
     const int tt0 = blk * CK_C + 4 * lane;
     const int base = __ldg(rg.mq + blk) - NH * CK_C + tt0;
     const int4 rr = __ldg(reinterpret_cast<const int4*>(rg.mr + tt0));
@@ -535,7 +524,7 @@ __device__ __forceinline__ void mtap_tile(float* F, const CkStage& S,
       for (int h = 0; h < 2; ++h) {
         const int s = tm + h - t0;        // both addresses stay in bounds
         const int sf = max(s, 0), p = t0m + min(s, -1);
-        ab[h] = s >= 0 ? Fr[(sf >> 7) * CK_LD + (sf & (CK_C - 1))]
+        ab[h] = s >= 0 ? F[(sf >> 7) * CK_LD + (sf & (CK_C - 1))]
                        : ring[p < 0 ? p + RL : p];
       }
       const float wet = ab[0] * (1.0f - fr[e]) + ab[1] * fr[e];
@@ -549,11 +538,9 @@ __device__ __forceinline__ void mtap_tile(float* F, const CkStage& S,
   for (int q = 0; q < CK_NQ; ++q) {
     const int m = warp + q * CK_NW;
     if (!t.valid(m)) continue;
-    const int r = m / t.KT, j = m % t.KT;
-    float* ring = rg.ring + (long long)(t.row0 + r) * RL;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int c = 4 * lane + e, s = j * CK_C + c;
+      const int c = 4 * lane + e, s = m * CK_C + c;
       float* f = F + m * CK_LD + c;
       const int p = p0 + s - first;
       if (s >= first) ring[p < RL ? p : p - RL] = *f;
@@ -566,7 +553,7 @@ __device__ __forceinline__ void mtap_tile(float* F, const CkStage& S,
 template <int CTAS>
 __global__ void __launch_bounds__(CK_NT, CTAS)
 chain_kernel(const char* __restrict__ prog, const float* __restrict__ x,
-             float* __restrict__ y, int B, int T, int R) {
+             float* __restrict__ y, int T) {
   extern __shared__ float4 smem4[];
   float* F0 = reinterpret_cast<float*>(smem4);
   float* F1 = F0 + CK_M * CK_LD;
@@ -581,13 +568,10 @@ chain_kernel(const char* __restrict__ prog, const float* __restrict__ x,
   const int n_stages = H->n_stages;
 
   Tile t;
-  t.R = R;
-  t.KT = CK_M / R;
-  t.row0 = blockIdx.x * R;
-  t.Rv = min(R, B - t.row0);
+  t.row = blockIdx.x;
   t.T = T;
   t.K = T / CK_C;
-  const int n_tiles = (t.K + t.KT - 1) / t.KT;
+  const int n_tiles = (t.K + CK_M - 1) / CK_M;
 
   // the carry buffers' rows past a ragged tile are read (never used) by
   // the product: keep them finite
@@ -606,9 +590,9 @@ chain_kernel(const char* __restrict__ prog, const float* __restrict__ x,
                                          // buffer is free
     PHASE(PH_WAIT);
     if (tile + 1 < n_tiles) load_tile((tile & 1) ? F0 : F1, x, t,
-                                      (tile + 1) * t.KT);
-    t.b0 = tile * t.KT;
-    t.KTv = min(t.KT, t.K - t.b0);
+                                      (tile + 1) * CK_M);
+    t.b0 = tile * CK_M;
+    t.KTv = min(CK_M, t.K - t.b0);
 
     for (int s = 0; s < n_stages;) {
       const int kind = st[s].kind;
@@ -684,26 +668,25 @@ extern "C" int chain_kernel_phases(unsigned long long* host, int n) {
 }
 #endif
 
-// The tile height the wrapper's geometry assumes (M-rows of a tile).
+// The blocks of a tile, which the wrapper's model of the walk assumes.
 extern "C" int chain_kernel_shape(void) { return CK_M; }
 
-// Launch ceil(B / R) CTAs of the kernel built for `ctas` CTAs an SM (1 or
-// 2) on `stream` (the caller's current PyTorch stream); returns the
+// Launch B CTAs, one a row, of the kernel built for `ctas` CTAs an SM (1
+// or 2) on `stream` (the caller's current PyTorch stream); returns the
 // cudaGetLastError() code of the launch, 0 on success.  `prog` is the
 // packed program in device memory.
 extern "C" int chain_kernel_launch(const void* prog, const float* x, float* y,
-                                   int B, int T, int R, int ctas, int device,
+                                   int B, int T, int ctas, int device,
                                    void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (R < 1 || R > CK_M || CK_M % R || (ctas != 1 && ctas != 2))
-    return (int)cudaErrorInvalidValue;
-  void (*kern)(const char*, const float*, float*, int, int, int) =
+  if (B < 1 || (ctas != 1 && ctas != 2)) return (int)cudaErrorInvalidValue;
+  void (*kern)(const char*, const float*, float*, int) =
       ctas == 1 ? chain_kernel<1> : chain_kernel<2>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  kern<<<(B + R - 1) / R, CK_NT, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const char*)prog, x, y, B, T, R);
+  kern<<<B, CK_NT, SMEM_BYTES, (cudaStream_t)stream>>>((const char*)prog, x,
+                                                       y, T);
   return (int)cudaGetLastError();
 }

@@ -9,13 +9,14 @@ imported, built or loaded when this module is imported.
 The stage list goes to the card as one packed program (``pack_program``):
 a header, the stage records, a pointer record per cascade and per ring,
 and the tap pointers, sized from the list and copied once per call, so
-the kernel has no fixed stage capacity.  ``geometry`` picks the tile
-shape (R rows x KT blocks, R * KT = 64) from B.
+the kernel has no fixed stage capacity.  A CTA walks one row in tiles of
+64 blocks; ``geometry`` picks the build (one or two CTAs an SM) from B.
 
 ``chain_kernel_call`` takes only CUDA tensors and raises on anything the
 kernel cannot take; there is no fallback.  The plain PyTorch version of
 the same function is ops/chain_segment.segment_fallback.  ``LAUNCHES``
-counts the kernel's launches.
+counts the kernel's launches.  ``phase_cycles`` runs the build with the
+kernel's phase probes (tools/measure_torch_chain.py --phases).
 """
 
 from __future__ import annotations
@@ -30,9 +31,9 @@ from dsp_stuff_tpu_torch.ops import cuda_build
 
 C = 128        # samples per block
 NS = 8         # padded carry lanes (cascade.MAX_RUN_DIM embeds <= 8)
-M_TILE = 64    # M-rows of a tile: R rows x KT blocks
-CTAS_PER_SM = 2  # CTAs an SM past one row an SM (shared memory, registers)
-WAVES = 4        # rounds of CTAs a grid may take before rows share CTAs
+M_TILE = 64    # blocks of a tile, its M-rows
+PHASES = ("wait", "open", "product", "scan", "C Ecb", "elementwise", "comb",
+          "mtap", "out")   # the probes' PH_* order in csrc/chain_kernel.cu
 
 #: elementwise stage kinds in the kernel's EW_* code order (csrc/stages.cuh)
 EW_CODES = ("overdrive", "chebyshev", "distort:HardClip", "distort:SoftClip",
@@ -57,26 +58,23 @@ CASC = np.dtype([(f, "<u8") for f in ("hp", "w", "ecb", "act", "carry",
 RING = np.dtype([(f, "<u8") for f in ("ring", "mq", "mr", "mfr")])
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    return bind(cuda_build.load("chain_kernel"))
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the argument types of a built chain kernel library and check
-    its record sizes and tile height against this module's."""
+@functools.lru_cache(maxsize=2)
+def _lib(defines: tuple = ()) -> ctypes.CDLL:
+    """The chain kernel library built with ``defines``, bound: its
+    argument types set, its record sizes and tile height checked against
+    this module's."""
+    lib = cuda_build.load("chain_kernel", defines)
     lib.chain_kernel_abi.argtypes = []
     lib.chain_kernel_abi.restype = ctypes.c_int
     lib.chain_kernel_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.chain_kernel_launch.restype = ctypes.c_int
     lib.chain_kernel_shape.restype = ctypes.c_int
     if lib.chain_kernel_shape() != M_TILE:
         raise RuntimeError(f"chain kernel built for tiles of "
-                           f"{lib.chain_kernel_shape()} M-rows, the wrapper's "
-                           f"geometry assumes {M_TILE}")
+                           f"{lib.chain_kernel_shape()} blocks, the wrapper "
+                           f"assumes {M_TILE}")
     want = (HEADER.itemsize | STAGE.itemsize << 8 | CASC.itemsize << 16
             | RING.itemsize << 24)
     if lib.chain_kernel_abi() != want:
@@ -86,21 +84,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def geometry(B: int, n_sm: int = 132) -> tuple[int, int, int]:
-    """(R, KT, ctas) of the launch for B rows on a card of ``n_sm`` SMs.
-    Up to one row an SM, a CTA per row with the whole register file (the
-    kernel built for one CTA an SM); past that the kernel built for two,
-    with the fewest rows a CTA (R, a power of two up to 64) that keep the
-    grid of ceil(B / R) CTAs within WAVES rounds of two CTAs an SM (one
-    row a CTA up to B = 1,056 on an H100).  KT = 64 / R."""
+def geometry(B: int, n_sm: int = 132) -> tuple[int, int]:
+    """(grid, ctas) of the launch for B rows on a card of ``n_sm`` SMs: a
+    CTA a row, of the kernel built for ``ctas`` CTAs an SM: one, with the
+    whole register file, while the grid fits the SMs at one CTA each;
+    two past that."""
     if B < 1 or n_sm < 1:
         raise ValueError(f"geometry: B={B} and n_sm={n_sm} must be >= 1")
-    if B <= n_sm:
-        return 1, M_TILE, 1
-    R = 1
-    while R < M_TILE and -(-B // R) > WAVES * CTAS_PER_SM * n_sm:
-        R *= 2
-    return R, M_TILE // R, CTAS_PER_SM
+    return B, 1 if B <= n_sm else 2
 
 
 def _tf32_rna(a):
@@ -285,8 +276,13 @@ def _shared_operand(t, shape, dtype, dev, what: str):
                if isinstance(t, torch.Tensor) else type(t).__name__)
         raise ValueError(f"chain kernel: mtap {what} must be {dtype} "
                          f"{tuple(shape)} on {dev}, got {got}")
-    t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t    # read 16 bytes a lane
+    return aligned(t.contiguous())
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its start is not 16-byte aligned: the
+    kernel reads x and the mtap operands 16 bytes a lane."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def to_device(buf: np.ndarray, dev) -> torch.Tensor:
@@ -308,15 +304,30 @@ def chain_kernel_call(x: torch.Tensor, stages: tuple, state_in: tuple):
     four entries, the input history [B, L] and the shared trajectory
     operands q [T/128] int32, r [T] int32 and frac [T] float32
     (modfx.mtap_shared)."""
-    return launch(x, stages, state_in)
+    return _run(x, stages, state_in)
 
 
-def launch(x: torch.Tensor, stages: tuple, state_in: tuple, R=None,
-           ctas=None):
-    """``chain_kernel_call`` with R rows a CTA (a power of two up to 64)
-    and the kernel built for ``ctas`` CTAs an SM (1 or 2); ``geometry(B)``
-    picks what is None.  tools/measure_torch_chain.py times other tile
-    shapes through it."""
+def phase_cycles(x: torch.Tensor, stages: tuple,
+                 state_in: tuple) -> np.ndarray:
+    """``chain_kernel_call`` once in the kernel's build with its phase
+    probes (-DCK_PHASES), for tools/measure_torch_chain.py --phases:
+    returns the clock cycles thread 0 of each CTA (of the first 4096)
+    spent in each phase of its walk, uint64 [CTAs, len(PHASES)]."""
+    _run(x, stages, state_in, ("CK_PHASES",))
+    lib = _lib(("CK_PHASES",))
+    lib.chain_kernel_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.chain_kernel_phases.restype = ctypes.c_int
+    torch.cuda.synchronize(x.device)
+    buf = np.zeros((min(x.shape[0], 4096), len(PHASES)), np.uint64)
+    rc = lib.chain_kernel_phases(buf.ctypes.data, buf.shape[0])
+    if rc:
+        raise RuntimeError(f"reading the phase counters: CUDA error {rc}")
+    return buf
+
+
+def _run(x: torch.Tensor, stages: tuple, state_in: tuple,
+         defines: tuple = ()):
+    """``chain_kernel_call`` in the kernel's build with ``defines``."""
     global LAUNCHES
     stages = tuple(stages)
     records, (n_casc, n_ring, n_tap) = plan(stages)
@@ -385,15 +396,13 @@ def launch(x: torch.Tensor, stages: tuple, state_in: tuple, R=None,
                                            device=dev)
     prog = to_device(pack_program(records, casc_ptrs, ring_ptrs,
                                   [t.data_ptr() for t in taps]), dev)
-    R0, _, ctas0 = geometry(B, torch.cuda.get_device_properties(
+    grid, ctas = geometry(B, torch.cuda.get_device_properties(
         dev).multi_processor_count)
-    R = R0 if R is None else R
-    ctas = ctas0 if ctas is None else ctas
+    x = aligned(x)
     y = torch.empty_like(x)
-    rc = _lib().chain_kernel_launch(
-        prog.data_ptr(), x.data_ptr(), y.data_ptr(), B, T, R, ctas,
-        dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    rc = _lib(defines).chain_kernel_launch(
+        prog.data_ptr(), x.data_ptr(), y.data_ptr(), grid, T, ctas,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"chain kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

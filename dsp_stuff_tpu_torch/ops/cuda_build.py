@@ -90,6 +90,7 @@ def build(*names: str,
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The library of kernel ``name``, built if needed."""
-    return ctypes.CDLL(str(build(name)[name][0]))
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The library of kernel ``name`` built with ``defines``, built if
+    needed."""
+    return ctypes.CDLL(str(build(name, defines=defines)[name][0]))

@@ -3,16 +3,15 @@
 The CUDA kernel runs only on a GPU (chip_smoke.py holds it against
 ``segment_fallback`` there).  Here:
 
-(a) the wrapper's tile geometry (R rows x KT blocks a CTA) covers every
-    row once, with one CTA an SM up to one row an SM and past it the
-    fewest rows a CTA that keep the grid within four rounds of two CTAs
-    an SM;
+(a) the wrapper's geometry: a CTA a row, the build for one CTA an SM up
+    to one row an SM and for two past it; x copied where its start is not
+    16-byte aligned;
 (b) ``tile_walk``, a PyTorch model of the kernel's walk written for this
-    test (the 3xTF32 product of each [64, 128] tile with the packed
-    Toeplitz row and W, the carry scan over the tile's blocks, the C Ecb
-    product, comb rounds and the mtap ring, masked rows and a ragged last
-    tile, the raw outputs at the render's last block), held against
-    ``segment_fallback`` on every list the smoke run checks;
+    test (a row a CTA in tiles of 64 blocks: the 3xTF32 product of each
+    [64, 128] tile with the packed Toeplitz row and W, the carry scan over
+    the tile's blocks, the C Ecb product, comb rounds and the mtap ring, a
+    ragged last tile, the raw outputs at the render's last block), held
+    against ``segment_fallback`` on every list the smoke run checks;
 (c) the packed stage program's layout (ops/chain_kernel.pack_program),
     its record sizes against the CUDA source, and a list of 40 stages
     packed up to the wrapper's device check.
@@ -37,9 +36,9 @@ from dsp_stuff_tpu_torch.utils import precision as tprec
 C = 128
 Y_DB = -120.0
 STATE_ATOL = 1e-5
-R_MODEL = 8                       # KT = 8: tiles of 1024 samples a row
-B_MODEL = 5                       # not a multiple of R
-T_MODEL = 3 * 8 * C + 5 * C       # three tiles and a ragged one
+KT = tck.M_TILE                   # blocks of a tile
+B_MODEL = 3
+T_MODEL = 3 * KT * C + 5 * C      # three tiles and a ragged one
 
 
 @pytest.fixture(autouse=True)
@@ -65,16 +64,27 @@ def _dbfs(got, want):
 @pytest.mark.parametrize("B", [1, 3, 128, 512, 1024, 4099])
 def test_geometry_covers_every_row_once(B):
     n_sm = 132
-    R, KT, ctas = tck.geometry(B, n_sm)
-    assert R * KT == tck.M_TILE and R & (R - 1) == 0
-    grid = -(-B // R)
-    assert ctas == (1 if B <= n_sm else tck.CTAS_PER_SM)
-    assert grid <= (n_sm if ctas == 1 else tck.WAVES * ctas * n_sm)
-    rows = np.concatenate([np.arange(b * R, min(b * R + R, B))
-                           for b in range(grid)])
-    np.testing.assert_array_equal(rows, np.arange(B))
-    if R > 1:                  # the fewest rows a CTA that fit the grid
-        assert -(-B // (R // 2)) > tck.WAVES * ctas * n_sm
+    grid, ctas = tck.geometry(B, n_sm)
+    assert grid == B                   # CTA b walks row b
+    assert ctas == (1 if B <= n_sm else 2)
+    assert tck.geometry(B, B)[1] == 1 and tck.geometry(B + 1, B)[1] == 2
+    with pytest.raises(ValueError):
+        tck.geometry(0, n_sm)
+
+
+def test_misaligned_x_is_copied():
+    """The kernel loads x 16 bytes a lane: a view whose start is not
+    16-byte aligned reaches it as an aligned copy, an aligned one as
+    itself."""
+    base = torch.arange(4 * C + 4, dtype=torch.float32)
+    ok = base[:4 * C].view(4, C)
+    assert tck.aligned(ok) is ok
+    for off in (1, 2, 3):
+        v = base[off:off + 4 * C].view(4, C)
+        assert v.is_contiguous() and v.data_ptr() % 16
+        got = tck.aligned(v)
+        assert got.data_ptr() % 16 == 0
+        assert torch.equal(got, v)
 
 
 # -- (b) the tile walk -----------------------------------------------------
@@ -109,12 +119,11 @@ def _casc_mats(sections):
             torch.from_numpy(act))
 
 
-def tile_walk(x, stages, state_in, R):
-    """The chain kernel's walk in PyTorch: CTAs of R rows, tiles of KT =
-    64 / R blocks, the stages on each [64, 128] tile in order.  Returns
-    the kernel's raw outputs (y, casc_raw, rings, taps)."""
+def tile_walk(x, stages, state_in):
+    """The chain kernel's walk in PyTorch: a CTA a row, tiles of KT = 64
+    blocks, the stages on each [64, 128] tile in order.  Returns the
+    kernel's raw outputs (y, casc_raw, rings, taps)."""
     B, T = x.shape
-    KT = tck.M_TILE // R
     K = T // C
     records, (_, _, n_tap) = tck.plan(stages)
     casc, rings, ring_views = [], [], []
@@ -142,42 +151,37 @@ def tile_walk(x, stages, state_in, R):
                           *state_in[si + 1:si + 4]))
             si += 4
     y = torch.zeros(B, T)
-    for row0 in range(0, B, R):
-        Rv = min(R, B - row0)
+    for row in range(B):
         for b0 in range(0, K, KT):
             KTv = min(KT, K - b0)
             Lv, t0 = KTv * C, b0 * C
-            F = torch.zeros(R, KT * C)              # row r: blocks of r
-            F[:Rv, :Lv] = x[row0:row0 + Rv, t0:t0 + Lv]
+            F = torch.zeros(KT * C)                 # M-row m: block b0 + m
+            F[:Lv] = x[row, t0:t0 + Lv]
             ci = ri = 0
             for st, rec in zip(stages, records):
                 kind = st[0]
                 if kind == "cascade":
                     (Lh, Ll, Eh, El, act), carry, cout, xlast = casc[ci]
                     ci += 1
-                    M = F.reshape(R * KT, C)
                     if b0 + KTv == K:
-                        xlast[row0:row0 + Rv] = F[:Rv, Lv - C:Lv]
-                    Z = _mm3(M, Lh, Ll)                     # [64, 136]
-                    Cb = torch.zeros(R * KT, 8)
-                    for r in range(Rv):
-                        c = carry[row0 + r].clone()
-                        for jb in range(KTv):
-                            m = r * KT + jb
-                            Cb[m] = c
-                            if b0 + jb == K - 1:
-                                cout[row0 + r] = c
-                            c = Z[m, C:] + c @ act
-                        carry[row0 + r] = c
-                    F = (Z[:, :C] + _mm3(Cb, Eh, El)).reshape(R, KT * C)
+                        xlast[row] = F[Lv - C:Lv]
+                    Z = _mm3(F.reshape(KT, C), Lh, Ll)      # [64, 136]
+                    Cb = torch.zeros(KT, 8)
+                    c = carry[row].clone()
+                    for jb in range(KTv):
+                        Cb[jb] = c
+                        if b0 + jb == K - 1:
+                            cout[row] = c
+                        c = Z[jb, C:] + c @ act
+                    carry[row] = c
+                    F = (Z[:, :C] + _mm3(Cb, Eh, El)).reshape(KT * C)
                 elif kind == "scale":
-                    F[:Rv, :Lv] *= float(rec["p"][0])
+                    F[:Lv] *= float(rec["p"][0])
                 elif kind == "ew":
-                    v = F[:Rv, :Lv].reshape(-1, C)
-                    F[:Rv, :Lv] = tcs.apply_ew(st[1], v, st[2]).reshape(
-                        Rv, Lv)
+                    F[:Lv] = tcs.apply_ew(st[1], F[:Lv].reshape(-1, C),
+                                          st[2]).reshape(Lv)
                 elif kind == "tap":
-                    taps[st[1]][row0:row0 + Rv, t0:t0 + Lv] = F[:Rv, :Lv]
+                    taps[st[1]][row, t0:t0 + Lv] = F[:Lv]
                 elif kind == "comb":
                     (ring,) = rings[ri]
                     ri += 1
@@ -187,13 +191,11 @@ def tile_walk(x, stages, state_in, R):
                     for lo in range(0, Lv, span):
                         s = torch.arange(lo, min(lo + span, Lv))
                         sd = s - D
-                        for r in range(Rv):
-                            yd = torch.where(
-                                sd >= 0, F[r, sd.clamp(min=0)],
-                                ring[row0 + r, (t0 + sd) % RL])
-                            F[r, s] = F[r, s] + yd * decay
+                        yd = torch.where(sd >= 0, F[sd.clamp(min=0)],
+                                         ring[row, (t0 + sd) % RL])
+                        F[s] = F[s] + yd * decay
                     s = torch.arange(Lv - min(RL, Lv), Lv)
-                    ring[row0:row0 + Rv, (t0 + s) % RL] = F[:Rv, s]
+                    ring[row, (t0 + s) % RL] = F[s]
                 else:                                       # mtap
                     ring, q, rr, fr = rings[ri]
                     ri += 1
@@ -201,17 +203,15 @@ def tile_walk(x, stages, state_in, R):
                     RL = ring.shape[1]
                     t = torch.arange(t0, t0 + Lv)
                     tm = (q.long()[t // C] - NH * C + rr.long()[t] + t)
-                    out = torch.empty(Rv, Lv)
-                    for r in range(Rv):
-                        ab = [torch.where(u >= t0, F[r, (u - t0).clamp(0, Lv - 1)],
-                                          ring[row0 + r, u % RL])
-                              for u in (tm, tm + 1)]
-                        wet = ab[0] * (1.0 - fr[t]) + ab[1] * fr[t]
-                        out[r] = F[r, :Lv] * (1.0 - mix) + wet * mix
+                    ab = [torch.where(u >= t0, F[(u - t0).clamp(0, Lv - 1)],
+                                      ring[row, u % RL])
+                          for u in (tm, tm + 1)]
+                    wet = ab[0] * (1.0 - fr[t]) + ab[1] * fr[t]
+                    out = F[:Lv] * (1.0 - mix) + wet * mix
                     s = torch.arange(Lv - min(RL, Lv), Lv)
-                    ring[row0:row0 + Rv, (t0 + s) % RL] = F[:Rv, s]
-                    F[:Rv, :Lv] = out
-            y[row0:row0 + Rv, t0:t0 + Lv] = F[:Rv, :Lv]
+                    ring[row, (t0 + s) % RL] = F[s]
+                    F[:Lv] = out
+            y[row, t0:t0 + Lv] = F[:Lv]
     casc_raw = tuple((cout, xlast) for _, _, cout, xlast in casc)
     ring_raw = tuple(g[0].view(B, -1, C) for g in rings)
     return y, casc_raw, ring_raw, tuple(taps)
@@ -222,7 +222,7 @@ def _model_lists():
     lists = {name: (stages, ()) for name, stages
              in chip_smoke.check_lists().items()}
     lists.update(chip_smoke.mtap_lists())
-    kt_len = tck.M_TILE // R_MODEL * C
+    kt_len = KT * C
     for D in (100, kt_len, kt_len + 476):
         lists[f"comb D={D}"] = ((("cascade", (("lp", 0.4),)),
                                  ("comb", 0.45, D)), ())
@@ -237,7 +237,7 @@ def test_tile_walk_matches_fallback(name):
                          .astype(np.float32))
     st = chip_smoke.seeded_states(stages, B_MODEL, rng, "cpu", T=T_MODEL,
                                   lfos=lfos)
-    y, casc_raw, ring_raw, taps = tile_walk(x, stages, st, R_MODEL)
+    y, casc_raw, ring_raw, taps = tile_walk(x, stages, st)
     cinfos, hists = tcs.rebuild_states(stages, T_MODEL, casc_raw, ring_raw)
     want = tcs.segment_fallback(x, stages, st)
     assert _dbfs(y.numpy(), want[0].numpy()) <= Y_DB
@@ -254,18 +254,17 @@ def test_tile_walk_matches_fallback(name):
                                    atol=STATE_ATOL)
 
 
-@pytest.mark.parametrize("R", [1, 4, 64])
-def test_tile_walk_any_tile_shape(R):
-    """The bench list walked at other tile shapes: one row of 64-block
-    tiles, four rows of 16 and 64 rows of one block, with a ragged last
-    tile."""
+@pytest.mark.parametrize("last", [1, 4, 64])
+def test_tile_walk_any_tile_shape(last):
+    """The bench list walked with a last tile of 1, 4 and 64 blocks (64:
+    no ragged tile)."""
     stages = chip_smoke.bench_stages()
-    rng = np.random.default_rng(R)
-    B, T = 3, 2 * 64 * C + 3 * C
+    rng = np.random.default_rng(last)
+    B, T = 2, (KT + last) * C
     x = torch.from_numpy((rng.standard_normal((B, T)) * 0.3)
                          .astype(np.float32))
     st = chip_smoke.seeded_states(stages, B, rng, "cpu", T=T)
-    y = tile_walk(x, stages, st, R)[0]
+    y = tile_walk(x, stages, st)[0]
     want = tcs.segment_fallback(x, stages, st)[0]
     assert _dbfs(y.numpy(), want.numpy()) <= Y_DB
 

@@ -5,27 +5,29 @@
 
 Builds dsp_stuff_tpu_torch's kernels (printing ptxas' register and spill
 lines), then holds the chain kernel (csrc/chain_kernel.cu) against
-``segment_fallback`` on the card at B = 67 rows and T = 3 tiles of 64
-blocks plus 5 blocks (y and taps in dBFS, rebuilt states in max abs):
+``segment_fallback`` on the card at T = 3 tiles of 64 blocks plus 5
+blocks (y and taps in dBFS, rebuilt states in max abs):
 
-* the bench list at every tile shape R = 1, 2, 4, ..., 64 rows a CTA;
-* at the wrapper's own shape: every list of chip_smoke.check_lists(),
-  both mtap lists, the 40-stage list, and combs with D < 128, D = KT*128
-  and D > KT*128;
+* the bench list past one row an SM (B = SMs + 1: the build for two CTAs
+  an SM);
+* at B = 67 rows (one CTA an SM): every list of chip_smoke.check_lists(),
+  both mtap lists, the 40-stage list, and combs with D < 128, D = 64*128
+  and D > 64*128;
 * the cycle kernel on an oversized program (chip_smoke) against
   cycle_segment.interpret.
 
 With --check it stops there.  Otherwise it times with CUDA events (median
 of 5 after a warm-up) at T = 10 s of 48 kHz audio:
 
-* the bench list at B = 1, 128, 512 and 1024, beside segment_fallback;
-* the bench list at B = 128 and 512 at every R from 1 to 16;
+* the bench list at B = 1, 128, 512 and 1024, beside segment_fallback,
+  with its bound (chip_smoke.chain_bound);
 * at B = 128 and 512, each stage kind of the bench list alone (a lone
   scale stage is the tile walk and the signal I/O with no work), and
   config5's [hp, mtap], its hp and its mtap at B = 128 beside
   segment_fallback.
 
---phases builds the kernel with its phase probes (-DCK_PHASES) and prints,
+--phases runs the kernel's build with its phase probes
+(chain_kernel.phase_cycles) and prints,
 for the bench list and config5's [hp, mtap] at B = 128 (one CTA an SM)
 and 512 (two), the clock cycles of thread 0 of each CTA in each phase of
 the tile walk, averaged over the CTAs, per tile: where a tile's time goes.
@@ -34,7 +36,6 @@ Prints one line per measurement with the card's name and power limit and
 exits 1 if a check failed.  Needs a CUDA device; imports nothing of JAX.
 """
 
-import ctypes
 import os
 import subprocess
 import sys
@@ -46,8 +47,6 @@ SR = 48_000
 T = 10 * SR
 B_CHK = 67
 T_CHK = 3 * 64 * 128 + 5 * 128
-PHASES = ("wait", "open", "product", "scan", "C Ecb", "elementwise", "comb",
-          "mtap", "out")   # the PH_* order of csrc/chain_kernel.cu
 
 
 def checks(cs, dev, rng) -> list:
@@ -58,29 +57,27 @@ def checks(cs, dev, rng) -> list:
     from dsp_stuff_tpu_torch.ops import cycle_segment
     failed = []
 
-    def check(name, stages, lfos=(), R=None):
-        x = torch.as_tensor((rng.standard_normal((B_CHK, T_CHK)) * 0.3)
+    def check(name, stages, lfos=(), b=B_CHK):
+        x = torch.as_tensor((rng.standard_normal((b, T_CHK)) * 0.3)
                             .astype(np.float32), device=dev)
-        st = cs.seeded_states(stages, B_CHK, rng, dev, T=T_CHK, lfos=lfos)
+        st = cs.seeded_states(stages, b, rng, dev, T=T_CHK, lfos=lfos)
         try:
-            y, casc_raw, ring_raw, taps = chain_kernel.launch(x, stages, st,
-                                                              R)
-            cinfos, hists = chain_segment.rebuild_states(
-                stages, T_CHK, casc_raw, ring_raw)
+            k = cs.kernel_segment(x, stages, st)
             p = chain_segment.segment_fallback(x, stages, st)
             torch.cuda.synchronize()
-            cs.compare(name, (y, cinfos, hists, taps), p)
+            cs.compare(name, k, p)
         except Exception as e:               # report every case, then fail
             print(f"  FAILED {name}: {type(e).__name__}: {e}")
             failed.append(name)
 
-    print(f"chain kernel vs segment_fallback, B={B_CHK}, T={T_CHK}:")
-    for R in (1, 2, 4, 8, 16, 32, 64):
-        check(f"bench R={R}", cs.bench_stages(), R=R)
-    KT0 = chain_kernel.geometry(B_CHK)[1]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"chain kernel vs segment_fallback, T={T_CHK}:")
+    check(f"bench B={n_sm + 1}", cs.bench_stages(), b=n_sm + 1)
+    print(f"... B={B_CHK}:")
     lists = dict(cs.check_lists())
     lists["40 stages"] = cs.long_list()
-    for D in (100, KT0 * 128, KT0 * 128 + 808):
+    tile = chain_kernel.M_TILE * 128
+    for D in (100, tile, tile + 808):
         lists[f"comb D={D}"] = (("cascade", (("lp", 0.4),)),
                                 ("comb", 0.45, D))
     for name, stages in lists.items():
@@ -114,21 +111,17 @@ def times(cs, dev, rng, card) -> None:
               f"audio-s/s{extra}  [{card}]")
 
     bench = cs.bench_stages()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for b in (1, 128, 512, 1024):
         x = x_all[:b]
         st = cs.seeded_states(bench, b, rng, dev)
         ms = cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(x, bench, st))
         plain = cs.cuda_ms(lambda: chain_segment.segment_fallback(
             x, bench, st))
-        R, _, ctas = chain_kernel.geometry(b)
-        line(f"bench, B={b}, R={R}, {ctas} CTA/SM", b, ms,
-             f", plain {plain:.3f} ms")
-    for b in (128, 512):
-        x = x_all[:b]
-        st = cs.seeded_states(bench, b, rng, dev)
-        for R in (1, 2, 4, 8, 16):
-            ms = cs.cuda_ms(lambda: chain_kernel.launch(x, bench, st, R))
-            line(f"bench, B={b}, R={R} KT={64 // R}", b, ms)
+        bms, bby = cs.chain_bound(bench, b, T)
+        line(f"bench, B={b}, {chain_kernel.geometry(b, n_sm)[1]} CTA/SM", b,
+             ms, f", plain {plain:.3f} ms, bound {bms:.3f} ms by {bby} "
+             f"({bms / ms:.1%})")
     h = bench[1]
     kinds = [("scale only", (h,)),
              ("cascade gain+biquad (N=2)", (bench[0],)),
@@ -162,13 +155,8 @@ def phases(cs, dev, rng, card) -> None:
     """Cycles per tile in each phase, from the kernel's probe build."""
     import torch
     from dsp_stuff_tpu_torch.models import presets
-    from dsp_stuff_tpu_torch.ops import chain_kernel, cuda_build
-    (path, _log), = cuda_build.build("chain_kernel",
-                                     defines=("CK_PHASES",)).values()
-    lib = chain_kernel.bind(ctypes.CDLL(str(path)))
-    lib.chain_kernel_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.chain_kernel_phases.restype = ctypes.c_int
-    chain_kernel._lib = lambda: lib          # launches take the probe build
+    from dsp_stuff_tpu_torch.ops import chain_kernel
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     x_all = torch.as_tensor(
         rng.standard_normal((512, T), dtype=np.float32) * np.float32(0.25),
         device=dev)
@@ -178,19 +166,15 @@ def phases(cs, dev, rng, card) -> None:
         for b in (128, 512):
             x = x_all[:b]
             st = cs.seeded_states(stages, b, rng, dev, T=T, lfos=lfos)
-            ms = cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(
-                x, stages, st))
-            R, KT, ctas = chain_kernel.geometry(b)
-            n = -(-b // R)
-            buf = np.zeros((n, len(PHASES)), np.uint64)
-            rc = lib.chain_kernel_phases(buf.ctypes.data, n)
-            if rc:
-                raise RuntimeError(f"reading the phase counters: CUDA "
-                                   f"error {rc}")
-            per = buf.astype(np.float64).mean(axis=0) / -(-(T // 128) // KT)
-            print(f"{name}, B={b} (R={R}, {ctas} CTA/SM): {ms:.3f} ms with "
-                  f"probes, {per.sum():,.0f} cycles a tile: " + ", ".join(
-                      f"{p} {v:,.0f}" for p, v in zip(PHASES, per) if v)
+            chain_kernel.phase_cycles(x, stages, st)        # warm-up
+            buf = chain_kernel.phase_cycles(x, stages, st)
+            n_tiles = -(-(T // 128) // chain_kernel.M_TILE)
+            per = buf.astype(np.float64).mean(axis=0) / n_tiles
+            ctas = chain_kernel.geometry(b, n_sm)[1]
+            print(f"{name}, B={b} ({ctas} CTA/SM): {per.sum():,.0f} cycles "
+                  f"a tile: " + ", ".join(
+                      f"{p} {v:,.0f}" for p, v in zip(chain_kernel.PHASES,
+                                                      per) if v)
                   + f"  [{card}]")
 
 
