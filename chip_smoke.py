@@ -3,33 +3,39 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from csrc/ with nvcc (one nvcc per
-source, all started together) and holds each against its plain PyTorch
-version on the card: the chain kernel (every check list, both mtap lists
-and a 40-stage list, at one tile and at a walk of three tiles and a
-ragged one, also past one row an SM, the build for two CTAs an SM), the cycle
-kernel (config5's program, a loop graph's and one past the capacity the
-kernel once had), the envelope kernel (chunked and sequential) and the
-first-order recurrence kernel (forward, reverse and per-sample, each also
-against a float64 solve, and its autograd Function against the float64
-one).  Then it drives the port's main paths through ``compile_graph(...,
-device="cuda")``:
+Builds the port's CUDA kernels from csrc/ with nvcc (one nvcc per
+source, and one per cycle block program, since the cycle kernel is built
+for each program; all started together) and holds each against its plain
+PyTorch version on the card: the chain kernel (every check list, both mtap
+lists and a 40-stage list, at one tile and at a walk of three tiles and a
+ragged one, also past one row an SM, the build for two CTAs an SM), the
+cycle kernel (config5's program over a T that wraps its comb ring three
+times with a ragged end, at 64 rows and past one row an SM; a ring too
+large for shared memory, in device memory; a loop graph's program and one
+past the capacity the kernel once had), the envelope kernel (sequential;
+chunked at small chunks on a ragged T, at one row with x's start not
+16-byte aligned and NaN in x, and at the main path's shape, each with its
+max abs difference, expected 0) and the first-order recurrence kernel
+(forward, reverse and per-sample, each also against a float64 solve, and
+its autograd Function against the float64 one).  Then it drives the
+port's main paths through ``compile_graph(..., device="cuda")``:
 
 * the 10-node bench chain over 512 streams x 10 s at 48 kHz, with the
   chain kernel's launch count, the NumPy oracle, the state handoff and
   the parity policy;
 * config5, the 16-node feedback graph (models/presets.py), over 128
-  streams x 10 s, with each kernel's launch count, the composed NumPy
-  oracle, a 2 x 5 s handoff and the parity policy (4 streams x 1 s, the
-  sequential envelope kernel's path, where that kernel is also held
-  against its plain version at that shape);
+  streams x 10 s, with each kernel's launch count (one chain, one cycle,
+  one envelope launch), the composed NumPy oracle, a 2 x 5 s handoff and
+  the parity policy (4 streams x 1 s, the sequential envelope kernel's
+  path, where that kernel is also held against its plain version at that
+  shape);
 * gradient fitting (train/fit.py) of the bench chain's 16 sliders: one
   loss gradient at 2 streams x 1 s against the CPU port, then five Adam
   steps over 128 streams x 10 s with the first-order kernel's launch count
   (two solves forward, two backward per step) and no plain version
   called; and the graph input -> gain -> envelope -> output, whose
   gradient at 2 x 2 s is held against the CPU port and is taken once at
-  128 x 10 s (the chunked envelope kernel forward, the per-sample
+  128 x 10 s (one chunked envelope launch forward, the per-sample
   first-order kernel backward);
 
 and times every kernel against its plain version (the chain kernel on
@@ -172,6 +178,35 @@ def oversized_cycle_program():
     return tuple(prog), 9
 
 
+def big_ring_cycle_program():
+    """(program, n_taps): a loop whose second comb's ring (64,000 samples a
+    row, 256 KB) cannot stay in shared memory, beside config5's comb of
+    7,200 that can."""
+    return (("join", (("ext", 0), ("reg", 0)), 0.5),
+            ("comb", 0.5, 7200, 0),
+            ("cascade", (("lp", 0.4),), 0),
+            ("comb", 0.3, 64_000, 1),
+            ("setreg", 0), ("tap", 0)), 1
+
+
+def cycle_cases(n_sm):
+    """(name, program, n_taps, B, T) of the cycle kernel's checks: config5's
+    program over a T that wraps its ring (7,200 samples, a spare block
+    included 7,424) three times with a ragged end, at B_CHECK rows and
+    past one row an SM; a ring too large for shared memory, wrapped three
+    times; the loop graph's program and the 56-instruction one."""
+    from dsp_stuff_tpu_torch.models import presets
+    c5 = cycle_program(presets.config5_feedback_16node()[0])
+    t_wrap = 3 * 7424 + 5 * 128
+    big = big_ring_cycle_program()
+    return [("config5 ring wraps", *c5, B_CHECK, t_wrap),
+            ("config5 ring wraps", *c5, n_sm + 1, t_wrap),
+            ("ring in device memory", *big, 8, 3 * 64_128 + 5 * 128),
+            ("loop graph", *cycle_program(loop_graph()), B_CHECK, T_CHECK),
+            ("56 instructions", *oversized_cycle_program(), B_CHECK,
+             T_CHECK)]
+
+
 def planned_stages(graph):
     """(stages, lfos) of the graph's one chain segment, as the planner
     builds it under the fast policy: lfos holds the chorus LFO (rate Hz,
@@ -278,7 +313,8 @@ def compare_env(name, k, p):
     y_db = dbfs(host(k[0]), host(p[0]))
     st_err = float(np.abs(host(k[1]) - host(p[1])).max())
     abs_err = float(np.abs(host(k[0]) - host(p[0])).max())
-    print(f"  {name:22s} y {y_db:8.1f} dBFS  final max abs {st_err:.2e}")
+    print(f"  {name:22s} y {y_db:8.1f} dBFS, max abs {abs_err:.2e}  final "
+          f"max abs {st_err:.2e}")
     check(y_db <= Y_BOUND_DB, f"{name}: y {y_db:.1f} dBFS > {Y_BOUND_DB}")
     check(st_err <= STATE_ATOL, f"{name}: final {st_err:.2e}")
     return abs_err
@@ -833,10 +869,9 @@ def fit_phase(dev, card) -> dict:
               f"gradients { {k: float(v) for k, v in grads.items()} } "
               f"[{card}]")
         check(not plain, f"the envelope fit called plain versions {plain}")
-        check(env_launches == only_launches(envelope=2, first_order=1),
-              f"envelope fit launched {env_launches}: expected the two "
-              f"chunked envelope passes and one per-sample first-order "
-              f"solve")
+        check(env_launches == only_launches(envelope=1, first_order=1),
+              f"envelope fit launched {env_launches}: expected one chunked "
+              f"envelope launch and one per-sample first-order solve")
         check(bool(torch.isfinite(loss)) and all(
             bool(torch.isfinite(v)) for v in grads.values()),
             "envelope fit: loss or gradients not finite")
@@ -870,8 +905,8 @@ def main() -> int:
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.models import presets
     from dsp_stuff_tpu_torch.ops import (chain_segment, cuda_build,
-                                         cycle_segment, envelope,
-                                         envelope_kernel)
+                                         cycle_kernel, cycle_segment,
+                                         envelope, envelope_kernel)
     from bench import oracle_chain
 
     dev = torch.device("cuda", 0)
@@ -884,12 +919,22 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    # -- 2. build: one nvcc per kernel source, all started together -------
+    # -- 2. build: one nvcc per kernel source, and one per cycle program
+    # (the cycle kernel is built for each block program), all started
+    # together --------------------------------------------------------------
     t0 = time.time()
-    built = cuda_build.build()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    cycle_programs = {name: prog for name, prog, _, _, _ in cycle_cases(n_sm)}
+    budget = cycle_kernel.budget_of(dev)
+    jobs = [(n, (), "") for n in cuda_build.STATIC_KERNELS]
+    jobs += [("cycle_kernel", (), cycle_kernel.source_for(prog, budget))
+             for prog in cycle_programs.values()]
+    built = cuda_build.build_jobs(jobs)
     print(f"nvcc build of {len(built)} kernels: {time.time() - t0:.1f} s")
-    for name, (lib, log) in built.items():
-        print(f"  {name} -> {os.path.relpath(lib, ROOT)}")
+    labels = list(cuda_build.STATIC_KERNELS) + [
+        f"cycle_kernel ({name})" for name in cycle_programs]
+    for label, (lib, log) in zip(labels, built):
+        print(f"  {label} -> {os.path.relpath(lib, ROOT)}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip())
@@ -926,7 +971,6 @@ def main() -> int:
         tile_lists = {name: (st_, ()) for name, st_ in check_lists().items()}
         tile_lists.update(mtap_lists())
         tile_lists["40 stages"] = (long_list(), ())
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         print(f"chain kernel vs segment_fallback, B={B_TILES}, "
               f"T={T_TILES} (4 tiles, the last ragged):")
         runs = [(name, stages, lfos, B_TILES)
@@ -942,26 +986,20 @@ def main() -> int:
             torch.cuda.synchronize()
             compare(name, k, p)
 
-        print(f"cycle kernel vs cycle_segment.interpret, B={B_CHECK}, "
-              f"T={T_CHECK}:")
+        print("cycle kernel vs cycle_segment.interpret:")
         programs = {"config5": cycle_program(
                         presets.config5_feedback_16node()[0]),
                     "loop graph": cycle_program(loop_graph())}
-        for name, (program, n_taps) in programs.items():
-            ins = cycle_inputs(program, B_CHECK, T_CHECK, rng5, dev)
+        # config5's ring wrapped three times, past one row an SM, a ring in
+        # device memory, the loop graph and 56 instructions (each case from
+        # its own generator: the later phases' inputs stay as they were)
+        for i, (name, program, n_taps, b, t) in enumerate(cycle_cases(n_sm)):
+            ins = cycle_inputs(program, b, t, np.random.default_rng(15 + i),
+                               dev)
             k = cycle_kernel_run(*ins, program, n_taps)
             p = cycle_segment.interpret(*ins, program, n_taps)
             torch.cuda.synchronize()
-            compare_cycle(name, k, p)
-        # a program past the capacity the kernel once had (its own
-        # generator: the later phases' inputs stay as they were)
-        program, n_taps = oversized_cycle_program()
-        ins = cycle_inputs(program, B_CHECK, T_CHECK,
-                           np.random.default_rng(15), dev)
-        k = cycle_kernel_run(*ins, program, n_taps)
-        p = cycle_segment.interpret(*ins, program, n_taps)
-        torch.cuda.synchronize()
-        compare_cycle(f"{len(program)} instructions", k, p)
+            compare_cycle(f"{name} B={b} T={t}", k, p)
         del k, p, ins
 
         atk = envelope.gain_from_frames(50.0)
@@ -976,6 +1014,26 @@ def main() -> int:
         seq_p = envelope._seq_scan(xe, atk, rel, e0)
         torch.cuda.synchronize()
         compare_env(f"sequential B={B_CHECK} T={T_CHECK}", seq_k, seq_p)
+        # the chunked form at small chunks on a ragged T, at B = 1 with x's
+        # start not 16-byte aligned, and NaN in x
+        rng16 = np.random.default_rng(16)
+        for b, t, chunk in ((1, 5 * 1000 + 77, 1000), (B_CHECK, 3 * 4096 + 5,
+                                                        4096)):
+            flat = torch.as_tensor((rng16.standard_normal(b * t + 1) * 0.5)
+                                   .astype(np.float32), device=dev)
+            xu = flat[1:].view(b, t)                   # unaligned start
+            xu[0, t // 3] = float("nan")
+            eu = torch.as_tensor(rng16.random(b).astype(np.float32),
+                                 device=dev)
+            ck = envelope_kernel.peak_envelope_cuda(xu, atk, rel, eu,
+                                                    chunk=chunk)
+            cp = envelope._chunked_batched(xu, atk, rel, eu, chunk)
+            torch.cuda.synchronize()
+            check(torch.equal(torch.isnan(ck[0]), torch.isnan(cp[0])),
+                  f"chunked B={b} T={t}: NaN positions differ")
+            compare_env(f"chunked B={b} T={t} chunk={chunk}",
+                        tuple(torch.nan_to_num(v) for v in ck),
+                        tuple(torch.nan_to_num(v) for v in cp))
         xc = torch.as_tensor((rng5.standard_normal((B_C5, T_MAIN)) * 0.5)
                              .astype(np.float32), device=dev)
         ec0 = torch.as_tensor(rng5.random(B_C5).astype(np.float32),
@@ -1097,9 +1155,9 @@ def main() -> int:
               f"versions called {plain}")
         check(not plain, f"config5's main path called plain versions "
                          f"{plain}")
-        check(c5_launches == only_launches(chain=1, cycle=1, envelope=2),
-              f"config5 launched {c5_launches}, expected one chain (mtap) "
-              f"and one cycle launch and the two chunked envelope passes")
+        check(c5_launches == only_launches(chain=1, cycle=1, envelope=1),
+              f"config5 launched {c5_launches}, expected one chain (mtap), "
+              f"one cycle and one (chunked) envelope launch")
         check(tuple(y5.shape) == (B_C5, 1, T_MAIN),
               f"config5 output shape {tuple(y5.shape)}")
         check(bool(torch.isfinite(y5).all()), "config5 output not finite")

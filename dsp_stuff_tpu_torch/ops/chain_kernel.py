@@ -149,14 +149,6 @@ def casc_tile_consts(sections: tuple):
 
 
 @functools.lru_cache(maxsize=64)
-def _casc_device_consts(sections: tuple, device: torch.device):
-    """The cascade constants as contiguous f32 tensors on ``device``."""
-    Ltg, Wp, Ecb, ACt, N = _casc_consts(sections)
-    return tuple(torch.as_tensor(a, device=device).contiguous()
-                 for a in (Ltg, Wp, Ecb, ACt)) + (N,)
-
-
-@functools.lru_cache(maxsize=64)
 def _casc_tile_device(sections: tuple, device: torch.device):
     arr, offs, N = casc_tile_consts(sections)
     return torch.as_tensor(arr, device=device), offs, N

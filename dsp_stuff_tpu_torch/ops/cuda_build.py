@@ -6,6 +6,12 @@ keyed by a hash of the source, the shared headers (csrc/*.cuh) and the
 flags, and loaded with ``ctypes``.  Nothing is built or loaded when this
 module is imported.
 
+The cycle kernel is built once per block program: its wrapper
+(ops/cycle_kernel.py) generates a header with the program's straight-line
+block code, which the source includes (``header``: written next to the
+library and passed as ``-DKERNEL_PROGRAM_H``), as the JAX package's
+Pallas cycle kernel is traced once per program.
+
 The flags keep the kernels on the plain PyTorch versions' roundings:
 ``-fmad=false`` (no multiply-add contraction) and no ``--use_fast_math``.
 """
@@ -28,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: the kernel sources, by name
 KERNELS = ("chain_kernel", "cycle_kernel", "envelope_kernel",
            "first_order_kernel")
+#: the kernels built without a generated header
+STATIC_KERNELS = ("chain_kernel", "envelope_kernel", "first_order_kernel")
 
 
 def _nvcc() -> str:
@@ -42,55 +50,73 @@ def _nvcc() -> str:
                        "kernels in dsp_stuff_tpu_torch/csrc")
 
 
-def lib_path(name: str, defines: tuple = ()) -> pathlib.Path:
+def lib_path(name: str, defines: tuple = (),
+             header: str = "") -> pathlib.Path:
     """Where the library of kernel ``name`` (built with the preprocessor
-    ``defines``, names such as "CK_PHASES") lives once built."""
+    ``defines``, names such as "CK_PHASES", and the generated ``header``
+    text) lives once built."""
     if name not in KERNELS:
         raise ValueError(f"unknown kernel {name!r}")
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.name.encode() + hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+    h.update(header.encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(*names: str,
-          defines: tuple = ()) -> dict[str, tuple[pathlib.Path, str]]:
-    """Compile the named kernels (all of them by default) whose sources
-    changed since their last build, one ``nvcc`` each, all started
-    together, with ``-D`` for each of ``defines``.  Returns {name:
-    (library path, nvcc's output, empty when cached)}; raises if any
-    build fails."""
-    out: dict[str, tuple[pathlib.Path, str]] = {}
+def build_jobs(jobs) -> list[tuple[pathlib.Path, str]]:
+    """Compile each (name, defines, header) of ``jobs`` whose library is
+    not built yet, one ``nvcc`` each, all started together.  Returns
+    (library path, nvcc's output, empty when cached) per job; raises if
+    any build fails."""
+    out: list = [None] * len(jobs)
     running = []
-    for name in names or KERNELS:
-        lib = lib_path(name, defines)
+    for i, (name, defines, header) in enumerate(jobs):
+        lib = lib_path(name, defines, header)
         if lib.exists():
-            out[name] = (lib, "")
+            out[i] = (lib, "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        args = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+        if header:
+            hpath = lib.with_suffix(".h")
+            hpath.write_text(header)
+            args.append(f'-DKERNEL_PROGRAM_H="{hpath}"')
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I",
-             str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [*args, "-I", str(CSRC), "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running.append((name, lib, tmp, proc))
+        running.append((i, name, lib, tmp, proc))
     failed = []
-    for name, lib, tmp, proc in running:
+    for i, name, lib, tmp, proc in running:
         log, _ = proc.communicate()
         if proc.returncode:
             failed.append(f"nvcc failed to build {name}.cu "
                           f"(rc {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, lib)
-        out[name] = (lib, log)
+        out[i] = (lib, log)
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
 
 
+def build(*names: str,
+          defines: tuple = ()) -> dict[str, tuple[pathlib.Path, str]]:
+    """Compile the named kernels (by default every kernel built without a
+    generated header) whose sources changed since their last build, all
+    started together, with ``-D`` for each of ``defines``.  Returns
+    {name: (library path, nvcc's output, empty when cached)}."""
+    names = names or STATIC_KERNELS
+    return dict(zip(names, build_jobs([(n, tuple(defines), "")
+                                       for n in names])))
+
+
 @functools.lru_cache(maxsize=None)
-def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
-    """The library of kernel ``name`` built with ``defines``, built if
-    needed."""
-    return ctypes.CDLL(str(build(name, defines=defines)[name][0]))
+def load(name: str, defines: tuple = (), header: str = "") -> ctypes.CDLL:
+    """The library of kernel ``name`` built with ``defines`` and the
+    generated ``header``, built if needed."""
+    return ctypes.CDLL(str(build_jobs([(name, tuple(defines),
+                                        header)])[0][0]))

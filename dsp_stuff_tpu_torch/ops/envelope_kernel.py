@@ -7,11 +7,15 @@ T).  It is CUDA C++ for sm_90a, built by ops/cuda_build.py at first use
 and bound with ``ctypes``.  Nothing is imported, built or loaded when this
 module is imported.
 
+One launch computes either: the lane of chunk p >= 1 runs chunk p - 1
+from a zero start (pass 1, its final kept), then chunk p from that final
+(pass 2), which are _chunked_batched's operations in its order, so the
+two agree bitwise.
+
 ``peak_envelope_cuda`` takes only CUDA tensors and raises on anything the
 kernel cannot take; there is no fallback.  The plain PyTorch versions are
 ops/envelope._chunked_batched and ops/envelope._seq_scan.  ``LAUNCHES``
-counts the kernel's launches (two per chunked call, one per sequential
-call).
+counts the kernel's launches (one per call, chunked or sequential).
 """
 
 from __future__ import annotations
@@ -32,34 +36,28 @@ LAUNCHES = 0
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("envelope_kernel")
     lib.envelope_kernel_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.envelope_kernel_launch.restype = ctypes.c_int
     return lib
 
 
-def _launch(x, chunk: int, P: int, atk: float, rel: float, starts, y):
-    global LAUNCHES
-    B, T = x.shape
-    finals = torch.empty((B, P), dtype=torch.float32, device=x.device)
-    rc = _lib().envelope_kernel_launch(
-        x.data_ptr(), B, T, chunk, P, atk, rel, starts.data_ptr(),
-        finals.data_ptr(), 0 if y is None else y.data_ptr(),
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"envelope kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    return finals
+def chunks(T: int, chunk: int) -> tuple[int, int]:
+    """(chunk length, chunks P) of a [.., T] follower with ``chunk``: one
+    chunk of T when chunk >= T (the sequential follower)."""
+    return (T, 1) if chunk >= T else (chunk, -(-T // chunk))
 
 
 def peak_envelope_cuda(x: torch.Tensor, atk: float, rel: float,
                        env0: torch.Tensor, chunk: int):
     """x [B, T] f32 CUDA, contiguous; gains from envelope.gain_from_frames;
-    env0 [B] -> (env [B, T], final [B]).
+    env0 [B] -> (env [B, T], final [B], a view of env's last column).
 
-    ``chunk >= T`` runs the sequential follower (one pass); a shorter
-    chunk the two-pass chunk-parallel one."""
+    ``chunk >= T`` runs the sequential follower; a shorter chunk the
+    chunk-parallel one (each chunk's start from the previous chunk run
+    from a zero start).  One launch either way."""
+    global LAUNCHES
     if not (isinstance(x, torch.Tensor) and x.is_cuda):
         raise ValueError("envelope kernel: x must be a CUDA tensor")
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
@@ -75,14 +73,12 @@ def peak_envelope_cuda(x: torch.Tensor, atk: float, rel: float,
         raise ValueError(f"envelope kernel: env0 must be a contiguous "
                          f"float32 [{B}] tensor on {x.device}")
     atk, rel = float(np.float32(atk)), float(np.float32(rel))
+    length, P = chunks(T, chunk)
     y = torch.empty_like(x)
-    if chunk >= T:
-        fin = _launch(x, T, 1, atk, rel, env0[:, None].contiguous(), y)
-        return y, fin[:, 0]
-    P = -(-T // chunk)
-    starts = torch.zeros((B, P), dtype=torch.float32, device=x.device)
-    starts[:, 0] = env0
-    finals = _launch(x, chunk, P, atk, rel, starts, None)
-    starts2 = torch.cat([env0[:, None], finals[:, :-1]], dim=1).contiguous()
-    fin = _launch(x, chunk, P, atk, rel, starts2, y)
-    return y, fin[:, -1]
+    rc = _lib().envelope_kernel_launch(
+        x.data_ptr(), y.data_ptr(), env0.data_ptr(), B, T, length, P, atk,
+        rel, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"envelope kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return y, y[:, -1]

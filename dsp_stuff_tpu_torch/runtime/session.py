@@ -25,8 +25,9 @@ def _pad_to_block(x: torch.Tensor, block_size: int):
 
 def render(graph: Graph, inputs=None, T: int | None = None,
            block_size: int = BLOCK_SIZE, state=None, batch_shape=(),
-           device="cpu"):
-    """Render a graph offline on ``device``.
+           device="cuda"):
+    """Render a graph offline on ``device`` (the card by default; pass
+    device="cpu" for the CPU; raises RuntimeError without a CUDA device).
 
     inputs -- None, an [n_inputs, T] array or tensor, or {input_node_id: [T]}
     Returns (outputs [..., n_out, T] tensor, aux, state); trims any block

@@ -179,7 +179,7 @@ def test_jax_interpret_kernel_render_matches_port(monkeypatch):
     assert calls, "the JAX render did not reach the Pallas kernel"
 
     with tprec.policy("fast"):
-        yt, _, st = dt.compile_graph(gt).render(x, batch_shape=(B,))
+        yt, _, st = dt.compile_graph(gt, device="cpu").render(x, batch_shape=(B,))
     assert _dbfs(yt.numpy(), yj) <= Y_DB
     assert sj.keys() == st.keys()
     for k in sj:

@@ -17,6 +17,8 @@ Bounds (dBFS = 20 log10(max|err| / max|reference|)):
   chained vs one long render       <= -135
 """
 
+import re
+
 import jax
 import numpy as np
 import pytest
@@ -174,8 +176,9 @@ def _x(B, T, seed):
 
 def _render(pkg, g, x, pol, **kw):
     with pkg.policy(pol):
-        return pkg.compile_graph(g).render(x, batch_shape=(x.shape[0],),
-                                           **kw)
+        cg = (pkg.compile_graph(g, device="cpu") if pkg is dt
+              else pkg.compile_graph(g))
+        return cg.render(x, batch_shape=(x.shape[0],), **kw)
 
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
@@ -360,26 +363,30 @@ OVERSIZED = {
 @pytest.mark.parametrize("what", sorted(OVERSIZED))
 def test_kernel_refuses_oversized_program(what):
     """A program past the capacity the CUDA kernel once had runs in the
-    interpreter, and the kernel wrapper now packs it (the program lives
-    in device memory, sized from it) and refuses only the CPU tensors,
-    before anything launches."""
+    interpreter, and the kernel wrapper now generates its block code (one
+    statement group per instruction) and packs its tables (sized from it)
+    and refuses only the CPU tensors, before anything launches."""
     prog = OVERSIZED[what]
     _, _, n_r, n_t, _ = tcyc._program_counts(prog)
     x = torch.zeros((2, 256))
     regs = tuple(torch.zeros((2, 128)) for _ in range(n_r))
     taps, _, _, _ = tcyc.cycle_segment((x,), regs, (), prog, n_t)
     assert len(taps) == n_t and taps[0].shape == (2, 256)
-    records, terms, counts = tck.plan(prog)
-    assert len(records) == len(prog) and counts[2:4] == (n_r, n_t)
-    assert len(terms) == sum(len(i[1]) for i in prog if i[0] == "join")
+    counts = tck.plan(prog)
+    assert counts[2:4] == (n_r, n_t)
+    src = tck.source_for(prog, 227_000)
+    assert [ln.strip()[3:] for ln in src.splitlines()
+            if ln.strip().startswith("// ")] == [i[0] for i in prog]
     tables = {k: [] for k in tck._TABLES}
     tables.update(ext=[1], tap=[2] * n_t, reg0=[3] * n_r, reg_out=[4] * n_r)
-    buf = tck.pack_program(records, terms, n_r, tables)
+    (sec, _, _, _, total), prog_bytes = tck.placement(prog, 1, 227_000)
+    buf = tck.pack_program(n_r, tables, (sec, total))
+    assert buf.size == prog_bytes
     hdr = np.frombuffer(buf[:tck.HEADER.itemsize].tobytes(), tck.HEADER)[0]
-    assert (hdr["n_ins"], hdr["n_regs"]) == (len(prog), n_r)
-    off = int(hdr["off_ins"])
+    assert (hdr["n_regs"], hdr["n_tap"], hdr["n_ext"]) == (n_r, n_t, 1)
+    off = int(hdr["off_tap"])
     np.testing.assert_array_equal(np.frombuffer(
-        buf[off:off + records.nbytes].tobytes(), tck.INS), records)
+        buf[off:off + 8 * n_t].tobytes(), np.uint64), [2] * n_t)
     before = tck.LAUNCHES
     with pytest.raises(ValueError, match="CUDA"):
         tck.cycle_kernel_call((x,), regs, (), prog, n_t)
@@ -410,7 +417,7 @@ def test_parity_render_matches_oracle(name):
     gj, gt = _pair(name)
     x = _x(2, 2048, 6)
     y, _, _ = _render(dt, gt, x, "parity")
-    cg = dt.compile_graph(gt)
+    cg = dt.compile_graph(gt, device="cpu")
     for i in range(2):
         outs = evaluate(gj, {cg.input_ids[0]: x[i, 0]}, 2048)
         for j, nid in enumerate(cg.output_ids):
@@ -422,7 +429,7 @@ def test_chained_renders_equal_one(pol):
     _, gt = _pair("mix_loop_biquad")
     x = _x(2, 3072, 7)
     with dt.policy(pol):
-        cg = dt.compile_graph(gt)
+        cg = dt.compile_graph(gt, device="cpu")
         full, _, _ = cg.render(x, batch_shape=(2,))
         a, _, st = cg.render(x[..., :1280], batch_shape=(2,))
         b, _, _ = cg.render(x[..., 1280:], state=st, batch_shape=(2,))
@@ -436,7 +443,7 @@ def test_scan_state_continues_fused():
     the two branches share one state layout."""
     _, gt = _pair("loop")
     x = _x(2, 2048, 8)
-    cg = dt.compile_graph(gt)
+    cg = dt.compile_graph(gt, device="cpu")
     with dt.policy("fast"):
         full, _, _ = cg.render(x, batch_shape=(2,))
     with dt.policy("parity"):
@@ -486,3 +493,273 @@ def test_cycle_state_from_jax(monkeypatch):
     assert any(k.startswith("__cycle__") for k in st)
     y2, _, _ = _render(dt, gt, x[..., 1024:], "fast", state=st)
     assert _dbfs(y2.numpy(), np.asarray(yj)[..., 1024:]) <= VS_JAX_DB
+
+
+# -- the kernel's layout and schedule, modelled on the CPU -------------------
+#
+# The CUDA kernel keeps each comb's ring in a working ring of NR + 1 blocks
+# (NR = ceil(D/128)), seeded from the raw ring and written back to it, and
+# reads a cascade's constants through the packed layout of
+# cycle_kernel.cycle_casc_consts.  The models below follow the kernel's
+# index arithmetic (csrc/cycle_kernel.cu) in NumPy and are held against
+# ``interpret``.
+
+def _ring_model(hist, x, D, decay):
+    """The kernel's comb on one block program join(ext 0) -> comb -> tap
+    over the working ring: (taps [B, T], raw ring [B, NR*128])."""
+    B, T = x.shape
+    rl = -(-D // 128) * 128
+    rl2 = rl + 128
+    raw = np.zeros((B, rl), np.float32)
+    raw[:, rl - D:] = hist                  # chain_kernel._seeded_ring
+    ring = np.zeros((B, rl2), np.float32)
+    for t in range(-rl, 0):                 # the seed: t at t + rl2
+        ring[:, t + rl2] = raw[:, t + rl]
+    c = np.arange(128)
+    out = np.empty_like(x)
+    for b in range(T // 128):
+        wb = (b % (rl2 // 128)) * 128
+        rd = wb + c - D
+        rd = np.where(rd < 0, rd + rl2, rd)
+        # no slot is both read and written within the block
+        assert not set(rd) & set(wb + c)
+        y = x[:, b * 128:(b + 1) * 128] + ring[:, rd] * np.float32(decay)
+        ring[:, wb + c] = y
+        out[:, b * 128:(b + 1) * 128] = y
+    for t in range(T - rl, T):              # the write-back
+        raw[:, t % rl if t >= 0 else t + rl] = \
+            ring[:, t % rl2 if t >= 0 else t + rl2]
+    return out, raw
+
+
+@pytest.mark.parametrize("D,T", [(128, 1024), (200, 1280), (1000, 5248),
+                                 (7200, 3 * 7424 + 640), (384, 256)])
+def test_working_ring_model_matches_interpret(D, T):
+    """The working ring of NR + 1 blocks, over several wraps (and over
+    fewer blocks than the ring holds), gives interpret's taps and, written
+    back, the raw ring that ``rebuild`` turns into interpret's history."""
+    rng = np.random.default_rng(D)
+    x = (rng.standard_normal((3, T)) * 0.3).astype(np.float32)
+    hist = (rng.standard_normal((3, D)) * 0.3).astype(np.float32)
+    prog = (("join", (("ext", 0),), 1.0), ("comb", 0.45, D, 0), ("tap", 0))
+    with tprec.policy("fast"):
+        taps, _, _, hists = tcyc.interpret((torch.from_numpy(x),), (),
+                                           (torch.from_numpy(hist),), prog, 1)
+    got, raw = _ring_model(hist, x, D, 0.45)
+    np.testing.assert_array_equal(got, taps[0].numpy())
+    _, rebuilt = tcyc.rebuild(prog, T, (), (torch.from_numpy(
+        raw).view(3, -1, 128),))
+    np.testing.assert_array_equal(rebuilt[0].numpy(), hists[0].numpy())
+
+
+def test_packed_records_pin_the_kernel_layout():
+    """The records' sizes and field offsets as csrc/cycle_kernel.cu lays
+    them out (CyHeader, CyCasc, CyComb; cycle_kernel_abi packs the three
+    sizes), and the constants' layout (cycle_kernel_shape)."""
+    assert (tck.HEADER.itemsize, tck.CASC.itemsize, tck.COMB.itemsize) == \
+        (96, 48, 32)
+    offs = {n: tck.HEADER.fields[n][1] for n in tck.HEADER.names}
+    assert offs["off_ext"] == 0 and offs["off_comb"] == 40
+    assert offs["n_regs"] == 48 and offs["sm_feeds"] == 76
+    assert offs["sm_xs"] == 80
+    assert {n: tck.CASC.fields[n][1] for n in tck.CASC.names} == {
+        "consts": 0, "s0": 8, "carry_out": 16, "xlast_out": 24,
+        "sm_consts": 32, "sm_cbuf": 36, "n": 40, "pad": 44}
+    assert {n: tck.COMB.fields[n][1] for n in tck.COMB.names} == {
+        "raw": 0, "scratch": 8, "sm_ring": 16, "rl": 20, "rl2": 24,
+        "pad": 28}
+    assert (tck.NCONST, tck.FB, tck.RS, tck.WS) == (2816, 8, 168, 132)
+    assert tck.NCONST % 4 == 0 and tck.OFF_W % 4 == 0 and tck.OFF_E % 4 == 0
+
+
+def _model_consts(sections):
+    """(Ltg, W, Ecb, ACt) read back from cycle_casc_consts through the
+    kernel's indexing: column c of the product sums, over the steps m <=
+    c >> 2, X[4m + e] * R[c & 3, 128 + (c & 3) - c + 4m + e]; lane j of the
+    carry reads W^T row j."""
+    k = tck.cycle_casc_consts(sections)
+    R = k[tck.OFF_R:tck.OFF_W].reshape(4, tck.RS)
+    L = np.zeros((128, 128), np.float32)
+    for c in range(128):
+        q = c & 3
+        for m in range((c >> 2) + 1):
+            for e in range(4):
+                L[4 * m + e, c] = R[q, 128 + q - c + 4 * m + e]
+    Wt = k[tck.OFF_W:tck.OFF_E].reshape(8, tck.WS)
+    return (L, Wt[:, :128].T, k[tck.OFF_E:tck.OFF_A].reshape(8, 128),
+            k[tck.OFF_A:].reshape(8, 8))
+
+
+@pytest.mark.parametrize("sections", [
+    (("lp", 0.4),), (("gain", 0.45), ("lp", 0.4)),
+    (("bq", (-0.5, 0.1, 0.3, 0.2, 0.1)), ("hp", 0.2)),
+    (("lp", 0.2), ("hp", 0.1), ("gain", 1.3), ("lp", 0.3))])
+def test_cascade_constants_layout_reads_back(sections):
+    """The reversed, phase-shifted copies of the Toeplitz row give Ltg
+    exactly (zeros below the diagonal, the float4 reads aligned), W^T and
+    Ecb and ACt give the chain kernel's constants."""
+    from dsp_stuff_tpu_torch.ops.chain_kernel import _casc_consts
+    Ltg, Wp, Ecb, ACt, _ = _casc_consts(sections)
+    L, W, E, A = _model_consts(sections)
+    np.testing.assert_array_equal(L, Ltg)
+    np.testing.assert_array_equal(W, Wp)
+    np.testing.assert_array_equal(E, Ecb)
+    np.testing.assert_array_equal(A, ACt)
+    k = tck.cycle_casc_consts(sections)
+    R = k[tck.OFF_R:tck.OFF_W].reshape(4, tck.RS)
+    for c in range(128):
+        q = c & 3                           # 16-byte aligned R reads
+        assert (tck.OFF_R + q * tck.RS + 128 + q - c) % 4 == 0
+        # the warp's steps past this lane's diagonal read zeros
+        last = 128 + q - c + 4 * 8 * ((c >> 5) + 1) - 1
+        assert last < tck.RS and not R[q, 128 + q - c + c + 1:last + 1].any()
+
+
+def _block_of_source(src):
+    """The generated cy_block (ops/cycle_kernel.program_source) as a
+    Python function of (helpers, r): its statements translated one for
+    one, the literals read back as float32, the helpers' template
+    arguments passed first."""
+    body = []
+    for line in src.splitlines():
+        st = line.strip()
+        if not st or st.startswith(("#", "//", "__device__", "{", "}",
+                                    "float ", "CY_USE")):
+            continue
+        # a held cascade (the constants in registers) computes the same
+        st = re.sub(r"cy_cascade_held<(\d+)>\((.*), hold\)",
+                    r"cy_cascade<\1, true>(\2)", st)
+        st = re.sub(r"(-?0x[0-9a-f.]+p[+-]\d+)f",
+                    lambda m: f"F({float.fromhex(m.group(1))!r})", st)
+        st = re.sub(r"__int_as_float\((-?\d+)\)", r"I(\1)", st)
+        st = re.sub(r"(cy_\w+)<([^>]*)>\(", lambda m: "{}({}, ".format(
+            m.group(1), m.group(2).replace("true", "True").replace(
+                "false", "False")), st)
+        body.append(st.rstrip(";"))
+    code = "def cy_block(x, r):\n    f = F(0.0)\n" + "".join(
+        f"    {b}\n" for b in body)
+    env = {"F": np.float32,
+           "I": lambda i: np.array(i, np.int32).view(np.float32)[()]}
+    exec(code, env)
+    return env["cy_block"]
+
+
+def _kernel_model(exts, regs0, states, program, budget=227_000):
+    """The kernel's block walk in NumPy: the generated block code (run
+    through _block_of_source) over helpers that follow the kernel's
+    layouts: the constants through _model_consts, the double-buffered
+    carry computed from each block's input for the next block, the
+    working rings.  Returns what cycle_kernel_call returns (taps, regs,
+    per cascade (carry entering the last block, its input), raw rings)."""
+    B, T = exts[0].shape
+    K = T // 128
+    block = _block_of_source(tck.source_for(program, budget))
+    regs = [np.array(r) for r in regs0] or [np.zeros((B, 128), np.float32)]
+    si, casc, combs = 0, [], []
+    for ins in program:
+        if ins[0] == "cascade":
+            s0 = np.zeros((B, 8), np.float32)
+            s0[:, :states[si].shape[1]] = states[si]
+            casc.append([_model_consts(ins[1]), s0, None, None])
+        elif ins[0] == "comb":
+            D = ins[2]
+            rl = -(-D // 128) * 128
+            ring = np.zeros((B, rl + 128), np.float32)
+            ring[:, rl + 128 - D:] = states[si]
+            combs.append(ring)
+        si += ins[0] in ("cascade", "comb")
+    n_t = tcyc._program_counts(program)[3]
+    taps = [np.empty((B, T), np.float32) for _ in range(n_t)]
+    c = np.arange(128)
+
+    class X:
+        b = 0
+
+    def cy_feed(x, e):
+        return exts[e][:, x.b * 128:(x.b + 1) * 128]
+
+    def cy_tap(x, t, v):
+        taps[t][:, x.b * 128:(x.b + 1) * 128] = v
+
+    def cy_ew(op, x, v, *p):
+        from dsp_stuff_tpu_torch.ops.chain_kernel import EW_CODES
+        kind = EW_CODES[op]
+        n = {"overdrive": 3, "chebyshev": 2}.get(kind, 1)
+        return tcyc.apply_ew(kind, torch.from_numpy(np.ascontiguousarray(
+            v)), tuple(float(q) for q in p[:n])).numpy()
+
+    def cy_comb(D, sm, x, k, v, decay):
+        ring = combs[k]
+        rl2 = ring.shape[1]
+        wb = (x.b % (rl2 // 128)) * 128
+        rd = (wb + c - D) % rl2
+        y = (v + ring[:, rd] * decay).astype(np.float32)
+        ring[:, wb + c] = y
+        return y
+
+    def cy_cascade(N, sm, x, k, v):
+        cs = casc[k]
+        (L, W, E, A), cur = cs[0], cs[1]
+        if x.b == K - 1:
+            cs[2], cs[3] = cur.copy(), v.copy()
+        cs[1] = (v @ W + cur @ A).astype(np.float32)
+        return (v @ L + cur @ E).astype(np.float32)
+
+    helpers = {"cy_feed": cy_feed, "cy_tap": cy_tap, "cy_ew": cy_ew,
+               "cy_comb": cy_comb, "cy_cascade": cy_cascade}
+    block.__globals__.update(helpers)
+    x = X()
+    for b in range(K):
+        x.b = b
+        block(x, regs)
+    raws = []
+    for ring in combs:
+        rl2 = ring.shape[1]
+        rl = rl2 - 128
+        raw = np.empty((B, rl), np.float32)
+        for t in range(T - rl, T):
+            raw[:, t % rl] = ring[:, t % rl2]
+        raws.append(raw.reshape(B, -1, 128))
+    return (taps, regs[:len(regs0)], [(cs[2], cs[3]) for cs in casc], raws)
+
+
+@pytest.mark.parametrize("name,T", [("config5", 3 * 7424 + 640),
+                                    ("mix_loop_biquad", 2688),
+                                    ("add_reverb_gain", 1024),
+                                    ("loop", 1536), ("self_loop", 512)])
+def test_kernel_schedule_model_matches_interpret(name, T, monkeypatch):
+    """The kernel's generated block code and layouts, run block by block
+    and rebuilt by ``rebuild`` as the kernel path does, equal
+    ``interpret`` (config5's ring wraps three times with a ragged end)."""
+    program, n_taps = _program_of(name, monkeypatch)
+    _, _, n_r, _, n_e = tcyc._program_counts(program)
+    exts, regs, states = _program_inputs(program, n_e, n_r, 2, T, 12)
+    taps, regs_f, casc_raw, ring_raw = _kernel_model(exts, regs, states,
+                                                     program)
+    cinfos, hists = tcyc.rebuild(program, T, tuple(_t(c) for c in casc_raw),
+                                 _t(ring_raw))
+    with tprec.policy("fast"):
+        ref = tcyc.interpret(_t(exts), _t(regs), _t(states), program, n_taps)
+    _compare_cycle((_t(taps), _t(regs_f), cinfos, hists),
+                   jax.tree.map(lambda t: t.numpy(), ref))
+
+
+@pytest.mark.parametrize("budget,want", [
+    (227_000, "all on chip"), (30_000, "ring in device memory"),
+    (15_000, "constants and ring in device memory")])
+def test_smem_plan_places_what_fits(budget, want):
+    """config5's plan: its constants and ring stay in shared memory while
+    they fit, in program order; what does not fit goes to device memory
+    (-1); the fixed sections never exceed the budget."""
+    sec, cbuf, consts, rings, total = tck.smem_plan(1024, 1, 1, (7424,),
+                                                    budget)
+    assert sec == {"feeds": 1024, "xs": 1024 + 8 * 512}
+    assert cbuf == [sec["xs"] + 1024]
+    placed = (consts[0] >= 0, rings[0] >= 0)
+    assert placed == {"all on chip": (True, True),
+                      "ring in device memory": (True, False),
+                      "constants and ring in device memory": (False, False)
+                      }[want]
+    assert total <= budget
+    with pytest.raises(ValueError, match="shared memory"):
+        tck.smem_plan(1024, 1, 1, (7424,), 2000)

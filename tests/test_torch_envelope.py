@@ -166,3 +166,73 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tek.peak_envelope_cuda(x, 0.9, 0.99, torch.zeros(2), chunk=256)
     assert tek.LAUNCHES == before
+
+
+def _one_launch_model(x, atk, rel, env0, chunk):
+    """The envelope kernel's one-launch schedule (csrc/envelope_kernel.cu)
+    in PyTorch: one lane per (row, chunk p) walking the window
+    [(p - 1) * chunk, (p + 1) * chunk) of its row (zeros outside [0, T)),
+    from a zero start (env0 for p = 1; chunk 0 restarts from env0 where
+    its second half begins); one window of T from env0 when chunk >= T.
+    Returns (env [B, T], final [B])."""
+    B, T = x.shape
+    length, P = tek.chunks(T, chunk)
+    pre = length if P > 1 else 0
+    S = pre + length
+    lanes = torch.arange(B * P)
+    row, p = lanes // P, lanes % P
+    pos = p[:, None] * length - pre + torch.arange(S)[None, :]
+    inside = (pos >= 0) & (pos < T)
+    xw = torch.where(inside, x[row[:, None], pos.clamp(0, T - 1)],
+                     torch.zeros(()))
+    e0 = env0[row]
+    env = e0 if pre == 0 else torch.where(p == 1, e0, torch.zeros(()))
+    a = torch.tensor(atk, dtype=torch.float32)
+    r = torch.tensor(rel, dtype=torch.float32)
+    out = torch.empty((B * P, S))
+    for s in range(S):
+        if s == pre:
+            env = torch.where(p == 0, e0, env)
+        dt = torch.abs(xw[:, s])
+        env = dt + torch.where(env < dt, a, r) * (env - dt)
+        out[:, s] = env
+    y = torch.full((B, T), float("inf"))
+    keep = inside & (torch.arange(S)[None, :] >= pre)
+    y[row[:, None].expand(-1, S)[keep], pos[keep]] = out[keep]
+    return y, y[:, -1]
+
+
+@pytest.mark.parametrize("B,chunk,nan", [(1, 1000, False), (3, 1000, True),
+                                         (3, 1000, False),
+                                         (3, 32768, False),
+                                         (1, 32768, True)])
+def test_one_launch_schedule_is_bitwise_chunked(B, chunk, nan):
+    """The one-launch schedule computes _chunked_batched's very numbers
+    (the same operations in the same order) at a ragged T of several
+    chunks, NaN in x included, and every sample of y is written once."""
+    T = 2 * chunk + 1234
+    x = torch.from_numpy(_x(B, T, 20 + B, 0.7))
+    if nan:
+        x[0, chunk // 2] = float("nan")
+        x[-1, T - 3] = float("nan")
+    atk, rel = te.gain_from_frames(50.0), te.gain_from_frames(400.0)
+    e0 = torch.from_numpy(np.float32([0.3, 0.0, 1.1][:B]))
+    want, wfin = te._chunked_batched(x, atk, rel, e0, chunk)
+    got, fin = _one_launch_model(x, atk, rel, e0, chunk)
+    assert not torch.isinf(got).any()
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(fin.numpy(), wfin.numpy())
+
+
+@pytest.mark.parametrize("T,chunk", [(3000, 3000), (3000, 5000), (1, 7)])
+def test_one_launch_schedule_sequential(T, chunk):
+    """With chunk >= T the schedule is one window from env0: _seq_scan's
+    numbers, bitwise."""
+    x = torch.from_numpy(_x(3, T, 30, 0.7))
+    atk, rel = te.gain_from_frames(5.0), te.gain_from_frames(40.0)
+    e0 = torch.from_numpy(np.float32([0.0, 0.4, 1.7]))
+    want, wfin = te._seq_scan(x, atk, rel, e0)
+    got, fin = _one_launch_model(x, atk, rel, e0, chunk)
+    assert tek.chunks(T, chunk) == (T, 1)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(fin.numpy(), wfin.numpy())

@@ -67,7 +67,7 @@ def _chain_graph():
 
 def test_init_params_pytree():
     g, inp, gn, lp = _chain_graph()
-    cg = dt.compile_graph(g)
+    cg = dt.compile_graph(g, device="cpu")
     p = cg.init_params()
     assert float(p[str(gn.id)]["level"]) == 1.0
     assert float(p[str(lp.id)]["ratio"]) == pytest.approx(0.3)
@@ -83,7 +83,7 @@ def test_init_params_pytree():
 
 def test_params_override_render():
     g, inp, gn, lp = _chain_graph()
-    cg = dt.compile_graph(g)
+    cg = dt.compile_graph(g, device="cpu")
     x = np.random.default_rng(0).standard_normal(512).astype(np.float32) * 0.3
     ext = {str(inp.id): x}
     base, _, _ = cg.render(ext)
@@ -101,7 +101,7 @@ def test_reverb_seconds_is_static():
     rv = g.add("reverb", seconds=0.01, decay=0.5)
     out = g.add("output")
     g.chain(inp, rv, out)
-    cg = dt.compile_graph(g)
+    cg = dt.compile_graph(g, device="cpu")
     p = cg.init_params()
     assert "seconds" not in p[str(rv.id)]
     assert "decay" in p[str(rv.id)]
@@ -111,7 +111,7 @@ def test_fit_recovers_gain():
     """Render a target with level=2.5, fit starting from level=1.0."""
     with tprec.policy("fast"):
         g, inp, gn, lp = _chain_graph()
-        cg = dt.compile_graph(g)
+        cg = dt.compile_graph(g, device="cpu")
         rng = np.random.default_rng(1)
         x = rng.standard_normal((4, 512)).astype(np.float32) * 0.3
         ext = {str(inp.id): torch.from_numpy(x)}
@@ -135,7 +135,7 @@ def test_grad_finite_at_bypass_levels():
     out = g.add("output")
     g.chain(inp, ds, ch, out)
     with tprec.policy("fast"):
-        cg = dt.compile_graph(g)
+        cg = dt.compile_graph(g, device="cpu")
         loss = tfit.make_loss_fn(cg)
         x = np.random.default_rng(0).standard_normal((2, 256)).astype(
             np.float32) * 0.3
@@ -156,7 +156,7 @@ def test_fit_through_envelope():
     en = g.add("envelope", attack=10.0, release=60.0)
     out = g.add("output")
     g.chain(inp, gn, en, out)
-    cg = dt.compile_graph(g)
+    cg = dt.compile_graph(g, device="cpu")
     rng = np.random.default_rng(0)
     x = (rng.standard_normal(1024) * 0.5).astype(np.float32)
     ext = {str(inp.id): x}
@@ -174,7 +174,7 @@ def test_fit_through_envelope():
 
 def test_clamp_params_projects_in_place():
     g, inp, gn, lp = _chain_graph()
-    cg = dt.compile_graph(g)
+    cg = dt.compile_graph(g, device="cpu")
     p = cg.init_params(requires_grad=True)
     with torch.no_grad():
         p[str(gn.id)]["level"].fill_(12.0)
@@ -211,7 +211,7 @@ def bench():
         vg = jax.jit(jax.value_and_grad(jfit.make_loss_fn(cgj)))
         vg(cgj.init_params(), cgj.init_state(), {str(inp): x}, target)
     gt = dt.loads_graph(dj.dumps_graph(cgj.graph), ids=IdSpace())
-    return cgj, vg, dt.compile_graph(gt), str(inp), x, target
+    return cgj, vg, dt.compile_graph(gt, device="cpu"), str(inp), x, target
 
 
 def _port_params(pj, requires_grad=True):

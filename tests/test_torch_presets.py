@@ -86,7 +86,7 @@ def jax_renders():
 
 def _render_port_graph(g, x, pol, **kw):
     with dt.policy(pol):
-        return dt.compile_graph(g).render(x, batch_shape=x.shape[:-2], **kw)
+        return dt.compile_graph(g, device="cpu").render(x, batch_shape=x.shape[:-2], **kw)
 
 
 def _render_port(name, x, pol, **kw):
@@ -110,7 +110,7 @@ def test_preset_json_matches_jax(name):
 def test_config3_render_raises_not_ported():
     g, _ = tp.config3_oversampled_distortion()
     with pytest.raises(NotImplementedError, match="oversample"):
-        dt.compile_graph(g).render(np.zeros((1, 256), np.float32))
+        dt.compile_graph(g, device="cpu").render(np.zeros((1, 256), np.float32))
 
 
 @pytest.mark.parametrize("pol", POLICIES)
@@ -180,7 +180,7 @@ def test_chained_renders_equal_one(name, pol):
     g, _ = tp.PRESETS[name]()
     x = _x(seed=4)
     with dt.policy(pol):
-        cg = dt.compile_graph(g)
+        cg = dt.compile_graph(g, device="cpu")
         full, _, _ = cg.render(x, batch_shape=(B,))
         a, _, st = cg.render(x[..., :1664], batch_shape=(B,))
         b, _, _ = cg.render(x[..., 1664:], state=st, batch_shape=(B,))

@@ -149,14 +149,14 @@ def _render_jax(gj, x, pol, **kw):
 
 def _render_port(gt, x, pol, **kw):
     with dt.policy(pol):
-        return dt.compile_graph(gt).render(x, batch_shape=(x.shape[0],), **kw)
+        return dt.compile_graph(gt, device="cpu").render(x, batch_shape=(x.shape[0],), **kw)
 
 
 @pytest.mark.parametrize("pol", POLICIES)
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_render_matches_jax(name, pol):
     gj, gt = _pair(name)
-    x = _x(len(dt.compile_graph(gt).input_ids))
+    x = _x(len(dt.compile_graph(gt, device="cpu").input_ids))
     yj, auxj, sj = _render_jax(gj, x, pol)
     yt, auxt, st = _render_port(gt, x, pol)
     assert yt.shape == yj.shape
@@ -195,7 +195,7 @@ def test_planner_stage_tuples_match_jax(name, monkeypatch):
     from dsp_stuff_tpu_torch.ops import cascade as tcasc
     from dsp_stuff_tpu_torch.ops import chain_segment as tcs
     gj, gt = _pair(name)
-    x = _x(len(dt.compile_graph(gt).input_ids), length=1024)
+    x = _x(len(dt.compile_graph(gt, device="cpu").input_ids), length=1024)
     seen_j = _record(monkeypatch, jcs, jcasc)
     _render_jax(gj, x, "fast")
     seen_t = _record(monkeypatch, tcs, tcasc)
@@ -214,7 +214,7 @@ def test_parity_render_matches_oracle(name):
     import bench
     from oracle.graph import evaluate
     gj, gt = _pair(name)
-    cg = dt.compile_graph(gt)
+    cg = dt.compile_graph(gt, device="cpu")
     x = _x(len(cg.input_ids), seed=5)
     y, _, _ = _render_port(gt, x, "parity")
     for i in range(B):
@@ -234,7 +234,7 @@ def test_chained_renders_equal_one(name, pol):
     _, gt = _pair(name)
     x = _x(1, seed=6)
     with dt.policy(pol):
-        cg = dt.compile_graph(gt)
+        cg = dt.compile_graph(gt, device="cpu")
         full, _, _ = cg.render(x, batch_shape=(B,))
         a, _, st = cg.render(x[..., :1536], batch_shape=(B,))
         b, _, _ = cg.render(x[..., 1536:], state=st, batch_shape=(B,))
@@ -284,7 +284,7 @@ def test_params_from_jax_override():
     pj[lp_id]["ratio"] = np.float32(0.3)
     yj, _, _ = _render_jax(gj, x, "fast", params=pj)
     pt = convert.params_from_jax(pj, "cpu")
-    assert pt.keys() == dt.compile_graph(gt).init_params().keys()
+    assert pt.keys() == dt.compile_graph(gt, device="cpu").init_params().keys()
     yt, _, _ = _render_port(gt, x, "fast", params=pt)
     assert _dbfs(yt.numpy(), yj) <= VS_JAX_DB["fast"]
 
@@ -293,9 +293,9 @@ def test_session_render_pads_and_trims():
     _, gt = _pair("bench")
     x = _x(1, seed=10, batch=1, length=1000)[0]
     with dt.policy("fast"):
-        y, _, _ = dt.render(gt, x)
+        y, _, _ = dt.render(gt, x, device="cpu")
         padded = np.pad(x, ((0, 0), (0, 24)))
-        want, _, _ = dt.compile_graph(gt).render(padded)
+        want, _, _ = dt.compile_graph(gt, device="cpu").render(padded)
     assert y.shape == (1, 1000)
     np.testing.assert_array_equal(y.numpy(), want[..., :1000].numpy())
 
@@ -312,7 +312,7 @@ def test_feedback_graph_not_ported():
     out = g.add("output")
     g.chain(inp, gn, ds, rv, out)
     g.connect(rv, "out", gn, "in")
-    cg = dt.compile_graph(g)
+    cg = dt.compile_graph(g, device="cpu")
     for pol in POLICIES:
         with dt.policy(pol), pytest.raises(NotImplementedError,
                                            match="oversample"):
@@ -326,7 +326,7 @@ def test_oversampled_shaper_not_ported():
     out = g.add("output")
     g.chain(inp, ds, out)
     with pytest.raises(NotImplementedError, match="oversample"):
-        dt.compile_graph(g).render(np.zeros((1, 256), np.float32))
+        dt.compile_graph(g, device="cpu").render(np.zeros((1, 256), np.float32))
 
 
 def test_inputs_on_another_device_raise():
@@ -344,7 +344,7 @@ def test_inputs_on_another_device_raise():
 
 def test_broadcast_state_tiles_streams():
     _, gt = _pair("bench")
-    cg = dt.compile_graph(gt)
+    cg = dt.compile_graph(gt, device="cpu")
     st = cg.broadcast_state(cg.init_state(), (3,))
     for entry in st.values():
         for k, v in (entry or {}).items():
@@ -357,3 +357,40 @@ def test_broadcast_state_tiles_streams():
         a, _, _ = cg.render(x, batch_shape=(3,), state=st)
         b, _, _ = cg.render(x, batch_shape=(3,))
     np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("entry", ["compile_graph", "render",
+                                   "compile_graph cuda:0"])
+def test_card_is_the_default_and_raises_without_one(entry, monkeypatch):
+    """The entry points run on the card unless the caller asks for the
+    CPU: with no CUDA device (forced here, whatever the machine has) a
+    call without ``device`` raises a RuntimeError that names
+    device="cpu", before anything renders."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, gt = _pair("bench")
+    x = _x(1, seed=12, batch=1, length=256)[0]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        if entry == "compile_graph":
+            dt.compile_graph(gt)
+        elif entry == "render":
+            dt.render(gt, x)
+        else:
+            dt.compile_graph(gt, device="cuda:0")
+
+
+@pytest.mark.parametrize("entry", ["compile_graph", "render"])
+def test_cpu_on_request_still_renders(entry, monkeypatch):
+    """device="cpu" renders with no CUDA device present, through both
+    entry points, to the same samples."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, gt = _pair("bench")
+    x = _x(1, seed=13, batch=1, length=512)[0]
+    with dt.policy("fast"):
+        want, _, _ = dt.compile_graph(gt, device="cpu").render(x)
+        if entry == "compile_graph":
+            y, _, _ = dt.compile_graph(gt, device="cpu").render(x)
+        else:
+            y, _, _ = dt.render(gt, x, device="cpu")
+    assert y.device == torch.device("cpu") and y.shape == (1, 512)
+    assert bool(torch.isfinite(y).all())
+    np.testing.assert_array_equal(y.numpy(), want.numpy())

@@ -32,7 +32,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 48_000
 T = 10 * SR
-KERNELS = ("cycle_kernel", "chain_kernel", "envelope_pass")
+KERNELS = ("cycle_kernel", "chain_kernel", "envelope_kernel")
 
 
 def profile_render(cg, x, B, card):

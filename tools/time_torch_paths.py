@@ -8,14 +8,17 @@ checkout), so that two commits can be compared in one call on one card:
 unpack the other commit into a git-ignored directory (git archive) and run
 this script against each in turns (A, B, B, A).  It uses only entry points
 both sides share (chain_kernel.chain_kernel_call, cycle_kernel.
-cycle_kernel_call, compile_graph(...).render) and times with CUDA events,
+cycle_kernel_call, envelope_kernel.peak_envelope_cuda,
+compile_graph(..., device="cuda").render) and times with CUDA events,
 median of 5 after a warm-up, at 10 s of 48 kHz audio, inputs from fixed
 seeds:
 
 * the chain kernel on the bench list at B = 128 and 512;
 * the chain kernel on config5's [hp, mtap] list at B = 128;
-* the cycle kernel on config5's program at B = 128;
-* the bench chain's render at B = 512 and config5's at B = 128.
+* the cycle kernel on config5's program at B = 128 and 512;
+* the envelope kernel chunked (chunk 32768) at B = 128 and 512, and
+  sequential at B = 4 x 48,000 (config5's parity path);
+* the bench chain's render at B = 512 and config5's at B = 128 and 512.
 
 Prints one line per measurement with the root and the card's name and
 power limit.  Needs a CUDA device; imports nothing of JAX.
@@ -43,7 +46,8 @@ def main() -> int:
     import chip_smoke as cs
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.models import presets
-    from dsp_stuff_tpu_torch.ops import chain_kernel, cycle_kernel
+    from dsp_stuff_tpu_torch.ops import (chain_kernel, cycle_kernel,
+                                         envelope, envelope_kernel)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -71,13 +75,25 @@ def main() -> int:
             x, stages5, st5))
         print(f"chain kernel, config5 list, B=128: {ms:.3f} ms {tag}")
         program, n_taps = cs.cycle_program(g5)
-        ins = cs.cycle_inputs(program, 128, T, rng, dev)
-        ms = cs.cuda_ms(lambda: cycle_kernel.cycle_kernel_call(
-            *ins, program, n_taps))
-        print(f"cycle kernel, config5 program, B=128: {ms:.3f} ms {tag}")
-        del ins
+        for b in (128, 512):
+            ins = cs.cycle_inputs(program, b, T, rng, dev)
+            ms = cs.cuda_ms(lambda: cycle_kernel.cycle_kernel_call(
+                *ins, program, n_taps))
+            print(f"cycle kernel, config5 program, B={b}: {ms:.3f} ms {tag}")
+            del ins
+        atk = envelope.gain_from_frames(50.0)
+        rel = envelope.gain_from_frames(400.0)
+        for b, t, chunk, what in ((128, T, envelope._CHUNK, "chunked"),
+                                  (512, T, envelope._CHUNK, "chunked"),
+                                  (4, SR, SR, "sequential")):
+            x = x_all[:b, :t].contiguous()
+            e0 = torch.as_tensor(rng.random(b).astype(np.float32),
+                                 device=dev)
+            ms = cs.cuda_ms(lambda: envelope_kernel.peak_envelope_cuda(
+                x, atk, rel, e0, chunk=chunk))
+            print(f"envelope kernel, {what}, B={b} x {t}: {ms:.3f} ms {tag}")
         for name, graph, b in (("bench chain", cs.bench_graph(), 512),
-                               ("config5", g5, 128)):
+                               ("config5", g5, 128), ("config5", g5, 512)):
             cg = dst.compile_graph(graph, device="cuda")
             xr = x_all[:b].reshape(b, 1, T)
             ms = cs.cuda_ms(lambda: cg.render(xr, batch_shape=(b,)))
