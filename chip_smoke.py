@@ -16,9 +16,12 @@ past the capacity the kernel once had), the envelope kernel (sequential;
 chunked at small chunks on a ragged T, at one row with x's start not
 16-byte aligned and NaN in x, and at the main path's shape, each with its
 max abs difference, expected 0) and the first-order recurrence kernel
-(forward, reverse and per-sample, each also against a float64 solve, and
-its autograd Function against the float64 one).  Then it drives the
-port's main paths through ``compile_graph(..., device="cuda")``:
+(forward, reverse and per-sample, each also against a float64 solve, at
+the fitting path's shape and at edge shapes: T = 1, a tile and one sample
+either side, unaligned rows, one long row, many short rows; ten launches
+bitwise equal; and its autograd Function against the float64 one).
+Then it drives the port's main paths through ``compile_graph(...,
+device="cuda")``:
 
 * the 10-node bench chain over 512 streams x 10 s at 48 kHz, with the
   chain kernel's launch count, the NumPy oracle, the state handoff and
@@ -41,7 +44,9 @@ port's main paths through ``compile_graph(..., device="cuda")``:
 and times every kernel against its plain version (the chain kernel on
 the bench list at 1, 128, 512 and 1024 streams and on config5's list at
 128, each in turns with the plain version, which it must beat at 512 and
-128), the whole config5 render at 128 and 512 streams, and the training
+128; the first-order kernel scalar forward and per-sample reverse, beside
+``y.copy_(b)`` at the same shape as the yardstick of one read and one
+write), the whole config5 render at 128 and 512 streams, and the training
 step.  Every phase raises on failure.  Needs a CUDA device; imports
 nothing of JAX.
 
@@ -88,6 +93,10 @@ FO_F64_DB = -90.0         # first-order kernel vs the float64 solve
 FO_VS_PLAIN_DB = 6.0      # ... and at most this much worse than plain f32
 FO_GRAD_RTOL = 1e-4       # its Function's gradients vs the float64 one
 FO_COEFFS = (0.2, 0.6, 0.9, 0.99)
+FO_EDGE_COEFFS = (0.2, 0.6, 0.99)   # and 0 and 1, at the float64 bound only
+FO_FORMS = ("forward", "reverse", "per-sample forward", "per-sample reverse")
+N_DETERMINISM = 10        # first-order launches that must agree bit for bit
+N_INNER = 20              # first-order solves timed back to back
 FIT_GRAD_RTOL = 1e-3      # fitting gradients, card vs CPU port
 FIT_GRAD_ATOL = 1e-6      # ... for a gradient that is about 0
 B_FIT = 128               # the training steps' streams (x 10 s)
@@ -522,8 +531,10 @@ def bench_graph():
     return dst.loads_graph(dst.dumps_graph(g), ids=IdSpace())
 
 
-def cuda_ms(fn, n=N_TIMED):
-    """Median of n CUDA-event timings of fn(), after one warm-up call."""
+def cuda_ms(fn, n=N_TIMED, inner=1):
+    """Median of n CUDA-event timings of fn(), after one warm-up call; each
+    timing spans ``inner`` calls back to back and is divided by it (so the
+    host enqueues ahead of the card and its time per call drops out)."""
     import torch
     fn()
     times = []
@@ -531,10 +542,11 @@ def cuda_ms(fn, n=N_TIMED):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
 
 
@@ -657,11 +669,22 @@ def fo_plain(a, b, y0, reverse, dtype):
                                   reverse)
 
 
-def fo_check(a_val, form, B, T, seed, dev, vs_plain=True):
+def fo_edge_shapes():
+    """(R, T) of the first-order kernel's edge checks: T = 1, a tile and
+    one sample either side, T = 100,003 (rows not 16-byte aligned), one
+    long row, many short rows (R = 1,024, and 70,000: more than the
+    65,535 blocks a grid's y dimension takes)."""
+    from dsp_stuff_tpu_torch.ops import first_order_kernel
+    tile = first_order_kernel._lib().first_order_kernel_tile()
+    return ((3, 1), (3, tile - 1), (3, tile), (3, tile + 1), (5, 100_003),
+            (1, T_MAIN), (1024, 4097), (70_000, 64))
+
+
+def fo_check(a_val, form, B, T, seed, dev, vs_plain=True, show=True):
     """The first-order kernel and its plain f32 version, each against the
-    float64 solve; returns the largest absolute kernel - plain error.
-    ``vs_plain`` also bounds the kernel against the plain version's
-    error."""
+    float64 solve; returns (the largest absolute kernel - plain error, the
+    kernel's and the plain version's dBFS against float64).  ``vs_plain``
+    also bounds the kernel against the plain version's error."""
     import torch
     from dsp_stuff_tpu_torch.ops import first_order_kernel
     per_sample, reverse = "per-sample" in form, "reverse" in form
@@ -672,8 +695,10 @@ def fo_check(a_val, form, B, T, seed, dev, vs_plain=True):
     torch.cuda.synchronize()
     dk, dp = dbfs_dev(k, ref), dbfs_dev(p, ref)
     abs_err = float((k - p).abs().max())
-    print(f"  a={a_val:<5} {form:19s} vs f64: kernel {dk:7.1f} dBFS, plain "
-          f"f32 {dp:7.1f} dBFS; kernel - plain max abs {abs_err:.2e}")
+    if show:
+        print(f"  a={a_val:<5} {form:19s} vs f64: kernel {dk:7.1f} dBFS, "
+              f"plain f32 {dp:7.1f} dBFS; kernel - plain max abs "
+              f"{abs_err:.2e}")
     check(bool(torch.isfinite(k).all()), f"first-order {form} a={a_val}: "
                                          f"kernel output not finite")
     check(dk <= FO_F64_DB, f"first-order {form} a={a_val}: kernel {dk:.1f} "
@@ -681,7 +706,45 @@ def fo_check(a_val, form, B, T, seed, dev, vs_plain=True):
     check(not vs_plain or dk <= dp + FO_VS_PLAIN_DB,
           f"first-order {form} a={a_val}: kernel {dk:.1f} dBFS is more than "
           f"{FO_VS_PLAIN_DB} dB worse than plain f32 ({dp:.1f})")
-    return abs_err
+    return abs_err, dk, dp
+
+
+def fo_edges(dev) -> None:
+    """fo_check at every edge shape and form, a in FO_EDGE_COEFFS at both
+    bounds and a = 0 and 1 at the float64 one; one line a shape and
+    form."""
+    seed = 400
+    for B, T in fo_edge_shapes():
+        for form in FO_FORMS:
+            worst_db, worst_gap = -np.inf, -np.inf
+            for a in FO_EDGE_COEFFS + (0.0, 1.0):
+                seed += 1
+                _, dk, dp = fo_check(a, form, B, T, seed, dev,
+                                     vs_plain=a not in (0.0, 1.0), show=False)
+                worst_db = max(worst_db, dk)
+                if a not in (0.0, 1.0):
+                    worst_gap = max(worst_gap, dk - dp)
+            print(f"  [{B}, {T}] {form:19s}: kernel vs f64 worst "
+                  f"{worst_db:7.1f} dBFS (a in 0..1), at most "
+                  f"{worst_gap:+.1f} dB from plain f32")
+
+
+def fo_determinism(dev, n=N_DETERMINISM) -> None:
+    """n launches of the scalar forward and the per-sample reverse solve at
+    the fitting path's shape, each bitwise equal to the first."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import first_order_kernel
+    for form, per_sample, reverse in (("scalar forward", False, False),
+                                      ("per-sample reverse", True, True)):
+        a, b, y0 = fo_inputs(0.99, B_FIT, T_MAIN, 500, dev, per_sample)
+        first = first_order_kernel.first_order_cuda(a, b, y0, reverse)
+        same = sum(bool(torch.equal(
+            first_order_kernel.first_order_cuda(a, b, y0, reverse), first))
+            for _ in range(n - 1))
+        print(f"  {form}, [{B_FIT}, {T_MAIN}]: {same + 1} of {n} launches "
+              f"bitwise equal")
+        check(same == n - 1, f"first-order {form}: only {same + 1} of {n} "
+                             f"launches bitwise equal")
 
 
 def fo_function_check(a_val, B, T, seed, dev):
@@ -784,7 +847,8 @@ def grads_card_vs_cpu(name, graph, x_np, hidden):
 def fit_phase(dev, card) -> dict:
     """Gradient fitting on the card (train/fit.py), then the first-order
     kernel's times.  Returns the kernel's launches over the training
-    steps and its (kernel, plain) ms."""
+    steps and over the envelope graph's gradient, and its (kernel, plain)
+    ms scalar forward and per-sample reverse."""
     import torch
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.ops import first_order_kernel
@@ -875,7 +939,7 @@ def fit_phase(dev, card) -> dict:
         check(bool(torch.isfinite(loss)) and all(
             bool(torch.isfinite(v)) for v in grads.values()),
             "envelope fit: loss or gradients not finite")
-        out["launches"] += env_launches["first_order"]
+        out["launches_ps"] = env_launches["first_order"]
         del ext, target, cg
 
     # -- 13. times of the first-order kernel at the fit's shape -------------
@@ -885,12 +949,26 @@ def fit_phase(dev, card) -> dict:
         a, b, y0 = fo_inputs(0.6, B_FIT, T_MAIN, 300, dev, per_sample)
         times[name] = (
             cuda_ms(lambda: first_order_kernel.first_order_cuda(
-                a, b, y0, reverse)),
-            cuda_ms(lambda: fo_plain(a, b, y0, reverse, torch.float32)))
+                a, b, y0, reverse), inner=N_INNER),
+            cuda_ms(lambda: fo_plain(a, b, y0, reverse, torch.float32),
+                    inner=N_INNER))
+        bms, bby = bound((12.0 if per_sample else 8.0) * B_FIT * T_MAIN,
+                         2.0 * B_FIT * T_MAIN)
         print(f"first-order kernel, {name}: kernel {times[name][0]:.3f} ms, "
-              f"plain {times[name][1]:.3f} ms at B={B_FIT} x 10 s [{card}]")
+              f"plain {times[name][1]:.3f} ms ({N_INNER} solves back to back) "
+              f"at B={B_FIT} x 10 s; bound "
+              f"{bms:.3f} ms by {bby} ({bms / times[name][0]:.1%} of it) "
+              f"[{card}]")
         del a, b, y0
+    b = torch.randn((B_FIT, T_MAIN), device=dev)
+    y = torch.empty_like(b)
+    copy_ms = cuda_ms(lambda: y.copy_(b), inner=N_INNER)
+    print(f"y.copy_(b) at [{B_FIT}, {T_MAIN}] (one read and one write, a "
+          f"yardstick): {copy_ms:.3f} ms = "
+          f"{8.0 * B_FIT * T_MAIN / (copy_ms * 1e-3) / 1e9:.0f} GB/s [{card}]")
+    del b, y
     out["fo_times"] = times["scalar forward"]
+    out["fo_times_ps"] = times["per-sample reverse"]
     return out
 
 
@@ -1048,11 +1126,16 @@ def main() -> int:
 
         print(f"first-order kernel vs plain f32 vs float64, B={B_C5}, "
               f"T={T_MAIN}:")
-        rec["fo_err"] = max(
-            fo_check(a, form, B_C5, T_MAIN, 100 + i, dev)
-            for i, a in enumerate(FO_COEFFS)
-            for form in ("forward", "reverse", "per-sample forward",
-                         "per-sample reverse"))
+        errs = {form: max(fo_check(a, form, B_C5, T_MAIN, 100 + i, dev)[0]
+                          for i, a in enumerate(FO_COEFFS))
+                for form in FO_FORMS}
+        rec["fo_err"] = max(errs["forward"], errs["reverse"])
+        rec["fo_err_ps"] = max(errs["per-sample forward"],
+                               errs["per-sample reverse"])
+        print("first-order kernel at edge shapes:")
+        fo_edges(dev)
+        print(f"first-order kernel, {N_DETERMINISM} launches:")
+        fo_determinism(dev)
         rec["fo_grad_err"] = max(fo_function_check(a, B_C5, T_MAIN, 200 + i,
                                                    dev)
                                  for i, a in enumerate(FO_COEFFS))
@@ -1264,7 +1347,6 @@ def main() -> int:
     del x5
     torch.cuda.empty_cache()
     fit_rec = fit_phase(dev, card)
-    fit_launches = fit_rec["launches"]
 
     def entry(name, source, replaces, launches, err, t, bnd, lib_ms=None):
         return {"name": name, "route": "cuda",
@@ -1298,8 +1380,12 @@ def main() -> int:
               bound(8.0 * 4 * SR, 3.0 * 4 * SR)),
         entry("first_order_kernel", "first_order_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_scan.py:102",
-              fit_launches, rec["fo_err"], fit_rec["fo_times"],
+              fit_rec["launches"], rec["fo_err"], fit_rec["fo_times"],
               bound(8.0 * B_FIT * T_MAIN, 2.0 * B_FIT * T_MAIN)),
+        entry("first_order_kernel:per-sample", "first_order_kernel.cu",
+              "dsp_stuff_tpu/ops/pallas_scan.py:102",
+              fit_rec["launches_ps"], rec["fo_err_ps"], fit_rec["fo_times_ps"],
+              bound(12.0 * B_FIT * T_MAIN, 2.0 * B_FIT * T_MAIN)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

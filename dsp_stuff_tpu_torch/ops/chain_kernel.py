@@ -273,7 +273,8 @@ def _shared_operand(t, shape, dtype, dev, what: str):
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it where its start is not 16-byte aligned: the
-    kernel reads x and the mtap operands 16 bytes a lane."""
+    kernels read their inputs 16 bytes a lane (here x and the mtap
+    operands; the first-order kernel's b and a per-sample a)."""
     return t.clone() if t.data_ptr() % 16 else t
 
 

@@ -8,9 +8,10 @@ clamp) fitting the bench chain's 16 sliders under the fast policy, over
 B = 64 and 128 streams of 10 s at 48 kHz, as chip_smoke.py drives it: the
 wall time of a step (host clock around the step and a synchronize, median
 of 5 after a warm-up), its peak device memory, and from ``torch.profiler``
-over one more step the device time of the first-order kernel's three
-grid functions, of all other device work, and the largest plain ops by
-self device time; the idle share is 1 - device time / wall time.
+over one more step the device time of the first-order kernel's grid
+function (``fo_chained``), of the memsets (the first-order kernel's
+scratch among them), of all other device work, and the largest plain ops
+by self device time; the idle share is 1 - device time / wall time.
 
 Prints one line per figure with the card's name and power limit.  Needs a
 CUDA device; imports nothing of JAX.
@@ -26,7 +27,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 48_000
 T = 10 * SR
-KERNEL_NAMES = ("fo_tile_maps", "fo_carries", "fo_apply")
+KERNEL_NAMES = ("fo_chained",)
 
 
 def profile_step(B, card):
@@ -69,12 +70,14 @@ def profile_step(B, card):
     total = sum(dev_ms.values())
     fo = sum(v for k, v in dev_ms.items()
              if any(n in k for n in KERNEL_NAMES))
+    memset = sum(v for k, v in dev_ms.items() if "memset" in k.lower())
     print(f"bench chain training step, B={B} x 10 s, fast policy [{card}]")
     print(f"  wall time of a step       {wall:9.3f} ms (median of 5)")
     print(f"  peak device memory        {peak:9.3f} GiB")
     print(f"  device time, all work     {total:9.3f} ms")
     print(f"  first-order kernel        {fo:9.3f} ms  {fo / total:6.1%} of "
           f"device time")
+    print(f"  memsets                   {memset:9.3f} ms")
     print(f"  all other device work     {total - fo:9.3f} ms")
     print(f"  device idle share         {1 - total / wall:9.1%}")
     ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU

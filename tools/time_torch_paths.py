@@ -9,16 +9,23 @@ unpack the other commit into a git-ignored directory (git archive) and run
 this script against each in turns (A, B, B, A).  It uses only entry points
 both sides share (chain_kernel.chain_kernel_call, cycle_kernel.
 cycle_kernel_call, envelope_kernel.peak_envelope_cuda,
-compile_graph(..., device="cuda").render) and times with CUDA events,
-median of 5 after a warm-up, at 10 s of 48 kHz audio, inputs from fixed
-seeds:
+first_order_kernel.first_order_cuda, compile_graph(..., device="cuda")
+.render, train.fit.make_train_step) and times with CUDA events, median of
+5 after a warm-up, at 10 s of 48 kHz audio, inputs from fixed seeds:
 
 * the chain kernel on the bench list at B = 128 and 512;
 * the chain kernel on config5's [hp, mtap] list at B = 128;
 * the cycle kernel on config5's program at B = 128 and 512;
 * the envelope kernel chunked (chunk 32768) at B = 128 and 512, and
   sequential at B = 4 x 48,000 (config5's parity path);
-* the bench chain's render at B = 512 and config5's at B = 128 and 512.
+* the first-order kernel scalar forward at R = 1 and 128 and per-sample
+  reverse at R = 128 (chip_smoke.fo_inputs, a = 0.6), each timing over 20
+  solves back to back, and its device time a solve from torch.profiler
+  (every kernel and memset of the call, over 10 calls; at R = 1 the
+  back-to-back time is the host's time a call);
+* the bench chain's render at B = 512 and config5's at B = 128 and 512;
+* a training step of the bench chain's 16 sliders at B = 128 (the host
+  clock around the step and a synchronize, median of 5 after a warm-up).
 
 Prints one line per measurement with the root and the card's name and
 power limit.  Needs a CUDA device; imports nothing of JAX.
@@ -27,11 +34,47 @@ power limit.  Needs a CUDA device; imports nothing of JAX.
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 
 SR = 48_000
 T = 10 * SR
+
+
+def profiled_ms(fn, n=10):
+    """Device ms a call of fn (every kernel and memset) from torch.profiler
+    over n calls after a warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+
+
+def back_to_back_ms(fn, inner=20, n=5):
+    """Median of n CUDA-event timings of ``inner`` calls of fn() back to
+    back, a call, after a warm-up (this checkout's timer, so that both
+    roots are timed alike)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return float(np.median(times))
 
 
 def main() -> int:
@@ -47,7 +90,9 @@ def main() -> int:
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.models import presets
     from dsp_stuff_tpu_torch.ops import (chain_kernel, cycle_kernel,
-                                         envelope, envelope_kernel)
+                                         envelope, envelope_kernel,
+                                         first_order_kernel)
+    from dsp_stuff_tpu_torch.train import fit
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -92,12 +137,44 @@ def main() -> int:
             ms = cs.cuda_ms(lambda: envelope_kernel.peak_envelope_cuda(
                 x, atk, rel, e0, chunk=chunk))
             print(f"envelope kernel, {what}, B={b} x {t}: {ms:.3f} ms {tag}")
+        for b, per_sample, reverse, what in (
+                (1, False, False, "scalar forward"),
+                (128, False, False, "scalar forward"),
+                (128, True, True, "per-sample reverse")):
+            a, y, y0 = cs.fo_inputs(0.6, b, T, 7, dev, per_sample)
+            def solve():
+                return first_order_kernel.first_order_cuda(a, y, y0, reverse)
+            ms = back_to_back_ms(solve)
+            dev_ms = profiled_ms(solve)
+            print(f"first-order kernel, {what}, R={b} x {T}: {ms:.3f} ms; "
+                  f"device {dev_ms:.4f} ms a solve {tag}")
+            del a, y, y0
         for name, graph, b in (("bench chain", cs.bench_graph(), 512),
                                ("config5", g5, 128), ("config5", g5, 512)):
             cg = dst.compile_graph(graph, device="cuda")
             xr = x_all[:b].reshape(b, 1, T)
             ms = cs.cuda_ms(lambda: cg.render(xr, batch_shape=(b,)))
             print(f"{name} render, B={b}: {ms:.3f} ms {tag}")
+        del x_all
+        torch.cuda.empty_cache()
+        cg = dst.compile_graph(cs.bench_graph(), device="cuda")
+        inp = str(cg.input_ids[0])
+        gen = torch.Generator(device=dev).manual_seed(13)
+        ext = {inp: torch.randn((128, T), generator=gen, device=dev) * 0.25}
+        target = cs.render_target(cg, ext, cs.hidden_params(
+            cg, gain=("level", 2.0), low_pass=("ratio", 0.7)))
+        params = cg.init_params(requires_grad=True)
+        step, init_opt = fit.make_train_step(cg, fit.adam(0.03))
+        opt = init_opt(params)
+        state = cg.init_state()
+        secs = []
+        for _ in range(6):
+            t0 = time.time()
+            step(params, opt, state, ext, target)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+        print(f"training step (bench chain, 16 sliders), B=128: "
+              f"{np.median(secs[1:]) * 1e3:.3f} ms {tag}")
     return 0
 
 
