@@ -40,6 +40,25 @@ device="cuda")``:
   gradient at 2 x 2 s is held against the CPU port and is taken once at
   128 x 10 s (one chunked envelope launch forward, the per-sample
   first-order kernel backward);
+* config3 (4x-oversampled overdrive and Tanh distortion) over 512 streams
+  x 10 s: no kernel launched (the converters are banded matrix
+  products), stream 0 against the composed oracle with float64
+  converters, render time, peak memory and a device-time split, one 4x
+  converter beside F.conv1d of the same sums, parity at 4 x 1 s (no
+  handoff: the converters keep no state, as in the JAX package);
+* config4 (two 48,000-tap FIRs of the 1 s stereo IR, overlap-save through
+  cuFFT) over 256 streams x 10 s: streams 0 and 255 over the whole 10 s
+  against fir_reference (the warm-up cumsum, then scipy's fftconvolve in
+  float64), a 2 x 5 s handoff, render time, peak memory and the device
+  time in cuFFT, parity at 4 x 2 s (float64 cuFFT);
+* muff over 128 streams x 10 s (one first-order launch a render, no plain
+  version) and against the CPU port at 2 x 1 s; mux and demux bitwise
+  equal to the CPU port;
+* the graph fuzz: _random_graph seeds with fir, mux, demux and the
+  envelope and _random_mega_cycle_graph seeds whose cycle programs hold
+  two cascades (tests/test_torch_fuzz_gen.py), 4 streams x 1 s each on
+  the card against the CPU port, every chain segment and cycle program
+  one launch of its kernel;
 
 and times every kernel against its plain version (the chain kernel on
 the bench list at 1, 128, 512 and 1024 streams and on config5's list at
@@ -101,6 +120,14 @@ FIT_GRAD_RTOL = 1e-3      # fitting gradients, card vs CPU port
 FIT_GRAD_ATOL = 1e-6      # ... for a gradient that is about 0
 B_FIT = 128               # the training steps' streams (x 10 s)
 N_STEPS = 5
+B_C3, B_C4, B_MUFF = 512, 256, 128   # config3, config4 and muff (x 10 s)
+CARD_VS_CPU_DB = -100.0   # a render on the card vs the CPU port's
+# the card's fuzz phase: _random_graph seeds holding fir (5, 15), mux (7,
+# 15), demux (7, 13) and the envelope (13, 15); _random_mega_cycle_graph
+# seeds whose cycle programs hold two cascades each (10, 67, 76)
+FUZZ_GRAPH_SEEDS = (5, 7, 13, 15)
+FUZZ_MEGA_SEEDS = (2, 10, 67, 76)
+B_FUZZ = 4                # streams of a fuzz render (x 1 s)
 
 
 def dbfs(got, want) -> float:
@@ -346,8 +373,8 @@ def handoff(cg, x, name):
 
 def parity(graph, xp, oracle, name):
     """Render ``xp`` [B, 1, T] (NumPy) under the parity policy on the card
-    and hold each stream against ``oracle``; returns the kernel launches
-    of that render."""
+    and hold each stream against ``oracle`` (each output, where it returns
+    a list of them); returns the kernel launches of that render."""
     import torch
     import dsp_stuff_tpu_torch as dst
     with dst.policy("parity"):
@@ -356,8 +383,12 @@ def parity(graph, xp, oracle, name):
         yp, _, _ = cgp.render(xp, batch_shape=(len(xp),))
         torch.cuda.synchronize()
         launches = read_launches()
-    worst = max(dbfs(host(yp[i, 0]), oracle(xp[i, 0]))
-                for i in range(len(xp)))
+    worst = -np.inf
+    for i in range(len(xp)):
+        wants = oracle(xp[i, 0])        # one output, or a list of them
+        for j, want in enumerate(wants if isinstance(wants, list)
+                                 else [wants]):
+            worst = max(worst, dbfs(host(yp[i, j]), want))
     print(f"{name} parity, B={len(xp)} x {xp.shape[-1] / SR:g} s vs "
           f"{oracle.__name__}: {worst:.1f} dBFS, launches {launches}")
     check(worst <= PARITY_DB, f"{name} parity {worst:.1f} dBFS > "
@@ -458,6 +489,21 @@ def oracle_config5(x):
     return h([bq])
 
 
+def fir_reference(x, taps_rev):
+    """The FIR node's output (Balanced, a fresh filter) in float64, for IRs
+    too long for oracle.fir's per-sample double loop: the reference's
+    warm-up, cumsum(x[:N-1] * taps_rev[:N-1]) for g < N-1
+    (fir.rs:179-225), then the causal convolution with the un-reversed IR
+    (scipy's fftconvolve)."""
+    from scipy.signal import fftconvolve
+    x = np.asarray(x, np.float64)
+    taps = np.asarray(taps_rev, np.float64)
+    k = min(len(taps) - 1, len(x))
+    y = fftconvolve(x, taps[::-1])[:len(x)]
+    y[:k] = np.cumsum(x[:k] * taps[:k])
+    return y
+
+
 def _kernel_modules():
     from dsp_stuff_tpu_torch.ops import (chain_kernel, cycle_kernel,
                                          envelope_kernel, first_order_kernel)
@@ -482,20 +528,9 @@ def only_launches(**launches):
 
 
 @contextlib.contextmanager
-def plain_versions_counted(counts: dict, first_order: bool = False):
-    """Count calls of the kernels' plain versions while the block runs
-    (the main path on the card must call none of them).  ``first_order``
-    adds the first-order kernel's plain versions (a render calls
-    _first_order_blocked for a concrete degenerate biquad, which takes no
-    kernel in either package)."""
-    from dsp_stuff_tpu_torch.ops import (chain_segment, cycle_segment,
-                                         envelope, scan)
-    targets = [(chain_segment, "segment_fallback"),
-               (cycle_segment, "interpret"), (envelope, "_chunked_batched"),
-               (envelope, "_seq_scan")]
-    if first_order:
-        targets += [(scan, "_first_order_blocked"),
-                    (scan, "_first_order_scan")]
+def calls_counted(targets, counts: dict):
+    """Count the calls of each (module, function name) of ``targets`` into
+    ``counts`` while the block runs."""
     saved = [(m, n, getattr(m, n)) for m, n in targets]
 
     def counting(name, fn):
@@ -511,6 +546,23 @@ def plain_versions_counted(counts: dict, first_order: bool = False):
     finally:
         for m, n, fn in saved:
             setattr(m, n, fn)
+
+
+def plain_versions_counted(counts: dict, first_order: bool = False):
+    """Count calls of the kernels' plain versions while the block runs
+    (the main path on the card must call none of them).  ``first_order``
+    adds the first-order kernel's plain versions (a render calls
+    _first_order_blocked for a concrete degenerate biquad, which takes no
+    kernel in either package)."""
+    from dsp_stuff_tpu_torch.ops import (chain_segment, cycle_segment,
+                                         envelope, scan)
+    targets = [(chain_segment, "segment_fallback"),
+               (cycle_segment, "interpret"), (envelope, "_chunked_batched"),
+               (envelope, "_seq_scan")]
+    if first_order:
+        targets += [(scan, "_first_order_blocked"),
+                    (scan, "_first_order_scan")]
+    return calls_counted(targets, counts)
 
 
 def bench_graph():
@@ -972,6 +1024,431 @@ def fit_phase(dev, card) -> dict:
     return out
 
 
+# -- config3, config4, muff, mux/demux and the fuzz on the card --------------
+
+def oversampled_reference(fn, x, R):
+    """tests/oracle's oversampled (the polyphase converters as np.convolve
+    in float64, centred) with the port's own low-pass kernel, so that no
+    module of the JAX package is imported."""
+    from dsp_stuff_tpu_torch.ops.oversample import _lowpass_kernel
+    h = _lowpass_kernel(R).astype(np.float64)
+    pad = (len(h) - 1) // 2
+    T = len(x)
+    dil = np.zeros((T - 1) * R + 1, np.float64)
+    dil[::R] = x
+    xu = np.convolve(dil, h * R)[pad:pad + R * T].astype(np.float32)
+    return np.convolve(fn(xu).astype(np.float64), h)[pad::R][:T].astype(
+        np.float32)
+
+
+def oracle_config3(x):
+    """config3 composed from tests/oracle: the reference's overdrive
+    (overdrive.rs:31-43) and Tanh distortion at 4x inside the float64
+    converters, between fan-in hops (tests/test_presets.py)."""
+    import oracle
+    h = oracle.fanin_average
+    v = oversampled_reference(lambda u: oracle.overdrive(u, 8.0, 0.8, 0.9),
+                              h([x]), 4)
+    v = oversampled_reference(lambda u: oracle.tanh_clip(u, 6.0), h([v]), 4)
+    return h([v])
+
+
+def oracle_config4(taps):
+    """A function of x: config4's two outputs, each fir_reference of the
+    fan-in hop of x, through the output's hop."""
+    import oracle
+    h = oracle.fanin_average
+
+    def oracle_config4(x):
+        v = h([x])
+        return [h([fir_reference(v, t).astype(np.float32)]) for t in taps]
+    return oracle_config4
+
+
+def device_split(fn, groups):
+    """(device ms by group, device ms in all) of one call of fn() from
+    torch.profiler: each aten op's own device time goes to the first group
+    of ``groups`` ({name: op names}) that names it, else to "other"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    total = sum(e.self_device_time_total for e in avgs
+                if e.device_type == DeviceType.CUDA) / 1e3
+    out = {name: 0.0 for name in groups}
+    out["other"] = 0.0
+    for e in avgs:
+        if e.device_type != DeviceType.CPU or not e.self_device_time_total:
+            continue
+        name = next((g for g, ops in groups.items() if e.key in ops),
+                    "other")
+        out[name] += e.self_device_time_total / 1e3
+    return out, total
+
+
+def print_split(what, wall_ms, split, total, card):
+    print(f"{what}: wall {wall_ms:.3f} ms (median of {N_TIMED}), device "
+          f"{total:.3f} ms, idle {1 - total / wall_ms:.1%}; " + ", ".join(
+              f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in split.items())
+          + f" [{card}]")
+
+
+CONVERTER_OPS = {"products": ("aten::mm", "aten::bmm", "aten::addmm"),
+                 "windows": ("aten::cat", "aten::constant_pad_nd",
+                             "aten::copy_", "aten::clone")}
+FIR_OPS = {"cuFFT": ("aten::_fft_r2c", "aten::_fft_c2r"),
+           "warm-up cumsum": ("aten::cumsum",),
+           "frames": ("aten::cat", "aten::constant_pad_nd", "aten::copy_",
+                      "aten::clone")}
+
+
+def conv1d_upsampler(x, R):
+    """The polyphase upsampler of ops/oversample.py as one F.conv1d over x
+    [B, T] (R output channels, phase p's 17 taps R h[R (16 - k) + p], the
+    input padded by the 8-sample group delay each side), the phases
+    interleaved: the same sums as the banded product."""
+    import torch
+    import torch.nn.functional as F
+    from dsp_stuff_tpu_torch.ops.oversample import TAPS_PER_PHASE, \
+        _lowpass_kernel
+    h = _lowpass_kernel(R).astype(np.float64) * R
+    n = TAPS_PER_PHASE + 1
+    w = np.zeros((R, 1, n), np.float64)
+    for p in range(R):
+        for k in range(n):
+            if R * (n - 1 - k) + p < len(h):
+                w[p, 0, k] = h[R * (n - 1 - k) + p]
+    wt = torch.as_tensor(w.astype(np.float32), device=x.device)
+    B, T = x.shape
+    half = TAPS_PER_PHASE // 2
+
+    def up():
+        y = F.conv1d(F.pad(x.reshape(B, 1, T), (half, half)), wt)
+        return y.transpose(1, 2).reshape(B, R * T)
+    return up
+
+
+def config3_phase(dev, card) -> dict:
+    """config3 (4x-oversampled overdrive -> Tanh distortion) over B_C3
+    streams x 10 s through compile_graph(..., device="cuda"), fast: no
+    kernel launches (its converters are matrix products, its shapers
+    eager ops), the composed oracle on stream 0, times and peak memory,
+    one converter beside F.conv1d, then parity at 4 x 1 s.  The converters
+    keep no state, so two chained renders differ from one near the
+    boundary (tests/test_torch_presets.py pins that to the JAX package):
+    no handoff check here."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.ops import oversample
+    out = {}
+    g3, _ = presets.config3_oversampled_distortion()
+    x_np = (np.random.default_rng(31).standard_normal(
+        (B_C3, 1, T_MAIN), dtype=np.float32) * np.float32(0.25))
+    x = torch.as_tensor(x_np, device=dev)
+    with dst.policy("fast"):
+        cg = dst.compile_graph(g3, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        plain = {}
+        reset_launches()
+        t0 = time.time()
+        with plain_versions_counted(plain, first_order=True):
+            y, _, _ = cg.render(x, batch_shape=(B_C3,))
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"main path (config3): render [{B_C3}, 1, {T_MAIN}] in "
+              f"{wall:.3f} s (first call), launches {launches}, plain "
+              f"versions called {plain}; peak device memory "
+              f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
+              f"above the input) [{card}]")
+        check(not plain, f"config3 called plain versions {plain}")
+        check(launches == only_launches(),
+              f"config3 launched {launches}: its path runs no kernel")
+        check(tuple(y.shape) == (B_C3, 1, T_MAIN) and
+              bool(torch.isfinite(y).all()),
+              f"config3 output {tuple(y.shape)} not finite or misshapen")
+        d = dbfs(host(y[0, 0]), oracle_config3(x_np[0, 0]))
+        print(f"  stream 0, 10 s vs the composed oracle (float64 "
+              f"converters): {d:.1f} dBFS")
+        check(d <= ORACLE_FAST_DB, f"config3 vs oracle {d:.1f} dBFS")
+        del y
+        ms = cuda_ms(lambda: cg.render(x, batch_shape=(B_C3,)))
+        split, total = device_split(
+            lambda: cg.render(x, batch_shape=(B_C3,)), CONVERTER_OPS)
+        print_split(f"config3 render, B={B_C3} x 10 s", ms, split, total,
+                    card)
+        n = B_C3 * T_MAIN
+        bms, bby = bound(8.0 * n, 4 * 1152.0 * n)
+        print(f"config3 whole render: {ms:.3f} ms = "
+              f"{n / SR / (ms / 1e3):,.0f} audio-s/s; bound {bms:.3f} ms by "
+              f"{bby} (four converters of 1,152 FP32 operations a base-rate "
+              f"sample; a direct polyphase filter needs about 136) "
+              f"[{card}]")
+        out["render_ms"], out["peak"] = ms, peak
+
+        # one converter (the 4x upsampler) beside F.conv1d of the same sums
+        xs = x.reshape(B_C3, T_MAIN)
+        up_conv = conv1d_upsampler(xs, 4)
+        d = dbfs_dev(up_conv(), oversample.upsample(xs, 4))
+        check(d <= Y_BOUND_DB, f"F.conv1d upsampler vs upsample {d:.1f} dBFS")
+        up_ms, conv_ms = in_turns(lambda: oversample.upsample(xs, 4),
+                                  up_conv)
+        bms, bby = bound(20.0 * n, 1152.0 * n)
+        print(f"4x upsampler at [{B_C3}, {T_MAIN}]: banded product "
+              f"{up_ms:.3f} ms, F.conv1d of the same sums {conv_ms:.3f} ms "
+              f"(agree to {d:.1f} dBFS); bound {bms:.3f} ms by {bby} "
+              f"({bms / up_ms:.1%} of it) [{card}]")
+        out["up_ms"], out["conv_ms"] = up_ms, conv_ms
+        del x, xs
+        torch.cuda.empty_cache()
+    launches = parity(g3, x_np[:4, :, :SR], oracle_config3, "config3")
+    check(launches == only_launches(), f"config3 parity launched {launches}")
+    return out
+
+
+def config4_phase(dev, card) -> dict:
+    """config4 (two FIR nodes of the 1 s stereo IR, 48,000 taps each) over
+    B_C4 streams x 10 s, fast: no kernel launches (cuFFT overlap-save),
+    streams 0 and B_C4 - 1 over the whole 10 s against fir_reference, a
+    2 x 5 s handoff, times, peak memory and the device time in cuFFT, then
+    parity at 4 x 2 s (float64 cuFFT)."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.models import presets
+    out = {}
+    g4, meta = presets.config4_convolution_reverb()
+    taps = [np.asarray(g4.nodes[f].params["taps"], np.float64)
+            for f in meta["firs"]]
+    ref = oracle_config4(taps)
+    N = len(taps[0])
+    nfft = 1 << max(int(np.ceil(np.log2(2 * N))), 10)
+    frames = -(-(T_MAIN + N - 1) // (nfft - (N - 1)))
+    check(T_MAIN + N - 1 > 4 * nfft, "config4's FIR takes one transform")
+    print(f"config4: {N} taps a channel; the FIR sees {T_MAIN + N - 1} "
+          f"samples > 4 x {nfft}: overlap-save, nfft {nfft}, hop "
+          f"{nfft - (N - 1)}, {frames} frames")
+    x_np = (np.random.default_rng(41).standard_normal(
+        (B_C4, 1, T_MAIN), dtype=np.float32) * np.float32(0.25))
+    x = torch.as_tensor(x_np, device=dev)
+    with dst.policy("fast"):
+        cg = dst.compile_graph(g4, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        plain = {}
+        reset_launches()
+        t0 = time.time()
+        with plain_versions_counted(plain, first_order=True):
+            y, _, _ = cg.render(x, batch_shape=(B_C4,))
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"main path (config4): render [{B_C4}, 1, {T_MAIN}] in "
+              f"{wall:.3f} s (first call), launches {launches}, plain "
+              f"versions called {plain}; peak device memory "
+              f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
+              f"above the input) [{card}]")
+        check(not plain, f"config4 called plain versions {plain}")
+        check(launches == only_launches(),
+              f"config4 launched {launches}: its path runs no kernel")
+        check(tuple(y.shape) == (B_C4, 2, T_MAIN) and
+              bool(torch.isfinite(y).all()),
+              f"config4 output {tuple(y.shape)} not finite or misshapen")
+        for i in (0, B_C4 - 1):
+            for k, want in enumerate(ref(x_np[i, 0])):
+                d = dbfs(host(y[i, k]), want)
+                print(f"  stream {i}, output {k}, 10 s vs fir_reference: "
+                      f"{d:.1f} dBFS")
+                check(d <= ORACLE_FAST_DB, f"config4 stream {i} output {k} "
+                                           f"vs reference {d:.1f} dBFS")
+        del y
+        ms = cuda_ms(lambda: cg.render(x, batch_shape=(B_C4,)))
+        split, total = device_split(
+            lambda: cg.render(x, batch_shape=(B_C4,)), FIR_OPS)
+        print_split(f"config4 render, B={B_C4} x 10 s", ms, split, total,
+                    card)
+        n = B_C4 * T_MAIN
+        print(f"config4 whole render: {ms:.3f} ms = "
+              f"{n / SR / (ms / 1e3):,.0f} audio-s/s [{card}]")
+        out["render_ms"], out["peak"], out["fft_ms"] = ms, peak, \
+            split["cuFFT"]
+        handoff(cg, x[:B_CHECK], "config4")
+        del x
+        torch.cuda.empty_cache()
+    launches = parity(g4, x_np[:4, :, :2 * SR], ref, "config4")
+    check(launches == only_launches(), f"config4 parity launched {launches}")
+    return out
+
+
+def muff_graph():
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ids import IdSpace
+    g = dst.Graph(IdSpace())
+    inp = g.add("input")
+    mf = g.add("muff", toan=0.3, level=0.8, sustain=0.6)
+    out = g.add("output")
+    g.chain(inp, mf, out)
+    return g
+
+
+def mux_demux_graph():
+    """input -> demux (B) -> both ports of mux (B) -> output
+    (tests/test_graph.py)."""
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ids import IdSpace
+    g = dst.Graph(IdSpace())
+    inp = g.add("input")
+    dmx = g.add("demux", out_port="B")
+    mx = g.add("mux", in_port="B")
+    out = g.add("output")
+    g.connect(inp, "out", dmx, "in")
+    g.connect(dmx, "b", mx, "b")
+    g.connect(dmx, "a", mx, "a")
+    g.connect(mx, "out", out, "in")
+    return g
+
+
+def card_vs_cpu(graph, x_np, pol="fast"):
+    """(card render, CPU port render) of x_np [B, 1, T] as NumPy."""
+    import dsp_stuff_tpu_torch as dst
+    with dst.policy(pol):
+        got = {}
+        for d in ("cuda", "cpu"):
+            y, _, _ = dst.compile_graph(graph, device=d).render(
+                x_np, batch_shape=(len(x_np),))
+            got[d] = host(y)
+    return got["cuda"], got["cpu"]
+
+
+def muff_phase(dev, card) -> None:
+    """muff over B_MUFF streams x 10 s on the card, fast: its tone stack's
+    one-pole is one first-order kernel launch a render, no plain version
+    called; 2 x 1 s against the CPU port."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    g = muff_graph()
+    x_np = (np.random.default_rng(51).standard_normal(
+        (B_MUFF, 1, T_MAIN), dtype=np.float32) * np.float32(0.3))
+    x = torch.as_tensor(x_np, device=dev)
+    with dst.policy("fast"):
+        cg = dst.compile_graph(g, device="cuda")
+        torch.cuda.synchronize()
+        plain = {}
+        reset_launches()
+        with plain_versions_counted(plain, first_order=True):
+            y, _, st = cg.render(x, batch_shape=(B_MUFF,))
+            torch.cuda.synchronize()
+        launches = read_launches()
+        ms = cuda_ms(lambda: cg.render(x, batch_shape=(B_MUFF,)))
+    print(f"main path (muff): render [{B_MUFF}, 1, {T_MAIN}], launches "
+          f"{launches}, plain versions called {plain}; {ms:.3f} ms median "
+          f"of {N_TIMED} [{card}]")
+    check(not plain, f"muff called plain versions {plain}")
+    check(launches == only_launches(first_order=1),
+          f"muff launched {launches}: expected one first-order launch")
+    check(bool(torch.isfinite(y).all()), "muff output not finite")
+    gpu, cpu = card_vs_cpu(g, x_np[:2, :, :SR])
+    d = dbfs(gpu, cpu)
+    print(f"  muff, 2 x 1 s, card vs CPU port: {d:.1f} dBFS")
+    check(d <= CARD_VS_CPU_DB, f"muff card vs CPU {d:.1f} dBFS")
+    del x, y, st
+
+
+def mux_demux_phase() -> None:
+    """mux and demux on the card, bitwise equal to the CPU port."""
+    x_np = (np.random.default_rng(61).standard_normal(
+        (4, 1, SR), dtype=np.float32) * np.float32(0.3))
+    for pol in ("fast", "parity"):
+        gpu, cpu = card_vs_cpu(mux_demux_graph(), x_np, pol)
+        print(f"mux / demux, 4 x 1 s, {pol}: card vs CPU port "
+              f"{'bitwise equal' if np.array_equal(gpu, cpu) else 'DIFFER'}")
+        check(np.array_equal(gpu, cpu), f"mux/demux {pol}: card != CPU")
+
+
+def fuzz_graphs():
+    """(name, graph, input id) of the card's fuzz phase, from the port's
+    fuzz generators (tests/test_torch_fuzz_gen.py)."""
+    import test_torch_fuzz_gen as gen
+    out = [(f"_random_graph({s})", *gen._random_graph(s)[:2])
+           for s in FUZZ_GRAPH_SEEDS]
+    out += [(f"_random_mega_cycle_graph({s})",
+             *gen._random_mega_cycle_graph(s)[:2]) for s in FUZZ_MEGA_SEEDS]
+    return out
+
+
+def cycle_programs_of(graph):
+    """The block programs the planner lowers the graph's feedback SCCs to
+    under fast."""
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler.compile import _is_cycle
+    cg = dst.compile_graph(graph, device="cpu")
+    with dst.policy("fast"):
+        got = [cg._cycle_program(c, None) for c in cg._sccs
+               if _is_cycle(graph, c)]
+    return [p[0] for p in got if p is not None]
+
+
+def fuzz_phase(dev, card) -> dict:
+    """The fuzz graphs on the card against the CPU port, fast, B_FUZZ x
+    1 s: every chain segment and cycle program the evaluator calls is one
+    launch of its kernel, no plain version runs; returns the launches of
+    all the graphs."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import compile as tcompile
+    from dsp_stuff_tpu_torch.ops import chain_segment
+    rng = np.random.default_rng(71)
+    totals = only_launches()
+    worst = -np.inf
+    for name, g, inp in fuzz_graphs():
+        x_np = (rng.standard_normal((B_FUZZ, SR), dtype=np.float32)
+                * np.float32(0.25))
+        with dst.policy("fast"):
+            want, _, _ = dst.compile_graph(g, device="cpu").render(
+                {str(inp): torch.from_numpy(x_np)}, batch_shape=(B_FUZZ,))
+            cg = dst.compile_graph(g, device="cuda")
+            xd = {str(inp): torch.as_tensor(x_np, device=dev)}
+            calls, plain = {}, {}
+            reset_launches()
+            with calls_counted([(chain_segment, "chain_segment"),
+                                (tcompile, "cycle_segment")], calls), \
+                    plain_versions_counted(plain):
+                got, _, _ = cg.render(xd, batch_shape=(B_FUZZ,))
+                torch.cuda.synchronize()
+            launches = read_launches()
+        d = dbfs(host(got), host(want))
+        worst = max(worst, d)
+        kinds = sorted({n.cfg_name for n in g.nodes.values()}
+                       - {"input", "output"})
+        print(f"  {name:28s} card vs CPU port {d:7.1f} dBFS, launches "
+              f"{launches}; {kinds}")
+        check(not plain, f"fuzz {name} called plain versions {plain}")
+        check(launches["chain"] == calls.get("chain_segment", 0) and
+              launches["cycle"] == calls.get("cycle_segment", 0),
+              f"fuzz {name}: launches {launches} vs fused calls {calls}")
+        check(launches["envelope"] >= ("envelope" in kinds),
+              f"fuzz {name}: an envelope node launched no envelope kernel")
+        check(d <= CARD_VS_CPU_DB, f"fuzz {name}: card vs CPU {d:.1f} dBFS")
+        for k, v in launches.items():
+            totals[k] += v
+    print(f"fuzz on the card, {len(fuzz_graphs())} graphs, B={B_FUZZ} x 1 s: "
+          f"worst {worst:.1f} dBFS against the CPU port, launches {totals}")
+    check(all(totals[k] for k in ("chain", "cycle", "envelope")),
+          f"the fuzz graphs did not reach every kernel: {totals}")
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1003,6 +1480,10 @@ def main() -> int:
     t0 = time.time()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     cycle_programs = {name: prog for name, prog, _, _, _ in cycle_cases(n_sm)}
+    for name, g, _ in fuzz_graphs():
+        for i, prog in enumerate(cycle_programs_of(g)):
+            if prog not in cycle_programs.values():
+                cycle_programs[f"fuzz {name} #{i}"] = prog
     budget = cycle_kernel.budget_of(dev)
     jobs = [(n, (), "") for n in cuda_build.STATIC_KERNELS]
     jobs += [("cycle_kernel", (), cycle_kernel.source_for(prog, budget))
@@ -1347,6 +1828,19 @@ def main() -> int:
     del x5
     torch.cuda.empty_cache()
     fit_rec = fit_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 14. config3 and config4 at full width, muff, mux / demux ------------
+    config3_phase(dev, card)
+    torch.cuda.empty_cache()
+    config4_phase(dev, card)
+    torch.cuda.empty_cache()
+    muff_phase(dev, card)
+    mux_demux_phase()
+
+    # -- 15. the graph fuzz on the card -------------------------------------
+    print(f"fuzz graphs on the card vs the CPU port, fast, B={B_FUZZ} x 1 s:")
+    fuzz_phase(dev, card)
 
     def entry(name, source, replaces, launches, err, t, bnd, lib_ms=None):
         return {"name": name, "route": "cuda",

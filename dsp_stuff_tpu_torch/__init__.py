@@ -5,14 +5,18 @@ graph JSON, node semantics, precision policies and state handoff, with
 tensors on an explicit device and, on an NVIDIA GPU, hand-written CUDA
 kernels in place of the JAX package's Pallas TPU kernels.
 
-The port carries the bench chain (input -> gain -> biquad -> overdrive ->
-low_pass -> high_pass -> distort -> chebyshev -> reverb -> output) and the
-presets config1, config2 and config5 (models/presets.py), feedback cycles
-included, and gradient fitting of a graph's sliders (train), with four
-CUDA kernels: the chain kernel (csrc/chain_kernel.cu, with the chorus's
-mtap stage), the cycle kernel (csrc/cycle_kernel.cu), the envelope kernel
+The port carries every node type of the JAX package but pitch, the bench
+chain (input -> gain -> biquad -> overdrive -> low_pass -> high_pass ->
+distort -> chebyshev -> reverb -> output) and the five presets
+(models/presets.py: config3's oversampled shapers, ops/oversample.py;
+config4's FIR convolution reverb, ops/fir.py, with impulse responses
+loaded from WAV files by io/ir.py), feedback cycles included, and
+gradient fitting of a graph's sliders (train), with four CUDA kernels:
+the chain kernel (csrc/chain_kernel.cu, with the chorus's mtap stage),
+the cycle kernel (csrc/cycle_kernel.cu), the envelope kernel
 (csrc/envelope_kernel.cu) and the first-order recurrence kernel
-(csrc/first_order_kernel.cu, forward and backward of the fitted filters).
+(csrc/first_order_kernel.cu: the fitted filters forward and backward, and
+muff's tone stack).
 ROADMAP.md lists what is still to port.
 
 Public API:

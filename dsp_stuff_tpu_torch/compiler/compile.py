@@ -60,20 +60,29 @@ def _fanin_divisor(n: int) -> np.float32:
     return d
 
 
+@functools.lru_cache(maxsize=None)
+def _divisor_on(n: int, device: torch.device) -> torch.Tensor:
+    """The fan-in divisor of n sources as a 0-d f32 tensor on ``device``.
+    PyTorch's CUDA divide by a Python float (a host scalar) multiplies by
+    its reciprocal, 1 ulp off the reference's divide for many inputs; by
+    a device tensor it divides."""
+    return torch.tensor(float(_fanin_divisor(n)), dtype=_F32, device=device)
+
+
 def _avg(sources: list, T: int, device=None):
     """Fan-in average; returns (signal [..., T], n_connected).
 
     Sources sum in ``graph.links`` insertion order (== ascending LinkId in
     the reference, runtime.rs:118-120) as the f32 chain ``(s0+s1)+s2``,
-    then one true f32 divide (node.rs:190-192) under every policy: eager
-    torch has no divide rewrite to fence."""
+    then one true f32 divide (node.rs:190-192) under every policy, on the
+    CPU and the card alike."""
     n = len(sources)
     if n == 0:
         return torch.zeros((T,), dtype=_F32, device=device), 0
     acc = sources[0]
     for s in sources[1:]:
         acc = acc + s
-    return acc / float(_fanin_divisor(n)), n
+    return acc / _divisor_on(n, acc.device), n
 
 
 def _map_mod(sig, p: ParamSpec):

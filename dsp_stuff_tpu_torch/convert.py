@@ -4,8 +4,9 @@ Both packages key a compiled graph's state and parameters by
 ``str(node_id)``, each entry the node's own dict, with the same keys; a
 feedback SCC's previous-block outputs sit under ``__cycle__<min id>``,
 keyed ``"<node id>:<port>"``.  Lockstep counters (the reverb ring's
-``pos``, the chorus clock ``t0``) are integer scalars there and Python
-ints here.
+``pos``, the chorus clock ``t0``, the FIR's ``n_seen``) are integer
+scalars there and Python ints here; the FIR's float64 histories hold f32
+values and come across as f32.
 Graphs cross with ``dumps_graph`` / ``loads_graph``, which keep node ids.
 The JAX side hands over plain NumPy trees (``jax.tree.map(np.asarray,
 state)``); nothing here imports JAX.

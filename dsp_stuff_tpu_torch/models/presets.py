@@ -2,10 +2,7 @@
 with the port's Graph (the same JSON as dsp_stuff_tpu/models/presets.py).
 
 Each builder returns (graph, meta) where meta maps role -> node id
-("input", "outputs", ...).  config1, config2 and config5 render in the
-port; config3 builds a graph whose oversampled shapers raise "not
-ported" when rendered, and config4's FIR node raises "not ported" when
-built:
+("input", "outputs", ...).  All five render in the port:
 
 1. gain -> biquad low-pass chain (offline block render)
 2. delay/echo + chorus chain (modulated fractional taps)

@@ -1,5 +1,4 @@
-"""Filter nodes: BiQuad, LowPass, HighPass, Envelope.  Fir is
-registry.NOT_PORTED.
+"""Filter nodes: BiQuad, LowPass, HighPass, Envelope, Fir.
 
 A slider is a Python float (the graph's value: host-constant solves) or,
 from ``render(params=...)`` and the fitting path, a 0-d tensor that may
@@ -10,8 +9,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dsp_stuff_tpu_torch.registry import register_node, ParamSpec
+from dsp_stuff_tpu_torch.registry import (register_node, ParamSpec,
+                                          SelectSpec, FieldSpec)
 from dsp_stuff_tpu_torch.ops.envelope import peak_envelope
+from dsp_stuff_tpu_torch.ops.fir import fir_apply, init_fir_state
 from dsp_stuff_tpu_torch.ops.scan import first_order_affine, biquad_df1
 
 
@@ -146,3 +147,36 @@ class Envelope:
                     for v in (params["attack"], params["release"]))
         y, env = peak_envelope(inputs["in"], atk, rel, state["env"])
         return {"out": y}, {"env": env}
+
+
+@register_node(
+    title="FIR Filter", cfg_name="fir", description="Perform a FIR operation",
+    inputs=("in",), outputs=("out",),
+    params=(
+        SelectSpec("mode", ("Average", "Balanced"), "Balanced"),
+        FieldSpec("file_name", None),
+        # stored REVERSED, as the reference saves them (fir.rs:160-170);
+        # persisted inside the graph JSON (fir.rs:58-62)
+        FieldSpec("taps", (1.0,)),
+    ),
+)
+class Fir:
+    """Direct-form FIR over a loaded impulse response (fir.rs:179-225),
+    accumulated in the policy's fir_accum_dtype, with the reference's
+    warm-up quirk (see ops/fir.py).  The global sample counter ``n_seen``
+    is lockstep state, a Python int shared by every stream."""
+
+    @staticmethod
+    def init_state(cfg, block_size):
+        hist, first, n_seen = init_fir_state(len(cfg["taps"]))
+        return {"hist": hist, "first": first, "n_seen": n_seen}
+
+    @staticmethod
+    def process_seq(params, state, inputs):
+        taps_rev = np.asarray(params["taps"], np.float64)
+        divisor = np.float32(1.0 / taps_rev.size) \
+            if params["mode"] == "Average" else np.float32(1.0)
+        y, (hist, first, n_seen) = fir_apply(
+            inputs["in"], taps_rev,
+            (state["hist"], state["first"], state["n_seen"]), divisor)
+        return {"out": y}, {"hist": hist, "first": first, "n_seen": n_seen}

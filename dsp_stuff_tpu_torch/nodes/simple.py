@@ -1,11 +1,10 @@
-"""Stateless combinator nodes: Gain, Add, Mix.  Mux and Demux are
-registry.NOT_PORTED."""
+"""Stateless combinator nodes: Gain, Add, Mix, Mux, Demux."""
 
 from __future__ import annotations
 
 import torch
 
-from dsp_stuff_tpu_torch.registry import register_node, ParamSpec
+from dsp_stuff_tpu_torch.registry import register_node, ParamSpec, SelectSpec
 
 
 @register_node(
@@ -52,3 +51,36 @@ class Mix:
         r = torch.as_tensor(params["ratio"], dtype=torch.float32,
                             device=a.device)
         return {"out": inputs["b"] * r + a * (1.0 - r)}, state
+
+
+@register_node(
+    title="mux", cfg_name="mux", description="Toggle between two input signals",
+    inputs=("a", "b"), outputs=("out",),
+    params=(SelectSpec("in_port", ("A", "B"), "A"),),
+)
+class Mux:
+    """Copy the selected input (mux.rs:44-55); selection is a static param."""
+
+    @staticmethod
+    def process_seq(params, state, inputs):
+        src = inputs["a"] if params["in_port"] == "A" else inputs["b"]
+        return {"out": src}, state
+
+
+@register_node(
+    title="demux", cfg_name="demux",
+    description="Toggle between two output signals",
+    inputs=("in",), outputs=("a", "b"),
+    params=(SelectSpec("out_port", ("A", "B"), "A"),),
+)
+class Demux:
+    """Copy input to the selected output; the other output stays silent
+    (demux.rs:44-58 -- the unselected buffer is simply left zeroed)."""
+
+    @staticmethod
+    def process_seq(params, state, inputs):
+        x = inputs["in"]
+        zero = torch.zeros_like(x)
+        if params["out_port"] == "A":
+            return {"a": x, "b": zero}, state
+        return {"a": zero, "b": x}, state

@@ -7,8 +7,9 @@ decides how the ops trade accuracy against speed:
 
 * ``fast``    -- f32 everywhere, blocked Toeplitz solves for the linear
                  recurrences, fused chain segments (the GPU kernel).
-* ``parity``  -- float64 internals for the linear-recurrence solves and
-                 the transcendental shapers, node by node.  Matches the
+* ``parity``  -- float64 internals for the linear-recurrence solves, the
+                 FIR's accumulation and the transcendental shapers, node
+                 by node.  Matches the
                  Rust reference to <= -90 dBFS on supported graphs.
 
 The JAX package's third policy, ``exact`` (bit-order parity, CPU only,
@@ -38,10 +39,15 @@ class PrecisionPolicy:
     name: str
     # dtype used inside the linear-recurrence solves
     scan_internal_dtype: str = "float32"
+    # dtype of the FIR's accumulation: its convolution and warm-up sums
+    # (the reference accumulates in f64, fir.rs:204-216)
+    fir_accum_dtype: str = "float32"
 
 
-FAST = PrecisionPolicy("fast", scan_internal_dtype="float32")
-PARITY = PrecisionPolicy("parity", scan_internal_dtype="float64")
+FAST = PrecisionPolicy("fast", scan_internal_dtype="float32",
+                       fir_accum_dtype="float32")
+PARITY = PrecisionPolicy("parity", scan_internal_dtype="float64",
+                         fir_accum_dtype="float64")
 
 _POLICIES = {p.name: p for p in (FAST, PARITY)}
 

@@ -1,7 +1,8 @@
 """The port's slice as a whole: compile_graph + render of the bench chain
 against the JAX package and the NumPy oracle, the planner's stage tuples,
-the state handoff between renders and between packages, and the paths
-the port refuses.
+the state handoff between renders and between packages, the paths the
+port refuses, and the node types ported later (mux, demux, muff, the
+oversampled shapers).
 
 Bounds (dBFS = 20 log10(max|err| / max|reference|)), each with the worst
 the CPU measured:
@@ -9,6 +10,12 @@ the CPU measured:
   port parity vs the oracle   <= -113 (-118.0); the README's hard bound is -90
   chained vs one long render  <= -135 (-140.5)
   states                      atol 1e-6 (6e-7); mapped knobs rtol 1e-6
+  muff, oversampled shapers   the vs-JAX bounds above (muff -130.5 under
+                              both; oversampled fast -129.2, parity -130.3)
+  mux / demux                 bitwise, against the oracle's fan-in hops and
+                              the JAX package's parity render; the muxed
+                              graph within the bounds above (vs JAX fast
+                              -127.9, parity -128.7; vs the oracle -130.9)
 """
 
 import jax
@@ -124,8 +131,30 @@ def _modulated(g):
     g.connect(m, "out", ds, "level")
 
 
+def _muxed(g):
+    """mux and demux beside fusable nodes: a linear pair into the mux's
+    selected port, and a feedback loop mux -> overdrive -> high_pass ->
+    demux -> reverb -> back into the mux's other port."""
+    inp = g.add("input")
+    gn = g.add("gain", level=1.1)
+    lp = g.add("low_pass", ratio=0.4)
+    mx = g.add("mux", in_port="B")
+    od = g.add("overdrive", boost=3.0, drive=0.5, level=0.8)
+    hp = g.add("high_pass", ratio=0.2)
+    dmx = g.add("demux", out_port="A")
+    rv = g.add("reverb", seconds=0.004, decay=0.4)
+    out = g.add("output")
+    g.chain(inp, gn, lp)
+    g.connect(lp, "out", mx, "b")
+    g.chain(mx, od, hp, dmx)
+    g.connect(dmx, "a", rv, "in")
+    g.connect(rv, "out", mx, "a")
+    g.connect(rv, "out", out, "in")
+
+
 GRAPHS = {"bench": _bench_chain, "mixed": _mixed_chain,
-          "tapped_fanin": _tapped_fanin, "modulated": _modulated}
+          "tapped_fanin": _tapped_fanin, "modulated": _modulated,
+          "muxed": _muxed}
 
 
 def _pair(name):
@@ -300,11 +329,9 @@ def test_session_render_pads_and_trims():
     np.testing.assert_array_equal(y.numpy(), want[..., :1000].numpy())
 
 
-def test_feedback_graph_not_ported():
-    """Feedback graphs compile now; a cycle through a member that is still
-    not ported (an oversampled shaper) takes the per-node scan and raises
-    there, under both policies."""
-    g = dt.Graph(TIdSpace())
+def _oversampled_cycle(g):
+    """input -> gain -> distort(Tanh, 4x) -> reverb -> output, the reverb
+    back into the gain."""
     inp = g.add("input")
     gn = g.add("gain", level=0.5)
     ds = g.add("distort", mode="Tanh", level=2.0, oversample="4")
@@ -312,21 +339,129 @@ def test_feedback_graph_not_ported():
     out = g.add("output")
     g.chain(inp, gn, ds, rv, out)
     g.connect(rv, "out", gn, "in")
-    cg = dt.compile_graph(g, device="cpu")
-    for pol in POLICIES:
-        with dt.policy(pol), pytest.raises(NotImplementedError,
-                                           match="oversample"):
-            cg.render(np.zeros((1, 256), np.float32))
 
 
-def test_oversampled_shaper_not_ported():
-    g = dt.Graph(TIdSpace())
+def _oversampled_chain(g):
     inp = g.add("input")
     ds = g.add("distort", mode="Tanh", level=2.0, oversample="4")
     out = g.add("output")
     g.chain(inp, ds, out)
-    with pytest.raises(NotImplementedError, match="oversample"):
-        dt.compile_graph(g, device="cpu").render(np.zeros((1, 256), np.float32))
+
+
+@pytest.mark.parametrize("pol", POLICIES)
+@pytest.mark.parametrize("name", ["feedback", "chain"])
+def test_oversampled_shaper_matches_jax(name, pol):
+    """An oversampled shaper renders, alone and as a member of a feedback
+    cycle (no cycle program takes it: the per-node block scan, whose
+    converters see one 128-sample block a call), against the JAX package
+    under both policies."""
+    gj = dj.Graph(JIdSpace())
+    {"feedback": _oversampled_cycle, "chain": _oversampled_chain}[name](gj)
+    gt = dt.loads_graph(dj.dumps_graph(gj), ids=TIdSpace())
+    x = _x(1, seed=14, length=1024)
+    yj, _, _ = _render_jax(gj, x, pol)
+    yt, _, _ = _render_port(gt, x, pol)
+    assert _dbfs(yt.numpy(), yj) <= VS_JAX_DB[pol]
+
+
+def test_mux_demux():
+    """demux (out B) -> both ports of mux (in B), as tests/test_graph.py
+    holds the JAX package: three fan-in hops of the input; the unselected
+    outputs are zeros on the input's device."""
+    import oracle
+    g = dt.Graph(TIdSpace())
+    inp = g.add("input")
+    dmx = g.add("demux", out_port="B")
+    mx = g.add("mux", in_port="B")
+    out = g.add("output")
+    g.connect(inp, "out", dmx, "in")
+    g.connect(dmx, "b", mx, "b")
+    g.connect(dmx, "a", mx, "a")
+    g.connect(mx, "out", out, "in")
+    x = _x(1, seed=15, batch=1, length=512)[0, 0]
+    for pol in POLICIES:
+        with dt.policy(pol):
+            y, _, _ = dt.render(g, x[None], device="cpu")
+        h = oracle.fanin_average
+        np.testing.assert_array_equal(y[0].numpy(), h([h([h([x])])]))
+    # (the JAX package's fast fan-in multiplies by the reciprocal)
+    yj, _, _ = _render_jax(dj.loads_graph(dt.dumps_graph(g)),
+                           x[None, None], "parity")
+    np.testing.assert_array_equal(y[0].numpy(), yj[0, 0])
+    from dsp_stuff_tpu_torch.nodes.simple import Demux
+    outs, _ = Demux.process_seq({"out_port": "A"}, None,
+                                {"in": torch.ones(3)})
+    assert torch.equal(outs["b"], torch.zeros(3))
+    assert outs["b"].device == outs["a"].device
+
+
+def _muff_graph(pkg, ids, **params):
+    g = pkg.Graph(ids)
+    inp = g.add("input")
+    mf = g.add("muff", **params)
+    out = g.add("output")
+    g.chain(inp, mf, out)
+    return g
+
+
+MUFF_KNOBS = [dict(toan=0.5, level=0.5, sustain=0.5),
+              dict(toan=0.0, level=1.0, sustain=0.2),
+              dict(toan=0.9, level=0.3, sustain=1.0)]
+
+
+@pytest.mark.parametrize("pol", POLICIES)
+@pytest.mark.parametrize("knobs", range(len(MUFF_KNOBS)))
+def test_muff_matches_jax(knobs, pol):
+    """Muff (the JAX package's license-clean model; no reference parity is
+    claimed) against the JAX package, chained across two renders, its
+    one-pole state carried."""
+    kw = MUFF_KNOBS[knobs]
+    gj = _muff_graph(dj, JIdSpace(), **kw)
+    gt = _muff_graph(dt, TIdSpace(), **kw)
+    assert dt.dumps_graph(gt) == dj.dumps_graph(gj)
+    x = _x(1, seed=16 + knobs, length=1024)
+    yj, _, sj = _render_jax(gj, x, pol)
+    yt, _, st = _render_port(gt, x, pol)
+    assert _dbfs(yt.numpy(), yj) <= VS_JAX_DB[pol]
+    _compare_states(st, sj)
+    a, _, st = _render_port(gt, x[..., :512], pol)
+    b, _, _ = _render_port(gt, x[..., 512:], pol, state=st)
+    assert _dbfs(torch.cat([a, b], -1).numpy(), yt.numpy()) <= HANDOFF_DB
+
+
+def test_mux_demux_stay_per_node():
+    """As in the JAX planner, neither mux nor demux joins a chain segment,
+    a linear run or a cycle program: the loop through them takes the
+    per-node block scan under fast."""
+    _, gt = _pair("muxed")
+    cg = dt.compile_graph(gt, device="cpu")
+    kinds = {n.id: n.cfg_name for n in gt.nodes.values()}
+    planned = [n for run in cg._mega_plan + cg._fusion_plan for n in run]
+    assert [kinds[n] for n in planned] == ["gain", "low_pass"]
+    (comp,) = [c for c in cg._sccs if len(c) > 1]
+    assert {kinds[n] for n in comp} == {"mux", "overdrive", "high_pass",
+                                         "demux", "reverb"}
+    with dt.policy("fast"):
+        assert cg._cycle_program(comp, None) is None
+
+
+def test_muff_level_is_linear():
+    """As tests/test_graph.py holds the JAX package: the knobs change the
+    output, and level 1.0 doubles level 0.5's output exactly."""
+    x = _x(1, seed=19, batch=1, length=1024)[0]
+
+    def run(**kw):
+        with dt.policy("fast"):
+            y, _, _ = dt.render(_muff_graph(dt, TIdSpace(), **kw), x,
+                                device="cpu")
+        return y[0].numpy()
+    base = run(toan=0.5, level=0.5, sustain=0.5)
+    assert np.isfinite(base).all() and np.abs(base).max() > 1e-4
+    for other in (run(toan=0.0, level=0.5, sustain=0.5),
+                  run(toan=0.5, level=0.5, sustain=1.0)):
+        assert not np.allclose(base, other)
+    np.testing.assert_allclose(run(toan=0.5, level=1.0, sustain=0.5),
+                               base * 2.0, rtol=1e-5, atol=1e-7)
 
 
 def test_inputs_on_another_device_raise():

@@ -23,7 +23,10 @@ first_order_kernel.first_order_cuda, compile_graph(..., device="cuda")
   solves back to back, and its device time a solve from torch.profiler
   (every kernel and memset of the call, over 10 calls; at R = 1 the
   back-to-back time is the host's time a call);
-* the bench chain's render at B = 512 and config5's at B = 128 and 512;
+* the bench chain's render at B = 512, config5's at B = 128 and 512,
+  config3's (4x-oversampled overdrive and distortion) at B = 512 and
+  config4's (two 48,000-tap FIRs, the 1 s stereo IR) at B = 256; a root
+  whose port cannot build or render a preset prints why instead;
 * a training step of the bench chain's 16 sliders at B = 128 (the host
   clock around the step and a synchronize, median of 5 after a warm-up).
 
@@ -155,6 +158,19 @@ def main() -> int:
             xr = x_all[:b].reshape(b, 1, T)
             ms = cs.cuda_ms(lambda: cg.render(xr, batch_shape=(b,)))
             print(f"{name} render, B={b}: {ms:.3f} ms {tag}")
+        for name, b in (("config3", 512), ("config4", 256)):
+            try:
+                cg = dst.compile_graph(presets.PRESETS[name]()[0],
+                                       device="cuda")
+                xr = x_all[:b].reshape(b, 1, T)
+                ms = cs.cuda_ms(lambda: cg.render(xr, batch_shape=(b,)))
+            except (KeyError, NotImplementedError) as e:
+                # an older root that has not ported the preset's nodes
+                print(f"{name} render, B={b}: not rendered ({e}) {tag}")
+                continue
+            print(f"{name} render, B={b}: {ms:.3f} ms {tag}")
+            del cg
+            torch.cuda.empty_cache()
         del x_all
         torch.cuda.empty_cache()
         cg = dst.compile_graph(cs.bench_graph(), device="cuda")
