@@ -59,6 +59,17 @@ device="cuda")``:
   two cascades (tests/test_torch_fuzz_gen.py), 4 streams x 1 s each on
   the card against the CPU port, every chain segment and cycle program
   one launch of its kernel;
+* the runtime: the signal generator's, soft clip's and the spectrogram's
+  divides bitwise against the CPU port; each kernel at the stream's
+  shapes, one row of one and of two 128-sample blocks, against its plain
+  version; StreamSession over the bench chain (10 s) and config5 (3 s) in
+  128-sample process() blocks, each block one launch of each kernel of its
+  path, against the card's one render and the CPU port's session, with
+  process_many in chunks bitwise equal to process(), per-block wall times
+  and one block's launches and copies by torch.profiler; the ring API
+  (capture chunks, 44.1 kHz stereo reads, resync); the CLI render of
+  examples/graphs/config5.json in a subprocess, bitwise the in-process
+  render_file; a checkpoint resume; the pitch node; and debug_render;
 
 and times every kernel against its plain version (the chain kernel on
 the bench list at 1, 128, 512 and 1024 streams and on config5's list at
@@ -128,6 +139,17 @@ CARD_VS_CPU_DB = -100.0   # a render on the card vs the CPU port's
 FUZZ_GRAPH_SEEDS = (5, 7, 13, 15)
 FUZZ_MEGA_SEEDS = (2, 10, 67, 76)
 B_FUZZ = 4                # streams of a fuzz render (x 1 s)
+# the runtime phase: StreamSession in 128-sample blocks, the bench chain
+# over 10 s, config5 over 3 s (a block of config5 takes about 13 ms of host
+# time: 10 s of it four times over would double the smoke run)
+STREAM_C5_SAMPLES = 3 * SR
+STREAM_CHUNKS = (5, 375)  # process_many chunks, in blocks
+STREAM_DB = -90.0         # streamed vs the card's one render (the JAX bound)
+STREAM_CPU_DB = -100.0    # streamed on the card vs on the CPU, first second
+LFO_FAST_ATOL = 4e-7      # config5's LFO under fast: CUDA's sinf vs the CPU's
+PITCH_HZ_ATOL = 0.5       # a 440 Hz tone's detected pitch on the card
+PITCH_RTOL = 1e-4         # ... and against the CPU port's
+RUNTIME_DIR = os.path.join(ROOT, "build", "smoke_runtime")   # WAVs, files
 
 
 def dbfs(got, want) -> float:
@@ -1449,6 +1471,464 @@ def fuzz_phase(dev, card) -> dict:
     return totals
 
 
+# -- the runtime on the card ---------------------------------------------------
+
+def same_on_both(what, pairs) -> None:
+    """Each (card tensor, CPU tensor) pair bitwise equal."""
+    import torch
+    ok = all(torch.equal(k.cpu(), c) for k, c in pairs)
+    print(f"  {what}: card vs CPU port {'bitwise equal' if ok else 'DIFFER'}")
+    check(ok, f"{what}: card != CPU port")
+
+
+def divide_checks(dev) -> None:
+    """The three divides that are true f32 divides on the card (a divisor
+    on the device; by a Python float CUDA multiplies by the reciprocal),
+    bitwise against the CPU port: the signal generator's phase step
+    (Triangle and Square at 997 Hz, 4 streams x 10 s, fast and parity),
+    config5's LFO (its phase under both policies and its waveform under
+    parity, an f64 sine rounded once; under fast CUDA's sinf rounds
+    otherwise than the CPU's sin, within LFO_FAST_ATOL), soft clip over
+    1e6 inputs, and the spectrogram's tilt of 1 s of magnitudes (the whole
+    spectrogram within CARD_VS_CPU_DB: cuFFT and the interpolation's
+    product sum in another order than the CPU)."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.ops import fftspec, gen, shaping
+    g5, meta5 = presets.config5_feedback_16node()
+    lfo = next(n for n in g5.nodes.values() if n.cfg_name == "signal_gen")
+    mode, freq, amp = (lfo.params[k] for k in ("mode", "frequency",
+                                               "amplitude"))
+    rng = np.random.default_rng(81)
+    xs = torch.from_numpy((rng.standard_normal(1_000_000) * 1.5)
+                          .astype(np.float32))
+    f997 = torch.full((4, T_MAIN), 997.0)
+    for pol in ("fast", "parity"):
+        with dst.policy(pol):
+            for wave in ("Triangle", "Square"):
+                same_on_both(f"signal_gen {wave} 997 Hz, 4 x 10 s, {pol}",
+                             zip(gen.oscillator(wave, 0.8, f997.to(dev),
+                                                T_MAIN),
+                                 gen.oscillator(wave, 0.8, f997, T_MAIN)))
+            same_on_both(f"config5 LFO phase ({mode} {freq} Hz), 10 s, {pol}",
+                         zip(gen._block_totals(freq, T_MAIN, 128, SR, 0.0,
+                                               dev),
+                             gen._block_totals(freq, T_MAIN, 128, SR, 0.0,
+                                               "cpu")))
+            yk, _ = gen.oscillator(mode, amp, freq, T_MAIN, device=dev)
+            yc, _ = gen.oscillator(mode, amp, freq, T_MAIN, device="cpu")
+            if pol == "parity":
+                same_on_both(f"config5 LFO waveform, 10 s, {pol}",
+                             [(yk, yc)])
+            else:
+                err = float((yk.cpu() - yc).abs().max())
+                print(f"  config5 LFO waveform, 10 s, {pol}: card vs CPU "
+                      f"port max abs {err:.2e} (sinf)")
+                check(err <= LFO_FAST_ATOL, f"config5 LFO {pol}: {err:.2e}")
+            same_on_both(f"soft clip, 1e6 inputs, {pol}",
+                         [(shaping.soft_clip(xs.to(dev), 1.3),
+                           shaping.soft_clip(xs, 1.3))])
+    spec = next(n for n in g5.nodes.values() if n.cfg_name == "spectrogram")
+    fft = int(spec.params["fft_size"])
+    lo, hi = float(spec.params["lower_bound"]), float(spec.params["upper_bound"])
+    x1 = torch.from_numpy((rng.standard_normal(SR) * 0.3).astype(np.float32))
+    freqs, keep = fftspec._kept_bins(fft, lo, hi, SR)
+    frames = x1[:SR // fft * fft].reshape(-1, fft)
+    win = torch.from_numpy(np.hanning(fft).astype(np.float32))
+    mag = (torch.abs(torch.fft.rfft(frames * win, dim=-1)) / fft)[..., keep]
+    same_on_both("spectrogram tilt, 1 s of magnitudes",
+                 [(fftspec.tilt(mag.to(dev), freqs[keep]),
+                   fftspec.tilt(mag, freqs[keep]))])
+    _, ck = fftspec.spectrogram(x1.to(dev), fft, lo, hi)
+    _, cc = fftspec.spectrogram(x1, fft, lo, hi)
+    d = dbfs(host(ck), host(cc))
+    print(f"  spectrogram of 1 s: card vs CPU port {d:.1f} dBFS (cuFFT)")
+    check(d <= CARD_VS_CPU_DB, f"spectrogram card vs CPU {d:.1f} dBFS")
+
+
+def stream_kernel_checks(dev) -> None:
+    """Each kernel of the stream's path at one row of one 128-sample block
+    and of two (block_size 256) against its plain version, at the kernel
+    checks' limits: the chain kernel (a tile of 64 blocks holding one or
+    two) on the bench list and config5's mtap list, the cycle kernel on
+    config5's program (the feed staging with one or two blocks), the
+    sequential envelope kernel, the first-order kernel scalar forward (one
+    ragged tile), also against float64."""
+    import torch
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.ops import (chain_segment, cycle_segment,
+                                         envelope, envelope_kernel,
+                                         first_order_kernel)
+    rng = np.random.default_rng(91)
+    program, n_taps = cycle_program(presets.config5_feedback_16node()[0])
+    lists = {"bench": (bench_stages(), ()),
+             "mtap config5": mtap_lists()["mtap config5"]}
+    atk = envelope.gain_from_frames(50.0)
+    rel = envelope.gain_from_frames(400.0)
+    seed = 900
+    for T in (128, 256):
+        for name, (stages, lfos) in lists.items():
+            x = torch.as_tensor((rng.standard_normal((1, T)) * 0.3)
+                                .astype(np.float32), device=dev)
+            st = seeded_states(stages, 1, rng, dev, T=T, lfos=lfos)
+            k = kernel_segment(x, stages, st)
+            p = chain_segment.segment_fallback(x, stages, st)
+            torch.cuda.synchronize()
+            compare(f"chain {name} [1, {T}]", k, p)
+        ins = cycle_inputs(program, 1, T, rng, dev)
+        k = cycle_kernel_run(*ins, program, n_taps)
+        p = cycle_segment.interpret(*ins, program, n_taps)
+        torch.cuda.synchronize()
+        compare_cycle(f"cycle config5 [1, {T}]", k, p)
+        xe = torch.as_tensor((rng.standard_normal((1, T)) * 0.5)
+                             .astype(np.float32), device=dev)
+        e0 = torch.as_tensor(rng.random(1).astype(np.float32), device=dev)
+        k = envelope_kernel.peak_envelope_cuda(xe, atk, rel, e0, chunk=T)
+        p = envelope._seq_scan(xe, atk, rel, e0)
+        torch.cuda.synchronize()
+        compare_env(f"envelope sequential [1, {T}]", k, p)
+        worst = -np.inf
+        for a in FO_COEFFS:
+            seed += 1
+            fo_check(a, "forward", 1, T, seed, dev, show=False)
+            a_, b_, y0_ = fo_inputs(a, 1, T, seed, dev, False)
+            k = first_order_kernel.first_order_cuda(a_, b_, y0_, False)
+            worst = max(worst, dbfs_dev(k, fo_plain(a_, b_, y0_, False,
+                                                    torch.float32)))
+        print(f"  first-order forward [1, {T}]    y {worst:8.1f} dBFS vs plain "
+              f"(a in {FO_COEFFS}; vs f64 <= {FO_F64_DB})")
+        check(worst <= Y_BOUND_DB, f"first-order [1, {T}]: {worst:.1f} dBFS")
+
+
+def profile_block(sess, block) -> dict:
+    """What one process() call puts on the card, by torch.profiler: kernels,
+    host-to-device and device-to-host copies, memsets, their device time
+    and the call's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sess.process(block)                      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.process(block)
+        wall = time.perf_counter() - t0
+    out = {"kernels": 0, "h2d": 0, "d2h": 0, "memset": 0, "device_us": 0.0,
+           "wall_us": wall * 1e6}
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n = e.name
+        if n.startswith("Memcpy HtoD"):
+            out["h2d"] += 1
+        elif n.startswith("Memcpy DtoH"):
+            out["d2h"] += 1
+        elif n.startswith("Memset"):
+            out["memset"] += 1
+        elif not n.startswith("Memcpy"):
+            out["kernels"] += 1
+            names[n[:60]] = names.get(n[:60], 0) + 1
+        out["device_us"] += e.device_time_total if hasattr(
+            e, "device_time_total") else e.cuda_time_total
+    out["top"] = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+    return out
+
+
+def stream_run(name, graph, x_np, dev, card, expect) -> dict:
+    """StreamSession on the card over x_np in 128-sample process() blocks
+    under fast: every block launches ``expect`` and no
+    plain version; against the card's one render of x_np (STREAM_DB) and
+    the CPU port's session over the first second (STREAM_CPU_DB);
+    process_many in chunks of STREAM_CHUNKS blocks and in one call bitwise
+    equal to process(); no kernel built on the way (a feedback program's
+    text holds no T: the stream runs the render's build); per-block wall
+    times, process_many's real-time factor, and one block's copies and
+    launches by the profiler."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import cuda_build
+    builds = set(cuda_build.BUILD_DIR.glob("*.so"))
+    n = len(x_np) // 128
+    blocks = x_np.reshape(n, 128)
+    rec = {"name": name}
+    with dst.policy("fast"):
+        sess = dst.StreamSession(graph, device="cuda")
+        key = str(sess.cg.input_ids[0])
+        out = np.empty(n * 128, np.float32)
+        times = np.empty(n)
+        plain, bad = {}, []
+        torch.cuda.synchronize()
+        reset_launches()
+        prev = read_launches()
+        with plain_versions_counted(plain):
+            for j in range(n):
+                t0 = time.perf_counter()
+                y = sess.process({key: blocks[j]})
+                times[j] = time.perf_counter() - t0
+                out[j * 128:(j + 1) * 128] = y[0]
+                now = read_launches()
+                delta = {k: now[k] - prev[k] for k in now}
+                if delta != expect:
+                    bad.append((j, delta))
+                prev = now
+        total = read_launches()
+        check(not plain, f"{name} stream called plain versions {plain}")
+        check(not bad, f"{name} stream: blocks launched other than {expect}: "
+                       f"{bad[:3]} ({len(bad)} blocks)")
+        check(bool(np.isfinite(out).all()), f"{name} stream not finite")
+        want, _, _ = dst.compile_graph(graph, device="cuda").render(
+            {key: torch.as_tensor(x_np, device=dev)})
+        rec["vs_render_db"] = dbfs(out, host(want[0]))
+        cpu = dst.StreamSession(graph, device="cpu")
+        cpu_out = np.concatenate([cpu.process({key: blocks[j]})[0]
+                                  for j in range(SR // 128)])
+        rec["vs_cpu_db"] = dbfs(out[:cpu_out.size], cpu_out)
+        for c in STREAM_CHUNKS:
+            s2 = dst.StreamSession(graph, device="cuda")
+            got = np.concatenate([
+                s2.process_many({key: x_np[i * 128:(i + c) * 128]})[0]
+                for i in range(0, n, c)])
+            check(np.array_equal(got, out),
+                  f"{name}: process_many in chunks of {c} != process()")
+        s3 = dst.StreamSession(graph, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = s3.process_many({key: x_np})[0]
+        rec["many_ms"] = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(got, out),
+              f"{name}: process_many in one call != process()")
+        rec["profile"] = profile_block(s3, {key: blocks[0]})
+    new = set(cuda_build.BUILD_DIR.glob("*.so")) - builds
+    check(not new, f"{name} stream built kernels {sorted(new)}")
+    ms = times * 1e3
+    rec.update(first_ms=float(ms[0]), median_ms=float(np.median(ms[1:])),
+               p99_ms=float(np.percentile(ms[1:], 99)),
+               launches={k: v / n for k, v in total.items()})
+    rtf = (n * 128 / SR) / (rec["many_ms"] / 1e3)
+    pr = rec["profile"]
+    print(f"StreamSession ({name}), {n} process() blocks of 128 = "
+          f"{n * 128 / SR:g} s, fast [{card}]:")
+    print(f"  vs the card's one render {rec['vs_render_db']:.1f} dBFS (<= "
+          f"{STREAM_DB}); vs the CPU port's session, first second "
+          f"{rec['vs_cpu_db']:.1f} dBFS (<= {STREAM_CPU_DB})")
+    print(f"  process_many in chunks of {STREAM_CHUNKS} blocks and in one "
+          f"call: bitwise equal to process()")
+    print(f"  launches a block {rec['launches']}, no plain version called, "
+          f"no kernel built (the render's builds serve the stream)")
+    print(f"  process() wall a block: first {rec['first_ms']:.3f} ms, then "
+          f"median {rec['median_ms']:.3f} ms, p99 {rec['p99_ms']:.3f} ms "
+          f"(a block lasts {128 / SR * 1e3:.3f} ms at 48 kHz)")
+    print(f"  process_many of {n} blocks in one call: {rec['many_ms']:.1f} ms "
+          f"= {rtf:.2f}x real time")
+    print(f"  one process() by torch.profiler: {pr['kernels']} kernels, "
+          f"{pr['h2d']} host-to-device copies, {pr['d2h']} device-to-host, "
+          f"{pr['memset']} memsets, device busy {pr['device_us']:.1f} us of "
+          f"{pr['wall_us']:.1f} us wall; most launched: {pr['top']}")
+    check(rec["vs_render_db"] <= STREAM_DB,
+          f"{name} stream vs render {rec['vs_render_db']:.1f} dBFS")
+    check(rec["vs_cpu_db"] <= STREAM_CPU_DB,
+          f"{name} stream card vs CPU {rec['vs_cpu_db']:.1f} dBFS")
+    return rec
+
+
+def ring_check(graph) -> None:
+    """The ring API on the card: 1 s of a 220 Hz tone fed in irregular
+    64-400-sample capture chunks (examples/streaming.py), pumped, and
+    drained at 44.1 kHz stereo; then resync.  Each read is as long as
+    asked and finite, an underrun is silence, resync empties the input
+    rings and arms the catch-up counter."""
+    import dsp_stuff_tpu_torch as dst
+    with dst.policy("fast"):
+        sess = dst.StreamSession(graph, device="cuda")
+        inp, out = sess.cg.input_ids[0], sess.cg.output_ids[0]
+        rng = np.random.default_rng(0)
+        sig = (np.sin(2 * np.pi * 220.0 * np.arange(SR) / SR) * 0.5
+               ).astype(np.float32)
+        pos, n_dev, reads, silent = 0, 200, 0, 0
+        while pos < SR:
+            k = int(rng.integers(64, 400))
+            sess.feed(inp, sig[pos:pos + k])
+            pos += k
+            while sess.pump():
+                pass
+            rs = sess._resamplers.get((out, 44_100))
+            short = rs is not None and (sess.out_rings[out].readable
+                                        < rs.input_needed(n_dev))
+            y = sess.drain_output(out, n_dev, device_rate=44_100, stereo=True)
+            check(y.shape == (2 * n_dev,) and bool(np.isfinite(y).all()),
+                  f"ring read {reads}: shape {y.shape} or not finite")
+            check(not short or not y.any(), "an underrun was not silent")
+            reads += 1
+            silent += int(not y.any())
+        sess.feed(inp, sig[:100])
+        sess.resync()
+        check(all(r.readable == 0 for r in sess.in_rings.values())
+              and sess._catchup[out] == 5, "resync left input or no catch-up")
+    print(f"ring API on the card: {pos} samples fed in 64-400-sample chunks, "
+          f"{reads} reads of {n_dev} stereo frames at 44.1 kHz ({silent} "
+          f"silent underruns), resync drained the input rings")
+
+
+def cli_check(dev, card) -> None:
+    """render_file and ``python -m dsp_stuff_tpu_torch render`` of config5
+    over a 10 s noise WAV on the card (a subprocess; the kernels are built
+    by the earlier phases, so its time holds no nvcc): the WAV bitwise the
+    in-process render_file's, also with --out-rate 44100 --stereo; nodes
+    and inspect exit 0."""
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.io import native, wav as wav_io
+    os.makedirs(RUNTIME_DIR, exist_ok=True)
+    g_json = os.path.join(ROOT, "examples", "graphs", "config5.json")
+    in_wav = os.path.join(RUNTIME_DIR, "noise_10s.wav")
+    wav_io.write_wav(in_wav, (np.random.default_rng(101).standard_normal(
+        T_MAIN) * 0.3).astype(np.float32))
+    print("host library: " + ("built from native/dsp_host.cpp" if
+                              native.available() else
+                              "not built: the NumPy ring and resampler"))
+    for extra, kw in (((), {}), (("--out-rate", "44100", "--stereo"),
+                                 {"out_rate": 44_100, "stereo_out": True})):
+        out_wav = os.path.join(RUNTIME_DIR, f"cli_{len(extra)}.wav")
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-m", "dsp_stuff_tpu_torch",
+                            "render", g_json, "--in", in_wav, "--out",
+                            out_wav, "--policy", "fast", *extra], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        check(r.returncode == 0, f"CLI render {extra} exit {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+        data, rate = wav_io.read_wav(out_wav)
+        with dst.policy("fast"):
+            t0 = time.time()
+            want, _ = dst.render_file(g_json, in_wav, device="cuda", **kw)
+            t_in = time.time() - t0
+        print(f"CLI render config5 10 s {' '.join(extra) or '(48 kHz mono)'}"
+              f": exit 0 in {wall:.2f} s wall (a new process; nvcc not "
+              f"included), {data.shape} at {rate} Hz, bitwise the in-process "
+              f"render_file's ({t_in:.2f} s) [{card}]; "
+              f"{r.stdout.strip().splitlines()[0]}")
+        check(np.array_equal(data, want), f"CLI render {extra} != render_file")
+    for args in (["nodes"], ["inspect", g_json]):
+        r = subprocess.run([sys.executable, "-m", "dsp_stuff_tpu_torch",
+                            *args], cwd=ROOT, capture_output=True, text=True,
+                           timeout=300)
+        check(r.returncode == 0, f"CLI {args[0]} exit {r.returncode}")
+    print("CLI nodes and inspect: exit 0")
+
+
+def checkpoint_check(dev) -> None:
+    """config5 over 4 streams: 5 s rendered, its state saved, loaded on the
+    card, 5 s more, against one 10 s render (HANDOFF_DB)."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.models import presets
+    g5, _ = presets.config5_feedback_16node()
+    x = torch.as_tensor((np.random.default_rng(111).standard_normal(
+        (4, 1, T_MAIN)) * 0.3).astype(np.float32), device=dev)
+    half = T_MAIN // 2
+    path = os.path.join(RUNTIME_DIR, "config5_5s.npz")
+    with dst.policy("fast"):
+        cg = dst.compile_graph(g5, device="cuda")
+        full, _, _ = cg.render(x, batch_shape=(4,))
+        a, _, st = cg.render(x[..., :half].contiguous(), batch_shape=(4,))
+        dst.save_checkpoint(path, g5, state=st, meta={"t": half})
+        g2, st2, _, meta = dst.load_checkpoint(path, device="cuda")
+        b, _, _ = dst.compile_graph(g2, device="cuda").render(
+            x[..., half:].contiguous(), state=st2, batch_shape=(4,))
+    d = dbfs(host(torch.cat([a, b], dim=-1)), host(full))
+    print(f"checkpoint on the card: config5, 4 x 5 s, saved, loaded, 5 s more "
+          f"vs one 10 s render: {d:.1f} dBFS (meta {meta})")
+    check(d <= HANDOFF_DB, f"checkpoint resume {d:.1f} dBFS")
+
+
+def pitch_check(dev) -> None:
+    """A 440 Hz tone (4 streams x 1 s, four phases) through a pitch node on
+    the card: every window voiced, within PITCH_HZ_ATOL, note "A 4";
+    against the CPU port, voicing equal and frequency within PITCH_RTOL."""
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ids import IdSpace
+    from dsp_stuff_tpu_torch.ops.pitch_mpm import note_name
+    g = dst.Graph(IdSpace())
+    inp = g.add("input")
+    pt = g.add("pitch")
+    g.connect(inp, "out", pt, "in")
+    t = np.arange(SR) / SR
+    x = np.stack([0.5 * np.sin(2 * np.pi * 440.0 * t + ph)
+                  for ph in (0.0, 0.7, 1.9, 3.0)]).astype(np.float32)[:, None]
+    res = {}
+    for d in ("cuda", "cpu"):
+        _, aux, _ = dst.compile_graph(g, device=d).render(x, batch_shape=(4,))
+        res[d] = {k: v.cpu().numpy() for k, v in aux[f"pitch:{pt.id}"].items()}
+    k, c = res["cuda"], res["cpu"]
+    err = float(np.abs(k["frequency"] - 440.0).max())
+    names = {note_name(nr) for nr in k["note_nr"].ravel()}
+    rel = float(np.abs(k["frequency"] / c["frequency"] - 1.0).max())
+    print(f"pitch on the card, 4 x 1 s at 440 Hz: {k['voiced'].sum()} of "
+          f"{k['voiced'].size} windows voiced, max |f - 440| {err:.3f} Hz, "
+          f"notes {sorted(names)}; vs the CPU port: voicing "
+          f"{'equal' if np.array_equal(k['voiced'], c['voiced']) else 'DIFFERS'}"
+          f", frequency within {rel:.1e}")
+    check(bool(k["voiced"].all()), "pitch: a window unvoiced")
+    check(err <= PITCH_HZ_ATOL, f"pitch off by {err:.3f} Hz")
+    check(names == {"A 4"}, f"pitch notes {names}")
+    check(np.array_equal(k["voiced"], c["voiced"]), "pitch voicing differs")
+    check(rel <= PITCH_RTOL, f"pitch card vs CPU {rel:.1e}")
+
+
+def debug_check(card) -> None:
+    """debug_render of config5 over 1 s of noise on the card: every node
+    with an output reported, no NaN or Inf; the slowest nodes."""
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.utils import obs
+    g5, _ = presets.config5_feedback_16node()
+    x = (np.random.default_rng(121).standard_normal((1, SR)) * 0.3
+         ).astype(np.float32)
+    t0 = time.time()
+    with dst.policy("fast"):
+        outs, report = obs.debug_render(g5, x, device="cuda")
+    wall = time.time() - t0
+    want = {nid for nid, n in g5.nodes.items() if n.spec.outputs}
+    got = {r["node"] for r in report}
+    bad = [r for r in report if r["nan"] or r["inf"]]
+    slow = sorted(report, key=lambda r: -r["ms"])[:3]
+    print(f"debug_render(config5, device=\"cuda\"), 1 s: {len(got)} of "
+          f"{len(want)} nodes with outputs reported, {len(bad)} with NaN or "
+          f"Inf, {wall:.2f} s; slowest "
+          f"{[(r['cfg'], round(r['ms'], 2)) for r in slow]} ms [{card}]")
+    check(got == want, f"debug_render reported {sorted(got)}, not "
+                       f"{sorted(want)}")
+    check(not bad and bool(np.isfinite(outs).all()),
+          f"debug_render NaN or Inf: {bad}")
+
+
+def runtime_phase(dev, card) -> dict:
+    """The runtime on the card: the divides, the kernels at the stream's
+    shapes, StreamSession over the bench chain and config5, the ring API,
+    render_file and the CLI, checkpoints, pitch and debug_render."""
+    from dsp_stuff_tpu_torch.models import presets
+    print("true f32 divides, card vs CPU port:")
+    divide_checks(dev)
+    print("kernels at the stream's shapes vs plain:")
+    stream_kernel_checks(dev)
+    rng = np.random.default_rng(131)
+    g5 = presets.config5_feedback_16node()[0]
+    recs = {}
+    for name, g, T, expect in (
+            ("bench chain", bench_graph(), T_MAIN, only_launches(chain=1)),
+            ("config5", g5, STREAM_C5_SAMPLES,
+             only_launches(chain=1, cycle=1, envelope=1))):
+        x = (rng.standard_normal(T) * 0.3).astype(np.float32)
+        recs[name] = stream_run(name, g, x, dev, card, expect)
+    ring_check(g5)
+    cli_check(dev, card)
+    checkpoint_check(dev)
+    pitch_check(dev)
+    debug_check(card)
+    return recs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1841,6 +2321,10 @@ def main() -> int:
     # -- 15. the graph fuzz on the card -------------------------------------
     print(f"fuzz graphs on the card vs the CPU port, fast, B={B_FUZZ} x 1 s:")
     fuzz_phase(dev, card)
+
+    # -- 16. the runtime on the card ----------------------------------------
+    torch.cuda.empty_cache()
+    runtime_phase(dev, card)
 
     def entry(name, source, replaces, launches, err, t, bnd, lib_ms=None):
         return {"name": name, "route": "cuda",

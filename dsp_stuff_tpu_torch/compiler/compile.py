@@ -48,6 +48,16 @@ from dsp_stuff_tpu_torch.utils import precision
 
 EXTERNAL = "__external__"
 
+# Optional per-node instrumentation hook: when set to a callable
+# (node_id, cfg_name, outs_dict) it is invoked after every node evaluation
+# (utils/obs.debug_render uses it for per-node stats; the reference's
+# analog is #[tracing::instrument] on process(), e.g. gain.rs:26).  While
+# it is set the fused paths (chain segments, linear runs, cycle programs)
+# stand down, so every node reports; in a feedback SCC it fires once per
+# node and block, with the block's values.  None (the default) costs
+# nothing.
+NODE_HOOK = None
+
 _F32 = torch.float32
 
 
@@ -60,13 +70,10 @@ def _fanin_divisor(n: int) -> np.float32:
     return d
 
 
-@functools.lru_cache(maxsize=None)
 def _divisor_on(n: int, device: torch.device) -> torch.Tensor:
-    """The fan-in divisor of n sources as a 0-d f32 tensor on ``device``.
-    PyTorch's CUDA divide by a Python float (a host scalar) multiplies by
-    its reciprocal, 1 ulp off the reference's divide for many inputs; by
-    a device tensor it divides."""
-    return torch.tensor(float(_fanin_divisor(n)), dtype=_F32, device=device)
+    """The fan-in divisor of n sources as a 0-d f32 tensor on ``device``
+    (a true f32 divide on the card, precision.scalar_on)."""
+    return precision.scalar_on(float(_fanin_divisor(n)), device)
 
 
 def _avg(sources: list, T: int, device=None):
@@ -737,7 +744,8 @@ class CompiledGraph:
         """(head id -> (run, stages, specs, head_single, out_fold, tapped),
         non-head member ids) for the mega runs this render fuses: fast
         policy only."""
-        if not self._mega_plan or precision.get_policy().name != "fast":
+        if (not self._mega_plan or NODE_HOOK is not None
+                or precision.get_policy().name != "fast"):
             return {}, set()
         heads: dict[int, tuple] = {}
         interior: set = set()
@@ -797,7 +805,8 @@ class CompiledGraph:
     def _active_fusion(self, pdict):
         """(head id -> (run, sections, emits, tapped), non-head member ids)
         for the linear runs this render fuses: fast policy only."""
-        if not self._fusion_plan or precision.get_policy().name != "fast":
+        if (not self._fusion_plan or NODE_HOOK is not None
+                or precision.get_policy().name != "fast"):
             return {}, set()
         heads: dict[int, tuple] = {}
         interior: set = set()
@@ -1042,7 +1051,8 @@ class CompiledGraph:
         B = self.block_size
         ckey = _cycle_key(comp)
         planned = (self._cycle_program(comp, pdict)
-                   if precision.get_policy().name == "fast" else None)
+                   if NODE_HOOK is None
+                   and precision.get_policy().name == "fast" else None)
         if planned is not None:
             program, ext_keys, reg_ports, tap_ports, cspecs = planned
             regs0 = tuple(state[ckey][f"{nid}:{port}"]
@@ -1117,6 +1127,8 @@ class CompiledGraph:
                 params = self._resolve_params(node, in_sigs, pdict)
                 outs, st[str(nid)] = _call_block(node.spec.impl, params,
                                                  st[str(nid)], inputs, B)
+                if NODE_HOOK is not None:
+                    NODE_HOOK(nid, node.cfg_name, outs)
                 for port in node.spec.outputs:
                     cur[(nid, port)] = outs[port]
             # members a fused run skipped without emitting: nothing reads
@@ -1183,6 +1195,8 @@ class CompiledGraph:
             params = self._resolve_params(node, in_sigs, pdict)
             outs, state[str(nid)] = _call(impl, params, state[str(nid)],
                                           inputs, T, self.block_size)
+            if NODE_HOOK is not None:
+                NODE_HOOK(nid, node.cfg_name, outs)
             for port in node.spec.outputs:
                 values[(nid, port)] = outs[port]
 

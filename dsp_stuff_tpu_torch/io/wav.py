@@ -4,8 +4,10 @@ The offline analog of the reference's cpal device layer (devices.rs):
 sample-format conversion to/from internal f32, and the capture-path
 channel handling -- mono passes through, stereo is *summed* (not averaged)
 to mono (devices.rs:254, quirk SURVEY.md 2.4 #10).  RIFF parsing in
-NumPy (PCM 8/16/24/32 and IEEE float32/64), no external decoders: the
-JAX package's semantic definition, without its native fast path.
+NumPy (PCM 8/16/24/32 and IEEE float32/64), no external decoders.  When
+the host library (io/native.py, native/dsp_host.cpp) is built, it takes
+over the decode and encode; the NumPy path here is the fallback and the
+semantic definition, and gives the same samples.
 """
 
 from __future__ import annotations
@@ -18,7 +20,15 @@ SAMPLE_RATE = 48_000
 
 
 def read_wav(path: str):
-    """Returns (data [channels, T] float32 in [-1, 1], sample_rate)."""
+    """Returns (data [channels, T] float32 in [-1, 1], sample_rate).  Uses
+    the host library's decoder when it is built."""
+    from dsp_stuff_tpu_torch.io import native
+    if native.available():
+        return native.wav_read(path)
+    return _read_wav_py(path)
+
+
+def _read_wav_py(path: str):
     with open(path, "rb") as f:
         riff = f.read(12)
         if riff[:4] != b"RIFF" or riff[8:12] != b"WAVE":
@@ -67,7 +77,16 @@ def read_wav(path: str):
 
 def write_wav(path: str, data, sample_rate: int = SAMPLE_RATE,
               float_format: bool = True):
-    """data: [T] or [channels, T] float32; IEEE float32 or 16-bit PCM."""
+    """data: [T] or [channels, T] float32; IEEE float32 or 16-bit PCM.
+    Uses the host library's encoder when it is built."""
+    from dsp_stuff_tpu_torch.io import native
+    if native.available():
+        return native.wav_write(path, data, sample_rate, float_format)
+    return _write_wav_py(path, data, sample_rate, float_format)
+
+
+def _write_wav_py(path: str, data, sample_rate: int = SAMPLE_RATE,
+                  float_format: bool = True):
     data = np.asarray(data, np.float32)
     if data.ndim == 1:
         data = data[None]

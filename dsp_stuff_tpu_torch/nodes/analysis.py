@@ -1,5 +1,4 @@
-"""Analysis sink nodes: Wave View and Spectrogram.  Pitch is
-registry.NOT_PORTED.
+"""Analysis sink nodes: Wave View, Spectrogram and Pitch.
 
 In the reference these draw into the egui UI; offline they return arrays,
 collected into the compiled graph's ``aux`` under ``"<cfg_name>:<node_id>"``.
@@ -7,8 +6,9 @@ collected into the compiled graph's ``aux`` under ``"<cfg_name>:<node_id>"``.
 
 from __future__ import annotations
 
-from dsp_stuff_tpu_torch.registry import register_node, FieldSpec
+from dsp_stuff_tpu_torch.registry import register_node, FieldSpec, ParamSpec
 from dsp_stuff_tpu_torch.ops.fftspec import spectrogram
+from dsp_stuff_tpu_torch.ops.pitch_mpm import detect_pitch
 
 
 @register_node(
@@ -59,3 +59,29 @@ class Spectrogram:
         # n == 0 keeps none (a plain [-0:] slice would keep everything)
         n = int(params["buffer_size"])
         return {"columns": cols[..., -n:, :] if n > 0 else cols[..., :0, :]}
+
+
+@register_node(
+    title="Pitch Detector", cfg_name="pitch",
+    description="Display the peak pitch of a signal",
+    inputs=("in",), is_sink=True,
+    params=(
+        ParamSpec("power_thresh", 0.0, 1.0, 0.5),
+        ParamSpec("clarity_thresh", 0.0, 1.0, 0.5),
+        ParamSpec("pick_thresh", 0.0, 1.0, 0.5),
+    ),
+)
+class Pitch:
+    """McLeod pitch detection over 1024-sample windows (pitch.rs:115-147)."""
+
+    @staticmethod
+    def process_seq(params, state, inputs):
+        return {}, state
+
+    @staticmethod
+    def analyze(params, inputs):
+        return detect_pitch(
+            inputs["in"],
+            power_threshold=float(params["power_thresh"]),
+            clarity_threshold=float(params["clarity_thresh"]),
+            pick_threshold=float(params["pick_thresh"]))

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from dsp_stuff_tpu_torch.registry import register_node, ParamSpec, SelectSpec
+from dsp_stuff_tpu_torch.utils.precision import on_device
 
 
 @register_node(
@@ -18,8 +19,7 @@ class Gain:
     @staticmethod
     def process_seq(params, state, inputs):
         x = inputs["in"]
-        level = torch.as_tensor(params["level"], dtype=torch.float32,
-                                device=x.device)
+        level = on_device(params["level"], x.device)
         return {"out": x * level}, state
 
 
@@ -48,8 +48,7 @@ class Mix:
     @staticmethod
     def process_seq(params, state, inputs):
         a = inputs["a"]
-        r = torch.as_tensor(params["ratio"], dtype=torch.float32,
-                            device=a.device)
+        r = on_device(params["ratio"], a.device)
         return {"out": inputs["b"] * r + a * (1.0 - r)}, state
 
 

@@ -22,6 +22,8 @@ import functools
 import numpy as np
 import torch
 
+from dsp_stuff_tpu_torch.utils.precision import scalar_on
+
 
 def _kept_bins(fft_size: int, lower_hz: float, upper_hz: float,
                sample_rate: int):
@@ -96,9 +98,19 @@ def spectrogram(x, fft_size: int = 512, lower_hz: float = 20.0,
     win = torch.as_tensor(np.hanning(fft_size).astype(np.float32),
                           device=x.device)
     spec = torch.abs(torch.fft.rfft(xb * win, dim=-1)) / fft_size
-    spec = spec[..., torch.as_tensor(keep, device=x.device)]
-    boost = torch.sqrt(torch.as_tensor(
-        np.maximum(freqs[keep], 1.0).astype(np.float32), device=x.device))
-    spec = spec * boost / float(np.sqrt(np.float32(sample_rate / 2.0)))
+    spec = tilt(spec[..., torch.as_tensor(keep, device=x.device)],
+                freqs[keep], sample_rate)
     W = torch.as_tensor(_catmull_rom_matrix(n, K), device=x.device)
     return grid, spec @ W.T
+
+
+def tilt(spec, kept_freqs, sample_rate: int = 48_000):
+    """The display tilt of the kept bins' magnitudes [..., n]:
+    spec * sqrt(max(f, 1)) / sqrt(sr / 2).  The square roots are taken on
+    the host (NumPy's f32 sqrt is correctly rounded; the card's and the
+    CPU's torch.sqrt are not the same function), the divide is a true f32
+    divide on the card too (precision.scalar_on)."""
+    boost = torch.as_tensor(np.sqrt(np.maximum(kept_freqs, 1.0)
+                                    .astype(np.float32)), device=spec.device)
+    return spec * boost / scalar_on(
+        float(np.sqrt(np.float32(sample_rate / 2.0))), spec.device)

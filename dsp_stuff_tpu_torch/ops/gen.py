@@ -20,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dsp_stuff_tpu_torch.utils.precision import get_policy
+from dsp_stuff_tpu_torch.utils.precision import (get_policy, on_device,
+                                                  scalar_on)
 
 TAU = float(np.float32(2.0 * np.pi))
 _F32 = torch.float32
@@ -43,8 +44,9 @@ def _block_totals(freq, T: int, block_size: int, sample_rate: int, clock0,
     if T % block_size:
         raise ValueError(f"T={T} must be a multiple of {block_size}")
     nb = T // block_size
-    step = torch.as_tensor(freq, dtype=_F32, device=device) / float(sample_rate)
-    c0 = torch.as_tensor(clock0, dtype=_F32, device=device)
+    freq = on_device(freq, device)
+    step = freq / scalar_on(float(sample_rate), freq.device)
+    c0 = on_device(clock0, device)
     batch = torch.broadcast_shapes(step.shape[:-1], c0.shape)
     step = step.expand(*batch, T)
     c0 = c0.expand(batch)
@@ -89,7 +91,7 @@ def oscillator(mode: str, amplitude, frequency, T: int, clock0=0.0,
             if isinstance(v, torch.Tensor):
                 device = v.device
                 break
-    amp = torch.as_tensor(amplitude, dtype=_F32, device=device)
+    amp = on_device(amplitude, device)
     if mode == "Constant":
         # do_const copies the (possibly modulated) amplitude buffer verbatim
         # (signal_gen.rs:106-108)

@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dsp_stuff_tpu_torch.utils.precision import on_device, scalar_on
+
 
 TAU = 2.0 * np.pi
 C = 128                  # samples per block of the mtap decomposition
@@ -61,9 +63,9 @@ def _tap_trajectory(rate_hz, depth_s, base_s, L: int, T: int, t0,
         device = rate_hz.device
         rate = rate_hz.to(_F64)
     else:
-        rate = torch.tensor(float(rate_hz), dtype=_F64, device=device)
+        rate = scalar_on(float(rate_hz), device, _F64)
     t_abs = int(t0) + torch.arange(T, dtype=_F64, device=device)
-    cycles = rate * t_abs / sample_rate
+    cycles = rate * t_abs / scalar_on(float(sample_rate), device, _F64)
     phase = (cycles - torch.floor(cycles)).to(_F32)
     arg = float(np.float32(TAU)) * phase
     s = torch.sin(arg.to(_F64)).to(_F32)
@@ -78,7 +80,7 @@ def _tap_trajectory(rate_hz, depth_s, base_s, L: int, T: int, t0,
 
 def _mix(x, wet, mix):
     """y = x*(1-mix) + wet*mix with (1-mix) rounded in f32."""
-    mix = torch.as_tensor(mix, dtype=_F32, device=x.device)
+    mix = on_device(mix, x.device)
     return x * (1.0 - mix) + wet * mix
 
 

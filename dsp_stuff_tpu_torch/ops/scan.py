@@ -47,8 +47,17 @@ def _np_dtype(dtype: torch.dtype):
 
 
 def _const(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """A NumPy constant as a tensor on ``like``'s device."""
-    return torch.as_tensor(arr, device=like.device)
+    """A NumPy constant as a tensor on ``like``'s device, copied there once
+    per content and device (a streamed block needs the same constants as
+    the one before it; the tensor is never written to)."""
+    arr = np.ascontiguousarray(arr)
+    return _const_on(arr.tobytes(), arr.dtype.str, arr.shape, like.device)
+
+
+@functools.lru_cache(maxsize=256)
+def _const_on(raw: bytes, dtype: str, shape: tuple, device) -> torch.Tensor:
+    return torch.tensor(np.frombuffer(raw, dtype).reshape(shape),
+                        device=device)
 
 
 def _pad_last(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -21,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dsp_stuff_tpu_torch.utils.precision import get_policy
+from dsp_stuff_tpu_torch.utils.precision import (get_policy, on_device,
+                                                  scalar_on)
 
 _F32 = torch.float32
 BYPASS_EPS = float(np.float32(0.001))
@@ -29,7 +30,7 @@ BYPASS_EPS = float(np.float32(0.001))
 
 def _t(v, like: torch.Tensor) -> torch.Tensor:
     """A scalar or tensor parameter as an f32 tensor on ``like``'s device."""
-    return torch.as_tensor(v, dtype=_F32, device=like.device)
+    return on_device(v, like.device)
 
 
 def _trans(fn, v):
@@ -75,9 +76,8 @@ def soft_clip(x, level):
     arm like the reference's if/else chain (distort.rs:77-83)."""
     level = _t(level, x)
     v = x * level
-    inner = v - (v * v) * v / 3.0
-    two3 = torch.tensor(float(np.float32(2.0 / 3.0)), dtype=_F32,
-                        device=x.device)
+    inner = v - (v * v) * v / scalar_on(3.0, v.device)
+    two3 = scalar_on(float(np.float32(2.0 / 3.0)), x.device)
     shaped = torch.where(v > 1.0, two3,
                          torch.where((v >= -1.0) & (v <= 1.0), inner, -two3))
     return _bypass(level, clip(shaped) / _safe_level(level), x)

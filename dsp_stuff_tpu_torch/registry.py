@@ -146,7 +146,7 @@ class Registry:
 
 #: node types of the JAX package that this package does not implement yet;
 #: naming one raises a KeyError that says so instead of "unknown"
-NOT_PORTED = frozenset(("pitch",))
+NOT_PORTED = frozenset()
 
 REGISTRY = Registry()
 

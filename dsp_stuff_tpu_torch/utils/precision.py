@@ -27,7 +27,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -94,6 +96,26 @@ def gemm_precision(l1: float | None = None) -> str:
 # There they defend against XLA's value-changing rewrites (FMA contraction
 # across ops, recip-mul for divides).  Eager PyTorch runs each op as its
 # own kernel and rounds once per op, so the fenced forms are plain ops.
+
+@functools.lru_cache(maxsize=4096)
+def scalar_on(value: float, device, dtype=torch.float32) -> torch.Tensor:
+    """``value`` as a cached 0-d tensor on ``device`` (never written to).
+    As a divisor it makes a true divide: PyTorch's CUDA divide by a Python
+    float (a host scalar) multiplies by its reciprocal, 1 ulp off the
+    reference's divide for many inputs; by a device tensor it divides (on
+    the CPU both are true divides).  As a constant it is copied to the
+    card once, not at every call: a streamed block would otherwise wait
+    for one host-to-device copy per constant."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def on_device(v, device, dtype=torch.float32) -> torch.Tensor:
+    """``v`` as a ``dtype`` tensor on ``device``: a Python or NumPy scalar
+    the cached 0-d tensor of ``scalar_on``, anything else converted."""
+    if isinstance(v, (int, float, np.number)):
+        return scalar_on(float(v), device, dtype)
+    return torch.as_tensor(v, dtype=dtype, device=device)
+
 
 def mul_unfused(a, b):
     return a * b

@@ -17,10 +17,12 @@ each with the worst the CPU measured:
   vs the JAX package's render (relative dBFS)   <= -100 (-105.9 under both,
                         seed 13: the JAX envelope's in-graph gains, ROADMAP
                         Queue 3 item 5)
+  StreamSession (128-sample process() blocks, process_many chunks) vs one
+  offline render, fast  <= -90 (the JAX file's: blocked solves reassociate
+                        at another T); process_many vs process() bitwise
 
 The exact-policy fuzz (tests/test_fuzz_graphs.py:213, :230) waits for the
-port's exact policy and the streaming fuzz (:250) for its runtime
-(ROADMAP Queue 1).
+port's exact policy (ROADMAP Queue 1).
 """
 
 import numpy as np
@@ -39,6 +41,7 @@ from oracle import graph as oracle_graph
 T = 1536
 PARITY_DB = -84.0
 FAST_DB = -80.0
+STREAM_DB = -90.0
 HANDOFF_DB = -100.0
 BATCH_ATOL = 2e-6
 VS_JAX_DB = -100.0
@@ -48,13 +51,15 @@ PARITY_SEEDS = [1, 2, 3, 5, 8, 13, 21, 34, 55, 89, 144, 233, 377, 610, 987,
 FAST_SEEDS = [3, 11, 42, 77, 123]
 BATCH_SEEDS = [2, 8, 21]
 SEGMENT_SEEDS = [1, 5, 13]
+STREAM_SEEDS = [2, 7, 21]
+STREAM_CHAIN_SEEDS = [2, 7]
 GENERATORS = ["_random_graph", "_random_linear_chain_graph",
               "_random_feedback_linear_graph", "_random_mega_cycle_graph"]
 #: the seeds each generator is rendered at, here and in
 #: tests/test_torch_fuzz_fused.py
 SEEDS_USED = {
     "_random_graph": sorted(set(PARITY_SEEDS + FAST_SEEDS + BATCH_SEEDS
-                                + SEGMENT_SEEDS)),
+                                + SEGMENT_SEEDS + STREAM_SEEDS)),
     "_random_linear_chain_graph": list(range(20)),
     "_random_feedback_linear_graph": list(range(12)),
     "_random_mega_cycle_graph": list(range(10)),
@@ -183,3 +188,48 @@ def test_random_graph_vs_jax(seed, pol):
     with dj.policy(pol):
         want, _, _ = dj.render(gj, {str(inp_id): x})
     assert _dbfs(got, np.asarray(want)) <= VS_JAX_DB
+
+
+def _streamed(g, inp_id, x, chunks):
+    """(process() blocks, process_many over ``chunks`` samples each) of x
+    through two fresh StreamSessions on the CPU, fast."""
+    with dt.policy("fast"):
+        sess = dt.StreamSession(g, device="cpu")
+        blocks = np.concatenate([sess.process({str(inp_id): x[i:i + 128]})[0]
+                                 for i in range(0, len(x), 128)])
+        sess2 = dt.StreamSession(g, device="cpu")
+        edges = [0, *np.cumsum(chunks)]
+        many = np.concatenate([
+            sess2.process_many({str(inp_id): x[a:b]})[0]
+            for a, b in zip(edges[:-1], edges[1:])])
+    return blocks, many
+
+
+@pytest.mark.parametrize("seed", STREAM_SEEDS)
+def test_random_graph_streaming_matches_offline(seed):
+    """StreamSession on random topologies: 128-sample process() blocks and
+    mixed-k process_many() chunks carry every node type's state (cycle
+    context, chorus history, FIR warm-up, oscillator clocks) like one
+    offline render; the two forms run the same one-block step, so they
+    agree bit for bit."""
+    g, inp_id, _ = tfuzz._random_graph(seed)
+    x = _x(6000 + seed)
+    offline = _render(g, inp_id, x, "fast")[0]
+    blocks, many = _streamed(g, inp_id, x, (5 * 128, T - 5 * 128))
+    for got in (blocks, many):
+        db = oracle.max_err_dbfs(got, offline)
+        assert db <= STREAM_DB, f"seed {seed}: {db:.1f} dBFS"
+    np.testing.assert_array_equal(many, blocks)
+
+
+@pytest.mark.parametrize("seed", STREAM_CHAIN_SEEDS)
+def test_random_linear_chain_streaming_matches_offline(seed):
+    """Fused linear runs and chain segments at the stream's 128-sample
+    shape against the offline render."""
+    g, inp_id, _ = tfuzz._random_linear_chain_graph(seed)
+    x = _x(10_000 + seed)
+    offline = _render(g, inp_id, x, "fast")[0]
+    blocks, many = _streamed(g, inp_id, x, (T // 2, T // 2))
+    db = oracle.max_err_dbfs(many, offline)
+    assert db <= STREAM_DB, f"seed {seed}: {db:.1f} dBFS"
+    np.testing.assert_array_equal(many, blocks)
