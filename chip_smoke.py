@@ -70,6 +70,18 @@ device="cuda")``:
   (capture chunks, 44.1 kHz stereo reads, resync); the CLI render of
   examples/graphs/config5.json in a subprocess, bitwise the in-process
   render_file; a checkpoint resume; the pitch node; and debug_render;
+* the exact policy: the sequential kernel (csrc/sequential_kernel.cu;
+  first order with a scalar and a per-sample coefficient, DF1 biquad)
+  bitwise against its plain version at [512, 4096], at edge shapes and on
+  rows not 16-byte aligned; the bench chain over 512 streams x 10 s under
+  exact (three sequential launches, no chain kernel, no plain version;
+  against bench.oracle_chain and the CPU port's exact render, each
+  figure with whether it is bitwise; render time and peak memory); the
+  bench chain streamed over 1 s in 128-sample blocks, bitwise the card's
+  exact render; config5 and the twelve exact-pool fuzz graphs
+  (_random_graph(seed, exact=True)) at 4 streams x 1 s against the oracle
+  and the CPU port; and the kernel's times at [512, 480,000] against its
+  dependent-chain floor;
 
 and times every kernel against its plain version (the chain kernel on
 the bench list at 1, 128, 512 and 1024 streams and on config5's list at
@@ -150,6 +162,21 @@ LFO_FAST_ATOL = 4e-7      # config5's LFO under fast: CUDA's sinf vs the CPU's
 PITCH_HZ_ATOL = 0.5       # a 440 Hz tone's detected pitch on the card
 PITCH_RTOL = 1e-4         # ... and against the CPU port's
 RUNTIME_DIR = os.path.join(ROOT, "build", "smoke_runtime")   # WAVs, files
+# the exact phase: the policy's sequential solves on the card
+EXACT_DB = -90.0          # exact on the card vs the oracle (the JAX bound)
+SEQ_B, SEQ_T = 512, 4096  # the sequential kernel vs its plain version
+SEQ_EDGE_SHAPES = ((1, 1), (8, 1), (1, 2), (8, 2), (1, 127), (8, 127),
+                   (1, 128), (8, 128), (1, 129), (8, 129), (3, 1001))
+SEQ_MODES = ("first_order", "first_order:per-sample", "biquad")
+SEQ_COEFFS = (-1.8, 0.81, 0.1, 0.2, 0.1)   # a resonant biquad
+SEQ_A = 0.9173            # the first order's scalar coefficient
+# dependent FP32 operations a step of each mode's chain (first order: the
+# product and the sum; biquad: a1*y1 and two subtracts), 4 cycles each at
+# the H100 SXM's maximum SM clock
+SEQ_CHAIN_OPS = {"first_order": 2, "first_order:per-sample": 2, "biquad": 3}
+SM_CLOCK_GHZ = 1.98
+B_EXACT = 4               # config5 and the exact-pool fuzz (x 1 s)
+EXACT_FUZZ_SEEDS = (4, 9, 16, 25, 36, 49, 64, 81, 100, 121, 169, 196)
 
 
 def dbfs(got, want) -> float:
@@ -528,9 +555,11 @@ def fir_reference(x, taps_rev):
 
 def _kernel_modules():
     from dsp_stuff_tpu_torch.ops import (chain_kernel, cycle_kernel,
-                                         envelope_kernel, first_order_kernel)
+                                         envelope_kernel, first_order_kernel,
+                                         sequential_kernel)
     return {"chain": chain_kernel, "cycle": cycle_kernel,
-            "envelope": envelope_kernel, "first_order": first_order_kernel}
+            "envelope": envelope_kernel, "first_order": first_order_kernel,
+            "sequential": sequential_kernel}
 
 
 def reset_launches():
@@ -572,15 +601,17 @@ def calls_counted(targets, counts: dict):
 
 def plain_versions_counted(counts: dict, first_order: bool = False):
     """Count calls of the kernels' plain versions while the block runs
-    (the main path on the card must call none of them).  ``first_order``
-    adds the first-order kernel's plain versions (a render calls
-    _first_order_blocked for a concrete degenerate biquad, which takes no
-    kernel in either package)."""
+    (the main path on the card must call none of them): always the
+    sequential kernel's (the exact policy's loops); ``first_order`` adds
+    the first-order kernel's (a render calls _first_order_blocked for a
+    concrete degenerate biquad, which takes no kernel in either
+    package)."""
     from dsp_stuff_tpu_torch.ops import (chain_segment, cycle_segment,
                                          envelope, scan)
     targets = [(chain_segment, "segment_fallback"),
                (cycle_segment, "interpret"), (envelope, "_chunked_batched"),
-               (envelope, "_seq_scan")]
+               (envelope, "_seq_scan"), (scan, "_first_order_sequential"),
+               (scan, "_biquad_sequential")]
     if first_order:
         targets += [(scan, "_first_order_blocked"),
                     (scan, "_first_order_scan")]
@@ -1929,6 +1960,428 @@ def runtime_phase(dev, card) -> dict:
     return recs
 
 
+# -- the exact policy on the card ---------------------------------------------
+
+def seq_inputs(mode, R, T, rng, dev, offset=0):
+    """The sequential kernel's inputs in ``mode`` (SEQ_MODES) at [R, T] on
+    ``dev``: (a, b, y0) for the first order, (x, coeffs, state [R, 4]) for
+    the biquad.  ``offset`` floats shift the start of every [R, T] array
+    (1: not 16-byte aligned, the kernel's single-float copies)."""
+    import torch
+
+    def on_dev(arr):
+        arr = np.asarray(arr, np.float32)
+        flat = torch.empty(arr.size + offset, dtype=torch.float32, device=dev)
+        t = flat[offset:].view(arr.shape)
+        t.copy_(torch.from_numpy(arr))
+        return t
+
+    x = on_dev(rng.standard_normal((R, T)) * 0.5)
+    if mode == "biquad":
+        return (x, torch.tensor(SEQ_COEFFS, dtype=torch.float32, device=dev),
+                on_dev(rng.standard_normal((R, 4)) * 0.3))
+    a = (on_dev(rng.uniform(-0.99, 0.99, (R, T)))
+         if mode == "first_order:per-sample"
+         else torch.tensor(SEQ_A, dtype=torch.float32, device=dev))
+    return a, x, on_dev(rng.standard_normal(R) * 0.3)
+
+
+def seq_kernel(mode, ins):
+    """(y, final state) of the sequential kernel on ``ins``."""
+    from dsp_stuff_tpu_torch.ops import sequential_kernel
+    if mode == "biquad":
+        return sequential_kernel.biquad_sequential_cuda(*ins)
+    return sequential_kernel.first_order_sequential_cuda(*ins)
+
+
+def seq_plain(mode, ins):
+    """(y, final state) of the kernel's plain version on ``ins``."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import scan
+    if mode == "biquad":
+        x, c, st = ins
+        y, fin = scan._biquad_sequential(x, *c.unbind(0), tuple(st.unbind(1)))
+        return y, torch.stack(fin, dim=1)
+    y = scan._first_order_sequential(*ins)
+    return y, y[:, -1]
+
+
+def seq_compare(mode, ins, label: str, loud: bool):
+    """The sequential kernel against its plain version on ``ins``, bit for
+    bit (y and the final state); returns (the max abs difference, 0, and
+    the plain version's one call in ms, by CUDA events)."""
+    import torch
+    k = seq_kernel(mode, ins)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    p = seq_plain(mode, ins)
+    t1.record()
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(k, p))
+    same = all(torch.equal(a, b) for a, b in zip(k, p))
+    if loud:
+        print(f"  {mode:24s} {label}: max abs {err:.1e}, bitwise {same}")
+    check(same, f"sequential kernel {mode} {label}: not bitwise its plain "
+                f"version (max abs {err:.2e})")
+    return err, t0.elapsed_time(t1)
+
+
+def seq_check(mode, R, T, rng, dev, offset=0) -> float:
+    """seq_compare on seq_inputs(mode, R, T, rng, dev, offset); returns the
+    max abs difference (0)."""
+    label = f"[{R}, {T}]" + (" unaligned" if offset else "")
+    return seq_compare(mode, seq_inputs(mode, R, T, rng, dev, offset), label,
+                       R * T >= SEQ_B * SEQ_T or bool(offset))[0]
+
+
+def seq_floor_ms(mode, T) -> float:
+    """The dependent chain's floor of a row of T steps (any number of
+    rows): SEQ_CHAIN_OPS FP32 operations a step, 4 cycles each."""
+    return T * SEQ_CHAIN_OPS[mode] * 4 / (SM_CLOCK_GHZ * 1e9) * 1e3
+
+
+def seq_bound(mode, R, T):
+    """The bound of one solve at [R, T]: its signal read and y written
+    (and a per-sample a read), its FP32 operations."""
+    n_bytes = 4.0 * R * T * (3 if mode == "first_order:per-sample" else 2)
+    flops = (9.0 if mode == "biquad" else 2.0) * R * T
+    return bound(n_bytes, flops)
+
+
+def sequential_launches(cg, T: int) -> int:
+    """The sequential kernel's launches of an exact render of T samples:
+    one a recurrence node (biquad, low pass, high pass, muff), one a block
+    for a member of a feedback cycle (the per-node block scan)."""
+    from dsp_stuff_tpu_torch.compiler.compile import _is_cycle
+    n = 0
+    for comp in cg._sccs:
+        rec = sum(cg._nodes[nid].cfg_name in ("biquad", "low_pass",
+                                              "high_pass", "muff")
+                  for nid in comp)
+        n += rec * (T // cg.block_size if _is_cycle(cg.graph, comp) else 1)
+    return n
+
+
+def oracle_evaluate(graph, ext, T: int):
+    """tests/oracle/graph.py's block-wise interpreter over the port's graph:
+    its loop, per-node steps and states (oracle_graph._init_state, _step),
+    with the port's copies of the three helpers that function imports from
+    the JAX package (SCC order, active nodes, ParamSpec), so that nothing
+    of the JAX package is imported.  ext {input id: [T] f32}; returns
+    {output id: [T] f32}."""
+    from oracle import graph as og
+    import oracle
+    from dsp_stuff_tpu_torch.compiler.compile import _active_nodes
+    from dsp_stuff_tpu_torch.compiler.scc import condensation_topo_order
+    from dsp_stuff_tpu_torch.registry import ParamSpec
+    F32 = np.float32
+    B = og.BUF
+    active = _active_nodes(graph)
+    nodes = {nid: n for nid, n in graph.nodes.items() if nid in active}
+    edges = {nid: set() for nid in nodes}
+    for l in graph.links:
+        if l.src in nodes and l.dst in nodes:
+            edges[l.src].add(l.dst)
+    comps = condensation_topo_order(sorted(nodes), edges)
+    states = {nid: og._init_state(n) for nid, n in nodes.items()}
+    out_ids = [nid for nid, n in nodes.items()
+               if getattr(n.spec.impl, "graph_output", False)]
+    outs = {nid: np.zeros(T, F32) for nid in out_ids}
+    prev: dict = {}
+    zero = np.zeros(B, F32)
+    for b0 in range(0, T, B):
+        cur: dict = {}
+
+        def port_avg(nid, port):
+            srcs = [cur.get((l.src, l.src_port), prev.get((l.src, l.src_port),
+                                                          zero))
+                    for l in graph.in_links(nid, port)]
+            return (og._h(srcs), len(srcs)) if srcs else (zero, 0)
+
+        for comp in comps:
+            for nid in sorted(comp):
+                spec = nodes[nid].spec
+                if getattr(spec.impl, "graph_input", False):
+                    cur[(nid, "out")] = np.asarray(ext[nid][b0:b0 + B], F32)
+                    continue
+                if spec.is_sink or getattr(spec.impl, "graph_output", False):
+                    continue
+                ins = {port: port_avg(nid, port)[0] for port in spec.inputs}
+                params = {}
+                for ps in spec.params:
+                    value = nodes[nid].params[ps.name]
+                    if isinstance(ps, ParamSpec) and ps.as_input:
+                        sig, n = port_avg(nid, ps.name)
+                        params[ps.name] = (oracle.mod_map(sig, ps.lo, ps.hi)
+                                           if n else F32(value))
+                    else:
+                        params[ps.name] = (F32(value) if isinstance(
+                            ps, ParamSpec) else value)
+                for port, val in og._step(nodes[nid], states[nid], ins,
+                                          params).items():
+                    cur[(nid, port)] = val
+        for nid in out_ids:
+            outs[nid][b0:b0 + B] = port_avg(nid, "in")[0]
+        prev = cur
+    return outs
+
+
+def exact_render(graph, x, B, expect, name, dev, finite=True):
+    """An exact render of x [B, 1, T] (NumPy) on the card, its launches
+    ``expect`` and no plain version called, finite unless ``finite`` is
+    False; returns (outputs, CompiledGraph, wall s, peak GiB, the
+    sequential kernel's launches by mode)."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import sequential_kernel
+    with dst.policy("exact"):
+        cg = dst.compile_graph(graph, device="cuda")
+        xd = torch.as_tensor(x, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        plain, modes = {}, {}
+        reset_launches()
+        t0 = time.time()
+        with plain_versions_counted(plain, first_order=True), calls_counted(
+                [(sequential_kernel, "first_order_sequential_cuda"),
+                 (sequential_kernel, "biquad_sequential_cuda")], modes):
+            y, _, _ = cg.render(xd, batch_shape=(B,))
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(not plain, f"{name} under exact called plain versions {plain}")
+    check(launches == expect, f"{name} under exact launched {launches}, "
+                              f"expected {expect}")
+    check(sum(modes.values()) == launches["sequential"],
+          f"{name}: the sequential kernel's launches {modes} by mode")
+    check(not finite or bool(torch.isfinite(y).all()),
+          f"{name} under exact not finite")
+    by_mode = {"first_order": modes.get("first_order_sequential_cuda", 0),
+               "biquad": modes.get("biquad_sequential_cuda", 0)}
+    return y, cg, wall, peak, by_mode
+
+
+def cpu_exact(graph, x):
+    """The CPU port's exact render of x [B, 1, T] (NumPy)."""
+    import dsp_stuff_tpu_torch as dst
+    with dst.policy("exact"):
+        y, _, _ = dst.compile_graph(graph, device="cpu").render(
+            x, batch_shape=(len(x),))
+    return host(y)
+
+
+def held(name, got, want, limit) -> float:
+    """dBFS of got against want, printed with whether it is bitwise, held
+    to ``limit``."""
+    d = dbfs(got, want)
+    print(f"  {name}: {d:.1f} dBFS (<= {limit}), bitwise "
+          f"{bool(np.array_equal(got, want))}")
+    check(d <= limit, f"{name}: {d:.1f} dBFS > {limit}")
+    return d
+
+
+def finite_dbfs(name, got, want) -> float:
+    """dbfs over the samples where ``want`` is finite, after checking that
+    ``got`` holds the same non-finite values (a feedback loop whose gain
+    passes 1 overflows in both) everywhere else."""
+    bad = ~np.isfinite(want)
+    check(np.array_equal(~np.isfinite(got), bad)
+          and np.array_equal(got[bad], want[bad], equal_nan=True),
+          f"{name}: the non-finite samples differ")
+    if np.array_equal(got[~bad], want[~bad]):
+        return float("-inf")          # also where both are silent
+    return dbfs(got[~bad], want[~bad])
+
+
+def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
+    """The exact policy on the card: the sequential kernel bit for bit
+    against its plain version (SEQ_MODES at [SEQ_B, SEQ_T], the edge
+    shapes, unaligned rows); the bench chain over b_main x t_main (three
+    launches, no chain kernel, no plain version; against the oracle and the
+    CPU port's exact render; wall time and peak memory), config5 and the
+    exact-pool fuzz graphs at B_EXACT x 1 s against the oracle and the CPU
+    port, the bench chain streamed over 1 s bitwise its render, and the
+    kernel bit for bit against its plain version at [b_main, t_main], both
+    timed there; first the divide fence by a Python number, bitwise the
+    CPU's."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    import test_torch_fuzz_gen as gen
+    from bench import oracle_chain
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.utils import precision
+    t_phase = time.time()
+    rec = {}
+    # the divide fence by a Python number on the card: a true divide (by a
+    # device scalar), bitwise the CPU's
+    xq = (np.random.default_rng(95).standard_normal(1 << 16)
+          * 3).astype(np.float32)
+    for d in (3.0, 0.1, 48000.0):
+        for fn in (precision.div_ieee, precision.exact_div):
+            check(np.array_equal(host(fn(torch.as_tensor(xq, device=dev), d)),
+                                 fn(torch.from_numpy(xq), d).numpy()),
+                  f"{fn.__name__}(x, {d}) on the card: not bitwise the CPU's")
+    print("div_ieee and exact_div by 3.0, 0.1 and 48000.0 on the card: "
+          "bitwise the CPU's")
+    rng = np.random.default_rng(90)
+    print(f"sequential kernel vs plain, bitwise, [{SEQ_B}, {SEQ_T}], edge "
+          f"shapes {SEQ_EDGE_SHAPES}, unaligned rows:")
+    for mode in SEQ_MODES:
+        errs = [seq_check(mode, SEQ_B, SEQ_T, rng, dev)]
+        for r, t in SEQ_EDGE_SHAPES:
+            if mode != "biquad" or t >= 2:
+                errs.append(seq_check(mode, r, t, rng, dev))
+        errs += [seq_check(mode, 3, 1001, rng, dev, offset=1),
+                 seq_check(mode, 8, 4096, rng, dev, offset=1)]
+        rec[f"{mode}:err"] = max(errs)
+    print(f"  {len(SEQ_EDGE_SHAPES)} edge shapes a mode: bitwise")
+
+    # the bench chain at full width
+    g = bench_graph()
+    x_np = (np.random.default_rng(91).standard_normal((b_main, 1, t_main),
+                                                      dtype=np.float32)
+            * np.float32(0.25))
+    n_seq = 3
+    y, cg, wall, peak, by_mode = exact_render(
+        g, x_np, b_main, only_launches(sequential=n_seq), "bench chain", dev)
+    check(by_mode == {"first_order": 2, "biquad": 1},
+          f"bench chain under exact: sequential launches by mode {by_mode}")
+    print(f"bench chain under exact, [{b_main}, 1, {t_main}]: render "
+          f"{wall:.3f} s (first call), peak {peak:.2f} GiB, sequential "
+          f"launches {by_mode} (biquad, low pass, high pass), no chain "
+          f"kernel, no plain version [{card}]")
+    head = min(SR, t_main)
+    rec["bench_oracle_db"] = held(
+        "stream 0, first second vs bench.oracle_chain",
+        host(y[0, 0, :head]), oracle_chain(x_np[0, 0, :head]), EXACT_DB)
+    rec["bench_cpu_db"] = held(
+        "streams 0-3, first second vs the CPU port's exact render",
+        host(y[:4, :, :head]), cpu_exact(g, x_np[:4, :, :head]),
+        CARD_VS_CPU_DB)
+    del y
+    xd = torch.as_tensor(x_np, device=dev)
+    with dst.policy("exact"):
+        rec["bench_render_ms"] = cuda_ms(
+            lambda: cg.render(xd, batch_shape=(b_main,)), 3)
+    del xd
+    torch.cuda.empty_cache()
+    print(f"  render {rec['bench_render_ms']:.3f} ms median of 3 = "
+          f"{b_main * t_main / SR / (rec['bench_render_ms'] / 1e3):,.0f} "
+          f"audio-s/s [{card}]")
+    rec["launches"] = by_mode
+
+    # streamed over 1 s: bitwise the card's render
+    x1 = x_np[0, 0, :SR].copy()
+    n = len(x1) // 128
+    with dst.policy("exact"):
+        sess = dst.StreamSession(g, device="cuda")
+        key = str(sess.cg.input_ids[0])
+        plain = {}
+        reset_launches()
+        t0 = time.time()
+        with plain_versions_counted(plain, first_order=True):
+            out = np.concatenate([sess.process({key: x1[j * 128:
+                                                      (j + 1) * 128]})[0]
+                                  for j in range(n)])
+        stream_s = time.time() - t0
+        launches = read_launches()
+        want, _, _ = dst.compile_graph(g, device="cuda").render(
+            {key: torch.as_tensor(x1, device=dev)})
+    check(not plain, f"exact stream called plain versions {plain}")
+    check(launches == only_launches(sequential=n_seq * n),
+          f"exact stream launched {launches}, expected {n_seq} sequential "
+          f"launches a block")
+    same = bool(np.array_equal(out, host(want[0])))
+    print(f"bench chain StreamSession under exact, {n} blocks of 128: "
+          f"{n_seq} sequential launches a block, {stream_s / n * 1e3:.3f} ms "
+          f"a block; bitwise the card's exact render: {same} [{card}]")
+    check(same, f"exact stream vs render: {dbfs(out, host(want[0])):.1f} "
+                f"dBFS, not bitwise")
+
+    # config5 at B_EXACT x 1 s
+    g5, _ = presets.config5_feedback_16node()
+    x5 = (np.random.default_rng(92).standard_normal((B_EXACT, 1, SR),
+                                                    dtype=np.float32)
+          * np.float32(0.3))
+    cg5 = dst.compile_graph(g5, device="cpu")
+    n5 = sequential_launches(cg5, SR)
+    y5, _, wall, _, _ = exact_render(g5, x5, B_EXACT,
+                                  only_launches(envelope=1, sequential=n5),
+                                  "config5", dev)
+    print(f"config5 under exact, [{B_EXACT}, 1, {SR}]: render {wall:.3f} s, "
+          f"1 envelope and {n5} sequential launches (the loop's one-pole "
+          f"once a block), no chain or cycle kernel [{card}]")
+    y5 = host(y5)
+    rec["c5_oracle_db"] = held("stream 0 vs the composed oracle",
+                               y5[0, 0], oracle_config5(x5[0, 0]), EXACT_DB)
+    rec["c5_cpu_db"] = held("vs the CPU port's exact render", y5,
+                            cpu_exact(g5, x5), CARD_VS_CPU_DB)
+
+    # the exact-pool fuzz graphs at B_EXACT x 1 s
+    rng = np.random.default_rng(93)
+    n_bitwise, worst_or, worst_cpu = 0, -np.inf, -np.inf
+    print(f"exact-pool fuzz graphs (_random_graph(seed, exact=True)) under "
+          f"exact, [{B_EXACT}, 1, {SR}], vs the oracle (stream 0) and the CPU "
+          f"port:")
+    for seed in EXACT_FUZZ_SEEDS:
+        gf, inp, outn = gen._random_graph(seed, exact=True)
+        xf = (rng.standard_normal((B_EXACT, 1, SR), dtype=np.float32)
+              * np.float32(0.25))
+        nf = sequential_launches(dst.compile_graph(gf, device="cpu"), SR)
+        yf, cgf, _, _, _ = exact_render(gf, xf, B_EXACT,
+                                        only_launches(sequential=nf),
+                                        f"fuzz seed {seed}", dev,
+                                        finite=False)
+        yf = host(yf)
+        want = oracle_evaluate(gf, {inp: xf[0, 0]}, SR)[outn]
+        got = yf[0, cgf.output_ids.index(outn)]
+        d_or = finite_dbfs(f"exact fuzz seed {seed} vs oracle", got, want)
+        d_cpu = finite_dbfs(f"exact fuzz seed {seed} vs CPU", yf,
+                            cpu_exact(gf, xf))
+        same = bool(np.array_equal(got, want, equal_nan=True))
+        n_bitwise += same
+        worst_or, worst_cpu = max(worst_or, d_or), max(worst_cpu, d_cpu)
+        n_bad = int((~np.isfinite(want)).sum())
+        print(f"  seed {seed:3d}: vs oracle {d_or:7.1f} dBFS (bitwise "
+              f"{same}), vs CPU port {d_cpu:7.1f} dBFS, {nf} sequential "
+              f"launches" + (f"; {n_bad} samples of stream 0 overflow, in "
+                             f"the oracle too" if n_bad else ""))
+        check(d_or <= EXACT_DB, f"exact fuzz seed {seed} vs oracle "
+                                f"{d_or:.1f} dBFS")
+        check(d_cpu <= CARD_VS_CPU_DB, f"exact fuzz seed {seed} vs CPU "
+                                       f"{d_cpu:.1f} dBFS")
+    print(f"  {n_bitwise} of {len(EXACT_FUZZ_SEEDS)} bitwise against the "
+          f"oracle; worst {worst_or:.1f} dBFS vs oracle, {worst_cpu:.1f} vs "
+          f"the CPU port")
+    rec.update(fuzz_bitwise=n_bitwise, fuzz_oracle_db=worst_or,
+               fuzz_cpu_db=worst_cpu)
+
+    # the kernel at the main path's shape: bit for bit against its plain
+    # version there, both timed on the same inputs (the plain loop once:
+    # T steps of a few launches each)
+    rng = np.random.default_rng(94)
+    for mode in SEQ_MODES:
+        ins = seq_inputs(mode, b_main, t_main, rng, dev)
+        ms = cuda_ms(lambda: seq_kernel(mode, ins))
+        err, plain_ms = seq_compare(mode, ins, f"[{b_main}, {t_main}]", True)
+        del ins
+        rec[f"{mode}:err"] = max(rec[f"{mode}:err"], err)
+        bms, bby = seq_bound(mode, b_main, t_main)
+        floor = seq_floor_ms(mode, t_main)
+        rec[mode] = dict(ms=ms, plain_ms=plain_ms, bound=(bms, bby),
+                         floor=floor)
+        print(f"sequential kernel, {mode}, [{b_main}, {t_main}]: {ms:.3f} ms "
+              f"(chain floor {floor:.3f} ms, {floor / ms:.1%} of it; bound "
+              f"{bms:.3f} ms by {bby}); its plain version {plain_ms:.1f} ms "
+              f"[{card}]")
+        torch.cuda.empty_cache()
+    print(f"exact phase: {time.time() - t_phase:.1f} s")
+    return rec
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2326,13 +2779,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     runtime_phase(dev, card)
 
-    def entry(name, source, replaces, launches, err, t, bnd, lib_ms=None):
+    # -- 17. the exact policy on the card -----------------------------------
+    torch.cuda.empty_cache()
+    ex = exact_phase(dev, card)
+
+    def entry(name, source, replaces, launches, err, t, bnd, lib_ms=None,
+              **extra):
         return {"name": name, "route": "cuda",
                 "source": f"dsp_stuff_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
                 "bound_ms": bnd[0], "bound_by": bnd[1],
-                "bound_share": bnd[0] / t[0], "library_ms": lib_ms}
+                "bound_share": bnd[0] / t[0], "library_ms": lib_ms, **extra}
+
+    def seq_entry(mode, replaces):
+        m = ex[mode]
+        return entry(f"sequential_kernel:{mode}", "sequential_kernel.cu",
+                     replaces, ex["launches"][mode], ex[f"{mode}:err"],
+                     (m["ms"], m["plain_ms"]), m["bound"],
+                     floor_ms=m["floor"])
 
     program5 = programs["config5"][0]
     print(json.dumps({"kernels": [
@@ -2364,6 +2829,8 @@ def main() -> int:
               "dsp_stuff_tpu/ops/pallas_scan.py:102",
               fit_rec["launches_ps"], rec["fo_err_ps"], fit_rec["fo_times_ps"],
               bound(12.0 * B_FIT * T_MAIN, 2.0 * B_FIT * T_MAIN)),
+        seq_entry("first_order", "dsp_stuff_tpu/ops/scan.py:299"),
+        seq_entry("biquad", "dsp_stuff_tpu/ops/scan.py:745"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

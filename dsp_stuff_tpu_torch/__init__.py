@@ -33,7 +33,8 @@ Public API:
     StreamSession                      -- block-by-block streaming
     save_checkpoint, load_checkpoint   -- state + params + graph on disk
     train.fit                          -- fit, make_train_step, make_loss_fn
-    policy, get_policy, set_policy     -- precision policy ('fast', 'parity')
+    policy, get_policy, set_policy     -- precision policy ('fast', 'parity',
+                                          'exact')
     REGISTRY                           -- the port's node-type registry
 """
 

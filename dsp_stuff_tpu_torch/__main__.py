@@ -13,9 +13,10 @@
     python -m dsp_stuff_tpu_torch debug GRAPH.json --seconds S \\
         [--device cuda|cpu]                               # per-node stats
 
-``--policy exact`` is accepted and refused: the exact policy is not ported
-yet.  Without a CUDA device, ``render``, ``fit`` and ``debug`` exit with
-the message that says to pass ``--device cpu``.
+``--policy exact`` renders with the linear recurrences sample by sample
+(the sequential kernel on the card; bitwise the reference's loops with
+``--device cpu``).  Without a CUDA device, ``render``, ``fit`` and
+``debug`` exit with the message that says to pass ``--device cpu``.
 
 Env: DST_LOG=debug|info|... (the RUST_LOG analog, utils/obs.py).
 """
@@ -55,10 +56,7 @@ def _cmd_nodes(args):
 def _cmd_render(args):
     from dsp_stuff_tpu_torch.runtime.session import render_file
     from dsp_stuff_tpu_torch.utils.precision import set_policy
-    try:
-        set_policy(args.policy)
-    except NotImplementedError as e:
-        raise SystemExit(f"dsp_stuff_tpu_torch render: {e}")
+    set_policy(args.policy)
     dev = _device(args)
     outs, aux = render_file(args.graph, in_wavs=args.inputs or None,
                             out_wav=args.out, seconds=args.seconds,

@@ -160,17 +160,19 @@ def chain_segment(x, stages, state_in):
     return _kernel_segment(x, stages, state_in)
 
 
-def refuse_grad(what: str, tensors) -> None:
+def refuse_grad(what: str, tensors, remedy: str = "pass every slider of "
+                "the graph as a tensor (init_params) so that its nodes run "
+                "unfused") -> None:
     """The chain and cycle kernels have no backward (the JAX package's
     custom_vjp over a fused segment is not ported): a CUDA input that
     carries autograd history raises rather than cut the gradient.  A fit
-    overrides every slider, so its nodes never fuse."""
+    overrides every slider, so its nodes never fuse.  The sequential
+    kernel (exact policy) refuses the same way, with its own ``remedy``."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"gradients through {what} on the card are not ported; pass "
-            f"every slider of the graph as a tensor (init_params) so that "
-            f"its nodes run unfused")
+            f"gradients through {what} on the card are not ported; "
+            f"{remedy}")
 
 
 def _shared_slots(stages: tuple) -> frozenset:

@@ -18,6 +18,13 @@ runs ``FirstOrderAffine``, whose forward and backward are the first-order
 kernel (ops/first_order_kernel.py) for a CUDA tensor under ``fast`` and
 the plain versions otherwise; ``biquad_df1`` builds its impulse response
 from the tensors, so autograd reaches every coefficient.
+
+Under ``exact`` (``sequential_recurrences``) every solve is tested for it
+first, before any of the shortcuts above, and runs sample by sample in
+f32 in the reference's operation order: ``_first_order_sequential`` and
+``_biquad_sequential`` on the CPU (differentiable by their own autograd),
+the sequential kernel (ops/sequential_kernel.py) on the card, which
+refuses a tensor that requires grad.
 """
 
 from __future__ import annotations
@@ -28,8 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dsp_stuff_tpu_torch.ops import first_order_kernel
-from dsp_stuff_tpu_torch.utils.precision import get_policy
+from dsp_stuff_tpu_torch.ops import first_order_kernel, sequential_kernel
+from dsp_stuff_tpu_torch.utils.precision import get_policy, on_device
 
 # chunk length of the blocked solves: y_chunk = B @ Lt is a [K, C] @ [C, C]
 # product, ~C multiply-adds per sample
@@ -89,12 +96,24 @@ def first_order_affine(a, b, y0):
     grad) or a per-sample tensor of b's shape; ``b`` is [..., T]; ``y0``
     broadcasts to b[..., 0].  Returns y with b's shape, f32.
 
-    A Python float on the CPU, or under ``parity``, keeps the host-constant
-    blocked solve.  Everything else runs ``FirstOrderAffine``: on a CUDA
-    tensor under ``fast`` that is the first-order kernel, at any T and
-    batch (a float becomes a device scalar)."""
+    Under ``exact`` the sequential solve runs (``_first_order_exact``).
+    Otherwise a Python float on the CPU, or under ``parity``, keeps the
+    host-constant blocked solve.  Everything else runs
+    ``FirstOrderAffine``: on a CUDA tensor under ``fast`` that is the
+    first-order kernel, at any T and batch (a float becomes a device
+    scalar)."""
     b = torch.as_tensor(b, dtype=torch.float32)
     y0 = torch.as_tensor(y0, dtype=torch.float32, device=b.device)
+    if isinstance(a, torch.Tensor):
+        if a.device != b.device:
+            raise ValueError(f"first_order_affine: a is on {a.device}, b on "
+                             f"{b.device}")
+        if a.dim() and a.shape != b.shape:
+            raise ValueError(f"first_order_affine: a per-sample a must have "
+                             f"b's shape {tuple(b.shape)}, got "
+                             f"{tuple(a.shape)}")
+    if get_policy().sequential_recurrences:
+        return _first_order_exact(a, b, y0)
     fast = policy_dtype() == torch.float32
     if not isinstance(a, torch.Tensor):
         a = float(np.float32(a))
@@ -103,25 +122,26 @@ def first_order_affine(a, b, y0):
             y = _first_order_blocked(a, b.to(dt), y0.to(dt), dtype=dt)
             return y.to(torch.float32)
         a = torch.full((), a, dtype=torch.float32, device=b.device)
-    if a.device != b.device:
-        raise ValueError(f"first_order_affine: a is on {a.device}, b on "
-                         f"{b.device}")
-    if a.dim() and a.shape != b.shape:
-        raise ValueError(f"first_order_affine: a per-sample a must have b's "
-                         f"shape {tuple(b.shape)}, got {tuple(a.shape)}")
     return FirstOrderAffine.apply(a.to(torch.float32), b,
                                   y0.expand(b.shape[:-1]))
 
 
 def first_order_solve(a, b, y0, reverse: bool = False):
-    """The recurrence at the current policy, outside autograd: the
-    first-order kernel for a CUDA tensor under ``fast``, the plain versions
-    (``_first_order_blocked``, ``_first_order_scan``) otherwise.
+    """The recurrence at the current policy, outside autograd: under
+    ``exact`` the sequential solve (the sequential kernel on the card), else
+    the first-order kernel for a CUDA tensor under ``fast``, the plain
+    versions (``_first_order_blocked``, ``_first_order_scan``) otherwise.
 
     a is a 0-d tensor or a per-sample tensor of b's shape, b [..., T], y0
     b's batch shape.  ``reverse`` runs  y[t] = a[t] y[t+1] + b[t],
     y[T] = y0.  Returns y of b's shape, f32 (f64 for an f64 b under
     ``parity``, so that the Function can be checked in float64)."""
+    if get_policy().sequential_recurrences:
+        if reverse:
+            b = b.flip(-1)
+            a = a.flip(-1) if a.dim() else a
+        y = _first_order_exact(a.detach(), b.detach(), y0.detach())
+        return y.flip(-1) if reverse else y
     dt = policy_dtype()
     out_dt = torch.float64 if (dt == torch.float64
                                and b.dtype == torch.float64) else torch.float32
@@ -190,6 +210,53 @@ class FirstOrderAffine(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             y0bar = (a if a.dim() == 0 else a[..., 0]) * lam[..., 0]
         return abar, lam, y0bar
+
+
+def refuse_grad_on_card(tensors) -> None:
+    """The exact policy's solves on the card have no backward yet: raise
+    when a tensor they would take requires grad (ROADMAP Queue 1)."""
+    from dsp_stuff_tpu_torch.ops.chain_segment import refuse_grad
+    refuse_grad("the exact policy's sequential solves", tensors,
+                "ROADMAP Queue 1 holds a reverse mode of the sequential "
+                "kernel; take them on the CPU (device=\"cpu\") or under "
+                "fast / parity")
+
+
+def _first_order_exact(a, b, y0):
+    """y[t] = a[t] y[t-1] + b[t] under ``exact``, sample by sample: the
+    sequential kernel for a CUDA tensor (no grad), the plain
+    ``_first_order_sequential`` for a CPU one.  ``a`` is a Python float, a
+    0-d tensor or a per-sample tensor of b's shape; y0 broadcasts to
+    b[..., 0]."""
+    a = on_device(float(np.float32(a)), b.device) \
+        if not isinstance(a, torch.Tensor) else a.to(torch.float32)
+    y0 = y0.to(torch.float32).expand(b.shape[:-1])
+    if not b.is_cuda:
+        return _first_order_sequential(a, b, y0)
+    refuse_grad_on_card((a, b, y0))
+    shape = b.shape
+    R = int(np.prod(shape[:-1], dtype=np.int64))
+    y, _ = sequential_kernel.first_order_sequential_cuda(
+        a.reshape(R, shape[-1]).contiguous() if a.dim() else a.contiguous(),
+        b.reshape(R, shape[-1]).contiguous(),
+        y0.reshape(R).contiguous())
+    return y.reshape(shape)
+
+
+def _first_order_sequential(a, b, y0):
+    """The exact policy's first-order solve, sample by sample in f32: per
+    step the product a[t] * y then the sum with b[t], each rounded (the
+    JAX package's ops/scan.py:_first_order_sequential; low_pass.rs:36-41).
+    ``a`` is a 0-d tensor or a per-sample tensor of b's shape, b [..., T],
+    y0 b's batch shape.  The plain version of the sequential kernel, on
+    any device; differentiable."""
+    a_t = a.unbind(-1) if a.dim() else None
+    y = y0
+    ys = []
+    for t, bt in enumerate(b.unbind(-1)):
+        y = (a_t[t] if a_t is not None else a) * y + bt
+        ys.append(y)
+    return torch.stack(ys, dim=-1)
 
 
 def _first_order_scan(a, b, y0):
@@ -268,8 +335,10 @@ def biquad_df1(x, a1, a2, b0, b1, b2, state=None):
 
     ``state = (x1, x2, y1, y2)`` (previous inputs/outputs, defaults 0).
     Returns (y, new_state).  Coefficients are scalars, already divided by
-    a0.  Concrete ones build the solve's constants on the host, and under
-    ``fast`` the two degenerate forms take cheaper paths: a1 == a2 == 0 is
+    a0.  Under ``exact`` the sequential solve runs (``_biquad_exact``),
+    whatever the coefficients.  Otherwise concrete ones build the solve's
+    constants on the host, and under ``fast`` the two degenerate forms take
+    cheaper paths: a1 == a2 == 0 is
     a 3-tap FIR, and a2 == b1 == b2 == 0 a scaled first-order recurrence
     (the bench chain's biquad is this shape).  Any 0-d tensor coefficient
     takes the full blocked solve built from the tensors
@@ -285,6 +354,8 @@ def biquad_df1(x, a1, a2, b0, b1, b2, state=None):
     state = tuple(torch.as_tensor(s, dtype=torch.float32, device=x.device)
                   .expand(batch) for s in state)
     cvals = (a1, a2, b0, b1, b2)
+    if get_policy().sequential_recurrences:
+        return _biquad_exact(x, cvals, state)
     if any(isinstance(c, torch.Tensor) for c in cvals):
         coeffs = tuple(torch.as_tensor(c, dtype=torch.float32,
                                        device=x.device) for c in cvals)
@@ -297,6 +368,49 @@ def biquad_df1(x, a1, a2, b0, b1, b2, state=None):
             return _biquad_degenerate(x, cf, state)
         return _biquad_blocked(x, cf, state, torch.float32)
     return _biquad_blocked(x, cf, state, torch.float64)
+
+
+def _biquad_exact(x, cvals: tuple, state):
+    """The biquad under ``exact``, sample by sample: the sequential kernel
+    for a CUDA tensor (no grad), the plain ``_biquad_sequential`` for a
+    CPU one.  Coefficients are Python floats or 0-d tensors (a1, a2, b0,
+    b1, b2); state (x1, x2, y1, y2) of x's batch shape."""
+    coeffs = tuple(
+        c.to(device=x.device, dtype=torch.float32)
+        if isinstance(c, torch.Tensor)
+        else on_device(float(np.float32(c)), x.device) for c in cvals)
+    if not x.is_cuda:
+        return _biquad_sequential(x, *coeffs, state)
+    refuse_grad_on_card((x, *coeffs, *state))
+    shape = x.shape
+    R = int(np.prod(shape[:-1], dtype=np.int64))
+    if all(not isinstance(c, torch.Tensor) for c in cvals):
+        packed = _const(np.asarray([np.float32(c) for c in cvals],
+                                   np.float32), x)
+    else:
+        packed = torch.stack(coeffs)
+    y, fin = sequential_kernel.biquad_sequential_cuda(
+        x.reshape(R, shape[-1]).contiguous(), packed,
+        torch.stack([s.reshape(R) for s in state], dim=-1))
+    return y.reshape(shape), tuple(fin[:, i].reshape(shape[:-1])
+                                   for i in range(4))
+
+
+def _biquad_sequential(x, a1, a2, b0, b1, b2, state):
+    """The exact policy's biquad, sample by sample in f32 with the biquad
+    crate's op order (DirectForm1::run; the JAX package's ops/scan.py:
+    _biquad_sequential): out = b0*x + b1*x1 + b2*x2 - a1*y1 - a2*y2, left
+    to right, each product and sum rounded.  Coefficients 0-d tensors,
+    x [..., T], state (x1, x2, y1, y2) of x's batch shape.  Returns (y,
+    (x1, x2, y1, y2)).  The plain version of the sequential kernel, on any
+    device; differentiable."""
+    x1, x2, y1, y2 = state
+    ys = []
+    for xt in x.unbind(-1):
+        out = b0 * xt + b1 * x1 + b2 * x2 - a1 * y1 - a2 * y2
+        x1, x2, y1, y2 = xt, x1, out, y1
+        ys.append(out)
+    return torch.stack(ys, dim=-1), (x1, x2, y1, y2)
 
 
 def _biquad_pure_fir(x, cf: tuple, state):

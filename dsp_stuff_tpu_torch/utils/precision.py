@@ -11,9 +11,15 @@ decides how the ops trade accuracy against speed:
                  FIR's accumulation and the transcendental shapers, node
                  by node.  Matches the
                  Rust reference to <= -90 dBFS on supported graphs.
-
-The JAX package's third policy, ``exact`` (bit-order parity, CPU only,
-PARITY.md:102-109), is not ported yet: selecting it raises.
+* ``exact``   -- the linear recurrences strictly sequential in f32, in
+                 the reference's operation order (ops/scan.py:
+                 ``_first_order_sequential``, ``_biquad_sequential`` on
+                 the CPU, the sequential kernel on the card); everything
+                 else as under ``parity``.  Bitwise the NumPy oracle on
+                 the CPU on the reassociation-free, transcendental-free
+                 node pool (PARITY.md:102-109); on the card held to
+                 parity's -90 dBFS against the oracle.  Slow on the CPU;
+                 for verification.
 
 This module holds the port's own policy state, separate from the JAX
 package's.  The policy is read when a graph renders.
@@ -44,14 +50,20 @@ class PrecisionPolicy:
     # dtype of the FIR's accumulation: its convolution and warm-up sums
     # (the reference accumulates in f64, fir.rs:204-216)
     fir_accum_dtype: str = "float32"
+    # evaluate the linear recurrences strictly sequentially, per sample
+    # (bit-order parity with the reference's loops)
+    sequential_recurrences: bool = False
 
 
 FAST = PrecisionPolicy("fast", scan_internal_dtype="float32",
                        fir_accum_dtype="float32")
 PARITY = PrecisionPolicy("parity", scan_internal_dtype="float64",
                          fir_accum_dtype="float64")
+EXACT = PrecisionPolicy("exact", scan_internal_dtype="float32",
+                        fir_accum_dtype="float64",
+                        sequential_recurrences=True)
 
-_POLICIES = {p.name: p for p in (FAST, PARITY)}
+_POLICIES = {p.name: p for p in (FAST, PARITY, EXACT)}
 
 _current = PARITY
 
@@ -62,13 +74,7 @@ def get_policy() -> PrecisionPolicy:
 
 def set_policy(p: str | PrecisionPolicy) -> PrecisionPolicy:
     global _current
-    name = p if isinstance(p, str) else p.name
-    if name == "exact":
-        raise NotImplementedError(
-            "precision policy 'exact' is not ported to dsp_stuff_tpu_torch "
-            "yet (ROADMAP Queue 1, 'Left from Slice A'; its bitwise "
-            "contract holds on the CPU only, Queue 3 item 4)")
-    _current = _POLICIES[name]
+    _current = _POLICIES[p if isinstance(p, str) else p.name]
     return _current
 
 
@@ -95,7 +101,8 @@ def gemm_precision(l1: float | None = None) -> str:
 # -- the JAX package's bit-exactness fences --------------------------------
 # There they defend against XLA's value-changing rewrites (FMA contraction
 # across ops, recip-mul for divides).  Eager PyTorch runs each op as its
-# own kernel and rounds once per op, so the fenced forms are plain ops.
+# own kernel and rounds once per op, so the multiplies are plain ops; a
+# divide needs its divisor on the device (``scalar_on``).
 
 @functools.lru_cache(maxsize=4096)
 def scalar_on(value: float, device, dtype=torch.float32) -> torch.Tensor:
@@ -122,6 +129,13 @@ def mul_unfused(a, b):
 
 
 def div_ieee(a, b):
+    """a / b rounded once, on every device: a Python or NumPy number
+    divisor (rounded to f32 first, as the JAX package's) of a CUDA tensor
+    becomes a cached device scalar, since CUDA's divide by a host scalar
+    multiplies by the reciprocal."""
+    if (isinstance(b, (int, float, np.number)) and isinstance(a, torch.Tensor)
+            and a.is_cuda):
+        b = scalar_on(float(np.float32(b)), a.device)
     return a / b
 
 
@@ -130,4 +144,4 @@ def exact_mul(a, b):
 
 
 def exact_div(a, b):
-    return a / b
+    return div_ieee(a, b)

@@ -1,7 +1,7 @@
 """The port's command line (python -m dsp_stuff_tpu_torch) in subprocesses,
-on the CPU: nodes, inspect, render, fit and debug with --device cpu, and
-the refusals (the card by default where there is none, the exact
-policy)."""
+on the CPU: nodes, inspect, render (under fast and exact), fit and debug
+with --device cpu, and the refusal of the card by default where there is
+none."""
 
 import json
 import pathlib
@@ -17,6 +17,7 @@ import dsp_stuff_tpu_torch as dt
 from dsp_stuff_tpu_torch.io import wav as wav_io
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+CONFIG1 = str(ROOT / "examples" / "graphs" / "config1.json")
 CONFIG2 = str(ROOT / "examples" / "graphs" / "config2.json")
 
 
@@ -108,8 +109,19 @@ def test_card_is_the_default():
     assert 'device="cpu"' in r.stderr
 
 
-def test_exact_policy_is_refused():
-    r = _cli("render", CONFIG2, "--seconds", "0.01", "--policy", "exact",
-             "--device", "cpu", check=False)
-    assert r.returncode != 0
-    assert "exact" in r.stderr and "not ported" in r.stderr
+def test_render_exact_policy(tmp_path):
+    """--policy exact --device cpu writes the WAV of the in-process exact
+    render_file, bit for bit (config1: gain into a biquad, the sequential
+    solve)."""
+    x = (np.random.default_rng(1).standard_normal(4800) * 0.3
+         ).astype(np.float32)
+    inp, out = str(tmp_path / "in.wav"), str(tmp_path / "out.wav")
+    wav_io.write_wav(inp, x)
+    r = _cli("render", CONFIG1, "--in", inp, "--out", out, "--policy",
+             "exact", "--device", "cpu")
+    assert "on cpu" in r.stdout
+    data, rate = wav_io.read_wav(out)
+    with dt.policy("exact"):
+        want, _ = dt.render_file(CONFIG1, inp, device="cpu")
+    assert rate == 48_000 and data.shape[-1] == 4800
+    np.testing.assert_array_equal(data, want)

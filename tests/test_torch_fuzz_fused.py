@@ -18,10 +18,11 @@ CPU bounds, each with the worst the CPU measured:
   mega cycle, two halves vs one           <= -100 (-168.6)
   the two planner-rule graphs vs oracle   <= -80 (-141.0)
   vs the JAX package's render (relative dBFS), fast   <= -100 (-129.8)
+  feedback linear, exact vs oracle        bitwise (the JAX file's
+                                          tests/test_fuzz_graphs.py:505)
 
-The exact-policy feedback fuzz (tests/test_fuzz_graphs.py:503) waits for
-the port's exact policy and the streaming one (:603) for its runtime
-(ROADMAP Queue 1).
+The streaming fuzz (tests/test_fuzz_graphs.py:253) is ported in
+tests/test_torch_fuzz_graphs.py.
 """
 
 import numpy as np
@@ -45,6 +46,7 @@ FAST_DB = -80.0
 HANDOFF_DB = -100.0
 VS_JAX_DB = -100.0
 MEGA_CYCLE_SEEDS = list(range(10))
+FEEDBACK_EXACT_SEEDS = [0, 3, 7, 10]
 
 
 @pytest.fixture(autouse=True)
@@ -162,6 +164,20 @@ def test_feedback_linear_fusion_fuzz_not_vacuous():
 @pytest.mark.parametrize("seed", [1, 4, 8])
 def test_random_feedback_linear_segmented_state_carry(seed):
     _halves_vs_one(tfuzz._random_feedback_linear_graph, seed, 13_000 + seed)
+
+
+@pytest.mark.parametrize("seed", FEEDBACK_EXACT_SEEDS)
+def test_random_feedback_linear_exact_bitwise(seed):
+    """The same cycle shapes under the exact policy (nothing fuses; the
+    per-node block scan with the sequential solves) stay bitwise the
+    oracle interpreter."""
+    g, inp_id, out_id = tfuzz._random_feedback_linear_graph(seed, exact=True)
+    x = _x(12_000 + seed)
+    with dt.policy("exact"):
+        outs, _, _ = dt.render(g, {str(inp_id): x}, device="cpu")
+    np.testing.assert_array_equal(outs[0].numpy(),
+                                  _oracle(g, inp_id, out_id, x),
+                                  err_msg=f"seed {seed}")
 
 
 def test_in_cycle_fusion_contiguity_rules():

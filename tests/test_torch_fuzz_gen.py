@@ -2,16 +2,44 @@
 
 These are the generators of tests/test_fuzz_graphs.py, line for line
 (the same draws in the same order, so each seed builds the same graph
-JSON: tests/test_torch_fuzz_graphs.py holds them equal), less the exact
-policy's node pool, which waits for the port's exact policy.  Nothing
-here imports JAX, so chip_smoke.py builds its card-phase graphs from this
-module.  The module defines no tests.
+JSON: tests/test_torch_fuzz_graphs.py holds them equal), the exact
+policy's node pool included.  Nothing here imports JAX, so chip_smoke.py
+builds its card-phase graphs from this module.  The module defines no
+tests.
 """
 
 import numpy as np
 
 import dsp_stuff_tpu_torch as dst
 from dsp_stuff_tpu_torch.ids import IdSpace
+
+
+# reassociation-free, transcendental-free types: the exact policy's
+# BITWISE claim holds for these (PARITY.md scope)
+def _exact_pool(rng):
+    return [
+        ("gain", {"level": float(rng.uniform(0.3, 1.8))}),
+        ("add", {}),
+        ("mix", {"ratio": float(rng.uniform(0.1, 0.9))}),
+        ("distort", {"mode": str(rng.choice(
+            ["HardClip", "SoftClip", "Square", "Chebyshev4",
+             "RecipSoftClip"])),
+            "level": float(rng.uniform(0.5, 6.0))}),
+        ("biquad", {"a0": 1.0, "a1": float(rng.uniform(-0.6, 0.0)),
+                    "a2": float(rng.uniform(0.0, 0.2)),
+                    "b0": float(rng.uniform(0.4, 1.0)),
+                    "b1": float(rng.uniform(-0.2, 0.2)), "b2": 0.0}),
+        ("low_pass", {"ratio": float(rng.uniform(0.1, 0.9))}),
+        ("high_pass", {"ratio": float(rng.uniform(0.05, 0.6))}),
+        ("reverb", {"seconds": float(rng.uniform(0.003, 0.012)),
+                    "decay": float(rng.uniform(0.2, 0.6))}),
+        ("fir", {"mode": "Balanced",
+                 "taps": [float(v) for v in
+                          rng.standard_normal(int(rng.integers(2, 24)))
+                          * 0.3]}),
+        ("mux", {"in_port": str(rng.choice(["A", "B"]))}),
+        ("demux", {"out_port": str(rng.choice(["A", "B"]))}),
+    ]
 
 
 # (type, params) factories with stable, non-degenerate settings
@@ -52,13 +80,13 @@ def _mid_pool(rng):
     ]
 
 
-def _random_graph(seed):
+def _random_graph(seed, exact=False):
     rng = np.random.default_rng(seed)
     g = dst.Graph(IdSpace())
     inp = g.add("input")
     nodes = [inp]
     n_mid = int(rng.integers(3, 8))
-    pool = _mid_pool(rng)
+    pool = _exact_pool(rng) if exact else _mid_pool(rng)
     for _ in range(n_mid):
         t, params = pool[int(rng.integers(0, len(pool)))]
         nodes.append(g.add(t, **params))
@@ -96,8 +124,9 @@ def _random_graph(seed):
             g.connect(src, str(rng.choice(list(src.spec.outputs))),
                       dst_n, str(rng.choice(list(dst_n.spec.inputs))))
 
-    # occasionally modulate an as_input port from a slow sine
-    mod_targets = [
+    # occasionally modulate an as_input port from a slow sine (the sine
+    # LFO is transcendental -> skipped in exact-pool graphs)
+    mod_targets = [] if exact else [
         (n, ps.name) for n in nodes[1:]
         for ps in n.spec.params if getattr(ps, "as_input", False)]
     if mod_targets and rng.random() < 0.5:
@@ -147,7 +176,7 @@ def _random_linear_chain_graph(seed):
     return g, inp_id, out.id
 
 
-def _random_feedback_linear_graph(seed):
+def _random_feedback_linear_graph(seed, exact=False):
     """Feedback graphs whose cycle bodies contain fusable linear runs —
     the config5 shape, randomized: input -> add -> [linear run] -> ...
     with a gain-scaled back edge re-entering the add.  Sometimes the
@@ -178,7 +207,7 @@ def _random_feedback_linear_graph(seed):
         g.connect(prev, "out", n, "in")
         chain.append(n)
         prev = n
-    if rng.random() < 0.4:                      # nonlinear loop member
+    if not exact and rng.random() < 0.4:        # nonlinear loop member
         n = g.add("distort", mode="SoftClip",
                   level=float(rng.uniform(0.5, 2.0)))
         g.connect(prev, "out", n, "in")

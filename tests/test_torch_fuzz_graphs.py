@@ -20,21 +20,23 @@ each with the worst the CPU measured:
   StreamSession (128-sample process() blocks, process_many chunks) vs one
   offline render, fast  <= -90 (the JAX file's: blocked solves reassociate
                         at another T); process_many vs process() bitwise
-
-The exact-policy fuzz (tests/test_fuzz_graphs.py:213, :230) waits for the
-port's exact policy (ROADMAP Queue 1).
+  exact-pool graphs under exact (tests/test_fuzz_graphs.py:215, :232):
+  vs oracle, two half renders vs one, vs the JAX package's exact render,
+  and streamed (process() blocks, process_many) vs one render   bitwise
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import dsp_stuff_tpu as dj
 import dsp_stuff_tpu_torch as dt
 import oracle
 import test_fuzz_graphs as jfuzz
 import test_torch_fuzz_gen as tfuzz
 from dsp_stuff_tpu.ids import IdSpace as JIdSpace
+from dsp_stuff_tpu_torch.models import presets
 from dsp_stuff_tpu_torch.utils import precision as tprec
 from oracle import graph as oracle_graph
 
@@ -53,6 +55,14 @@ BATCH_SEEDS = [2, 8, 21]
 SEGMENT_SEEDS = [1, 5, 13]
 STREAM_SEEDS = [2, 7, 21]
 STREAM_CHAIN_SEEDS = [2, 7]
+EXACT_SEEDS = [4, 9, 16, 25, 36, 49, 64, 81, 100, 121, 169, 196]
+EXACT_SEGMENT_SEEDS = [9, 25, 49]
+EXACT_VS_JAX_SEEDS = [9, 100, 169]
+EXACT_STREAM_SEEDS = [16, 64, 100]
+#: the exact-pool seeds of each generator that takes ``exact``, here and in
+#: tests/test_torch_fuzz_fused.py
+EXACT_SEEDS_USED = {"_random_graph": EXACT_SEEDS,
+                    "_random_feedback_linear_graph": [0, 3, 7, 10]}
 GENERATORS = ["_random_graph", "_random_linear_chain_graph",
               "_random_feedback_linear_graph", "_random_mega_cycle_graph"]
 #: the seeds each generator is rendered at, here and in
@@ -108,6 +118,16 @@ def test_generators_build_the_jax_json(name):
     for seed in SEEDS_USED[name]:
         gt, it, ot = getattr(tfuzz, name)(seed)
         gj, ij, oj = getattr(jfuzz, name)(seed)
+        assert dt.dumps_graph(gt) == dj.dumps_graph(gj), (name, seed)
+        assert (it, ot) == (ij, oj)
+
+
+@pytest.mark.parametrize("name", sorted(EXACT_SEEDS_USED))
+def test_exact_generators_build_the_jax_json(name):
+    """The exact pool's draws are the JAX file's too."""
+    for seed in EXACT_SEEDS_USED[name]:
+        gt, it, ot = getattr(tfuzz, name)(seed, exact=True)
+        gj, ij, oj = getattr(jfuzz, name)(seed, exact=True)
         assert dt.dumps_graph(gt) == dj.dumps_graph(gj), (name, seed)
         assert (it, ot) == (ij, oj)
 
@@ -233,3 +253,86 @@ def test_random_linear_chain_streaming_matches_offline(seed):
     db = oracle.max_err_dbfs(many, offline)
     assert db <= STREAM_DB, f"seed {seed}: {db:.1f} dBFS"
     np.testing.assert_array_equal(many, blocks)
+
+
+@pytest.mark.parametrize("seed", EXACT_SEEDS)
+def test_random_graph_exact_bitwise(seed):
+    """The exact policy's bitwise claim, fuzzed: random topologies over the
+    reassociation-free pool reproduce the oracle interpreter bit for bit
+    (fan-in order, true divides, sequential recurrences, cycle latency)."""
+    g, inp_id, out_id = tfuzz._random_graph(seed, exact=True)
+    x = _x(4000 + seed)
+    got = _render(g, inp_id, x, "exact")[0]
+    np.testing.assert_array_equal(got, _oracle(g, inp_id, out_id, x),
+                                  err_msg=f"seed {seed}")
+
+
+@pytest.mark.parametrize("seed", EXACT_SEGMENT_SEEDS)
+def test_random_graph_exact_segmented_bitwise(seed):
+    """Under exact two half renders are one render, bit for bit."""
+    g, inp_id, _ = tfuzz._random_graph(seed, exact=True)
+    x = _x(5000 + seed)
+    half = T // 2
+    with dt.policy("exact"):
+        cg = dt.compile_graph(g, device="cpu")
+        full, _, _ = cg.render({str(inp_id): x})
+        a, _, st = cg.render({str(inp_id): x[:half]})
+        b, _, _ = cg.render({str(inp_id): x[half:]}, state=st)
+    np.testing.assert_array_equal(torch.cat([a[0], b[0]]).numpy(),
+                                  full[0].numpy(), err_msg=f"seed {seed}")
+
+
+@pytest.mark.parametrize("seed", EXACT_VS_JAX_SEEDS)
+def test_random_graph_exact_vs_jax(seed):
+    """The port's exact render is the JAX package's, bit for bit."""
+    g, inp_id, _ = tfuzz._random_graph(seed, exact=True)
+    gj, _, _ = jfuzz._random_graph(seed, exact=True)
+    x = _x(4000 + seed)
+    got = _render(g, inp_id, x, "exact")
+    with dj.policy("exact"):
+        want, _, _ = dj.render(gj, {str(inp_id): x})
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("seed", EXACT_STREAM_SEEDS)
+def test_random_graph_exact_streaming_bitwise(seed):
+    """StreamSession under exact: 128-sample process() blocks and
+    process_many chunks are the exact render, bit for bit (every op of
+    the path is elementwise or order-pinned)."""
+    g, inp_id, _ = tfuzz._random_graph(seed, exact=True)
+    x = _x(6000 + seed)
+    offline = _render(g, inp_id, x, "exact")[0]
+    with dt.policy("exact"):
+        sess = dt.StreamSession(g, device="cpu")
+        blocks = np.concatenate([sess.process({str(inp_id): x[i:i + 128]})[0]
+                                 for i in range(0, T, 128)])
+        sess2 = dt.StreamSession(g, device="cpu")
+        many = np.concatenate([
+            sess2.process_many({str(inp_id): x[a:b]})[0]
+            for a, b in ((0, 5 * 128), (5 * 128, T))])
+    np.testing.assert_array_equal(blocks, offline, err_msg=f"seed {seed}")
+    np.testing.assert_array_equal(many, offline, err_msg=f"seed {seed}")
+
+
+@pytest.mark.parametrize("seed", EXACT_SEEDS + ["config5"])
+def test_smoke_oracle_is_the_oracle(seed):
+    """chip_smoke.oracle_evaluate (the oracle interpreter's loop over the
+    port's graph, planned by the port's SCC order and node pruning, so that
+    the card's run imports nothing of the JAX package) is
+    tests/oracle/graph.evaluate over the JAX package's graph, bit for bit,
+    on the exact-pool graphs the smoke run holds the card to, and on
+    config5."""
+    assert chip_smoke.EXACT_FUZZ_SEEDS == tuple(EXACT_SEEDS)
+    if seed == "config5":
+        g, meta = presets.config5_feedback_16node()
+        inp_id = meta["input"]
+    else:
+        g, inp_id, _ = tfuzz._random_graph(seed, exact=True)
+    x = _x(7000 + (seed if isinstance(seed, int) else 0))
+    got = chip_smoke.oracle_evaluate(g, {inp_id: x}, T)
+    gj = dj.loads_graph(dt.dumps_graph(g), ids=JIdSpace())
+    want = oracle_graph.evaluate(gj, {inp_id: x}, T)
+    assert sorted(got) == sorted(want)
+    for out_id in want:
+        np.testing.assert_array_equal(got[out_id], want[out_id],
+                                      err_msg=f"{seed} output {out_id}")

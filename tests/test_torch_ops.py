@@ -252,9 +252,3 @@ def test_linear_cascade_emits(pol):
     _assert_state(got[2], want[2])
     for g, w in zip(got[3], want[3]):
         _assert_db(_np(g), w, pol)
-
-
-def test_exact_policy_not_ported():
-    with pytest.raises(NotImplementedError, match="exact"):
-        tprec.set_policy("exact")
-    assert tprec.get_policy().name in ("fast", "parity")

@@ -146,12 +146,12 @@ def test_stream_block_multiple_of_128():
     assert sess.process({str(inp_id): x}).shape == (1, 256)
 
 
-@pytest.mark.parametrize("pol", POLICIES)
+@pytest.mark.parametrize("pol", [*POLICIES, "exact"])
 def test_checkpoint_resume(tmp_path, pol):
-    """Resume mid-render against an uninterrupted render, under fast and
-    parity at HANDOFF_DB.  The JAX test's bitwise half runs under the
-    exact policy, which the port does not have yet (ROADMAP Queue 1
-    item 3): it waits for it."""
+    """Resume mid-render against an uninterrupted render: under fast and
+    parity at HANDOFF_DB, under exact bit for bit (the JAX test's bitwise
+    half: the sequential solves do not depend on how the render is
+    cut)."""
     g, inp_id = _chain()
     T = 1024
     x = (np.random.default_rng(31).standard_normal(T) * 0.3
@@ -168,6 +168,8 @@ def test_checkpoint_resume(tmp_path, pol):
         half2, _, _ = cg2.render(
             {str(cg2.input_ids[0]): torch.from_numpy(x[512:])}, state=st2)
     got = torch.cat([half1[0], half2[0]]).numpy()
+    if pol == "exact":
+        np.testing.assert_array_equal(got, full[0].numpy())
     assert _dbfs(got, full[0].numpy()) <= HANDOFF_DB
 
 
