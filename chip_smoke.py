@@ -82,6 +82,23 @@ device="cuda")``:
   (_random_graph(seed, exact=True)) at 4 streams x 1 s against the oracle
   and the CPU port; and the kernel's times at [512, 480,000] against its
   dependent-chain floor;
+* gradients on the card: the bench chain's loss gradient with respect
+  to its input and to the gain's level alone (the rest fused) through
+  the chain kernel at 128 streams x 10 s, config5's input gradient
+  through the cycle kernel at 128 x 3 s (each forward one launch of its
+  kernels and no plain version; forward and backward times, the device
+  time split, peak memory), each also against the CPU port at 2 x 1 s;
+  every slider of config2 and config5 against the CPU port and one Adam
+  step of config2 at 128 x 10 s; the sequential kernel's reverse mode
+  against its plain version ([512, 4096], edge shapes, and the exact
+  gradient's [4, 48000], where both are timed) and against a float64
+  adjoint at [512, 480,000], where it is timed against its chain floor;
+  the bench chain's 16 slider gradients under exact at 4 x 1 s (three
+  forward and three reverse sequential launches, no plain loop) and an
+  exact one-pole with a per-sample coefficient, against the CPU port;
+  render_sharded over one and two shards of the card bitwise the
+  unsharded render at 512 x 10 s, and one make_sharded_train_step step
+  against the unsharded step;
 
 and times every kernel against its plain version (the chain kernel on
 the bench list at 1, 128, 512 and 1024 streams and on config5's list at
@@ -176,6 +193,18 @@ SEQ_A = 0.9173            # the first order's scalar coefficient
 SEQ_CHAIN_OPS = {"first_order": 2, "first_order:per-sample": 2, "biquad": 3}
 SM_CLOCK_GHZ = 1.98
 B_EXACT = 4               # config5 and the exact-pool fuzz (x 1 s)
+GRAD_RTOL = 1e-3          # gradients, card vs CPU port (arrays max-normalized)
+GRAD_ATOL = 1e-6          # ... a scalar gradient that is about 0
+B_GRAD = 128              # the gradient phase's streams (the training step's)
+SEQ_REV = {"first_order_reverse": "first_order",     # reverse mode -> forward
+           "first_order_reverse_per_sample": "first_order:per-sample",
+           "biquad_reverse": "biquad"}
+SEQ_REV_DB = -120.0       # reverse mode vs its plain version, sample adjoints
+SEQ_REV_F64_DB = -90.0    # ... vs the float64 adjoint at the main shape
+SEQ_REV_RTOL = 1e-4       # coefficient gradients, both
+B_SHARD, B_SHARD_STEP = 512, 128   # render_sharded (x 10 s), the step (x 1 s)
+B_SHARD_MIX = 8           # the step over the card and the CPU (x 1 s)
+STEP_RTOL, STEP_ATOL = 1e-5, 1e-6  # sharded step vs unsharded: loss, sliders
 EXACT_FUZZ_SEEDS = (4, 9, 16, 25, 36, 49, 64, 81, 100, 121, 169, 196)
 
 
@@ -602,7 +631,8 @@ def calls_counted(targets, counts: dict):
 def plain_versions_counted(counts: dict, first_order: bool = False):
     """Count calls of the kernels' plain versions while the block runs
     (the main path on the card must call none of them): always the
-    sequential kernel's (the exact policy's loops); ``first_order`` adds
+    sequential kernel's (the exact policy's loops, forward and reverse);
+    ``first_order`` adds
     the first-order kernel's (a render calls _first_order_blocked for a
     concrete degenerate biquad, which takes no kernel in either
     package)."""
@@ -611,7 +641,9 @@ def plain_versions_counted(counts: dict, first_order: bool = False):
     targets = [(chain_segment, "segment_fallback"),
                (cycle_segment, "interpret"), (envelope, "_chunked_batched"),
                (envelope, "_seq_scan"), (scan, "_first_order_sequential"),
-               (scan, "_biquad_sequential")]
+               (scan, "_biquad_sequential"),
+               (scan, "_first_order_adjoint_sequential"),
+               (scan, "_biquad_adjoint_sequential")]
     if first_order:
         targets += [(scan, "_first_order_blocked"),
                     (scan, "_first_order_scan")]
@@ -914,13 +946,17 @@ def render_target(cg, ext, params):
 
 def loss_grads(cg, ext, target):
     """(loss, {node/param: gradient}) of make_loss_fn at the graph's own
-    slider values."""
+    slider values; a slider with no path to the loss (a knob its
+    modulation input overrides) gets 0."""
+    import torch
     from dsp_stuff_tpu_torch.train import fit
     p = cg.init_params(requires_grad=True)
     loss = fit.make_loss_fn(cg)(p, cg.init_state(), ext, target)
     loss.backward()
-    return loss.detach(), {f"{n}/{k}": v.grad for n, e in sorted(p.items())
-                           for k, v in sorted(e.items())}
+    return loss.detach(), {
+        f"{n}/{k}": v.grad if v.grad is not None else torch.zeros(
+            (), device=v.device) for n, e in sorted(p.items())
+        for k, v in sorted(e.items())}
 
 
 def grads_card_vs_cpu(name, graph, x_np, hidden):
@@ -2381,6 +2417,673 @@ def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
     return rec
 
 
+# -- gradients on the card ------------------------------------------------------
+
+def grad_close(name, got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL) -> float:
+    """A gradient on the card against the CPU port's: an array
+    max-normalized (max |got - want| / max |want| <= rtol), a scalar
+    within rtol or ``atol`` near 0.  Returns the relative error."""
+    g = np.asarray(got.detach().double().cpu() if hasattr(got, "detach")
+                   else got, np.float64)
+    w = np.asarray(want.detach().double().cpu() if hasattr(want, "detach")
+                   else want, np.float64)
+    check(g.shape == w.shape, f"{name}: shape {g.shape} vs {w.shape}")
+    if g.ndim:
+        err = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+        check(bool(np.isfinite(g).all()) and err <= rtol,
+              f"{name}: gradient max-normalized error {err:.2e} > {rtol}")
+        return err
+    err = float(abs(g - w) / max(abs(w), 1e-30))
+    check(bool(np.isfinite(g)) and abs(g - w) <= max(rtol * abs(w), atol),
+          f"{name}: gradient {float(g):.6e} on the card vs {float(w):.6e}")
+    return err
+
+
+def loss_and_grads(cg, x, target, params=None, wrt_input=True,
+                   first_order=True):
+    """make_loss_fn's loss of the graph over x [B, T] (its one input) with
+    override sliders ``params`` (leaf tensors that require grad) and its
+    gradients, the input's first; the forward's launches and plain calls
+    (``first_order``: the first-order kernel's plain versions counted too,
+    as plain_versions_counted says) and the backward's launches apart, the
+    forward + backward wall time and the peak device memory (GiB; 0 on the
+    CPU)."""
+    import torch
+    from dsp_stuff_tpu_torch.train import fit
+    dev = cg.device
+    xt = x.detach().clone().requires_grad_(wrt_input)
+    params = params or {}
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    plain = {}
+    reset_launches()
+    t0 = time.time()
+    with plain_versions_counted(plain, first_order=first_order):
+        loss = fit.make_loss_fn(cg)(params, cg.init_state(),
+                                    {str(cg.input_ids[0]): xt}, target)
+    fwd = read_launches()
+    reset_launches()
+    loss.backward()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    bwd = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+    grads = ([xt.grad] if wrt_input else []) + [
+        v.grad for _, e in sorted(params.items()) for _, v in sorted(e.items())]
+    return dict(loss=loss.detach(), grads=grads, fwd=fwd, bwd=bwd,
+                plain=plain, wall=wall, peak=peak)
+
+
+def slider_params(cg, cfg, name):
+    """{node: {name: leaf tensor}} for the first node of type ``cfg`` at
+    its graph value: the subset a fit of that one slider overrides."""
+    import torch
+    nid = min(n.id for n in cg.graph.nodes.values() if n.cfg_name == cfg)
+    v = float(np.float32(cg.graph.nodes[nid].params[name]))
+    return {str(nid): {name: torch.tensor(v, device=cg.device,
+                                          requires_grad=True)}}
+
+
+def grad_pair(name, graph, x_np, tgt_np, dev, subset=None, wrt_input=True):
+    """One loss gradient (the input's, or a slider subset's) on the card
+    ``dev`` against the CPU port on the same inputs; returns the worst
+    error."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    cpu, card = (loss_and_grads(
+        cg, torch.as_tensor(x_np, device=d), torch.as_tensor(tgt_np, device=d),
+        slider_params(cg, *subset) if subset else None, wrt_input)
+        for d in ("cpu", dev) for cg in [dst.compile_graph(graph, device=d)])
+    worst = grad_close(f"{name}: loss", card["loss"], cpu["loss"])
+    for i, (g, w) in enumerate(zip(card["grads"], cpu["grads"])):
+        worst = max(worst, grad_close(f"{name}: gradient {i}", g, w))
+    print(f"  {name}, [{x_np.shape[0]}, {x_np.shape[-1]}]: card vs CPU port "
+          f"worst {worst:.2e} (rtol {GRAD_RTOL}); forward launches on the "
+          f"card {card['fwd']}")
+    return worst
+
+
+def fused_grad_main(name, cg, x, target, expect, subset=None,
+                    wrt_input=True, card="", first_order=True):
+    """A loss gradient through the fused kernels on the card at full
+    width: the forward launches ``expect`` and calls no plain version;
+    prints the forward + backward time, the peak memory and what the
+    backward launches."""
+    r = loss_and_grads(cg, x, target,
+                       slider_params(cg, *subset) if subset else None,
+                       wrt_input, first_order)
+    check(not r["plain"], f"{name}: the forward called plain versions "
+                          f"{r['plain']}")
+    check(r["fwd"] == expect, f"{name}: the forward launched {r['fwd']}, "
+                              f"expected {expect}")
+    check(all(bool(g.isfinite().all()) for g in r["grads"]),
+          f"{name}: gradients not finite")
+    print(f"main path ({name}), [{x.shape[0]}, {x.shape[-1]}]: forward + "
+          f"backward {r['wall'] * 1e3:.1f} ms (first call), peak "
+          f"{r['peak']:.2f} GiB, forward launches {r['fwd']} and no plain "
+          f"version, backward launches {r['bwd']} [{card}]")
+    return r
+
+
+GRAD_OPS = {
+    "products": ("aten::mm", "aten::bmm", "aten::addmm"),
+    "shaper math": ("aten::atan", "aten::tanh", "aten::exp", "aten::sin",
+                    "aten::cos", "aten::pow", "aten::sqrt",
+                    "aten::reciprocal", "aten::tanh_backward"),
+    "elementwise": ("aten::mul", "aten::add", "aten::sub", "aten::div",
+                    "aten::where", "aten::neg", "aten::abs", "aten::sign",
+                    "aten::clamp", "aten::maximum", "aten::minimum",
+                    "aten::mul_", "aten::add_", "aten::fill_",
+                    "aten::zero_", "aten::sum", "aten::mean"),
+    "copies": ("aten::cat", "aten::copy_", "aten::clone",
+               "aten::constant_pad_nd", "aten::roll", "aten::index",
+               "aten::slice_backward", "aten::select_backward",
+               "aten::index_select", "aten::index_add_", "aten::flip")}
+
+
+def grad_split(name, cg, x, target, card) -> dict:
+    """The input gradient's forward and backward apart (wall, medians of
+    three after a first call) and one forward + backward's device time by
+    torch.profiler, split by op group ("other": the ops outside the
+    groups and the chain kernel, whose ctypes launch the profiler counts
+    there)."""
+    import torch
+    from dsp_stuff_tpu_torch.train import fit
+    key = str(cg.input_ids[0])
+
+    def run():
+        xt = x.detach().clone().requires_grad_(True)
+        loss = fit.make_loss_fn(cg)({}, cg.init_state(), {key: xt}, target)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        loss.backward()
+        torch.cuda.synchronize()
+        return t1, time.time()
+
+    fwd, bwd = [], []
+    run()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        t1, t2 = run()
+        fwd.append((t1 - t0) * 1e3)
+        bwd.append((t2 - t1) * 1e3)
+    split, total = device_split(run, GRAD_OPS)
+    rec = dict(fwd_ms=float(np.median(fwd)), bwd_ms=float(np.median(bwd)),
+               device_ms=total, split=split)
+    print(f"{name}: forward {rec['fwd_ms']:.3f} ms, backward "
+          f"{rec['bwd_ms']:.3f} ms (wall, medians of 3); one forward + "
+          f"backward on the card {total:.3f} ms: " + ", ".join(
+              f"{k} {v:.3f} ms ({v / max(total, 1e-9):.1%})"
+              for k, v in split.items()) + f" [{card}]")
+    return rec
+
+
+def seq_rev_inputs(mode, R, T, rng, dev):
+    """The forward solve's inputs in ``mode``'s forward form, its output y
+    (the sequential kernel's) and a cotangent ybar, [R, T] on ``dev``."""
+    import torch
+    fwd = SEQ_REV[mode]
+    ins = seq_inputs(fwd, R, T, rng, dev)
+    y = seq_kernel(fwd, ins)[0]
+    ybar = torch.as_tensor(rng.standard_normal((R, T), dtype=np.float32),
+                           device=dev)
+    return ins, y, ybar
+
+
+def seq_rev_kernel(mode, ins, y, ybar):
+    """The reverse mode's outputs: (lam, abar: row sums [R] f64 or [R, T],
+    y0bar [R]) or (xbar, the state's gradient [R, 4], row sums [R, 5]
+    f64)."""
+    from dsp_stuff_tpu_torch.ops import sequential_kernel
+    if mode == "biquad_reverse":
+        x, c, st = ins
+        return sequential_kernel.biquad_reverse_cuda(x, y, c, st, ybar)
+    a, _, y0 = ins
+    return sequential_kernel.first_order_reverse_cuda(a, y, y0, ybar)
+
+
+def seq_rev_plain(mode, ins, y, ybar):
+    """The reverse mode's plain version on the same inputs."""
+    from dsp_stuff_tpu_torch.ops import scan
+    if mode == "biquad_reverse":
+        x, c, st = ins
+        return scan._biquad_adjoint_sequential(x, y, c, st, ybar)
+    a, _, y0 = ins
+    return scan._first_order_adjoint_sequential(a, y, y0, ybar)
+
+
+def seq_rev_parts(mode, out):
+    """({name: sample adjoint}, the coefficients' gradients, float64 [n])
+    of a reverse mode's outputs: the row sums added over the rows."""
+    import torch
+    if mode == "biquad_reverse":
+        xbar, sbar, acc = out
+        return {"xbar": xbar, "state": sbar}, acc.sum(0)
+    lam, abar, y0bar = out
+    if mode == "first_order_reverse_per_sample":
+        return ({"lam": lam, "abar": abar, "y0bar": y0bar},
+                torch.zeros(0, dtype=torch.float64, device=lam.device))
+    return {"lam": lam, "y0bar": y0bar}, abar.sum().reshape(1)
+
+
+def seq_rev_f64(mode, ins, y, ybar):
+    """The adjoint in float64 at the same trajectory y: the parity path's
+    blocked solves on the flipped cotangent (``first_order_plain``; for
+    the biquad ``_biquad_blocked`` with b = (1, 0, 0), whose output it
+    rounds to f32), the rest in float64."""
+    import torch
+    import torch.nn.functional as F
+    from dsp_stuff_tpu_torch.ops import scan
+    yb = ybar.double()
+    if mode == "biquad_reverse":
+        x, c, st = ins
+        a1, a2, b0, b1, b2 = (float(v) for v in c)
+        zero = torch.zeros(x.shape[0], dtype=torch.float64, device=x.device)
+        g = scan._biquad_blocked(yb.flip(-1), (a1, a2, 1.0, 0.0, 0.0),
+                                 (zero,) * 4, torch.float64)[0]
+        g = g.flip(-1).double()
+        G1, G2 = F.pad(g[:, 1:], (0, 1)), F.pad(g[:, 2:], (0, 2))
+        xd, yd, sd = x.double(), y.double(), st.double()
+        acc = torch.stack([
+            -((G1 * yd).sum() + (g[:, 0] * sd[:, 2]).sum()),
+            -((G2 * yd).sum() + (g[:, 1] * sd[:, 2]).sum()
+              + (g[:, 0] * sd[:, 3]).sum()),
+            (g * xd).sum(),
+            (G1 * xd).sum() + (g[:, 0] * sd[:, 0]).sum(),
+            (G2 * xd).sum() + (g[:, 1] * sd[:, 0]).sum()
+            + (g[:, 0] * sd[:, 1]).sum()])
+        sbar = torch.stack([b1 * g[:, 0] + b2 * g[:, 1], b2 * g[:, 0],
+                            -a1 * g[:, 0] - a2 * g[:, 1], -a2 * g[:, 0]], -1)
+        return {"xbar": b0 * g + b1 * G1 + b2 * G2, "state": sbar}, acc
+    a, _, y0 = ins
+    a, yd, y0d = a.double(), y.double(), y0.double()
+    per_sample = a.dim() > 0
+    a_next = F.pad(a[:, 1:], (0, 1)) if per_sample else a
+    lam = scan.first_order_plain(a_next, yb, torch.zeros_like(y0d),
+                                 reverse=True)
+    p = lam * torch.cat([y0d[:, None], yd[:, :-1]], dim=-1)
+    y0bar = (a[:, 0] if per_sample else a) * lam[:, 0]
+    if per_sample:
+        return ({"lam": lam, "abar": p, "y0bar": y0bar},
+                torch.zeros(0, dtype=torch.float64, device=a.device))
+    return {"lam": lam, "y0bar": y0bar}, p.sum().reshape(1)
+
+
+def seq_rev_compare(mode, got, want, label, limit, rtol):
+    """Sample adjoints within ``limit`` dBFS (printed with whether they are
+    bitwise), coefficient gradients within ``rtol``; returns (worst dBFS,
+    worst coefficient error, the samples' max abs difference)."""
+    import torch
+    arrs_g, coef_g = got
+    arrs_w, coef_w = want
+    worst, abs_err, same = -np.inf, 0.0, True
+    for k, g in arrs_g.items():
+        w = arrs_w[k]
+        worst = max(worst, dbfs_dev(g, w))
+        abs_err = max(abs_err, float((g.double() - w.double()).abs().max()))
+        same = same and g.dtype == w.dtype and bool(torch.equal(g, w))
+    cerr = 0.0
+    if coef_g.numel():
+        cerr = float(((coef_g - coef_w).abs()
+                      / coef_w.abs().clamp_min(1e-30)).max())
+        same = same and bool(torch.equal(coef_g, coef_w))
+    print(f"  {mode:30s} {label}: sample adjoints {worst:.1f} dBFS, "
+          f"coefficient gradients rel {cerr:.2e}, bitwise {same}")
+    check(worst <= limit, f"{mode} {label}: {worst:.1f} dBFS > {limit}")
+    check(cerr <= rtol, f"{mode} {label}: coefficient gradients rel "
+                        f"{cerr:.2e} > {rtol}")
+    return worst, cerr, abs_err
+
+
+def seq_rev_bound(mode, R, T):
+    """The reverse mode's bound at [R, T]: its arrays read (ybar and y; a
+    per-sample a; the biquad's x) and written (lam or xbar; a per-sample
+    abar) once, its operations (the float64 adds counted as FP32)."""
+    n_bytes = 4.0 * R * T * {"first_order_reverse": 3,
+                             "first_order_reverse_per_sample": 5,
+                             "biquad_reverse": 4}[mode]
+    flops = {"first_order_reverse": 4.0, "first_order_reverse_per_sample":
+             3.0, "biquad_reverse": 19.0}[mode] * R * T
+    return bound(n_bytes, flops)
+
+
+def modulated_filters():
+    """input -> low_pass -> high_pass -> output, whose ratios a caller
+    drives sample by sample (override sliders [B, T]): under exact each
+    solve takes the sequential kernel's per-sample mode."""
+    import dsp_stuff_tpu_torch as dst
+    g = dst.Graph()
+    inp = g.add("input")
+    lp = g.add("low_pass", ratio=0.9)
+    hp = g.add("high_pass", ratio=0.3)
+    g.chain(inp, lp, hp, g.add("output"))
+    return g, (str(lp.id), str(hp.id))
+
+
+def exact_bench_grads(graph, xe, te, dev):
+    """The bench chain's loss gradients under exact (all 16 sliders and
+    the input) on the CPU and the card; the card's sequential launches by
+    wrapper, its launches and the plain loops it called."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import sequential_kernel
+    from dsp_stuff_tpu_torch.train import fit
+    got, modes, plain = {}, {}, {}
+    wrappers = [(sequential_kernel, n) for n in (
+        "first_order_sequential_cuda", "biquad_sequential_cuda",
+        "first_order_reverse_cuda", "biquad_reverse_cuda")]
+    with dst.policy("exact"):
+        for key, d in (("cpu", "cpu"), ("card", dev)):
+            cg = dst.compile_graph(graph, device=d)
+            x = torch.as_tensor(xe, device=d).requires_grad_(True)
+            p = cg.init_params(requires_grad=True)
+            reset_launches()
+            with contextlib.ExitStack() as stack:
+                if key == "card":
+                    stack.enter_context(plain_versions_counted(plain, True))
+                    stack.enter_context(calls_counted(wrappers, modes))
+                loss = fit.make_loss_fn(cg)(p, cg.init_state(),
+                                            {str(cg.input_ids[0]): x},
+                                            torch.as_tensor(te, device=d))
+                loss.backward()
+            got[key] = (loss.detach(), x.grad, p)
+    return got, modes, read_launches(), plain
+
+
+def sharded_step_check(name, cg, m, x_np, tgt_np) -> None:
+    """Two Adam steps of make_sharded_train_step over mesh ``m`` against
+    make_train_step on the whole batch, the second after the caller
+    scaled every slider in place: the loss, the summed gradients (card vs
+    CPU bound) and the sliders after each step."""
+    import torch
+    from dsp_stuff_tpu_torch.train import fit
+    dev = cg.device
+    ext = {str(cg.input_ids[0]): torch.as_tensor(x_np, device=dev)}
+    tgt = torch.as_tensor(tgt_np, device=dev)
+    res = {}
+    for key, (step, init_opt) in (
+            ("unsharded", fit.make_train_step(cg, fit.adam(1e-2))),
+            ("sharded", fit.make_sharded_train_step(cg, m, fit.adam(1e-2)))):
+        params = cg.init_params(requires_grad=True)
+        opt = init_opt(params)
+        res[key] = []
+        for i in range(2):
+            if i:
+                with torch.no_grad():
+                    for e in params.values():
+                        for v in e.values():
+                            v.mul_(0.9)
+            params, opt, loss = step(params, opt, cg.init_state(), ext, tgt)
+            res[key].append((float(loss), {
+                f"{n}/{k}": (float(v.detach()), v.grad.detach().clone())
+                for n, e in params.items() for k, v in e.items()}))
+    worst = worst_g = 0.0
+    for i, ((lw, pw), (lg, pg)) in enumerate(zip(res["unsharded"],
+                                                 res["sharded"])):
+        for key, g, w in [("loss", lg, lw)] + [
+                (k, pg[k][0], v[0]) for k, v in sorted(pw.items())]:
+            check(abs(g - w) <= max(STEP_RTOL * abs(w), STEP_ATOL),
+                  f"sharded step over {name}, step {i}: {key} {g:.8e} vs "
+                  f"{w:.8e}")
+            worst = max(worst, abs(g - w) / max(abs(w), 1e-30))
+        for k, v in sorted(pw.items()):
+            worst_g = max(worst_g, grad_close(
+                f"sharded step over {name}, step {i}: gradient {k}",
+                pg[k][1], v[1]))
+    print(f"make_sharded_train_step over {name} ({m.size} shards), bench "
+          f"chain [{x_np.shape[0]}, {x_np.shape[-1]}], two steps, the "
+          f"sliders scaled in place between them: the loss and "
+          f"{len(res['unsharded'][0][1])} sliders vs the unsharded step "
+          f"worst relative {worst:.2e} (rtol {STEP_RTOL}), the summed "
+          f"gradients {worst_g:.2e} (rtol {GRAD_RTOL})")
+
+
+def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
+    """Gradients on the card: through the fused chain and cycle kernels
+    (the bench chain's input and gain level at b_grad x t_main, config5's
+    input at b_grad x 3 s), every slider of config2 and config5, one Adam
+    step of config2, the sequential kernel's reverse mode against its
+    plain version and a float64 adjoint (timed at [B_MAIN, t_main], and
+    against its plain version at the exact gradient's [B_EXACT, SR]), the
+    bench chain's 16 slider gradients under exact, a low_pass and a
+    high_pass with per-sample ratios under exact, render_sharded over the
+    card's meshes and make_sharded_train_step over two shards of the card
+    and over the card and the CPU; each gradient against the CPU port at
+    2 x 1 s (exact: 4 x 1 s).  Returns the reverse mode's records and
+    launches."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.ops import sequential_kernel
+    from dsp_stuff_tpu_torch.parallel import mesh
+    from dsp_stuff_tpu_torch.train import fit
+    t_phase = time.time()
+    rec = {}
+    rng = np.random.default_rng(120)
+
+    def sig(*shape, scale=0.25):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(scale))
+
+    g_bench = bench_graph()
+    g5, _ = presets.config5_feedback_16node()
+    g2, _ = presets.config2_delay_chorus()
+    with dst.policy("fast"):
+        # -- the bench chain through the chain kernel -----------------------
+        print("gradients through the fused kernels, card vs CPU port (fast):")
+        x2, t2 = sig(2, SR), sig(2, 1, SR, scale=0.1)
+        grad_pair("bench chain, input", g_bench, x2, t2, dev)
+        grad_pair("bench chain, gain level alone", g_bench, x2, t2, dev,
+                  subset=("gain", "level"), wrt_input=False)
+        cg = dst.compile_graph(g_bench, device=dev)
+        x = torch.as_tensor(sig(b_grad, t_main), device=dev)
+        tgt = torch.as_tensor(sig(b_grad, 1, t_main, scale=0.1), device=dev)
+        rec["bench_input"] = fused_grad_main(
+            "bench chain, input gradient", cg, x, tgt,
+            only_launches(chain=1), card=card)
+        rec["bench_split"] = grad_split(
+            f"bench chain input gradient, [{b_grad}, {t_main}]", cg, x, tgt,
+            card)
+        rec["bench_level"] = fused_grad_main(
+            "bench chain, gain level alone, the rest fused", cg, x, tgt,
+            only_launches(chain=1), subset=("gain", "level"),
+            wrt_input=False, card=card)
+        del x, tgt, cg
+        torch.cuda.empty_cache()
+
+        # -- config5 through the cycle kernel --------------------------------
+        grad_pair("config5, input", g5, x2, t2, dev)
+        cg5 = dst.compile_graph(g5, device=dev)
+        x = torch.as_tensor(sig(b_grad, 3 * SR), device=dev)
+        tgt = torch.as_tensor(sig(b_grad, 1, 3 * SR, scale=0.1), device=dev)
+        # config5's degenerate biquad takes _first_order_blocked in either
+        # package (plain_versions_counted)
+        rec["c5_input"] = fused_grad_main(
+            "config5, input gradient", cg5, x, tgt,
+            only_launches(chain=1, cycle=1, envelope=1), card=card,
+            first_order=False)
+        del x, tgt, cg5
+        torch.cuda.empty_cache()
+
+        # -- every slider of config2 and config5 ----------------------------
+        print(f"every slider, card vs CPU port (fast, node by node) "
+              f"[{time.time() - t_phase:.0f} s]:")
+        rngf = np.random.default_rng(121)
+        grads_card_vs_cpu("config2 (chorus) fit", g2,
+                          (rngf.standard_normal((2, SR)) * 0.3)
+                          .astype(np.float32), {"gain": ("level", 0.6)})
+        grads_card_vs_cpu("config5 (feedback cycle) fit", g5,
+                          (rngf.standard_normal((2, SR)) * 0.3)
+                          .astype(np.float32), {"gain": ("level", 1.0)})
+        cg2 = dst.compile_graph(g2, device=dev)
+        ext = {str(cg2.input_ids[0]): torch.as_tensor(sig(b_grad, t_main),
+                                                      device=dev)}
+        tgt = torch.as_tensor(sig(b_grad, 1, t_main, scale=0.1), device=dev)
+        params = cg2.init_params(requires_grad=True)
+        step, init_opt = fit.make_train_step(cg2, fit.adam(1e-2))
+        opt = init_opt(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.time()
+        params, opt, loss = step(params, opt, cg2.init_state(), ext, tgt)
+        torch.cuda.synchronize()
+        rec["c2_step_s"] = time.time() - t0
+        check(bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(v)) for e in params.values()
+            for v in e.values()), "config2 Adam step: not finite")
+        print(f"main path (config2 fit): one Adam step of its "
+              f"{sum(len(e) for e in params.values())} sliders over "
+              f"[{b_grad}, {t_main}] in {rec['c2_step_s'] * 1e3:.1f} ms "
+              f"(first call), peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
+              f"launches {read_launches()}, loss {float(loss):.6e} [{card}]")
+        del ext, tgt, params, opt, cg2
+        torch.cuda.empty_cache()
+
+    # -- the sequential kernel's reverse mode -----------------------------------
+    print(f"sequential kernel, reverse mode, vs its plain version, "
+          f"[{SEQ_B}, {SEQ_T}] and edge shapes [{time.time() - t_phase:.0f} "
+          f"s]:")
+    rng_s = np.random.default_rng(122)
+    for mode in SEQ_REV:
+        errs = []
+        for r, t in ((SEQ_B, SEQ_T), (1, 1), (5, 2), (33, 3), (3, 130)):
+            ins, y, ybar = seq_rev_inputs(mode, r, t, rng_s, dev)
+            errs.append(seq_rev_compare(
+                mode, seq_rev_parts(mode, seq_rev_kernel(mode, ins, y, ybar)),
+                seq_rev_parts(mode, seq_rev_plain(mode, ins, y, ybar)),
+                f"[{r}, {t}]", SEQ_REV_DB, SEQ_REV_RTOL)[2])
+        rec[f"{mode}:err"] = max(errs)
+    print(f"sequential kernel, reverse mode, [{B_MAIN}, {t_main}]: vs the "
+          f"float64 adjoint, and timed [{time.time() - t_phase:.0f} s]:")
+    for mode in SEQ_REV:
+        ins, y, ybar = seq_rev_inputs(mode, B_MAIN, t_main, rng_s, dev)
+        seq_rev_compare(mode,
+                        seq_rev_parts(mode, seq_rev_kernel(mode, ins, y,
+                                                           ybar)),
+                        seq_rev_f64(mode, ins, y, ybar), "vs float64",
+                        SEQ_REV_F64_DB, SEQ_REV_RTOL)
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: seq_rev_kernel(mode, ins, y, ybar))
+        bms, bby = seq_rev_bound(mode, B_MAIN, t_main)
+        floor = seq_floor_ms(SEQ_REV[mode], t_main)
+        rec[f"{mode}:big"] = dict(ms=ms, bound=(bms, bby), floor=floor)
+        print(f"  {mode}: {ms:.3f} ms (chain floor {floor:.3f} ms, "
+              f"{floor / ms:.1%} of it; bound {bms:.3f} ms by {bby}) "
+              f"[{card}]")
+        del ins, y, ybar
+        torch.cuda.empty_cache()
+    # the main path's shape, the exact gradient's [B_EXACT, 1 s]: the
+    # kernel timed against its plain version, bit for bit
+    print(f"sequential kernel, reverse mode, [{B_EXACT}, {SR}] (the exact "
+          f"gradient's shape), vs its plain version, both timed:")
+    for mode in SEQ_REV:
+        ins, y, ybar = seq_rev_inputs(mode, B_EXACT, SR, rng_s, dev)
+        ms = cuda_ms(lambda: seq_rev_kernel(mode, ins, y, ybar))
+        k = seq_rev_parts(mode, seq_rev_kernel(mode, ins, y, ybar))
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        p = seq_rev_parts(mode, seq_rev_plain(mode, ins, y, ybar))
+        t1.record()
+        torch.cuda.synchronize()
+        err = seq_rev_compare(mode, k, p, f"[{B_EXACT}, {SR}]", SEQ_REV_DB,
+                              SEQ_REV_RTOL)[2]
+        rec[f"{mode}:err"] = max(rec[f"{mode}:err"], err)
+        bms, bby = seq_rev_bound(mode, B_EXACT, SR)
+        floor = seq_floor_ms(SEQ_REV[mode], SR)
+        rec[mode] = dict(ms=ms, plain_ms=t0.elapsed_time(t1),
+                         bound=(bms, bby), floor=floor)
+        print(f"  {mode}: {ms:.3f} ms (chain floor {floor:.3f} ms, "
+              f"{floor / ms:.1%} of it; bound {bms:.3f} ms by {bby}); its "
+              f"plain version {rec[mode]['plain_ms']:.1f} ms [{card}]")
+        del ins, y, ybar, k, p
+
+    # -- gradients under exact ------------------------------------------------
+    print(f"gradients under exact, card vs CPU port, [{B_EXACT}, {SR}] "
+          f"[{time.time() - t_phase:.0f} s]:")
+    xe = np.random.default_rng(123).standard_normal(
+        (B_EXACT, SR), dtype=np.float32) * np.float32(0.25)
+    te = np.random.default_rng(124).standard_normal(
+        (B_EXACT, 1, SR), dtype=np.float32) * np.float32(0.1)
+    got, by_mode, launches, plain = exact_bench_grads(g_bench, xe, te, dev)
+    check(not plain, f"exact bench gradient called plain loops {plain}")
+    check(by_mode == {"first_order_sequential_cuda": 2,
+                      "biquad_sequential_cuda": 1,
+                      "first_order_reverse_cuda": 2,
+                      "biquad_reverse_cuda": 1},
+          f"exact bench gradient: sequential launches by wrapper {by_mode}")
+    check(launches == only_launches(sequential=6),
+          f"exact bench gradient launched {launches}")
+    worst = max(grad_close("exact bench: loss", got["card"][0],
+                           got["cpu"][0]),
+                grad_close("exact bench: input", got["card"][1],
+                           got["cpu"][1]))
+    n = 0
+    for nid, e in sorted(got["cpu"][2].items()):
+        for k, v in sorted(e.items()):
+            worst = max(worst, grad_close(f"exact bench: {nid}/{k}",
+                                          got["card"][2][nid][k].grad,
+                                          v.grad))
+            n += 1
+    print(f"  bench chain under exact: {n} slider gradients and the input's, "
+          f"card vs CPU port worst {worst:.2e}; the card's sequential "
+          f"launches {by_mode}, no plain loop")
+    rec["rev_launches"] = {
+        "first_order_reverse": by_mode.get("first_order_reverse_cuda", 0),
+        "biquad_reverse": by_mode.get("biquad_reverse_cuda", 0)}
+    # per-sample coefficients: a low_pass and a high_pass whose ratios
+    # move sample by sample, through compile_graph
+    g_mod, mod_ids = modulated_filters()
+    rng_m = np.random.default_rng(125)
+    ratios = [rng_m.uniform(lo, hi, (B_EXACT, SR)).astype(np.float32)
+              for lo, hi in ((0.5, 0.99), (0.05, 0.6))]
+    wt = rng_m.standard_normal((B_EXACT, 1, SR), dtype=np.float32)
+    pg = {}
+    with dst.policy("exact"):
+        for key, d in (("cpu", "cpu"), ("card", dev)):
+            cg = dst.compile_graph(g_mod, device=d)
+            p = {nid: {"ratio": torch.as_tensor(r, device=d)
+                       .requires_grad_(True)}
+                 for nid, r in zip(mod_ids, ratios)}
+            x = torch.as_tensor(xe, device=d).requires_grad_(True)
+            modes, plain = {}, {}
+            reset_launches()
+            with contextlib.ExitStack() as stack:
+                if key == "card":
+                    stack.enter_context(plain_versions_counted(plain, True))
+                    stack.enter_context(calls_counted(
+                        [(sequential_kernel, n) for n in (
+                            "first_order_sequential_cuda",
+                            "first_order_reverse_cuda")], modes))
+                y = cg.render(x[:, None], batch_shape=(B_EXACT,),
+                              params=p)[0]
+                (y * torch.as_tensor(wt, device=d)).sum().backward()
+            pg[key] = (y.detach(), [p[n]["ratio"].grad for n in mod_ids],
+                       x.grad, modes, read_launches(), plain)
+    check(not pg["card"][5], f"modulated filters under exact: plain loops "
+                             f"{pg['card'][5]}")
+    check(pg["card"][3] == {"first_order_sequential_cuda": 2,
+                            "first_order_reverse_cuda": 2}
+          and pg["card"][4] == only_launches(sequential=4),
+          f"modulated filters under exact: launches {pg['card'][3]} "
+          f"{pg['card'][4]}")
+    check(bool(torch.equal(pg["card"][0].cpu(), pg["cpu"][0])),
+          "modulated filters under exact: the render on the card is not "
+          "bitwise the CPU's")
+    worst = max([grad_close(f"modulated filters, exact: ratio {i}", g, w)
+                 for i, (g, w) in enumerate(zip(pg["card"][1],
+                                                pg["cpu"][1]))]
+                + [grad_close("modulated filters, exact: input",
+                              pg["card"][2], pg["cpu"][2])])
+    print(f"  low_pass -> high_pass with per-sample ratios [{B_EXACT}, {SR}] "
+          f"under exact: the render bitwise the CPU's, gradients of both "
+          f"ratio curves and the input worst {worst:.2e}; sequential "
+          f"launches {pg['card'][3]} (all per-sample), no plain loop")
+    rec["rev_launches"]["first_order_reverse_per_sample"] = \
+        pg["card"][3].get("first_order_reverse_cuda", 0)
+
+    # -- data parallelism over streams --------------------------------------
+    print(f"data parallelism [{time.time() - t_phase:.0f} s]:")
+    with dst.policy("fast"):
+        cg = dst.compile_graph(g_bench, device=dev)
+        x = torch.as_tensor(sig(B_SHARD, 1, t_main), device=dev)
+        want, _, st_want = cg.render(x, batch_shape=(B_SHARD,))
+        for name, m in (("make_mesh()", mesh.make_mesh()),
+                        ("two shards of the card",
+                         mesh.make_mesh([dev, dev]))):
+            reset_launches()
+            got_y, _, st = mesh.render_sharded(cg, x, m)
+            launches = read_launches()
+            same = bool(torch.equal(got_y, want)) and all(
+                bool(torch.equal(st[k][kk], v))
+                if isinstance(v, torch.Tensor) else st[k][kk] == v
+                for k, e in st_want.items() if isinstance(e, dict)
+                for kk, v in e.items())
+            print(f"render_sharded over {name} ({m.size} shard(s)), bench "
+                  f"chain [{B_SHARD}, 1, {t_main}]: bitwise the unsharded "
+                  f"render and state {same}, launches {launches}")
+            check(same, f"render_sharded over {name}: not bitwise "
+                        f"({dbfs_dev(got_y, want):.1f} dBFS)")
+            check(launches == only_launches(chain=m.size),
+                  f"render_sharded over {name} launched {launches}")
+            del got_y, st
+        del x, want, st_want
+        torch.cuda.empty_cache()
+        for name, devs, B in (("two shards of the card", [dev, dev],
+                               B_SHARD_STEP),
+                              ("the card and the CPU", [dev, "cpu"],
+                               B_SHARD_MIX)):
+            sharded_step_check(name, cg, mesh.make_mesh(devs), sig(B, SR),
+                               sig(B, 1, SR, scale=0.1))
+    print(f"gradient phase: {time.time() - t_phase:.1f} s")
+    return rec
+
 
 def main() -> int:
     import torch
@@ -2783,6 +3486,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ex = exact_phase(dev, card)
 
+    # -- 18. gradients on the card ------------------------------------------
+    torch.cuda.empty_cache()
+    gr = grad_phase(dev, card)
+
     def entry(name, source, replaces, launches, err, t, bnd, lib_ms=None,
               **extra):
         return {"name": name, "route": "cuda",
@@ -2792,12 +3499,13 @@ def main() -> int:
                 "bound_ms": bnd[0], "bound_by": bnd[1],
                 "bound_share": bnd[0] / t[0], "library_ms": lib_ms, **extra}
 
-    def seq_entry(mode, replaces):
-        m = ex[mode]
+    def seq_entry(mode, replaces, rec=ex, launches=ex["launches"],
+                  shape=(B_MAIN, T_MAIN)):
+        m = rec[mode]
         return entry(f"sequential_kernel:{mode}", "sequential_kernel.cu",
-                     replaces, ex["launches"][mode], ex[f"{mode}:err"],
+                     replaces, launches[mode], rec[f"{mode}:err"],
                      (m["ms"], m["plain_ms"]), m["bound"],
-                     floor_ms=m["floor"])
+                     floor_ms=m["floor"], shape=list(shape))
 
     program5 = programs["config5"][0]
     print(json.dumps({"kernels": [
@@ -2831,6 +3539,13 @@ def main() -> int:
               bound(12.0 * B_FIT * T_MAIN, 2.0 * B_FIT * T_MAIN)),
         seq_entry("first_order", "dsp_stuff_tpu/ops/scan.py:299"),
         seq_entry("biquad", "dsp_stuff_tpu/ops/scan.py:745"),
+        seq_entry("first_order_reverse", "dsp_stuff_tpu/ops/scan.py:299",
+                  gr, gr["rev_launches"], (B_EXACT, SR)),
+        seq_entry("first_order_reverse_per_sample",
+                  "dsp_stuff_tpu/ops/scan.py:299", gr, gr["rev_launches"],
+                  (B_EXACT, SR)),
+        seq_entry("biquad_reverse", "dsp_stuff_tpu/ops/scan.py:745", gr,
+                  gr["rev_launches"], (B_EXACT, SR)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,13 +17,16 @@ its host-side rings and device-rate playback (runtime/stream.py,
 io/playback.py, the host library native/dsp_host.cpp through
 io/native.py), checkpoints (runtime/checkpoint.py), the command line
 (``python -m dsp_stuff_tpu_torch``) and the debug tools (utils/obs.py).
-It has four CUDA kernels: the chain kernel (csrc/chain_kernel.cu, with
+It has five CUDA kernels: the chain kernel (csrc/chain_kernel.cu, with
 the chorus's mtap stage), the cycle kernel (csrc/cycle_kernel.cu), the
-envelope kernel (csrc/envelope_kernel.cu) and the first-order recurrence
+envelope kernel (csrc/envelope_kernel.cu), the first-order recurrence
 kernel (csrc/first_order_kernel.cu: the fitted filters forward and
-backward, and muff's tone stack).  Every entry point runs on the card
-unless the caller passes device="cpu".
-ROADMAP.md lists what is still to port.
+backward, and muff's tone stack) and the sequential kernel
+(csrc/sequential_kernel.cu: the exact policy's recurrences, with a
+reverse mode for their gradients).  Every render is differentiable on
+the card, its fused chain segments and cycle programs included, and
+parallel.mesh splits a batch of streams over several devices.  Every
+entry point runs on the card unless the caller passes device="cpu".
 
 Public API:
     Graph, load_graph, loads_graph, save_graph, dumps_graph
@@ -32,7 +35,10 @@ Public API:
                                           WAV files)
     StreamSession                      -- block-by-block streaming
     save_checkpoint, load_checkpoint   -- state + params + graph on disk
-    train.fit                          -- fit, make_train_step, make_loss_fn
+    train.fit                          -- fit, make_train_step, make_loss_fn,
+                                          make_sharded_train_step
+    parallel.mesh                      -- make_mesh, shard_streams,
+                                          render_sharded
     policy, get_policy, set_policy     -- precision policy ('fast', 'parity',
                                           'exact')
     REGISTRY                           -- the port's node-type registry
@@ -51,7 +57,7 @@ from dsp_stuff_tpu_torch.runtime.checkpoint import (save_checkpoint,
 
 # Importing the node library registers every ported node type.
 import dsp_stuff_tpu_torch.nodes  # noqa: F401
-from dsp_stuff_tpu_torch import train
+from dsp_stuff_tpu_torch import parallel, train
 
 BLOCK_SIZE = 128        # reference block size (node.rs:257 BUF_SIZE)
 SAMPLE_RATE = 48_000    # reference fixed rate (devices.rs:281, README.md:48)
@@ -60,6 +66,7 @@ __all__ = [
     "Graph", "load_graph", "loads_graph", "save_graph", "dumps_graph",
     "compile_graph", "CompiledGraph", "render", "render_file",
     "StreamSession", "save_checkpoint", "load_checkpoint", "train",
+    "parallel",
     "REGISTRY", "PrecisionPolicy", "get_policy", "set_policy", "policy",
     "BLOCK_SIZE", "SAMPLE_RATE",
 ]

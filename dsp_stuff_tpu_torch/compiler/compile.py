@@ -92,6 +92,17 @@ def _avg(sources: list, T: int, device=None):
     return acc / _divisor_on(n, acc.device), n
 
 
+def _on_batch(tree, batch):
+    """Every tensor in ``tree`` broadcast to leading dims ``batch``."""
+    if isinstance(tree, dict):
+        return {k: _on_batch(v, batch) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_on_batch(v, batch) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.expand(*batch, *tree.shape)
+    return tree
+
+
 def _map_mod(sig, p: ParamSpec):
     """Modulation-signal -> slider-range mapping (lib.rs:140-148):
     y=(x+1)/2; z=clamp(y,0,1); lo + (hi-lo)*z, all f32."""
@@ -238,14 +249,15 @@ def _plan_mega_fusion(graph: Graph, nodes: dict, sccs) -> list:
             dst = _sole_joint(graph, out_links, nid, mega_ok)
             if dst is not None:
                 nxt[nid] = dst
-    runs = []
-    for chain in _chains(nxt):
-        kinds = [nodes[n].cfg_name for n in chain]
-        if (len(chain) >= 2
-                and any(k in _MEGA_STATEFUL for k in kinds)
-                and any(k not in _LINEAR_KINDS for k in kinds)):
-            runs.append(chain)
-    return runs
+    return [chain for chain in _chains(nxt) if _mega_worthy(nodes, chain)]
+
+
+def _mega_worthy(nodes: dict, run) -> bool:
+    """A mega run needs >= 2 nodes, >= 1 stateful member and >= 1
+    non-linear member (pure-linear runs belong to _plan_linear_fusion)."""
+    kinds = [nodes[n].cfg_name for n in run]
+    return (len(run) >= 2 and any(k in _MEGA_STATEFUL for k in kinds)
+            and any(k not in _LINEAR_KINDS for k in kinds))
 
 
 def _plan_linear_fusion(graph: Graph, nodes: dict, sccs,
@@ -743,17 +755,30 @@ class CompiledGraph:
     def _active_mega(self, pdict):
         """(head id -> (run, stages, specs, head_single, out_fold, tapped),
         non-head member ids) for the mega runs this render fuses: fast
-        policy only."""
+        policy only.  Members with override sliders (``pdict``) run node
+        by node and split their run: each stretch of the others between
+        them that still makes a mega run fuses, so a fit of some sliders
+        keeps the rest of the chain on the chain kernel."""
         if (not self._mega_plan or NODE_HOOK is not None
                 or precision.get_policy().name != "fast"):
             return {}, set()
         heads: dict[int, tuple] = {}
         interior: set = set()
-        for run in self._mega_plan:
-            got = self._mega_stages(run, pdict)
-            if got is not None:
-                heads[run[0]] = (run, *got)
-                interior.update(run[1:])
+        over = pdict or {}
+        for plan_run in self._mega_plan:
+            subs = [[]]
+            for nid in plan_run:
+                if str(nid) in over:
+                    subs.append([])
+                else:
+                    subs[-1].append(nid)
+            for run in subs:
+                if not _mega_worthy(self._nodes, run):
+                    continue
+                got = self._mega_stages(run, pdict)
+                if got is not None:
+                    heads[run[0]] = (run, *got)
+                    interior.update(run[1:])
         return heads, interior
 
     def _mega_run_eval(self, run, stages, specs, tapped, x1, st):
@@ -1211,6 +1236,10 @@ class CompiledGraph:
 
         # modulation knob writeback (reference quirk SURVEY.md 2.4 #9): the
         # knob ends at the mapped value of the last block's first sample
+        # a batched render batches every aux leaf, as the JAX package's
+        # vmap does (out_axes 0): a knob or a sink fed only by unbatched
+        # signals (an LFO, nothing at all) broadcasts over the streams
+        batch = torch.broadcast_shapes(*(v.shape[:-1] for v in ext.values()))
         knobs = {}
         for nid, node in self._nodes.items():
             for p in node.spec.params:
@@ -1219,7 +1248,7 @@ class CompiledGraph:
                     if srcs:
                         sig, _ = _avg(srcs, T, self.device)
                         knobs[f"{nid}:{p.name}"] = _map_mod(
-                            sig[..., T - self.block_size], p)
+                            sig[..., T - self.block_size], p).expand(batch)
         aux = {"__knobs__": knobs} if knobs else {}
 
         # analysis sinks, under "<cfg_name>:<node id>"
@@ -1232,7 +1261,10 @@ class CompiledGraph:
                        for port in node.spec.all_inputs}
             inputs = {p: in_sigs[p][0] for p in node.spec.inputs}
             params = self._resolve_params(node, in_sigs, pdict)
-            aux[f"{node.cfg_name}:{nid}"] = impl.analyze(params, inputs)
+            res = impl.analyze(params, inputs)
+            if all(v.dim() == 1 for v in inputs.values()):
+                res = _on_batch(res, batch)
+            aux[f"{node.cfg_name}:{nid}"] = res
         return state, outs, aux
 
 

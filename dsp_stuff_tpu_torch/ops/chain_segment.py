@@ -41,7 +41,10 @@ Stage descriptors (static tuples; the compiler builds them in
 
 Dispatch is by device alone: a CUDA tensor goes to the kernel (which
 raises on what it cannot take), a CPU tensor to ``segment_fallback``,
-the stage-by-stage composition that is also the kernel's reference.
+the stage-by-stage composition that is also the kernel's reference.  On
+the card an input or state that requires grad goes through
+``ChainSegment``, whose backward is the vjp of that composition, as the
+JAX package's custom_vjp is.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from dsp_stuff_tpu_torch.ops import chain_kernel, shaping
 from dsp_stuff_tpu_torch.ops.cascade import cascade_tail_states, linear_cascade
 from dsp_stuff_tpu_torch.ops.delay_line import feedback_comb
 from dsp_stuff_tpu_torch.ops.modfx import mtap_apply
+from dsp_stuff_tpu_torch.ops.scan import needs_grad
 
 
 def _ew_fn(kind: str):
@@ -150,34 +154,130 @@ def ring_history(ring, K: int, n: int):
 
 def chain_segment(x, stages, state_in):
     """Fused evaluation of a stage chain over ``x`` [..., T] (see the
-    module docstring for the stage grammar and returns)."""
+    module docstring for the stage grammar and returns).  On the card an
+    input that requires grad goes through ``ChainSegment``: the kernel
+    forward, the plain composition's vjp backward."""
     stages = tuple(stages)
     x = torch.as_tensor(x, dtype=torch.float32)
     if x.device.type == "cpu":
         return segment_fallback(x, stages, tuple(state_in))
     if x.device.type != "cuda":
         raise ValueError(f"chain_segment: no kernel for device {x.device}")
-    return _kernel_segment(x, stages, state_in)
+    return run_segment(_kernel_segment, x, stages, tuple(state_in))
 
 
-def refuse_grad(what: str, tensors, remedy: str = "pass every slider of "
-                "the graph as a tensor (init_params) so that its nodes run "
-                "unfused") -> None:
-    """The chain and cycle kernels have no backward (the JAX package's
-    custom_vjp over a fused segment is not ported): a CUDA input that
-    carries autograd history raises rather than cut the gradient.  A fit
-    overrides every slider, so its nodes never fuse.  The sequential
-    kernel (exact policy) refuses the same way, with its own ``remedy``."""
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"gradients through {what} on the card are not ported; "
-            f"{remedy}")
+def run_segment(forward, x, stages: tuple, state_in: tuple):
+    """``forward(x, stages, state_in)``, through ``ChainSegment`` when
+    autograd must see it (the card's dispatch; a test passes the plain
+    version as ``forward``)."""
+    if not needs_grad((x, *state_in)):
+        return forward(x, stages, state_in)
+    state_in = tuple(torch.as_tensor(s, device=x.device) for s in state_in)
+    return unflatten_outputs(ChainSegment.apply(forward, stages, x,
+                                                *state_in), stages)
+
+
+def flatten_outputs(outs) -> tuple:
+    """A segment's (y, cascade_infos, comb_hists, taps) as one flat tuple:
+    y, each cascade's four entries, each history, each tap.  The one
+    flattening ChainSegment's forward and backward share."""
+    y, cinfos, hists, taps = outs
+    return (y, *(t for info in cinfos for t in info), *hists, *taps)
+
+
+def unflatten_outputs(flat, stages: tuple):
+    """flatten_outputs' inverse for ``stages``."""
+    n_c = sum(1 for st in stages if st[0] == "cascade")
+    n_h = sum(1 for st in stages if st[0] in ("comb", "mtap"))
+    cinfos = tuple(tuple(flat[1 + 4 * i:5 + 4 * i]) for i in range(n_c))
+    hists = tuple(flat[1 + 4 * n_c:1 + 4 * n_c + n_h])
+    return flat[0], cinfos, hists, tuple(flat[1 + 4 * n_c + n_h:])
+
+
+def fresh(flat, inputs) -> tuple:
+    """``flat`` with every tensor that shares storage with one of
+    ``inputs`` cloned: a Function's outputs must not alias its inputs
+    (a stand-in forward may return x itself, or a view of it, as a tap or
+    a cascade's last input)."""
+    ptrs = {t.untyped_storage().data_ptr() for t in inputs
+            if isinstance(t, torch.Tensor)}
+    return tuple(t.clone() if t.untyped_storage().data_ptr() in ptrs else t
+                 for t in flat)
+
+
+def grads_of(outs, cts, inputs) -> list:
+    """vjp of ``outs`` with cotangents ``cts`` (None: no cotangent) with
+    respect to ``inputs`` (None: no gradient wanted); an input that gets
+    no gradient gets zeros."""
+    pairs = [(o, c) for o, c in zip(outs, cts)
+             if c is not None and o.requires_grad]
+    want = [t for t in inputs if t is not None]
+    got = iter(torch.autograd.grad([o for o, _ in pairs],
+                                   want, [c for _, c in pairs],
+                                   allow_unused=True) if pairs and want
+               else [None] * len(want))
+    out = []
+    for t in inputs:
+        if t is None:
+            out.append(None)
+            continue
+        g = next(got)
+        out.append(torch.zeros_like(t) if g is None else g)
+    return out
+
+
+class ChainSegment(torch.autograd.Function):
+    """A chain segment on the card under autograd: the counterpart of the
+    JAX package's custom_vjp (``_segment_vjp``).
+
+    ``apply(forward, stages, x, *state_in)`` runs ``forward(x, stages,
+    state_in)`` (the kernel path ``_kernel_segment``; a test passes
+    ``segment_fallback`` under no_grad in its place) once and saves
+    ``(x, state_in)``.  The backward re-runs ``segment_fallback`` on them
+    under autograd and pulls the cotangents of every output, y, the
+    cascade infos, the histories and the taps, back to x and every state
+    entry but the mtap trajectory operands (q, r, frac), which are shared
+    by all streams and get none.
+
+    The backward linearizes the f32 composition, not the kernel: the
+    kernel's cascades are 3xTF32 products, about -125 dBFS from the plain
+    f32 ones, far below any gradient bound.  It holds the composition's
+    intermediates, as the JAX package's vjp does."""
+
+    @staticmethod
+    def forward(ctx, forward, stages, x, *state_in):
+        ctx.set_materialize_grads(False)
+        ctx.stages = stages
+        ctx.save_for_backward(x, *state_in)
+        with torch.no_grad():
+            flat = flatten_outputs(forward(x, stages, state_in))
+        return fresh(flat, (x, *state_in))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        x, *state_in = ctx.saved_tensors
+        stages = ctx.stages
+        shared = _shared_slots(stages)
+        need = ctx.needs_input_grad[2:]
+
+        def leaf(t, i):
+            if i - 1 in shared or not need[i]:
+                return t.detach()
+            return t.detach().requires_grad_(True)
+
+        ins = [leaf(t, i) for i, t in enumerate((x, *state_in))]
+        with torch.enable_grad():
+            outs = flatten_outputs(segment_fallback(ins[0], stages,
+                                                    tuple(ins[1:])))
+            grads = grads_of(outs, cts, [t if t.requires_grad else None
+                                         for t in ins])
+        return (None, None, *grads)
 
 
 def _shared_slots(stages: tuple) -> frozenset:
     """State-entry indices of the mtap trajectory operands (q, r, frac):
-    shared by all streams, they pass to the kernel as they are."""
+    shared by all streams, they pass to the kernel as they are and get no
+    gradient."""
     shared = set()
     si = 0
     for st in stages:
@@ -193,7 +293,6 @@ def _kernel_segment(x, stages: tuple, state_in):
     """The kernel path: leading dimensions flatten into kernel rows
     (per-stream states broadcast to them), and come back on every
     output."""
-    refuse_grad("a fused chain segment", (x, *state_in))
     batch = tuple(x.shape[:-1])
     T = x.shape[-1]
     B = int(np.prod(batch, dtype=np.int64))

@@ -54,9 +54,9 @@ import torch
 from dsp_stuff_tpu_torch.ops import cycle_kernel
 from dsp_stuff_tpu_torch.ops.cascade import (_cascade_constants,
                                              cascade_tail_states)
-from dsp_stuff_tpu_torch.ops.chain_segment import (apply_ew, refuse_grad,
-                                                   ring_history)
-from dsp_stuff_tpu_torch.ops.scan import _const
+from dsp_stuff_tpu_torch.ops.chain_segment import (apply_ew, fresh,
+                                                   grads_of, ring_history)
+from dsp_stuff_tpu_torch.ops.scan import _const, needs_grad
 
 C = 128
 _F32 = torch.float32
@@ -202,7 +202,6 @@ def _kernel_cycle(exts, regs0, states, program, n_taps):
     """The kernel path: leading dimensions flatten into kernel rows
     (registers and states broadcast to them) and come back on every
     output."""
-    refuse_grad("a feedback cycle's block program", (*exts, *regs0, *states))
     dev = exts[0].device
     batch = tuple(_batch_of(exts, regs0, states))
     T = exts[0].shape[-1]
@@ -227,11 +226,69 @@ def _kernel_cycle(exts, regs0, states, program, n_taps):
             tuple(unflat(h) for h in hists))
 
 
+def flatten_outputs(outs) -> tuple:
+    """A program's (taps, regs_f, cinfos, hists) as one flat tuple: the
+    taps, the registers, each cascade's four entries, the histories.  The
+    one flattening CycleSegment's forward and backward share."""
+    taps, regs_f, cinfos, hists = outs
+    return (*taps, *regs_f, *(t for info in cinfos for t in info), *hists)
+
+
+def unflatten_outputs(flat, program: tuple, n_taps: int):
+    """flatten_outputs' inverse for ``program``."""
+    n_c, n_b, n_r, _, _ = _program_counts(program)
+    i = n_taps + n_r
+    cinfos = tuple(tuple(flat[i + 4 * c:i + 4 * c + 4]) for c in range(n_c))
+    return (tuple(flat[:n_taps]), tuple(flat[n_taps:i]), cinfos,
+            tuple(flat[i + 4 * n_c:i + 4 * n_c + n_b]))
+
+
+class CycleSegment(torch.autograd.Function):
+    """A feedback cycle's block program on the card under autograd: the
+    counterpart of the JAX package's custom_vjp (``_cycle_vjp``).
+
+    ``apply(forward, program, n_taps, n_e, n_r, *exts, *regs0, *states)``
+    runs ``forward(exts, regs0, states, program, n_taps)`` (the kernel
+    path ``_kernel_cycle``; a test passes ``interpret`` under no_grad in
+    its place) once and saves its operands.  The backward re-runs
+    ``interpret`` on them under autograd and pulls the cotangents of the
+    taps, the final registers, the cascade infos and the histories back to
+    every feed, register and state.  It linearizes the plain f32 program,
+    which the kernel matches to rounding; it holds the loop's
+    intermediates, as the JAX package's vjp does."""
+
+    @staticmethod
+    def forward(ctx, forward, program, n_taps, n_e, n_r, *operands):
+        ctx.set_materialize_grads(False)
+        ctx.program, ctx.n_taps, ctx.n_e, ctx.n_r = program, n_taps, n_e, n_r
+        ctx.save_for_backward(*operands)
+        exts, regs0 = operands[:n_e], operands[n_e:n_e + n_r]
+        with torch.no_grad():
+            flat = flatten_outputs(forward(exts, regs0, operands[n_e + n_r:],
+                                           program, n_taps))
+        return fresh(flat, operands)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        need = ctx.needs_input_grad[5:]
+        ins = [t.detach().requires_grad_(bool(n))
+               for t, n in zip(ctx.saved_tensors, need)]
+        n_e, n_r = ctx.n_e, ctx.n_r
+        with torch.enable_grad():
+            outs = flatten_outputs(interpret(
+                tuple(ins[:n_e]), tuple(ins[n_e:n_e + n_r]),
+                tuple(ins[n_e + n_r:]), ctx.program, ctx.n_taps))
+            grads = grads_of(outs, cts, [t if t.requires_grad else None
+                                         for t in ins])
+        return (None, None, None, None, None, *grads)
+
+
 def cycle_segment(exts, regs0, states, program, n_taps: int):
     """Fused evaluation of a feedback-cycle block program (see the module
     docstring).  Dispatch is by the feeds' device alone: CPU tensors take
     ``interpret``, CUDA tensors the cycle kernel, which raises on what it
-    cannot take."""
+    cannot take; on the card an operand that requires grad goes through
+    ``CycleSegment`` (the kernel forward, ``interpret``'s vjp backward)."""
     program = tuple(program)
     exts = tuple(torch.as_tensor(e, dtype=_F32) for e in exts)
     if not exts:
@@ -241,4 +298,20 @@ def cycle_segment(exts, regs0, states, program, n_taps: int):
         return interpret(exts, tuple(regs0), tuple(states), program, n_taps)
     if dev.type != "cuda":
         raise ValueError(f"cycle_segment: no kernel for device {dev}")
-    return _kernel_cycle(exts, tuple(regs0), tuple(states), program, n_taps)
+    return run_cycle(_kernel_cycle, exts, tuple(regs0), tuple(states),
+                     program, n_taps)
+
+
+def run_cycle(forward, exts: tuple, regs0: tuple, states: tuple,
+              program: tuple, n_taps: int):
+    """``forward(exts, regs0, states, program, n_taps)``, through
+    ``CycleSegment`` when autograd must see it (the card's dispatch; a test
+    passes the plain version as ``forward``)."""
+    if not needs_grad((*exts, *regs0, *states)):
+        return forward(exts, regs0, states, program, n_taps)
+    dev = exts[0].device
+    regs0, states = (tuple(torch.as_tensor(t, dtype=_F32, device=dev)
+                           for t in ts) for ts in (regs0, states))
+    return unflatten_outputs(CycleSegment.apply(
+        forward, program, n_taps, len(exts), len(regs0), *exts, *regs0,
+        *states), program, n_taps)

@@ -23,8 +23,9 @@ Under ``exact`` (``sequential_recurrences``) every solve is tested for it
 first, before any of the shortcuts above, and runs sample by sample in
 f32 in the reference's operation order: ``_first_order_sequential`` and
 ``_biquad_sequential`` on the CPU (differentiable by their own autograd),
-the sequential kernel (ops/sequential_kernel.py) on the card, which
-refuses a tensor that requires grad.
+the sequential kernel (ops/sequential_kernel.py) on the card, whose
+reverse mode is the backward of ``SequentialFirstOrder`` and
+``SequentialBiquad``.
 """
 
 from __future__ import annotations
@@ -212,35 +213,124 @@ class FirstOrderAffine(torch.autograd.Function):
         return abar, lam, y0bar
 
 
-def refuse_grad_on_card(tensors) -> None:
-    """The exact policy's solves on the card have no backward yet: raise
-    when a tensor they would take requires grad (ROADMAP Queue 1)."""
-    from dsp_stuff_tpu_torch.ops.chain_segment import refuse_grad
-    refuse_grad("the exact policy's sequential solves", tensors,
-                "ROADMAP Queue 1 holds a reverse mode of the sequential "
-                "kernel; take them on the CPU (device=\"cpu\") or under "
-                "fast / parity")
+def needs_grad(tensors) -> bool:
+    """Whether autograd must see an op over ``tensors``: grad mode is on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
 def _first_order_exact(a, b, y0):
     """y[t] = a[t] y[t-1] + b[t] under ``exact``, sample by sample: the
-    sequential kernel for a CUDA tensor (no grad), the plain
-    ``_first_order_sequential`` for a CPU one.  ``a`` is a Python float, a
-    0-d tensor or a per-sample tensor of b's shape; y0 broadcasts to
-    b[..., 0]."""
+    sequential kernel for a CUDA tensor (``SequentialFirstOrder`` when
+    autograd must see it), the plain ``_first_order_sequential`` for a CPU
+    one.  ``a`` is a Python float, a 0-d tensor or a per-sample tensor of
+    b's shape; y0 broadcasts to b[..., 0]."""
     a = on_device(float(np.float32(a)), b.device) \
         if not isinstance(a, torch.Tensor) else a.to(torch.float32)
     y0 = y0.to(torch.float32).expand(b.shape[:-1])
     if not b.is_cuda:
         return _first_order_sequential(a, b, y0)
-    refuse_grad_on_card((a, b, y0))
+    return run_first_order(_first_order_kernel,
+                           sequential_kernel.first_order_reverse_cuda, a, b,
+                           y0)
+
+
+def _first_order_kernel(a, b, y0):
+    return sequential_kernel.first_order_sequential_cuda(a, b, y0)[0]
+
+
+def run_first_order(forward, reverse, a, b, y0):
+    """The card's route of an exact first-order solve: rows [R, T] for
+    ``forward(a, b, y0)``, through ``SequentialFirstOrder`` (with
+    ``reverse``) when autograd must see it.  a 0-d or b's shape, y0 b's
+    batch shape; a test passes the plain versions."""
     shape = b.shape
     R = int(np.prod(shape[:-1], dtype=np.int64))
-    y, _ = sequential_kernel.first_order_sequential_cuda(
-        a.reshape(R, shape[-1]).contiguous() if a.dim() else a.contiguous(),
-        b.reshape(R, shape[-1]).contiguous(),
-        y0.reshape(R).contiguous())
+    ins = (a.reshape(R, shape[-1]).contiguous() if a.dim()
+           else a.contiguous(), b.reshape(R, shape[-1]).contiguous(),
+           y0.reshape(R).contiguous())
+    if needs_grad(ins):
+        y = SequentialFirstOrder.apply(forward, reverse, *ins)
+    else:
+        y = forward(*ins)
     return y.reshape(shape)
+
+
+class SequentialFirstOrder(torch.autograd.Function):
+    """The exact policy's first-order solve on the card under autograd
+    (the counterpart of jax.grad through the JAX package's lax.scan loop,
+    ops/scan.py:_first_order_sequential).
+
+    ``apply(forward, reverse, a, b, y0)``, a 0-d or [R, T], b [R, T], y0
+    [R]: ``forward(a, b, y0)`` (the sequential kernel; a test passes
+    ``_first_order_sequential``) gives y, which is saved with a and y0 and
+    never recomputed; the backward runs ``reverse(a, y, y0, ybar)`` (the
+    kernel's reverse mode, or ``_first_order_adjoint_sequential``) for
+    (lam, abar, y0bar) and returns bbar = lam, abar (a 0-d a's row sums
+    added in float64) and y0bar: the arithmetic of FirstOrderAffine's
+    backward, in sequential order."""
+
+    @staticmethod
+    def forward(ctx, forward, reverse, a, b, y0):
+        y = forward(a, b, y0)
+        ctx.reverse = reverse
+        ctx.save_for_backward(a, y, y0)
+        return y
+
+    @staticmethod
+    def backward(ctx, ybar):
+        a, y, y0 = ctx.saved_tensors
+        lam, abar, y0bar = ctx.reverse(a, y, y0, ybar.contiguous())
+        if a.dim() == 0:
+            abar = abar.sum(dtype=torch.float64).to(a.dtype)
+        return None, None, abar, lam, y0bar
+
+
+class SequentialBiquad(torch.autograd.Function):
+    """The exact policy's DF1 biquad on the card under autograd (the
+    counterpart of jax.grad through ops/scan.py:_biquad_sequential's
+    lax.scan loop in the JAX package).
+
+    ``apply(forward, reverse, x, coeffs, state)``, x [R, T], coeffs [5] =
+    (a1, a2, b0, b1, b2), state [R, 4] the initial (x1, x2, y1, y2):
+    ``forward(x, coeffs, state)`` (the sequential kernel, or a plain
+    stand-in) gives (y, final state [R, 4]); y is saved with x, coeffs and
+    state.  The backward adds the final state's cotangents to the samples
+    it holds (x[T-1], x[T-2], y[T-1], y[T-2]; at T = 1 the second pair is
+    the initial x1, y1), runs ``reverse(x, y, coeffs, state, ybar)`` (the
+    kernel's reverse mode, or ``_biquad_adjoint_sequential``) for (xbar,
+    the initial state's gradient, the coefficients' float64 row sums) and
+    adds the rows' sums in float64."""
+
+    @staticmethod
+    def forward(ctx, forward, reverse, x, coeffs, state):
+        ctx.set_materialize_grads(False)
+        y, fin = forward(x, coeffs, state)
+        ctx.reverse = reverse
+        ctx.save_for_backward(x, y, coeffs, state)
+        return y, fin
+
+    @staticmethod
+    def backward(ctx, ybar, finbar):
+        x, y, coeffs, state = ctx.saved_tensors
+        T = x.shape[-1]
+        ybar = torch.zeros_like(y) if ybar is None else ybar.clone()
+        if finbar is not None:
+            ybar[:, T - 1] += finbar[:, 2]
+            if T >= 2:
+                ybar[:, T - 2] += finbar[:, 3]
+        xbar, sbar, acc = ctx.reverse(x, y, coeffs, state,
+                                      ybar.contiguous())
+        if finbar is not None:
+            xbar[:, T - 1] += finbar[:, 0]
+            if T >= 2:
+                xbar[:, T - 2] += finbar[:, 1]
+            else:
+                sbar[:, 0] += finbar[:, 1]
+                sbar[:, 2] += finbar[:, 3]
+        cbar = acc.sum(0, dtype=torch.float64).to(coeffs.dtype)
+        return None, None, xbar, cbar, sbar
 
 
 def _first_order_sequential(a, b, y0):
@@ -257,6 +347,77 @@ def _first_order_sequential(a, b, y0):
         y = (a_t[t] if a_t is not None else a) * y + bt
         ys.append(y)
     return torch.stack(ys, dim=-1)
+
+
+def _first_order_adjoint_sequential(a, y, y0, ybar):
+    """The reverse mode's plain version for the first order, on any
+    device: (lam, abar, y0bar) of y[t] = a[t] y[t-1] + b[t] for the output
+    cotangent ybar, with the sequential kernel's roundings in its order
+    (see ``sequential_kernel.first_order_reverse_cuda``): lam[t] = ybar[t]
+    + a[t+1] lam[t+1] sample by sample from t = T-1 down to 0 in f32,
+    abar[t] = lam[t] y[t-1] (per sample, or for a 0-d a each row's sum in
+    float64, added from t = T-1 down), y0bar = a[0] lam[0].  a 0-d or y's
+    shape, y and ybar [..., T], y0 the batch shape."""
+    per_sample = a.dim() > 0
+    a_t = a.unbind(-1) if per_sample else None
+    lam = torch.zeros_like(ybar[..., 0])
+    a_next = torch.zeros_like(lam) if per_sample else a
+    lams = []
+    for t, yb in reversed(list(enumerate(ybar.unbind(-1)))):
+        lam = yb + a_next * lam
+        lams.append(lam)
+        if per_sample:
+            a_next = a_t[t]
+    y0bar = a_next * lam
+    lam = torch.stack(lams[::-1], dim=-1)
+    p = lam * torch.cat([y0[..., None], y[..., :-1]], dim=-1)
+    if per_sample:
+        return lam, p, y0bar
+    return lam, _sum_backwards(p.double()), y0bar
+
+
+def _sum_backwards(p):
+    """p [..., T] (float64) summed over its last axis from t = T-1 down to
+    0, one add at a time: the reverse mode's order."""
+    acc = torch.zeros_like(p[..., 0])
+    for t in range(p.shape[-1] - 1, -1, -1):
+        acc = acc + p[..., t]
+    return acc
+
+
+def _biquad_adjoint_sequential(x, y, coeffs, state, ybar):
+    """The reverse mode's plain version for the DF1 biquad, on any
+    device: (xbar, the initial state's gradient [..., 4], the
+    coefficients' float64 row sums [..., 5]) for the output cotangent ybar,
+    with the sequential kernel's roundings in its order (see
+    ``sequential_kernel.biquad_reverse_cuda``): g sample by sample from
+    t = T-1 down to 0 in f32, the rest from it.  x, y, ybar [..., T],
+    coeffs [5] = (a1, a2, b0, b1, b2), state [..., 4] the initial (x1, x2,
+    y1, y2)."""
+    a1, a2, b0, b1, b2 = coeffs.unbind(0)
+    x1, x2, y1, y2 = state.unbind(-1)
+    g1 = g2 = torch.zeros_like(ybar[..., 0])
+    gs = []
+    for yb in reversed(ybar.unbind(-1)):
+        g = yb - a1 * g1 - a2 * g2
+        gs.append(g)
+        g2, g1 = g1, g
+    g = torch.stack(gs[::-1], dim=-1)
+    G1 = F.pad(g[..., 1:], (0, 1))                            # g[t+1]
+    G2 = F.pad(g[..., 2:], (0, min(2, g.shape[-1])))         # g[t+2]
+    xbar = b0 * g + b1 * G1 + b2 * G2
+    # per t the f32 products of a1, a2, b0, b1, b2's sums, added in
+    # float64 from t = T-1 down, then the initial state's boundary terms
+    acc = _sum_backwards(torch.stack([G1 * y, G2 * y, g * x, G1 * x, G2 * x],
+                                     dim=-2).double())
+    zero = torch.zeros_like(g1)
+    acc = acc + torch.stack([g1 * y1, g2 * y1, zero, g1 * x1, g2 * x1],
+                            dim=-1).double()
+    acc = acc + torch.stack([zero, g1 * y2, zero, zero, g1 * x2],
+                            dim=-1).double()
+    sbar = torch.stack([b1 * g1 + b2 * g2, b2 * g1, -(a1 * g1) - a2 * g2,
+                        -(a2 * g1)], dim=-1)
+    return xbar, sbar, acc * acc.new_tensor([-1.0, -1.0, 1.0, 1.0, 1.0])
 
 
 def _first_order_scan(a, b, y0):
@@ -372,26 +533,40 @@ def biquad_df1(x, a1, a2, b0, b1, b2, state=None):
 
 def _biquad_exact(x, cvals: tuple, state):
     """The biquad under ``exact``, sample by sample: the sequential kernel
-    for a CUDA tensor (no grad), the plain ``_biquad_sequential`` for a
-    CPU one.  Coefficients are Python floats or 0-d tensors (a1, a2, b0,
-    b1, b2); state (x1, x2, y1, y2) of x's batch shape."""
+    for a CUDA tensor (``SequentialBiquad`` when autograd must see it),
+    the plain ``_biquad_sequential`` for a CPU one.  Coefficients are
+    Python floats or 0-d tensors (a1, a2, b0, b1, b2); state (x1, x2, y1,
+    y2) of x's batch shape."""
     coeffs = tuple(
         c.to(device=x.device, dtype=torch.float32)
         if isinstance(c, torch.Tensor)
         else on_device(float(np.float32(c)), x.device) for c in cvals)
     if not x.is_cuda:
         return _biquad_sequential(x, *coeffs, state)
-    refuse_grad_on_card((x, *coeffs, *state))
-    shape = x.shape
-    R = int(np.prod(shape[:-1], dtype=np.int64))
     if all(not isinstance(c, torch.Tensor) for c in cvals):
         packed = _const(np.asarray([np.float32(c) for c in cvals],
                                    np.float32), x)
     else:
         packed = torch.stack(coeffs)
-    y, fin = sequential_kernel.biquad_sequential_cuda(
-        x.reshape(R, shape[-1]).contiguous(), packed,
-        torch.stack([s.reshape(R) for s in state], dim=-1))
+    return run_biquad(sequential_kernel.biquad_sequential_cuda,
+                      sequential_kernel.biquad_reverse_cuda, x, packed,
+                      state)
+
+
+def run_biquad(forward, reverse, x, coeffs, state):
+    """The card's route of an exact biquad: rows [R, T] for ``forward(x,
+    coeffs, state)``, through ``SequentialBiquad`` (with ``reverse``) when
+    autograd must see it.  coeffs [5], state (x1, x2, y1, y2) of x's batch
+    shape; returns (y, final state) as ``biquad_df1`` does.  A test passes
+    the plain versions."""
+    shape = x.shape
+    R = int(np.prod(shape[:-1], dtype=np.int64))
+    ins = (x.reshape(R, shape[-1]).contiguous(), coeffs,
+           torch.stack([s.reshape(R) for s in state], dim=-1))
+    if needs_grad(ins):
+        y, fin = SequentialBiquad.apply(forward, reverse, *ins)
+    else:
+        y, fin = forward(*ins)
     return y.reshape(shape), tuple(fin[:, i].reshape(shape[:-1])
                                    for i in range(4))
 

@@ -15,8 +15,13 @@ module is imported.
 ``first_order_sequential_cuda`` and ``biquad_sequential_cuda`` take only
 CUDA tensors and raise on anything the kernel cannot take; there is no
 fallback.  The plain PyTorch versions are ops/scan._first_order_sequential
-and ops/scan._biquad_sequential.  ``LAUNCHES`` counts the kernel's
-launches, one a call.
+and ops/scan._biquad_sequential.  The kernel's reverse mode,
+``first_order_reverse_cuda`` and ``biquad_reverse_cuda``, walks each row
+backwards for the adjoints (the exact policy's gradients on the card,
+ops/scan.py's ``SequentialFirstOrder`` and ``SequentialBiquad``); its plain
+versions are ops/scan._first_order_adjoint_sequential and
+_biquad_adjoint_sequential.  ``LAUNCHES`` counts the kernel's launches,
+forward and reverse, one a call.
 """
 
 from __future__ import annotations
@@ -42,6 +47,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.sequential_kernel_launch.restype = ctypes.c_int
+    lib.sequential_reverse_launch.argtypes = [
+        ctypes.c_int, *[ctypes.c_void_p] * 10, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.sequential_reverse_launch.restype = ctypes.c_int
     return lib
 
 
@@ -121,3 +130,77 @@ def biquad_sequential_cuda(x: torch.Tensor, coeffs: torch.Tensor,
     _check(coeffs, "coeffs", (5,), x.device)
     _check(state, "state", (R, 4), x.device)
     return _launch(_BIQUAD, x, None, coeffs, state, (R, 4))
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _launch_reverse(mode, ybar, a, y, x, coef, s_in, ga_shape, s_shape,
+                    acc_shape):
+    global LAUNCHES
+    R, T = ybar.shape
+    dev = ybar.device
+    gx = torch.empty_like(ybar)
+    ga = (torch.empty(ga_shape, dtype=torch.float32, device=dev)
+          if ga_shape else None)
+    s_out = torch.empty(s_shape, dtype=torch.float32, device=dev)
+    acc = (torch.empty(acc_shape, dtype=torch.float64, device=dev)
+           if acc_shape else None)
+    rc = _lib().sequential_reverse_launch(
+        mode, ybar.data_ptr(), _ptr(a), y.data_ptr(), _ptr(x), _ptr(coef),
+        s_in.data_ptr(), gx.data_ptr(), _ptr(ga), s_out.data_ptr(),
+        _ptr(acc), R, T, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sequential kernel (reverse) launch failed: "
+                           f"CUDA error {rc}")
+    LAUNCHES += 1
+    return gx, ga, s_out, acc
+
+
+def first_order_reverse_cuda(a: torch.Tensor, y: torch.Tensor,
+                             y0: torch.Tensor, ybar: torch.Tensor):
+    """The adjoint of y[t] = a y[t-1] + b[t], y[-1] = y0, for the output
+    cotangent ybar: (lam [R, T] = bbar, abar, y0bar [R]), with
+
+        lam[t] = ybar[t] + a[t+1] lam[t+1],  lam[T] = 0,
+        abar[t] = lam[t] y[t-1]  (y[-1] = y0),  y0bar = a[0] lam[0];
+
+    abar is [R, T] for a per-sample a, and for a 0-d a each row's sum in
+    float64 ([R], from t = T-1 down to 0).  y [R, T] is the forward's
+    output; every tensor f32 CUDA, contiguous, on ybar's device."""
+    R, T = _rows(ybar)
+    _check(ybar, "ybar", (R, T), ybar.device)
+    _check(y, "y", (R, T), ybar.device)
+    per_sample = isinstance(a, torch.Tensor) and a.dim() > 0
+    _check(a, "a", (R, T) if per_sample else (), ybar.device)
+    _check(y0, "y0", (R,), ybar.device)
+    lam, abar, y0bar, acc = _launch_reverse(
+        _FIRST_ORDER_PS if per_sample else _FIRST_ORDER, ybar, a, y, None,
+        None, y0, (R, T) if per_sample else None, (R,),
+        None if per_sample else (R,))
+    return lam, (abar if per_sample else acc), y0bar
+
+
+def biquad_reverse_cuda(x: torch.Tensor, y: torch.Tensor,
+                        coeffs: torch.Tensor, state: torch.Tensor,
+                        ybar: torch.Tensor):
+    """The adjoint of the DF1 biquad (``biquad_sequential_cuda``) for the
+    output cotangent ybar: (xbar [R, T], the initial state's gradient
+    [R, 4], the coefficients' gradients as float64 row sums [R, 5]), with
+
+        g[t] = ybar[t] - a1 g[t+1] - a2 g[t+2],  g[T] = g[T+1] = 0,
+        xbar[t] = b0 g[t] + b1 g[t+1] + b2 g[t+2].
+
+    x, y [R, T] are the forward's input and output, coeffs [5] = (a1, a2,
+    b0, b1, b2), state [R, 4] its initial (x1, x2, y1, y2); f32 CUDA,
+    contiguous, on ybar's device."""
+    R, T = _rows(ybar)
+    for t, name in ((ybar, "ybar"), (x, "x"), (y, "y")):
+        _check(t, name, (R, T), ybar.device)
+    _check(coeffs, "coeffs", (5,), ybar.device)
+    _check(state, "state", (R, 4), ybar.device)
+    xbar, _, sbar, acc = _launch_reverse(_BIQUAD, ybar, None, y, x, coeffs,
+                                         state, None, (R, 4), (R, 5))
+    return xbar, sbar, acc

@@ -5,14 +5,19 @@ non-static sliders as {node_id: {param: 0-d tensor}}
 (``CompiledGraph.init_params``); the loss renders the graph with those
 tensors as overrides and measures the distance to a target, and autograd
 carries the gradient back to every slider.  Overridden nodes leave the
-fused chain, cascade and cycle paths (as in the JAX package), so a fit
-runs node by node; on a CUDA device the low_pass / high_pass solves run
+fused chain, cascade and cycle paths (as in the JAX package), so a fit of
+every slider runs node by node; on a CUDA device the low_pass / high_pass solves run
 the first-order kernel forward and backward, and the envelope the
 envelope kernel forward and the first-order kernel backward.
 
 Batch is a plain leading dimension of the inputs and the target: the loss
 is the mean over streams of each stream's distance, as the JAX package's
-vmapped loss computes it.  ``adam`` is optax.adam's update (same b1, b2,
+vmapped loss computes it.  ``make_sharded_train_step`` splits that batch
+over a parallel.mesh ``Mesh`` of devices in one process.  Gradients flow
+through the fused paths too (their autograd Functions, ops/chain_segment.py
+and ops/cycle_segment.py), so a fit of some sliders keeps the rest on the
+chain and cycle kernels, and under ``exact`` through the sequential
+kernel's reverse mode.  ``adam`` is optax.adam's update (same b1, b2,
 eps and bias correction) as a ``torch.optim.Adam`` factory.
 """
 
@@ -113,6 +118,62 @@ def make_train_step(cg: CompiledGraph, optimizer: Callable | None = None,
         opt_state.step()
         clamp_params(cg, params)
         return params, opt_state, loss.detach()
+
+    return step, init_opt_state
+
+
+def make_sharded_train_step(cg: CompiledGraph, mesh,
+                            optimizer: Callable | None = None,
+                            distance: Callable = mse_loss):
+    """The training step over a parallel.mesh ``Mesh``: data parallel over
+    streams, as the JAX package's make_sharded_train_step is (there XLA
+    inserts the gradient all-reduce from the shardings).
+
+    Returns (step, init_opt_state), called as make_train_step's are, with
+    ext {input_id: [S, T]} and target [S, n_out, T] (S divisible by the
+    mesh size) anywhere, and ``params`` leaf tensors on the mesh's first
+    device.  Each step copies the parameters to every shard's device as
+    they stand at its start (a caller may edit them, or pass another dict
+    with its own optimizer, between steps), renders each
+    shard's streams with the graph compiled for its device and weights the
+    shard's loss by its share of the streams (so the sum is the mean over
+    all streams), sums the shards' gradients onto the first device in
+    shard order (deterministic), steps the optimizer there and clamps.
+    Returns the loss before the update, detached, on the first device."""
+    from dsp_stuff_tpu_torch.parallel.mesh import (compiled_for, shard_bounds,
+                                                   state_to)
+    make_opt = optimizer or adam(1e-2)
+    first = mesh.devices[0]
+    shards = [(d, make_loss_fn(compiled_for(cg, d), distance))
+              for d in mesh.devices]
+
+    def init_opt_state(params):
+        return make_opt(_leaves(params))
+
+    def step(params, opt_state, state, ext, target):
+        leaves = _leaves(params)
+        if any(v.device != first for v in leaves):
+            raise ValueError(f"make_sharded_train_step: the parameters must "
+                             f"lie on the mesh's first device {first}")
+        S = target.shape[0]
+        total = None
+        grads = None
+        for (lo, hi), (dev, loss_fn) in zip(shard_bounds(S, mesh), shards):
+            p = {n: {k: v.detach().to(dev).requires_grad_(True)
+                     for k, v in e.items()} for n, e in params.items()}
+            loss = loss_fn(p, state_to(state, dev),
+                           {k: v[lo:hi].to(dev) for k, v in ext.items()},
+                           target[lo:hi].to(dev)) * ((hi - lo) / S)
+            g = torch.autograd.grad(loss, _leaves(p))
+            loss = loss.detach().to(first)
+            total = loss if total is None else total + loss
+            g = [gi.to(first) for gi in g]
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        for v, g in zip(leaves, grads):
+            v.grad = g
+        opt_state.step()
+        clamp_params(cg, params)
+        return params, opt_state, total
 
     return step, init_opt_state
 

@@ -16,8 +16,9 @@
   chain-segment or cycle-segment paths is called, the sequential plain
   versions are.
 * Gradients under exact on the CPU go through the plain loops' autograd,
-  held against jax.grad under the JAX package's exact policy; the card's
-  refusal and the kernel wrapper's refusal of CPU tensors.
+  held against jax.grad under the JAX package's exact policy (the card's
+  route, the kernel's reverse mode, is test_torch_exact_grad.py's); the
+  kernel wrapper's refusal of CPU tensors.
 * The divide and multiply fences (utils/precision.py) against the JAX
   package's.
 
@@ -405,7 +406,7 @@ def test_one_compiled_graph_switches_policy():
     assert not np.array_equal(fast.numpy(), want)
 
 
-# -- gradients and refusals -------------------------------------------------
+# -- gradients and the wrapper -------------------------------------------------
 
 def test_exact_gradient_on_the_cpu():
     """Under exact the plain loops' own autograd differentiates the
@@ -440,17 +441,6 @@ def test_exact_gradient_on_the_cpu():
     np.testing.assert_array_equal(y, np.asarray(y_jax))
     np.testing.assert_allclose(got, np.asarray(g_jax, dtype=F32), rtol=1e-5)
     np.testing.assert_allclose(got, grads("parity")[1], rtol=1e-4)
-
-
-def test_exact_refuses_grad_on_the_card():
-    """The card's refusal (a reverse mode of the sequential kernel is not
-    ported), checked on the function the card's path calls."""
-    a = torch.tensor(0.5, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tscan.refuse_grad_on_card((a, torch.zeros(3)))
-    tscan.refuse_grad_on_card((torch.tensor(0.5), torch.zeros(3)))
-    with torch.no_grad():
-        tscan.refuse_grad_on_card((a,))
 
 
 @pytest.mark.parametrize("divisor", [3.0, 0.1, 7, np.float64(1 / 3),

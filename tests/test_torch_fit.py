@@ -1,14 +1,17 @@
 """The port's gradient fitting (dsp_stuff_tpu_torch/train/fit.py) against
 the JAX package's (dsp_stuff_tpu/train/fit.py): the ports of
-tests/test_fit.py (all but the sharded-mesh and the chorus tests, which
-wait for parallel/mesh.py and fitting through modfx), the bench chain's
-loss gradients and ten Adam steps against jax.grad and optax, and the
-envelope's analytic backward against jax.grad through the JAX follower.
+tests/test_fit.py (the sharded step's is in test_torch_parallel.py), the
+bench chain's loss gradients and ten Adam steps against jax.grad and
+optax, every slider of config2 (through the chorus) and config5 (through
+its feedback cycle, by the per-node block scan) against jax.grad, three
+Adam steps of config2 against optax, and the envelope's analytic backward
+against jax.grad through the JAX follower.
 
 Everything runs on the CPU under ``fast``, where the port takes the plain
 versions of its kernels (the CUDA kernels are held against them on the
 card by chip_smoke.py).  Tolerances, each with the worst the CPU measured:
   bench chain loss gradients vs jax.grad, all 16 sliders  rtol 1e-3 (5.2e-6)
+  config2 and config5, every slider, vs jax.grad          rtol 1e-3
   ten Adam steps vs optax.adam, every slider and loss     rtol 1e-3 (5.2e-7)
   envelope gradients vs jax.grad (x, attack, release, env0),
     max-normalized                                        1e-3 (2.9e-7)
@@ -32,7 +35,7 @@ from dsp_stuff_tpu.utils import precision as jprec
 import dsp_stuff_tpu_torch as dt
 from dsp_stuff_tpu_torch import convert
 from dsp_stuff_tpu_torch.ids import IdSpace
-from dsp_stuff_tpu_torch.ops import chain_segment, cycle_segment
+from dsp_stuff_tpu_torch.compiler import compile as tcompile
 from dsp_stuff_tpu_torch.ops import delay_line as tdl
 from dsp_stuff_tpu_torch.ops import envelope as te
 from dsp_stuff_tpu_torch.train import fit as tfit
@@ -277,24 +280,118 @@ def test_adam_steps_match_optax(bench):
                                        err_msg=f"{n}/{k}")
 
 
-@pytest.mark.parametrize("path", ["chain", "cycle"])
-def test_fused_kernel_paths_refuse_gradients(path):
-    """The chain and cycle kernels have no backward: an input with autograd
-    history raises before any launch instead of losing its gradient, and
-    without grad mode the guard lets the wrapper decide (here it refuses
-    the CPU tensor)."""
-    x = torch.zeros((2, 256), requires_grad=True)
-    if path == "chain":
-        def run():
-            return chain_segment._kernel_segment(x, (("scale", 0.5),), ())
-    else:
-        def run():
-            return cycle_segment._kernel_cycle(
-                (x,), (), (), (("join", (("ext", 0),), 1.0), ("tap", 0)), 1)
-    with pytest.raises(NotImplementedError, match="gradients through"):
-        run()
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
-        run()
+def _all_slider_grads(build, T, seed):
+    """Loss gradients of every slider of a JAX preset, fast, B = 2: the
+    port's (through make_loss_fn) and jax.grad's, and the port's
+    cycle_segment calls (a graph whose sliders are all tensors runs node by
+    node: none)."""
+    gj, meta = build()
+    gt = dt.loads_graph(dj.dumps_graph(gj), ids=IdSpace())
+    inp = str(meta["input"])
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((2, T)) * 0.3).astype(np.float32)
+    target = (rng.standard_normal((2, 1, T)) * 0.1).astype(np.float32)
+    with jprec.policy("fast"):
+        cgj = dj.compile_graph(gj)
+        pj = cgj.init_params()
+        lj, gj_ = jax.jit(jax.value_and_grad(jfit.make_loss_fn(cgj)))(
+            pj, cgj.init_state(), {inp: x}, target)
+    cgt = dt.compile_graph(gt, device="cpu")
+    pt = _port_params(pj)
+    calls = []
+    real = tcompile.cycle_segment
+    tcompile.cycle_segment = lambda *a: calls.append(a) or real(*a)
+    try:
+        with tprec.policy("fast"):
+            lt = tfit.make_loss_fn(cgt)(pt, cgt.init_state(),
+                                        {inp: torch.from_numpy(x)},
+                                        torch.from_numpy(target))
+            lt.backward()
+    finally:
+        tcompile.cycle_segment = real
+    return lt.detach(), lj, pt, gj_, calls
+
+
+def _held_grads(pt, gj, n_expect):
+    """Each slider's gradient within GRAD_RTOL of jax.grad's (1e-9 abs for
+    one that is 0 in both; a slider with no path to the loss, such as a
+    knob its modulation input overrides, gets no gradient in the port and
+    0 in JAX); returns the worst relative error."""
+    leaves = [(n, k) for n in sorted(pt) for k in sorted(pt[n])]
+    assert len(leaves) == n_expect
+    worst = 0.0
+    for n, k in leaves:
+        grad = pt[n][k].grad
+        g, w = (0.0 if grad is None else float(grad)), float(gj[n][k])
+        assert np.isfinite(g)
+        assert abs(g - w) <= max(GRAD_RTOL * abs(w), 1e-9), (n, k, g, w)
+        worst = max(worst, _rel(g, w) if w else 0.0)
+    return worst
+
+
+def test_fit_differentiable_through_chorus():
+    """The port of tests/test_fit.py:112: every slider of config2 (echo ->
+    chorus -> gain) under fast, its gradients finite and held against
+    jax.grad; the chorus runs its modulated delay unfused (ops/modfx.py)."""
+    from dsp_stuff_tpu.models import config2_delay_chorus
+    lt, lj, pt, gj, _ = _all_slider_grads(config2_delay_chorus, 2048, 3)
+    assert _rel(lt, lj) <= GRAD_RTOL
+    worst = _held_grads(pt, gj, 4)
+    print(f"config2, 4 sliders: worst relative gradient error {worst:.2e}")
+
+
+def test_fit_through_feedback_cycle():
+    """Every slider of config5 under fast: its feedback cycle runs the
+    per-node block scan (no cycle program), held against jax.grad."""
+    from dsp_stuff_tpu.models import config5_feedback_16node
+    lt, lj, pt, gj, calls = _all_slider_grads(config5_feedback_16node, 1024,
+                                              4)
+    assert calls == []
+    assert _rel(lt, lj) <= GRAD_RTOL
+    worst = _held_grads(pt, gj, sum(len(e) for e in gj.values()))
+    print(f"config5, every slider: worst relative gradient error "
+          f"{worst:.2e}")
+
+
+def test_chorus_fit_steps_match_optax():
+    """Three Adam steps of config2's sliders against optax.adam's in the
+    JAX package, both clamped after every step."""
+    from dsp_stuff_tpu.models import config2_delay_chorus
+    gj, meta = config2_delay_chorus()
+    gt = dt.loads_graph(dj.dumps_graph(gj), ids=IdSpace())
+    inp = str(meta["input"])
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((2, 1024)) * 0.3).astype(np.float32)
+    target = (rng.standard_normal((2, 1, 1024)) * 0.1).astype(np.float32)
+    with jprec.policy("fast"):
+        cgj = dj.compile_graph(gj)
+        vg = jax.jit(jax.value_and_grad(jfit.make_loss_fn(cgj)))
+        pj = cgj.init_params()
+        opt = optax.adam(1e-2)
+        ost = opt.init(pj)
+        jl = []
+        for _ in range(3):
+            loss, g = vg(pj, cgj.init_state(), {inp: x}, target)
+            upd, ost = opt.update(g, ost, pj)
+            pj = jfit.clamp_params(cgj, optax.apply_updates(pj, upd))
+            jl.append(float(loss))
+    cgt = dt.compile_graph(gt, device="cpu")
+    pt = cgt.init_params(requires_grad=True)
+    step, init_opt = tfit.make_train_step(cgt, tfit.adam(1e-2))
+    opt_t = init_opt(pt)
+    tl = []
+    with tprec.policy("fast"):
+        for _ in range(3):
+            pt, opt_t, loss = step(pt, opt_t, cgt.init_state(),
+                                   {inp: torch.from_numpy(x)},
+                                   torch.from_numpy(target))
+            tl.append(float(loss))
+    np.testing.assert_allclose(tl, jl, rtol=ADAM_RTOL)
+    for n in pj:
+        for k in pj[n]:
+            np.testing.assert_allclose(float(pt[n][k].detach()),
+                                       float(pj[n][k]), rtol=ADAM_RTOL,
+                                       atol=1e-6, err_msg=f"{n}/{k}")
 
 
 @pytest.mark.parametrize("D,T_comb", [(144, 2048), (128, 128 * 300)])
