@@ -52,7 +52,9 @@ device="cuda")``:
   float64), a 2 x 5 s handoff, render time, peak memory and the device
   time in cuFFT, parity at 4 x 2 s (float64 cuFFT);
 * muff over 128 streams x 10 s (one first-order launch a render, no plain
-  version) and against the CPU port at 2 x 1 s; mux and demux bitwise
+  version) and against the CPU port at 2 x 1 s; config2 (echo -> chorus)
+  over 128 streams x 10 s (one chain launch, its mtap stage) against the
+  composed oracle, and under parity at 4 x 1 s; mux and demux bitwise
   equal to the CPU port;
 * the graph fuzz: _random_graph seeds with fir, mux, demux and the
   envelope and _random_mega_cycle_graph seeds whose cycle programs hold
@@ -62,14 +64,21 @@ device="cuda")``:
 * the runtime: the signal generator's, soft clip's and the spectrogram's
   divides bitwise against the CPU port; each kernel at the stream's
   shapes, one row of one and of two 128-sample blocks, against its plain
-  version; StreamSession over the bench chain (10 s) and config5 (3 s) in
-  128-sample process() blocks, each block one launch of each kernel of its
-  path, against the card's one render and the CPU port's session, with
-  process_many in chunks bitwise equal to process(), per-block wall times
-  and one block's launches and copies by torch.profiler; the ring API
+  version; StreamSession over the bench chain (10 s), config5 (3 s) and
+  muff (1 s) in 128-sample process() blocks, the block step one captured
+  CUDA graph replayed a block: bitwise the eager one-block loop on the
+  card, each kernel of the path launched at the capture and none from the
+  host at a replay, a replay's kernels by torch.profiler, against the
+  card's one render and the CPU port's session, with process_many in
+  chunks bitwise equal to process(), per-block wall times, the capture's
+  time, the real-time factor, each kernel's device time at [1, 128] in
+  the replay and the device-busy share; a capture again on a params and a
+  policy change, and NODE_HOOK refused on the card; the ring API
   (capture chunks, 44.1 kHz stereo reads, resync); the CLI render of
   examples/graphs/config5.json in a subprocess, bitwise the in-process
-  render_file; a checkpoint resume; the pitch node; and debug_render;
+  render_file; a checkpoint resume; the pitch node; debug_render; and the
+  port's three example scripts (dsp_stuff_tpu_torch/examples/) in
+  subprocesses;
 * the exact policy: the sequential kernel (csrc/sequential_kernel.cu;
   first order with a scalar and a per-sample coefficient, DF1 biquad)
   bitwise against its plain version at [512, 4096], at edge shapes and on
@@ -77,8 +86,9 @@ device="cuda")``:
   exact (three sequential launches, no chain kernel, no plain version;
   against bench.oracle_chain and the CPU port's exact render, each
   figure with whether it is bitwise; render time and peak memory); the
-  bench chain streamed over 1 s in 128-sample blocks, bitwise the card's
-  exact render; config5 and the twelve exact-pool fuzz graphs
+  bench chain streamed over 1 s in 128-sample blocks as the fast streams
+  are, bitwise the eager loop and the card's exact render; config5 and
+  the twelve exact-pool fuzz graphs
   (_random_graph(seed, exact=True)) at 4 streams x 1 s against the oracle
   and the CPU port; and the kernel's times at [512, 480,000] against its
   dependent-chain floor;
@@ -123,6 +133,7 @@ identity as the last line.  Error figures are in dBFS:
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -175,6 +186,15 @@ STREAM_C5_SAMPLES = 3 * SR
 STREAM_CHUNKS = (5, 375)  # process_many chunks, in blocks
 STREAM_DB = -90.0         # streamed vs the card's one render (the JAX bound)
 STREAM_CPU_DB = -100.0    # streamed on the card vs on the CPU, first second
+PROFILE_TRIES = 5         # profiles of a replay taken for its times
+PROFILE_LEAD_IN = 64      # spin kernels that open a profile (_profile_once)
+AUTOMATION_EVERY = 8      # blocks between slider moves (bench chain, 1 s)
+# config5's feedback gain (0.45 in the preset) moved every 64 blocks: a
+# slider in the params runs node by node, so its cycle leaves the cycle
+# kernel for the per-node block scan (compile._cycle_program)
+AUTOMATION_C5_LEVELS = (0.40, 0.35, 0.30, 0.25)
+AUTOMATION_C5_EVERY = 64
+GRAPH_DIR = os.path.join(ROOT, "build", "stream_graphs")    # DOT dumps
 LFO_FAST_ATOL = 4e-7      # config5's LFO under fast: CUDA's sinf vs the CPU's
 PITCH_HZ_ATOL = 0.5       # a 440 Hz tone's detected pitch on the card
 PITCH_RTOL = 1e-4         # ... and against the CPU port's
@@ -565,6 +585,18 @@ def oracle_config5(x):
     env, _ = oracle.envelope(h([mx]), 50.0, 400.0)
     bq, _ = oracle.biquad_df1(h([env]), 1.0, -0.2, 0.0, 0.8, 0.0, 0.0)
     return h([bq])
+
+
+def oracle_config2(x):
+    """The composed NumPy oracle of config2, echo -> chorus -> gain, as
+    tests/test_torch_presets.py composes it (a chorus is not held against
+    tests/oracle/graph.py, whose history comes out one sample long)."""
+    import oracle
+    F32 = np.float32
+    h = oracle.fanin_average
+    v, _ = oracle.reverb(h([x]), 0.25, 0.45, None)
+    v, _, _ = oracle.chorus(h([v]), 0.8, 0.004, 0.012, 0.5)
+    return h([(h([v]) * F32(0.9)).astype(F32)])
 
 
 def fir_reference(x, taps_rev):
@@ -1454,6 +1486,69 @@ def muff_phase(dev, card) -> None:
     del x, y, st
 
 
+def config2_phase(dev, card) -> None:
+    """config2 (echo -> chorus -> gain) over B_C5 streams x 10 s on the
+    card, fast: one chain launch (its mtap stage), no plain version, stream
+    0's first second against the composed oracle (ORACLE_FAST_DB); parity
+    at 4 x 1 s against it (PARITY_DB)."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.models import presets
+    g2 = presets.config2_delay_chorus()[0]
+    x_np = (np.random.default_rng(61).standard_normal(
+        (B_C5, 1, T_MAIN), dtype=np.float32) * np.float32(0.3))
+    with dst.policy("fast"):
+        cg = dst.compile_graph(g2, device="cuda")
+        x = torch.as_tensor(x_np, device=dev)
+        torch.cuda.synchronize()
+        plain = {}
+        reset_launches()
+        with plain_versions_counted(plain):
+            y, _, _ = cg.render(x, batch_shape=(B_C5,))
+            torch.cuda.synchronize()
+        launches = read_launches()
+    check(not plain, f"config2 called plain versions {plain}")
+    check(launches == only_launches(chain=1),
+          f"config2 launched {launches}: expected one chain launch")
+    check(tuple(y.shape) == (B_C5, 1, T_MAIN)
+          and bool(torch.isfinite(y).all()), "config2 output")
+    d = dbfs(host(y[0, 0, :SR]), oracle_config2(x_np[0, 0, :SR]))
+    print(f"main path (config2): render [{B_C5}, 1, {T_MAIN}], launches "
+          f"{expect_str(launches)}, no plain version; stream 0, first second "
+          f"vs the composed oracle: {d:.1f} dBFS (<= {ORACLE_FAST_DB}) "
+          f"[{card}]")
+    check(d <= ORACLE_FAST_DB, f"config2 fast vs oracle {d:.1f} dBFS")
+    del x, y
+    parity(g2, x_np[:4, :, :SR], oracle_config2, "config2")
+
+
+def examples_phase(card) -> None:
+    """The port's example scripts (dsp_stuff_tpu_torch/examples/) at their
+    default sizes on the card, each in a subprocess (the kernels are built
+    by the earlier phases): exit 0, output naming the card, the fit's loss
+    finite and lower at the end than at its first step."""
+    import re
+    for name in ("streaming", "render_batch", "fit_amp"):
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-m",
+                            f"dsp_stuff_tpu_torch.examples.{name}"],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        wall = time.time() - t0
+        check(r.returncode == 0, f"example {name} exit {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+        lines = r.stdout.strip().splitlines()
+        check(bool(lines) and "cuda" in r.stdout,
+              f"example {name} printed {lines[-3:]}")
+        if name == "fit_amp":
+            losses = [float(v) for v in re.findall(r"loss ([0-9.e+-]+)",
+                                                   r.stdout)]
+            check(len(losses) >= 2 and np.isfinite(losses).all()
+                  and losses[-1] < losses[0], f"fit_amp losses {losses}")
+        print(f"example {name} on the card: exit 0 in {wall:.1f} s (a new "
+              f"process) [{card}]; {lines[0]} | {lines[-1]}")
+
+
 def mux_demux_phase() -> None:
     """mux and demux on the card, bitwise equal to the CPU port."""
     x_np = (np.random.default_rng(61).standard_normal(
@@ -1668,135 +1763,448 @@ def stream_kernel_checks(dev) -> None:
         check(worst <= Y_BOUND_DB, f"first-order [1, {T}]: {worst:.1f} dBFS")
 
 
-def profile_block(sess, block) -> dict:
-    """What one process() call puts on the card, by torch.profiler: kernels,
-    host-to-device and device-to-host copies, memsets, their device time
-    and the call's wall time."""
+#: the hand-written kernels by their __global__ names in csrc/ -> the
+#: launch counters' keys
+KERNEL_NAMES = (("sequential_reverse_kernel", "sequential"),
+                ("sequential_kernel", "sequential"),
+                ("chain_kernel", "chain"), ("cycle_kernel", "cycle"),
+                ("envelope_kernel", "envelope"), ("fo_chained", "first_order"))
+
+
+def kernel_of(name: str):
+    """The launch counter's key of a kernel's name (demangled or mangled),
+    or None for a kernel that is not one of the port's."""
+    for k, key in KERNEL_NAMES:
+        if k in name:
+            return key
+    return None
+
+
+def instance_of(name: str):
+    """What a kernel's device time is kept under: its counter key, and for
+    the sequential kernels the template's mode as well (sequential<0>:
+    first order, <1>: per-sample, <2>: biquad)."""
+    key = kernel_of(name)
+    m = re.search(r"sequential(?:_reverse)?_kernel(?:<|ILi)(\d+)", name)
+    return f"{key}<{m.group(1)}>" if key == "sequential" and m else key
+
+
+#: the kinds of a CUDA graph node that put work on the card (each is one
+#: device event of a profiled replay)
+WORK_NODES = ("KERNEL", "MEMCPY", "MEMSET")
+
+
+def graph_nodes(sess, name) -> dict:
+    """The nodes of the session's captured step, counted from the graph
+    itself (its DOT dump, cudaGraphDebugDotPrint): by kind, and the
+    port's kernels by launch counter key and by instance_of.
+    Deterministic: what the replays run, whatever a profiler sees."""
+    os.makedirs(GRAPH_DIR, exist_ok=True)
+    path = os.path.join(GRAPH_DIR, re.sub(r"\W+", "_", name) + ".dot")
+    sess.step.dump_graph(path)
+    with open(path) as f:
+        text = f.read()
+    out = {"kinds": {}, "ours": {}, "inst": {}, "at": [], "path": path}
+    starts = [m.start() for m in re.finditer(
+        r'^\s*"graph_\d+_node_\d+"\s*\[', text, re.M)]
+    for a, b in zip(starts, starts[1:] + [len(text)]):
+        node = text[a:b]
+        m = re.search(r'label="[{\s]*([A-Z_]+)', node)
+        kind = m.group(1) if m else "?"
+        out["kinds"][kind] = out["kinds"].get(kind, 0) + 1
+        if kind == "KERNEL":
+            key, inst = kernel_of(node), instance_of(node)
+            if key is not None:
+                out["at"].append((out["kinds"]["KERNEL"] - 1, inst))
+                out["ours"][key] = out["ours"].get(key, 0) + 1
+                out["inst"][inst] = out["inst"].get(inst, 0) + 1
+    out["work"] = sum(out["kinds"].get(k, 0) for k in WORK_NODES)
+    return out
+
+
+def profile_block(sess, block, gn) -> dict:
+    """One process() call's device work by torch.profiler: kernels (all,
+    and the port's by instance_of with their device time), host-to-device
+    and device-to-host copies, memsets, their device time and the call's
+    wall time.  ``gn`` is the captured graph's node count (graph_nodes),
+    the witness a profile is held against: it is kept only when its
+    device events are exactly the graph's work nodes and the call's copy
+    in and out, its kernels the graph's kernel nodes and the port's
+    kernels the graph's by instance.  The trace of a profile loses its
+    first device records (seen on an H100: the first 1-11 kernels of a
+    replay, the input's copy among them, in every profile of a call),
+    so each profile opens with PROFILE_LEAD_IN spin kernels that take
+    that loss; how many of them it showed is kept in ``lead_in``.  Up
+    to PROFILE_TRIES profiles are taken; returns the first kept, with
+    ``tries`` and ``rejected`` (the event counts of those that were
+    not), or None when none was kept: the replay's times are then not
+    measured."""
+    rejected = []
+    want = gn["kinds"].get("KERNEL", 0)
+    for tries in range(1, PROFILE_TRIES + 1):
+        p = _profile_once(sess, block)
+        if (p["events"] == gn["work"] + 2 and p["kernels"] == want
+                and p["ours"] == gn["inst"]):
+            p["tries"], p["rejected"] = tries, rejected
+            return p
+        rejected.append(p["events"])
+        order = [n for _, n in sorted(p["order"])]
+        at = [(i, instance_of(n)) for i, n in enumerate(order)
+              if kernel_of(n)]
+        print(f"  (profile {tries} of a replay: {p['events']} device events "
+              f"of {gn['work'] + 2}, {p['kernels']} kernels of {want}, the "
+              f"port's at {at} (the graph's at {gn['at']}); "
+              f"{p['lead_in']} of {PROFILE_LEAD_IN} lead-in kernels seen: "
+              f"rejected)")
+    return None
+
+
+def _profile_once(sess, block) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
     sess.process(block)                      # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the trace loses the first device records of a profile; short
+        # spin kernels take that loss ahead of the call
+        for _ in range(PROFILE_LEAD_IN):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         sess.process(block)
         wall = time.perf_counter() - t0
     out = {"kernels": 0, "h2d": 0, "d2h": 0, "memset": 0, "device_us": 0.0,
-           "wall_us": wall * 1e6}
+           "wall_us": wall * 1e6, "ours": {}, "ours_us": {}, "copies": {},
+           "events": 0, "order": [], "lead_in": 0}
     names: dict = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         n = e.name
+        if "spin_kernel" in n:
+            out["lead_in"] += 1
+            continue
+        out["events"] += 1
+        us = (e.device_time_total if hasattr(e, "device_time_total")
+              else e.cuda_time_total)
+        # a graph's copy node may run as a copy kernel (memcpy32_post)
+        copy = n.startswith(("Memcpy", "Memset", "memcpy"))
+        if copy:
+            out["copies"][n[:40]] = out["copies"].get(n[:40], 0) + 1
         if n.startswith("Memcpy HtoD"):
             out["h2d"] += 1
         elif n.startswith("Memcpy DtoH"):
             out["d2h"] += 1
         elif n.startswith("Memset"):
             out["memset"] += 1
-        elif not n.startswith("Memcpy"):
+        elif not copy:
             out["kernels"] += 1
+            out["order"].append((e.time_range.start, n))
             names[n[:60]] = names.get(n[:60], 0) + 1
-        out["device_us"] += e.device_time_total if hasattr(
-            e, "device_time_total") else e.cuda_time_total
+            inst = instance_of(n)
+            if inst is not None:
+                out["ours"][inst] = out["ours"].get(inst, 0) + 1
+                out["ours_us"][inst] = out["ours_us"].get(inst, 0.0) + us
+        out["device_us"] += us
     out["top"] = sorted(names.items(), key=lambda kv: -kv[1])[:6]
     return out
 
 
-def stream_run(name, graph, x_np, dev, card, expect) -> dict:
+def eager_stream(cg, blocks, key, params=None):
+    """The eager one-block loop on the card, the stream's reference: the
+    session's step as it ran before the block graph (``cg.fn`` on a rebound
+    state whose counters are Python ints, every kernel and op launched from
+    the host), over ``blocks`` [n, 128]; returns (output 0 [n*128], the
+    kernels' launches of each block)."""
+    import torch
+    xs = torch.as_tensor(blocks, device=cg.device)
+    state = cg.init_state()
+    outs, per_block = [], []
+    for j in range(len(blocks)):
+        prev = read_launches()
+        state, o, _ = cg.fn(state, {key: xs[j]}, params)
+        outs.append(o[cg.output_ids[0]].expand(xs.shape[-1]))
+        now = read_launches()
+        per_block.append({k: now[k] - prev[k] for k in now})
+    return host(torch.cat(outs)), per_block
+
+
+def stream_run(name, graph, x_np, dev, card, expect, policy="fast",
+               first_order=False, bounds=None) -> dict:
     """StreamSession on the card over x_np in 128-sample process() blocks
-    under fast: every block launches ``expect`` and no
-    plain version; against the card's one render of x_np (STREAM_DB) and
-    the CPU port's session over the first second (STREAM_CPU_DB);
+    under ``policy``, its step one captured CUDA graph replayed a block:
+    bitwise the eager one-block loop on the card (``eager_stream``, whose
+    every block launches ``expect`` and no plain version); the first
+    process() captures (``expect`` launched twice: the warm-up and the
+    capture) and every later block is a replay that launches nothing from
+    the host; against
+    the card's one render of x_np (STREAM_DB; bitwise under exact) and the
+    CPU port's session over the first second (STREAM_CPU_DB);
     process_many in chunks of STREAM_CHUNKS blocks and in one call bitwise
-    equal to process(); no kernel built on the way (a feedback program's
-    text holds no T: the stream runs the render's build); per-block wall
-    times, process_many's real-time factor, and one block's copies and
-    launches by the profiler."""
+    equal to process(); no kernel built on the way (the render's builds
+    serve the stream); per-block wall times, the capture's time,
+    process_many's real-time factor; the captured graph's nodes from its
+    DOT dump, whose kernels of the port must be ``expect``; one replay by
+    the profiler (a profile that lost an event rejected): its copies,
+    kernels, their device times (beside ``bounds``, {instance_of: (ms,
+    by)} at [1, 128]) and the device-busy share."""
     import torch
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.ops import cuda_build
     builds = set(cuda_build.BUILD_DIR.glob("*.so"))
     n = len(x_np) // 128
     blocks = x_np.reshape(n, 128)
-    rec = {"name": name}
-    with dst.policy("fast"):
-        sess = dst.StreamSession(graph, device="cuda")
-        key = str(sess.cg.input_ids[0])
-        out = np.empty(n * 128, np.float32)
-        times = np.empty(n)
-        plain, bad = {}, []
-        torch.cuda.synchronize()
-        reset_launches()
-        prev = read_launches()
-        with plain_versions_counted(plain):
+    rec = {"name": name, "policy": policy}
+    want_twice = {k: 2 * v for k, v in expect.items()}
+    with dst.policy(policy):
+        cg = dst.compile_graph(graph, device="cuda")
+        key = str(cg.input_ids[0])
+        plain = {}
+        with plain_versions_counted(plain, first_order=first_order):
+            ref, per_block = eager_stream(cg, blocks, key)
+            bad = [(j, d) for j, d in enumerate(per_block) if d != expect]
+            check(not bad, f"{name} eager loop: blocks launched other than "
+                           f"{expect}: {bad[:3]} ({len(bad)} blocks)")
+            sess = dst.StreamSession(graph, device="cuda")
+            out = np.empty(n * 128, np.float32)
+            times = np.empty(n)
+            torch.cuda.synchronize()
+            reset_launches()
             for j in range(n):
                 t0 = time.perf_counter()
                 y = sess.process({key: blocks[j]})
                 times[j] = time.perf_counter() - t0
                 out[j * 128:(j + 1) * 128] = y[0]
-                now = read_launches()
-                delta = {k: now[k] - prev[k] for k in now}
-                if delta != expect:
-                    bad.append((j, delta))
-                prev = now
-        total = read_launches()
+                if j == 0:
+                    first = read_launches()
+            total = read_launches()
+            rec["capture_ms"] = sess.step.capture_s * 1e3
+            check(first == want_twice and total == want_twice,
+                  f"{name} stream: the capture launched {first} and the "
+                  f"replays {({k: total[k] - first[k] for k in total})}; "
+                  f"expected {want_twice} (warm-up and capture), then none")
+            check((sess.step.captures, sess.step.replays) == (1, n),
+                  f"{name} stream: {sess.step.captures} captures, "
+                  f"{sess.step.replays} replays for {n} blocks")
+            check(bool(np.isfinite(out).all()), f"{name} stream not finite")
+            check(np.array_equal(out, ref),
+                  f"{name}: the replayed stream is not the eager loop: "
+                  f"{dbfs(out, ref):.1f} dBFS")
+            for c in STREAM_CHUNKS:
+                s2 = dst.StreamSession(graph, device="cuda")
+                got = np.concatenate([
+                    s2.process_many({key: x_np[i * 128:(i + c) * 128]})[0]
+                    for i in range(0, n, c)])
+                check(np.array_equal(got, out),
+                      f"{name}: process_many in chunks of {c} != process()")
+            s3 = dst.StreamSession(graph, device="cuda")
+            s3.process_many({key: x_np[:128]})          # captures
+            gn = rec["graph"] = graph_nodes(s3, name)
+            s3.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = s3.process_many({key: x_np})[0]
+            rec["many_ms"] = (time.perf_counter() - t0) * 1e3
+            check(np.array_equal(got, out),
+                  f"{name}: process_many in one call != process()")
+            ours = {k: v for k, v in expect.items() if v}
+            pr = rec["profile"] = profile_block(s3, {key: blocks[0]}, gn)
         check(not plain, f"{name} stream called plain versions {plain}")
-        check(not bad, f"{name} stream: blocks launched other than {expect}: "
-                       f"{bad[:3]} ({len(bad)} blocks)")
-        check(bool(np.isfinite(out).all()), f"{name} stream not finite")
         want, _, _ = dst.compile_graph(graph, device="cuda").render(
             {key: torch.as_tensor(x_np, device=dev)})
         rec["vs_render_db"] = dbfs(out, host(want[0]))
+        rec["vs_render_bitwise"] = bool(np.array_equal(out, host(want[0])))
         cpu = dst.StreamSession(graph, device="cpu")
         cpu_out = np.concatenate([cpu.process({key: blocks[j]})[0]
-                                  for j in range(SR // 128)])
+                                  for j in range(min(n, SR // 128))])
         rec["vs_cpu_db"] = dbfs(out[:cpu_out.size], cpu_out)
-        for c in STREAM_CHUNKS:
-            s2 = dst.StreamSession(graph, device="cuda")
-            got = np.concatenate([
-                s2.process_many({key: x_np[i * 128:(i + c) * 128]})[0]
-                for i in range(0, n, c)])
-            check(np.array_equal(got, out),
-                  f"{name}: process_many in chunks of {c} != process()")
-        s3 = dst.StreamSession(graph, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = s3.process_many({key: x_np})[0]
-        rec["many_ms"] = (time.perf_counter() - t0) * 1e3
-        check(np.array_equal(got, out),
-              f"{name}: process_many in one call != process()")
-        rec["profile"] = profile_block(s3, {key: blocks[0]})
     new = set(cuda_build.BUILD_DIR.glob("*.so")) - builds
     check(not new, f"{name} stream built kernels {sorted(new)}")
     ms = times * 1e3
     rec.update(first_ms=float(ms[0]), median_ms=float(np.median(ms[1:])),
                p99_ms=float(np.percentile(ms[1:], 99)),
-               launches={k: v / n for k, v in total.items()})
+               launches={k: v for k, v in expect.items() if v})
     rtf = (n * 128 / SR) / (rec["many_ms"] / 1e3)
-    pr = rec["profile"]
+    rec["rtf"] = rtf
+    # the profiled call's wall holds the profiler's own cost: the share is
+    # of the unprofiled median block
+    rec["busy"] = (pr["device_us"] / (rec["median_ms"] * 1e3) if pr
+                   else None)
     print(f"StreamSession ({name}), {n} process() blocks of 128 = "
-          f"{n * 128 / SR:g} s, fast [{card}]:")
-    print(f"  vs the card's one render {rec['vs_render_db']:.1f} dBFS (<= "
-          f"{STREAM_DB}); vs the CPU port's session, first second "
-          f"{rec['vs_cpu_db']:.1f} dBFS (<= {STREAM_CPU_DB})")
-    print(f"  process_many in chunks of {STREAM_CHUNKS} blocks and in one "
-          f"call: bitwise equal to process()")
-    print(f"  launches a block {rec['launches']}, no plain version called, "
-          f"no kernel built (the render's builds serve the stream)")
-    print(f"  process() wall a block: first {rec['first_ms']:.3f} ms, then "
-          f"median {rec['median_ms']:.3f} ms, p99 {rec['p99_ms']:.3f} ms "
-          f"(a block lasts {128 / SR * 1e3:.3f} ms at 48 kHz)")
+          f"{n * 128 / SR:g} s, {policy}, one CUDA graph replayed a block "
+          f"[{card}]:")
+    print(f"  bitwise the eager one-block loop on the card ({expect_str(ours)}"
+          f" a block there, no plain version); process_many in chunks of "
+          f"{STREAM_CHUNKS} blocks and in one call bitwise equal to "
+          f"process()")
+    print(f"  vs the card's one render {rec['vs_render_db']:.1f} dBFS "
+          f"(bitwise: {rec['vs_render_bitwise']}; <= {STREAM_DB}); vs the CPU "
+          f"port's session, first second {rec['vs_cpu_db']:.1f} dBFS "
+          f"(<= {STREAM_CPU_DB})")
+    print(f"  capture (warm-up included) {rec['capture_ms']:.1f} ms, once: "
+          f"{expect_str(ours)} launched twice (warm-up, capture), none from "
+          f"the host in {n - 1} replays; no kernel built")
+    print(f"  process() wall a block: first {rec['first_ms']:.3f} ms "
+          f"(capture included), then median {rec['median_ms']:.3f} ms, p99 "
+          f"{rec['p99_ms']:.3f} ms (a block lasts {128 / SR * 1e3:.3f} ms at "
+          f"48 kHz)")
     print(f"  process_many of {n} blocks in one call: {rec['many_ms']:.1f} ms "
           f"= {rtf:.2f}x real time")
-    print(f"  one process() by torch.profiler: {pr['kernels']} kernels, "
-          f"{pr['h2d']} host-to-device copies, {pr['d2h']} device-to-host, "
-          f"{pr['memset']} memsets, device busy {pr['device_us']:.1f} us of "
-          f"{pr['wall_us']:.1f} us wall; most launched: {pr['top']}")
+    print(f"  the captured graph (its DOT dump): nodes {gn['kinds']}; the "
+          f"port's kernels {expect_str(gn['ours'])} "
+          f"({expect_str(gn['inst'])})")
+    if pr is None:
+        print(f"  one replayed process() by torch.profiler: not measured (no "
+              f"profile of {PROFILE_TRIES} showed the graph's "
+              f"{gn['kinds'].get('KERNEL', 0)} kernel nodes)")
+    else:
+        print(f"  one replayed process() by torch.profiler (profile "
+              f"{pr['tries']}, rejected {pr['rejected']}; {pr['lead_in']} of "
+              f"{PROFILE_LEAD_IN} lead-in kernels seen; {pr['events']} "
+              f"device events = the graph's {gn['work']} work nodes and the "
+              f"call's copy in and out): {pr['kernels']} kernels "
+              f"({expect_str(pr['ours'])} of the port's), "
+              f"{pr['events'] - pr['kernels']} copies and memsets: "
+              f"{pr['h2d']} host-to-device, {pr['d2h']} device-to-host, "
+              f"{pr['memset']} memsets ({pr['copies']}), device busy "
+              f"{pr['device_us']:.1f} us, {rec['busy']:.1%} of the median "
+              f"block (the profiled call's wall {pr['wall_us']:.1f} us); "
+              f"most launched: {pr['top']}")
+        for k, us in sorted(pr["ours_us"].items()):
+            b = (bounds or {}).get(k)
+            extra = (f", bound {b[0] * 1e3:.3f} us by {b[1]} "
+                     f"({b[0] * 1e3 / us:.1%} of it)" if b and us > 0 else "")
+            print(f"  {k} kernel at [1, 128] in the replay: {us:.3f} us "
+                  f"device time ({pr['ours'][k]} launch(es)){extra}")
+    rec["kernel_us"] = dict(pr["ours_us"]) if pr else {}
+    rec["kernel_n"] = dict(gn["inst"])
+    check(gn["ours"] == ours,
+          f"{name}: the captured graph holds the kernels {gn['ours']}, not "
+          f"{ours} (nodes {gn['kinds']})")
     check(rec["vs_render_db"] <= STREAM_DB,
           f"{name} stream vs render {rec['vs_render_db']:.1f} dBFS")
+    if policy == "exact":
+        check(rec["vs_render_bitwise"], f"{name}: the exact stream is not "
+                                        f"bitwise the card's exact render")
     check(rec["vs_cpu_db"] <= STREAM_CPU_DB,
           f"{name} stream card vs CPU {rec['vs_cpu_db']:.1f} dBFS")
+    return rec
+
+
+def expect_str(launches: dict) -> str:
+    return ", ".join(f"{k} x{v}" for k, v in sorted(launches.items()) if v) \
+        or "no kernel"
+
+
+def recapture_check(card) -> None:
+    """A session on the card captures again when its params or the policy
+    change, and each stretch is bitwise the eager loop taking the same
+    turns; a session asked for, or run, while NODE_HOOK is set raises."""
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import compile as tcompile
+    g = bench_graph()
+    gain = str(sorted(g.nodes)[1])
+    blocks = (np.random.default_rng(141).standard_normal((12, 128)) * 0.3
+              ).astype(np.float32)
+    turns = (("fast", None), ("fast", {gain: {"level": 2.0}}),
+             ("parity", {gain: {"level": 2.0}}))
+    sess = dst.StreamSession(g, device="cuda")
+    key = str(sess.cg.input_ids[0])
+    got, want = [], []
+    state = sess.cg.init_state()
+    import torch
+    xs = torch.as_tensor(blocks, device=sess.device)
+    for t, (pol, params) in enumerate(turns):
+        with dst.policy(pol):
+            sess.params = params
+            for j in range(4 * t, 4 * t + 4):
+                got.append(sess.process({key: blocks[j]})[0])
+                state, o, _ = sess.cg.fn(state, {key: xs[j]}, params)
+                want.append(host(o[sess.cg.output_ids[0]]))
+    same = np.array_equal(np.concatenate(got), np.concatenate(want))
+    print(f"recapture on the card: 3 turns of 4 blocks (fast; a gain level "
+          f"set; parity): {sess.step.captures} captures, {sess.step.replays} "
+          f"replays, bitwise the eager loop taking the same turns: {same} "
+          f"[{card}]")
+    check(sess.step.captures == 3, f"{sess.step.captures} captures, not 3")
+    check(same, "the recaptured stream is not the eager loop")
+    tcompile.NODE_HOOK = lambda nid, cfg, outs: None
+    try:
+        for what, fn in (("a new session", lambda: dst.StreamSession(
+                              g, device="cuda")),
+                         ("a block", lambda: sess.process({key: blocks[0]}))):
+            try:
+                fn()
+            except RuntimeError as e:
+                check("NODE_HOOK" in str(e), f"NODE_HOOK: {e}")
+            else:
+                check(False, f"{what} on the card ran while NODE_HOOK was set")
+    finally:
+        tcompile.NODE_HOOK = None
+    print("  NODE_HOOK set: a new session on the card and a block of a "
+          "running one raise")
+
+
+def automation_run(name, graph, node, param, values, every, x_np,
+                   card) -> dict:
+    """Slider automation on the card: a stream whose one slider
+    (``node``'s ``param``) takes the next of ``values`` every ``every``
+    process() blocks, a new params dict each time.  Each change captures
+    the step again (the slider's value is a constant of what the step
+    launches), so the turn's first block pays the capture.  Bitwise the
+    eager one-block loop taking the same values; per-block wall times,
+    the blocks longer than the 2.667 ms a block lasts (a live stream's
+    underruns without more buffering) and the captures."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    n = len(x_np) // 128
+    blocks = x_np.reshape(n, 128)
+    turns = [{str(node): {param: values[j // every]}} for j in range(n)]
+    with dst.policy("fast"):
+        sess = dst.StreamSession(graph, device="cuda")
+        key = str(sess.cg.input_ids[0])
+        got, times = np.empty(n * 128, np.float32), np.empty(n)
+        for j in range(n):
+            if j % every == 0:
+                sess.params = turns[j]
+            t0 = time.perf_counter()
+            got[j * 128:(j + 1) * 128] = sess.process({key: blocks[j]})[0]
+            times[j] = time.perf_counter() - t0
+        cg = sess.cg
+        xs = torch.as_tensor(blocks, device=sess.device)
+        state, want = cg.init_state(), []
+        for j in range(n):
+            state, o, _ = cg.fn(state, {key: xs[j]}, turns[j])
+            want.append(host(o[cg.output_ids[0]]))
+    want = np.concatenate(want)
+    ms = times * 1e3
+    turn = ms[::every]
+    steady = np.delete(ms, np.arange(0, n, every))
+    block_ms = 128 / SR * 1e3
+    rec = {"blocks": n, "every": every, "captures": sess.step.captures,
+           "turn_median_ms": float(np.median(turn)),
+           "turn_max_ms": float(turn.max()),
+           "steady_median_ms": float(np.median(steady)),
+           "steady_p99_ms": float(np.percentile(steady, 99)),
+           "over": int((ms > block_ms).sum()),
+           "wall_s": float(times.sum()), "audio_s": n * 128 / SR}
+    print(f"slider automation ({name}): {node}'s {param} set anew every "
+          f"{every} blocks over {n} process() blocks ({rec['audio_s']:.3f} s "
+          f"of audio), fast [{card}]:")
+    print(f"  {rec['captures']} captures; a turn's first block median "
+          f"{rec['turn_median_ms']:.3f} ms, max {rec['turn_max_ms']:.3f} ms; "
+          f"the other blocks median {rec['steady_median_ms']:.3f} ms, p99 "
+          f"{rec['steady_p99_ms']:.3f} ms; {rec['over']} of {n} blocks over "
+          f"the {block_ms:.3f} ms a block lasts; {rec['wall_s']:.3f} s wall "
+          f"in all; bitwise the eager loop taking the same values: "
+          f"{bool(np.array_equal(got, want))}")
+    check(rec["captures"] == -(-n // every),
+          f"{name} automation: {rec['captures']} captures for "
+          f"{-(-n // every)} values")
+    check(np.array_equal(got, want),
+          f"{name} automation is not the eager loop: {dbfs(got, want):.1f} "
+          f"dBFS")
     return rec
 
 
@@ -1981,13 +2389,38 @@ def runtime_phase(dev, card) -> dict:
     stream_kernel_checks(dev)
     rng = np.random.default_rng(131)
     g5 = presets.config5_feedback_16node()[0]
+    stages5 = planned_stages(g5)[0]
+    program5 = cycle_program(g5)[0]
     recs = {}
-    for name, g, T, expect in (
-            ("bench chain", bench_graph(), T_MAIN, only_launches(chain=1)),
+    for name, g, T, expect, first_order, bnds in (
+            ("bench chain", bench_graph(), T_MAIN, only_launches(chain=1),
+             False, {"chain": chain_bound(bench_stages(), 1, 128)}),
             ("config5", g5, STREAM_C5_SAMPLES,
-             only_launches(chain=1, cycle=1, envelope=1))):
+             only_launches(chain=1, cycle=1, envelope=1), False,
+             {"chain": chain_bound(stages5, 1, 128),
+              "cycle": cycle_bound(program5, 1, 128),
+              "envelope": bound(8.0 * 128, 3.0 * 128)}),
+            ("muff", muff_graph(), SR, only_launches(first_order=1), True,
+             {"first_order": bound(8.0 * 128, 2.0 * 128)})):
         x = (rng.standard_normal(T) * 0.3).astype(np.float32)
-        recs[name] = stream_run(name, g, x, dev, card, expect)
+        recs[name] = stream_run(name, g, x, dev, card, expect,
+                                first_order=first_order, bounds=bnds)
+    recapture_check(card)
+    g = bench_graph()
+    gain = sorted(g.nodes)[1]
+    n_auto = SR // 128
+    recs["automation bench"] = automation_run(
+        "bench chain", g, gain, "level",
+        [1.0 + 0.01 * i for i in range(-(-n_auto // AUTOMATION_EVERY))],
+        AUTOMATION_EVERY, (rng.standard_normal(n_auto * 128) * 0.3)
+        .astype(np.float32), card)
+    fbg = next(i for i, nd in sorted(g5.nodes.items())
+               if nd.cfg_name == "gain" and nd.params["level"] == 0.45)
+    recs["automation config5"] = automation_run(
+        "config5", g5, fbg, "level", AUTOMATION_C5_LEVELS,
+        AUTOMATION_C5_EVERY, (rng.standard_normal(
+            len(AUTOMATION_C5_LEVELS) * AUTOMATION_C5_EVERY * 128) * 0.3)
+        .astype(np.float32), card)
     ring_check(g5)
     cli_check(dev, card)
     checkpoint_check(dev)
@@ -2083,6 +2516,19 @@ def seq_bound(mode, R, T):
     n_bytes = 4.0 * R * T * (3 if mode == "first_order:per-sample" else 2)
     flops = (9.0 if mode == "biquad" else 2.0) * R * T
     return bound(n_bytes, flops)
+
+
+#: the exact bench chain's solves in one stream block, by the sequential
+#: kernel's template instance: low_pass and high_pass (first order, mode
+#: 0) and the biquad (mode 2), each over [1, 128]
+EXACT_BLOCK = {"sequential<0>": ("first_order", 2),
+               "sequential<2>": ("biquad", 1)}
+
+
+def exact_block_bounds():
+    """Each instance's bound in one exact stream block: seq_bound of its
+    solves, taken as rows of one solve."""
+    return {k: seq_bound(mode, n, 128) for k, (mode, n) in EXACT_BLOCK.items()}
 
 
 def sequential_launches(cg, T: int) -> int:
@@ -2308,33 +2754,16 @@ def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
           f"audio-s/s [{card}]")
     rec["launches"] = by_mode
 
-    # streamed over 1 s: bitwise the card's render
-    x1 = x_np[0, 0, :SR].copy()
-    n = len(x1) // 128
-    with dst.policy("exact"):
-        sess = dst.StreamSession(g, device="cuda")
-        key = str(sess.cg.input_ids[0])
-        plain = {}
-        reset_launches()
-        t0 = time.time()
-        with plain_versions_counted(plain, first_order=True):
-            out = np.concatenate([sess.process({key: x1[j * 128:
-                                                      (j + 1) * 128]})[0]
-                                  for j in range(n)])
-        stream_s = time.time() - t0
-        launches = read_launches()
-        want, _, _ = dst.compile_graph(g, device="cuda").render(
-            {key: torch.as_tensor(x1, device=dev)})
-    check(not plain, f"exact stream called plain versions {plain}")
-    check(launches == only_launches(sequential=n_seq * n),
-          f"exact stream launched {launches}, expected {n_seq} sequential "
-          f"launches a block")
-    same = bool(np.array_equal(out, host(want[0])))
-    print(f"bench chain StreamSession under exact, {n} blocks of 128: "
-          f"{n_seq} sequential launches a block, {stream_s / n * 1e3:.3f} ms "
-          f"a block; bitwise the card's exact render: {same} [{card}]")
-    check(same, f"exact stream vs render: {dbfs(out, host(want[0])):.1f} "
-                f"dBFS, not bitwise")
+    # streamed over 1 s: one CUDA graph replayed a block, bitwise the
+    # eager loop and the card's exact render
+    rec["stream"] = stream_run(
+        "bench chain, exact", g, x_np[0, 0, :SR].copy(), dev, card,
+        only_launches(sequential=n_seq), policy="exact", first_order=True,
+        bounds=exact_block_bounds())
+    check(rec["stream"]["kernel_n"] == {k: n for k, (_, n)
+                                        in EXACT_BLOCK.items()},
+          f"exact stream: the graph's sequential instances "
+          f"{rec['stream']['kernel_n']}, not {EXACT_BLOCK}")
 
     # config5 at B_EXACT x 1 s
     g5, _ = presets.config5_feedback_16node()
@@ -3472,6 +3901,7 @@ def main() -> int:
     config4_phase(dev, card)
     torch.cuda.empty_cache()
     muff_phase(dev, card)
+    config2_phase(dev, card)
     mux_demux_phase()
 
     # -- 15. the graph fuzz on the card -------------------------------------
@@ -3480,7 +3910,8 @@ def main() -> int:
 
     # -- 16. the runtime on the card ----------------------------------------
     torch.cuda.empty_cache()
-    runtime_phase(dev, card)
+    rt = runtime_phase(dev, card)
+    examples_phase(card)
 
     # -- 17. the exact policy on the card -----------------------------------
     torch.cuda.empty_cache()
@@ -3489,6 +3920,13 @@ def main() -> int:
     # -- 18. gradients on the card ------------------------------------------
     torch.cuda.empty_cache()
     gr = grad_phase(dev, card)
+
+    def stream_us(rec, key, bnd):
+        """The kernel's device time in one replayed stream block, with its
+        bound at [1, 128] (every launch of it in the block)."""
+        return {"stream_block_us": rec["kernel_us"].get(key),
+                "stream_block_launches": rec["kernel_n"].get(key),
+                "stream_bound_us": bnd[0] * 1e3, "stream_bound_by": bnd[1]}
 
     def entry(name, source, replaces, launches, err, t, bnd, lib_ms=None,
               **extra):
@@ -3500,27 +3938,33 @@ def main() -> int:
                 "bound_share": bnd[0] / t[0], "library_ms": lib_ms, **extra}
 
     def seq_entry(mode, replaces, rec=ex, launches=ex["launches"],
-                  shape=(B_MAIN, T_MAIN)):
+                  shape=(B_MAIN, T_MAIN), **extra):
         m = rec[mode]
         return entry(f"sequential_kernel:{mode}", "sequential_kernel.cu",
                      replaces, launches[mode], rec[f"{mode}:err"],
                      (m["ms"], m["plain_ms"]), m["bound"],
-                     floor_ms=m["floor"], shape=list(shape))
+                     floor_ms=m["floor"], shape=list(shape), **extra)
 
     program5 = programs["config5"][0]
     print(json.dumps({"kernels": [
         entry("chain_kernel", "chain_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_chain.py:459",
               bench_launches["chain"], abs_err, (ms, plain_ms),
-              chain_bound(bench_stages(), B_MAIN, T_MAIN), bench_lib_ms),
+              chain_bound(bench_stages(), B_MAIN, T_MAIN), bench_lib_ms,
+              **stream_us(rt["bench chain"], "chain",
+                          chain_bound(bench_stages(), 1, 128))),
         entry("chain_kernel:mtap", "chain_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_chain.py:459",
               c5_launches["chain"], mtap_err, times["chain_mtap"],
-              chain_bound(stages5, B_C5, T_MAIN), mtap_lib_ms),
+              chain_bound(stages5, B_C5, T_MAIN), mtap_lib_ms,
+              **stream_us(rt["config5"], "chain",
+                          chain_bound(stages5, 1, 128))),
         entry("cycle_kernel", "cycle_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_cycle.py:220",
               c5_launches["cycle"], cycle_err, times["cycle"],
-              cycle_bound(program5, B_C5, T_MAIN)),
+              cycle_bound(program5, B_C5, T_MAIN),
+              **stream_us(rt["config5"], "cycle",
+                          cycle_bound(program5, 1, 128))),
         entry("envelope_kernel:chunked", "envelope_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_envelope.py:203",
               c5_launches["envelope"], rec["chunk_err"], times["env_chunk"],
@@ -3528,17 +3972,25 @@ def main() -> int:
         entry("envelope_kernel:sequential", "envelope_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_envelope.py:65",
               par_launches["envelope"], rec["seq_err"], times["env_seq"],
-              bound(8.0 * 4 * SR, 3.0 * 4 * SR)),
+              bound(8.0 * 4 * SR, 3.0 * 4 * SR),
+              **stream_us(rt["config5"], "envelope",
+                          bound(8.0 * 128, 3.0 * 128))),
         entry("first_order_kernel", "first_order_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_scan.py:102",
               fit_rec["launches"], rec["fo_err"], fit_rec["fo_times"],
-              bound(8.0 * B_FIT * T_MAIN, 2.0 * B_FIT * T_MAIN)),
+              bound(8.0 * B_FIT * T_MAIN, 2.0 * B_FIT * T_MAIN),
+              **stream_us(rt["muff"], "first_order",
+                          bound(8.0 * 128, 2.0 * 128))),
         entry("first_order_kernel:per-sample", "first_order_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_scan.py:102",
               fit_rec["launches_ps"], rec["fo_err_ps"], fit_rec["fo_times_ps"],
               bound(12.0 * B_FIT * T_MAIN, 2.0 * B_FIT * T_MAIN)),
-        seq_entry("first_order", "dsp_stuff_tpu/ops/scan.py:299"),
-        seq_entry("biquad", "dsp_stuff_tpu/ops/scan.py:745"),
+        seq_entry("first_order", "dsp_stuff_tpu/ops/scan.py:299",
+                  **stream_us(ex["stream"], "sequential<0>",
+                              exact_block_bounds()["sequential<0>"])),
+        seq_entry("biquad", "dsp_stuff_tpu/ops/scan.py:745",
+                  **stream_us(ex["stream"], "sequential<2>",
+                              exact_block_bounds()["sequential<2>"])),
         seq_entry("first_order_reverse", "dsp_stuff_tpu/ops/scan.py:299",
                   gr, gr["rev_launches"], (B_EXACT, SR)),
         seq_entry("first_order_reverse_per_sample",

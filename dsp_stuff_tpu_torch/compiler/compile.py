@@ -41,6 +41,7 @@ from dsp_stuff_tpu_torch.ops import cascade
 from dsp_stuff_tpu_torch.ops import chain_segment as _cs
 from dsp_stuff_tpu_torch.ops.cycle_segment import cycle_segment
 from dsp_stuff_tpu_torch.ops.delay_line import delay_samples
+from dsp_stuff_tpu_torch.ops.lockstep import advance, oldest_first
 from dsp_stuff_tpu_torch.ops.modfx import (max_delay_samples, mtap_shared,
                                            mtap_static)
 from dsp_stuff_tpu_torch.registry import ParamSpec
@@ -803,8 +804,7 @@ class CompiledGraph:
             else:
                 nst = st[str(sp[1])]
                 # the reverb ring oldest-first
-                state_in.append(torch.roll(nst["ring"], -int(nst["pos"]),
-                                           dims=-1))
+                state_in.append(oldest_first(nst["ring"], nst["pos"]))
         y, cinfos, hists, tap_sigs = _cs.chain_segment(x1, stages,
                                                        tuple(state_in))
         ci = hi = 0
@@ -817,7 +817,7 @@ class CompiledGraph:
                 ci += 1
             elif sp[0] == "mtap":
                 st[str(sp[1])] = {"hist": hists[hi],
-                                  "t0": int(st[str(sp[1])]["t0"]) + T_run}
+                                  "t0": advance(st[str(sp[1])]["t0"], T_run)}
                 hi += 1
             else:
                 st[str(sp[1])] = {"ring": hists[hi], "pos": 0}
@@ -1089,8 +1089,7 @@ class CompiledGraph:
                         sp[1], [state[str(n)] for n in sp[2]]))
                 else:
                     nst = state[str(sp[1])]
-                    st_in.append(torch.roll(nst["ring"], -int(nst["pos"]),
-                                            dims=-1))
+                    st_in.append(oldest_first(nst["ring"], nst["pos"]))
             taps, regs_f, cinfos, hists = cycle_segment(
                 tuple(values[k] for k in ext_keys), regs0, tuple(st_in),
                 program, len(tap_ports))

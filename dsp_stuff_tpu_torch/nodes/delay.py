@@ -7,6 +7,7 @@ import torch
 
 from dsp_stuff_tpu_torch.registry import register_node, ParamSpec
 from dsp_stuff_tpu_torch.ops.delay_line import feedback_comb, delay_samples
+from dsp_stuff_tpu_torch.ops.lockstep import counter, oldest_first
 from dsp_stuff_tpu_torch.ops.modfx import max_delay_samples, modulated_delay
 
 
@@ -26,7 +27,7 @@ class Reverb:
     (reverb.rs:55-71).
 
     State is the JAX package's circular buffer + write position; ``pos``
-    (a Python int, shared by all streams) is non-zero only after the
+    (a lockstep counter, ops/lockstep.py) is non-zero only after the
     per-block path (``process_block``, which the feedback-cycle scan
     calls), and is canonicalized away before the comb runs."""
 
@@ -37,7 +38,7 @@ class Reverb:
 
     @staticmethod
     def process_seq(params, state, inputs):
-        ring = torch.roll(state["ring"], -int(state["pos"]), dims=-1)
+        ring = oldest_first(state["ring"], state["pos"])
         y, ring = feedback_comb(inputs["in"], params["decay"],
                                 ring.shape[-1], ring)
         return {"out": y}, {"ring": ring, "pos": 0}
@@ -47,7 +48,7 @@ class Reverb:
         """One block no longer than the line: read the T oldest samples of
         the ring at ``pos``, overwrite them with the outputs."""
         x = inputs["in"]
-        ring, pos = state["ring"], int(state["pos"])
+        ring, pos = state["ring"], counter(state["pos"])
         D = ring.shape[-1]
         T = x.shape[-1]
         if T > D:
@@ -79,8 +80,8 @@ class Chorus:
     modulated fractional taps).  base/depth fix the history length, so
     they are structural; rate and mix are modulatable.  See ops/modfx.py.
 
-    The sample clock ``t0`` is lockstep state: a Python int shared by all
-    streams, so the tap trajectory is shared too."""
+    The sample clock ``t0`` is a lockstep counter (ops/lockstep.py)
+    shared by all streams, so the tap trajectory is shared too."""
 
     @staticmethod
     def init_state(cfg, block_size):

@@ -14,6 +14,7 @@ from dsp_stuff_tpu_torch.registry import (register_node, ParamSpec,
 from dsp_stuff_tpu_torch.ops.envelope import peak_envelope
 from dsp_stuff_tpu_torch.ops.fir import fir_apply, init_fir_state
 from dsp_stuff_tpu_torch.ops.scan import first_order_affine, biquad_df1
+from dsp_stuff_tpu_torch.utils.precision import on_device
 
 
 def _zero():
@@ -60,9 +61,10 @@ class BiQuad:
         raw = [params[k] for k in ("a0", "a1", "a2", "b0", "b1", "b2")]
         if any(isinstance(v, torch.Tensor) for v in raw):
             x = inputs["in"]
-            a0 = torch.as_tensor(raw[0], dtype=torch.float32, device=x.device)
-            a1, a2, b0, b1, b2 = (torch.as_tensor(v, dtype=torch.float32,
-                                                  device=x.device) / a0
+            # a float among them is a cached device constant: a stream
+            # block's capture may copy nothing from the host
+            a0 = on_device(raw[0], x.device)
+            a1, a2, b0, b1, b2 = (on_device(v, x.device) / a0
                                   for v in raw[1:])
         else:
             a0 = np.float32(raw[0])

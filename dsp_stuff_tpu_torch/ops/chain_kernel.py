@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from dsp_stuff_tpu_torch.ops import cuda_build
+from dsp_stuff_tpu_torch.utils.capture import device_cache, hold
 
 C = 128        # samples per block
 NS = 8         # padded carry lanes (cascade.MAX_RUN_DIM embeds <= 8)
@@ -148,7 +149,7 @@ def casc_tile_consts(sections: tuple):
             tuple(int(o) for o in offs[:4]), N)
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _casc_tile_device(sections: tuple, device: torch.device):
     arr, offs, N = casc_tile_consts(sections)
     return torch.as_tensor(arr, device=device), offs, N
@@ -281,8 +282,10 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 def to_device(buf: np.ndarray, dev) -> torch.Tensor:
     """A packed program on ``dev``: copied from pinned memory without
     waiting for the stream (the caching host allocator keeps the pinned
-    block until the copy is done)."""
-    pinned = torch.from_numpy(buf).pin_memory()
+    block until the copy is done).  Inside a stream session's capture the
+    copy becomes a node of the graph that reads the pinned block at every
+    replay, so the block is held as long as the graph (utils/capture)."""
+    pinned = hold(torch.from_numpy(buf).pin_memory())
     return pinned.to(dev, non_blocking=True)
 
 

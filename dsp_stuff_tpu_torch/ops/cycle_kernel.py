@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from dsp_stuff_tpu_torch.ops import cuda_build
+from dsp_stuff_tpu_torch.utils.capture import device_cache
 from dsp_stuff_tpu_torch.ops.chain_kernel import (C, EW_CODES, NS,
                                                   _casc_consts, _seeded_ring,
                                                   to_device)
@@ -266,7 +267,7 @@ def cycle_casc_consts(sections: tuple) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _casc_consts_device(sections: tuple, device: torch.device):
     return torch.as_tensor(cycle_casc_consts(sections), device=device)
 

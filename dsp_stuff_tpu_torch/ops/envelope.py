@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from dsp_stuff_tpu_torch.ops import envelope_kernel, scan
-from dsp_stuff_tpu_torch.utils.precision import get_policy
+from dsp_stuff_tpu_torch.utils.precision import get_policy, scalar_on
 
 _F32 = torch.float32
 
@@ -85,8 +85,8 @@ def _seq_scan(x, atk: float, rel: float, env0):
     env = torch.as_tensor(env0, dtype=_F32, device=x.device).expand(
         x.shape[:-1]).clone()
     out = torch.empty_like(d)
-    a = torch.tensor(atk, dtype=_F32, device=x.device)
-    r = torch.tensor(rel, dtype=_F32, device=x.device)
+    a = scalar_on(float(atk), x.device)
+    r = scalar_on(float(rel), x.device)
     for t in range(d.shape[-1]):
         dt = d[..., t]
         env = dt + torch.where(env < dt, a, r) * (env - dt)
@@ -107,8 +107,8 @@ def _chunked_batched(x, atk: float, rel: float, env0, chunk: int):
     P = -(-T // chunk)
     xp = torch.nn.functional.pad(x, (0, P * chunk - T))
     d = torch.abs(xp).reshape(B, P, chunk)
-    a = torch.tensor(atk, dtype=_F32, device=x.device)
-    r = torch.tensor(rel, dtype=_F32, device=x.device)
+    a = scalar_on(float(atk), x.device)
+    r = scalar_on(float(rel), x.device)
     e0 = torch.as_tensor(env0, dtype=_F32, device=x.device).expand(B)
 
     def run(starts, out):
@@ -173,8 +173,8 @@ class EnvCore(torch.autograd.Function):
         d = torch.abs(x)
         env_prev = torch.cat([env0[:, None], env[:, :-1]], dim=1)
         is_atk = env_prev < d
-        g = torch.where(is_atk, torch.tensor(a, dtype=_F32, device=x.device),
-                        torch.tensor(r, dtype=_F32, device=x.device))
+        g = torch.where(is_atk, scalar_on(float(a), x.device),
+                        scalar_on(float(r), x.device))
         # lam_t = ybar_t + g_{t+1} lam_{t+1}: the reverse solve with the
         # next sample's gain (none after the last)
         lam = scan.first_order_solve(F.pad(g[:, 1:], (0, 1)), ybar,

@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from dsp_stuff_tpu_torch.utils.capture import device_cache
 from dsp_stuff_tpu_torch.utils.precision import scalar_on
 
 
@@ -95,13 +96,34 @@ def spectrogram(x, fft_size: int = 512, lower_hz: float = 20.0,
         return grid, x.new_zeros((*x.shape[:-1], 0, K))
     xb = x[..., : n_frames * fft_size].reshape(*x.shape[:-1], n_frames,
                                                fft_size)
-    win = torch.as_tensor(np.hanning(fft_size).astype(np.float32),
-                          device=x.device)
+    win, keep_d, W = _spectrogram_consts(fft_size, float(lower_hz),
+                                         float(upper_hz), sample_rate, K,
+                                         x.device)
     spec = torch.abs(torch.fft.rfft(xb * win, dim=-1)) / fft_size
-    spec = tilt(spec[..., torch.as_tensor(keep, device=x.device)],
-                freqs[keep], sample_rate)
-    W = torch.as_tensor(_catmull_rom_matrix(n, K), device=x.device)
+    spec = tilt(spec[..., keep_d], freqs[keep], sample_rate)
     return grid, spec @ W.T
+
+
+@device_cache(maxsize=16)
+def _spectrogram_consts(fft_size: int, lower_hz: float, upper_hz: float,
+                        sample_rate: int, K: int, device):
+    """(window, kept bin indices, resampling matrix) on ``device``, copied
+    there once (a streamed block reuses them)."""
+    _, keep = _kept_bins(fft_size, lower_hz, upper_hz, sample_rate)
+    return (torch.as_tensor(np.hanning(fft_size).astype(np.float32),
+                            device=device),
+            torch.as_tensor(keep, device=device),
+            torch.as_tensor(_catmull_rom_matrix(keep.size, K),
+                            device=device))
+
+
+@device_cache(maxsize=16)
+def _boost_on(raw: bytes, device) -> torch.Tensor:
+    """sqrt(max(f, 1)) of the kept bins' frequencies (float64 bytes) as
+    f32 on ``device``, taken on the host and copied there once."""
+    f = np.frombuffer(raw, np.float64)
+    return torch.as_tensor(np.sqrt(np.maximum(f, 1.0).astype(np.float32)),
+                           device=device)
 
 
 def tilt(spec, kept_freqs, sample_rate: int = 48_000):
@@ -110,7 +132,7 @@ def tilt(spec, kept_freqs, sample_rate: int = 48_000):
     the host (NumPy's f32 sqrt is correctly rounded; the card's and the
     CPU's torch.sqrt are not the same function), the divide is a true f32
     divide on the card too (precision.scalar_on)."""
-    boost = torch.as_tensor(np.sqrt(np.maximum(kept_freqs, 1.0)
-                                    .astype(np.float32)), device=spec.device)
+    boost = _boost_on(np.asarray(kept_freqs, np.float64).tobytes(),
+                      spec.device)
     return spec * boost / scalar_on(
         float(np.sqrt(np.float32(sample_rate / 2.0))), spec.device)

@@ -14,9 +14,11 @@ inputs, capped at ``taps.len()``, and emits the dot product of the deque
   index, g < N-1) emits  sum_{k=0..g} x[k] * taps_rev[k]  -- a running
   cumulative sum along the reversed taps, not a convolution prefix.
 
-The global sample counter ``n_seen`` is a Python int: it is lockstep state
-(every stream of a batched render advances together), so the warm-up is
-static slices of the segment's first samples.
+The global sample counter ``n_seen`` is a lockstep counter
+(ops/lockstep.py: every stream of a batched render advances together; a
+Python int in a render, a 0-d tensor on the device in a stream session's
+block step).  The warm-up never reads it on the host: it takes its sums
+with masks over the first N-1 global positions (``_warm_up``).
 
 Convolution: ``F.conv1d`` for IRs of up to 256 taps, else ``torch.fft``
 (one transform for a short signal, overlap-save frames for a long one).
@@ -30,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dsp_stuff_tpu_torch.ops.lockstep import advance, counter
+from dsp_stuff_tpu_torch.utils.capture import device_cache
 from dsp_stuff_tpu_torch.utils.precision import get_policy
 
 # IRs longer than this use FFT convolution (O(T log N) vs O(T*N))
@@ -106,6 +110,36 @@ def _fft_conv(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return Y[..., N - 1:].reshape(*lead, K * hop)[..., :T]
 
 
+@device_cache(maxsize=64)
+def _taps_on(raw: bytes, device) -> torch.Tensor:
+    """The stored taps (float64 bytes) on ``device``, copied there once."""
+    return torch.tensor(np.frombuffer(raw, np.float64), device=device)
+
+
+def _warm_up(x, y, first, taps_rev, n_seen, acc):
+    """The warm-up of ``fir_apply``: the global samples n_seen .. N-2
+    take the running sum along the reversed taps.  The inputs at those
+    positions land in ``first`` (the first N-1 inputs ever); the running
+    sum runs over all N-1 positions (a running sum does not look ahead,
+    so its entries up to the last warm sample are those of a sum over
+    just the warm ones), and each output sample still in the warm-up
+    takes its entry.  Masks, not slices, so that a counter on the device
+    is never read on the host; only the first min(N-1, T) outputs can be
+    warm.  Returns (y, first)."""
+    N1, T = first.shape[-1], x.shape[-1]
+    W = min(N1, T)
+    dev = x.device
+    src = torch.arange(N1, device=dev) - n_seen        # x index of each slot
+    take = (src >= 0) & (src < T)
+    xs = x.to(first.dtype).expand(*first.shape[:-1], T)[
+        ..., src.clamp(0, T - 1)]
+    first = torch.where(take, xs, first)
+    warm = torch.cumsum(first.to(acc) * taps_rev[:N1].to(acc), dim=-1)
+    g = n_seen + torch.arange(W, device=dev)            # global sample index
+    head = torch.where(g < N1, warm[..., g.clamp(max=N1 - 1)], y[..., :W])
+    return torch.cat([head, y[..., W:]], dim=-1), first
+
+
 def fir_apply(x: torch.Tensor, taps_rev, state=None, divisor=1.0):
     """Apply the reference FIR semantics to a segment.
 
@@ -117,14 +151,14 @@ def fir_apply(x: torch.Tensor, taps_rev, state=None, divisor=1.0):
 
     Returns (y [..., T] f32, new_state)."""
     acc = accum_dtype()
-    taps_rev = torch.as_tensor(np.asarray(taps_rev, np.float64),
-                               device=x.device)
+    taps_rev = np.ascontiguousarray(taps_rev, np.float64)
+    taps_rev = _taps_on(taps_rev.tobytes(), x.device)
     N = taps_rev.shape[0]
     T = x.shape[-1]
     if state is None:
         state = init_fir_state(N, device=x.device)
     hist, first, n_seen = state
-    n_seen = int(n_seen)
+    n_seen = counter(n_seen)
     xd = x.to(acc)
     ha = taps_rev.flip(0).to(acc)              # un-reversed IR
     div = float(np.float32(divisor))
@@ -140,18 +174,10 @@ def fir_apply(x: torch.Tensor, taps_rev, state=None, divisor=1.0):
     full = torch.cat([hist.to(acc).expand(*batch, N - 1), xd], dim=-1)
     y = causal_conv(full, ha)[..., N - 1:]                       # [..., T]
 
-    # -- warm-up path: the global samples n_seen .. n_seen+k-1 (< N-1) take
-    # the running sum along the reversed taps ------------------------------
-    first = first.expand(*batch, N - 1)
-    k = max(0, min(N - 1 - n_seen, T))
-    if k:
-        first = torch.cat([first[..., :n_seen],
-                           x[..., :k].to(first.dtype).expand(*batch, k),
-                           first[..., n_seen + k:]], dim=-1)
-        warm = torch.cumsum(first[..., :n_seen + k].to(acc)
-                            * taps_rev[:n_seen + k].to(acc), dim=-1)
-        y = torch.cat([warm[..., n_seen:], y[..., k:]], dim=-1)
+    # -- warm-up path ------------------------------------------------------
+    y, first = _warm_up(x, y, first.expand(*batch, N - 1), taps_rev, n_seen,
+                        acc)
     y = y.to(torch.float32) * div
 
     new_hist = full[..., -(N - 1):].to(hist.dtype)
-    return y, (new_hist, first, min(n_seen + T, _N_SEEN_MAX))
+    return y, (new_hist, first, advance(n_seen, T, _N_SEEN_MAX))

@@ -96,7 +96,7 @@ def oscillator(mode: str, amplitude, frequency, T: int, clock0=0.0,
         # do_const copies the (possibly modulated) amplitude buffer verbatim
         # (signal_gen.rs:106-108)
         return (amp * torch.ones((T,), dtype=_F32, device=device),
-                torch.as_tensor(clock0, dtype=_F32, device=device))
+                on_device(clock0, device))
     totals, clocks, final_clock = _block_totals(frequency, T, block_size,
                                                 sample_rate, clock0, device)
     phase = clocks + totals

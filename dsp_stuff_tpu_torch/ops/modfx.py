@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dsp_stuff_tpu_torch.ops.lockstep import advance, counter
 from dsp_stuff_tpu_torch.utils.precision import on_device, scalar_on
 
 
@@ -47,8 +48,8 @@ def _tap_trajectory(rate_hz, depth_s, base_s, L: int, T: int, t0,
     """(i, frac) of the fractional tap into ``xx = [hist(L), x(T)]``
     coordinates: i int64 (clipped to [0, L+T-2]), frac f32.  ``rate_hz``
     is a scalar or a per-sample [..., T] tensor (modulated); ``t0`` the
-    absolute sample index of the render's first sample, a Python int
-    shared by every stream (lockstep).
+    absolute sample index of the render's first sample, a lockstep
+    counter shared by every stream (ops/lockstep.py).
 
     The LFO phase is in f64 cycles, reduced mod 1 before the f32 sin, so
     it stays exact for arbitrarily long streams.  The sin of the f32
@@ -64,7 +65,7 @@ def _tap_trajectory(rate_hz, depth_s, base_s, L: int, T: int, t0,
         rate = rate_hz.to(_F64)
     else:
         rate = scalar_on(float(rate_hz), device, _F64)
-    t_abs = int(t0) + torch.arange(T, dtype=_F64, device=device)
+    t_abs = counter(t0) + torch.arange(T, dtype=_F64, device=device)
     cycles = rate * t_abs / scalar_on(float(sample_rate), device, _F64)
     phase = (cycles - torch.floor(cycles)).to(_F32)
     arg = float(np.float32(TAU)) * phase
@@ -90,7 +91,8 @@ def modulated_delay(x, rate_hz, depth_s, base_s, mix, hist, t0,
 
     x     -- [..., T] dry signal
     hist  -- [..., L] previous inputs (newest last; L = max_delay_samples)
-    t0    -- absolute sample index of x[..., 0] (Python int, lockstep)
+    t0    -- absolute sample index of x[..., 0] (a lockstep counter,
+             ops/lockstep.py)
     Returns (y [..., T], new_hist, new_t0)."""
     x = torch.as_tensor(x, dtype=_F32)
     T = x.shape[-1]
@@ -111,7 +113,7 @@ def modulated_delay(x, rate_hz, depth_s, base_s, mix, hist, t0,
         a = torch.gather(xx, -1, ib)
         b = torch.gather(xx, -1, ib + 1)
     wet = a * (1.0 - frac) + b * frac
-    return _mix(x, wet, mix), xx[..., -L:], int(t0) + T
+    return _mix(x, wet, mix), xx[..., -L:], advance(t0, T)
 
 
 def mtap_static(rate_hz: float, depth_s: float, base_s: float, L: int,

@@ -34,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dsp_stuff_tpu_torch.utils.capture import device_cache
+
 TAPS_PER_PHASE = 16
 
 _BLK = 128      # base-rate samples per matmul block
@@ -88,7 +90,7 @@ def _down_matrix(R: int):
     return Md.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache(maxsize=None)
 def _matrix_on(kind: str, R: int, device: torch.device) -> torch.Tensor:
     """The tap matrix ``kind`` ("up" or "down") of rate R on ``device``,
     copied there once."""

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from dsp_stuff_tpu_torch.io.resample import HALF, sinc16_taps
+from dsp_stuff_tpu_torch.utils.capture import device_cache
 
 
 @functools.lru_cache(maxsize=16)
@@ -32,7 +33,7 @@ def _tap_matrix(T: int, n_out: int, ratio: float):
     return np.clip(idx, 0, T - 1), (idx >= 0) & (idx < T), taps
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def _tap_tensors(T: int, n_out: int, ratio: float, device: torch.device):
     return tuple(torch.as_tensor(a, device=device)
                  for a in _tap_matrix(T, n_out, ratio))

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from dsp_stuff_tpu_torch.ops import first_order_kernel, sequential_kernel
+from dsp_stuff_tpu_torch.utils.capture import device_cache
 from dsp_stuff_tpu_torch.utils.precision import get_policy, on_device
 
 # chunk length of the blocked solves: y_chunk = B @ Lt is a [K, C] @ [C, C]
@@ -62,7 +63,7 @@ def _const(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return _const_on(arr.tobytes(), arr.dtype.str, arr.shape, like.device)
 
 
-@functools.lru_cache(maxsize=256)
+@device_cache(maxsize=256)
 def _const_on(raw: bytes, dtype: str, shape: tuple, device) -> torch.Tensor:
     return torch.tensor(np.frombuffer(raw, dtype).reshape(shape),
                         device=device)

@@ -1,0 +1,315 @@
+"""One stream block of a compiled graph over static buffers: on the card,
+one captured CUDA graph replayed a block.
+
+The JAX package runs a stream block as one compiled program
+(``jax.jit(cg.fn)``, dsp_stuff_tpu/runtime/stream.py:124) and
+``process_many`` as a jitted ``lax.scan`` of it, cached on a snapshot of
+the params (``_chunk_fn``, :223-247).  Eager PyTorch launches every op of
+the step from the host, 67-293 launches a block.  :class:`BlockStep` is
+the counterpart of the compiled program:
+
+* fixed buffers on the graph's device: the input blocks ``inputs``
+  [n_in, block], the state (the tree of ``cg.init_state()``, each Python
+  int of it a 0-d int64 counter) and the outputs ``outputs``
+  [n_out, block];
+* a step: ``cg.fn(state, {key: inputs[i]}, params)``, then ``copy_`` of
+  the outputs and of the new state into their buffers;
+* on the CPU the step runs as plain calls; on the card it is captured
+  once in a ``torch.cuda.CUDAGraph`` and replayed (:meth:`run`).  A
+  capture is keyed on a snapshot of the params (slider values are baked
+  into the kernels' packed programs and Toeplitz constants) and on the
+  precision policy; another key captures again before the next replay.
+
+The lockstep counters (a reverb's write position, a chorus's clock, a
+FIR's sample count) live on the device so that no host value changes
+from one replay to the next: the ops take them as 0-d tensors through
+ops/lockstep.py, with the values the Python ints give.
+
+The key of a capture is worked out again only when the params object or
+its cheap stamp (``params_stamp``: values, tensors by identity and
+version counter) moves, so a steady stream with tensor params makes no
+host read a block.
+
+Before a capture the step runs once on the capture's stream (the kernels
+build and load, the constant caches fill, ``cudaFuncSetAttribute`` is
+called), and the state buffers are then put back, so the warm-up does not
+advance the stream.  What the graph reads beside its own pool (cached
+constants, the pinned copies of the packed programs) is held with it
+(utils/capture).  A capture or replay that fails raises, naming the step;
+nothing runs the step eagerly on the card instead.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from dsp_stuff_tpu_torch.compiler import compile as _compile
+from dsp_stuff_tpu_torch.ops import lockstep
+from dsp_stuff_tpu_torch.utils import precision
+from dsp_stuff_tpu_torch.utils.capture import holding
+
+_F32 = torch.float32
+
+
+def freeze_params(p):
+    """Hashable snapshot of a params tree (dicts, scalars, arrays,
+    tensors), the key of a capture on the params' CONTENT (the JAX
+    package's ``_freeze_params``, dsp_stuff_tpu/runtime/stream.py:31)."""
+    if p is None:
+        return None
+    if isinstance(p, dict):
+        return tuple(sorted((str(k), freeze_params(v)) for k, v in p.items()))
+    if isinstance(p, (list, tuple)):
+        return tuple(freeze_params(v) for v in p)
+    if isinstance(p, torch.Tensor):
+        a = p.detach().cpu().numpy()
+        return (str(p.device), a.shape, a.dtype.str, a.tobytes())
+    if isinstance(p, np.ndarray) or (hasattr(p, "shape") and hasattr(
+            p, "dtype") and not np.isscalar(p)):
+        a = np.asarray(p)
+        return (a.shape, a.dtype.str, a.tobytes())
+    return p
+
+
+class _Same:
+    """A tensor in a stamp: equal only to the same tensor object (held, so
+    its address is not reused while the stamp lives)."""
+    __slots__ = ("t",)
+
+    def __init__(self, t):
+        self.t = t
+
+    def __eq__(self, other):
+        return isinstance(other, _Same) and other.t is self.t
+
+    def __hash__(self):
+        return id(self.t)
+
+
+def params_stamp(p):
+    """What ``freeze_params`` would read, cheaply: scalars by value, arrays
+    by content, each tensor by identity, data pointer and version counter
+    (an in-place edit bumps it; nothing is read from the device), a CPU
+    tensor by content.  Equal stamps mean equal content; a stamp that
+    moved makes the caller freeze the params again.  An edit through a
+    device tensor's ``.data`` bumps no version and is not seen: edit the
+    tensor itself, or give the session a new params object."""
+    if isinstance(p, dict):
+        return tuple(sorted((str(k), params_stamp(v)) for k, v in p.items()))
+    if isinstance(p, (list, tuple)):
+        return tuple(params_stamp(v) for v in p)
+    if isinstance(p, torch.Tensor) and p.device.type != "cpu":
+        return _Same(p), p.data_ptr(), p._version
+    return freeze_params(p)
+
+
+def capture_key(params):
+    """What a captured step depends on besides its buffers: the params'
+    content and the precision policy."""
+    return freeze_params(params), precision.get_policy().name
+
+
+def refuse_node_hook() -> None:
+    """Raise while ``compile.NODE_HOOK`` is set: a per-node host callback
+    cannot fire inside a replayed graph, so a session on the card refuses
+    it (before any CUDA call, and at every block)."""
+    if _compile.NODE_HOOK is not None:
+        raise RuntimeError(
+            "StreamSession on the card: compile.NODE_HOOK is set, and a "
+            "per-node host callback cannot fire inside a replayed CUDA "
+            "graph; use utils/obs.debug_render, or device=\"cpu\"")
+
+
+def _buffer(v, device):
+    """A state leaf as its buffer: a tensor copied to ``device``, a Python
+    or NumPy integer a lockstep counter on the device, None kept."""
+    if v is None:
+        return None
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(device).clone()
+    if isinstance(v, (int, np.integer)) and not isinstance(v, bool):
+        return lockstep.on_device(v, device)
+    return torch.as_tensor(np.asarray(v), device=device).clone()
+
+
+def _pairs(bufs: dict, tree: dict, what: str):
+    """(buffer, value) of every leaf of ``tree`` against the buffer tree
+    ``bufs``; raises when the trees differ in their keys."""
+    if set(tree) != set(bufs):
+        raise ValueError(f"{what}: keys {sorted(tree)} do not match the "
+                         f"session's state {sorted(bufs)}")
+    out = []
+    for k, b in bufs.items():
+        v = tree[k]
+        if isinstance(b, dict):
+            if not isinstance(v, dict) or set(v) != set(b):
+                raise ValueError(f"{what}[{k!r}] does not match the "
+                                 f"session's state entry")
+            out += [(b[kk], v[kk], f"{what}[{k!r}][{kk!r}]") for kk in b]
+        else:
+            out.append((b, v, f"{what}[{k!r}]"))
+    return out
+
+
+def _copy_into(pairs) -> None:
+    """Each value into its buffer.  A value that shares memory with a
+    buffer other than its own (a view the step returned) is cloned first,
+    so no copy reads a buffer already overwritten."""
+    storages = {b.untyped_storage().data_ptr(): b for b, _, _ in pairs
+                if isinstance(b, torch.Tensor)}
+    staged = []
+    for b, v, what in pairs:
+        if b is None:
+            continue
+        if isinstance(v, torch.Tensor):
+            owner = storages.get(v.untyped_storage().data_ptr())
+            if owner is not None and owner is not b:
+                v = v.clone()
+        elif v is None:
+            raise ValueError(f"{what} is None, the session holds a tensor")
+        staged.append((b, v, what))
+    for b, v, what in staged:
+        if isinstance(v, torch.Tensor):
+            if v.shape != b.shape and not lockstep.is_counter(b):
+                raise ValueError(f"{what} has shape {tuple(v.shape)}; the "
+                                 f"session's buffer is {tuple(b.shape)}")
+            b.copy_(v)
+        else:
+            b.fill_(int(v) if lockstep.is_counter(b) else float(v))
+
+
+class BlockStep:
+    """The block step of ``cg`` over fixed buffers on ``cg.device``, a
+    block of ``block`` samples (a multiple of the graph's 128).
+
+    ``inputs`` rows follow ``keys`` (the Input node ids, or the silent
+    length carrier ``"__len__"`` of a graph without inputs); ``outputs``
+    rows follow ``cg.output_ids``.  ``captures`` and ``replays`` count the
+    CUDA graphs captured and replayed (both stay 0 on the CPU);
+    ``capture_s`` is the wall time of the last capture, its warm-up
+    included.  The captured graph is kept beside its instance, so that
+    it can be written out (:meth:`dump_graph`)."""
+
+    def __init__(self, cg, block: int):
+        dev = cg.device
+        self.cg = cg
+        self.block = int(block)
+        self.keys = [str(i) for i in cg.input_ids] or ["__len__"]
+        self.inputs = torch.zeros((len(self.keys), self.block), dtype=_F32,
+                                  device=dev)
+        self.outputs = torch.zeros((len(cg.output_ids), self.block),
+                                   dtype=_F32, device=dev)
+        self._state = {k: ({kk: _buffer(vv, dev) for kk, vv in st.items()}
+                           if isinstance(st, dict) else _buffer(st, dev))
+                       for k, st in cg.init_state().items()}
+        self.on_card = dev.type == "cuda"
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = 0.0
+        self._graph = None          # (CUDAGraph, key, what it reads)
+        self._stamp = self._key = None
+
+    # -- state ---------------------------------------------------------------
+
+    def read_state(self) -> dict:
+        """A copy of the state: tensors cloned, counters as Python ints."""
+        def leaf(b):
+            if lockstep.is_counter(b):
+                return int(b)
+            return None if b is None else b.clone()
+        return {k: ({kk: leaf(b) for kk, b in st.items()}
+                    if isinstance(st, dict) else leaf(st))
+                for k, st in self._state.items()}
+
+    def write_state(self, state: dict) -> None:
+        """Copy ``state`` (the tree of ``cg.init_state()``) into the
+        buffers; the buffers themselves stay, so a captured graph goes on
+        reading them."""
+        pairs = _pairs(self._state, state, "state")
+        for _, v, what in pairs:
+            if isinstance(v, torch.Tensor) and v.device != self.cg.device:
+                raise ValueError(f"{what} is on {v.device}; the session is "
+                                 f"on {self.cg.device}")
+        _copy_into(pairs)
+
+    # -- the step ------------------------------------------------------------
+
+    def _body(self, params) -> None:
+        ext = {k: self.inputs[i] for i, k in enumerate(self.keys)}
+        new, outs, _aux = self.cg.fn(self._state, ext, params)
+        for i, nid in enumerate(self.cg.output_ids):
+            self.outputs[i].copy_(outs[nid])
+        _copy_into(_pairs(self._state, new, "the step's new state"))
+
+    def run(self, params, n: int = 1, before=None, after=None) -> None:
+        """``n`` steps under ``params``: on the card, replays of the graph
+        captured under ``capture_key(params)`` (captured first when there
+        is none); on the CPU, plain calls.  ``before(j)`` and ``after(j)``
+        run around step j (the stream's copies in and out)."""
+        if self.on_card:
+            refuse_node_hook()
+            key = self.key(params)
+            if self._graph is None or self._graph[1] != key:
+                self._capture(params, key)
+        for j in range(n):
+            if before is not None:
+                before(j)
+            if self.on_card:
+                try:
+                    self._graph[0].replay()
+                except RuntimeError as e:
+                    raise RuntimeError(f"StreamSession: replaying the "
+                                       f"captured block step failed: {e}"
+                                       ) from e
+                self.replays += 1
+            else:
+                self._body(params)
+            if after is not None:
+                after(j)
+
+    def key(self, params):
+        """``capture_key(params)``, worked out again only when the stamp
+        of the params and the policy moved since the last call."""
+        stamp = params_stamp(params), precision.get_policy().name
+        if self._stamp is None or self._stamp != stamp:
+            self._stamp, self._key = stamp, capture_key(params)
+        return self._key
+
+    def dump_graph(self, path: str) -> None:
+        """Write the captured graph to ``path`` as Graphviz DOT with every
+        node's parameters (``cudaGraphDebugDotPrint``, verbose)."""
+        if self._graph is None:
+            raise RuntimeError("dump_graph: no graph captured")
+        self._graph[0].debug_dump(path)
+
+    def _capture(self, params, key) -> None:
+        """Warm the step up on the capture's stream from a copy of the
+        state, put the state back, and capture one step."""
+        dev = self.cg.device
+        t0 = time.perf_counter()
+        self._graph = None                   # frees the old graph's pool
+        saved = self.read_state()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.stream(side):
+                self._body(params)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.write_state(saved)
+            torch.cuda.synchronize(dev)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with holding() as held:
+                with torch.cuda.graph(graph, stream=side):
+                    self._body(params)
+            graph.instantiate()
+        except (RuntimeError, ValueError) as e:
+            raise RuntimeError(
+                f"StreamSession: capturing the block step ({len(self.keys)} "
+                f"input rows x {self.block} samples, policy "
+                f"{key[1]!r}) in a CUDA graph failed: {e}") from e
+        self._graph = (graph, key, (held, params))
+        self.captures += 1
+        self.capture_s = time.perf_counter() - t0

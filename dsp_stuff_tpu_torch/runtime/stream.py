@@ -7,11 +7,20 @@ compiled graph on its device and carries the state across calls:
     sess = StreamSession(graph)            # the card by default
     out = sess.process(in_block)           # [block] in -> [n_out, block] out
 
-The compiled graph and its state stay on the session's device between
-calls; blocks come in and go out as NumPy arrays (one host-to-device copy
-per input and one device-to-host copy per call).  Device I/O (the cpal
-analog) is modeled by host-side ring buffers (the host library's SPSC ring
-when built, ``_PyRing`` otherwise) with the reference's failure semantics:
+The block step runs over fixed buffers on the session's device: the
+input blocks, the state and the outputs (runtime/block_graph.BlockStep).
+On the card it is captured once in a CUDA graph and replayed for every
+block, the counterpart of the JAX package's ``jax.jit`` of the step: a
+``process()`` block is a copy in, one graph launch, a copy out and one
+wait, and ``process_many(k)`` is k replays with one copy of the outputs
+to the host at the end, bitwise k ``process()`` calls (the same kernels
+in the same order).  A change of ``params`` or of the precision policy
+captures again before the next block.  On the CPU the same step runs as
+plain calls.  Setting ``state`` copies into the buffers.
+
+Device I/O (the cpal analog) is modeled by host-side ring buffers (the
+host library's SPSC ring when built, ``_PyRing`` otherwise) with the
+reference's failure semantics:
 write overrun drops the excess (devices.rs:239-241), read underrun
 zero-fills (devices.rs:436-440), and ``resync()`` drains every ring
 (runtime.rs:524-526, 587-594).
@@ -30,6 +39,8 @@ from dsp_stuff_tpu_torch.compiler.compile import compile_graph
 from dsp_stuff_tpu_torch.graph import Graph
 from dsp_stuff_tpu_torch.io import native
 from dsp_stuff_tpu_torch.io.playback import StreamingSinc16, dup_to_stereo
+from dsp_stuff_tpu_torch.runtime.block_graph import (BlockStep,
+                                                    refuse_node_hook)
 
 
 class _PyRing:
@@ -95,18 +106,32 @@ def make_ring(capacity: int = 8192):
 class StreamSession:
     """A compiled graph and its state on ``device``; processes fixed-size
     blocks.  ``device`` is the card by default ("cpu" for the CPU); without
-    a CUDA device the default raises RuntimeError."""
+    a CUDA device the default raises RuntimeError, as does a session on
+    the card while ``compile.NODE_HOOK`` is set (a host callback cannot
+    fire inside a replayed graph).
+
+    ``step`` is the block step over its buffers (``step.captures`` and
+    ``step.replays`` count the CUDA graphs captured and replayed)."""
 
     def __init__(self, graph: Graph, block_size: int = 128,
                  ring_capacity: int = 8192, params=None, device="cuda"):
         if block_size % 128:
             raise ValueError("block_size must be a multiple of 128 "
                              "(the reference frame, node.rs:257)")
+        if torch.device(device).type == "cuda":
+            refuse_node_hook()
         self.block_size = block_size
         self.cg = compile_graph(graph, block_size=128, device=device)
         self.device = self.cg.device
-        self.state = self.cg.init_state()
+        self.step = BlockStep(self.cg, block_size)
         self.params = params
+        # fixed host copies of one block in and out (pinned on the card,
+        # so the copies neither wait for nor are waited on by the host)
+        pin = self.device.type == "cuda"
+        self._in_host = torch.zeros(self.step.inputs.shape,
+                                    dtype=torch.float32, pin_memory=pin)
+        self._out_host = torch.zeros(self.step.outputs.shape,
+                                     dtype=torch.float32, pin_memory=pin)
         # host-side device rings: one per Input node (capture) and one per
         # Output node (playback)
         self.in_rings = {nid: make_ring(ring_capacity)
@@ -119,69 +144,70 @@ class StreamSession:
         # per-(output, device_rate) streaming resampler (the reference's
         # persistent Converter<CountingSignal, Sinc>, devices.rs:550-556)
         self._resamplers = {}
-        self._silence = {}      # zero blocks on the device, by block count
+
+    @property
+    def state(self) -> dict:
+        """A copy of the DSP state (tensors cloned, lockstep counters as
+        Python ints), as ``cg.init_state()`` lays it out."""
+        return self.step.read_state()
+
+    @state.setter
+    def state(self, state: dict) -> None:
+        """Copies ``state`` into the step's buffers (a checkpoint restore,
+        ``reset()``); the buffers a captured graph reads stay."""
+        self.step.write_state(state)
 
     # -- direct block API --------------------------------------------------
 
-    def _zeros(self, k: int) -> torch.Tensor:
-        """[k, block] zeros on the device, made once per k."""
-        z = self._silence.get(k)
-        if z is None:
-            z = self._silence[k] = torch.zeros(
-                (k, self.block_size), dtype=torch.float32, device=self.device)
-        return z
-
-    def _ext_blocks(self, inputs, k: int) -> dict:
-        """{input key: [k, block] tensor on the device}; absent inputs are
-        silence, and a graph without inputs gets a silent length carrier."""
+    def _host_blocks(self, inputs, k: int) -> np.ndarray:
+        """[k, rows, block] float32 in the step's input rows; inputs absent
+        from a dict (and the length carrier of a graph without inputs) are
+        silence.  A dict key that names no Input node, or an array with
+        fewer rows than the graph has inputs, raises."""
         B = self.block_size
-        ext = {}
+        keys = self.step.keys
+        arr = np.zeros((k, len(keys), B), np.float32)
         if isinstance(inputs, dict):
             for key, v in inputs.items():
+                if str(key) not in keys:
+                    raise ValueError(f"input {key!r} names no Input node of "
+                                     f"the graph (its inputs: {keys})")
                 a = np.asarray(v, np.float32)
                 if a.shape[-1] != k * B:
                     raise ValueError(f"input {key!r}: {a.shape[-1]} samples, "
                                      f"expected {k} x {B}")
-                ext[str(key)] = torch.from_numpy(
-                    np.ascontiguousarray(a.reshape(k, B))).to(self.device)
+                arr[:, keys.index(str(key))] = a.reshape(k, B)
         elif inputs is not None:
-            arr = np.atleast_2d(np.asarray(inputs, np.float32))
-            if arr.shape[-1] != k * B:
-                raise ValueError(f"inputs carry {arr.shape[-1]} samples, "
+            a = np.atleast_2d(np.asarray(inputs, np.float32))
+            if a.shape[-1] != k * B:
+                raise ValueError(f"inputs carry {a.shape[-1]} samples, "
                                  f"expected {k} x {B}")
-            dev = torch.from_numpy(np.ascontiguousarray(
-                arr.reshape(arr.shape[0], k, B))).to(self.device)
-            ext = {str(nid): dev[i] for i, nid in enumerate(self.cg.input_ids)}
-        for i in self.cg.input_ids:
-            ext.setdefault(str(i), self._zeros(k))
-        if not ext:
-            ext["__len__"] = self._zeros(k)
-        return ext
-
-    def _run(self, ext: dict, k: int) -> np.ndarray:
-        """k blocks of ``ext`` through the one-block step, the outputs kept
-        on the device until one copy to the host: [n_out, k*block]."""
-        B = self.block_size
-        outs = []
-        for j in range(k):
-            self.state, o, _aux = self.cg.fn(
-                self.state, {key: v[j] for key, v in ext.items()},
-                self.params)
-            outs.append([o[i].expand(B) for i in self.cg.output_ids])
-        if not self.cg.output_ids:
-            return np.zeros((0, k * B), np.float32)
-        y = torch.stack([torch.cat(ch) for ch in zip(*outs)])
-        return y.cpu().numpy()
+            n = len(self.cg.input_ids)
+            if a.shape[0] < n:
+                raise ValueError(f"inputs carry {a.shape[0]} rows; the graph "
+                                 f"has {n} inputs")
+            arr[:, :n] = a[:n].reshape(n, k, B).transpose(1, 0, 2)
+        return arr
 
     def process(self, inputs=None) -> np.ndarray:
         """Process one block.  inputs: {input_node_id: [block]} or
         [n_inputs, block] or None (silence).  Returns [n_out, block]."""
-        return self._run(self._ext_blocks(inputs, 1), 1)
+        self._in_host.numpy()[:] = self._host_blocks(inputs, 1)[0]
+        step = self.step
+        step.run(self.params,
+                 before=lambda j: step.inputs.copy_(self._in_host,
+                                                    non_blocking=True),
+                 after=lambda j: self._out_host.copy_(step.outputs,
+                                                      non_blocking=True))
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return self._out_host.numpy().copy()
 
     def process_many(self, inputs=None, n_blocks: int | None = None):
-        """Process k consecutive blocks in one call: the same one-block
-        step as ``process`` run k times on the device, the outputs copied
-        to the host once.  Bitwise equal to k ``process()`` calls.
+        """Process k consecutive blocks in one call: the step of
+        ``process`` k times on the device (k replays of its graph on the
+        card), the inputs copied in once and the outputs copied to the
+        host once.  Bitwise equal to k ``process()`` calls.
 
         inputs: {input_node_id: [k*block]} / [n_inputs, k*block] / None or
         {} (then ``n_blocks`` is required).  Returns [n_out, k*block].
@@ -203,7 +229,15 @@ class StreamSession:
             if n_blocks is not None and int(n_blocks) != k:
                 raise ValueError(f"n_blocks={n_blocks} but inputs carry "
                                  f"{k} blocks")
-        return self._run(self._ext_blocks(inputs, k), k)
+        step = self.step
+        ins = torch.from_numpy(self._host_blocks(inputs, k)).to(self.device)
+        outs = torch.empty((k, *step.outputs.shape), dtype=torch.float32,
+                           device=self.device)
+        step.run(self.params, k,
+                 before=lambda j: step.inputs.copy_(ins[j]),
+                 after=lambda j: outs[j].copy_(step.outputs))
+        return outs.permute(1, 0, 2).reshape(len(self.cg.output_ids),
+                                             k * B).cpu().numpy()
 
     # -- ring-buffered device-style API -------------------------------------
 

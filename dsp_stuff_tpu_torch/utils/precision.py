@@ -33,10 +33,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 
 import numpy as np
 import torch
+
+from dsp_stuff_tpu_torch.utils.capture import device_cache
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -104,7 +105,7 @@ def gemm_precision(l1: float | None = None) -> str:
 # own kernel and rounds once per op, so the multiplies are plain ops; a
 # divide needs its divisor on the device (``scalar_on``).
 
-@functools.lru_cache(maxsize=4096)
+@device_cache(maxsize=4096)
 def scalar_on(value: float, device, dtype=torch.float32) -> torch.Tensor:
     """``value`` as a cached 0-d tensor on ``device`` (never written to).
     As a divisor it makes a true divide: PyTorch's CUDA divide by a Python
@@ -112,7 +113,8 @@ def scalar_on(value: float, device, dtype=torch.float32) -> torch.Tensor:
     reference's divide for many inputs; by a device tensor it divides (on
     the CPU both are true divides).  As a constant it is copied to the
     card once, not at every call: a streamed block would otherwise wait
-    for one host-to-device copy per constant."""
+    for one host-to-device copy per constant, and a captured one could
+    not make it (a capture underway holds the tensor, utils/capture)."""
     return torch.tensor(value, dtype=dtype, device=device)
 
 

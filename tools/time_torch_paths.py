@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's kernel entry points and main paths of one checkout.
 
-    python3 tools/time_torch_paths.py [--root DIR]
+    python3 tools/time_torch_paths.py [--root DIR] [--renders]
 
 Imports dsp_stuff_tpu_torch and chip_smoke from DIR (default: this
 checkout), so that two commits can be compared in one call on one card:
@@ -30,8 +30,9 @@ first_order_kernel.first_order_cuda, compile_graph(..., device="cuda")
 * a training step of the bench chain's 16 sliders at B = 128 (the host
   clock around the step and a synchronize, median of 5 after a warm-up).
 
-Prints one line per measurement with the root and the card's name and
-power limit.  Needs a CUDA device; imports nothing of JAX.
+``--renders`` times the renders alone.  Prints one line per measurement
+with the root and the card's name and power limit.  Needs a CUDA device;
+imports nothing of JAX.
 """
 
 import os
@@ -88,6 +89,7 @@ def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     root = os.path.abspath(sys.argv[sys.argv.index("--root") + 1]
                            if "--root" in sys.argv else here)
+    renders_only = "--renders" in sys.argv
     sys.path[:0] = [root, os.path.join(root, "tests")]
     import chip_smoke as cs
     import dsp_stuff_tpu_torch as dst
@@ -109,49 +111,53 @@ def main() -> int:
         device=dev)
     g5 = presets.config5_feedback_16node()[0]
     with dst.policy("fast"):
-        bench = cs.bench_stages()
-        for b in (128, 512):
-            st = cs.seeded_states(bench, b, rng, dev)
-            x = x_all[:b]
+        if not renders_only:
+            bench = cs.bench_stages()
+            for b in (128, 512):
+                st = cs.seeded_states(bench, b, rng, dev)
+                x = x_all[:b]
+                ms = cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(
+                    x, bench, st))
+                print(f"chain kernel, bench list, B={b}: {ms:.3f} ms {tag}")
+            stages5, lfos5 = cs.planned_stages(g5)
+            st5 = cs.seeded_states(stages5, 128, rng, dev, T=T, lfos=lfos5)
+            x = x_all[:128]
             ms = cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(
-                x, bench, st))
-            print(f"chain kernel, bench list, B={b}: {ms:.3f} ms {tag}")
-        stages5, lfos5 = cs.planned_stages(g5)
-        st5 = cs.seeded_states(stages5, 128, rng, dev, T=T, lfos=lfos5)
-        x = x_all[:128]
-        ms = cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(
-            x, stages5, st5))
-        print(f"chain kernel, config5 list, B=128: {ms:.3f} ms {tag}")
-        program, n_taps = cs.cycle_program(g5)
-        for b in (128, 512):
-            ins = cs.cycle_inputs(program, b, T, rng, dev)
-            ms = cs.cuda_ms(lambda: cycle_kernel.cycle_kernel_call(
-                *ins, program, n_taps))
-            print(f"cycle kernel, config5 program, B={b}: {ms:.3f} ms {tag}")
-            del ins
-        atk = envelope.gain_from_frames(50.0)
-        rel = envelope.gain_from_frames(400.0)
-        for b, t, chunk, what in ((128, T, envelope._CHUNK, "chunked"),
-                                  (512, T, envelope._CHUNK, "chunked"),
-                                  (4, SR, SR, "sequential")):
-            x = x_all[:b, :t].contiguous()
-            e0 = torch.as_tensor(rng.random(b).astype(np.float32),
-                                 device=dev)
-            ms = cs.cuda_ms(lambda: envelope_kernel.peak_envelope_cuda(
-                x, atk, rel, e0, chunk=chunk))
-            print(f"envelope kernel, {what}, B={b} x {t}: {ms:.3f} ms {tag}")
-        for b, per_sample, reverse, what in (
-                (1, False, False, "scalar forward"),
-                (128, False, False, "scalar forward"),
-                (128, True, True, "per-sample reverse")):
-            a, y, y0 = cs.fo_inputs(0.6, b, T, 7, dev, per_sample)
-            def solve():
-                return first_order_kernel.first_order_cuda(a, y, y0, reverse)
-            ms = back_to_back_ms(solve)
-            dev_ms = profiled_ms(solve)
-            print(f"first-order kernel, {what}, R={b} x {T}: {ms:.3f} ms; "
-                  f"device {dev_ms:.4f} ms a solve {tag}")
-            del a, y, y0
+                x, stages5, st5))
+            print(f"chain kernel, config5 list, B=128: {ms:.3f} ms {tag}")
+            program, n_taps = cs.cycle_program(g5)
+            for b in (128, 512):
+                ins = cs.cycle_inputs(program, b, T, rng, dev)
+                ms = cs.cuda_ms(lambda: cycle_kernel.cycle_kernel_call(
+                    *ins, program, n_taps))
+                print(f"cycle kernel, config5 program, B={b}: {ms:.3f} ms "
+                      f"{tag}")
+                del ins
+            atk = envelope.gain_from_frames(50.0)
+            rel = envelope.gain_from_frames(400.0)
+            for b, t, chunk, what in ((128, T, envelope._CHUNK, "chunked"),
+                                      (512, T, envelope._CHUNK, "chunked"),
+                                      (4, SR, SR, "sequential")):
+                x = x_all[:b, :t].contiguous()
+                e0 = torch.as_tensor(rng.random(b).astype(np.float32),
+                                     device=dev)
+                ms = cs.cuda_ms(lambda: envelope_kernel.peak_envelope_cuda(
+                    x, atk, rel, e0, chunk=chunk))
+                print(f"envelope kernel, {what}, B={b} x {t}: {ms:.3f} ms "
+                      f"{tag}")
+            for b, per_sample, reverse, what in (
+                    (1, False, False, "scalar forward"),
+                    (128, False, False, "scalar forward"),
+                    (128, True, True, "per-sample reverse")):
+                a, y, y0 = cs.fo_inputs(0.6, b, T, 7, dev, per_sample)
+                def solve():
+                    return first_order_kernel.first_order_cuda(a, y, y0,
+                                                               reverse)
+                ms = back_to_back_ms(solve)
+                dev_ms = profiled_ms(solve)
+                print(f"first-order kernel, {what}, R={b} x {T}: {ms:.3f} ms; "
+                      f"device {dev_ms:.4f} ms a solve {tag}")
+                del a, y, y0
         for name, graph, b in (("bench chain", cs.bench_graph(), 512),
                                ("config5", g5, 128), ("config5", g5, 512)):
             cg = dst.compile_graph(graph, device="cuda")
@@ -173,24 +179,26 @@ def main() -> int:
             torch.cuda.empty_cache()
         del x_all
         torch.cuda.empty_cache()
-        cg = dst.compile_graph(cs.bench_graph(), device="cuda")
-        inp = str(cg.input_ids[0])
-        gen = torch.Generator(device=dev).manual_seed(13)
-        ext = {inp: torch.randn((128, T), generator=gen, device=dev) * 0.25}
-        target = cs.render_target(cg, ext, cs.hidden_params(
-            cg, gain=("level", 2.0), low_pass=("ratio", 0.7)))
-        params = cg.init_params(requires_grad=True)
-        step, init_opt = fit.make_train_step(cg, fit.adam(0.03))
-        opt = init_opt(params)
-        state = cg.init_state()
-        secs = []
-        for _ in range(6):
-            t0 = time.time()
-            step(params, opt, state, ext, target)
-            torch.cuda.synchronize()
-            secs.append(time.time() - t0)
-        print(f"training step (bench chain, 16 sliders), B=128: "
-              f"{np.median(secs[1:]) * 1e3:.3f} ms {tag}")
+        if not renders_only:
+            cg = dst.compile_graph(cs.bench_graph(), device="cuda")
+            inp = str(cg.input_ids[0])
+            gen = torch.Generator(device=dev).manual_seed(13)
+            ext = {inp: torch.randn((128, T), generator=gen, device=dev)
+                   * 0.25}
+            target = cs.render_target(cg, ext, cs.hidden_params(
+                cg, gain=("level", 2.0), low_pass=("ratio", 0.7)))
+            params = cg.init_params(requires_grad=True)
+            step, init_opt = fit.make_train_step(cg, fit.adam(0.03))
+            opt = init_opt(params)
+            state = cg.init_state()
+            secs = []
+            for _ in range(6):
+                t0 = time.time()
+                step(params, opt, state, ext, target)
+                torch.cuda.synchronize()
+                secs.append(time.time() - t0)
+            print(f"training step (bench chain, 16 sliders), B=128: "
+                  f"{np.median(secs[1:]) * 1e3:.3f} ms {tag}")
     return 0
 
 
