@@ -72,8 +72,17 @@ device="cuda")``:
   card's one render and the CPU port's session, with process_many in
   chunks bitwise equal to process(), per-block wall times, the capture's
   time, the real-time factor, each kernel's device time at [1, 128] in
-  the replay and the device-busy share; a capture again on a params and a
-  policy change, and NODE_HOOK refused on the card; the ring API
+  the replay and the device-busy share; a capture again on a change of
+  the params' structure and of the policy, none on a moved value, and
+  NODE_HOOK refused on the card; the bench chain's sliders as CUDA
+  tensors edited every block under fast and parity (one capture, bitwise
+  the eager loop); slider automation, one capture a stream and each move
+  a copy into the buffers the graph reads (the bench chain's gain moved
+  every 8 blocks and every block over 10 s, its overdrive's drive every
+  block, config5's feedback gain every 64 blocks and every block, its
+  envelope's attack every block, the exact bench chain's low-pass ratio
+  every block), bitwise the eager loop taking the same values, no block
+  after the first over the 2.667 ms a block lasts; the ring API
   (capture chunks, 44.1 kHz stereo reads, resync); the CLI render of
   examples/graphs/config5.json in a subprocess, bitwise the in-process
   render_file; a checkpoint resume; the pitch node; debug_render; and the
@@ -194,6 +203,10 @@ AUTOMATION_EVERY = 8      # blocks between slider moves (bench chain, 1 s)
 # kernel for the per-node block scan (compile._cycle_program)
 AUTOMATION_C5_LEVELS = (0.40, 0.35, 0.30, 0.25)
 AUTOMATION_C5_EVERY = 64
+AUTOMATION_TRIALS = 2     # sessions of each automated stream (its timing)
+AUTOMATION_STALL_S = 5    # seconds of host-only work beside them
+AUTOMATION_BENCH_S = 10   # seconds of the bench chain's gain moved a block
+AUTOMATION_C5_S = 3       # ... and of config5's feedback gain and attack
 GRAPH_DIR = os.path.join(ROOT, "build", "stream_graphs")    # DOT dumps
 LFO_FAST_ATOL = 4e-7      # config5's LFO under fast: CUDA's sinf vs the CPU's
 PITCH_HZ_ATOL = 0.5       # a 440 Hz tone's detected pitch on the card
@@ -1709,6 +1722,13 @@ def divide_checks(dev) -> None:
     check(d <= CARD_VS_CPU_DB, f"spectrogram card vs CPU {d:.1f} dBFS")
 
 
+def env_gains(atk, rel, dev):
+    """The envelope kernel's gains: (attack, release) as one [2] f32
+    tensor on the card, which the kernel reads from device memory."""
+    import torch
+    return torch.tensor([atk, rel], dtype=torch.float32, device=dev)
+
+
 def stream_kernel_checks(dev) -> None:
     """Each kernel of the stream's path at one row of one 128-sample block
     and of two (block_size 256) against its plain version, at the kernel
@@ -1746,7 +1766,8 @@ def stream_kernel_checks(dev) -> None:
         xe = torch.as_tensor((rng.standard_normal((1, T)) * 0.5)
                              .astype(np.float32), device=dev)
         e0 = torch.as_tensor(rng.random(1).astype(np.float32), device=dev)
-        k = envelope_kernel.peak_envelope_cuda(xe, atk, rel, e0, chunk=T)
+        k = envelope_kernel.peak_envelope_cuda(xe, env_gains(atk, rel, dev),
+                                               e0, chunk=T)
         p = envelope._seq_scan(xe, atk, rel, e0)
         torch.cuda.synchronize()
         compare_env(f"envelope sequential [1, {T}]", k, p)
@@ -2098,17 +2119,19 @@ def expect_str(launches: dict) -> str:
 
 
 def recapture_check(card) -> None:
-    """A session on the card captures again when its params or the policy
-    change, and each stretch is bitwise the eager loop taking the same
-    turns; a session asked for, or run, while NODE_HOOK is set raises."""
+    """A session on the card captures again when its params' structure or
+    the policy change, and not when a value moves; each stretch is
+    bitwise the eager loop taking the same turns; a session asked for, or
+    run, while NODE_HOOK is set raises."""
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.compiler import compile as tcompile
     g = bench_graph()
     gain = str(sorted(g.nodes)[1])
-    blocks = (np.random.default_rng(141).standard_normal((12, 128)) * 0.3
+    blocks = (np.random.default_rng(141).standard_normal((16, 128)) * 0.3
               ).astype(np.float32)
     turns = (("fast", None), ("fast", {gain: {"level": 2.0}}),
-             ("parity", {gain: {"level": 2.0}}))
+             ("parity", {gain: {"level": 2.0}}),
+             ("parity", {gain: {"level": 0.7}}))
     sess = dst.StreamSession(g, device="cuda")
     key = str(sess.cg.input_ids[0])
     got, want = [], []
@@ -2123,8 +2146,9 @@ def recapture_check(card) -> None:
                 state, o, _ = sess.cg.fn(state, {key: xs[j]}, params)
                 want.append(host(o[sess.cg.output_ids[0]]))
     same = np.array_equal(np.concatenate(got), np.concatenate(want))
-    print(f"recapture on the card: 3 turns of 4 blocks (fast; a gain level "
-          f"set; parity): {sess.step.captures} captures, {sess.step.replays} "
+    print(f"recapture on the card: 4 turns of 4 blocks (fast; a gain level "
+          f"set; parity; the level moved): {sess.step.captures} captures, "
+          f"{sess.step.replays} "
           f"replays, bitwise the eager loop taking the same turns: {same} "
           f"[{card}]")
     check(sess.step.captures == 3, f"{sess.step.captures} captures, not 3")
@@ -2147,30 +2171,56 @@ def recapture_check(card) -> None:
 
 
 def automation_run(name, graph, node, param, values, every, x_np,
-                   card) -> dict:
+                   card, policy="fast") -> dict:
     """Slider automation on the card: a stream whose one slider
     (``node``'s ``param``) takes the next of ``values`` every ``every``
-    process() blocks, a new params dict each time.  Each change captures
-    the step again (the slider's value is a constant of what the step
-    launches), so the turn's first block pays the capture.  Bitwise the
-    eager one-block loop taking the same values; per-block wall times,
-    the blocks longer than the 2.667 ms a block lasts (a live stream's
-    underruns without more buffering) and the captures."""
+    process() blocks, a new params dict each time.  The params keep one
+    structure, so the session captures once (its first block) and each
+    move is a copy into the buffers the captured graph reads
+    (runtime/block_graph.py).  Each session is bitwise the eager one-block
+    loop taking the same values as Python floats.
+
+    The stream runs as a live rack's audio thread does: pinned to one
+    core, the garbage collector off.  The machine's cores are taken away
+    now and then for a few ms, which no block's work causes
+    (``host_stalls`` measures it in the same run with host-only work).  So
+    the stream runs in ``AUTOMATION_TRIALS`` sessions over the same
+    blocks and values, and a block counts as over the 2.667 ms a block
+    lasts (a live stream's underrun without more buffering) when it runs
+    over in every session: a cost of the block's own work recurs at its
+    index, a stall of the machine does not.  Each session's raw count is
+    printed beside it.  Times and counts are the first session's."""
+    import gc
+    import os
     import torch
     import dsp_stuff_tpu_torch as dst
     n = len(x_np) // 128
     blocks = x_np.reshape(n, 128)
-    turns = [{str(node): {param: values[j // every]}} for j in range(n)]
-    with dst.policy("fast"):
-        sess = dst.StreamSession(graph, device="cuda")
-        key = str(sess.cg.input_ids[0])
-        got, times = np.empty(n * 128, np.float32), np.empty(n)
-        for j in range(n):
-            if j % every == 0:
-                sess.params = turns[j]
-            t0 = time.perf_counter()
-            got[j * 128:(j + 1) * 128] = sess.process({key: blocks[j]})[0]
-            times[j] = time.perf_counter() - t0
+    turns = [{str(node): {param: float(values[j // every])}}
+             for j in range(n)]
+    block_ms = 128 / SR * 1e3
+    cores = os.sched_getaffinity(0)
+    trials = []
+    with dst.policy(policy):
+        for _ in range(AUTOMATION_TRIALS):
+            sess = dst.StreamSession(graph, device="cuda")
+            key = str(sess.cg.input_ids[0])
+            got, times = np.empty(n * 128, np.float32), np.empty(n)
+            gc.collect()
+            gc.disable()
+            os.sched_setaffinity(0, {max(cores)})
+            try:
+                for j in range(n):
+                    if j % every == 0:
+                        sess.params = turns[j]
+                    t0 = time.perf_counter()
+                    got[j * 128:(j + 1) * 128] = sess.process(
+                        {key: blocks[j]})[0]
+                    times[j] = time.perf_counter() - t0
+            finally:
+                os.sched_setaffinity(0, cores)
+                gc.enable()
+            trials.append((got, times * 1e3, sess.step.captures))
         cg = sess.cg
         xs = torch.as_tensor(blocks, device=sess.device)
         state, want = cg.init_state(), []
@@ -2178,34 +2228,141 @@ def automation_run(name, graph, node, param, values, every, x_np,
             state, o, _ = cg.fn(state, {key: xs[j]}, turns[j])
             want.append(host(o[cg.output_ids[0]]))
     want = np.concatenate(want)
-    ms = times * 1e3
-    turn = ms[::every]
-    steady = np.delete(ms, np.arange(0, n, every))
-    block_ms = 128 / SR * 1e3
-    rec = {"blocks": n, "every": every, "captures": sess.step.captures,
-           "turn_median_ms": float(np.median(turn)),
-           "turn_max_ms": float(turn.max()),
-           "steady_median_ms": float(np.median(steady)),
-           "steady_p99_ms": float(np.percentile(steady, 99)),
-           "over": int((ms > block_ms).sum()),
-           "wall_s": float(times.sum()), "audio_s": n * 128 / SR}
+    got, ms, captures = trials[0]
+    moved = np.arange(every, n, every)
+    steady = np.setdiff1d(np.arange(1, n), moved)
+    raw = [np.nonzero(t[1][1:] > block_ms)[0] + 1 for t in trials]
+    every_session = np.nonzero(np.min([t[1] for t in trials], axis=0)[1:]
+                               > block_ms)[0] + 1
+    rec = {"blocks": n, "every": every, "policy": policy,
+           "captures": [t[2] for t in trials], "first_ms": float(ms[0]),
+           "moved_median_ms": float(np.median(ms[moved])),
+           "moved_p99_ms": float(np.percentile(ms[moved], 99)),
+           "moved_max_ms": float(ms[moved].max()),
+           "steady_median_ms": (float(np.median(ms[steady])) if len(steady)
+                                else None),
+           "steady_p99_ms": (float(np.percentile(ms[steady], 99))
+                             if len(steady) else None),
+           "over": int(len(every_session)),
+           "over_raw": [[(int(j), float(t[1][j])) for j in r]
+                        for r, t in zip(raw, trials)],
+           "wall_s": float(ms.sum() / 1e3), "audio_s": n * 128 / SR,
+           "bitwise": [bool(np.array_equal(t[0], want)) for t in trials]}
     print(f"slider automation ({name}): {node}'s {param} set anew every "
-          f"{every} blocks over {n} process() blocks ({rec['audio_s']:.3f} s "
-          f"of audio), fast [{card}]:")
-    print(f"  {rec['captures']} captures; a turn's first block median "
-          f"{rec['turn_median_ms']:.3f} ms, max {rec['turn_max_ms']:.3f} ms; "
-          f"the other blocks median {rec['steady_median_ms']:.3f} ms, p99 "
-          f"{rec['steady_p99_ms']:.3f} ms; {rec['over']} of {n} blocks over "
-          f"the {block_ms:.3f} ms a block lasts; {rec['wall_s']:.3f} s wall "
-          f"in all; bitwise the eager loop taking the same values: "
-          f"{bool(np.array_equal(got, want))}")
-    check(rec["captures"] == -(-n // every),
-          f"{name} automation: {rec['captures']} captures for "
-          f"{-(-n // every)} values")
-    check(np.array_equal(got, want),
-          f"{name} automation is not the eager loop: {dbfs(got, want):.1f} "
-          f"dBFS")
+          f"{every} block{'s' if every > 1 else ''} over {n} process() "
+          f"blocks ({rec['audio_s']:.3f} s of audio), {policy}, "
+          f"{AUTOMATION_TRIALS} sessions [{card}]:")
+    steady_s = ("every block moved" if not len(steady) else
+                f"the other blocks median {rec['steady_median_ms']:.3f} ms, "
+                f"p99 {rec['steady_p99_ms']:.3f} ms")
+    print(f"  captures {rec['captures']} for 1 params structure; the first "
+          f"block (the capture) {rec['first_ms']:.3f} ms; a moved block "
+          f"median {rec['moved_median_ms']:.3f} ms, p99 "
+          f"{rec['moved_p99_ms']:.3f} ms, max {rec['moved_max_ms']:.3f} ms; "
+          f"{steady_s}; blocks after the first over the {block_ms:.3f} ms a "
+          f"block lasts: {[len(r) for r in raw]} in each session "
+          f"{[r[:8] for r in rec['over_raw']]}, {rec['over']} in every "
+          f"session; "
+          f"{rec['wall_s']:.3f} s wall; bitwise the eager loop taking the "
+          f"same values: {rec['bitwise']}")
+    check(all(c == 1 for c in rec["captures"]),
+          f"{name} automation: captures {rec['captures']} for one params "
+          f"structure")
+    check(all(rec["bitwise"]), f"{name} automation is not the eager loop: "
+          f"{dbfs(got, want):.1f} dBFS")
+    check(rec["over"] == 0, f"{name} automation: {rec['over']} blocks after "
+          f"the first over {block_ms:.3f} ms in every session")
     return rec
+
+
+def host_stalls(seconds, card) -> dict:
+    """The machine's own stalls, the witness for ``automation_run``'s
+    sessions: host-only work (NumPy, no CUDA) in iterations of 0.5 ms for
+    ``seconds``, on one pinned core with the garbage collector off, as
+    the automated streams run; the iterations that took over 1.5 ms and
+    over the 2.667 ms a block lasts, and the longest."""
+    import gc
+    import os
+    a = np.random.default_rng(0).standard_normal(4096)
+    cores = os.sched_getaffinity(0)
+    its = []
+    gc.disable()
+    os.sched_setaffinity(0, {max(cores)})
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 0.5e-3:
+                a = np.sin(a)
+            its.append(time.perf_counter() - t0)
+    finally:
+        os.sched_setaffinity(0, cores)
+        gc.enable()
+    ms = np.array(its) * 1e3
+    rec = {"iterations": len(ms), "over_1.5": int((ms > 1.5).sum()),
+           "over_block": int((ms > 128 / SR * 1e3).sum()),
+           "max_ms": float(ms.max())}
+    print(f"the machine's stalls: {rec['iterations']} iterations of 0.5 ms "
+          f"host-only work over {seconds} s on one pinned core: "
+          f"{rec['over_1.5']} over 1.5 ms, {rec['over_block']} over "
+          f"{128 / SR * 1e3:.3f} ms, the longest {rec['max_ms']:.3f} ms "
+          f"[{card}]")
+    return rec
+
+
+def tensor_slider_check(card) -> None:
+    """The bench chain's sliders as CUDA tensors, edited in place every
+    block, under fast and parity: one capture a session, each block a
+    copy of the tensors into the step's buffers (under parity the low-
+    and high-pass solves build their powers on the card: no host read in
+    the capture), bitwise the eager loop taking the same tensors."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    g = bench_graph()
+    sliders = {"gain": "level", "biquad": "a1", "overdrive": "drive",
+               "low_pass": "ratio", "high_pass": "ratio",
+               "distort": "level", "chebyshev": "level_pos",
+               "reverb": "decay"}
+    ids = {cn: str(i) for i, nd in sorted(g.nodes.items())
+           for cn in sliders if nd.cfg_name == cn}
+    rng = np.random.default_rng(151)
+    blocks = (rng.standard_normal((12, 128)) * 0.3).astype(np.float32)
+    for pol in ("fast", "parity"):
+        with dst.policy(pol):
+            sess = dst.StreamSession(g, device="cuda")
+            base = {ids[cn]: {n: float(g.nodes[int(ids[cn])].params[n])}
+                    for cn, n in sliders.items()}
+            live = {nid: {n: torch.tensor(v, device=sess.device)
+                          for n, v in e.items()} for nid, e in base.items()}
+            sess.params = live
+            key = str(sess.cg.input_ids[0])
+            xs = torch.as_tensor(blocks, device=sess.device)
+            state, got, want = sess.cg.init_state(), [], []
+            for j in range(len(blocks)):
+                scale = 1.0 + 0.05 * np.sin(j)
+                for nid, e in live.items():
+                    for n, t in e.items():
+                        t.fill_(base[nid][n] * scale)
+                got.append(sess.process({key: blocks[j]})[0])
+                state, o, _ = sess.cg.fn(state, {key: xs[j]}, live)
+                want.append(host(o[sess.cg.output_ids[0]]))
+            same = np.array_equal(np.concatenate(got), np.concatenate(want))
+        print(f"tensor sliders on the card ({len(sliders)} of the bench "
+              f"chain, edited in place every block, {pol}): "
+              f"{sess.step.captures} capture(s), {sess.step.replays} "
+              f"replays, bitwise the eager loop taking the same tensors: "
+              f"{same} [{card}]")
+        check(sess.step.captures == 1,
+              f"tensor sliders, {pol}: {sess.step.captures} captures")
+        check(same, f"tensor sliders, {pol}: not the eager loop")
+
+
+def automation_values(base, n, lo, hi):
+    """n slider values swept around ``base`` inside [lo, hi], a new one a
+    block (no two neighbours equal)."""
+    v = base * (1.0 + 0.25 * np.sin(2.0 * np.pi * np.arange(n) / 97.0)
+                + 0.01 * (np.arange(n) % 2))
+    return [float(x) for x in np.clip(v, lo, hi)]
 
 
 def ring_check(graph) -> None:
@@ -2406,6 +2563,8 @@ def runtime_phase(dev, card) -> dict:
         recs[name] = stream_run(name, g, x, dev, card, expect,
                                 first_order=first_order, bounds=bnds)
     recapture_check(card)
+    tensor_slider_check(card)
+    recs["host stalls"] = host_stalls(AUTOMATION_STALL_S, card)
     g = bench_graph()
     gain = sorted(g.nodes)[1]
     n_auto = SR // 128
@@ -2421,6 +2580,31 @@ def runtime_phase(dev, card) -> dict:
         AUTOMATION_C5_EVERY, (rng.standard_normal(
             len(AUTOMATION_C5_LEVELS) * AUTOMATION_C5_EVERY * 128) * 0.3)
         .astype(np.float32), card)
+    # a slider moved every block: the bench chain's gain (its head), its
+    # overdrive's drive (the middle of the chain), config5's feedback gain
+    # (inside the SCC) and its envelope's attack, the exact bench chain's
+    # low-pass ratio
+    of = {cn: next(i for i, nd in sorted(gr.nodes.items())
+                   if nd.cfg_name == cn)
+          for gr, cn in ((g, "overdrive"), (g, "low_pass"))}
+    env5 = next(i for i, nd in sorted(g5.nodes.items())
+                if nd.cfg_name == "envelope")
+    for label, gr, nid, param, base, lo, hi, secs, pol in (
+            ("bench chain", g, gain, "level", 1.2, 0.0, 10.0,
+             AUTOMATION_BENCH_S, "fast"),
+            ("bench chain overdrive", g, of["overdrive"], "drive", 0.6, 0.0,
+             1.0, 1, "fast"),
+            ("config5 feedback", g5, fbg, "level", 0.45, 0.0, 10.0,
+             AUTOMATION_C5_S, "fast"),
+            ("config5 envelope", g5, env5, "attack", 50.0, 0.0, 1000.0,
+             AUTOMATION_C5_S, "fast"),
+            ("exact bench chain low-pass", g, of["low_pass"], "ratio", 0.6,
+             0.0, 1.0, 1, "exact")):
+        n = secs * SR // 128
+        recs[f"automation {label} every block"] = automation_run(
+            label, gr, nid, param, automation_values(base, n, lo, hi), 1,
+            (rng.standard_normal(n * 128) * 0.3).astype(np.float32), card,
+            policy=pol)
     ring_check(g5)
     cli_check(dev, card)
     checkpoint_check(dev)
@@ -3633,7 +3817,8 @@ def main() -> int:
                               * 0.5).astype(np.float32), device=dev)
         e0 = torch.as_tensor(rng5.random(B_CHECK).astype(np.float32),
                              device=dev)
-        seq_k = envelope_kernel.peak_envelope_cuda(xe, atk, rel, e0,
+        gains = env_gains(atk, rel, dev)
+        seq_k = envelope_kernel.peak_envelope_cuda(xe, gains, e0,
                                                    chunk=T_CHECK)
         seq_p = envelope._seq_scan(xe, atk, rel, e0)
         torch.cuda.synchronize()
@@ -3649,7 +3834,7 @@ def main() -> int:
             xu[0, t // 3] = float("nan")
             eu = torch.as_tensor(rng16.random(b).astype(np.float32),
                                  device=dev)
-            ck = envelope_kernel.peak_envelope_cuda(xu, atk, rel, eu,
+            ck = envelope_kernel.peak_envelope_cuda(xu, gains, eu,
                                                     chunk=chunk)
             cp = envelope._chunked_batched(xu, atk, rel, eu, chunk)
             torch.cuda.synchronize()
@@ -3662,7 +3847,7 @@ def main() -> int:
                              .astype(np.float32), device=dev)
         ec0 = torch.as_tensor(rng5.random(B_C5).astype(np.float32),
                               device=dev)
-        ch_k = envelope_kernel.peak_envelope_cuda(xc, atk, rel, ec0,
+        ch_k = envelope_kernel.peak_envelope_cuda(xc, gains, ec0,
                                                   chunk=envelope._CHUNK)
         ch_p = envelope._chunked_batched(xc, atk, rel, ec0, envelope._CHUNK)
         torch.cuda.synchronize()
@@ -3814,7 +3999,7 @@ def main() -> int:
     xs_env = torch.as_tensor((rng10.standard_normal((4, SR)) * 0.5)
                              .astype(np.float32), device=dev)
     es0 = torch.as_tensor(rng10.random(4).astype(np.float32), device=dev)
-    seq_k = envelope_kernel.peak_envelope_cuda(xs_env, atk, rel, es0,
+    seq_k = envelope_kernel.peak_envelope_cuda(xs_env, gains, es0,
                                                chunk=SR)
     seq_p = envelope._seq_scan(xs_env, atk, rel, es0)
     torch.cuda.synchronize()
@@ -3855,12 +4040,12 @@ def main() -> int:
         del ins
         times["env_chunk"] = (
             cuda_ms(lambda: envelope_kernel.peak_envelope_cuda(
-                xc, atk, rel, ec0, chunk=envelope._CHUNK)),
+                xc, gains, ec0, chunk=envelope._CHUNK)),
             cuda_ms(lambda: envelope._chunked_batched(
                 xc, atk, rel, ec0, envelope._CHUNK), N_TIMED_SLOW))
         times["env_seq"] = (
             cuda_ms(lambda: envelope_kernel.peak_envelope_cuda(
-                xs_env, atk, rel, es0, chunk=SR)),
+                xs_env, gains, es0, chunk=SR)),
             cuda_ms(lambda: envelope._seq_scan(xs_env, atk, rel, es0),
                     N_TIMED_SLOW))
         del xc, xs_env

@@ -46,6 +46,7 @@ from dsp_stuff_tpu_torch.ops.modfx import (max_delay_samples, mtap_shared,
                                            mtap_static)
 from dsp_stuff_tpu_torch.registry import ParamSpec
 from dsp_stuff_tpu_torch.utils import precision
+from dsp_stuff_tpu_torch.utils.sliders import Data
 
 EXTERNAL = "__external__"
 
@@ -567,15 +568,22 @@ class CompiledGraph:
 
     def _override(self, v, what: str):
         """An override slider: a tensor stays a tensor (on this graph's
-        device, f32, its autograd history kept), anything else a float."""
+        device, f32, its autograd history kept), a stream's slider as data
+        (utils/sliders.Data, which a node reads as it reads a float, from
+        device buffers) stays a Data, anything else a float."""
         if isinstance(v, torch.Tensor):
             return self._on_device(v, what)
+        if isinstance(v, Data):
+            return v
         return float(v)
 
     def _resolve_params(self, node: GraphNode, in_sigs: dict, pdict):
         """params dict with modulation ports resolved; in_sigs maps port ->
         (avg signal, n_connected); pdict (if given) overrides non-static
-        sliders, its tensors passed through to the nodes unchanged."""
+        sliders, its tensors and Data passed through to the nodes
+        unchanged.  An overridden member leaves the fused runs and cycle
+        programs (``_active_mega``, ``_run_sections``, ``_cycle_program``),
+        as in the JAX package, whatever its value."""
         over = (pdict or {}).get(str(node.id), {})
         params: dict[str, Any] = {}
         for p in node.spec.params:

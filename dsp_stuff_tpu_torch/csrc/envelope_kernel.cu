@@ -51,6 +51,11 @@
 //   (the copies) or eight (the chain's reads, 8 steps a lane as two
 //   16-byte loads).
 
+// The two gains, (attack, release), are read from device memory, once by
+// each follower lane, as the Pallas kernels read theirs from a (1, 2) SMEM
+// array: a stream's slider moves them with a copy into that memory, and a
+// captured CUDA graph replays the launch unchanged.
+//
 // NaN compares false and takes the release gain, as torch.where does.
 
 #include <cuda_runtime.h>
@@ -104,8 +109,9 @@ struct __align__(16) EvWin {
 
 __global__ void __launch_bounds__(64)
 envelope_kernel(const float* __restrict__ x, float* __restrict__ y,
-                const float* __restrict__ env0, int B, long long T,
-                int chunk, int P, float atk, float rel, int vec) {
+                const float* __restrict__ env0,
+                const float* __restrict__ gains, int B, long long T,
+                int chunk, int P, int vec) {
   extern __shared__ float4 ring4[];     // [EV_NB][32][EV_LD] floats
   __shared__ EvWin win[32];
   float* ring = reinterpret_cast<float*>(ring4);
@@ -201,6 +207,7 @@ envelope_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
 
   // the chain: lane `lane` runs window `lane`, eight steps' x at once
+  const float atk = gains[0], rel = gains[1];
   const float e0 = live ? env0[row] : 0.0f;
   float env = pre == 0 ? e0 : (p == 1 ? e0 : 0.0f);
   for (int k = 0; k < n_tiles; ++k) {
@@ -237,14 +244,14 @@ envelope_kernel(const float* __restrict__ x, float* __restrict__ y,
 
 static const int SMEM_BYTES = EV_NB * 32 * EV_LD * (int)sizeof(float);
 
-// The envelope of x [B, T] into y [B, T] on `stream`, from env0 [B]: P
-// chunks of `chunk` samples a row (P = 1: one chunk of T, the sequential
-// follower).  The 16-byte copies are taken when every window's start is
-// 16-byte aligned.  Returns the cudaGetLastError() code of the launch, 0
-// on success.
+// The envelope of x [B, T] into y [B, T] on `stream`, from env0 [B] with
+// gains [2] = (attack, release) in device memory: P chunks of `chunk`
+// samples a row (P = 1: one chunk of T, the sequential follower).  The
+// 16-byte copies are taken when every window's start is 16-byte aligned.
+// Returns the cudaGetLastError() code of the launch, 0 on success.
 extern "C" int envelope_kernel_launch(const float* x, float* y,
-                                      const float* env0, int B, long long T,
-                                      int chunk, int P, float atk, float rel,
+                                      const float* env0, const float* gains,
+                                      int B, long long T, int chunk, int P,
                                       int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -259,7 +266,7 @@ extern "C" int envelope_kernel_launch(const float* x, float* y,
       && T % 4 == 0 && (P == 1 || chunk % 4 == 0);
   const long long n = (long long)B * P;
   envelope_kernel<<<(unsigned)((n + 31) / 32), 64, SMEM_BYTES,
-                    (cudaStream_t)stream>>>(x, y, env0, B, T, chunk, P, atk,
-                                            rel, vec);
+                    (cudaStream_t)stream>>>(x, y, env0, gains, B, T, chunk,
+                                            P, vec);
   return (int)cudaGetLastError();
 }

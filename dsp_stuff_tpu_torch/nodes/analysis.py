@@ -72,7 +72,14 @@ class Spectrogram:
     ),
 )
 class Pitch:
-    """McLeod pitch detection over 1024-sample windows (pitch.rs:115-147)."""
+    """McLeod pitch detection over 1024-sample windows (pitch.rs:115-147).
+
+    The thresholds are read on the host (``float``), so they cannot be
+    data of a stream step: a stream session refuses an override of one
+    (``host_sliders``), as the JAX package's ``process()`` raises on
+    them (``float`` of a traced value)."""
+
+    host_sliders = ("power_thresh", "clarity_thresh", "pick_thresh")
 
     @staticmethod
     def process_seq(params, state, inputs):

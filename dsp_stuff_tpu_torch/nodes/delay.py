@@ -9,6 +9,11 @@ from dsp_stuff_tpu_torch.registry import register_node, ParamSpec
 from dsp_stuff_tpu_torch.ops.delay_line import feedback_comb, delay_samples
 from dsp_stuff_tpu_torch.ops.lockstep import counter, oldest_first
 from dsp_stuff_tpu_torch.ops.modfx import max_delay_samples, modulated_delay
+from dsp_stuff_tpu_torch.utils.sliders import lift, num
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
 
 
 @register_node(
@@ -58,7 +63,7 @@ class Reverb:
         ring = ring.expand(*batch, D).clone()
         decay = params["decay"]
         if not isinstance(decay, torch.Tensor):
-            decay = float(np.float32(decay))
+            decay = num(lift(_f32, decay), x)
         y = x + ring[..., idx] * decay
         ring[..., idx] = y.expand(*batch, T)
         return {"out": y}, {"ring": ring, "pos": (pos + T) % D}

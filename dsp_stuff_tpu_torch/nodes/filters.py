@@ -1,6 +1,8 @@
 """Filter nodes: BiQuad, LowPass, HighPass, Envelope, Fir.
 
-A slider is a Python float (the graph's value: host-constant solves) or,
+A slider is a Python float (the graph's value: host-constant solves), a
+stream's slider as data (utils/sliders.Data: the float path, its host
+constants derived with ``sliders.lift`` and read from device buffers) or,
 from ``render(params=...)`` and the fitting path, a 0-d tensor that may
 require grad, which each node keeps a tensor (no host read)."""
 
@@ -15,6 +17,7 @@ from dsp_stuff_tpu_torch.ops.envelope import peak_envelope
 from dsp_stuff_tpu_torch.ops.fir import fir_apply, init_fir_state
 from dsp_stuff_tpu_torch.ops.scan import first_order_affine, biquad_df1
 from dsp_stuff_tpu_torch.utils.precision import on_device
+from dsp_stuff_tpu_torch.utils.sliders import lift, num
 
 
 def _zero():
@@ -23,14 +26,25 @@ def _zero():
 
 def _ratio(params):
     r = params["ratio"]
-    return r.to(torch.float32) if isinstance(r, torch.Tensor) else float(r)
+    return r.to(torch.float32) if isinstance(r, torch.Tensor) \
+        else lift(float, r)
 
 
-def _one_minus(r):
-    """1 - r in f32 (a tensor ratio stays a tensor)."""
+def _one_minus_host(r) -> float:
+    return float(np.float32(1.0) - np.float32(r))
+
+
+def _one_minus(r, like):
+    """1 - r in f32 as an operand of an op on ``like`` (a tensor ratio
+    stays a tensor; a stream's slider is its buffer of the host value)."""
     if isinstance(r, torch.Tensor):
         return 1.0 - r
-    return float(np.float32(1.0) - np.float32(r))
+    return num(lift(_one_minus_host, r), like)
+
+
+def _over_a0(v, a0) -> np.float32:
+    """A coefficient over a0, in f32 (biquad.rs:64-71)."""
+    return np.float32(np.float32(v) / np.float32(a0))
 
 
 @register_node(
@@ -67,8 +81,7 @@ class BiQuad:
             a1, a2, b0, b1, b2 = (on_device(v, x.device) / a0
                                   for v in raw[1:])
         else:
-            a0 = np.float32(raw[0])
-            a1, a2, b0, b1, b2 = (np.float32(np.float32(v) / a0)
+            a1, a2, b0, b1, b2 = (lift(_over_a0, v, raw[0])
                                   for v in raw[1:])
         y, (x1, x2, y1, y2) = biquad_df1(
             inputs["in"], a1, a2, b0, b1, b2,
@@ -96,8 +109,9 @@ class LowPass:
 
     @staticmethod
     def process_seq(params, state, inputs):
+        x = inputs["in"]
         r = _ratio(params)
-        y = first_order_affine(r, inputs["in"] * _one_minus(r), state["z"])
+        y = first_order_affine(r, x * _one_minus(r, x), state["z"])
         return {"out": y}, {"z": y[..., -1]}
 
 
@@ -118,8 +132,12 @@ class HighPass:
     def process_seq(params, state, inputs):
         x = inputs["in"]
         r = _ratio(params)
-        z = first_order_affine(r, x * _one_minus(r), state["z"])
+        z = first_order_affine(r, x * _one_minus(r, x), state["z"])
         return {"out": x - z}, {"z": z[..., -1]}
+
+
+def _clip_frames(v) -> float:
+    return float(np.clip(np.float32(v), 0.0, 1000.0))
 
 
 @register_node(
@@ -145,7 +163,7 @@ class Envelope:
         # reference node cannot express
         atk, rel = (torch.clamp(v.to(torch.float32), 0.0, 1000.0)
                     if isinstance(v, torch.Tensor)
-                    else float(np.clip(np.float32(v), 0.0, 1000.0))
+                    else lift(_clip_frames, v)
                     for v in (params["attack"], params["release"]))
         y, env = peak_envelope(inputs["in"], atk, rel, state["env"])
         return {"out": y}, {"env": env}

@@ -15,20 +15,22 @@ exactly D samples with  chunk_k = x_k + decay * chunk_{k-1}: T/D
 sequential steps of D-wide elementwise work, each with the reference's
 per-sample op order (t = delayed*decay; y = x + t).  That runs for a
 concrete decay under every policy, and for a tensor decay (the fitting
-path) under ``parity``.  A tensor decay under ``fast`` takes the JAX
-package's route for a traced decay: the chunk recurrence as Toeplitz
-products over the chunk axis (``_comb_chunks_blocked``), a few launches
-instead of two per chunk, forward and backward.
+path) under ``parity``, and for a stream's slider (utils/sliders.Data,
+its f32 value in a device buffer) under every policy.  A tensor decay
+under ``fast`` takes the JAX package's route for a traced decay: the
+chunk recurrence as Toeplitz products over the chunk axis
+(``_comb_chunks_blocked``), a few launches instead of two per chunk,
+forward and backward.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dsp_stuff_tpu_torch.ops.scan import _toeplitz
+from dsp_stuff_tpu_torch.ops.scan import _f32, _toeplitz
 from dsp_stuff_tpu_torch.utils.precision import get_policy
+from dsp_stuff_tpu_torch.utils.sliders import lift, num
 
 
 def delay_samples(seconds: float, sample_rate: int = 48_000) -> int:
@@ -41,9 +43,9 @@ def feedback_comb(x, decay, delay: int, history=None):
     """y[n] = x[n] + decay * y[n-D] along the last axis.
 
     history -- [..., D] previous outputs (newest last), zeros if None.
-    decay   -- a Python float, or a 0-d tensor that may require grad (the
-               fitting path; it stays on the device and autograd runs
-               through the chunk recurrence).
+    decay   -- a Python float, a stream's slider (Data), or a 0-d tensor
+               that may require grad (the fitting path; it stays on the
+               device and autograd runs through the chunk recurrence).
     Returns (y, new_history)."""
     x = torch.as_tensor(x, dtype=torch.float32)
     D = int(delay)
@@ -54,10 +56,11 @@ def feedback_comb(x, decay, delay: int, history=None):
                               device=x.device)
     history = torch.as_tensor(history, dtype=torch.float32,
                               device=x.device).expand(*batch, D)
-    if isinstance(decay, torch.Tensor):
+    traced = isinstance(decay, torch.Tensor)
+    if traced:
         decay = decay.to(torch.float32)
     else:
-        decay = float(np.float32(decay))
+        decay = num(lift(_f32, decay), x)
 
     if T <= D:
         # every delayed sample is already in the history
@@ -68,7 +71,7 @@ def feedback_comb(x, decay, delay: int, history=None):
     pad = nchunks * D - T
     xp = F.pad(x, (0, pad)) if pad else x
     xcb = xp.reshape(*batch, nchunks, D)
-    if isinstance(decay, torch.Tensor) and get_policy().name == "fast":
+    if traced and get_policy().name == "fast":
         yb = _comb_chunks_blocked(xcb, decay, history)
         prev = yb[..., -1, :]
         y = yb.reshape(*batch, nchunks * D)[..., :T]

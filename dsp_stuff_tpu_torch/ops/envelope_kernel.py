@@ -10,7 +10,10 @@ module is imported.
 One launch computes either: the lane of chunk p >= 1 runs chunk p - 1
 from a zero start (pass 1, its final kept), then chunk p from that final
 (pass 2), which are _chunked_batched's operations in its order, so the
-two agree bitwise.
+two agree bitwise.  The two gains are read from device memory, as the
+Pallas kernels read theirs from a (1, 2) SMEM array: a slider of a stream
+moves them with a copy, and a captured CUDA graph replays the launch
+unchanged.
 
 ``peak_envelope_cuda`` takes only CUDA tensors and raises on anything the
 kernel cannot take; there is no fallback.  The plain PyTorch versions are
@@ -23,7 +26,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from dsp_stuff_tpu_torch.ops import cuda_build
@@ -36,9 +38,9 @@ LAUNCHES = 0
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("envelope_kernel")
     lib.envelope_kernel_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     lib.envelope_kernel_launch.restype = ctypes.c_int
     return lib
 
@@ -49,10 +51,12 @@ def chunks(T: int, chunk: int) -> tuple[int, int]:
     return (T, 1) if chunk >= T else (chunk, -(-T // chunk))
 
 
-def peak_envelope_cuda(x: torch.Tensor, atk: float, rel: float,
+def peak_envelope_cuda(x: torch.Tensor, gains: torch.Tensor,
                        env0: torch.Tensor, chunk: int):
-    """x [B, T] f32 CUDA, contiguous; gains from envelope.gain_from_frames;
-    env0 [B] -> (env [B, T], final [B], a view of env's last column).
+    """x [B, T] f32 CUDA, contiguous; gains [2] f32 on x's device,
+    (attack, release) from envelope.gain_from_frames (a 0-d tensor gives
+    both); env0 [B] -> (env [B, T], final [B], a view of env's last
+    column).
 
     ``chunk >= T`` runs the sequential follower; a shorter chunk the
     chunk-parallel one (each chunk's start from the previous chunk run
@@ -72,12 +76,17 @@ def peak_envelope_cuda(x: torch.Tensor, atk: float, rel: float,
             or not env0.is_contiguous()):
         raise ValueError(f"envelope kernel: env0 must be a contiguous "
                          f"float32 [{B}] tensor on {x.device}")
-    atk, rel = float(np.float32(atk)), float(np.float32(rel))
+    if (not isinstance(gains, torch.Tensor) or gains.shape not in ((), (2,))
+            or gains.dtype != torch.float32 or gains.device != x.device):
+        raise ValueError(f"envelope kernel: gains must be a float32 [2] "
+                         f"(or 0-d) tensor on {x.device}")
+    gains = gains.expand(2).contiguous()
     length, P = chunks(T, chunk)
     y = torch.empty_like(x)
     rc = _lib().envelope_kernel_launch(
-        x.data_ptr(), y.data_ptr(), env0.data_ptr(), B, T, length, P, atk,
-        rel, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), y.data_ptr(), env0.data_ptr(), gains.data_ptr(), B, T,
+        length, P, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"envelope kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -64,7 +64,9 @@ def _tap_trajectory(rate_hz, depth_s, base_s, L: int, T: int, t0,
         device = rate_hz.device
         rate = rate_hz.to(_F64)
     else:
-        rate = scalar_on(float(rate_hz), device, _F64)
+        # a Python float is not rounded to f32: the rate is f64 here (a
+        # stream's slider, a Data, holds the same double)
+        rate = on_device(rate_hz, device, _F64)
     t_abs = counter(t0) + torch.arange(T, dtype=_F64, device=device)
     cycles = rate * t_abs / scalar_on(float(sample_rate), device, _F64)
     phase = (cycles - torch.floor(cycles)).to(_F32)

@@ -64,6 +64,13 @@ def detect_pitch(x, sample_rate: int = 48_000, power_threshold: float = 0.5,
     pitch.rs:120-139)."""
     x = torch.as_tensor(x, dtype=torch.float32)
     n_win = x.shape[-1] // window
+    if n_win == 0:
+        # shorter than a window (a stream block): no window to detect in,
+        # and no FFT of an empty batch
+        z = torch.zeros((*x.shape[:-1], 0), dtype=torch.float32,
+                        device=x.device)
+        return {"frequency": z, "clarity": z.clone(),
+                "voiced": z.to(torch.bool), "note_nr": z.to(torch.int32)}
     xw = x[..., : n_win * window].reshape(*x.shape[:-1], n_win, window)
     d = nsdf(xw)                                            # [..., n_win, W/2]
     W2 = d.shape[-1]

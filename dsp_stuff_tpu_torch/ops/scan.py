@@ -13,8 +13,12 @@ JAX package), native float64 under ``parity``.  All functions take
 ``[..., T]`` tensors with any leading batch dimensions.
 
 Concrete (Python float) coefficients build their constants on the host.
-Tensor coefficients are the gradient-fitting path: ``first_order_affine``
-runs ``FirstOrderAffine``, whose forward and backward are the first-order
+A slider of a stream step (utils/sliders.Data) takes the same route: the
+host derives the constants from its value with ``sliders.lift``, and the
+solve reads them from the buffers the step refills when the slider
+moves, so it is bitwise the float route.  Tensor coefficients are the
+gradient-fitting path: ``first_order_affine`` runs
+``FirstOrderAffine``, whose forward and backward are the first-order
 kernel (ops/first_order_kernel.py) for a CUDA tensor under ``fast`` and
 the plain versions otherwise; ``biquad_df1`` builds its impulse response
 from the tensors, so autograd reaches every coefficient.
@@ -39,6 +43,7 @@ import torch.nn.functional as F
 from dsp_stuff_tpu_torch.ops import first_order_kernel, sequential_kernel
 from dsp_stuff_tpu_torch.utils.capture import device_cache
 from dsp_stuff_tpu_torch.utils.precision import get_policy, on_device
+from dsp_stuff_tpu_torch.utils.sliders import Data, form, item, lift, num
 
 # chunk length of the blocked solves: y_chunk = B @ Lt is a [K, C] @ [C, C]
 # product, ~C multiply-adds per sample
@@ -56,11 +61,20 @@ def _np_dtype(dtype: torch.dtype):
 
 
 def _const(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """A NumPy constant as a tensor on ``like``'s device, copied there once
-    per content and device (a streamed block needs the same constants as
-    the one before it; the tensor is never written to)."""
+    return const_on(arr, like.device)
+
+
+def const_on(arr: np.ndarray, device) -> torch.Tensor:
+    """A NumPy constant as a tensor on ``device``, copied there once per
+    content and device (a streamed block needs the same constants as the
+    one before it; the tensor is never written to).  A Data (a constant
+    derived from a stream's slider) is its buffer, a tensor itself."""
+    if isinstance(arr, Data):
+        return arr.on(device)
+    if isinstance(arr, torch.Tensor):
+        return arr
     arr = np.ascontiguousarray(arr)
-    return _const_on(arr.tobytes(), arr.dtype.str, arr.shape, like.device)
+    return _const_on(arr.tobytes(), arr.dtype.str, arr.shape, device)
 
 
 @device_cache(maxsize=256)
@@ -71,6 +85,10 @@ def _const_on(raw: bytes, dtype: str, shape: tuple, device) -> torch.Tensor:
 
 def _pad_last(x: torch.Tensor, pad: int) -> torch.Tensor:
     return F.pad(x, (0, pad)) if pad else x
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
 
 
 @functools.lru_cache(maxsize=256)
@@ -99,11 +117,11 @@ def first_order_affine(a, b, y0):
     broadcasts to b[..., 0].  Returns y with b's shape, f32.
 
     Under ``exact`` the sequential solve runs (``_first_order_exact``).
-    Otherwise a Python float on the CPU, or under ``parity``, keeps the
-    host-constant blocked solve.  Everything else runs
-    ``FirstOrderAffine``: on a CUDA tensor under ``fast`` that is the
-    first-order kernel, at any T and batch (a float becomes a device
-    scalar)."""
+    Otherwise a Python float (or a stream's slider, utils/sliders.Data) on
+    the CPU, or under ``parity``, keeps the host-constant blocked solve.
+    Everything else runs ``FirstOrderAffine``: on a CUDA tensor under
+    ``fast`` that is the first-order kernel, at any T and batch (a float
+    becomes a device scalar)."""
     b = torch.as_tensor(b, dtype=torch.float32)
     y0 = torch.as_tensor(y0, dtype=torch.float32, device=b.device)
     if isinstance(a, torch.Tensor):
@@ -118,12 +136,12 @@ def first_order_affine(a, b, y0):
         return _first_order_exact(a, b, y0)
     fast = policy_dtype() == torch.float32
     if not isinstance(a, torch.Tensor):
-        a = float(np.float32(a))
+        a = lift(_f32, a)
         if not (fast and b.is_cuda):
             dt = policy_dtype()
             y = _first_order_blocked(a, b.to(dt), y0.to(dt), dtype=dt)
             return y.to(torch.float32)
-        a = torch.full((), a, dtype=torch.float32, device=b.device)
+        a = on_device(a, b.device)
     return FirstOrderAffine.apply(a.to(torch.float32), b,
                                   y0.expand(b.shape[:-1]))
 
@@ -148,6 +166,15 @@ def first_order_solve(a, b, y0, reverse: bool = False):
     out_dt = torch.float64 if (dt == torch.float64
                                and b.dtype == torch.float64) else torch.float32
     shape = b.shape
+    if dt == torch.float64 and a.dim() == 0:
+        # parity: the blocked solve with its powers built on the device
+        # from the 0-d a (no host read: a captured stream step takes a
+        # tensor slider this way; on the CPU the same float64 numbers as
+        # the host-built powers of first_order_plain)
+        b, y0 = b.detach().to(dt), y0.detach().to(dt)
+        y = _first_order_blocked(a.detach().to(dt),
+                                 b.flip(-1) if reverse else b, y0, dtype=dt)
+        return (y.flip(-1) if reverse else y).to(out_dt)
     if dt == torch.float32 and b.is_cuda:
         R = int(np.prod(shape[:-1], dtype=np.int64))
         T = shape[-1]
@@ -227,7 +254,7 @@ def _first_order_exact(a, b, y0):
     autograd must see it), the plain ``_first_order_sequential`` for a CPU
     one.  ``a`` is a Python float, a 0-d tensor or a per-sample tensor of
     b's shape; y0 broadcasts to b[..., 0]."""
-    a = on_device(float(np.float32(a)), b.device) \
+    a = on_device(lift(_f32, a), b.device) \
         if not isinstance(a, torch.Tensor) else a.to(torch.float32)
     y0 = y0.to(torch.float32).expand(b.shape[:-1])
     if not b.is_cuda:
@@ -439,6 +466,37 @@ def _first_order_scan(a, b, y0):
     return b
 
 
+def _power_consts(a, n: int, npdt):
+    """(pows [n+1], Lt [n, n], a^n) of ``scalar_power_toeplitz`` (column
+    form); for a 0-d tensor a the same on its device, the powers by a
+    cumulative product (no host read)."""
+    if not isinstance(a, torch.Tensor):
+        return scalar_power_toeplitz(a, n, False, npdt)
+    pows = torch.cat([a.new_ones(1), torch.cumprod(a.expand(n), 0)])
+    return pows, _toeplitz(pows, n), pows[n]
+
+
+def _scalar(v):
+    """A host number as a Python float; a 0-d tensor stays one."""
+    return v if isinstance(v, torch.Tensor) else float(v)
+
+
+def _ends_taps(pows, C: int, scale, npdt):
+    """The chunk-end taps a^(C-1-j), with ``scale`` folded in."""
+    if isinstance(pows, torch.Tensor):
+        return pows[:C].flip(0)
+    taps = pows[C - 1::-1]
+    return (taps * npdt(scale)).astype(npdt) if scale != 1.0 else taps
+
+
+def _scaled(Lt, scale, npdt):
+    return (Lt * npdt(scale)).astype(npdt) if scale != 1.0 else Lt
+
+
+def _from1(v):
+    return v[1:]
+
+
 def _first_order_blocked(a: float, b, y0, C: int = _BLOCK_C, scale=1.0,
                          dtype=torch.float32):
     """Constant-coefficient first-order recurrence as matrix products.
@@ -452,7 +510,12 @@ def _first_order_blocked(a: float, b, y0, C: int = _BLOCK_C, scale=1.0,
     Chunk carries follow  e_k = a^C e_{k-1} + z[k, C-1], itself a
     first-order recurrence of length K: solved recursively above C chunks,
     by one Toeplitz product above 8, sequentially below.  The carry folds
-    back as  y[k, i] = z[k, i] + e_{k-1} a^(i+1)."""
+    back as  y[k, i] = z[k, i] + e_{k-1} a^(i+1).
+
+    ``a`` and ``scale`` may be Data (a stream's slider): every constant is
+    then derived on the host as for a float, and read from its buffer.
+    ``a`` may be a 0-d tensor in ``dtype`` (``scale`` 1): the constants are
+    then built on its device (``_power_consts``)."""
     npdt = _np_dtype(dtype)
     b = b.to(dtype)
     T = b.shape[-1]
@@ -460,33 +523,32 @@ def _first_order_blocked(a: float, b, y0, C: int = _BLOCK_C, scale=1.0,
     K = -(-T // C)
     B = _pad_last(b, K * C - T).reshape(*batch, K, C)
 
-    pows, Lt, aC = scalar_power_toeplitz(a, C, False, npdt)
-    ends_taps = pows[C - 1::-1]
-    if scale != 1.0:
-        s = npdt(scale)
-        Lt = (Lt * s).astype(npdt)
-        ends_taps = (ends_taps * s).astype(npdt)
+    consts = lift(_power_consts, a, C, npdt)
+    pows, Lt, aC = (item(consts, i) for i in range(3))
+    ends_taps = lift(_ends_taps, pows, C, scale, npdt)
+    Lt = lift(_scaled, Lt, scale, npdt)
 
-    ends = B @ _const(np.ascontiguousarray(ends_taps), b)        # [..., K]
+    ends = B @ _const(ends_taps, b)                               # [..., K]
     y0b = torch.as_tensor(y0, dtype=dtype, device=b.device).expand(batch)
-    aC = float(aC)
+    aC = lift(_scalar, aC)
     if K > C:
         e = _first_order_blocked(aC, ends, y0b, C, dtype=dtype)
     elif K > 8:
-        _, Lt2, _ = scalar_power_toeplitz(aC, K, False, npdt)
+        Lt2 = item(lift(_power_consts, aC, K, npdt), 1)
         ends0 = ends.clone()
-        ends0[..., 0] += aC * y0b
+        ends0[..., 0] += num(aC, y0b) * y0b
         e = ends0 @ _const(Lt2, b)
     else:
         prev = y0b
         es = []
         for k in range(K):
-            prev = aC * prev + ends[..., k]
+            prev = num(aC, prev) * prev + ends[..., k]
             es.append(prev)
         e = torch.stack(es, dim=-1)
     # carry INTO chunk k is e_{k-1} (y0 for k = 0)
     carry_in = torch.cat([y0b[..., None], e[..., :-1]], dim=-1)  # [..., K]
-    y = B @ _const(Lt, b) + carry_in[..., :, None] * _const(pows[1:], b)
+    y = (B @ _const(Lt, b)
+         + carry_in[..., :, None] * _const(lift(_from1, pows), b))
     return y.reshape(*batch, K * C)[..., :T]
 
 
@@ -506,7 +568,8 @@ def biquad_df1(x, a1, a2, b0, b1, b2, state=None):
     takes the full blocked solve built from the tensors
     (``_biquad_blocked_traced``), whatever their values, as the JAX
     package's traced route does: that is how a2, b1 and b2 get gradients
-    while they sit at 0."""
+    while they sit at 0.  A stream's sliders (utils/sliders.Data) take the
+    concrete route; which form runs is read with ``sliders.form``."""
     x = torch.as_tensor(x, dtype=torch.float32)
     batch = x.shape[:-1]
     if x.shape[-1] < 2:
@@ -522,14 +585,30 @@ def biquad_df1(x, a1, a2, b0, b1, b2, state=None):
         coeffs = tuple(torch.as_tensor(c, dtype=torch.float32,
                                        device=x.device) for c in cvals)
         return _biquad_blocked_traced(x, coeffs, state, policy_dtype())
-    cf = tuple(float(np.float32(c)) for c in cvals)
+    cf = tuple(lift(_f32, c) for c in cvals)
     if policy_dtype() == torch.float32:
-        if cf[0] == 0.0 and cf[1] == 0.0:
-            return _biquad_pure_fir(x, cf, state)
-        if cf[1] == 0.0 and cf[3] == 0.0 and cf[4] == 0.0:
+        shape = form(lift(_biquad_form, *cf))
+        if shape in ("gain", "fir"):
+            return _biquad_pure_fir(x, cf, state, shape == "gain")
+        if shape == "first_order":
             return _biquad_degenerate(x, cf, state)
         return _biquad_blocked(x, cf, state, torch.float32)
     return _biquad_blocked(x, cf, state, torch.float64)
+
+
+def _biquad_form(a1, a2, b0, b1, b2) -> str:
+    """The fast policy's route for concrete coefficients: a gain or a
+    3-tap FIR (a1 == a2 == 0), a scaled first-order recurrence
+    (a2 == b1 == b2 == 0), else the full blocked solve."""
+    if a1 == 0.0 and a2 == 0.0:
+        return "gain" if b1 == 0.0 and b2 == 0.0 else "fir"
+    if a2 == 0.0 and b1 == 0.0 and b2 == 0.0:
+        return "first_order"
+    return "full"
+
+
+def _pack_f32(*cvals):
+    return np.asarray([np.float32(c) for c in cvals], np.float32)
 
 
 def _biquad_exact(x, cvals: tuple, state):
@@ -541,12 +620,11 @@ def _biquad_exact(x, cvals: tuple, state):
     coeffs = tuple(
         c.to(device=x.device, dtype=torch.float32)
         if isinstance(c, torch.Tensor)
-        else on_device(float(np.float32(c)), x.device) for c in cvals)
+        else on_device(lift(_f32, c), x.device) for c in cvals)
     if not x.is_cuda:
         return _biquad_sequential(x, *coeffs, state)
     if all(not isinstance(c, torch.Tensor) for c in cvals):
-        packed = _const(np.asarray([np.float32(c) for c in cvals],
-                                   np.float32), x)
+        packed = _const(lift(_pack_f32, *cvals), x)
     else:
         packed = torch.stack(coeffs)
     return run_biquad(sequential_kernel.biquad_sequential_cuda,
@@ -589,16 +667,18 @@ def _biquad_sequential(x, a1, a2, b0, b1, b2, state):
     return torch.stack(ys, dim=-1), (x1, x2, y1, y2)
 
 
-def _biquad_pure_fir(x, cf: tuple, state):
+def _biquad_pure_fir(x, cf: tuple, state, gain: bool):
     """DF1 biquad with a1 == a2 == 0: a pure 3-tap FIR with the carried
-    x-history prefix.  State layout matches the full biquad."""
+    x-history prefix (a gain when b1 == b2 == 0 too).  State layout
+    matches the full biquad."""
     _a1, _a2, b0, b1, b2 = cf
     x1, x2, _y1, _y2 = state
-    if b1 == 0.0 and b2 == 0.0:
-        y = x * b0
+    if gain:
+        y = x * num(b0, x)
     else:
         xp = torch.cat([x2[..., None], x1[..., None], x], dim=-1)
-        y = b0 * xp[..., 2:] + b1 * xp[..., 1:-1] + b2 * xp[..., :-2]
+        y = (num(b0, x) * xp[..., 2:] + num(b1, x) * xp[..., 1:-1]
+             + num(b2, x) * xp[..., :-2])
     return y, (x[..., -1], x[..., -2], y[..., -1], y[..., -2])
 
 
@@ -608,9 +688,12 @@ def _biquad_degenerate(x, cf: tuple, state):
     y-history seed y1 is the recurrence's y0."""
     a1, _a2, b0, _b1, _b2 = cf
     _x1, _x2, y1, _y2 = state
-    y = _first_order_blocked(float(np.float32(-np.float32(a1))), x, y1,
-                             scale=b0)
+    y = _first_order_blocked(lift(_neg_f32, a1), x, y1, scale=b0)
     return y, (x[..., -1], x[..., -2], y[..., -1], y[..., -2])
+
+
+def _neg_f32(v) -> float:
+    return float(np.float32(-np.float32(v)))
 
 
 @functools.lru_cache(maxsize=128)
@@ -632,28 +715,13 @@ def _biquad_ir(cf: tuple, C: int):
     return h, g
 
 
-def _biquad_blocked(x, cf: tuple, state, dtype, C: int = _BLOCK_C):
-    """Second-order recurrence as blocked matrix products.
-
-    Per chunk of C: the zero-state response is one GEMM against the
-    Toeplitz of g (the numerator folded into the impulse response); each
-    chunk's first two outputs reach back two inputs into the previous
-    chunk (a rank-2 correction d0 h[i] + d1 h[i-1]); the chunk-end pair
-    drives the 2-vector boundary recurrence s_k = M s_{k-1} + w_k
-    (_vec2_recurrence), folded back as  s1 h[i+1] - a2 s2 h[i]."""
-    npdt = _np_dtype(dtype)
-    a1, a2, b0, b1, b2 = cf
-    x1, x2, y1, y2 = (s.to(dtype) for s in state)
-    T = x.shape[-1]
-    batch = x.shape[:-1]
-    h64, g64 = _biquad_ir(cf, C)
+def _biquad_consts(a1, a2, b0, b1, b2, C: int, npdt):
+    """The host constants of ``_biquad_blocked``: (h, hs, Ltg, S, M,
+    (h[C-1], h[C-2], h[C-3])) in ``npdt``."""
+    h64, g64 = _biquad_ir((a1, a2, b0, b1, b2), C)
     h = h64.astype(npdt)
     g = g64.astype(npdt)
-
-    K = -(-T // C)
-    X = _pad_last(x.to(dtype), K * C - T).reshape(*batch, K, C)
     hs = np.concatenate([np.zeros(1, npdt), h[:C - 1]])      # h[i-1], [C]
-
     i = np.arange(C)
     Ltg = np.where(i[:, None] <= i[None, :],
                    g[np.clip(i[None, :] - i[:, None], 0, C)], 0.0).astype(npdt)
@@ -665,18 +733,46 @@ def _biquad_blocked(x, cf: tuple, state, dtype, C: int = _BLOCK_C):
     S[:C - 1, 1] = g[C - 2 - np.arange(C - 1)]
     S[C - 1, 2] = 1.0
     S[C - 2, 3] = 1.0
+    M = np.asarray([[h64[C], -a2 * h64[C - 1]],
+                    [h64[C - 1], -a2 * h64[C - 2]]]).astype(npdt)
+    return h, hs, Ltg, S, M, (float(h[C - 1]), float(h[C - 2]),
+                              float(h[C - 3]))
+
+
+def _slice(v, lo, hi):
+    return v[lo:hi]
+
+
+def _biquad_blocked(x, cf: tuple, state, dtype, C: int = _BLOCK_C):
+    """Second-order recurrence as blocked matrix products.
+
+    Per chunk of C: the zero-state response is one GEMM against the
+    Toeplitz of g (the numerator folded into the impulse response); each
+    chunk's first two outputs reach back two inputs into the previous
+    chunk (a rank-2 correction d0 h[i] + d1 h[i-1]); the chunk-end pair
+    drives the 2-vector boundary recurrence s_k = M s_{k-1} + w_k
+    (_vec2_recurrence), folded back as  s1 h[i+1] - a2 s2 h[i].  The
+    coefficients may be Data (a stream's sliders)."""
+    npdt = _np_dtype(dtype)
+    a1, a2, b0, b1, b2 = cf
+    x1, x2, y1, y2 = (s.to(dtype) for s in state)
+    T = x.shape[-1]
+    batch = x.shape[:-1]
+    consts = lift(_biquad_consts, *cf, C, npdt)
+    h, hs, Ltg, S, M_np, hC = (item(consts, i) for i in range(6))
+
+    K = -(-T // C)
+    X = _pad_last(x.to(dtype), K * C - T).reshape(*batch, K, C)
     side = X @ _const(S, X)                                   # [..., K, 4]
 
     xlast1 = torch.cat([x1[..., None], side[..., :-1, 2]], dim=-1)  # [..., K]
     xlast2 = torch.cat([x2[..., None], side[..., :-1, 3]], dim=-1)
-    d0 = b1 * xlast1 + b2 * xlast2
-    d1 = b2 * xlast1
-    hC1, hC2, hC3 = float(h[C - 1]), float(h[C - 2]), float(h[C - 3])
+    d0 = num(b1, xlast1) * xlast1 + num(b2, xlast2) * xlast2
+    d1 = num(b2, xlast1) * xlast1
+    hC1, hC2, hC3 = (num(item(hC, i), d0) for i in range(3))
     w = torch.stack([side[..., :, 0] + d0 * hC1 + d1 * hC2,
                      side[..., :, 1] + d0 * hC2 + d1 * hC3], dim=-1)
 
-    M_np = np.asarray([[h64[C], -a2 * h64[C - 1]],
-                       [h64[C - 1], -a2 * h64[C - 2]]]).astype(npdt)
     s0 = torch.stack([y1, y2], dim=-1)                        # [..., 2]
     w[..., 0, :] += torch.einsum("ij,...j->...i", _const(M_np, X), s0)
     s = _vec2_recurrence(M_np, w)
@@ -684,9 +780,10 @@ def _biquad_blocked(x, cf: tuple, state, dtype, C: int = _BLOCK_C):
     s_in = torch.cat([s0[..., None, :], s[..., :-1, :]], dim=-2)
 
     y = (X @ _const(Ltg, X)
-         + s_in[..., :, 0:1] * _const(h[1:], X)
-         - a2 * s_in[..., :, 1:2] * _const(h[:-1], X)
-         + d0[..., :, None] * _const(h[:C], X)
+         + s_in[..., :, 0:1] * _const(lift(_slice, h, 1, None), X)
+         - num(a2, s_in) * s_in[..., :, 1:2]
+         * _const(lift(_slice, h, None, -1), X)
+         + d0[..., :, None] * _const(lift(_slice, h, None, C), X)
          + d1[..., :, None] * _const(hs, X))
     y = y.reshape(*batch, K * C)[..., :T].to(torch.float32)
     return y, (x[..., -1], x[..., -2], y[..., -1], y[..., -2])
@@ -737,12 +834,11 @@ def _biquad_blocked_traced(x, coeffs, state, dtype, C: int = _BLOCK_C):
     X = _pad_last(x.to(dtype), K * C - T).reshape(*batch, K, C)
     hs = torch.cat([zero, h[:C - 1]])                        # h[i-1], [C]
     Ltg = _toeplitz(g, C)
-    pick = torch.zeros((C, 2), dtype=dtype, device=x.device)
-    pick[C - 1, 0] = 1.0
-    pick[C - 2, 1] = 1.0
+    pick = np.zeros((C, 2), _np_dtype(dtype))
+    pick[C - 1, 0] = pick[C - 2, 1] = 1.0
     S = torch.cat([torch.stack([g[:C].flip(0),
                                 torch.cat([g[:C - 1].flip(0), zero])], -1),
-                   pick], dim=-1)                            # [C, 4]
+                   _const(pick, X)], dim=-1)                 # [C, 4]
     side = X @ S                                             # [..., K, 4]
 
     xlast1 = torch.cat([x1[..., None], side[..., :-1, 2]], dim=-1)
@@ -785,12 +881,22 @@ def _power_tensor(M_bytes: bytes, n: int, C2: int, dtype):
     return Mpow, Lt
 
 
+def _contiguous(M, npdt):
+    return np.ascontiguousarray(M, npdt)
+
+
+def _matrix_powers(M, C2: int):
+    """``_power_tensor`` of a contiguous NumPy M."""
+    return _power_tensor(M.tobytes(), M.shape[0], C2, M.dtype.type)
+
+
 def _vecn_recurrence(M_np: np.ndarray, w, C2: int = 128):
-    """s_k = M s_{k-1} + w_k with a constant [n, n] NumPy M, s_{-1} = 0,
-    w [..., K, n].  Within a chunk of C2 steps the zero-state response is
-    one product against the masked power tensor Lt[j, i] = M^(i-j); chunk
-    carries recurse.  Eight steps or fewer run sequentially."""
-    M_np = np.ascontiguousarray(M_np, _np_dtype(w.dtype))
+    """s_k = M s_{k-1} + w_k with a constant [n, n] NumPy M (or Data, a
+    stream's slider), s_{-1} = 0, w [..., K, n].  Within a chunk of C2
+    steps the zero-state response is one product against the masked power
+    tensor Lt[j, i] = M^(i-j); chunk carries recurse.  Eight steps or
+    fewer run sequentially."""
+    M_np = lift(_contiguous, M_np, _np_dtype(w.dtype))
     n = M_np.shape[0]
     K = w.shape[-2]
     batch = w.shape[:-2]
@@ -807,13 +913,15 @@ def _vecn_recurrence(M_np: np.ndarray, w, C2: int = 128):
     pad = KG * C2 - K
     wp = F.pad(w, (0, 0, 0, pad)) if pad else w
     W = wp.reshape(*batch, KG, C2, n)
-    Mpow, Lt = _power_tensor(M_np.tobytes(), n, C2, M_np.dtype.type)
+    powers = lift(_matrix_powers, M_np, C2)
+    Mpow, Lt = item(powers, 0), item(powers, 1)
     zs = torch.einsum("jiab,...kjb->...kia", _const(Lt, w), W)
     ends = zs[..., :, C2 - 1, :]                            # [..., KG, n]
-    e = _vecn_recurrence(Mpow[C2], ends, C2)
+    e = _vecn_recurrence(item(Mpow, C2), ends, C2)
     carry_in = torch.cat([torch.zeros_like(e[..., :1, :]), e[..., :-1, :]],
                          dim=-2)
-    s = zs + torch.einsum("iab,...kb->...kia", _const(Mpow[1:], w), carry_in)
+    s = zs + torch.einsum("iab,...kb->...kia", _const(lift(_from1, Mpow), w),
+                          carry_in)
     return s.reshape(*batch, KG * C2, n)[..., :K, :]
 
 

@@ -14,21 +14,39 @@ the counterpart of the compiled program:
   [n_out, block];
 * a step: ``cg.fn(state, {key: inputs[i]}, params)``, then ``copy_`` of
   the outputs and of the new state into their buffers;
+* the params as the step reads them (a *binding*): each non-static
+  slider a float overrides is a root of utils/sliders (the nodes derive
+  what their float path derives from it on the host, and read it from
+  device buffers), each one a tensor overrides a device buffer of the
+  tensor's shape and dtype (the nodes' tensor path);
 * on the CPU the step runs as plain calls; on the card it is captured
   once in a ``torch.cuda.CUDAGraph`` and replayed (:meth:`run`).  A
-  capture is keyed on a snapshot of the params (slider values are baked
-  into the kernels' packed programs and Toeplitz constants) and on the
-  precision policy; another key captures again before the next replay.
+  capture is keyed on the params' STRUCTURE (:func:`capture_key`: which
+  sliders are overridden, each a float or a tensor of which shape and
+  dtype; the content of a static slider) and on the precision policy, as
+  ``jax.jit`` keys its program on the params' tree and avals.  Another
+  key binds the params anew and captures again before the next replay.
 
 The lockstep counters (a reverb's write position, a chorus's clock, a
 FIR's sample count) live on the device so that no host value changes
 from one replay to the next: the ops take them as 0-d tensors through
 ops/lockstep.py, with the values the Python ints give.
 
-The key of a capture is worked out again only when the params object or
-its cheap stamp (``params_stamp``: values, tensors by identity and
-version counter) moves, so a steady stream with tensor params makes no
-host read a block.
+The params' values are data.  When the params' cheap stamp
+(``params_stamp``: values, tensors by identity and version counter)
+moves, the step works the key out again and, the structure unchanged,
+*moves* its binding: the host derives the floats' constants again and
+copies what changed into the buffers (from pinned staging on the card),
+and copies each tensor into its buffer on the device; the captured graph
+replays on the new values, bitwise the eager step that takes them as
+Python floats.  Where a node's float path branches on a value
+(``sliders.form``: a biquad's degenerate forms), a move across the
+branch binds anew and captures again, as does a value whose derived
+shape moves.  A steady stream (the stamp unmoved) makes no copy and no
+host read a block.  The JAX package's ``process_many`` bakes the params
+into its scanned program and traces it again on a change
+(``_chunk_fn``, dsp_stuff_tpu/runtime/stream.py:223-247); the port's k
+replays take the values as data: the same values, no capture.
 
 Before a capture the step runs once on the capture's stream (the kernels
 build and load, the constant caches fill, ``cudaFuncSetAttribute`` is
@@ -48,16 +66,19 @@ import torch
 
 from dsp_stuff_tpu_torch.compiler import compile as _compile
 from dsp_stuff_tpu_torch.ops import lockstep
+from dsp_stuff_tpu_torch.registry import ParamSpec
 from dsp_stuff_tpu_torch.utils import precision
 from dsp_stuff_tpu_torch.utils.capture import holding
+from dsp_stuff_tpu_torch.utils.sliders import Scope
 
 _F32 = torch.float32
 
 
 def freeze_params(p):
     """Hashable snapshot of a params tree (dicts, scalars, arrays,
-    tensors), the key of a capture on the params' CONTENT (the JAX
-    package's ``_freeze_params``, dsp_stuff_tpu/runtime/stream.py:31)."""
+    tensors) by CONTENT (the JAX package's ``_freeze_params``,
+    dsp_stuff_tpu/runtime/stream.py:31): the part of a capture's key that
+    the step cannot take as data (a static slider)."""
     if p is None:
         return None
     if isinstance(p, dict):
@@ -94,9 +115,10 @@ def params_stamp(p):
     by content, each tensor by identity, data pointer and version counter
     (an in-place edit bumps it; nothing is read from the device), a CPU
     tensor by content.  Equal stamps mean equal content; a stamp that
-    moved makes the caller freeze the params again.  An edit through a
-    device tensor's ``.data`` bumps no version and is not seen: edit the
-    tensor itself, or give the session a new params object."""
+    moved makes the step work its key out again and copy the values in.
+    An edit through a device tensor's ``.data`` bumps no version and is
+    not seen: edit the tensor itself, or give the session a new params
+    object."""
     if isinstance(p, dict):
         return tuple(sorted((str(k), params_stamp(v)) for k, v in p.items()))
     if isinstance(p, (list, tuple)):
@@ -106,10 +128,70 @@ def params_stamp(p):
     return freeze_params(p)
 
 
-def capture_key(params):
+def capture_key(params, data=None):
     """What a captured step depends on besides its buffers: the params'
-    content and the precision policy."""
-    return freeze_params(params), precision.get_policy().name
+    structure and the precision policy.  The structure is each leaf's
+    path and kind: a float, or a tensor with its shape, dtype and device;
+    a leaf the step cannot take as data (``data(node, name)`` false: a
+    static slider, a name no node has) counts by its content.  The values
+    of the others are data, copied in before a replay."""
+    def leaf(nid, name, v):
+        if data is not None and not data(nid, name):
+            return "content", freeze_params(v)
+        if isinstance(v, torch.Tensor):
+            return "tensor", tuple(v.shape), str(v.dtype), str(v.device)
+        return ("float",)
+    if params is None:
+        tree = None
+    else:
+        tree = tuple(sorted(
+            (str(nid), tuple(sorted((str(k), leaf(nid, k, v))
+                                    for k, v in entry.items()))
+             if isinstance(entry, dict) else ("content", freeze_params(entry)))
+            for nid, entry in params.items()))
+    return tree, precision.get_policy().name
+
+
+class _Binding:
+    """The params of one capture as its step reads them: each float of a
+    data slider a root of ``scope``, each tensor a buffer on ``device``,
+    every other leaf as given.  ``key`` is the capture's key: the
+    structure's and a count of the bindings made."""
+
+    def __init__(self, params, data, device, key):
+        self.key = key
+        self.scope = Scope()
+        self.tensors: list = []         # (path, buffer)
+        self.params = None if params is None else {}
+        for nid, entry in (params or {}).items():
+            if not isinstance(entry, dict):
+                self.params[nid] = entry
+                continue
+            out = self.params[nid] = {}
+            for name, v in entry.items():
+                path = (nid, name)
+                if not data(nid, name):
+                    out[name] = v
+                elif isinstance(v, torch.Tensor):
+                    if v.device != device:
+                        raise ValueError(
+                            f"params[{nid!r}][{name!r}] is on {v.device}; "
+                            f"the session is on {device}")
+                    out[name] = v.detach().clone()
+                    self.tensors.append((path, out[name]))
+                else:
+                    out[name] = self.scope.root(path, float(v))
+
+    def move(self, params) -> bool:
+        """Copy ``params``' values (the same structure) into the buffers;
+        False when a form of the floats moved (see utils/sliders)."""
+        floats = {path: float(params[path[0]][path[1]])
+                  for path in self.scope.roots}
+        if not self.scope.move(floats):
+            return False
+        for (nid, name), b in self.tensors:
+            b.copy_(params[nid][name].detach())
+        return True
 
 
 def refuse_node_hook() -> None:
@@ -189,6 +271,8 @@ class BlockStep:
     length carrier ``"__len__"`` of a graph without inputs); ``outputs``
     rows follow ``cg.output_ids``.  ``captures`` and ``replays`` count the
     CUDA graphs captured and replayed (both stay 0 on the CPU);
+    ``bindings`` counts the params' bindings (one a params structure, on
+    either device);
     ``capture_s`` is the wall time of the last capture, its warm-up
     included.  The captured graph is kept beside its instance, so that
     it can be written out (:meth:`dump_graph`)."""
@@ -210,7 +294,9 @@ class BlockStep:
         self.replays = 0
         self.capture_s = 0.0
         self._graph = None          # (CUDAGraph, key, what it reads)
-        self._stamp = self._key = None
+        self._stamp = self._binding = None
+        self.bindings = 0
+        self._specs = {str(nid): node.spec for nid, node in cg._nodes.items()}
 
     # -- state ---------------------------------------------------------------
 
@@ -246,14 +332,16 @@ class BlockStep:
 
     def run(self, params, n: int = 1, before=None, after=None) -> None:
         """``n`` steps under ``params``: on the card, replays of the graph
-        captured under ``capture_key(params)`` (captured first when there
-        is none); on the CPU, plain calls.  ``before(j)`` and ``after(j)``
+        captured under ``self.key(params)`` (captured first when there is
+        none), the values copied in first when they moved; on the CPU,
+        plain calls over the same binding.  ``before(j)`` and ``after(j)``
         run around step j (the stream's copies in and out)."""
         if self.on_card:
             refuse_node_hook()
-            key = self.key(params)
-            if self._graph is None or self._graph[1] != key:
-                self._capture(params, key)
+        key = self.key(params)
+        params = self._binding.params
+        if self.on_card and (self._graph is None or self._graph[1] != key):
+            self._capture(params, key)
         for j in range(n):
             if before is not None:
                 before(j)
@@ -270,13 +358,41 @@ class BlockStep:
             if after is not None:
                 after(j)
 
+    def data(self, nid, name) -> bool:
+        """Whether ``params[nid][name]`` is data of the step: a non-static
+        slider of a node of the graph.  An override of a slider its node
+        reads on the host (``host_sliders``: pitch's thresholds) raises,
+        as the JAX package's ``process()`` does."""
+        spec = self._specs.get(str(nid))
+        p = None if spec is None else next(
+            (p for p in spec.params if p.name == name), None)
+        if not isinstance(p, ParamSpec) or p.static:
+            return False
+        if name in getattr(spec.impl, "host_sliders", ()):
+            raise ValueError(
+                f"params[{str(nid)!r}][{name!r}]: the {spec.cfg_name} node "
+                f"reads this slider on the host, so a stream step cannot "
+                f"take it as data (the JAX package's process() raises on "
+                f"it too); set it in the graph")
+        return True
+
     def key(self, params):
-        """``capture_key(params)``, worked out again only when the stamp
-        of the params and the policy moved since the last call."""
+        """The key of the capture that runs ``params``: the structure's
+        (``capture_key``) and the binding's count.  Worked out again only
+        when the stamp of the params or the policy moved since the last
+        call; then, with the structure unchanged, the values are copied
+        into the binding's buffers and the key stays, unless a form moved
+        (utils/sliders), which binds anew."""
         stamp = params_stamp(params), precision.get_policy().name
         if self._stamp is None or self._stamp != stamp:
-            self._stamp, self._key = stamp, capture_key(params)
-        return self._key
+            skey = capture_key(params, self.data)
+            b = self._binding
+            if b is None or b.key[0] != skey or not b.move(params):
+                self.bindings += 1
+                self._binding = _Binding(params, self.data, self.cg.device,
+                                         (skey, self.bindings))
+            self._stamp = stamp
+        return self._binding.key
 
     def dump_graph(self, path: str) -> None:
         """Write the captured graph to ``path`` as Graphviz DOT with every
@@ -309,7 +425,8 @@ class BlockStep:
             raise RuntimeError(
                 f"StreamSession: capturing the block step ({len(self.keys)} "
                 f"input rows x {self.block} samples, policy "
-                f"{key[1]!r}) in a CUDA graph failed: {e}") from e
-        self._graph = (graph, key, (held, params))
+                f"{precision.get_policy().name!r}) in a CUDA graph failed: "
+                f"{e}") from e
+        self._graph = (graph, key, (held, self._binding))
         self.captures += 1
         self.capture_s = time.perf_counter() - t0

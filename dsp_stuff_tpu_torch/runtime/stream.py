@@ -14,9 +14,20 @@ block, the counterpart of the JAX package's ``jax.jit`` of the step: a
 ``process()`` block is a copy in, one graph launch, a copy out and one
 wait, and ``process_many(k)`` is k replays with one copy of the outputs
 to the host at the end, bitwise k ``process()`` calls (the same kernels
-in the same order).  A change of ``params`` or of the precision policy
-captures again before the next block.  On the CPU the same step runs as
-plain calls.  Setting ``state`` copies into the buffers.
+in the same order).  ``params`` are data, as they are arguments of the
+JAX package's jitted step: a moved slider (a new dict of the same
+structure, or a value edited in place) is a copy into the device buffers
+the captured graph reads before the next block, bitwise the eager step
+that takes the values as Python floats.  What the capture is keyed on is
+the params' structure (which sliders are overridden, each a float or a
+tensor of which shape and dtype; a static slider's value) and the
+precision policy: a change of either captures again, as does a move
+across a branch a node's float path takes on a value (a biquad's
+degenerate forms, runtime/block_graph.py).  The JAX package's
+``process_many`` traces its scan again when the params change; the
+port's replays take the new values with no capture (the same values).
+On the CPU the same step runs as plain calls over the same buffers.
+Setting ``state`` copies into the buffers.
 
 Device I/O (the cpal analog) is modeled by host-side ring buffers (the
 host library's SPSC ring when built, ``_PyRing`` otherwise) with the
@@ -111,7 +122,12 @@ class StreamSession:
     fire inside a replayed graph).
 
     ``step`` is the block step over its buffers (``step.captures`` and
-    ``step.replays`` count the CUDA graphs captured and replayed)."""
+    ``step.replays`` count the CUDA graphs captured and replayed).
+    ``params`` ({node id: {slider: value}}) may be replaced or edited
+    between calls; its values are copied in before the next block, and
+    only a change of its structure captures again.  An override of a
+    slider a node reads on the host (pitch's thresholds) raises, as in
+    the JAX package."""
 
     def __init__(self, graph: Graph, block_size: int = 128,
                  ring_capacity: int = 8192, params=None, device="cuda"):
@@ -190,8 +206,9 @@ class StreamSession:
         return arr
 
     def process(self, inputs=None) -> np.ndarray:
-        """Process one block.  inputs: {input_node_id: [block]} or
-        [n_inputs, block] or None (silence).  Returns [n_out, block]."""
+        """Process one block under ``self.params`` (moved values copied in
+        first).  inputs: {input_node_id: [block]} or [n_inputs, block] or
+        None (silence).  Returns [n_out, block]."""
         self._in_host.numpy()[:] = self._host_blocks(inputs, 1)[0]
         step = self.step
         step.run(self.params,
@@ -207,7 +224,8 @@ class StreamSession:
         """Process k consecutive blocks in one call: the step of
         ``process`` k times on the device (k replays of its graph on the
         card), the inputs copied in once and the outputs copied to the
-        host once.  Bitwise equal to k ``process()`` calls.
+        host once, all k under ``self.params`` (copied in once when they
+        moved).  Bitwise equal to k ``process()`` calls.
 
         inputs: {input_node_id: [k*block]} / [n_inputs, k*block] / None or
         {} (then ``n_blocks`` is required).  Returns [n_out, k*block].

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from dsp_stuff_tpu_torch.utils.capture import device_cache
+from dsp_stuff_tpu_torch.utils.sliders import Data
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -120,9 +121,13 @@ def scalar_on(value: float, device, dtype=torch.float32) -> torch.Tensor:
 
 def on_device(v, device, dtype=torch.float32) -> torch.Tensor:
     """``v`` as a ``dtype`` tensor on ``device``: a Python or NumPy scalar
-    the cached 0-d tensor of ``scalar_on``, anything else converted."""
+    the cached 0-d tensor of ``scalar_on``, a slider of a stream step
+    (utils/sliders.Data) its buffer holding the same value, anything else
+    converted."""
     if isinstance(v, (int, float, np.number)):
         return scalar_on(float(v), device, dtype)
+    if isinstance(v, Data):
+        return v.on(device, dtype)
     return torch.as_tensor(v, dtype=dtype, device=device)
 
 

@@ -164,7 +164,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     before = tek.LAUNCHES
     x = torch.zeros((2, 256))
     with pytest.raises(ValueError, match="CUDA"):
-        tek.peak_envelope_cuda(x, 0.9, 0.99, torch.zeros(2), chunk=256)
+        tek.peak_envelope_cuda(x, torch.tensor([0.9, 0.99]), torch.zeros(2),
+                               chunk=256)
     assert tek.LAUNCHES == before
 
 

@@ -362,19 +362,30 @@ def test_policy_change_mid_stream():
 
 
 def test_capture_key_follows_content():
-    """The key of a capture: equal for equal params content, whatever the
-    object; another for an edited value or another policy."""
+    """The key of a capture follows the params' structure, whatever the
+    object and the values: equal for equal content and for edited values;
+    another for a slider added, a float become a tensor, another shape,
+    content where the step cannot take data, or another policy."""
     p = {"3": {"level": 2.0, "ratio": np.float32(0.5)}}
     with dt.policy("fast"):
         k = block_graph.capture_key(p)
         assert block_graph.capture_key({"3": {"ratio": np.float32(0.5),
                                               "level": 2.0}}) == k
         assert block_graph.capture_key(
-            {"3": {"level": torch.tensor(2.0)}}) != block_graph.capture_key(
+            {"3": {"level": torch.tensor(2.0)}}) == block_graph.capture_key(
             {"3": {"level": torch.tensor(2.5)}})
+        assert block_graph.capture_key(
+            {"3": {"level": torch.tensor(2.0)}}) != block_graph.capture_key(
+            {"3": {"level": torch.tensor([2.0])}})
         p["3"]["level"] = 2.5
+        assert block_graph.capture_key(p) == k
+        p["3"]["level"] = torch.tensor(2.5)
         assert block_graph.capture_key(p) != k
+        assert block_graph.capture_key({"3": {"level": 2.0}}) != k
         assert block_graph.capture_key(None) != k
+        static = block_graph.capture_key(p, lambda nid, name: False)
+        p["3"]["ratio"] = 0.25
+        assert block_graph.capture_key(p, lambda nid, name: False) != static
     with dt.policy("parity"):
         assert block_graph.capture_key(None) != (None, "fast")
 
@@ -412,7 +423,7 @@ def test_capture_key_follows_the_stamp(turn, monkeypatch):
     the policy moved: never for a steady stream."""
     calls = []
 
-    def counted(params):
+    def counted(params, data=None):
         calls.append(1)
         return object(), tprec.get_policy().name
     monkeypatch.setattr(block_graph, "capture_key", counted)
@@ -433,17 +444,21 @@ def test_capture_key_follows_the_stamp(turn, monkeypatch):
 
 def test_capture_key_reads_cpu_tensors_by_content():
     """A CPU tensor is stamped by its content: an in-place edit, a
-    ``.data`` edit included, moves the key."""
+    ``.data`` edit included, moves the stamp, and the step copies the new
+    value into the buffer its nodes read; the key stays."""
     sess = StreamSession(_muff(), device="cpu")
+    muff = next(str(i) for i, nd in sess.cg.graph.nodes.items()
+                if nd.cfg_name == "muff")
     t = torch.tensor(0.5)
-    p = {"3": {"level": t}}
+    p = {muff: {"level": t}}
     with dt.policy("fast"):
         k0 = sess.step.key(p)
+        buf = sess.step._binding.params[muff]["level"]
+        assert buf is not t and float(buf) == 0.5
         t.data.add_(1.0)
-        k1 = sess.step.key(p)
-        assert k1 != k0
+        assert sess.step.key(p) == k0 and float(buf) == 1.5
         t.sub_(1.0)
-        assert sess.step.key(p) == k0
+        assert sess.step.key(p) == k0 and float(buf) == 0.5
 
 
 @pytest.mark.parametrize("call", ["process", "process_many"])

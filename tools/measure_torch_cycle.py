@@ -118,6 +118,7 @@ def times(cs, dev, rng, card) -> None:
         del ins
     atk = envelope.gain_from_frames(50.0)
     rel = envelope.gain_from_frames(400.0)
+    gains = cs.env_gains(atk, rel, dev)
     for b, t, chunk, what in ((128, T, envelope._CHUNK, "chunked"),
                               (512, T, envelope._CHUNK, "chunked"),
                               (4, SR, SR, "sequential")):
@@ -125,7 +126,7 @@ def times(cs, dev, rng, card) -> None:
                             .astype(np.float32), device=dev)
         e0 = torch.as_tensor(rng.random(b).astype(np.float32), device=dev)
         ms = cs.cuda_ms(lambda: envelope_kernel.peak_envelope_cuda(
-            x, atk, rel, e0, chunk=chunk))
+            x, gains, e0, chunk=chunk))
         bms, bby = cs.bound(8.0 * b * t, 3.0 * b * t)
         steps = min(t, 2 * chunk)       # a window: the chunk before, its own
         print(f"envelope kernel, {what}, B={b} x {t}: {ms:.3f} ms, bound "

@@ -10,8 +10,10 @@ this script against each in turns (A, B, B, A).  It uses only entry points
 both sides share (chain_kernel.chain_kernel_call, cycle_kernel.
 cycle_kernel_call, envelope_kernel.peak_envelope_cuda,
 first_order_kernel.first_order_cuda, compile_graph(..., device="cuda")
-.render, train.fit.make_train_step) and times with CUDA events, median of
-5 after a warm-up, at 10 s of 48 kHz audio, inputs from fixed seeds:
+.render, train.fit.make_train_step; the envelope kernel's gains are two
+host floats in an older root, one [2] device tensor since they became
+device data) and times with CUDA events, median of 5 after a warm-up, at
+10 s of 48 kHz audio, inputs from fixed seeds:
 
 * the chain kernel on the bench list at B = 128 and 512;
 * the chain kernel on config5's [hp, mtap] list at B = 128;
@@ -35,6 +37,7 @@ with the root and the card's name and power limit.  Needs a CUDA device;
 imports nothing of JAX.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -135,6 +138,11 @@ def main() -> int:
                 del ins
             atk = envelope.gain_from_frames(50.0)
             rel = envelope.gain_from_frames(400.0)
+            # the kernel's gains: one [2] device tensor since the gains
+            # became device data, two host floats before
+            gains = ((cs.env_gains(atk, rel, dev),) if "gains" in
+                     inspect.signature(envelope_kernel.peak_envelope_cuda)
+                     .parameters else (atk, rel))
             for b, t, chunk, what in ((128, T, envelope._CHUNK, "chunked"),
                                       (512, T, envelope._CHUNK, "chunked"),
                                       (4, SR, SR, "sequential")):
@@ -142,7 +150,7 @@ def main() -> int:
                 e0 = torch.as_tensor(rng.random(b).astype(np.float32),
                                      device=dev)
                 ms = cs.cuda_ms(lambda: envelope_kernel.peak_envelope_cuda(
-                    x, atk, rel, e0, chunk=chunk))
+                    x, *gains, e0, chunk=chunk))
                 print(f"envelope kernel, {what}, B={b} x {t}: {ms:.3f} ms "
                       f"{tag}")
             for b, per_sample, reverse, what in (
