@@ -104,9 +104,11 @@ device="cuda")``:
 * gradients on the card: the bench chain's loss gradient with respect
   to its input and to the gain's level alone (the rest fused) through
   the chain kernel at 128 streams x 10 s, config5's input gradient
-  through the cycle kernel at 128 x 3 s (each forward one launch of its
-  kernels and no plain version; forward and backward times, the device
-  time split, peak memory), each also against the CPU port at 2 x 1 s;
+  through the cycle kernel at 128 x 10 s (each forward one launch of its
+  kernels and no plain version; config5's backward one launch of the
+  reverse cycle kernel and no plain version; forward and backward times,
+  the device time split, peak memory), each also against the CPU port
+  at 2 x 1 s;
   every slider of config2 and config5 against the CPU port and one Adam
   step of config2 at 128 x 10 s; the sequential kernel's reverse mode
   against its plain version ([512, 4096], edge shapes, and the exact
@@ -118,6 +120,15 @@ device="cuda")``:
   render_sharded over one and two shards of the card bitwise the
   unsharded render at 512 x 10 s, and one make_sharded_train_step step
   against the unsharded step;
+* the reverse cycle kernel (csrc/cycle_reverse_kernel.cu, built per
+  block program) against interpret_adjoint on identical cotangents and
+  recorded shaper inputs: config5's, mega_cycle_10's, a Fuzz and a
+  HardClip loop at [1, 128], [1, 256] and 64 x 4096, config5's ring
+  wrapped three times, a ring in device memory, the 56-instruction
+  program, every fuzz graph's cycle program, and config5's at the main
+  path's 128 x 10 s, where it is timed against its plain version, its
+  bound and its dependent-chain floor; the forward's record build
+  bitwise its render build;
 
 and times every kernel against its plain version (the chain kernel on
 the bench list at 1, 128, 512 and 1024 streams and on config5's list at
@@ -334,6 +345,50 @@ def big_ring_cycle_program():
             ("cascade", (("lp", 0.4),), 0),
             ("comb", 0.3, 64_000, 1),
             ("setreg", 0), ("tap", 0)), 1
+
+
+def shaper_cycle_program(kind, params=None):
+    """(program, n_taps): a loop through one shaper of ops/chain_kernel.
+    EW_CODES: feed and register into a cascade, the shaper, a comb longer
+    than a block, the register and a tap."""
+    params = params or {"overdrive": (2.0, 0.5, 0.8),
+                        "chebyshev": (2.0, 3.0),
+                        "distort:Chebyshev4": (0.3,)}.get(kind, (1.5,))
+    return (("join", (("ext", 0), ("reg", 0)), 0.5),
+            ("cascade", (("lp", 0.3), ("gain", 1.2)), 0),
+            ("ew", kind, params), ("comb", 0.4, 200, 0),
+            ("setreg", 0), ("tap", 0)), 1
+
+
+def cycle_reverse_cases():
+    """(name, program, n_taps, B, T) of the reverse cycle kernel's checks
+    against interpret_adjoint: config5's, mega_cycle_10's (a SoftClip, two
+    cascades), a Fuzz and a HardClip loop at [1, 128], [1, 256] and
+    [B_CHECK, T_CHECK]; config5's ring wrapped three times with a ragged
+    end; a ring too large for shared memory; the 56-instruction program;
+    every cycle program of the fuzz graphs."""
+    import test_torch_fuzz_gen as gen
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.ops import cycle_segment
+    named = {"config5": cycle_program(presets.config5_feedback_16node()[0]),
+             "mega_cycle_10": cycle_program(
+                 gen._random_mega_cycle_graph(10)[0]),
+             "Fuzz": shaper_cycle_program("distort:Fuzz"),
+             "HardClip": shaper_cycle_program("distort:HardClip")}
+    out = [(f"{name} [{b}, {t}]", *prog, b, t) for name, prog in named.items()
+           for b, t in ((1, 128), (1, 256), (B_CHECK, T_CHECK))]
+    out += [("config5 ring wraps", *named["config5"], B_CHECK,
+             3 * 7424 + 5 * 128),
+            ("ring in device memory", *big_ring_cycle_program(), 8,
+             3 * 64_128 + 5 * 128),
+            ("56 instructions", *oversized_cycle_program(), B_CHECK,
+             T_CHECK)]
+    for name, g, _ in fuzz_graphs():
+        for i, prog in enumerate(cycle_programs_of(g)):
+            out.append((f"fuzz {name} #{i}", prog,
+                        cycle_segment._program_counts(prog)[3], B_FUZZ,
+                        T_CHECK))
+    return out
 
 
 def cycle_cases(n_sm):
@@ -629,9 +684,11 @@ def fir_reference(x, taps_rev):
 
 def _kernel_modules():
     from dsp_stuff_tpu_torch.ops import (chain_kernel, cycle_kernel,
+                                         cycle_reverse_kernel,
                                          envelope_kernel, first_order_kernel,
                                          sequential_kernel)
     return {"chain": chain_kernel, "cycle": cycle_kernel,
+            "cycle_reverse": cycle_reverse_kernel,
             "envelope": envelope_kernel, "first_order": first_order_kernel,
             "sequential": sequential_kernel}
 
@@ -673,18 +730,24 @@ def calls_counted(targets, counts: dict):
             setattr(m, n, fn)
 
 
-def plain_versions_counted(counts: dict, first_order: bool = False):
+def plain_versions_counted(counts: dict, first_order: bool = False,
+                           backward: bool = False):
     """Count calls of the kernels' plain versions while the block runs
     (the main path on the card must call none of them): always the
-    sequential kernel's (the exact policy's loops, forward and reverse);
-    ``first_order`` adds
+    sequential kernel's (the exact policy's loops, forward and reverse)
+    and the cycle kernels' (interpret, its record form included, and
+    interpret_adjoint); ``first_order`` adds
     the first-order kernel's (a render calls _first_order_blocked for a
     concrete degenerate biquad, which takes no kernel in either
-    package)."""
+    package).  ``backward`` counts around a backward pass: it leaves out
+    segment_fallback, whose vjp is the chain segment's backward by design
+    (ChainSegment, as the JAX package's custom_vjp)."""
     from dsp_stuff_tpu_torch.ops import (chain_segment, cycle_segment,
                                          envelope, scan)
-    targets = [(chain_segment, "segment_fallback"),
-               (cycle_segment, "interpret"), (envelope, "_chunked_batched"),
+    targets = [] if backward else [(chain_segment, "segment_fallback")]
+    targets += [(cycle_segment, "interpret"),
+               (cycle_segment, "interpret_adjoint"),
+               (envelope, "_chunked_batched"),
                (envelope, "_seq_scan"), (scan, "_first_order_sequential"),
                (scan, "_biquad_sequential"),
                (scan, "_first_order_adjoint_sequential"),
@@ -794,6 +857,52 @@ def cycle_bound(program, B, T):
     terms, two a comb sample, one a shaper or scale sample."""
     from dsp_stuff_tpu_torch.ops import cycle_segment
     _, _, _, n_t, n_e = cycle_segment._program_counts(program)
+    return bound(4.0 * B * T * (n_e + n_t), cycle_flops(program, B, T))
+
+
+def cycle_reverse_bound(program, B, T):
+    """The reverse cycle kernel's bound: bytes of the taps' cotangents and
+    the shapers' recorded inputs read and the feeds' gradients written;
+    the forward's operations (the adjoint of each instruction does as
+    many: the transposed products, the terms' accumulations, the comb's
+    multiply and add, a shaper's derivative counted as one)."""
+    from dsp_stuff_tpu_torch.ops import cycle_segment
+    _, _, _, n_t, n_e = cycle_segment._program_counts(program)
+    n_ew = sum(1 for ins in program if ins[0] == "ew")
+    return bound(4.0 * B * T * (n_t + n_ew + n_e),
+                 cycle_flops(program, B, T))
+
+
+def reverse_block_path_ops(program) -> int:
+    """FP32 operations on a block's dependent path through the reverse
+    kernel, its instructions taken in series, in the terms of the
+    forward's (tools/measure_torch_cycle.block_path_ops): a setreg's or a
+    tap's add, a scale's multiply, a join's scale and its accumulation
+    into a register, lin2's two multiplies and accumulation, a comb's add,
+    a cascade's longest column (32 FMAs into each of four sums, two adds,
+    the carry term's add), one a shaper."""
+    ops = 0
+    for ins in program:
+        if ins[0] in ("setreg", "tap", "scale", "comb", "ew"):
+            ops += 1
+        elif ins[0] == "join":
+            ops += 1 + (ins[2] != 1.0)
+        elif ins[0] == "lin2":
+            ops += 3
+        elif ins[0] == "cascade":
+            ops += 128 // 4 + 2 + 1
+    return ops
+
+
+def cycle_reverse_floor_ms(program, T) -> float:
+    """The reverse kernel's dependent-chain floor over T / 128 blocks: 4
+    cycles an operation of reverse_block_path_ops at SM_CLOCK_GHZ."""
+    return T // 128 * reverse_block_path_ops(program) * 4 / (
+        SM_CLOCK_GHZ * 1e6)
+
+
+def cycle_flops(program, B, T) -> float:
+    """FP32 operations of a block program over [B, T] (cycle_bound)."""
     flops = 0.0
     for ins in program:
         if ins[0] == "cascade":
@@ -806,7 +915,7 @@ def cycle_bound(program, B, T):
             flops += 2.0 * B * T
         elif ins[0] in ("ew", "scale"):
             flops += B * T
-    return bound(4.0 * B * T * (n_e + n_t), flops)
+    return flops
 
 
 def matmul_ms(sections, B, T, dev):
@@ -1199,10 +1308,12 @@ def oracle_config4(taps):
     return oracle_config4
 
 
-def device_split(fn, groups):
+def device_split(fn, groups, kernels=None):
     """(device ms by group, device ms in all) of one call of fn() from
     torch.profiler: each aten op's own device time goes to the first group
-    of ``groups`` ({name: op names}) that names it, else to "other"."""
+    of ``groups`` ({name: op names}) that names it, else to "other".  A
+    dict ``kernels`` receives the device ms of the port's kernels by
+    launch counter key (kernel_of)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1217,6 +1328,11 @@ def device_split(fn, groups):
                 if e.device_type == DeviceType.CUDA) / 1e3
     out = {name: 0.0 for name in groups}
     out["other"] = 0.0
+    for e in avgs:
+        key = kernel_of(e.key)
+        if kernels is not None and key and e.device_type == DeviceType.CUDA:
+            kernels[key] = kernels.get(key, 0.0) + \
+                e.self_device_time_total / 1e3
     for e in avgs:
         if e.device_type != DeviceType.CPU or not e.self_device_time_total:
             continue
@@ -1788,6 +1904,7 @@ def stream_kernel_checks(dev) -> None:
 #: launch counters' keys
 KERNEL_NAMES = (("sequential_reverse_kernel", "sequential"),
                 ("sequential_kernel", "sequential"),
+                ("cycle_reverse_kernel", "cycle_reverse"),
                 ("chain_kernel", "chain"), ("cycle_kernel", "cycle"),
                 ("envelope_kernel", "envelope"), ("fo_chained", "first_order"))
 
@@ -3056,11 +3173,11 @@ def loss_and_grads(cg, x, target, params=None, wrt_input=True,
                    first_order=True):
     """make_loss_fn's loss of the graph over x [B, T] (its one input) with
     override sliders ``params`` (leaf tensors that require grad) and its
-    gradients, the input's first; the forward's launches and plain calls
-    (``first_order``: the first-order kernel's plain versions counted too,
-    as plain_versions_counted says) and the backward's launches apart, the
-    forward + backward wall time and the peak device memory (GiB; 0 on the
-    CPU)."""
+    gradients, the input's first; the forward's and the backward's
+    launches and plain calls apart (``first_order``: the first-order
+    kernel's plain versions counted too, as plain_versions_counted says;
+    the backward's leave out the chain segment's vjp), the forward +
+    backward wall time and the peak device memory (GiB; 0 on the CPU)."""
     import torch
     from dsp_stuff_tpu_torch.train import fit
     dev = cg.device
@@ -3078,16 +3195,19 @@ def loss_and_grads(cg, x, target, params=None, wrt_input=True,
                                     {str(cg.input_ids[0]): xt}, target)
     fwd = read_launches()
     reset_launches()
-    loss.backward()
-    if cuda:
-        torch.cuda.synchronize()
+    plain_bwd = {}
+    with plain_versions_counted(plain_bwd, first_order=first_order,
+                                backward=True):
+        loss.backward()
+        if cuda:
+            torch.cuda.synchronize()
     wall = time.time() - t0
     bwd = read_launches()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
     grads = ([xt.grad] if wrt_input else []) + [
         v.grad for _, e in sorted(params.items()) for _, v in sorted(e.items())]
     return dict(loss=loss.detach(), grads=grads, fwd=fwd, bwd=bwd,
-                plain=plain, wall=wall, peak=peak)
+                plain=plain, plain_bwd=plain_bwd, wall=wall, peak=peak)
 
 
 def slider_params(cg, cfg, name):
@@ -3120,16 +3240,24 @@ def grad_pair(name, graph, x_np, tgt_np, dev, subset=None, wrt_input=True):
 
 
 def fused_grad_main(name, cg, x, target, expect, subset=None,
-                    wrt_input=True, card="", first_order=True):
+                    wrt_input=True, card="", first_order=True,
+                    expect_bwd=None):
     """A loss gradient through the fused kernels on the card at full
     width: the forward launches ``expect`` and calls no plain version;
-    prints the forward + backward time, the peak memory and what the
-    backward launches."""
+    with ``expect_bwd`` (launches by kernel) the backward launches those
+    and calls no plain version either; prints the forward + backward
+    time, the peak memory and what the backward launches and calls."""
     r = loss_and_grads(cg, x, target,
                        slider_params(cg, *subset) if subset else None,
                        wrt_input, first_order)
     check(not r["plain"], f"{name}: the forward called plain versions "
                           f"{r['plain']}")
+    if expect_bwd is not None:
+        check(not r["plain_bwd"], f"{name}: the backward called plain "
+                                  f"versions {r['plain_bwd']}")
+        check(all(r["bwd"][k] == v for k, v in expect_bwd.items()),
+              f"{name}: the backward launched {r['bwd']}, expected "
+              f"{expect_bwd}")
     check(r["fwd"] == expect, f"{name}: the forward launched {r['fwd']}, "
                               f"expected {expect}")
     check(all(bool(g.isfinite().all()) for g in r["grads"]),
@@ -3137,7 +3265,8 @@ def fused_grad_main(name, cg, x, target, expect, subset=None,
     print(f"main path ({name}), [{x.shape[0]}, {x.shape[-1]}]: forward + "
           f"backward {r['wall'] * 1e3:.1f} ms (first call), peak "
           f"{r['peak']:.2f} GiB, forward launches {r['fwd']} and no plain "
-          f"version, backward launches {r['bwd']} [{card}]")
+          f"version, backward launches {r['bwd']}, plain versions in the "
+          f"backward {r['plain_bwd'] or 'none'} [{card}]")
     return r
 
 
@@ -3161,8 +3290,8 @@ def grad_split(name, cg, x, target, card) -> dict:
     """The input gradient's forward and backward apart (wall, medians of
     three after a first call) and one forward + backward's device time by
     torch.profiler, split by op group ("other": the ops outside the
-    groups and the chain kernel, whose ctypes launch the profiler counts
-    there)."""
+    groups and the port's kernels, whose ctypes launches the profiler
+    counts there; their own device times are printed too)."""
     import torch
     from dsp_stuff_tpu_torch.train import fit
     key = str(cg.input_ids[0])
@@ -3184,14 +3313,17 @@ def grad_split(name, cg, x, target, card) -> dict:
         t1, t2 = run()
         fwd.append((t1 - t0) * 1e3)
         bwd.append((t2 - t1) * 1e3)
-    split, total = device_split(run, GRAD_OPS)
+    kernels = {}
+    split, total = device_split(run, GRAD_OPS, kernels)
     rec = dict(fwd_ms=float(np.median(fwd)), bwd_ms=float(np.median(bwd)),
-               device_ms=total, split=split)
+               device_ms=total, split=split, kernels=kernels)
     print(f"{name}: forward {rec['fwd_ms']:.3f} ms, backward "
           f"{rec['bwd_ms']:.3f} ms (wall, medians of 3); one forward + "
           f"backward on the card {total:.3f} ms: " + ", ".join(
               f"{k} {v:.3f} ms ({v / max(total, 1e-9):.1%})"
-              for k, v in split.items()) + f" [{card}]")
+              for k, v in split.items()) + "; the port's kernels in it: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(kernels.items()))
+          + f" [{card}]")
     return rec
 
 
@@ -3418,8 +3550,10 @@ def sharded_step_check(name, cg, m, x_np, tgt_np) -> None:
 def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
     """Gradients on the card: through the fused chain and cycle kernels
     (the bench chain's input and gain level at b_grad x t_main, config5's
-    input at b_grad x 3 s), every slider of config2 and config5, one Adam
-    step of config2, the sequential kernel's reverse mode against its
+    input at b_grad x t_main, its backward one launch of the reverse
+    cycle kernel and no plain version, with its device-time split), every
+    slider of config2 and config5, one Adam step of config2, the
+    sequential kernel's reverse mode against its
     plain version and a float64 adjoint (timed at [B_MAIN, t_main], and
     against its plain version at the exact gradient's [B_EXACT, SR]), the
     bench chain's 16 slider gradients under exact, a low_pass and a
@@ -3468,18 +3602,27 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
         del x, tgt, cg
         torch.cuda.empty_cache()
 
-        # -- config5 through the cycle kernel --------------------------------
+        # -- config5 through the cycle kernel and its reverse ---------------
         grad_pair("config5, input", g5, x2, t2, dev)
         cg5 = dst.compile_graph(g5, device=dev)
-        x = torch.as_tensor(sig(b_grad, 3 * SR), device=dev)
-        tgt = torch.as_tensor(sig(b_grad, 1, 3 * SR, scale=0.1), device=dev)
+        x = torch.as_tensor(sig(b_grad, t_main), device=dev)
+        tgt = torch.as_tensor(sig(b_grad, 1, t_main, scale=0.1), device=dev)
         # config5's degenerate biquad takes _first_order_blocked in either
         # package (plain_versions_counted)
         rec["c5_input"] = fused_grad_main(
             "config5, input gradient", cg5, x, tgt,
             only_launches(chain=1, cycle=1, envelope=1), card=card,
-            first_order=False)
-        del x, tgt, cg5
+            first_order=False, expect_bwd={"cycle_reverse": 1, "cycle": 0})
+        rec["c5_split"] = grad_split(
+            f"config5 input gradient, [{b_grad}, {t_main}]", cg5, x, tgt,
+            card)
+        again = loss_and_grads(cg5, x, tgt, None, True, False)
+        rec["c5_input"]["wall_again"] = again["wall"]
+        print(f"  config5 input gradient, [{b_grad}, {t_main}], a second "
+              f"call: forward + backward {again['wall'] * 1e3:.1f} ms, peak "
+              f"{again['peak']:.2f} GiB, backward launches {again['bwd']} "
+              f"[{card}]")
+        del x, tgt, cg5, again
         torch.cuda.empty_cache()
 
         # -- every slider of config2 and config5 ----------------------------
@@ -3698,8 +3841,132 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
     return rec
 
 
+# -- the reverse cycle kernel ----------------------------------------------
+
+def _leaves(tree):
+    """The tensors of nested tuples, in order."""
+    if isinstance(tree, (tuple, list)):
+        return [t for sub in tree for t in _leaves(sub)]
+    return [tree]
+
+
+def reverse_inputs(program, n_taps, B, T, rng, dev):
+    """(cotangents, operand shapes, recorded inputs) of the reverse kernel
+    for ``program`` over [B, T]: seeded operands, a seeded cotangent of
+    every output (flatten_outputs' order), and the shapers' inputs
+    recorded once by the forward kernel's record build, whose outputs
+    must be bitwise the render build's."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import cycle_kernel, cycle_segment
+    ins = cycle_inputs(program, B, T, rng, dev)
+    recs = ()
+    if cycle_kernel.has_shaper(program):
+        raw, recs = cycle_kernel.cycle_kernel_call(*ins, program, n_taps,
+                                                   record=True)
+        same = all(torch.equal(a, b) for a, b in zip(
+            _leaves(raw), _leaves(cycle_kernel.cycle_kernel_call(
+                *ins, program, n_taps))))
+        check(same, "the record build's outputs are not the render "
+                    "build's")
+    flat = cycle_segment.flatten_outputs(cycle_kernel_run(*ins, program,
+                                                          n_taps))
+    cts = tuple(torch.as_tensor((rng.standard_normal(tuple(t.shape))
+                                 * 0.5).astype(np.float32), device=dev)
+                for t in flat)
+    return cts, tuple(tuple(t.shape for t in g) for g in ins), recs
+
+
+def compare_reverse(name, k, p):
+    """Reverse kernel gradients ``k`` (feeds, registers, states) against
+    interpret_adjoint's ``p``: each feed's in dBFS (max-normalized), the
+    registers' and states' in max abs; returns (the worst feed dBFS, the
+    largest absolute feed error)."""
+    check(all(len(a) == len(b) for a, b in zip(k, p)),
+          f"{name}: output structure differs")
+    f_db, f_abs, st_err = -np.inf, 0.0, 0.0
+    for a, b in zip(k[0], p[0]):
+        a, b = host(a), host(b)
+        check(a.shape == b.shape, f"{name}: shapes {a.shape} vs {b.shape}")
+        f_abs = max(f_abs, float(np.abs(a - b).max()))
+        if np.abs(b).max() > 0:
+            f_db = max(f_db, dbfs(a, b))
+        else:                          # a feed no term reads
+            check(not np.abs(a).any(), f"{name}: an unread feed's gradient")
+    for a, b in zip((*k[1], *k[2]), (*p[1], *p[2])):
+        a, b = host(a), host(b)
+        check(a.shape == b.shape, f"{name}: shapes {a.shape} vs {b.shape}")
+        st_err = max(st_err, float(np.abs(a - b).max()))
+    print(f"  {name:34s} feeds {f_db:8.1f} dBFS  registers+states max abs "
+          f"{st_err:.2e}")
+    check(f_db <= Y_BOUND_DB, f"{name}: feed gradients {f_db:.1f} dBFS")
+    check(st_err <= STATE_ATOL, f"{name}: register and state gradients "
+                                f"{st_err:.2e} > {STATE_ATOL}")
+    return f_db, f_abs
+
+
+def cycle_reverse_phase(dev, card) -> dict:
+    """The reverse cycle kernel against interpret_adjoint on identical
+    inputs (cycle_reverse_cases, and config5's program at the main path's
+    [B_C5, T_MAIN], where both are timed), the record build bitwise the
+    render build; the kernel's time beside its bound and its
+    dependent-chain floor.  Returns those numbers."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.ops import cycle_segment
+    t_phase = time.time()
+    rng = np.random.default_rng(130)
+    print("reverse cycle kernel vs interpret_adjoint (the shapers' inputs "
+          "from the record build, bitwise the render build's):")
+    with dst.policy("fast"):
+        for name, program, n_taps, b, t in cycle_reverse_cases():
+            cts, shapes, recs = reverse_inputs(program, n_taps, b, t, rng,
+                                               dev)
+            k = cycle_segment._kernel_cycle_adjoint(cts, shapes, program,
+                                                    n_taps, recs)
+            p = cycle_segment.interpret_adjoint(cts, shapes, program,
+                                                n_taps, recs)
+            torch.cuda.synchronize()
+            compare_reverse(name, k, p)
+        del k, p
+        program, n_taps = cycle_program(presets.config5_feedback_16node()[0])
+        cts, shapes, recs = reverse_inputs(program, n_taps, B_C5, T_MAIN,
+                                           rng, dev)
+
+        def run():
+            return cycle_segment._kernel_cycle_adjoint(cts, shapes, program,
+                                                       n_taps, recs)
+
+        k = run()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        p = cycle_segment.interpret_adjoint(cts, shapes, program, n_taps,
+                                            recs)
+        e1.record()
+        torch.cuda.synchronize()
+        _, err = compare_reverse(f"config5 [{B_C5}, {T_MAIN}]", k, p)
+        del k, p
+        torch.cuda.empty_cache()
+        ms = cuda_ms(run)
+    rec = dict(ms=ms, plain_ms=e0.elapsed_time(e1), err=err,
+               bound=cycle_reverse_bound(program, B_C5, T_MAIN),
+               floor=cycle_reverse_floor_ms(program, T_MAIN))
+    bms, bby = rec["bound"]
+    print(f"reverse cycle kernel, config5's program, [{B_C5}, {T_MAIN}]: "
+          f"{ms:.3f} ms (the kernel's path, median of {N_TIMED}), its plain "
+          f"version {rec['plain_ms']:.1f} ms (one call); bound {bms:.3f} ms "
+          f"by {bby} ({bms / ms:.1%} of it), dependent-chain floor "
+          f"{rec['floor']:.3f} ms ({reverse_block_path_ops(program)} "
+          f"operations a block at {SM_CLOCK_GHZ} GHz, {rec['floor'] / ms:.1%}"
+          f" of it) [{card}]")
+    print(f"reverse cycle phase: {time.time() - t_phase:.1f} s")
+    return rec
+
+
 def main() -> int:
     import torch
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
@@ -3709,8 +3976,9 @@ def main() -> int:
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.models import presets
     from dsp_stuff_tpu_torch.ops import (chain_segment, cuda_build,
-                                         cycle_kernel, cycle_segment,
-                                         envelope, envelope_kernel)
+                                         cycle_kernel, cycle_reverse_kernel,
+                                         cycle_segment, envelope,
+                                         envelope_kernel)
     from bench import oracle_chain
 
     dev = torch.device("cuda", 0)
@@ -3724,7 +3992,8 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     # -- 2. build: one nvcc per kernel source, and one per cycle program
-    # (the cycle kernel is built for each block program), all started
+    # (the cycle kernel, its record build for a program with a shaper and
+    # its reverse are built for each block program), all started
     # together --------------------------------------------------------------
     t0 = time.time()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -3733,14 +4002,24 @@ def main() -> int:
         for i, prog in enumerate(cycle_programs_of(g)):
             if prog not in cycle_programs.values():
                 cycle_programs[f"fuzz {name} #{i}"] = prog
+    for name, prog, _, _, _ in cycle_reverse_cases():
+        if prog not in cycle_programs.values():
+            cycle_programs[name] = prog
     budget = cycle_kernel.budget_of(dev)
     jobs = [(n, (), "") for n in cuda_build.STATIC_KERNELS]
-    jobs += [("cycle_kernel", (), cycle_kernel.source_for(prog, budget))
-             for prog in cycle_programs.values()]
+    labels = list(cuda_build.STATIC_KERNELS)
+    for name, prog in cycle_programs.items():
+        jobs.append(("cycle_kernel", (), cycle_kernel.source_for(prog,
+                                                                 budget)))
+        jobs.append(("cycle_reverse_kernel", (),
+                     cycle_reverse_kernel.source_for(prog, budget)))
+        labels += [f"cycle_kernel ({name})", f"cycle_reverse_kernel ({name})"]
+        if cycle_kernel.has_shaper(prog):
+            jobs.append(("cycle_kernel", ("CY_RECORD",),
+                         cycle_kernel.source_for(prog, budget, record=True)))
+            labels.append(f"cycle_kernel record build ({name})")
     built = cuda_build.build_jobs(jobs)
     print(f"nvcc build of {len(built)} kernels: {time.time() - t0:.1f} s")
-    labels = list(cuda_build.STATIC_KERNELS) + [
-        f"cycle_kernel ({name})" for name in cycle_programs]
     for label, (lib, log) in zip(labels, built):
         print(f"  {label} -> {os.path.relpath(lib, ROOT)}")
         for line in log.splitlines():
@@ -4105,6 +4384,8 @@ def main() -> int:
     # -- 18. gradients on the card ------------------------------------------
     torch.cuda.empty_cache()
     gr = grad_phase(dev, card)
+    torch.cuda.empty_cache()
+    rv = cycle_reverse_phase(dev, card)
 
     def stream_us(rec, key, bnd):
         """The kernel's device time in one replayed stream block, with its
@@ -4131,6 +4412,7 @@ def main() -> int:
                      floor_ms=m["floor"], shape=list(shape), **extra)
 
     program5 = programs["config5"][0]
+    print(f"chip_smoke total: {time.time() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": [
         entry("chain_kernel", "chain_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_chain.py:459",
@@ -4150,6 +4432,11 @@ def main() -> int:
               cycle_bound(program5, B_C5, T_MAIN),
               **stream_us(rt["config5"], "cycle",
                           cycle_bound(program5, 1, 128))),
+        entry("cycle_kernel:reverse", "cycle_reverse_kernel.cu",
+              "dsp_stuff_tpu/ops/cycle_segment.py:270",
+              gr["c5_input"]["bwd"]["cycle_reverse"], rv["err"],
+              (rv["ms"], rv["plain_ms"]), rv["bound"], floor_ms=rv["floor"],
+              shape=[B_C5, T_MAIN]),
         entry("envelope_kernel:chunked", "envelope_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_envelope.py:203",
               c5_launches["envelope"], rec["chunk_err"], times["env_chunk"],

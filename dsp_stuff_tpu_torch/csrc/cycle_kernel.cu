@@ -62,6 +62,13 @@
 // Arithmetic is plain FP32 (-fmad=false; the products use explicit fmaf),
 // the function cycle_segment.interpret computes: the joins, scales, combs
 // and shapers in its order, the cascade's sums in another.
+//
+// The record build (-DCY_RECORD, with the generated cy_record lines of
+// ops/cycle_kernel.program_source(record=True)) also writes each shaper's
+// input to rec [n_ew, B, T]: the residuals of the reverse kernel
+// (cycle_reverse_kernel.cu), the only forward values the vjp of the
+// block program reads.  Without the define the preprocessed source is the
+// render build's.
 
 #include <stdint.h>
 
@@ -161,6 +168,9 @@ struct CyCtx {
   float* redm;                 // [4] the shapers' block maxima
   long long row, off;          // the row; this thread's offset in [B, T]
   int K, b, fs, xsel;          // blocks; this block; its feed slot; X row
+#ifdef CY_RECORD
+  float* rec;                  // [n_ew, B, T] the shapers' inputs
+#endif
 };
 
 // max over the CTA's 128 values, NaN-propagating; red holds 4 floats
@@ -377,6 +387,18 @@ __device__ __forceinline__ float cy_cascade(CyCtx& x, int k, float v) {
   return cy_cascade_held<N>(x, k, v, h);
 }
 
+#ifdef CY_RECORD
+// The input of shaper k (program order) at this thread's sample.
+__device__ __forceinline__ void cy_record(const CyCtx& x, int k, float v) {
+  x.rec[(long long)k * gridDim.x * x.K * CK_C + x.off] = v;
+}
+#define CY_REC_PARAM , float* __restrict__ rec
+#define CY_REC_ARG , rec
+#else
+#define CY_REC_PARAM
+#define CY_REC_ARG
+#endif
+
 // The program's block code: CY_NREG (its registers, at least 1),
 // CY_BLOCK_BARRIER (1 when no cascade gives each block a barrier but a
 // comb needs one), CY_HOLD_N and CY_HOLD_SM (a program of one cascade:
@@ -396,7 +418,8 @@ __device__ __forceinline__ float* ring_of(const CyComb& R, char* ps,
 }
 
 __global__ void __launch_bounds__(CK_C, 2)
-cycle_kernel(const char* __restrict__ prog, int prog_bytes, int T) {
+cycle_kernel(const char* __restrict__ prog, int prog_bytes, int T
+             CY_REC_PARAM) {
   __shared__ float redm[4];
   extern __shared__ int4 dyn4[];
   char* ps = reinterpret_cast<char*>(dyn4);
@@ -417,6 +440,9 @@ cycle_kernel(const char* __restrict__ prog, int prog_bytes, int T) {
   x.feeds = reinterpret_cast<float*>(ps + H.sm_feeds);
   x.xs = reinterpret_cast<float*>(ps + H.sm_xs);
   x.redm = redm;
+#ifdef CY_RECORD
+  x.rec = rec;
+#endif
   x.row = blockIdx.x;
   x.K = T / CK_C;
   x.xsel = 0;
@@ -526,9 +552,8 @@ extern "C" int cycle_kernel_phases(unsigned long long* host, int n) {
 // the wrapper's smem_plan); returns the cudaGetLastError() code of the
 // launch, 0 on success, or cudaErrorInvalidValue when that exceeds the
 // card's shared memory per block.
-extern "C" int cycle_kernel_launch(const void* prog, int prog_bytes,
-                                   int smem, int B, int T, int device,
-                                   void* stream) {
+static int launch(const void* prog, int prog_bytes, int smem, int B, int T,
+                  int device, void* stream CY_REC_PARAM) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (prog_bytes % 16 || smem < prog_bytes) return (int)cudaErrorInvalidValue;
@@ -545,6 +570,22 @@ extern "C" int cycle_kernel_launch(const void* prog, int prog_bytes,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   cycle_kernel<<<B, CK_C, smem, (cudaStream_t)stream>>>(
-      (const char*)prog, prog_bytes, T);
+      (const char*)prog, prog_bytes, T CY_REC_ARG);
   return (int)cudaGetLastError();
 }
+
+#ifdef CY_RECORD
+// The record build's launch: `rec` [n_ew, B, T] receives the shapers'
+// inputs.
+extern "C" int cycle_kernel_record_launch(const void* prog, int prog_bytes,
+                                          int smem, int B, int T, float* rec,
+                                          int device, void* stream) {
+  return launch(prog, prog_bytes, smem, B, T, device, stream, rec);
+}
+#else
+extern "C" int cycle_kernel_launch(const void* prog, int prog_bytes,
+                                   int smem, int B, int T, int device,
+                                   void* stream) {
+  return launch(prog, prog_bytes, smem, B, T, device, stream);
+}
+#endif

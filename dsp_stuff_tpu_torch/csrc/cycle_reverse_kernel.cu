@@ -1,0 +1,534 @@
+// cycle_reverse_kernel.cu -- the vjp of a feedback SCC's block program.
+//
+// Replaces, in the PyTorch port, the reverse scan that XLA compiles for
+// dsp_stuff_tpu/ops/cycle_segment.py:_cycle_vjp (:270-288, the vjp of its
+// lax.scan interpret).  Its plain PyTorch version is
+// dsp_stuff_tpu_torch/ops/cycle_segment.py:interpret_adjoint; the wrapper
+// that generates the program's adjoint block code, packs the tables,
+// builds, binds and launches it is ops/cycle_reverse_kernel.py.
+//
+// What bounds it.  As the forward (cycle_kernel.cu): the feedback.  The
+// adjoint of block b needs the register, carry and comb adjoints of
+// block b + 1, so each row walks its K = T/128 blocks from the last to the
+// first, and a block's time is its critical path; the signal I/O (the
+// taps' cotangents and the shapers' recorded inputs in, the feeds'
+// gradients out) is small next to that walk.
+//
+// Design.  The forward's, run backwards.  One CTA of 128 threads per
+// stream row; thread c owns sample column c of every block.  The wrapper
+// writes the program's block adjoint as straight-line code (cy_block_
+// adjoint in the generated header KERNEL_PROGRAM_H): the program's
+// instructions in reverse order, one statement each, every constant a
+// literal.  The adjoint of the flow f is a register of the thread; the
+// SCC's register adjoints g[] are the thread's registers too and carry
+// from block to block (the final registers' cotangents seed them, and
+// after block 0 they are the initial registers' gradients), so a join
+// that read a register before its setreg (the previous block's value)
+// and one that read it after both come out of the same rules:
+//   setreg r: f += g[r], g[r] = 0;   a join's term reg r: g[r] += s;
+//   a join's term ext e: e[e] += s (written once a block);
+//   join / lin2: f = 0 after distributing it;  scale: f *= s;
+//   tap t: f += its cotangent;  ew: f through the shaper's derivative at
+//   its recorded input.
+// Shared memory, at offsets the wrapper computes (the forward's
+// smem_plan):
+// * the streams it reads, the taps' cotangents then the shapers' inputs,
+//   staged CR_FB blocks ahead of the walk with cp.async, each thread its
+//   own column (a missing cotangent is a zero-filled copy);
+// * per cascade its constants, the forward's packed layout
+//   (cycle_kernel.py:cycle_casc_consts) read transposed, and a
+//   double-buffered carry adjoint.  The adjoint of y = X Ltg + c Ecb,
+//   c' = X W + c ACt is gX = gy Ltg^T + gc' W^T, gc = gy Ecb^T + gc' ACt^T:
+//   gy goes through a double-buffered row (one barrier a cascade); thread
+//   c sums the anti-causal triangle i = c..127 of the Toeplitz row, four
+//   samples a step from an aligned 16-byte load of a reversed copy of h
+//   read backwards (32 - c/4 steps), and warp 3, whose triangle is the
+//   shortest, also sums the carry adjoint of the block before (lane j,
+//   quarter r of the columns) into the other buffer;
+// * per comb a ring of the future adjoints vbar over NR + 1 blocks:
+//   vbar[n] = f[n] + d vbar[n + D] (+ the final history's cotangent in
+//   the last D samples), as the forward's ring of outputs; with the spare
+//   block no slot is read and written in the same block.  After the walk
+//   d vbar[0..D) (and past T, the cotangent) is the history's gradient.
+// What does not fit stays in device memory (a ring in a scratch ring).
+// The cascade infos' cotangents touch only the last block: the wrapper
+// pulls them back (cascade_tail_states) and passes seeds on that block's
+// cascade input and carry.  A block needs a barrier between the
+// ring writes of the block after it and its own reads: a cascade's, else
+// one at the block's start (CY_BLOCK_BARRIER).
+//
+// Arithmetic is plain FP32 (-fmad=false; products with explicit fmaf),
+// interpret_adjoint's operations in its order, the cascade's and the
+// Fuzz shaper's sums in another.
+
+#include <stdint.h>
+
+#include "stages.cuh"
+
+#define CR_FB 8                 // blocks staged ahead (a power of two)
+// The forward's constants layout (cycle_kernel.cu; the wrapper checks it
+// through cycle_reverse_shape)
+#define CY_RS 168
+#define CY_WS 132
+#define CY_OFF_R 0
+#define CY_OFF_W (4 * CY_RS)
+#define CY_OFF_E (CY_OFF_W + CK_NS * CY_WS)
+#define CY_OFF_A (CY_OFF_E + CK_NS * CK_C)
+#define CY_NCONST (CY_OFF_A + CK_NS * CK_NS)
+
+// The packed tables, mirrored by ops/cycle_reverse_kernel.py (HEADER,
+// CASC, COMB); cycle_reverse_abi() lets the wrapper check the sizes.
+typedef struct {
+  long long off_gext, off_src, off_greg_in, off_greg_out;  // bytes from
+  long long off_casc, off_comb;                           // the base
+  int n_regs, n_casc, n_comb, n_ext;
+  int n_src, smem_bytes, prog_bytes, sm_src;   // sm_*: byte offsets in
+  int sm_gy, pad0, pad1, pad2;                 // shared memory
+} CrHeader;
+
+typedef struct {
+  const float* consts;  // [CY_NCONST] in device memory
+  const float* seed_x;  // [B, 128] the last block's input seed, or null
+  const float* seed_c;  // [B, 8] the seed of the carry entering it, or null
+  float* g_s0;          // [B, 8] the gradient of the carry entering block 0
+  int sm_consts;        // byte offset of the constants in shared memory,
+                        // or -1: read from device memory
+  int sm_cbuf;          // byte offset of the carry adjoints [2][8]
+  int n, pad_;
+} CrCasc;
+
+typedef struct {
+  const float* ct_hist;  // [B, D] the final history's cotangent, or null
+  float* g_hist;         // [B, D] the initial history's gradient
+  float* scratch;        // [B, rl2] the ring when not in shared memory
+  int sm_ring;           // byte offset of the ring [rl2], or -1
+  int d, rl2;            // the delay; (NR + 1) * 128
+  float decay;
+} CrComb;
+
+struct CrCtx {
+  char* ps;                     // the dynamic shared memory
+  float* const* gext;           // [B, T] each, or null: not wanted
+  const CrCasc* casc;
+  const CrComb* comb;
+  float* staged;                // [n_src][CR_FB][128]
+  float* gys;                   // [2][128]
+  float* red;                   // [4] block reductions
+  long long row, off;           // the row; this thread's offset in [B, T]
+  int K, T, b, fs, xsel, n_ext; // blocks, samples; this block; its staged
+};                              // slot; gy row; feeds
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes));
+}
+
+// This thread's column of every read stream's block `blk` into its slot
+// (zeros before the render or for a missing stream), as one group; zsrc
+// is a valid device address for the zero-filled copies.
+__device__ __forceinline__ void stage_src(const CrCtx& x,
+                                          const float* const* src, int n_src,
+                                          const float* zsrc, long long base,
+                                          int blk) {
+  const int c = threadIdx.x;
+  for (int i = 0; i < n_src; ++i) {
+    float* dst = x.staged + (i * CR_FB + (blk & (CR_FB - 1))) * CK_C + c;
+    const bool ok = blk >= 0 && src[i] != nullptr;
+    cp_async4(dst, ok ? src[i] + base + (long long)blk * CK_C + c : zsrc,
+              ok ? 4 : 0);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// NaN-propagating max and the sum over the CTA's 128 values
+__device__ float cr_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = maxn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();                      // red is free again
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return maxn(maxn(red[0], red[1]), maxn(red[2], red[3]));
+}
+
+__device__ float cr_sum(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return (red[0] + red[1]) + (red[2] + red[3]);
+}
+
+// ---- the shapers' derivatives (interpret_adjoint's ew_adjoint) ----------
+
+__device__ __forceinline__ float mask1(bool in) { return in ? 1.0f : 0.0f; }
+
+// g through tanh(clamp(v, -20, 20)), the derivative from the input
+__device__ __forceinline__ float tanh20_grad(float g, float v) {
+  const float t = tanhf(clampn(v, -20.0f, 20.0f));
+  return g * (1.0f - t * t) * mask1(v >= -20.0f && v <= 20.0f);
+}
+
+// The vjp of shaper op (not Fuzz) at its input v, cotangent g.  p holds
+// the params; chebyshev's p[2], p[3] are its two denominators (computed
+// by the wrapper as its plain version does).
+__device__ __forceinline__ float ew_grad(int op, const float* p, float g,
+                                         float v) {
+  const float c4 = (float)(3.141592653589793 / 4.0);
+  if (op == EW_OVERDRIVE) {
+    const float boost = p[0], drive = p[1], level = p[2];
+    if (level < BYPASS) return g;
+    const float b = c4 * (v * boost);
+    const float gm = g * level;
+    const float gb =
+        gm * drive * (float)(2.0 / 3.141592653589793) / (1.0f + b * b);
+    return gm * (1.0f - drive) + gb * c4 * boost;
+  }
+  if (op == EW_CHEBYSHEV) {
+    const bool pos = v >= 0.0f;
+    const float l = pos ? p[0] : p[1];
+    if (l < BYPASS) return g;
+    return tanh20_grad(g / (pos ? p[2] : p[3]), v * l) * l;
+  }
+  const float level = p[0];
+  if (level < BYPASS) return g;
+  const float w = v * level;
+  float gw;
+  switch (op) {
+    case EW_HARDCLIP:
+      gw = g / level * mask1(w >= -1.0f && w <= 1.0f);
+      break;
+    case EW_SOFTCLIP:
+      gw = (w >= -1.0f && w <= 1.0f) ? g / level * (1.0f - w * w) : 0.0f;
+      break;
+    case EW_TANH:
+      gw = tanh20_grad(g, w);
+      break;
+    case EW_RECIPSOFTCLIP: {
+      const float s = signn(v);
+      const float r = 1.0f / (fabsf(v) * level + 1.0f);
+      return g * s * (r * r) * level * s;
+    }
+    case EW_SIN:
+      gw = g * cosf(w);
+      break;
+    case EW_ATAN:
+      gw = g / (1.0f + w * w);
+      break;
+    case EW_SQUARE:
+      gw = 2.0f * (g * signn(w)) * w;
+      break;
+    default:  // EW_CHEBYSHEV4
+      gw = 2.0f * (16.0f * g * (w * w) - 8.0f * g) * w;
+      break;
+  }
+  return gw * level;
+}
+
+// The vjp of Fuzz at this thread's input v of the block: the forward
+// again from v, then back through its three block maxima (each one's
+// gradient split evenly among its ties, as torch.amax's backward) with
+// block sums.  Every thread of the CTA calls it together.
+__device__ float fuzz_grad(const CrCtx& x, float level, float g, float v) {
+  float* red = x.red;
+  const float sx = signn(v), ax = fabsf(v);
+  const float mx = cr_max(ax, red);
+  const float u = v * level;
+  const float cu = clampn(u, -1.0f, 1.0f);
+  const float q = cu / mx;
+  const float e = expf(-fabsf(q));
+  const float z = -(1.0f - e);
+  const float az = fabsf(z);
+  const float mz = cr_max(az, red);
+  const float w = z * mx;
+  const float cw = clampn(w, -1.0f, 1.0f);
+  const float y = cw / mz;
+  const float ay = fabsf(y);
+  const float my = cr_max(ay, red);
+  const float p = y * mx;
+  const float gp = g / my;
+  const float gmy = cr_sum(-(g * p) / (my * my), red);
+  const float hy = mask1(ay == my);
+  const float gy = gp * mx + gmy / cr_sum(hy, red) * hy * signn(y);
+  const float gcw = gy / mz;
+  const float gmz = cr_sum(-(gy * cw) / (mz * mz), red);
+  const float gw = gcw * mask1(w >= -1.0f && w <= 1.0f);
+  const float hz = mask1(az == mz);
+  const float gz = gw * mx + gmz / cr_sum(hz, red) * hz * signn(z);
+  const float gq = -(gz * e * signn(q));
+  const float gcu = gq / mx;
+  const float gmx = cr_sum(gp * y + gw * z - gq * cu / (mx * mx), red);
+  const float hx = mask1(ax == mx);
+  return gcu * mask1(u >= -1.0f && u <= 1.0f) * level +
+         gmx / cr_sum(hx, red) * hx * sx;
+}
+
+// ---- the helpers the generated block code calls ---------------------------
+
+// This thread's sample of read stream i (tap cotangent t at i = t, the
+// k-th shaper's input at n_taps + k) in the current block.
+__device__ __forceinline__ float cr_in(const CrCtx& x, int i) {
+  return x.staged[i * (CR_FB * CK_C) + x.fs + threadIdx.x];
+}
+
+// The block's feed gradients e[] into their outputs.
+template <int NE>
+__device__ __forceinline__ void cr_feeds(const CrCtx& x, const float (&e)[NE]) {
+#pragma unroll
+  for (int j = 0; j < NE; ++j)
+    if (j < x.n_ext && x.gext[j] != nullptr) x.gext[j][x.off] = e[j];
+}
+
+// A shaper's adjoint with literal op and params at its recorded input v.
+template <int OP>
+__device__ __forceinline__ float cr_ew(const CrCtx& x, float g, float v,
+                                       float p0, float p1, float p2,
+                                       float p3) {
+  if (OP == EW_FUZZ) return fuzz_grad(x, p0, g, v);
+  const float p[4] = {p0, p1, p2, p3};
+  return ew_grad(OP, p, g, v);
+}
+
+// The adjoint of comb k (y = x + decay * y[t - D]) at this thread's
+// sample: vbar = g (+ the final history's cotangent) + decay * vbar[t + D]
+// over the ring of future adjoints (SM: in shared memory, else scratch).
+template <int D, bool SM>
+__device__ __forceinline__ float cr_comb(const CrCtx& x, int k, float g,
+                                         float decay) {
+  constexpr int RL2 = ((D + CK_C - 1) / CK_C + 1) * CK_C;
+  const CrComb& R = x.comb[k];
+  float* rb = SM ? reinterpret_cast<float*>(x.ps + R.sm_ring)
+                 : R.scratch + x.row * RL2;
+  const int c = threadIdx.x;
+  const int wb = (int)((unsigned)x.b % (unsigned)(RL2 / CK_C)) * CK_C;
+  int rd = wb + c + D;
+  if (rd >= RL2) rd -= RL2;
+  const int n = x.b * CK_C + c;
+  float v = g;
+  if (R.ct_hist != nullptr && n >= x.T - D)
+    v = __fadd_rn(v, R.ct_hist[x.row * D + (n - (x.T - D))]);
+  v = __fadd_rn(v, __fmul_rn(rb[rd], decay));
+  rb[wb + c] = v;
+  return v;
+}
+
+// The adjoint of cascade k's block step at this thread's sample g (see
+// the header): returns gX; warp 3 writes the carry adjoint entering the
+// block (and at block 0 the state's gradient).
+template <int N, bool SM>
+__device__ __forceinline__ float cr_cascade(CrCtx& x, int k, float g) {
+  const int c = threadIdx.x;
+  const CrCasc& Q = x.casc[k];
+  const float* kc = SM ? reinterpret_cast<const float*>(x.ps + Q.sm_consts)
+                       : Q.consts;
+  float* cb = reinterpret_cast<float*>(x.ps + Q.sm_cbuf);
+  float* GY = x.gys + x.xsel * CK_C;
+  x.xsel ^= 1;
+  const int b = x.b;
+  GY[c] = g;
+  __syncthreads();                     // gy is in; gc' is published
+  const float* gn = cb + ((b + 1) & 1) * CK_NS;     // leaving the block
+  float gnv[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) gnv[j] = gn[j];
+
+  // sum_{i >= c} h[i - c] gy[i]: step m reads gy[4(a + m) .. + 3] and
+  // h[4m - q .. 4m + 3 - q] reversed, the float4 at R[3 - q][128 - 4m]
+  // (R[q', j] = h[128 + q' - j], zeros outside h)
+  const int a = c >> 2, q = c & 3;
+  const float4* R4 = reinterpret_cast<const float4*>(
+      kc + CY_OFF_R + (3 - q) * CY_RS + CK_C);
+  const float4* G4 = reinterpret_cast<const float4*>(GY) + a;
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+  for (int m = 0; m < 32 - a; ++m) {
+    const float4 hv = R4[-m];
+    const float4 gv = G4[m];
+    a0 = fmaf(gv.x, hv.w, a0);
+    a1 = fmaf(gv.y, hv.z, a1);
+    a2 = fmaf(gv.z, hv.y, a2);
+    a3 = fmaf(gv.w, hv.x, a3);
+  }
+  float wsum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    wsum = fmaf(gnv[j], kc[CY_OFF_W + j * CY_WS + c], wsum);
+  float gx = ((a0 + a1) + (a2 + a3)) + wsum;
+  if (b == x.K - 1 && Q.seed_x != nullptr)
+    gx = gx + Q.seed_x[x.row * CK_C + c];
+
+  if (c >= 96) {     // warp 3: gc = gy Ecb^T + gc' ACt^T, lane (j, r)
+    const int lane = c & 31, j = lane & 7, r = lane >> 3;
+    const float4* E4 = reinterpret_cast<const float4*>(
+        kc + CY_OFF_E + j * CK_C + 32 * r);
+    const float4* Y4 = reinterpret_cast<const float4*>(GY + 32 * r);
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const float4 ev = E4[t], yv = Y4[t];
+      s0 = fmaf(yv.x, ev.x, s0);
+      s1 = fmaf(yv.y, ev.y, s1);
+      s0 = fmaf(yv.z, ev.z, s0);
+      s1 = fmaf(yv.w, ev.w, s1);
+    }
+    float s = s0 + s1;
+    s += __shfl_xor_sync(0xffffffffu, s, 8);
+    s += __shfl_xor_sync(0xffffffffu, s, 16);
+    if (lane < CK_NS) {
+      float t = 0.0f;
+#pragma unroll
+      for (int k2 = 0; k2 < N; ++k2)
+        t = fmaf(gnv[k2], kc[CY_OFF_A + j * CK_NS + k2], t);
+      float gc = s + t;
+      if (b == x.K - 1 && Q.seed_c != nullptr)
+        gc = gc + Q.seed_c[x.row * CK_NS + j];
+      cb[(b & 1) * CK_NS + j] = gc;
+      if (b == 0) Q.g_s0[x.row * CK_NS + j] = gc;
+    }
+  }
+  return gx;
+}
+
+// The program's block adjoint: CY_NREG (its registers, at least 1),
+// CY_NEXT (its feeds, at least 1), CY_BLOCK_BARRIER and
+// cy_block_adjoint(CrCtx&, float (&g)[CY_NREG]).
+#ifndef KERNEL_PROGRAM_H
+#error "the reverse cycle kernel is built once per block program: ops/cycle_reverse_kernel.py passes -DKERNEL_PROGRAM_H"
+#endif
+#include KERNEL_PROGRAM_H
+
+__device__ __forceinline__ float* ring_of(const CrComb& R, char* ps,
+                                          long long row) {
+  return R.sm_ring >= 0 ? reinterpret_cast<float*>(ps + R.sm_ring)
+                        : R.scratch + row * R.rl2;
+}
+
+__global__ void __launch_bounds__(CK_C, 2)
+cycle_reverse_kernel(const char* __restrict__ prog, int prog_bytes, int T) {
+  __shared__ float red[4];
+  extern __shared__ int4 dyn4[];
+  char* ps = reinterpret_cast<char*>(dyn4);
+  const int c = threadIdx.x;
+  for (int i = c; i < prog_bytes / 16; i += CK_C)
+    dyn4[i] = reinterpret_cast<const int4*>(prog)[i];
+  __syncthreads();
+  const CrHeader& H = *reinterpret_cast<const CrHeader*>(ps);
+  const float* const* src =
+      reinterpret_cast<const float* const*>(ps + H.off_src);
+  const float* const* greg_in =
+      reinterpret_cast<const float* const*>(ps + H.off_greg_in);
+  float* const* greg_out = reinterpret_cast<float* const*>(ps + H.off_greg_out);
+  const float* zsrc = reinterpret_cast<const float*>(prog);
+  CrCtx x;
+  x.ps = ps;
+  x.gext = reinterpret_cast<float* const*>(ps + H.off_gext);
+  x.casc = reinterpret_cast<const CrCasc*>(ps + H.off_casc);
+  x.comb = reinterpret_cast<const CrComb*>(ps + H.off_comb);
+  x.staged = reinterpret_cast<float*>(ps + H.sm_src);
+  x.gys = reinterpret_cast<float*>(ps + H.sm_gy);
+  x.red = red;
+  x.row = blockIdx.x;
+  x.T = T;
+  x.K = T / CK_C;
+  x.xsel = 0;
+  x.n_ext = H.n_ext;
+  const int n_src = H.n_src, n_regs = H.n_regs;
+  const long long base = x.row * (long long)T;
+
+  float g[CY_NREG];
+#pragma unroll
+  for (int i = 0; i < CY_NREG; ++i)
+    g[i] = (i < n_regs && greg_in[i] != nullptr)
+               ? greg_in[i][x.row * CK_C + c] : 0.0f;
+  for (int k = 0; k < H.n_casc; ++k) {
+    const CrCasc& Q = x.casc[k];
+    if (Q.sm_consts >= 0) {
+      float4* dst = reinterpret_cast<float4*>(ps + Q.sm_consts);
+      for (int i = c; i < CY_NCONST / 4; i += CK_C)
+        dst[i] = reinterpret_cast<const float4*>(Q.consts)[i];
+    }
+    if (c < 2 * CK_NS) reinterpret_cast<float*>(ps + Q.sm_cbuf)[c] = 0.0f;
+  }
+  for (int k = 0; k < H.n_comb; ++k) {      // no adjoint past the render
+    const CrComb& R = x.comb[k];
+    float* rb = ring_of(R, ps, x.row);
+    for (int i = c; i < R.rl2; i += CK_C) rb[i] = 0.0f;
+  }
+  for (int j = 0; j < CR_FB - 1; ++j)
+    stage_src(x, src, n_src, zsrc, base, x.K - 1 - j);
+  __syncthreads();
+
+  for (int b = x.K - 1; b >= 0; --b) {
+    stage_src(x, src, n_src, zsrc, base, b - (CR_FB - 1));
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(CR_FB - 1) : "memory");
+    if (CY_BLOCK_BARRIER) __syncthreads();  // rings: the later block's in
+    x.b = b;
+    x.fs = (b & (CR_FB - 1)) * CK_C;
+    x.off = base + (long long)b * CK_C + c;
+    cy_block_adjoint(x, g);
+  }
+#pragma unroll
+  for (int i = 0; i < CY_NREG; ++i)
+    if (i < n_regs) greg_out[i][x.row * CK_C + c] = g[i];
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();                     // every ring slot is written
+  // the initial history's gradient: d vbar[j] for j < T, the final
+  // history's cotangent past T (a history longer than the render)
+  for (int k = 0; k < H.n_comb; ++k) {
+    const CrComb& R = x.comb[k];
+    const float* rb = ring_of(R, ps, x.row);
+    for (int j = c; j < R.d; j += CK_C) {
+      float v = j < T ? __fmul_rn(rb[j % R.rl2], R.decay) : 0.0f;
+      if (R.ct_hist != nullptr && j >= T)
+        v = __fadd_rn(v, R.ct_hist[x.row * R.d + (j - T)]);
+      R.g_hist[x.row * R.d + j] = v;
+    }
+  }
+}
+
+// Record sizes for the wrapper's layout check: header, cascade and comb
+// records, one byte each.
+extern "C" int cycle_reverse_abi(void) {
+  return (int)sizeof(CrHeader) | (int)sizeof(CrCasc) << 8
+      | (int)sizeof(CrComb) << 16;
+}
+
+// The layout constants the wrapper packs by: (0) floats of a cascade's
+// constants, (1) blocks staged ahead, (2, 3) the constants' row strides.
+extern "C" int cycle_reverse_shape(int what) {
+  switch (what) {
+    case 0: return CY_NCONST;
+    case 1: return CR_FB;
+    case 2: return CY_RS;
+    case 3: return CY_WS;
+  }
+  return -1;
+}
+
+// Launch B CTAs on `stream` over the packed tables `prog` of prog_bytes (a
+// multiple of 16) in device memory with `smem` bytes of dynamic shared
+// memory; returns the cudaGetLastError() code of the launch, 0 on
+// success, or cudaErrorInvalidValue when that exceeds the card's shared
+// memory per block.
+extern "C" int cycle_reverse_launch(const void* prog, int prog_bytes,
+                                    int smem, int B, int T, int device,
+                                    void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (prog_bytes % 16 || smem < prog_bytes) return (int)cudaErrorInvalidValue;
+  int optin = 0;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, cycle_reverse_kernel);
+  if (e != cudaSuccess) return (int)e;
+  if (smem + (int)fa.sharedSizeBytes > optin)
+    return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(cycle_reverse_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cycle_reverse_kernel<<<B, CK_C, smem, (cudaStream_t)stream>>>(
+      (const char*)prog, prog_bytes, T);
+  return (int)cudaGetLastError();
+}

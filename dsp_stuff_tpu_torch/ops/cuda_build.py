@@ -6,9 +6,10 @@ keyed by a hash of the source, the shared headers (csrc/*.cuh) and the
 flags, and loaded with ``ctypes``.  Nothing is built or loaded when this
 module is imported.
 
-The cycle kernel is built once per block program: its wrapper
-(ops/cycle_kernel.py) generates a header with the program's straight-line
-block code, which the source includes (``header``: written next to the
+The cycle kernel and its reverse are built once per block program: their
+wrappers (ops/cycle_kernel.py, ops/cycle_reverse_kernel.py) generate a
+header with the program's straight-line block code (its adjoint for the
+reverse), which the source includes (``header``: written next to the
 library and passed as ``-DKERNEL_PROGRAM_H``), as the JAX package's
 Pallas cycle kernel is traced once per program.
 
@@ -32,8 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 #: the kernel sources, by name
-KERNELS = ("chain_kernel", "cycle_kernel", "envelope_kernel",
-           "first_order_kernel", "sequential_kernel")
+KERNELS = ("chain_kernel", "cycle_kernel", "cycle_reverse_kernel",
+           "envelope_kernel", "first_order_kernel", "sequential_kernel")
 #: the kernels built without a generated header
 STATIC_KERNELS = ("chain_kernel", "envelope_kernel", "first_order_kernel",
                   "sequential_kernel")

@@ -21,7 +21,10 @@ block; what does not fit stays in device memory (a ring in a scratch ring
 of the same length), and the generated code names each placement.
 
 ``cycle_kernel_call`` takes only CUDA tensors and raises on anything the
-kernel cannot take; there is no fallback.  The plain PyTorch version of
+kernel cannot take; there is no fallback.  Its ``record`` build
+(-DCY_RECORD) also writes each shaper's input, the residuals of the
+reverse kernel (ops/cycle_reverse_kernel.py); without the define the
+generated text and the build are the render's.  The plain PyTorch version of
 the same function is ops/cycle_segment.interpret.  ``LAUNCHES`` counts
 the kernel's launches.  ``phase_cycles`` runs the build with the
 kernel's phase probes (tools/measure_torch_cycle.py --phases).
@@ -88,10 +91,16 @@ def _lib(source: str, defines: tuple = ()) -> ctypes.CDLL:
     lib.cycle_kernel_abi.restype = ctypes.c_int
     lib.cycle_kernel_shape.argtypes = [ctypes.c_int]
     lib.cycle_kernel_shape.restype = ctypes.c_int
-    lib.cycle_kernel_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.cycle_kernel_launch.restype = ctypes.c_int
+    if "CY_RECORD" in defines:          # its launch takes the rec buffer
+        lib.cycle_kernel_record_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        lib.cycle_kernel_record_launch.restype = ctypes.c_int
+    else:
+        lib.cycle_kernel_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.cycle_kernel_launch.restype = ctypes.c_int
     want = HEADER.itemsize | CASC.itemsize << 8 | COMB.itemsize << 16
     if lib.cycle_kernel_abi() != want:
         raise RuntimeError(
@@ -170,7 +179,8 @@ def _lit(v) -> str:
     return f"{float(f).hex()}f"
 
 
-def program_source(program: tuple, casc_smem: tuple, ring_smem: tuple) -> str:
+def program_source(program: tuple, casc_smem: tuple, ring_smem: tuple,
+                   record: bool = False) -> str:
     """The generated header of the kernel for ``program``: CY_NREG,
     CY_BLOCK_BARRIER, CY_HOLD_* for a program of one cascade (its
     constants held in registers) and cy_block, one statement per
@@ -178,7 +188,10 @@ def program_source(program: tuple, casc_smem: tuple, ring_smem: tuple) -> str:
     computes them (joins summed left to right and scaled when the scale
     is not 1, lin2 as B*cB + A*cA); ``casc_smem`` and ``ring_smem`` say
     per cascade and per comb whether its constants or ring are in shared
-    memory."""
+    memory.  ``record`` (the build with -DCY_RECORD) adds a
+    ``cy_record(x, k, f)`` line before the k-th shaper: it writes the
+    shaper's input, the reverse kernel's residual; without it the text is
+    the render build's."""
     n_c, n_b, n_r, _, _ = plan(program)
     out = [f"#define CY_NREG {max(n_r, 1)}",
            f"#define CY_BLOCK_BARRIER {int(n_c == 0 and n_b > 0)}"]
@@ -202,6 +215,7 @@ def program_source(program: tuple, casc_smem: tuple, ring_smem: tuple) -> str:
             out.append(f"  {var} = {var} * {_lit(scale)};")
 
     probe = "  CY_USE(f); CY_PHASE(CY_PH_JOIN);"
+    n_ew = 0
     for ins in program:
         op = ins[0]
         out.append(f"  // {op}")
@@ -230,6 +244,9 @@ def program_source(program: tuple, casc_smem: tuple, ring_smem: tuple) -> str:
             out.append(f"  f = cy_comb<{int(D)}, {sm}>(x, {int(bi)}, f, "
                        f"{_lit(decay)});")
         elif op == "ew":
+            if record:
+                out.append(f"  cy_record(x, {n_ew}, f);")
+            n_ew += 1
             p = [float(v) for v in ins[2]] + [0.0] * (4 - len(ins[2]))
             out.append(f"  f = cy_ew<{EW_CODES.index(ins[1])}>(x, f, "
                        + ", ".join(_lit(v) for v in p) + ");")
@@ -377,24 +394,40 @@ def budget_of(dev) -> int:
         dev).shared_memory_per_block_optin - STATIC_SMEM
 
 
-def source_for(program: tuple, budget: int) -> str:
+def source_for(program: tuple, budget: int, record: bool = False) -> str:
     """The generated block code of ``program`` under the placement its
-    shared-memory plan gives at ``budget``."""
+    shared-memory plan gives at ``budget`` (``record``: the record
+    build's)."""
     program = tuple(program)
     n_e = plan(program)[4]
     (_, _, consts, rings, _), _ = placement(program, n_e, budget)
     return program_source(program, tuple(o >= 0 for o in consts),
-                          tuple(o >= 0 for o in rings))
+                          tuple(o >= 0 for o in rings), record)
+
+
+def has_shaper(program: tuple) -> bool:
+    """Whether the program has an ``ew`` instruction (a residual to record
+    for the reverse kernel)."""
+    return any(ins[0] == "ew" for ins in program)
 
 
 def cycle_kernel_call(exts: tuple, regs0: tuple, states: tuple,
-                      program: tuple, n_taps: int):
+                      program: tuple, n_taps: int, record: bool = False):
     """exts: n_e x [B, T] f32 CUDA (T % 128 == 0); regs0: n_r x [B, 128];
     states: per cascade [B, N], per comb [B, D], in program order ->
     (taps n_t x [B, T], regs_f n_r x [B, 128],
      per cascade (carry_last [B, 8], x_last [B, 128]),
-     per comb ring [B, NR, 128])."""
-    return _run(exts, regs0, states, program, n_taps)
+     per comb ring [B, NR, 128]).
+    ``record`` launches the record build (-DCY_RECORD; the same outputs,
+    bitwise) and returns (those outputs, recs): recs n_ew x [B, T], the
+    input of each shaper in program order, views of one [n_ew, B, T]
+    buffer.  A program with no shaper has no record build."""
+    if not record:
+        return _run(exts, regs0, states, program, n_taps)
+    if not has_shaper(program):
+        raise ValueError("cycle kernel: a program with no shaper records "
+                         "nothing")
+    return _run(exts, regs0, states, program, n_taps, ("CY_RECORD",))
 
 
 def phase_cycles(exts: tuple, regs0: tuple, states: tuple, program: tuple,
@@ -445,8 +478,9 @@ def _run(exts: tuple, regs0: tuple, states: tuple, program: tuple,
 
     (sec, cbuf, sm_consts, sm_rings, smem_bytes), _ = placement(
         program, n_e, budget_of(dev))
+    record = "CY_RECORD" in defines
     source = program_source(program, tuple(o >= 0 for o in sm_consts),
-                            tuple(o >= 0 for o in sm_rings))
+                            tuple(o >= 0 for o in sm_rings), record)
     tables = {k: [] for k in _TABLES}
     tables["ext"] = [_rows(e, B, T, dev, f"feed {i}").data_ptr()
                      for i, e in enumerate(exts)]
@@ -499,12 +533,21 @@ def _run(exts: tuple, regs0: tuple, states: tuple, program: tuple,
 
     buf = pack_program(n_r, tables, (sec, smem_bytes))
     prog = to_device(buf, dev)
-    rc = _lib(source, tuple(defines)).cycle_kernel_launch(
-        prog.data_ptr(), buf.size, smem_bytes, B, T, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    lib = _lib(source, tuple(defines))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if record:
+        n_ew = sum(1 for ins in program if ins[0] == "ew")
+        rec = torch.empty((n_ew, B, T), dtype=torch.float32, device=dev)
+        rc = lib.cycle_kernel_record_launch(
+            prog.data_ptr(), buf.size, smem_bytes, B, T, rec.data_ptr(),
+            dev.index, stream)
+    else:
+        rc = lib.cycle_kernel_launch(prog.data_ptr(), buf.size, smem_bytes,
+                                     B, T, dev.index, stream)
     if rc != 0:
         raise RuntimeError(f"cycle kernel launch failed: CUDA error {rc}"
                            f" ({buf.size} bytes of tables, {smem_bytes} "
                            f"bytes of shared memory)")
     LAUNCHES += 1
-    return taps, regs_f, tuple(casc_raw), tuple(rings)
+    out = taps, regs_f, tuple(casc_raw), tuple(rings)
+    return (out, tuple(rec.unbind(0))) if record else out

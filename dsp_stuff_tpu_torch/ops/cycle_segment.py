@@ -8,7 +8,11 @@ rate) to a static BLOCK PROGRAM over 128-sample blocks (compile.py
 a Python loop over the T/128 blocks and the plain PyTorch version of the
 cycle kernel; on a CUDA tensor the cycle kernel (ops/cycle_kernel.py),
 which keeps every carried quantity (registers, cascade carries, comb
-rings) on the card for the whole render.
+rings) on the card for the whole render.  Under autograd on the card
+``CycleSegment`` runs the kernel forward (its record build when the
+program has a shaper) and the reverse cycle kernel backward
+(ops/cycle_reverse_kernel.py), whose plain version is
+``interpret_adjoint``.
 
 Program grammar (static tuples):
 
@@ -53,10 +57,11 @@ import torch
 
 from dsp_stuff_tpu_torch.ops import cycle_kernel
 from dsp_stuff_tpu_torch.ops.cascade import (_cascade_constants,
+                                             _tail_state_constants,
                                              cascade_tail_states)
 from dsp_stuff_tpu_torch.ops.chain_segment import (apply_ew, fresh,
-                                                   grads_of, ring_history)
-from dsp_stuff_tpu_torch.ops.scan import _const, needs_grad
+                                                   ring_history)
+from dsp_stuff_tpu_torch.ops.scan import _const, const_on, needs_grad
 
 C = 128
 _F32 = torch.float32
@@ -94,9 +99,12 @@ def _batch_of(exts, regs0, states):
 
 
 def interpret(exts: tuple, regs0: tuple, states: tuple, program: tuple,
-              n_taps: int):
+              n_taps: int, record: bool = False):
     """The block program as a Python loop over T/128 blocks: the plain
-    PyTorch version of the cycle kernel."""
+    PyTorch version of the cycle kernel.  With ``record`` it returns
+    ``(outputs, recs)``: recs holds each ``ew`` instruction's input over
+    the render, [..., T] in program order, what the kernel's record build
+    writes (the residuals of ``interpret_adjoint``)."""
     exts = tuple(torch.as_tensor(e, dtype=_F32) for e in exts)
     dev = exts[0].device
     T = exts[0].shape[-1]
@@ -129,6 +137,7 @@ def interpret(exts: tuple, regs0: tuple, states: tuple, program: tuple,
     # per cascade: (carry entering the block, block input) of the last block
     snaps = [None] * len(ccs)
     tap_blks = [[] for _ in range(n_t)]
+    rec_blks = [[] for ins in program if ins[0] == "ew"]
 
     for b in range(nb):
         blk_ext = [e[..., b * C:(b + 1) * C] for e in exts]
@@ -143,6 +152,7 @@ def interpret(exts: tuple, regs0: tuple, states: tuple, program: tuple,
             return acc * float(np.float32(scale)) if scale != 1.0 else acc
 
         flow = None
+        k = 0
         for ins in program:
             op = ins[0]
             if op == "join":
@@ -161,6 +171,9 @@ def interpret(exts: tuple, regs0: tuple, states: tuple, program: tuple,
                 flow = flow + hists[bi][..., :C] * float(np.float32(decay))
                 hists[bi] = torch.cat([hists[bi][..., C:], flow], dim=-1)
             elif op == "ew":
+                if record:
+                    rec_blks[k].append(flow)
+                k += 1
                 flow = apply_ew(ins[1], flow, ins[2])
             elif op == "scale":
                 flow = flow * float(np.float32(ins[1]))
@@ -171,13 +184,318 @@ def interpret(exts: tuple, regs0: tuple, states: tuple, program: tuple,
             else:
                 raise ValueError(f"unknown cycle instruction {op!r}")
 
-    taps = tuple(torch.cat(torch.broadcast_tensors(*blks), dim=-1)
-                 for blks in tap_blks)
+    def seq(blks):
+        return torch.cat(torch.broadcast_tensors(*blks), dim=-1)
+
+    taps = tuple(seq(blks) for blks in tap_blks)
     cinfos = tuple(
         (*cascade_tail_states(secs, x_last, c_in),
          x_last[..., -1], x_last[..., -2])
         for secs, (c_in, x_last) in zip(casc_secs, snaps))
-    return taps, tuple(regs), cinfos, tuple(hists)
+    outs = taps, tuple(regs), cinfos, tuple(hists)
+    if not record:
+        return outs
+    return outs, tuple(seq(blks).expand(*batch, T) for blks in rec_blks)
+
+
+# -- the adjoint --------------------------------------------------------------
+#
+# interpret_adjoint is the vjp of ``interpret`` written out as a reverse
+# loop over the blocks, each block's instructions in reverse order, with
+# the adjoint rules the reverse kernel (csrc/cycle_reverse_kernel.cu,
+# generated per program by ops/cycle_reverse_kernel.py) follows in the
+# same order of operations:
+#
+#   setreg r   f += g_r; g_r = 0
+#   tap t      f += ct_t[block]
+#   scale s    f *= s
+#   ew         f = ew_adjoint(kind, f, the recorded input, params)
+#   comb       v = f (+ the final history's cotangent, last D samples)
+#              + d * vbar[n + D]; vbar[n] = v; f = v
+#   cascade    gX = f Ltg^T + gc' W^T, gc = f E + gc' AC (the carry's
+#              adjoint gc' leaving the block, gc entering it); f = gX
+#   join       s = f * scale; each term's register or feed += s; f = 0
+#   lin2       sa = f * cA * sA, sb = f * cB * sB into the terms; f = 0
+#
+# Registers carry their adjoints across blocks (the final registers'
+# cotangents seed them), a cascade its carry's, a comb a ring of future
+# adjoints.  Everything but the shapers is linear, so the only forward
+# values it reads are the shapers' inputs (``interpret(record=True)``).
+
+
+def _clip_mask(v):
+    """1 where clamp(v, -1, 1) passes its input's gradient (bounds
+    included, as torch.clamp's backward), else 0."""
+    return ((v >= -1.0) & (v <= 1.0)).to(_F32)
+
+
+def _tanh20_grad(g, v):
+    """g through _tanh(v) = tanh(clamp(v, -20, 20)), from the input."""
+    t = torch.tanh(torch.clamp(v, -20.0, 20.0))
+    return g * (1.0 - t * t) * ((v >= -20.0) & (v <= 20.0)).to(_F32)
+
+
+def _tie_grad(g, a, m):
+    """The gradient ``g`` [..., nb, 1] of m = amax(|x|) over each block back
+    to x through a = |x| [..., nb, 128]: split evenly among the ties, as
+    torch.amax's backward (and JAX's reduce_max) does."""
+    hit = (a == m).to(_F32)
+    return (g / hit.sum(-1, keepdim=True)) * hit
+
+
+def _fuzz_adjoint(g, x, level):
+    """vjp of ops/shaping.fuzz at ``x`` for a scalar level: the three block
+    maxima's gradients split among their ties."""
+    lead = x.shape[:-1]
+    nb = x.shape[-1] // C
+    x = x.reshape(*lead, nb, C)
+    g = g.reshape(*lead, nb, C)
+    sx = torch.sign(x)
+    ax = torch.abs(x)
+    mx = torch.amax(ax, dim=-1, keepdim=True)
+    u = x * level
+    cu = torch.clamp(u, -1.0, 1.0)
+    q = cu / mx
+    e = torch.exp(-torch.abs(q))
+    z = -(1.0 - e)
+    az = torch.abs(z)
+    mz = torch.amax(az, dim=-1, keepdim=True)
+    w = z * mx
+    cw = torch.clamp(w, -1.0, 1.0)
+    y = cw / mz
+    ay = torch.abs(y)
+    my = torch.amax(ay, dim=-1, keepdim=True)
+    p = y * mx
+    gp = g / my
+    gmy = (-(g * p) / (my * my)).sum(-1, keepdim=True)
+    gy = gp * mx + _tie_grad(gmy, ay, my) * torch.sign(y)
+    gcw = gy / mz
+    gmz = (-(gy * cw) / (mz * mz)).sum(-1, keepdim=True)
+    gw = gcw * _clip_mask(w)
+    gz = gw * mx + _tie_grad(gmz, az, mz) * torch.sign(z)
+    gq = -(gz * e * torch.sign(q))
+    gcu = gq / mx
+    gmx = (gp * y + gw * z - gq * cu / (mx * mx)).sum(-1, keepdim=True)
+    gx = gcu * _clip_mask(u) * level + _tie_grad(gmx, ax, mx) * sx
+    return gx.reshape(*lead, nb * C)
+
+
+def ew_adjoint(kind: str, g, x, params):
+    """The vjp of the shaper ``apply_ew(kind, x, params)`` at its input
+    ``x`` for the cotangent ``g``, as PyTorch autograd (and JAX) takes it
+    through ops/shaping.py: a bypassed shaper (level < 0.001) passes g,
+    torch.where's branches take their own, clamp passes its gradient at
+    its bounds, tanh's and atan's derivatives come from x."""
+    from dsp_stuff_tpu_torch.ops.shaping import BYPASS_EPS
+    p = [float(np.float32(v)) for v in params]
+    if kind == "overdrive":
+        boost, drive, level = p
+        if level < BYPASS_EPS:
+            return g
+        b = float(np.float32(np.pi / 4.0)) * (x * boost)
+        gm = g * level
+        gb = (gm * drive * float(np.float32(2.0 / np.pi))) / (1.0 + b * b)
+        return gm * float(np.float32(1.0 - np.float32(drive))) + \
+            gb * float(np.float32(np.pi / 4.0)) * boost
+    if kind == "chebyshev":
+        lp, ln = p
+        pos = x >= 0.0
+        lv = torch.where(pos, torch.full_like(x, lp), torch.full_like(x, ln))
+        den = torch.where(pos, torch.full_like(x, _tanh20(lp)),
+                          torch.full_like(x, _tanh20(ln)))     # safe levels
+        gs = _tanh20_grad(g / den, x * lv) * lv
+        return torch.where(lv < BYPASS_EPS, g, gs)
+    mode = kind.split(":", 1)[1]
+    level = p[0]
+    if mode == "Fuzz":
+        return _fuzz_adjoint(g, x, level)
+    if level < BYPASS_EPS:
+        return g
+    v = x * level
+    if mode == "HardClip":
+        gv = (g / level) * _clip_mask(v)
+    elif mode == "SoftClip":
+        inner = (v >= -1.0) & (v <= 1.0)
+        gv = torch.where(inner, (g / level) * (1.0 - v * v),
+                         torch.zeros_like(v))
+    elif mode == "Tanh":
+        gv = _tanh20_grad(g, v)
+    elif mode == "RecipSoftClip":
+        s = torch.sign(x)
+        r = 1.0 / (torch.abs(x) * level + 1.0)
+        return g * s * (r * r) * level * s
+    elif mode == "Sin":
+        gv = g * torch.cos(v)
+    elif mode == "Atan":
+        gv = g / (1.0 + v * v)
+    elif mode == "Square":
+        gv = 2.0 * (g * torch.sign(v)) * v
+    elif mode == "Chebyshev4":
+        gv = 2.0 * (16.0 * g * (v * v) - 8.0 * g) * v
+    else:
+        raise ValueError(f"ew_adjoint: unknown shaper {kind!r}")
+    return gv * level
+
+
+def _tanh20(v: float) -> float:
+    """chebyshev's denominator: ops/shaping._tanh of a level (1 in the
+    bypass region, ``_safe_level``), in float32."""
+    from dsp_stuff_tpu_torch.ops.shaping import BYPASS_EPS
+    v = 1.0 if v < BYPASS_EPS else v
+    return float(torch.tanh(torch.tensor(min(max(v, -20.0), 20.0),
+                                         dtype=_F32)))
+
+
+def cinfo_seeds(sections: tuple, cts, batch: tuple, dev):
+    """The cotangents of one cascade's info (s_tm1, s_tm2, x_tm1, x_tm2),
+    entries None where there is none, pulled back through
+    ``cascade_tail_states`` and the last block's two inputs: (gradient of
+    the last block's input [*batch, 128], of the carry entering it
+    [*batch, N]), None when every cotangent is None."""
+    if all(c is None for c in cts):
+        return None
+    (P1, T1), (P2, T2), N = _tail_state_constants(tuple(sections), C)
+    gx = torch.zeros(*batch, C, dtype=_F32, device=dev)
+    gc = torch.zeros(*batch, N, dtype=_F32, device=dev)
+    for ct, Pm, Tm in ((cts[0], P1, T1), (cts[1], P2, T2)):
+        if ct is not None:
+            gx = gx + ct @ const_on(np.ascontiguousarray(Tm.T), dev)
+            gc = gc + ct @ const_on(Pm, dev)
+    for i, ct in ((-1, cts[2]), (-2, cts[3])):
+        if ct is not None:
+            gx[..., i] = gx[..., i] + ct
+    return gx, gc
+
+
+def adjoint_batch(shapes) -> tuple:
+    """The batch shape of a program's operands from their ``shapes``
+    ((ext shapes), (register shapes), (state shapes))."""
+    return tuple(torch.broadcast_shapes(*(s[:-1] for grp in shapes
+                                          for s in grp)))
+
+
+def interpret_adjoint(cts, shapes, program: tuple, n_taps: int, recs):
+    """The vjp of ``interpret`` as an explicit reverse loop over the
+    blocks: the plain PyTorch version of the reverse cycle kernel (the
+    rules above).  ``cts`` are the cotangents of ``flatten_outputs``'s
+    entries (None: none), ``shapes`` the operands' shapes ((feeds),
+    (registers), (states)), ``recs`` the shapers' recorded inputs.
+    Returns (feed gradients, register gradients, state gradients) at the
+    operands' batch shape: the feeds [*batch, T], the registers [*batch,
+    128], a cascade state [*batch, its width], a comb history [*batch,
+    D]."""
+    ext_s, reg_s, st_s = shapes
+    batch = adjoint_batch(shapes)
+    T = ext_s[0][-1]
+    if T % C:
+        raise ValueError(f"cycle_segment: T={T} must be a multiple of {C}")
+    nb = T // C
+    dev = next(t.device for t in (*cts, *recs) if t is not None)
+    ct_taps, ct_regs, ct_infos, ct_hists = unflatten_outputs(
+        cts, program, n_taps)
+
+    def zeros(n):
+        return torch.zeros(*batch, n, dtype=_F32, device=dev)
+
+    def full(t, n):
+        return zeros(n) if t is None else t.to(_F32).expand(*batch, n)
+
+    g_regs = [full(ct, C) for ct in ct_regs]
+    g_ext = [zeros(T) for _ in ext_s]
+    casc, combs = [], []
+    for ins in program:
+        if ins[0] == "cascade":
+            Ltg, W, E, P, N, _B, _l1, _ = _cascade_constants(ins[1], C, ())
+            AC = P[C].astype(np.float32)
+            casc.append(dict(
+                LtgT=const_on(np.ascontiguousarray(Ltg.T), dev),
+                WT=const_on(np.ascontiguousarray(W.T), dev),
+                E=const_on(np.ascontiguousarray(E), dev),
+                AC=const_on(AC, dev), gc=zeros(N),
+                seed=cinfo_seeds(ins[1], ct_infos[len(casc)], batch, dev)))
+        elif ins[0] == "comb":
+            _, decay, D, _bi = ins
+            D = int(D)
+            RL = -(-D // C) * C
+            cth = ct_hists[len(combs)]
+            direct = None
+            if cth is not None:
+                cth = full(cth, D)
+                direct = zeros(T)
+                direct[..., max(T - D, 0):] = cth[..., max(D - T, 0):]
+            combs.append(dict(d=float(np.float32(decay)), D=D, cth=cth,
+                              direct=direct, vbar=zeros(T + RL)))
+
+    for b in reversed(range(nb)):
+        sl = slice(b * C, (b + 1) * C)
+        last = b == nb - 1
+        f = zeros(C)
+        k = sum(1 for ins in program if ins[0] == "ew")
+        for ins in reversed(program):
+            op = ins[0]
+            if op == "setreg":
+                f = f + g_regs[ins[1]]
+                g_regs[ins[1]] = zeros(C)
+            elif op == "tap":
+                if ct_taps[ins[1]] is not None:
+                    f = f + ct_taps[ins[1]][..., sl]
+            elif op == "scale":
+                f = f * float(np.float32(ins[1]))
+            elif op == "ew":
+                k -= 1
+                f = ew_adjoint(ins[1], f, recs[k][..., sl], ins[2])
+            elif op == "comb":
+                cb = combs[ins[3]]
+                if cb["direct"] is not None:
+                    f = f + cb["direct"][..., sl]
+                D = cb["D"]
+                f = f + cb["vbar"][..., b * C + D:(b + 1) * C + D] * cb["d"]
+                cb["vbar"][..., sl] = f
+            elif op == "cascade":
+                cs = casc[ins[2]]
+                gx = f @ cs["LtgT"] + cs["gc"] @ cs["WT"]
+                gc = f @ cs["E"] + cs["gc"] @ cs["AC"]
+                if last and cs["seed"] is not None:
+                    gx = gx + cs["seed"][0]
+                    gc = gc + cs["seed"][1]
+                cs["gc"] = gc
+                f = gx
+            elif op in ("join", "lin2"):
+                if op == "join":
+                    groups = ((ins[1], ins[2], 1.0),)
+                else:
+                    _, tA, sA, tB, sB, cA, cB = ins
+                    groups = ((tA, sA, cA), (tB, sB, cB))
+                for terms, scale, coef in groups:
+                    s = f * float(np.float32(coef)) if op == "lin2" else f
+                    if scale != 1.0:
+                        s = s * float(np.float32(scale))
+                    for kind, j in terms:
+                        if kind == "reg":
+                            g_regs[j] = g_regs[j] + s
+                        else:
+                            g_ext[j][..., sl] = g_ext[j][..., sl] + s
+                f = zeros(C)
+            else:
+                raise ValueError(f"unknown cycle instruction {op!r}")
+
+    g_states = []
+    ci = bi = 0
+    for ins, shp in zip((i for i in program if i[0] in ("cascade", "comb")),
+                        st_s):
+        if ins[0] == "cascade":
+            g_states.append(casc[ci]["gc"][..., :shp[-1]])
+            ci += 1
+        else:
+            cb = combs[bi]
+            bi += 1
+            D, m = cb["D"], min(cb["D"], T)
+            gh = zeros(D)
+            gh[..., :m] = cb["vbar"][..., :m] * cb["d"]
+            if cb["cth"] is not None and T < D:
+                gh[..., T:] = gh[..., T:] + cb["cth"][..., :D - T]
+            g_states.append(gh)
+    return tuple(g_ext), tuple(g_regs), tuple(g_states)
 
 
 def rebuild(program: tuple, T: int, casc_raw, ring_raw):
@@ -198,10 +516,11 @@ def rebuild(program: tuple, T: int, casc_raw, ring_raw):
     return tuple(cinfos), hists
 
 
-def _kernel_cycle(exts, regs0, states, program, n_taps):
+def _kernel_cycle(exts, regs0, states, program, n_taps, record=False):
     """The kernel path: leading dimensions flatten into kernel rows
     (registers and states broadcast to them) and come back on every
-    output."""
+    output.  ``record`` runs the kernel's record build and returns
+    ``(outputs, recs)`` as ``interpret`` does."""
     dev = exts[0].device
     batch = tuple(_batch_of(exts, regs0, states))
     T = exts[0].shape[-1]
@@ -212,18 +531,58 @@ def _kernel_cycle(exts, regs0, states, program, n_taps):
         return t.expand(*batch, t.shape[-1]).reshape(B, t.shape[-1]) \
             .contiguous()
 
-    taps, regs_f, casc_raw, ring_raw = cycle_kernel.cycle_kernel_call(
-        tuple(rows(e) for e in exts), tuple(rows(r) for r in regs0),
-        tuple(rows(s) for s in states), program, n_taps)
+    args = (tuple(rows(e) for e in exts), tuple(rows(r) for r in regs0),
+            tuple(rows(s) for s in states), program, n_taps)
+    out = (cycle_kernel.cycle_kernel_call(*args, record=True) if record
+           else cycle_kernel.cycle_kernel_call(*args))
+    taps, regs_f, casc_raw, ring_raw = out[0] if record else out
     cinfos, hists = rebuild(program, T, casc_raw, ring_raw)
 
     def unflat(t):
         return t.reshape(batch + tuple(t.shape[1:]))
 
-    return (tuple(unflat(t) for t in taps),
+    outs = (tuple(unflat(t) for t in taps),
             tuple(unflat(r) for r in regs_f),
             tuple(tuple(unflat(t) for t in info) for info in cinfos),
             tuple(unflat(h) for h in hists))
+    return (outs, tuple(unflat(r) for r in out[1])) if record else outs
+
+
+def _kernel_cycle_adjoint(cts, shapes, program, n_taps, recs):
+    """The reverse kernel's path, ``interpret_adjoint``'s signature: the
+    cotangents flatten into kernel rows (the cascade infos' pulled back
+    through ``cinfo_seeds`` first, in eager torch), the gradients come
+    back at the batch shape."""
+    from dsp_stuff_tpu_torch.ops import cycle_reverse_kernel
+    batch = adjoint_batch(shapes)
+    B = int(np.prod(batch, dtype=np.int64))
+    T = shapes[0][0][-1]
+    dev = next(t.device for t in (*cts, *recs) if t is not None)
+    ct_taps, ct_regs, ct_infos, ct_hists = unflatten_outputs(
+        cts, program, n_taps)
+
+    def rows(t, n):
+        if t is None:
+            return None
+        return t.to(_F32).expand(*batch, n).reshape(B, n).contiguous()
+
+    secs = [ins[1] for ins in program if ins[0] == "cascade"]
+    Ds = [int(ins[2]) for ins in program if ins[0] == "comb"]
+    seeds = []
+    for sec, info in zip(secs, ct_infos):
+        sd = cinfo_seeds(sec, info, batch, dev)
+        seeds.append((None, None) if sd is None else
+                     (rows(sd[0], C), rows(sd[1], sd[1].shape[-1])))
+    g_e, g_r, g_s = cycle_reverse_kernel.cycle_reverse_call(
+        tuple(rows(t, T) for t in ct_taps), tuple(rows(t, C) for t in ct_regs),
+        tuple(seeds), tuple(rows(t, D) for t, D in zip(ct_hists, Ds)),
+        tuple(rows(r, T) for r in recs), program, len(shapes[0]), B, T, dev)
+
+    def unflat(t, n):
+        return t[:, :n].reshape(*batch, n)
+
+    return (tuple(unflat(g, T) for g in g_e), tuple(unflat(g, C) for g in g_r),
+            tuple(unflat(g, shp[-1]) for g, shp in zip(g_s, shapes[2])))
 
 
 def flatten_outputs(outs) -> tuple:
@@ -247,40 +606,49 @@ class CycleSegment(torch.autograd.Function):
     """A feedback cycle's block program on the card under autograd: the
     counterpart of the JAX package's custom_vjp (``_cycle_vjp``).
 
-    ``apply(forward, program, n_taps, n_e, n_r, *exts, *regs0, *states)``
-    runs ``forward(exts, regs0, states, program, n_taps)`` (the kernel
-    path ``_kernel_cycle``; a test passes ``interpret`` under no_grad in
-    its place) once and saves its operands.  The backward re-runs
-    ``interpret`` on them under autograd and pulls the cotangents of the
-    taps, the final registers, the cascade infos and the histories back to
-    every feed, register and state.  It linearizes the plain f32 program,
-    which the kernel matches to rounding; it holds the loop's
-    intermediates, as the JAX package's vjp does."""
+    ``apply(forward, backward, program, n_taps, n_e, n_r, *exts, *regs0,
+    *states)`` runs ``forward(exts, regs0, states, program, n_taps)``
+    once (the kernel path ``_kernel_cycle``, its record build when the
+    program has a shaper: ``record=True`` returns the shapers' inputs
+    too; a test passes ``interpret`` in its place) and keeps the operands'
+    shapes and the recorded inputs.  The backward runs ``backward(cts,
+    shapes, program, n_taps, recs)`` (the reverse kernel's path
+    ``_kernel_cycle_adjoint``; a test passes ``interpret_adjoint``), the
+    vjp of the block program, and sums each gradient to its operand's
+    shape (an operand broadcast over the batch gets the sum over it)."""
 
     @staticmethod
-    def forward(ctx, forward, program, n_taps, n_e, n_r, *operands):
+    def forward(ctx, forward, backward, program, n_taps, n_e, n_r,
+                *operands):
         ctx.set_materialize_grads(False)
-        ctx.program, ctx.n_taps, ctx.n_e, ctx.n_r = program, n_taps, n_e, n_r
-        ctx.save_for_backward(*operands)
         exts, regs0 = operands[:n_e], operands[n_e:n_e + n_r]
+        states = operands[n_e + n_r:]
+        record = cycle_kernel.has_shaper(program)
         with torch.no_grad():
-            flat = flatten_outputs(forward(exts, regs0, operands[n_e + n_r:],
-                                           program, n_taps))
-        return fresh(flat, operands)
+            if record:
+                outs, recs = forward(exts, regs0, states, program, n_taps,
+                                     record=True)
+            else:
+                outs, recs = forward(exts, regs0, states, program,
+                                     n_taps), ()
+        ctx.save_for_backward(*recs)
+        ctx.backward_fn, ctx.program, ctx.n_taps = backward, program, n_taps
+        ctx.shapes = tuple(tuple(t.shape for t in grp)
+                           for grp in (exts, regs0, states))
+        return fresh(flatten_outputs(outs), operands)
 
     @staticmethod
     def backward(ctx, *cts):
-        need = ctx.needs_input_grad[5:]
-        ins = [t.detach().requires_grad_(bool(n))
-               for t, n in zip(ctx.saved_tensors, need)]
-        n_e, n_r = ctx.n_e, ctx.n_r
-        with torch.enable_grad():
-            outs = flatten_outputs(interpret(
-                tuple(ins[:n_e]), tuple(ins[n_e:n_e + n_r]),
-                tuple(ins[n_e + n_r:]), ctx.program, ctx.n_taps))
-            grads = grads_of(outs, cts, [t if t.requires_grad else None
-                                         for t in ins])
-        return (None, None, None, None, None, *grads)
+        need = ctx.needs_input_grad[6:]
+        flat_shapes = [s for grp in ctx.shapes for s in grp]
+        if not any(need) or all(c is None for c in cts):
+            return (None,) * (6 + len(flat_shapes))
+        grads = ctx.backward_fn(cts, ctx.shapes, ctx.program, ctx.n_taps,
+                                ctx.saved_tensors)
+        flat = [g for grp in grads for g in grp]
+        return (None,) * 6 + tuple(
+            g.sum_to_size(shp) if n else None
+            for g, shp, n in zip(flat, flat_shapes, need))
 
 
 def cycle_segment(exts, regs0, states, program, n_taps: int):
@@ -288,7 +656,7 @@ def cycle_segment(exts, regs0, states, program, n_taps: int):
     docstring).  Dispatch is by the feeds' device alone: CPU tensors take
     ``interpret``, CUDA tensors the cycle kernel, which raises on what it
     cannot take; on the card an operand that requires grad goes through
-    ``CycleSegment`` (the kernel forward, ``interpret``'s vjp backward)."""
+    ``CycleSegment`` (the kernel forward, the reverse kernel backward)."""
     program = tuple(program)
     exts = tuple(torch.as_tensor(e, dtype=_F32) for e in exts)
     if not exts:
@@ -298,20 +666,21 @@ def cycle_segment(exts, regs0, states, program, n_taps: int):
         return interpret(exts, tuple(regs0), tuple(states), program, n_taps)
     if dev.type != "cuda":
         raise ValueError(f"cycle_segment: no kernel for device {dev}")
-    return run_cycle(_kernel_cycle, exts, tuple(regs0), tuple(states),
-                     program, n_taps)
+    return run_cycle(_kernel_cycle, _kernel_cycle_adjoint, exts,
+                     tuple(regs0), tuple(states), program, n_taps)
 
 
-def run_cycle(forward, exts: tuple, regs0: tuple, states: tuple,
+def run_cycle(forward, backward, exts: tuple, regs0: tuple, states: tuple,
               program: tuple, n_taps: int):
     """``forward(exts, regs0, states, program, n_taps)``, through
-    ``CycleSegment`` when autograd must see it (the card's dispatch; a test
-    passes the plain version as ``forward``)."""
+    ``CycleSegment`` with ``backward`` when autograd must see it (the
+    card's dispatch; a test passes the plain versions, ``interpret`` and
+    ``interpret_adjoint``)."""
     if not needs_grad((*exts, *regs0, *states)):
         return forward(exts, regs0, states, program, n_taps)
     dev = exts[0].device
     regs0, states = (tuple(torch.as_tensor(t, dtype=_F32, device=dev)
                            for t in ts) for ts in (regs0, states))
     return unflatten_outputs(CycleSegment.apply(
-        forward, program, n_taps, len(exts), len(regs0), *exts, *regs0,
-        *states), program, n_taps)
+        forward, backward, program, n_taps, len(exts), len(regs0), *exts,
+        *regs0, *states), program, n_taps)

@@ -4,12 +4,14 @@ JAX package's custom_vjp's: the chain segment (ops/chain_segment.py,
 (ops/cycle_segment.py, ``CycleSegment``), alone and through
 ``compile_graph``.
 
-On the card the Functions run the chain and cycle kernels forward and the
-vjp of the plain composition backward.  Here the forward is the plain
-version under no_grad (``run_segment`` / ``run_cycle`` with
-``segment_fallback`` / ``interpret`` standing in for the kernel), or the
-JAX Pallas kernel in interpret mode behind the kernel path's raw-output
-rebuild; the backward is the one the card runs.  Through
+On the card the Functions run the chain and cycle kernels forward; the
+chain segment's backward is the vjp of the plain composition, the
+cycle's the reverse cycle kernel.  Here the forward is the plain version
+under no_grad (``run_segment`` / ``run_cycle`` with ``segment_fallback``
+/ ``interpret`` standing in for the kernel), or the JAX Pallas kernel in
+interpret mode behind the kernel path's raw-output rebuild; the chain's
+backward is the one the card runs, the cycle's the reverse kernel's
+plain version ``interpret_adjoint``.  Through
 ``compile_graph`` the chain_segment and cycle_segment calls are routed the
 way the card routes them (``_card_dispatch``), so the planner's fused
 paths, its split of a mega run at an overridden member included, take
@@ -17,9 +19,9 @@ the Functions.
 
 Bound: every gradient, max-normalized (max |got - want| / max |want|
 over the array), <= 1e-3 (PERF.md section 2's gradient bound; the worst
-measured on the CPU is printed by each test, about 1e-6).  The Function's
-gradients against autograd straight through the plain composition:
-bitwise (the backward re-runs that composition).
+measured on the CPU is printed by each test, about 1e-6).  The chain
+Function's gradients against autograd straight through the plain
+composition: bitwise (the backward re-runs that composition).
 """
 
 import jax
@@ -357,7 +359,8 @@ def _program_inputs(program, B, T, seed):
 @pytest.mark.parametrize("name", ["config5", "mega_cycle_2",
                                   "mega_cycle_10"])
 def test_cycle_segment_grad_matches_jax(name, which):
-    """CycleSegment with interpret standing in for the kernel: the
+    """CycleSegment with the plain versions standing in for the kernels
+    (interpret forward, interpret_adjoint backward): the
     gradients of every feed, register and state against jax.grad of the
     JAX cycle_segment (its custom_vjp: the vjp of its interpret), with
     cotangents on every output or on the taps alone."""
@@ -382,14 +385,15 @@ def test_cycle_segment_grad_matches_jax(name, which):
             loss, argnums=(0, 1, 2)))(exts, regs, states))
     calls = []
 
-    def forward(e, r, s, prog, nt):
+    def forward(e, r, s, prog, nt, **kw):
         calls.append(torch.is_grad_enabled())
-        return tcyc.interpret(e, r, s, prog, nt)
+        return tcyc.interpret(e, r, s, prog, nt, **kw)
 
     ins = [tuple(torch.tensor(a, requires_grad=True) for a in group)
            for group in (exts, regs, states)]
     with tprec.policy("fast"):
-        out = tcyc.run_cycle(forward, *ins, program, n_taps)
+        out = tcyc.run_cycle(forward, tcyc.interpret_adjoint, *ins, program,
+                             n_taps)
         flat = tcyc.flatten_outputs(out)
         sum((flat[i] * torch.from_numpy(ws[i])).sum() for i in idx
             ).backward()
@@ -414,15 +418,15 @@ def _card_dispatch(monkeypatch):
         calls["chain"].append(torch.is_grad_enabled())
         return tcs.segment_fallback(x, stages, state_in)
 
-    def cycle_fwd(e, r, s, program, n_taps):
+    def cycle_fwd(e, r, s, program, n_taps, **kw):
         calls["cycle"].append(torch.is_grad_enabled())
-        return tcyc.interpret(e, r, s, program, n_taps)
+        return tcyc.interpret(e, r, s, program, n_taps, **kw)
 
     monkeypatch.setattr(tcs, "chain_segment", lambda x, stages, st: (
         tcs.run_segment(chain_fwd, x, tuple(stages), tuple(st))))
     monkeypatch.setattr(tcomp, "cycle_segment", lambda e, r, s, p, n: (
-        tcyc.run_cycle(cycle_fwd, tuple(e), tuple(r), tuple(s), tuple(p),
-                       n)))
+        tcyc.run_cycle(cycle_fwd, tcyc.interpret_adjoint, tuple(e), tuple(r),
+                       tuple(s), tuple(p), n)))
     return calls
 
 

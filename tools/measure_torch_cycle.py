@@ -15,7 +15,10 @@ rebuilt states in max abs).
 With --check it stops there.  Otherwise it times with CUDA events (median
 of 5 after a warm-up) at T = 10 s of 48 kHz audio the cycle kernel on
 config5's program at B = 128 and 512, with its bound
-(chip_smoke.cycle_bound), and the envelope kernel chunked at B = 128 and
+(chip_smoke.cycle_bound), its reverse (csrc/cycle_reverse_kernel.cu, the
+kernel path of cycle_segment's backward) there, with its bound and floor
+(chip_smoke.cycle_reverse_bound, cycle_reverse_floor_ms at the SM clock
+chip_smoke assumes), and the envelope kernel chunked at B = 128 and
 512 and sequential at B = 4 x 48,000, each beside its dependent-chain
 floor: the FP32 operations on the path a row cannot start before the
 last one ended (a block's path from the registers the previous block set
@@ -98,8 +101,8 @@ def checks(cs, dev, rng) -> list:
 def times(cs, dev, rng, card) -> None:
     import torch
     from dsp_stuff_tpu_torch.models import presets
-    from dsp_stuff_tpu_torch.ops import cycle_kernel, envelope, \
-        envelope_kernel
+    from dsp_stuff_tpu_torch.ops import cycle_kernel, cycle_segment, \
+        envelope, envelope_kernel
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -116,6 +119,17 @@ def times(cs, dev, rng, card) -> None:
               f"chain floor {floor_ms(T // 128, ops, mhz):.3f} ms ({ops} "
               f"operations a block at {mhz:.0f} MHz) [{card}]")
         del ins
+        cts, shapes, recs = cs.reverse_inputs(program, n_taps, b, T, rng, dev)
+        ms = cs.cuda_ms(lambda: cycle_segment._kernel_cycle_adjoint(
+            cts, shapes, program, n_taps, recs))
+        bms, bby = cs.cycle_reverse_bound(program, b, T)
+        fl = cs.cycle_reverse_floor_ms(program, T)
+        print(f"reverse cycle kernel, config5 program, B={b} x 10 s: "
+              f"{ms:.3f} ms, bound {bms:.3f} ms by {bby} ({bms / ms:.1%}), "
+              f"dependent-chain floor {fl:.3f} ms "
+              f"({cs.reverse_block_path_ops(program)} operations a block) "
+              f"[{card}]")
+        del cts, recs
     atk = envelope.gain_from_frames(50.0)
     rel = envelope.gain_from_frames(400.0)
     gains = cs.env_gains(atk, rel, dev)
@@ -162,7 +176,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import chip_smoke as cs
-    from dsp_stuff_tpu_torch.ops import cuda_build, cycle_kernel
+    from dsp_stuff_tpu_torch.ops import (cuda_build, cycle_kernel,
+                                         cycle_reverse_kernel)
     from dsp_stuff_tpu_torch.utils import precision
 
     card = subprocess.run(
@@ -184,8 +199,13 @@ def main() -> int:
     jobs = [("envelope_kernel", (), "")] + [
         ("cycle_kernel", d, cycle_kernel.source_for(p, budget))
         for p in cases.values()]
-    for name, (lib, log) in zip(["envelope_kernel", *cases],
-                                cuda_build.build_jobs(jobs)):
+    names = ["envelope_kernel", *cases]
+    if "--phases" not in sys.argv and "--check" not in sys.argv:
+        jobs.append(("cycle_reverse_kernel", (),
+                     cycle_reverse_kernel.source_for(
+                         cases["config5 ring wraps"], budget)))
+        names.append("reverse (config5)")
+    for name, (lib, log) in zip(names, cuda_build.build_jobs(jobs)):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}{list(d) or ''} ptxas: {line.strip()}")
