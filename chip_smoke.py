@@ -89,9 +89,11 @@ device="cuda")``:
   port's three example scripts (dsp_stuff_tpu_torch/examples/) in
   subprocesses;
 * the exact policy: the sequential kernel (csrc/sequential_kernel.cu;
-  first order with a scalar and a per-sample coefficient, DF1 biquad)
-  bitwise against its plain version at [512, 4096], at edge shapes and on
-  rows not 16-byte aligned; the bench chain over 512 streams x 10 s under
+  first order with a scalar and a per-sample coefficient, DF1 biquad;
+  its build's ptxas report shows no spill) bitwise against its plain
+  version at [512, 4096], at edge shapes, at its tile edges (a tile of
+  SEQ_RUN samples +- 1, two tiles + 1, R = 33) and on rows not 16-byte
+  aligned; the bench chain over 512 streams x 10 s under
   exact (three sequential launches, no chain kernel, no plain version;
   against bench.oracle_chain and the CPU port's exact render, each
   figure with whether it is bitwise; render time and peak memory); the
@@ -111,8 +113,10 @@ device="cuda")``:
   at 2 x 1 s;
   every slider of config2 and config5 against the CPU port and one Adam
   step of config2 at 128 x 10 s; the sequential kernel's reverse mode
-  against its plain version ([512, 4096], edge shapes, and the exact
-  gradient's [4, 48000], where both are timed) and against a float64
+  against its plain version, its sample adjoints and initial-state
+  gradients bitwise ([512, 4096], edge shapes, its tile edges, rows not
+  16-byte aligned, and the exact gradient's [4, 48000], where both are
+  timed) and against a float64
   adjoint at [512, 480,000], where it is timed against its chain floor;
   the bench chain's 16 slider gradients under exact at 4 x 1 s (three
   forward and three reverse sequential launches, no plain loop) and an
@@ -228,6 +232,11 @@ EXACT_DB = -90.0          # exact on the card vs the oracle (the JAX bound)
 SEQ_B, SEQ_T = 512, 4096  # the sequential kernel vs its plain version
 SEQ_EDGE_SHAPES = ((1, 1), (8, 1), (1, 2), (8, 2), (1, 127), (8, 127),
                    (1, 128), (8, 128), (1, 129), (8, 129), (3, 1001))
+# the kernel's tile edges (SQ_RUN samples a tile, 32 rows a CTA,
+# csrc/sequential_kernel.cu): a tile +- 1, two tiles + 1, R = 33
+SEQ_RUN = 64
+SEQ_TILE_SHAPES = ((33, SEQ_RUN - 1), (33, SEQ_RUN), (33, SEQ_RUN + 1),
+                   (33, 2 * SEQ_RUN + 1), (33, 4096))
 SEQ_MODES = ("first_order", "first_order:per-sample", "biquad")
 SEQ_COEFFS = (-1.8, 0.81, 0.1, 0.2, 0.1)   # a resonant biquad
 SEQ_A = 0.9173            # the first order's scalar coefficient
@@ -2732,6 +2741,17 @@ def runtime_phase(dev, card) -> dict:
 
 # -- the exact policy on the card ---------------------------------------------
 
+def seq_array(arr, dev, offset=0):
+    """``arr`` as a float32 tensor on ``dev`` that starts ``offset`` floats
+    into its storage (1: not 16-byte aligned)."""
+    import torch
+    arr = torch.as_tensor(np.asarray(arr, np.float32))
+    flat = torch.empty(arr.numel() + offset, dtype=torch.float32, device=dev)
+    t = flat[offset:].view(arr.shape)
+    t.copy_(arr)
+    return t
+
+
 def seq_inputs(mode, R, T, rng, dev, offset=0):
     """The sequential kernel's inputs in ``mode`` (SEQ_MODES) at [R, T] on
     ``dev``: (a, b, y0) for the first order, (x, coeffs, state [R, 4]) for
@@ -2740,11 +2760,7 @@ def seq_inputs(mode, R, T, rng, dev, offset=0):
     import torch
 
     def on_dev(arr):
-        arr = np.asarray(arr, np.float32)
-        flat = torch.empty(arr.size + offset, dtype=torch.float32, device=dev)
-        t = flat[offset:].view(arr.shape)
-        t.copy_(torch.from_numpy(arr))
-        return t
+        return seq_array(arr, dev, offset)
 
     x = on_dev(rng.standard_normal((R, T)) * 0.5)
     if mode == "biquad":
@@ -3010,16 +3026,19 @@ def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
           "bitwise the CPU's")
     rng = np.random.default_rng(90)
     print(f"sequential kernel vs plain, bitwise, [{SEQ_B}, {SEQ_T}], edge "
-          f"shapes {SEQ_EDGE_SHAPES}, unaligned rows:")
+          f"shapes {SEQ_EDGE_SHAPES}, tile edges {SEQ_TILE_SHAPES}, "
+          f"unaligned rows:")
     for mode in SEQ_MODES:
         errs = [seq_check(mode, SEQ_B, SEQ_T, rng, dev)]
-        for r, t in SEQ_EDGE_SHAPES:
+        for r, t in SEQ_EDGE_SHAPES + SEQ_TILE_SHAPES:
             if mode != "biquad" or t >= 2:
                 errs.append(seq_check(mode, r, t, rng, dev))
         errs += [seq_check(mode, 3, 1001, rng, dev, offset=1),
-                 seq_check(mode, 8, 4096, rng, dev, offset=1)]
+                 seq_check(mode, 8, 4096, rng, dev, offset=1),
+                 seq_check(mode, 33, 2 * SEQ_RUN + 1, rng, dev, offset=1)]
         rec[f"{mode}:err"] = max(errs)
-    print(f"  {len(SEQ_EDGE_SHAPES)} edge shapes a mode: bitwise")
+    print(f"  {len(SEQ_EDGE_SHAPES) + len(SEQ_TILE_SHAPES)} edge shapes a "
+          f"mode: bitwise")
 
     # the bench chain at full width
     g = bench_graph()
@@ -3327,15 +3346,17 @@ def grad_split(name, cg, x, target, card) -> dict:
     return rec
 
 
-def seq_rev_inputs(mode, R, T, rng, dev):
+def seq_rev_inputs(mode, R, T, rng, dev, offset=0):
     """The forward solve's inputs in ``mode``'s forward form, its output y
-    (the sequential kernel's) and a cotangent ybar, [R, T] on ``dev``."""
-    import torch
+    (the sequential kernel's) and a cotangent ybar, [R, T] on ``dev``;
+    ``offset`` as for seq_inputs, y and ybar too."""
     fwd = SEQ_REV[mode]
-    ins = seq_inputs(fwd, R, T, rng, dev)
+    ins = seq_inputs(fwd, R, T, rng, dev, offset)
     y = seq_kernel(fwd, ins)[0]
-    ybar = torch.as_tensor(rng.standard_normal((R, T), dtype=np.float32),
-                           device=dev)
+    if offset:
+        y = seq_array(y.cpu(), dev, offset)
+    ybar = seq_array(rng.standard_normal((R, T), dtype=np.float32), dev,
+                     offset)
     return ins, y, ybar
 
 
@@ -3418,9 +3439,10 @@ def seq_rev_f64(mode, ins, y, ybar):
     return {"lam": lam, "y0bar": y0bar}, p.sum().reshape(1)
 
 
-def seq_rev_compare(mode, got, want, label, limit, rtol):
+def seq_rev_compare(mode, got, want, label, limit, rtol, bitwise=False):
     """Sample adjoints within ``limit`` dBFS (printed with whether they are
-    bitwise), coefficient gradients within ``rtol``; returns (worst dBFS,
+    bitwise; with ``bitwise`` they must be, the initial state's gradient
+    too), coefficient gradients within ``rtol``; returns (worst dBFS,
     worst coefficient error, the samples' max abs difference)."""
     import torch
     arrs_g, coef_g = got
@@ -3431,6 +3453,9 @@ def seq_rev_compare(mode, got, want, label, limit, rtol):
         worst = max(worst, dbfs_dev(g, w))
         abs_err = max(abs_err, float((g.double() - w.double()).abs().max()))
         same = same and g.dtype == w.dtype and bool(torch.equal(g, w))
+    check(same or not bitwise, f"{mode} {label}: the sample adjoints or the "
+                               f"initial state's gradient are not bitwise "
+                               f"the plain version's")
     cerr = 0.0
     if coef_g.numel():
         cerr = float(((coef_g - coef_w).abs()
@@ -3668,12 +3693,16 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
     rng_s = np.random.default_rng(122)
     for mode in SEQ_REV:
         errs = []
-        for r, t in ((SEQ_B, SEQ_T), (1, 1), (5, 2), (33, 3), (3, 130)):
-            ins, y, ybar = seq_rev_inputs(mode, r, t, rng_s, dev)
+        for r, t, off in ((SEQ_B, SEQ_T, 0), (1, 1, 0), (5, 2, 0), (33, 3, 0),
+                          (3, 130, 0), *((r, t, 0) for r, t in
+                                         SEQ_TILE_SHAPES),
+                          (3, 1001, 1), (33, 2 * SEQ_RUN + 1, 1)):
+            ins, y, ybar = seq_rev_inputs(mode, r, t, rng_s, dev, off)
             errs.append(seq_rev_compare(
                 mode, seq_rev_parts(mode, seq_rev_kernel(mode, ins, y, ybar)),
                 seq_rev_parts(mode, seq_rev_plain(mode, ins, y, ybar)),
-                f"[{r}, {t}]", SEQ_REV_DB, SEQ_REV_RTOL)[2])
+                f"[{r}, {t}]" + (" unaligned" if off else ""), SEQ_REV_DB,
+                SEQ_REV_RTOL, bitwise=True)[2])
         rec[f"{mode}:err"] = max(errs)
     print(f"sequential kernel, reverse mode, [{B_MAIN}, {t_main}]: vs the "
           f"float64 adjoint, and timed [{time.time() - t_phase:.0f} s]:")
@@ -3709,7 +3738,7 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
         t1.record()
         torch.cuda.synchronize()
         err = seq_rev_compare(mode, k, p, f"[{B_EXACT}, {SR}]", SEQ_REV_DB,
-                              SEQ_REV_RTOL)[2]
+                              SEQ_REV_RTOL, bitwise=True)[2]
         rec[f"{mode}:err"] = max(rec[f"{mode}:err"], err)
         bms, bby = seq_rev_bound(mode, B_EXACT, SR)
         floor = seq_floor_ms(SEQ_REV[mode], SR)
@@ -4025,6 +4054,11 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print("    ptxas:", line.strip())
+        if label == "sequential_kernel":
+            spills = [ln for ln in log.splitlines() if "spill" in ln]
+            check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+                      for ln in spills),
+                  f"the sequential kernel spills: {spills}")
 
     rng = np.random.default_rng(0)
     # the new kernels' checks draw from their own generator, so the bench

@@ -4,9 +4,15 @@ bind and launch.
 The kernel runs the exact policy's linear recurrences one sample after the
 other in the reference's operation order, one thread a row: the first
 order y[t] = a y[t-1] + b[t] (a scalar or per-sample a) and the DF1 biquad
-b0 x + b1 x1 + b2 x2 - a1 y1 - a2 y2.  The JAX package has no TPU kernel
-for them: its exact policy runs them as ``lax.scan`` loops
-(dsp_stuff_tpu/ops/scan.py:_first_order_sequential and
+b0 x + b1 x1 + b2 x2 - a1 y1 - a2 y2.  A CTA owns 32 rows and gives each
+of its warps one job: a memory warp stages tiles of 64 samples in a
+shared-memory ring and writes results back, a chain warp runs the
+recurrence, and a prep warp (the biquad's x terms) or the reverse mode's
+epilogue warps (everything computed from the chain's tile: sample
+adjoints, the coefficients' float64 sums) do the rest; the CPU model of
+that schedule is tests/test_torch_sequential_tiles.py.  The JAX package
+has no TPU kernel for them: its exact policy runs them as ``lax.scan``
+loops (dsp_stuff_tpu/ops/scan.py:_first_order_sequential and
 _biquad_sequential), of which the kernel is the counterpart on the card.
 It is CUDA C++ for sm_90a, built by ops/cuda_build.py at first use and
 bound with ``ctypes``.  Nothing is imported, built or loaded when this
