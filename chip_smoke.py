@@ -130,8 +130,10 @@ device="cuda")``:
   HardClip loop at [1, 128], [1, 256] and 64 x 4096, config5's ring
   wrapped three times, a ring in device memory, the 56-instruction
   program, every fuzz graph's cycle program, and config5's at the main
-  path's 128 x 10 s, where it is timed against its plain version, its
-  bound and its dependent-chain floor; the forward's record build
+  path's 128 x 10 s, where it is timed (the time of its path, "ms" in
+  the kernels line as every kernel's, and its own device time by
+  torch.profiler, "device_ms") against its plain version, its bound and
+  its dependent-chain floor; the forward's record build
   bitwise its render build;
 
 and times every kernel against its plain version (the chain kernel on
@@ -802,6 +804,35 @@ def cuda_ms(fn, n=N_TIMED, inner=1):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
+
+
+def kernel_device_ms(fn, name: str, n: int = 10):
+    """(device ms a launch, launches seen) of the kernels whose name holds
+    ``name`` over n calls of fn, from torch.profiler after a warm-up (the
+    trace loses the first device records of a profile: PROFILE_LEAD_IN
+    spin kernels take that loss ahead of the calls).  Up to PROFILE_TRIES
+    profiles are taken and the first that shows all n launches is kept;
+    (None, the launches the last one showed) when none does: not
+    measured."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    count = 0
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD_IN):
+                torch.cuda._sleep(1000)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in evs)
+        if count == n:
+            return sum(e.self_device_time_total for e in evs) / n / 1e3, n
+    return None, count
 
 
 def in_turns(fk, fp, n_plain=N_TIMED):
@@ -3977,18 +4008,26 @@ def cycle_reverse_phase(dev, card) -> dict:
         _, err = compare_reverse(f"config5 [{B_C5}, {T_MAIN}]", k, p)
         del k, p
         torch.cuda.empty_cache()
-        ms = cuda_ms(run)
-    rec = dict(ms=ms, plain_ms=e0.elapsed_time(e1), err=err,
-               bound=cycle_reverse_bound(program, B_C5, T_MAIN),
+        path_ms = cuda_ms(run)
+        ms, n_prof = kernel_device_ms(run, "cycle_reverse_kernel")
+    # "ms" is the path's time, as every kernel's in the kernels line; the
+    # kernel's own device time goes beside it as "device_ms"
+    rec = dict(ms=path_ms, device_ms=ms, plain_ms=e0.elapsed_time(e1),
+               err=err, bound=cycle_reverse_bound(program, B_C5, T_MAIN),
                floor=cycle_reverse_floor_ms(program, T_MAIN))
     bms, bby = rec["bound"]
+    dev = (f"{ms:.3f} ms the kernel's device time ({n_prof} launches "
+           f"profiled)" if ms is not None else
+           f"the kernel's device time not measured (no profile showed its "
+           f"launches, the last {n_prof})")
     print(f"reverse cycle kernel, config5's program, [{B_C5}, {T_MAIN}]: "
-          f"{ms:.3f} ms (the kernel's path, median of {N_TIMED}), its plain "
-          f"version {rec['plain_ms']:.1f} ms (one call); bound {bms:.3f} ms "
-          f"by {bby} ({bms / ms:.1%} of it), dependent-chain floor "
-          f"{rec['floor']:.3f} ms ({reverse_block_path_ops(program)} "
-          f"operations a block at {SM_CLOCK_GHZ} GHz, {rec['floor'] / ms:.1%}"
-          f" of it) [{card}]")
+          f"{dev}, {path_ms:.3f} ms the kernel's path (median of "
+          f"{N_TIMED}), its plain version {rec['plain_ms']:.1f} ms (one "
+          f"call); bound {bms:.3f} ms by {bby} ({bms / path_ms:.1%} of the "
+          f"path), dependent-chain floor {rec['floor']:.3f} ms "
+          f"({reverse_block_path_ops(program)} operations a block at "
+          f"{SM_CLOCK_GHZ} GHz, {rec['floor'] / (ms or path_ms):.1%} of the "
+          f"{'kernel' if ms is not None else 'path'}) [{card}]")
     print(f"reverse cycle phase: {time.time() - t_phase:.1f} s")
     return rec
 
@@ -4470,7 +4509,7 @@ def main() -> int:
               "dsp_stuff_tpu/ops/cycle_segment.py:270",
               gr["c5_input"]["bwd"]["cycle_reverse"], rv["err"],
               (rv["ms"], rv["plain_ms"]), rv["bound"], floor_ms=rv["floor"],
-              shape=[B_C5, T_MAIN]),
+              device_ms=rv["device_ms"], shape=[B_C5, T_MAIN]),
         entry("envelope_kernel:chunked", "envelope_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_envelope.py:203",
               c5_launches["envelope"], rec["chunk_err"], times["env_chunk"],

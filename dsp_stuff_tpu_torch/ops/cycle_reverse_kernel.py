@@ -22,7 +22,8 @@ combs' future adjoints.
 ``cycle_reverse_call`` takes only CUDA tensors and raises on anything the
 kernel cannot take; there is no fallback.  Its plain PyTorch version is
 ops/cycle_segment.interpret_adjoint.  ``LAUNCHES`` counts the kernel's
-launches.
+launches.  ``phase_cycles`` runs the build with the kernel's phase probes
+(tools/measure_torch_cycle.py --phases).
 """
 
 from __future__ import annotations
@@ -40,6 +41,16 @@ from dsp_stuff_tpu_torch.ops.cycle_segment import _tanh20
 
 #: launches of the kernel in this process (a test or a smoke run resets it)
 LAUNCHES = 0
+#: shared memory an SM holds on the card the kernels are built for (sm_90a,
+#: 228 KiB), and what a CTA takes beside its dynamic shared memory (the
+#: 1 KiB the system reserves, the kernel's static arrays)
+SM_SMEM, CTA_SMEM = 233_472, 1024 + 64
+#: the most CTAs an SM the kernel's launch bound asks room for: four cap a
+#: thread at 128 registers, one wave at 512 rows on 132 SMs
+MAX_CTAS = 4
+#: the probes' CR_PH_* order in csrc/cycle_reverse_kernel.cu
+PHASES = ("stage", "join", "product", "carry", "comb", "ew", "feeds",
+          "barrier", "block loop")
 
 # The packed tables' records, mirrored field for field by
 # csrc/cycle_reverse_kernel.cu (CrHeader, CrCasc, CrComb).
@@ -59,12 +70,11 @@ _TABLES = ("gext", "src", "greg_in", "greg_out", "casc", "comb")
 _RECORDS = {"casc": CASC, "comb": COMB}
 
 
-@functools.lru_cache(maxsize=16)
-def _lib(source: str) -> ctypes.CDLL:
-    """The reverse kernel's library for the generated block adjoint
-    ``source``, bound, its record sizes and layout constants checked
-    against this module's and the forward's."""
-    lib = cuda_build.load("cycle_reverse_kernel", (), source)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures on a build of the reverse kernel (this
+    module's, or another checkout's that a measuring tool loads) and check
+    its record sizes and layout constants against this module's and the
+    forward's: raises when they differ."""
     for name in ("cycle_reverse_abi", "cycle_reverse_shape"):
         getattr(lib, name).restype = ctypes.c_int
     lib.cycle_reverse_shape.argtypes = [ctypes.c_int]
@@ -86,6 +96,13 @@ def _lib(source: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=16)
+def _lib(source: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The reverse kernel's library for the generated block adjoint
+    ``source``, built with ``defines``, bound."""
+    return bind(cuda_build.load("cycle_reverse_kernel", defines, source))
+
+
 def counts(program: tuple):
     """(n_casc, n_comb, n_regs, n_taps, n_exts, n_ew) of a block program,
     checked by the forward's ``plan``: raises on what the kernels cannot
@@ -94,21 +111,42 @@ def counts(program: tuple):
             sum(1 for ins in program if ins[0] == "ew"))
 
 
-def reverse_source(program: tuple, casc_smem: tuple, ring_smem: tuple) -> str:
+def ctas_an_sm(smem_bytes: int) -> int:
+    """The CTAs an SM the kernel's launch bound asks room for (CR_CTAS):
+    as many as an SM's shared memory holds at ``smem_bytes`` of dynamic
+    shared memory a CTA, from 1 to MAX_CTAS.  More would cap a thread's
+    registers for CTAs that cannot be resident."""
+    return max(1, min(MAX_CTAS, SM_SMEM // (smem_bytes + CTA_SMEM)))
+
+
+def reverse_source(program: tuple, casc_smem: tuple, ring_smem: tuple,
+                   ctas: int = MAX_CTAS) -> str:
     """The generated header of the reverse kernel for ``program``: CY_NREG,
-    CY_NEXT, CY_BLOCK_BARRIER and cy_block_adjoint, one line per
-    instruction of the program in reverse order, each ending in a comment
-    with its index and op, the rules of cycle_segment.interpret_adjoint in
-    its order of operations; ``casc_smem`` and ``ring_smem`` say per
-    cascade and per comb whether its constants or ring are in shared
-    memory.  Raises on what ``plan`` refuses."""
+    CY_NEXT, CY_NSRC, CY_NCOMB, CY_BLOCK_BARRIER, CR_CTAS (``ctas``, the
+    launch bound's CTAs an SM), CR_HOLD_* for a program of one cascade
+    (its constants held in registers), and cy_block_adjoint
+    (left out when the kernel reads the sizes alone, CR_SIZES_ONLY), one
+    line per instruction of the program in reverse order, each ending in a
+    comment with its index and op, the rules of
+    cycle_segment.interpret_adjoint in its order of operations;
+    ``casc_smem`` and ``ring_smem`` say per cascade and per comb whether
+    its constants or ring are in shared memory.  Raises on what ``plan``
+    refuses."""
     n_c, n_b, n_r, n_t, n_e, n_ew = counts(program)
     lit = cycle_kernel._lit
     out = [f"#define CY_NREG {max(n_r, 1)}",
            f"#define CY_NEXT {max(n_e, 1)}",
+           f"#define CY_NSRC {n_t + n_ew}",
+           f"#define CY_NCOMB {n_b}",
            f"#define CY_BLOCK_BARRIER {int(n_c == 0 and n_b > 0)}",
-           "__device__ __forceinline__ void cy_block_adjoint(CrCtx& x, "
-           "float (&g)[CY_NREG]) {",
+           f"#define CR_CTAS {int(ctas)}"]
+    if n_c == 1:                # its constants stay in registers
+        secs = next(ins[1] for ins in program if ins[0] == "cascade")
+        out += [f"#define CR_HOLD_N {_casc_consts(secs)[4]}",
+                f"#define CR_HOLD_SM {'true' if casc_smem[0] else 'false'}"]
+    out += ["#ifndef CR_SIZES_ONLY",
+            "__device__ __forceinline__ void cy_block_adjoint(CrCtx& x, "
+            "float (&g)[CY_NREG], const CrHold& hold) {",
            "  float f = 0.0f, s = 0.0f, sa = 0.0f, sb = 0.0f;",
            "  float e[CY_NEXT] = {};"]
 
@@ -142,8 +180,9 @@ def reverse_source(program: tuple, casc_smem: tuple, ring_smem: tuple) -> str:
         elif op == "cascade":
             ci = int(ins[2])
             sm = "true" if casc_smem[ci] else "false"
-            st = [f"f = cr_cascade<{_casc_consts(ins[1])[4]}, {sm}>(x, "
-                  f"{ci}, f);"]
+            N = _casc_consts(ins[1])[4]
+            st = [f"f = cr_cascade_held<{N}>(x, {ci}, f, hold);" if n_c == 1
+                  else f"f = cr_cascade<{N}, {sm}>(x, {ci}, f);"]
         elif op == "join":
             st = [f"s = f * {lit(ins[2])};" if ins[2] != 1.0 else "s = f;"]
             st += terms(ins[1], "s") + ["f = 0.0f;"]
@@ -154,7 +193,7 @@ def reverse_source(program: tuple, casc_smem: tuple, ring_smem: tuple) -> str:
             st += [f"sb = sb * {lit(sB)};"] if sB != 1.0 else []
             st += terms(tA, "sa") + terms(tB, "sb") + ["f = 0.0f;"]
         out.append("  " + " ".join(st) + f"  // {i} {op}")
-    out += ["  cr_feeds(x, e);", "}"]
+    out += ["  cr_feeds(x, e);", "}", "#endif"]
     return "\n".join(out) + "\n"
 
 
@@ -173,10 +212,11 @@ def placement(program: tuple, budget: int):
 
 def source_for(program: tuple, budget: int) -> str:
     """The generated block adjoint of ``program`` under the placement its
-    shared-memory plan gives at ``budget``."""
-    (_, _, consts, rings, _), _ = placement(tuple(program), budget)
+    shared-memory plan gives at ``budget``, and the launch bound that
+    plan's size leaves."""
+    (_, _, consts, rings, total), _ = placement(tuple(program), budget)
     return reverse_source(tuple(program), tuple(o >= 0 for o in consts),
-                          tuple(o >= 0 for o in rings))
+                          tuple(o >= 0 for o in rings), ctas_an_sm(total))
 
 
 def _layout(sizes: dict):
@@ -254,6 +294,35 @@ def cycle_reverse_call(ct_taps: tuple, ct_regs: tuple, seeds: tuple,
     n_ew x [B, T], the shapers' inputs (the forward's record build) ->
     (feed gradients n_ext x [B, T], register gradients n_r x [B, 128],
     per cascade [B, 8] (its carry lanes), per comb [B, D])."""
+    return _run(ct_taps, ct_regs, seeds, ct_hists, recs, program, n_ext, B,
+                T, dev)
+
+
+def phase_cycles(ct_taps: tuple, ct_regs: tuple, seeds: tuple,
+                 ct_hists: tuple, recs: tuple, program: tuple, n_ext: int,
+                 B: int, T: int, dev) -> np.ndarray:
+    """``cycle_reverse_call`` once in the kernel's build with its phase
+    probes (-DCR_PHASES), for tools/measure_torch_cycle.py --phases:
+    returns the clock cycles threads 0 and 127 of each CTA (of the first
+    4096) spent in each phase, uint64 [CTAs, 2, len(PHASES)]."""
+    _run(ct_taps, ct_regs, seeds, ct_hists, recs, program, n_ext, B, T, dev,
+         ("CR_PHASES",))
+    lib = _lib(source_for(tuple(program), cycle_kernel.budget_of(dev)),
+               ("CR_PHASES",))
+    lib.cycle_reverse_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.cycle_reverse_phases.restype = ctypes.c_int
+    torch.cuda.synchronize(dev)
+    buf = np.zeros((min(B, 4096), 2, len(PHASES)), np.uint64)
+    rc = lib.cycle_reverse_phases(buf.ctypes.data, buf.shape[0])
+    if rc:
+        raise RuntimeError(f"reading the phase counters: CUDA error {rc}")
+    return buf
+
+
+def _run(ct_taps: tuple, ct_regs: tuple, seeds: tuple, ct_hists: tuple,
+         recs: tuple, program: tuple, n_ext: int, B: int, T: int, dev,
+         defines: tuple = ()):
+    """``cycle_reverse_call`` in the kernel's build with ``defines``."""
     global LAUNCHES
     program = tuple(program)
     n_c, n_b, n_r, n_t, n_e, n_ew = counts(program)
@@ -274,7 +343,8 @@ def cycle_reverse_call(ct_taps: tuple, ct_regs: tuple, seeds: tuple,
     (sec, cbuf, sm_consts, sm_rings, smem_bytes), _ = placement(
         program, cycle_kernel.budget_of(dev))
     source = reverse_source(program, tuple(o >= 0 for o in sm_consts),
-                            tuple(o >= 0 for o in sm_rings))
+                            tuple(o >= 0 for o in sm_rings),
+                            ctas_an_sm(smem_bytes))
 
     def empty(n):
         return torch.empty((B, n), dtype=torch.float32, device=dev)
@@ -336,7 +406,7 @@ def cycle_reverse_call(ct_taps: tuple, ct_regs: tuple, seeds: tuple,
 
     buf = pack_tables(n_r, tables, sec, smem_bytes)
     prog = to_device(buf, dev)
-    rc = _lib(source).cycle_reverse_launch(
+    rc = _lib(source, tuple(defines)).cycle_reverse_launch(
         prog.data_ptr(), buf.size, smem_bytes, B, T, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

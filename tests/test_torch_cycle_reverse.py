@@ -37,6 +37,7 @@ from dsp_stuff_tpu.ops import cycle_segment as jcyc
 from dsp_stuff_tpu.train import fit as jfit
 from dsp_stuff_tpu.utils import precision as jprec
 import dsp_stuff_tpu_torch as dt
+import test_torch_cycle_reverse_tiles as tiles
 import test_torch_fuzz_gen as gen
 from dsp_stuff_tpu_torch.compiler import compile as tcomp
 from dsp_stuff_tpu_torch.ids import IdSpace as TIdSpace
@@ -407,8 +408,31 @@ def test_reverse_source_one_statement_per_instruction(name):
         assert "cr_comb<64000, false>" in src and "cr_comb<7200, true>" in src
     if name == "config5":       # its constants and ring in device memory
         small = tcr.source_for(program, 12_000)
-        assert "cr_cascade<2, false>(x, 0, f)" in small
+        assert "#define CR_HOLD_N 2\n#define CR_HOLD_SM false\n" in small
+        assert "cr_cascade_held<2>(x, 0, f, hold)" in small
         assert "cr_comb<7200, false>" in small
+    if name == "mega_cycle_10":     # two cascades: loaded every block
+        assert "CR_HOLD" not in src
+        assert "cr_cascade<2, true>(x, 1, f)" in src
+
+
+@pytest.mark.parametrize("name, budget, ctas", [
+    ("config5", 227_000, 4), ("config5", 12_000, 4),
+    ("mega_cycle_10", 227_000, 4), ("oversized", 227_000, 1),
+    ("oversized", 100_000, 2)])
+def test_reverse_launch_bound_follows_shared_memory(name, budget, ctas):
+    """CR_CTAS, the launch bound's CTAs an SM, is what an SM's shared
+    memory holds at the program's plan, at most four: the 56-instruction
+    program's plan fills an SM (its build keeps the registers its nine
+    cascades need), config5's and mega_cycle_10's leave room for four."""
+    program = {"oversized": oversized_cycle_program()[0]}.get(
+        name, PROGRAMS.get(name))
+    (_, _, _, _, total), _ = tcr.placement(program, budget)
+    assert tcr.ctas_an_sm(total) == ctas
+    assert tcr.SM_SMEM // (total + tcr.CTA_SMEM) >= ctas
+    src = tcr.source_for(program, budget)
+    assert f"\n#define CR_CTAS {ctas}\n" in src
+    assert src.count("#define CR_CTAS") == 1
 
 
 @pytest.mark.parametrize("what", ["unknown op", "bad term", "comb delay",
@@ -509,39 +533,38 @@ def test_reverse_call_refusals():
 # -- the kernel's walk, modelled ----------------------------------------------
 #
 # The reverse kernel reads the forward's packed constants transposed: thread
-# c sums, over the steps m < 32 - c/4, the float4 at R[3 - c%4][128 - 4m]
-# (reversed) against gy[4(c/4 + m) .. + 3]; warp 3's lane j reads Ecb's and
-# ACt's row j; thread c reads W^T's column c.  The model below follows that
+# t = 4q + e sums its quad's four columns over the steps m = 8w + e + 4s
+# (s < 8 - 2w), h[4(m - q) - 3 .. 4(m - q) + 4] from two aligned float4s of
+# the first reversed copy read backwards (tests/test_torch_cycle_reverse_
+# tiles.py models the walk itself); warp 3's lane j reads Ecb's and ACt's
+# row j; thread c reads W^T's column c.  The model below follows that
 # indexing, the double-buffered carry adjoints and the rings of NR + 1
-# blocks, and runs the generated block adjoint.
+# blocks, and runs the generated block adjoint, its cascade step either as
+# matrix products of the weights the walk reads or as the walk itself.
 
 def _model_consts(sections):
     """(LT [128, 128], Wt [8, 128], Ecb [8, 128], ACt [8, 8]) read from
     cycle_casc_consts as the reverse kernel reads them: LT[c, i] is the
-    weight of gy[i] in thread c's sum."""
-    k = tck.cycle_casc_consts(sections)
-    R = k[tck.OFF_R:tck.OFF_W].reshape(4, tck.RS)
+    weight of gy[i] in column c's sum over the walk."""
+    hv, _, Wt, Ecb, ACt, _ = tiles.hold(tuple(sections))
     LT = np.zeros((128, 128), np.float32)
-    for c in range(128):
-        a, q = c >> 2, c & 3
-        for m in range(32 - a):
-            hv = R[3 - q, 128 - 4 * m:132 - 4 * m]
-            for e in range(4):
-                LT[c, 4 * (a + m) + e] += hv[3 - e]
-    Wt = k[tck.OFF_W:tck.OFF_E].reshape(8, tck.WS)[:, :128]
-    return (LT, Wt, k[tck.OFF_E:tck.OFF_A].reshape(8, 128),
-            k[tck.OFF_A:].reshape(8, 8))
+    for t in range(128):
+        w, e, q = t >> 5, t & 3, t >> 2
+        for s in range(8 - 2 * w):
+            m = 8 * w + e + 4 * s
+            for d in range(4):
+                for f in range(4):
+                    if 4 * (m - q) + f - d >= 0:
+                        LT[4 * q + d, 4 * m + f] += hv[t, s, 3 + f - d]
+    return LT, Wt, Ecb, ACt
 
 
-@pytest.mark.parametrize("sections", [
-    (("lp", 0.4),), (("lp", 0.3), ("gain", 1.2)),
-    (("bq", (-0.5, 0.1, 0.3, 0.2, 0.1)), ("hp", 0.2)),
-    (("lp", 0.2), ("hp", 0.1), ("gain", 1.3), ("lp", 0.3))])
+@pytest.mark.parametrize("sections", tiles.SECTIONS)
 def test_transposed_constants_read_back(sections):
-    """The forward's reversed Toeplitz copies, read backwards from 16-byte
-    aligned float4s, give the weights of gX = gy Ltg^T exactly (LT = Ltg:
-    thread c weighs gy[i] by h[i - c], zeros where i < c; every read
-    inside the copy)."""
+    """The forward's first reversed Toeplitz copy, read backwards from 16-
+    byte aligned float4s along the quad walk, gives the weights of gX = gy
+    Ltg^T exactly (LT = Ltg: column c weighs gy[i] by h[i - c], zeros
+    where i < c; every read inside the copy)."""
     from dsp_stuff_tpu_torch.ops.chain_kernel import _casc_consts
     Ltg, Wp, Ecb, ACt, _ = _casc_consts(sections)
     LT, Wt, E, A = _model_consts(sections)
@@ -549,9 +572,10 @@ def test_transposed_constants_read_back(sections):
     np.testing.assert_array_equal(Wt, Wp.T)
     np.testing.assert_array_equal(E, Ecb)
     np.testing.assert_array_equal(A, ACt)
-    for q in range(4):
-        assert (tck.OFF_R + (3 - q) * tck.RS + 128) % 4 == 0
-        assert 128 - 4 * 31 >= 0 and 128 + 3 < tck.RS
+    reads = tiles.hold(tuple(sections))[1]
+    on = reads >= 0
+    assert tck.OFF_R % 4 == 0 and (reads[on] % 4 == 0).all()
+    assert reads[on].min() == 0 and reads[on].max() + 3 == 159 < tck.RS
 
 
 def _adjoint_of_source(src):
@@ -581,10 +605,12 @@ def _adjoint_of_source(src):
     return env["cy_block_adjoint"]
 
 
-def _reverse_model(budget):
+def _reverse_model(budget, walk=False):
     """A stand-in for cycle_reverse_call: the kernel's walk in NumPy, the
     generated block adjoint (run through _adjoint_of_source) over helpers
-    that follow the kernel's layouts."""
+    that follow the kernel's layouts; ``walk``: the cascade step as the
+    quad walk (tests/test_torch_cycle_reverse_tiles.walk_step), else as
+    matrix products of the weights it reads."""
     def call(ct_taps, ct_regs, seeds, ct_hists, recs, program, n_ext, B, T,
              dev):
         n_c, n_b, n_r, n_t, n_e, n_ew = tcr.counts(program)
@@ -604,7 +630,7 @@ def _reverse_model(budget):
                 sc8 = np.zeros((B, 8), np.float32)
                 if sc is not None:
                     sc8[:, :sc.shape[1]] = sc.numpy()
-                casc.append(dict(k=_model_consts(ins[1]),
+                casc.append(dict(k=_model_consts(ins[1]), sections=ins[1],
                                  cb=np.zeros((2, B, 8), np.float32),
                                  sx=None if sx is None else sx.numpy(),
                                  sc=sc8, gs0=None))
@@ -659,12 +685,18 @@ def _reverse_model(budget):
             return v
 
         def cr_cascade(N, sm, x, k, f):
+            return cr_cascade_held(N, x, k, f, None)
+
+        def cr_cascade_held(N, x, k, f, hold):
             cs = casc[k]
             LT, Wt, Ecb, ACt = cs["k"]
             gy = np.broadcast_to(f, (B, 128)).astype(np.float32)
             gn = cs["cb"][(x.b + 1) & 1]
-            gx = (gy @ LT.T + gn @ Wt).astype(np.float32)
-            gc = (gy @ Ecb.T + gn @ ACt.T).astype(np.float32)
+            if walk:
+                gx, gc = tiles.walk_step(cs["sections"], gy, gn)
+            else:
+                gx = (gy @ LT.T + gn @ Wt).astype(np.float32)
+                gc = (gy @ Ecb.T + gn @ ACt.T).astype(np.float32)
             if x.b == K - 1:
                 if cs["sx"] is not None:
                     gx = gx + cs["sx"]
@@ -675,7 +707,8 @@ def _reverse_model(budget):
             return gx
 
         block.__globals__.update(cr_in=cr_in, cr_feeds=cr_feeds, cr_ew=cr_ew,
-                                 cr_comb=cr_comb, cr_cascade=cr_cascade)
+                                 cr_comb=cr_comb, cr_cascade=cr_cascade,
+                                 cr_cascade_held=cr_cascade_held, hold=None)
         x = X()
         for b in reversed(range(K)):
             x.b = b
@@ -734,3 +767,38 @@ def test_kernel_model_matches_adjoint(name, T, budget, monkeypatch):
             assert g.shape == w.shape
             pairs.append((g.numpy(), w.numpy()))
     _held(f"{name} T={T}: the kernel's model", pairs, MODEL_RTOL)
+
+
+@pytest.mark.parametrize("name,T,budget", [
+    ("config5", 3 * 7424 + 640, 227_000), ("config5", 640, 12_000),
+    ("mega_cycle_10", 1024, 227_000), ("mega_cycle_2", 1024, 20_000),
+    ("distort:Fuzz", 768, 227_000), ("overdrive", 512, 227_000),
+    ("big ring", 2 * 64_128 + 256, 227_000), ("oversized", 640, 227_000)])
+def test_kernel_walk_model_matches_adjoint(name, T, budget, monkeypatch):
+    """test_kernel_model_matches_adjoint with the cascade step as the
+    kernel's quad walk (its per-thread index arithmetic and float32 order,
+    the shuffles and warp 3's carry lanes) in place of the matrix
+    products: config5's ring wrapped three times, its constants and ring
+    in device memory, two cascades, a Fuzz loop, the big ring, nine
+    cascades."""
+    program = {"big ring": big_ring_cycle_program()[0],
+               "oversized": oversized_cycle_program()[0]}.get(
+                   name, PROGRAMS.get(name))
+    exts, regs, states = _inputs(program, 4, T, 43)
+    ins = (_t(e.reshape(2, 2, T) for e in exts), _t(r[0] for r in regs),
+           _t(s[0] for s in states))
+    flat, recs = _forward(program, ins)
+    ws = _weights(flat, 44, "all", _n_taps(program))
+    cts = tuple(torch.from_numpy(w) for w in ws)
+    monkeypatch.setattr(tcr, "cycle_reverse_call",
+                        _reverse_model(budget, walk=True))
+    got = tcyc._kernel_cycle_adjoint(cts, _shapes(*ins), program,
+                                     _n_taps(program), recs)
+    want = tcyc.interpret_adjoint(cts, _shapes(*ins), program,
+                                  _n_taps(program), recs)
+    pairs = []
+    for gg, wg in zip(got, want):
+        for g, w in zip(gg, wg):
+            assert g.shape == w.shape
+            pairs.append((g.numpy(), w.numpy()))
+    _held(f"{name} T={T}: the kernel's walk", pairs, MODEL_RTOL)

@@ -1,42 +1,62 @@
 #!/usr/bin/env python3
-"""Check, time and profile the cycle kernel on one NVIDIA GPU.
+"""Check, time and profile the cycle kernel and its reverse on one NVIDIA
+GPU.
 
-    python3 tools/measure_torch_cycle.py [--check | --phases]
+    python3 tools/measure_torch_cycle.py [--check] [--phases] [--times]
+                                         [--root DIR ...]
 
 Builds dsp_stuff_tpu_torch's kernels (printing ptxas' register and spill
-lines), then holds the cycle kernel (csrc/cycle_kernel.cu) against
-``cycle_segment.interpret`` on the card at the shapes of
-chip_smoke.cycle_cases(): config5's program over a T that wraps its comb
-ring three times with a ragged end, at 64 rows and past one row an SM,
-a ring too large for shared memory (the device-memory path), the loop
-graph's program and a 56-instruction one (taps in dBFS, registers and
-rebuilt states in max abs).
+lines, also of the reverse kernel's builds for config5's, mega_cycle_10's
+and the 56-instruction program), then runs the parts asked for, in this
+order (no flag: --check --times):
 
-With --check it stops there.  Otherwise it times with CUDA events (median
-of 5 after a warm-up) at T = 10 s of 48 kHz audio the cycle kernel on
-config5's program at B = 128 and 512, with its bound
-(chip_smoke.cycle_bound), its reverse (csrc/cycle_reverse_kernel.cu, the
-kernel path of cycle_segment's backward) there, with its bound and floor
-(chip_smoke.cycle_reverse_bound, cycle_reverse_floor_ms at the SM clock
-chip_smoke assumes), and the envelope kernel chunked at B = 128 and
-512 and sequential at B = 4 x 48,000, each beside its dependent-chain
-floor: the FP32 operations on the path a row cannot start before the
-last one ended (a block's path from the registers the previous block set
-to the ones it sets; an envelope step's compare, select, multiply and
-add), LAT = 4 cycles each at the card's maximum SM clock.  Memory,
-barrier and shuffle latencies are left out, so the floor is a lower
-bound, like the bound by bytes.
-
---phases runs the kernel's build with its phase probes
-(cycle_kernel.phase_cycles) on config5's program at B = 128 and 512 x
-10 s and prints, for thread 0 and thread 127 of each CTA, the clock
-cycles of each phase per 128-sample block, averaged over the CTAs: where
-a block's time goes.
+* ``--check``: holds the cycle kernel (csrc/cycle_kernel.cu) against
+  ``cycle_segment.interpret`` on the card at the shapes of
+  chip_smoke.cycle_cases(): config5's program over a T that wraps its
+  comb ring three times with a ragged end, at 64 rows and past one row an
+  SM, a ring too large for shared memory (the device-memory path), the
+  loop graph's program and a 56-instruction one (taps in dBFS, registers
+  and rebuilt states in max abs); and the reverse cycle kernel
+  (csrc/cycle_reverse_kernel.cu) against ``interpret_adjoint`` on every
+  case of chip_smoke.cycle_reverse_cases() (each feed gradient in dBFS,
+  registers and states in max abs);
+* ``--phases``: the probe builds of both kernels (-DCY_PHASES,
+  -DCR_PHASES; cycle_kernel.phase_cycles, cycle_reverse_kernel.
+  phase_cycles) on config5's program at B = 128 and 512 x 10 s: for
+  thread 0 and thread 127 of each CTA, the clock cycles of each phase per
+  128-sample block, averaged over the CTAs: where a block's time goes;
+* ``--times``: with CUDA events (median of 5 after a warm-up) at T = 10 s
+  of 48 kHz audio, the cycle kernel on config5's program at B = 128 and
+  512 with its bound (chip_smoke.cycle_bound); its reverse there, the
+  kernel's device time alone (torch.profiler, the reverse kernel's
+  records only) and the time of the kernel path of cycle_segment's
+  backward (``_kernel_cycle_adjoint``: the launch with its tables and
+  outputs), with its bound and floor (chip_smoke.cycle_reverse_bound,
+  cycle_reverse_floor_ms at the SM clock chip_smoke assumes); and the
+  envelope kernel chunked at B = 128 and 512 and sequential at B = 4 x
+  48,000, each beside its dependent-chain floor: the FP32 operations on
+  the path a row cannot start before the last one ended (a block's path
+  from the registers the previous block set to the ones it sets; an
+  envelope step's compare, select, multiply and add), LAT = 4 cycles each
+  at the card's maximum SM clock.  Memory, barrier and shuffle latencies
+  are left out, so the floor is a lower bound, like the bound by bytes;
+* ``--root DIR`` (repeatable): each DIR's reverse kernel (unpack another
+  commit there with ``git archive``; its csrc/cycle_reverse_kernel.cu
+  with the header of its own generator, built with this checkout's
+  flags) and this checkout's, in turns there and back (DIR ..., this,
+  this, ... DIR) on config5's, mega_cycle_10's and the 56-instruction
+  program at B = 128 and 512 x 10 s: the kernel's device time and the
+  path's time of each, through this checkout's wrapper and tables (the
+  builds must share the tables' layout; the build checks it).
 
 Prints one line per measurement with the card's name and power limit and
 exits 1 if a check failed.  Needs a CUDA device; imports nothing of JAX.
 """
 
+import contextlib
+import ctypes
+import hashlib
+import importlib.util
 import os
 import subprocess
 import sys
@@ -77,10 +97,26 @@ def floor_ms(steps: int, ops_a_step: int, mhz: float) -> float:
     return steps * ops_a_step * LAT / (mhz * 1e3)
 
 
+def config5(cs):
+    from dsp_stuff_tpu_torch.models import presets
+    return cs.cycle_program(presets.config5_feedback_16node()[0])
+
+
+def reverse_programs(cs) -> dict:
+    """{name: (program, n_taps)} of the programs whose reverse builds'
+    ptxas lines are printed and which --root times."""
+    import test_torch_fuzz_gen as gen
+    return {"config5": config5(cs),
+            "mega_cycle_10": cs.cycle_program(
+                gen._random_mega_cycle_graph(10)[0]),
+            "56 instructions": cs.oversized_cycle_program()}
+
+
 def checks(cs, dev, rng) -> list:
     """The correctness checks of the module docstring; returns the names
     of the failed ones."""
     import torch
+    import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.ops import cycle_segment
     failed = []
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -95,19 +131,59 @@ def checks(cs, dev, rng) -> list:
         except Exception as e:               # report every case, then fail
             print(f"  FAILED {name}: {type(e).__name__}: {e}")
             failed.append(name)
+    print("reverse cycle kernel vs cycle_segment.interpret_adjoint:")
+    with dst.policy("fast"):
+        for name, program, n_taps, b, t in cs.cycle_reverse_cases():
+            try:
+                cts, shapes, recs = cs.reverse_inputs(program, n_taps, b, t,
+                                                      rng, dev)
+                k = cycle_segment._kernel_cycle_adjoint(cts, shapes, program,
+                                                        n_taps, recs)
+                p = cycle_segment.interpret_adjoint(cts, shapes, program,
+                                                    n_taps, recs)
+                torch.cuda.synchronize()
+                cs.compare_reverse(name, k, p)
+            except Exception as e:
+                print(f"  FAILED reverse {name}: {type(e).__name__}: {e}")
+                failed.append(f"reverse {name}")
     return failed
+
+
+def reverse_times(cs, program, n_taps, b, ins, tag, card,
+                  pname="config5") -> tuple:
+    """The reverse kernel's device time and the kernel path's time on
+    ``ins`` (reverse_inputs) for the program named ``pname``, printed with
+    ``tag``; returns both."""
+    from dsp_stuff_tpu_torch.ops import cycle_segment
+    cts, shapes, recs = ins
+
+    def run():
+        return cycle_segment._kernel_cycle_adjoint(cts, shapes, program,
+                                                   n_taps, recs)
+
+    dev_ms, n = cs.kernel_device_ms(run, "cycle_reverse_kernel")
+    dev_ms = float("nan") if dev_ms is None else dev_ms   # not measured
+    path_ms = cs.cuda_ms(run)
+    bms, bby = cs.cycle_reverse_bound(program, b, T)
+    fl = cs.cycle_reverse_floor_ms(program, T)
+    print(f"reverse cycle kernel{tag}, {pname} program, B={b} x 10 s: "
+          f"kernel {dev_ms:.3f} ms (device, {n} launches profiled), path "
+          f"{path_ms:.3f} ms; bound {bms:.3f} ms by {bby} ({bms / dev_ms:.1%}"
+          f" of the kernel), dependent-chain floor {fl:.3f} ms ("
+          f"{fl / dev_ms:.1%}; {cs.reverse_block_path_ops(program)} "
+          f"operations a block) [{card}]")
+    return dev_ms, path_ms
 
 
 def times(cs, dev, rng, card) -> None:
     import torch
-    from dsp_stuff_tpu_torch.models import presets
-    from dsp_stuff_tpu_torch.ops import cycle_kernel, cycle_segment, \
-        envelope, envelope_kernel
+    from dsp_stuff_tpu_torch.ops import cycle_kernel, envelope, \
+        envelope_kernel
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60).stdout.split()[0])
-    program, n_taps = cs.cycle_program(presets.config5_feedback_16node()[0])
+    program, n_taps = config5(cs)
     ops = block_path_ops(program)
     for b in (128, 512):
         ins = cs.cycle_inputs(program, b, T, rng, dev)
@@ -119,17 +195,9 @@ def times(cs, dev, rng, card) -> None:
               f"chain floor {floor_ms(T // 128, ops, mhz):.3f} ms ({ops} "
               f"operations a block at {mhz:.0f} MHz) [{card}]")
         del ins
-        cts, shapes, recs = cs.reverse_inputs(program, n_taps, b, T, rng, dev)
-        ms = cs.cuda_ms(lambda: cycle_segment._kernel_cycle_adjoint(
-            cts, shapes, program, n_taps, recs))
-        bms, bby = cs.cycle_reverse_bound(program, b, T)
-        fl = cs.cycle_reverse_floor_ms(program, T)
-        print(f"reverse cycle kernel, config5 program, B={b} x 10 s: "
-              f"{ms:.3f} ms, bound {bms:.3f} ms by {bby} ({bms / ms:.1%}), "
-              f"dependent-chain floor {fl:.3f} ms "
-              f"({cs.reverse_block_path_ops(program)} operations a block) "
-              f"[{card}]")
-        del cts, recs
+        rins = cs.reverse_inputs(program, n_taps, b, T, rng, dev)
+        reverse_times(cs, program, n_taps, b, rins, "", card)
+        del rins
     atk = envelope.gain_from_frames(50.0)
     rel = envelope.gain_from_frames(400.0)
     gains = cs.env_gains(atk, rel, dev)
@@ -149,23 +217,122 @@ def times(cs, dev, rng, card) -> None:
               f"operations at {mhz:.0f} MHz) [{card}]")
 
 
+def print_phases(what, b, buf, names, card) -> None:
+    per = buf.astype(np.float64).mean(axis=0) / (T // 128)
+    for slot, who in enumerate(("thread 0", "thread 127")):
+        print(f"{what}, config5 program, B={b}, {who}: {per[slot].sum():,.0f}"
+              f" cycles a block: " + ", ".join(
+                  f"{p} {v:,.0f}" for p, v in zip(names, per[slot]) if v)
+              + f"  [{card}]")
+
+
 def phases(cs, dev, rng, card) -> None:
-    """Cycles per block in each phase, from the kernel's probe build."""
-    from dsp_stuff_tpu_torch.models import presets
-    from dsp_stuff_tpu_torch.ops import cycle_kernel
-    program, n_taps = cs.cycle_program(presets.config5_feedback_16node()[0])
+    """Cycles per block in each phase, from both kernels' probe builds."""
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import (cycle_kernel, cycle_reverse_kernel,
+                                         cycle_segment)
+    program, n_taps = config5(cs)
     for b in (128, 512):
         ins = cs.cycle_inputs(program, b, T, rng, dev)
         cycle_kernel.phase_cycles(*ins, program, n_taps)          # warm-up
         buf = cycle_kernel.phase_cycles(*ins, program, n_taps)
-        per = buf.astype(np.float64).mean(axis=0) / (T // 128)
-        for slot, who in enumerate(("thread 0", "thread 127")):
-            print(f"config5 program, B={b}, {who}: {per[slot].sum():,.0f} "
-                  f"cycles a block: " + ", ".join(
-                      f"{p} {v:,.0f}" for p, v in zip(cycle_kernel.PHASES,
-                                                      per[slot]) if v)
-                  + f"  [{card}]")
+        print_phases("cycle kernel", b, buf, cycle_kernel.PHASES, card)
         del ins
+    stand_in = cycle_reverse_kernel.cycle_reverse_call
+    for b in (128, 512):
+        cts, shapes, recs = cs.reverse_inputs(program, n_taps, b, T, rng,
+                                              dev)
+        bufs = []
+
+        def probe(*args):           # the kernel path, through the probe build
+            bufs.append(cycle_reverse_kernel.phase_cycles(*args))
+            return stand_in(*args)
+
+        with dst.policy("fast"), swapped(cycle_reverse_kernel,
+                                         "cycle_reverse_call", probe):
+            for _ in range(2):                                    # warm-up
+                cycle_segment._kernel_cycle_adjoint(cts, shapes, program,
+                                                    n_taps, recs)
+        print_phases("reverse cycle kernel", b, bufs[-1],
+                     cycle_reverse_kernel.PHASES, card)
+        del cts, recs
+
+
+@contextlib.contextmanager
+def swapped(module, name, value):
+    """``module.name`` set to ``value`` inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def start_other(root: str, program, budget: int):
+    """Start building ``root``'s reverse kernel for ``program`` (its source
+    with the header of its own generator, this checkout's nvcc flags) into
+    build/torch_kernels/; returns (library path, the nvcc process or None
+    when built)."""
+    from dsp_stuff_tpu_torch.ops import cuda_build
+    spec = importlib.util.spec_from_file_location(
+        "other_cycle_reverse_kernel",
+        os.path.join(root, "dsp_stuff_tpu_torch", "ops",
+                     "cycle_reverse_kernel.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    header = mod.source_for(program, budget)
+    csrc = os.path.join(root, "dsp_stuff_tpu_torch", "csrc")
+    h = hashlib.sha256(header.encode())
+    for name in sorted(os.listdir(csrc)):
+        if name == "cycle_reverse_kernel.cu" or name.endswith(".cuh"):
+            h.update(open(os.path.join(csrc, name), "rb").read())
+    lib = cuda_build.BUILD_DIR / (f"cycle_reverse_kernel_other_"
+                                  f"{h.hexdigest()[:16]}.so")
+    if lib.exists():
+        return lib, None
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    hpath = lib.with_suffix(".h")
+    hpath.write_text(header)
+    proc = subprocess.Popen(
+        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+         f'-DKERNEL_PROGRAM_H="{hpath}"', "-I", csrc, "-o", str(lib),
+         os.path.join(csrc, "cycle_reverse_kernel.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return lib, proc
+
+
+def turns(cs, dev, rng, card, libs: dict) -> None:
+    """The reverse kernel's builds ``libs`` ({label: {program name:
+    library}}, {} for this checkout's own) in turns, there and back (A, B,
+    C, C, B, A), on each program of reverse_programs at B = 128 and 512:
+    the medians of each one's two rounds."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import cycle_reverse_kernel as cr
+    order = list(libs) + list(libs)[::-1]
+    for pname, (program, n_taps) in reverse_programs(cs).items():
+        for b in (128, 512):
+            ins = cs.reverse_inputs(program, n_taps, b, T, rng, dev)
+            got = {who: [] for who in libs}
+            with dst.policy("fast"):
+                for who in order:
+                    lib = libs[who].get(pname)
+                    with (swapped(cr, "_lib", lambda src, d=(), lib=lib: lib)
+                          if lib is not None else contextlib.nullcontext()):
+                        got[who].append(reverse_times(
+                            cs, program, n_taps, b, ins, f" [{who}]", card,
+                            pname))
+            for who, rows in got.items():
+                k, p = np.median(np.array(rows), axis=0)
+                print(f"reverse cycle kernel [{who}], {pname} program, B={b}"
+                      f" x 10 s, turns: kernel "
+                      f"{', '.join(f'{r[0]:.3f}' for r in rows)} ms (median "
+                      f"{k:.3f}), path "
+                      f"{', '.join(f'{r[1]:.3f}' for r in rows)} ms (median "
+                      f"{p:.3f}) [{card}]")
+            del ins
+            torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -180,6 +347,11 @@ def main() -> int:
                                          cycle_reverse_kernel)
     from dsp_stuff_tpu_torch.utils import precision
 
+    parts = {p for p in ("check", "phases", "times") if f"--{p}" in sys.argv}
+    roots = [os.path.abspath(sys.argv[i + 1])
+             for i, a in enumerate(sys.argv[:-1]) if a == "--root"]
+    if not parts and not roots:
+        parts = {"check", "times"}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -188,35 +360,75 @@ def main() -> int:
     precision.set_policy("fast")
     rng = np.random.default_rng(0)
     dev = torch.device("cuda", 0)
-    # the envelope kernel and the cycle kernel for each program, built
-    # together (the probe build of config5's program with --phases)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    cases = {name: prog for name, prog, _, _, _ in cs.cycle_cases(n_sm)}
-    if "--phases" in sys.argv:
-        cases = {"config5": cases["config5 ring wraps"]}
-    d = ("CY_PHASES",) if "--phases" in sys.argv else ()
     budget = cycle_kernel.budget_of(dev)
-    jobs = [("envelope_kernel", (), "")] + [
-        ("cycle_kernel", d, cycle_kernel.source_for(p, budget))
-        for p in cases.values()]
-    names = ["envelope_kernel", *cases]
-    if "--phases" not in sys.argv and "--check" not in sys.argv:
+    # each other root's reverse kernel for each timed program, its nvcc
+    # started now
+    others = {(root, name): start_other(root, prog, budget)
+              for root in roots
+              for name, (prog, _) in reverse_programs(cs).items()}
+    # the envelope kernel, the cycle kernel for each program of the forward
+    # checks, the reverse for the printed programs and the reverse checks,
+    # the record builds of the programs with a shaper and the probe builds,
+    # all built together
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    fwd = {name: prog for name, prog, _, _, _ in cs.cycle_cases(n_sm)}
+    rev = {name: prog for name, (prog, _) in reverse_programs(cs).items()}
+    if "check" in parts:
+        for name, prog, _, _, _ in cs.cycle_reverse_cases():
+            if prog not in rev.values():
+                rev[name] = prog
+    if "check" not in parts:
+        fwd = {"config5": config5(cs)[0]}
+    jobs, names = [("envelope_kernel", (), "")], ["envelope_kernel"]
+    for name, p in fwd.items():
+        jobs.append(("cycle_kernel", (), cycle_kernel.source_for(p, budget)))
+        names.append(name)
+    for name, p in rev.items():
         jobs.append(("cycle_reverse_kernel", (),
-                     cycle_reverse_kernel.source_for(
-                         cases["config5 ring wraps"], budget)))
-        names.append("reverse (config5)")
+                     cycle_reverse_kernel.source_for(p, budget)))
+        names.append(f"reverse ({name})")
+        if cycle_kernel.has_shaper(p):
+            jobs.append(("cycle_kernel", ("CY_RECORD",),
+                         cycle_kernel.source_for(p, budget, record=True)))
+            names.append(f"record build ({name})")
+    if "phases" in parts:
+        c5 = config5(cs)[0]
+        jobs += [("cycle_kernel", ("CY_PHASES",),
+                  cycle_kernel.source_for(c5, budget)),
+                 ("cycle_reverse_kernel", ("CR_PHASES",),
+                  cycle_reverse_kernel.source_for(c5, budget))]
+        names += ["config5 [CY_PHASES]", "reverse (config5) [CR_PHASES]"]
     for name, (lib, log) in zip(names, cuda_build.build_jobs(jobs)):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  {name}{list(d) or ''} ptxas: {line.strip()}")
-    if "--phases" in sys.argv:
-        phases(cs, dev, rng, card)
-        return 0
-    failed = checks(cs, dev, rng)
-    if failed or "--check" in sys.argv:
+                print(f"  {name} ptxas: {line.strip()}")
+    libs = {}
+    for (root, name), (lib_path, proc) in others.items():
+        label = os.path.relpath(root, ROOT)
+        if proc is not None:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                print(f"nvcc failed on {label}'s reverse kernel ({name}):\n"
+                      f"{log}")
+                return 1
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  reverse ({name}) [{label}] ptxas: "
+                          f"{line.strip()}")
+        libs.setdefault(label, {})[name] = cycle_reverse_kernel.bind(
+            ctypes.CDLL(str(lib_path)))
+    if "check" in parts:
+        failed = checks(cs, dev, rng)
         print(f"failed: {failed}" if failed else "all checks passed")
-        return 1 if failed else 0
-    times(cs, dev, rng, card)
+        if failed:
+            return 1
+    if "phases" in parts:
+        phases(cs, dev, rng, card)
+    if "times" in parts:
+        times(cs, dev, rng, card)
+    if roots:
+        libs["this"] = {}
+        turns(cs, dev, rng, card, libs)
     return 0
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's kernel entry points and main paths of one checkout.
 
-    python3 tools/time_torch_paths.py [--root DIR] [--renders]
+    python3 tools/time_torch_paths.py [--root DIR] [--renders | --grads]
 
 Imports dsp_stuff_tpu_torch and chip_smoke from DIR (default: this
 checkout), so that two commits can be compared in one call on one card:
@@ -32,7 +32,11 @@ device data) and times with CUDA events, median of 5 after a warm-up, at
 * a training step of the bench chain's 16 sliders at B = 128 (the host
   clock around the step and a synchronize, median of 5 after a warm-up).
 
-``--renders`` times the renders alone.  Prints one line per measurement
+``--renders`` times the renders alone.  ``--grads`` times, alone, the bench
+chain's and config5's input gradients at B = 128 (the root's
+chip_smoke.grad_split: the forward and the backward on the host's clock,
+medians of 3 after a first call, and one forward + backward's device time
+by torch.profiler, split by op group).  Prints one line per measurement
 with the root and the card's name and power limit.  Needs a CUDA device;
 imports nothing of JAX.
 """
@@ -93,6 +97,7 @@ def main() -> int:
     root = os.path.abspath(sys.argv[sys.argv.index("--root") + 1]
                            if "--root" in sys.argv else here)
     renders_only = "--renders" in sys.argv
+    grads_only = "--grads" in sys.argv
     sys.path[:0] = [root, os.path.join(root, "tests")]
     import chip_smoke as cs
     import dsp_stuff_tpu_torch as dst
@@ -113,6 +118,25 @@ def main() -> int:
         rng.standard_normal((512, T), dtype=np.float32) * np.float32(0.25),
         device=dev)
     g5 = presets.config5_feedback_16node()[0]
+    if grads_only:
+        del x_all
+        with dst.policy("fast"):
+            for name, graph in (("bench chain", cs.bench_graph()),
+                                ("config5", g5)):
+                cg = dst.compile_graph(graph, device="cuda")
+                rg = np.random.default_rng(120)
+                x = torch.as_tensor(rg.standard_normal(
+                    (128, T), dtype=np.float32) * np.float32(0.25),
+                    device=dev)
+                tgt = torch.as_tensor(rg.standard_normal(
+                    (128, 1, T), dtype=np.float32) * np.float32(0.1),
+                    device=dev)
+                cs.grad_split(f"{name} input gradient, [128, {T}] "
+                              f"[{os.path.relpath(root, here)}]", cg, x, tgt,
+                              card)
+                del cg, x, tgt
+                torch.cuda.empty_cache()
+        return 0
     with dst.policy("fast"):
         if not renders_only:
             bench = cs.bench_stages()
