@@ -135,6 +135,16 @@ device="cuda")``:
   torch.profiler, "device_ms") against its plain version, its bound and
   its dependent-chain floor; the forward's record build
   bitwise its render build;
+* the per-node cycle scan (compiler/cycle_loop.py): config5 over 128
+  streams x 10 s under parity, exact and fast with its feedback gain
+  overridden (the first-order kernel once a block; under exact the
+  sequential kernel), the block loop captured in CUDA graphs of 8 blocks
+  and replayed, bitwise the eager Python loop on the card (output, aux,
+  state), stream 0 against the composed oracle, a second render of the
+  same key with no capture, the loop's walls eager and replayed, its
+  device time, the captures and replays, the nodes of a chunk's graph
+  from its DOT dump with each kernel's launches inside the loop; under
+  parity also graphs of 1 and 32 blocks;
 
 and times every kernel against its plain version (the chain kernel on
 the bench list at 1, 128, 512 and 1024 streams and on config5's list at
@@ -261,6 +271,15 @@ B_SHARD, B_SHARD_STEP = 512, 128   # render_sharded (x 10 s), the step (x 1 s)
 B_SHARD_MIX = 8           # the step over the card and the CPU (x 1 s)
 STEP_RTOL, STEP_ATOL = 1e-5, 1e-6  # sharded step vs unsharded: loss, sliders
 EXACT_FUZZ_SEEDS = (4, 9, 16, 25, 36, 49, 64, 81, 100, 121, 169, 196)
+B_LOOP = 128              # config5's per-node cycle loop (x 10 s)
+LOOP_KS = (1, 8, 32)      # bodies a captured loop graph holds, under parity
+N_LOOP_TIMED = 200        # graph replays timed back to back
+#: config5 renders of a few blocks up to 1,024 at B_SHORT (375: 1 s), each on
+#: a graph compiled for it: the Python loop against the replayed loop, its
+#: captures included
+LOOP_LENGTHS = (4, 16, 64, 128, 375, 1024)
+LENGTH_KS = (1, 8)        # the replayed loop's K in those renders
+B_SHORT = 4
 
 
 def dbfs(got, want) -> float:
@@ -1980,9 +1999,16 @@ def graph_nodes(sess, name) -> dict:
     os.makedirs(GRAPH_DIR, exist_ok=True)
     path = os.path.join(GRAPH_DIR, re.sub(r"\W+", "_", name) + ".dot")
     sess.step.dump_graph(path)
+    return dot_nodes(path)
+
+
+def dot_nodes(path) -> dict:
+    """The nodes of a captured graph's DOT dump at ``path``: by kind, and
+    the port's kernels by launch counter key and by instance_of."""
     with open(path) as f:
         text = f.read()
-    out = {"kinds": {}, "ours": {}, "inst": {}, "at": [], "path": path}
+    out = {"kinds": {}, "ours": {}, "inst": {}, "at": [], "path": path,
+           "names": {}}
     starts = [m.start() for m in re.finditer(
         r'^\s*"graph_\d+_node_\d+"\s*\[', text, re.M)]
     for a, b in zip(starts, starts[1:] + [len(text)]):
@@ -1996,6 +2022,9 @@ def graph_nodes(sess, name) -> dict:
                 out["at"].append((out["kinds"]["KERNEL"] - 1, inst))
                 out["ours"][key] = out["ours"].get(key, 0) + 1
                 out["inst"][inst] = out["inst"].get(inst, 0) + 1
+            fn = re.search(r"(_Z\w+)", node)
+            name = fn.group(1)[:48] if fn else "?"
+            out["names"][name] = out["names"].get(name, 0) + 1
     out["work"] = sum(out["kinds"].get(k, 0) for k in WORK_NODES)
     return out
 
@@ -2960,13 +2989,18 @@ def oracle_evaluate(graph, ext, T: int):
 def exact_render(graph, x, B, expect, name, dev, finite=True):
     """An exact render of x [B, 1, T] (NumPy) on the card, its launches
     ``expect`` and no plain version called, finite unless ``finite`` is
-    False; returns (outputs, CompiledGraph, wall s, peak GiB, the
-    sequential kernel's launches by mode)."""
+    False, a graph with a cycle rendered again through the replayed
+    cycle loop, bitwise; returns (outputs, CompiledGraph, wall s, peak
+    GiB, the sequential kernel's launches by mode)."""
     import torch
     import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler.compile import _is_cycle
     from dsp_stuff_tpu_torch.ops import sequential_kernel
     with dst.policy("exact"):
         cg = dst.compile_graph(graph, device="cuda")
+        # the Python loop over a cycle's blocks first, whose launches the
+        # host counts (sequential_launches)
+        cg.cycle_loops.route = "eager"
         xd = torch.as_tensor(x, device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2981,6 +3015,15 @@ def exact_render(graph, x, B, expect, name, dev, finite=True):
         wall = time.time() - t0
         launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    if any(_is_cycle(graph, comp) for comp in cg._sccs):
+        # again with the cycles' block loops replayed as CUDA graphs
+        # (whatever their length), bitwise the Python loop
+        with dst.policy("exact"):
+            cg.cycle_loops.route = "buffers"
+            again, _, _ = cg.render(xd, batch_shape=(B,))
+        check(torch.equal(again.view(torch.int32), y.view(torch.int32)),
+              f"{name} under exact: the replayed cycle loop differs from "
+              f"the Python loop")
     check(not plain, f"{name} under exact called plain versions {plain}")
     check(launches == expect, f"{name} under exact launched {launches}, "
                               f"expected {expect}")
@@ -4032,6 +4075,304 @@ def cycle_reverse_phase(dev, card) -> dict:
     return rec
 
 
+def timed_cycles(cg) -> list:
+    """Wrap ``cg._eval_cycle`` so that each call appends (wall ms, CUDA
+    event ms) of the feedback cycle's evaluation, the card synchronized
+    on both sides: the loop's wall time and its span on the device."""
+    import torch
+    spans: list = []
+    inner = cg._eval_cycle
+
+    def timed(*args, **kwargs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        inner(*args, **kwargs)
+        e1.record()
+        torch.cuda.synchronize()
+        spans.append(((time.perf_counter() - t0) * 1e3, e0.elapsed_time(e1)))
+    cg._eval_cycle = timed
+    return spans
+
+
+def chunk_device_ms(loop, bodies: int, first: int, n: int) -> float:
+    """Device ms of one replay of the loop's graph of ``bodies`` bodies:
+    ``n`` replays back to back from block ``first`` (the counter stays
+    inside the render), over CUDA events.  The buffers are left as the
+    replays leave them; a render loads them again."""
+    import torch
+    graph = loop.graphs[bodies][0]
+    loop.counter.fill_(first)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(n):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def loop_graph_nodes(cg, name, bodies) -> dict:
+    """The nodes of the last loop's graph of ``bodies`` bodies, from its
+    DOT dump."""
+    os.makedirs(GRAPH_DIR, exist_ok=True)
+    path = os.path.join(GRAPH_DIR, re.sub(r"\W+", "_", name) + ".dot")
+    cg.cycle_loops.dump_graph(path, bodies)
+    return dot_nodes(path)
+
+
+def same_tree(a, b) -> bool:
+    """Equal trees of states and aux: tensors bitwise, the rest equal."""
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and torch.equal(a, b))
+    return type(a) is type(b) and a == b
+
+
+def cycle_loop_phase(dev, card) -> dict:
+    """config5's feedback cycle through the per-node scan at B_LOOP x 10 s
+    under parity, exact and fast with the feedback gain overridden (the
+    per-node route with the first-order kernel): the loop captured in
+    CUDA graphs of K = CHUNK bodies and replayed (compiler/cycle_loop.py),
+    bitwise the eager Python loop on the card (output, aux, state), stream
+    0's first second against the composed oracle, a second render of the
+    same key with no capture; walls of the loop eager and replayed, its
+    device time (the graphs replayed back to back), captures, replays,
+    the nodes of one chunk from its DOT dump and the launches of each
+    kernel inside the replayed loop; under parity also K in LOOP_KS.
+    Returns each path's record."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import cycle_loop
+    from dsp_stuff_tpu_torch.models import presets
+    t_phase = time.time()
+    g5, _ = presets.config5_feedback_16node()
+    fbg = next(i for i, nd in sorted(g5.nodes.items())
+               if nd.cfg_name == "gain" and nd.params["level"] == 0.45)
+    x_np = (np.random.default_rng(140).standard_normal((B_LOOP, 1, T_MAIN),
+                                                       dtype=np.float32)
+            * np.float32(0.3))
+    x = torch.as_tensor(x_np, device=dev)
+    ref = oracle_config5(x_np[0, 0, :SR])
+    K = cycle_loop.CHUNK
+    paths = (("parity", "parity", None, PARITY_DB),
+             ("exact", "exact", None, EXACT_DB),
+             ("fast-override", "fast", {str(fbg): {"level": 0.45}},
+              ORACLE_FAST_DB))
+    out = {}
+    for name, pol, params, limit in paths:
+        with dst.policy(pol):
+            cg = dst.compile_graph(g5, device="cuda")
+            loops = cg.cycle_loops
+            spans = timed_cycles(cg)
+
+            def render(route, chunk=K):
+                loops.route, cycle_loop.CHUNK = route, chunk
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = cg.render(x, batch_shape=(B_LOOP,), params=params)
+                torch.cuda.synchronize()
+                return got, (time.perf_counter() - t0) * 1e3, spans[-1]
+
+            torch.cuda.reset_peak_memory_stats(dev)
+            eager, wall_e1, span_e1 = render("eager")
+            peak_e = torch.cuda.max_memory_allocated(dev) / 2**30
+            check(loops.captures == loops.replays == 0,
+                  f"{name}: the eager route captured")
+            torch.cuda.reset_peak_memory_stats(dev)
+            replayed, wall_r1, span_r1 = render("auto")
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            plan, caps1, cap_s = loops.plan, loops.captures, loops.capture_s
+            check(plan is not None and plan[1] > 0,
+                  f"{name}: the loop did not run as graphs: {plan}")
+            bit = all(same_tree(a, b) for a, b in zip(replayed, eager))
+            err = dbfs(host(replayed[0]), host(eager[0]))
+            print(f"cycle loop, config5 {name}, [{B_LOOP}, 1, {T_MAIN}]: "
+                  f"replayed vs eager on the card: output, aux and state "
+                  f"bitwise {bit} ({err:.1f} dBFS)")
+            check(bit, f"{name}: the replayed loop is not bitwise the eager "
+                       f"loop ({err:.1f} dBFS)")
+            r0 = loops.replays
+            again, wall_r2, span_r2 = render("auto")
+            check(loops.captures == caps1,
+                  f"{name}: a second render of the same key captured "
+                  f"{loops.captures - caps1} graphs")
+            check(loops.replays - r0 == plan[1] + plan[2],
+                  f"{name}: {loops.replays - r0} replays, plan {plan}")
+            check(torch.equal(again[0], replayed[0]),
+                  f"{name}: two replayed renders differ")
+            _, wall_e2, span_e2 = render("eager")
+            y0 = host(replayed[0][0, 0, :SR])
+            d = dbfs(y0, ref)
+            print(f"  stream 0, first second vs the composed oracle: "
+                  f"{d:.1f} dBFS (<= {limit}), bitwise "
+                  f"{bool(np.array_equal(y0, ref))}")
+            check(d <= limit, f"{name} vs the oracle {d:.1f} dBFS")
+            loop = loops.last
+            head, full, rest = plan
+            nodes = {k: loop_graph_nodes(cg, f"cycle loop {name} {k}", k)
+                     for k in (K, 1) if k in loop.graphs}
+            inside = {}
+            for k, count in ((K, full), (1, rest)):
+                for inst, n in (nodes.get(k, {}).get("inst") or {}).items():
+                    inside[inst] = inside.get(inst, 0) + n * count
+            dev_k = chunk_device_ms(loop, K, head, min(N_LOOP_TIMED, full))
+            dev_1 = (chunk_device_ms(loop, 1, head, N_LOOP_TIMED)
+                     if 1 in loop.graphs else 0.0)
+            device_ms = dev_k * full + dev_1 * rest
+            nk = nodes[K]
+            print(f"  loop wall ms, eager {span_e1[0]:.1f} / {span_e2[0]:.1f} "
+                  f"(first / last render), replayed {span_r1[0]:.1f} (first "
+                  f"render: {caps1} captures in {cap_s * 1e3:.1f} ms, warm-up "
+                  f"included) / {span_r2[0]:.1f}; its span on the card (CUDA "
+                  f"events) eager {span_e2[1]:.1f}, replayed {span_r2[1]:.1f}; "
+                  f"device time of the replayed loop {device_ms:.1f} ms "
+                  f"({dev_k:.3f} ms a {K}-body replay x {full}, {dev_1:.3f} "
+                  f"x {rest}; head {head} eager blocks); render wall eager "
+                  f"{wall_e1:.1f} / {wall_e2:.1f}, replayed {wall_r1:.1f} / "
+                  f"{wall_r2:.1f}; peak GiB eager {peak_e:.2f}, replayed "
+                  f"{peak:.2f} [{card}]")
+            want = {"fast-override": "first_order",
+                    "exact": "sequential<0>"}.get(name)
+            check(want is None or inside.get(want, 0) >= full + rest,
+                  f"{name}: the replayed loop launched {inside}, expected "
+                  f"{want} once a block")
+            print(f"  K = {K}: {loops.replays - r0} replays a render "
+                  f"({full} x {K} bodies + {rest} x 1); one chunk's graph: "
+                  f"{nk['kinds']}, the port's kernels {nk['inst']}, plain "
+                  f"kernels by name (top 8) "
+                  f"{sorted(nk['names'].items(), key=lambda kv: -kv[1])[:8]}; "
+                  f"the port's launches inside the replayed loop {inside}")
+            rec = dict(plan=plan, captures=caps1, capture_ms=cap_s * 1e3,
+                       loop_eager_ms=span_e2[0], loop_replayed_ms=span_r2[0],
+                       loop_first_ms=span_r1[0], device_ms=device_ms,
+                       chunk_ms=dev_k, inside=inside, oracle_db=d,
+                       render_eager_ms=wall_e2, render_replayed_ms=wall_r2,
+                       peak_eager_gib=peak_e, peak_gib=peak)
+            if name == "parity":
+                # each K captured first, then two rounds of renders in
+                # turns (the loops of every K stay cached)
+                caps = {}
+                for k in LOOP_KS:
+                    c0, s0 = loops.captures, loops.capture_s
+                    render("auto", k)
+                    caps[k] = (loops.captures - c0,
+                               (loops.capture_s - s0) * 1e3)
+                walls = {k: [] for k in LOOP_KS}
+                for _ in range(2):
+                    for k in LOOP_KS:
+                        got, _, span = render("auto", k)
+                        check(same_tree(got[2], eager[2])
+                              and torch.equal(got[0], eager[0]),
+                              f"{name}, K = {k}: not bitwise the eager loop")
+                        walls[k].append(span[0])
+                rec["ks"] = {}
+                for k in LOOP_KS:
+                    render("auto", k)
+                    hk, fk, _ = loops.plan
+                    rec["ks"][k] = (walls[k], chunk_device_ms(
+                        loops.last, k, hk, min(N_LOOP_TIMED, fk)), caps[k])
+                print(f"  parity by K (turns): loop wall ms, device ms a "
+                      f"body, captures and their ms on a cached graph; "
+                      + "; ".join(
+                          f"K = {k}: {w[0]:.1f} / {w[1]:.1f}, {dk / k:.4f}, "
+                          f"{c[0]} in {c[1]:.1f}"
+                          for k, (w, dk, c) in sorted(rec["ks"].items()))
+                      + f" [{card}]")
+            out[name] = rec
+            del eager, replayed, again, loop, cg, loops
+            torch.cuda.empty_cache()
+    cycle_loop.CHUNK = K
+    out["lengths"] = cycle_loop_lengths(dev, card)
+    print(f"cycle loop phase: {time.time() - t_phase:.1f} s")
+    return out
+
+
+def cycle_loop_lengths(dev, card) -> dict:
+    """The render a user makes with ``dst.render``: a graph compiled for
+    the call, rendered once.  config5 under parity and exact at B_SHORT x
+    each of LOOP_LENGTHS blocks, each render on a graph compiled for it:
+    the Python loop ("eager") against the replayed loop ("buffers", at
+    each K of LENGTH_KS), its warm-up and captures included, in turns
+    (eager, 1, 8, 8, 1, eager), each bitwise the eager render; the
+    render's wall (compile excluded) and the peak memory above what was
+    allocated before it.  Prints what the route "auto" takes at each
+    length.  Returns {policy: {blocks: {route: ([ms, ms], [GiB, GiB])}}}."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import cycle_loop
+    from dsp_stuff_tpu_torch.models import presets
+    g5, _ = presets.config5_feedback_16node()
+    K = cycle_loop.CHUNK
+    rng = np.random.default_rng(160)
+    out = {}
+    for pol in ("parity", "exact"):
+        rows = out[pol] = {}
+
+        def render(x, route, chunk=K):
+            cycle_loop.CHUNK = chunk
+            with dst.policy(pol):
+                cg = dst.compile_graph(g5, device="cuda")
+                cg.cycle_loops.route = route
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                y, _, _ = cg.render(x, batch_shape=(B_SHORT,))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                gib = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+            cycle_loop.CHUNK = K
+            return y, ms, gib, cg.cycle_loops.plan
+
+        x0 = torch.as_tensor(rng.standard_normal(
+            (B_SHORT, 1, 128 * LOOP_LENGTHS[0]), dtype=np.float32) * 0.3,
+            device=dev)
+        for route in ("eager", "buffers"):
+            render(x0, route)                    # the process warm
+        for nb in LOOP_LENGTHS:
+            x = torch.as_tensor(rng.standard_normal(
+                (B_SHORT, 1, 128 * nb), dtype=np.float32) * 0.3, device=dev)
+            k0, k1 = LENGTH_KS
+            got = {"eager": ([], []), f"K = {k0}": ([], []),
+                   f"K = {k1}": ([], [])}
+            want = None
+            for route, chunk in (("eager", K), ("buffers", k0),
+                                 ("buffers", k1), ("buffers", k1),
+                                 ("buffers", k0), ("eager", K)):
+                y, ms, gib, plan = render(x, route, chunk)
+                label = "eager" if route == "eager" else f"K = {chunk}"
+                got[label][0].append(ms)
+                got[label][1].append(gib)
+                if want is None:
+                    want = y
+                check(torch.equal(y.view(torch.int32),
+                                  want.view(torch.int32)),
+                      f"{pol} at {nb} blocks: {label} differs from eager")
+                check((plan is None) == (route == "eager"),
+                      f"{pol} at {nb} blocks, {label}: plan {plan}")
+                del y
+            rows[nb] = got
+            takes = ("replayed" if nb >= cycle_loop.MIN_BLOCKS else "eager")
+            print(f"cycle loop by length, config5 {pol}, [{B_SHORT}, 1, "
+                  f"{128 * nb}] ({nb} blocks), a graph compiled a render: "
+                  + "; ".join(f"{label} {ms[0]:.1f} / {ms[1]:.1f} ms, peak "
+                              f"{gib[0] * 1024:.1f} / {gib[1] * 1024:.1f} MiB"
+                              for label, (ms, gib) in got.items())
+                  + f"; auto takes {takes} [{card}]")
+            del x, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     t_start = time.time()
@@ -4459,6 +4800,8 @@ def main() -> int:
     gr = grad_phase(dev, card)
     torch.cuda.empty_cache()
     rv = cycle_reverse_phase(dev, card)
+    torch.cuda.empty_cache()
+    cl = cycle_loop_phase(dev, card)
 
     def stream_us(rec, key, bnd):
         """The kernel's device time in one replayed stream block, with its
@@ -4525,14 +4868,18 @@ def main() -> int:
               fit_rec["launches"], rec["fo_err"], fit_rec["fo_times"],
               bound(8.0 * B_FIT * T_MAIN, 2.0 * B_FIT * T_MAIN),
               **stream_us(rt["muff"], "first_order",
-                          bound(8.0 * 128, 2.0 * 128))),
+                          bound(8.0 * 128, 2.0 * 128)),
+              loop_launches=cl["fast-override"]["inside"].get("first_order",
+                                                               0)),
         entry("first_order_kernel:per-sample", "first_order_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_scan.py:102",
               fit_rec["launches_ps"], rec["fo_err_ps"], fit_rec["fo_times_ps"],
               bound(12.0 * B_FIT * T_MAIN, 2.0 * B_FIT * T_MAIN)),
         seq_entry("first_order", "dsp_stuff_tpu/ops/scan.py:299",
                   **stream_us(ex["stream"], "sequential<0>",
-                              exact_block_bounds()["sequential<0>"])),
+                              exact_block_bounds()["sequential<0>"]),
+                  loop_launches=cl["exact"]["inside"].get("sequential<0>",
+                                                          0)),
         seq_entry("biquad", "dsp_stuff_tpu/ops/scan.py:745",
                   **stream_us(ex["stream"], "sequential<2>",
                               exact_block_bounds()["sequential<2>"])),

@@ -29,7 +29,7 @@ parallel.mesh splits a batch of streams over several devices.  Every
 entry point runs on the card unless the caller passes device="cpu".
 
 Public API:
-    Graph, load_graph, loads_graph, save_graph, dumps_graph
+    Graph, GraphNode, load_graph, loads_graph, save_graph, dumps_graph
     compile_graph, CompiledGraph       -- graph -> render program on a device
     render, render_file                -- one-call offline render (arrays,
                                           WAV files)
@@ -41,14 +41,14 @@ Public API:
                                           render_sharded
     policy, get_policy, set_policy     -- precision policy ('fast', 'parity',
                                           'exact')
-    REGISTRY                           -- the port's node-type registry
+    REGISTRY, register_node, NodeSpec  -- the port's node-type registry
 """
 
 from dsp_stuff_tpu_torch.utils.precision import (PrecisionPolicy, get_policy,
                                                  set_policy, policy)
-from dsp_stuff_tpu_torch.registry import REGISTRY
-from dsp_stuff_tpu_torch.graph import (Graph, load_graph, loads_graph,
-                                       save_graph, dumps_graph)
+from dsp_stuff_tpu_torch.registry import REGISTRY, register_node, NodeSpec
+from dsp_stuff_tpu_torch.graph import (Graph, GraphNode, load_graph,
+                                       loads_graph, save_graph, dumps_graph)
 from dsp_stuff_tpu_torch.compiler.compile import compile_graph, CompiledGraph
 from dsp_stuff_tpu_torch.runtime.session import render, render_file
 from dsp_stuff_tpu_torch.runtime.stream import StreamSession
@@ -63,10 +63,11 @@ BLOCK_SIZE = 128        # reference block size (node.rs:257 BUF_SIZE)
 SAMPLE_RATE = 48_000    # reference fixed rate (devices.rs:281, README.md:48)
 
 __all__ = [
-    "Graph", "load_graph", "loads_graph", "save_graph", "dumps_graph",
-    "compile_graph", "CompiledGraph", "render", "render_file",
+    "Graph", "GraphNode", "load_graph", "loads_graph", "save_graph",
+    "dumps_graph", "compile_graph", "CompiledGraph", "render", "render_file",
     "StreamSession", "save_checkpoint", "load_checkpoint", "train",
     "parallel",
-    "REGISTRY", "PrecisionPolicy", "get_policy", "set_policy", "policy",
+    "REGISTRY", "register_node", "NodeSpec", "PrecisionPolicy",
+    "get_policy", "set_policy", "policy",
     "BLOCK_SIZE", "SAMPLE_RATE",
 ]

@@ -19,7 +19,8 @@ plan made once per graph:
   defined semantic of the reference's emergent pipe latency): under
   ``fast``, when every member lowers, as ONE ops/cycle_segment block
   program (the cycle kernel on a CUDA device), otherwise as a per-node
-  scan over the blocks;
+  scan over the blocks (on a CUDA device its block loop captured in CUDA
+  graphs and replayed, compiler/cycle_loop.py);
 * Input nodes bind external source columns, Output nodes produce rendered
   channels, analysis sinks produce aux arrays.
 
@@ -35,6 +36,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from dsp_stuff_tpu_torch.compiler.cycle_loop import CycleLoops
 from dsp_stuff_tpu_torch.compiler.scc import condensation_topo_order
 from dsp_stuff_tpu_torch.graph import Graph, GraphNode
 from dsp_stuff_tpu_torch.ops import cascade
@@ -60,7 +62,25 @@ EXTERNAL = "__external__"
 # nothing.
 NODE_HOOK = None
 
+#: structural switch of the feedback-cycle block program, read at every
+#: render: False sends every feedback SCC to the per-node scan (tests flip
+#: it to pin the fused cycle against that scan, as the JAX package's do)
+CYCLE_FUSION = True
+
 _F32 = torch.float32
+
+
+def apply_knob_writeback(graph: Graph, aux) -> Graph:
+    """Fold ``aux["__knobs__"]`` back into the graph's slider settings (on
+    the host): each knob's last value as a Python float, so that a save
+    after a render shows the knob positions the reference's UI would
+    (quirk SURVEY.md 2.4 #9).  Returns ``graph``."""
+    for key, val in (aux.get("__knobs__") or {}).items():
+        nid_s, pname = key.split(":", 1)
+        flat = (val.detach().reshape(-1) if isinstance(val, torch.Tensor)
+                else np.asarray(val).ravel())
+        graph.nodes[int(nid_s)].params[pname] = float(flat[-1])
+    return graph
 
 
 def _fanin_divisor(n: int) -> np.float32:
@@ -393,6 +413,9 @@ class CompiledGraph:
         self._sccs = sccs
         self._mega_plan = mega_plan
         self._fusion_plan = fusion_plan
+        #: the per-node cycle scans' loops over static buffers, and on the
+        #: card their captured CUDA graphs (compiler/cycle_loop.py)
+        self.cycle_loops = CycleLoops(self)
 
     # -- state and parameters ---------------------------------------------
 
@@ -1078,13 +1101,16 @@ class CompiledGraph:
         emergent feedback latency.  Under ``fast``, when every member
         lowers, the whole SCC runs as ONE ops/cycle_segment block program.
         Otherwise (``parity``, a modulated member, a member the program
-        does not take) a per-node scan over the blocks runs, in which the
-        in-cycle linear runs (``fast`` only) are one cascade solve per
-        block at the head's position."""
+        does not take, ``CYCLE_FUSION`` off) a per-node scan over the
+        blocks runs (:class:`_CycleScan`), in which the in-cycle linear
+        runs (``fast`` only) are one cascade solve per block at the head's
+        position: as a Python loop over the blocks, or, on the card, as
+        the loop over static buffers that compiler/cycle_loop.py captures
+        in CUDA graphs (its rule: ``CycleLoops.takes``)."""
         B = self.block_size
         ckey = _cycle_key(comp)
         planned = (self._cycle_program(comp, pdict)
-                   if NODE_HOOK is None
+                   if CYCLE_FUSION and NODE_HOOK is None
                    and precision.get_policy().name == "fast" else None)
         if planned is not None:
             program, ext_keys, reg_ports, tap_ports, cspecs = planned
@@ -1121,62 +1147,26 @@ class CompiledGraph:
             state[ckey] = prev
             return
 
-        graph, nodes = self.graph, self._nodes
-        order = sorted(comp)
-        comp_set = set(order)
-        member_ports = [(nid, port) for nid in order
-                        for port in nodes[nid].spec.outputs]
-        emit = {kp: [] for kp in member_ports
-                if self._needs_sequence(comp_set, *kp)}
-        st = {str(nid): state[str(nid)] for nid in order}
-        prev = {kp: state[ckey][f"{kp[0]}:{kp[1]}"] for kp in member_ports}
-        for b in range(T // B):
-            cur: dict = {}
-
-            def lookup(src, src_port):
-                key = (src, src_port)
-                if src in comp_set:
-                    return cur[key] if key in cur else prev[key]
-                return values[key][..., b * B:(b + 1) * B]
-
-            for nid in order:
-                if nid in fused_interior:
-                    continue                  # evaluated at the run head
-                if nid in fused_heads:
-                    run, secs, emits, tapped = fused_heads[nid]
-                    x1, _ = _avg([lookup(l.src, l.src_port) for l in
-                                  graph.in_links(run[0], "in")], B,
-                                 self.device)
-                    cur.update(self._fused_run_eval(run, secs, emits,
-                                                    tapped, x1, st))
-                    continue
-                node = nodes[nid]
-                in_sigs = {port: _avg([lookup(l.src, l.src_port) for l in
-                                       graph.in_links(nid, port)], B,
-                                      self.device)
-                           for port in node.spec.all_inputs}
-                inputs = {p: in_sigs[p][0] for p in node.spec.inputs}
-                params = self._resolve_params(node, in_sigs, pdict)
-                outs, st[str(nid)] = _call_block(node.spec.impl, params,
-                                                 st[str(nid)], inputs, B)
-                if NODE_HOOK is not None:
-                    NODE_HOOK(nid, node.cfg_name, outs)
-                for port in node.spec.outputs:
-                    cur[(nid, port)] = outs[port]
-            # members a fused run skipped without emitting: nothing reads
-            # them, their carried entries pass through unchanged
-            for kp in member_ports:
-                if kp not in cur:
-                    cur[kp] = prev[kp]
-            for kp, blocks in emit.items():
-                blocks.append(cur[kp])
-            prev = cur
-        for nid in order:
-            state[str(nid)] = st[str(nid)]
+        scan = _CycleScan(self, comp, fused_heads, fused_interior)
+        st = {str(nid): state[str(nid)] for nid in scan.order}
+        prev = {kp: state[ckey][f"{kp[0]}:{kp[1]}"] for kp in scan.ports}
+        nb = T // B
+        if NODE_HOOK is None and self.cycle_loops.takes(scan, values, pdict,
+                                                        st, prev, nb):
+            st, prev, seqs = self.cycle_loops.run(scan, values, pdict, st,
+                                                  prev, nb)
+        else:
+            blocks: list = [[] for _ in scan.emit]
+            for b in range(nb):
+                st, prev, emitted = scan.body(values, pdict, st, prev, b)
+                for seq, blk in zip(blocks, emitted):
+                    seq.append(blk)
+            seqs = [torch.cat(torch.broadcast_tensors(*seq), dim=-1)
+                    for seq in blocks]
+        state.update(st)
         state[ckey] = {f"{nid}:{port}": prev[(nid, port)]
-                       for nid, port in member_ports}
-        for kp, blocks in emit.items():
-            values[kp] = torch.cat(torch.broadcast_tensors(*blocks), dim=-1)
+                       for nid, port in scan.ports}
+        values.update(zip(scan.emit, seqs))
 
     def _eval(self, state, ext, T: int, pdict=None):
         graph = self.graph
@@ -1273,6 +1263,92 @@ class CompiledGraph:
                 res = _on_batch(res, batch)
             aux[f"{node.cfg_name}:{nid}"] = res
         return state, outs, aux
+
+
+class _CycleScan:
+    """The per-node scan of one feedback SCC over blocks of the graph's
+    block size: the members in ascending-id order, the member ports
+    carried from block to block (``ports``), those whose whole sequence
+    the render reads (``emit``: read outside the SCC, or by a modulation
+    port for the knob writeback) and the signals it reads from outside
+    (``feeds``).  :meth:`body` is one block of it, which both routes of
+    the scan run: the Python loop over the blocks
+    (``CompiledGraph._eval_cycle``) and the loop over static buffers
+    (compiler/cycle_loop.py), the JAX package's ``lax.scan`` body
+    (dsp_stuff_tpu/compiler/compile.py:1386)."""
+
+    def __init__(self, cg: CompiledGraph, comp, fused_heads: dict,
+                 fused_interior: set):
+        self.cg = cg
+        self.order = sorted(comp)
+        self.comp_set = set(self.order)
+        self.ports = [(nid, port) for nid in self.order
+                      for port in cg._nodes[nid].spec.outputs]
+        self.emit = [kp for kp in self.ports
+                     if cg._needs_sequence(self.comp_set, *kp)]
+        self.feeds = sorted({(l.src, l.src_port) for l in cg.graph.links
+                             if l.dst in self.comp_set
+                             and l.src not in self.comp_set})
+        self.fused_heads = fused_heads
+        self.fused_interior = fused_interior
+
+    def body(self, feeds: dict, pdict, st: dict, prev: dict, b):
+        """Block ``b`` of the scan: ``b`` a Python int, or a 0-d int64
+        counter on the device (then each feed's block is gathered at
+        ``b * block + arange(block)``, so nothing on the host changes from
+        one block to the next).  ``feeds`` maps each of ``self.feeds`` to
+        its [..., T] signal, ``st`` each member id to its state, ``prev``
+        each carried port to the previous block's output.  Returns
+        (st, cur, emitted): the members' new states, this block's outputs
+        (the next block's ``prev``) and the blocks of ``self.emit``."""
+        cg = self.cg
+        graph, nodes, B = cg.graph, cg._nodes, cg.block_size
+        st = dict(st)
+        cur: dict = {}
+
+        def lookup(src, src_port):
+            key = (src, src_port)
+            if src in self.comp_set:
+                return cur[key] if key in cur else prev[key]
+            return _block_of(feeds[key], b, B)
+
+        for nid in self.order:
+            if nid in self.fused_interior:
+                continue                      # evaluated at the run head
+            if nid in self.fused_heads:
+                run, secs, emits, tapped = self.fused_heads[nid]
+                x1, _ = _avg([lookup(l.src, l.src_port) for l in
+                              graph.in_links(run[0], "in")], B, cg.device)
+                cur.update(cg._fused_run_eval(run, secs, emits, tapped, x1,
+                                              st))
+                continue
+            node = nodes[nid]
+            in_sigs = {port: _avg([lookup(l.src, l.src_port) for l in
+                                   graph.in_links(nid, port)], B, cg.device)
+                       for port in node.spec.all_inputs}
+            inputs = {p: in_sigs[p][0] for p in node.spec.inputs}
+            params = cg._resolve_params(node, in_sigs, pdict)
+            outs, st[str(nid)] = _call_block(node.spec.impl, params,
+                                             st[str(nid)], inputs, B)
+            if NODE_HOOK is not None:
+                NODE_HOOK(nid, node.cfg_name, outs)
+            for port in node.spec.outputs:
+                cur[(nid, port)] = outs[port]
+        # members a fused run skipped without emitting: nothing reads
+        # them, their carried entries pass through unchanged
+        for kp in self.ports:
+            if kp not in cur:
+                cur[kp] = prev[kp]
+        return st, cur, tuple(cur[kp] for kp in self.emit)
+
+
+def _block_of(seq: torch.Tensor, b, B: int) -> torch.Tensor:
+    """Block ``b`` of ``seq`` [..., T]: a slice for a Python int, a gather
+    at ``b * B + arange(B)`` for a counter on the device."""
+    if isinstance(b, torch.Tensor):
+        return seq.index_select(-1, b * B + torch.arange(B,
+                                                          device=seq.device))
+    return seq[..., b * B:(b + 1) * B]
 
 
 def compile_graph(graph: Graph, block_size: int = 128,

@@ -376,3 +376,21 @@ def cascade_state_out(sections, s_tm1, s_tm2, x_tm1, x_tm2):
             _, _, u2, y2, _ = vals2[idx]
             out.append({"x1": u1, "x2": u2, "y1": y1, "y2": y2})
     return out
+
+
+def one_pole_pair(x, kind1: str, r1: float, kind2: str, r2: float,
+                  h: float, z1, z2):
+    """Fused ``sec1 -> (scale h) -> sec2`` one-pole cascade: the
+    two-section :func:`linear_cascade` (the compiler calls linear_cascade
+    itself).  Returns ``(y, z1_new, z2_new)``."""
+    sections = ((kind1, float(r1)), ("gain", float(h)), (kind2, float(r2)))
+    x = torch.as_tensor(x, dtype=torch.float32)
+    batch = x.shape[:-1]
+    zs = [{"z": torch.as_tensor(z, dtype=torch.float32,
+                                device=x.device).expand(batch)}
+          for z in (z1, z2)]
+    y, s_tm1, s_tm2 = linear_cascade(x, sections,
+                                     cascade_state_in(sections, zs))
+    x_tm2 = x[..., -2] if x.shape[-1] >= 2 else torch.zeros_like(x[..., -1])
+    st1, st2 = cascade_state_out(sections, s_tm1, s_tm2, x[..., -1], x_tm2)
+    return y, st1["z"], st2["z"]

@@ -61,38 +61,18 @@ from __future__ import annotations
 
 import time
 
-import numpy as np
 import torch
 
 from dsp_stuff_tpu_torch.compiler import compile as _compile
 from dsp_stuff_tpu_torch.ops import lockstep
 from dsp_stuff_tpu_torch.registry import ParamSpec
 from dsp_stuff_tpu_torch.utils import precision
+from dsp_stuff_tpu_torch.utils.buffers import (Binding, buffer_pairs,
+                                              capture_key, copy_into,
+                                              freeze_params, state_buffer)
 from dsp_stuff_tpu_torch.utils.capture import holding
-from dsp_stuff_tpu_torch.utils.sliders import Scope
 
 _F32 = torch.float32
-
-
-def freeze_params(p):
-    """Hashable snapshot of a params tree (dicts, scalars, arrays,
-    tensors) by CONTENT (the JAX package's ``_freeze_params``,
-    dsp_stuff_tpu/runtime/stream.py:31): the part of a capture's key that
-    the step cannot take as data (a static slider)."""
-    if p is None:
-        return None
-    if isinstance(p, dict):
-        return tuple(sorted((str(k), freeze_params(v)) for k, v in p.items()))
-    if isinstance(p, (list, tuple)):
-        return tuple(freeze_params(v) for v in p)
-    if isinstance(p, torch.Tensor):
-        a = p.detach().cpu().numpy()
-        return (str(p.device), a.shape, a.dtype.str, a.tobytes())
-    if isinstance(p, np.ndarray) or (hasattr(p, "shape") and hasattr(
-            p, "dtype") and not np.isscalar(p)):
-        a = np.asarray(p)
-        return (a.shape, a.dtype.str, a.tobytes())
-    return p
 
 
 class _Same:
@@ -128,72 +108,6 @@ def params_stamp(p):
     return freeze_params(p)
 
 
-def capture_key(params, data=None):
-    """What a captured step depends on besides its buffers: the params'
-    structure and the precision policy.  The structure is each leaf's
-    path and kind: a float, or a tensor with its shape, dtype and device;
-    a leaf the step cannot take as data (``data(node, name)`` false: a
-    static slider, a name no node has) counts by its content.  The values
-    of the others are data, copied in before a replay."""
-    def leaf(nid, name, v):
-        if data is not None and not data(nid, name):
-            return "content", freeze_params(v)
-        if isinstance(v, torch.Tensor):
-            return "tensor", tuple(v.shape), str(v.dtype), str(v.device)
-        return ("float",)
-    if params is None:
-        tree = None
-    else:
-        tree = tuple(sorted(
-            (str(nid), tuple(sorted((str(k), leaf(nid, k, v))
-                                    for k, v in entry.items()))
-             if isinstance(entry, dict) else ("content", freeze_params(entry)))
-            for nid, entry in params.items()))
-    return tree, precision.get_policy().name
-
-
-class _Binding:
-    """The params of one capture as its step reads them: each float of a
-    data slider a root of ``scope``, each tensor a buffer on ``device``,
-    every other leaf as given.  ``key`` is the capture's key: the
-    structure's and a count of the bindings made."""
-
-    def __init__(self, params, data, device, key):
-        self.key = key
-        self.scope = Scope()
-        self.tensors: list = []         # (path, buffer)
-        self.params = None if params is None else {}
-        for nid, entry in (params or {}).items():
-            if not isinstance(entry, dict):
-                self.params[nid] = entry
-                continue
-            out = self.params[nid] = {}
-            for name, v in entry.items():
-                path = (nid, name)
-                if not data(nid, name):
-                    out[name] = v
-                elif isinstance(v, torch.Tensor):
-                    if v.device != device:
-                        raise ValueError(
-                            f"params[{nid!r}][{name!r}] is on {v.device}; "
-                            f"the session is on {device}")
-                    out[name] = v.detach().clone()
-                    self.tensors.append((path, out[name]))
-                else:
-                    out[name] = self.scope.root(path, float(v))
-
-    def move(self, params) -> bool:
-        """Copy ``params``' values (the same structure) into the buffers;
-        False when a form of the floats moved (see utils/sliders)."""
-        floats = {path: float(params[path[0]][path[1]])
-                  for path in self.scope.roots}
-        if not self.scope.move(floats):
-            return False
-        for (nid, name), b in self.tensors:
-            b.copy_(params[nid][name].detach())
-        return True
-
-
 def refuse_node_hook() -> None:
     """Raise while ``compile.NODE_HOOK`` is set: a per-node host callback
     cannot fire inside a replayed graph, so a session on the card refuses
@@ -203,64 +117,6 @@ def refuse_node_hook() -> None:
             "StreamSession on the card: compile.NODE_HOOK is set, and a "
             "per-node host callback cannot fire inside a replayed CUDA "
             "graph; use utils/obs.debug_render, or device=\"cpu\"")
-
-
-def _buffer(v, device):
-    """A state leaf as its buffer: a tensor copied to ``device``, a Python
-    or NumPy integer a lockstep counter on the device, None kept."""
-    if v is None:
-        return None
-    if isinstance(v, torch.Tensor):
-        return v.detach().to(device).clone()
-    if isinstance(v, (int, np.integer)) and not isinstance(v, bool):
-        return lockstep.on_device(v, device)
-    return torch.as_tensor(np.asarray(v), device=device).clone()
-
-
-def _pairs(bufs: dict, tree: dict, what: str):
-    """(buffer, value) of every leaf of ``tree`` against the buffer tree
-    ``bufs``; raises when the trees differ in their keys."""
-    if set(tree) != set(bufs):
-        raise ValueError(f"{what}: keys {sorted(tree)} do not match the "
-                         f"session's state {sorted(bufs)}")
-    out = []
-    for k, b in bufs.items():
-        v = tree[k]
-        if isinstance(b, dict):
-            if not isinstance(v, dict) or set(v) != set(b):
-                raise ValueError(f"{what}[{k!r}] does not match the "
-                                 f"session's state entry")
-            out += [(b[kk], v[kk], f"{what}[{k!r}][{kk!r}]") for kk in b]
-        else:
-            out.append((b, v, f"{what}[{k!r}]"))
-    return out
-
-
-def _copy_into(pairs) -> None:
-    """Each value into its buffer.  A value that shares memory with a
-    buffer other than its own (a view the step returned) is cloned first,
-    so no copy reads a buffer already overwritten."""
-    storages = {b.untyped_storage().data_ptr(): b for b, _, _ in pairs
-                if isinstance(b, torch.Tensor)}
-    staged = []
-    for b, v, what in pairs:
-        if b is None:
-            continue
-        if isinstance(v, torch.Tensor):
-            owner = storages.get(v.untyped_storage().data_ptr())
-            if owner is not None and owner is not b:
-                v = v.clone()
-        elif v is None:
-            raise ValueError(f"{what} is None, the session holds a tensor")
-        staged.append((b, v, what))
-    for b, v, what in staged:
-        if isinstance(v, torch.Tensor):
-            if v.shape != b.shape and not lockstep.is_counter(b):
-                raise ValueError(f"{what} has shape {tuple(v.shape)}; the "
-                                 f"session's buffer is {tuple(b.shape)}")
-            b.copy_(v)
-        else:
-            b.fill_(int(v) if lockstep.is_counter(b) else float(v))
 
 
 class BlockStep:
@@ -286,8 +142,8 @@ class BlockStep:
                                   device=dev)
         self.outputs = torch.zeros((len(cg.output_ids), self.block),
                                    dtype=_F32, device=dev)
-        self._state = {k: ({kk: _buffer(vv, dev) for kk, vv in st.items()}
-                           if isinstance(st, dict) else _buffer(st, dev))
+        self._state = {k: ({kk: state_buffer(v, dev) for kk, v in st.items()}
+                           if isinstance(st, dict) else state_buffer(st, dev))
                        for k, st in cg.init_state().items()}
         self.on_card = dev.type == "cuda"
         self.captures = 0
@@ -314,21 +170,24 @@ class BlockStep:
         """Copy ``state`` (the tree of ``cg.init_state()``) into the
         buffers; the buffers themselves stay, so a captured graph goes on
         reading them."""
-        pairs = _pairs(self._state, state, "state")
+        pairs = buffer_pairs(self._state, state, "state")
         for _, v, what in pairs:
             if isinstance(v, torch.Tensor) and v.device != self.cg.device:
                 raise ValueError(f"{what} is on {v.device}; the session is "
                                  f"on {self.cg.device}")
-        _copy_into(pairs)
+        copy_into(pairs)
 
     # -- the step ------------------------------------------------------------
 
     def _body(self, params) -> None:
         ext = {k: self.inputs[i] for i, k in enumerate(self.keys)}
-        new, outs, _aux = self.cg.fn(self._state, ext, params)
+        # the step is captured whole, its cycles' blocks inside it: the
+        # warm-up runs their Python loop, as the capture does
+        with self.cg.cycle_loops.eager():
+            new, outs, _aux = self.cg.fn(self._state, ext, params)
         for i, nid in enumerate(self.cg.output_ids):
             self.outputs[i].copy_(outs[nid])
-        _copy_into(_pairs(self._state, new, "the step's new state"))
+        copy_into(buffer_pairs(self._state, new, "the step's new state"))
 
     def run(self, params, n: int = 1, before=None, after=None) -> None:
         """``n`` steps under ``params``: on the card, replays of the graph
@@ -389,7 +248,7 @@ class BlockStep:
             b = self._binding
             if b is None or b.key[0] != skey or not b.move(params):
                 self.bindings += 1
-                self._binding = _Binding(params, self.data, self.cg.device,
+                self._binding = Binding(params, self.data, self.cg.device,
                                          (skey, self.bindings))
             self._stamp = stamp
         return self._binding.key
