@@ -145,6 +145,25 @@ device="cuda")``:
   device time, the captures and replays, the nodes of a chunk's graph
   from its DOT dump with each kernel's launches inside the loop; under
   parity also graphs of 1 and 32 blocks;
+* the per-node scan's backward (compiler/cycle_loop.py, _ScanGrad):
+  config5 with every slider a leaf over 8 streams x 1 s under parity,
+  exact and fast, its loop differentiated as replayed CUDA graphs
+  (forward with a checkpoint every SEGMENT blocks; restore, record and
+  reverse bodies), against the eager Python loop's autograd on the card
+  (the loss and final states bitwise, each slider's gradient within rtol
+  1e-5, the input's within 1e-5 max-normalized, each printed with
+  whether it is bitwise; five captures, none on a second step) and
+  against the CPU port at 2 x 48 blocks (rtol 1e-3); the reverse graph's
+  kernels by mode from its DOT dump (the first-order kernel's reverse
+  mode once a block under fast, the sequential kernel's under exact);
+  three make_train_step steps of config5 under fast at 128 streams x
+  10 s (loss, step wall, captures and replays a step, none captured
+  after the first; the scan's forward and backward wall and device time;
+  peak memory) beside one step of the Python loop under autograd, whose
+  loss is bitwise and gradients within the same bounds; and the
+  break-even by length, fast and parity at 4 streams x 16, 64 and 375
+  blocks, a graph compiled a step, eager against replayed with its
+  captures;
 
 and times every kernel against its plain version (the chain kernel on
 the bench list at 1, 128, 512 and 1024 streams and on config5's list at
@@ -280,6 +299,13 @@ N_LOOP_TIMED = 200        # graph replays timed back to back
 LOOP_LENGTHS = (4, 16, 64, 128, 375, 1024)
 LENGTH_KS = (1, 8)        # the replayed loop's K in those renders
 B_SHORT = 4
+# the per-node loop's backward: config5 with every slider a leaf
+B_LOOP_GRAD = 8           # streams (x 1 s) against the eager autograd loop
+LOOP_GRAD_TOL = 1e-5      # replayed vs eager: arrays max-normalized, sliders
+LOOP_GRAD_ATOL = 1e-7     # ... a slider's gradient near 0
+LOOP_GRAD_CPU_BLOCKS = 48  # card vs the CPU port, 2 streams
+N_LOOP_FIT_STEPS = 3      # make_train_step steps at B_LOOP x 10 s
+LOOP_GRAD_LENGTHS = (16, 64, 375)   # blocks at B_SHORT, a graph a step
 
 
 def dbfs(got, want) -> float:
@@ -4373,6 +4399,327 @@ def cycle_loop_lengths(dev, card) -> dict:
     return out
 
 
+def loop_grads(cg, route, x, target, state=None):
+    """One differentiated render of config5 on ``route`` with every slider
+    a leaf: (loss, {slider: gradient}, the input's gradient, the final
+    state, wall ms).  The input is [B, T] on the graph's device."""
+    import torch
+    from dsp_stuff_tpu_torch.train import fit
+    cg.cycle_loops.route = route
+    params = cg.init_params(requires_grad=True)
+    xx = x.clone().requires_grad_()
+    state = cg.init_state() if state is None else state
+    sync = cg.device.type == "cuda"
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, outs, _ = cg.fn(state, {str(min(cg.input_ids)): xx}, params)
+    y = torch.stack([outs[i] for i in cg.output_ids], dim=-2)
+    loss = torch.mean(fit.mse_loss(y, target))
+    loss.backward()
+    if sync:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = {f"{n}:{k}": v.grad for n, e in params.items()
+             for k, v in e.items()}
+    return loss.detach(), grads, xx.grad, st, ms
+
+
+def held_grads(what, got, want, rtol, atol) -> tuple:
+    """Each slider's and the input's gradient of ``got`` against ``want``
+    (loop_grads' tuples): an array max-normalized within ``rtol``, a
+    slider within ``rtol`` or ``atol`` near 0, a slider no block reads
+    without a gradient in both.  Returns (worst slider error, input
+    error, every gradient bitwise)."""
+    import torch
+    worst, bit = 0.0, True
+    check(got[1].keys() == want[1].keys(), f"{what}: sliders differ")
+    for k, w in want[1].items():
+        g = got[1][k]
+        check((g is None) == (w is None), f"{what}: {k} has a gradient in "
+                                          f"one run only")
+        if w is None:
+            continue
+        err = grad_close(f"{what}, slider {k}", g, w, rtol, atol)
+        worst = max(worst, err if abs(float(w)) > atol else 0.0)
+        bit = bit and torch.equal(g.cpu(), w.cpu())
+    x_err = grad_close(f"{what}, the input", got[2], want[2], rtol)
+    bit = bit and torch.equal(got[2].cpu(), want[2].cpu())
+    return worst, x_err, bit
+
+
+#: the port's kernels in a reverse graph's DOT dump by mode: the
+#: first-order kernel forward (fo_chained<., false>: the block's forward
+#: run again) and reverse (<., true>), the sequential kernel forward and
+#: its reverse mode
+REVERSE_MODES = (("first_order:reverse", r"fo_chainedILb[01]ELb1E"),
+                 ("first_order", r"fo_chainedILb[01]ELb0E"),
+                 ("sequential:reverse", r"sequential_reverse_kernelILi\d"),
+                 ("sequential", r"sequential_kernelILi\d"))
+
+
+def reverse_launches(cg, name) -> dict:
+    """The port's kernels in the last loop's reverse graph (one block),
+    from its DOT dump: {mode of REVERSE_MODES: launches}."""
+    with open(loop_graph_nodes(cg, name, "reverse")["path"]) as f:
+        text = f.read()
+    out = {}
+    for mode, pat in REVERSE_MODES:
+        n = len(re.findall(pat, text))
+        if n:
+            out[mode] = n
+    return out
+
+
+@contextlib.contextmanager
+def scan_spans(spans: dict):
+    """Time the differentiated loop's forward (``_Loop.checkpointed``) and
+    backward (``_Loop.backward``) by CUDA events, the card synchronized
+    after each: appends (wall ms, device ms) to spans["forward"] and
+    spans["backward"]."""
+    import torch
+    from dsp_stuff_tpu_torch.compiler import cycle_loop
+    real = {n: getattr(cycle_loop._Loop, n) for n in ("checkpointed",
+                                                      "backward")}
+
+    def timed(name):
+        def call(self, *args, **kwargs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            out = real[name](self, *args, **kwargs)
+            e1.record()
+            torch.cuda.synchronize()
+            spans[{"checkpointed": "forward"}.get(name, name)].append(
+                ((time.perf_counter() - t0) * 1e3, e0.elapsed_time(e1)))
+            return out
+        return call
+    try:
+        for n in real:
+            setattr(cycle_loop._Loop, n, timed(n))
+        yield spans
+    finally:
+        for n, f in real.items():
+            setattr(cycle_loop._Loop, n, f)
+
+
+def cycle_loop_grad_phase(dev, card) -> dict:
+    """The backward of the per-node cycle scan (compiler/cycle_loop.py,
+    ``_ScanGrad``): config5 with every slider a leaf at B_LOOP_GRAD x 1 s
+    under parity, exact and fast, the replayed loop differentiated
+    (forward, checkpoints, record and reverse bodies as CUDA graphs)
+    against the Python loop's autograd on the card (loss, each slider's
+    gradient, the input's, the final states; a second step captures
+    nothing) and the card against the CPU port at 2 x LOOP_GRAD_CPU_BLOCKS
+    blocks; the reverse graph's kernels from its DOT dump; then three
+    make_train_step steps of config5 under fast at B_LOOP x 10 s (loss,
+    step wall, captures, replays, the scan's forward and backward time,
+    peak memory) beside one step of the Python loop; then the break-even
+    by length (LOOP_GRAD_LENGTHS blocks at B_SHORT, a graph compiled a
+    step).  Returns the records."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import cycle_loop
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.train import fit
+    t_phase = time.time()
+    g5, meta = presets.config5_feedback_16node()
+    inp = str(meta["input"])
+    rng = np.random.default_rng(170)
+
+    def inputs(b, nb, device):
+        x = rng.standard_normal((b, 128 * nb), dtype=np.float32) * 0.3
+        t = rng.standard_normal((b, 1, 128 * nb), dtype=np.float32) * 0.1
+        return (torch.as_tensor(x, device=device),
+                torch.as_tensor(t, device=device))
+
+    out = {}
+    nb1 = SR // 128
+    for pol in ("parity", "exact", "fast"):
+        x, tgt = inputs(B_LOOP_GRAD, nb1, dev)
+        with dst.policy(pol):
+            cg = dst.compile_graph(g5, device="cuda")
+            loops = cg.cycle_loops
+            eager = loop_grads(cg, "eager", x, tgt)
+            check(loops.plan is None and loops.captures == 0,
+                  f"{pol}: the eager route ran the loop over buffers")
+            got = loop_grads(cg, "auto", x, tgt)
+            caps = dict(loops.captured)
+            check(set(caps) == {"forward", "save", "restore", "record",
+                                "reverse"} and all(v == 1 for v in
+                                                   caps.values()),
+                  f"{pol}: captures {caps}")
+            r0 = loops.replays
+            again = loop_grads(cg, "auto", x, tgt)
+            check(dict(loops.captured) == caps,
+                  f"{pol}: a second step captured {dict(loops.captured)}")
+            head, full, rest = loops.plan
+            n = nb1 - head
+            segs = -(-n // cycle_loop.SEGMENT)
+            check(loops.replays - r0 == full + rest + 2 * segs + 2 * n,
+                  f"{pol}: {loops.replays - r0} replays, plan "
+                  f"{loops.plan}")
+            check(torch.equal(got[0], eager[0]),
+                  f"{pol}: the loss differs from the eager loop's")
+            check(same_tree(got[3], eager[3]),
+                  f"{pol}: the final states differ from the eager loop's")
+            worst, x_err, bit = held_grads(f"{pol} replayed vs eager", got,
+                                           eager, LOOP_GRAD_TOL,
+                                           LOOP_GRAD_ATOL)
+            again_bit = held_grads(f"{pol} second step", again, got,
+                                   LOOP_GRAD_TOL, LOOP_GRAD_ATOL)[2]
+            rev = reverse_launches(cg, f"cycle loop grad {pol}")
+            want = {"fast": "first_order:reverse",
+                    "exact": "sequential:reverse"}.get(pol)
+            check(want is None or rev.get(want) == 1,
+                  f"{pol}: the reverse graph launches {rev}, expected "
+                  f"{want} once a block")
+            print(f"cycle loop backward, config5 {pol}, every slider a "
+                  f"leaf, [{B_LOOP_GRAD}, {SR}] ({nb1} blocks, head {head}, "
+                  f"S = {cycle_loop.SEGMENT}): replayed vs the eager "
+                  f"autograd loop on the card: loss and states bitwise, "
+                  f"worst slider {worst:.2e} (rtol {LOOP_GRAD_TOL}), input "
+                  f"{x_err:.2e} max-normalized, gradients bitwise {bit}; "
+                  f"captures {caps}, none on the second step (its "
+                  f"gradients bitwise the first's {again_bit}); "
+                  f"{loops.replays - r0} replays a step; the port's kernels "
+                  f"a block in the reverse graph {rev}; step wall eager "
+                  f"{eager[4]:.1f} ms, replayed {got[4]:.1f} (captures "
+                  f"included) / {again[4]:.1f} ms [{card}]")
+            out[pol] = dict(worst=worst, x_err=x_err, bitwise=bit,
+                            captures=caps, reverse=rev, eager_ms=eager[4],
+                            first_ms=got[4], ms=again[4], blocks=n)
+            del eager, got, again, cg, loops
+        # the card against the CPU port (the buffers' backward on both)
+        xc, tc = inputs(2, LOOP_GRAD_CPU_BLOCKS, "cpu")
+        with dst.policy(pol):
+            cpu = loop_grads(dst.compile_graph(g5, device="cpu"), "buffers",
+                             xc, tc)
+            card_ = loop_grads(dst.compile_graph(g5, device="cuda"),
+                               "buffers", xc.to(dev), tc.to(dev))
+        check(abs(float(card_[0]) - float(cpu[0]))
+              <= GRAD_RTOL * abs(float(cpu[0])), f"{pol}: loss vs the CPU")
+        w_cpu, x_cpu, _ = held_grads(f"{pol} card vs CPU", card_, cpu,
+                                     GRAD_RTOL, GRAD_ATOL)
+        print(f"  card vs the CPU port, [2, {128 * LOOP_GRAD_CPU_BLOCKS}]: "
+              f"worst slider {w_cpu:.2e}, input {x_cpu:.2e} (rtol "
+              f"{GRAD_RTOL})")
+        out[pol].update(cpu_worst=w_cpu, cpu_x_err=x_cpu)
+        torch.cuda.empty_cache()
+
+    # -- three fit steps at full width ------------------------------------
+    x, tgt = inputs(B_LOOP, T_MAIN // 128, dev)
+    ext = {inp: x}
+    with dst.policy("fast"):
+        cg = dst.compile_graph(g5, device="cuda")
+        loops = cg.cycle_loops
+        step, init = fit.make_train_step(cg, fit.adam(1e-2))
+        params = cg.init_params(requires_grad=True)
+        opt = init(params)
+        spans = {"forward": [], "backward": []}
+        steps = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        with scan_spans(spans):
+            for i in range(N_LOOP_FIT_STEPS):
+                c0, r0 = loops.captures, loops.replays
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                _, opt, loss = step(params, opt, cg.init_state(), ext, tgt)
+                e1.record()
+                torch.cuda.synchronize()
+                if i == 0:
+                    first = {k: v.grad.clone() for k, v in
+                             ((f"{n}:{kk}", vv) for n, e in params.items()
+                              for kk, vv in e.items()) if v.grad is not None}
+                steps.append(dict(loss=float(loss), ms=e0.elapsed_time(e1),
+                                  captures=loops.captures - c0,
+                                  replays=loops.replays - r0,
+                                  peak_gib=torch.cuda.max_memory_allocated(
+                                      dev) / 2**30))
+        check(all(s["captures"] == 0 for s in steps[1:]),
+              f"fit steps 2 and 3 captured: {steps}")
+        check(all(np.isfinite(s["loss"]) for s in steps), f"loss {steps}")
+        for i, (s, (fw, fd), (bw, bd)) in enumerate(zip(
+                steps, spans["forward"], spans["backward"])):
+            print(f"fit step {i + 1}, config5 fast, every slider a leaf, "
+                  f"[{B_LOOP}, {T_MAIN}]: loss {s['loss']:.9g}, step "
+                  f"{s['ms']:.1f} ms (CUDA events), {s['captures']} "
+                  f"captures, {s['replays']} replays; the cycle's scan "
+                  f"forward {fw:.1f} ms wall / {fd:.1f} device, backward "
+                  f"{bw:.1f} / {bd:.1f}; peak {s['peak_gib']:.2f} GiB "
+                  f"[{card}]")
+        n = T_MAIN // 128 - loops.plan[0]
+        out["fit"] = dict(steps=steps, forward=spans["forward"],
+                          backward=spans["backward"], blocks=n,
+                          reverse=reverse_launches(cg, "cycle loop grad fit"))
+        del loops, cg, step, opt, params
+        torch.cuda.empty_cache()
+        # the parent's route: the Python loop under autograd, one step
+        cg = dst.compile_graph(g5, device="cuda")
+        cg.cycle_loops.route = "eager"
+        step, init = fit.make_train_step(cg, fit.adam(1e-2))
+        params = cg.init_params(requires_grad=True)
+        opt = init(params)
+        torch.cuda.reset_peak_memory_stats(dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        _, opt, loss = step(params, opt, cg.init_state(), ext, tgt)
+        e1.record()
+        torch.cuda.synchronize()
+        eager_ms = e0.elapsed_time(e1)
+        eager_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        check(float(loss) == steps[0]["loss"],
+              f"the eager step's loss {float(loss)} vs {steps[0]['loss']}")
+        worst = 0.0
+        for k, w in first.items():
+            v = params[k.split(":")[0]][k.split(":")[1]].grad
+            worst = max(worst, grad_close(f"fit step 1, {k}", v, w,
+                                          LOOP_GRAD_TOL, LOOP_GRAD_ATOL))
+        print(f"  the Python loop under autograd, one step: {eager_ms:.1f} "
+              f"ms, peak {eager_peak:.2f} GiB; its loss bitwise the "
+              f"replayed step's, worst slider gradient {worst:.2e}; the "
+              f"replayed steps {steps[1]['ms']:.1f} / {steps[2]['ms']:.1f} "
+              f"ms ({eager_ms / steps[2]['ms']:.2f}x) [{card}]")
+        out["fit"].update(eager_ms=eager_ms, eager_peak_gib=eager_peak,
+                          eager_worst=worst)
+        del cg, step, opt, params, x, tgt, ext
+        torch.cuda.empty_cache()
+
+    # -- the break-even by length -----------------------------------------
+    lengths = {}
+    for pol in ("fast", "parity"):
+        for nb in LOOP_GRAD_LENGTHS:
+            x, tgt = inputs(B_SHORT, nb, dev)
+            walls = {"eager": [], "replayed": []}
+            for route in ("eager", "buffers", "buffers", "eager"):
+                with dst.policy(pol):
+                    cg = dst.compile_graph(g5, device="cuda")
+                    got = loop_grads(cg, route, x, tgt)
+                walls["eager" if route == "eager" else "replayed"].append(
+                    got[4])
+                check((cg.cycle_loops.plan is None) == (route == "eager"),
+                      f"{pol} at {nb} blocks, {route}: plan "
+                      f"{cg.cycle_loops.plan}")
+                check(cg.cycle_loops.captures == (0 if route == "eager"
+                                                  else 5),
+                      f"{pol} at {nb} blocks, {route}: "
+                      f"{cg.cycle_loops.captures} captures")
+            lengths[(pol, nb)] = walls
+            print(f"cycle loop backward by length, config5 {pol}, "
+                  f"[{B_SHORT}, {128 * nb}] ({nb} blocks), a graph compiled "
+                  f"a step: eager {walls['eager'][0]:.1f} / "
+                  f"{walls['eager'][1]:.1f} ms, replayed (its 5 captures "
+                  f"included) {walls['replayed'][0]:.1f} / "
+                  f"{walls['replayed'][1]:.1f} ms [{card}]")
+    out["lengths"] = lengths
+    torch.cuda.empty_cache()
+    print(f"cycle loop grad phase: {time.time() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     t_start = time.time()
@@ -4802,6 +5149,8 @@ def main() -> int:
     rv = cycle_reverse_phase(dev, card)
     torch.cuda.empty_cache()
     cl = cycle_loop_phase(dev, card)
+    torch.cuda.empty_cache()
+    clg = cycle_loop_grad_phase(dev, card)
 
     def stream_us(rec, key, bnd):
         """The kernel's device time in one replayed stream block, with its
@@ -4870,7 +5219,9 @@ def main() -> int:
               **stream_us(rt["muff"], "first_order",
                           bound(8.0 * 128, 2.0 * 128)),
               loop_launches=cl["fast-override"]["inside"].get("first_order",
-                                                               0)),
+                                                               0),
+              loop_reverse_launches=clg["fit"]["reverse"].get(
+                  "first_order:reverse", 0) * clg["fit"]["blocks"]),
         entry("first_order_kernel:per-sample", "first_order_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_scan.py:102",
               fit_rec["launches_ps"], rec["fo_err_ps"], fit_rec["fo_times_ps"],
@@ -4884,7 +5235,9 @@ def main() -> int:
                   **stream_us(ex["stream"], "sequential<2>",
                               exact_block_bounds()["sequential<2>"])),
         seq_entry("first_order_reverse", "dsp_stuff_tpu/ops/scan.py:299",
-                  gr, gr["rev_launches"], (B_EXACT, SR)),
+                  gr, gr["rev_launches"], (B_EXACT, SR),
+                  loop_reverse_launches=clg["exact"]["reverse"].get(
+                      "sequential:reverse", 0) * clg["exact"]["blocks"]),
         seq_entry("first_order_reverse_per_sample",
                   "dsp_stuff_tpu/ops/scan.py:299", gr, gr["rev_launches"],
                   (B_EXACT, SR)),

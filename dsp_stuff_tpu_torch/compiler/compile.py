@@ -1292,15 +1292,29 @@ class _CycleScan:
         self.fused_heads = fused_heads
         self.fused_interior = fused_interior
 
+    def feed_blocks(self, feeds: dict, b) -> dict:
+        """Block ``b`` of each of ``self.feeds`` from its [..., T] signal in
+        ``feeds``: a slice for a Python int ``b``, a gather at ``b * block
+        + arange(block)`` for a 0-d int64 counter on the device (then
+        nothing on the host changes from one block to the next)."""
+        B = self.cg.block_size
+        return {k: _block_of(feeds[k], b, B) for k in self.feeds}
+
     def body(self, feeds: dict, pdict, st: dict, prev: dict, b):
-        """Block ``b`` of the scan: ``b`` a Python int, or a 0-d int64
-        counter on the device (then each feed's block is gathered at
-        ``b * block + arange(block)``, so nothing on the host changes from
-        one block to the next).  ``feeds`` maps each of ``self.feeds`` to
-        its [..., T] signal, ``st`` each member id to its state, ``prev``
-        each carried port to the previous block's output.  Returns
-        (st, cur, emitted): the members' new states, this block's outputs
-        (the next block's ``prev``) and the blocks of ``self.emit``."""
+        """Block ``b`` of the scan: :meth:`step` on the feeds' blocks
+        (:meth:`feed_blocks`)."""
+        return self.step(self.feed_blocks(feeds, b), pdict, st, prev)
+
+    def step(self, blocks: dict, pdict, st: dict, prev: dict):
+        """One block of the scan.  ``blocks`` maps each of ``self.feeds``
+        to its block [..., block], ``st`` each member id to its state,
+        ``prev`` each carried port to the previous block's output.
+        Returns (st, cur, emitted): the members' new states, this block's
+        outputs (the next block's ``prev``) and the blocks of
+        ``self.emit``.  A function of its arguments alone, so the reverse
+        of the loop over buffers differentiates it block by block with
+        respect to the feed blocks, states, carried blocks and overrides
+        (compiler/cycle_loop.py)."""
         cg = self.cg
         graph, nodes, B = cg.graph, cg._nodes, cg.block_size
         st = dict(st)
@@ -1310,7 +1324,7 @@ class _CycleScan:
             key = (src, src_port)
             if src in self.comp_set:
                 return cur[key] if key in cur else prev[key]
-            return _block_of(feeds[key], b, B)
+            return blocks[key]
 
         for nid in self.order:
             if nid in self.fused_interior:

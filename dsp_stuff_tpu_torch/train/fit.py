@@ -17,8 +17,13 @@ over a parallel.mesh ``Mesh`` of devices in one process.  Gradients flow
 through the fused paths too (their autograd Functions, ops/chain_segment.py
 and ops/cycle_segment.py), so a fit of some sliders keeps the rest on the
 chain and cycle kernels, and under ``exact`` through the sequential
-kernel's reverse mode.  ``adam`` is optax.adam's update (same b1, b2,
-eps and bias correction) as a ``torch.optim.Adam`` factory.
+kernel's reverse mode.  A feedback cycle that runs the per-node scan (a
+fit overrides its members' sliders) is differentiated through its loop
+over buffers (compiler/cycle_loop.py), on the card as captured CUDA
+graphs in both directions: the optimizer's in-place updates and
+``clamp_params`` move the override values, which the loop binds as data,
+so a later step captures nothing.  ``adam`` is optax.adam's update (same
+b1, b2, eps and bias correction) as a ``torch.optim.Adam`` factory.
 """
 
 from __future__ import annotations

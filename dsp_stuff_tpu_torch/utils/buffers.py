@@ -12,6 +12,8 @@ utils/sliders, a tensor a device buffer) and key a capture on the
 params' structure and the precision policy (:func:`capture_key`), the
 content of what cannot be data counted by :func:`freeze_params`.
 What a graph reads beside these buffers is held by utils/capture.
+The cycle's differentiated loop also binds the buffers of its backward
+(:class:`GradBuffers`).
 """
 
 from __future__ import annotations
@@ -167,3 +169,54 @@ def copy_into(pairs) -> None:
             b.copy_(v)
         else:
             b.fill_(int(v) if lockstep.is_counter(b) else float(v))
+
+
+class GradBuffers:
+    """The buffers a differentiated loop's captured backward binds
+    (compiler/cycle_loop.py), made once and kept with the loop for its
+    graphs.  ``states`` is every (path, buffer) of the state and carried
+    blocks, ``carries`` the floating ones, ``outs`` the emitted
+    sequences' buffers, ``feeds`` the feeds' by key, ``overrides`` the
+    override tensors' buffers:
+
+    * ``ck[path]``, ``ck_counter``: ``slots`` checkpoints of each state
+      buffer and of ``counter``; ``slot``, a device counter, the next
+      one; ``seg``, the first block of the segment being reversed;
+    * ``record[path]``: ``records`` records of each, a segment's inputs;
+    * ``dcarry``: a cotangent of each carry; ``demit``: one of each
+      emitted sequence at full length; ``dfeeds``: each feed's gradient
+      at full length, made for the feeds that need one
+      (:meth:`feed_buffer`);
+    * ``dover``: each override's gradient summed over the blocks in
+      float64; ``used``: whether a block read it.
+
+    Each takes its buffer's dtype (float64 under parity, as the forward's
+    buffers do), but the overrides' sums."""
+
+    def __init__(self, states: list, carries: list, outs: list,
+                 feeds: dict, overrides: list, counter: torch.Tensor, *,
+                 slots: int, records: int):
+        dev = counter.device
+        self.ck = {p: _stacked(b, slots) for p, b in states}
+        self.ck_counter = _stacked(counter, slots)
+        self.slot = lockstep.on_device(0, dev)
+        self.seg = lockstep.on_device(0, dev)
+        self.record = {p: _stacked(b, records) for p, b in states}
+        self.dcarry = [torch.zeros_like(b) for _, b in carries]
+        self.demit = [torch.zeros_like(o) for o in outs]
+        self._feeds = feeds
+        self.dfeeds: dict = {}
+        self.dover = [torch.zeros(v.shape, dtype=torch.float64, device=dev)
+                      for v in overrides]
+        self.used = [False] * len(self.dover)
+
+    def feed_buffer(self, k) -> torch.Tensor:
+        """The gradient buffer of feed ``k``, made at its first use."""
+        if k not in self.dfeeds:
+            self.dfeeds[k] = torch.zeros_like(self._feeds[k])
+        return self.dfeeds[k]
+
+
+def _stacked(b: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` zeroed slots of ``b``'s shape and dtype."""
+    return torch.zeros((n, *b.shape), dtype=b.dtype, device=b.device)

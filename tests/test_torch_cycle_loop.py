@@ -23,10 +23,12 @@ the card's captured loop runs but the capture itself.
   <= -135 dBFS, tests/test_torch_presets.py's HANDOFF_DB).
 * After one warm-up chunk a chunk dispatches no host-data tensor and no
   host read (tests/test_torch_stream_graph.py's capturability check).
-* The route's rule: the Python loop on the CPU by default, under
-  autograd, with ``NODE_HOOK`` set and for one block; on the card "auto"
-  replays from ``MIN_BLOCKS`` blocks; ``eager()`` pins the Python loop
-  for a block of code, as a stream step does, and puts the route back.
+* The route's rule: the Python loop on the CPU by default, with
+  ``NODE_HOOK`` set and for one block; under autograd "buffers" runs the
+  differentiated loop (tests/test_torch_cycle_loop_grad.py); on the card
+  "auto" replays from ``MIN_BLOCKS`` blocks; ``eager()`` pins the Python
+  loop for a block of code, as a stream step does, and puts the route
+  back.
 """
 
 import types
@@ -326,7 +328,7 @@ def test_chunk_is_capturable(case):
         loop.counter.fill_(3)
         mode = _HostOps()
         with mode:
-            loop.chunk(cycle_loop.CHUNK)
+            loop.run(cycle_loop.CHUNK)
     assert mode.ops > 20
     assert not mode.host, f"{case}: {sorted(set(mode.host))}"
     assert int(loop.counter) == 3 + cycle_loop.CHUNK
@@ -335,8 +337,9 @@ def test_chunk_is_capturable(case):
 # -- the route's rule ----------------------------------------------------------
 
 def test_route_rule_on_the_cpu():
-    """On the CPU, "auto" keeps the Python loop; "buffers" leaves a
-    gradient, a NODE_HOOK and a one-block render to it too."""
+    """On the CPU, "auto" keeps the Python loop; "buffers" takes a
+    gradient too (the differentiated loop) and leaves a NODE_HOOK and a
+    one-block render to the Python loop."""
     cg = _config5("parity")
     x = _x(7)
     with dt.policy("parity"):
@@ -344,7 +347,9 @@ def test_route_rule_on_the_cpu():
         assert cg.cycle_loops.plan is None
         lvl = torch.tensor(0.45, requires_grad=True)
         y, _, _ = _render(cg, x, "buffers", {FBG: {"level": lvl}})
-        assert cg.cycle_loops.plan is None and y.requires_grad
+        assert cg.cycle_loops.plan is not None and y.requires_grad
+        assert cg.cycle_loops.last.grad is not None
+        cg.cycle_loops.plan = None
         with torch.no_grad():
             _render(cg, x, "buffers", {FBG: {"level": lvl}})
         assert cg.cycle_loops.plan is not None
