@@ -24,7 +24,8 @@ Then it drives the port's main paths through ``compile_graph(...,
 device="cuda")``:
 
 * the 10-node bench chain over 512 streams x 10 s at 48 kHz, with the
-  chain kernel's launch count, the NumPy oracle, the state handoff and
+  chain kernel's launch count (its plain build: a render without grad
+  records nothing), the NumPy oracle, the state handoff and
   the parity policy;
 * config5, the 16-node feedback graph (models/presets.py), over 128
   streams x 10 s, with each kernel's launch count (one chain, one cycle,
@@ -106,11 +107,12 @@ device="cuda")``:
 * gradients on the card: the bench chain's loss gradient with respect
   to its input and to the gain's level alone (the rest fused) through
   the chain kernel at 128 streams x 10 s, config5's input gradient
-  through the cycle kernel at 128 x 10 s (each forward one launch of its
-  kernels and no plain version; config5's backward one launch of the
-  reverse cycle kernel and no plain version; forward and backward times,
-  the device time split, peak memory), each also against the CPU port
-  at 2 x 1 s;
+  through the chain and cycle kernels at 128 x 10 s (each forward one
+  launch of its kernels, the bench chain's chain launch its record
+  build, and no plain version; each backward one launch of the reverse
+  chain kernel, config5's also one of the reverse cycle kernel, and no
+  plain version; forward and backward times, the device time split,
+  peak memory), each also against the CPU port at 2 x 1 s;
   every slider of config2 and config5 against the CPU port and one Adam
   step of config2 at 128 x 10 s; the sequential kernel's reverse mode
   against its plain version, its sample adjoints and initial-state
@@ -135,6 +137,15 @@ device="cuda")``:
   torch.profiler, "device_ms") against its plain version, its bound and
   its dependent-chain floor; the forward's record build
   bitwise its render build;
+* the reverse chain kernel (csrc/chain_reverse_kernel.cu) against
+  segment_adjoint on identical cotangents and recorded shaper inputs
+  (the record build's outputs bitwise the render build's): the bench
+  list, taps, two combs and the planner's config2 and config5 lists at
+  [1, 128], [3, 8,320] and [8, 48,000]; at the bench list's [128,
+  480,000] against the eager vjp of segment_fallback (the parent's
+  backward, fed that forward's records), ten launches bitwise equal, and
+  timed: its path, its own device time, its plain version, the eager vjp,
+  its bound, one cascade's transposed product as torch.matmul;
 * the per-node cycle scan (compiler/cycle_loop.py): config5 over 128
   streams x 10 s under parity, exact and fast with its feedback gain
   overridden (the first-order kernel once a block; under exact the
@@ -352,6 +363,25 @@ def check_lists():
         ("cascade", (("lp", 0.3),)), ("tap", 0),
         ("ew", "overdrive", (2.0, 0.5, 0.8)), ("tap", 1),
         ("comb", 0.3, 200))
+    return lists
+
+
+def reverse_lists():
+    """The reverse chain kernel's check lists (the CPU tests' STAGE_LISTS,
+    tests/test_torch_grad_fused.py): the bench list, taps around a
+    SoftClip, two combs around shapers, and the planner's lists around
+    config2's and config5's chorus; name -> (stages, lfos)."""
+    lists = {"bench": (bench_stages(), ()),
+             "taps": ((("cascade", (("gain", 1.1), ("lp", 0.55))),
+                       ("tap", 0), ("ew", "distort:SoftClip", (2.5,)),
+                       ("cascade", (("bq", (-0.3, 0.05, 0.8, 0.1, 0.0)),)),
+                       ("comb", 0.45, 192), ("tap", 1),
+                       ("cascade", (("hp", 0.12),))), ()),
+             "comb": ((("comb", 0.6, 300), ("scale", 0.8),
+                       ("ew", "distort:SoftClip", (2.0,)),
+                       ("comb", 0.3, 130), ("ew", "distort:Atan", (1.5,))),
+                      ())}
+    lists.update({f"mtap_{k.split()[1]}": v for k, v in mtap_lists().items()})
     return lists
 
 
@@ -739,19 +769,22 @@ def fir_reference(x, taps_rev):
 
 
 def _kernel_modules():
-    from dsp_stuff_tpu_torch.ops import (chain_kernel, cycle_kernel,
-                                         cycle_reverse_kernel,
+    from dsp_stuff_tpu_torch.ops import (chain_kernel, chain_reverse_kernel,
+                                         cycle_kernel, cycle_reverse_kernel,
                                          envelope_kernel, first_order_kernel,
                                          sequential_kernel)
-    return {"chain": chain_kernel, "cycle": cycle_kernel,
-            "cycle_reverse": cycle_reverse_kernel,
+    return {"chain": chain_kernel, "chain_reverse": chain_reverse_kernel,
+            "cycle": cycle_kernel, "cycle_reverse": cycle_reverse_kernel,
             "envelope": envelope_kernel, "first_order": first_order_kernel,
             "sequential": sequential_kernel}
 
 
 def reset_launches():
+    """Every kernel's launch count to 0 (the chain kernel's record build's
+    too, chain_kernel.RECORD_LAUNCHES)."""
     for m in _kernel_modules().values():
         m.LAUNCHES = 0
+    _kernel_modules()["chain"].RECORD_LAUNCHES = 0
 
 
 def read_launches():
@@ -786,22 +819,22 @@ def calls_counted(targets, counts: dict):
             setattr(m, n, fn)
 
 
-def plain_versions_counted(counts: dict, first_order: bool = False,
-                           backward: bool = False):
+def plain_versions_counted(counts: dict, first_order: bool = False):
     """Count calls of the kernels' plain versions while the block runs
-    (the main path on the card must call none of them): always the
-    sequential kernel's (the exact policy's loops, forward and reverse)
-    and the cycle kernels' (interpret, its record form included, and
-    interpret_adjoint); ``first_order`` adds
-    the first-order kernel's (a render calls _first_order_blocked for a
-    concrete degenerate biquad, which takes no kernel in either
-    package).  ``backward`` counts around a backward pass: it leaves out
-    segment_fallback, whose vjp is the chain segment's backward by design
-    (ChainSegment, as the JAX package's custom_vjp)."""
+    (the main path on the card must call none of them): always the chain
+    kernels' (segment_fallback, its record form included, segment_adjoint
+    and segment_vjp, the parent's eager backward), the sequential kernel's
+    (the exact policy's loops, forward and reverse) and the cycle kernels'
+    (interpret, its record form included, and interpret_adjoint);
+    ``first_order`` adds the first-order kernel's (a render calls
+    _first_order_blocked for a concrete degenerate biquad, which takes no
+    kernel in either package)."""
     from dsp_stuff_tpu_torch.ops import (chain_segment, cycle_segment,
                                          envelope, scan)
-    targets = [] if backward else [(chain_segment, "segment_fallback")]
-    targets += [(cycle_segment, "interpret"),
+    targets = [(chain_segment, "segment_fallback"),
+               (chain_segment, "segment_adjoint"),
+               (chain_segment, "segment_vjp"),
+               (cycle_segment, "interpret"),
                (cycle_segment, "interpret_adjoint"),
                (envelope, "_chunked_batched"),
                (envelope, "_seq_scan"), (scan, "_first_order_sequential"),
@@ -910,14 +943,19 @@ def casc_flops(sections, blocks):
             2.0 * blocks * N * N)
 
 
-def chain_bound(stages, B, T):
+def chain_bound(stages, B, T, reverse=False):
     """The chain kernel's bound at [B, T]: bytes of x, y and the taps, the
     states in and out; operations of the cascades (the products on the
     tensor cores, three TF32 products each in 3xTF32; the carry's step on
     the CUDA cores), one a sample a scale or shaper, two a comb sample,
-    seven an mtap sample."""
+    seven an mtap sample.  ``reverse``: the reverse kernel's, which reads
+    y's and the taps' cotangents and the shapers' records and writes x's
+    gradient, the states' gradients beside them, and does as many
+    operations (the adjoint of each stage: the transposed products, a
+    shaper's derivative counted as one)."""
     n_taps = sum(1 for st in stages if st[0] == "tap")
-    n_bytes = 4.0 * B * T * (2 + n_taps)
+    n_ew = sum(1 for st in stages if st[0] == "ew") if reverse else 0
+    n_bytes = 4.0 * B * T * (2 + n_taps + n_ew)
     flops = tc_flops = 0.0
     for st in stages:
         if st[0] == "cascade":
@@ -1010,6 +1048,18 @@ def matmul_ms(sections, B, T, dev):
     from dsp_stuff_tpu_torch.ops import chain_kernel
     Ltg, Wp, _, _, _ = chain_kernel._casc_consts(sections)
     L = torch.as_tensor(np.concatenate([Ltg, Wp], axis=1), device=dev)
+    X = torch.randn((B * T // 128, 128), device=dev)
+    return cuda_ms(lambda: torch.matmul(X, L))
+
+
+def matmul_t_ms(sections, B, T, dev):
+    """One torch.matmul of a cascade stage's transposed product, [B*K, 128]
+    x [128, 136] ([Ltg^T | Ecb^T]) in float32: the library yardstick of
+    one reverse stage."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import chain_kernel
+    Ltg, _, Ecb, _, _ = chain_kernel._casc_consts(sections)
+    L = torch.as_tensor(np.concatenate([Ltg.T, Ecb.T], axis=1), device=dev)
     X = torch.randn((B * T // 128, 128), device=dev)
     return cuda_ms(lambda: torch.matmul(X, L))
 
@@ -1990,6 +2040,7 @@ def stream_kernel_checks(dev) -> None:
 KERNEL_NAMES = (("sequential_reverse_kernel", "sequential"),
                 ("sequential_kernel", "sequential"),
                 ("cycle_reverse_kernel", "cycle_reverse"),
+                ("chain_reverse_kernel", "chain_reverse"),
                 ("chain_kernel", "chain"), ("cycle_kernel", "cycle"),
                 ("envelope_kernel", "envelope"), ("fo_chained", "first_order"))
 
@@ -3294,9 +3345,11 @@ def loss_and_grads(cg, x, target, params=None, wrt_input=True,
     override sliders ``params`` (leaf tensors that require grad) and its
     gradients, the input's first; the forward's and the backward's
     launches and plain calls apart (``first_order``: the first-order
-    kernel's plain versions counted too, as plain_versions_counted says;
-    the backward's leave out the chain segment's vjp), the forward +
-    backward wall time and the peak device memory (GiB; 0 on the CPU)."""
+    kernel's plain versions counted too, as plain_versions_counted says),
+    the forward's launches of the chain kernel's record build, the
+    forward + backward wall time and the peak device memory (GiB; 0 on
+    the CPU)."""
+    from dsp_stuff_tpu_torch.ops import chain_kernel
     import torch
     from dsp_stuff_tpu_torch.train import fit
     dev = cg.device
@@ -3313,10 +3366,10 @@ def loss_and_grads(cg, x, target, params=None, wrt_input=True,
         loss = fit.make_loss_fn(cg)(params, cg.init_state(),
                                     {str(cg.input_ids[0]): xt}, target)
     fwd = read_launches()
+    fwd_record = chain_kernel.RECORD_LAUNCHES
     reset_launches()
     plain_bwd = {}
-    with plain_versions_counted(plain_bwd, first_order=first_order,
-                                backward=True):
+    with plain_versions_counted(plain_bwd, first_order=first_order):
         loss.backward()
         if cuda:
             torch.cuda.synchronize()
@@ -3326,7 +3379,8 @@ def loss_and_grads(cg, x, target, params=None, wrt_input=True,
     grads = ([xt.grad] if wrt_input else []) + [
         v.grad for _, e in sorted(params.items()) for _, v in sorted(e.items())]
     return dict(loss=loss.detach(), grads=grads, fwd=fwd, bwd=bwd,
-                plain=plain, plain_bwd=plain_bwd, wall=wall, peak=peak)
+                fwd_record=fwd_record, plain=plain, plain_bwd=plain_bwd,
+                wall=wall, peak=peak)
 
 
 def slider_params(cg, cfg, name):
@@ -3360,12 +3414,14 @@ def grad_pair(name, graph, x_np, tgt_np, dev, subset=None, wrt_input=True):
 
 def fused_grad_main(name, cg, x, target, expect, subset=None,
                     wrt_input=True, card="", first_order=True,
-                    expect_bwd=None):
+                    expect_bwd=None, expect_record=None):
     """A loss gradient through the fused kernels on the card at full
-    width: the forward launches ``expect`` and calls no plain version;
-    with ``expect_bwd`` (launches by kernel) the backward launches those
-    and calls no plain version either; prints the forward + backward
-    time, the peak memory and what the backward launches and calls."""
+    width: the forward launches ``expect`` (of its chain launches
+    ``expect_record`` the record build's, where given) and calls no plain
+    version; with ``expect_bwd`` (launches by kernel) the backward
+    launches those and calls no plain version either; prints the forward
+    + backward time, the peak memory and what the backward launches and
+    calls."""
     r = loss_and_grads(cg, x, target,
                        slider_params(cg, *subset) if subset else None,
                        wrt_input, first_order)
@@ -3379,11 +3435,16 @@ def fused_grad_main(name, cg, x, target, expect, subset=None,
               f"{expect_bwd}")
     check(r["fwd"] == expect, f"{name}: the forward launched {r['fwd']}, "
                               f"expected {expect}")
+    if expect_record is not None:
+        check(r["fwd_record"] == expect_record,
+              f"{name}: the forward launched the chain kernel's record "
+              f"build {r['fwd_record']} times, expected {expect_record}")
     check(all(bool(g.isfinite().all()) for g in r["grads"]),
           f"{name}: gradients not finite")
     print(f"main path ({name}), [{x.shape[0]}, {x.shape[-1]}]: forward + "
           f"backward {r['wall'] * 1e3:.1f} ms (first call), peak "
-          f"{r['peak']:.2f} GiB, forward launches {r['fwd']} and no plain "
+          f"{r['peak']:.2f} GiB, forward launches {r['fwd']} "
+          f"({r['fwd_record']} of the record build) and no plain "
           f"version, backward launches {r['bwd']}, plain versions in the "
           f"backward {r['plain_bwd'] or 'none'} [{card}]")
     return r
@@ -3716,14 +3777,16 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
         tgt = torch.as_tensor(sig(b_grad, 1, t_main, scale=0.1), device=dev)
         rec["bench_input"] = fused_grad_main(
             "bench chain, input gradient", cg, x, tgt,
-            only_launches(chain=1), card=card)
+            only_launches(chain=1), card=card,
+            expect_bwd={"chain_reverse": 1, "chain": 0}, expect_record=1)
         rec["bench_split"] = grad_split(
             f"bench chain input gradient, [{b_grad}, {t_main}]", cg, x, tgt,
             card)
         rec["bench_level"] = fused_grad_main(
             "bench chain, gain level alone, the rest fused", cg, x, tgt,
             only_launches(chain=1), subset=("gain", "level"),
-            wrt_input=False, card=card)
+            wrt_input=False, card=card,
+            expect_bwd={"chain_reverse": 1, "chain": 0}, expect_record=1)
         del x, tgt, cg
         torch.cuda.empty_cache()
 
@@ -3737,7 +3800,9 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
         rec["c5_input"] = fused_grad_main(
             "config5, input gradient", cg5, x, tgt,
             only_launches(chain=1, cycle=1, envelope=1), card=card,
-            first_order=False, expect_bwd={"cycle_reverse": 1, "cycle": 0})
+            first_order=False,
+            expect_bwd={"chain_reverse": 1, "chain": 0, "cycle_reverse": 1,
+                        "cycle": 0}, expect_record=0)
         rec["c5_split"] = grad_split(
             f"config5 input gradient, [{b_grad}, {t_main}]", cg5, x, tgt,
             card)
@@ -4098,6 +4163,174 @@ def cycle_reverse_phase(dev, card) -> dict:
           f"{SM_CLOCK_GHZ} GHz, {rec['floor'] / (ms or path_ms):.1%} of the "
           f"{'kernel' if ms is not None else 'path'}) [{card}]")
     print(f"reverse cycle phase: {time.time() - t_phase:.1f} s")
+    return rec
+
+
+def chain_reverse_inputs(stages, lfos, B, T, rng, dev):
+    """(x's shape, states, cotangents, recorded inputs) of the reverse
+    chain kernel for ``stages`` over [B, T]: seeded operands, a seeded
+    cotangent of every output (flatten_outputs' order), and the shapers'
+    inputs recorded by the forward kernel's record build, whose outputs
+    must be bitwise the render build's."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import chain_kernel, chain_segment
+    x = torch.as_tensor((rng.standard_normal((B, T)) * 0.3)
+                        .astype(np.float32), device=dev)
+    st = seeded_states(stages, B, rng, dev, T=T, lfos=lfos)
+    if chain_kernel.has_shaper(stages):
+        outs, recs = chain_segment._kernel_segment(x, stages, st,
+                                                   record=True)
+        same = all(torch.equal(a, b) for a, b in zip(
+            _leaves(outs), _leaves(kernel_segment(x, stages, st))))
+        check(same, "the chain kernel's record build's outputs are not the "
+                    "render build's")
+    else:
+        outs, recs = kernel_segment(x, stages, st), ()
+    flat = chain_segment.flatten_outputs(outs)
+    cts = tuple(torch.as_tensor((rng.standard_normal(tuple(t.shape))
+                                 * 0.5).astype(np.float32), device=dev)
+                for t in flat)
+    return x, st, cts, recs
+
+
+def compare_chain_reverse(name, stages, k, p, rtol=None):
+    """Reverse chain kernel gradients ``k`` (x's, the states') against the
+    plain version's ``p``: x's in dBFS (max-normalized), the states' in
+    max abs; with ``rtol``, every gradient max-normalized within it
+    instead (against the eager vjp).  Returns (x's dBFS, its largest
+    absolute error)."""
+    from dsp_stuff_tpu_torch.ops import chain_segment
+    shared = chain_segment._shared_slots(stages)
+    kx, px = host(k[0]), host(p[0])
+    check(kx.shape == px.shape, f"{name}: x's gradient {kx.shape} vs "
+                                f"{px.shape}")
+    x_db = dbfs(kx, px)
+    x_abs = float(np.abs(kx - px).max())
+    st_err = 0.0
+    for i, (a, b) in enumerate(zip(k[1], p[1])):
+        if i in shared:
+            check(a is None, f"{name}: a trajectory operand's gradient")
+            continue
+        a, b = host(a), host(b)
+        check(a.shape == b.shape, f"{name}: shapes {a.shape} vs {b.shape}")
+        st_err = max(st_err, float(
+            np.abs(a - b).max() / (max(np.abs(b).max(), 1e-30)
+                                   if rtol is not None else 1.0)))
+    if rtol is not None:
+        x_rel = x_abs / max(float(np.abs(px).max()), 1e-30)
+        print(f"  {name:34s} x {x_rel:.2e}, states {st_err:.2e} "
+              f"(max-normalized, rtol {rtol})")
+        check(x_rel <= rtol and st_err <= rtol,
+              f"{name}: gradients {x_rel:.2e} / {st_err:.2e} > {rtol}")
+        return x_db, x_abs
+    print(f"  {name:34s} x {x_db:8.1f} dBFS  states max abs {st_err:.2e}")
+    check(bool(np.isfinite(kx).all()), f"{name}: x's gradient not finite")
+    check(x_db <= Y_BOUND_DB, f"{name}: x's gradient {x_db:.1f} dBFS")
+    check(st_err <= STATE_ATOL, f"{name}: state gradients {st_err:.2e} > "
+                                f"{STATE_ATOL}")
+    return x_db, x_abs
+
+
+def chain_reverse_phase(dev, card) -> dict:
+    """The reverse chain kernel against segment_adjoint on identical
+    cotangents and recorded inputs (reverse_lists at [1, 128], [3, 8,320]
+    and [8, 48,000]), the record build bitwise the render build; at the
+    main path's [B_GRAD, T_MAIN] on the bench list against the eager vjp
+    (segment_vjp, the parent's backward), ten launches bitwise equal, and
+    timed: the kernel's path, its own device time, its plain version, the
+    eager vjp, its bound and one cascade's transposed product as
+    torch.matmul.  Returns those numbers."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import chain_segment
+    t_phase = time.time()
+    rng = np.random.default_rng(140)
+    print("reverse chain kernel vs segment_adjoint (the shapers' inputs "
+          "from the record build, bitwise the render build's):")
+    errs = []
+    with dst.policy("fast"):
+        for name, (stages, lfos) in reverse_lists().items():
+            for b, t in ((1, 128), (3, 8320), (8, 48_000)):
+                x, st, cts, recs = chain_reverse_inputs(stages, lfos, b, t,
+                                                        rng, dev)
+                shapes = tuple(v.shape for v in (x, *st))
+                k = chain_segment._kernel_segment_adjoint(cts, shapes, stages,
+                                                          recs, st)
+                p = chain_segment.segment_adjoint(cts, shapes, stages, recs,
+                                                  st)
+                torch.cuda.synchronize()
+                errs.append(compare_chain_reverse(f"{name} [{b}, {t}]",
+                                                  stages, k, p)[1])
+        del x, st, cts, recs, k, p
+        torch.cuda.empty_cache()
+        stages, lfos = reverse_lists()["bench"]
+        x, st, cts, recs = chain_reverse_inputs(stages, lfos, B_GRAD, T_MAIN,
+                                                rng, dev)
+        shapes = tuple(v.shape for v in (x, *st))
+
+        def run():
+            return chain_segment._kernel_segment_adjoint(cts, shapes, stages,
+                                                         recs, st)
+
+        k = run()
+        # the eager vjp linearizes at segment_fallback's forward: held
+        # against the kernel fed that forward's records (the kernel's own
+        # records differ by its 3xTF32 rounding, which moves a few inputs
+        # of chebyshev across its kink at 0, where the derivative jumps)
+        need = (True,) * (1 + len(st))
+        vjp = chain_segment.segment_vjp(x, stages, st, cts, need)
+        _, frecs = chain_segment.segment_fallback(x, stages, st, record=True)
+        kf = chain_segment._kernel_segment_adjoint(cts, shapes, stages, frecs,
+                                                   st)
+        compare_chain_reverse(f"bench [{B_GRAD}, {T_MAIN}] vs the eager vjp",
+                              stages, kf, (vjp[0], vjp[1:]), rtol=GRAD_RTOL)
+        ews = [st_ for st_ in stages if st_[0] == "ew"]
+        flips = sum(int(((a >= 0) != (b >= 0)).sum()) for a, b, st_ in
+                    zip(recs, frecs, ews) if st_[1] == "chebyshev")
+        rel = float((k[0] - vjp[0]).abs().max() / vjp[0].abs().max())
+        print(f"  the kernel on its own records vs the eager vjp: x "
+              f"{rel:.2e} max-normalized; chebyshev inputs of opposite sign "
+              f"in the two forwards: {flips}")
+        del vjp, frecs, kf
+        torch.cuda.empty_cache()
+        same = all(torch.equal(k[0], run()[0]) and all(
+            torch.equal(a, b) for a, b in zip(k[1], run()[1]))
+            for _ in range(N_DETERMINISM - 1))
+        check(same, f"the reverse chain kernel's {N_DETERMINISM} launches "
+                    f"differ")
+        print(f"  {N_DETERMINISM} launches at [{B_GRAD}, {T_MAIN}]: bitwise "
+              f"equal")
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        p = chain_segment.segment_adjoint(cts, shapes, stages, recs, st)
+        e1.record()
+        torch.cuda.synchronize()
+        _, err = compare_chain_reverse(f"bench [{B_GRAD}, {T_MAIN}]", stages,
+                                       k, p)
+        del k, p
+        torch.cuda.empty_cache()
+        path_ms = cuda_ms(run)
+        ms, n_prof = kernel_device_ms(run, "chain_reverse_kernel")
+        vjp_ms = cuda_ms(lambda: chain_segment.segment_vjp(
+            x, stages, st, cts, need), N_TIMED_SLOW)
+        lib_ms = matmul_t_ms(stages[0][1], B_GRAD, T_MAIN, dev)
+    rec = dict(ms=path_ms, device_ms=ms, plain_ms=e0.elapsed_time(e1),
+               vjp_ms=vjp_ms, lib_ms=lib_ms, err=max(errs + [err]),
+               bound=chain_bound(stages, B_GRAD, T_MAIN, reverse=True))
+    bms, bby = rec["bound"]
+    dev_s = (f"{ms:.3f} ms the kernel's device time ({n_prof} launches "
+             f"profiled)" if ms is not None else
+             f"the kernel's device time not measured (no profile showed its "
+             f"launches, the last {n_prof})")
+    print(f"reverse chain kernel, bench list, [{B_GRAD}, {T_MAIN}]: {dev_s}, "
+          f"{path_ms:.3f} ms the kernel's path (median of {N_TIMED}), its "
+          f"plain version {rec['plain_ms']:.1f} ms (one call), the eager "
+          f"vjp {vjp_ms:.3f} ms; bound {bms:.3f} ms by {bby} "
+          f"({bms / (ms or path_ms):.1%} of the "
+          f"{'kernel' if ms is not None else 'path'}); one cascade's "
+          f"transposed product as torch.matmul {lib_ms:.3f} ms [{card}]")
+    print(f"reverse chain phase: {time.time() - t_phase:.1f} s")
     return rec
 
 
@@ -4764,6 +4997,8 @@ def main() -> int:
     budget = cycle_kernel.budget_of(dev)
     jobs = [(n, (), "") for n in cuda_build.STATIC_KERNELS]
     labels = list(cuda_build.STATIC_KERNELS)
+    jobs.append(("chain_kernel", ("CK_RECORD",), ""))
+    labels.append("chain_kernel record build")
     for name, prog in cycle_programs.items():
         jobs.append(("cycle_kernel", (), cycle_kernel.source_for(prog,
                                                                  budget)))
@@ -4930,6 +5165,9 @@ def main() -> int:
         check(bench_launches == only_launches(chain=1),
               f"bench chain launched {bench_launches}, expected one chain "
               f"kernel launch")
+        check(_kernel_modules()["chain"].RECORD_LAUNCHES == 0,
+              "a render without grad launched the chain kernel's record "
+              "build")
         check(tuple(outs.shape) == (B_MAIN, 1, T_MAIN),
               f"output shape {tuple(outs.shape)}")
         check(bool(torch.isfinite(outs).all()), "main path output not finite")
@@ -5146,6 +5384,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     gr = grad_phase(dev, card)
     torch.cuda.empty_cache()
+    crv = chain_reverse_phase(dev, card)
+    torch.cuda.empty_cache()
     rv = cycle_reverse_phase(dev, card)
     torch.cuda.empty_cache()
     cl = cycle_loop_phase(dev, card)
@@ -5197,6 +5437,13 @@ def main() -> int:
               cycle_bound(program5, B_C5, T_MAIN),
               **stream_us(rt["config5"], "cycle",
                           cycle_bound(program5, 1, 128))),
+        entry("chain_reverse_kernel", "chain_reverse_kernel.cu",
+              "dsp_stuff_tpu/ops/chain_segment.py:246",
+              gr["bench_input"]["bwd"]["chain_reverse"], crv["err"],
+              (crv["ms"], crv["plain_ms"]), crv["bound"], crv["lib_ms"],
+              device_ms=crv["device_ms"], vjp_ms=crv["vjp_ms"],
+              shape=[B_GRAD, T_MAIN],
+              launches_config5=gr["c5_input"]["bwd"]["chain_reverse"]),
         entry("cycle_kernel:reverse", "cycle_reverse_kernel.cu",
               "dsp_stuff_tpu/ops/cycle_segment.py:270",
               gr["c5_input"]["bwd"]["cycle_reverse"], rv["err"],

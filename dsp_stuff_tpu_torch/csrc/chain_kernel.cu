@@ -19,6 +19,10 @@
 // shapers' arithmetic, then the comb, the carry scan (one thread) and the
 // barriers between stages.
 //
+// The record build (-DCK_RECORD) also writes each ew stage's input to a
+// record [B, T] (its pointer in the program), the residuals of the
+// reverse chain kernel (chain_reverse_kernel.cu).
+//
 // Design.  A CTA of 256 threads owns one row and walks it in tiles of 64
 // consecutive blocks: a tile is [64, 128] f32 in shared memory, M-row m
 // holding the tile's block m.  Up to one row an SM the wrapper launches
@@ -66,17 +70,8 @@
 
 #include <stdint.h>
 
-#include "stages.cuh"
+#include "chain_tiles.cuh"
 
-#define CK_M 64             // M-rows of a tile: its blocks
-#define CK_NT 256           // threads of a CTA
-#define CK_NW (CK_NT / 32)  // warps
-#define CK_MT (CK_M / 16)   // m-tiles of a tile
-#define CK_P (CK_NW / CK_MT)  // warps sharing an m-tile, splitting its n-tiles
-#define CK_NQ (CK_M / CK_NW)  // M-rows a warp holds in the elementwise pass
-#define CK_LD 132           // row stride of a tile in shared memory
-#define CK_CLD 12           // row stride of the carry buffers
-#define CK_HP 136           // padded Toeplitz row: 8 zeros, h[0..127]
 #define CK_CB 8             // comb positions a thread loads at once
 
 // Phase probes, built only by tools/measure_torch_chain.py --phases
@@ -109,30 +104,8 @@ __shared__ long long ck_last;
 #define PHASE(i) do {} while (0)
 #endif
 
-// stage kinds
-#define CK_CASCADE 0
-#define CK_SCALE 1
-#define CK_EW 2
-#define CK_TAP 3
-#define CK_COMB 4
-#define CK_MTAP 5
-
-// The packed program, mirrored by ops/chain_kernel.py (_HEADER, _STAGE,
-// _CASC, _RING); chain_kernel_abi() lets the wrapper check the sizes.
-typedef struct {
-  int n_stages, n_casc, n_ring, n_tap;
-  long long off_stage, off_casc, off_ring, off_tap;   // bytes from the base
-  long long pad_[2];
-} CkHeader;
-
-typedef struct {
-  int kind;     // CK_*
-  int idx;      // cascade / ew op / tap / ring index
-  int n;        // cascade: carry lanes N; comb: delay D; mtap: NH
-  int pad_;
-  float p[4];   // scale factor, shaper params, comb decay or mtap mix
-} CkStage;
-
+// The cascade and ring records, mirrored by ops/chain_kernel.py (CASC,
+// RING); chain_kernel_abi() lets the wrapper check the sizes.
 typedef struct {
   const float* hp;    // [2][136] hi, lo TF32 parts of the padded row h
   const float* w;     // [2][128][8] hi, lo of W
@@ -152,93 +125,17 @@ typedef struct {
   const float* mfr;   // mtap: [T] interpolation weight
 } CkRing;
 
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo, each part a TF32 value
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = to_tf32(v);
-  lo = to_tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += A B in 3xTF32; b0/b1 hold the hi parts, c0/c1 the lo parts of B
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float b0,
-                                     float b1, float c0, float c1) {
-  mma_tf32(d, al, __float_as_uint(b0), __float_as_uint(b1));
-  mma_tf32(d, ah, __float_as_uint(c0), __float_as_uint(c1));
-  mma_tf32(d, ah, __float_as_uint(b0), __float_as_uint(b1));
-}
-
-// The A fragment of rows m0 + gid (+8), columns k0 + tig (+4) of a
-// row-major buffer with stride ld, split into TF32 hi and lo parts.
-__device__ __forceinline__ void load_a(const float* base, int ld, int m0,
-                                       int k0, uint32_t (&ah)[4],
-                                       uint32_t (&al)[4]) {
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const float* p = base + (m0 + gid) * ld + k0 + tig;
-  split_tf32(p[0], ah[0], al[0]);
-  split_tf32(p[8 * ld], ah[1], al[1]);
-  split_tf32(p[4], ah[2], al[2]);
-  split_tf32(p[8 * ld + 4], ah[3], al[3]);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(bytes) : "memory");
-}
-
-struct Tile {
-  int row, K, T;               // the CTA's row of x, its blocks and samples
-  int b0, KTv;                 // first block of the tile, blocks present
-  __device__ bool valid(int m) const { return m < KTv; }
-  __device__ long long off(int m) const {     // global offset of M-row m
-    return (long long)row * T + (long long)(b0 + m) * CK_C;
-  }
-};
-
-// Start the copy of x's tile at block b0 into F: 16 bytes a thread and
-// chunk, zeros where the tile runs past the render.  Thread (warp w,
-// lane l) copies the columns 4l..4l+3 of M-rows w, w + 8, ..., the chunks
-// it later stores.
-__device__ __forceinline__ void load_tile(float* F,
-                                          const float* __restrict__ x, Tile t,
-                                          int b0) {
-  t.b0 = b0;
-  t.KTv = min(CK_M, t.K - b0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int m = warp; m < CK_M; m += CK_NW) {
-    const bool ok = t.valid(m);
-    const float* src = ok ? x + t.off(m) + 4 * lane : x;
-    cp_async16(F + m * CK_LD + 4 * lane, src, ok ? 16 : 0);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 // A run of elementwise stages [s0, s1) over the tile: warp w holds M-rows
 // w, w + 8, ... (four samples a lane, 32 a thread) in registers while
 // every stage of the run passes over them, each stage read once.  M-rows
 // past the render are shaped too (they are never read into one that is
-// not), but not stored as taps.
+// not), but not stored as taps.  The record build (-DCK_RECORD) also
+// stores each ew stage's input rows to its record.
 __device__ __forceinline__ void ew_run(float* F,
                                        const CkStage* __restrict__ st, int s0,
                                        int s1,
                                        float* const* __restrict__ taps,
+                                       float* const* __restrict__ recs,
                                        const Tile t) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float v[CK_NQ * 4];
@@ -256,13 +153,24 @@ __device__ __forceinline__ void ew_run(float* F,
     if (S.kind == CK_SCALE) {
       const float h = S.p[0];
       each(v, [=](float x) { return x * h; });
-    } else if (S.kind == CK_EW && S.idx != EW_FUZZ) {
-      ew_points(S.idx, S.p, v);
-    } else if (S.kind == CK_EW) {             // Fuzz: per block, a warp max
+    } else if (S.kind == CK_EW) {
+#ifdef CK_RECORD
 #pragma unroll
-      for (int q = 0; q < CK_NQ; ++q)
-        apply_ew(S.idx, S.p, *reinterpret_cast<float(*)[4]>(v + 4 * q),
-                 WarpMax());
+      for (int q = 0; q < CK_NQ; ++q) {
+        const int m = warp + q * CK_NW;
+        if (t.valid(m))
+          reinterpret_cast<float4*>(recs[S.rec] + t.off(m))[lane] =
+              make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+      }
+#endif
+      if (S.idx != EW_FUZZ) {
+        ew_points(S.idx, S.p, v);
+      } else {                                 // Fuzz: per block, a warp max
+#pragma unroll
+        for (int q = 0; q < CK_NQ; ++q)
+          apply_ew(S.idx, S.p, *reinterpret_cast<float(*)[4]>(v + 4 * q),
+                   WarpMax());
+      }
     } else {                                   // CK_TAP
 #pragma unroll
       for (int q = 0; q < CK_NQ; ++q) {
@@ -565,6 +473,7 @@ chain_kernel(const char* __restrict__ prog, const float* __restrict__ x,
   const CkCasc* casc = reinterpret_cast<const CkCasc*>(prog + H->off_casc);
   const CkRing* rings = reinterpret_cast<const CkRing*>(prog + H->off_ring);
   float* const* taps = reinterpret_cast<float* const*>(prog + H->off_tap);
+  float* const* recs = reinterpret_cast<float* const*>(prog + H->off_rec);
   const int n_stages = H->n_stages;
 
   Tile t;
@@ -601,7 +510,7 @@ chain_kernel(const char* __restrict__ prog, const float* __restrict__ x,
         while (e < n_stages && (st[e].kind == CK_SCALE || st[e].kind == CK_EW
                                 || st[e].kind == CK_TAP))
           ++e;
-        ew_run(F, st, s, e, taps, t);
+        ew_run(F, st, s, e, taps, recs, t);
         PHASE(PH_EW);
         s = e;
         continue;

@@ -232,107 +232,27 @@ __device__ float cr_sum(float v, float* red) {
 }
 
 // ---- the shapers' derivatives (interpret_adjoint's ew_adjoint) ----------
+// ew_grad and fuzz_grad are in stages.cuh, shared with the reverse chain
+// kernel; Fuzz's block reductions here are the CTA's.
 
-__device__ __forceinline__ float mask1(bool in) { return in ? 1.0f : 0.0f; }
+struct CrMax {
+  float* red;
+  __device__ float operator()(float v) const { return cr_max(v, red); }
+};
 
-// g through tanh(clamp(v, -20, 20)), the derivative from the input
-__device__ __forceinline__ float tanh20_grad(float g, float v) {
-  const float t = tanhf(clampn(v, -20.0f, 20.0f));
-  return g * (1.0f - t * t) * mask1(v >= -20.0f && v <= 20.0f);
-}
+struct CrSum {
+  float* red;
+  __device__ float operator()(float v) const { return cr_sum(v, red); }
+};
 
-// The vjp of shaper op (not Fuzz) at its input v, cotangent g.  p holds
-// the params; chebyshev's p[2], p[3] are its two denominators (computed
-// by the wrapper as its plain version does).
-__device__ __forceinline__ float ew_grad(int op, const float* p, float g,
-                                         float v) {
-  const float c4 = (float)(3.141592653589793 / 4.0);
-  if (op == EW_OVERDRIVE) {
-    const float boost = p[0], drive = p[1], level = p[2];
-    if (level < BYPASS) return g;
-    const float b = c4 * (v * boost);
-    const float gm = g * level;
-    const float gb =
-        gm * drive * (float)(2.0 / 3.141592653589793) / (1.0f + b * b);
-    return gm * (1.0f - drive) + gb * c4 * boost;
-  }
-  if (op == EW_CHEBYSHEV) {
-    const bool pos = v >= 0.0f;
-    const float l = pos ? p[0] : p[1];
-    if (l < BYPASS) return g;
-    return tanh20_grad(g / (pos ? p[2] : p[3]), v * l) * l;
-  }
-  const float level = p[0];
-  if (level < BYPASS) return g;
-  const float w = v * level;
-  float gw;
-  switch (op) {
-    case EW_HARDCLIP:
-      gw = g / level * mask1(w >= -1.0f && w <= 1.0f);
-      break;
-    case EW_SOFTCLIP:
-      gw = (w >= -1.0f && w <= 1.0f) ? g / level * (1.0f - w * w) : 0.0f;
-      break;
-    case EW_TANH:
-      gw = tanh20_grad(g, w);
-      break;
-    case EW_RECIPSOFTCLIP: {
-      const float s = signn(v);
-      const float r = 1.0f / (fabsf(v) * level + 1.0f);
-      return g * s * (r * r) * level * s;
-    }
-    case EW_SIN:
-      gw = g * cosf(w);
-      break;
-    case EW_ATAN:
-      gw = g / (1.0f + w * w);
-      break;
-    case EW_SQUARE:
-      gw = 2.0f * (g * signn(w)) * w;
-      break;
-    default:  // EW_CHEBYSHEV4
-      gw = 2.0f * (16.0f * g * (w * w) - 8.0f * g) * w;
-      break;
-  }
-  return gw * level;
-}
-
-// The vjp of Fuzz at this thread's input v of the block: the forward
-// again from v, then back through its three block maxima (each one's
-// gradient split evenly among its ties, as torch.amax's backward) with
-// block sums.  Every thread of the CTA calls it together.
-__device__ float fuzz_grad(const CrCtx& x, float level, float g, float v) {
-  float* red = x.red;
-  const float sx = signn(v), ax = fabsf(v);
-  const float mx = cr_max(ax, red);
-  const float u = v * level;
-  const float cu = clampn(u, -1.0f, 1.0f);
-  const float q = cu / mx;
-  const float e = expf(-fabsf(q));
-  const float z = -(1.0f - e);
-  const float az = fabsf(z);
-  const float mz = cr_max(az, red);
-  const float w = z * mx;
-  const float cw = clampn(w, -1.0f, 1.0f);
-  const float y = cw / mz;
-  const float ay = fabsf(y);
-  const float my = cr_max(ay, red);
-  const float p = y * mx;
-  const float gp = g / my;
-  const float gmy = cr_sum(-(g * p) / (my * my), red);
-  const float hy = mask1(ay == my);
-  const float gy = gp * mx + gmy / cr_sum(hy, red) * hy * signn(y);
-  const float gcw = gy / mz;
-  const float gmz = cr_sum(-(gy * cw) / (mz * mz), red);
-  const float gw = gcw * mask1(w >= -1.0f && w <= 1.0f);
-  const float hz = mask1(az == mz);
-  const float gz = gw * mx + gmz / cr_sum(hz, red) * hz * signn(z);
-  const float gq = -(gz * e * signn(q));
-  const float gcu = gq / mx;
-  const float gmx = cr_sum(gp * y + gw * z - gq * cu / (mx * mx), red);
-  const float hx = mask1(ax == mx);
-  return gcu * mask1(u >= -1.0f && u <= 1.0f) * level +
-         gmx / cr_sum(hx, red) * hx * sx;
+// The vjp of Fuzz at this thread's input v of the block, cotangent g.
+// Every thread of the CTA calls it together.
+__device__ float cr_fuzz_grad(const CrCtx& x, float level, float g,
+                             float v) {
+  float gv[1] = {g};
+  const float vv[1] = {v};
+  fuzz_grad<1>(level, gv, vv, CrMax{x.red}, CrSum{x.red});
+  return gv[0];
 }
 
 // ---- the helpers the generated block code calls ---------------------------
@@ -361,7 +281,7 @@ __device__ __forceinline__ float cr_ew(const CrCtx& x, float g, float v,
   CR_ENTER(g);
   float r;
   if (OP == EW_FUZZ) {
-    r = fuzz_grad(x, p0, g, v);
+    r = cr_fuzz_grad(x, p0, g, v);
   } else {
     const float p[4] = {p0, p1, p2, p3};
     r = ew_grad(OP, p, g, v);

@@ -1,9 +1,11 @@
 // stages.cuh -- device code shared by the chain kernel (chain_kernel.cu)
 // and the cycle kernel (cycle_kernel.cu), so that both round alike: the
-// elementwise shapers (apply_ew).  Each thread passes the NV samples it
-// holds of one 128-sample block and a functor that takes the max of a
-// value over that block (the chain kernel's warp per block, the cycle
-// kernel's CTA per block).
+// elementwise shapers (apply_ew); and by their reverses
+// (chain_reverse_kernel.cu, cycle_reverse_kernel.cu): the shapers'
+// derivatives (ew_grad, fuzz_grad).  Each thread passes the NV samples it
+// holds of one 128-sample block and a functor that takes the max (and for
+// fuzz_grad one that takes the sum) of a value over that block (the chain
+// kernels' warp per block, the cycle kernels' CTA per block).
 //
 // Arithmetic is plain FP32 and the build passes -fmad=false, so each
 // operation rounds once, as in eager PyTorch.  tanhf, atanf, sinf and expf
@@ -176,4 +178,150 @@ __device__ __forceinline__ void apply_ew(int op, const float* p,
   const float my = bmax(abs_max(z));
 #pragma unroll
   for (int i = 0; i < NV; ++i) v[i] = z[i] * mx / my;
+}
+
+// ---- the shapers' derivatives (the reverses') ------------------------------
+
+__device__ __forceinline__ float mask1(bool in) { return in ? 1.0f : 0.0f; }
+
+// g through tanh(clamp(v, -20, 20)), the derivative from the input
+__device__ __forceinline__ float tanh20_grad(float g, float v) {
+  const float t = tanhf(clampn(v, -20.0f, 20.0f));
+  return g * (1.0f - t * t) * mask1(v >= -20.0f && v <= 20.0f);
+}
+
+// The vjp of shaper op (not Fuzz) at its input v, cotangent g.  p holds
+// the params; chebyshev's p[2], p[3] are its two denominators (computed
+// by the wrapper as its plain version does).
+__device__ __forceinline__ float ew_grad(int op, const float* p, float g,
+                                         float v) {
+  const float c4 = (float)(3.141592653589793 / 4.0);
+  if (op == EW_OVERDRIVE) {
+    const float boost = p[0], drive = p[1], level = p[2];
+    if (level < BYPASS) return g;
+    const float b = c4 * (v * boost);
+    const float gm = g * level;
+    const float gb =
+        gm * drive * (float)(2.0 / 3.141592653589793) / (1.0f + b * b);
+    return gm * (1.0f - drive) + gb * c4 * boost;
+  }
+  if (op == EW_CHEBYSHEV) {
+    const bool pos = v >= 0.0f;
+    const float l = pos ? p[0] : p[1];
+    if (l < BYPASS) return g;
+    return tanh20_grad(g / (pos ? p[2] : p[3]), v * l) * l;
+  }
+  const float level = p[0];
+  if (level < BYPASS) return g;
+  const float w = v * level;
+  float gw;
+  switch (op) {
+    case EW_HARDCLIP:
+      gw = g / level * mask1(w >= -1.0f && w <= 1.0f);
+      break;
+    case EW_SOFTCLIP:
+      gw = (w >= -1.0f && w <= 1.0f) ? g / level * (1.0f - w * w) : 0.0f;
+      break;
+    case EW_TANH:
+      gw = tanh20_grad(g, w);
+      break;
+    case EW_RECIPSOFTCLIP: {
+      const float s = signn(v);
+      const float r = 1.0f / (fabsf(v) * level + 1.0f);
+      return g * s * (r * r) * level * s;
+    }
+    case EW_SIN:
+      gw = g * cosf(w);
+      break;
+    case EW_ATAN:
+      gw = g / (1.0f + w * w);
+      break;
+    case EW_SQUARE:
+      gw = 2.0f * (g * signn(w)) * w;
+      break;
+    default:  // EW_CHEBYSHEV4
+      gw = 2.0f * (16.0f * g * (w * w) - 8.0f * g) * w;
+      break;
+  }
+  return gw * level;
+}
+
+// The sum of this thread's values: its part of a block sum
+template <int NV>
+__device__ __forceinline__ float sum_of(const float (&t)[NV]) {
+  float s = t[0];
+#pragma unroll
+  for (int i = 1; i < NV; ++i) s = s + t[i];
+  return s;
+}
+
+// Block sum over one warp holding a block, four samples a lane.
+struct WarpSum {
+  __device__ float operator()(float v) const {
+    for (int o = 16; o > 0; o >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+  }
+};
+
+// The vjp of Fuzz at the NV inputs v this thread holds of one block, the
+// cotangents g replaced by the gradients: the forward again from v, then
+// back through its three block maxima (each one's gradient split evenly
+// among its ties, as torch.amax's backward) with block sums.  Every
+// thread holding a sample of the block calls it together.
+template <int NV, class BlockMax, class BlockSum>
+__device__ __forceinline__ void fuzz_grad(float level, float (&g)[NV],
+                                          const float (&v)[NV],
+                                          BlockMax bmax, BlockSum bsum) {
+  float t[NV], z[NV], e[NV], y[NV];
+  const float mx = bmax(abs_max(v));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float q = clampn(v[i] * level, -1.0f, 1.0f) / mx;
+    e[i] = expf(-fabsf(q));
+    z[i] = -(1.0f - e[i]);
+  }
+  const float mz = bmax(abs_max(z));
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    y[i] = clampn(z[i] * mx, -1.0f, 1.0f) / mz;
+  const float my = bmax(abs_max(y));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) t[i] = -(g[i] * (y[i] * mx)) / (my * my);
+  const float gmy = bsum(sum_of(t));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) t[i] = mask1(fabsf(y[i]) == my);
+  const float ny = bsum(sum_of(t));
+  float gy[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float hy = mask1(fabsf(y[i]) == my);
+    gy[i] = g[i] / my * mx + gmy / ny * hy * signn(y[i]);
+    t[i] = -(gy[i] * clampn(z[i] * mx, -1.0f, 1.0f)) / (mz * mz);
+  }
+  const float gmz = bsum(sum_of(t));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) t[i] = mask1(fabsf(z[i]) == mz);
+  const float nz = bsum(sum_of(t));
+  float gq[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float w = z[i] * mx;
+    const float gw = gy[i] / mz * mask1(w >= -1.0f && w <= 1.0f);
+    const float hz = mask1(fabsf(z[i]) == mz);
+    const float gz = gw * mx + gmz / nz * hz * signn(z[i]);
+    const float cu = clampn(v[i] * level, -1.0f, 1.0f);
+    gq[i] = -(gz * e[i] * signn(cu / mx));
+    t[i] = g[i] / my * y[i] + gw * z[i] - gq[i] * cu / (mx * mx);
+  }
+  const float gmx = bsum(sum_of(t));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) t[i] = mask1(fabsf(v[i]) == mx);
+  const float nx = bsum(sum_of(t));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float u = v[i] * level;
+    g[i] = gq[i] / mx * mask1(u >= -1.0f && u <= 1.0f) * level +
+           gmx / nx * mask1(fabsf(v[i]) == mx) * signn(v[i]);
+  }
 }

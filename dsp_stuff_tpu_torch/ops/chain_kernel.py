@@ -15,8 +15,12 @@ the kernel has no fixed stage capacity.  A CTA walks one row in tiles of
 ``chain_kernel_call`` takes only CUDA tensors and raises on anything the
 kernel cannot take; there is no fallback.  The plain PyTorch version of
 the same function is ops/chain_segment.segment_fallback.  ``LAUNCHES``
-counts the kernel's launches.  ``phase_cycles`` runs the build with the
-kernel's phase probes (tools/measure_torch_chain.py --phases).
+counts the kernel's launches (both builds), ``RECORD_LAUNCHES`` those of
+its record build (-DCK_RECORD: the same outputs, and each ``ew`` stage's
+input written to a record [B, T] whose pointer sits in the program, for
+the reverse chain kernel, ops/chain_reverse_kernel.py).
+``phase_cycles`` runs the build with the kernel's phase probes
+(tools/measure_torch_chain.py --phases).
 """
 
 from __future__ import annotations
@@ -45,21 +49,24 @@ _KIND = {"cascade": 0, "scale": 1, "ew": 2, "tap": 3, "comb": 4, "mtap": 5}
 
 #: launches of the kernel in this process (a test or a smoke run resets it)
 LAUNCHES = 0
+#: ... of them, the record build's
+RECORD_LAUNCHES = 0
 
 # The packed program's records, mirrored field for field by
-# csrc/chain_kernel.cu (CkHeader, CkStage, CkCasc, CkRing).
+# csrc/chain_tiles.cuh (CkHeader, CkStage, shared with the reverse kernel)
+# and csrc/chain_kernel.cu (CkCasc, CkRing).
 HEADER = np.dtype([("n_stages", "<i4"), ("n_casc", "<i4"), ("n_ring", "<i4"),
                    ("n_tap", "<i4"), ("off_stage", "<i8"),
                    ("off_casc", "<i8"), ("off_ring", "<i8"),
-                   ("off_tap", "<i8"), ("pad", "<i8", (2,))])
+                   ("off_tap", "<i8"), ("off_rec", "<i8"), ("pad", "<i8")])
 STAGE = np.dtype([("kind", "<i4"), ("idx", "<i4"), ("n", "<i4"),
-                  ("pad", "<i4"), ("p", "<f4", (4,))])
+                  ("rec", "<i4"), ("p", "<f4", (4,))])
 CASC = np.dtype([(f, "<u8") for f in ("hp", "w", "ecb", "act", "carry",
                                       "carry_out", "xlast_out", "pad")])
 RING = np.dtype([(f, "<u8") for f in ("ring", "mq", "mr", "mfr")])
 
 
-@functools.lru_cache(maxsize=2)
+@functools.lru_cache(maxsize=4)
 def _lib(defines: tuple = ()) -> ctypes.CDLL:
     """The chain kernel library built with ``defines``, bound: its
     argument types set, its record sizes and tile height checked against
@@ -157,11 +164,12 @@ def _casc_tile_device(sections: tuple, device: torch.device):
 
 def plan(stages: tuple):
     """The stage records of a stage list, checked: a STAGE array (kind,
-    index into the cascade / ring / tap / shaper tables, n, params) and
+    index into the cascade / ring / tap / shaper tables, n, an ``ew``
+    stage's ordinal among them (its record), params) and
     the counts (n_casc, n_ring, n_tap).  Raises on what the kernel cannot
     take; pointers come later (``pack_program``)."""
     rec = np.zeros(len(stages), STAGE)
-    n_casc = n_ring = 0
+    n_casc = n_ring = n_ew = 0
     taps = set()
     for k, st in enumerate(stages):
         if st[0] not in _KIND:
@@ -201,40 +209,56 @@ def plan(stages: tuple):
             if len(st[2]) > 4:
                 raise ValueError(f"chain kernel: shaper {st[1]!r} has "
                                  f"{len(st[2])} params")
-            r["idx"] = EW_CODES.index(st[1])
+            r["idx"], r["rec"] = EW_CODES.index(st[1]), n_ew
             r["p"][:len(st[2])] = np.asarray(st[2], np.float32)
+            n_ew += 1
     if taps != set(range(len(taps))):
         raise ValueError("chain kernel: tap indices must be 0..n_taps-1")
     return rec, (n_casc, n_ring, len(taps))
+
+
+def has_shaper(stages: tuple) -> bool:
+    """Whether the list has an ``ew`` stage: an input the reverse needs
+    recorded (every other stage is linear), which the record build
+    writes."""
+    return any(st[0] == "ew" for st in stages)
 
 
 def _align(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def layout(n_stages: int, n_casc: int, n_ring: int, n_tap: int):
-    """Byte offsets (stage, casc, ring, tap, end) of the packed program's
-    sections, each 16-byte aligned."""
+def layout(n_stages: int, n_casc: int, n_ring: int, n_tap: int,
+           n_rec: int = 0, casc=CASC, ring=RING):
+    """Byte offsets (stage, casc, ring, tap, rec, end) of the packed
+    program's sections, each 16-byte aligned, for cascade and ring
+    records of the dtypes ``casc`` and ``ring``."""
     off_stage = _align(HEADER.itemsize)
     off_casc = _align(off_stage + n_stages * STAGE.itemsize)
-    off_ring = _align(off_casc + n_casc * CASC.itemsize)
-    off_tap = _align(off_ring + n_ring * RING.itemsize)
-    return off_stage, off_casc, off_ring, off_tap, _align(off_tap + 8 * n_tap)
+    off_ring = _align(off_casc + n_casc * casc.itemsize)
+    off_tap = _align(off_ring + n_ring * ring.itemsize)
+    off_rec = _align(off_tap + 8 * n_tap)
+    return (off_stage, off_casc, off_ring, off_tap, off_rec,
+            _align(off_rec + 8 * n_rec))
 
 
-def pack_program(records, casc_ptrs, ring_ptrs, tap_ptrs) -> np.ndarray:
+def pack_program(records, casc_ptrs, ring_ptrs, tap_ptrs, rec_ptrs=(),
+                 casc=CASC, ring=RING) -> np.ndarray:
     """The packed program, a uint8 array: the header, ``records`` (from
-    ``plan``), then per cascade its 7 pointers (hp, w, ecb, act, carry,
-    carry_out, xlast_out), per ring its 4 (ring, mq, mr, mfr; 0 where a
-    comb has none) and the tap pointers, all as integers."""
+    ``plan``), then per cascade its record (here 7 pointers: hp, w, ecb,
+    act, carry, carry_out, xlast_out), per ring its record (here 4: ring,
+    mq, mr, mfr; 0 where a comb has none), the tap pointers and the
+    record build's ``rec_ptrs``, all as integers; the reverse kernel
+    packs its own records (``casc``, ``ring``) in the same layout."""
     n_casc, n_ring, n_tap = len(casc_ptrs), len(ring_ptrs), len(tap_ptrs)
-    offs = layout(len(records), n_casc, n_ring, n_tap)
-    buf = np.zeros(offs[4], np.uint8)
+    offs = layout(len(records), n_casc, n_ring, n_tap, len(rec_ptrs), casc,
+                  ring)
+    buf = np.zeros(offs[5], np.uint8)
     hdr = np.zeros((), HEADER)
     hdr["n_stages"], hdr["n_casc"] = len(records), n_casc
     hdr["n_ring"], hdr["n_tap"] = n_ring, n_tap
-    for name, o in zip(("off_stage", "off_casc", "off_ring", "off_tap"),
-                       offs):
+    for name, o in zip(("off_stage", "off_casc", "off_ring", "off_tap",
+                        "off_rec"), offs):
         hdr[name] = o
     buf[:HEADER.itemsize] = np.frombuffer(hdr.tobytes(), np.uint8)
 
@@ -242,12 +266,17 @@ def pack_program(records, casc_ptrs, ring_ptrs, tap_ptrs) -> np.ndarray:
         raw = np.frombuffer(np.ascontiguousarray(arr).tobytes(), np.uint8)
         buf[off:off + raw.size] = raw
 
+    def recs(ptrs, dt):
+        arr = np.zeros(len(ptrs), dt)
+        for i, p in enumerate(ptrs):
+            arr[i] = tuple(p) + (0,) * (len(dt.names) - len(p))
+        return arr
+
     put(offs[0], np.asarray(records, STAGE))
-    put(offs[1], np.array([tuple(p) + (0,) for p in casc_ptrs], CASC)
-        if n_casc else np.zeros(0, CASC))
-    put(offs[2], np.array([tuple(p) for p in ring_ptrs], RING)
-        if n_ring else np.zeros(0, RING))
+    put(offs[1], recs(casc_ptrs, casc))
+    put(offs[2], recs(ring_ptrs, ring))
     put(offs[3], np.asarray(tap_ptrs, np.uint64))
+    put(offs[4], np.asarray(rec_ptrs, np.uint64))
     return buf
 
 
@@ -289,7 +318,8 @@ def to_device(buf: np.ndarray, dev) -> torch.Tensor:
     return pinned.to(dev, non_blocking=True)
 
 
-def chain_kernel_call(x: torch.Tensor, stages: tuple, state_in: tuple):
+def chain_kernel_call(x: torch.Tensor, stages: tuple, state_in: tuple,
+                      record: bool = False):
     """x [B, T] f32 CUDA, contiguous, T % 128 == 0 -> (y [B, T],
     per-cascade (carry_last [B, NS], x_last [B, C]),
     per-comb or mtap ring [B, NR, C] in stage order,
@@ -299,8 +329,15 @@ def chain_kernel_call(x: torch.Tensor, stages: tuple, state_in: tuple):
     composite state [B, N]; for a comb the history [B, D]; for an mtap
     four entries, the input history [B, L] and the shared trajectory
     operands q [T/128] int32, r [T] int32 and frac [T] float32
-    (modfx.mtap_shared)."""
-    return _run(x, stages, state_in)
+    (modfx.mtap_shared).  ``record`` launches the record build (the same
+    outputs) and returns ``(outputs, recs)``: each ``ew`` stage's input
+    [B, T], in stage order; a list with no shaper has no record build."""
+    if not record:
+        return _run(x, stages, state_in)
+    if not has_shaper(stages):
+        raise ValueError("chain kernel: a list with no shaper records "
+                         "nothing")
+    return _run(x, stages, state_in, ("CK_RECORD",))
 
 
 def phase_cycles(x: torch.Tensor, stages: tuple,
@@ -324,7 +361,7 @@ def phase_cycles(x: torch.Tensor, stages: tuple,
 def _run(x: torch.Tensor, stages: tuple, state_in: tuple,
          defines: tuple = ()):
     """``chain_kernel_call`` in the kernel's build with ``defines``."""
-    global LAUNCHES
+    global LAUNCHES, RECORD_LAUNCHES
     stages = tuple(stages)
     records, (n_casc, n_ring, n_tap) = plan(stages)
     if not (isinstance(x, torch.Tensor) and x.is_cuda):
@@ -390,8 +427,12 @@ def _run(x: torch.Tensor, stages: tuple, state_in: tuple,
         elif st[0] == "tap":
             taps[int(st[1])] = torch.empty((B, T), dtype=torch.float32,
                                            device=dev)
+    record = "CK_RECORD" in defines
+    recs = tuple(torch.empty((B, T), dtype=torch.float32, device=dev)
+                 for st in stages if st[0] == "ew") if record else ()
     prog = to_device(pack_program(records, casc_ptrs, ring_ptrs,
-                                  [t.data_ptr() for t in taps]), dev)
+                                  [t.data_ptr() for t in taps],
+                                  [r.data_ptr() for r in recs]), dev)
     grid, ctas = geometry(B, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     x = aligned(x)
@@ -402,4 +443,8 @@ def _run(x: torch.Tensor, stages: tuple, state_in: tuple,
     if rc != 0:
         raise RuntimeError(f"chain kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return y, tuple(casc_raw), tuple(rings), tuple(taps)
+    out = y, tuple(casc_raw), tuple(rings), tuple(taps)
+    if record:
+        RECORD_LAUNCHES += 1
+        return out, recs
+    return out

@@ -33,11 +33,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 #: the kernel sources, by name
-KERNELS = ("chain_kernel", "cycle_kernel", "cycle_reverse_kernel",
-           "envelope_kernel", "first_order_kernel", "sequential_kernel")
+KERNELS = ("chain_kernel", "chain_reverse_kernel", "cycle_kernel",
+           "cycle_reverse_kernel", "envelope_kernel", "first_order_kernel",
+           "sequential_kernel")
 #: the kernels built without a generated header
-STATIC_KERNELS = ("chain_kernel", "envelope_kernel", "first_order_kernel",
-                  "sequential_kernel")
+STATIC_KERNELS = ("chain_kernel", "chain_reverse_kernel", "envelope_kernel",
+                  "first_order_kernel", "sequential_kernel")
 
 
 def _nvcc() -> str:

@@ -15,8 +15,9 @@ is the mean over streams of each stream's distance, as the JAX package's
 vmapped loss computes it.  ``make_sharded_train_step`` splits that batch
 over a parallel.mesh ``Mesh`` of devices in one process.  Gradients flow
 through the fused paths too (their autograd Functions, ops/chain_segment.py
-and ops/cycle_segment.py), so a fit of some sliders keeps the rest on the
-chain and cycle kernels, and under ``exact`` through the sequential
+and ops/cycle_segment.py, whose backwards are the reverse chain and cycle
+kernels), so a fit of some sliders keeps the rest on the chain and cycle
+kernels, and under ``exact`` through the sequential
 kernel's reverse mode.  A feedback cycle that runs the per-node scan (a
 fit overrides its members' sliders) is differentiated through its loop
 over buffers (compiler/cycle_loop.py), on the card as captured CUDA

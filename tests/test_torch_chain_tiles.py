@@ -337,9 +337,12 @@ def test_packed_program_layout(which):
 
 def test_record_sizes_and_codes_match_cuda_source():
     """The packer's record sizes are the CUDA structs' (counted from the
-    source's field lists) and the stage kind codes its CK_* codes."""
-    src = (pathlib.Path(tck.__file__).parent.parent / "csrc"
-           / "chain_kernel.cu").read_text()
+    source's field lists) and the stage kind codes its CK_* codes (the
+    header and stage records, shared with the reverse, in
+    chain_tiles.cuh)."""
+    csrc = pathlib.Path(tck.__file__).parent.parent / "csrc"
+    src = "".join((csrc / f).read_text() for f in ("chain_tiles.cuh",
+                                                    "chain_kernel.cu"))
     codes = dict(re.findall(r"#define CK_(CASCADE|SCALE|EW|TAP|COMB|MTAP) "
                             r"(\d+)", src))
     assert {k.lower(): int(v) for k, v in codes.items()} == tck._KIND

@@ -4,14 +4,15 @@ JAX package's custom_vjp's: the chain segment (ops/chain_segment.py,
 (ops/cycle_segment.py, ``CycleSegment``), alone and through
 ``compile_graph``.
 
-On the card the Functions run the chain and cycle kernels forward; the
-chain segment's backward is the vjp of the plain composition, the
-cycle's the reverse cycle kernel.  Here the forward is the plain version
+On the card the Functions run the chain and cycle kernels forward and
+their reverse kernels backward.  Here the forward is the plain version
 under no_grad (``run_segment`` / ``run_cycle`` with ``segment_fallback``
 / ``interpret`` standing in for the kernel), or the JAX Pallas kernel in
 interpret mode behind the kernel path's raw-output rebuild; the chain's
-backward is the one the card runs, the cycle's the reverse kernel's
-plain version ``interpret_adjoint``.  Through
+backward is ``run_segment``'s default, ``segment_vjp`` (the vjp of the
+plain composition, the reverse chain kernel's reference; its plain
+version ``segment_adjoint`` is held in tests/test_torch_chain_reverse.py),
+the cycle's the reverse kernel's plain version ``interpret_adjoint``.  Through
 ``compile_graph`` the chain_segment and cycle_segment calls are routed the
 way the card routes them (``_card_dispatch``), so the planner's fused
 paths, its split of a mega run at an overridden member included, take

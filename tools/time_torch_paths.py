@@ -36,7 +36,11 @@ device data) and times with CUDA events, median of 5 after a warm-up, at
 chain's and config5's input gradients at B = 128 (the root's
 chip_smoke.grad_split: the forward and the backward on the host's clock,
 medians of 3 after a first call, and one forward + backward's device time
-by torch.profiler, split by op group).  Prints one line per measurement
+by torch.profiler, split by op group, with the port's kernels' device
+times; and the peak device memory of one forward + backward), and, where
+the root's chain kernel has a record build, that build beside the plain
+one on the bench list at B = 128 (CUDA events, in turns: plain, record,
+record, plain).  Prints one line per measurement
 with the root and the card's name and power limit.  Needs a CUDA device;
 imports nothing of JAX.
 """
@@ -134,8 +138,34 @@ def main() -> int:
                 cs.grad_split(f"{name} input gradient, [128, {T}] "
                               f"[{os.path.relpath(root, here)}]", cg, x, tgt,
                               card)
-                del cg, x, tgt
+                xt = x.clone().requires_grad_(True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                loss = fit.make_loss_fn(cg)({}, cg.init_state(),
+                                            {str(cg.input_ids[0]): xt}, tgt)
+                loss.backward()
+                torch.cuda.synchronize()
+                print(f"{name} input gradient, [128, {T}]: peak device memory "
+                      f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "
+                      f"{tag}")
+                del cg, x, tgt, xt, loss
                 torch.cuda.empty_cache()
+            if "record" in inspect.signature(
+                    chain_kernel.chain_kernel_call).parameters:
+                bench = cs.bench_stages()
+                st = cs.seeded_states(bench, 128, rng, dev)
+                x = torch.as_tensor(rng.standard_normal(
+                    (128, T), dtype=np.float32) * np.float32(0.25),
+                    device=dev)
+                plain = [cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(
+                    x, bench, st))]
+                rec = [cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(
+                    x, bench, st, record=True)) for _ in range(2)]
+                plain.append(cs.cuda_ms(lambda: chain_kernel.chain_kernel_call(
+                    x, bench, st)))
+                print(f"chain kernel, bench list, B=128: plain build "
+                      f"{np.median(plain):.3f} ms, record build "
+                      f"{np.median(rec):.3f} ms (in turns) {tag}")
         return 0
     with dst.policy("fast"):
         if not renders_only:
