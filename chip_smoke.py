@@ -141,11 +141,16 @@ device="cuda")``:
   segment_adjoint on identical cotangents and recorded shaper inputs
   (the record build's outputs bitwise the render build's): the bench
   list, taps, two combs and the planner's config2 and config5 lists at
-  [1, 128], [3, 8,320] and [8, 48,000]; at the bench list's [128,
-  480,000] against the eager vjp of segment_fallback (the parent's
-  backward, fed that forward's records), ten launches bitwise equal, and
-  timed: its path, its own device time, its plain version, the eager vjp,
-  its bound, one cascade's transposed product as torch.matmul;
+  [1, 128], [3, 8,320] and [8, 48,000]; the 40-stage list (more
+  operands than slots, more cascades than shared memory keeps constants
+  for) and a comb longer than a tile (its ring in device memory) at [3,
+  8,320] and [8, 48,000], the 40 stages also with 1, 2 and 3 slots; at
+  the bench list's [128, 480,000] against the eager vjp of
+  segment_fallback (the parent's backward, fed that forward's records),
+  ten launches bitwise equal, and timed: its path, its own device time,
+  its plain version, the eager vjp, its bound, one cascade's transposed
+  product as torch.matmul; its path and device time on the bench list at
+  [512, 480,000], its first 128 rows there against segment_adjoint;
 * the per-node cycle scan (compiler/cycle_loop.py): config5 over 128
   streams x 10 s under parity, exact and fast with its feedback gain
   overridden (the first-order kernel once a block; under exact the
@@ -400,6 +405,37 @@ def long_list():
                 ("scale", 0.95), ("tap", i)]
     return tuple(out) + (("comb", 0.3, 300), ("scale", 0.9),
                          ("comb", 0.25, 100), ("scale", 0.9))
+
+
+def reverse_edge_lists():
+    """The reverse chain kernel's lists past what reverse_lists() reach:
+    the 40 stages (18 operands a tile, past the kernel's 4 operand slots;
+    9 cascades, more than shared memory keeps constants for through the
+    walk) and a comb longer than a tile (D = 64*128 + 476: its ring in
+    device memory); name -> (stages, lfos)."""
+    return {"40 stages": (long_list(), ()),
+            "comb D=8,668": ((("cascade", (("lp", 0.4),)),
+                              ("ew", "distort:SoftClip", (2.0,)),
+                              ("comb", 0.5, 64 * 128 + 476),
+                              ("scale", 0.9)), ())}
+
+
+@contextlib.contextmanager
+def capped_slots(n: int):
+    """The reverse chain kernel launched with at most ``n`` operand slots
+    (its layout's own, capped): an elementwise run with more operands than
+    that takes barriers on its way, its slots refilled between stages."""
+    from dsp_stuff_tpu_torch.ops import chain_reverse_kernel as crk
+    real = crk.layout
+
+    def fewer(stages, n_ops):
+        out = real(stages, n_ops)
+        return (min(out[0], n),) + out[1:]
+    crk.layout = fewer
+    try:
+        yield
+    finally:
+        crk.layout = real
 
 
 def oversized_cycle_program():
@@ -4234,12 +4270,16 @@ def compare_chain_reverse(name, stages, k, p, rtol=None):
 def chain_reverse_phase(dev, card) -> dict:
     """The reverse chain kernel against segment_adjoint on identical
     cotangents and recorded inputs (reverse_lists at [1, 128], [3, 8,320]
-    and [8, 48,000]), the record build bitwise the render build; at the
+    and [8, 48,000], reverse_edge_lists at the last two, the 40 stages
+    also with 1, 2 and 3 operand slots at [3, 8,320]), the record build
+    bitwise the render build; at the
     main path's [B_GRAD, T_MAIN] on the bench list against the eager vjp
     (segment_vjp, the parent's backward), ten launches bitwise equal, and
     timed: the kernel's path, its own device time, its plain version, the
     eager vjp, its bound and one cascade's transposed product as
-    torch.matmul.  Returns those numbers."""
+    torch.matmul; and the kernel's path and device time on the bench list
+    at [B_MAIN, T_MAIN], its first B_GRAD rows there against
+    segment_adjoint.  Returns those numbers."""
     import torch
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.ops import chain_segment
@@ -4248,19 +4288,27 @@ def chain_reverse_phase(dev, card) -> dict:
     print("reverse chain kernel vs segment_adjoint (the shapers' inputs "
           "from the record build, bitwise the render build's):")
     errs = []
+    cases = [(name, stages, lfos, b, t, None)
+             for name, (stages, lfos) in reverse_lists().items()
+             for b, t in ((1, 128), (3, 8320), (8, 48_000))]
+    cases += [(name, stages, lfos, b, t, None)
+              for name, (stages, lfos) in reverse_edge_lists().items()
+              for b, t in ((3, 8320), (8, 48_000))]
+    cases += [("40 stages", long_list(), (), 3, 8320, n) for n in (1, 2, 3)]
     with dst.policy("fast"):
-        for name, (stages, lfos) in reverse_lists().items():
-            for b, t in ((1, 128), (3, 8320), (8, 48_000)):
-                x, st, cts, recs = chain_reverse_inputs(stages, lfos, b, t,
-                                                        rng, dev)
-                shapes = tuple(v.shape for v in (x, *st))
+        for name, stages, lfos, b, t, nslot in cases:
+            x, st, cts, recs = chain_reverse_inputs(stages, lfos, b, t, rng,
+                                                    dev)
+            shapes = tuple(v.shape for v in (x, *st))
+            with (capped_slots(nslot) if nslot is not None
+                  else contextlib.nullcontext()):
                 k = chain_segment._kernel_segment_adjoint(cts, shapes, stages,
                                                           recs, st)
-                p = chain_segment.segment_adjoint(cts, shapes, stages, recs,
-                                                  st)
-                torch.cuda.synchronize()
-                errs.append(compare_chain_reverse(f"{name} [{b}, {t}]",
-                                                  stages, k, p)[1])
+            p = chain_segment.segment_adjoint(cts, shapes, stages, recs, st)
+            torch.cuda.synchronize()
+            label = f"{name} [{b}, {t}]" + (f", {nslot} slots" if nslot
+                                            else "")
+            errs.append(compare_chain_reverse(label, stages, k, p)[1])
         del x, st, cts, recs, k, p
         torch.cuda.empty_cache()
         stages, lfos = reverse_lists()["bench"]
@@ -4315,9 +4363,42 @@ def chain_reverse_phase(dev, card) -> dict:
         vjp_ms = cuda_ms(lambda: chain_segment.segment_vjp(
             x, stages, st, cts, need), N_TIMED_SLOW)
         lib_ms = matmul_t_ms(stages[0][1], B_GRAD, T_MAIN, dev)
+        del x, st, cts, recs
+        torch.cuda.empty_cache()
+        # the wide batch: B_MAIN rows, four waves of one CTA an SM
+        x, st, cts, recs = chain_reverse_inputs(stages, lfos, B_MAIN, T_MAIN,
+                                                rng, dev)
+        shapes = tuple(v.shape for v in (x, *st))
+        del x
+        path_w = cuda_ms(run)
+        ms_w, n_w = kernel_device_ms(run, "chain_reverse_kernel")
+        # its first B_GRAD rows against the plain version (rows are
+        # independent)
+        kw = run()
+        kw = (kw[0][:B_GRAD], tuple(g[:B_GRAD] for g in kw[1]))
+        p = chain_segment.segment_adjoint(
+            tuple(c[:B_GRAD] for c in cts),
+            tuple((B_GRAD,) + tuple(v[1:]) for v in shapes), stages,
+            tuple(r[:B_GRAD] for r in recs), tuple(v[:B_GRAD] for v in st))
+        torch.cuda.synchronize()
+        errs.append(compare_chain_reverse(
+            f"bench [{B_MAIN}, {T_MAIN}], rows 0-{B_GRAD - 1}", stages, kw,
+            p)[1])
+        del st, cts, recs, kw, p
+        torch.cuda.empty_cache()
     rec = dict(ms=path_ms, device_ms=ms, plain_ms=e0.elapsed_time(e1),
                vjp_ms=vjp_ms, lib_ms=lib_ms, err=max(errs + [err]),
-               bound=chain_bound(stages, B_GRAD, T_MAIN, reverse=True))
+               bound=chain_bound(stages, B_GRAD, T_MAIN, reverse=True),
+               ms_wide=path_w, device_ms_wide=ms_w,
+               bound_wide=chain_bound(stages, B_MAIN, T_MAIN, reverse=True))
+    bw, _ = rec["bound_wide"]
+    dev_w = (f"{ms_w:.3f} ms the kernel's device time ({n_w} launches "
+             f"profiled, bound {bw:.3f} ms, {bw / ms_w:.1%})"
+             if ms_w is not None else
+             f"the kernel's device time not measured (no profile showed its "
+             f"launches, the last {n_w})")
+    print(f"reverse chain kernel, bench list, [{B_MAIN}, {T_MAIN}]: {dev_w}, "
+          f"{path_w:.3f} ms the kernel's path [{card}]")
     bms, bby = rec["bound"]
     dev_s = (f"{ms:.3f} ms the kernel's device time ({n_prof} launches "
              f"profiled)" if ms is not None else
@@ -5442,7 +5523,9 @@ def main() -> int:
               gr["bench_input"]["bwd"]["chain_reverse"], crv["err"],
               (crv["ms"], crv["plain_ms"]), crv["bound"], crv["lib_ms"],
               device_ms=crv["device_ms"], vjp_ms=crv["vjp_ms"],
-              shape=[B_GRAD, T_MAIN],
+              shape=[B_GRAD, T_MAIN], ms_wide=crv["ms_wide"],
+              device_ms_wide=crv["device_ms_wide"],
+              bound_ms_wide=crv["bound_wide"][0], shape_wide=[B_MAIN, T_MAIN],
               launches_config5=gr["c5_input"]["bwd"]["chain_reverse"]),
         entry("cycle_kernel:reverse", "cycle_reverse_kernel.cu",
               "dsp_stuff_tpu/ops/cycle_segment.py:270",

@@ -2,7 +2,8 @@
 // and the cycle kernel (cycle_kernel.cu), so that both round alike: the
 // elementwise shapers (apply_ew); and by their reverses
 // (chain_reverse_kernel.cu, cycle_reverse_kernel.cu): the shapers'
-// derivatives (ew_grad, fuzz_grad).  Each thread passes the NV samples it
+// derivatives (ew_grad, fuzz_grad; ew_grads over a thread's samples).
+// Each thread passes the NV samples it
 // holds of one 128-sample block and a functor that takes the max (and for
 // fuzz_grad one that takes the sum) of a value over that block (the chain
 // kernels' warp per block, the cycle kernels' CTA per block).
@@ -190,60 +191,108 @@ __device__ __forceinline__ float tanh20_grad(float g, float v) {
   return g * (1.0f - t * t) * mask1(v >= -20.0f && v <= 20.0f);
 }
 
-// The vjp of shaper op (not Fuzz) at its input v, cotangent g.  p holds
-// the params; chebyshev's p[2], p[3] are its two denominators (computed
-// by the wrapper as its plain version does).
-__device__ __forceinline__ float ew_grad(int op, const float* p, float g,
-                                         float v) {
+// The vjp of shaper op (not Fuzz) at the NV inputs v a thread holds, the
+// cotangents g replaced by the gradients.  p holds the params;
+// chebyshev's p[2], p[3] are its two denominators (computed by the wrapper
+// as its plain version does).  The op, its params and its bypass are
+// decided once, then each sample's derivative with no branch between the
+// samples, so that their chains interleave.
+template <int NV>
+__device__ __forceinline__ void ew_grads(int op, const float* p,
+                                         float (&g)[NV],
+                                         const float (&v)[NV]) {
   const float c4 = (float)(3.141592653589793 / 4.0);
   if (op == EW_OVERDRIVE) {
     const float boost = p[0], drive = p[1], level = p[2];
-    if (level < BYPASS) return g;
-    const float b = c4 * (v * boost);
-    const float gm = g * level;
-    const float gb =
-        gm * drive * (float)(2.0 / 3.141592653589793) / (1.0f + b * b);
-    return gm * (1.0f - drive) + gb * c4 * boost;
+    if (level < BYPASS) return;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const float b = c4 * (v[i] * boost);
+      const float gm = g[i] * level;
+      const float gb =
+          gm * drive * (float)(2.0 / 3.141592653589793) / (1.0f + b * b);
+      g[i] = gm * (1.0f - drive) + gb * c4 * boost;
+    }
+    return;
   }
   if (op == EW_CHEBYSHEV) {
-    const bool pos = v >= 0.0f;
-    const float l = pos ? p[0] : p[1];
-    if (l < BYPASS) return g;
-    return tanh20_grad(g / (pos ? p[2] : p[3]), v * l) * l;
+    const float lp = p[0], ln = p[1], dp = p[2], dn = p[3];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const bool pos = v[i] >= 0.0f;
+      const float l = pos ? lp : ln;
+      const float d = tanh20_grad(g[i] / (pos ? dp : dn), v[i] * l) * l;
+      g[i] = l < BYPASS ? g[i] : d;
+    }
+    return;
   }
   const float level = p[0];
-  if (level < BYPASS) return g;
-  const float w = v * level;
-  float gw;
+  if (level < BYPASS) return;
   switch (op) {
     case EW_HARDCLIP:
-      gw = g / level * mask1(w >= -1.0f && w <= 1.0f);
-      break;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const float w = v[i] * level;
+        g[i] = g[i] / level * mask1(w >= -1.0f && w <= 1.0f) * level;
+      }
+      return;
     case EW_SOFTCLIP:
-      gw = (w >= -1.0f && w <= 1.0f) ? g / level * (1.0f - w * w) : 0.0f;
-      break;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const float w = v[i] * level;
+        g[i] = ((w >= -1.0f && w <= 1.0f) ? g[i] / level * (1.0f - w * w)
+                                          : 0.0f) * level;
+      }
+      return;
     case EW_TANH:
-      gw = tanh20_grad(g, w);
-      break;
-    case EW_RECIPSOFTCLIP: {
-      const float s = signn(v);
-      const float r = 1.0f / (fabsf(v) * level + 1.0f);
-      return g * s * (r * r) * level * s;
-    }
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        g[i] = tanh20_grad(g[i], v[i] * level) * level;
+      return;
+    case EW_RECIPSOFTCLIP:
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const float s = signn(v[i]);
+        const float r = 1.0f / (fabsf(v[i]) * level + 1.0f);
+        g[i] = g[i] * s * (r * r) * level * s;
+      }
+      return;
     case EW_SIN:
-      gw = g * cosf(w);
-      break;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) g[i] = g[i] * cosf(v[i] * level) * level;
+      return;
     case EW_ATAN:
-      gw = g / (1.0f + w * w);
-      break;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const float w = v[i] * level;
+        g[i] = g[i] / (1.0f + w * w) * level;
+      }
+      return;
     case EW_SQUARE:
-      gw = 2.0f * (g * signn(w)) * w;
-      break;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const float w = v[i] * level;
+        g[i] = 2.0f * (g[i] * signn(w)) * w * level;
+      }
+      return;
     default:  // EW_CHEBYSHEV4
-      gw = 2.0f * (16.0f * g * (w * w) - 8.0f * g) * w;
-      break;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const float w = v[i] * level;
+        g[i] = 2.0f * (16.0f * g[i] * (w * w) - 8.0f * g[i]) * w * level;
+      }
+      return;
   }
-  return gw * level;
+}
+
+// ew_grads at one sample: the vjp of shaper op (not Fuzz) at its input v,
+// cotangent g.
+__device__ __forceinline__ float ew_grad(int op, const float* p, float g,
+                                         float v) {
+  float gg[1] = {g};
+  const float vv[1] = {v};
+  ew_grads<1>(op, p, gg, vv);
+  return gg[0];
 }
 
 // The sum of this thread's values: its part of a block sum

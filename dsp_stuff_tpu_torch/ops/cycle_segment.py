@@ -351,16 +351,25 @@ def cinfo_seeds(sections: tuple, cts, batch: tuple, dev):
     entries None where there is none, pulled back through
     ``cascade_tail_states`` and the last block's two inputs: (gradient of
     the last block's input [*batch, 128], of the carry entering it
-    [*batch, N]), None when every cotangent is None."""
+    [*batch, N]), None when every cotangent is None.  The two states'
+    cotangents go through one product each for the input and the carry,
+    side by side ([s_tm1 | s_tm2] against the stacked constants)."""
     if all(c is None for c in cts):
         return None
     (P1, T1), (P2, T2), N = _tail_state_constants(tuple(sections), C)
-    gx = torch.zeros(*batch, C, dtype=_F32, device=dev)
-    gc = torch.zeros(*batch, N, dtype=_F32, device=dev)
-    for ct, Pm, Tm in ((cts[0], P1, T1), (cts[1], P2, T2)):
-        if ct is not None:
-            gx = gx + ct @ const_on(np.ascontiguousarray(Tm.T), dev)
-            gc = gc + ct @ const_on(Pm, dev)
+    live = [i for i in (0, 1) if cts[i] is not None]
+    if live:
+        ct = (cts[live[0]] if len(live) == 1
+              else torch.cat([cts[0], cts[1]], dim=-1))
+        gx = ct @ const_on(np.concatenate([(T1, T2)[i].T for i in live]),
+                           dev)
+        gc = ct @ const_on(np.concatenate([(P1, P2)[i] for i in live]), dev)
+        if tuple(gx.shape[:-1]) != tuple(batch):     # a broadcast cotangent
+            gx = gx.expand(*batch, C).clone()
+            gc = gc.expand(*batch, N).clone()
+    else:
+        gx = torch.zeros(*batch, C, dtype=_F32, device=dev)
+        gc = torch.zeros(*batch, N, dtype=_F32, device=dev)
     for i, ct in ((-1, cts[2]), (-2, cts[3])):
         if ct is not None:
             gx[..., i] = gx[..., i] + ct

@@ -55,13 +55,13 @@ exits 1 if a check failed.  Needs a CUDA device; imports nothing of JAX.
 
 import contextlib
 import ctypes
-import hashlib
-import importlib.util
 import os
 import subprocess
 import sys
 
 import numpy as np
+
+from torch_roots import load_module, start_build, swapped
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 48_000
@@ -258,48 +258,16 @@ def phases(cs, dev, rng, card) -> None:
         del cts, recs
 
 
-@contextlib.contextmanager
-def swapped(module, name, value):
-    """``module.name`` set to ``value`` inside the block."""
-    old = getattr(module, name)
-    setattr(module, name, value)
-    try:
-        yield
-    finally:
-        setattr(module, name, old)
-
-
 def start_other(root: str, program, budget: int):
     """Start building ``root``'s reverse kernel for ``program`` (its source
     with the header of its own generator, this checkout's nvcc flags) into
     build/torch_kernels/; returns (library path, the nvcc process or None
     when built)."""
-    from dsp_stuff_tpu_torch.ops import cuda_build
-    spec = importlib.util.spec_from_file_location(
-        "other_cycle_reverse_kernel",
-        os.path.join(root, "dsp_stuff_tpu_torch", "ops",
-                     "cycle_reverse_kernel.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    header = mod.source_for(program, budget)
-    csrc = os.path.join(root, "dsp_stuff_tpu_torch", "csrc")
-    h = hashlib.sha256(header.encode())
-    for name in sorted(os.listdir(csrc)):
-        if name == "cycle_reverse_kernel.cu" or name.endswith(".cuh"):
-            h.update(open(os.path.join(csrc, name), "rb").read())
-    lib = cuda_build.BUILD_DIR / (f"cycle_reverse_kernel_other_"
-                                  f"{h.hexdigest()[:16]}.so")
-    if lib.exists():
-        return lib, None
-    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    hpath = lib.with_suffix(".h")
-    hpath.write_text(header)
-    proc = subprocess.Popen(
-        [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
-         f'-DKERNEL_PROGRAM_H="{hpath}"', "-I", csrc, "-o", str(lib),
-         os.path.join(csrc, "cycle_reverse_kernel.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return lib, proc
+    mod = load_module(root, os.path.join("dsp_stuff_tpu_torch", "ops",
+                                         "cycle_reverse_kernel.py"),
+                      "other_cycle_reverse_kernel")
+    return start_build(root, "cycle_reverse_kernel",
+                       mod.source_for(program, budget))
 
 
 def turns(cs, dev, rng, card, libs: dict) -> None:
