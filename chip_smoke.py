@@ -33,6 +33,24 @@ device="cuda")``:
   the parity policy (4 streams x 1 s, the sequential envelope kernel's
   path, where that kernel is also held against its plain version at that
   shape);
+* the pointwise groups (compiler/pointwise.py, csrc/pointwise_kernel.cu,
+  one kernel generated and built per group program, all built with the
+  others): every fusable form (gain, add, mix, the fan-in average, the
+  modulation map, overdrive, chebyshev, eight distort modes) under fast,
+  parity and exact at three layouts (float4, one sample a thread, a row's
+  tail) with NaN, +-inf, +-0 and subnormals planted, the kernel against
+  its plain version (pointwise.interpret) and the eager code on the card
+  (bitwise under parity and exact, <= -100 dBFS under fast) and against
+  the CPU's plain version; config5, config3 and the fuzz graphs at 4 x
+  1 s under the three policies, the kernel route against the plain and
+  the eager routes (output, aux, state); config5 at 128 and 512 x 10 s
+  and config3 at 512 x 10 s under fast: the routes held, the launches
+  (three a config5 render, config5's pre -> overdrive -> distort one of
+  them), each group's kernel against its plain version with its bound
+  and y.copy_ of the same bytes, the render on both routes in turns;
+  config5 streamed on both routes (the replayed block's kernels from its
+  DOT dump, process() median and p99); config5's input gradient through
+  the groups' Function against the CPU port;
 * gradient fitting (train/fit.py) of the bench chain's 16 sliders: one
   loss gradient at 2 streams x 1 s against the CPU port, then five Adam
   steps over 128 streams x 10 s with the first-order kernel's launch count
@@ -230,6 +248,7 @@ PARITY_DB = -90.0         # parity policy vs the oracle (README bound)
 N_TIMED = 5
 N_TIMED_SLOW = 2          # plain versions that loop over time in Python
 B_C5, B_C5_WIDE = 128, 512
+T_CPU_PORT = 94 * 128     # the CPU port's side of a card-vs-CPU check
 FO_F64_DB = -90.0         # first-order kernel vs the float64 solve
 FO_VS_PLAIN_DB = 6.0      # ... and at most this much worse than plain f32
 FO_GRAD_RTOL = 1e-4       # its Function's gradients vs the float64 one
@@ -808,11 +827,11 @@ def _kernel_modules():
     from dsp_stuff_tpu_torch.ops import (chain_kernel, chain_reverse_kernel,
                                          cycle_kernel, cycle_reverse_kernel,
                                          envelope_kernel, first_order_kernel,
-                                         sequential_kernel)
+                                         pointwise_kernel, sequential_kernel)
     return {"chain": chain_kernel, "chain_reverse": chain_reverse_kernel,
             "cycle": cycle_kernel, "cycle_reverse": cycle_reverse_kernel,
             "envelope": envelope_kernel, "first_order": first_order_kernel,
-            "sequential": sequential_kernel}
+            "pointwise": pointwise_kernel, "sequential": sequential_kernel}
 
 
 def reset_launches():
@@ -832,6 +851,41 @@ def only_launches(**launches):
     out = {k: 0 for k in _kernel_modules()}
     out.update(launches)
     return out
+
+
+@contextlib.contextmanager
+def forward_and_vjps_counted(plain: dict, vjps: dict, first_order=True):
+    """plain_versions_counted for a forward and backward together, the
+    pointwise groups' plain version apart: each group's backward runs it
+    once by design (ops/pointwise_kernel.PointwiseGroup), so ``vjps``
+    holds those runs, which a caller holds to its groups (a forward that
+    fell back to the plain version would add to them)."""
+    from dsp_stuff_tpu_torch.compiler import pointwise
+    with plain_versions_counted(plain, first_order=first_order,
+                                groups=False), \
+            calls_counted([(pointwise, "interpret")], vjps):
+        yield
+
+
+def cpu_group_calls(graph, pol="fast", params=None, T=256) -> int:
+    """The pointwise groups one render of ``graph`` runs under ``pol``,
+    counted on the CPU port's render at [1, T] (the planner's groups and
+    the shapers oversampled at R > 1; the plan depends on the graph's
+    structure, the policy and which sliders ``params(cg)`` overrides, not
+    on the shapes): on the card each is one pointwise kernel launch."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import compile as comp
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    counts: dict = {}
+    cg = dst.compile_graph(graph, device="cpu")
+    n_in = len(cg.input_ids)
+    x = torch.zeros((1, n_in, T)) if n_in else None
+    with dst.policy(pol), calls_counted([(comp, "group_call"),
+                                         (pk, "group_call")], counts):
+        cg.render(x, T=T, batch_shape=(1,),
+                  params=params(cg) if params else None)
+    return counts.get("group_call", 0)
 
 
 @contextlib.contextmanager
@@ -855,7 +909,8 @@ def calls_counted(targets, counts: dict):
             setattr(m, n, fn)
 
 
-def plain_versions_counted(counts: dict, first_order: bool = False):
+def plain_versions_counted(counts: dict, first_order: bool = False,
+                           groups: bool = True):
     """Count calls of the kernels' plain versions while the block runs
     (the main path on the card must call none of them): always the chain
     kernels' (segment_fallback, its record form included, segment_adjoint
@@ -864,7 +919,10 @@ def plain_versions_counted(counts: dict, first_order: bool = False):
     (interpret, its record form included, and interpret_adjoint);
     ``first_order`` adds the first-order kernel's (a render calls
     _first_order_blocked for a concrete degenerate biquad, which takes no
-    kernel in either package)."""
+    kernel in either package); ``groups`` the pointwise groups'
+    (pointwise.interpret, which a group's backward runs by design: a
+    backward counts it apart)."""
+    from dsp_stuff_tpu_torch.compiler import pointwise
     from dsp_stuff_tpu_torch.ops import (chain_segment, cycle_segment,
                                          envelope, scan)
     targets = [(chain_segment, "segment_fallback"),
@@ -880,6 +938,8 @@ def plain_versions_counted(counts: dict, first_order: bool = False):
     if first_order:
         targets += [(scan, "_first_order_blocked"),
                     (scan, "_first_order_scan")]
+    if groups:
+        targets.append((pointwise, "interpret"))
     return calls_counted(targets, counts)
 
 
@@ -1342,8 +1402,10 @@ def fit_phase(dev, card) -> dict:
         state = cg.init_state()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        losses, secs, launches, plain = [], [], [], {}
-        with plain_versions_counted(plain, first_order=True):
+        losses, secs, launches, plain, vjps = [], [], [], {}, {}
+        n_fit = cpu_group_calls(bench_graph(), params=lambda c: (
+            c.init_params()))
+        with forward_and_vjps_counted(plain, vjps):
             for _ in range(N_STEPS):
                 reset_launches()
                 t0 = time.time()
@@ -1358,9 +1420,14 @@ def fit_phase(dev, card) -> dict:
               f"{[round(t, 4) for t in secs]} s, launches per step "
               f"{launches[-1]}, plain versions called {plain}")
         check(not plain, f"the training steps called plain versions {plain}")
-        check(all(la == only_launches(first_order=4) for la in launches),
+        check(vjps.get("interpret", 0) == N_STEPS * n_fit,
+              f"the training steps ran the groups' plain version "
+              f"{vjps} times, not {n_fit} vjps a step")
+        check(all(la == only_launches(first_order=4, pointwise=n_fit)
+                  for la in launches),
               f"launches per step {launches}: expected the first-order "
-              f"kernel twice forward and twice backward")
+              f"kernel twice forward and twice backward, and each of the "
+              f"{n_fit} pointwise groups once forward")
         check(all(np.isfinite(losses)) and losses[-1] < losses[0],
               f"training losses {losses} are not finite and falling")
         check(all(bool(torch.isfinite(v).all())
@@ -1385,10 +1452,10 @@ def fit_phase(dev, card) -> dict:
         target = render_target(cg, ext, hidden_params(
             cg, gain=("level", 1.7)))
         torch.cuda.synchronize()
-        plain = {}
+        plain, vjps = {}, {}
         reset_launches()
         t0 = time.time()
-        with plain_versions_counted(plain, first_order=True):
+        with forward_and_vjps_counted(plain, vjps):
             loss, grads = loss_grads(cg, ext, target)
             torch.cuda.synchronize()
         sec = time.time() - t0
@@ -1399,9 +1466,15 @@ def fit_phase(dev, card) -> dict:
               f"gradients { {k: float(v) for k, v in grads.items()} } "
               f"[{card}]")
         check(not plain, f"the envelope fit called plain versions {plain}")
-        check(env_launches == only_launches(envelope=1, first_order=1),
+        n_env = cpu_group_calls(envelope_graph(), params=lambda c: (
+            c.init_params()))
+        check(vjps.get("interpret", 0) == n_env,
+              f"the envelope fit ran the groups' plain version {vjps}")
+        check(env_launches == only_launches(envelope=1, first_order=1,
+                                            pointwise=n_env),
               f"envelope fit launched {env_launches}: expected one chunked "
-              f"envelope launch and one per-sample first-order solve")
+              f"envelope launch, one per-sample first-order solve and "
+              f"{n_env} pointwise groups")
         check(bool(torch.isfinite(loss)) and all(
             bool(torch.isfinite(v)) for v in grads.values()),
             "envelope fit: loss or gradients not finite")
@@ -1593,8 +1666,9 @@ def config3_phase(dev, card) -> dict:
               f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
               f"above the input) [{card}]")
         check(not plain, f"config3 called plain versions {plain}")
-        check(launches == only_launches(),
-              f"config3 launched {launches}: its path runs no kernel")
+        check(launches == only_launches(pointwise=3),
+              f"config3 launched {launches}: its path runs the pointwise "
+              f"kernel for each oversampled shaper and the Output's fan-in")
         check(tuple(y.shape) == (B_C3, 1, T_MAIN) and
               bool(torch.isfinite(y).all()),
               f"config3 output {tuple(y.shape)} not finite or misshapen")
@@ -1633,7 +1707,8 @@ def config3_phase(dev, card) -> dict:
         del x, xs
         torch.cuda.empty_cache()
     launches = parity(g3, x_np[:4, :, :SR], oracle_config3, "config3")
-    check(launches == only_launches(), f"config3 parity launched {launches}")
+    check(launches == only_launches(pointwise=3),
+          f"config3 parity launched {launches}")
     return out
 
 
@@ -1681,8 +1756,9 @@ def config4_phase(dev, card) -> dict:
               f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
               f"above the input) [{card}]")
         check(not plain, f"config4 called plain versions {plain}")
-        check(launches == only_launches(),
-              f"config4 launched {launches}: its path runs no kernel")
+        check(launches == only_launches(pointwise=2),
+              f"config4 launched {launches}: its path runs no kernel but "
+              f"the pointwise kernel of each Output's fan-in")
         check(tuple(y.shape) == (B_C4, 2, T_MAIN) and
               bool(torch.isfinite(y).all()),
               f"config4 output {tuple(y.shape)} not finite or misshapen")
@@ -1708,7 +1784,8 @@ def config4_phase(dev, card) -> dict:
         del x
         torch.cuda.empty_cache()
     launches = parity(g4, x_np[:4, :, :2 * SR], ref, "config4")
-    check(launches == only_launches(), f"config4 parity launched {launches}")
+    check(launches == only_launches(pointwise=2),
+          f"config4 parity launched {launches}")
     return out
 
 
@@ -1776,8 +1853,9 @@ def muff_phase(dev, card) -> None:
           f"{launches}, plain versions called {plain}; {ms:.3f} ms median "
           f"of {N_TIMED} [{card}]")
     check(not plain, f"muff called plain versions {plain}")
-    check(launches == only_launches(first_order=1),
-          f"muff launched {launches}: expected one first-order launch")
+    check(launches == only_launches(first_order=1, pointwise=1),
+          f"muff launched {launches}: expected one first-order launch and "
+          f"one pointwise group (the Output's fan-in)")
     check(bool(torch.isfinite(y).all()), "muff output not finite")
     gpu, cpu = card_vs_cpu(g, x_np[:2, :, :SR])
     d = dbfs(gpu, cpu)
@@ -1906,7 +1984,8 @@ def fuzz_phase(dev, card) -> dict:
             calls, plain = {}, {}
             reset_launches()
             with calls_counted([(chain_segment, "chain_segment"),
-                                (tcompile, "cycle_segment")], calls), \
+                                (tcompile, "cycle_segment"),
+                                (tcompile, "group_call")], calls), \
                     plain_versions_counted(plain):
                 got, _, _ = cg.render(xd, batch_shape=(B_FUZZ,))
                 torch.cuda.synchronize()
@@ -1919,7 +1998,8 @@ def fuzz_phase(dev, card) -> dict:
               f"{launches}; {kinds}")
         check(not plain, f"fuzz {name} called plain versions {plain}")
         check(launches["chain"] == calls.get("chain_segment", 0) and
-              launches["cycle"] == calls.get("cycle_segment", 0),
+              launches["cycle"] == calls.get("cycle_segment", 0) and
+              launches["pointwise"] == calls.get("group_call", 0),
               f"fuzz {name}: launches {launches} vs fused calls {calls}")
         check(launches["envelope"] >= ("envelope" in kinds),
               f"fuzz {name}: an envelope node launched no envelope kernel")
@@ -2073,7 +2153,8 @@ def stream_kernel_checks(dev) -> None:
 
 #: the hand-written kernels by their __global__ names in csrc/ -> the
 #: launch counters' keys
-KERNEL_NAMES = (("sequential_reverse_kernel", "sequential"),
+KERNEL_NAMES = (("pointwise_kernel", "pointwise"),
+                ("sequential_reverse_kernel", "sequential"),
                 ("sequential_kernel", "sequential"),
                 ("cycle_reverse_kernel", "cycle_reverse"),
                 ("chain_reverse_kernel", "chain_reverse"),
@@ -2852,11 +2933,12 @@ def runtime_phase(dev, card) -> dict:
             ("bench chain", bench_graph(), T_MAIN, only_launches(chain=1),
              False, {"chain": chain_bound(bench_stages(), 1, 128)}),
             ("config5", g5, STREAM_C5_SAMPLES,
-             only_launches(chain=1, cycle=1, envelope=1), False,
+             only_launches(chain=1, cycle=1, envelope=1, pointwise=3), False,
              {"chain": chain_bound(stages5, 1, 128),
               "cycle": cycle_bound(program5, 1, 128),
               "envelope": bound(8.0 * 128, 3.0 * 128)}),
-            ("muff", muff_graph(), SR, only_launches(first_order=1), True,
+            ("muff", muff_graph(), SR,
+             only_launches(first_order=1, pointwise=1), True,
              {"first_order": bound(8.0 * 128, 2.0 * 128)})):
         x = (rng.standard_normal(T) * 0.3).astype(np.float32)
         recs[name] = stream_run(name, g, x, dev, card, expect,
@@ -3233,8 +3315,10 @@ def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
                                                       dtype=np.float32)
             * np.float32(0.25))
     n_seq = 3
+    n_groups = cpu_group_calls(g, "exact")
     y, cg, wall, peak, by_mode = exact_render(
-        g, x_np, b_main, only_launches(sequential=n_seq), "bench chain", dev)
+        g, x_np, b_main, only_launches(sequential=n_seq, pointwise=n_groups),
+        "bench chain", dev)
     check(by_mode == {"first_order": 2, "biquad": 1},
           f"bench chain under exact: sequential launches by mode {by_mode}")
     print(f"bench chain under exact, [{b_main}, 1, {t_main}]: render "
@@ -3246,9 +3330,9 @@ def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
         "stream 0, first second vs bench.oracle_chain",
         host(y[0, 0, :head]), oracle_chain(x_np[0, 0, :head]), EXACT_DB)
     rec["bench_cpu_db"] = held(
-        "streams 0-3, first second vs the CPU port's exact render",
-        host(y[:4, :, :head]), cpu_exact(g, x_np[:4, :, :head]),
-        CARD_VS_CPU_DB)
+        f"streams 0-1, first {T_CPU_PORT} samples vs the CPU port's exact "
+        f"render", host(y[:2, :, :T_CPU_PORT]),
+        cpu_exact(g, x_np[:2, :, :T_CPU_PORT]), CARD_VS_CPU_DB)
     del y
     xd = torch.as_tensor(x_np, device=dev)
     with dst.policy("exact"):
@@ -3265,9 +3349,11 @@ def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
     # eager loop and the card's exact render
     rec["stream"] = stream_run(
         "bench chain, exact", g, x_np[0, 0, :SR].copy(), dev, card,
-        only_launches(sequential=n_seq), policy="exact", first_order=True,
+        only_launches(sequential=n_seq, pointwise=n_groups), policy="exact",
+        first_order=True,
         bounds=exact_block_bounds())
-    check(rec["stream"]["kernel_n"] == {k: n for k, (_, n)
+    check({k: n for k, n in rec["stream"]["kernel_n"].items()
+           if k != "pointwise"} == {k: n for k, (_, n)
                                         in EXACT_BLOCK.items()},
           f"exact stream: the graph's sequential instances "
           f"{rec['stream']['kernel_n']}, not {EXACT_BLOCK}")
@@ -3279,39 +3365,42 @@ def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
           * np.float32(0.3))
     cg5 = dst.compile_graph(g5, device="cpu")
     n5 = sequential_launches(cg5, SR)
-    y5, _, wall, _, _ = exact_render(g5, x5, B_EXACT,
-                                  only_launches(envelope=1, sequential=n5),
-                                  "config5", dev)
+    y5, _, wall, _, _ = exact_render(
+        g5, x5, B_EXACT, only_launches(envelope=1, sequential=n5,
+                                       pointwise=3), "config5", dev)
     print(f"config5 under exact, [{B_EXACT}, 1, {SR}]: render {wall:.3f} s, "
           f"1 envelope and {n5} sequential launches (the loop's one-pole "
           f"once a block), no chain or cycle kernel [{card}]")
     y5 = host(y5)
     rec["c5_oracle_db"] = held("stream 0 vs the composed oracle",
                                y5[0, 0], oracle_config5(x5[0, 0]), EXACT_DB)
-    rec["c5_cpu_db"] = held("vs the CPU port's exact render", y5,
-                            cpu_exact(g5, x5), CARD_VS_CPU_DB)
+    rec["c5_cpu_db"] = held(
+        f"first {T_CPU_PORT} samples vs the CPU port's exact render",
+        y5[..., :T_CPU_PORT], cpu_exact(g5, x5[..., :T_CPU_PORT]),
+        CARD_VS_CPU_DB)
 
     # the exact-pool fuzz graphs at B_EXACT x 1 s
     rng = np.random.default_rng(93)
     n_bitwise, worst_or, worst_cpu = 0, -np.inf, -np.inf
     print(f"exact-pool fuzz graphs (_random_graph(seed, exact=True)) under "
           f"exact, [{B_EXACT}, 1, {SR}], vs the oracle (stream 0) and the CPU "
-          f"port:")
+          f"port over the first {T_CPU_PORT} samples:")
     for seed in EXACT_FUZZ_SEEDS:
         gf, inp, outn = gen._random_graph(seed, exact=True)
         xf = (rng.standard_normal((B_EXACT, 1, SR), dtype=np.float32)
               * np.float32(0.25))
         nf = sequential_launches(dst.compile_graph(gf, device="cpu"), SR)
-        yf, cgf, _, _, _ = exact_render(gf, xf, B_EXACT,
-                                        only_launches(sequential=nf),
-                                        f"fuzz seed {seed}", dev,
-                                        finite=False)
-        yf = host(yf)
-        want = oracle_evaluate(gf, {inp: xf[0, 0]}, SR)[outn]
+        yf, cgf, _, _, _ = exact_render(
+            gf, xf, B_EXACT, only_launches(
+                sequential=nf, pointwise=cpu_group_calls(gf, "exact")),
+            f"fuzz seed {seed}", dev, finite=False)
+        yf = host(yf)[..., :T_CPU_PORT]
+        want = oracle_evaluate(gf, {inp: xf[0, 0, :T_CPU_PORT]},
+                               T_CPU_PORT)[outn]
         got = yf[0, cgf.output_ids.index(outn)]
         d_or = finite_dbfs(f"exact fuzz seed {seed} vs oracle", got, want)
         d_cpu = finite_dbfs(f"exact fuzz seed {seed} vs CPU", yf,
-                            cpu_exact(gf, xf))
+                            cpu_exact(gf, xf[..., :T_CPU_PORT]))
         same = bool(np.array_equal(got, want, equal_nan=True))
         n_bitwise += same
         worst_or, worst_cpu = max(worst_or, d_or), max(worst_cpu, d_cpu)
@@ -3383,8 +3472,10 @@ def loss_and_grads(cg, x, target, params=None, wrt_input=True,
     launches and plain calls apart (``first_order``: the first-order
     kernel's plain versions counted too, as plain_versions_counted says),
     the forward's launches of the chain kernel's record build, the
-    forward + backward wall time and the peak device memory (GiB; 0 on
-    the CPU)."""
+    backward's runs of the pointwise groups' plain version (a group's
+    backward is its vjp, by design), the forward + backward wall time and
+    the peak device memory (GiB; 0 on the CPU)."""
+    from dsp_stuff_tpu_torch.compiler import pointwise
     from dsp_stuff_tpu_torch.ops import chain_kernel
     import torch
     from dsp_stuff_tpu_torch.train import fit
@@ -3404,8 +3495,10 @@ def loss_and_grads(cg, x, target, params=None, wrt_input=True,
     fwd = read_launches()
     fwd_record = chain_kernel.RECORD_LAUNCHES
     reset_launches()
-    plain_bwd = {}
-    with plain_versions_counted(plain_bwd, first_order=first_order):
+    plain_bwd, group_vjps = {}, {}
+    with plain_versions_counted(plain_bwd, first_order=first_order,
+                                groups=False), calls_counted(
+            [(pointwise, "interpret")], group_vjps):
         loss.backward()
         if cuda:
             torch.cuda.synchronize()
@@ -3416,7 +3509,8 @@ def loss_and_grads(cg, x, target, params=None, wrt_input=True,
         v.grad for _, e in sorted(params.items()) for _, v in sorted(e.items())]
     return dict(loss=loss.detach(), grads=grads, fwd=fwd, bwd=bwd,
                 fwd_record=fwd_record, plain=plain, plain_bwd=plain_bwd,
-                wall=wall, peak=peak)
+                group_vjps=group_vjps.get("interpret", 0), wall=wall,
+                peak=peak)
 
 
 def slider_params(cg, cfg, name):
@@ -3482,7 +3576,8 @@ def fused_grad_main(name, cg, x, target, expect, subset=None,
           f"{r['peak']:.2f} GiB, forward launches {r['fwd']} "
           f"({r['fwd_record']} of the record build) and no plain "
           f"version, backward launches {r['bwd']}, plain versions in the "
-          f"backward {r['plain_bwd'] or 'none'} [{card}]")
+          f"backward {r['plain_bwd'] or 'none'} (and {r['group_vjps']} "
+          f"pointwise groups' vjps through their plain version) [{card}]")
     return r
 
 
@@ -3694,12 +3789,13 @@ def modulated_filters():
 def exact_bench_grads(graph, xe, te, dev):
     """The bench chain's loss gradients under exact (all 16 sliders and
     the input) on the CPU and the card; the card's sequential launches by
-    wrapper, its launches and the plain loops it called."""
+    wrapper, its launches, the plain loops it called and its groups'
+    vjps."""
     import torch
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.ops import sequential_kernel
     from dsp_stuff_tpu_torch.train import fit
-    got, modes, plain = {}, {}, {}
+    got, modes, plain, vjps = {}, {}, {}, {}
     wrappers = [(sequential_kernel, n) for n in (
         "first_order_sequential_cuda", "biquad_sequential_cuda",
         "first_order_reverse_cuda", "biquad_reverse_cuda")]
@@ -3711,14 +3807,15 @@ def exact_bench_grads(graph, xe, te, dev):
             reset_launches()
             with contextlib.ExitStack() as stack:
                 if key == "card":
-                    stack.enter_context(plain_versions_counted(plain, True))
+                    stack.enter_context(forward_and_vjps_counted(plain,
+                                                                 vjps))
                     stack.enter_context(calls_counted(wrappers, modes))
                 loss = fit.make_loss_fn(cg)(p, cg.init_state(),
                                             {str(cg.input_ids[0]): x},
                                             torch.as_tensor(te, device=d))
                 loss.backward()
             got[key] = (loss.detach(), x.grad, p)
-    return got, modes, read_launches(), plain
+    return got, modes, read_launches(), plain, vjps.get("interpret", 0)
 
 
 def sharded_step_check(name, cg, m, x_np, tgt_np) -> None:
@@ -3803,8 +3900,9 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
     g2, _ = presets.config2_delay_chorus()
     with dst.policy("fast"):
         # -- the bench chain through the chain kernel -----------------------
-        print("gradients through the fused kernels, card vs CPU port (fast):")
-        x2, t2 = sig(2, SR), sig(2, 1, SR, scale=0.1)
+        print(f"gradients through the fused kernels, card vs CPU port (fast), "
+              f"[2, {T_CPU_PORT}]:")
+        x2, t2 = sig(2, T_CPU_PORT), sig(2, 1, T_CPU_PORT, scale=0.1)
         grad_pair("bench chain, input", g_bench, x2, t2, dev)
         grad_pair("bench chain, gain level alone", g_bench, x2, t2, dev,
                   subset=("gain", "level"), wrt_input=False)
@@ -3820,7 +3918,7 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
             card)
         rec["bench_level"] = fused_grad_main(
             "bench chain, gain level alone, the rest fused", cg, x, tgt,
-            only_launches(chain=1), subset=("gain", "level"),
+            only_launches(chain=1, pointwise=1), subset=("gain", "level"),
             wrt_input=False, card=card,
             expect_bwd={"chain_reverse": 1, "chain": 0}, expect_record=1)
         del x, tgt, cg
@@ -3835,10 +3933,10 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
         # package (plain_versions_counted)
         rec["c5_input"] = fused_grad_main(
             "config5, input gradient", cg5, x, tgt,
-            only_launches(chain=1, cycle=1, envelope=1), card=card,
-            first_order=False,
+            only_launches(chain=1, cycle=1, envelope=1, pointwise=3),
+            card=card, first_order=False,
             expect_bwd={"chain_reverse": 1, "chain": 0, "cycle_reverse": 1,
-                        "cycle": 0}, expect_record=0)
+                        "cycle": 0, "pointwise": 0}, expect_record=0)
         rec["c5_split"] = grad_split(
             f"config5 input gradient, [{b_grad}, {t_main}]", cg5, x, tgt,
             card)
@@ -3856,10 +3954,10 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
               f"[{time.time() - t_phase:.0f} s]:")
         rngf = np.random.default_rng(121)
         grads_card_vs_cpu("config2 (chorus) fit", g2,
-                          (rngf.standard_normal((2, SR)) * 0.3)
+                          (rngf.standard_normal((2, T_CPU_PORT)) * 0.3)
                           .astype(np.float32), {"gain": ("level", 0.6)})
         grads_card_vs_cpu("config5 (feedback cycle) fit", g5,
-                          (rngf.standard_normal((2, SR)) * 0.3)
+                          (rngf.standard_normal((2, T_CPU_PORT)) * 0.3)
                           .astype(np.float32), {"gain": ("level", 1.0)})
         cg2 = dst.compile_graph(g2, device=dev)
         ext = {str(cg2.input_ids[0]): torch.as_tensor(sig(b_grad, t_main),
@@ -3951,21 +4049,24 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
         del ins, y, ybar, k, p
 
     # -- gradients under exact ------------------------------------------------
-    print(f"gradients under exact, card vs CPU port, [{B_EXACT}, {SR}] "
+    print(f"gradients under exact, card vs CPU port, [2, {T_CPU_PORT}] "
           f"[{time.time() - t_phase:.0f} s]:")
     xe = np.random.default_rng(123).standard_normal(
-        (B_EXACT, SR), dtype=np.float32) * np.float32(0.25)
+        (2, T_CPU_PORT), dtype=np.float32) * np.float32(0.25)
     te = np.random.default_rng(124).standard_normal(
-        (B_EXACT, 1, SR), dtype=np.float32) * np.float32(0.1)
-    got, by_mode, launches, plain = exact_bench_grads(g_bench, xe, te, dev)
+        (2, 1, T_CPU_PORT), dtype=np.float32) * np.float32(0.1)
+    got, by_mode, launches, plain, vjps = exact_bench_grads(g_bench, xe, te,
+                                                            dev)
     check(not plain, f"exact bench gradient called plain loops {plain}")
     check(by_mode == {"first_order_sequential_cuda": 2,
                       "biquad_sequential_cuda": 1,
                       "first_order_reverse_cuda": 2,
                       "biquad_reverse_cuda": 1},
           f"exact bench gradient: sequential launches by wrapper {by_mode}")
-    check(launches == only_launches(sequential=6),
-          f"exact bench gradient launched {launches}")
+    n_groups = cpu_group_calls(g_bench, "exact", lambda c: c.init_params())
+    check(launches == only_launches(sequential=6, pointwise=n_groups)
+          and vjps == n_groups,
+          f"exact bench gradient launched {launches}, {vjps} group vjps")
     worst = max(grad_close("exact bench: loss", got["card"][0],
                            got["cpu"][0]),
                 grad_close("exact bench: input", got["card"][1],
@@ -3987,9 +4088,9 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
     # move sample by sample, through compile_graph
     g_mod, mod_ids = modulated_filters()
     rng_m = np.random.default_rng(125)
-    ratios = [rng_m.uniform(lo, hi, (B_EXACT, SR)).astype(np.float32)
+    ratios = [rng_m.uniform(lo, hi, xe.shape).astype(np.float32)
               for lo, hi in ((0.5, 0.99), (0.05, 0.6))]
-    wt = rng_m.standard_normal((B_EXACT, 1, SR), dtype=np.float32)
+    wt = rng_m.standard_normal((len(xe), 1, xe.shape[-1]), dtype=np.float32)
     pg = {}
     with dst.policy("exact"):
         for key, d in (("cpu", "cpu"), ("card", dev)):
@@ -3998,25 +4099,28 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
                        .requires_grad_(True)}
                  for nid, r in zip(mod_ids, ratios)}
             x = torch.as_tensor(xe, device=d).requires_grad_(True)
-            modes, plain = {}, {}
+            modes, plain, vjps = {}, {}, {}
             reset_launches()
             with contextlib.ExitStack() as stack:
                 if key == "card":
-                    stack.enter_context(plain_versions_counted(plain, True))
+                    stack.enter_context(forward_and_vjps_counted(plain,
+                                                                 vjps))
                     stack.enter_context(calls_counted(
                         [(sequential_kernel, n) for n in (
                             "first_order_sequential_cuda",
                             "first_order_reverse_cuda")], modes))
-                y = cg.render(x[:, None], batch_shape=(B_EXACT,),
+                y = cg.render(x[:, None], batch_shape=(len(xe),),
                               params=p)[0]
                 (y * torch.as_tensor(wt, device=d)).sum().backward()
             pg[key] = (y.detach(), [p[n]["ratio"].grad for n in mod_ids],
-                       x.grad, modes, read_launches(), plain)
+                       x.grad, modes, read_launches(), plain,
+                       vjps.get("interpret", 0))
     check(not pg["card"][5], f"modulated filters under exact: plain loops "
                              f"{pg['card'][5]}")
     check(pg["card"][3] == {"first_order_sequential_cuda": 2,
                             "first_order_reverse_cuda": 2}
-          and pg["card"][4] == only_launches(sequential=4),
+          and pg["card"][4] == only_launches(sequential=4, pointwise=1)
+          and pg["card"][6] == 1,
           f"modulated filters under exact: launches {pg['card'][3]} "
           f"{pg['card'][4]}")
     check(bool(torch.equal(pg["card"][0].cpu(), pg["cpu"][0])),
@@ -4027,7 +4131,7 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
                                                 pg["cpu"][1]))]
                 + [grad_close("modulated filters, exact: input",
                               pg["card"][2], pg["cpu"][2])])
-    print(f"  low_pass -> high_pass with per-sample ratios [{B_EXACT}, {SR}] "
+    print(f"  low_pass -> high_pass with per-sample ratios {list(xe.shape)} "
           f"under exact: the render bitwise the CPU's, gradients of both "
           f"ratio curves and the input worst {worst:.2e}; sequential "
           f"launches {pg['card'][3]} (all per-sample), no plain loop")
@@ -5034,6 +5138,641 @@ def cycle_loop_grad_phase(dev, card) -> dict:
     return out
 
 
+# -- the pointwise groups (compiler/pointwise.py, csrc/pointwise_kernel.cu) --
+
+PW_FAST_DB = -100.0       # a group's kernel vs its plain version, fast
+PW_SHAPES = ((4, 4096), (3, 1030), (1, 1027))  # float4, scalar, float4 + tail
+PW_SPECIALS = (float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1e-40,
+               -1e-40, 1e30, -1e30, 1.0, -1.0, 20.0, -20.0)
+B_PW_WIDE = 512           # config5's second width (x 10 s)
+PW_GRAPH_ROUTES = ("kernel", "plain", "eager")
+
+
+def pointwise_forms():
+    """{name: (signals, sliders, lower, eager)} of every fusable form:
+    ``signals`` the count of its signal operands (the second an unbatched
+    [T] one, as an LFO), ``sliders`` its scalar operands' values,
+    ``lower(b, xs, ps, pol)`` its lowering (compiler/pointwise.py) and
+    ``eager(xs, ps)`` the eager code it mirrors (the node's process_seq,
+    compile._avg, compile._map_mod)."""
+    from dsp_stuff_tpu_torch.compiler import compile as comp
+    from dsp_stuff_tpu_torch.compiler import pointwise as pw
+    from dsp_stuff_tpu_torch.nodes.shapers import (Chebyshev, Distort,
+                                                   Overdrive)
+    from dsp_stuff_tpu_torch.nodes.simple import Add, Gain, Mix
+    from dsp_stuff_tpu_torch.ops.shaping import BYPASS_EPS
+    from dsp_stuff_tpu_torch.registry import ParamSpec
+
+    def node(cls, ports, **select):
+        def run(xs, ps):
+            return cls.process_seq({**ps, **select}, None,
+                                   dict(zip(ports, xs)))[0]["out"]
+        return run
+
+    drive = ParamSpec("drive", 0.0, 1.0, 0.0, as_input=True)
+    forms = {
+        "avg of 3": (3, {"divisor": float(comp._fanin_divisor(3))},
+                     lambda b, xs, ps, pol: pw.avg(b, xs, ps["divisor"]),
+                     lambda xs, ps: comp._avg(xs, xs[0].shape[-1])[0]),
+        "map_mod": (1, {}, lambda b, xs, ps, pol: pw.map_mod(b, xs[0], 0.0,
+                                                             1.0),
+                    lambda xs, ps: comp._map_mod(xs[0], drive)),
+        "gain": (1, {"level": 1.2}, lambda b, xs, ps, pol: pw.gain(
+            b, xs[0], ps["level"]), node(Gain, ("in",))),
+        "add": (2, {}, lambda b, xs, ps, pol: pw.add(b, *xs),
+                node(Add, ("a", "b"))),
+        "mix": (2, {"ratio": 0.6}, lambda b, xs, ps, pol: pw.mix(
+            b, *xs, ps["ratio"]), node(Mix, ("a", "b"))),
+        "overdrive": (1, {"boost": 6.0, "drive": 0.7, "level": 0.8},
+                      lambda b, xs, ps, pol: pw.overdrive(
+                          b, xs[0], ps["boost"], ps["drive"], ps["level"],
+                          pol), node(Overdrive, ("in",), oversample="1")),
+        "overdrive, drive modulated": (
+            2, {"boost": 6.0, "level": 0.8},
+            lambda b, xs, ps, pol: pw.overdrive(
+                b, xs[0], ps["boost"], pw.map_mod(b, xs[1], 0.0, 1.0),
+                ps["level"], pol),
+            lambda xs, ps: Overdrive.process_seq(
+                {**ps, "drive": comp._map_mod(xs[1], drive),
+                 "oversample": "1"}, None, {"in": xs[0]})[0]["out"]),
+        "chebyshev": (1, {"level_pos": 2.0, "level_neg": 4.0},
+                      lambda b, xs, ps, pol: pw.chebyshev_asym(
+                          b, xs[0], ps["level_pos"], ps["level_neg"], pol),
+                      node(Chebyshev, ("in",))),
+        "chebyshev, one side bypassed": (
+            1, {"level_pos": BYPASS_EPS, "level_neg": 0.0},
+            lambda b, xs, ps, pol: pw.chebyshev_asym(
+                b, xs[0], ps["level_pos"], ps["level_neg"], pol),
+            node(Chebyshev, ("in",))),
+    }
+    for mode, lower in pw.DISTORT_FORMS.items():
+        forms[f"distort {mode}"] = (
+            1, {"level": 4.0},
+            lambda b, xs, ps, pol, lower=lower: lower(b, xs[0], ps["level"],
+                                                      pol),
+            node(Distort, ("in",), mode=mode, oversample="1"))
+    forms["distort SoftClip, bypassed"] = (
+        1, {"level": float(np.nextafter(np.float32(BYPASS_EPS),
+                                        np.float32(0)))},
+        forms["distort SoftClip"][2], forms["distort SoftClip"][3])
+    return forms
+
+
+def pointwise_program(form, pol):
+    """(program, slider names) of a form of pointwise_forms()."""
+    from dsp_stuff_tpu_torch.compiler import pointwise as pw
+    n_x, sliders, lower, _ = form
+    b = pw.Builder()
+    xs = [b.sig() for _ in range(n_x)]
+    ps = {k: b.scal() for k in sliders}
+    return b.program([lower(b, xs, ps, pol)]), list(sliders)
+
+
+def pointwise_inputs(n_x, shape, dev, seed):
+    """n_x signal operands: the first [B, T] N(0, 0.7) with every one of
+    PW_SPECIALS planted (NaN, +-inf, +-0, subnormals, the clip points), the
+    others an unbatched [T] sine with a NaN."""
+    import torch
+    rng = np.random.default_rng(seed)
+    B, T = shape
+    x = (rng.standard_normal((B, T)) * 0.7).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[rng.choice(flat.size, len(PW_SPECIALS), replace=False)] = \
+        PW_SPECIALS
+    out = [torch.as_tensor(x, device=dev)]
+    for i in range(1, n_x):
+        s = np.sin(np.arange(T) * (0.01 * i) + i).astype(np.float32)
+        s[rng.integers(T)] = np.nan
+        out.append(torch.as_tensor(s, device=dev))
+    return out
+
+
+def bits_same(got, want) -> bool:
+    """Bit for bit on every sample but NaN, NaN at the same samples."""
+    import torch
+    if got.shape != want.shape:
+        return False
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+
+
+def nonfinite_dbfs(what, got, want) -> float:
+    """dBFS over the samples where ``want`` is finite, after checking that
+    the others hold the same non-finite values."""
+    import torch
+    bad = ~torch.isfinite(want)
+    check(torch.equal(~torch.isfinite(got), bad)
+          and torch.equal(torch.nan_to_num(got[bad]),
+                          torch.nan_to_num(want[bad])),
+          f"{what}: the non-finite samples differ")
+    if torch.equal(got[~bad], want[~bad]):
+        return float("-inf")          # also where both are silent
+    return dbfs_dev(got[~bad], want[~bad])
+
+
+def pointwise_held(what, got, want, pol) -> float:
+    """A group's kernel against its plain version (or the eager ops):
+    bitwise under parity and exact, <= PW_FAST_DB under fast (printed
+    with whether it is bitwise).  Returns the max abs difference on the
+    finite samples."""
+    same = bits_same(got, want)
+    if pol != "fast":
+        check(same, f"{what}: not bitwise under {pol}")
+    d = nonfinite_dbfs(what, got, want)
+    check(d <= PW_FAST_DB, f"{what}: {d:.1f} dBFS > {PW_FAST_DB}")
+    fin = got.isfinite() & want.isfinite()
+    return float((got[fin].double() - want[fin].double()).abs().max()) \
+        if bool(fin.any()) else 0.0
+
+
+def pointwise_form_checks(dev) -> dict:
+    """Each form of pointwise_forms() under fast, parity and exact, at
+    PW_SHAPES with the specials planted: the kernel (group_call) against
+    its plain version (pointwise.interpret) and against the eager code, on
+    the card, and the card's kernel against the CPU's plain version.
+    Returns {policy: (forms bitwise vs plain, forms, worst fast dBFS)}."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import pointwise as pw
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.utils.precision import scalar_on
+    out = {}
+    for pol in ("fast", "parity", "exact"):
+        n_bit, n, worst = 0, 0, -np.inf
+        with dst.policy(pol):
+            for i, (name, form) in enumerate(pointwise_forms().items()):
+                prog, names = pointwise_program(form, pol)
+                bit = True
+                for j, shape in enumerate(PW_SHAPES):
+                    xs = pointwise_inputs(form[0], shape, dev, 1000 * i + j)
+                    scals = [scalar_on(float(form[1][k]), dev) for k in names]
+                    k = pk.group_call(prog, xs, scals, shape[1], dev)[0]
+                    p = pw.interpret(prog, xs, scals, shape[1], dev)[0]
+                    e = form[3](xs, dict(form[1]))
+                    c = pw.interpret(prog, [x.cpu() for x in xs],
+                                     [s.cpu() for s in scals], shape[1],
+                                     torch.device("cpu"))[0]
+                    torch.cuda.synchronize()
+                    what = f"{name} {pol} {list(shape)}"
+                    pointwise_held(what + " vs plain", k, p, pol)
+                    pointwise_held(what + " vs eager", k, e, pol)
+                    same = bits_same(k, p)
+                    bit &= same
+                    if pol == "fast" and not same:
+                        worst = max(worst, nonfinite_dbfs(what, k, p))
+                    d = nonfinite_dbfs(what + " vs CPU", k.cpu(), c)
+                    check(d <= CARD_VS_CPU_DB,
+                          f"{what}: vs the CPU port {d:.1f} dBFS")
+                n += 1
+                n_bit += bit
+        print(f"  {pol}: {n_bit} of {n} forms bitwise against the plain "
+              f"version at {[list(s) for s in PW_SHAPES]} (specials "
+              f"planted); worst fast form {worst:.1f} dBFS")
+        out[pol] = (n_bit, n, worst)
+    return out
+
+
+@contextlib.contextmanager
+def pointwise_route(route: str):
+    """Render through ``route``: "kernel" (the groups' kernels, as
+    shipped), "plain" (each group's plain version, pointwise.interpret, on
+    the card) or "eager" (no groups: every node's eager ops, the
+    oversampled shapers too), the parent's route."""
+    from dsp_stuff_tpu_torch.compiler import compile as comp
+    from dsp_stuff_tpu_torch.compiler import pointwise as pw
+    from dsp_stuff_tpu_torch.ops import oversample
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    saved = [(comp, "group_call", comp.group_call),
+             (pk, "group_call", pk.group_call),
+             (comp, "POINTWISE_FUSION", comp.POINTWISE_FUSION),
+             (oversample, "shaper_call", oversample.shaper_call)]
+    if route == "plain":
+        comp.group_call = pk.group_call = pw.interpret
+    elif route == "eager":
+        comp.POINTWISE_FUSION = False
+        oversample.shaper_call = lambda fn, x, *a: fn(x, *a)
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def route_renders(cg, x, batch, routes=PW_GRAPH_ROUTES) -> dict:
+    """{route: (outputs, aux, state, launches)} of one render of x."""
+    import torch
+    out = {}
+    for route in routes:
+        with pointwise_route(route):
+            reset_launches()
+            y, aux, st = cg.render(x, batch_shape=batch)
+            torch.cuda.synchronize()
+            out[route] = (y, aux, st, read_launches())
+    return out
+
+
+def route_leaves(res):
+    """The tensors of a render's (outputs, aux, state), flattened."""
+    import torch
+    leaves = []
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            leaves.append(v)
+        elif isinstance(v, dict):
+            for k in sorted(v, key=str):
+                walk(v[k])
+        elif isinstance(v, (tuple, list)):
+            for w in v:
+                walk(w)
+    walk(res[:3])
+    return leaves
+
+
+def routes_held(what, res, pol) -> bool:
+    """The kernel route's render (outputs, aux, state) against the plain
+    and the eager route's: bitwise under parity and exact, <= PW_FAST_DB
+    under fast; returns whether every leaf is bitwise."""
+    bit = True
+    k = route_leaves(res["kernel"])
+    for route in ("plain", "eager"):
+        if route not in res:
+            continue
+        other = route_leaves(res[route])
+        check(len(k) == len(other), f"{what}: the {route} route's render "
+              f"has another structure")
+        for i, (a, b) in enumerate(zip(k, other)):
+            if a.dtype.is_floating_point:
+                pointwise_held(f"{what} leaf {i} vs {route}", a.float(),
+                               b.float(), pol)
+                bit &= bits_same(a.float(), b.float())
+            else:
+                check(bool((a == b).all()), f"{what} leaf {i} vs {route}")
+    return bit
+
+
+def pointwise_graphs():
+    """(name, graph) of the graphs the pointwise phase renders at
+    B_EXACT x 1 s under parity and exact: config5, the fuzz graphs whose
+    plans hold a group, and the exact pool's seed 36 (a group of five)."""
+    import test_torch_fuzz_gen as gen
+    from dsp_stuff_tpu_torch.models import presets
+    out = [("config5", presets.config5_feedback_16node()[0]),
+           ("config3", presets.config3_oversampled_distortion()[0])]
+    out += [(name, g) for name, g, _ in fuzz_graphs()]
+    out.append(("_random_graph(36, exact)",
+                gen._random_graph(36, exact=True)[0]))
+    return out
+
+
+def pointwise_small_renders(dev) -> dict:
+    """pointwise_graphs() at B_EXACT x 1 s under fast, parity and exact:
+    the kernel route against the plain and the eager routes.  Returns
+    {policy: (renders bitwise, renders, group launches)}."""
+    import dsp_stuff_tpu_torch as dst
+    out = {}
+    for pol in ("fast", "parity", "exact"):
+        n_bit, n, launches = 0, 0, 0
+        for i, (name, g) in enumerate(pointwise_graphs()):
+            x = (np.random.default_rng(300 + i).standard_normal(
+                (B_EXACT, 1, SR)) * 0.3).astype(np.float32)
+            with dst.policy(pol):
+                cg = dst.compile_graph(g, device="cuda")
+                res = route_renders(cg, x, (B_EXACT,))
+            n_bit += routes_held(f"{name} {pol}", res, pol)
+            n += 1
+            launches += res["kernel"][3]["pointwise"]
+            check(res["eager"][3]["pointwise"] == 0,
+                  f"{name}: the eager route launched the pointwise kernel")
+        print(f"  {pol}: {n_bit} of {n} renders bitwise (output, aux, "
+              f"state) against the plain and the eager routes, "
+              f"{launches} group launches")
+        out[pol] = (n_bit, n, launches)
+    return out
+
+
+def smoke_graphs():
+    """(name, graph) of every graph the smoke renders in-process, for the
+    collection of their group programs (pointwise_sources)."""
+    import test_torch_fuzz_gen as gen
+    from dsp_stuff_tpu_torch.models import presets
+    out = [("bench", bench_graph()), ("muff", muff_graph()),
+           ("mux/demux", mux_demux_graph()), ("envelope", envelope_graph()),
+           ("loop", loop_graph())]
+    out += [(name, presets.PRESETS[name]()[0])
+            for name in ("config2", "config4", "config5")]
+    out += [(name, g) for name, g in pointwise_graphs() if name != "config5"]
+    out += [(f"_random_graph({s}, exact)", gen._random_graph(s, exact=True)[0])
+            for s in EXACT_FUZZ_SEEDS]
+    return out
+
+
+def pointwise_sources() -> list:
+    """The generated source of every group program the smoke launches, so
+    that one nvcc each builds them all together: each form's under the
+    three policies, and each group of smoke_graphs() under the three
+    policies, collected from the CPU port's renders at [1, 256] (a
+    program depends on the graph's structure and the policy, not on the
+    shapes or the sliders' values)."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import compile as comp
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    programs = set()
+    for pol in ("fast", "parity", "exact"):
+        for form in pointwise_forms().values():
+            programs.add(pointwise_program(form, pol)[0])
+    plain = pk.group_call
+
+    def spy(prog, *args):
+        programs.add(prog)
+        return plain(prog, *args)
+    x = torch.zeros((1, 1, 256))
+    with contextlib.ExitStack() as stack:
+        for m in (comp, pk):
+            stack.enter_context(swapped_attr(m, "group_call", spy))
+        for _, g in smoke_graphs():
+            cg = dst.compile_graph(g, device="cpu")
+            n_in = len(cg.input_ids)
+            for pol in ("fast", "parity", "exact"):
+                with dst.policy(pol):
+                    cg.render(x.expand(1, n_in, 256) if n_in else None,
+                              T=256, batch_shape=(1,))
+    return sorted({pk.source(p) for p in programs})
+
+
+@contextlib.contextmanager
+def swapped_attr(obj, name, value):
+    """``obj.name`` set to ``value`` inside the block."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+FP64_TFLOPS = 34.0        # H100 SXM FP64 on the CUDA cores (data sheet)
+N_GROUP_CALLS = 10        # group calls timed back to back
+N_PW_BLOCKS = 375         # config5 process() blocks timed a route (1 s)
+
+
+def group_bytes(sigs, outs) -> float:
+    """The bytes one launch of a group must move: each signal operand
+    read once, each output written once."""
+    return 4.0 * (sum(s.numel() for s in sigs) + sum(y.numel() for y in outs))
+
+
+def group_bound(prog, sigs, outs):
+    """(bound ms, by) of one launch of the group ``prog``: group_bytes over
+    HBM against its per-sample operations (an f64 one at the FP64 rate; a
+    transcendental counted as one, which understates it) over the
+    outputs' samples."""
+    uniform: list = []
+    f32 = f64 = 0
+    for op, dt, args, _ in prog.ops:
+        u = op in ("scal", "const") or (bool(args)
+                                        and all(uniform[a] for a in args))
+        uniform.append(u)
+        if not u and op not in ("sig", "zero"):
+            if dt == "f64" or op == "f32":
+                f64 += 1
+            else:
+                f32 += 1
+    n = max(y.numel() for y in outs)
+    return bound(group_bytes(sigs, outs),
+                 n * (f32 + f64 * FP32_TFLOPS / FP64_TFLOPS))
+
+
+def groups_of_render(cg, x, batch) -> list:
+    """The (program, signals, scalars, T) of each pointwise group one
+    render of x runs, in order, the oversampled shapers' passes too (the
+    render runs through the kernels)."""
+    import torch
+    from dsp_stuff_tpu_torch.compiler import compile as comp
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    got = []
+    call = pk.group_call
+
+    def spy(prog, sigs, scals, T, device):
+        got.append((prog, list(sigs), list(scals), T))
+        return call(prog, sigs, scals, T, device)
+    with swapped_attr(comp, "group_call", spy), \
+            swapped_attr(pk, "group_call", spy):
+        cg.render(x, batch_shape=batch)
+        torch.cuda.synchronize()
+    return got
+
+
+def group_times(what, groups, dev, card) -> list:
+    """Each group's kernel against its plain version (pointwise.interpret:
+    the eager ops it replaces, one op at a time) on the same operands:
+    CUDA events over N_GROUP_CALLS calls back to back (so the host's time
+    a call, the wrapper's layout and ctypes, drops out where the card's is
+    longer), in turns, and the kernel's own device time by torch.profiler;
+    with its bound and ``y.copy_`` of the same bytes.  Returns [(kernel
+    ms, plain ms, bound, copy ms, max abs err, device ms)]."""
+    import torch
+    from dsp_stuff_tpu_torch.compiler import pointwise as pw
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    out = []
+    for prog, sigs, scals, T in groups:
+        k = pk.group_call(prog, sigs, scals, T, dev)
+        p = pw.interpret(prog, sigs, scals, T, dev)
+        torch.cuda.synchronize()
+        err = max(pointwise_held(f"{what} group vs plain", a, b, "fast")
+                  for a, b in zip(k, p))
+        bit = all(bits_same(a, b) for a, b in zip(k, p))
+        bnd = group_bound(prog, sigs, k)
+        src = torch.empty(int(group_bytes(sigs, k) // 8), device=dev)
+        dst_ = torch.empty_like(src)
+        def fk():
+            return pk.group_call(prog, sigs, scals, T, dev)
+
+        def fp():
+            return pw.interpret(prog, sigs, scals, T, dev)
+        km = [cuda_ms(fk, inner=N_GROUP_CALLS)]
+        pm = [cuda_ms(fp, inner=N_GROUP_CALLS) for _ in range(2)]
+        km.append(cuda_ms(fk, inner=N_GROUP_CALLS))
+        km, pm = float(np.median(km)), float(np.median(pm))
+        dm = kernel_device_ms(fk, "pointwise_kernel")[0]
+        cm = cuda_ms(lambda: dst_.copy_(src), inner=N_GROUP_CALLS)
+        shape = "x".join(str(d) for d in max((y.shape for y in k),
+                                             key=len))
+        print(f"  {what}: a group of {len(prog.ops)} ops, {prog.n_sig} "
+              f"signals in, {len(prog.outs)} out, [{shape}]: kernel "
+              f"{km:.3f} ms (device {dm if dm is None else round(dm, 3)}), "
+              f"plain {pm:.3f} ms ({pm / km:.1f}x), bound "
+              f"{bnd[0]:.3f} ms by {bnd[1]} ({bnd[0] / km:.1%} of it), "
+              f"y.copy_ of the same bytes {cm:.3f} ms; bitwise {bit} "
+              f"[{card}]")
+        out.append((km, pm, bnd, cm, err, dm))
+        del k, p, src, dst_
+    return out
+
+
+def route_times(cg, x, batch):
+    """(kernel route ms, eager route ms) of one render, in turns."""
+    def timed(route):
+        def fn():
+            with pointwise_route(route):
+                cg.render(x, batch_shape=batch)
+        return fn
+    return in_turns(timed("kernel"), timed("eager"))
+
+
+def stream_routes(dev, card) -> dict:
+    """config5 streamed in 128-sample process() blocks on each route
+    (the eager route is the parent's step): the captured graph's nodes
+    from its DOT dump and the process() wall a block over N_PW_BLOCKS
+    blocks (median, p99), the routes in turns; the kernel route's replay
+    bitwise the eager route's."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.models import presets
+    g5 = presets.config5_feedback_16node()[0]
+    x = (np.random.default_rng(140).standard_normal(N_PW_BLOCKS * 128)
+         * 0.3).astype(np.float32)
+    out = {}
+    with dst.policy("fast"):
+        for rnd in range(2):
+            for route in (("kernel", "eager") if rnd == 0
+                          else ("eager", "kernel")):
+                with pointwise_route(route):
+                    sess = dst.StreamSession(g5, device="cuda")
+                    key = str(sess.cg.input_ids[0])
+                    ys, times = [], []
+                    for j in range(N_PW_BLOCKS):
+                        t0 = time.perf_counter()
+                        ys.append(sess.process({key: x[j * 128:
+                                                     (j + 1) * 128]})[0])
+                        times.append(time.perf_counter() - t0)
+                    gn = graph_nodes(sess, f"config5 {route} route")
+                r = out.setdefault(route, {"times": [], "y": None})
+                r["times"] += times[1:]
+                r["y"] = np.concatenate(ys)
+                r["nodes"] = gn
+    check(np.array_equal(out["kernel"]["y"], out["eager"]["y"]),
+          "config5 stream: the kernel route's blocks are not bitwise the "
+          "eager route's")
+    for route, r in out.items():
+        ms = np.asarray(r["times"]) * 1e3
+        r.update(median=float(np.median(ms)),
+                 p99=float(np.percentile(ms, 99)),
+                 kernels=r["nodes"]["kinds"].get("KERNEL", 0))
+        print(f"  config5 stream, {route} route: a replayed block holds "
+              f"{r['kernels']} kernels ({r['nodes']['kinds']}; the port's "
+              f"{expect_str(r['nodes']['ours'])}); process() median "
+              f"{r['median']:.3f} ms, p99 {r['p99']:.3f} ms over "
+              f"{2 * (N_PW_BLOCKS - 1)} blocks in two turns [{card}]")
+    check(out["kernel"]["nodes"]["ours"].get("pointwise") == 3,
+          "config5 stream: the captured block holds "
+          f"{out['kernel']['nodes']['ours']}, not three pointwise groups")
+    torch.cuda.synchronize()
+    return out
+
+
+def pointwise_grad(dev, card) -> float:
+    """config5's input gradient at 2 x T_CPU_PORT through the groups'
+    Function on the card (its forward the kernel, its backward the plain
+    version's vjp) against the CPU port, rtol GRAD_RTOL; returns the
+    relative error."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import pointwise as pw
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    g5 = presets.config5_feedback_16node()[0]
+    rng = np.random.default_rng(141)
+    x = (rng.standard_normal((2, T_CPU_PORT)) * 0.3).astype(np.float32)
+    tgt = (rng.standard_normal((2, 1, T_CPU_PORT)) * 0.1).astype(np.float32)
+    got = {}
+    with dst.policy("fast"):
+        for d in ("cpu", dev):
+            cg = dst.compile_graph(g5, device=d)
+            calls = {}
+            with calls_counted([(pk, "_kernel_group"), (pw, "interpret")],
+                               calls):
+                r = loss_and_grads(cg, torch.as_tensor(x, device=d),
+                                   torch.as_tensor(tgt, device=d), None,
+                                   True, False)
+            got[str(d)] = (r, calls)
+    card_r, calls = got[str(dev)]
+    check(calls.get("_kernel_group") == 3 and card_r["group_vjps"] == 3
+          and card_r["fwd"]["pointwise"] == 3,
+          f"config5 gradient: the groups' Function ran {calls}, "
+          f"{card_r['group_vjps']} vjps")
+    err = grad_close("config5 input gradient through the groups' Function",
+                     card_r["grads"][0], got["cpu"][0]["grads"][0])
+    print(f"  config5 input gradient, [2, {T_CPU_PORT}], through the groups' "
+          f"Function (forward 3 kernel launches, backward 3 plain vjps): "
+          f"card vs CPU port {err:.2e} (rtol {GRAD_RTOL}) [{card}]")
+    return err
+
+
+def pointwise_phase(dev, card) -> dict:
+    """The pointwise groups on the card: every form against its plain
+    version and the eager code (pointwise_form_checks); config5, config3
+    and the fuzz graphs at B_EXACT x 1 s under fast, parity and exact, the
+    kernel route against the plain and the eager routes
+    (pointwise_small_renders); config5 at B_C5 and B_PW_WIDE x 10 s and
+    config3 at B_C3 x 10 s under fast: the routes' renders held, launches,
+    each group's kernel against its plain version, bound and y.copy_, the
+    render on both routes in turns; config5 streamed on both routes
+    (stream_routes); config5's input gradient through the groups'
+    Function (pointwise_grad).  Returns the kernels line's figures."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.models import presets
+    t_phase = time.time()
+    rec = {}
+    print("pointwise groups, each form vs its plain version and the eager "
+          "code, the card's kernel vs the CPU's plain version:")
+    rec["forms"] = pointwise_form_checks(dev)
+    print(f"pointwise groups, renders at [{B_EXACT}, 1, {SR}], the kernel "
+          f"route vs the plain and the eager routes:")
+    rec["small"] = pointwise_small_renders(dev)
+    g5 = presets.config5_feedback_16node()[0]
+    g3 = presets.config3_oversampled_distortion()[0]
+    rng = np.random.default_rng(142)
+    for name, g, B in (("config5", g5, B_C5), ("config5", g5, B_PW_WIDE),
+                       ("config3", g3, B_C3)):
+        what = f"{name}, B={B} x 10 s, fast"
+        x = torch.as_tensor(rng.standard_normal((B, 1, T_MAIN),
+                                                dtype=np.float32)
+                            * np.float32(0.3), device=dev)
+        with dst.policy("fast"):
+            cg = dst.compile_graph(g, device="cuda")
+            routes = ("kernel", "eager") if name == "config3" \
+                else PW_GRAPH_ROUTES
+            res = route_renders(cg, x, (B,), routes)
+            bit = routes_held(what, res, "fast")
+            launches = res["kernel"][3]
+            print(f"pointwise groups, {what}: launches {launches}; the "
+                  f"kernel route vs the {' and '.join(routes[1:])} "
+                  f"route(s) bitwise {bit} (<= {PW_FAST_DB} dBFS) [{card}]")
+            del res
+            groups = groups_of_render(cg, x, (B,))
+            times = group_times(what, groups, dev, card)
+            del groups
+            kr, er = route_times(cg, x, (B,))
+        print(f"  {what}: the whole render {kr:.3f} ms on the kernel route "
+              f"against {er:.3f} ms on the eager route (in turns) [{card}]")
+        rec[(name, B)] = dict(launches=launches["pointwise"], times=times,
+                              render=(kr, er), bitwise=bit)
+        del x, cg
+        torch.cuda.empty_cache()
+    check(rec[("config5", B_C5)]["launches"] == 3
+          and rec[("config3", B_C3)]["launches"] == 3,
+          "config5's and config3's renders launch three groups each")
+    print("pointwise groups, config5 streamed (one CUDA graph a block):")
+    rec["stream"] = stream_routes(dev, card)
+    rec["grad"] = pointwise_grad(dev, card)
+    print(f"pointwise phase: {time.time() - t_phase:.1f} s")
+    return rec
+
+
 def main() -> int:
     import torch
     t_start = time.time()
@@ -5090,6 +5829,10 @@ def main() -> int:
             jobs.append(("cycle_kernel", ("CY_RECORD",),
                          cycle_kernel.source_for(prog, budget, record=True)))
             labels.append(f"cycle_kernel record build ({name})")
+    # the pointwise kernel, once per group program the smoke launches
+    for i, src in enumerate(pointwise_sources()):
+        jobs.append(("pointwise_kernel", (), src))
+        labels.append(f"pointwise_kernel (group program {i})")
     built = cuda_build.build_jobs(jobs)
     print(f"nvcc build of {len(built)} kernels: {time.time() - t0:.1f} s")
     for label, (lib, log) in zip(labels, built):
@@ -5328,9 +6071,12 @@ def main() -> int:
               f"versions called {plain}")
         check(not plain, f"config5's main path called plain versions "
                          f"{plain}")
-        check(c5_launches == only_launches(chain=1, cycle=1, envelope=1),
+        check(c5_launches == only_launches(chain=1, cycle=1, envelope=1,
+                                           pointwise=3),
               f"config5 launched {c5_launches}, expected one chain (mtap), "
-              f"one cycle and one (chunked) envelope launch")
+              f"one cycle, one (chunked) envelope launch and three "
+              f"pointwise groups (pre -> overdrive -> distort, the mix, "
+              f"the Output's fan-in)")
         check(tuple(y5.shape) == (B_C5, 1, T_MAIN),
               f"config5 output shape {tuple(y5.shape)}")
         check(bool(torch.isfinite(y5).all()), "config5 output not finite")
@@ -5349,9 +6095,9 @@ def main() -> int:
 
     # -- 10. config5 parity (the sequential envelope kernel's path) -----------
     par_launches = parity(g5, x5_np[:4, :, :SR], oracle_config5, "config5")
-    check(par_launches == only_launches(envelope=1),
+    check(par_launches == only_launches(envelope=1, pointwise=3),
           f"config5 parity launched {par_launches}, expected one "
-          f"sequential envelope launch")
+          f"sequential envelope launch and three pointwise groups")
     # the sequential kernel against _seq_scan at the shape that path gives
     # it (its own generator: the later phases' inputs stay as they were)
     rng10 = np.random.default_rng(10)
@@ -5436,6 +6182,9 @@ def main() -> int:
 
     del x5
     torch.cuda.empty_cache()
+    # -- 11b. the pointwise groups ------------------------------------------
+    pw = pointwise_phase(dev, card)
+    torch.cuda.empty_cache()
     fit_rec = fit_phase(dev, card)
     torch.cuda.empty_cache()
 
@@ -5498,6 +6247,8 @@ def main() -> int:
                      floor_ms=m["floor"], shape=list(shape), **extra)
 
     program5 = programs["config5"][0]
+    pw5, pw5w, pw3 = (pw[(name, b)] for name, b in (
+        ("config5", B_C5), ("config5", B_PW_WIDE), ("config3", B_C3)))
     print(f"chip_smoke total: {time.time() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": [
         entry("chain_kernel", "chain_kernel.cu",
@@ -5512,6 +6263,25 @@ def main() -> int:
               chain_bound(stages5, B_C5, T_MAIN), mtap_lib_ms,
               **stream_us(rt["config5"], "chain",
                           chain_bound(stages5, 1, 128))),
+        entry("pointwise_kernel", "pointwise_kernel.cu",
+              "dsp_stuff_tpu/compiler/compile.py:230",
+              c5_launches["pointwise"], pw5["times"][0][4],
+              pw5["times"][0][:2], pw5["times"][0][2],
+              group="pre -> overdrive -> distort (config5)",
+              shape=[B_C5, T_MAIN], copy_ms=pw5["times"][0][3],
+              device_ms=pw5["times"][0][5],
+              ms_wide=pw5w["times"][0][0], plain_ms_wide=pw5w["times"][0][1],
+              bound_ms_wide=pw5w["times"][0][2][0],
+              shape_wide=[B_PW_WIDE, T_MAIN],
+              groups_config5=[(*t[:2], t[5]) for t in pw5["times"]],
+              groups_config3=[(*t[:2], t[5]) for t in pw3["times"]],
+              launches_config3=pw3["launches"],
+              render_ms_config5=pw5["render"],
+              render_ms_config3=pw3["render"],
+              stream_block_kernels={r: v["kernels"] for r, v
+                                    in pw["stream"].items()},
+              stream_block_ms={r: (v["median"], v["p99"]) for r, v
+                               in pw["stream"].items()}),
         entry("cycle_kernel", "cycle_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_cycle.py:220",
               c5_launches["cycle"], cycle_err, times["cycle"],

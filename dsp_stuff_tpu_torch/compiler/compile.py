@@ -14,6 +14,11 @@ plan made once per graph:
   comb + chorus nodes run as ONE ops/chain_segment (the chain kernel on a
   CUDA device) and the remaining linear runs as one ops/cascade solve
   each;
+* the other stateless per-sample nodes (gains, adds, mixes, the shapers at
+  base rate, and the Output nodes' fan-in averages) gather into pointwise
+  groups, each one straight-line program (compiler/pointwise.py) that
+  runs as one generated kernel on a CUDA device (ops/pointwise_kernel.py),
+  what XLA's loop fusion gives the JAX package inside ``jax.jit``;
 * each feedback SCC evaluates over 128-sample blocks, an intra-cycle edge
   from a not-yet-run member carrying exactly one block of delay (the
   defined semantic of the reference's emergent pipe latency): under
@@ -31,11 +36,13 @@ broadcast against them.
 from __future__ import annotations
 
 import functools
+import heapq
 from typing import Any
 
 import numpy as np
 import torch
 
+from dsp_stuff_tpu_torch.compiler import pointwise
 from dsp_stuff_tpu_torch.compiler.cycle_loop import CycleLoops
 from dsp_stuff_tpu_torch.compiler.scc import condensation_topo_order
 from dsp_stuff_tpu_torch.graph import Graph, GraphNode
@@ -46,6 +53,7 @@ from dsp_stuff_tpu_torch.ops.delay_line import delay_samples
 from dsp_stuff_tpu_torch.ops.lockstep import advance, oldest_first
 from dsp_stuff_tpu_torch.ops.modfx import (max_delay_samples, mtap_shared,
                                            mtap_static)
+from dsp_stuff_tpu_torch.ops.pointwise_kernel import group_call
 from dsp_stuff_tpu_torch.registry import ParamSpec
 from dsp_stuff_tpu_torch.utils import precision
 from dsp_stuff_tpu_torch.utils.sliders import Data
@@ -66,6 +74,15 @@ NODE_HOOK = None
 #: render: False sends every feedback SCC to the per-node scan (tests flip
 #: it to pin the fused cycle against that scan, as the JAX package's do)
 CYCLE_FUSION = True
+
+#: structural switch of the pointwise groups, read at every render: False
+#: runs every stateless node as its eager ops (tests and chip_smoke.py
+#: flip it to hold the groups against those ops)
+POINTWISE_FUSION = True
+
+#: operands a pointwise group takes at most (the kernel's parameters hold
+#: their pointers): a group stops growing before its estimate passes it
+GROUP_OPERANDS = 96
 
 _F32 = torch.float32
 
@@ -354,6 +371,124 @@ def _plan_linear_fusion(graph: Graph, nodes: dict, sccs,
     return runs
 
 
+def _pointwise_ok(node: GraphNode) -> bool:
+    """Whether a node is stateless per-sample ops that a pointwise group
+    takes (compiler/pointwise.node_form), or an Output, whose fan-in
+    average the group computes."""
+    return (node.cfg_name == "output"
+            or pointwise.node_form(node.cfg_name, node.params) is not None)
+
+
+def _group_cost(graph: Graph, nodes: dict, members) -> int:
+    """An upper bound on a group's operands: per member its in-links (each
+    a signal operand at most), a divisor per input port, its sliders and
+    its out-links (each an output at most)."""
+    n = 0
+    for nid in members:
+        spec = nodes[nid].spec
+        n += sum(1 for l in graph.links if l.dst == nid or l.src == nid)
+        n += len(spec.all_inputs) + len(spec.params)
+    return n
+
+
+def _plan_pointwise(graph: Graph, nodes: dict, sccs,
+                    claimed: frozenset = frozenset()) -> tuple:
+    """The pointwise groups: maximal sets of acyclic nodes that a group
+    takes (``_pointwise_ok``) and nothing else claims (``claimed``: the
+    members of this render's mega runs and linear runs and the Outputs a
+    mega run folds), as tuples of node ids in SCC order.
+
+    A node joins the group of a node it reads from (the first, by SCC
+    order, that takes it), and groups it reads from merge, while the
+    group stays CONVEX (no node outside it lies on a path between two
+    members, so it can run at one point of the order, ``_unit_order``)
+    and its operands stay within GROUP_OPERANDS."""
+    cyclic = _cyclic(graph, sccs)
+    pos = {n: i for i, comp in enumerate(sccs) for n in comp}
+    succ: dict[int, set] = {n: set() for n in nodes}
+    pred: dict[int, set] = {n: set() for n in nodes}
+    for l in graph.links:
+        if l.src in nodes and l.dst in nodes:
+            succ[l.src].add(l.dst)
+            pred[l.dst].add(l.src)
+
+    def reach(start, nbrs) -> set:
+        seen: set = set()
+        stack = [m for s in start for m in nbrs[s]]
+        while stack:
+            m = stack.pop()
+            if m not in seen:
+                seen.add(m)
+                stack.extend(nbrs[m])
+        return seen
+
+    def fits(members) -> bool:
+        s = set(members)
+        return (not (reach(s, succ) & reach(s, pred)) - s
+                and _group_cost(graph, nodes, s) <= GROUP_OPERANDS)
+
+    groups: list[list[int]] = []
+    gid: dict[int, int] = {}
+    for n in sorted(nodes, key=pos.get):
+        if n in cyclic or n in claimed or not _pointwise_ok(nodes[n]):
+            continue
+        home = None
+        for g in sorted({gid[p] for p in pred[n] if p in gid},
+                        key=lambda g: pos[groups[g][0]]):
+            if home is None:
+                if fits(groups[g] + [n]):
+                    home = g
+                    groups[g].append(n)
+            elif fits(groups[home] + groups[g]):
+                for m in groups[g]:
+                    gid[m] = home
+                groups[home] += groups[g]
+                groups[g] = []
+        if home is None:
+            home = len(groups)
+            groups.append([n])
+        gid[n] = home
+    return tuple(tuple(sorted(g, key=pos.get)) for g in groups if g)
+
+
+def _unit_order(graph: Graph, sccs, groups) -> tuple:
+    """The render's units in evaluation order: each pointwise group as one
+    unit ("group", members) and every other SCC as ("scc", comp), each
+    after every unit it reads from (the members' SCCs stand down); among
+    units ready together the one whose first node comes first in SCC
+    order."""
+    units: list = [("group", g) for g in groups]
+    unit_of = {n: i for i, g in enumerate(groups) for n in g}
+    for comp in sccs:
+        if comp[0] not in unit_of:
+            for n in comp:
+                unit_of[n] = len(units)
+            units.append(("scc", tuple(comp)))
+    pos = {n: i for i, comp in enumerate(sccs) for n in comp}
+    first = [min(pos[n] for n in u[1]) for u in units]
+    deps: list[set] = [set() for _ in units]
+    for l in graph.links:
+        a, b = unit_of.get(l.src), unit_of.get(l.dst)
+        if a is not None and b is not None and a != b:
+            deps[b].add(a)
+    users: list[list] = [[] for _ in units]
+    for b, ds in enumerate(deps):
+        for a in ds:
+            users[a].append(b)
+    left = [len(ds) for ds in deps]
+    ready = [(first[i], i) for i in range(len(units)) if not left[i]]
+    heapq.heapify(ready)
+    order = []
+    while ready:
+        _, i = heapq.heappop(ready)
+        order.append(units[i])
+        for j in users[i]:
+            left[j] -= 1
+            if not left[j]:
+                heapq.heappush(ready, (first[j], j))
+    return tuple(order)
+
+
 def _linear_section(node: GraphNode):
     """The (kind, param) cascade section of a linear node, or None for a
     non-concrete parameter."""
@@ -416,6 +551,9 @@ class CompiledGraph:
         #: the per-node cycle scans' loops over static buffers, and on the
         #: card their captured CUDA graphs (compiler/cycle_loop.py)
         self.cycle_loops = CycleLoops(self)
+        #: claimed node set -> (pointwise groups, unit order), planned
+        #: once per set (``_pointwise_plan``)
+        self._pointwise_plans: dict = {}
 
     # -- state and parameters ---------------------------------------------
 
@@ -1168,6 +1306,125 @@ class CompiledGraph:
                        for nid, port in scan.ports}
         values.update(zip(scan.emit, seqs))
 
+    def _pointwise_plan(self, mega_heads: dict, fused_heads: dict):
+        """(groups, unit order) of this render: the pointwise groups of
+        the nodes that this render's mega runs and linear runs leave
+        (``_plan_pointwise``), planned once per claimed set; none while
+        ``NODE_HOOK`` is set (every node reports) or with
+        ``POINTWISE_FUSION`` off.  A slider override does not take a node
+        out of its group: the group reads it as an operand."""
+        claimed = set()
+        for run, *rest in mega_heads.values():
+            claimed.update(run)
+            if rest[3] is not None:            # the Output it folds
+                claimed.add(rest[3])
+        for run, *_ in fused_heads.values():
+            claimed.update(run)
+        key = frozenset(claimed)
+        if NODE_HOOK is not None or not POINTWISE_FUSION:
+            key = None
+        got = self._pointwise_plans.get(key)
+        if got is None:
+            groups = () if key is None else _plan_pointwise(
+                self.graph, self._nodes, self._sccs, key)
+            got = self._pointwise_plans[key] = (
+                groups, _unit_order(self.graph, self._sccs, groups))
+        return got
+
+    def _lower_group(self, members, pdict):
+        """(program, signals, scalars, written) of a pointwise group
+        (compiler/pointwise.py): its members' input ports' fan-in averages,
+        modulation maps and node forms, in the members' order.
+        ``signals`` lists its signal operands: a value's key (nid, port),
+        or a slider's tensor with a shape; ``scalars`` its scalar operands
+        (0-d f32 tensors on the device: the sliders, read from device
+        memory, and one fan-in divisor per source count); ``written`` what
+        its outputs are, in order: ("value", (nid, port)) for a member
+        output that a node outside the group reads or a modulation port
+        reads (for the knob writeback), ("out", nid) for an Output
+        member's fan-in average."""
+        graph, nodes = self.graph, self._nodes
+        mset = set(members)
+        b = pointwise.Builder()
+        sigs: list = []
+        scals: list = []
+        ext: dict = {}
+        mine: dict = {}
+        divisors: dict = {}
+
+        def scalar(t):
+            scals.append(t)
+            return b.scal()
+
+        def operand(v):
+            t = precision.on_device(v, self.device)
+            if t.dim() == 0:
+                return scalar(t)
+            sigs.append(t)
+            return b.sig()
+
+        def signal(key):
+            if key[0] in mset:
+                return mine[key]
+            if key not in ext:
+                sigs.append(key)
+                ext[key] = b.sig()
+            return ext[key]
+
+        def port_avg(nid, port):
+            ls = graph.in_links(nid, port)
+            if ls and len(ls) not in divisors:
+                divisors[len(ls)] = scalar(_divisor_on(len(ls), self.device))
+            return pointwise.avg(b, [signal((l.src, l.src_port)) for l in ls],
+                                 divisors.get(len(ls)))
+
+        written: list = []
+        outs: list = []
+        for nid in members:
+            node = nodes[nid]
+            if node.cfg_name == "output":
+                written.append(("out", nid))
+                outs.append(port_avg(nid, "in"))
+                continue
+            in_ports, names, lower = pointwise.node_form(node.cfg_name,
+                                                         node.params)
+            over = (pdict or {}).get(str(nid), {})
+            ps = {}
+            for p in node.spec.params:
+                if not isinstance(p, ParamSpec) or p.name not in names:
+                    continue
+                if p.as_input and graph.in_links(nid, p.name):
+                    ps[p.name] = pointwise.map_mod(
+                        b, port_avg(nid, p.name), p.lo, p.hi)
+                elif p.name in over:
+                    ps[p.name] = operand(self._override(
+                        over[p.name], f"params[{str(nid)!r}][{p.name!r}]"))
+                else:
+                    ps[p.name] = operand(node.params[p.name])
+            res = lower(b, {p: port_avg(nid, p) for p in in_ports}, ps,
+                        precision.get_policy().name)
+            for port, v in res.items():
+                mine[(nid, port)] = v
+                if any(l.src == nid and l.src_port == port
+                       and (l.dst not in mset or l.dst_port
+                            in nodes[l.dst].spec.mod_inputs)
+                       for l in graph.links):
+                    written.append(("value", (nid, port)))
+                    outs.append(v)
+        return b.program(outs), sigs, scals, written
+
+    def _group_eval(self, members, values: dict, outs: dict, pdict, T: int):
+        """Evaluate a pointwise group (``_lower_group``) as one program,
+        one kernel launch on the card: sets ``values`` and ``outs`` (the
+        Output members' averages) for what it writes."""
+        prog, sigs, scals, written = self._lower_group(members, pdict)
+        if not written:
+            return                      # nothing reads the group's nodes
+        got = group_call(prog, [values[s] if isinstance(s, tuple) else s
+                                for s in sigs], scals, T, self.device)
+        for (kind, key), sig in zip(written, got):
+            (outs if kind == "out" else values)[key] = sig
+
     def _eval(self, state, ext, T: int, pdict=None):
         graph = self.graph
         state = dict(state)
@@ -1176,12 +1433,18 @@ class CompiledGraph:
         mega_heads, mega_interior = self._active_mega(pdict)
         # Output ids whose fan-in scale a mega run already applied
         mega_out_folds: dict[int, tuple[int, str]] = {}
+        # Output ids a pointwise group averaged
+        group_outs: dict[int, Any] = {}
+        _, order = self._pointwise_plan(mega_heads, fused_heads)
 
         def sources(nid, port):
             return [values[(l.src, l.src_port)]
                     for l in graph.in_links(nid, port)]
 
-        for comp in self._sccs:
+        for kind, comp in order:
+            if kind == "group":
+                self._group_eval(comp, values, group_outs, pdict, T)
+                continue
             if _is_cycle(graph, comp):
                 self._eval_cycle(comp, state, values, T, pdict,
                                  fused_heads, fused_interior)
@@ -1208,6 +1471,12 @@ class CompiledGraph:
                 continue
             node = self._nodes[nid]
             impl = node.spec.impl
+            if getattr(impl, "graph_output", False):
+                # an Output computes nothing: its fan-in average is the
+                # rendered channel, taken once below
+                if NODE_HOOK is not None:
+                    NODE_HOOK(nid, node.cfg_name, {})
+                continue
             in_sigs = {port: _avg(sources(nid, port), T, self.device)
                        for port in node.spec.all_inputs}
             if getattr(impl, "graph_input", False):
@@ -1228,6 +1497,8 @@ class CompiledGraph:
         for nid in self.output_ids:
             if nid in mega_out_folds:
                 outs[nid] = values[mega_out_folds[nid]]
+            elif nid in group_outs:
+                outs[nid] = group_outs[nid]
             else:
                 outs[nid] = _avg(sources(nid, "in"), T, self.device)[0]
 

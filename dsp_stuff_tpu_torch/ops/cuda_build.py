@@ -11,7 +11,8 @@ wrappers (ops/cycle_kernel.py, ops/cycle_reverse_kernel.py) generate a
 header with the program's straight-line block code (its adjoint for the
 reverse), which the source includes (``header``: written next to the
 library and passed as ``-DKERNEL_PROGRAM_H``), as the JAX package's
-Pallas cycle kernel is traced once per program.
+Pallas cycle kernel is traced once per program.  The pointwise kernel is
+built the same way once per group program (ops/pointwise_kernel.py).
 
 The flags keep the kernels on the plain PyTorch versions' roundings:
 ``-fmad=false`` (no multiply-add contraction) and no ``--use_fast_math``.
@@ -35,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: the kernel sources, by name
 KERNELS = ("chain_kernel", "chain_reverse_kernel", "cycle_kernel",
            "cycle_reverse_kernel", "envelope_kernel", "first_order_kernel",
-           "sequential_kernel")
+           "pointwise_kernel", "sequential_kernel")
 #: the kernels built without a generated header
 STATIC_KERNELS = ("chain_kernel", "chain_reverse_kernel", "envelope_kernel",
                   "first_order_kernel", "sequential_kernel")

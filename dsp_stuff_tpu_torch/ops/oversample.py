@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dsp_stuff_tpu_torch.ops.pointwise_kernel import shaper_call
 from dsp_stuff_tpu_torch.utils.capture import device_cache
 
 TAPS_PER_PHASE = 16
@@ -134,17 +135,20 @@ def downsample(x: torch.Tensor, R: int) -> torch.Tensor:
     return Z.reshape(*x.shape[:-1], M * _BLK)[..., :T]
 
 
-def oversampled(fn, x: torch.Tensor, R: int, *args, **kwargs):
+def oversampled(fn, x: torch.Tensor, R: int, *args):
     """Run the elementwise shaper ``fn(x, *args)`` at R-times rate.
 
     R == 1 is a passthrough.  Scalars in args broadcast; per-sample
     modulation tensors (last dimension x's length) are upsampled beside
-    the signal."""
+    the signal.  At R > 1 the shaper pass over the upsampled signal is a
+    one-node pointwise group (ops/pointwise_kernel.shaper_call: one
+    kernel launch on the card, the eager ops' plain version on the
+    CPU)."""
     if R == 1:
-        return fn(x, *args, **kwargs)
+        return fn(x, *args)
     xu = upsample(x, R)
     up_args = tuple(
         upsample(a, R) if (isinstance(a, torch.Tensor) and a.dim() > 0
                            and a.shape[-1] == x.shape[-1]) else a
         for a in args)
-    return downsample(fn(xu, *up_args, **kwargs), R)
+    return downsample(shaper_call(fn, xu, *up_args), R)

@@ -1,79 +1,169 @@
 #!/usr/bin/env python3
-"""Where config5's render time goes in dsp_stuff_tpu_torch, on one NVIDIA GPU.
+"""Where the render time goes in dsp_stuff_tpu_torch, on one NVIDIA GPU.
 
-    python3 tools/profile_torch_config5.py
+    python3 tools/profile_torch_config5.py [--root DIR] [--renders]
 
-config5 is the 16-node feedback graph of models/presets.py, rendered under
-the fast policy through ``compile_graph(..., device="cuda")`` and
-``render`` at 10 s of 48 kHz audio per stream.  Two measurements:
+Imports dsp_stuff_tpu_torch and chip_smoke from DIR (default: this
+checkout), so that two commits can be compared in one call on one card:
+unpack the other commit into a git-ignored directory (git archive) and run
+this script against each in turns (A, B, B, A).
 
-* for B = 128 and 512 streams: the wall time of one render (CUDA events,
-  median of 5 after a warm-up) and, from ``torch.profiler`` over one more
-  render, the device time of each of the port's three kernels, of all
-  other device work (the plain PyTorch ops, copies and fills) and the
-  largest plain ops by self device time; the idle share is
-  1 - device time / wall time;
-* the chain kernel on config5's planned stage list ([high_pass cascade,
-  scale, mtap]) at B = 128: the whole list, each stage alone, and
-  segment_fallback (the plain version) of each, so each stage's share of
-  the kernel shows; and the whole list at B = 512, to tell a row's
-  sequential latency from the SMs' throughput.
+Renders under the fast policy through ``compile_graph(...,
+device="cuda")`` and ``render`` at 10 s of 48 kHz audio per stream, inputs
+from fixed seeds: config5 (the 16-node feedback graph of models/presets.py)
+at B = 128 and 512, the bench chain (bench.py's 10-node chain) at B = 512
+and config3 (4x-oversampled overdrive and distortion) at B = 512.  For each:
 
-Prints one line per figure with the card's name and power limit.  Needs a
-CUDA device; imports nothing of JAX.
+* the wall time of one render (CUDA events, median of 5 after a warm-up);
+* from ``torch.profiler`` over one more render: the device time of all
+  work, of the port's kernels (each by name) and of everything else (the
+  plain PyTorch ops, copies and fills), and the idle share, 1 - device
+  time / wall time;
+* the device time attributed to what the evaluator ran, each scope a
+  ``torch.profiler.record_function`` range this script opens around the
+  compiler's own functions: each node's evaluation (``_call``, by node
+  type), each pointwise group (``_group_eval``, by its members' types,
+  where the checkout has groups), each chain segment, linear run and
+  feedback cycle, each fan-in average and modulation map outside those;
+  what runs outside every scope (Outputs, analysis sinks, knobs) is
+  "outside the scopes"; and the largest plain ops by device time.
+
+Without ``--renders`` it also times the chain kernel on config5's planned
+stage list ([high_pass cascade, scale, mtap]) at B = 128: the whole list,
+each stage alone, and segment_fallback (the plain version) of each, and
+the whole list at B = 512.
+
+Prints one line per figure with the root and the card's name and power
+limit.  Needs a CUDA device; imports nothing of JAX.
 """
 
+import contextlib
+import functools
 import os
 import subprocess
 import sys
 
 import numpy as np
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 48_000
 T = 10 * SR
-KERNELS = ("cycle_kernel", "chain_kernel", "envelope_kernel")
+#: the port's kernels, by the name their launches carry
+KERNELS = ("chain_kernel", "cycle_kernel", "envelope_kernel",
+           "first_order_kernel", "fo_chained", "pointwise_kernel",
+           "sequential_kernel")
 
 
-def profile_render(cg, x, B, card):
+@contextlib.contextmanager
+def scopes():
+    """Each evaluator function of the compiler wrapped in a
+    record_function range named for what it evaluates."""
     import torch
+    from dsp_stuff_tpu_torch.compiler import compile as comp
+
+    def wrap(fn, label):
+        @functools.wraps(fn)
+        def run(*a, **k):
+            with torch.profiler.record_function(label(*a, **k)):
+                return fn(*a, **k)
+        return run
+
+    def members(self, ms, *a, **k):
+        kinds = "+".join(self._nodes[n].cfg_name for n in ms)
+        return f"group {kinds}"
+
+    cg = comp.CompiledGraph
+    saved = [(comp, "_call", lambda impl, *a, **k:
+              f"node {impl.__name__}"),
+             (comp, "_avg", lambda *a, **k: "fan-in average"),
+             (comp, "_map_mod", lambda *a, **k: "modulation map"),
+             (cg, "_group_eval", members),
+             (cg, "_mega_run_eval", lambda *a, **k: "chain segment"),
+             (cg, "_fused_run_eval", lambda *a, **k: "linear run"),
+             (cg, "_eval_cycle", lambda *a, **k: "feedback cycle")]
+    saved = [(m, n, getattr(m, n), lab) for m, n, lab in saved
+             if hasattr(m, n)]
+    for m, n, fn, lab in saved:
+        setattr(m, n, wrap(fn, lab))
+    try:
+        yield [lab for _, n, _, lab in saved]
+    finally:
+        for m, n, fn, _ in saved:
+            setattr(m, n, fn)
+
+
+LABELS = ("node ", "group ", "fan-in average", "modulation map",
+          "chain segment", "linear run", "feedback cycle")
+
+
+def profile_render(name, cg, x, B, tag):
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from chip_smoke import cuda_ms
-    from torch.autograd import DeviceType
     wall = cuda_ms(lambda: cg.render(x, batch_shape=(B,)))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        cg.render(x, batch_shape=(B,))
+    with scopes():
+        cg.render(x, batch_shape=(B,))          # the scopes' first call
         torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    # device-side entries (kernels, copies, fills) each hold their own time;
-    # host-side aten ops hold the device time of the kernels they launched
-    dev_ms = {e.key: e.self_device_time_total / 1e3 for e in avgs
-              if e.device_type == DeviceType.CUDA}
-    total = sum(dev_ms.values())
-    # a kernel's name, as "void chain_kernel<2>(...)" for a template
-    ours = {k: sum(v for key, v in dev_ms.items()
-                   if key.split("(")[0].split("<")[0].split()[-1] == k)
-            for k in KERNELS}
-    print(f"config5, B={B} x 10 s, fast policy [{card}]")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):                 # the trace's lead-in
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            with torch.profiler.record_function("render"):
+                cg.render(x, batch_shape=(B,))
+            torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.name != "render"
+           and not e.name.startswith(LABELS)]
+    # device-side events (kernels, copies, fills) each hold their own time;
+    # the record_function ranges' device-side spans are left out
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA
+           and "spin" not in e.name.lower()
+           and "sleep" not in e.name.lower()]
+    total = sum(e.self_device_time_total for e in dev) / 1e3
+    ours = {k: sum(e.self_device_time_total for e in dev if k in e.name)
+            / 1e3 for k in KERNELS}
+    ours = {k: v for k, v in ours.items() if v}
+    print(f"{name}, B={B} x 10 s, fast policy {tag}")
     print(f"  wall time of the render   {wall:9.3f} ms (median of 5)")
     print(f"  device time, all work     {total:9.3f} ms")
     for k, v in ours.items():
         print(f"  {k:25s} {v:9.3f} ms  {v / total:6.1%} of device time")
     rest = total - sum(ours.values())
-    print(f"  {'all other device work':25s} {rest:9.3f} ms  "
+    print(f"  {'plain ops, copies, fills':25s} {rest:9.3f} ms  "
           f"{rest / total:6.1%} of device time")
     print(f"  device idle share         {1 - total / wall:9.1%}")
-    ops = sorted((e for e in avgs if e.device_type == DeviceType.CPU
-                  and e.key.startswith("aten::")
-                  and e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)
-    for e in ops[:8]:
-        print(f"    {e.key:23s} {e.self_device_time_total / 1e3:9.3f} ms "
-              f"in {e.count} calls")
+    # each host-side event's own device time (an op's kernels, a runtime
+    # call's launch) to the innermost scope whose host span holds its start
+    spans = sorted(((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events() if e.device_type == DeviceType.CPU
+                    and e.name.startswith(LABELS)),
+                   key=lambda t: t[1] - t[0])
+    by_scope: dict = {}
+    for e in evs:
+        ms = e.self_device_time_total / 1e3
+        if e.device_type != DeviceType.CPU or ms <= 0:
+            continue
+        at = e.time_range.start
+        scope = next((n for a, b, n in spans if a <= at < b),
+                     "outside the scopes")
+        by_scope[scope] = by_scope.get(scope, 0.0) + ms
+    print(f"  by scope (their sum {sum(by_scope.values()):.3f} ms of the "
+          f"{total:.3f}):")
+    for scope, ms in sorted(by_scope.items(), key=lambda t: -t[1]):
+        n = sum(1 for *_, nm in spans if nm == scope)
+        print(f"    {scope:38s} {ms:9.3f} ms" + (f" in {n} call(s)" if n
+                                                  else ""))
+    ops: dict = {}
+    for e in evs:
+        if e.device_type == DeviceType.CPU and e.name.startswith("aten::"):
+            ops[e.name] = ops.get(e.name, 0.0) + e.self_device_time_total
+    for k, v in sorted(ops.items(), key=lambda t: -t[1])[:6]:
+        if v > 0:
+            print(f"    {k:38s} {v / 1e3:9.3f} ms")
 
 
-def chain_attribution(x_all, card):
+def chain_attribution(x_all, tag):
     import dsp_stuff_tpu_torch as dst
     from chip_smoke import cuda_ms, planned_stages, seeded_states
     from dsp_stuff_tpu_torch.models import presets
@@ -85,7 +175,7 @@ def chain_attribution(x_all, card):
         cases.append((f"{st[0]} alone", (st,),
                       lfos if st[0] == "mtap" else ()))
     print(f"chain kernel on config5's list {[s[0] for s in stages]}, "
-          f"10 s [{card}]")
+          f"10 s {tag}")
     whole = None
     with dst.policy("fast"):
         for name, sts, lf in cases:
@@ -109,9 +199,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_config5: needs a CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    root = os.path.abspath(sys.argv[sys.argv.index("--root") + 1]
+                           if "--root" in sys.argv else HERE)
+    sys.path[:0] = [root, os.path.join(root, "tests")]
     import dsp_stuff_tpu_torch as dst
+    from chip_smoke import bench_graph
     from dsp_stuff_tpu_torch.models import presets
     from dsp_stuff_tpu_torch.ops import cuda_build
 
@@ -119,6 +211,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+    tag = f"[{os.path.relpath(root, HERE)}] [{card}]"
     cuda_build.build()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -126,11 +219,18 @@ def main() -> int:
         rng.standard_normal((512, 1, T), dtype=np.float32) * np.float32(0.3),
         device=dev)
     with dst.policy("fast"):
-        cg = dst.compile_graph(presets.config5_feedback_16node()[0],
-                               device="cuda")
-        for B in (128, 512):
-            profile_render(cg, x_all[:B], B, card)
-    chain_attribution(x_all.reshape(512, T), card)
+        for name, g, widths in (
+                ("config5", presets.config5_feedback_16node()[0], (128, 512)),
+                ("bench chain", bench_graph(), (512,)),
+                ("config3", presets.config3_oversampled_distortion()[0],
+                 (512,))):
+            cg = dst.compile_graph(g, device="cuda")
+            for B in widths:
+                profile_render(name, cg, x_all[:B], B, tag)
+            del cg
+            torch.cuda.empty_cache()
+    if "--renders" not in sys.argv:
+        chain_attribution(x_all.reshape(512, T), tag)
     return 0
 
 
