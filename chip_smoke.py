@@ -827,19 +827,25 @@ def _kernel_modules():
     from dsp_stuff_tpu_torch.ops import (chain_kernel, chain_reverse_kernel,
                                          cycle_kernel, cycle_reverse_kernel,
                                          envelope_kernel, first_order_kernel,
-                                         pointwise_kernel, sequential_kernel)
+                                         pointwise_kernel,
+                                         pointwise_reverse_kernel,
+                                         sequential_kernel)
     return {"chain": chain_kernel, "chain_reverse": chain_reverse_kernel,
             "cycle": cycle_kernel, "cycle_reverse": cycle_reverse_kernel,
             "envelope": envelope_kernel, "first_order": first_order_kernel,
-            "pointwise": pointwise_kernel, "sequential": sequential_kernel}
+            "pointwise": pointwise_kernel,
+            "pointwise_reverse": pointwise_reverse_kernel,
+            "sequential": sequential_kernel}
 
 
 def reset_launches():
     """Every kernel's launch count to 0 (the chain kernel's record build's
-    too, chain_kernel.RECORD_LAUNCHES)."""
+    too, chain_kernel.RECORD_LAUNCHES, and the reverse pointwise kernel's
+    second pass, SUM_LAUNCHES)."""
     for m in _kernel_modules().values():
         m.LAUNCHES = 0
     _kernel_modules()["chain"].RECORD_LAUNCHES = 0
+    _kernel_modules()["pointwise_reverse"].SUM_LAUNCHES = 0
 
 
 def read_launches():
@@ -856,10 +862,9 @@ def only_launches(**launches):
 @contextlib.contextmanager
 def forward_and_vjps_counted(plain: dict, vjps: dict, first_order=True):
     """plain_versions_counted for a forward and backward together, the
-    pointwise groups' plain version apart: each group's backward runs it
-    once by design (ops/pointwise_kernel.PointwiseGroup), so ``vjps``
-    holds those runs, which a caller holds to its groups (a forward that
-    fell back to the plain version would add to them)."""
+    pointwise groups' plain version apart: ``vjps`` holds its runs (a
+    caller holds them to 0: the groups' forward is the kernel, their
+    backward the reverse kernel, ops/pointwise_kernel.PointwiseGroup)."""
     from dsp_stuff_tpu_torch.compiler import pointwise
     with plain_versions_counted(plain, first_order=first_order,
                                 groups=False), \
@@ -886,6 +891,56 @@ def cpu_group_calls(graph, pol="fast", params=None, T=256) -> int:
         cg.render(x, T=T, batch_shape=(1,),
                   params=params(cg) if params else None)
     return counts.get("group_call", 0)
+
+
+@contextlib.contextmanager
+def groups_through_function(backward):
+    """Route every pointwise group of a CPU render through the groups'
+    Function (ops/pointwise_kernel.run: the plain version forward,
+    ``backward`` as its backward), as the card routes them."""
+    from dsp_stuff_tpu_torch.compiler import compile as comp
+    from dsp_stuff_tpu_torch.compiler import pointwise as pw
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+
+    def call(prog, sigs, scals, T, device):
+        return pk.run(pw.interpret, prog, sigs, scals, T, device, backward)
+    with swapped_attr(comp, "group_call", call), \
+            swapped_attr(pk, "group_call", call):
+        yield
+
+
+def cpu_group_backwards(graph, pol="fast", params=None, wrt_input=False,
+                        T=256, B=2) -> list:
+    """The generated reverse source of each pointwise group backward that
+    launches the reverse kernel in one loss gradient of ``graph`` under
+    ``pol`` (the sliders of ``params(cg)``, leaves that require grad, and
+    the input where ``wrt_input``), from the CPU port's at [B, T] with its
+    groups routed as the card routes them: one entry a launch on the card
+    (the adjoint programs depend on the structure, the policy, what needs
+    a gradient and which operands span the batch, not on B > 1 or T)."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
+    got = []
+
+    def rec(prog, sigs, scals, cts, need, Tn, device):
+        pl = pk.plan_adjoint(prog, sigs, scals, cts, need, Tn)
+        if prk.worlds(pl.adj).outs:
+            got.append(prk.reverse_source(pl.adj))
+        return pk.group_adjoint(prog, sigs, scals, cts, need, Tn, device)
+    cg = dst.compile_graph(graph, device="cpu")
+    n_in = len(cg.input_ids)
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (B, n_in, T)).astype(np.float32) * 0.3) if n_in else None
+    if x is not None:
+        x.requires_grad_(wrt_input)
+    with dst.policy(pol), groups_through_function(rec):
+        y = cg.render(x, T=T, batch_shape=(B,),
+                      params=params(cg) if params else None)[0]
+        if y.requires_grad:
+            (y * torch.linspace(-1.0, 1.0, T)).sum().backward()
+    return got
 
 
 @contextlib.contextmanager
@@ -919,12 +974,14 @@ def plain_versions_counted(counts: dict, first_order: bool = False,
     (interpret, its record form included, and interpret_adjoint);
     ``first_order`` adds the first-order kernel's (a render calls
     _first_order_blocked for a concrete degenerate biquad, which takes no
-    kernel in either package); ``groups`` the pointwise groups'
-    (pointwise.interpret, which a group's backward runs by design: a
-    backward counts it apart)."""
+    kernel in either package); ``groups`` the pointwise groups' forward
+    (pointwise.interpret, which a backward counts apart); the reverse
+    pointwise kernel's (group_adjoint, interpret_adjoint) and the route it
+    replaced (group_vjp) always."""
     from dsp_stuff_tpu_torch.compiler import pointwise
     from dsp_stuff_tpu_torch.ops import (chain_segment, cycle_segment,
                                          envelope, scan)
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
     targets = [(chain_segment, "segment_fallback"),
                (chain_segment, "segment_adjoint"),
                (chain_segment, "segment_vjp"),
@@ -934,7 +991,9 @@ def plain_versions_counted(counts: dict, first_order: bool = False,
                (envelope, "_seq_scan"), (scan, "_first_order_sequential"),
                (scan, "_biquad_sequential"),
                (scan, "_first_order_adjoint_sequential"),
-               (scan, "_biquad_adjoint_sequential")]
+               (scan, "_biquad_adjoint_sequential"),
+               (pk, "group_vjp"), (pk, "group_adjoint"),
+               (pointwise, "interpret_adjoint")]
     if first_order:
         targets += [(scan, "_first_order_blocked"),
                     (scan, "_first_order_scan")]
@@ -1405,6 +1464,8 @@ def fit_phase(dev, card) -> dict:
         losses, secs, launches, plain, vjps = [], [], [], {}, {}
         n_fit = cpu_group_calls(bench_graph(), params=lambda c: (
             c.init_params()))
+        n_fit_rev = len(cpu_group_backwards(bench_graph(), params=lambda c: (
+            c.init_params(requires_grad=True))))
         with forward_and_vjps_counted(plain, vjps):
             for _ in range(N_STEPS):
                 reset_launches()
@@ -1420,20 +1481,23 @@ def fit_phase(dev, card) -> dict:
               f"{[round(t, 4) for t in secs]} s, launches per step "
               f"{launches[-1]}, plain versions called {plain}")
         check(not plain, f"the training steps called plain versions {plain}")
-        check(vjps.get("interpret", 0) == N_STEPS * n_fit,
+        check(vjps.get("interpret", 0) == 0,
               f"the training steps ran the groups' plain version "
-              f"{vjps} times, not {n_fit} vjps a step")
-        check(all(la == only_launches(first_order=4, pointwise=n_fit)
+              f"{vjps} times")
+        check(all(la == only_launches(first_order=4, pointwise=n_fit,
+                                      pointwise_reverse=n_fit_rev)
                   for la in launches),
               f"launches per step {launches}: expected the first-order "
-              f"kernel twice forward and twice backward, and each of the "
-              f"{n_fit} pointwise groups once forward")
+              f"kernel twice forward and twice backward, each of the "
+              f"{n_fit} pointwise groups once forward and {n_fit_rev} "
+              f"reverse pointwise launches backward")
         check(all(np.isfinite(losses)) and losses[-1] < losses[0],
               f"training losses {losses} are not finite and falling")
         check(all(bool(torch.isfinite(v).all())
                   for e in params.values() for v in e.values()),
               "fitted sliders not finite")
         out["launches"] = sum(la["first_order"] for la in launches)
+        out["reverse_launches"] = launches[-1]["pointwise_reverse"]
         print(f"training step (bench chain, 16 sliders): median "
               f"{np.median(secs) * 1e3:.3f} ms at B={B_FIT} x 10 s, peak "
               f"device memory {peak / 2**30:.3f} GiB [{card}]")
@@ -1468,13 +1532,17 @@ def fit_phase(dev, card) -> dict:
         check(not plain, f"the envelope fit called plain versions {plain}")
         n_env = cpu_group_calls(envelope_graph(), params=lambda c: (
             c.init_params()))
-        check(vjps.get("interpret", 0) == n_env,
+        n_env_rev = len(cpu_group_backwards(
+            envelope_graph(), params=lambda c: c.init_params(
+                requires_grad=True)))
+        check(vjps.get("interpret", 0) == 0,
               f"the envelope fit ran the groups' plain version {vjps}")
         check(env_launches == only_launches(envelope=1, first_order=1,
-                                            pointwise=n_env),
+                                            pointwise=n_env,
+                                            pointwise_reverse=n_env_rev),
               f"envelope fit launched {env_launches}: expected one chunked "
-              f"envelope launch, one per-sample first-order solve and "
-              f"{n_env} pointwise groups")
+              f"envelope launch, one per-sample first-order solve, "
+              f"{n_env} pointwise groups and {n_env_rev} reverse ones")
         check(bool(torch.isfinite(loss)) and all(
             bool(torch.isfinite(v)) for v in grads.values()),
             "envelope fit: loss or gradients not finite")
@@ -2153,7 +2221,8 @@ def stream_kernel_checks(dev) -> None:
 
 #: the hand-written kernels by their __global__ names in csrc/ -> the
 #: launch counters' keys
-KERNEL_NAMES = (("pointwise_kernel", "pointwise"),
+KERNEL_NAMES = (("pointwise_reverse_kernel", "pointwise_reverse"),
+                ("pointwise_kernel", "pointwise"),
                 ("sequential_reverse_kernel", "sequential"),
                 ("sequential_kernel", "sequential"),
                 ("cycle_reverse_kernel", "cycle_reverse"),
@@ -3549,17 +3618,18 @@ def fused_grad_main(name, cg, x, target, expect, subset=None,
     width: the forward launches ``expect`` (of its chain launches
     ``expect_record`` the record build's, where given) and calls no plain
     version; with ``expect_bwd`` (launches by kernel) the backward
-    launches those and calls no plain version either; prints the forward
-    + backward time, the peak memory and what the backward launches and
-    calls."""
+    launches those and calls no plain version either (nor the groups'
+    interpret); prints the forward + backward time, the peak memory and
+    what the backward launches and calls."""
     r = loss_and_grads(cg, x, target,
                        slider_params(cg, *subset) if subset else None,
                        wrt_input, first_order)
     check(not r["plain"], f"{name}: the forward called plain versions "
                           f"{r['plain']}")
     if expect_bwd is not None:
-        check(not r["plain_bwd"], f"{name}: the backward called plain "
-                                  f"versions {r['plain_bwd']}")
+        check(not r["plain_bwd"] and not r["group_vjps"],
+              f"{name}: the backward called plain versions "
+              f"{r['plain_bwd']} and the groups' {r['group_vjps']} times")
         check(all(r["bwd"][k] == v for k, v in expect_bwd.items()),
               f"{name}: the backward launched {r['bwd']}, expected "
               f"{expect_bwd}")
@@ -3577,7 +3647,7 @@ def fused_grad_main(name, cg, x, target, expect, subset=None,
           f"({r['fwd_record']} of the record build) and no plain "
           f"version, backward launches {r['bwd']}, plain versions in the "
           f"backward {r['plain_bwd'] or 'none'} (and {r['group_vjps']} "
-          f"pointwise groups' vjps through their plain version) [{card}]")
+          f"runs of the pointwise groups' plain version) [{card}]")
     return r
 
 
@@ -3599,10 +3669,11 @@ GRAD_OPS = {
 
 def grad_split(name, cg, x, target, card) -> dict:
     """The input gradient's forward and backward apart (wall, medians of
-    three after a first call) and one forward + backward's device time by
+    three after a first call), one forward + backward's device time by
     torch.profiler, split by op group ("other": the ops outside the
     groups and the port's kernels, whose ctypes launches the profiler
-    counts there; their own device times are printed too)."""
+    counts there; their own device times are printed too), and the peak
+    device memory of one forward + backward (GiB)."""
     import torch
     from dsp_stuff_tpu_torch.train import fit
     key = str(cg.input_ids[0])
@@ -3626,10 +3697,15 @@ def grad_split(name, cg, x, target, card) -> dict:
         bwd.append((t2 - t1) * 1e3)
     kernels = {}
     split, total = device_split(run, GRAD_OPS, kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cg.device)
+    run()
+    peak = torch.cuda.max_memory_allocated(cg.device) / 2**30
     rec = dict(fwd_ms=float(np.median(fwd)), bwd_ms=float(np.median(bwd)),
-               device_ms=total, split=split, kernels=kernels)
+               device_ms=total, split=split, kernels=kernels, peak=peak)
     print(f"{name}: forward {rec['fwd_ms']:.3f} ms, backward "
-          f"{rec['bwd_ms']:.3f} ms (wall, medians of 3); one forward + "
+          f"{rec['bwd_ms']:.3f} ms (wall, medians of 3), peak {peak:.3f} "
+          f"GiB; one forward + "
           f"backward on the card {total:.3f} ms: " + ", ".join(
               f"{k} {v:.3f} ms ({v / max(total, 1e-9):.1%})"
               for k, v in split.items()) + "; the port's kernels in it: "
@@ -3920,7 +3996,9 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
             "bench chain, gain level alone, the rest fused", cg, x, tgt,
             only_launches(chain=1, pointwise=1), subset=("gain", "level"),
             wrt_input=False, card=card,
-            expect_bwd={"chain_reverse": 1, "chain": 0}, expect_record=1)
+            expect_bwd={"chain_reverse": 1, "chain": 0,
+                        "pointwise_reverse": 1, "pointwise": 0},
+            expect_record=1)
         del x, tgt, cg
         torch.cuda.empty_cache()
 
@@ -3936,7 +4014,8 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
             only_launches(chain=1, cycle=1, envelope=1, pointwise=3),
             card=card, first_order=False,
             expect_bwd={"chain_reverse": 1, "chain": 0, "cycle_reverse": 1,
-                        "cycle": 0, "pointwise": 0}, expect_record=0)
+                        "cycle": 0, "pointwise": 0, "pointwise_reverse": 3},
+            expect_record=0)
         rec["c5_split"] = grad_split(
             f"config5 input gradient, [{b_grad}, {t_main}]", cg5, x, tgt,
             card)
@@ -4064,9 +4143,12 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
                       "biquad_reverse_cuda": 1},
           f"exact bench gradient: sequential launches by wrapper {by_mode}")
     n_groups = cpu_group_calls(g_bench, "exact", lambda c: c.init_params())
-    check(launches == only_launches(sequential=6, pointwise=n_groups)
-          and vjps == n_groups,
-          f"exact bench gradient launched {launches}, {vjps} group vjps")
+    n_rev = len(cpu_group_backwards(
+        g_bench, "exact", lambda c: c.init_params(requires_grad=True), True))
+    check(launches == only_launches(sequential=6, pointwise=n_groups,
+                                    pointwise_reverse=n_rev) and vjps == 0,
+          f"exact bench gradient launched {launches}, {vjps} runs of the "
+          f"groups' plain version")
     worst = max(grad_close("exact bench: loss", got["card"][0],
                            got["cpu"][0]),
                 grad_close("exact bench: input", got["card"][1],
@@ -4119,8 +4201,9 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
                              f"{pg['card'][5]}")
     check(pg["card"][3] == {"first_order_sequential_cuda": 2,
                             "first_order_reverse_cuda": 2}
-          and pg["card"][4] == only_launches(sequential=4, pointwise=1)
-          and pg["card"][6] == 1,
+          and pg["card"][4] == only_launches(sequential=4, pointwise=1,
+                                             pointwise_reverse=1)
+          and pg["card"][6] == 0,
           f"modulated filters under exact: launches {pg['card'][3]} "
           f"{pg['card'][4]}")
     check(bool(torch.equal(pg["card"][0].cpu(), pg["cpu"][0])),
@@ -5675,9 +5758,9 @@ def stream_routes(dev, card) -> dict:
 
 def pointwise_grad(dev, card) -> float:
     """config5's input gradient at 2 x T_CPU_PORT through the groups'
-    Function on the card (its forward the kernel, its backward the plain
-    version's vjp) against the CPU port, rtol GRAD_RTOL; returns the
-    relative error."""
+    Function on the card (its forward the kernel, its backward the reverse
+    kernel: no run of the plain version) against the CPU port, rtol
+    GRAD_RTOL; returns the relative error."""
     import torch
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.compiler import pointwise as pw
@@ -5699,16 +5782,352 @@ def pointwise_grad(dev, card) -> float:
                                    True, False)
             got[str(d)] = (r, calls)
     card_r, calls = got[str(dev)]
-    check(calls.get("_kernel_group") == 3 and card_r["group_vjps"] == 3
-          and card_r["fwd"]["pointwise"] == 3,
-          f"config5 gradient: the groups' Function ran {calls}, "
-          f"{card_r['group_vjps']} vjps")
+    check(calls.get("_kernel_group") == 3 and card_r["group_vjps"] == 0
+          and card_r["fwd"]["pointwise"] == 3
+          and card_r["bwd"]["pointwise_reverse"] == 3
+          and not card_r["plain_bwd"],
+          f"config5 gradient: the groups' Function ran {calls}, the plain "
+          f"version {card_r['group_vjps']} times, the backward launched "
+          f"{card_r['bwd']} and called {card_r['plain_bwd']}")
     err = grad_close("config5 input gradient through the groups' Function",
                      card_r["grads"][0], got["cpu"][0]["grads"][0])
     print(f"  config5 input gradient, [2, {T_CPU_PORT}], through the groups' "
-          f"Function (forward 3 kernel launches, backward 3 plain vjps): "
-          f"card vs CPU port {err:.2e} (rtol {GRAD_RTOL}) [{card}]")
+          f"Function (forward 3 kernel launches, backward 3 reverse kernel "
+          f"launches, no plain version): card vs CPU port {err:.2e} (rtol "
+          f"{GRAD_RTOL}) [{card}]")
     return err
+
+
+PW_REV_DB = -100.0        # the reverse kernel's per-element gradients
+PW_REV_RTOL = 1e-5        # ... its sums (reduced gradients), or
+PW_REV_ATOL = 1e-7        # ... this near 0 (both vs autograd)
+N_REV_LAUNCHES = 10       # reverse launches that must agree bit for bit
+B_PW_REV_C3 = 32          # config3's shaper passes at R = 4 (x 10 s)
+
+
+def reverse_needs(prog) -> list:
+    """What the smoke holds a group's reverse kernel to: every operand
+    needing a gradient (sums to each slider and [T] signal), and the first
+    signal alone (an input gradient: the main path's program)."""
+    n = prog.n_sig + prog.n_scal
+    needs = [(True,) * n]
+    if prog.n_sig and n > 1:
+        needs.append((True,) + (False,) * (n - 1))
+    return needs
+
+
+def reverse_cotangents(prog, sigs, scals, T, dev, seed) -> list:
+    """N(0, 1) cotangents of the group's outputs, on ``dev``."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    shapes = pk.layout(prog, tuple(s.shape for s in sigs),
+                       tuple(s.shape for s in scals), T)[2]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shp, generator=g, device=dev) for shp in shapes]
+
+
+def sums_close(got, want, rtol=PW_REV_RTOL, atol=PW_REV_ATOL) -> bool:
+    """A reduced gradient within rtol, max-normalized (a scalar: relative),
+    or atol near 0; the non-finite entries the same."""
+    import torch
+    bad = ~torch.isfinite(want)
+    if not (torch.equal(~torch.isfinite(got), bad) and torch.equal(
+            torch.nan_to_num(got[bad]), torch.nan_to_num(want[bad]))):
+        return False
+    g, w = got[~bad].double(), want[~bad].double()
+    if not g.numel():
+        return True
+    return float((g - w).abs().max()) <= max(
+        rtol * float(w.abs().max()), atol)
+
+
+def reverse_held(what, prog, sigs, scals, cts, need, T, dev) -> tuple:
+    """The reverse kernel (ops/pointwise_reverse_kernel.reverse_group)
+    against autograd through interpret (ops/pointwise_kernel.group_vjp)
+    on the same cotangents: each per-element gradient <= PW_REV_DB
+    (max-normalized, the non-finite samples the same), each sum within
+    PW_REV_RTOL or PW_REV_ATOL.  Where autograd's float32 sum cancels past
+    that, the kernel's sum must be the plain version's float64 sum
+    (group_adjoint with sums64, rtol 1e-6) and autograd's farther from
+    it.  Returns (max abs error of the per-element gradients, whether
+    every gradient is bitwise, the sums held by the float64 rule)."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
+    k = prk.reverse_group(prog, sigs, scals, cts, need, T, dev)
+    w = pk.group_vjp(prog, sigs, scals, cts, need, T, dev)
+    torch.cuda.synchronize()
+    F = pk.layout(prog, tuple(s.shape for s in sigs),
+                  tuple(s.shape for s in scals), T)[0]
+    n_full = int(np.prod(F))
+    err, bit, held64, p64 = 0.0, True, 0, None
+    for i, (a, b) in enumerate(zip(k, w)):
+        if not need[i]:
+            check(a is None, f"{what}: a gradient of operand {i}, which "
+                             f"needs none")
+            continue
+        if a is None:
+            check(not bool(b.any()), f"{what}: operand {i} got no "
+                                     f"gradient, autograd's is not 0")
+            continue
+        check(a.shape == b.shape, f"{what}: gradient {i} of shape "
+                                  f"{tuple(a.shape)}, autograd's "
+                                  f"{tuple(b.shape)}")
+        bit &= bits_same(a, b)
+        if a.numel() == n_full:
+            d = nonfinite_dbfs(f"{what} gradient {i}", a, b)
+            check(d <= PW_REV_DB, f"{what}: gradient {i} {d:.1f} dBFS > "
+                                  f"{PW_REV_DB}")
+            fin = a.isfinite() & b.isfinite()
+            if bool(fin.any()):
+                err = max(err, float((a[fin].double() - b[fin].double())
+                                     .abs().max()))
+        elif not sums_close(a, b):
+            if p64 is None:
+                p64 = pk.group_adjoint(prog, sigs, scals, cts, need, T, dev,
+                                       sums64=True)
+            q = p64[i].double()
+            off_k = float((a.double() - q).abs().nan_to_num().max())
+            off_w = float((b.double() - q).abs().nan_to_num().max())
+            check(sums_close(a, p64[i], 1e-6, 0.0) and off_w >= off_k,
+                  f"{what}: sum {i} {a.flatten()[:4].tolist()} on the card, "
+                  f"autograd's {b.flatten()[:4].tolist()}, the float64 "
+                  f"sum's {p64[i].flatten()[:4].tolist()}")
+            held64 += 1
+    return err, bit, held64
+
+
+def pointwise_reverse_forms(dev) -> dict:
+    """Each form of pointwise_forms() under fast, parity and exact at
+    PW_SHAPES (the specials planted, the sliders scalar operands, a second
+    signal an unbatched [T] one), every operand needing a gradient and
+    the input alone: the reverse kernel against autograd through
+    interpret (reverse_held).  Returns {policy: (cases bitwise, cases,
+    sums held by the float64 rule)}."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.utils.precision import scalar_on
+    out = {}
+    for pol in ("fast", "parity", "exact"):
+        n_bit = n = n64 = 0
+        with dst.policy(pol):
+            for i, (name, form) in enumerate(pointwise_forms().items()):
+                prog, names = pointwise_program(form, pol)
+                for j, shape in enumerate(PW_SHAPES):
+                    xs = pointwise_inputs(form[0], shape, dev, 1000 * i + j)
+                    scals = [scalar_on(float(form[1][k]), dev) for k in names]
+                    cts = reverse_cotangents(prog, xs, scals, shape[1], dev,
+                                             2000 * i + j)
+                    for need in reverse_needs(prog):
+                        _, bit, h = reverse_held(
+                            f"{name} {pol} {list(shape)} reverse, need "
+                            f"{sum(need)}", prog, xs, scals, cts, list(need),
+                            shape[1], dev)
+                        n_bit += bit
+                        n += 1
+                        n64 += h
+        print(f"  {pol}: {n_bit} of {n} form cases bitwise against autograd "
+              f"through interpret at {[list(s) for s in PW_SHAPES]} (every "
+              f"gradient <= {PW_REV_DB} dBFS, sums rtol {PW_REV_RTOL}; "
+              f"{n64} sums held by the float64 rule)")
+        out[pol] = (n_bit, n, n64)
+        torch.cuda.synchronize()
+    return out
+
+
+def reverse_bound(prog, sigs, scals, cts, need, T):
+    """(bound ms, by) of one reverse call: the bytes its launches must
+    move (each stream read once, each gradient written once, the partial
+    sums written and read once) over HBM against pass 1's per-element
+    operations (an f64 one at the FP64 rate, a transcendental counted as
+    one) over [rows, T]."""
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
+    pl = pk.plan_adjoint(prog, sigs, scals, cts, need, T)
+    w = prk.worlds(pl.adj)
+    ln = prk.plan_reverse(pl, sigs[0].device)
+    n_bytes = 4.0 * (sum(t.numel() for t in ln.ins)
+                     + sum(t.numel() for t in ln.outs))
+    if ln.part is not None:
+        n_bytes += 16.0 * ln.part.numel()
+    f32 = f64 = 0
+    for v in w.stmts["F"]:
+        op, dt, _, _ = pl.adj.ops[v]
+        if op in ("sig", "ct"):
+            continue
+        if dt == "f64" or op == "f32":
+            f64 += 1
+        else:
+            f32 += 1
+    return bound(n_bytes, ln.rows * T * (f32 + f64 * FP32_TFLOPS
+                                         / FP64_TFLOPS))
+
+
+def reverse_group_checks(what, groups, dev, card, timed=False) -> list:
+    """Each group of a render (groups_of_render) under both of
+    reverse_needs: the reverse kernel against autograd (reverse_held);
+    with ``timed`` also timed against the route it replaced (group_vjp:
+    autograd through interpret) on the same operands, CUDA events over
+    N_GROUP_CALLS calls back to back, in turns, the kernel's device time
+    by torch.profiler (each pass's and their sum), with its bound.  Returns
+    [(need, max abs err, bitwise, kernel ms, plain ms, bound, device
+    ms)] a group and need (times None where not timed)."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
+    out = []
+    for gi, (prog, sigs, scals, T) in enumerate(groups):
+        cts = reverse_cotangents(prog, sigs, scals, T, dev, 3000 + gi)
+        for need in reverse_needs(prog):
+            need = list(need)
+            label = f"{what} group {gi} reverse, need {sum(need)}"
+            err, bit, h = reverse_held(label, prog, sigs, scals, cts, need,
+                                       T, dev)
+            km = pm = dm = bnd = None
+            if timed:
+                def fk():
+                    return prk.reverse_group(prog, sigs, scals, cts, need, T,
+                                             dev)
+
+                def fp():
+                    return pk.group_vjp(prog, sigs, scals, cts, need, T, dev)
+                ks = [cuda_ms(fk, inner=N_GROUP_CALLS)]
+                ps = [cuda_ms(fp, n=2, inner=2) for _ in range(2)]
+                ks.append(cuda_ms(fk, inner=N_GROUP_CALLS))
+                km, pm = float(np.median(ks)), float(np.median(ps))
+                bnd = reverse_bound(prog, sigs, scals, cts, need, T)
+                prk.SUM_LAUNCHES = 0
+                fk()
+                # each pass's device time (pass 2: ..._kernel_sums)
+                passes = [kernel_device_ms(fk, "pointwise_reverse_kernel<")[0]]
+                if prk.SUM_LAUNCHES:
+                    passes.append(kernel_device_ms(
+                        fk, "pointwise_reverse_kernel_sums")[0])
+                dm = None if None in passes else sum(passes)
+                torch.cuda.synchronize()
+                print(f"  {label}: kernel {km:.3f} ms (device "
+                      f"{dm if dm is None else round(dm, 3)}, by pass "
+                      f"{[p if p is None else round(p, 3) for p in passes]}"
+                      f"), autograd "
+                      f"through interpret {pm:.3f} ms ({pm / km:.1f}x), "
+                      f"bound {bnd[0]:.3f} ms by {bnd[1]} ({bnd[0] / km:.1%} "
+                      f"of it); bitwise {bit}, {h} sums by the float64 rule "
+                      f"[{card}]")
+            else:
+                print(f"  {label}: bitwise {bit}, per-element max abs error "
+                      f"{err:.3e}, {h} sums by the float64 rule")
+            out.append((tuple(need), err, bit, km, pm, bnd, dm))
+    return out
+
+
+def reverse_determinism(prog, sigs, scals, T, dev, n=N_REV_LAUNCHES):
+    """n calls of the reverse kernel with every operand needing a gradient
+    (both passes) on the same inputs: every gradient bitwise the first
+    call's; then one call captured in a CUDA graph (no host read, no
+    tensor from host data) and replayed: bitwise the same."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
+    cts = reverse_cotangents(prog, sigs, scals, T, dev, 4000)
+    need = list(reverse_needs(prog)[0])
+
+    def call():
+        return prk.reverse_group(prog, sigs, scals, cts, need, T, dev)
+
+    def same(got, want):
+        return all((a is None and b is None) or bits_same(a, b)
+                   for a, b in zip(got, want))
+    first = call()
+    for _ in range(n - 1):
+        check(same(call(), first),
+              "the reverse pointwise kernel is not bitwise equal to itself")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(same(captured, first), "the reverse pointwise kernel replayed "
+                                 "from a CUDA graph differs")
+    print(f"  {n} reverse launches (both passes, {sum(need)} gradients) "
+          f"bitwise equal to each other, and a captured call replayed")
+    del graph, captured
+
+
+def pointwise_reverse_sources() -> list:
+    """The generated reverse source of every adjoint program the smoke
+    launches, so that one nvcc each builds them all together: the forms'
+    under the three policies (both needs, batched and one-row shapes),
+    config5's and config3's groups (both needs) and each gradient path's
+    groups (cpu_group_backwards), from CPU runs at small shapes (an
+    adjoint program depends on the structure, the policy, what needs a
+    gradient and which operands span the batch)."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import compile as comp
+    from dsp_stuff_tpu_torch.models import presets
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
+    from dsp_stuff_tpu_torch.utils.precision import scalar_on
+    cpu = torch.device("cpu")
+    srcs = set()
+
+    def add(prog, sigs, scals, T, needs=None):
+        cts = [torch.zeros(shp) for shp in pk.layout(
+            prog, tuple(s.shape for s in sigs),
+            tuple(s.shape for s in scals), T)[2]]
+        for need in needs or reverse_needs(prog):
+            pl = pk.plan_adjoint(prog, sigs, scals, cts, need, T)
+            if prk.worlds(pl.adj).outs:
+                srcs.add(prk.reverse_source(pl.adj))
+    for pol in ("fast", "parity", "exact"):
+        with dst.policy(pol):
+            for form in pointwise_forms().values():
+                prog, names = pointwise_program(form, pol)
+                for rows in (4, 1):
+                    add(prog, pointwise_inputs(form[0], (rows, 64), cpu, 0),
+                        [scalar_on(1.0, cpu) for _ in names], 64)
+    for g in (presets.config5_feedback_16node()[0],
+              presets.config3_oversampled_distortion()[0]):
+        cg = dst.compile_graph(g, device="cpu")
+        x = torch.zeros((2, 1, 256))
+        got = []
+        call = pk.group_call
+
+        def spy(prog, sigs, scals, T, device):
+            got.append((prog, list(sigs), list(scals), T))
+            return call(prog, sigs, scals, T, device)
+        with dst.policy("fast"), swapped_attr(comp, "group_call", spy), \
+                swapped_attr(pk, "group_call", spy):
+            cg.render(x, batch_shape=(2,))
+            for prog, sigs, scals, T in got:
+                add(prog, sigs, scals, T)
+    g5 = presets.config5_feedback_16node()[0]
+    g2 = presets.config2_delay_chorus()[0]
+    g_mod, mod_ids = modulated_filters()
+
+    def every(cg):
+        return cg.init_params(requires_grad=True)
+
+    def ratios(cg):
+        return {n: {"ratio": torch.full((2, 256), 0.5, requires_grad=True)}
+                for n in mod_ids}
+    paths = [(bench_graph(), "fast", every, False),
+             (bench_graph(), "fast", lambda c: slider_params(c, "gain",
+                                                             "level"), False),
+             (bench_graph(), "exact", every, True),
+             (envelope_graph(), "fast", every, False),
+             (g2, "fast", every, False),
+             (g5, "fast", None, True),
+             (g_mod, "exact", ratios, True)]
+    paths += [(g5, pol, every, wrt) for pol in ("fast", "parity", "exact")
+              for wrt in (False, True)]
+    for graph, pol, params, wrt in paths:
+        srcs.update(cpu_group_backwards(graph, pol, params, wrt))
+    return sorted(srcs)
 
 
 def pointwise_phase(dev, card) -> dict:
@@ -5721,7 +6140,13 @@ def pointwise_phase(dev, card) -> dict:
     each group's kernel against its plain version, bound and y.copy_, the
     render on both routes in turns; config5 streamed on both routes
     (stream_routes); config5's input gradient through the groups'
-    Function (pointwise_grad).  Returns the kernels line's figures."""
+    Function (pointwise_grad).  The reverse kernel: every form against
+    autograd through interpret (pointwise_reverse_forms), each group of
+    config5 at B_C5 and B_PW_WIDE x 10 s and of config3's render at
+    B_PW_REV_C3 x 10 s (its shapers' passes at R = 4) under both
+    reverse_needs, config5's timed against the route it replaced at B_C5
+    (reverse_group_checks), and N_REV_LAUNCHES launches bitwise equal.
+    Returns the kernels line's figures."""
     import torch
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.models import presets
@@ -5730,6 +6155,9 @@ def pointwise_phase(dev, card) -> dict:
     print("pointwise groups, each form vs its plain version and the eager "
           "code, the card's kernel vs the CPU's plain version:")
     rec["forms"] = pointwise_form_checks(dev)
+    print("pointwise groups' reverse kernel, each form vs autograd through "
+          "interpret:")
+    rec["rev_forms"] = pointwise_reverse_forms(dev)
     print(f"pointwise groups, renders at [{B_EXACT}, 1, {SR}], the kernel "
           f"route vs the plain and the eager routes:")
     rec["small"] = pointwise_small_renders(dev)
@@ -5755,17 +6183,37 @@ def pointwise_phase(dev, card) -> dict:
             del res
             groups = groups_of_render(cg, x, (B,))
             times = group_times(what, groups, dev, card)
+            rev = None
+            if name == "config5":
+                print(f"pointwise groups' reverse kernel, {what}, vs autograd "
+                      f"through interpret:")
+                rev = reverse_group_checks(what, groups, dev, card,
+                                           timed=B == B_C5)
+                if B == B_C5:
+                    reverse_determinism(*groups[0][:3], groups[0][3], dev)
             del groups
             kr, er = route_times(cg, x, (B,))
         print(f"  {what}: the whole render {kr:.3f} ms on the kernel route "
               f"against {er:.3f} ms on the eager route (in turns) [{card}]")
         rec[(name, B)] = dict(launches=launches["pointwise"], times=times,
-                              render=(kr, er), bitwise=bit)
+                              render=(kr, er), bitwise=bit, reverse=rev)
         del x, cg
         torch.cuda.empty_cache()
     check(rec[("config5", B_C5)]["launches"] == 3
           and rec[("config3", B_C3)]["launches"] == 3,
           "config5's and config3's renders launch three groups each")
+    print(f"pointwise groups' reverse kernel, config3 at [{B_PW_REV_C3}, 1, "
+          f"{T_MAIN}] (its shapers' passes at R = 4), vs autograd:")
+    x = torch.as_tensor(rng.standard_normal((B_PW_REV_C3, 1, T_MAIN),
+                                            dtype=np.float32)
+                        * np.float32(0.3), device=dev)
+    with dst.policy("fast"):
+        groups = groups_of_render(dst.compile_graph(g3, device="cuda"), x,
+                                  (B_PW_REV_C3,))
+        rec["rev_config3"] = reverse_group_checks("config3", groups, dev,
+                                                  card)
+    del x, groups
+    torch.cuda.empty_cache()
     print("pointwise groups, config5 streamed (one CUDA graph a block):")
     rec["stream"] = stream_routes(dev, card)
     rec["grad"] = pointwise_grad(dev, card)
@@ -5829,10 +6277,17 @@ def main() -> int:
             jobs.append(("cycle_kernel", ("CY_RECORD",),
                          cycle_kernel.source_for(prog, budget, record=True)))
             labels.append(f"cycle_kernel record build ({name})")
-    # the pointwise kernel, once per group program the smoke launches
+    # the pointwise kernel, once per group program the smoke launches, and
+    # its reverse once per adjoint program
     for i, src in enumerate(pointwise_sources()):
         jobs.append(("pointwise_kernel", (), src))
         labels.append(f"pointwise_kernel (group program {i})")
+    t_rev = time.time()
+    for i, src in enumerate(pointwise_reverse_sources()):
+        jobs.append(("pointwise_reverse_kernel", (), src))
+        labels.append(f"pointwise_reverse_kernel (adjoint program {i})")
+    print(f"the reverse pointwise kernel's adjoint programs collected in "
+          f"{time.time() - t_rev:.1f} s")
     built = cuda_build.build_jobs(jobs)
     print(f"nvcc build of {len(built)} kernels: {time.time() - t0:.1f} s")
     for label, (lib, log) in zip(labels, built):
@@ -6249,6 +6704,10 @@ def main() -> int:
     program5 = programs["config5"][0]
     pw5, pw5w, pw3 = (pw[(name, b)] for name, b in (
         ("config5", B_C5), ("config5", B_PW_WIDE), ("config3", B_C3)))
+    # the reverse kernel: config5's first group (pre -> overdrive ->
+    # distort) at B_C5 x 10 s, the input gradient's program (need 1)
+    rev5 = [r for r in pw5["reverse"] if sum(r[0]) == 1]
+    rev5_all = [r for r in pw5["reverse"] if sum(r[0]) > 1]
     print(f"chip_smoke total: {time.time() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": [
         entry("chain_kernel", "chain_kernel.cu",
@@ -6282,6 +6741,22 @@ def main() -> int:
                                     in pw["stream"].items()},
               stream_block_ms={r: (v["median"], v["p99"]) for r, v
                                in pw["stream"].items()}),
+        entry("pointwise_reverse_kernel", "pointwise_reverse_kernel.cu",
+              "dsp_stuff_tpu/compiler/compile.py:230",
+              gr["c5_input"]["bwd"]["pointwise_reverse"],
+              max(r[1] for r in rev5), rev5[0][3:5], rev5[0][5],
+              group="pre -> overdrive -> distort (config5), the input's "
+                    "gradient", shape=[B_C5, T_MAIN], device_ms=rev5[0][6],
+              groups_config5=[(*r[3:5], r[6]) for r in rev5],
+              bound_ms_groups=[r[5][0] for r in rev5],
+              ms_every_gradient=rev5_all[0][3],
+              plain_ms_every_gradient=rev5_all[0][4],
+              bound_ms_every_gradient=rev5_all[0][5][0],
+              launches_fit_step=fit_rec["reverse_launches"],
+              config5_input_grad_device_ms=gr["c5_split"]["device_ms"],
+              config5_input_grad_elementwise_ms=gr["c5_split"]["split"].get(
+                  "elementwise"),
+              config5_input_grad_peak_gib=gr["c5_split"]["peak"]),
         entry("cycle_kernel", "cycle_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_cycle.py:220",
               c5_launches["cycle"], cycle_err, times["cycle"],

@@ -18,7 +18,9 @@ plan made once per graph:
   base rate, and the Output nodes' fan-in averages) gather into pointwise
   groups, each one straight-line program (compiler/pointwise.py) that
   runs as one generated kernel on a CUDA device (ops/pointwise_kernel.py),
-  what XLA's loop fusion gives the JAX package inside ``jax.jit``;
+  its backward one generated reverse kernel (ops/pointwise_reverse_
+  kernel.py), what XLA's loop fusion gives the JAX package inside
+  ``jax.jit`` and ``jax.grad`` through it;
 * each feedback SCC evaluates over 128-sample blocks, an intra-cycle edge
   from a not-yet-run member carrying exactly one block of delay (the
   defined semantic of the reference's emergent pipe latency): under

@@ -30,6 +30,17 @@ in device memory: a slider, a level, a fan-in divisor).  Literal
 constants are only the node code's own (0.5 of a map, the shapers' 2/pi,
 the bypass threshold), so two groups of one structure are one program
 whatever their sliders hold.
+
+A group's backward is another straight-line program over the same IR,
+:func:`adjoint`: the forward's values recomputed from the operands, then
+autograd's formula for each eager op's vjp in reverse order, with a
+``red`` op wherever autograd sums a gradient to a narrower operand's
+shape.  The values' shapes enter through their *class*
+(:data:`CLASSES`): which axes of the launch's [rows, T] a value spans,
+so the uniform part of the backward is computed once, not once a sample.
+:func:`interpret_adjoint` is its plain version; the reverse kernel
+(ops/pointwise_reverse_kernel.py, csrc/pointwise_reverse_kernel.cu) runs
+it on the card.
 """
 
 from __future__ import annotations
@@ -55,8 +66,12 @@ OPS = {
     "where": (3, None), "clamp": (1, None),
     "f64": (1, "f64"), "f32": (1, "f32"),
     "atan": (1, None), "tanh": (1, None), "sin": (1, None),
+    "cos": (1, None),
+    # the adjoint's own: the k-th output's cotangent, and a sum to a
+    # narrower class (imm: (target class, source class))
+    "ct": (0, "f32"), "red": (1, None),
 }
-TRANSCENDENTALS = ("atan", "tanh", "sin")
+TRANSCENDENTALS = ("atan", "tanh", "sin", "cos")
 
 _PI4 = float(np.float32(np.pi / 4.0))
 _TWO_PI = float(np.float32(2.0 / np.pi))
@@ -358,62 +373,67 @@ def interpret(prog: Program, sigs, scals, T: int, device) -> list:
     operands ``sigs`` ([..., T] or [T] f32 tensors) and the scalar
     operands ``scals`` (0-d f32 tensors); returns its outputs.  Each op is
     the eager op the lowering mirrors, so under autograd its vjp is the
-    eager ops' (ops/pointwise_kernel.PointwiseGroup's backward)."""
+    eager ops' (ops/pointwise_kernel.group_vjp, the autograd reference of
+    a group's backward)."""
     vals: list = []
     for op, dt, args, imm in prog.ops:
-        a = [vals[i] for i in args]
         if op == "sig":
-            v = sigs[imm]
+            vals.append(sigs[imm])
         elif op == "scal":
-            v = scals[imm]
-        elif op == "const":
-            v = imm
-        elif op == "zero":
-            v = torch.zeros((T,), dtype=torch.float32, device=device)
-        elif op == "add":
-            v = a[0] + a[1]
-        elif op == "sub":
-            v = a[0] - a[1]
-        elif op == "mul":
-            v = a[0] * a[1]
-        elif op == "div":
-            v = div_ieee(a[0], a[1])
-        elif op == "neg":
-            v = -a[0]
-        elif op == "abs":
-            v = torch.abs(a[0])
-        elif op == "sign":
-            v = torch.sign(a[0])
-        elif op == "lt":
-            v = a[0] < a[1]
-        elif op == "le":
-            v = a[0] <= a[1]
-        elif op == "gt":
-            v = a[0] > a[1]
-        elif op == "ge":
-            v = a[0] >= a[1]
-        elif op == "and":
-            v = a[0] & a[1]
-        elif op == "or":
-            v = a[0] | a[1]
-        elif op == "where":
-            # a constant arm as a cached 0-d tensor (as the eager shapers
-            # pass theirs): no host data is made
-            c, x, y = (scalar_on(t, device, _TORCH_DTYPES[dt])
-                       if isinstance(t, float) else t for t in a)
-            v = torch.where(c, x, y)
-        elif op == "clamp":
-            v = torch.clamp(a[0], imm[0], imm[1])
-        elif op == "f64":
-            v = a[0].to(torch.float64)
-        elif op == "f32":
-            v = a[0].to(torch.float32)
-        elif op in TRANSCENDENTALS:
-            v = getattr(torch, op)(a[0])
+            vals.append(scals[imm])
         else:
-            raise ValueError(f"pointwise: unknown op {op!r}")
-        vals.append(v)
+            vals.append(_eval(op, dt, [vals[i] for i in args], imm, T,
+                              device))
     return [vals[i] for i in prog.outs]
+
+
+def _eval(op, dt, a, imm, T: int, device):
+    """One op of a program as its eager PyTorch op."""
+    if op == "const":
+        return imm
+    if op == "zero":
+        return torch.zeros((T,), dtype=torch.float32, device=device)
+    if op == "add":
+        return a[0] + a[1]
+    if op == "sub":
+        return a[0] - a[1]
+    if op == "mul":
+        return a[0] * a[1]
+    if op == "div":
+        return div_ieee(a[0], a[1])
+    if op == "neg":
+        return -a[0]
+    if op == "abs":
+        return torch.abs(a[0])
+    if op == "sign":
+        return torch.sign(a[0])
+    if op == "lt":
+        return a[0] < a[1]
+    if op == "le":
+        return a[0] <= a[1]
+    if op == "gt":
+        return a[0] > a[1]
+    if op == "ge":
+        return a[0] >= a[1]
+    if op == "and":
+        return a[0] & a[1]
+    if op == "or":
+        return a[0] | a[1]
+    if op == "where":
+        # a constant arm as a cached 0-d tensor (as the eager shapers
+        # pass theirs): no host data is made
+        c, x, y = (scalar_on(t, device, _TORCH_DTYPES[dt])
+                   if isinstance(t, float) else t for t in a)
+        return torch.where(c, x, y)
+    if op == "clamp":
+        return torch.clamp(a[0], imm[0], imm[1])
+    if op == "f64":
+        return a[0].to(torch.float64)
+    if op == "f32":
+        return a[0].to(torch.float32)
+    if op in TRANSCENDENTALS:
+        return getattr(torch, op)(a[0])
+    raise ValueError(f"pointwise: unknown op {op!r}")
 
 
 def shapes(prog: Program, sig_shapes, scal_shapes, T: int) -> list:
@@ -432,4 +452,308 @@ def shapes(prog: Program, sig_shapes, scal_shapes, T: int) -> list:
         else:
             s = tuple(torch.broadcast_shapes(*(out[i] for i in args)))
         out.append(s)
+    return out
+
+
+# -- the adjoint --------------------------------------------------------------
+# A value's class says which axes of the launch's iteration shape [rows, T]
+# it spans: "U" neither (a slider, a constant), "R" the rows alone (a
+# [..., 1] operand), "C" the time alone (an unbatched [T] signal: an LFO, a
+# map of one), "F" both.  A class is the union of its operands' (the
+# broadcast), and autograd sums a gradient wherever a consumer's class is
+# wider than its operand's.
+
+#: the classes, by their bits (1: the rows, 2: the time)
+CLASSES = ("U", "R", "C", "F")
+
+
+def join(*classes) -> str:
+    """The class of a broadcast of values of ``classes``."""
+    bits = 0
+    for c in classes:
+        bits |= CLASSES.index(c)
+    return CLASSES[bits]
+
+
+def class_shape(c: str, rows: int, T: int) -> tuple:
+    """The 2-D shape of a value of class ``c`` in a [rows, T] launch."""
+    bits = CLASSES.index(c)
+    return (rows if bits & 1 else 1, T if bits & 2 else 1)
+
+
+class Adjoint(NamedTuple):
+    """A group's backward as one straight-line program (:func:`adjoint`):
+    ``ops`` as in :class:`Program`, with ``ct`` (imm k: the k-th output's
+    cotangent), ``cos`` and ``red`` (imm (target, source): the sum of its
+    operand, broadcast to the source class, over the axes the target
+    class lacks, as autograd sums a consumer's gradient to its operand's
+    shape); ``cls`` each value's class; ``grads`` each operand's gradient
+    (signals, then scalars) as a value id, or None where it gets none
+    (not needed, or no cotangent reaches it); the operand counts, and the
+    classes the operands were given (``classes``).  Hashable: a build is
+    keyed on it."""
+    ops: tuple
+    cls: tuple
+    grads: tuple
+    n_sig: int
+    n_scal: int
+    n_ct: int
+    classes: tuple
+
+
+class _AdjointBuilder(Builder):
+    """A Builder that tracks each value's class."""
+
+    def __init__(self, classes, ct_classes):
+        super().__init__()
+        self.cls: list = []
+        self._classes = classes
+        self._ct_classes = ct_classes
+
+    def _op(self, op: str, args: tuple = (), imm=None, dtype=None) -> int:
+        n = len(self.ops)
+        got = super()._op(op, args, imm, dtype)
+        if got == n:
+            if op == "sig":
+                c = self._classes[imm]
+            elif op == "ct":
+                c = self._ct_classes[imm]
+            elif op == "red":
+                c = imm[0]
+            elif op == "zero":
+                c = "C"
+            else:
+                c = join("U", *(self.cls[a] for a in args))
+            self.cls.append(c)
+        return got
+
+
+#: ops whose results carry no gradient
+_NO_GRAD = ("lt", "le", "gt", "ge", "and", "or", "const", "zero")
+
+
+def adjoint(prog: Program, need: tuple, has_ct: tuple,
+            classes: tuple) -> Adjoint:
+    """The backward of ``prog``: the gradients of the operands that
+    ``need`` one (a bool each, signals then scalars) from the cotangents of
+    the outputs that ``has_ct`` (a missing cotangent is zero and adds no
+    op), the operands of ``classes`` (each signal's class; scalars are
+    "U").
+
+    It recomputes every forward value it uses from the operands (nothing
+    else is saved), then walks the ops backwards; each op's vjp is
+    autograd's formula for its eager op, in the op's dtype: mul g*b, g*a;
+    add g, g; sub g, -g; div g / b and -g * ((a / b) / b), but 1 / b (the
+    eager ``c / b``, reciprocal(b) * c) -(g * c) * (r * r); abs g *
+    sgn(x); sign +0; where where(c, g, 0), where(c, 0, g); clamp
+    where(lo <= x <= hi, g, 0); tanh g * (1 - y * y) from its output; atan
+    g / (x * x + 1); sin g * cos(x); a cast the cast back.  A value with
+    several uses adds its contributions in the order autograd's engine
+    does: the cotangents first (in output order), then the latest consumer
+    first.  Adjoints flow only into values that depend on a needed
+    operand (as autograd builds no node for the rest), so no 0 * inf
+    appears where autograd computes nothing.  A consumer whose class is
+    wider than its operand's sums its contribution with a ``red`` op;
+    above it the chain runs at the operand's class.  Values no needed
+    gradient depends on are dropped."""
+    n_sig, n_scal = prog.n_sig, prog.n_scal
+    classes = tuple(classes[:n_sig]) + ("U",) * n_scal
+    fc: list = []               # the forward values' classes
+    rg: list = []               # ... and whether they carry a gradient
+    for op, dt, args, imm in prog.ops:
+        if op == "sig":
+            fc.append(classes[imm])
+            rg.append(bool(need[imm]))
+        elif op == "scal":
+            fc.append("U")
+            rg.append(bool(need[n_sig + imm]))
+        else:
+            fc.append("C" if op == "zero" else
+                      join("U", *(fc[a] for a in args)))
+            rg.append(op not in _NO_GRAD and dt != "bool"
+                      and any(rg[a] for a in args))
+    b = _AdjointBuilder(classes, tuple(fc[o] for o in prog.outs))
+    fwd: dict = {}
+
+    def val(i):
+        """Forward value i, recomputed in the adjoint program."""
+        if i not in fwd:
+            op, dt, args, imm = prog.ops[i]
+            fwd[i] = b._op(op, tuple(val(a) for a in args), imm, dt)
+        return fwd[i]
+
+    # every operand, in order (so the ids of sig k and scal k are fixed)
+    for i, (op, _, _, _) in enumerate(prog.ops):
+        if op in ("sig", "scal"):
+            val(i)
+    adj: list = [None] * len(prog.ops)
+
+    def give(v, c, consumer):
+        """Add contribution ``c`` (of the consumer's class) to value v's
+        adjoint, summed to v's class first where the consumer's is
+        wider."""
+        src = fc[consumer] if consumer is not None else fc[v]
+        if src != fc[v]:
+            c = b._op("red", (c,), (fc[v], src), prog.ops[v][1])
+        adj[v] = c if adj[v] is None else b.add(adj[v], c)
+
+    for k, o in enumerate(prog.outs):
+        if has_ct[k] and rg[o]:
+            give(o, b._op("ct", imm=k), None)
+    for i in range(len(prog.ops) - 1, -1, -1):
+        op, dt, args, imm = prog.ops[i]
+        g = adj[i]
+        if g is None or not rg[i] or op in ("sig", "scal"):
+            continue
+        for pos, c in _vjp(b, val, prog, i, g):
+            if rg[args[pos]]:
+                give(args[pos], c(), i)
+    grads = []
+    for i, (op, _, _, imm) in enumerate(prog.ops):
+        if op == "sig":
+            grads.append((imm, adj[i]))
+        elif op == "scal":
+            grads.append((n_sig + imm, adj[i]))
+    grads = tuple(g if need[k] else None for k, g in sorted(grads))
+    return _live(b, grads, n_sig, n_scal, len(prog.outs), classes)
+
+
+def _vjp(b, val, prog, i, g):
+    """[(operand position, contribution thunk)] of op i's vjp with
+    adjoint ``g``: autograd's formula of the eager op (a thunk, so that a
+    position that carries no gradient adds no op)."""
+    op, dt, args, imm = prog.ops[i]
+    ops = prog.ops
+    zero = lambda: b.const(0.0, dt)                      # noqa: E731
+    one = lambda: b.const(1.0, dt)                       # noqa: E731
+    x = lambda k: val(args[k])                           # noqa: E731
+    if op == "add":
+        return [(0, lambda: g), (1, lambda: g)]
+    if op == "sub":
+        return [(0, lambda: g), (1, lambda: b.neg(g))]
+    if op == "mul":
+        return [(0, lambda: b.mul(g, x(1))), (1, lambda: b.mul(g, x(0)))]
+    if op == "div":
+        if ops[args[0]][0] == "const":
+            # ``c / b`` is reciprocal(b) * c: MulBackward by c (exact at 1),
+            # then ReciprocalBackward -grad * (r * r)
+            def recip():
+                c = ops[args[0]][3]
+                gr = g if c == 1.0 else b.mul(g, x(0))
+                r = val(i) if c == 1.0 else b.div(one(), x(1))
+                return b.mul(b.neg(gr), b.mul(r, r))
+            return [(1, recip)]
+        return [(0, lambda: b.div(g, x(1))),
+                (1, lambda: b.mul(b.neg(g), b.div(val(i), x(1))))]
+    if op == "neg":
+        return [(0, lambda: b.neg(g))]
+    if op == "abs":
+        return [(0, lambda: b.mul(g, b.sign(x(0))))]
+    if op == "sign":
+        return [(0, zero)]
+    if op == "where":
+        return [(1, lambda: b.where(x(0), g, zero())),
+                (2, lambda: b.where(x(0), zero(), g))]
+    if op == "clamp":
+        lo, hi = imm
+        return [(0, lambda: b.where(b.and_(b.ge(x(0), b.const(lo, dt)),
+                                           b.le(x(0), b.const(hi, dt))),
+                                    g, zero()))]
+    if op == "tanh":
+        return [(0, lambda: b.mul(g, b.sub(one(), b.mul(val(i), val(i)))))]
+    if op == "atan":
+        return [(0, lambda: b.div(g, b.add(b.mul(x(0), x(0)), one())))]
+    if op == "sin":
+        return [(0, lambda: b.mul(g, b._op("cos", (x(0),))))]
+    if op == "f64":
+        return [(0, lambda: b._op("f32", (g,)))]
+    if op == "f32":
+        return [(0, lambda: b._op("f64", (g,)))]
+    raise ValueError(f"pointwise adjoint: no vjp for op {op!r}")
+
+
+def _live(b, grads, n_sig, n_scal, n_ct, classes) -> Adjoint:
+    """The adjoint program of builder ``b`` computing ``grads``: dead ops
+    dropped (the operands and cotangents kept, so their indices hold) and
+    the values renumbered in order."""
+    live = set()
+    stack = [g for g in grads if g is not None]
+    while stack:
+        v = stack.pop()
+        if v not in live:
+            live.add(v)
+            stack.extend(b.ops[v][2])
+    new: dict = {}
+    ops, cls = [], []
+    for i, (op, dt, args, imm) in enumerate(b.ops):
+        if i in live or op in ("sig", "scal"):
+            new[i] = len(ops)
+            ops.append((op, dt, tuple(new[a] for a in args), imm))
+            cls.append(b.cls[i])
+    return Adjoint(tuple(ops), tuple(cls),
+                   tuple(None if g is None else new[g] for g in grads),
+                   n_sig, n_scal, n_ct, tuple(classes))
+
+
+def class_of(shape, F) -> str:
+    """The class of an operand of ``shape`` in the iteration shape ``F``
+    (its last axis T): it spans the rows where its batch is F's (so every
+    operand does in a one-row launch), and the time where its last axis is
+    T; one that spans part of the batch is taken as spanning all of it
+    (the wrapper expands it)."""
+    lead = (1,) * (len(F) - len(shape)) + tuple(shape)
+    n = int(np.prod(lead[:-1], dtype=np.int64))
+    rows = n > 1 or int(np.prod(F[:-1], dtype=np.int64)) == 1
+    return CLASSES[int(rows) | int(lead[-1] == F[-1]) << 1]
+
+
+def interpret_adjoint(adj: Adjoint, sigs, scals, cts, rows: int, T: int,
+                      device, sums64: bool = False) -> list:
+    """Run the adjoint program ``adj`` as PyTorch ops on the operands laid
+    out as 2-D tensors of their classes' shapes (``class_shape``: each
+    signal [rows or 1, T or 1], each scalar 0-d or [1, 1]) and the
+    cotangents likewise (None where ``adj`` reads none): the per-element
+    ops as the eager ops, each ``red`` as ``sum_to_size`` of its operand
+    broadcast to its source class (autograd's sum of a consumer's
+    gradient), and the reduced tail after it; with ``sums64`` each sum in
+    float64, rounded once to its dtype, as the reverse kernel takes it.
+    Returns each operand's gradient at its class's 2-D shape, or None.
+    The reverse kernel's plain version (ops/pointwise_kernel.
+    group_adjoint)."""
+    keep = {g for g in adj.grads if g is not None}
+    last: dict = {}                 # each value's last use, to free it
+    for i, (_, _, args, _) in enumerate(adj.ops):
+        for a in args:
+            last[a] = i
+    vals: list = []
+    for i, (op, dt, args, imm) in enumerate(adj.ops):
+        a = [vals[j] for j in args]
+        if op == "sig":
+            v = sigs[imm]
+        elif op == "scal":
+            v = scals[imm]
+        elif op == "ct":
+            v = cts[imm]
+        elif op == "red":
+            t = (scalar_on(a[0], device, _TORCH_DTYPES[dt])
+                 if isinstance(a[0], float) else a[0])
+            t = t.expand(class_shape(imm[1], rows, T))
+            v = (t.double().sum_to_size(class_shape(imm[0], rows, T)).to(
+                t.dtype) if sums64 else t.sum_to_size(
+                    class_shape(imm[0], rows, T)))
+        else:
+            v = _eval(op, dt, a, imm, T, device)
+        vals.append(v)
+        for j in args:
+            if last[j] == i and j not in keep:
+                vals[j] = None
+    out = []
+    for k, g in enumerate(adj.grads):
+        if g is None:
+            out.append(None)
+            continue
+        v = vals[g]
+        if isinstance(v, float):
+            v = scalar_on(v, device, _TORCH_DTYPES[adj.ops[g][1]])
+        out.append(v.expand(class_shape(adj.classes[k], rows, T)))
     return out

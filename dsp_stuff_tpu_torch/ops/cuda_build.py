@@ -12,7 +12,8 @@ header with the program's straight-line block code (its adjoint for the
 reverse), which the source includes (``header``: written next to the
 library and passed as ``-DKERNEL_PROGRAM_H``), as the JAX package's
 Pallas cycle kernel is traced once per program.  The pointwise kernel is
-built the same way once per group program (ops/pointwise_kernel.py).
+built the same way once per group program (ops/pointwise_kernel.py), its
+reverse once per adjoint program (ops/pointwise_reverse_kernel.py).
 
 The flags keep the kernels on the plain PyTorch versions' roundings:
 ``-fmad=false`` (no multiply-add contraction) and no ``--use_fast_math``.
@@ -36,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: the kernel sources, by name
 KERNELS = ("chain_kernel", "chain_reverse_kernel", "cycle_kernel",
            "cycle_reverse_kernel", "envelope_kernel", "first_order_kernel",
-           "pointwise_kernel", "sequential_kernel")
+           "pointwise_kernel", "pointwise_reverse_kernel",
+           "sequential_kernel")
 #: the kernels built without a generated header
 STATIC_KERNELS = ("chain_kernel", "chain_reverse_kernel", "envelope_kernel",
                   "first_order_kernel", "sequential_kernel")
@@ -71,16 +73,18 @@ def lib_path(name: str, defines: tuple = (),
 
 def build_jobs(jobs) -> list[tuple[pathlib.Path, str]]:
     """Compile each (name, defines, header) of ``jobs`` whose library is
-    not built yet, one ``nvcc`` each, all started together.  Returns
-    (library path, nvcc's output, empty when cached) per job; raises if
-    any build fails."""
+    not built yet, one ``nvcc`` each, all started together (a job listed
+    twice builds once).  Returns (library path, nvcc's output, empty when
+    cached) per job; raises if any build fails."""
     out: list = [None] * len(jobs)
     running = []
+    first: dict = {}                    # library -> the job that builds it
     for i, (name, defines, header) in enumerate(jobs):
         lib = lib_path(name, defines, header)
-        if lib.exists():
+        if lib.exists() or lib in first:
             out[i] = (lib, "")
             continue
+        first[lib] = i
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         args = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines)]

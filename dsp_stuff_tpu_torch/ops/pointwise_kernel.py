@@ -21,10 +21,14 @@ and the outputs are allocated on the current stream's pool, so the launch
 records into a captured stream step as it is.
 
 Under autograd (an operand that requires grad) the launch runs inside
-:class:`PointwiseGroup`: the kernel forward; backward the vjp of the plain
-interpreter recomputed from the saved operands (as ``segment_vjp`` served
-the chain segment before its reverse kernel).  ``LAUNCHES`` counts the
-kernel's launches.
+:class:`PointwiseGroup`: the kernel forward, and on the card the reverse
+kernel backward (ops/pointwise_reverse_kernel.py: the group's adjoint
+program, compiler/pointwise.adjoint, recomputed from the saved operands in
+registers).  Its plain version is :func:`group_adjoint`;
+:func:`group_vjp`, autograd through the plain interpreter, is the
+reference of the route it replaced (as ``segment_vjp`` is the chain
+segment's) and the Function's backward where none is given.
+``LAUNCHES`` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -71,6 +75,37 @@ def _lit(v: float, dt: str) -> str:
     return f"{float(f).hex()}f"
 
 
+def c_expr(op: str, dt: str, a: list, imm) -> str:
+    """The CUDA expression of one op of a program (not an operand) on the
+    expressions ``a`` of its operands: each f32 (f64) arithmetic op its
+    ``__f*_rn`` (``__d*_rn``) intrinsic, rounded once as the eager op."""
+    if op == "const":
+        return _lit(imm, dt)
+    if op == "zero":
+        return "0.0f"
+    if op in _BIN:
+        return f"__{'f' if dt == 'f32' else 'd'}{_BIN[op]}_rn({a[0]}, {a[1]})"
+    if op in _CMP:
+        return f"({a[0]} {_CMP[op]} {a[1]})"
+    if op == "neg":
+        return f"(-{a[0]})"
+    if op == "abs":
+        return f"fabs{'f' if dt == 'f32' else ''}({a[0]})"
+    if op == "sign":
+        return f"pw_sign({a[0]})"
+    if op == "where":
+        return f"({a[0]} ? {a[1]} : {a[2]})"
+    if op == "clamp":
+        return f"pw_clamp({a[0]}, {_lit(imm[0], dt)}, {_lit(imm[1], dt)})"
+    if op == "f64":
+        return f"(double){a[0]}"
+    if op == "f32":
+        return f"__double2float_rn({a[0]})"
+    if op in pointwise.TRANSCENDENTALS:
+        return f"{op}{'f' if dt == 'f32' else ''}({a[0]})"
+    raise ValueError(f"pointwise kernel: unknown op {op!r}")
+
+
 @functools.lru_cache(maxsize=256)
 def source(prog: pointwise.Program) -> str:
     """The generated header of the kernel for ``prog``: the operand counts,
@@ -91,35 +126,10 @@ def source(prog: pointwise.Program) -> str:
             return f"x[{imm}]"
         if op == "scal":
             return f"*s[{imm}]"
-        if op == "const":
-            return _lit(imm, dt)
-        if op == "zero":
-            return "0.0f"
         if op == "div" and uniform[args[1]] and not uniform[args[0]]:
             # a divisor of scalars alone stays at its use (pw_fresh)
             a[1] = f"pw_fresh({a[1]})"
-        if op in _BIN:
-            return f"__{'f' if dt == 'f32' else 'd'}{_BIN[op]}_rn({a[0]}, {a[1]})"
-        if op in _CMP:
-            return f"({a[0]} {_CMP[op]} {a[1]})"
-        if op == "neg":
-            return f"(-{a[0]})"
-        if op == "abs":
-            return f"fabs{'f' if dt == 'f32' else ''}({a[0]})"
-        if op == "sign":
-            return f"pw_sign({a[0]})"
-        if op == "where":
-            return f"({a[0]} ? {a[1]} : {a[2]})"
-        if op == "clamp":
-            return (f"pw_clamp({a[0]}, {_lit(imm[0], dt)}, "
-                    f"{_lit(imm[1], dt)})")
-        if op == "f64":
-            return f"(double){a[0]}"
-        if op == "f32":
-            return f"__double2float_rn({a[0]})"
-        if op in pointwise.TRANSCENDENTALS:
-            return f"{op}{'f' if dt == 'f32' else ''}({a[0]})"
-        raise ValueError(f"pointwise kernel: unknown op {op!r}")
+        return c_expr(op, dt, a, imm)
 
     fields = [f"  {_CT[dt]} v{i};" for i, (_, dt, _, _) in enumerate(prog.ops)
               if uniform[i]]
@@ -303,18 +313,127 @@ def _kernel_group(prog: pointwise.Program, sigs, scals, T: int, device):
     return ln.outs
 
 
+class AdjointPlan(NamedTuple):
+    """A group's backward laid out (:func:`plan_adjoint`): its adjoint
+    program, the iteration shape F as [rows, T], each operand and
+    cotangent as a 2-D tensor of its class's shape (``pointwise.
+    class_shape``; a cotangent the program reads no None) and each
+    operand's shape and class, to shape its gradient back."""
+    adj: pointwise.Adjoint
+    F: tuple
+    rows: int
+    T: int
+    sigs: list
+    scals: list
+    cts: list
+    shapes: tuple
+    classes: tuple
+
+
+def _batch_of(c: str, F: tuple) -> tuple:
+    """The batch axes of a value of class ``c`` in the iteration shape F."""
+    return (tuple(F[:-1]) if pointwise.CLASSES.index(c) & 1
+            else (1,) * (len(F) - 1))
+
+
+def _to_class(t, c: str, F: tuple, rows: int, T: int) -> torch.Tensor:
+    """``t`` (broadcastable to F) as the 2-D tensor of class ``c``: a
+    view where its layout allows, expanded over F's batch where it spans
+    part of it."""
+    lead = (1,) * (len(F) - t.dim()) + tuple(t.shape)
+    return t.reshape(lead).expand(*_batch_of(c, F), lead[-1]).reshape(
+        pointwise.class_shape(c, rows, T))
+
+
+def _from_class(g, shape, c: str, F: tuple) -> torch.Tensor:
+    """A 2-D gradient of class ``c`` as its operand's ``shape``: summed
+    over the batch an operand that spans part of it was expanded to."""
+    lead = (1,) * (len(F) - len(shape)) + tuple(shape)
+    g = g.reshape(*_batch_of(c, F), lead[-1])
+    if tuple(g.shape) != lead:
+        g = g.sum_to_size(lead)
+    return g.reshape(shape)
+
+
+@functools.lru_cache(maxsize=1024)
+def adjoint_of(prog: pointwise.Program, need: tuple, has_ct: tuple,
+               classes: tuple) -> pointwise.Adjoint:
+    """``pointwise.adjoint``, once per (program, need, cotangents,
+    classes)."""
+    return pointwise.adjoint(prog, need, has_ct, classes)
+
+
+def plan_adjoint(prog: pointwise.Program, sigs, scals, cts, need,
+                 T: int) -> AdjointPlan:
+    """Lay out the backward of ``prog`` on its operands and the cotangents
+    of its outputs (None: no cotangent) for the operands that ``need`` a
+    gradient: the forward's iteration shape, each signal's class, the
+    adjoint program and the 2-D tensors it reads."""
+    F, rows, out_shapes = layout(prog, tuple(s.shape for s in sigs),
+                                 tuple(s.shape for s in scals), T)
+    classes = tuple(pointwise.class_of(s.shape, F) for s in sigs)
+    adj = adjoint_of(prog, tuple(bool(n) for n in need),
+                     tuple(c is not None for c in cts), classes)
+    read = {imm for op, _, _, imm in adj.ops if op == "ct"}
+    ct2 = [_to_class(c, pointwise.class_of(out_shapes[k], F), F, rows, T)
+           if k in read else None for k, c in enumerate(cts)]
+    sig2 = [_to_class(s, c, F, rows, T) for s, c in zip(sigs, classes)]
+    return AdjointPlan(adj, F, rows, T, sig2, list(scals), ct2,
+                       tuple(tuple(t.shape) for t in (*sigs, *scals)),
+                       classes + ("U",) * len(scals))
+
+
+def shaped_grads(pl: AdjointPlan, grads) -> list:
+    """The 2-D gradients of a plan as its operands' shapes (None stays)."""
+    return [None if g is None else _from_class(g, shape, c, pl.F)
+            for g, shape, c in zip(grads, pl.shapes, pl.classes)]
+
+
+def group_adjoint(prog: pointwise.Program, sigs, scals, cts, need,
+                  T: int, device, sums64: bool = False) -> list:
+    """The reverse kernel's plain version: the gradients of the operands
+    that ``need`` one (None for the rest, and where no cotangent reaches
+    one), ``pointwise.interpret_adjoint`` of the group's adjoint program:
+    its per-element ops, ``sum_to_size`` at each reduction (in float64,
+    rounded once, with ``sums64``, as the kernel sums) and the reduced
+    tail, in PyTorch ops.  Nothing on the card's path calls it."""
+    pl = plan_adjoint(prog, sigs, scals, cts, need, T)
+    return shaped_grads(pl, pointwise.interpret_adjoint(
+        pl.adj, pl.sigs, pl.scals, pl.cts, pl.rows, T, device, sums64))
+
+
+def group_vjp(prog: pointwise.Program, sigs, scals, cts, need, T: int,
+              device) -> list:
+    """The vjp of ``pointwise.interpret`` by autograd, recomputed from the
+    operands: the eager ops' backward, each gradient summed to its
+    operand's shape by autograd (a needed operand no cotangent reaches
+    gets zeros).  The reference the reverse kernel is held to, the route
+    it replaced, and PointwiseGroup's backward where none is given."""
+    ops = [t.detach().requires_grad_(True) if n else t.detach()
+           for t, n in zip((*sigs, *scals), need)]
+    n_sig = len(sigs)
+    with torch.enable_grad():
+        outs = pointwise.interpret(prog, ops[:n_sig], ops[n_sig:], T,
+                                   device)
+        return grads_of(outs, cts, [t if n else None
+                                    for t, n in zip(ops, need)])
+
+
 class PointwiseGroup(torch.autograd.Function):
-    """A group on the card under autograd: ``apply(forward, prog, T,
-    device, n_sig, *sigs, *scals)`` runs ``forward(prog, sigs, scals, T,
-    device)`` once (the kernel, ``_kernel_group``; a test passes
-    ``pointwise.interpret``) and saves the operands; the backward is the
-    vjp of ``pointwise.interpret`` recomputed from them, each gradient
-    summed to its operand's shape by autograd."""
+    """A group on the card under autograd: ``apply(forward, backward,
+    prog, T, device, n_sig, *sigs, *scals)`` runs ``forward(prog, sigs,
+    scals, T, device)`` once (the kernel, ``_kernel_group``; a test passes
+    ``pointwise.interpret``) and saves the operands; the backward runs
+    ``backward(prog, sigs, scals, cts, need, T, device)`` on them (the
+    reverse kernel on the card, ops/pointwise_reverse_kernel.
+    reverse_group; a test passes :func:`group_adjoint`), :func:`group_vjp`
+    where it is None.  A missing cotangent stays None."""
 
     @staticmethod
-    def forward(ctx, forward, prog, T, device, n_sig, *operands):
+    def forward(ctx, forward, backward, prog, T, device, n_sig, *operands):
         ctx.set_materialize_grads(False)
         ctx.prog, ctx.T, ctx.dev, ctx.n_sig = prog, T, device, n_sig
+        ctx.backward_fn = backward or group_vjp
         ctx.save_for_backward(*operands)
         with torch.no_grad():
             outs = forward(prog, list(operands[:n_sig]),
@@ -323,37 +442,38 @@ class PointwiseGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *cts):
-        need = ctx.needs_input_grad[5:]
-        ops = [t.detach().requires_grad_(n) if n else t.detach()
-               for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            outs = pointwise.interpret(ctx.prog, ops[:ctx.n_sig],
-                                       ops[ctx.n_sig:], ctx.T, ctx.dev)
-            grads = grads_of(outs, cts, [t if n else None
-                                         for t, n in zip(ops, need)])
-        return (None, None, None, None, None, *grads)
+        need = ctx.needs_input_grad[6:]
+        ops = ctx.saved_tensors
+        grads = ctx.backward_fn(ctx.prog, list(ops[:ctx.n_sig]),
+                                list(ops[ctx.n_sig:]), list(cts), need,
+                                ctx.T, ctx.dev)
+        return (None,) * 6 + tuple(grads)
 
 
-def run(forward, prog, sigs, scals, T: int, device) -> list:
+def run(forward, prog, sigs, scals, T: int, device, backward=None) -> list:
     """``forward(prog, sigs, scals, T, device)``, through
     ``PointwiseGroup`` when autograd must see it (the card's dispatch; a
-    test passes ``pointwise.interpret``)."""
+    test passes ``pointwise.interpret``) with ``backward`` as its backward
+    (:func:`group_vjp` where None)."""
     if not needs_grad((*sigs, *scals)):
         return list(forward(prog, list(sigs), list(scals), T, device))
-    return list(PointwiseGroup.apply(forward, prog, T, device, len(sigs),
-                                     *sigs, *scals))
+    return list(PointwiseGroup.apply(forward, backward, prog, T, device,
+                                     len(sigs), *sigs, *scals))
 
 
 def group_call(prog: pointwise.Program, sigs, scals, T: int,
                device) -> list:
-    """The outputs of the group ``prog``: the kernel on the card, the
-    plain ``pointwise.interpret`` on the CPU."""
+    """The outputs of the group ``prog``: the kernel on the card (its
+    backward the reverse kernel), the plain ``pointwise.interpret`` on the
+    CPU."""
     device = torch.device(device)
     if device.type == "cpu":
         return pointwise.interpret(prog, list(sigs), list(scals), T, device)
     if device.type != "cuda":
         raise ValueError(f"pointwise group: no kernel for device {device}")
-    return run(_kernel_group, prog, sigs, scals, T, device)
+    from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel
+    return run(_kernel_group, prog, sigs, scals, T, device,
+               pointwise_reverse_kernel.reverse_group)
 
 
 @functools.lru_cache(maxsize=256)

@@ -583,7 +583,8 @@ def test_plan_launch_refuses_what_the_kernel_cannot_take():
 def _grads(route, monkeypatch, calls):
     """config5's loss gradients (input, every slider) on the CPU through
     ``route``: "function" sends each group through PointwiseGroup with the
-    plain version as its forward; "eager" runs no group."""
+    plain version as its forward and the autograd reference (group_vjp)
+    as its backward; "eager" runs no group."""
     g, _ = presets.config5_feedback_16node()
     cg = dt.compile_graph(g, device="cpu")
     rng = np.random.default_rng(7)
@@ -596,7 +597,7 @@ def _grads(route, monkeypatch, calls):
                 calls.append(torch.is_grad_enabled())
                 return pw.interpret(prog, sigs, scals, Tn, device)
             m.setattr(tcomp, "group_call", lambda prog, sigs, scals, Tn, d: (
-                pk.run(fwd, prog, sigs, scals, Tn, d)))
+                pk.run(fwd, prog, sigs, scals, Tn, d, pk.group_vjp)))
             # the group members' node types that config5 has nowhere else
             # (its other gain is in the feedback cycle's per-node scan)
             for cls in (Overdrive, Distort, Mix):
@@ -618,7 +619,9 @@ def test_groups_function_seam(monkeypatch):
     groups go through PointwiseGroup (its forward with grad off, no
     member's eager code: Overdrive, Distort and Mix refuse to run), and
     the gradients are the eager route's bit for bit: the Function's
-    backward is autograd through the same ops."""
+    backward, given the autograd reference, is autograd through the same
+    ops (the reverse kernel's plain version is held in
+    tests/test_torch_pointwise_reverse.py)."""
     calls = []
     got = _grads("function", monkeypatch, calls)
     want = _grads("eager", monkeypatch, [])

@@ -37,7 +37,9 @@ chain's and config5's input gradients at B = 128 (the root's
 chip_smoke.grad_split: the forward and the backward on the host's clock,
 medians of 3 after a first call, and one forward + backward's device time
 by torch.profiler, split by op group, with the port's kernels' device
-times; and the peak device memory of one forward + backward), and, where
+times; the peak device memory of one forward + backward; and the device
+time under each backward node, the largest eight, by this checkout's
+``backward_by_node``), and, where
 the root's chain kernel has a record build, that build beside the plain
 one on the bench list at B = 128 (CUDA events, in turns: plain, record,
 record, plain).  Prints one line per measurement
@@ -71,6 +73,25 @@ def profiled_ms(fn, n=10):
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e3 / n
+
+
+def backward_by_node(run, top=8):
+    """{autograd node: device ms} of one call of run() (a forward and a
+    backward) from torch.profiler: the device time under each backward
+    node's ``autograd::engine::evaluate_function`` range (the kernels it
+    launched), the ``top`` largest, after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    pre = "autograd::engine::evaluate_function: "
+    got = {e.key[len(pre):]: e.device_time_total / 1e3
+           for e in prof.key_averages() if e.key.startswith(pre)}
+    return dict(sorted(got.items(), key=lambda kv: -kv[1])[:top])
 
 
 def back_to_back_ms(fn, inner=20, n=5):
@@ -148,6 +169,17 @@ def main() -> int:
                 print(f"{name} input gradient, [128, {T}]: peak device memory "
                       f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "
                       f"{tag}")
+
+                def step():
+                    xg = x.clone().requires_grad_(True)
+                    fit.make_loss_fn(cg)({}, cg.init_state(),
+                                         {str(cg.input_ids[0]): xg},
+                                         tgt).backward()
+                nodes = backward_by_node(step)
+                print(f"{name} input gradient, [128, {T}]: device ms under "
+                      f"each backward node: " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in nodes.items())
+                      + f" {tag}")
                 del cg, x, tgt, xt, loss
                 torch.cuda.empty_cache()
             if "record" in inspect.signature(
