@@ -5803,6 +5803,8 @@ PW_REV_RTOL = 1e-5        # ... its sums (reduced gradients), or
 PW_REV_ATOL = 1e-7        # ... this near 0 (both vs autograd)
 N_REV_LAUNCHES = 10       # reverse launches that must agree bit for bit
 B_PW_REV_C3 = 32          # config3's shaper passes at R = 4 (x 10 s)
+#: config5's first group cut to these T at B_C5: the rows chunked (gy > 1)
+REV_CHUNKED_T = (48_000, 128)
 
 
 def reverse_needs(prog) -> list:
@@ -5936,11 +5938,12 @@ def pointwise_reverse_forms(dev) -> dict:
 
 
 def reverse_bound(prog, sigs, scals, cts, need, T):
-    """(bound ms, by) of one reverse call: the bytes its launches must
-    move (each stream read once, each gradient written once, the partial
-    sums written and read once) over HBM against pass 1's per-element
-    operations (an f64 one at the FP64 rate, a transcendental counted as
-    one) over [rows, T]."""
+    """(bound ms, by) of one reverse call, the same work whatever its
+    layout: the bytes it must move (each operand and cotangent read once,
+    each gradient written once; no workspace, whose size follows the
+    layout) over HBM against the full world's operations (an f64 one at
+    the FP64 rate, a transcendental counted as one; each per-element one
+    over [rows, T], each per-sample one, pr_col's, over T)."""
     from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
     from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
     pl = pk.plan_adjoint(prog, sigs, scals, cts, need, T)
@@ -5948,19 +5951,32 @@ def reverse_bound(prog, sigs, scals, cts, need, T):
     ln = prk.plan_reverse(pl, sigs[0].device)
     n_bytes = 4.0 * (sum(t.numel() for t in ln.ins)
                      + sum(t.numel() for t in ln.outs))
-    if ln.part is not None:
-        n_bytes += 16.0 * ln.part.numel()
-    f32 = f64 = 0
+    col = set(prk.hoisted(pl.adj))
+    ops = 0.0
     for v in w.stmts["F"]:
         op, dt, _, _ = pl.adj.ops[v]
         if op in ("sig", "ct"):
             continue
-        if dt == "f64" or op == "f32":
-            f64 += 1
-        else:
-            f32 += 1
-    return bound(n_bytes, ln.rows * T * (f32 + f64 * FP32_TFLOPS
-                                         / FP64_TFLOPS))
+        n = T if v in col else ln.rows * T
+        ops += n * (FP32_TFLOPS / FP64_TFLOPS
+                    if dt == "f64" or op == "f32" else 1.0)
+    return bound(n_bytes, ops)
+
+
+def reverse_layout(prog, sigs, scals, cts, need, T) -> str:
+    """A reverse call's layout (ops/pointwise_reverse_kernel.plan_reverse):
+    rows a thread, pass 1's grid, where the per-sample tail runs, and the
+    launches a call."""
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
+    pl = pk.plan_adjoint(prog, sigs, scals, cts, need, T)
+    ln = prk.plan_reverse(pl, sigs[0].device)
+    w = prk.worlds(pl.adj)
+    tail = ("; the per-sample tail in pass "
+            f"{1 if prk.tail_in_pass1(w, ln.grid[1]) else 2}"
+            if w.reds[("F", "C")] else "")
+    return (f"rch {ln.rch}, grid {ln.grid[0]} x {ln.grid[1]}{tail}; "
+            f"{int(ln.pass1) + int(ln.pass2)} launch(es) a call")
 
 
 def reverse_group_checks(what, groups, dev, card, timed=False) -> list:
@@ -6005,10 +6021,11 @@ def reverse_group_checks(what, groups, dev, card, timed=False) -> list:
                         fk, "pointwise_reverse_kernel_sums")[0])
                 dm = None if None in passes else sum(passes)
                 torch.cuda.synchronize()
+                lay = reverse_layout(prog, sigs, scals, cts, need, T)
                 print(f"  {label}: kernel {km:.3f} ms (device "
                       f"{dm if dm is None else round(dm, 3)}, by pass "
                       f"{[p if p is None else round(p, 3) for p in passes]}"
-                      f"), autograd "
+                      f"; {lay}), autograd "
                       f"through interpret {pm:.3f} ms ({pm / km:.1f}x), "
                       f"bound {bnd[0]:.3f} ms by {bnd[1]} ({bnd[0] / km:.1%} "
                       f"of it); bitwise {bit}, {h} sums by the float64 rule "
@@ -6016,7 +6033,122 @@ def reverse_group_checks(what, groups, dev, card, timed=False) -> list:
             else:
                 print(f"  {label}: bitwise {bit}, per-element max abs error "
                       f"{err:.3e}, {h} sums by the float64 rule")
-            out.append((tuple(need), err, bit, km, pm, bnd, dm))
+            out.append((tuple(need), err, bit, km, pm, bnd, dm,
+                        passes if timed else None))
+    return out
+
+
+N_DIV_SIGNIFICANDS = 256    # random f32 divisors held over every dividend
+N_DIV_PAIRS_F64 = 2**30     # random f64 pairs
+
+
+def divide_check(divisors, n_pairs: int, seed: int, device) -> tuple:
+    """Hold pw_div (csrc/pointwise_ops.cuh) to the IEEE divide on the card
+    (csrc/pointwise_divide_check.cu): every f32 dividend by each of
+    ``divisors`` against __fdiv_rn, and ``n_pairs`` pseudo-random f64 pairs
+    of ``seed`` against __ddiv_rn.  Returns (f32 results whose bits
+    differ, one such (divisor, dividend bits) or None, f64 results that
+    differ, one such pair's index or None)."""
+    import ctypes
+    import torch
+    from dsp_stuff_tpu_torch.ops import cuda_build
+    device = torch.device(device)
+    lib = cuda_build.load("pointwise_divide_check")
+    p, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+    lib.pointwise_divide_check.argtypes = [p, i32, u64, u64, p, p, i32, i32,
+                                           p]
+    lib.pointwise_divide_check.restype = ctypes.c_int
+    ds = torch.as_tensor(divisors, dtype=torch.float32, device=device)
+    bad = torch.zeros(2, dtype=torch.int64, device=device)
+    first = torch.zeros(2, dtype=torch.int64, device=device)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    rc = lib.pointwise_divide_check(
+        ds.data_ptr(), ds.numel(), n_pairs, seed, bad.data_ptr(),
+        first.data_ptr(), n_sm, device.index,
+        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pointwise divide check launch failed: CUDA "
+                           f"error {rc}")
+    n32, n64 = bad.tolist()
+    f32, f64 = first.tolist()
+    where32 = (float(ds[f32 >> 32]), f32 & 0xFFFFFFFF) if n32 else None
+    return n32, where32, n64, f64 if n64 else None
+
+
+def divide_checks_reverse(groups, dev, card) -> dict:
+    """The reverse kernel's divide by a uniform divisor (pointwise_ops.cuh:
+    pw_div through pw_recip's reciprocal) against the IEEE divide on the
+    card (divide_check, csrc/pointwise_divide_check.cu): every one of the
+    2^32 f32 dividends by N_DIV_SIGNIFICANDS random divisors (significands
+    at exponents in [-30, 30], inside and outside the fast path's range,
+    both signs) and by config5's uniform divisors (its groups' scalar
+    operands and constant divisors), against __fdiv_rn; N_DIV_PAIRS_F64
+    random f64 pairs against __ddiv_rn.  Any result whose bits differ
+    fails the run.  Returns the counts."""
+    import torch
+    rng = np.random.default_rng(22)
+    n = N_DIV_SIGNIFICANDS
+    ds = (np.where(rng.random(n) < 0.5, -1.0, 1.0) * rng.uniform(1, 2, n)
+          * 2.0 ** rng.integers(-30, 31, n)).astype(np.float32)
+    c5 = set()
+    for prog, _, scals, _ in groups:
+        c5 |= {float(v) for v in scals}
+        c5 |= {float(prog.ops[a[1]][3]) for op, _, a, _ in prog.ops
+               if op == "div" and prog.ops[a[1]][0] == "const"}
+    c5 = sorted(c5)
+    t0 = time.time()
+    n32, where32, n64, where64 = divide_check(
+        np.concatenate([ds, np.asarray(c5, np.float32)]), N_DIV_PAIRS_F64,
+        22, dev)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    print(f"  pw_div vs __fdiv_rn: {n + len(c5)} divisors ({n} random, "
+          f"config5's {c5}) x 2^32 dividends: {n32} mismatches; vs "
+          f"__ddiv_rn: {N_DIV_PAIRS_F64} random f64 pairs: {n64} "
+          f"mismatches; {secs:.1f} s [{card}]")
+    check(n32 == 0 and n64 == 0,
+          f"pw_div differs from the IEEE divide: f32 {n32} (e.g. divisor, "
+          f"dividend bits {where32}), f64 {n64} (pair {where64})")
+    return {"f32_divisors": n + len(c5), "f32_mismatches": n32,
+            "f64_pairs": N_DIV_PAIRS_F64, "f64_mismatches": n64,
+            "seconds": secs}
+
+
+def reverse_chunked_checks(group, dev, card) -> list:
+    """config5's first group with every operand needing a gradient (its
+    [T] LFO's gradient summed over the rows), its signals cut to their
+    first T samples for each of REV_CHUNKED_T: the layout of a short T
+    (ops/pointwise_reverse_kernel.launch_shape: ROW_CHUNK rows a chunk,
+    gy > 1, pass 1's partials one a sample and chunk, the per-sample tail
+    in pass 2), held against autograd (reverse_held) and N_REV_LAUNCHES
+    launches bitwise equal (reverse_determinism).  Returns [(T, max abs
+    error, bitwise, sums by the float64 rule)]."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
+    prog, sigs, scals, _ = group
+    need = list(reverse_needs(prog)[0])
+    out = []
+    for T in REV_CHUNKED_T:
+        cut = [s[..., :T].contiguous() for s in sigs]
+        cts = reverse_cotangents(prog, cut, scals, T, dev, 5000 + T)
+        pl = pk.plan_adjoint(prog, cut, scals, cts, need, T)
+        ln = prk.plan_reverse(pl, dev)
+        gy = ln.grid[1]
+        check(gy > 1 and not prk.tail_in_pass1(prk.worlds(pl.adj), gy)
+              and ln.pass2, f"config5 group 0 at [{cut[0].shape[0]}, {T}] "
+                            f"does not run the chunked layout (rch "
+                            f"{ln.rch}, grid {ln.grid})")
+        label = (f"config5 group 0 reverse, [{cut[0].shape[0]}, {T}], need "
+                 f"{sum(need)}")
+        err, bit, h = reverse_held(label, prog, cut, scals, cts, need, T, dev)
+        print(f"  {label}: {reverse_layout(prog, cut, scals, cts, need, T)};"
+              f" bitwise {bit}, per-element max abs error {err:.3e}, {h} "
+              f"sums by the float64 rule [{card}]")
+        reverse_determinism(prog, cut, scals, T, dev)
+        out.append((T, err, bit, h))
+        del cut, cts, pl, ln
+    torch.cuda.empty_cache()
     return out
 
 
@@ -6145,8 +6277,9 @@ def pointwise_phase(dev, card) -> dict:
     config5 at B_C5 and B_PW_WIDE x 10 s and of config3's render at
     B_PW_REV_C3 x 10 s (its shapers' passes at R = 4) under both
     reverse_needs, config5's timed against the route it replaced at B_C5
-    (reverse_group_checks), and N_REV_LAUNCHES launches bitwise equal.
-    Returns the kernels line's figures."""
+    (reverse_group_checks), and N_REV_LAUNCHES launches bitwise equal;
+    config5's first group cut to short T, its rows chunked
+    (reverse_chunked_checks).  Returns the kernels line's figures."""
     import torch
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.models import presets
@@ -6184,6 +6317,10 @@ def pointwise_phase(dev, card) -> dict:
             groups = groups_of_render(cg, x, (B,))
             times = group_times(what, groups, dev, card)
             rev = None
+            if name == "config5" and B == B_C5:
+                print("pointwise groups' reverse kernel, its divide by a "
+                      "uniform divisor vs the IEEE divide:")
+                rec["divide"] = divide_checks_reverse(groups, dev, card)
             if name == "config5":
                 print(f"pointwise groups' reverse kernel, {what}, vs autograd "
                       f"through interpret:")
@@ -6191,6 +6328,12 @@ def pointwise_phase(dev, card) -> dict:
                                            timed=B == B_C5)
                 if B == B_C5:
                     reverse_determinism(*groups[0][:3], groups[0][3], dev)
+                    print(f"pointwise groups' reverse kernel, config5's "
+                          f"first group at [{B}, T] for T in "
+                          f"{REV_CHUNKED_T} (the rows chunked), vs autograd "
+                          f"through interpret:")
+                    rec["rev_chunked"] = reverse_chunked_checks(groups[0],
+                                                                dev, card)
             del groups
             kr, er = route_times(cg, x, (B,))
         print(f"  {what}: the whole render {kr:.3f} ms on the kernel route "
@@ -6265,6 +6408,8 @@ def main() -> int:
     budget = cycle_kernel.budget_of(dev)
     jobs = [(n, (), "") for n in cuda_build.STATIC_KERNELS]
     labels = list(cuda_build.STATIC_KERNELS)
+    jobs.append(("pointwise_divide_check", (), ""))
+    labels.append("pointwise_divide_check")
     jobs.append(("chain_kernel", ("CK_RECORD",), ""))
     labels.append("chain_kernel record build")
     for name, prog in cycle_programs.items():
@@ -6749,9 +6894,12 @@ def main() -> int:
                     "gradient", shape=[B_C5, T_MAIN], device_ms=rev5[0][6],
               groups_config5=[(*r[3:5], r[6]) for r in rev5],
               bound_ms_groups=[r[5][0] for r in rev5],
+              device_ms_by_pass=rev5[0][7],
               ms_every_gradient=rev5_all[0][3],
               plain_ms_every_gradient=rev5_all[0][4],
               bound_ms_every_gradient=rev5_all[0][5][0],
+              device_ms_every_gradient_by_pass=rev5_all[0][7],
+              divide_check=pw["divide"],
               launches_fit_step=fit_rec["reverse_launches"],
               config5_input_grad_device_ms=gr["c5_split"]["device_ms"],
               config5_input_grad_elementwise_ms=gr["c5_split"]["split"].get(

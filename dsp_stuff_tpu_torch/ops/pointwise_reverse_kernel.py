@@ -14,17 +14,23 @@ ops/cuda_build.py once per adjoint program at first use, bound with
 imported.
 
 The program's values split by class (``pointwise.CLASSES``) into four
-worlds.  Pass 1 walks [rows, T] with the forward's layout: it reads the
-operands and the cotangents, recomputes the forward in registers, writes
-the gradient of each full ("F") operand, and leaves per-CTA partial sums
-(float64) of each sum out of the full world in a workspace from the
-stream's pool: one a CTA for a scalar, one a row and CTA for a [..., 1]
-operand, one a sample and row chunk for a [T] one.  Pass 2, one CTA,
-adds the partials in a fixed order, runs the per-row ("R") and per-time
-("C") tails, sums those to the scalars, and runs the uniform ("U") tail,
-each sum rounded once.  A group's backward is at most these two
-launches, the second only where a reduced gradient is needed; no atomics,
-so ten calls are bitwise equal.
+worlds.  Pass 1 walks [rows, T] with the forward's layout, a thread a
+unit of 4 samples over rch rows (:func:`launch_shape`): it computes its
+samples' per-sample ("C") values once (``pr_col``), then for each row
+reads the operands and the cotangents, recomputes the forward in
+registers, writes the gradient of each full ("F") operand, and leaves
+per-CTA partial sums (float64) of each sum out of the full world in a
+workspace from the stream's pool: one a CTA for a scalar, one a row and
+CTA for a [..., 1] operand, one a sample and row chunk for a [T] one;
+where one chunk holds every row, a [T] operand's sums are complete in
+the thread, which runs the per-time tail itself.  Pass 2, one CTA, adds
+the partials in a fixed order, runs the per-row ("R") and (rows chunked)
+per-time tails, sums those to the scalars, and runs the uniform ("U")
+tail, each sum rounded once.  A divide by a uniform value goes through
+its reciprocal, computed once a thread (``pw_div``, bitwise the IEEE
+divide).  A group's backward is at most these two launches, the second
+only where a reduced gradient is left to it; no atomics, so ten calls are
+bitwise equal.
 
 ``reverse_group`` takes only CUDA tensors (the saved operands and the
 cotangents) and raises on anything else; there is no fallback.  Its plain
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -44,7 +51,8 @@ import torch
 from dsp_stuff_tpu_torch.compiler import pointwise
 from dsp_stuff_tpu_torch.ops import cuda_build
 from dsp_stuff_tpu_torch.ops.pointwise_kernel import (_CT, MAX_GRID_Y, V,
-                                                      c_expr, plan_adjoint,
+                                                      _lit, c_expr,
+                                                      plan_adjoint,
                                                       shaped_grads)
 
 #: calls that launched the kernel in this process (a test or a smoke run
@@ -56,8 +64,24 @@ SUM_LAUNCHES = 0
 THREADS = 256           # pass 1 (PR_THREADS); V samples a thread (PR_V)
 THREADS2 = 1024         # pass 2's one CTA (PR2_THREADS)
 #: rows a pass-1 CTA walks where a gradient is summed over the rows (a
-#: [T] operand's), so its partials are one a sample and chunk; else 1
+#: [T] operand's) and T is too short to fill the card: its partials are
+#: one a sample and chunk, pass 2 adds them and runs the per-sample tail
 ROW_CHUNK = 32
+#: pass-1 CTAs along a row (gx, T / (V * THREADS)) from which such a
+#: launch takes every row in one chunk (gy = 1): each thread completes its
+#: samples' sums over the rows and runs the per-sample tail itself
+TAIL_MIN_GX = 192
+#: rows a thread walks where the program has per-sample values
+#: (``pr_col``) and no sum over the rows, where that grid keeps
+#: HOIST_MIN_CTAS CTAs; else one row, as a short launch is bound by a
+#: thread's latency (measured: PERF.md section 6, row 7r)
+HOIST_ROWS = 8
+HOIST_MIN_CTAS = 2048
+#: pass 1's CTAs an SM (its launch bound, so a thread's registers) by the
+#: registers its float64 accumulators take: (at most this many, CTAs),
+#: then MIN_CTAS_MANY (measured on config5's programs, PERF.md section 6)
+MIN_CTAS = ((4, 6), (16, 5))
+MIN_CTAS_MANY = 4
 #: the sums' kinds by (source world, target class), in the workspace's
 #: and the pass-2 tail's order
 RED_KINDS = (("F", "U"), ("F", "R"), ("F", "C"), ("R", "U"), ("C", "U"))
@@ -148,29 +172,83 @@ def worlds(adj: pointwise.Adjoint) -> Worlds:
                   n_in1, tuple(ptrs), tuple(outs), n_out1, reds)
 
 
+def _pow2_inverse(op, dt, imm):
+    """2^-k where a constant divisor is a power of two 2^k whose inverse
+    is normal (a divide by it is the product by 2^-k, bitwise), else
+    None."""
+    if op != "const":
+        return None
+    m, e = math.frexp(float(imm))
+    lim = 126 if dt == "f32" else 1022
+    if abs(m) != 0.5 or abs(e - 1) >= lim:
+        return None
+    return math.copysign(math.ldexp(1.0, 1 - e), m)
+
+
+def min_ctas(w: Worlds) -> int:
+    """Pass 1's launch bound in CTAs an SM (MIN_CTAS): the fewer registers
+    its float64 accumulators take (two a sum out of the full world, a
+    per-sample one for each of its V samples), the more CTAs."""
+    acc = 2 * (len(w.reds[("F", "U")]) + len(w.reds[("F", "R")])
+               + V * len(w.reds[("F", "C")]))
+    return next((n for most, n in MIN_CTAS if acc <= most), MIN_CTAS_MANY)
+
+
+def stream_classes(adj: pointwise.Adjoint) -> tuple:
+    """Each stream's class (:class:`Worlds` ``streams``): one of "F" and
+    "C" spans the time (time stride 1), "R" does not (stride 0)."""
+    cls = {(op, imm): adj.cls[v] for v, (op, _, _, imm) in enumerate(adj.ops)
+           if op in ("sig", "ct")}
+    return tuple(cls[key] for key in worlds(adj).streams)
+
+
+@functools.lru_cache(maxsize=256)
+def hoisted(adj: pointwise.Adjoint) -> tuple:
+    """The full world's statements of class C (a value of the samples
+    alone: its operands of class C or U), which pass 1 computes once for
+    its samples before its row loop (``pr_col``); its sums stay per
+    element."""
+    w = worlds(adj)
+    struct, out = set(w.struct), []
+    for v in w.stmts["F"]:
+        op, _, args, _ = adj.ops[v]
+        if adj.cls[v] == "C" and op != "red" and all(
+                a in struct or a in out for a in args):
+            out.append(v)
+    return tuple(out)
+
+
 @functools.lru_cache(maxsize=256)
 def reverse_source(adj: pointwise.Adjoint) -> str:
     """The generated header of the reverse kernel for ``adj``: the counts,
-    ``PrUniform`` and ``pr_uniform`` (the uniform forward values, once a
-    thread), ``pr_point`` (pass 1, one element: stream k in x[k], gradient
-    k to g[k], each sum out of the full world added to its float64
-    accumulator), ``pr_row`` and ``pr_time`` (pass 2's per-row and
-    per-sample tails, their sums from pass 1 in rr / rc) and ``pr_tail``
-    (the uniform tail, its sums in ru): one statement an op in the
-    program's order, each f32 operation one __f*_rn intrinsic, each sum
-    rounded once to its dtype.  No operand value appears in it."""
+    ``PrUniform`` and ``pr_uniform`` (the uniform forward values and the
+    reciprocal of each uniform divisor, once a thread), ``PrCol`` and
+    ``pr_col`` (the full world's per-sample values, once a sample for a
+    thread's rows: :func:`hoisted`), ``pr_point`` (pass 1, one element:
+    stream k in x[k], gradient k to g[k], each sum out of the full world
+    added to its float64 accumulator), ``pr_row`` and ``pr_time`` (the
+    per-row and per-sample tails, their sums from pass 1 in rr / rc) and
+    ``pr_tail`` (the uniform tail, its sums in ru): one statement an op in
+    the program's order, each f32 operation one __f*_rn intrinsic, a
+    divide by a uniform value ``pw_div`` through its reciprocal (or
+    ``pw_div_pow2``, the product by 2^-k, where it is a constant 2^k), each
+    sum rounded once to its dtype.  No operand value appears in it."""
     w = worlds(adj)
     ops = adj.ops
     struct = set(w.struct)
+    col = set(hoisted(adj))
     red_slot = {v: (kind, j) for kind, vs in w.reds.items()
                 for j, v in enumerate(vs)}
     tail_base = {("F", "U"): 0, ("R", "U"): len(w.reds[("F", "U")]),
                  ("C", "U"): len(w.reds[("F", "U")]) + len(w.reds[("R", "U")])}
     stream_of = {key: j for j, key in enumerate(w.streams)}
     ptr_of = {key: j for j, key in enumerate(w.ptrs)}
+    recips = []                     # uniform divisors taken by pw_div
 
-    def ref(v):
-        return f"U.v{v}" if v in struct else f"v{v}"
+    def ref(v, fn=None):
+        if v in struct:
+            return f"U.v{v}"
+        return f"C.v{v}" if fn == "pr_point" and v in col else f"v{v}"
 
     def load(op, imm, world):
         key = (op, imm)
@@ -182,23 +260,30 @@ def reverse_source(adj: pointwise.Adjoint) -> str:
         return (f"in[{j}][row * in_sb[{j}]]" if world == "R"
                 else f"in[{j}][t * in_st[{j}]]")
 
-    def expr(v, world):
+    def expr(v, world, fn=None):
         op, dt, args, imm = ops[v]
         if op in ("sig", "scal", "ct"):
             return load(op, imm, world)
-        a = [ref(i) for i in args]
+        a = [ref(i, fn) for i in args]
         if op == "div" and args[1] in struct and args[0] not in struct:
-            a[1] = f"pw_fresh({a[1]})"      # as the forward's source
+            inv = _pow2_inverse(*[ops[args[1]][k] for k in (0, 1, 3)])
+            if inv is not None:
+                return f"pw_div_pow2({a[0]}, {_lit(inv, dt)})"
+            if args[1] not in recips:
+                recips.append(args[1])
+            return f"pw_div({a[0]}, U.r{args[1]})"
         return c_expr(op, dt, a, imm)
 
-    def dbl(v):
-        return ref(v) if ops[v][1] == "f64" else f"(double){ref(v)}"
+    def dbl(v, fn):
+        return ref(v, fn) if ops[v][1] == "f64" else f"(double){ref(v, fn)}"
 
-    def body(world):
+    def body(world, fn):
         lines = []
         acc = {"F": {"U": "aU", "R": "aR", "C": "aC"}, "R": {"U": "aU"},
                "C": {"U": "aU"}}.get(world, {})
         for v in sorted(w.stmts[world] + w.inputs[world]):
+            if world == "F" and (v in col) != (fn == "pr_col"):
+                continue        # the hoisted in pr_col, the rest in pr_point
             op, dt, args, imm = ops[v]
             if v in w.inputs[world]:
                 kind, j = red_slot[v]
@@ -208,22 +293,37 @@ def reverse_source(adj: pointwise.Adjoint) -> str:
                 lines.append(f"  const {_CT[dt]} v{v} = {val};")
             elif op == "red":
                 lines.append(f"  {acc[imm[0]]}[{red_slot[v][1]}] += "
-                             f"{dbl(args[0])};")
+                             f"{dbl(args[0], fn)};")
             else:
-                lines.append(f"  const {_CT[dt]} v{v} = {expr(v, world)};")
+                lines.append(f"  const {_CT[dt]} v{v} = "
+                             f"{expr(v, world, fn)};")
+        if fn == "pr_col":
+            return lines
         for j, (k, g) in enumerate(w.outs):
             if adj.classes[k] != world:
                 continue
             if world == "F":
-                lines.append(f"  g[{j}] = {ref(g)};")
+                lines.append(f"  g[{j}] = {ref(g, fn)};")
             else:
                 at = {"R": "row", "C": "t", "U": "0"}[world]
-                lines.append(f"  out[{j}][{at}] = {ref(g)};")
+                lines.append(f"  out[{j}][{at}] = {ref(g, fn)};")
         return lines
 
+    # the hoisted values pr_point reads (or stores as a gradient)
+    used = {a for v in w.stmts["F"] if v not in col for a in ops[v][2]}
+    used |= {g for k, g in w.outs if adj.classes[k] == "F"}
+    col_out = sorted(v for v in col if v in used)
+    point, colb = body("F", "pr_point"), body("F", "pr_col")
+    rows, times, tail = body("R", "pr_row"), body("C", "pr_time"), \
+        body("U", "pr_tail")
     fields = [f"  {_CT[ops[v][1]]} v{v};" for v in w.struct]
+    fields += [f"  PwRecip{'64' if ops[v][1] == 'f64' else ''} r{v};"
+               for v in recips]
     pre = [f"  U.v{v} = {expr(v, 'U')};" for v in w.struct]
+    pre += [f"  U.r{v} = pw_recip(U.v{v});" for v in recips]
     n_red = {k: len(v) for k, v in w.reds.items()}
+    strided = [j for j, c in enumerate(stream_classes(adj)[:w.n_in1])
+               if c in ("F", "C")]
     pass2 = w.n_out1 < len(w.outs)
     pass1 = bool(w.stmts["F"] or w.n_out1)
     rest = ("const float* const* in, const long long* in_sb, "
@@ -244,22 +344,33 @@ def reverse_source(adj: pointwise.Adjoint) -> str:
         f"#define PR_PASS2 {int(pass2)}",
         f"#define PR_ROWS {int(bool(w.stmts['R'] or w.inputs['R']))}",
         f"#define PR_TIMES {int(bool(w.stmts['C'] or w.inputs['C']))}",
+        f"#define PR_MIN_CTAS {min_ctas(w)}",
+        "#define PR_STRIDED(k) (" + (" || ".join(
+            f"(k) == {j}" for j in strided) or "0") + ")",
         "struct PrUniform {", *(fields or ["  int none;"]), "};",
         "__device__ __forceinline__ PrUniform pr_uniform(",
         "    const float* const* p) {",
         "  PrUniform U;", *pre, "  return U;", "}",
+        "struct PrCol {",
+        *([f"  {_CT[ops[v][1]]} v{v};" for v in col_out] or ["  int none;"]),
+        "};",
+        "__device__ __forceinline__ PrCol pr_col(const PrUniform& U,",
+        "    const float* x) {",
+        "  PrCol C;", *colb, *[f"  C.v{v} = v{v};" for v in col_out],
+        "  return C;", "}",
         "__device__ __forceinline__ void pr_point(const PrUniform& U,",
-        "    const float* x, float* g, double* aU, double* aR, double* aC) {",
-        *body("F"), "}",
+        "    const PrCol& C, const float* x, float* g, double* aU, "
+        "double* aR,", "    double* aC) {",
+        *point, "}",
         "__device__ __forceinline__ void pr_row(const PrUniform& U,",
         f"    {rest},", "    long long row, const double* rr, double* aU) {",
-        *body("R"), "}",
+        *rows, "}",
         "__device__ __forceinline__ void pr_time(const PrUniform& U,",
         f"    {rest},", "    long long t, const double* rc, double* aU) {",
-        *body("C"), "}",
+        *times, "}",
         "__device__ __forceinline__ void pr_tail(const PrUniform& U,",
         f"    {rest},", "    const double* ru) {",
-        *body("U"), "}", ""])
+        *tail, "}", ""])
 
 
 def _counts(w: Worlds) -> int:
@@ -305,32 +416,63 @@ class ReverseLaunch(NamedTuple):
     pass2: bool
 
 
+def launch_shape(adj: pointwise.Adjoint, rows: int, T: int,
+                 vec: bool) -> tuple:
+    """(rch, gx, gy) of pass 1: gx a row's units over THREADS, gy the
+    row chunks of rch rows each; a function of the program, rows, T and
+    the float4 build's choice alone.  Where a gradient is summed over the
+    rows (a [T] operand's): every row in one chunk once gx >= TAIL_MIN_GX,
+    else ROW_CHUNK rows; where per-sample values are hoisted, HOIST_ROWS
+    rows where that keeps HOIST_MIN_CTAS CTAs; else one row (and enough
+    rows a chunk for the grid's y limit)."""
+    w = worlds(adj)
+    gx = -(-(-(-T // V) if vec else T) // THREADS)
+    if w.reds[("F", "C")]:
+        rch = rows if gx >= TAIL_MIN_GX else ROW_CHUNK
+    else:
+        rch = 1
+        if hoisted(adj) and gx * -(-rows // HOIST_ROWS) >= HOIST_MIN_CTAS:
+            rch = min(HOIST_ROWS, rows)
+    rch = max(rch, -(-rows // MAX_GRID_Y))
+    return rch, gx, -(-rows // rch)
+
+
+def tail_in_pass1(w: Worlds, gy: int) -> bool:
+    """Whether pass 1 runs the per-sample tail: where a gradient is summed
+    over the rows and one chunk holds every row."""
+    return bool(w.reds[("F", "C")]) and gy == 1
+
+
 def workspace_size(w: Worlds, rows: int, T: int, gx: int, gy: int) -> int:
     """Doubles of the partial sums: one a CTA a scalar sum, one a row and
-    CTA column a per-row sum, one a sample and row chunk a per-time sum."""
-    return (len(w.reds[("F", "U")]) * gx * gy
-            + len(w.reds[("F", "R")]) * rows * gx
-            + len(w.reds[("F", "C")]) * gy * T)
+    CTA column a per-row sum, and one a sample and row chunk a per-time
+    sum, or, where pass 1 runs the per-sample tail, one a CTA column of
+    each of that tail's sums to the scalars."""
+    n = (len(w.reds[("F", "U")]) * gx * gy
+         + len(w.reds[("F", "R")]) * rows * gx)
+    if tail_in_pass1(w, gy):
+        return n + len(w.reds[("C", "U")]) * gx
+    return n + len(w.reds[("F", "C")]) * gy * T
 
 
 def plan_reverse(pl, device) -> ReverseLaunch:
     """Lay out a launch of the backward planned by ``pl``
     (ops/pointwise_kernel.plan_adjoint; the tests run it on the CPU): the
     streams and pointers the generated text reads, in its order, the
-    gradient buffers and the workspace allocated, the row chunk (ROW_CHUNK
-    where a sum runs over the rows, so that pass 1's grid stays within its
-    y limit too) and pass 1's grid: x a row's units (one a thread), y the
-    row chunks."""
+    gradient buffers and the workspace allocated, pass 1's row chunk and
+    grid (:func:`launch_shape`: x a row's units, one a thread, y the row
+    chunks) and which passes run (pass 2 where a per-row or uniform
+    gradient is needed, or a per-sample one that pass 1 does not finish)."""
     adj, rows, T = pl.adj, pl.rows, pl.T
     w = worlds(adj)
     ins, sbs, sts, ptrs = [], [], [], []
-    for op, k in w.streams:
+    for (op, k), c in zip(w.streams, stream_classes(adj)):
         t = pl.sigs[k] if op == "sig" else pl.cts[k]
         if t.shape[1] > 1 and t.stride(1) != 1:
             t = t.contiguous()
         ins.append(t)
         sbs.append(t.stride(0) if t.shape[0] > 1 else 0)
-        sts.append(1 if t.shape[1] > 1 else 0)
+        sts.append(int(c in ("F", "C")))
     for op, k in w.ptrs:
         t = (pl.sigs[k] if op == "sig" else pl.scals[k] if op == "scal"
              else pl.cts[k])
@@ -346,19 +488,19 @@ def plan_reverse(pl, device) -> ReverseLaunch:
     outs = [torch.empty(pointwise.class_shape(adj.classes[k], rows, T),
                         dtype=torch.float32, device=device)
             for k, _ in w.outs]
-    rch = ROW_CHUNK if w.reds[("F", "C")] else 1
-    rch = max(rch, -(-rows // MAX_GRID_Y))
-    vec = ((T % V == 0 or rows == 1 or not w.n_out1)
-           and all(t.data_ptr() % 16 == 0 and sb % V == 0
-                   for t, sb, st in zip(ins[:w.n_in1], sbs, sts) if st))
-    upr = -(-T // V) if vec else T
-    grid = (-(-upr // THREADS), -(-rows // rch))
-    n = workspace_size(w, rows, T, *grid)
+    vec = T % V == 0 and all(t.data_ptr() % 16 == 0 and sb % V == 0
+                             for t, sb, st in zip(ins[:w.n_in1], sbs, sts)
+                             if st)
+    rch, gx, gy = launch_shape(adj, rows, T, vec)
+    n = workspace_size(w, rows, T, gx, gy)
     part = (torch.empty(n, dtype=torch.float64, device=device) if n
             else None)
+    late = {adj.classes[k] for k, _ in w.outs[w.n_out1:]}
+    if tail_in_pass1(w, gy):
+        late.discard("C")
     return ReverseLaunch(ins, sbs, sts, ptrs, outs, part, rows, T, rch, vec,
-                         grid, bool(w.stmts["F"] or w.n_out1),
-                         w.n_out1 < len(w.outs))
+                         (gx, gy), bool(w.stmts["F"] or w.n_out1),
+                         bool(late))
 
 
 def reverse_group(prog: pointwise.Program, sigs, scals, cts, need, T: int,
@@ -400,3 +542,4 @@ def reverse_group(prog: pointwise.Program, sigs, scals, cts, need, T: int,
     for (k, _), g in zip(w.outs, ln.outs):
         grads[k] = g
     return shaped_grads(pl, grads)
+

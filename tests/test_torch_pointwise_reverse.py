@@ -52,6 +52,7 @@ from dsp_stuff_tpu.utils import precision as jprec
 import dsp_stuff_tpu as dj
 import dsp_stuff_tpu_torch as dt
 import test_torch_pointwise as tpw
+import test_torch_pointwise_divide as tpd
 from test_torch_grad_fused import _card_dispatch, _graph_pair, _held
 from dsp_stuff_tpu_torch.compiler import compile as tcomp
 from dsp_stuff_tpu_torch.compiler import pointwise as pw
@@ -482,6 +483,106 @@ def test_reverse_programs_of_a_structure_are_one_build():
     assert "#define PR_PASS2 1" in fast[0]
 
 
+_DIVIDES = ("__fdiv_rn(", "__ddiv_rn(", "pw_div(", "pw_div_pow2(")
+
+
+def _form_adjoints(pol):
+    """Adjoint programs of every form (test_torch_pointwise's, the sliders
+    scalars), every operand and the input alone needing a gradient."""
+    out = []
+    for form, (n_x, sliders, _) in FORMS.items():
+        prog = _program(form, {k: "scal" for k in sliders}, pol)
+        n = prog.n_sig + prog.n_scal
+        for need in ((True,) * n, (True,) + (False,) * (n - 1)):
+            out.append(pw.adjoint(prog, need, (True,) * len(prog.outs),
+                                  ("F",) + ("C",) * (prog.n_sig - 1)))
+    return out
+
+
+@pytest.mark.parametrize("pol", POLICIES)
+def test_reverse_source_divides_and_hoists(pol):
+    """In config5's and every form's adjoint text: a divide by a uniform
+    value (a uniform divisor, the dividend not) is pw_div through that
+    divisor's reciprocal, computed once in pr_uniform (pw_div_pow2, the
+    product by 2^-k, where the divisor is a constant 2^k), every other
+    divide __fdiv_rn / __ddiv_rn; one divide a div statement, so the
+    count of divides is the program's as the worlds place it; pr_col
+    holds exactly the full world's class-C statements (its sums aside),
+    which read only class-C and uniform values, and pr_point reads them
+    as C.v."""
+    n_helper = 0
+    adjs = _config5_adjoints(pol) + _form_adjoints(pol)
+    prog = tpw._config5_programs(pol)[0]
+    n = prog.n_sig + prog.n_scal
+    adjs.append(pw.adjoint(prog, (True,) + (False,) * (n - 1),
+                           (True,) * len(prog.outs), ("F", "C")))
+    for adj in adjs:
+        src = prk.reverse_source(adj)
+        w = prk.worlds(adj)
+        struct = set(w.struct)
+        fns = _functions(src)
+        n_div = 0
+        for fn, lines in fns.items():
+            for line in lines:
+                m = re.match(r"^(?:const \w+ |U\.)v(\d+) = (.+);$", line)
+                if not m:
+                    assert not any(d in line for d in _DIVIDES), line
+                    continue
+                v, e = int(m.group(1)), m.group(2)
+                op, dt_, args, _ = adj.ops[v]
+                if op != "div":
+                    assert not any(d in e for d in _DIVIDES), line
+                    continue
+                n_div += 1
+                a, d = args
+                inv = prk._pow2_inverse(*[adj.ops[d][k] for k in (0, 1, 3)])
+                if d in struct and a not in struct:
+                    assert adj.cls[d] == "U"
+                    if inv is not None:
+                        assert e.startswith("pw_div_pow2("), line
+                    else:
+                        assert e.startswith("pw_div(") and e.endswith(
+                            f", U.r{d})"), line
+                        assert f"  U.r{d} = pw_recip(U.v{d});" in src
+                        n_helper += 1
+                else:
+                    assert e.startswith(("__fdiv_rn(", "__ddiv_rn(")), line
+        assert sum(src.count(d) for d in _DIVIDES) == n_div
+        col = [int(v) for v in re.findall(r"const \w+ v(\d+) = ",
+                                          "\n".join(fns["pr_col"]))]
+        want = [v for v in w.stmts["F"] if adj.cls[v] == "C"
+                and adj.ops[v][0] != "red"]
+        assert col == want == list(prk.hoisted(adj))
+        for v in col:
+            assert all(a in struct or a in col for a in adj.ops[v][2])
+        point = "\n".join(fns["pr_point"])
+        assert not any(re.search(rf"const \w+ v{v} = ", point) for v in col)
+        for v in col:
+            if re.search(rf"\bC\.v{v}\b", point):
+                assert f"  C.v{v} = v{v};" in src
+    assert n_helper > 0
+
+
+def test_config5_first_group_divides():
+    """config5's first group, the input's program under fast: its 12
+    divides are 10 pw_div (the fan-in divisor 7 times, the safe level, 3
+    twice), one pw_div_pow2 (map_mod's 2) and one __fdiv_rn (atan's vjp,
+    x * x + 1); pr_col holds the map chain v21-v27 and v35, two of them
+    divides."""
+    prog = tpw._config5_programs("fast")[0]
+    n = prog.n_sig + prog.n_scal
+    adj = pw.adjoint(prog, (True,) + (False,) * (n - 1),
+                     (True,) * len(prog.outs), ("F", "C"))
+    src = prk.reverse_source(adj)
+    fns = _functions(src)
+    body = "\n".join(fns["pr_point"] + fns["pr_col"])
+    assert [body.count(d) for d in _DIVIDES] == [1, 0, 10, 1]
+    assert "\n".join(fns["pr_col"]).count("pw_div") == 2
+    assert len(prk.hoisted(adj)) == 8
+    assert sorted(re.findall(r"U\.r(\d+) = pw_recip", src)) == \
+        sorted(set(re.findall(r"pw_div\(\w+, U\.r(\d+)\)", body)))
+
+
 def test_sin_adjoint_uses_cos():
     """sin's vjp is g * cos(x): the IR's cos op, cosf in the text under
     fast, cos of a double under parity."""
@@ -496,7 +597,21 @@ def test_sin_adjoint_uses_cos():
 
 # -- a NumPy model of the reverse kernel --------------------------------------
 
-_ENV = dict(tpw._ENV, _tr_cos=tpw._torch_fn("cos"))
+def _pw_div(a, R):
+    """pw_div: the model of test_torch_pointwise_divide on float32 (held
+    bitwise to IEEE division there), IEEE division on float64 (its model
+    is held on random pairs there)."""
+    a = np.asarray(a)
+    if a.dtype == np.float32:
+        return tpd.div32(a, R)
+    return a / R[0]
+
+
+_ENV = dict(tpw._ENV, _tr_cos=tpw._torch_fn("cos"), _pw_div=_pw_div,
+            _pw_div_pow2=lambda a, inv: np.multiply(a, inv),
+            _pw_recip=lambda d: tpd.recip(
+                d, np.float64 if np.asarray(d).dtype == np.float64
+                else np.float32))
 
 
 def _py(expr: str) -> str:
@@ -506,6 +621,9 @@ def _py(expr: str) -> str:
     e = re.sub(r"in\[(\d+)\]\[t \* in_st\[\d+\]\]", r"IC[\1]", e)
     e = re.sub(r"\*p\[(\d+)\]", r"P[\1]", e)
     e = re.sub(r"\b(?:rr|rc)\[", "RED[", e)
+    e = re.sub(r"\bU\.r(\d+)", r"U['r\1']", e)
+    e = re.sub(r"\bC\.v(\d+)", r"CV['\1']", e)
+    e = re.sub(r"\bpw_div(_pow2)?\(", r"_pw_div\1(", e)
     return tpw._py(re.sub(r"\bcosf?\(", "_tr_cos(", e))
 
 
@@ -532,6 +650,14 @@ def _run(lines, env, sums):
     ``a?[k] += v`` goes to ``sums`` (a name -> {k: per-lane values}) and
     a store ``g[k] = v`` / ``out[k][.] = v`` to env["STORE"]."""
     for line in lines:
+        m = re.match(r"^U\.r(\d+) = pw_recip\(U\.v(\d+)\);$", line)
+        if m:
+            env["U"]["r" + m.group(1)] = env["_pw_recip"](env["U"][m.group(2)])
+            continue
+        m = re.match(r"^C\.v(\d+) = v(\d+);$", line)
+        if m:
+            env["CV"][m.group(1)] = env["V"][m.group(2)]
+            continue
         m = re.match(r"^(?:const \w+ )?(U\.)?v(\d+) = (.+);$", line)
         if m:
             target = env["U"] if m.group(1) else env["V"]
@@ -547,7 +673,8 @@ def _run(lines, env, sums):
             env["STORE"][int(m.group(1) or m.group(2))] = eval(
                 _py(m.group(3)), env)
             continue
-        if line not in ("PrUniform U;", "return U;"):
+        if line not in ("PrUniform U;", "return U;", "PrCol C;",
+                        "return C;"):
             raise AssertionError(f"untranslated line {line!r}")
 
 
@@ -569,17 +696,21 @@ def _tree(vals):
 def _reverse_model(prog, sigs, scals, cts, need, Tn, order_seed=None):
     """The reverse kernel on the launch plan_reverse lays out: pass 1's
     threads (CTA (bx, by), thread tid: unit bx * THREADS + tid of rows
-    [by * rch, (by + 1) * rch)), each thread's float64 sums in its walk's
-    order (rows, then its samples), the CTA's tree; pass 2's one CTA (a
-    thread each PR2_THREADS-th partial, row, sample), its tree, the
-    tails; the bodies translated from the generated text.  With
-    ``order_seed`` the CTAs of pass 1 run in a random order.  Returns the
-    gradients as the operands' shapes (None where none)."""
+    [by * rch, (by + 1) * rch)), their per-sample values (pr_col) from the
+    chunk's first row, each thread's float64 sums in its walk's order
+    (rows, then its samples), the CTA's tree; where one chunk holds every
+    row, the per-sample tail in pass 1 (pr_time at the thread's samples,
+    its sums to the scalars a CTA's tree); pass 2's one CTA (a thread each
+    THREADS2-th partial, row, sample), its tree, the tails; the bodies
+    translated from the generated text.  With ``order_seed`` the CTAs of
+    pass 1 run in a random order.  Returns the gradients as the operands'
+    shapes (None where none) and the launch."""
     pl = pk.plan_adjoint(prog, sigs, scals, cts, need, Tn)
     w = prk.worlds(pl.adj)
     ln = prk.plan_reverse(pl, CPU)
     fns = _functions(prk.reverse_source(pl.adj))
     rows, rch, (gx, gy) = ln.rows, ln.rch, ln.grid
+    inline = prk.tail_in_pass1(w, gy)
     V_ = pk.V if ln.vec else 1
     nth, nth2 = prk.THREADS, prk.THREADS2
     P = [t.reshape(()).numpy() for t in ln.ptrs]
@@ -593,22 +724,32 @@ def _reverse_model(prog, sigs, scals, cts, need, Tn, order_seed=None):
     t0 = u * V_
     out1 = [np.full((rows, Tn), np.nan, F32) for _ in range(w.n_out1)]
     part = np.full(prk.workspace_size(w, rows, Tn, gx, gy), np.nan)
-    nfu, nfr, nfc = (len(w.reds[k]) for k in prk.RED_KINDS[:3])
+    nfu, nfr, nfc, _, ncu = (len(w.reds[k]) for k in prk.RED_KINDS)
     aU = np.zeros((nfu, gy, gx, nth))
     aC = np.zeros((nfc, V_, gy, gx, nth))
     X = [s.numpy() for s in ln.ins[:w.n_in1]]
-    order = list(range(rch))
-    for j in order:
+
+    def lanes(row, i):
+        """(live mask, row, sample) of sample i of every lane at ``row``,
+        and the streams there."""
+        t = t0 + i
+        live = (row < rows) & (t < Tn)
+        r_, t_ = np.where(live, row, 0), np.where(live, t, 0)
+        return live, r_, t_, [x[np.minimum(r_, x.shape[0] - 1),
+                                np.minimum(t_, x.shape[1] - 1)] for x in X]
+    CV = []
+    for i in range(V_):
+        env = dict(_ENV, U=U, V={}, STORE={}, P=P, CV={})
+        env["X"] = lanes(by * rch, i)[3]
+        with np.errstate(all="ignore"):
+            _run(fns["pr_col"], env, {})
+        CV.append(env["CV"])
+    for j in range(rch):
         row = by * rch + j
-        live_r = row < rows
         aR = np.zeros((nfr, gy, gx, nth))
         for i in range(V_):
-            t = t0 + i
-            live = live_r & (t < Tn)
-            env = dict(_ENV, U=U, V={}, STORE={}, P=P)
-            r_, t_ = np.where(live, row, 0), np.where(live, t, 0)
-            env["X"] = [x[np.minimum(r_, x.shape[0] - 1),
-                          np.minimum(t_, x.shape[1] - 1)] for x in X]
+            live, r_, t_, xs = lanes(row, i)
+            env = dict(_ENV, U=U, V={}, STORE={}, P=P, X=xs, CV=CV[i])
             sums = {}
             with np.errstate(all="ignore"):
                 _run(fns["pr_point"], env, sums)
@@ -629,24 +770,53 @@ def _reverse_model(prog, sigs, scals, cts, need, Tn, order_seed=None):
     ctas = [(y_, x_) for y_ in range(gy) for x_ in range(gx)]
     if order_seed is not None:
         np.random.default_rng(order_seed).shuffle(ctas)
-    for k in range(nfc):
-        base = nfu * gx * gy + nfr * rows * gx
-        for y_, x_ in ctas:
-            for i in range(V_):
-                t = t0[y_, x_] + i
-                ok = t < Tn
-                part[base + (k * gy + y_) * Tn + t[ok]] = aC[k, i, y_, x_][ok]
+    ins = [s.numpy() for s in ln.ins]
+    store = {}
+    fc = nfu * gx * gy + nfr * rows * gx
+    if inline:
+        # the per-sample tail in pass 1: pr_time at each lane's samples
+        aT = np.zeros((ncu, gy, gx, nth))
+        for i in range(V_):
+            t = t0 + i
+            live = t < Tn
+            t_ = np.where(live, t, 0)
+            env = dict(_ENV, U=U, V={}, STORE={}, P=P,
+                       IC=[x[0, np.minimum(t_, x.shape[1] - 1)] for x in ins],
+                       RED=[aC[k, i] for k in range(nfc)])
+            sums = {}
+            with np.errstate(all="ignore"):
+                _run(fns["pr_time"], env, sums)
+            for k, y in env["STORE"].items():
+                store.setdefault(k, np.full(Tn, np.nan, F32))[t_[live]] = \
+                    np.broadcast_to(y, live.shape)[live]
+            for k, c in sums.get("aU", {}).items():
+                aT[k] += np.where(live, c, 0.0)
+        for k in range(ncu):
+            s = _tree(aT[k])
+            for y_, x_ in ctas:
+                part[fc + k * gx + x_] = s[y_, x_]
+    else:
+        for k in range(nfc):
+            for y_, x_ in ctas:
+                for i in range(V_):
+                    t = t0[y_, x_] + i
+                    ok = t < Tn
+                    part[fc + (k * gy + y_) * Tn + t[ok]] = \
+                        aC[k, i, y_, x_][ok]
     for k in range(nfu):
         s = _tree(aU[k])
         for y_, x_ in ctas:
             part[k * gx * gy + y_ * gx + x_] = s[y_, x_]
     # pass 2: one CTA of THREADS2
     nc = gx * gy
-    ru = [_tree(np.asarray([sum_seq(part[k * nc:(k + 1) * nc][i::nth2])
-                            for i in range(nth2)]))[()] for k in range(nfu)]
+
+    def sum2(vals):
+        """pr_sum2: thread i adds every THREADS2-th term from i, then the
+        tree."""
+        return _tree(np.asarray([sum_seq(vals[i::nth2])
+                                 for i in range(nth2)]))[()]
+    ru = [sum2(part[k * nc:(k + 1) * nc]) for k in range(nfu)]
     src = prk.reverse_source(pl.adj)
-    ins = [s.numpy() for s in ln.ins]
-    store = {}
 
     def tail(fn, n_items, red, load, n_acc):
         """pr_row / pr_time over rows or samples: thread tid takes items
@@ -677,11 +847,14 @@ def _reverse_model(prog, sigs, scals, cts, need, Tn, order_seed=None):
             lambda it: {"IR": [x[np.minimum(it, x.shape[0] - 1), 0]
                                for x in ins]}, len(w.reds[("R", "U")]))
     if "#define PR_TIMES 1" in src:
-        fc = nfu * nc + nfr * rows * gx
-        ru += tail("pr_time", Tn, lambda k, t: sum_seq(
-            part[fc + k * gy * Tn + t:fc + (k + 1) * gy * Tn:Tn]),
-            lambda it: {"IC": [x[0, np.minimum(it, x.shape[1] - 1)]
-                               for x in ins]}, len(w.reds[("C", "U")]))
+        if inline:
+            ru += [sum2(part[fc + k * gx:fc + (k + 1) * gx])
+                   for k in range(ncu)]
+        else:
+            ru += tail("pr_time", Tn, lambda k, t: sum_seq(
+                part[fc + k * gy * Tn + t:fc + (k + 1) * gy * Tn:Tn]),
+                lambda it: {"IC": [x[0, np.minimum(it, x.shape[1] - 1)]
+                                   for x in ins]}, ncu)
     env = dict(_ENV, U=U, V={}, STORE={}, P=P,
                ru=np.asarray(ru, np.float64))
     with np.errstate(all="ignore"):
@@ -721,6 +894,9 @@ def _model_cases(Tn):
                     [x, lfo], scals, cts, [True] * n, pol))
         out.append((f"config5 group 0 {pol}, the input's", prog, [x, lfo],
                     scals, cts, [True] + [False] * (n - 1), pol))
+        out.append((f"config5 group 0 {pol}, the [T] LFO's", prog,
+                    [x, lfo], scals, cts, [False, True] + [False] * (n - 2),
+                    pol))
     b = pw.Builder()
     a, c, r_ = b.sig(), b.sig(), b.sig()
     prog = b.program([pw.mix(b, a, c, r_)])
@@ -735,15 +911,12 @@ def _model_cases(Tn):
     return out
 
 
-@pytest.mark.parametrize("Tn", [1024, 1030])
-def test_reverse_model_is_the_plain_version(Tn):
-    """The kernel's two passes (float4 walk at T = 1024, one sample a
-    thread at T = 1030; row chunks where a [T] LFO's gradient sums over
-    the rows; a [B, 1] slider's per-row sums; the one-row launch): the
-    per-element gradients bitwise the plain version, every sum the
-    plain version's float64 sum (rtol 1e-12 before its rounding, so
-    bitwise after it but at a rounding tie), and the same bits when pass
-    1's CTAs run in another order."""
+def _model_held(Tn) -> list:
+    """Each of _model_cases through _reverse_model (twice, the second with
+    pass 1's CTAs in another order) against the plain version: the
+    per-element gradients bitwise, every sum bitwise the plain version's
+    float64 sum, both runs the same bits.  Returns [(case name, launch)]."""
+    out = []
     for name, prog, sigs, scals, cts, need, pol in _model_cases(Tn):
         with dt.policy(pol):
             got, ln = _reverse_model(prog, sigs, scals, cts, need, Tn)
@@ -764,15 +937,140 @@ def test_reverse_model_is_the_plain_version(Tn):
                 assert tpw._same(g, p.contiguous()), (name, k)
             else:
                 assert tpw._same(g, q.contiguous()), (name, k)
+        assert ln.vec == (Tn % 4 == 0)
+        out.append((name, ln))
+    return out
+
+
+@pytest.mark.parametrize("Tn", [1024, 1030])
+def test_reverse_model_is_the_plain_version(Tn):
+    """The kernel's two passes (float4 walk at T = 1024, one sample a
+    thread at T = 1030; a [T] LFO's gradient summed over the rows in one
+    chunk of every row, its per-sample tail in pass 1; a [B, 1] slider's
+    per-row sums; the one-row launch): the per-element gradients bitwise
+    the plain version, every sum the plain version's float64 sum (rtol
+    1e-12 before its rounding, so bitwise after it but at a rounding tie),
+    and the same bits when pass 1's CTAs run in another order."""
+    for name, ln in _model_held(Tn):
         if "[T] LFO" in name or "every" in name:
-            assert ln.rch == prk.ROW_CHUNK
-        assert ln.vec == (Tn % 4 == 0 or ln.rows == 1)
+            assert ln.rch == prk.ROW_CHUNK and ln.grid[1] == 1
+            assert not ln.pass2 or "every" in name
+
+
+@pytest.mark.parametrize("Tn", [1024, 1030])
+def test_reverse_model_chunked_layout(Tn, monkeypatch):
+    """The same with the rows chunked (two rows a chunk, so gy = 2 at B =
+    3): the [T] LFO's partials one a sample and chunk, its per-sample tail
+    in pass 2; the input's program walking two rows a thread from its
+    hoisted per-sample values."""
+    monkeypatch.setattr(prk, "ROW_CHUNK", 2)
+    monkeypatch.setattr(prk, "HOIST_ROWS", 2)
+    monkeypatch.setattr(prk, "HOIST_MIN_CTAS", 0)
+    for name, ln in _model_held(Tn):
+        if "config5" in name:
+            assert ln.rch == 2 and ln.grid[1] == 2, name
+            assert ln.pass2 == ("input's" not in name)
+
+
+def test_min_ctas_by_accumulators():
+    """The launch bound each text sets (PR_MIN_CTAS, min_ctas): by the
+    registers pass 1's float64 accumulators take (a scalar's, a row's, a
+    sample's for each of its V samples), 6 CTAs an SM up to 4, 5 up to 16,
+    else 4: config5's first group with every gradient (8 scalars, 2 [T]
+    sums over 4 samples: 32 registers) 4, the mix's (2 scalars, one [T]
+    sum: 12) 5, the Output's (one scalar) and every input's program 6."""
+    want = [(32, 4), (12, 5), (2, 6)]
+    for adj, (acc_want, n_want) in zip(_config5_adjoints(), want):
+        w = prk.worlds(adj)
+        acc = 2 * (len(w.reds[("F", "U")]) + len(w.reds[("F", "R")])
+                   + pk.V * len(w.reds[("F", "C")]))
+        n = int(re.search(r"#define PR_MIN_CTAS (\d+)",
+                          prk.reverse_source(adj)).group(1))
+        assert (acc, n) == (acc_want, n_want) == (acc, prk.min_ctas(w))
+    for prog in tpw._config5_programs("fast"):
+        n = prog.n_sig + prog.n_scal
+        x_only = pw.adjoint(prog, (True,) + (False,) * (n - 1),
+                            (True,) * len(prog.outs),
+                            ("F",) + ("C",) * (prog.n_sig - 1))
+        assert "#define PR_MIN_CTAS 6" in prk.reverse_source(x_only)
+
+
+def test_launch_geometry():
+    """plan_reverse's layout as a function of the program, rows and T
+    (launch_shape): config5's first group with every gradient (its [T]
+    LFO's sum over the rows) takes every row in one chunk at 128 x
+    480,000, so pass 1 runs the per-sample tail and the workspace holds no
+    per-sample partial; at 128-sample blocks (gx = 1) the rows are chunked
+    and the tail stays in pass 2.  The input's program walks HOIST_ROWS
+    rows a thread where that grid keeps HOIST_MIN_CTAS CTAs (128 x
+    480,000), else one row (128 x 48,000, 128 x 128); a program with no
+    per-sample value one row."""
+    every, _, _ = _config5_adjoints()
+    prog = tpw._config5_programs("fast")[0]
+    n = prog.n_sig + prog.n_scal
+    x_only = pw.adjoint(prog, (True,) + (False,) * (n - 1),
+                        (True,) * len(prog.outs), ("F", "C"))
+    w = prk.worlds(every)
+    gx = -(-480_000 // (pk.V * prk.THREADS))
+    assert gx >= prk.TAIL_MIN_GX
+    assert prk.launch_shape(every, 128, 480_000, True) == (128, gx, 1)
+    assert prk.tail_in_pass1(w, 1)
+    nfu, ncu = len(w.reds[("F", "U")]), len(w.reds[("C", "U")])
+    assert prk.workspace_size(w, 128, 480_000, gx, 1) == (nfu + ncu) * gx
+    rch, gx1, gy = prk.launch_shape(every, 128, 128, True)
+    assert (rch, gx1, gy) == (prk.ROW_CHUNK, 1, 128 // prk.ROW_CHUNK)
+    assert not prk.tail_in_pass1(w, gy)
+    assert prk.workspace_size(w, 128, 128, 1, gy) == (
+        nfu * gy + len(w.reds[("F", "C")]) * gy * 128)
+    assert prk.hoisted(x_only)
+    r = prk.HOIST_ROWS
+    assert prk.launch_shape(x_only, 128, 480_000, True) == (
+        r, gx, -(-128 // r))
+    assert gx * -(-128 // r) >= prk.HOIST_MIN_CTAS
+    gx48 = -(-48_000 // (pk.V * prk.THREADS))
+    assert gx48 * -(-128 // r) < prk.HOIST_MIN_CTAS
+    assert prk.launch_shape(x_only, 128, 48_000, True) == (1, gx48, 128)
+    assert prk.launch_shape(x_only, 128, 128, True) == (1, 1, 128)
+    b = pw.Builder()
+    mix = pw.adjoint(b.program([pw.mix(b, b.sig(), b.sig(), b.scal())]),
+                     (True, False, False), (True,), ("F", "F"))
+    assert not prk.hoisted(mix)
+    assert prk.launch_shape(mix, 128, 480_000, True) == (1, gx, 128)
+    # the grid's y limit: enough rows a chunk
+    assert prk.launch_shape(mix, 200_000, 128, True)[2] <= pk.MAX_GRID_Y
+
+
+def test_plan_passes():
+    """Which passes a launch runs (plan_reverse on the CPU at small
+    shapes): the input's program pass 1 alone; every gradient both, at
+    one chunk of every row (the LFO's gradient from pass 1) and chunked;
+    only the [T] LFO needing one, one chunk of every row: pass 1 alone,
+    no workspace."""
+    prog = tpw._config5_programs("fast")[0]
+    n = prog.n_sig + prog.n_scal
+    x = torch.zeros(3, 64)
+    lfo = torch.zeros(64)
+    scals = [torch.tensor(1.0)] * prog.n_scal
+    cts = [torch.zeros(3, 64)] * len(prog.outs)
+    for need, want in (([True] + [False] * (n - 1), (True, False)),
+                       ([True] * n, (True, True)),
+                       ([False, True] + [False] * (n - 2), (True, False))):
+        pl = pk.plan_adjoint(prog, [x, lfo], scals, cts, need, 64)
+        ln = prk.plan_reverse(pl, CPU)
+        assert (ln.pass1, ln.pass2) == want, need
+        assert ln.grid[1] == (1 if need[1] else 3), need
+        if need[1] and not need[0]:
+            assert ln.part is None
+            assert prk.tail_in_pass1(prk.worlds(pl.adj), 1)
 
 
 def test_model_constants_are_the_kernels():
     """THREADS, V, THREADS2 of the model and the launch are the kernel's
-    PR_THREADS, PR_V and PR2_THREADS; its tree, its partials' layout and
-    its walk are the model's."""
+    PR_THREADS, PR_V and PR2_THREADS; its tree, its partials' layout (both
+    of pass 1's layouts), its walk (the per-sample values from the chunk's
+    first row, then the rows in order, the per-sample tail in pass 1 where
+    one chunk holds every row) and pass 2's strided sums are the
+    model's."""
     src = (pathlib.Path(pk.__file__).resolve().parent.parent / "csrc"
            / "pointwise_reverse_kernel.cu").read_text()
     assert re.search(rf"#define PR_THREADS {prk.THREADS}\b", src)
@@ -783,12 +1081,25 @@ def test_model_constants_are_the_kernels():
             "__shfl_down_sync(0xffffffffu, v, o);",
             "for (int w = 0; w < THREADS / 32; ++w) s += sh[w];",
             "const long long r0 = (long long)blockIdx.y * rch;",
+            "pr_load<VEC>(a, r0, t0, x);",
+            "for (int i = 0; i < NV; ++i) cv[i] = pr_col(U, x[i]);",
+            "for (long long row = r0; row < r1; ++row) {",
+            "pr_point(U, cv[i], x[i], g[i], aU, aR, aC[i]);",
             "fr[(k * rows + row) * gx + blockIdx.x] = s;",
+            "  if (gy == 1) {",
+            "pr_time(U, a.in, a.in_sb, a.in_st, a.ptr, a.out, t0 + i, aC[i], "
+            "aT);",
+            "if (threadIdx.x == 0) fc[k * gx + blockIdx.x] = s;",
             "fc[(k * gy + blockIdx.y) * T + t0 + i] = aC[i][k];",
             "part[k * gx * gy + blockIdx.y * gx + blockIdx.x] = s;",
-            "for (long long i = threadIdx.x; i < nc; i += PR2_THREADS)",
+            "for (long long i = threadIdx.x; i < n; i += PR2_THREADS) "
+            "s += part[i];",
+            "for (int k = 0; k < PR_NFU; ++k) ru[k] = pr_sum2(part + k * nc, "
+            "nc, sh);",
             "for (long long i = 0; i < gx; ++i) s += "
             "fr[(k * rows + row) * gx + i];",
+            "if (PR_NFC > 0 && gy == 1) {",
+            "ru[PR_NFU + PR_NRU + k] = pr_sum2(fc + k * gx, gx, sh);",
             "for (long long j = 0; j < gy; ++j) s += "
             "fc[(k * gy + j) * T + t];",
             "for (long long row = threadIdx.x; row < rows; "

@@ -2,6 +2,7 @@
 """Time the port's kernel entry points and main paths of one checkout.
 
     python3 tools/time_torch_paths.py [--root DIR] [--renders | --grads]
+    python3 tools/time_torch_paths.py --sass FILE ...
 
 Imports dsp_stuff_tpu_torch and chip_smoke from DIR (default: this
 checkout), so that two commits can be compared in one call on one card:
@@ -39,12 +40,23 @@ medians of 3 after a first call, and one forward + backward's device time
 by torch.profiler, split by op group, with the port's kernels' device
 times; the peak device memory of one forward + backward; and the device
 time under each backward node, the largest eight, by this checkout's
-``backward_by_node``), and, where
+``backward_by_node``), the reverse pointwise kernel on config5's groups
+at B = 128 and config3's at B = 32 (its shapers' passes at R = 4; the
+root's chip_smoke.groups_of_render, both of its
+reverse_needs: CUDA events over 10 calls back to back, median of 5, and
+each pass's device time by torch.profiler; for the first group the
+registers of each pass and, of pass 1's float4 build, the SASS
+instructions and MUFU instructions in its row loop a sample, from
+``cuobjdump`` of the root's built library), and, where
 the root's chain kernel has a record build, that build beside the plain
 one on the bench list at B = 128 (CUDA events, in turns: plain, record,
-record, plain).  Prints one line per measurement
+record, plain), and the bench chain's training step (its reverse
+pointwise kernel's device time a step beside it).  Prints one line per
+measurement
 with the root and the card's name and power limit.  Needs a CUDA device;
-imports nothing of JAX.
+imports nothing of JAX.  ``--sass`` reads pass-1 SASS dumps that
+``--grads`` wrote (build/sass/) and prints their
+loop_stats, on any machine.
 """
 
 import inspect
@@ -94,6 +106,89 @@ def backward_by_node(run, top=8):
     return dict(sorted(got.items(), key=lambda kv: -kv[1])[:top])
 
 
+def sass_loop_stats(lib: str, dump: str = "") -> dict:
+    """Of the reverse pointwise kernel's library ``lib``: each kernel's
+    registers (``cuobjdump -res-usage``) and pass 1's loop_stats (its
+    float4 build's SASS, written to ``dump`` where given).  Empty where
+    cuobjdump is missing."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                         text=True, timeout=120).stdout
+    regs, fn = {}, None
+    for line in res.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"REG:(\d+)", line)
+        if m and fn:
+            regs[fn] = int(m.group(1))
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=120).stdout
+    out = {"registers": regs}
+    for block in sass.split("Function : ")[1:]:
+        if "pointwise_reverse_kernelILb1E" not in block.split()[0]:
+            continue
+        if dump:
+            os.makedirs(os.path.dirname(dump), exist_ok=True)
+            with open(dump, "w") as f:
+                f.write(block)
+        out.update(loop_stats(block))
+    return out
+
+
+def loop_stats(sass: str) -> dict:
+    """Of one kernel's SASS (``cuobjdump -sass``): its instructions and
+    MUFU instructions in all, and in its row loop a sample: the loop is
+    the longest span from a backward branch's target to the branch, less
+    the spans of the loops inside it (a row's tail, where the build has
+    one), over the 4 samples of a float4 unit; ``loop_*`` count all of
+    it, ``hot_*`` what is off a divide's slow path (hot_path)."""
+    import re
+    ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
+    loops = []
+    for a, op in ins:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < a:
+            loops.append((int(m.group(1), 16), a))
+    out = {"sass_total": len(ins),
+           "mufu_total": sum("MUFU" in op for _, op in ins)}
+    if loops:
+        lo, hi = max(loops, key=lambda s: s[1] - s[0])
+        inner = [(b, e) for b, e in loops if lo < b and e < hi]
+        body = {a for a, _ in ins if lo <= a <= hi
+                and not any(b <= a <= e for b, e in inner)}
+        out["loop_sass_a_sample"] = len(body) / 4
+        out["loop_mufu_a_sample"] = sum("MUFU" in op for a, op in ins
+                                        if a in body) / 4
+        hot = hot_path(ins, body)
+        out["hot_sass_a_sample"] = len(hot) / 4
+        out["hot_mufu_a_sample"] = sum("MUFU" in op for op in hot) / 4
+    return out
+
+
+def hot_path(ins, body_at) -> list:
+    """Of the loop body (``body_at``: the addresses), the instructions off
+    a divide's slow path: a conditional forward branch over fewer than 64
+    instructions holding a CALL (div.rn's slow-path call, or pw_div's
+    fallback to __fdiv_rn) marks those as cold."""
+    import re
+    cold = set()
+    for i, (a, op) in enumerate(ins):
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+        if a not in body_at or not op.startswith("@") or not m:
+            continue
+        skipped = [(b, o) for b, o in ins[i + 1:]
+                   if b < int(m.group(1), 16)]
+        if len(skipped) < 64 and any("CALL" in o for _, o in skipped):
+            cold.update(b for b, _ in skipped)
+    return [op for a, op in ins if a in body_at and a not in cold]
+
+
 def back_to_back_ms(fn, inner=20, n=5):
     """Median of n CUDA-event timings of ``inner`` calls of fn() back to
     back, a call, after a warm-up (this checkout's timer, so that both
@@ -113,7 +208,67 @@ def back_to_back_ms(fn, inner=20, n=5):
     return float(np.median(times))
 
 
+def pointwise_reverse_times(cs, name, graph, B, dev, here, root,
+                            tag) -> None:
+    """The reverse pointwise kernel on a graph's groups at B x 10 s,
+    through the root's chip_smoke and wrapper (see the module's doc; the
+    SASS of config5's first group)."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
+    if not hasattr(cs, "reverse_needs"):
+        return
+    x = torch.as_tensor(np.random.default_rng(142).standard_normal(
+        (B, 1, T), dtype=np.float32) * np.float32(0.3), device=dev)
+    with dst.policy("fast"):
+        cg = dst.compile_graph(graph, device="cuda")
+        groups = cs.groups_of_render(cg, x, (B,))
+    del x
+    for gi, (prog, sigs, scals, Tn) in enumerate(groups):
+        cts = cs.reverse_cotangents(prog, sigs, scals, Tn, dev, 3000 + gi)
+        for need in cs.reverse_needs(prog):
+            need = list(need)
+
+            def fk():
+                return prk.reverse_group(prog, sigs, scals, cts, need, Tn,
+                                         dev)
+            ms = cs.cuda_ms(fk, inner=10)
+            prk.SUM_LAUNCHES = 0
+            fk()
+            passes = [cs.kernel_device_ms(fk, "pointwise_reverse_kernel<")[0]]
+            if prk.SUM_LAUNCHES:
+                passes.append(cs.kernel_device_ms(
+                    fk, "pointwise_reverse_kernel_sums")[0])
+            # the bytes bound: each operand read once, each gradient
+            # written once (the same in every root's layout)
+            pl = pk.plan_adjoint(prog, sigs, scals, cts, need, Tn)
+            ln = prk.plan_reverse(pl, dev)
+            bnd = 4.0 * (sum(t.numel() for t in ln.ins)
+                         + sum(t.numel() for t in ln.outs)) / 3.35e9
+            print(f"{name} group {gi} reverse, need {sum(need)}, [{B}, {T}]: "
+                  f"{ms:.3f} ms, device by pass "
+                  f"{[None if p is None else round(p, 4) for p in passes]}, "
+                  f"bytes bound {bnd:.4f} ms, rch {ln.rch}, grid {ln.grid}, "
+                  f"pass 2 {ln.pass2} {tag}")
+            del ln
+            if gi == 0 and name == "config5":
+                lib = prk._lib(prk.reverse_source(pl.adj),
+                               prk._counts(prk.worlds(pl.adj)))._name
+                dump = os.path.join(here, "build", "sass",
+                                    f"{os.path.basename(root)}_need"
+                                    f"{sum(need)}.sass")
+                print(f"config5 group 0 reverse, need {sum(need)}: "
+                      f"{sass_loop_stats(lib, dump)} {tag}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
+    if "--sass" in sys.argv:
+        for path in sys.argv[sys.argv.index("--sass") + 1:]:
+            with open(path) as f:
+                print(f"{path}: {loop_stats(f.read())}")
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("time_torch_paths: needs a CUDA device", file=sys.stderr)
@@ -182,6 +337,13 @@ def main() -> int:
                       + f" {tag}")
                 del cg, x, tgt, xt, loss
                 torch.cuda.empty_cache()
+            for name, graph, b in (
+                    ("config5", g5, 128),
+                    ("config3", presets.config3_oversampled_distortion()[0],
+                     32)):
+                pointwise_reverse_times(cs, name, graph, b, dev, here, root,
+                                        tag)
+            train_step_times(cs, dev, tag)
             if "record" in inspect.signature(
                     chain_kernel.chain_kernel_call).parameters:
                 bench = cs.bench_stages()
@@ -274,26 +436,50 @@ def main() -> int:
         del x_all
         torch.cuda.empty_cache()
         if not renders_only:
-            cg = dst.compile_graph(cs.bench_graph(), device="cuda")
-            inp = str(cg.input_ids[0])
-            gen = torch.Generator(device=dev).manual_seed(13)
-            ext = {inp: torch.randn((128, T), generator=gen, device=dev)
-                   * 0.25}
-            target = cs.render_target(cg, ext, cs.hidden_params(
-                cg, gain=("level", 2.0), low_pass=("ratio", 0.7)))
-            params = cg.init_params(requires_grad=True)
-            step, init_opt = fit.make_train_step(cg, fit.adam(0.03))
-            opt = init_opt(params)
-            state = cg.init_state()
-            secs = []
-            for _ in range(6):
-                t0 = time.time()
-                step(params, opt, state, ext, target)
-                torch.cuda.synchronize()
-                secs.append(time.time() - t0)
-            print(f"training step (bench chain, 16 sliders), B=128: "
-                  f"{np.median(secs[1:]) * 1e3:.3f} ms {tag}")
+            train_step_times(cs, dev, tag)
     return 0
+
+
+def train_step_times(cs, dev, tag) -> None:
+    """A training step of the bench chain's 16 sliders at B = 128: the
+    host clock around the step and a synchronize (median of 5 after a
+    warm-up), and the device time a step of the reverse pointwise
+    kernel's launches (both passes, torch.profiler over 5 steps)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.train import fit
+    with dst.policy("fast"):
+        cg = dst.compile_graph(cs.bench_graph(), device="cuda")
+        inp = str(cg.input_ids[0])
+        gen = torch.Generator(device=dev).manual_seed(13)
+        ext = {inp: torch.randn((128, T), generator=gen, device=dev)
+               * 0.25}
+        target = cs.render_target(cg, ext, cs.hidden_params(
+            cg, gain=("level", 2.0), low_pass=("ratio", 0.7)))
+        params = cg.init_params(requires_grad=True)
+        step, init_opt = fit.make_train_step(cg, fit.adam(0.03))
+        opt = init_opt(params)
+        state = cg.init_state()
+        secs = []
+        for _ in range(6):
+            t0 = time.time()
+            step(params, opt, state, ext, target)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                step(params, opt, state, ext, target)
+            torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and "pointwise_reverse_kernel" in e.key]
+    rev = sum(e.self_device_time_total for e in evs) / 5 / 1e3
+    print(f"training step (bench chain, 16 sliders), B=128: "
+          f"{np.median(secs[1:]) * 1e3:.3f} ms; reverse pointwise kernel "
+          f"device {rev:.4f} ms a step in {sum(e.count for e in evs) / 5:g} "
+          f"launches {tag}")
 
 
 if __name__ == "__main__":
