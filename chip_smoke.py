@@ -221,6 +221,7 @@ identity as the last line.  Error figures are in dBFS:
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -304,6 +305,12 @@ SEQ_RUN = 64
 SEQ_TILE_SHAPES = ((33, SEQ_RUN - 1), (33, SEQ_RUN), (33, SEQ_RUN + 1),
                    (33, 2 * SEQ_RUN + 1), (33, 4096))
 SEQ_MODES = ("first_order", "first_order:per-sample", "biquad")
+#: samples of the main shape's plain windows: the recurrence is causal,
+#: so the kernel's output over a prefix is the plain loop's on the prefix,
+#: and a late window started from the kernel's own state ends in its
+#: final state (the plain loops over all 480,000 samples took 77 s)
+SEQ_PLAIN_PREFIX = 48_000
+SEQ_PLAIN_LATE = 24_000
 SEQ_COEFFS = (-1.8, 0.81, 0.1, 0.2, 0.1)   # a resonant biquad
 SEQ_A = 0.9173            # the first order's scalar coefficient
 # dependent FP32 operations a step of each mode's chain (first order: the
@@ -341,6 +348,21 @@ LOOP_GRAD_ATOL = 1e-7     # ... a slider's gradient near 0
 LOOP_GRAD_CPU_BLOCKS = 48  # card vs the CPU port, 2 streams
 N_LOOP_FIT_STEPS = 3      # make_train_step steps at B_LOOP x 10 s
 LOOP_GRAD_LENGTHS = (16, 64, 375)   # blocks at B_SHORT, a graph a step
+
+
+class PhaseClock:
+    """The seconds of each phase of the run: ``lap(name)`` ends the phase
+    that began at the last lap (or at the clock's start) and prints it."""
+
+    def __init__(self):
+        self.t = time.time()
+        self.seconds: dict = {}
+
+    def lap(self, name: str) -> None:
+        now = time.time()
+        self.seconds[name] = now - self.t
+        self.t = now
+        print(f"phase {name}: {self.seconds[name]:.1f} s")
 
 
 def dbfs(got, want) -> float:
@@ -678,14 +700,16 @@ def handoff(cg, x, name):
     check(d <= HANDOFF_DB, f"{name} state handoff {d:.1f} dBFS")
 
 
-def parity(graph, xp, oracle, name):
+def parity(graph, xp, oracle, name, route="auto"):
     """Render ``xp`` [B, 1, T] (NumPy) under the parity policy on the card
-    and hold each stream against ``oracle`` (each output, where it returns
-    a list of them); returns the kernel launches of that render."""
+    (its feedback cycles' per-node scans on ``route``) and hold each
+    stream against ``oracle`` (each output, where it returns a list of
+    them); returns the kernel launches of that render."""
     import torch
     import dsp_stuff_tpu_torch as dst
     with dst.policy("parity"):
         cgp = dst.compile_graph(graph, device="cuda")
+        cgp.cycle_loops.route = route
         reset_launches()
         yp, _, _ = cgp.render(xp, batch_shape=(len(xp),))
         torch.cuda.synchronize()
@@ -893,6 +917,30 @@ def cpu_group_calls(graph, pol="fast", params=None, T=256) -> int:
     return counts.get("group_call", 0)
 
 
+def group_launches(graph, pol, T, params=None) -> int:
+    """The pointwise groups a render of T samples under ``pol`` runs when
+    its feedback cycles' per-node scans run the Python loop (the host
+    counts each block's): a one-block render's (cpu_group_calls), and the
+    cycles' groups once more for every further block (the calls a second
+    block adds)."""
+    one = cpu_group_calls(graph, pol, params, T=128)
+    two = cpu_group_calls(graph, pol, params, T=256)
+    return one + (two - one) * (T // 128 - 1)
+
+
+@contextlib.contextmanager
+def cycle_groups_off(cg):
+    """``cg``'s per-node cycle scans without pointwise groups inside the
+    block (each member's eager ops: the route before the cycle's groups),
+    the render's own groups kept.  A scan's loop over buffers is keyed on
+    its groups, so each way captures its own."""
+    cg._cycle_groups = lambda order, heads, interior: ()
+    try:
+        yield
+    finally:
+        del cg._cycle_groups
+
+
 @contextlib.contextmanager
 def groups_through_function(backward):
     """Route every pointwise group of a CPU render through the groups'
@@ -910,14 +958,16 @@ def groups_through_function(backward):
 
 
 def cpu_group_backwards(graph, pol="fast", params=None, wrt_input=False,
-                        T=256, B=2) -> list:
+                        T=256, B=2, route="auto") -> list:
     """The generated reverse source of each pointwise group backward that
     launches the reverse kernel in one loss gradient of ``graph`` under
     ``pol`` (the sliders of ``params(cg)``, leaves that require grad, and
     the input where ``wrt_input``), from the CPU port's at [B, T] with its
     groups routed as the card routes them: one entry a launch on the card
     (the adjoint programs depend on the structure, the policy, what needs
-    a gradient and which operands span the batch, not on B > 1 or T)."""
+    a gradient and which operands span the batch, not on B > 1 or T).
+    ``route`` is the feedback cycles' scan route ("buffers": the replayed
+    loop's reverse body, its block's inputs leaves)."""
     import torch
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
@@ -930,6 +980,7 @@ def cpu_group_backwards(graph, pol="fast", params=None, wrt_input=False,
             got.append(prk.reverse_source(pl.adj))
         return pk.group_adjoint(prog, sigs, scals, cts, need, Tn, device)
     cg = dst.compile_graph(graph, device="cpu")
+    cg.cycle_loops.route = route
     n_in = len(cg.input_ids)
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
         (B, n_in, T)).astype(np.float32) * 0.3) if n_in else None
@@ -2697,6 +2748,8 @@ def automation_run(name, graph, node, param, values, every, x_np,
                         for r, t in zip(raw, trials)],
            "wall_s": float(ms.sum() / 1e3), "audio_s": n * 128 / SR,
            "bitwise": [bool(np.array_equal(t[0], want)) for t in trials]}
+    gn = graph_nodes(sess, f"automation {name}")
+    rec["graph"] = {k: gn[k] for k in ("kinds", "ours", "inst")}
     print(f"slider automation ({name}): {node}'s {param} set anew every "
           f"{every} block{'s' if every > 1 else ''} over {n} process() "
           f"blocks ({rec['audio_s']:.3f} s of audio), {policy}, "
@@ -2713,7 +2766,8 @@ def automation_run(name, graph, node, param, values, every, x_np,
           f"{[r[:8] for r in rec['over_raw']]}, {rec['over']} in every "
           f"session; "
           f"{rec['wall_s']:.3f} s wall; bitwise the eager loop taking the "
-          f"same values: {rec['bitwise']}")
+          f"same values: {rec['bitwise']}; the captured step (its DOT dump): "
+          f"nodes {gn['kinds']}, the port's kernels {expect_str(gn['ours'])}")
     check(all(c == 1 for c in rec["captures"]),
           f"{name} automation: captures {rec['captures']} for one params "
           f"structure")
@@ -3012,6 +3066,13 @@ def runtime_phase(dev, card) -> dict:
         x = (rng.standard_normal(T) * 0.3).astype(np.float32)
         recs[name] = stream_run(name, g, x, dev, card, expect,
                                 first_order=first_order, bounds=bnds)
+    # config5 under parity over 1 s: the feedback cycle's per-node scan
+    # inside the captured step, its two groups a block
+    recs["config5 parity"] = stream_run(
+        "config5 parity", g5, (np.random.default_rng(133).standard_normal(SR)
+                               * 0.3).astype(np.float32), dev, card,
+        only_launches(envelope=1, pointwise=5), policy="parity",
+        bounds={"envelope": bound(8.0 * 128, 3.0 * 128)})
     recapture_check(card)
     tensor_slider_check(card)
     recs["host stalls"] = host_stalls(AUTOMATION_STALL_S, card)
@@ -3055,6 +3116,14 @@ def runtime_phase(dev, card) -> dict:
             label, gr, nid, param, automation_values(base, n, lo, hi), 1,
             (rng.standard_normal(n * 128) * 0.3).astype(np.float32), card,
             policy=pol)
+    # a moved feedback gain takes config5's cycle off its block program:
+    # the per-node scan's two groups in the captured step
+    for label in ("config5", "config5 feedback every block"):
+        got = recs[f"automation {label}"]["graph"]["ours"]
+        check(got.get("pointwise") == 5,
+              f"automation {label}: the captured step holds the kernels "
+              f"{got}, expected five pointwise groups (three and the "
+              f"cycle's two)")
     ring_check(g5)
     cli_check(dev, card)
     checkpoint_check(dev)
@@ -3135,6 +3204,51 @@ def seq_compare(mode, ins, label: str, loud: bool):
     check(same, f"sequential kernel {mode} {label}: not bitwise its plain "
                 f"version (max abs {err:.2e})")
     return err, t0.elapsed_time(t1)
+
+
+def seq_window(mode, ins, y, start: int, stop: int):
+    """The inputs of ``mode``'s solve (seq_inputs) over samples [start,
+    stop), started from the state the kernel's output ``y`` holds before
+    ``start`` (the inputs' own state at 0)."""
+    import torch
+    if mode == "biquad":
+        x, c, st = ins
+        if start:
+            st = torch.stack([x[:, start - 1], x[:, start - 2],
+                              y[:, start - 1], y[:, start - 2]], dim=1)
+        return x[:, start:stop], c, st
+    a, b, y0 = ins
+    return (a[:, start:stop] if a.dim() else a, b[:, start:stop],
+            y[:, start - 1] if start else y0)
+
+
+def seq_compare_windows(mode, ins, label: str):
+    """The sequential kernel over all of ``ins`` against its plain version
+    on two windows of the same inputs, bit for bit: the first
+    SEQ_PLAIN_PREFIX samples from the inputs' state, and the last
+    SEQ_PLAIN_LATE from the kernel's own state there (y and the final
+    state).  Returns (the max abs difference, the plain version's prefix
+    call in ms by CUDA events, its samples)."""
+    import torch
+    y, fin = seq_kernel(mode, ins)
+    T = y.shape[-1]
+    p, late = min(SEQ_PLAIN_PREFIX, T), max(0, T - SEQ_PLAIN_LATE)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    yp, _ = seq_plain(mode, seq_window(mode, ins, y, 0, p))
+    t1.record()
+    yl, fl = seq_plain(mode, seq_window(mode, ins, y, late, T))
+    torch.cuda.synchronize()
+    pairs = [(y[:, :p], yp), (y[:, late:], yl), (fin, fl)]
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    same = all(torch.equal(a, b) for a, b in pairs)
+    print(f"  {mode:24s} {label}: samples [0, {p}) and [{late}, {T}) from "
+          f"the kernel's state, and the final state: max abs {err:.1e}, "
+          f"bitwise {same}")
+    check(same, f"sequential kernel {mode} {label}: not bitwise its plain "
+                f"version on its windows (max abs {err:.2e})")
+    return err, t0.elapsed_time(t1), p
 
 
 def seq_check(mode, R, T, rng, dev, offset=0) -> float:
@@ -3340,9 +3454,10 @@ def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
     CPU port's exact render; wall time and peak memory), config5 and the
     exact-pool fuzz graphs at B_EXACT x 1 s against the oracle and the CPU
     port, the bench chain streamed over 1 s bitwise its render, and the
-    kernel bit for bit against its plain version at [b_main, t_main], both
-    timed there; first the divide fence by a Python number, bitwise the
-    CPU's."""
+    kernel at [b_main, t_main], timed there, bit for bit against its plain
+    version on a prefix and a late window of the same inputs
+    (seq_compare_windows; the plain version timed on the prefix); first
+    the divide fence by a Python number, bitwise the CPU's."""
     import torch
     import dsp_stuff_tpu_torch as dst
     import test_torch_fuzz_gen as gen
@@ -3434,11 +3549,13 @@ def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
           * np.float32(0.3))
     cg5 = dst.compile_graph(g5, device="cpu")
     n5 = sequential_launches(cg5, SR)
+    g5n = group_launches(g5, "exact", SR)
     y5, _, wall, _, _ = exact_render(
         g5, x5, B_EXACT, only_launches(envelope=1, sequential=n5,
-                                       pointwise=3), "config5", dev)
+                                       pointwise=g5n), "config5", dev)
     print(f"config5 under exact, [{B_EXACT}, 1, {SR}]: render {wall:.3f} s, "
-          f"1 envelope and {n5} sequential launches (the loop's one-pole "
+          f"1 envelope, {n5} sequential launches (the loop's one-pole once "
+          f"a block) and {g5n} pointwise (three groups, the loop's two "
           f"once a block), no chain or cycle kernel [{card}]")
     y5 = host(y5)
     rec["c5_oracle_db"] = held("stream 0 vs the composed oracle",
@@ -3461,7 +3578,7 @@ def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
         nf = sequential_launches(dst.compile_graph(gf, device="cpu"), SR)
         yf, cgf, _, _, _ = exact_render(
             gf, xf, B_EXACT, only_launches(
-                sequential=nf, pointwise=cpu_group_calls(gf, "exact")),
+                sequential=nf, pointwise=group_launches(gf, "exact", SR)),
             f"fuzz seed {seed}", dev, finite=False)
         yf = host(yf)[..., :T_CPU_PORT]
         want = oracle_evaluate(gf, {inp: xf[0, 0, :T_CPU_PORT]},
@@ -3488,24 +3605,25 @@ def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
     rec.update(fuzz_bitwise=n_bitwise, fuzz_oracle_db=worst_or,
                fuzz_cpu_db=worst_cpu)
 
-    # the kernel at the main path's shape: bit for bit against its plain
-    # version there, both timed on the same inputs (the plain loop once:
-    # T steps of a few launches each)
+    # the kernel at the main path's shape, timed there, bit for bit against
+    # its plain version on a prefix and a late window of the same inputs
+    # (the plain loop once on the prefix: its steps of a few launches each)
     rng = np.random.default_rng(94)
     for mode in SEQ_MODES:
         ins = seq_inputs(mode, b_main, t_main, rng, dev)
         ms = cuda_ms(lambda: seq_kernel(mode, ins))
-        err, plain_ms = seq_compare(mode, ins, f"[{b_main}, {t_main}]", True)
+        err, plain_ms, n_plain = seq_compare_windows(
+            mode, ins, f"[{b_main}, {t_main}]")
         del ins
         rec[f"{mode}:err"] = max(rec[f"{mode}:err"], err)
         bms, bby = seq_bound(mode, b_main, t_main)
         floor = seq_floor_ms(mode, t_main)
         rec[mode] = dict(ms=ms, plain_ms=plain_ms, bound=(bms, bby),
-                         floor=floor)
+                         floor=floor, plain_shape=[b_main, n_plain])
         print(f"sequential kernel, {mode}, [{b_main}, {t_main}]: {ms:.3f} ms "
               f"(chain floor {floor:.3f} ms, {floor / ms:.1%} of it; bound "
               f"{bms:.3f} ms by {bby}); its plain version {plain_ms:.1f} ms "
-              f"[{card}]")
+              f"at [{b_main}, {n_plain}] [{card}]")
         torch.cuda.empty_cache()
     print(f"exact phase: {time.time() - t_phase:.1f} s")
     return rec
@@ -4643,6 +4761,68 @@ def chunk_device_ms(loop, bodies: int, first: int, n: int) -> float:
     return e0.elapsed_time(e1) / n
 
 
+def loop_group_bounds(loop) -> tuple:
+    """The bytes bounds in us of a loop body's pointwise groups, all of a
+    block together, at the loop's rows x its block: forward, each signal
+    operand read and each output written once; reverse, each signal
+    operand and each output's cotangent read and each signal's gradient
+    written once (the scan's lowered groups, ``_CycleScan._lowerings``)."""
+    rows = math.prod(next(iter(loop.prev.values())).shape[:-1])
+    fwd = rev = 0
+    for prog, sigs, _, written in loop.scan._lowerings.values():
+        fwd += len(sigs) + len(written)
+        rev += 2 * len(sigs) + len(written)
+    one = 4.0 * rows * loop.block
+    return bound(one * fwd, 0.0)[0] * 1e3, bound(one * rev, 0.0)[0] * 1e3
+
+
+def replay_kernel_us(graph, n: int) -> dict:
+    """Each of the port's kernels in ``n`` replays of a captured ``graph``
+    by torch.profiler (opened with PROFILE_LEAD_IN spin kernels, which
+    take the trace's loss of its first device records): {instance_of
+    (the reverse pointwise kernel's pass 2 apart, "pointwise_reverse:
+    sums"): (device us a launch, launches a replay)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD_IN):
+            torch.cuda._sleep(1000)
+        for _ in range(n):
+            graph.replay()
+        torch.cuda.synchronize()
+    us: dict = {}
+    count: dict = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        inst = instance_of(e.name)
+        if inst is None:
+            continue
+        if "kernel_sums" in e.name:
+            inst += ":sums"
+        us[inst] = us.get(inst, 0.0) + (
+            e.device_time_total if hasattr(e, "device_time_total")
+            else e.cuda_time_total)
+        count[inst] = count.get(inst, 0) + 1
+    return {k: (us[k] / count[k], count[k] / n) for k in us}
+
+
+def reverse_kernel_us(loop, n: int) -> dict:
+    """replay_kernel_us of a differentiated loop's reverse graph over
+    ``n`` (<= SEGMENT) blocks from the first block past its head, on the
+    records its last backward left (the counter and the segment's first
+    block set so that every replay reads a record slot it wrote)."""
+    from dsp_stuff_tpu_torch.compiler import cycle_loop
+    graph = next(g for k, (g, _) in loop.graphs.items()
+                 if isinstance(k, tuple) and k[0] == "reverse")
+    n = min(n, cycle_loop.SEGMENT)
+    first = int(loop.grad.seg)
+    loop.grad.seg.fill_(first)
+    loop.counter.fill_(first + n)
+    return replay_kernel_us(graph, n)
+
+
 def loop_graph_nodes(cg, name, bodies) -> dict:
     """The nodes of the last loop's graph of ``bodies`` bodies, from its
     DOT dump."""
@@ -4673,8 +4853,10 @@ def cycle_loop_phase(dev, card) -> dict:
     same key with no capture; walls of the loop eager and replayed, its
     device time (the graphs replayed back to back), captures, replays,
     the nodes of one chunk from its DOT dump and the launches of each
-    kernel inside the replayed loop; under parity also K in LOOP_KS.
-    Returns each path's record."""
+    kernel inside the replayed loop (the cycle's two pointwise groups once
+    a block); the loop without its groups, bitwise, its kernels a block
+    and both loops' times in turns (loop_groups_turns); under parity also
+    K in LOOP_KS.  Returns each path's record."""
     import torch
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.compiler import cycle_loop
@@ -4778,12 +4960,20 @@ def cycle_loop_phase(dev, card) -> dict:
                   f"kernels by name (top 8) "
                   f"{sorted(nk['names'].items(), key=lambda kv: -kv[1])[:8]}; "
                   f"the port's launches inside the replayed loop {inside}")
+            check(nk["ours"].get("pointwise", 0) == 2 * K
+                  and inside.get("pointwise", 0) == 2 * (full * K + rest),
+                  f"{name}: the replayed loop's bodies launch the pointwise "
+                  f"kernel {nk['ours'].get('pointwise', 0)} times a chunk "
+                  f"of {K}, {inside.get('pointwise', 0)} in all; expected "
+                  f"the cycle's two groups once a block")
             rec = dict(plan=plan, captures=caps1, capture_ms=cap_s * 1e3,
                        loop_eager_ms=span_e2[0], loop_replayed_ms=span_r2[0],
                        loop_first_ms=span_r1[0], device_ms=device_ms,
                        chunk_ms=dev_k, inside=inside, oracle_db=d,
                        render_eager_ms=wall_e2, render_replayed_ms=wall_r2,
                        peak_eager_gib=peak_e, peak_gib=peak)
+            rec["groups"] = loop_groups_turns(cg, name, render, replayed,
+                                              nk, head, full, card)
             if name == "parity":
                 # each K captured first, then two rounds of renders in
                 # turns (the loops of every K stay cached)
@@ -4821,6 +5011,75 @@ def cycle_loop_phase(dev, card) -> dict:
     out["lengths"] = cycle_loop_lengths(dev, card)
     print(f"cycle loop phase: {time.time() - t_phase:.1f} s")
     return out
+
+
+def loop_groups_turns(cg, name, render, replayed, nk, head, full,
+                      card) -> dict:
+    """The replayed loop without its pointwise groups (cycle_groups_off:
+    each member's eager ops, the route before the cycle's groups) against
+    the loop with them (``replayed``, its chunk's nodes ``nk``): bitwise
+    (output, aux, state); a block's kernels, pointwise launches and
+    copies from each graph's DOT dump; the loop's wall and device time a
+    render (CUDA events over the K-body graph replayed back to back,
+    ``chunk_device_ms``) in turns, with, without, without, with.  Returns
+    the records."""
+    import torch
+    from dsp_stuff_tpu_torch.compiler import cycle_loop
+    K = cycle_loop.CHUNK
+    loops = cg.cycle_loops
+    with cycle_groups_off(cg):
+        plain, _, _ = render("auto")
+        nn = loop_graph_nodes(cg, f"cycle loop {name} no groups", K)
+    bit = all(same_tree(a, b) for a, b in zip(plain, replayed))
+    err = dbfs(host(plain[0]), host(replayed[0]))
+    check(bit, f"{name}: the replayed loop with groups is not bitwise the "
+               f"replayed loop without them ({err:.1f} dBFS)")
+    del plain
+    walls = {"groups": [], "no groups": []}
+    devs = {"groups": [], "no groups": []}
+    for way in ("groups", "no groups", "no groups", "groups"):
+        with (cycle_groups_off(cg) if way == "no groups"
+              else contextlib.nullcontext()):
+            _, _, span = render("auto")
+            loop = loops.last
+            walls[way].append(span[0])
+            devs[way].append(chunk_device_ms(loop, K, head,
+                                             min(N_LOOP_TIMED, full))
+                             * (full / K))
+        torch.cuda.synchronize()
+
+    # the port's kernels in replays of the groups' loop (the last render)
+    loop = loops.last
+    loop.counter.fill_(head)
+    kus = replay_kernel_us(loop.graphs[K][0], min(20, full) // K)
+
+    def per_block(nodes):
+        return dict(kernels=nodes["kinds"].get("KERNEL", 0) / K,
+                    pointwise=nodes["ours"].get("pointwise", 0) / K,
+                    copies=(nodes["kinds"].get("MEMCPY", 0)
+                            + nodes["kinds"].get("MEMSET", 0)) / K)
+    rec = {"bitwise": bit, "walls": walls, "device_ms": devs,
+           "with": per_block(nk), "without": per_block(nn),
+           "kernel_us": kus, "bound_us": loop_group_bounds(loop)[0]}
+    print(f"  with the cycle's groups / without (each member's eager ops), "
+          f"bitwise {bit}: a block {rec['with']['kernels']:g} / "
+          f"{rec['without']['kernels']:g} kernels, pointwise "
+          f"{rec['with']['pointwise']:g} / {rec['without']['pointwise']:g}, "
+          f"copies and memsets {rec['with']['copies']:g} / "
+          f"{rec['without']['copies']:g} (DOT dumps); in turns (with, "
+          f"without, without, with) the loop's wall ms "
+          f"{walls['groups'][0]:.1f}, {walls['no groups'][0]:.1f}, "
+          f"{walls['no groups'][1]:.1f}, {walls['groups'][1]:.1f}, device "
+          f"ms of its {full} replayed blocks {devs['groups'][0]:.1f}, "
+          f"{devs['no groups'][0]:.1f}, {devs['no groups'][1]:.1f}, "
+          f"{devs['groups'][1]:.1f} [{card}]")
+    print(f"  the port's kernels in a replayed body by torch.profiler "
+          f"(device us a launch, launches a body): "
+          + ", ".join(f"{k} {u:.3f} x {c:g}" for k, (u, c)
+                      in sorted(kus.items()))
+          + f"; the groups' bytes bound {rec['bound_us']:.4f} us a body "
+            f"[{card}]")
+    return rec
 
 
 def cycle_loop_lengths(dev, card) -> dict:
@@ -4952,19 +5211,25 @@ def held_grads(what, got, want, rtol, atol) -> tuple:
 #: the port's kernels in a reverse graph's DOT dump by mode: the
 #: first-order kernel forward (fo_chained<., false>: the block's forward
 #: run again) and reverse (<., true>), the sequential kernel forward and
-#: its reverse mode
+#: its reverse mode, the pointwise kernel (the groups' forward run again)
+#: and the reverse pointwise kernel's passes 1 and 2
 REVERSE_MODES = (("first_order:reverse", r"fo_chainedILb[01]ELb1E"),
                  ("first_order", r"fo_chainedILb[01]ELb0E"),
                  ("sequential:reverse", r"sequential_reverse_kernelILi\d"),
-                 ("sequential", r"sequential_kernelILi\d"))
+                 ("sequential", r"sequential_kernelILi\d"),
+                 ("pointwise", r"pointwise_kernelILb[01]E"),
+                 ("pointwise_reverse", r"pointwise_reverse_kernelILb[01]E"),
+                 ("pointwise_reverse:sums", r"pointwise_reverse_kernel_sums"))
 
 
 def reverse_launches(cg, name) -> dict:
     """The port's kernels in the last loop's reverse graph (one block),
-    from its DOT dump: {mode of REVERSE_MODES: launches}."""
-    with open(loop_graph_nodes(cg, name, "reverse")["path"]) as f:
+    from its DOT dump: {mode of REVERSE_MODES: launches}, and under
+    "kernels" every kernel node of the graph."""
+    nodes = loop_graph_nodes(cg, name, "reverse")
+    with open(nodes["path"]) as f:
         text = f.read()
-    out = {}
+    out = {"kernels": nodes["kinds"].get("KERNEL", 0)}
     for mode, pat in REVERSE_MODES:
         n = len(re.findall(pat, text))
         if n:
@@ -5012,9 +5277,12 @@ def cycle_loop_grad_phase(dev, card) -> dict:
     (forward, checkpoints, record and reverse bodies as CUDA graphs)
     against the Python loop's autograd on the card (loss, each slider's
     gradient, the input's, the final states; a second step captures
-    nothing) and the card against the CPU port at 2 x LOOP_GRAD_CPU_BLOCKS
-    blocks; the reverse graph's kernels from its DOT dump; then three
-    make_train_step steps of config5 under fast at B_LOOP x 10 s (loss,
+    nothing) and against the eager ops' Python loop (no groups in the
+    cycle's block), and the card against the CPU port at 2 x
+    LOOP_GRAD_CPU_BLOCKS blocks; the reverse graph's kernels from its DOT
+    dump (the reverse pointwise kernel once a group), with and without
+    the cycle's groups; then make_train_step steps of config5 under fast
+    at B_LOOP x 10 s, with and without the cycle's groups in turns (loss,
     step wall, captures, replays, the scan's forward and backward time,
     peak memory) beside one step of the Python loop; then the break-even
     by length (LOOP_GRAD_LENGTHS blocks at B_SHORT, a graph compiled a
@@ -5076,6 +5344,23 @@ def cycle_loop_grad_phase(dev, card) -> dict:
             check(want is None or rev.get(want) == 1,
                   f"{pol}: the reverse graph launches {rev}, expected "
                   f"{want} once a block")
+            check(rev.get("pointwise_reverse") == 2,
+                  f"{pol}: the reverse graph launches {rev}, expected the "
+                  f"reverse pointwise kernel once a group (two) a block")
+            # the eager ops' Python loop (no groups in the cycle's block)
+            # under autograd, and the replayed loop without groups: its
+            # reverse graph's kernels
+            with cycle_groups_off(cg):
+                ops = loop_grads(cg, "eager", x, tgt)
+                loop_grads(cg, "auto", x, tgt)
+                rev_n = reverse_launches(cg, f"cycle loop grad {pol} no "
+                                             f"groups")
+            check(torch.equal(got[0], ops[0]) and same_tree(got[3], ops[3]),
+                  f"{pol}: the loss or the states differ from the eager "
+                  f"ops' loop")
+            worst_o, x_err_o, bit_o = held_grads(
+                f"{pol} replayed vs the eager ops' loop", got, ops,
+                LOOP_GRAD_TOL, LOOP_GRAD_ATOL)
             print(f"cycle loop backward, config5 {pol}, every slider a "
                   f"leaf, [{B_LOOP_GRAD}, {SR}] ({nb1} blocks, head {head}, "
                   f"S = {cycle_loop.SEGMENT}): replayed vs the eager "
@@ -5088,10 +5373,17 @@ def cycle_loop_grad_phase(dev, card) -> dict:
                   f"a block in the reverse graph {rev}; step wall eager "
                   f"{eager[4]:.1f} ms, replayed {got[4]:.1f} (captures "
                   f"included) / {again[4]:.1f} ms [{card}]")
+            print(f"  against the eager ops' Python loop under autograd (no "
+                  f"groups in the cycle's block): loss and states bitwise, "
+                  f"worst slider {worst_o:.2e}, input {x_err_o:.2e} "
+                  f"max-normalized, gradients bitwise {bit_o}; the reverse "
+                  f"graph without the cycle's groups {rev_n} [{card}]")
             out[pol] = dict(worst=worst, x_err=x_err, bitwise=bit,
                             captures=caps, reverse=rev, eager_ms=eager[4],
-                            first_ms=got[4], ms=again[4], blocks=n)
-            del eager, got, again, cg, loops
+                            first_ms=got[4], ms=again[4], blocks=n,
+                            ops_worst=worst_o, ops_x_err=x_err_o,
+                            ops_bitwise=bit_o, reverse_no_groups=rev_n)
+            del eager, got, again, ops, cg, loops
         # the card against the CPU port (the buffers' backward on both)
         xc, tc = inputs(2, LOOP_GRAD_CPU_BLOCKS, "cpu")
         with dst.policy(pol):
@@ -5109,52 +5401,95 @@ def cycle_loop_grad_phase(dev, card) -> dict:
         out[pol].update(cpu_worst=w_cpu, cpu_x_err=x_cpu)
         torch.cuda.empty_cache()
 
-    # -- three fit steps at full width ------------------------------------
+    # -- fit steps at full width, with and without the cycle's groups ------
+    # (each way's first step captures its loop; then in turns: with,
+    # without, without, with; each way from the same initial sliders)
     x, tgt = inputs(B_LOOP, T_MAIN // 128, dev)
     ext = {inp: x}
     with dst.policy("fast"):
         cg = dst.compile_graph(g5, device="cuda")
         loops = cg.cycle_loops
         step, init = fit.make_train_step(cg, fit.adam(1e-2))
-        params = cg.init_params(requires_grad=True)
-        opt = init(params)
-        spans = {"forward": [], "backward": []}
-        steps = []
+        ways = ("groups", "no groups")
+        params = {w: cg.init_params(requires_grad=True) for w in ways}
+        opt = {w: init(params[w]) for w in ways}
+        spans = {w: {"forward": [], "backward": []} for w in ways}
+        all_steps = {w: [] for w in ways}
+        firsts = {}
         torch.cuda.reset_peak_memory_stats(dev)
-        with scan_spans(spans):
-            for i in range(N_LOOP_FIT_STEPS):
-                c0, r0 = loops.captures, loops.replays
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
+        for w in ways + ("groups", "no groups", "no groups", "groups"):
+            c0, r0 = loops.captures, loops.replays
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            with scan_spans(spans[w]), (
+                    cycle_groups_off(cg) if w == "no groups"
+                    else contextlib.nullcontext()):
                 e0.record()
-                _, opt, loss = step(params, opt, cg.init_state(), ext, tgt)
+                _, opt[w], loss = step(params[w], opt[w], cg.init_state(),
+                                       ext, tgt)
                 e1.record()
                 torch.cuda.synchronize()
-                if i == 0:
-                    first = {k: v.grad.clone() for k, v in
-                             ((f"{n}:{kk}", vv) for n, e in params.items()
-                              for kk, vv in e.items()) if v.grad is not None}
-                steps.append(dict(loss=float(loss), ms=e0.elapsed_time(e1),
-                                  captures=loops.captures - c0,
-                                  replays=loops.replays - r0,
-                                  peak_gib=torch.cuda.max_memory_allocated(
-                                      dev) / 2**30))
-        check(all(s["captures"] == 0 for s in steps[1:]),
-              f"fit steps 2 and 3 captured: {steps}")
-        check(all(np.isfinite(s["loss"]) for s in steps), f"loss {steps}")
-        for i, (s, (fw, fd), (bw, bd)) in enumerate(zip(
-                steps, spans["forward"], spans["backward"])):
-            print(f"fit step {i + 1}, config5 fast, every slider a leaf, "
-                  f"[{B_LOOP}, {T_MAIN}]: loss {s['loss']:.9g}, step "
-                  f"{s['ms']:.1f} ms (CUDA events), {s['captures']} "
-                  f"captures, {s['replays']} replays; the cycle's scan "
-                  f"forward {fw:.1f} ms wall / {fd:.1f} device, backward "
-                  f"{bw:.1f} / {bd:.1f}; peak {s['peak_gib']:.2f} GiB "
-                  f"[{card}]")
+            if w not in firsts:
+                firsts[w] = (float(loss), {
+                    f"{n}:{kk}": vv.grad.clone()
+                    for n, e in params[w].items() for kk, vv in e.items()
+                    if vv.grad is not None})
+            all_steps[w].append(dict(
+                loss=float(loss), ms=e0.elapsed_time(e1),
+                captures=loops.captures - c0, replays=loops.replays - r0,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30))
+        steps, first = all_steps["groups"], firsts["groups"][1]
+        check(all(s["captures"] == 0 for w in ways
+                  for s in all_steps[w][1:]),
+              f"fit steps after each way's first captured: {all_steps}")
+        check(all(np.isfinite(s["loss"]) for w in ways
+                  for s in all_steps[w]), f"loss {all_steps}")
+        check(firsts["groups"][0] == firsts["no groups"][0],
+              f"the first step's loss with the cycle's groups "
+              f"{firsts['groups'][0]} vs without {firsts['no groups'][0]}")
+        check(firsts["no groups"][1].keys() == first.keys(),
+              "the first step's sliders with a gradient differ with and "
+              "without the cycle's groups")
+        worst_n = 0.0
+        for k, v in firsts["no groups"][1].items():
+            worst_n = max(worst_n, grad_close(
+                f"fit step 1 with vs without the cycle's groups, {k}",
+                first[k], v, LOOP_GRAD_TOL, LOOP_GRAD_ATOL))
+        for w in ways:
+            for i, (s, (fw, fd), (bw, bd)) in enumerate(zip(
+                    all_steps[w], spans[w]["forward"],
+                    spans[w]["backward"])):
+                print(f"fit step {i + 1} ({w} in the cycle's block), "
+                      f"config5 fast, every slider a leaf, [{B_LOOP}, "
+                      f"{T_MAIN}]: loss {s['loss']:.9g}, step "
+                      f"{s['ms']:.1f} ms (CUDA events), {s['captures']} "
+                      f"captures, {s['replays']} replays; the cycle's scan "
+                      f"forward {fw:.1f} ms wall / {fd:.1f} device, backward "
+                      f"{bw:.1f} / {bd:.1f}; peak {s['peak_gib']:.2f} GiB "
+                      f"[{card}]")
+        print(f"  the first step with the cycle's groups vs without: loss "
+              f"bitwise, worst slider gradient {worst_n:.2e} (rtol "
+              f"{LOOP_GRAD_TOL}); in turns (steps 2 and 3 of each) "
+              f"{steps[1]['ms']:.1f}, {steps[2]['ms']:.1f} ms with against "
+              f"{all_steps['no groups'][1]['ms']:.1f}, "
+              f"{all_steps['no groups'][2]['ms']:.1f} without [{card}]")
+        params, opt = params["groups"], opt["groups"]
+        spans = spans["groups"]
+        rev_us = reverse_kernel_us(loops.last, 20)
+        rev_bound = loop_group_bounds(loops.last)[1]
+        print(f"  the port's kernels in the fit's replayed reverse body by "
+              f"torch.profiler (device us a launch, launches a block): "
+              + ", ".join(f"{k} {u:.3f} x {c:g}" for k, (u, c)
+                          in sorted(rev_us.items()))
+              + f"; the groups' reverse bytes bound {rev_bound:.4f} us a "
+                f"block [{card}]")
         n = T_MAIN // 128 - loops.plan[0]
         out["fit"] = dict(steps=steps, forward=spans["forward"],
                           backward=spans["backward"], blocks=n,
-                          reverse=reverse_launches(cg, "cycle loop grad fit"))
+                          reverse=reverse_launches(cg, "cycle loop grad fit"),
+                          no_groups=all_steps["no groups"],
+                          no_groups_worst=worst_n, kernel_us=rev_us,
+                          bound_us=rev_bound)
         del loops, cg, step, opt, params
         torch.cuda.empty_cache()
         # the parent's route: the Python loop under autograd, one step
@@ -5582,6 +5917,14 @@ def pointwise_sources() -> list:
                 with dst.policy(pol):
                     cg.render(x.expand(1, n_in, 256) if n_in else None,
                               T=256, batch_shape=(1,))
+            # a feedback gain overridden (a float; a stream's moved
+            # slider): the cycle's per-node scan and its groups under fast
+            for nid in sorted(n for c in cg._sccs if len(c) > 1 for n in c
+                              if cg._nodes[n].cfg_name == "gain")[-1:]:
+                with dst.policy("fast"):
+                    cg.render(x.expand(1, n_in, 256) if n_in else None, T=256,
+                              batch_shape=(1,),
+                              params={str(nid): {"level": 0.4}})
     return sorted({pk.source(p) for p in programs})
 
 
@@ -6177,8 +6520,9 @@ def reverse_determinism(prog, sigs, scals, T, dev, n=N_REV_LAUNCHES):
     with torch.cuda.stream(side):
         call()
     torch.cuda.current_stream().wait_stream(side)
+    from dsp_stuff_tpu_torch.utils.capture import no_collection
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with no_collection(), torch.cuda.graph(graph):
         captured = call()
     graph.replay()
     torch.cuda.synchronize()
@@ -6259,6 +6603,12 @@ def pointwise_reverse_sources() -> list:
               for wrt in (False, True)]
     for graph, pol, params, wrt in paths:
         srcs.update(cpu_group_backwards(graph, pol, params, wrt))
+    # the feedback cycle's groups in the replayed loop's reverse body
+    # (every block input a leaf), config5's 21 blocks past its head
+    for pol in ("fast", "parity", "exact"):
+        for wrt in (False, True):
+            srcs.update(cpu_group_backwards(g5, pol, every, wrt, T=21 * 128,
+                                            route="buffers"))
     return sorted(srcs)
 
 
@@ -6390,6 +6740,7 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
+    clock = PhaseClock()
 
     # -- 2. build: one nvcc per kernel source, and one per cycle program
     # (the cycle kernel, its record build for a program with a shaper and
@@ -6446,6 +6797,7 @@ def main() -> int:
                       for ln in spills),
                   f"the sequential kernel spills: {spills}")
 
+    clock.lap("build")
     rng = np.random.default_rng(0)
     # the new kernels' checks draw from their own generator, so the bench
     # chain's phases see the same inputs as before they existed
@@ -6604,6 +6956,7 @@ def main() -> int:
         # -- 5. state handoff ---------------------------------------------
         handoff(cg, x[:B_CHECK], "bench chain")
 
+    clock.lap("kernels vs plain, the bench chain's main path")
     # -- 6. parity on the card ----------------------------------------------
     parity(g, x_np[:4, :, :SR], oracle_chain, "bench chain")
 
@@ -6650,6 +7003,7 @@ def main() -> int:
           f"{N_TIMED} = {B_MAIN * T_MAIN / SR / (render_ms / 1e3):,.0f} "
           f"audio-s/s at B={B_MAIN} x 10 s [{card}]")
 
+    clock.lap("bench chain parity, chain kernel times")
     # -- 8. config5's main path ---------------------------------------------
     g5, meta5 = presets.config5_feedback_16node()
     x5_np = (rng5.standard_normal((B_C5, 1, T_MAIN), dtype=np.float32)
@@ -6693,11 +7047,17 @@ def main() -> int:
         # -- 9. config5 state handoff -------------------------------------
         handoff(cg5, x5[:B_CHECK], "config5")
 
+    clock.lap("config5's main path")
     # -- 10. config5 parity (the sequential envelope kernel's path) -----------
-    par_launches = parity(g5, x5_np[:4, :, :SR], oracle_config5, "config5")
-    check(par_launches == only_launches(envelope=1, pointwise=3),
+    # its cycle's scan as the Python loop, whose group launches the host
+    # counts (the replayed loop: cycle_loop_phase)
+    par_launches = parity(g5, x5_np[:4, :, :SR], oracle_config5, "config5",
+                          route="eager")
+    n_par = group_launches(g5, "parity", SR)
+    check(par_launches == only_launches(envelope=1, pointwise=n_par),
           f"config5 parity launched {par_launches}, expected one "
-          f"sequential envelope launch and three pointwise groups")
+          f"sequential envelope launch and {n_par} pointwise: three groups "
+          f"and the feedback cycle's two once a block")
     # the sequential kernel against _seq_scan at the shape that path gives
     # it (its own generator: the later phases' inputs stay as they were)
     rng10 = np.random.default_rng(10)
@@ -6711,6 +7071,7 @@ def main() -> int:
     rec["seq_err"] = compare_env(f"sequential B=4 T={SR}", seq_k, seq_p)
     del seq_k, seq_p
 
+    clock.lap("config5 parity")
     # -- 11. times: each kernel against its plain version, and config5 --------
     with dst.policy("fast"):
         times = {}                 # (kernel ms, plain ms) by kernel
@@ -6782,45 +7143,60 @@ def main() -> int:
 
     del x5
     torch.cuda.empty_cache()
+    clock.lap("kernel times, config5 renders")
     # -- 11b. the pointwise groups ------------------------------------------
     pw = pointwise_phase(dev, card)
+    clock.lap("pointwise")
     torch.cuda.empty_cache()
     fit_rec = fit_phase(dev, card)
+    clock.lap("fit")
     torch.cuda.empty_cache()
 
     # -- 14. config3 and config4 at full width, muff, mux / demux ------------
     config3_phase(dev, card)
+    clock.lap("config3")
     torch.cuda.empty_cache()
     config4_phase(dev, card)
+    clock.lap("config4")
     torch.cuda.empty_cache()
     muff_phase(dev, card)
     config2_phase(dev, card)
     mux_demux_phase()
+    clock.lap("muff, config2, mux / demux")
 
     # -- 15. the graph fuzz on the card -------------------------------------
     print(f"fuzz graphs on the card vs the CPU port, fast, B={B_FUZZ} x 1 s:")
     fuzz_phase(dev, card)
+    clock.lap("fuzz")
 
     # -- 16. the runtime on the card ----------------------------------------
     torch.cuda.empty_cache()
     rt = runtime_phase(dev, card)
+    clock.lap("runtime")
     examples_phase(card)
+    clock.lap("examples")
 
     # -- 17. the exact policy on the card -----------------------------------
     torch.cuda.empty_cache()
     ex = exact_phase(dev, card)
+    clock.lap("exact")
 
     # -- 18. gradients on the card ------------------------------------------
     torch.cuda.empty_cache()
     gr = grad_phase(dev, card)
+    clock.lap("gradients")
     torch.cuda.empty_cache()
     crv = chain_reverse_phase(dev, card)
+    clock.lap("chain reverse")
     torch.cuda.empty_cache()
     rv = cycle_reverse_phase(dev, card)
+    clock.lap("cycle reverse")
     torch.cuda.empty_cache()
     cl = cycle_loop_phase(dev, card)
+    clock.lap("cycle loop")
     torch.cuda.empty_cache()
     clg = cycle_loop_grad_phase(dev, card)
+    clock.lap("cycle loop backward")
 
     def stream_us(rec, key, bnd):
         """The kernel's device time in one replayed stream block, with its
@@ -6841,6 +7217,8 @@ def main() -> int:
     def seq_entry(mode, replaces, rec=ex, launches=ex["launches"],
                   shape=(B_MAIN, T_MAIN), **extra):
         m = rec[mode]
+        if "plain_shape" in m:
+            extra["plain_shape"] = m["plain_shape"]
         return entry(f"sequential_kernel:{mode}", "sequential_kernel.cu",
                      replaces, launches[mode], rec[f"{mode}:err"],
                      (m["ms"], m["plain_ms"]), m["bound"],
@@ -6853,6 +7231,8 @@ def main() -> int:
     # distort) at B_C5 x 10 s, the input gradient's program (need 1)
     rev5 = [r for r in pw5["reverse"] if sum(r[0]) == 1]
     rev5_all = [r for r in pw5["reverse"] if sum(r[0]) > 1]
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in clock.seconds.items()}))
     print(f"chip_smoke total: {time.time() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": [
         entry("chain_kernel", "chain_kernel.cu",
@@ -6885,7 +7265,18 @@ def main() -> int:
               stream_block_kernels={r: v["kernels"] for r, v
                                     in pw["stream"].items()},
               stream_block_ms={r: (v["median"], v["p99"]) for r, v
-                               in pw["stream"].items()}),
+                               in pw["stream"].items()},
+              loop_launches={p: cl[p]["inside"].get("pointwise", 0)
+                             for p in ("parity", "exact", "fast-override")},
+              loop_block_us={p: cl[p]["groups"]["kernel_us"].get("pointwise")
+                             for p in ("parity", "exact", "fast-override")},
+              loop_bound_us=cl["parity"]["groups"]["bound_us"],
+              loop_bound_us_one_row=cl["parity"]["groups"]["bound_us"]
+              / B_LOOP, loop_shape=[B_LOOP, 128],
+              stream_parity_block_us=rt["config5 parity"]["kernel_us"].get(
+                  "pointwise"),
+              stream_parity_block_launches=rt["config5 parity"][
+                  "kernel_n"].get("pointwise")),
         entry("pointwise_reverse_kernel", "pointwise_reverse_kernel.cu",
               "dsp_stuff_tpu/compiler/compile.py:230",
               gr["c5_input"]["bwd"]["pointwise_reverse"],
@@ -6904,7 +7295,15 @@ def main() -> int:
               config5_input_grad_device_ms=gr["c5_split"]["device_ms"],
               config5_input_grad_elementwise_ms=gr["c5_split"]["split"].get(
                   "elementwise"),
-              config5_input_grad_peak_gib=gr["c5_split"]["peak"]),
+              config5_input_grad_peak_gib=gr["c5_split"]["peak"],
+              loop_reverse_launches=clg["fit"]["reverse"].get(
+                  "pointwise_reverse", 0) * clg["fit"]["blocks"],
+              loop_reverse_block_us=clg["fit"]["kernel_us"].get(
+                  "pointwise_reverse"),
+              loop_reverse_sums_us=clg["fit"]["kernel_us"].get(
+                  "pointwise_reverse:sums"),
+              loop_reverse_bound_us=clg["fit"]["bound_us"],
+              loop_shape=[B_LOOP, 128]),
         entry("cycle_kernel", "cycle_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_cycle.py:220",
               c5_launches["cycle"], cycle_err, times["cycle"],

@@ -27,7 +27,8 @@ plan made once per graph:
   ``fast``, when every member lowers, as ONE ops/cycle_segment block
   program (the cycle kernel on a CUDA device), otherwise as a per-node
   scan over the blocks (on a CUDA device its block loop captured in CUDA
-  graphs and replayed, compiler/cycle_loop.py);
+  graphs and replayed, compiler/cycle_loop.py), whose block gathers its
+  stateless members into pointwise groups as well;
 * Input nodes bind external source columns, Output nodes produce rendered
   channels, analysis sinks produce aux arrays.
 
@@ -39,7 +40,7 @@ from __future__ import annotations
 
 import functools
 import heapq
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -453,6 +454,44 @@ def _plan_pointwise(graph: Graph, nodes: dict, sccs,
     return tuple(tuple(sorted(g, key=pos.get)) for g in groups if g)
 
 
+def _plan_cycle_groups(graph: Graph, nodes: dict, order,
+                       claimed: frozenset = frozenset(),
+                       skipped: frozenset = frozenset()) -> tuple:
+    """The pointwise groups of a feedback SCC's per-node scan
+    (``_CycleScan``), as tuples of member ids in the block's order
+    (``order``, ascending ids).
+
+    A group is a run of members that a group takes (``_pointwise_ok``)
+    and no in-cycle fused run claims (``claimed``), standing next to each
+    other in that order once the members ``skipped`` (a fused run's
+    interior, evaluated at its head) are left out, each after the first
+    reading an earlier one, within GROUP_OPERANDS.  It runs at its first
+    member's position: no other member runs between its members, so no
+    edge changes between the current and the previous block (a member
+    reads an earlier member's current block, its own and a later one's
+    previous block, as member by member)."""
+    groups: list = []
+    run: list = []
+    for nid in order:
+        if nid in skipped:
+            continue
+        if nid in claimed or not _pointwise_ok(nodes[nid]):
+            if run:
+                groups.append(tuple(run))
+            run = []
+            continue
+        if run and any(l.dst == nid and l.src in run for l in graph.links) \
+                and _group_cost(graph, nodes, run + [nid]) <= GROUP_OPERANDS:
+            run.append(nid)
+            continue
+        if run:
+            groups.append(tuple(run))
+        run = [nid]
+    if run:
+        groups.append(tuple(run))
+    return tuple(groups)
+
+
 def _unit_order(graph: Graph, sccs, groups) -> tuple:
     """The render's units in evaluation order: each pointwise group as one
     unit ("group", members) and every other SCC as ("scc", comp), each
@@ -554,7 +593,8 @@ class CompiledGraph:
         #: card their captured CUDA graphs (compiler/cycle_loop.py)
         self.cycle_loops = CycleLoops(self)
         #: claimed node set -> (pointwise groups, unit order), planned
-        #: once per set (``_pointwise_plan``)
+        #: once per set (``_pointwise_plan``); (SCC, claimed set) -> a
+        #: per-node scan's groups (``_cycle_groups``)
         self._pointwise_plans: dict = {}
 
     # -- state and parameters ---------------------------------------------
@@ -1333,18 +1373,50 @@ class CompiledGraph:
                 groups, _unit_order(self.graph, self._sccs, groups))
         return got
 
+    def _cycle_groups(self, order, fused_heads: dict,
+                      fused_interior: set) -> tuple:
+        """The pointwise groups of the per-node scan of the feedback SCC
+        whose members are ``order`` (``_plan_cycle_groups``), planned once
+        per SCC and set of members this render's in-cycle linear runs
+        claim; none while ``NODE_HOOK`` is set or with
+        ``POINTWISE_FUSION`` off, as ``_pointwise_plan`` rules."""
+        if NODE_HOOK is not None or not POINTWISE_FUSION:
+            return ()
+        claimed = {n for run, *_ in fused_heads.values() for n in run}
+        key = (tuple(order), frozenset(claimed))
+        got = self._pointwise_plans.get(key)
+        if got is None:
+            got = self._pointwise_plans[key] = _plan_cycle_groups(
+                self.graph, self._nodes, order, frozenset(claimed),
+                frozenset(fused_interior))
+        return got
+
     def _lower_group(self, members, pdict):
+        """``_lower`` with each slider and divisor operand made its tensor
+        (:meth:`_operand`; a value's key stays a key): the group as one
+        render reads it."""
+        prog, sigs, scals, written = self._lower(members, pdict)
+        return (prog, [self._operand(d, pdict, lambda key: key)
+                       for d in sigs],
+                [self._operand(d, pdict, None) for d in scals], written)
+
+    def _lower(self, members, pdict, every: bool = False):
         """(program, signals, scalars, written) of a pointwise group
         (compiler/pointwise.py): its members' input ports' fan-in averages,
         modulation maps and node forms, in the members' order.
-        ``signals`` lists its signal operands: a value's key (nid, port),
-        or a slider's tensor with a shape; ``scalars`` its scalar operands
-        (0-d f32 tensors on the device: the sliders, read from device
-        memory, and one fan-in divisor per source count); ``written`` what
-        its outputs are, in order: ("value", (nid, port)) for a member
-        output that a node outside the group reads or a modulation port
-        reads (for the knob writeback), ("out", nid) for an Output
-        member's fan-in average."""
+        ``signals`` lists its signal operands: a value's key (nid, port) or
+        a slider with a shape; ``scalars`` its scalar operands: the
+        sliders, read from device memory, and one fan-in divisor per source
+        count.  A slider is a ``_Slider`` (the override in ``pdict`` or the
+        graph's value), a divisor a ``_Divisor``, each made a tensor where
+        it is read (:meth:`_operand`), so that one lowering serves every
+        block of a scan.  A member source the group has not computed yet (a
+        later member or the member itself, inside a feedback SCC) is a
+        value operand.  ``written`` says what its outputs are, in order:
+        ("value", (nid, port)) for a member output that a node outside the
+        group reads or a modulation port reads (for the knob writeback), or
+        every member output with ``every`` (the per-node scan carries them
+        all), ("out", nid) for an Output member's fan-in average."""
         graph, nodes = self.graph, self._nodes
         mset = set(members)
         b = pointwise.Builder()
@@ -1354,19 +1426,19 @@ class CompiledGraph:
         mine: dict = {}
         divisors: dict = {}
 
-        def scalar(t):
-            scals.append(t)
+        def scalar(d):
+            scals.append(d)
             return b.scal()
 
-        def operand(v):
-            t = precision.on_device(v, self.device)
-            if t.dim() == 0:
-                return scalar(t)
-            sigs.append(t)
+        def slider(nid, name):
+            d = _Slider(nid, name)
+            if self._operand(d, pdict, None).dim() == 0:
+                return scalar(d)
+            sigs.append(d)
             return b.sig()
 
         def signal(key):
-            if key[0] in mset:
+            if key in mine:
                 return mine[key]
             if key not in ext:
                 sigs.append(key)
@@ -1376,7 +1448,7 @@ class CompiledGraph:
         def port_avg(nid, port):
             ls = graph.in_links(nid, port)
             if ls and len(ls) not in divisors:
-                divisors[len(ls)] = scalar(_divisor_on(len(ls), self.device))
+                divisors[len(ls)] = scalar(_Divisor(len(ls)))
             return pointwise.avg(b, [signal((l.src, l.src_port)) for l in ls],
                                  divisors.get(len(ls)))
 
@@ -1390,7 +1462,6 @@ class CompiledGraph:
                 continue
             in_ports, names, lower = pointwise.node_form(node.cfg_name,
                                                          node.params)
-            over = (pdict or {}).get(str(nid), {})
             ps = {}
             for p in node.spec.params:
                 if not isinstance(p, ParamSpec) or p.name not in names:
@@ -1398,32 +1469,46 @@ class CompiledGraph:
                 if p.as_input and graph.in_links(nid, p.name):
                     ps[p.name] = pointwise.map_mod(
                         b, port_avg(nid, p.name), p.lo, p.hi)
-                elif p.name in over:
-                    ps[p.name] = operand(self._override(
-                        over[p.name], f"params[{str(nid)!r}][{p.name!r}]"))
                 else:
-                    ps[p.name] = operand(node.params[p.name])
+                    ps[p.name] = slider(nid, p.name)
             res = lower(b, {p: port_avg(nid, p) for p in in_ports}, ps,
                         precision.get_policy().name)
             for port, v in res.items():
                 mine[(nid, port)] = v
-                if any(l.src == nid and l.src_port == port
-                       and (l.dst not in mset or l.dst_port
-                            in nodes[l.dst].spec.mod_inputs)
-                       for l in graph.links):
+                if every or any(l.src == nid and l.src_port == port
+                                and (l.dst not in mset or l.dst_port
+                                     in nodes[l.dst].spec.mod_inputs)
+                                for l in graph.links):
                     written.append(("value", (nid, port)))
                     outs.append(v)
         return b.program(outs), sigs, scals, written
 
+    def _operand(self, d, pdict, read):
+        """The tensor of a group operand described by ``_lower``: a
+        slider's (the override in ``pdict`` or the graph's value, from the
+        device caches, ``precision.on_device``), a fan-in divisor's, or
+        ``read(key)`` for a value's key."""
+        if isinstance(d, _Slider):
+            over = (pdict or {}).get(str(d.nid), {})
+            v = (self._override(over[d.name],
+                                f"params[{str(d.nid)!r}][{d.name!r}]")
+                 if d.name in over else self._nodes[d.nid].params[d.name])
+            return precision.on_device(v, self.device)
+        if isinstance(d, _Divisor):
+            return _divisor_on(d.n, self.device)
+        return read(d)
+
     def _group_eval(self, members, values: dict, outs: dict, pdict, T: int):
-        """Evaluate a pointwise group (``_lower_group``) as one program,
+        """Evaluate a pointwise group (``_lower``) as one program,
         one kernel launch on the card: sets ``values`` and ``outs`` (the
         Output members' averages) for what it writes."""
-        prog, sigs, scals, written = self._lower_group(members, pdict)
+        prog, sigs, scals, written = self._lower(members, pdict)
         if not written:
             return                      # nothing reads the group's nodes
-        got = group_call(prog, [values[s] if isinstance(s, tuple) else s
-                                for s in sigs], scals, T, self.device)
+        got = group_call(prog, [self._operand(d, pdict, values.__getitem__)
+                                for d in sigs],
+                         [self._operand(d, pdict, None) for d in scals], T,
+                         self.device)
         for (kind, key), sig in zip(written, got):
             (outs if kind == "out" else values)[key] = sig
 
@@ -1538,6 +1623,17 @@ class CompiledGraph:
         return state, outs, aux
 
 
+class _Slider(NamedTuple):
+    """A group operand that is ``params[nid][name]`` (compile._lower)."""
+    nid: int
+    name: str
+
+
+class _Divisor(NamedTuple):
+    """A group operand that is the fan-in divisor of ``n`` sources."""
+    n: int
+
+
 class _CycleScan:
     """The per-node scan of one feedback SCC over blocks of the graph's
     block size: the members in ascending-id order, the member ports
@@ -1548,13 +1644,22 @@ class _CycleScan:
     the scan run: the Python loop over the blocks
     (``CompiledGraph._eval_cycle``) and the loop over static buffers
     (compiler/cycle_loop.py), the JAX package's ``lax.scan`` body
-    (dsp_stuff_tpu/compiler/compile.py:1386)."""
+    (dsp_stuff_tpu/compiler/compile.py:1386).  Its stateless members run
+    in pointwise groups (``groups``, ``CompiledGraph._cycle_groups``),
+    one kernel launch a group and block on the card, as XLA fuses them
+    inside that body; each group is lowered once per scan and structure
+    of the overrides (:meth:`_lowered`)."""
 
     def __init__(self, cg: CompiledGraph, comp, fused_heads: dict,
                  fused_interior: set):
         self.cg = cg
         self.order = sorted(comp)
         self.comp_set = set(self.order)
+        self.groups = cg._cycle_groups(self.order, fused_heads,
+                                       fused_interior)
+        self.group_at = {g[0]: g for g in self.groups}
+        self.grouped = {n for g in self.groups for n in g}
+        self._lowerings: dict = {}
         self.ports = [(nid, port) for nid in self.order
                       for port in cg._nodes[nid].spec.outputs]
         self.emit = [kp for kp in self.ports
@@ -1609,6 +1714,19 @@ class _CycleScan:
                 cur.update(cg._fused_run_eval(run, secs, emits, tapped, x1,
                                               st))
                 continue
+            if nid in self.group_at:
+                prog, sigs, scals, written = self._lowered(
+                    self.group_at[nid], pdict)
+                got = group_call(
+                    prog, [cg._operand(d, pdict, lambda k: lookup(*k))
+                           for d in sigs],
+                    [cg._operand(d, pdict, None) for d in scals], B,
+                    cg.device)
+                for (_, kp), sig in zip(written, got):
+                    cur[kp] = sig
+                continue
+            if nid in self.grouped:
+                continue                      # evaluated with its group
             node = nodes[nid]
             in_sigs = {port: _avg([lookup(l.src, l.src_port) for l in
                                    graph.in_links(nid, port)], B, cg.device)
@@ -1627,6 +1745,20 @@ class _CycleScan:
             if kp not in cur:
                 cur[kp] = prev[kp]
         return st, cur, tuple(cur[kp] for kp in self.emit)
+
+    def _lowered(self, members, pdict):
+        """``CompiledGraph._lower`` of a group, every member output
+        written, once per policy and structure of the overrides (which
+        sliders are overridden, and which of them have a shape)."""
+        key = (members, precision.get_policy().name, tuple(
+            (nid, name, isinstance(v, torch.Tensor) and v.dim() > 0)
+            for nid in members
+            for name, v in (pdict or {}).get(str(nid), {}).items()))
+        got = self._lowerings.get(key)
+        if got is None:
+            got = self._lowerings[key] = self.cg._lower(members, pdict,
+                                                        every=True)
+        return got
 
 
 def _block_of(seq: torch.Tensor, b, B: int) -> torch.Tensor:

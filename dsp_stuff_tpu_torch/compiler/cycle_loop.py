@@ -30,8 +30,9 @@ those shapes.  The sliders a render overrides are bound as a stream step
 binds them (utils/buffers.Binding: a float a root of
 utils/sliders, a tensor a device buffer), so another value is a copy into
 the buffers, not a capture.  The graphs are cached by :meth:`CycleLoops.key`:
-the SCC, T, K, the shapes of everything the loop holds, the overrides'
-structure, the policy and the members' sliders in the graph.
+the SCC, T, K, its pointwise groups, the shapes of everything the loop
+holds, the overrides' structure, the policy and the members' sliders in
+the graph.
 
 A replayed loop runs the kernels of the Python loop on the same shapes in
 the same order, so it is bitwise that loop.  A capture or a replay that
@@ -75,7 +76,7 @@ from dsp_stuff_tpu_torch.utils.buffers import (Binding, GradBuffers,
                                               buffer_pairs, capture_key,
                                               copy_into, freeze_params,
                                               state_buffer)
-from dsp_stuff_tpu_torch.utils.capture import holding
+from dsp_stuff_tpu_torch.utils.capture import holding, no_collection
 from dsp_stuff_tpu_torch.utils.sliders import Data
 
 #: bodies a captured graph holds.  The JAX package unrolls its scan 8
@@ -203,13 +204,14 @@ class CycleLoops:
 
     def key(self, scan, T: int, feeds: dict, over, st: dict, prev: dict,
             outs) -> tuple:
-        """What a loop's buffers and graphs depend on: the SCC, T, K, the
-        shapes of the feeds, states, carried and emitted blocks, the
-        overrides' structure with the policy (utils/buffers.capture_key),
-        and the members' sliders as the graph holds them (the body bakes
-        what it reads from the graph)."""
+        """What a loop's buffers and graphs depend on: the SCC, T, K, its
+        pointwise groups (none with ``POINTWISE_FUSION`` off), the shapes
+        of the feeds, states, carried and emitted blocks, the overrides'
+        structure with the policy (utils/buffers.capture_key), and the
+        members' sliders as the graph holds them (the body bakes what it
+        reads from the graph)."""
         nodes = self.cg._nodes
-        return (tuple(scan.order), T, CHUNK, _shapes(feeds),
+        return (tuple(scan.order), T, CHUNK, scan.groups, _shapes(feeds),
                 _shapes((st, prev)), tuple(outs),
                 capture_key(over, self.data),
                 freeze_params({str(n): nodes[n].params for n in scan.order}))
@@ -433,7 +435,7 @@ class _Loop:
             side.wait_stream(torch.cuda.current_stream(dev))
             torch.cuda.synchronize(dev)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with holding() as held:
+            with holding() as held, no_collection():
                 with torch.cuda.graph(graph, stream=side):
                     self._fn(key)()
             graph.instantiate()

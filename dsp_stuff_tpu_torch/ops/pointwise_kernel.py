@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -193,7 +194,7 @@ def _batch(shape, F) -> str:
     """How an operand of ``shape`` spans the batch of F: "full", "none"
     (one row for all) or "part" (it must be expanded)."""
     lead = (1,) * (len(F) - len(shape)) + tuple(shape)
-    n = int(np.prod(lead[:-1], dtype=np.int64))
+    n = math.prod(lead[:-1])
     if n == 1:
         return "none"
     return "full" if tuple(lead[:-1]) == tuple(F[:-1]) else "part"

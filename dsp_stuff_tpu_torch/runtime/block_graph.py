@@ -70,7 +70,7 @@ from dsp_stuff_tpu_torch.utils import precision
 from dsp_stuff_tpu_torch.utils.buffers import (Binding, buffer_pairs,
                                               capture_key, copy_into,
                                               freeze_params, state_buffer)
-from dsp_stuff_tpu_torch.utils.capture import holding
+from dsp_stuff_tpu_torch.utils.capture import holding, no_collection
 
 _F32 = torch.float32
 
@@ -276,7 +276,7 @@ class BlockStep:
             self.write_state(saved)
             torch.cuda.synchronize(dev)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with holding() as held:
+            with holding() as held, no_collection():
                 with torch.cuda.graph(graph, stream=side):
                     self._body(params)
             graph.instantiate()

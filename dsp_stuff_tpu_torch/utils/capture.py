@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 
 # one list per capture underway (captures do not nest in practice; the
 # innermost collects)
@@ -43,6 +44,22 @@ def holding():
         yield held
     finally:
         del _HOLDERS[next(i for i, h in enumerate(_HOLDERS) if h is held)]
+
+
+@contextlib.contextmanager
+def no_collection():
+    """Python's cyclic garbage collector off inside the block, for a
+    capture: a collection inside it could finalize an unreachable CUDA
+    graph (a dropped CompiledGraph's loops sit in reference cycles), and
+    a graph's reset is an operation that invalidates the capture
+    underway.  What became garbage is collected after the block."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def device_cache(maxsize: int | None):

@@ -48,6 +48,7 @@ from dsp_stuff_tpu_torch.models import presets as tp
 from dsp_stuff_tpu_torch.runtime.block_graph import BlockStep
 from dsp_stuff_tpu_torch.utils import precision as tprec
 
+import chip_smoke
 import test_torch_fuzz_gen as tfuzz
 
 VS_JAX_DB = -100.0
@@ -302,23 +303,31 @@ class _HostOps(TorchDispatchMode):
 
 def _capturable_case(case):
     """(compiled graph, input, policy, params) of a capturability case:
-    config5 on a route of ROUTES, or a fuzz seed whose cycle the block
-    program does not take, under fast."""
+    config5 on a route of ROUTES, chip_smoke.loop_graph (whose cycle holds
+    a pointwise group of two members) on one, or a fuzz seed whose cycle
+    the block program does not take, under fast."""
     if case in ROUTES:
         pol, params = ROUTES[case]
         return _config5(pol), _x(6), pol, params
+    if case.startswith("loop "):
+        pol, params = ROUTES[case.split()[1]]
+        params = params and {"5": params[FBG]}     # the loop's gain
+        return (dt.compile_graph(chip_smoke.loop_graph(), device="cpu"),
+                {"0": _x(6)[:, 0]}, pol, params)
     g, inp_id, _ = tfuzz._random_graph(int(case.split()[1]))
     x = {str(inp_id): _x(6, length=128 * 12)[:, 0]}
     return dt.compile_graph(g, device="cpu"), x, "fast", None
 
 
 @pytest.mark.parametrize("case", list(ROUTES) + [
+    f"loop {r}" for r in ROUTES] + [
     f"fuzz {seed}" for seed in (6, 15, 22, 41, 46)])
 def test_chunk_is_capturable(case):
     """After a render (its first chunk the warm-up), a chunk of K bodies
     makes no tensor from host data and reads nothing back: the block
     index, the reverb's position, the chorus's clock and the FIR's count
-    are counters on the device, the overridden slider a buffer."""
+    are counters on the device, the overridden slider a buffer, a
+    pointwise group's operands from the device caches."""
     cg, x, pol, params = _capturable_case(case)
     with dt.policy(pol):
         cg.cycle_loops.route = "buffers"
@@ -332,6 +341,29 @@ def test_chunk_is_capturable(case):
     assert mode.ops > 20
     assert not mode.host, f"{case}: {sorted(set(mode.host))}"
     assert int(loop.counter) == 3 + cycle_loop.CHUNK
+
+
+def test_capture_keeps_the_collector_off():
+    """A capture runs with Python's cyclic collector off (a collection
+    inside it could finalize a dropped graph's CUDA graphs, which
+    invalidates the capture underway); the collector's state is put
+    back after it, an error included."""
+    import gc
+    from dsp_stuff_tpu_torch.utils.capture import no_collection
+    assert gc.isenabled()
+    with no_collection():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    with pytest.raises(RuntimeError), no_collection():
+        raise RuntimeError("a failed capture")
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with no_collection():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
 
 
 # -- the route's rule ----------------------------------------------------------

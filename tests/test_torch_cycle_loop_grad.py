@@ -46,10 +46,13 @@ import dsp_stuff_tpu_torch as dt
 from dsp_stuff_tpu_torch import convert
 from dsp_stuff_tpu_torch.compiler import compile as tcompile
 from dsp_stuff_tpu_torch.compiler import cycle_loop
+from dsp_stuff_tpu_torch.compiler import pointwise as pw
 from dsp_stuff_tpu_torch.models import presets as tp
+from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
 from dsp_stuff_tpu_torch.train import fit as tfit
 from dsp_stuff_tpu_torch.utils import precision as tprec
 
+import chip_smoke
 import test_torch_fuzz_gen as tfuzz
 
 ARRAY_TOL = 1e-5          # replayed backward vs the Python loop, max-normalized
@@ -398,21 +401,35 @@ class _HostOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+@pytest.mark.parametrize("graph", ["config5", "loop"])
 @pytest.mark.parametrize("kind", ["save", "restore", "record", "reverse"])
 @pytest.mark.parametrize("pol", ["fast", "parity", "exact"])
-def test_backward_bodies_are_capturable(pol, kind):
+def test_backward_bodies_are_capturable(pol, kind, graph, monkeypatch):
     """After a differentiated render, each body of the backward (the
     reverse with autograd's own backward ops inside it) makes no tensor
     from host data and reads nothing back.  Every slider is a leaf under
     parity and exact; under fast the feedback gain alone, as on the
     fast-override route (the plain version of the first-order kernel,
     which a tensor ratio takes on the CPU, reads its coefficient on the
-    host; the kernel takes it on the device)."""
+    host; the kernel takes it on the device).  config5's cycle holds two
+    pointwise groups, chip_smoke.loop_graph's a group of two members,
+    which go through PointwiseGroup as on the card (its backward the
+    reverse kernel's plain version, group_adjoint)."""
     x, tgt = _inputs(11)
-    cg = _config5(pol)
-    params = ({FBG: {"level": torch.tensor(0.45, requires_grad=True)}}
+    if graph == "config5":
+        cg, fbg = _config5(pol), FBG
+        state = _seeded_state(cg, 12)
+    else:
+        with dt.policy(pol):
+            cg = dt.compile_graph(chip_smoke.loop_graph(), device="cpu")
+        fbg, state = "5", None
+        monkeypatch.setattr(tcompile, "group_call", lambda prog, sigs,
+                            scals, Tn, d: pk.run(pw.interpret, prog, sigs,
+                                                 scals, Tn, d,
+                                                 pk.group_adjoint))
+    params = ({fbg: {"level": torch.tensor(0.45, requires_grad=True)}}
               if pol == "fast" else None)
-    _grads(cg, pol, "buffers", x, tgt, _seeded_state(cg, 12), params=params)
+    _grads(cg, pol, "buffers", x, tgt, state, params=params)
     loop = cg.cycle_loops.last
     g = loop.grad
     g.slot.fill_(0 if kind == "save" else 1)

@@ -598,9 +598,10 @@ def _grads(route, monkeypatch, calls):
                 return pw.interpret(prog, sigs, scals, Tn, device)
             m.setattr(tcomp, "group_call", lambda prog, sigs, scals, Tn, d: (
                 pk.run(fwd, prog, sigs, scals, Tn, d, pk.group_vjp)))
-            # the group members' node types that config5 has nowhere else
-            # (its other gain is in the feedback cycle's per-node scan)
-            for cls in (Overdrive, Distort, Mix):
+            # every group member's node type: the feedback cycle's add
+            # and gain are groups of its per-node scan (every slider a
+            # leaf takes the cycle off its block program)
+            for cls in (Overdrive, Distort, Mix, Add, Gain):
                 def refuse(*a, cls=cls, **k):
                     raise AssertionError(f"{cls.__name__}'s eager code ran")
                 m.setattr(cls, "process_seq", staticmethod(refuse))
@@ -616,16 +617,17 @@ def _grads(route, monkeypatch, calls):
 
 def test_groups_function_seam(monkeypatch):
     """With every slider and the input requiring grad, config5's three
-    groups go through PointwiseGroup (its forward with grad off, no
-    member's eager code: Overdrive, Distort and Mix refuse to run), and
-    the gradients are the eager route's bit for bit: the Function's
-    backward, given the autograd reference, is autograd through the same
-    ops (the reverse kernel's plain version is held in
+    groups and the two of its feedback cycle's per-node scan (one call a
+    block, 10 blocks) go through PointwiseGroup (its forward with grad
+    off, no member's eager code: Overdrive, Distort, Mix, Add and Gain
+    refuse to run), and the gradients are the eager route's bit for bit:
+    the Function's backward, given the autograd reference, is autograd
+    through the same ops (the reverse kernel's plain version is held in
     tests/test_torch_pointwise_reverse.py)."""
     calls = []
     got = _grads("function", monkeypatch, calls)
     want = _grads("eager", monkeypatch, [])
-    assert calls == [False, False, False]
+    assert calls == [False] * (3 + 2 * 10)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert (g is None) == (w is None)
