@@ -941,6 +941,14 @@ def cycle_groups_off(cg):
         del cg._cycle_groups
 
 
+def fanins_off():
+    """The renders inside without the fan-ins the pointwise groups take
+    outside them (compile.FANIN_GROUPS off: each its eager ops, the route
+    before them), the groups kept."""
+    from dsp_stuff_tpu_torch.compiler import compile as comp
+    return swapped_attr(comp, "FANIN_GROUPS", False)
+
+
 @contextlib.contextmanager
 def groups_through_function(backward):
     """Route every pointwise group of a CPU render through the groups'
@@ -5015,31 +5023,37 @@ def cycle_loop_phase(dev, card) -> dict:
 
 def loop_groups_turns(cg, name, render, replayed, nk, head, full,
                       card) -> dict:
-    """The replayed loop without its pointwise groups (cycle_groups_off:
-    each member's eager ops, the route before the cycle's groups) against
-    the loop with them (``replayed``, its chunk's nodes ``nk``): bitwise
-    (output, aux, state); a block's kernels, pointwise launches and
-    copies from each graph's DOT dump; the loop's wall and device time a
-    render (CUDA events over the K-body graph replayed back to back,
-    ``chunk_device_ms``) in turns, with, without, without, with.  Returns
-    the records."""
+    """The replayed loop without the fan-ins its pointwise groups take
+    (fanins_off: the reverb's fan-in divide a kernel a block, the route
+    before them) and without its groups (cycle_groups_off: each member's
+    eager ops, the route before the cycle's groups) against the loop as
+    shipped (``replayed``, its chunk's nodes ``nk``): bitwise (output,
+    aux, state); a block's kernels, pointwise launches and copies from
+    each graph's DOT dump; the loop's wall and device time a render (CUDA
+    events over the K-body graph replayed back to back,
+    ``chunk_device_ms``) in turns, shipped, no fan-ins, no groups, no
+    groups, no fan-ins, shipped.  Returns the records."""
     import torch
     from dsp_stuff_tpu_torch.compiler import cycle_loop
     K = cycle_loop.CHUNK
     loops = cg.cycle_loops
-    with cycle_groups_off(cg):
-        plain, _, _ = render("auto")
-        nn = loop_graph_nodes(cg, f"cycle loop {name} no groups", K)
-    bit = all(same_tree(a, b) for a, b in zip(plain, replayed))
-    err = dbfs(host(plain[0]), host(replayed[0]))
-    check(bit, f"{name}: the replayed loop with groups is not bitwise the "
-               f"replayed loop without them ({err:.1f} dBFS)")
-    del plain
-    walls = {"groups": [], "no groups": []}
-    devs = {"groups": [], "no groups": []}
-    for way in ("groups", "no groups", "no groups", "groups"):
-        with (cycle_groups_off(cg) if way == "no groups"
-              else contextlib.nullcontext()):
+    ways = {"groups": contextlib.nullcontext, "no fan-ins": fanins_off,
+            "no groups": lambda: cycle_groups_off(cg)}
+    nodes = {"groups": nk}
+    for way in ("no fan-ins", "no groups"):
+        with ways[way]():
+            other, _, _ = render("auto")
+            nodes[way] = loop_graph_nodes(cg, f"cycle loop {name} {way}", K)
+        bit = all(same_tree(a, b) for a, b in zip(other, replayed))
+        err = dbfs(host(other[0]), host(replayed[0]))
+        check(bit, f"{name}: the replayed loop as shipped is not bitwise "
+                   f"the replayed loop with {way} ({err:.1f} dBFS)")
+        del other
+    walls = {way: [] for way in ways}
+    devs = {way: [] for way in ways}
+    order = ("groups", "no fan-ins", "no groups")
+    for way in order + order[::-1]:
+        with ways[way]():
             _, _, span = render("auto")
             loop = loops.last
             walls[way].append(span[0])
@@ -5058,21 +5072,27 @@ def loop_groups_turns(cg, name, render, replayed, nk, head, full,
                     pointwise=nodes["ours"].get("pointwise", 0) / K,
                     copies=(nodes["kinds"].get("MEMCPY", 0)
                             + nodes["kinds"].get("MEMSET", 0)) / K)
-    rec = {"bitwise": bit, "walls": walls, "device_ms": devs,
-           "with": per_block(nk), "without": per_block(nn),
+    rec = {"bitwise": True, "walls": walls, "device_ms": devs,
+           "with": per_block(nk), "without": per_block(nodes["no groups"]),
+           "without_fanins": per_block(nodes["no fan-ins"]),
            "kernel_us": kus, "bound_us": loop_group_bounds(loop)[0]}
-    print(f"  with the cycle's groups / without (each member's eager ops), "
-          f"bitwise {bit}: a block {rec['with']['kernels']:g} / "
-          f"{rec['without']['kernels']:g} kernels, pointwise "
-          f"{rec['with']['pointwise']:g} / {rec['without']['pointwise']:g}, "
-          f"copies and memsets {rec['with']['copies']:g} / "
-          f"{rec['without']['copies']:g} (DOT dumps); in turns (with, "
-          f"without, without, with) the loop's wall ms "
-          f"{walls['groups'][0]:.1f}, {walls['no groups'][0]:.1f}, "
-          f"{walls['no groups'][1]:.1f}, {walls['groups'][1]:.1f}, device "
-          f"ms of its {full} replayed blocks {devs['groups'][0]:.1f}, "
-          f"{devs['no groups'][0]:.1f}, {devs['no groups'][1]:.1f}, "
-          f"{devs['groups'][1]:.1f} [{card}]")
+    blocks = {"groups": rec["with"], "no fan-ins": rec["without_fanins"],
+              "no groups": rec["without"]}
+    print(f"  as shipped / without the groups' fan-ins / without the "
+          f"cycle's groups (each member's eager ops), bitwise True: a "
+          f"block " + " / ".join(f"{blocks[w]['kernels']:g}" for w in order)
+          + " kernels, pointwise " + " / ".join(
+              f"{blocks[w]['pointwise']:g}" for w in order)
+          + ", copies and memsets " + " / ".join(
+              f"{blocks[w]['copies']:g}" for w in order)
+          + f" (DOT dumps); in turns ({', '.join(order + order[::-1])}) "
+          f"the loop's wall ms " + ", ".join(
+              f"{walls[w][i]:.1f}" for i, w in
+              [(0, w) for w in order] + [(1, w) for w in order[::-1]])
+          + f", device ms of its {full} replayed blocks " + ", ".join(
+              f"{devs[w][i]:.1f}" for i, w in
+              [(0, w) for w in order] + [(1, w) for w in order[::-1]])
+          + f" [{card}]")
     print(f"  the port's kernels in a replayed body by torch.profiler "
           f"(device us a launch, launches a body): "
           + ", ".join(f"{k} {u:.3f} x {c:g}" for k, (u, c)
@@ -5563,7 +5583,8 @@ PW_SHAPES = ((4, 4096), (3, 1030), (1, 1027))  # float4, scalar, float4 + tail
 PW_SPECIALS = (float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1e-40,
                -1e-40, 1e30, -1e30, 1.0, -1.0, 20.0, -20.0)
 B_PW_WIDE = 512           # config5's second width (x 10 s)
-PW_GRAPH_ROUTES = ("kernel", "plain", "eager")
+PW_GRAPH_ROUTES = ("kernel", "groups", "plain", "eager")
+ONE_FORM_SEEDS = (8, 27)  # fuzz graphs whose fan-ins make one-form groups
 
 
 def pointwise_forms():
@@ -5754,9 +5775,11 @@ def pointwise_form_checks(dev) -> dict:
 @contextlib.contextmanager
 def pointwise_route(route: str):
     """Render through ``route``: "kernel" (the groups' kernels, as
-    shipped), "plain" (each group's plain version, pointwise.interpret, on
-    the card) or "eager" (no groups: every node's eager ops, the
-    oversampled shapers too), the parent's route."""
+    shipped), "groups" (the groups' kernels without the fan-ins they take
+    outside them, compile.FANIN_GROUPS off: each such fan-in its eager
+    ops), "plain" (each group's plain version, pointwise.interpret, on the
+    card) or "eager" (no groups: every node's eager ops, the oversampled
+    shapers too)."""
     from dsp_stuff_tpu_torch.compiler import compile as comp
     from dsp_stuff_tpu_torch.compiler import pointwise as pw
     from dsp_stuff_tpu_torch.ops import oversample
@@ -5764,8 +5787,11 @@ def pointwise_route(route: str):
     saved = [(comp, "group_call", comp.group_call),
              (pk, "group_call", pk.group_call),
              (comp, "POINTWISE_FUSION", comp.POINTWISE_FUSION),
+             (comp, "FANIN_GROUPS", comp.FANIN_GROUPS),
              (oversample, "shaper_call", oversample.shaper_call)]
-    if route == "plain":
+    if route == "groups":
+        comp.FANIN_GROUPS = False
+    elif route == "plain":
         comp.group_call = pk.group_call = pw.interpret
     elif route == "eager":
         comp.POINTWISE_FUSION = False
@@ -5809,19 +5835,26 @@ def route_leaves(res):
 
 
 def routes_held(what, res, pol) -> bool:
-    """The kernel route's render (outputs, aux, state) against the plain
+    """The kernel route's render (outputs, aux with the knobs, state)
+    against the groups route's, bitwise under every policy (the fan-ins a
+    group takes are the eager divide and map, op for op), and the plain
     and the eager route's: bitwise under parity and exact, <= PW_FAST_DB
     under fast; returns whether every leaf is bitwise."""
+    import torch
     bit = True
     k = route_leaves(res["kernel"])
-    for route in ("plain", "eager"):
+    for route in ("groups", "plain", "eager"):
         if route not in res:
             continue
         other = route_leaves(res[route])
         check(len(k) == len(other), f"{what}: the {route} route's render "
               f"has another structure")
         for i, (a, b) in enumerate(zip(k, other)):
-            if a.dtype.is_floating_point:
+            if route == "groups":
+                same = (bits_same(a, b) if a.dtype.is_floating_point
+                        else a.shape == b.shape and bool(torch.equal(a, b)))
+                check(same, f"{what} leaf {i}: not bitwise the groups route")
+            elif a.dtype.is_floating_point:
                 pointwise_held(f"{what} leaf {i} vs {route}", a.float(),
                                b.float(), pol)
                 bit &= bits_same(a.float(), b.float())
@@ -5833,7 +5866,10 @@ def routes_held(what, res, pol) -> bool:
 def pointwise_graphs():
     """(name, graph) of the graphs the pointwise phase renders at
     B_EXACT x 1 s under parity and exact: config5, the fuzz graphs whose
-    plans hold a group, and the exact pool's seed 36 (a group of five)."""
+    plans hold a group, the exact pool's seed 36 (a group of five), and
+    two fuzz graphs with one-form groups (seed 8: two fan-ins of two
+    sources outside the groups; seed 27: three sources into a chorus, its
+    mix modulated by one node)."""
     import test_torch_fuzz_gen as gen
     from dsp_stuff_tpu_torch.models import presets
     out = [("config5", presets.config5_feedback_16node()[0]),
@@ -5841,6 +5877,8 @@ def pointwise_graphs():
     out += [(name, g) for name, g, _ in fuzz_graphs()]
     out.append(("_random_graph(36, exact)",
                 gen._random_graph(36, exact=True)[0]))
+    out += [(f"_random_graph({s})", gen._random_graph(s)[0])
+            for s in ONE_FORM_SEEDS]
     return out
 
 
@@ -5851,7 +5889,7 @@ def pointwise_small_renders(dev) -> dict:
     import dsp_stuff_tpu_torch as dst
     out = {}
     for pol in ("fast", "parity", "exact"):
-        n_bit, n, launches = 0, 0, 0
+        n_bit, n, launches, solo = 0, 0, 0, 0
         for i, (name, g) in enumerate(pointwise_graphs()):
             x = (np.random.default_rng(300 + i).standard_normal(
                 (B_EXACT, 1, SR)) * 0.3).astype(np.float32)
@@ -5861,11 +5899,15 @@ def pointwise_small_renders(dev) -> dict:
             n_bit += routes_held(f"{name} {pol}", res, pol)
             n += 1
             launches += res["kernel"][3]["pointwise"]
+            solo += (res["kernel"][3]["pointwise"]
+                     - res["groups"][3]["pointwise"])
             check(res["eager"][3]["pointwise"] == 0,
                   f"{name}: the eager route launched the pointwise kernel")
         print(f"  {pol}: {n_bit} of {n} renders bitwise (output, aux, "
-              f"state) against the plain and the eager routes, "
-              f"{launches} group launches")
+              f"state) against the groups, the plain and the eager routes "
+              f"(the groups route bitwise in all), {launches} group "
+              f"launches, {solo} of them one-form groups")
+        check(solo > 0, f"{pol}: no one-form group ran")
         out[pol] = (n_bit, n, launches)
     return out
 
@@ -5890,7 +5932,8 @@ def pointwise_sources() -> list:
     """The generated source of every group program the smoke launches, so
     that one nvcc each builds them all together: each form's under the
     three policies, and each group of smoke_graphs() under the three
-    policies, collected from the CPU port's renders at [1, 256] (a
+    policies with and without the fan-ins the groups take (the kernel and
+    the groups route), collected from the CPU port's renders at [1, 256] (a
     program depends on the graph's structure and the policy, not on the
     shapes or the sliders' values)."""
     import torch
@@ -5914,9 +5957,10 @@ def pointwise_sources() -> list:
             cg = dst.compile_graph(g, device="cpu")
             n_in = len(cg.input_ids)
             for pol in ("fast", "parity", "exact"):
-                with dst.policy(pol):
-                    cg.render(x.expand(1, n_in, 256) if n_in else None,
-                              T=256, batch_shape=(1,))
+                for route in ("kernel", "groups"):
+                    with dst.policy(pol), pointwise_route(route):
+                        cg.render(x.expand(1, n_in, 256) if n_in else None,
+                                  T=256, batch_shape=(1,))
             # a feedback gain overridden (a float; a stream's moved
             # slider): the cycle's per-node scan and its groups under fast
             for nid in sorted(n for c in cg._sccs if len(c) > 1 for n in c
@@ -6048,12 +6092,54 @@ def route_times(cg, x, batch):
     return in_turns(timed("kernel"), timed("eager"))
 
 
+def fanin_device_turns(what, cg, x, batch, card) -> dict:
+    """One render of ``cg`` on the kernel route (the groups with the
+    fan-ins they take) and the groups route (without them) in turns,
+    kernel, groups, groups, kernel: each render's device time and device
+    records (kernels, copies, fills) from torch.profiler
+    (render_device_ms).  Returns {route: [(ms, records), ...]}."""
+    out: dict = {"kernel": [], "groups": []}
+    for route in ("kernel", "groups", "groups", "kernel"):
+        def fn():
+            with pointwise_route(route):
+                cg.render(x, batch_shape=batch)
+        out[route].append(render_device_ms(fn))
+    print(f"  {what}: device time of one render, kernel (the groups' "
+          f"fan-ins) / groups route in turns: "
+          + ", ".join(f"{route} {ms:.3f} ms ({n} device records)"
+                      for route in ("kernel", "groups")
+                      for ms, n in out[route]) + f" [{card}]")
+    return out
+
+
+def render_device_ms(fn) -> tuple:
+    """(device ms, device records) of one call of fn() from
+    torch.profiler after a warm-up: every device record's own time (the
+    kernels, copies and fills), PROFILE_LEAD_IN spin kernels opening the
+    profile (the trace loses its first records) and left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD_IN):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and "sleep" not in e.name.lower() and "spin" not in e.name.lower()]
+    return sum(e.self_device_time_total for e in evs) / 1e3, len(evs)
+
+
 def stream_routes(dev, card) -> dict:
-    """config5 streamed in 128-sample process() blocks on each route
-    (the eager route is the parent's step): the captured graph's nodes
-    from its DOT dump and the process() wall a block over N_PW_BLOCKS
-    blocks (median, p99), the routes in turns; the kernel route's replay
-    bitwise the eager route's."""
+    """config5 streamed in 128-sample process() blocks on each route (the
+    kernel route as shipped, the groups route without the fan-ins they
+    take, the eager route): the captured graph's nodes from its DOT dump
+    and the process() wall a block over N_PW_BLOCKS blocks (median,
+    p99), the routes in turns; the kernel route's replay (its blocks and
+    final state) bitwise the other routes'."""
     import torch
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.models import presets
@@ -6061,10 +6147,10 @@ def stream_routes(dev, card) -> dict:
     x = (np.random.default_rng(140).standard_normal(N_PW_BLOCKS * 128)
          * 0.3).astype(np.float32)
     out = {}
+    routes = ("kernel", "groups", "eager")
     with dst.policy("fast"):
         for rnd in range(2):
-            for route in (("kernel", "eager") if rnd == 0
-                          else ("eager", "kernel")):
+            for route in routes if rnd == 0 else routes[::-1]:
                 with pointwise_route(route):
                     sess = dst.StreamSession(g5, device="cuda")
                     key = str(sess.cg.input_ids[0])
@@ -6078,10 +6164,17 @@ def stream_routes(dev, card) -> dict:
                 r = out.setdefault(route, {"times": [], "y": None})
                 r["times"] += times[1:]
                 r["y"] = np.concatenate(ys)
+                r["state"] = sess.state
                 r["nodes"] = gn
-    check(np.array_equal(out["kernel"]["y"], out["eager"]["y"]),
-          "config5 stream: the kernel route's blocks are not bitwise the "
-          "eager route's")
+    for route in routes[1:]:
+        check(np.array_equal(out["kernel"]["y"], out[route]["y"])
+              and same_tree(out["kernel"]["state"], out[route]["state"]),
+              f"config5 stream: the kernel route's blocks and state are not "
+              f"bitwise the {route} route's")
+        print(f"  config5 stream: the kernel route's {N_PW_BLOCKS} blocks "
+              f"and final state bitwise the {route} route's [{card}]")
+    for r in out.values():
+        del r["state"]
     for route, r in out.items():
         ms = np.asarray(r["times"]) * 1e3
         r.update(median=float(np.median(ms)),
@@ -6655,7 +6748,7 @@ def pointwise_phase(dev, card) -> dict:
                             * np.float32(0.3), device=dev)
         with dst.policy("fast"):
             cg = dst.compile_graph(g, device="cuda")
-            routes = ("kernel", "eager") if name == "config3" \
+            routes = ("kernel", "groups", "eager") if name == "config3" \
                 else PW_GRAPH_ROUTES
             res = route_renders(cg, x, (B,), routes)
             bit = routes_held(what, res, "fast")
@@ -6686,10 +6779,13 @@ def pointwise_phase(dev, card) -> dict:
                                                                 dev, card)
             del groups
             kr, er = route_times(cg, x, (B,))
+            fan = (fanin_device_turns(what, cg, x, (B,), card)
+                   if name == "config5" else None)
         print(f"  {what}: the whole render {kr:.3f} ms on the kernel route "
               f"against {er:.3f} ms on the eager route (in turns) [{card}]")
         rec[(name, B)] = dict(launches=launches["pointwise"], times=times,
-                              render=(kr, er), bitwise=bit, reverse=rev)
+                              render=(kr, er), bitwise=bit, reverse=rev,
+                              fanins=fan)
         del x, cg
         torch.cuda.empty_cache()
     check(rec[("config5", B_C5)]["launches"] == 3
@@ -7262,6 +7358,9 @@ def main() -> int:
               launches_config3=pw3["launches"],
               render_ms_config5=pw5["render"],
               render_ms_config3=pw3["render"],
+              render_device_ms_config5={
+                  b: {r: [t[0] for t in ts] for r, ts in rec["fanins"].items()}
+                  for b, rec in ((B_C5, pw5), (B_PW_WIDE, pw5w))},
               stream_block_kernels={r: v["kernels"] for r, v
                                     in pw["stream"].items()},
               stream_block_ms={r: (v["median"], v["p99"]) for r, v

@@ -21,6 +21,15 @@ plan made once per graph:
   its backward one generated reverse kernel (ops/pointwise_reverse_
   kernel.py), what XLA's loop fusion gives the JAX package inside
   ``jax.jit`` and ``jax.grad`` through it;
+* the fan-ins read outside the groups (a run head's, a node's that runs
+  on its own, an analysis sink's) go with them (``_plan_fanins``): an
+  average that a group's Output member already writes is taken from it;
+  one whose sources one group writes, mapped where a modulation port
+  reads it, is an output of that group; an input port's of several
+  sources, or a modulation port's, that no group writes is a one-form
+  group; a single source that no group computes stays the eager divide
+  (one launch either way, and a group call's host work outweighs the
+  eager op's); the knob writeback averages one sample;
 * each feedback SCC evaluates over 128-sample blocks, an intra-cycle edge
   from a not-yet-run member carrying exactly one block of delay (the
   defined semantic of the reference's emergent pipe latency): under
@@ -83,6 +92,13 @@ CYCLE_FUSION = True
 #: flip it to hold the groups against those ops)
 POINTWISE_FUSION = True
 
+#: structural switch of the fan-ins the pointwise groups take
+#: (``_plan_fanins``), read at every render: False averages every fan-in
+#: outside the groups with its eager ops where it is read, the route
+#: before them (tests and chip_smoke.py flip it to hold the two against
+#: each other)
+FANIN_GROUPS = True
+
 #: operands a pointwise group takes at most (the kernel's parameters hold
 #: their pointers): a group stops growing before its estimate passes it
 GROUP_OPERANDS = 96
@@ -134,6 +150,15 @@ def _avg(sources: list, T: int, device=None):
     return acc / _divisor_on(n, acc.device), n
 
 
+def _fanin_key(graph: Graph, nid: int, port: str, p=None) -> tuple:
+    """What a port's fan-in computes, whoever reads it: ("avg", sources)
+    for an input port, ("mod", (sources, lo, hi)) for a modulation port
+    ``p`` (the average mapped, ``_map_mod``), the sources (nid, port) in
+    link order.  Two ports with one key read one tensor."""
+    srcs = tuple((l.src, l.src_port) for l in graph.in_links(nid, port))
+    return ("avg", srcs) if p is None else ("mod", (srcs, p.lo, p.hi))
+
+
 def _on_batch(tree, batch):
     """Every tensor in ``tree`` broadcast to leading dims ``batch``."""
     if isinstance(tree, dict):
@@ -152,6 +177,20 @@ def _map_mod(sig, p: ParamSpec):
     z = torch.clamp(y, 0.0, 1.0)
     span = float(np.float32(np.float32(p.hi) - np.float32(p.lo)))
     return float(np.float32(p.lo)) + span * z
+
+
+def _mod_params(node: GraphNode) -> list:
+    """The ParamSpecs of a node's modulation ports (``as_input``)."""
+    return [p for p in node.spec.params
+            if isinstance(p, ParamSpec) and p.as_input]
+
+
+def _fanin_sites(node: GraphNode) -> list:
+    """A node's ports that read a fan-in, as ``_plan_fanins`` sites:
+    (nid, port, None) for an input port, (nid, name, its ParamSpec) for
+    a modulation port."""
+    return ([(node.id, port, None) for port in node.spec.inputs]
+            + [(node.id, p.name, p) for p in _mod_params(node)])
 
 
 def _call(impl, params, state, inputs, T: int, block_size: int):
@@ -382,11 +421,12 @@ def _pointwise_ok(node: GraphNode) -> bool:
             or pointwise.node_form(node.cfg_name, node.params) is not None)
 
 
-def _group_cost(graph: Graph, nodes: dict, members) -> int:
+def _group_cost(graph: Graph, nodes: dict, members, fanins=()) -> int:
     """An upper bound on a group's operands: per member its in-links (each
     a signal operand at most), a divisor per input port, its sliders and
-    its out-links (each an output at most)."""
-    n = 0
+    its out-links (each an output at most); per fan-in it writes for a
+    reader outside it (``fanins``) an output and a divisor."""
+    n = 2 * len(fanins)
     for nid in members:
         spec = nodes[nid].spec
         n += sum(1 for l in graph.links if l.dst == nid or l.src == nid)
@@ -492,6 +532,76 @@ def _plan_cycle_groups(graph: Graph, nodes: dict, order,
     return tuple(groups)
 
 
+def _plan_fanins(graph: Graph, nodes: dict, groups, sites, runs_before,
+                 one_form: bool = True) -> tuple:
+    """The fan-ins read outside the pointwise ``groups`` that a group
+    computes: (writes, taken, solo).  ``sites`` lists the ports that read
+    them, (nid, port, the ParamSpec of a modulation port or None), and
+    ``runs_before(g, nid)`` whether group g runs before nid reads.  A
+    site's fan-in (``_fanin_key``), by the first rule that holds:
+
+    * the average that an Output member of a group writes, of the same
+      sources in the same link order, where that group runs first;
+    * an output of the group whose members write all its sources, where
+      it runs first and its operands stay within GROUP_OPERANDS: the
+      member outputs that only such fan-ins read are no longer written
+      (``CompiledGraph._lower``);
+    * with ``one_form``, a one-form group (``pointwise.avg``, and
+      ``pointwise.map_mod`` for a modulation port: one launch in place of
+      n adds, a divide and the map's five ops) for an input port of two
+      or more sources or a modulation port;
+    * else its eager ops: a single source that no group computes is one
+      divide, and a one-form group, one launch too, would add a group
+      call's host work, which outweighs the eager op's where the host
+      launches each block (the per-node scan's Python loop, PERF.md
+      section 6).
+
+    ``writes[g]`` lists group g's fan-in outputs as (key, the ports that
+    read it), ``taken`` maps each site a group or a one-form group serves
+    to its key, ``solo`` holds the one-form groups' keys."""
+    gid = {n: i for i, g in enumerate(groups) for n in g}
+    averaged: dict = {}
+    for i, g in enumerate(groups):
+        for n in g:
+            if nodes[n].cfg_name == "output":
+                averaged.setdefault(_fanin_key(graph, n, "in"), i)
+    writes: list = [{} for _ in groups]
+    taken: dict = {}
+    solo: set = set()
+    for nid, port, p in sites:
+        ls = graph.in_links(nid, port)
+        if not ls:
+            continue
+        key = _fanin_key(graph, nid, port, p)
+        i = averaged.get(key)
+        if i is not None and runs_before(i, nid):
+            taken[(nid, port)] = key
+            continue
+        owners = {gid.get(l.src) for l in ls}
+        if len(owners) == 1 and None not in owners:
+            i = owners.pop()
+            w = writes[i]
+            if runs_before(i, nid) and (key in w or _group_cost(
+                    graph, nodes, groups[i], (*w, key)) <= GROUP_OPERANDS):
+                w.setdefault(key, []).append((nid, port))
+                taken[(nid, port)] = key
+                continue
+        if one_form and (len(ls) > 1 or p is not None):
+            solo.add(key)
+            taken[(nid, port)] = key
+    return (tuple(tuple((k, tuple(v)) for k, v in w.items()) for w in writes),
+            taken, frozenset(solo))
+
+
+class _FaninPlan(NamedTuple):
+    """A render's fan-ins outside its groups (``_plan_fanins``): each
+    group's fan-in outputs by its members, the sites served and the
+    one-form groups' keys."""
+    writes: dict
+    taken: dict
+    solo: frozenset
+
+
 def _unit_order(graph: Graph, sccs, groups) -> tuple:
     """The render's units in evaluation order: each pointwise group as one
     unit ("group", members) and every other SCC as ("scc", comp), each
@@ -585,6 +695,9 @@ class CompiledGraph:
             n.id for n in nodes.values()
             if n.spec.is_sink and not getattr(n.spec.impl, "graph_output",
                                               False))
+        #: the analysis sinks, evaluated after every unit (their aux)
+        self._analyzed = tuple(n for n in self.sink_ids
+                               if hasattr(nodes[n].spec.impl, "analyze"))
         self._nodes = nodes
         self._sccs = sccs
         self._mega_plan = mega_plan
@@ -780,21 +893,21 @@ class CompiledGraph:
             return v
         return float(v)
 
-    def _resolve_params(self, node: GraphNode, in_sigs: dict, pdict):
-        """params dict with modulation ports resolved; in_sigs maps port ->
-        (avg signal, n_connected); pdict (if given) overrides non-static
-        sliders, its tensors and Data passed through to the nodes
-        unchanged.  An overridden member leaves the fused runs and cycle
-        programs (``_active_mega``, ``_run_sections``, ``_cycle_program``),
-        as in the JAX package, whatever its value."""
+    def _resolve_params(self, node: GraphNode, mods: dict, pdict):
+        """params dict with modulation ports resolved; mods maps each
+        connected modulation port to its mapped fan-in (``_map_mod``);
+        pdict (if given) overrides non-static sliders, its tensors and
+        Data passed through to the nodes unchanged.  An overridden member
+        leaves the fused runs and cycle programs (``_active_mega``,
+        ``_run_sections``, ``_cycle_program``), as in the JAX package,
+        whatever its value."""
         over = (pdict or {}).get(str(node.id), {})
         params: dict[str, Any] = {}
         for p in node.spec.params:
             what = f"params[{str(node.id)!r}][{p.name!r}]"
             if isinstance(p, ParamSpec) and p.as_input:
-                sig, n = in_sigs.get(p.name, (None, 0))
-                if n > 0:
-                    params[p.name] = _map_mod(sig, p)
+                if p.name in mods:
+                    params[p.name] = mods[p.name]
                 elif p.name in over:
                     params[p.name] = self._override(over[p.name], what)
                 else:
@@ -1373,6 +1486,62 @@ class CompiledGraph:
                 groups, _unit_order(self.graph, self._sccs, groups))
         return got
 
+    def _fanin_plan(self, mega_heads: dict, fused_heads: dict):
+        """The render's fan-ins outside its groups that groups compute
+        (``_plan_fanins``, a ``_FaninPlan``), planned once per groups and
+        structure of the fused runs; None while ``NODE_HOOK`` is set or
+        with ``POINTWISE_FUSION`` or ``FANIN_GROUPS`` off (every fan-in its
+        eager ops).  The sites, in the order the render reads them: a mega
+        run's head with several sources (one source folds into the
+        segment), a linear run's head, each input and connected modulation
+        port of a node that runs on its own, then (after every unit) each
+        Output that no group averaged and no mega run folds, and each
+        analysis sink's ports."""
+        if NODE_HOOK is not None or not (POINTWISE_FUSION and FANIN_GROUPS):
+            return None
+        groups, order = self._pointwise_plan(mega_heads, fused_heads)
+        key = ("fanins", groups,
+               tuple((h, tuple(r[0]), r[3], r[4])
+                     for h, r in sorted(mega_heads.items())),
+               tuple((h, tuple(r[0])) for h, r in sorted(fused_heads.items())))
+        got = self._pointwise_plans.get(key)
+        if got is not None:
+            return got
+        graph, nodes = self.graph, self._nodes
+        interior = {n for run, *_ in (*mega_heads.values(),
+                                      *fused_heads.values())
+                    for n in run[1:]}
+        folded = {r[4] for r in mega_heads.values()}
+        at: dict = {}
+        sites: list = []
+        for i, (kind, comp) in enumerate(order):
+            for n in comp:
+                at[n] = i
+            nid = comp[0]
+            if (kind == "group" or _is_cycle(graph, comp) or nid in interior
+                    or nid in self.output_ids or nid in self._analyzed):
+                continue
+            if nid in mega_heads:
+                if not mega_heads[nid][3]:
+                    sites.append((nid, "in", None))
+            elif nid in fused_heads:
+                sites.append((nid, "in", None))
+            else:
+                sites += _fanin_sites(nodes[nid])
+        grouped = {n for g in groups for n in g}
+        for nid in (*self.output_ids, *self._analyzed):
+            if nid in grouped or nid in folded:
+                continue
+            at[nid] = len(order)
+            sites += _fanin_sites(nodes[nid])
+        unit_of = [at[g[0]] for g in groups]
+        writes, taken, solo = _plan_fanins(
+            graph, nodes, groups, sites,
+            lambda i, nid: unit_of[i] < at[nid])
+        got = self._pointwise_plans[key] = _FaninPlan(
+            dict(zip(groups, writes)), taken, solo)
+        return got
+
     def _cycle_groups(self, order, fused_heads: dict,
                       fused_interior: set) -> tuple:
         """The pointwise groups of the per-node scan of the feedback SCC
@@ -1391,19 +1560,23 @@ class CompiledGraph:
                 frozenset(fused_interior))
         return got
 
-    def _lower_group(self, members, pdict):
+    def _lower_group(self, members, pdict, fanins=()):
         """``_lower`` with each slider and divisor operand made its tensor
         (:meth:`_operand`; a value's key stays a key): the group as one
         render reads it."""
-        prog, sigs, scals, written = self._lower(members, pdict)
+        prog, sigs, scals, written = self._lower(members, pdict,
+                                                 fanins=fanins)
         return (prog, [self._operand(d, pdict, lambda key: key)
                        for d in sigs],
                 [self._operand(d, pdict, None) for d in scals], written)
 
-    def _lower(self, members, pdict, every: bool = False):
+    def _lower(self, members, pdict, every: bool = False, fanins=()):
         """(program, signals, scalars, written) of a pointwise group
         (compiler/pointwise.py): its members' input ports' fan-in averages,
-        modulation maps and node forms, in the members' order.
+        modulation maps and node forms, in the members' order, then the
+        fan-ins it computes for readers outside it (``fanins``: (key, the
+        ports that read it), ``_plan_fanins``; a one-form group has no
+        members and one of them).
         ``signals`` lists its signal operands: a value's key (nid, port) or
         a slider with a shape; ``scalars`` its scalar operands: the
         sliders, read from device memory, and one fan-in divisor per source
@@ -1416,9 +1589,12 @@ class CompiledGraph:
         ("value", (nid, port)) for a member output that a node outside the
         group reads or a modulation port reads (for the knob writeback), or
         every member output with ``every`` (the per-node scan carries them
-        all), ("out", nid) for an Output member's fan-in average."""
+        all), ("out", nid) for an Output member's fan-in average, and a
+        fan-in's key for each of ``fanins``: a member output that only
+        those read is not written."""
         graph, nodes = self.graph, self._nodes
         mset = set(members)
+        covered = {port for _, ports in fanins for port in ports}
         b = pointwise.Builder()
         sigs: list = []
         scals: list = []
@@ -1445,12 +1621,19 @@ class CompiledGraph:
                 ext[key] = b.sig()
             return ext[key]
 
+        def avg(srcs):
+            if srcs and len(srcs) not in divisors:
+                divisors[len(srcs)] = scalar(_Divisor(len(srcs)))
+            return pointwise.avg(b, [signal(k) for k in srcs],
+                                 divisors.get(len(srcs)))
+
         def port_avg(nid, port):
-            ls = graph.in_links(nid, port)
-            if ls and len(ls) not in divisors:
-                divisors[len(ls)] = scalar(_Divisor(len(ls)))
-            return pointwise.avg(b, [signal((l.src, l.src_port)) for l in ls],
-                                 divisors.get(len(ls)))
+            return avg([(l.src, l.src_port) for l in graph.in_links(nid, port)])
+
+        def read_outside(l) -> bool:
+            if l.dst in mset:
+                return l.dst_port in nodes[l.dst].spec.mod_inputs
+            return (l.dst, l.dst_port) not in covered
 
         written: list = []
         outs: list = []
@@ -1476,11 +1659,18 @@ class CompiledGraph:
             for port, v in res.items():
                 mine[(nid, port)] = v
                 if every or any(l.src == nid and l.src_port == port
-                                and (l.dst not in mset or l.dst_port
-                                     in nodes[l.dst].spec.mod_inputs)
-                                for l in graph.links):
+                                and read_outside(l) for l in graph.links):
                     written.append(("value", (nid, port)))
                     outs.append(v)
+        for key, _ in fanins:
+            kind, what = key
+            if kind == "avg":
+                v = avg(what)
+            else:
+                srcs, lo, hi = what
+                v = pointwise.map_mod(b, avg(srcs), lo, hi)
+            written.append(key)
+            outs.append(v)
         return b.program(outs), sigs, scals, written
 
     def _operand(self, d, pdict, read):
@@ -1498,11 +1688,15 @@ class CompiledGraph:
             return _divisor_on(d.n, self.device)
         return read(d)
 
-    def _group_eval(self, members, values: dict, outs: dict, pdict, T: int):
+    def _group_eval(self, members, values: dict, outs: dict, pdict, T: int,
+                    fanins=(), fan=None):
         """Evaluate a pointwise group (``_lower``) as one program,
-        one kernel launch on the card: sets ``values`` and ``outs`` (the
-        Output members' averages) for what it writes."""
-        prog, sigs, scals, written = self._lower(members, pdict)
+        one kernel launch on the card: sets ``values``, ``outs`` (the
+        Output members' averages) and ``fan`` (the fan-ins it computes for
+        readers outside it, ``fanins``, by key; an Output member's average
+        under its fan-in's key too) for what it writes."""
+        prog, sigs, scals, written = self._lower(members, pdict,
+                                                 fanins=fanins)
         if not written:
             return                      # nothing reads the group's nodes
         got = group_call(prog, [self._operand(d, pdict, values.__getitem__)
@@ -1510,7 +1704,14 @@ class CompiledGraph:
                          [self._operand(d, pdict, None) for d in scals], T,
                          self.device)
         for (kind, key), sig in zip(written, got):
-            (outs if kind == "out" else values)[key] = sig
+            if kind == "out":
+                outs[key] = sig
+                if fan is not None:
+                    fan[_fanin_key(self.graph, key, "in")] = sig
+            elif kind == "value":
+                values[key] = sig
+            else:
+                fan[(kind, key)] = sig
 
     def _eval(self, state, ext, T: int, pdict=None):
         graph = self.graph
@@ -1523,14 +1724,46 @@ class CompiledGraph:
         # Output ids a pointwise group averaged
         group_outs: dict[int, Any] = {}
         _, order = self._pointwise_plan(mega_heads, fused_heads)
+        plan = self._fanin_plan(mega_heads, fused_heads)
+        solo = plan.solo if plan is not None else frozenset()
+        # the fan-ins read outside the groups, by key (_fanin_key): what a
+        # group or a one-form group wrote, and each eager one, computed once
+        fan: dict = {}
 
         def sources(nid, port):
             return [values[(l.src, l.src_port)]
                     for l in graph.in_links(nid, port)]
 
+        def fanin(nid, port, p=None):
+            """The fan-in of a port: its average, or for a modulation port
+            ``p`` the average mapped (``_map_mod``)."""
+            key = None if plan is None else _fanin_key(graph, nid, port, p)
+            if key in fan:
+                return fan[key]
+            if key in solo:
+                self._group_eval((), values, group_outs, pdict, T,
+                                 ((key, ((nid, port),)),), fan)
+                return fan[key]
+            sig, n = _avg(sources(nid, port), T, self.device)
+            if p is not None:
+                sig = _map_mod(sig, p)
+            if key is not None and n:
+                fan[key] = sig
+            return sig
+
+        def node_fanins(node):
+            """(inputs, mods) of a node: each input port's fan-in, and each
+            connected modulation port's mapped one."""
+            return ({port: fanin(node.id, port) for port in node.spec.inputs},
+                    {p.name: fanin(node.id, p.name, p)
+                     for p in _mod_params(node)
+                     if graph.in_links(node.id, p.name)})
+
         for kind, comp in order:
             if kind == "group":
-                self._group_eval(comp, values, group_outs, pdict, T)
+                self._group_eval(comp, values, group_outs, pdict, T,
+                                 () if plan is None else plan.writes[comp],
+                                 None if plan is None else fan)
                 continue
             if _is_cycle(graph, comp):
                 self._eval_cycle(comp, state, values, T, pdict,
@@ -1542,9 +1775,9 @@ class CompiledGraph:
             if nid in mega_heads:
                 run, stages, specs, head_single, out_fold, tapped = \
                     mega_heads[nid]
-                srcs = sources(run[0], "in")
                 # head_single: the fan-in scale is folded into the stages
-                x1 = srcs[0] if head_single else _avg(srcs, T, self.device)[0]
+                x1 = (sources(run[0], "in")[0] if head_single
+                      else fanin(run[0], "in"))
                 values.update(self._mega_run_eval(run, stages, specs, tapped,
                                                   x1, state))
                 if out_fold is not None:
@@ -1552,25 +1785,24 @@ class CompiledGraph:
                 continue
             if nid in fused_heads:
                 run, secs, emits, tapped = fused_heads[nid]
-                x1, _ = _avg(sources(run[0], "in"), T, self.device)
-                values.update(self._fused_run_eval(run, secs, emits, tapped,
-                                                   x1, state))
+                values.update(self._fused_run_eval(
+                    run, secs, emits, tapped, fanin(run[0], "in"), state))
                 continue
             node = self._nodes[nid]
             impl = node.spec.impl
-            if getattr(impl, "graph_output", False):
+            if getattr(impl, "graph_output", False) or nid in self._analyzed:
                 # an Output computes nothing: its fan-in average is the
-                # rendered channel, taken once below
+                # rendered channel, taken once below; an analysis sink
+                # (its process_seq nothing) reads its fan-ins there too
                 if NODE_HOOK is not None:
                     NODE_HOOK(nid, node.cfg_name, {})
                 continue
-            in_sigs = {port: _avg(sources(nid, port), T, self.device)
-                       for port in node.spec.all_inputs}
+            in_sigs, mods = node_fanins(node)
             if getattr(impl, "graph_input", False):
                 inputs = {EXTERNAL: ext[str(nid)]}
             else:
-                inputs = {p: in_sigs[p][0] for p in node.spec.inputs}
-            params = self._resolve_params(node, in_sigs, pdict)
+                inputs = in_sigs
+            params = self._resolve_params(node, mods, pdict)
             outs, state[str(nid)] = _call(impl, params, state[str(nid)],
                                           inputs, T, self.block_size)
             if NODE_HOOK is not None:
@@ -1587,36 +1819,40 @@ class CompiledGraph:
             elif nid in group_outs:
                 outs[nid] = group_outs[nid]
             else:
-                outs[nid] = _avg(sources(nid, "in"), T, self.device)[0]
+                outs[nid] = fanin(nid, "in")
 
         # modulation knob writeback (reference quirk SURVEY.md 2.4 #9): the
-        # knob ends at the mapped value of the last block's first sample
+        # knob ends at the mapped value of the last block's first sample,
+        # taken from the port's mapped fan-in where the render computed it,
+        # else averaged and mapped at that one sample (both are per-sample,
+        # so either is bitwise the full-length average's sample);
         # a batched render batches every aux leaf, as the JAX package's
         # vmap does (out_axes 0): a knob or a sink fed only by unbatched
         # signals (an LFO, nothing at all) broadcasts over the streams
         batch = torch.broadcast_shapes(*(v.shape[:-1] for v in ext.values()))
+        at = T - self.block_size
         knobs = {}
         for nid, node in self._nodes.items():
-            for p in node.spec.params:
-                if isinstance(p, ParamSpec) and p.as_input:
-                    srcs = sources(nid, p.name)
-                    if srcs:
-                        sig, _ = _avg(srcs, T, self.device)
-                        knobs[f"{nid}:{p.name}"] = _map_mod(
-                            sig[..., T - self.block_size], p).expand(batch)
+            for p in _mod_params(node):
+                if not graph.in_links(nid, p.name):
+                    continue
+                key = _fanin_key(graph, nid, p.name, p)
+                if key in fan:
+                    knob = fan[key][..., at]
+                else:
+                    sig, _ = _avg([s[..., at:at + 1]
+                                   for s in sources(nid, p.name)], 1,
+                                  self.device)
+                    knob = _map_mod(sig, p)[..., 0]
+                knobs[f"{nid}:{p.name}"] = knob.expand(batch)
         aux = {"__knobs__": knobs} if knobs else {}
 
         # analysis sinks, under "<cfg_name>:<node id>"
-        for nid in self.sink_ids:
+        for nid in self._analyzed:
             node = self._nodes[nid]
-            impl = node.spec.impl
-            if not hasattr(impl, "analyze"):
-                continue
-            in_sigs = {port: _avg(sources(nid, port), T, self.device)
-                       for port in node.spec.all_inputs}
-            inputs = {p: in_sigs[p][0] for p in node.spec.inputs}
-            params = self._resolve_params(node, in_sigs, pdict)
-            res = impl.analyze(params, inputs)
+            inputs, mods = node_fanins(node)
+            params = self._resolve_params(node, mods, pdict)
+            res = node.spec.impl.analyze(params, inputs)
             if all(v.dim() == 1 for v in inputs.values()):
                 res = _on_batch(res, batch)
             aux[f"{node.cfg_name}:{nid}"] = res
@@ -1648,7 +1884,12 @@ class _CycleScan:
     in pointwise groups (``groups``, ``CompiledGraph._cycle_groups``),
     one kernel launch a group and block on the card, as XLA fuses them
     inside that body; each group is lowered once per scan and structure
-    of the overrides (:meth:`_lowered`)."""
+    of the overrides (:meth:`_lowered`).  A fan-in that a member running
+    on its own (or a fused run's head) reads from the members of one
+    group that runs before it in the block is an output of that group
+    (``fanins``, ``_plan_fanins`` without one-form groups: a fan-in of
+    several sources outside one group stays its eager ops, since the
+    Python loop pays a group call's host work every block)."""
 
     def __init__(self, cg: CompiledGraph, comp, fused_heads: dict,
                  fused_interior: set):
@@ -1669,6 +1910,31 @@ class _CycleScan:
                              and l.src not in self.comp_set})
         self.fused_heads = fused_heads
         self.fused_interior = fused_interior
+        #: (nid, port) -> the key of its fan-in, which a group writes;
+        #: members -> the group's fan-in outputs, (key, ports)
+        self.fanins: dict = {}
+        self.group_fanins: dict = {}
+        if FANIN_GROUPS and self.groups:
+            self._plan_fanins()
+
+    def _plan_fanins(self):
+        """``fanins`` and ``group_fanins``: the fan-ins of each member
+        that runs on its own and of each fused run's head that a group
+        running before it in the block writes (``_plan_fanins``)."""
+        nodes = self.cg._nodes
+        pos = {n: i for i, n in enumerate(self.order)}
+        sites: list = []
+        for nid in self.order:
+            if nid in self.fused_interior or nid in self.grouped:
+                continue
+            if nid in self.fused_heads:
+                sites.append((nid, "in", None))
+                continue
+            sites += _fanin_sites(nodes[nid])
+        writes, self.fanins, _ = _plan_fanins(
+            self.cg.graph, nodes, self.groups, sites,
+            lambda i, nid: pos[self.groups[i][0]] < pos[nid], one_form=False)
+        self.group_fanins = {g: w for g, w in zip(self.groups, writes) if w}
 
     def feed_blocks(self, feeds: dict, b) -> dict:
         """Block ``b`` of each of ``self.feeds`` from its [..., T] signal in
@@ -1697,6 +1963,7 @@ class _CycleScan:
         graph, nodes, B = cg.graph, cg._nodes, cg.block_size
         st = dict(st)
         cur: dict = {}
+        fan: dict = {}          # the fan-ins the groups wrote, by key
 
         def lookup(src, src_port):
             key = (src, src_port)
@@ -1704,15 +1971,21 @@ class _CycleScan:
                 return cur[key] if key in cur else prev[key]
             return blocks[key]
 
+        def fanin(nid, port, p=None):
+            key = self.fanins.get((nid, port))
+            if key is not None:
+                return fan[key]
+            sig, _ = _avg([lookup(l.src, l.src_port)
+                           for l in graph.in_links(nid, port)], B, cg.device)
+            return sig if p is None else _map_mod(sig, p)
+
         for nid in self.order:
             if nid in self.fused_interior:
                 continue                      # evaluated at the run head
             if nid in self.fused_heads:
                 run, secs, emits, tapped = self.fused_heads[nid]
-                x1, _ = _avg([lookup(l.src, l.src_port) for l in
-                              graph.in_links(run[0], "in")], B, cg.device)
-                cur.update(cg._fused_run_eval(run, secs, emits, tapped, x1,
-                                              st))
+                cur.update(cg._fused_run_eval(run, secs, emits, tapped,
+                                              fanin(run[0], "in"), st))
                 continue
             if nid in self.group_at:
                 prog, sigs, scals, written = self._lowered(
@@ -1722,17 +1995,19 @@ class _CycleScan:
                            for d in sigs],
                     [cg._operand(d, pdict, None) for d in scals], B,
                     cg.device)
-                for (_, kp), sig in zip(written, got):
-                    cur[kp] = sig
+                for (kind, key), sig in zip(written, got):
+                    if kind == "value":
+                        cur[key] = sig
+                    else:
+                        fan[(kind, key)] = sig
                 continue
             if nid in self.grouped:
                 continue                      # evaluated with its group
             node = nodes[nid]
-            in_sigs = {port: _avg([lookup(l.src, l.src_port) for l in
-                                   graph.in_links(nid, port)], B, cg.device)
-                       for port in node.spec.all_inputs}
-            inputs = {p: in_sigs[p][0] for p in node.spec.inputs}
-            params = cg._resolve_params(node, in_sigs, pdict)
+            inputs = {port: fanin(nid, port) for port in node.spec.inputs}
+            params = cg._resolve_params(
+                node, {p.name: fanin(nid, p.name, p) for p in _mod_params(node)
+                       if graph.in_links(nid, p.name)}, pdict)
             outs, st[str(nid)] = _call_block(node.spec.impl, params,
                                              st[str(nid)], inputs, B)
             if NODE_HOOK is not None:
@@ -1748,16 +2023,18 @@ class _CycleScan:
 
     def _lowered(self, members, pdict):
         """``CompiledGraph._lower`` of a group, every member output
-        written, once per policy and structure of the overrides (which
-        sliders are overridden, and which of them have a shape)."""
-        key = (members, precision.get_policy().name, tuple(
+        written and its fan-in outputs (``group_fanins``) after them, once
+        per policy and structure of the overrides (which sliders are
+        overridden, and which of them have a shape)."""
+        fanins = self.group_fanins.get(members, ())
+        key = (members, fanins, precision.get_policy().name, tuple(
             (nid, name, isinstance(v, torch.Tensor) and v.dim() > 0)
             for nid in members
             for name, v in (pdict or {}).get(str(nid), {}).items()))
         got = self._lowerings.get(key)
         if got is None:
-            got = self._lowerings[key] = self.cg._lower(members, pdict,
-                                                        every=True)
+            got = self._lowerings[key] = self.cg._lower(
+                members, pdict, every=True, fanins=fanins)
         return got
 
 

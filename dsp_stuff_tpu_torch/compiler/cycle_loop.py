@@ -30,8 +30,8 @@ those shapes.  The sliders a render overrides are bound as a stream step
 binds them (utils/buffers.Binding: a float a root of
 utils/sliders, a tensor a device buffer), so another value is a copy into
 the buffers, not a capture.  The graphs are cached by :meth:`CycleLoops.key`:
-the SCC, T, K, its pointwise groups, the shapes of everything the loop
-holds, the overrides' structure, the policy and the members' sliders in
+the SCC, T, K, its pointwise groups and the fan-ins they write, the
+shapes of everything the loop holds, the overrides' structure, the policy and the members' sliders in
 the graph.
 
 A replayed loop runs the kernels of the Python loop on the same shapes in
@@ -205,13 +205,15 @@ class CycleLoops:
     def key(self, scan, T: int, feeds: dict, over, st: dict, prev: dict,
             outs) -> tuple:
         """What a loop's buffers and graphs depend on: the SCC, T, K, its
-        pointwise groups (none with ``POINTWISE_FUSION`` off), the shapes
+        pointwise groups (none with ``POINTWISE_FUSION`` off) and the
+        fan-ins they write (``_CycleScan.fanins``), the shapes
         of the feeds, states, carried and emitted blocks, the overrides'
         structure with the policy (utils/buffers.capture_key), and the
         members' sliders as the graph holds them (the body bakes what it
         reads from the graph)."""
         nodes = self.cg._nodes
-        return (tuple(scan.order), T, CHUNK, scan.groups, _shapes(feeds),
+        return (tuple(scan.order), T, CHUNK, scan.groups,
+                tuple(sorted(scan.fanins.items())), _shapes(feeds),
                 _shapes((st, prev)), tuple(outs),
                 capture_key(over, self.data),
                 freeze_params({str(n): nodes[n].params for n in scan.order}))

@@ -232,9 +232,9 @@ def test_lowered_once_a_scan(monkeypatch):
     calls = []
     real = cg._lower
 
-    def counted(members, pdict, every=False):
+    def counted(members, pdict, every=False, **kw):
         calls.append((tuple(members), every))
-        return real(members, pdict, every)
+        return real(members, pdict, every, **kw)
     monkeypatch.setattr(cg, "_lower", counted)
     for route in ("eager", "buffers"):
         calls.clear()

@@ -343,13 +343,18 @@ def test_config5_exact_through_groups_is_the_eager_route():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("pol", ["fast", "parity", "exact"])
-def test_stream_step_with_groups_is_capturable(pol):
+@pytest.mark.parametrize("name, pol", [
+    *(pytest.param("config5", p, id=p) for p in ("fast", "parity", "exact")),
+    *(pytest.param("_random_graph(8)", p, id=f"one-form-{p}")
+      for p in ("fast", "parity", "exact"))])
+def test_stream_step_with_groups_is_capturable(name, pol):
     """config5's stream step runs its three groups (under parity and
     exact also its feedback cycle's two, the per-node scan's one block)
     and, after one block, dispatches no host-data tensor and no host
-    read."""
-    g = presets.config5_feedback_16node()[0]
+    read; so does a fuzz graph's whose two fan-ins of two sources outside
+    the groups are one-form groups (five group calls a block)."""
+    g = (presets.config5_feedback_16node()[0] if name == "config5"
+         else tfuzz._random_graph(8)[0])
     with dt.policy(pol):
         sess = StreamSession(g, device="cpu")
         x = (np.random.default_rng(5).standard_normal((2, 128)) * 0.3
@@ -361,6 +366,7 @@ def test_stream_step_with_groups_is_capturable(pol):
         mode = _HostOps()
         with chip_smoke.calls_counted([(tcomp, "group_call")], counts), mode:
             sess.step.run(sess.params)
-    assert counts.get("group_call") == (3 if pol == "fast" else 5)
+    want = 5 if name != "config5" else (3 if pol == "fast" else 5)
+    assert counts.get("group_call") == want
     assert mode.ops > 10
     assert not mode.host, sorted(set(mode.host))

@@ -23,10 +23,14 @@ and config3 (4x-oversampled overdrive and distortion) at B = 512.  For each:
   ``torch.profiler.record_function`` range this script opens around the
   compiler's own functions: each node's evaluation (``_call``, by node
   type), each pointwise group (``_group_eval``, by its members' types,
-  where the checkout has groups), each chain segment, linear run and
-  feedback cycle, each fan-in average and modulation map outside those;
-  what runs outside every scope (Outputs, analysis sinks, knobs) is
-  "outside the scopes"; and the largest plain ops by device time.
+  where the checkout has groups, then "avg" or "mod" for each fan-in it
+  writes for a reader outside it: "group mix+avg"; a one-form group is
+  "group avg" or "group mod"), each chain segment, linear run and
+  feedback cycle, each fan-in average and modulation map that stays
+  eager (``_avg``, ``_map_mod``: a run head's, a node's, an analysis
+  sink's, the knob writeback's one sample); what runs outside every
+  scope (Outputs, analysis sinks, knobs) is "outside the scopes"; and
+  the largest plain ops by device time.
 
 Without ``--renders`` it also times the chain kernel on config5's planned
 stage list ([high_pass cascade, scale, mtap]) at B = 128: the whole list,
@@ -57,20 +61,37 @@ KERNELS = ("chain_kernel", "cycle_kernel", "envelope_kernel",
 @contextlib.contextmanager
 def scopes():
     """Each evaluator function of the compiler wrapped in a
-    record_function range named for what it evaluates."""
+    record_function range named for what it evaluates.  Yields the list
+    that gets, at each launch of the pointwise kernel (through ctypes: no
+    host op carries its device time), the innermost scope open then."""
     import torch
     from dsp_stuff_tpu_torch.compiler import compile as comp
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    open_scopes: list = []
+    launched: list = []
 
     def wrap(fn, label):
         @functools.wraps(fn)
         def run(*a, **k):
-            with torch.profiler.record_function(label(*a, **k)):
-                return fn(*a, **k)
+            name = label(*a, **k)
+            open_scopes.append(name)
+            try:
+                with torch.profiler.record_function(name):
+                    return fn(*a, **k)
+            finally:
+                open_scopes.pop()
         return run
 
-    def members(self, ms, *a, **k):
-        kinds = "+".join(self._nodes[n].cfg_name for n in ms)
-        return f"group {kinds}"
+    def launch(*a, **k):
+        launched.append(open_scopes[-1] if open_scopes
+                        else "outside the scopes")
+        return kernel_group(*a, **k)
+
+    def members(self, ms, values=None, outs=None, pdict=None, T=None,
+                fanins=(), *a, **k):
+        kinds = [self._nodes[n].cfg_name for n in ms]
+        kinds += [key[0] for key, _ in fanins or ()]
+        return f"group {'+'.join(kinds)}"
 
     cg = comp.CompiledGraph
     saved = [(comp, "_call", lambda impl, *a, **k:
@@ -85,11 +106,16 @@ def scopes():
              if hasattr(m, n)]
     for m, n, fn, lab in saved:
         setattr(m, n, wrap(fn, lab))
+    kernel_group = getattr(pk, "_kernel_group", None)
+    if kernel_group is not None:
+        pk._kernel_group = launch
     try:
-        yield [lab for _, n, _, lab in saved]
+        yield launched
     finally:
         for m, n, fn, _ in saved:
             setattr(m, n, fn)
+        if kernel_group is not None:
+            pk._kernel_group = kernel_group
 
 
 LABELS = ("node ", "group ", "fan-in average", "modulation map",
@@ -102,9 +128,10 @@ def profile_render(name, cg, x, B, tag):
     from torch.profiler import ProfilerActivity, profile
     from chip_smoke import cuda_ms
     wall = cuda_ms(lambda: cg.render(x, batch_shape=(B,)))
-    with scopes():
+    with scopes() as launched:
         cg.render(x, batch_shape=(B,))          # the scopes' first call
         torch.cuda.synchronize()
+        launched.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(64):                 # the trace's lead-in
@@ -148,6 +175,17 @@ def profile_render(name, cg, x, B, tag):
         scope = next((n for a, b, n in spans if a <= at < b),
                      "outside the scopes")
         by_scope[scope] = by_scope.get(scope, 0.0) + ms
+    # each pointwise kernel (in stream order, the launch order) to the
+    # scope that launched it: a group's fan-in outputs are its own
+    groups = sorted((e for e in dev if "pointwise_kernel" in e.name),
+                    key=lambda e: e.time_range.start)
+    if len(groups) == len(launched):
+        for scope, e in zip(launched, groups):
+            by_scope[scope] = (by_scope.get(scope, 0.0)
+                               + e.self_device_time_total / 1e3)
+    else:
+        print(f"  (the {len(groups)} pointwise kernels in the trace are not "
+              f"the {len(launched)} launched: left out of the scopes)")
     print(f"  by scope (their sum {sum(by_scope.values()):.3f} ms of the "
           f"{total:.3f}):")
     for scope, ms in sorted(by_scope.items(), key=lambda t: -t[1]):
