@@ -271,9 +271,10 @@ FUZZ_GRAPH_SEEDS = (5, 7, 13, 15)
 FUZZ_MEGA_SEEDS = (2, 10, 67, 76)
 B_FUZZ = 4                # streams of a fuzz render (x 1 s)
 # the runtime phase: StreamSession in 128-sample blocks, the bench chain
-# over 10 s, config5 over 3 s (a block of config5 takes about 13 ms of host
-# time: 10 s of it four times over would double the smoke run)
+# and config5 over 3 s each (the bench chain's stream was 10 s before the
+# smoke neared its time limit)
 STREAM_C5_SAMPLES = 3 * SR
+STREAM_BENCH_SAMPLES = 3 * SR
 STREAM_CHUNKS = (5, 375)  # process_many chunks, in blocks
 STREAM_DB = -90.0         # streamed vs the card's one render (the JAX bound)
 STREAM_CPU_DB = -100.0    # streamed on the card vs on the CPU, first second
@@ -287,7 +288,7 @@ AUTOMATION_C5_LEVELS = (0.40, 0.35, 0.30, 0.25)
 AUTOMATION_C5_EVERY = 64
 AUTOMATION_TRIALS = 2     # sessions of each automated stream (its timing)
 AUTOMATION_STALL_S = 5    # seconds of host-only work beside them
-AUTOMATION_BENCH_S = 10   # seconds of the bench chain's gain moved a block
+AUTOMATION_BENCH_S = 3    # seconds of the bench chain's gain moved a block
 AUTOMATION_C5_S = 3       # ... and of config5's feedback gain and attack
 GRAPH_DIR = os.path.join(ROOT, "build", "stream_graphs")    # DOT dumps
 LFO_FAST_ATOL = 4e-7      # config5's LFO under fast: CUDA's sinf vs the CPU's
@@ -851,13 +852,13 @@ def _kernel_modules():
     from dsp_stuff_tpu_torch.ops import (chain_kernel, chain_reverse_kernel,
                                          cycle_kernel, cycle_reverse_kernel,
                                          envelope_kernel, first_order_kernel,
-                                         pointwise_kernel,
+                                         oscillator_kernel, pointwise_kernel,
                                          pointwise_reverse_kernel,
                                          sequential_kernel)
     return {"chain": chain_kernel, "chain_reverse": chain_reverse_kernel,
             "cycle": cycle_kernel, "cycle_reverse": cycle_reverse_kernel,
             "envelope": envelope_kernel, "first_order": first_order_kernel,
-            "pointwise": pointwise_kernel,
+            "oscillator": oscillator_kernel, "pointwise": pointwise_kernel,
             "pointwise_reverse": pointwise_reverse_kernel,
             "sequential": sequential_kernel}
 
@@ -883,16 +884,32 @@ def only_launches(**launches):
     return out
 
 
+def osc_launches(graph, T: int) -> int:
+    """The oscillator kernel's launches in one render of ``graph`` over T
+    samples: each active signal generator's (two, or one for a render of
+    one block and for Constant: oscillator_kernel.launches_for)."""
+    from dsp_stuff_tpu_torch.compiler import compile as comp
+    from dsp_stuff_tpu_torch.ops import oscillator_kernel
+    active = comp._active_nodes(graph)
+    return sum(oscillator_kernel.launches_for(n.params["mode"], T)
+               for nid, n in graph.nodes.items()
+               if n.cfg_name == "signal_gen" and nid in active)
+
+
 @contextlib.contextmanager
 def forward_and_vjps_counted(plain: dict, vjps: dict, first_order=True):
     """plain_versions_counted for a forward and backward together, the
     pointwise groups' plain version apart: ``vjps`` holds its runs (a
     caller holds them to 0: the groups' forward is the kernel, their
-    backward the reverse kernel, ops/pointwise_kernel.PointwiseGroup)."""
+    backward the reverse kernel, ops/pointwise_kernel.PointwiseGroup),
+    and the oscillator's (the signal generator's backward recomputes it,
+    ops/gen.Oscillator)."""
     from dsp_stuff_tpu_torch.compiler import pointwise
+    from dsp_stuff_tpu_torch.ops import gen
     with plain_versions_counted(plain, first_order=first_order,
                                 groups=False), \
-            calls_counted([(pointwise, "interpret")], vjps):
+            calls_counted([(pointwise, "interpret"),
+                           (gen, "oscillator_plain")], vjps):
         yield
 
 
@@ -1034,12 +1051,13 @@ def plain_versions_counted(counts: dict, first_order: bool = False,
     ``first_order`` adds the first-order kernel's (a render calls
     _first_order_blocked for a concrete degenerate biquad, which takes no
     kernel in either package); ``groups`` the pointwise groups' forward
-    (pointwise.interpret, which a backward counts apart); the reverse
+    (pointwise.interpret) and the oscillator's (gen.oscillator_plain),
+    which a backward counts apart; the reverse
     pointwise kernel's (group_adjoint, interpret_adjoint) and the route it
     replaced (group_vjp) always."""
     from dsp_stuff_tpu_torch.compiler import pointwise
     from dsp_stuff_tpu_torch.ops import (chain_segment, cycle_segment,
-                                         envelope, scan)
+                                         envelope, gen, scan)
     from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
     targets = [(chain_segment, "segment_fallback"),
                (chain_segment, "segment_adjoint"),
@@ -1057,7 +1075,7 @@ def plain_versions_counted(counts: dict, first_order: bool = False,
         targets += [(scan, "_first_order_blocked"),
                     (scan, "_first_order_scan")]
     if groups:
-        targets.append((pointwise, "interpret"))
+        targets += [(pointwise, "interpret"), (gen, "oscillator_plain")]
     return calls_counted(targets, counts)
 
 
@@ -2130,6 +2148,9 @@ def fuzz_phase(dev, card) -> dict:
               f"fuzz {name}: launches {launches} vs fused calls {calls}")
         check(launches["envelope"] >= ("envelope" in kinds),
               f"fuzz {name}: an envelope node launched no envelope kernel")
+        check(launches["oscillator"] == osc_launches(g, SR),
+              f"fuzz {name}: {launches['oscillator']} oscillator launches, "
+              f"expected {osc_launches(g, SR)}")
         check(d <= CARD_VS_CPU_DB, f"fuzz {name}: card vs CPU {d:.1f} dBFS")
         for k, v in launches.items():
             totals[k] += v
@@ -2287,7 +2308,9 @@ KERNEL_NAMES = (("pointwise_reverse_kernel", "pointwise_reverse"),
                 ("cycle_reverse_kernel", "cycle_reverse"),
                 ("chain_reverse_kernel", "chain_reverse"),
                 ("chain_kernel", "chain"), ("cycle_kernel", "cycle"),
-                ("envelope_kernel", "envelope"), ("fo_chained", "first_order"))
+                ("envelope_kernel", "envelope"), ("fo_chained", "first_order"),
+                ("oscillator_clock_kernel", "oscillator"),
+                ("oscillator_wave_kernel", "oscillator"))
 
 
 def kernel_of(name: str):
@@ -3061,13 +3084,16 @@ def runtime_phase(dev, card) -> dict:
     program5 = cycle_program(g5)[0]
     recs = {}
     for name, g, T, expect, first_order, bnds in (
-            ("bench chain", bench_graph(), T_MAIN, only_launches(chain=1),
+            ("bench chain", bench_graph(), STREAM_BENCH_SAMPLES,
+             only_launches(chain=1),
              False, {"chain": chain_bound(bench_stages(), 1, 128)}),
             ("config5", g5, STREAM_C5_SAMPLES,
-             only_launches(chain=1, cycle=1, envelope=1, pointwise=3), False,
+             only_launches(chain=1, cycle=1, envelope=1, pointwise=3,
+                           oscillator=1), False,
              {"chain": chain_bound(stages5, 1, 128),
               "cycle": cycle_bound(program5, 1, 128),
-              "envelope": bound(8.0 * 128, 3.0 * 128)}),
+              "envelope": bound(8.0 * 128, 3.0 * 128),
+              "oscillator": osc_bound(1, 128)}),
             ("muff", muff_graph(), SR,
              only_launches(first_order=1, pointwise=1), True,
              {"first_order": bound(8.0 * 128, 2.0 * 128)})):
@@ -3079,8 +3105,10 @@ def runtime_phase(dev, card) -> dict:
     recs["config5 parity"] = stream_run(
         "config5 parity", g5, (np.random.default_rng(133).standard_normal(SR)
                                * 0.3).astype(np.float32), dev, card,
-        only_launches(envelope=1, pointwise=5), policy="parity",
-        bounds={"envelope": bound(8.0 * 128, 3.0 * 128)})
+        only_launches(envelope=1, pointwise=5, oscillator=1),
+        policy="parity",
+        bounds={"envelope": bound(8.0 * 128, 3.0 * 128),
+                "oscillator": osc_bound(1, 128)})
     recapture_check(card)
     tensor_slider_check(card)
     recs["host stalls"] = host_stalls(AUTOMATION_STALL_S, card)
@@ -3560,7 +3588,9 @@ def exact_phase(dev, card, b_main=B_MAIN, t_main=T_MAIN) -> dict:
     g5n = group_launches(g5, "exact", SR)
     y5, _, wall, _, _ = exact_render(
         g5, x5, B_EXACT, only_launches(envelope=1, sequential=n5,
-                                       pointwise=g5n), "config5", dev)
+                                       pointwise=g5n,
+                                       oscillator=osc_launches(g5, SR)),
+        "config5", dev)
     print(f"config5 under exact, [{B_EXACT}, 1, {SR}]: render {wall:.3f} s, "
           f"1 envelope, {n5} sequential launches (the loop's one-pole once "
           f"a block) and {g5n} pointwise (three groups, the loop's two "
@@ -4137,7 +4167,8 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
         # package (plain_versions_counted)
         rec["c5_input"] = fused_grad_main(
             "config5, input gradient", cg5, x, tgt,
-            only_launches(chain=1, cycle=1, envelope=1, pointwise=3),
+            only_launches(chain=1, cycle=1, envelope=1, pointwise=3,
+                          oscillator=2),
             card=card, first_order=False,
             expect_bwd={"chain_reverse": 1, "chain": 0, "cycle_reverse": 1,
                         "cycle": 0, "pointwise": 0, "pointwise_reverse": 3},
@@ -5925,6 +5956,7 @@ def smoke_graphs():
     out += [(name, g) for name, g in pointwise_graphs() if name != "config5"]
     out += [(f"_random_graph({s}, exact)", gen._random_graph(s, exact=True)[0])
             for s in EXACT_FUZZ_SEEDS]
+    out += list(fuzz_group_graphs().items())
     return out
 
 
@@ -5940,10 +5972,16 @@ def pointwise_sources() -> list:
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.compiler import compile as comp
     from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.compiler import pointwise as pw
     programs = set()
     for pol in ("fast", "parity", "exact"):
         for form in pointwise_forms().values():
             programs.add(pointwise_program(form, pol)[0])
+        for kind in ("scal", "sig"):           # fuzz_group_phase's forms
+            b = pw.Builder()
+            xv = b.sig()
+            programs.add(b.program([pw.fuzz(b, xv, getattr(b, kind)(),
+                                             pol)]))
     plain = pk.group_call
 
     def spy(prog, *args):
@@ -6810,6 +6848,521 @@ def pointwise_phase(dev, card) -> dict:
     return rec
 
 
+# -- the signal generator's oscillator kernel, Fuzz in the groups -------------
+
+OSC_T = (128, 256, T_MAIN)    # the oscillator checks: a block, two, 10 s
+OSC_MODES = ("Sine", "Triangle", "Square", "Constant")
+#: dependent operations a block on the clock's carry: the f64 add under
+#: fast; the f32 add and the remainder under parity and exact
+OSC_CHAIN_OPS = {"fast": 1, "parity": 2}
+B_FUZZ_GROUP = 4          # the Fuzz graphs' renders (x 1 s)
+B_FUZZ_TIMED = 128        # the Fuzz group timed (x 10 s)
+
+
+def osc_bound(rows, T, mod_bytes=0.0):
+    """(bound ms, by) of one oscillator call writing [rows, T]: the wave
+    written once (and ``mod_bytes`` of modulations read once), against
+    its per-sample operations (the step's divide, the total's add, the
+    phase's add, the product by 2 pi, the sine and the amplitude's
+    product, one operation each)."""
+    return bound(4.0 * rows * T + mod_bytes, 6.0 * rows * T)
+
+
+def osc_floor_ms(T, pol) -> float:
+    """The oscillator's dependent-chain floor over T samples:
+    OSC_CHAIN_OPS a block over the T / 128 blocks of the carry, and two
+    in-block sums of 128 adds (the clock pass's block sum, the wave pass's
+    last lane), 4 cycles an operation at SM_CLOCK_GHZ."""
+    ops = (T // 128 * OSC_CHAIN_OPS["fast" if pol == "fast" else "parity"]
+           + 2 * 128)
+    return ops * 4 / (SM_CLOCK_GHZ * 1e9) * 1e3
+
+
+@contextlib.contextmanager
+def lfo_route(route: str):
+    """The signal generator through ``route``: "kernel" (the oscillator
+    kernel, as shipped) or "eager" (its plain version, the eager ops the
+    kernel replaced)."""
+    from dsp_stuff_tpu_torch.nodes import gen as ngen
+    from dsp_stuff_tpu_torch.ops import gen
+    if route == "eager":
+        with swapped_attr(ngen, "oscillator", gen.oscillator_plain):
+            yield
+    else:
+        yield
+
+
+def osc_clocks_held(what, f, T, c0, dev, yk, yp) -> tuple:
+    """Under fast with a modulated frequency, where the kernel's running
+    f64 sum and the plain version's torch.cumsum may associate otherwise:
+    the kernel's block clocks (its clock pass alone) against the plain
+    version's, each within one f32 ulp, and the waves bitwise but in the
+    blocks whose clock differs.  Returns (clocks that differ, clocks)."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import gen
+    from dsp_stuff_tpu_torch.ops import oscillator_kernel as ok
+    kc, kfin = ok.block_clocks_cuda(f, T, c0, exact=False)
+    _, pcl, pfin = gen._block_totals(f, T, 128, SR, c0, dev)
+    nb = T // 128
+    pc = pcl[..., ::128].reshape(kc.shape)
+    kd, pd = host(kc).astype(np.float64), host(pc)
+    ulp = np.spacing(np.abs(pd)).astype(np.float64)
+    worst = float((np.abs(kd - pd) / ulp).max())
+    check(worst <= 1.0, f"{what}: block clocks {worst:.1f} ulps from the "
+                        f"plain version's")
+    differ = (kc != pc).reshape(*pfin.shape, nb)
+    yb = yk.reshape(*yk.shape[:-1], nb, 128)
+    pb = yp.reshape(*yp.shape[:-1], nb, 128)
+    bad = ((yb != pb) & ~(torch.isnan(yb) & torch.isnan(pb))).any(-1)
+    stray = bad & ~torch.broadcast_to(differ, bad.shape)
+    check(not bool(stray.any()), f"{what}: the wave differs in a block "
+                                 f"whose clock is the plain version's")
+    return int(differ.sum()), int(differ.numel())
+
+
+def oscillator_checks(dev) -> dict:
+    """The oscillator kernel against its plain version on the card: the
+    four modes under fast, parity and exact, a frequency slider at 0.5 and
+    997 Hz, a [T] and a [4, T] modulation, the amplitude a slider and a
+    [4, T] modulation, clock0 0.25, T in OSC_T: wave and final clock
+    bitwise (under fast with a modulated frequency, the clocks within one
+    f32 ulp: osc_clocks_held), one or two launches a call and no plain
+    version run; the kernel's remainder against torch.remainder."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import gen
+    from dsp_stuff_tpu_torch.ops import oscillator_kernel as ok
+    rng = np.random.default_rng(150)
+    c0 = torch.tensor(0.25, device=dev)
+    rec = {"cases": 0, "bitwise": 0, "err": 0.0, "clocks_differ": 0,
+           "clocks": 0}
+    for T in OSC_T:
+        t = np.arange(T)
+        freqs = {"0.5 Hz": 0.5, "997 Hz": 997.0,
+                 "[T]": torch.as_tensor((300.0 + 250.0 * np.sin(t / 3000.0))
+                                        .astype(np.float32), device=dev),
+                 "[4, T]": torch.as_tensor(
+                     (500.0 + 300.0 * rng.standard_normal((4, T)))
+                     .astype(np.float32), device=dev)}
+        amps = {"0.6": 0.6, "[4, T]": torch.as_tensor(
+            rng.uniform(-1.0, 1.0, (4, T)).astype(np.float32), device=dev)}
+        for pol in ("fast", "parity", "exact"):
+            n = n_bit = 0
+            for mode in OSC_MODES:
+                for fk, f in freqs.items():
+                    for ak, a in amps.items():
+                        what = (f"oscillator {mode} {pol} T={T}, frequency "
+                                f"{fk}, amplitude {ak}")
+                        plain = {}
+                        with dst.policy(pol):
+                            ok.LAUNCHES = 0
+                            with calls_counted([(gen, "oscillator_plain"),
+                                                (gen, "_block_totals")],
+                                               plain):
+                                yk, ck = gen.oscillator(mode, a, f, T, c0)
+                            nl = ok.LAUNCHES
+                            yp, cp = gen.oscillator_plain(mode, a, f, T, c0)
+                        torch.cuda.synchronize()
+                        check(not plain, f"{what}: the kernel's route ran "
+                                         f"the plain version {plain}")
+                        check(nl == ok.launches_for(mode, T) and nl in (1, 2),
+                              f"{what}: {nl} launches")
+                        same = (bits_same(yk, yp)
+                                and bits_same(ck.reshape(-1), cp.reshape(-1)))
+                        if not same:
+                            check(pol == "fast" and not isinstance(f, float)
+                                  and mode != "Constant",
+                                  f"{what}: not bitwise the plain version")
+                            d, m = osc_clocks_held(what, f, T, c0, dev, yk,
+                                                   yp)
+                            rec["clocks_differ"] += d
+                            rec["clocks"] += m
+                        n += 1
+                        n_bit += same
+                        fin = yp.isfinite() & yk.isfinite()
+                        if bool(fin.any()):
+                            rec["err"] = max(rec["err"], float(
+                                (yk[fin] - yp[fin]).abs().max()))
+            print(f"  T={T}, {pol}: {n_bit} of {n} calls bitwise (wave and "
+                  f"final clock) against the plain version on the card")
+            rec["cases"] += n
+            rec["bitwise"] += n_bit
+    print(f"  fast with a modulated frequency: {rec['clocks_differ']} of "
+          f"{rec['clocks']} block clocks of the calls that differ not the "
+          f"plain version's (each within one f32 ulp; the waves bitwise "
+          f"elsewhere); max abs error over all calls {rec['err']:.3e}")
+    x32 = torch.as_tensor(np.concatenate([
+        np.array([0.0, -0.0, 1e-9, -1e-9, 0.5, 1.0, -1.0, 2.0**23,
+                  -(2.0**23), 2.0**24 + 2, -(2.0**30), np.inf, -np.inf,
+                  np.nan, 1e-45, -1e-45, 1 - 2.0**-24, -(1 - 2.0**-24),
+                  np.nextafter(np.float32(1), np.float32(2))], np.float32),
+        (rng.standard_normal(1 << 20) * 40).astype(np.float32)]),
+        device=dev)
+    x64 = torch.cat([x32.double()[:-1000], torch.as_tensor(
+        rng.standard_normal(1000) * 1e6, device=dev)])
+    y32, y64 = ok.remainder_cuda(x32, x64)
+    w32, w64 = torch.remainder(x32, 1.0), torch.remainder(x64, 1.0)
+    torch.cuda.synchronize()
+    ok64 = bool(torch.equal(torch.isnan(y64), torch.isnan(w64)) and torch.equal(
+        y64.nan_to_num().view(torch.int64), w64.nan_to_num().view(torch.int64)))
+    check(bits_same(y32, w32) and ok64,
+          "the oscillator's remainder is not torch.remainder(x, 1)")
+    print(f"  the kernel's remainder (x - trunc(x), + 1 below 0) bitwise "
+          f"torch.remainder(x, 1) over {x32.numel():,} f32 and f64 values "
+          f"(around 0 and 1, past a wrap, integers, +-inf, NaN)")
+    return rec
+
+
+def oscillator_phase(dev, card) -> dict:
+    """The oscillator kernel on the card: oscillator_checks; config5's LFO
+    (Sine 0.5 Hz, amplitude 0.6) at [1, T_MAIN] under fast and parity,
+    kernel and plain version in turns (CUDA events), its device time by
+    pass (torch.profiler) beside its bound and its dependent-chain floor,
+    and at [1, 128] (N_GROUP_CALLS calls back to back); the Function on
+    the card: gradients of a loss through the LFO (amplitude, frequency,
+    a downstream input) bitwise autograd through the plain version.
+    Returns the kernels line's figures."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import gen
+    t_phase = time.time()
+    print("oscillator kernel vs its plain version on the card:")
+    rec = oscillator_checks(dev)
+    c0 = torch.tensor(0.25, device=dev)
+    rec["times"] = {}
+    for pol in ("fast", "parity"):
+        with dst.policy(pol):
+            for T in (T_MAIN, 128):
+                def fk():
+                    return gen.oscillator("Sine", 0.6, 0.5, T, c0)
+
+                def fp():
+                    return gen.oscillator_plain("Sine", 0.6, 0.5, T, c0)
+                if T == 128:
+                    tk = cuda_ms(fk, inner=N_GROUP_CALLS)
+                    tp = cuda_ms(fp, inner=N_GROUP_CALLS)
+                else:
+                    tk, tp = in_turns(fk, fp, N_TIMED_SLOW)
+                dev_ms = {p: kernel_device_ms(fk, f"oscillator_{p}_kernel")[0]
+                          for p in (("wave",) if T == 128
+                                    else ("clock", "wave"))}
+                bnd = osc_bound(1, T)
+                floor = osc_floor_ms(T, pol)
+                rec["times"][(pol, T)] = dict(ms=tk, plain_ms=tp,
+                                              device_ms=dev_ms, bound=bnd,
+                                              floor=floor)
+                print(f"  config5's LFO (Sine 0.5 Hz), [1, {T}], {pol}: "
+                      f"kernel {tk:.4f} ms, plain {tp:.3f} ms "
+                      f"({tp / tk:.1f}x); device ms by pass {dev_ms}; bound "
+                      f"{bnd[0] * 1e3:.3f} us by {bnd[1]}, dependent-chain "
+                      f"floor {floor * 1e3:.3f} us ("
+                      f"{floor / tk:.1%} of the kernel) [{card}]")
+    # the Function on the card: autograd through the plain version,
+    # recomputed (the route until the kernel's reverse lands)
+    rng = np.random.default_rng(151)
+    T = 4 * SR
+    x = torch.as_tensor(rng.standard_normal((4, T)).astype(np.float32),
+                        device=dev)
+    w = torch.as_tensor(rng.standard_normal((4, T)).astype(np.float32),
+                        device=dev)
+    for pol in ("fast", "parity"):
+        for mode in ("Sine", "Triangle"):
+            grads = []
+            for route in ("kernel", "plain"):
+                a = torch.tensor(0.6, device=dev, requires_grad=True)
+                f = torch.tensor(3.0, device=dev, requires_grad=True)
+                xx = x.clone().requires_grad_(True)
+                with dst.policy(pol):
+                    fn = gen.oscillator if route == "kernel" \
+                        else gen.oscillator_plain
+                    y, _ = fn(mode, a, f, T, c0)
+                    ((y * xx) * w).sum().backward()
+                grads.append([a.grad, f.grad, xx.grad])
+            torch.cuda.synchronize()
+            same = all(bits_same(g.reshape(-1), h.reshape(-1))
+                       for g, h in zip(*grads))
+            check(same, f"oscillator {mode} {pol}: the Function's "
+                        f"gradients are not autograd through the plain "
+                        f"version's")
+        print(f"  the Function's gradients (amplitude, frequency, a "
+              f"downstream input) at [4, {T}], {pol}: bitwise autograd "
+              f"through the plain version on the card")
+    print(f"oscillator phase: {time.time() - t_phase:.1f} s")
+    return rec
+
+
+def fuzz_group_graphs() -> dict:
+    """{name: graph} of the Fuzz graphs the smoke renders: input -> gain
+    -> Fuzz -> mix (with the input) -> output; the same with the Fuzz at
+    oversample "4" and its level from an LFO; a Fuzz inside a feedback
+    cycle (add -> Fuzz -> low_pass -> gain -> add)."""
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ids import IdSpace
+    out = {}
+    for name, over, mod in (("gain -> Fuzz -> mix", "1", False),
+                            ("Fuzz oversample 4, level from an LFO", "4",
+                             True)):
+        g = dst.Graph(IdSpace())
+        inp = g.add("input")
+        gn = g.add("gain", level=1.7)
+        fz = g.add("distort", mode="Fuzz", level=2.5, oversample=over)
+        mx = g.add("mix", ratio=0.4)
+        o = g.add("output")
+        g.chain(inp, gn, fz)
+        g.connect(fz, "out", mx, "a")
+        g.connect(inp, "out", mx, "b")
+        g.connect(mx, "out", o, "in")
+        if mod:
+            lfo = g.add("signal_gen", mode="Sine", frequency=3.0,
+                        amplitude=0.9)
+            g.connect(lfo, "out", fz, "level")
+        out[name] = g
+    g = dst.Graph(IdSpace())
+    inp, add = g.add("input"), g.add("add")
+    fz = g.add("distort", mode="Fuzz", level=3.0)
+    lp, fb, o = g.add("low_pass", ratio=0.3), g.add("gain", level=0.4), \
+        g.add("output")
+    g.connect(inp, "out", add, "a")
+    g.chain(add, fz, lp, fb)
+    g.connect(fb, "out", add, "b")
+    g.connect(lp, "out", o, "in")
+    out["Fuzz in a feedback cycle"] = g
+    return out
+
+
+@contextlib.contextmanager
+def fuzz_groups_off():
+    """The renders inside with no Fuzz in the pointwise groups (each Fuzz
+    its eager shaping.fuzz: the route before them)."""
+    from dsp_stuff_tpu_torch.compiler import pointwise as pw
+    real = pw.node_form
+
+    def form(cfg, sel):
+        if cfg == "distort" and sel.get("mode") == "Fuzz":
+            return None
+        return real(cfg, sel)
+    with swapped_attr(pw, "node_form", form):
+        yield
+
+
+def fuzz_group_phase(dev, card) -> dict:
+    """Fuzz in the pointwise groups on the card: the fuzz form's kernel
+    (a staged program, three warp block maxima) against the eager
+    shaping.fuzz and its plain version, under fast, parity and exact, at
+    PW_SHAPES' float4 shape with an all-zero block and PW_SPECIALS
+    planted; fuzz_group_graphs() at B_FUZZ_GROUP x 1 s (the cycle's
+    block program and its per-node scan) on the kernel route against the
+    route without Fuzz in the groups and the eager route (bitwise under
+    parity and exact, <= PW_FAST_DB under fast), no Fuzz's eager code run
+    (no torch.amax of it), the launches printed; the Fuzz group of
+    gain -> Fuzz -> mix at B_FUZZ_TIMED x 10 s timed against its plain
+    version and its bytes bound (group_times); its gradient through the
+    groups' Function (group_vjp, by design) against autograd through the
+    eager ops.  Returns the kernels line's figures."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import compile as comp
+    from dsp_stuff_tpu_torch.compiler import pointwise as pw
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.ops import shaping
+    from dsp_stuff_tpu_torch.utils.precision import scalar_on
+    t_phase = time.time()
+    rec = {}
+    B, T = PW_SHAPES[0]
+    print(f"Fuzz groups, the fuzz form's kernel vs the eager shaping.fuzz, "
+          f"[{B}, {T}], specials and an all-zero block planted:")
+    for pol in ("fast", "parity", "exact"):
+        xs = pointwise_inputs(1, (B, T), dev, 777)
+        xs[0][1, 128:256] = 0.0
+        lv = torch.as_tensor(np.random.default_rng(778).uniform(
+            0.0, 8.0, (B, T)).astype(np.float32), device=dev)
+        for kind, level in (("slider", 3.0), ("[B, T]", lv)):
+            b = pw.Builder()
+            xv = b.sig()
+            lvv = b.scal() if kind == "slider" else b.sig()
+            prog = b.program([pw.fuzz(b, xv, lvv, pol)])
+            sigs = xs if kind == "slider" else xs + [lv]
+            scals = [scalar_on(level, dev)] if kind == "slider" else []
+            with dst.policy(pol):
+                pk.LAUNCHES = 0
+                k = pk.group_call(prog, sigs, scals, T, dev)[0]
+                n = pk.LAUNCHES
+                e = shaping.fuzz(xs[0], level, 128)
+                p = pw.interpret(prog, sigs, scals, T, dev)[0]
+                c = pw.interpret(prog, [s.cpu() for s in sigs],
+                                 [s.cpu() for s in scals], T,
+                                 torch.device("cpu"))[0]
+            torch.cuda.synchronize()
+            what = f"Fuzz group {pol}, level {kind}"
+            check(n == 1, f"{what}: {n} launches")
+            check(bool(torch.isnan(k[1, 128:256]).all()),
+                  f"{what}: the all-zero block is not NaN")
+            pointwise_held(what + " vs eager", k, e, pol)
+            pointwise_held(what + " vs plain", k, p, pol)
+            d = nonfinite_dbfs(what + " vs CPU", k.cpu(), c)
+            print(f"  {what}: bitwise the eager fuzz {bits_same(k, e)}, the "
+                  f"plain version {bits_same(k, p)}, vs the CPU's plain "
+                  f"version {d:.1f} dBFS [{card}]")
+    rng = np.random.default_rng(779)
+    launches = {}
+    fuzz_runs = {}
+    for name, g in fuzz_group_graphs().items():
+        x = (rng.standard_normal((B_FUZZ_GROUP, 1, SR)) * 0.3).astype(
+            np.float32)
+        x[1, 0, 256:384] = 0.0
+        xd = torch.as_tensor(x, device=dev)
+        for fusion in ((True, False) if "cycle" in name else (True,)):
+            for pol in ("fast", "parity", "exact"):
+                with swapped_attr(comp, "CYCLE_FUSION", fusion), \
+                        dst.policy(pol):
+                    cg = dst.compile_graph(g, device="cuda")
+                    res = {}
+                    with calls_counted([(shaping, "fuzz")], fuzz_runs):
+                        res["kernel"] = route_renders(cg, xd, (B_FUZZ_GROUP,),
+                                                      ("kernel",))["kernel"]
+                    with fuzz_groups_off():
+                        # a graph of its own: a plan is kept per graph
+                        res["groups"] = route_renders(
+                            dst.compile_graph(g, device="cuda"), xd,
+                            (B_FUZZ_GROUP,), ("kernel",))["kernel"]
+                    res["eager"] = route_renders(cg, xd, (B_FUZZ_GROUP,),
+                                                 ("eager",))["eager"]
+                what = f"{name}{'' if fusion else ' (per-node scan)'} {pol}"
+                k = route_leaves(res["kernel"])
+                bit = True
+                for route in ("groups", "eager"):
+                    other = route_leaves(res[route])
+                    check(len(k) == len(other), f"{what}: the {route} route "
+                                                f"has another structure")
+                    for i, (a, b2) in enumerate(zip(k, other)):
+                        if a.dtype.is_floating_point:
+                            pointwise_held(f"{what} leaf {i} vs {route}",
+                                           a.float(), b2.float(), pol)
+                            bit &= bits_same(a.float(), b2.float())
+                        else:
+                            check(bool((a == b2).all()),
+                                  f"{what} leaf {i} vs {route}")
+                launches[what] = res["kernel"][3]
+                print(f"  {what}, [{B_FUZZ_GROUP}, 1, {SR}]: the kernel "
+                      f"route bitwise the route without Fuzz in the groups "
+                      f"and the eager route: {bit}; launches "
+                      f"{expect_str(res['kernel'][3])}, without "
+                      f"{expect_str(res['groups'][3])} [{card}]")
+    check(not fuzz_runs, f"a Fuzz node ran its eager shaping.fuzz (its "
+                         f"torch.amax) on the kernel route: {fuzz_runs}")
+    rec["launches"] = launches
+    g = fuzz_group_graphs()["gain -> Fuzz -> mix"]
+    x = torch.as_tensor(rng.standard_normal((B_FUZZ_TIMED, 1, T_MAIN),
+                                            dtype=np.float32)
+                        * np.float32(0.3), device=dev)
+    with dst.policy("fast"):
+        cg = dst.compile_graph(g, device="cuda")
+        groups = [gr for gr in groups_of_render(cg, x, (B_FUZZ_TIMED,))
+                  if pw.has_bmax(gr[0])]
+        check(len(groups) == 1, f"gain -> Fuzz -> mix: {len(groups)} Fuzz "
+                                f"groups")
+        rec["times"] = group_times(f"Fuzz group (gain -> Fuzz -> mix), "
+                                   f"B={B_FUZZ_TIMED} x 10 s, fast", groups,
+                                   dev, card)[0]
+    del x, groups
+    # the gradient through a Fuzz group: the groups' Function, its
+    # backward group_vjp (no reverse kernel for bmax yet)
+    xs = torch.as_tensor(rng.standard_normal((4, SR)).astype(np.float32),
+                         device=dev)
+    w = torch.as_tensor(rng.standard_normal((4, SR)).astype(np.float32),
+                        device=dev)
+    b = pw.Builder()
+    prog = b.program([pw.fuzz(b, b.sig(), b.scal(), "fast")])
+    with dst.policy("fast"):
+        got, want = [], []
+        for route in ("group", "eager"):
+            xx = xs.clone().requires_grad_(True)
+            lv = torch.tensor(2.5, device=dev, requires_grad=True)
+            y = (pk.group_call(prog, [xx], [lv], SR, dev)[0]
+                 if route == "group" else shaping.fuzz(xx, lv, 128))
+            (y * w).sum().backward()
+            (got if route == "group" else want).extend([xx.grad, lv.grad])
+    torch.cuda.synchronize()
+    errs = [grad_close(f"Fuzz group gradient {i}", g_, w_)
+            for i, (g_, w_) in enumerate(zip(got, want))]
+    rec["grad_err"] = max(errs)
+    print(f"  a Fuzz group's gradient (x and its level) through the "
+          f"groups' Function (group_vjp) against autograd through the "
+          f"eager fuzz, [4, {SR}]: worst {rec['grad_err']:.2e} (rtol "
+          f"{GRAD_RTOL}) [{card}]")
+    print(f"Fuzz group phase: {time.time() - t_phase:.1f} s")
+    return rec
+
+
+def osc_stream_turns(dev, card) -> dict:
+    """config5 streamed in 128-sample process() blocks with the LFO on the
+    kernel route and on the eager route (its plain version), in turns
+    kernel, eager, eager, kernel, under fast and parity: a replayed
+    block's kernels from its DOT dump and the process() wall a block over
+    N_PW_BLOCKS blocks (median, p99), the routes' blocks and state
+    bitwise; and the per-node loop's kernels a block (a parity render at
+    B_SHORT x 1 s, the loop's graph from its DOT dump) on both routes,
+    which the LFO outside config5's cycle must not move."""
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.models import presets
+    g5 = presets.config5_feedback_16node()[0]
+    x = (np.random.default_rng(141).standard_normal(N_PW_BLOCKS * 128)
+         * 0.3).astype(np.float32)
+    out = {}
+    for pol in ("fast", "parity"):
+        res = {}
+        for route in ("kernel", "eager", "eager", "kernel"):
+            with lfo_route(route), dst.policy(pol):
+                sess = dst.StreamSession(g5, device="cuda")
+                key = str(sess.cg.input_ids[0])
+                ys, times = [], []
+                for j in range(N_PW_BLOCKS):
+                    t0 = time.perf_counter()
+                    ys.append(sess.process({key: x[j * 128:(j + 1) * 128]})[0])
+                    times.append(time.perf_counter() - t0)
+                gn = graph_nodes(sess, f"config5 {pol} LFO {route} route")
+            r = res.setdefault(route, {"times": []})
+            r["times"] += times[1:]
+            r["y"], r["state"], r["nodes"] = np.concatenate(ys), sess.state, gn
+        check(np.array_equal(res["kernel"]["y"], res["eager"]["y"])
+              and same_tree(res["kernel"]["state"], res["eager"]["state"]),
+              f"config5 stream {pol}: the LFO's kernel route is not bitwise "
+              f"its eager route")
+        for route, r in res.items():
+            ms = np.asarray(r["times"]) * 1e3
+            r.update(median=float(np.median(ms)),
+                     p99=float(np.percentile(ms, 99)),
+                     kernels=r["nodes"]["kinds"].get("KERNEL", 0))
+            print(f"  config5 stream, {pol}, the LFO's {route} route: a "
+                  f"replayed block holds {r['kernels']} kernels (the port's "
+                  f"{expect_str(r['nodes']['ours'])}); process() median "
+                  f"{r['median']:.3f} ms, p99 {r['p99']:.3f} ms over "
+                  f"{2 * (N_PW_BLOCKS - 1)} blocks in two turns [{card}]")
+            del r["state"], r["y"]
+        check(res["kernel"]["nodes"]["ours"].get("oscillator") == 1,
+              f"config5 stream {pol}: the block holds "
+              f"{res['kernel']['nodes']['ours']}, not one oscillator launch")
+        out[pol] = res
+    import torch
+    xs = torch.as_tensor((np.random.default_rng(142).standard_normal(
+        (B_SHORT, 1, SR)) * 0.3).astype(np.float32), device=dev)
+    loop = {}
+    for route in ("kernel", "eager"):
+        with lfo_route(route), dst.policy("parity"):
+            cg = dst.compile_graph(g5, device="cuda")
+            cg.render(xs, batch_shape=(B_SHORT,))
+            loop[route] = loop_graph_nodes(cg, f"config5 loop LFO {route}",
+                                           None)
+    check(loop["kernel"]["kinds"] == loop["eager"]["kinds"],
+          f"config5's per-node loop: a body's nodes {loop['kernel']['kinds']} "
+          f"on the kernel route, {loop['eager']['kinds']} on the eager")
+    print(f"  config5's per-node loop under parity: a body's nodes "
+          f"{loop['kernel']['kinds']} on both of the LFO's routes (the LFO "
+          f"is outside the cycle) [{card}]")
+    out["loop"] = loop
+    return out
+
+
 def main() -> int:
     import torch
     t_start = time.time()
@@ -7122,11 +7675,11 @@ def main() -> int:
         check(not plain, f"config5's main path called plain versions "
                          f"{plain}")
         check(c5_launches == only_launches(chain=1, cycle=1, envelope=1,
-                                           pointwise=3),
+                                           pointwise=3, oscillator=2),
               f"config5 launched {c5_launches}, expected one chain (mtap), "
-              f"one cycle, one (chunked) envelope launch and three "
+              f"one cycle, one (chunked) envelope launch, three "
               f"pointwise groups (pre -> overdrive -> distort, the mix, "
-              f"the Output's fan-in)")
+              f"the Output's fan-in) and the LFO's two oscillator passes")
         check(tuple(y5.shape) == (B_C5, 1, T_MAIN),
               f"config5 output shape {tuple(y5.shape)}")
         check(bool(torch.isfinite(y5).all()), "config5 output not finite")
@@ -7150,10 +7703,12 @@ def main() -> int:
     par_launches = parity(g5, x5_np[:4, :, :SR], oracle_config5, "config5",
                           route="eager")
     n_par = group_launches(g5, "parity", SR)
-    check(par_launches == only_launches(envelope=1, pointwise=n_par),
+    check(par_launches == only_launches(envelope=1, pointwise=n_par,
+                                        oscillator=osc_launches(g5, SR)),
           f"config5 parity launched {par_launches}, expected one "
-          f"sequential envelope launch and {n_par} pointwise: three groups "
-          f"and the feedback cycle's two once a block")
+          f"sequential envelope launch, {n_par} pointwise (three groups "
+          f"and the feedback cycle's two once a block) and the LFO's two "
+          f"oscillator passes")
     # the sequential kernel against _seq_scan at the shape that path gives
     # it (its own generator: the later phases' inputs stay as they were)
     rng10 = np.random.default_rng(10)
@@ -7244,6 +7799,17 @@ def main() -> int:
     pw = pointwise_phase(dev, card)
     clock.lap("pointwise")
     torch.cuda.empty_cache()
+    # -- 11c. the signal generator's oscillator kernel, Fuzz in the groups
+    osc = oscillator_phase(dev, card)
+    clock.lap("oscillator")
+    torch.cuda.empty_cache()
+    fzg = fuzz_group_phase(dev, card)
+    clock.lap("Fuzz groups")
+    torch.cuda.empty_cache()
+    print("config5 streamed with the LFO on the kernel and the eager route:")
+    ost = osc_stream_turns(dev, card)
+    clock.lap("LFO stream turns")
+    torch.cuda.empty_cache()
     fit_rec = fit_phase(dev, card)
     clock.lap("fit")
     torch.cuda.empty_cache()
@@ -7321,6 +7887,7 @@ def main() -> int:
                      floor_ms=m["floor"], shape=list(shape), **extra)
 
     program5 = programs["config5"][0]
+    osc_t = osc["times"]
     pw5, pw5w, pw3 = (pw[(name, b)] for name, b in (
         ("config5", B_C5), ("config5", B_PW_WIDE), ("config3", B_C3)))
     # the reverse kernel: config5's first group (pre -> overdrive ->
@@ -7375,7 +7942,40 @@ def main() -> int:
               stream_parity_block_us=rt["config5 parity"]["kernel_us"].get(
                   "pointwise"),
               stream_parity_block_launches=rt["config5 parity"][
-                  "kernel_n"].get("pointwise")),
+                  "kernel_n"].get("pointwise"),
+              fuzz_group_ms=fzg["times"][0],
+              fuzz_group_plain_ms=fzg["times"][1],
+              fuzz_group_bound_ms=fzg["times"][2][0],
+              fuzz_group_device_ms=fzg["times"][5],
+              fuzz_group_shape=[B_FUZZ_TIMED, T_MAIN],
+              fuzz_grad_err=fzg["grad_err"]),
+        entry("oscillator_kernel", "oscillator_kernel.cu",
+              "dsp_stuff_tpu/ops/gen.py:97", c5_launches["oscillator"],
+              osc["err"], (osc_t[("fast", T_MAIN)]["ms"],
+                           osc_t[("fast", T_MAIN)]["plain_ms"]),
+              osc_t[("fast", T_MAIN)]["bound"],
+              floor_ms=osc_t[("fast", T_MAIN)]["floor"],
+              device_ms=osc_t[("fast", T_MAIN)]["device_ms"],
+              shape=[1, T_MAIN],
+              ms_parity=osc_t[("parity", T_MAIN)]["ms"],
+              plain_ms_parity=osc_t[("parity", T_MAIN)]["plain_ms"],
+              floor_ms_parity=osc_t[("parity", T_MAIN)]["floor"],
+              device_ms_parity=osc_t[("parity", T_MAIN)]["device_ms"],
+              ms_one_block={p: osc_t[(p, 128)]["ms"]
+                            for p in ("fast", "parity")},
+              plain_ms_one_block={p: osc_t[(p, 128)]["plain_ms"]
+                                  for p in ("fast", "parity")},
+              checks_bitwise=[osc["bitwise"], osc["cases"]],
+              clocks_differ=[osc["clocks_differ"], osc["clocks"]],
+              **stream_us(rt["config5"], "oscillator", osc_bound(1, 128)),
+              stream_parity_block_us=rt["config5 parity"]["kernel_us"].get(
+                  "oscillator"),
+              stream_block_kernels={p: {r: v["kernels"] for r, v
+                                        in ost[p].items()}
+                                    for p in ("fast", "parity")},
+              stream_block_ms={p: {r: (v["median"], v["p99"]) for r, v
+                                   in ost[p].items()}
+                               for p in ("fast", "parity")}),
         entry("pointwise_reverse_kernel", "pointwise_reverse_kernel.cu",
               "dsp_stuff_tpu/compiler/compile.py:230",
               gr["c5_input"]["bwd"]["pointwise_reverse"],

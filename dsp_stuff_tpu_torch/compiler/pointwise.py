@@ -16,13 +16,16 @@ version, and what the CPU runs.
 The lowering keeps the eager node code's op order and policy choices
 exactly (each form names the code it mirrors: compile._avg and _map_mod,
 nodes/simple.py's Gain, Add and Mix, ops/shaping.py's overdrive,
-chebyshev_asym and the Distort modes but Fuzz): each op of a program is
-one eager op, rounded once, so the interpreter is bitwise the
-eager ops on the CPU, and the kernel (each op the same single-rounded
-CUDA operation) bitwise them on the card.  A divide is a true divide
-wherever the node code means one (``precision.div_ieee``); a
-transcendental is f32 under ``fast`` and f64 rounded once to f32 under
-``parity`` and ``exact`` (``shaping._trans``).
+chebyshev_asym and the Distort modes, Fuzz's block maxima included):
+each op of a program is one eager op, rounded once, so the interpreter
+is bitwise the eager ops on the CPU, and the kernel (each op the same
+single-rounded CUDA operation) bitwise them on the card.  One op is not
+per sample: ``bmax``, the max of a value over its 128-sample block
+(Fuzz's normalization, ``shaping.fuzz``), uniform over the block; the
+kernel takes it as a warp reduction, each warp one block of a row.  A
+divide is a true divide wherever the node code means one
+(``precision.div_ieee``); a transcendental is f32 under ``fast`` and f64
+rounded once to f32 under ``parity`` and ``exact`` (``shaping._trans``).
 
 Operands are read, never baked in: ``sig`` k is the k-th signal operand
 ([..., T] or [T]), ``scal`` k the k-th scalar operand (a 0-d f32 tensor
@@ -66,12 +69,17 @@ OPS = {
     "where": (3, None), "clamp": (1, None),
     "f64": (1, "f64"), "f32": (1, "f32"),
     "atan": (1, None), "tanh": (1, None), "sin": (1, None),
-    "cos": (1, None),
+    "cos": (1, None), "exp": (1, None),
+    # the max over the value's 128-sample block (NaN propagates), uniform
+    # over the block: Fuzz's block maxima
+    "bmax": (1, None),
     # the adjoint's own: the k-th output's cotangent, and a sum to a
     # narrower class (imm: (target class, source class))
     "ct": (0, "f32"), "red": (1, None),
 }
-TRANSCENDENTALS = ("atan", "tanh", "sin", "cos")
+TRANSCENDENTALS = ("atan", "tanh", "sin", "cos", "exp")
+#: the block of ``bmax`` (the reference's frame, node.rs:257)
+BLOCK = 128
 
 _PI4 = float(np.float32(np.pi / 4.0))
 _TWO_PI = float(np.float32(2.0 / np.pi))
@@ -148,6 +156,15 @@ class Builder:
     def clamp(self, a, lo: float, hi: float):
         """torch.clamp with constant bounds: NaN propagates."""
         return self._op("clamp", (a,), (float(lo), float(hi)))
+
+    def bmax(self, v: int) -> int:
+        """torch.amax of ``v`` over each 128-sample block, broadcast back
+        over the block.  ``v`` must be an ``abs``: its values are >= +0 or
+        NaN, so the max has one value whatever the order it is taken in
+        (NaN wherever the block holds one; which NaN is not defined)."""
+        if self.ops[v][0] != "abs":
+            raise ValueError("pointwise: bmax takes an abs value")
+        return self._op("bmax", (v,))
 
     def trans(self, fn: str, v: int, policy: str) -> int:
         """``shaping._trans``: native f32 under ``fast``, else evaluated in
@@ -312,18 +329,38 @@ def chebyshev_asym(b, x, level_pos, level_neg, pol):
     return b.where(_below(b, lv), x, b.div(_tanh(b, b.mul(x, lv), pol), den))
 
 
-#: Distort's modes that are per-sample (Fuzz normalizes per block)
+def fuzz(b, x, level, pol):
+    """ops/shaping.fuzz (no bypass), op for op, mx = max |x| of the
+    block: q = clip(x * level) / mx; z = -(1 - exp(-|q|)); y = clip(z *
+    mx) / max |z|; (y * mx) / max |y|.  An all-zero block is NaN (0 / 0,
+    the reference's quirk); T must be a multiple of 128."""
+    mx = b.bmax(b.abs(x))
+    q = b.div(b.clamp(b.mul(x, level), -1.0, 1.0), mx)
+    z = b.neg(b.sub(b.const(1.0), b.trans("exp", b.neg(b.abs(q)), pol)))
+    y = b.div(b.clamp(b.mul(z, mx), -1.0, 1.0), b.bmax(b.abs(z)))
+    return b.div(b.mul(y, mx), b.bmax(b.abs(y)))
+
+
+#: Distort's modes that are per-sample (Fuzz normalizes per block:
+#: :func:`fuzz`)
 DISTORT_FORMS = {"HardClip": hard_clip, "SoftClip": soft_clip,
                  "Tanh": tanh_clip, "RecipSoftClip": recip_soft_clip,
                  "Sin": sin_shape, "Atan": atan_shape,
                  "Square": square_shape, "Chebyshev4": chebyshev4}
 
+
+def has_bmax(prog) -> bool:
+    """Whether a program holds a ``bmax`` (a group with Fuzz)."""
+    return any(op == "bmax" for op, *_ in prog.ops)
+
+
 def shaper_form(fn):
     """The lowering of an ops/shaping function (a Distort mode or
-    overdrive) as ``lower(b, x, *params, pol)``, or None when it is not
-    per-sample (Fuzz)."""
+    overdrive) as ``lower(b, x, *params, pol)``."""
     if fn is shaping.overdrive:
         return overdrive
+    if fn is shaping.fuzz:
+        return fuzz
     for mode, f in shaping.DISTORT_MODES.items():
         if f is fn:
             return DISTORT_FORMS.get(mode)
@@ -342,6 +379,11 @@ def node_form(cfg_name: str, select: dict):
     if cfg_name == "mix":
         return ("a", "b"), ("ratio",), lambda b, i, p, pol: {
             "out": mix(b, i["a"], i["b"], p["ratio"])}
+    if cfg_name == "distort" and select.get("mode") == "Fuzz":
+        # Fuzz runs at the base rate whatever ``oversample`` says
+        # (nodes/shapers.Distort)
+        return ("in",), ("level",), lambda b, i, p, pol: {
+            "out": fuzz(b, i["in"], p["level"], pol)}
     if cfg_name in ("overdrive", "distort") and str(
             select.get("oversample", "1")) != "1":
         return None
@@ -433,6 +475,16 @@ def _eval(op, dt, a, imm, T: int, device):
         return a[0].to(torch.float32)
     if op in TRANSCENDENTALS:
         return getattr(torch, op)(a[0])
+    if op == "bmax":
+        # shaping.fuzz's torch.amax over [..., nb, 128], keepdim, spread
+        # back over the block
+        v = a[0]
+        if v.dim() == 0 or v.shape[-1] != T or T % BLOCK:
+            raise ValueError(f"pointwise: bmax of shape {tuple(v.shape)} "
+                             f"needs [..., T] with T % {BLOCK} == 0, T={T}")
+        vb = v.reshape(*v.shape[:-1], T // BLOCK, BLOCK)
+        return torch.amax(vb, dim=-1, keepdim=True).expand(
+            vb.shape).reshape(v.shape)
     raise ValueError(f"pointwise: unknown op {op!r}")
 
 
@@ -555,7 +607,13 @@ def adjoint(prog: Program, need: tuple, has_ct: tuple,
     appears where autograd computes nothing.  A consumer whose class is
     wider than its operand's sums its contribution with a ``red`` op;
     above it the chain runs at the operand's class.  Values no needed
-    gradient depends on are dropped."""
+    gradient depends on are dropped.  A program with a ``bmax`` (Fuzz)
+    has no adjoint here: its group's backward is autograd through
+    :func:`interpret` (ops/pointwise_kernel.group_vjp)."""
+    if has_bmax(prog):
+        raise ValueError("pointwise adjoint: a program with bmax (a Fuzz "
+                         "group) has no adjoint program; its backward is "
+                         "pointwise_kernel.group_vjp")
     n_sig, n_scal = prog.n_sig, prog.n_scal
     classes = tuple(classes[:n_sig]) + ("U",) * n_scal
     fc: list = []               # the forward values' classes
@@ -665,6 +723,8 @@ def _vjp(b, val, prog, i, g):
         return [(0, lambda: b.div(g, b.add(b.mul(x(0), x(0)), one())))]
     if op == "sin":
         return [(0, lambda: b.mul(g, b._op("cos", (x(0),))))]
+    if op == "exp":
+        return [(0, lambda: b.mul(g, val(i)))]
     if op == "f64":
         return [(0, lambda: b._op("f32", (g,)))]
     if op == "f32":

@@ -14,6 +14,16 @@
 // pw_point (one element).  The plain version is compiler/pointwise.py:
 // interpret; the wrapper is ops/pointwise_kernel.py.
 //
+// A program with a block max (Fuzz's normalization, ``bmax``) defines
+// PW_STAGED and pw_block in place of pw_point: a thread's four samples at
+// once, in stages around each max, the max a warp reduction
+// (pointwise_ops.cuh pw_bmax).  In the float4 build with T % 128 == 0 a
+// warp's 32 lanes x 4 samples are exactly one 128-sample block of a row:
+// a warp's units start at a multiple of 32 (the CTA's 256 threads and the
+// grid stride are multiples of 32) and a row holds T / 4 units, a multiple
+// of 32, so every lane of a warp is in the loop together.  Such a build
+// has no scalar loop: its launch refuses !vec or T % 128 != 0.
+//
 // What bounds it: bytes.  Each signal operand is read once and each output
 // written once; the arithmetic is a few dozen operations an element (the
 // shapers' atanf / tanhf / sinf the most), far below the FP32 rate at
@@ -109,14 +119,19 @@ pointwise_kernel(const PwArgs a, long long rows, long long T) {
             for (int i = 0; i < PW_V; ++i) x[i][k] = v;
           }
         }
+#ifdef PW_STAGED
+        pw_block(U, x, y);
+#else
 #pragma unroll
         for (int i = 0; i < PW_V; ++i) pw_point(U, x[i], y[i]);
+#endif
 #pragma unroll
         for (int k = 0; k < PW_NOUT; ++k)
           if (w[k])
             *reinterpret_cast<float4*>(q[k] + t0) =
                 make_float4(y[0][k], y[1][k], y[2][k], y[3][k]);
       } else {
+#ifndef PW_STAGED
         // one sample (VEC false), or the tail of a row (fewer than PW_V)
         const int m = VEC ? (int)(T - t0) : 1;
         for (int i = 0; i < m; ++i) {
@@ -129,6 +144,7 @@ pointwise_kernel(const PwArgs a, long long rows, long long T) {
           for (int k = 0; k < PW_NOUT; ++k)
             if (w[k]) q[k][t] = y[k];
         }
+#endif
       }
     }
   }
@@ -152,6 +168,9 @@ extern "C" int pointwise_kernel_launch(
   if (e != cudaSuccess) return (int)e;
   if (rows < 1 || T < 1 || gx < 1 || gy < 1 || gy > 65535)
     return (int)cudaErrorInvalidValue;
+#ifdef PW_STAGED
+  if (!vec || T % 128) return (int)cudaErrorInvalidValue;
+#endif
   const dim3 grid(gx, gy);
   PwArgs a = {};
   for (int k = 0; k < PW_NSIG; ++k) {
@@ -168,8 +187,10 @@ extern "C" int pointwise_kernel_launch(
   if (vec)
     pointwise_kernel<true><<<grid, PW_THREADS, 0, (cudaStream_t)stream>>>(
         a, rows, T);
+#ifndef PW_STAGED
   else
     pointwise_kernel<false><<<grid, PW_THREADS, 0, (cudaStream_t)stream>>>(
         a, rows, T);
+#endif
   return (int)cudaGetLastError();
 }

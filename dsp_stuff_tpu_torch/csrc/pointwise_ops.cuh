@@ -100,6 +100,30 @@ __device__ __forceinline__ double pw_div_pow2(double a, double inv) {
   return __dmul_rn(a, inv);
 }
 
+// torch.amax's rule: NaN propagates (a bare fmaxf would drop it)
+__device__ __forceinline__ float pw_maxn(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// The max of a value over its 128-sample block (compiler/pointwise.py
+// ``bmax``), in the pointwise kernel's float4 build with T % 128 == 0,
+// where a warp's 32 lanes x 4 samples are one block of a row: the max of
+// the lane's N samples, then over the warp by xor shuffles (every lane
+// ends with it), spread over the lane's samples.  The operand is an abs
+// (>= +0 or NaN), so the order of the maxima does not show in the result
+// but for which NaN comes out.
+template <int N>
+__device__ __forceinline__ void pw_bmax(float (&m)[N], const float (&v)[N]) {
+  float r = v[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) r = pw_maxn(r, v[i]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    r = pw_maxn(r, __shfl_xor_sync(0xffffffffu, r, o));
+#pragma unroll
+  for (int i = 0; i < N; ++i) m[i] = r;
+}
+
 // torch.clamp with constant bounds: NaN propagates
 __device__ __forceinline__ float pw_clamp(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);

@@ -34,8 +34,9 @@ class SignalGen:
     def process_seq(params, state, inputs, *, T, block_size=128):
         # the per-block clock wrap and the intra-block square comparison are
         # defined on the reference's 128 frame (signal_gen.rs:57-103),
-        # whatever the compile block size (which tiles 128)
+        # whatever the compile block size (which tiles 128); the card's
+        # clock state sends it to the oscillator kernel (ops/gen.py)
         y, clock = oscillator(params["mode"], params["amplitude"],
                               params["frequency"], T, state["clock"],
-                              block_size=128)
+                              block_size=128, device=state["clock"].device)
         return {"out": y}, {"clock": clock}

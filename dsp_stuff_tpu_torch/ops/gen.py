@@ -13,6 +13,12 @@ The square wave compares only the *intra-block* total (ignoring ``clock``),
 a reference bug that makes square output wrong below ~187.5 Hz at block
 128 (SURVEY.md 2.4 #4); it is kept, with the per-block
 ``clock = (clock + total) % 1`` wrap in f32.
+
+On the card :func:`oscillator` runs the oscillator kernel
+(ops/oscillator_kernel.py, csrc/oscillator_kernel.cu: the counterpart of
+what XLA compiles for the JAX package's ``_block_totals`` and
+``oscillator``); :func:`oscillator_plain` is its plain version, and what
+the CPU runs.
 """
 
 from __future__ import annotations
@@ -20,8 +26,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dsp_stuff_tpu_torch.ops import oscillator_kernel
+from dsp_stuff_tpu_torch.ops.chain_segment import fresh
+from dsp_stuff_tpu_torch.ops.scan import needs_grad
 from dsp_stuff_tpu_torch.utils.precision import (get_policy, on_device,
-                                                  scalar_on)
+                                                  policy, scalar_on)
 
 TAU = float(np.float32(2.0 * np.pi))
 _F32 = torch.float32
@@ -81,16 +90,21 @@ def _block_totals(freq, T: int, block_size: int, sample_rate: int, clock0,
             clocks.repeat_interleave(block_size, dim=-1), final_clock)
 
 
-def oscillator(mode: str, amplitude, frequency, T: int, clock0=0.0,
-               block_size: int = 128, sample_rate: int = 48_000,
-               device=None):
-    """Render T samples.  amplitude/frequency scalar or [..., T]
-    (modulated).  Returns (y [..., T] f32, final_clock)."""
+def _device_of(device, *vs):
     if device is None:
-        for v in (amplitude, frequency, clock0):
+        for v in vs:
             if isinstance(v, torch.Tensor):
-                device = v.device
-                break
+                return v.device
+    return device
+
+
+def oscillator_plain(mode: str, amplitude, frequency, T: int, clock0=0.0,
+                     block_size: int = 128, sample_rate: int = 48_000,
+                     device=None):
+    """Render T samples in PyTorch ops: the oscillator kernel's plain
+    version.  amplitude/frequency scalar or [..., T] (modulated).  Returns
+    (y [..., T] f32, final_clock)."""
+    device = _device_of(device, amplitude, frequency, clock0)
     amp = on_device(amplitude, device)
     if mode == "Constant":
         # do_const copies the (possibly modulated) amplitude buffer verbatim
@@ -119,3 +133,78 @@ def oscillator(mode: str, amplitude, frequency, T: int, clock0=0.0,
     else:
         raise ValueError(mode)
     return y, final_clock
+
+
+class Oscillator(torch.autograd.Function):
+    """The signal generator on the card under autograd: ``apply(forward,
+    mode, T, policy name, sample_rate, amp, freq, clock0)`` runs
+    ``forward(mode, amp, freq, T, clock0)`` once (the kernel; a test
+    passes a model of it) and saves the operands; the backward is
+    autograd through :func:`oscillator_plain`, recomputed from them under
+    the forward's policy.  That is the route until the kernel's reverse
+    lands, as ``pointwise_kernel.group_vjp`` was the groups' before
+    theirs, not a fallback."""
+
+    @staticmethod
+    def forward(ctx, forward, mode, T, pol, sample_rate, amp, freq, clock0):
+        ctx.set_materialize_grads(False)
+        ctx.mode, ctx.T, ctx.pol, ctx.sr = mode, T, pol, sample_rate
+        ctx.save_for_backward(amp, freq, clock0)
+        with torch.no_grad():
+            y, clock = forward(mode, amp, freq, T, clock0)
+        return fresh((y, clock), (amp, freq, clock0))
+
+    @staticmethod
+    def backward(ctx, ct_y, ct_clock):
+        need = ctx.needs_input_grad[5:]
+        ops = [t.detach().requires_grad_(True) if n else t.detach()
+               for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad(), policy(ctx.pol):
+            outs = oscillator_plain(ctx.mode, *ops[:2], ctx.T, ops[2],
+                                    sample_rate=ctx.sr,
+                                    device=ops[0].device)
+            pairs = [(o, c) for o, c in zip(outs, (ct_y, ct_clock))
+                     if c is not None and o.requires_grad]
+            want = [t for t, n in zip(ops, need) if n]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], want, [c for _, c in pairs],
+                allow_unused=True) if pairs and want else [None] * len(want))
+        # an operand the outputs do not depend on gets None, as autograd
+        # through the plain version leaves it
+        return (None,) * 5 + tuple(next(got) if n else None for n in need)
+
+
+def run(forward, mode: str, amp, freq, T: int, clock0, sample_rate=48_000):
+    """``forward(mode, amp, freq, T, clock0)``, through :class:`Oscillator`
+    when autograd must see it (the card's dispatch; a test passes a model
+    of the kernel)."""
+    if not needs_grad((amp, freq, clock0)):
+        return forward(mode, amp, freq, T, clock0)
+    return Oscillator.apply(forward, mode, T, get_policy().name,
+                            sample_rate, amp, freq, clock0)
+
+
+def oscillator(mode: str, amplitude, frequency, T: int, clock0=0.0,
+               block_size: int = 128, sample_rate: int = 48_000,
+               device=None):
+    """Render T samples: the oscillator kernel for a CUDA device (its
+    backward autograd through the plain version), the plain
+    :func:`oscillator_plain` on the CPU.  amplitude/frequency scalar or
+    [..., T] (modulated); ``device`` defaults to the first tensor's.
+    Returns (y [..., T] f32, final_clock)."""
+    device = _device_of(device, amplitude, frequency, clock0)
+    dev = torch.device(device if device is not None else "cpu")
+    if dev.type == "cpu":
+        return oscillator_plain(mode, amplitude, frequency, T, clock0,
+                                block_size, sample_rate, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"oscillator: no kernel for device {dev}")
+    if block_size != oscillator_kernel.BLOCK:
+        raise ValueError(f"oscillator kernel: block_size {block_size}, the "
+                         f"kernel's is {oscillator_kernel.BLOCK}")
+    amp, freq, c0 = (on_device(v, dev) for v in (amplitude, frequency,
+                                                 clock0))
+    exact = get_policy().name != "fast"
+    return run(lambda m, a, f, n, c: oscillator_kernel.oscillator_cuda(
+        m, a, f, n, c, exact, float(sample_rate)), mode, amp, freq, T, c0,
+        sample_rate)

@@ -27,8 +27,17 @@ program, compiler/pointwise.adjoint, recomputed from the saved operands in
 registers).  Its plain version is :func:`group_adjoint`;
 :func:`group_vjp`, autograd through the plain interpreter, is the
 reference of the route it replaced (as ``segment_vjp`` is the chain
-segment's) and the Function's backward where none is given.
+segment's) and the Function's backward where none is given.  A group
+with Fuzz (a program with ``bmax``) has no adjoint program yet: its
+backward is :func:`group_vjp`, until the reverse kernel takes ``bmax``.
 ``LAUNCHES`` counts the kernel's launches.
+
+A program with ``bmax`` is generated in stages (:func:`source`): the
+values up to a block max for a thread's four samples, the max as a warp
+reduction (the warp's 32 lanes x 4 samples are one 128-sample block of a
+row when T % 128 == 0), then the rest.  It launches only the float4
+build, with T % 128 == 0 (anything else raises); a signal operand whose
+row starts are not 16-byte aligned is copied to an aligned buffer first.
 """
 
 from __future__ import annotations
@@ -114,17 +123,20 @@ def source(prog: pointwise.Program) -> str:
     constants alone, once a thread) and ``pw_point`` (one element: signal
     operand k in x[k], output k to y[k]), one statement per op in the
     program's order, each f32 operation one __f*_rn intrinsic.  No operand
-    value appears in it."""
+    value appears in it.  A program with ``bmax`` gets ``pw_block`` in
+    place of ``pw_point`` (:func:`_staged`)."""
     uniform: list[bool] = []
     for op, _, args, _ in prog.ops:
         uniform.append(op in ("scal", "const") or (
             bool(args) and all(uniform[a] for a in args)))
-    ref = [f"U.v{i}" if u else f"v{i}" for i, u in enumerate(uniform)]
+    staged = pointwise.has_bmax(prog)
+    ref = [f"U.v{i}" if u else (f"v{i}[i]" if staged else f"v{i}")
+           for i, u in enumerate(uniform)]
 
     def expr(op, dt, args, imm) -> str:
         a = [ref[i] for i in args]
         if op == "sig":
-            return f"x[{imm}]"
+            return f"x[i][{imm}]" if staged else f"x[{imm}]"
         if op == "scal":
             return f"*s[{imm}]"
         if op == "div" and uniform[args[1]] and not uniform[args[0]]:
@@ -136,20 +148,54 @@ def source(prog: pointwise.Program) -> str:
               if uniform[i]]
     pre = [f"  U.v{i} = {expr(*o)};" for i, o in enumerate(prog.ops)
            if uniform[i]]
-    body = [f"  const {_CT[o[1]]} v{i} = {expr(*o)};"
-            for i, o in enumerate(prog.ops) if not uniform[i]]
-    body += [f"  y[{k}] = {ref[v]};" for k, v in enumerate(prog.outs)]
+    if staged:
+        point = _staged(prog, uniform, ref, expr)
+    else:
+        body = [f"  const {_CT[o[1]]} v{i} = {expr(*o)};"
+                for i, o in enumerate(prog.ops) if not uniform[i]]
+        body += [f"  y[{k}] = {ref[v]};" for k, v in enumerate(prog.outs)]
+        point = ["__device__ __forceinline__ void pw_point("
+                 "const PwUniform& U,", "    const float* x, float* y) {",
+                 *body, "}"]
     return "\n".join([
         "// generated by ops/pointwise_kernel.py:source",
         f"#define PW_NSIG {prog.n_sig}",
         f"#define PW_NSCAL {prog.n_scal}",
         f"#define PW_NOUT {len(prog.outs)}",
+        *(["#define PW_STAGED 1"] if staged else []),
         "struct PwUniform {", *(fields or ["  int none;"]), "};",
         "__device__ __forceinline__ PwUniform pw_uniform(",
         "    const float* const* s) {",
-        "  PwUniform U;", *pre, "  return U;", "}",
-        "__device__ __forceinline__ void pw_point(const PwUniform& U,",
-        "    const float* x, float* y) {", *body, "}", ""])
+        "  PwUniform U;", *pre, "  return U;", "}", *point, ""])
+
+
+def _staged(prog, uniform, ref, expr) -> list:
+    """``pw_block`` of a program with ``bmax``: a thread's V samples at
+    once, each per-sample value an array of V (value j of sample i is
+    vj[i]), the program's ops in order in stages, each stage one loop over
+    the samples, and between two stages a ``bmax`` as ``pw_bmax`` (the
+    max over the thread's samples, then over the warp by shuffles: the
+    warp's block), its operand's stage finished for every sample first;
+    the outputs from the last stage."""
+    decl = [f"  {_CT[dt]} v{i}[{V}];" for i, (_, dt, _, _) in
+            enumerate(prog.ops) if not uniform[i]]
+    loop = ["#pragma unroll", f"  for (int i = 0; i < {V}; ++i) {{"]
+    body = list(loop)
+    for i, o in enumerate(prog.ops):
+        if uniform[i]:
+            continue
+        if o[0] == "bmax":
+            if uniform[o[2][0]]:
+                raise ValueError("pointwise kernel: bmax of a uniform value")
+            body += ["  }", f"  pw_bmax(v{i}, v{o[2][0]});", *loop]
+            continue
+        body.append(f"    v{i}[i] = {expr(*o)};")
+    body += [f"    y[i][{k}] = {ref[v]};" for k, v in enumerate(prog.outs)]
+    body.append("  }")
+    return ["template <int NS, int NO>",
+            "__device__ __forceinline__ void pw_block(const PwUniform& U,",
+            f"    const float (&x)[{V}][NS], float (&y)[{V}][NO]) {{", *decl,
+            *body, "}"]
 
 
 @functools.lru_cache(maxsize=64)
@@ -275,10 +321,25 @@ def plan_launch(prog: pointwise.Program, sigs, scals, T: int,
             bufs.append(y)
             outs.append(y)
         osbs.append(0 if span == "none" else T)
+    staged = pointwise.has_bmax(prog)
+    if staged and T % pointwise.BLOCK:
+        raise ValueError(f"pointwise kernel: a program with bmax (Fuzz) "
+                         f"needs T % {pointwise.BLOCK} == 0, got T={T}")
+    if staged:
+        # the float4 build alone takes the block max: an operand whose row
+        # starts are not 16-byte aligned is copied to a fresh buffer
+        for k, (s, sb, st) in enumerate(zip(sig2, sbs, sts)):
+            if st and (s.data_ptr() % 16 or sb % V):
+                sig2[k] = s.clone(memory_format=torch.contiguous_format)
+                sbs[k] = sig2[k].stride(0) if sb else 0
     vec = (all(s.data_ptr() % 16 == 0 and sb % V == 0
                for s, sb, st in zip(sig2, sbs, sts) if st)
            and all(y.data_ptr() % 16 == 0 and sb % V == 0
                    for y, sb in zip(bufs, osbs)))
+    if staged and not vec:
+        raise ValueError("pointwise kernel: a program with bmax (Fuzz) runs "
+                         "only the float4 build, and a row start is not "
+                         "16-byte aligned")
     upr = -(-T // V) if vec else T
     gx = max(1, min(-(-upr // THREADS), MAX_GRID_X))
     gy = min(rows, MAX_GRID_Y)
@@ -465,8 +526,9 @@ def run(forward, prog, sigs, scals, T: int, device, backward=None) -> list:
 def group_call(prog: pointwise.Program, sigs, scals, T: int,
                device) -> list:
     """The outputs of the group ``prog``: the kernel on the card (its
-    backward the reverse kernel), the plain ``pointwise.interpret`` on the
-    CPU."""
+    backward the reverse kernel; :func:`group_vjp` for a program with
+    ``bmax``, which has no adjoint program yet), the plain
+    ``pointwise.interpret`` on the CPU."""
     device = torch.device(device)
     if device.type == "cpu":
         return pointwise.interpret(prog, list(sigs), list(scals), T, device)
@@ -474,7 +536,8 @@ def group_call(prog: pointwise.Program, sigs, scals, T: int,
         raise ValueError(f"pointwise group: no kernel for device {device}")
     from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel
     return run(_kernel_group, prog, sigs, scals, T, device,
-               pointwise_reverse_kernel.reverse_group)
+               None if pointwise.has_bmax(prog)
+               else pointwise_reverse_kernel.reverse_group)
 
 
 @functools.lru_cache(maxsize=256)
@@ -486,14 +549,13 @@ def _shaper_program(lower, kinds: tuple, policy: str) -> pointwise.Program:
 
 
 def shaper_call(fn, x: torch.Tensor, *params) -> torch.Tensor:
-    """The per-sample shaper ``fn`` of ops/shaping.py (a Distort mode but
-    Fuzz, or overdrive) over ``x`` as a one-node group: its parameters
+    """The shaper ``fn`` of ops/shaping.py (a Distort mode, Fuzz at its
+    block of 128, or overdrive) over ``x`` as a one-node group: its parameters
     (floats, sliders as data, tensors) are operands.  ops/oversample.py
     runs the shaper pass at R > 1 through it."""
     lower = pointwise.shaper_form(fn)
     if lower is None:
-        raise ValueError(f"pointwise group: {fn!r} is not a per-sample "
-                         f"shaper")
+        raise ValueError(f"pointwise group: {fn!r} is not a shaper")
     ops = [on_device(p, x.device) for p in params]
     kinds = tuple("scal" if t.dim() == 0 else "sig" for t in ops)
     prog = _shaper_program(lower, kinds, get_policy().name)

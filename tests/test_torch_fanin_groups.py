@@ -162,7 +162,6 @@ _RG27_SOLO = {(_A, ((0, "out"), (2, "b"), (2, "b"))),
               ("mod", (((5, "out"),), 0.0, 1.0))}
 _KNOB_MOD = ("mod", (((1, "out"),), 0.0, 1.0))
 _KNOB_RATE = ("mod", (((2, "out"),), 0.05, 10.0))
-_KNOB_LEVEL = ("mod", (((0, "out"), (1, "out")), 0.0, 30.0))
 #: (graph, policy) -> ((group members -> its fan-in outputs and their
 #: ports, site -> key, one-form keys), the full-length fan-ins left eager
 #: with and without the groups' fan-ins)
@@ -187,15 +186,16 @@ PLANS = {
     # for the filter after it; under fast one mega run
     ("bench", "fast"): (_NONE, (0, 0)),
     **{("bench", p): (_BENCH, (1, 4)) for p in ("parity", "exact")},
-    # the input and the gain into the Fuzz's level, and the LFO into the
-    # chorus's rate: one-form groups; the gain's average and mapped
-    # average for the chorus: outputs of its group
+    # the LFO into the chorus's rate: a one-form group; the gain's
+    # average and mapped average for the chorus: outputs of its group; the
+    # input and the gain into the Fuzz's level: the Fuzz's own group (Fuzz
+    # and the Output) averages and maps them inside
     **{("knobs", p): (({(1,): (((_A, ((1, "out"),)), ((3, "in"),)),
                                 (_KNOB_MOD, ((3, "mix"),)))},
                         {(3, "in"): (_A, ((1, "out"),)),
                          (3, "mix"): _KNOB_MOD,
-                         (3, "rate"): _KNOB_RATE, (4, "level"): _KNOB_LEVEL},
-                        {_KNOB_RATE, _KNOB_LEVEL}), (1, 5)) for p in POLICIES},
+                         (3, "rate"): _KNOB_RATE},
+                        {_KNOB_RATE}), (0, 3)) for p in POLICIES},
     # two sources (the input and a shaper) into a node outside the groups
     ("_random_graph(1)", "fast"): (({}, {(1, "in"): _RG1_SOLO},
                                     {_RG1_SOLO}), (2, 3)),

@@ -17,7 +17,10 @@ plain version runs.  The kernel itself runs only on the card
   float4 body and a row's tail, batch stride 0 for an unbatched operand,
   time stride 0 for a [..., 1] one, an unbatched output written by row 0
   alone; the body translated from the generated text) against the plain
-  version, bitwise;
+  version, bitwise; for a program with a block max (Fuzz) the staged
+  text (pw_block: the ops in loops over a thread's four samples, a
+  pw_bmax between two, its butterfly of xor shuffles over the warp, each
+  warp one 128-sample block of a row), its staging pinned to source();
 * the dispatch: a group on the CPU runs the plain version, the kernel's
   launch refuses a CPU tensor, and a group whose operands require grad
   goes through PointwiseGroup (its forward swapped for the plain version
@@ -347,6 +350,7 @@ _F = {"__fadd_rn": "_add", "__dadd_rn": "_add", "__fsub_rn": "_sub",
       "pw_clamp": "_clamp", "fabsf": "np.abs", "fabs": "np.abs",
       "atanf": "_tr_atan", "tanhf": "_tr_tanh", "sinf": "_tr_sin",
       "atan": "_tr_atan", "tanh": "_tr_tanh", "sin": "_tr_sin",
+      "expf": "_tr_exp", "exp": "_tr_exp",
       "__double2float_rn": "_f32", "pw_fresh": "_id"}
 
 
@@ -383,25 +387,68 @@ _ENV = {
     # the model's transcendentals are the plain version's (CUDA's libdevice
     # is held against torch's on the card by chip_smoke.py)
     "_tr_atan": _torch_fn("atan"), "_tr_tanh": _torch_fn("tanh"),
-    "_tr_sin": _torch_fn("sin"),
+    "_tr_sin": _torch_fn("sin"), "_tr_exp": _torch_fn("exp"),
     "_f32": lambda v: np.asarray(v).astype(np.float32),
     "_f64": lambda v: np.asarray(v).astype(np.float64),
 }
 
 
+_STAGED_STMT = re.compile(r"^    v(\d+)\[i\] = (.+);$")
+_STAGED_BMAX = re.compile(r"^  pw_bmax\(v(\d+), v(\d+)\);$")
+_STAGED_OUT = re.compile(r"^    y\[i\]\[(\d+)\] = (.+);$")
+
+
+def _unstage(expr: str) -> str:
+    """A staged statement's expression as a pw_point one: sample i's
+    value vN[i] as vN, its signal operand x[i][k] as x[k]."""
+    return re.sub(r"\bv(\d+)\[i\]", r"v\1",
+                  re.sub(r"\bx\[i\]\[(\d+)\]", r"x[\1]", expr))
+
+
 def _translate(src):
     """(uniform statements, point statements, outputs) of a generated
-    text, each statement (name, Python expression)."""
+    text, each statement (name, Python expression); a staged text's block
+    maxima are statements ``_BMAX(V['k'])``."""
     uni, pt, outs = [], [], []
     for line in src.splitlines():
         m = _STMT.match(line)
         if m:
             (uni if m.group(3) else pt).append(
                 (m.group(2) or m.group(3), _py(m.group(4))))
-        m = re.match(r"^  y\[(\d+)\] = (.+);$", line)
+        m = _STAGED_STMT.match(line)
         if m:
-            outs.append(_py(m.group(2)))
+            pt.append((m.group(1), _py(_unstage(m.group(2)))))
+        m = _STAGED_BMAX.match(line)
+        if m:
+            pt.append((m.group(1), f"_BMAX(V['{m.group(2)}'])"))
+        m = re.match(r"^  y\[(\d+)\] = (.+);$", line) or _STAGED_OUT.match(
+            line)
+        if m:
+            outs.append(_py(_unstage(m.group(2))))
     return uni, pt, outs
+
+
+def _maxn(a, b):
+    """pointwise_ops.cuh pw_maxn: a if a > b or a is NaN, else b."""
+    return np.where((a > b) | np.isnan(a), a, b)
+
+
+def _warp_bmax(v, r, t, rows, Tn):
+    """pw_bmax over the lanes' samples (rows r, samples t of the walk):
+    each lane's max of its 4 samples in order, then the butterfly over the
+    warp's 32 lanes (xor 16, 8, 4, 2, 1), spread back; lane u % 32 of the
+    warp u // 32, which holds samples 128 (u // 32) .. + 127 of its row."""
+    full = np.full((rows, Tn), np.nan, np.float32)
+    full[r, t] = v
+    four = full.reshape(rows, Tn // pk.V, pk.V)
+    m = four[..., 0]
+    for i in range(1, pk.V):
+        m = _maxn(m, four[..., i])
+    w = m.reshape(rows, Tn // 128, 32)
+    lane = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        w = _maxn(w, w[..., lane ^ o])
+    return np.repeat(w.reshape(rows, Tn // pk.V), pk.V, axis=1)[r, t]
 
 
 def _kernel_model(prog, sigs, scals, Tn, grid=None):
@@ -438,6 +485,13 @@ def _kernel_model(prog, sigs, scals, Tn, grid=None):
         lanes_r += [row] * m
         lanes_t += range(t0, t0 + m)
     r, t = np.asarray(lanes_r), np.asarray(lanes_t)
+    staged = pw.has_bmax(prog)
+    if staged:
+        # a warp is one block: every turn the float4 body, a CTA and the
+        # grid stride whole warps, a row a whole number of warps
+        assert vec and Tn % 128 == 0 and pk.THREADS % 32 == 0
+        assert step % 32 == 0 and upr % 32 == 0
+        assert len(r) == rows * Tn
     X = []
     for s, sb, stt in zip(ln.sigs, ln.sb, ln.st):
         off = r * sb + t * stt
@@ -446,7 +500,8 @@ def _kernel_model(prog, sigs, scals, Tn, grid=None):
     S = [s.reshape(()).numpy() for s in ln.scals]
     uni, pts, outs = _translate(pk.source(prog))
     U, V = {}, {}
-    env = dict(_ENV, S=S, X=X, U=U, V=V)
+    env = dict(_ENV, S=S, X=X, U=U, V=V,
+               _BMAX=lambda v: _warp_bmax(v, r, t, rows, Tn))
     with np.errstate(all="ignore"):
         for name, e in uni:
             U[name] = eval(e, env)
@@ -497,6 +552,105 @@ def _model_case(name, Tn, pol):
             prog = b.program([pw.soft_clip(b, a, lv, pol)])
             sigs, scals = [one], [tprec.scalar_on(4.0, CPU)]
     return prog, sigs, scals
+
+
+def _staged_case(name, Tn, pol):
+    """(program, signals, scalars) of a staged model case at T = Tn."""
+    rng = np.random.default_rng(len(name) + Tn)
+    x = torch.from_numpy((rng.standard_normal((B, Tn)) * 0.7).astype(F32))
+    x.view(-1)[:len(SPECIALS)] = torch.tensor(SPECIALS, dtype=torch.float32)
+    x[1, :128] = 0.0                               # an all-zero block: NaN
+    lfo = torch.from_numpy((2.0 + np.sin(np.arange(Tn) * 0.01)).astype(F32))
+    b = pw.Builder()
+    if name == "fuzz, a slider":
+        prog = b.program([pw.fuzz(b, b.sig(), b.scal(), pol)])
+        return prog, [x], [tprec.scalar_on(3.0, CPU)]
+    if name == "fuzz, its level an LFO":
+        prog = b.program([pw.fuzz(b, b.sig(), b.sig(), pol)])
+        return prog, [x, lfo], []
+    if name == "fuzz of an unbatched signal":
+        prog = b.program([pw.fuzz(b, b.sig(), b.scal(), pol)])
+        return prog, [lfo - 2.0], [tprec.scalar_on(3.0, CPU)]
+    # gain -> fuzz -> mix with the input: two outputs, one before a bmax
+    xv, lv, r_ = b.sig(), b.scal(), b.scal()
+    g = pw.gain(b, xv, lv)
+    prog = b.program([pw.mix(b, pw.fuzz(b, g, lv, pol), xv, r_), g])
+    return prog, [x], [tprec.scalar_on(v, CPU) for v in (1.5, 0.4)]
+
+
+STAGED_CASES = ["fuzz, a slider", "fuzz, its level an LFO",
+                "fuzz of an unbatched signal", "gain -> fuzz -> mix"]
+
+
+@pytest.mark.parametrize("grid", [None, (2, 2)])
+@pytest.mark.parametrize("Tn", [128, 1024, 4096])
+@pytest.mark.parametrize("name", STAGED_CASES)
+def test_staged_kernel_model_is_the_plain_version(name, Tn, grid):
+    """A program with block maxima (Fuzz) through the model of the staged
+    kernel (pw_block translated from the generated text, pw_bmax as the
+    warp's butterfly) on the launch's grid and on 2 x 2 CTAs: bitwise the
+    plain version under the three policies, NaN where a block is all zero
+    or holds a NaN or an inf."""
+    for pol in POLICIES:
+        prog, sigs, scals = _staged_case(name, Tn, pol)
+        with dt.policy(pol):
+            want = pw.interpret(prog, sigs, scals, Tn, CPU)
+        got, ln = _kernel_model(prog, sigs, scals, Tn, grid)
+        assert ln.vec
+        for g, w in zip(got, want):
+            assert _same(g, w), (name, Tn, pol)
+
+
+def test_source_is_staged_around_each_block_max():
+    """A bmax program's text: PW_STAGED and pw_block in place of pw_point;
+    one statement an op not uniform, in the program's order, each in a
+    loop over the thread's 4 samples; each bmax a pw_bmax between two
+    loops, its operand computed in an earlier loop; the outputs in the
+    last; Fuzz: three stages around three maxima and four loops.  The
+    kernel runs pw_block in its float4 body alone, and its launch refuses
+    anything but that body over whole blocks."""
+    import pathlib
+    for pol in POLICIES:
+        b = pw.Builder()
+        prog = b.program([pw.fuzz(b, b.sig(), b.scal(), pol)])
+        src = pk.source(prog)
+        assert "#define PW_STAGED 1" in src and "pw_point" not in src
+        lines = src.splitlines()
+        loops = [i for i, ln in enumerate(lines)
+                 if ln == f"  for (int i = 0; i < {pk.V}; ++i) {{"]
+        maxima = [i for i, ln in enumerate(lines) if _STAGED_BMAX.match(ln)]
+        assert len(maxima) == 3 and len(loops) == 4
+        for i in maxima:
+            assert lines[i - 1] == "  }" and lines[i + 2] in (
+                f"  for (int i = 0; i < {pk.V}; ++i) {{",)
+        stage_of, order, stage = {}, [], 0
+        for i, ln in enumerate(lines):
+            m = _STAGED_BMAX.match(ln)
+            if m:
+                assert stage_of[int(m.group(2))] == stage
+                stage += 1
+                stage_of[int(m.group(1))] = stage
+                order.append(int(m.group(1)))
+            m = _STAGED_STMT.match(ln)
+            if m:
+                stage_of[int(m.group(1))] = stage
+                order.append(int(m.group(1)))
+                for a in re.findall(r"\bv(\d+)\[i\]", m.group(2)):
+                    assert stage_of[int(a)] <= stage
+            if _STAGED_OUT.match(ln):
+                assert stage == 3
+        assert order == sorted(order)
+        assert sorted(order) == [i for i, o in enumerate(prog.ops)
+                                 if o[0] not in ("scal", "const")]
+    cu = (pathlib.Path(pk.__file__).resolve().parent.parent / "csrc"
+          / "pointwise_kernel.cu").read_text()
+    assert "#ifdef PW_STAGED\n        pw_block(U, x, y);\n#else" in cu
+    assert "#ifdef PW_STAGED\n  if (!vec || T % 128) return" in cu
+    ops = (pathlib.Path(pk.__file__).resolve().parent.parent / "csrc"
+           / "pointwise_ops.cuh").read_text()
+    assert "return (a > b || a != a) ? a : b;" in ops
+    assert "for (int o = 16; o > 0; o >>= 1)" in ops
+    assert "r = pw_maxn(r, __shfl_xor_sync(0xffffffffu, r, o));" in ops
 
 
 MODEL_CASES = ["config5 pre -> overdrive -> distort",
@@ -650,7 +804,8 @@ def test_function_outputs_do_not_alias_its_inputs():
 
 def test_shaper_call_is_the_eager_shaper():
     """ops/oversample's shaper pass at R > 1 (one-node groups) is the eager
-    shaper on its operands, a modulated level upsampled beside x."""
+    shaper on its operands, a modulated level upsampled beside x; Fuzz
+    too, at its block of 128 (T = 384)."""
     from dsp_stuff_tpu_torch.ops import shaping
     x = _signal(3, (B, T), 2.0)
     lv = _levels(4, (B, T), 10.0)
@@ -660,10 +815,6 @@ def test_shaper_call_is_the_eager_shaper():
                 assert _same(pk.shaper_call(fn, x, 6.0, lv, 0.8),
                              fn(x, 6.0, lv, 0.8))
             for mode, fn in shaping.DISTORT_MODES.items():
-                if mode == "Fuzz":
-                    with pytest.raises(ValueError, match="per-sample"):
-                        pk.shaper_call(fn, x, 4.0)
-                    continue
                 assert _same(pk.shaper_call(fn, x, lv), fn(x, lv)), mode
                 assert _same(pk.shaper_call(fn, x, 4.0), fn(x, 4.0)), mode
 

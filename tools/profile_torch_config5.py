@@ -54,21 +54,30 @@ SR = 48_000
 T = 10 * SR
 #: the port's kernels, by the name their launches carry
 KERNELS = ("chain_kernel", "cycle_kernel", "envelope_kernel",
-           "first_order_kernel", "fo_chained", "pointwise_kernel",
-           "sequential_kernel")
+           "first_order_kernel", "fo_chained", "oscillator_clock_kernel",
+           "oscillator_wave_kernel", "pointwise_kernel", "sequential_kernel")
+#: the kernels launched through ctypes (no host op carries their device
+#: time), each to the scope open at its launch, by the name they carry
+CTYPES_KERNELS = ("pointwise_kernel", "oscillator_")
 
 
 @contextlib.contextmanager
 def scopes():
     """Each evaluator function of the compiler wrapped in a
-    record_function range named for what it evaluates.  Yields the list
-    that gets, at each launch of the pointwise kernel (through ctypes: no
-    host op carries its device time), the innermost scope open then."""
+    record_function range named for what it evaluates.  Yields {kernel
+    name: list} whose list gets, at each launch of that kernel through
+    ctypes (CTYPES_KERNELS: the pointwise kernel, the oscillator kernel's
+    passes; no host op carries their device time), the innermost scope
+    open then."""
     import torch
     from dsp_stuff_tpu_torch.compiler import compile as comp
     from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    try:
+        from dsp_stuff_tpu_torch.ops import oscillator_kernel as ok
+    except ImportError:                     # a root before the kernel
+        ok = None
     open_scopes: list = []
-    launched: list = []
+    launched: dict = {k: [] for k in CTYPES_KERNELS}
 
     def wrap(fn, label):
         @functools.wraps(fn)
@@ -82,10 +91,16 @@ def scopes():
                 open_scopes.pop()
         return run
 
+    def here():
+        return open_scopes[-1] if open_scopes else "outside the scopes"
+
     def launch(*a, **k):
-        launched.append(open_scopes[-1] if open_scopes
-                        else "outside the scopes")
+        launched["pointwise_kernel"].append(here())
         return kernel_group(*a, **k)
+
+    def osc_launch(ln, passes, *a, **k):
+        launched["oscillator_"].extend([here()] * len(passes))
+        return osc_inner(ln, passes, *a, **k)
 
     def members(self, ms, values=None, outs=None, pdict=None, T=None,
                 fanins=(), *a, **k):
@@ -109,6 +124,9 @@ def scopes():
     kernel_group = getattr(pk, "_kernel_group", None)
     if kernel_group is not None:
         pk._kernel_group = launch
+    osc_inner = getattr(ok, "_launch", None)
+    if osc_inner is not None:
+        ok._launch = osc_launch
     try:
         yield launched
     finally:
@@ -116,6 +134,8 @@ def scopes():
             setattr(m, n, fn)
         if kernel_group is not None:
             pk._kernel_group = kernel_group
+        if osc_inner is not None:
+            ok._launch = osc_inner
 
 
 LABELS = ("node ", "group ", "fan-in average", "modulation map",
@@ -131,7 +151,8 @@ def profile_render(name, cg, x, B, tag):
     with scopes() as launched:
         cg.render(x, batch_shape=(B,))          # the scopes' first call
         torch.cuda.synchronize()
-        launched.clear()
+        for v in launched.values():
+            v.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(64):                 # the trace's lead-in
@@ -175,17 +196,20 @@ def profile_render(name, cg, x, B, tag):
         scope = next((n for a, b, n in spans if a <= at < b),
                      "outside the scopes")
         by_scope[scope] = by_scope.get(scope, 0.0) + ms
-    # each pointwise kernel (in stream order, the launch order) to the
-    # scope that launched it: a group's fan-in outputs are its own
-    groups = sorted((e for e in dev if "pointwise_kernel" in e.name),
-                    key=lambda e: e.time_range.start)
-    if len(groups) == len(launched):
-        for scope, e in zip(launched, groups):
-            by_scope[scope] = (by_scope.get(scope, 0.0)
-                               + e.self_device_time_total / 1e3)
-    else:
-        print(f"  (the {len(groups)} pointwise kernels in the trace are not "
-              f"the {len(launched)} launched: left out of the scopes)")
+    # each pointwise kernel and oscillator pass (in stream order, the
+    # launch order) to the scope that launched it: a group's fan-in
+    # outputs are its own
+    for kname, scopes_at in launched.items():
+        runs = sorted((e for e in dev if kname in e.name),
+                      key=lambda e: e.time_range.start)
+        if len(runs) == len(scopes_at):
+            for scope, e in zip(scopes_at, runs):
+                by_scope[scope] = (by_scope.get(scope, 0.0)
+                                   + e.self_device_time_total / 1e3)
+        else:
+            print(f"  (the {len(runs)} {kname} kernels in the trace are "
+                  f"not the {len(scopes_at)} launched: left out of the "
+                  f"scopes)")
     print(f"  by scope (their sum {sum(by_scope.values()):.3f} ms of the "
           f"{total:.3f}):")
     for scope, ms in sorted(by_scope.items(), key=lambda t: -t[1]):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's kernel entry points and main paths of one checkout.
 
-    python3 tools/time_torch_paths.py [--root DIR] [--renders | --grads]
+    python3 tools/time_torch_paths.py [--root DIR] [--renders | --grads |
+                                       --parity]
     python3 tools/time_torch_paths.py --sass FILE ...
 
 Imports dsp_stuff_tpu_torch and chip_smoke from DIR (default: this
@@ -33,7 +34,11 @@ device data) and times with CUDA events, median of 5 after a warm-up, at
 * a training step of the bench chain's 16 sliders at B = 128 (the host
   clock around the step and a synchronize, median of 5 after a warm-up).
 
-``--renders`` times the renders alone.  ``--grads`` times, alone, the bench
+``--renders`` times the renders alone.  ``--parity`` times, alone,
+config5's render at B = 128 x 10 s under the parity policy (the host
+clock around the render and a synchronize, median of 3 after a warm-up:
+its per-node cycle loop and its host work, such as an eager oscillator's
+scalar launches, in one figure).  ``--grads`` times, alone, the bench
 chain's and config5's input gradients at B = 128 (the root's
 chip_smoke.grad_split: the forward and the backward on the host's clock,
 medians of 3 after a first call, and one forward + backward's device time
@@ -278,6 +283,7 @@ def main() -> int:
                            if "--root" in sys.argv else here)
     renders_only = "--renders" in sys.argv
     grads_only = "--grads" in sys.argv
+    parity_only = "--parity" in sys.argv
     sys.path[:0] = [root, os.path.join(root, "tests")]
     import chip_smoke as cs
     import dsp_stuff_tpu_torch as dst
@@ -298,6 +304,21 @@ def main() -> int:
         rng.standard_normal((512, T), dtype=np.float32) * np.float32(0.25),
         device=dev)
     g5 = presets.config5_feedback_16node()[0]
+    if parity_only:
+        cg = dst.compile_graph(g5, device="cuda")
+        xr = x_all[:128].reshape(128, 1, T)
+        walls = []
+        with dst.policy("parity"):
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cg.render(xr, batch_shape=(128,))
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"config5 render, B=128, parity: wall {np.median(walls[1:]):.3f}"
+              f" ms (median of 3 after a warm-up; {[round(w, 3) for w in walls]}"
+              f") {tag}")
+        return 0
     if grads_only:
         del x_all
         with dst.policy("fast"):
