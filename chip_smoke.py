@@ -97,7 +97,7 @@ device="cuda")``:
   tensors edited every block under fast and parity (one capture, bitwise
   the eager loop); slider automation, one capture a stream and each move
   a copy into the buffers the graph reads (the bench chain's gain moved
-  every 8 blocks and every block over 10 s, its overdrive's drive every
+  every 8 blocks and every block over 3 s, its overdrive's drive every
   block, config5's feedback gain every 64 blocks and every block, its
   envelope's attack every block, the exact bench chain's low-pass ratio
   every block), bitwise the eager loop taking the same values, no block
@@ -270,10 +270,10 @@ CARD_VS_CPU_DB = -100.0   # a render on the card vs the CPU port's
 FUZZ_GRAPH_SEEDS = (5, 7, 13, 15)
 FUZZ_MEGA_SEEDS = (2, 10, 67, 76)
 B_FUZZ = 4                # streams of a fuzz render (x 1 s)
-# the runtime phase: StreamSession in 128-sample blocks, the bench chain
-# and config5 over 3 s each (the bench chain's stream was 10 s before the
-# smoke neared its time limit)
-STREAM_C5_SAMPLES = 3 * SR
+# the runtime phase: StreamSession in 128-sample blocks, config5 over 1 s
+# and the bench chain over 3 s (10 s and 3 s before the smoke neared its
+# time limit)
+STREAM_C5_SAMPLES = SR
 STREAM_BENCH_SAMPLES = 3 * SR
 STREAM_CHUNKS = (5, 375)  # process_many chunks, in blocks
 STREAM_DB = -90.0         # streamed vs the card's one render (the JAX bound)
@@ -289,7 +289,7 @@ AUTOMATION_C5_EVERY = 64
 AUTOMATION_TRIALS = 2     # sessions of each automated stream (its timing)
 AUTOMATION_STALL_S = 5    # seconds of host-only work beside them
 AUTOMATION_BENCH_S = 3    # seconds of the bench chain's gain moved a block
-AUTOMATION_C5_S = 3       # ... and of config5's feedback gain and attack
+AUTOMATION_C5_S = 1       # ... and of config5's feedback gain and attack
 GRAPH_DIR = os.path.join(ROOT, "build", "stream_graphs")    # DOT dumps
 LFO_FAST_ATOL = 4e-7      # config5's LFO under fast: CUDA's sinf vs the CPU's
 PITCH_HZ_ATOL = 0.5       # a 440 Hz tone's detected pitch on the card
@@ -852,13 +852,17 @@ def _kernel_modules():
     from dsp_stuff_tpu_torch.ops import (chain_kernel, chain_reverse_kernel,
                                          cycle_kernel, cycle_reverse_kernel,
                                          envelope_kernel, first_order_kernel,
-                                         oscillator_kernel, pointwise_kernel,
+                                         oscillator_kernel,
+                                         oscillator_reverse_kernel,
+                                         pointwise_kernel,
                                          pointwise_reverse_kernel,
                                          sequential_kernel)
     return {"chain": chain_kernel, "chain_reverse": chain_reverse_kernel,
             "cycle": cycle_kernel, "cycle_reverse": cycle_reverse_kernel,
             "envelope": envelope_kernel, "first_order": first_order_kernel,
-            "oscillator": oscillator_kernel, "pointwise": pointwise_kernel,
+            "oscillator": oscillator_kernel,
+            "oscillator_reverse": oscillator_reverse_kernel,
+            "pointwise": pointwise_kernel,
             "pointwise_reverse": pointwise_reverse_kernel,
             "sequential": sequential_kernel}
 
@@ -902,8 +906,8 @@ def forward_and_vjps_counted(plain: dict, vjps: dict, first_order=True):
     pointwise groups' plain version apart: ``vjps`` holds its runs (a
     caller holds them to 0: the groups' forward is the kernel, their
     backward the reverse kernel, ops/pointwise_kernel.PointwiseGroup),
-    and the oscillator's (the signal generator's backward recomputes it,
-    ops/gen.Oscillator)."""
+    and the oscillator's (its forward the oscillator kernel, its backward
+    the reverse oscillator kernel, ops/gen.Oscillator)."""
     from dsp_stuff_tpu_torch.compiler import pointwise
     from dsp_stuff_tpu_torch.ops import gen
     with plain_versions_counted(plain, first_order=first_order,
@@ -1480,19 +1484,32 @@ def loss_grads(cg, ext, target):
         for k, v in sorted(e.items())}
 
 
-def grads_card_vs_cpu(name, graph, x_np, hidden):
+def grads_card_vs_cpu(name, graph, x_np, hidden, expect_bwd=None):
     """One loss gradient of every slider on the card against the CPU port
-    (its plain versions), the target rendered on the CPU from ``hidden``."""
+    (its plain versions), the target rendered on the CPU from ``hidden``.
+    With ``expect_bwd`` (launches by kernel) the card's forward and
+    backward launch those and run neither the groups' plain version
+    (interpret) nor the oscillator's (oscillator_plain).  Returns the
+    card's launches."""
     import torch
     import dsp_stuff_tpu_torch as dst
     cgs = {d: dst.compile_graph(graph, device=d) for d in ("cpu", "cuda")}
     inp = str(cgs["cpu"].input_ids[0])
     tgt = render_target(cgs["cpu"], {inp: torch.from_numpy(x_np)},
                         hidden_params(cgs["cpu"], **hidden))
-    got = {}
+    got, plain, vjps = {}, {}, {}
     for d, cg in cgs.items():
-        got[d] = loss_grads(cg, {inp: torch.as_tensor(x_np, device=d)},
-                            tgt.to(d))
+        reset_launches()
+        with (forward_and_vjps_counted(plain, vjps, first_order=False)
+              if d == "cuda" else contextlib.nullcontext()):
+            got[d] = loss_grads(cg, {inp: torch.as_tensor(x_np, device=d)},
+                                tgt.to(d))
+    launches = read_launches()
+    if expect_bwd is not None:
+        check(not vjps and all(launches[k] == v
+                               for k, v in expect_bwd.items()),
+              f"{name}: launches {launches} (expected {expect_bwd}), the "
+              f"plain versions run {vjps}")
     worst = 0.0
     for key, w in got["cpu"][1].items():
         g, w = float(got["cuda"][1][key]), float(w)
@@ -1503,7 +1520,10 @@ def grads_card_vs_cpu(name, graph, x_np, hidden):
     print(f"{name}, B={x_np.shape[0]} x {x_np.shape[-1] / SR:g} s: "
           f"{len(got['cpu'][1])} slider gradients, card vs CPU port worst "
           f"relative {worst:.2e}; loss {float(got['cuda'][0]):.6e} / "
-          f"{float(got['cpu'][0]):.6e}")
+          f"{float(got['cpu'][0]):.6e}; the card's launches "
+          f"{expect_str(launches)}, interpret and oscillator_plain run "
+          f"{vjps or 'never'}")
+    return launches
 
 
 def fit_phase(dev, card) -> dict:
@@ -2047,29 +2067,37 @@ def config2_phase(dev, card) -> None:
 
 def examples_phase(card) -> None:
     """The port's example scripts (dsp_stuff_tpu_torch/examples/) at their
-    default sizes on the card, each in a subprocess (the kernels are built
-    by the earlier phases): exit 0, output naming the card, the fit's loss
-    finite and lower at the end than at its first step."""
-    import re
-    for name in ("streaming", "render_batch", "fit_amp"):
-        t0 = time.time()
-        r = subprocess.run([sys.executable, "-m",
-                            f"dsp_stuff_tpu_torch.examples.{name}"],
-                           cwd=ROOT, capture_output=True, text=True,
-                           timeout=600)
-        wall = time.time() - t0
-        check(r.returncode == 0, f"example {name} exit {r.returncode}: "
-                                 f"{r.stderr[-2000:]}")
-        lines = r.stdout.strip().splitlines()
-        check(bool(lines) and "cuda" in r.stdout,
-              f"example {name} printed {lines[-3:]}")
-        if name == "fit_amp":
-            losses = [float(v) for v in re.findall(r"loss ([0-9.e+-]+)",
-                                                   r.stdout)]
-            check(len(losses) >= 2 and np.isfinite(losses).all()
-                  and losses[-1] < losses[0], f"fit_amp losses {losses}")
-        print(f"example {name} on the card: exit 0 in {wall:.1f} s (a new "
-              f"process) [{card}]; {lines[0]} | {lines[-1]}")
+    default sizes on the card, each in a new process, the three started
+    together (the kernels are built by the earlier phases): exit 0, output
+    naming the card, the fit's loss finite and lower at the end than at
+    its first step."""
+    t0 = time.time()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"dsp_stuff_tpu_torch.examples.{name}"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in ("streaming", "render_batch", "fit_amp")}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            wall = time.time() - t0
+            check(proc.returncode == 0, f"example {name} exit "
+                                        f"{proc.returncode}: {stderr[-2000:]}")
+            lines = stdout.strip().splitlines()
+            check(bool(lines) and "cuda" in stdout,
+                  f"example {name} printed {lines[-3:]}")
+            if name == "fit_amp":
+                losses = [float(v) for v in re.findall(r"loss ([0-9.e+-]+)",
+                                                       stdout)]
+                check(len(losses) >= 2 and np.isfinite(losses).all()
+                      and losses[-1] < losses[0], f"fit_amp losses {losses}")
+            print(f"example {name} on the card: exit 0 within {wall:.1f} s "
+                  f"of the three's start (a new process) [{card}]; "
+                  f"{lines[0]} | {lines[-1]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def mux_demux_phase() -> None:
@@ -4192,9 +4220,13 @@ def grad_phase(dev, card, b_grad=B_GRAD, t_main=T_MAIN) -> dict:
         grads_card_vs_cpu("config2 (chorus) fit", g2,
                           (rngf.standard_normal((2, T_CPU_PORT)) * 0.3)
                           .astype(np.float32), {"gain": ("level", 0.6)})
-        grads_card_vs_cpu("config5 (feedback cycle) fit", g5,
-                          (rngf.standard_normal((2, T_CPU_PORT)) * 0.3)
-                          .astype(np.float32), {"gain": ("level", 1.0)})
+        # the LFO's sliders among them: the reverse oscillator kernel's two
+        # passes (the wave's, the sums'), no recompute of the plain version
+        rec["c5_every"] = grads_card_vs_cpu(
+            "config5 (feedback cycle) fit", g5,
+            (rngf.standard_normal((2, T_CPU_PORT)) * 0.3).astype(np.float32),
+            {"gain": ("level", 1.0)},
+            expect_bwd={"oscillator": 2, "oscillator_reverse": 2})
         cg2 = dst.compile_graph(g2, device=dev)
         ext = {str(cg2.input_ids[0]): torch.as_tensor(sig(b_grad, t_main),
                                                       device=dev)}
@@ -5468,18 +5500,22 @@ def cycle_loop_grad_phase(dev, card) -> dict:
         all_steps = {w: [] for w in ways}
         firsts = {}
         torch.cuda.reset_peak_memory_stats(dev)
+        osc_rev, vjps = [], {}
         for w in ways + ("groups", "no groups", "no groups", "groups"):
             c0, r0 = loops.captures, loops.replays
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
+            reset_launches()
             with scan_spans(spans[w]), (
                     cycle_groups_off(cg) if w == "no groups"
-                    else contextlib.nullcontext()):
+                    else contextlib.nullcontext()), \
+                    forward_and_vjps_counted({}, vjps, first_order=False):
                 e0.record()
                 _, opt[w], loss = step(params[w], opt[w], cg.init_state(),
                                        ext, tgt)
                 e1.record()
                 torch.cuda.synchronize()
+            osc_rev.append(read_launches()["oscillator_reverse"])
             if w not in firsts:
                 firsts[w] = (float(loss), {
                     f"{n}:{kk}": vv.grad.clone()
@@ -5489,6 +5525,14 @@ def cycle_loop_grad_phase(dev, card) -> dict:
                 loss=float(loss), ms=e0.elapsed_time(e1),
                 captures=loops.captures - c0, replays=loops.replays - r0,
                 peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30))
+        # the LFO's sliders are leaves: the reverse oscillator kernel's two
+        # passes a step, the plain versions never run
+        check(not vjps and all(n == 2 for n in osc_rev),
+              f"fit steps: reverse oscillator launches {osc_rev}, the plain "
+              f"versions run {vjps}")
+        print(f"  fit steps: the reverse oscillator kernel launched "
+              f"{osc_rev} times a step, interpret and oscillator_plain run "
+              f"never")
         steps, first = all_steps["groups"], firsts["groups"][1]
         check(all(s["captures"] == 0 for w in ways
                   for s in all_steps[w][1:]),
@@ -5537,6 +5581,7 @@ def cycle_loop_grad_phase(dev, card) -> dict:
         n = T_MAIN // 128 - loops.plan[0]
         out["fit"] = dict(steps=steps, forward=spans["forward"],
                           backward=spans["backward"], blocks=n,
+                          osc_reverse=osc_rev[-1],
                           reverse=reverse_launches(cg, "cycle loop grad fit"),
                           no_groups=all_steps["no groups"],
                           no_groups_worst=worst_n, kernel_us=rev_us,
@@ -6675,6 +6720,7 @@ def pointwise_reverse_sources() -> list:
     import torch
     import dsp_stuff_tpu_torch as dst
     from dsp_stuff_tpu_torch.compiler import compile as comp
+    from dsp_stuff_tpu_torch.compiler import pointwise as pw
     from dsp_stuff_tpu_torch.models import presets
     from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
     from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
@@ -6734,6 +6780,21 @@ def pointwise_reverse_sources() -> list:
               for wrt in (False, True)]
     for graph, pol, params, wrt in paths:
         srcs.update(cpu_group_backwards(graph, pol, params, wrt))
+    # the Fuzz groups' staged reverse builds: the one-node form (the level
+    # a slider and a signal) and gain -> Fuzz -> mix's gradient
+    for pol in ("fast", "parity", "exact"):
+        with dst.policy(pol):
+            for kind in ("scal", "sig"):
+                b = pw.Builder()
+                xv = b.sig()
+                prog = b.program([pw.fuzz(b, xv, getattr(b, kind)(), pol)])
+                add(prog, [torch.zeros(4, 256)] * prog.n_sig,
+                    [scalar_on(1.0, cpu)] * prog.n_scal, 256)
+    fz_graph = fuzz_group_graphs()["gain -> Fuzz -> mix"]
+    fz = str(next(n for n, v in fz_graph.nodes.items()
+                  if v.cfg_name == "distort"))
+    srcs.update(cpu_group_backwards(fz_graph, "fast", lambda c: {fz: {
+        "level": torch.tensor(2.5, requires_grad=True)}}, True))
     # the feedback cycle's groups in the replayed loop's reverse body
     # (every block input a leaf), config5's 21 blocks past its head
     for pol in ("fast", "parity", "exact"):
@@ -7057,37 +7118,328 @@ def oscillator_phase(dev, card) -> dict:
                       f"{bnd[0] * 1e3:.3f} us by {bnd[1]}, dependent-chain "
                       f"floor {floor * 1e3:.3f} us ("
                       f"{floor / tk:.1%} of the kernel) [{card}]")
-    # the Function on the card: autograd through the plain version,
-    # recomputed (the route until the kernel's reverse lands)
+    # the Function on the card: its backward the reverse kernel, against
+    # the plain adjoint as its backward and autograd through the plain
+    # version (the route the reverse kernel replaced)
+    from dsp_stuff_tpu_torch.ops import oscillator_kernel as ok
+    from dsp_stuff_tpu_torch.ops import oscillator_reverse_kernel as ork
     rng = np.random.default_rng(151)
     T = 4 * SR
     x = torch.as_tensor(rng.standard_normal((4, T)).astype(np.float32),
                         device=dev)
     w = torch.as_tensor(rng.standard_normal((4, T)).astype(np.float32),
                         device=dev)
+
+    def adjoint_route(mode, a, f, n, c):
+        from dsp_stuff_tpu_torch.utils.precision import get_policy
+        exact = get_policy().name != "fast"
+        return gen.run(lambda m, a_, f_, n_, c_: ok.oscillator_cuda(
+            m, a_, f_, n_, c_, exact), mode, a, f, n, c,
+            backward=gen.adjoint_backward)
     for pol in ("fast", "parity"):
+        worst = 0.0
         for mode in ("Sine", "Triangle"):
-            grads = []
-            for route in ("kernel", "plain"):
+            grads, recomputed = {}, {}
+            for route in ("kernel", "adjoint", "plain"):
                 a = torch.tensor(0.6, device=dev, requires_grad=True)
                 f = torch.tensor(3.0, device=dev, requires_grad=True)
                 xx = x.clone().requires_grad_(True)
                 with dst.policy(pol):
-                    fn = gen.oscillator if route == "kernel" \
-                        else gen.oscillator_plain
+                    fn = {"kernel": gen.oscillator, "adjoint": adjoint_route,
+                          "plain": gen.oscillator_plain}[route]
                     y, _ = fn(mode, a, f, T, c0)
-                    ((y * xx) * w).sum().backward()
-                grads.append([a.grad, f.grad, xx.grad])
+                    ork.LAUNCHES = 0
+                    with calls_counted([(gen, "oscillator_plain"),
+                                        (gen, "oscillator_adjoint")],
+                                       recomputed.setdefault(route, {})):
+                        ((y * xx) * w).sum().backward()
+                    if route == "kernel":
+                        check(ork.LAUNCHES == 2 and not recomputed[route],
+                              f"oscillator {mode} {pol}: the backward "
+                              f"launched the reverse kernel {ork.LAUNCHES} "
+                              f"times, ran {recomputed[route]}")
+                grads[route] = [a.grad, f.grad, xx.grad]
             torch.cuda.synchronize()
-            same = all(bits_same(g.reshape(-1), h.reshape(-1))
-                       for g, h in zip(*grads))
-            check(same, f"oscillator {mode} {pol}: the Function's "
-                        f"gradients are not autograd through the plain "
-                        f"version's")
+            check(all(bits_same(g.reshape(-1), h.reshape(-1))
+                      for g, h in zip(grads["kernel"], grads["adjoint"])),
+                  f"oscillator {mode} {pol}: the reverse kernel's gradients "
+                  f"are not the plain adjoint's")
+            for i, (g, h) in enumerate(zip(grads["kernel"], grads["plain"])):
+                worst = max(worst, grad_close(
+                    f"oscillator {mode} {pol} gradient {i} vs autograd", g,
+                    h))
         print(f"  the Function's gradients (amplitude, frequency, a "
-              f"downstream input) at [4, {T}], {pol}: bitwise autograd "
-              f"through the plain version on the card")
+              f"downstream input) at [4, {T}], {pol}: the reverse kernel "
+              f"(two launches a backward, no plain version run) bitwise "
+              f"the plain adjoint as the backward, against autograd "
+              f"through the plain version worst {worst:.2e} (rtol "
+              f"{GRAD_RTOL})")
     print(f"oscillator phase: {time.time() - t_phase:.1f} s")
+    return rec
+
+
+OSC_REV_DB = -100.0       # the reverse oscillator kernel's per-sample
+OSC_REV_RTOL = 1e-6       # ... and summed gradients vs its plain version
+
+
+def osc_reverse_bound(rows, T, mod_bytes=0.0):
+    """(bound ms, by) of one reverse oscillator call over [rows, T]: the
+    wave's cotangent read once (and ``mod_bytes`` of modulated operands
+    read and per-sample gradients written once), against its per-sample
+    operations (the step's divide, the total's add, the phase's add, the
+    product by 2 pi, the sine, the cosine, the amplitude gradient's
+    product, g_w's, the derivative's two products, the block sum's f64
+    add and the chain's add: twelve, one operation each)."""
+    return bound(4.0 * rows * T + mod_bytes, 12.0 * rows * T)
+
+
+def osc_reverse_floor_ms(T) -> float:
+    """The reverse's dependent-chain floor over T samples: the carry over
+    the T / 128 blocks (an add a block, f64 under fast, f32 under parity),
+    a slider frequency's block chains (128 adds a block, a thread a block
+    of SUM_THREADS, in T / 128 / SUM_THREADS rounds) and pass A's last
+    lane's in-block sum (128 adds), 4 cycles an operation at
+    SM_CLOCK_GHZ."""
+    from dsp_stuff_tpu_torch.ops import oscillator_reverse_kernel as ork
+    nb = T // 128
+    ops = nb + 128 * -(-nb // ork.SUM_THREADS) + 128
+    return ops * 4 / (SM_CLOCK_GHZ * 1e9) * 1e3
+
+
+def osc_autograd(mode, a, f, T, c0, ct_y, ct_clock):
+    """Autograd through oscillator_plain (the route the reverse kernel
+    replaced): the gradients of amp, freq and clock0 (None where none)."""
+    import torch
+    from dsp_stuff_tpu_torch.ops import gen
+    ops = [t.detach().clone().requires_grad_(True) for t in (a, f, c0)]
+    with torch.enable_grad():
+        y, c = gen.oscillator_plain(mode, *ops[:2], T, ops[2])
+        pairs = [(o, ct) for o, ct in zip((y, c), (ct_y, ct_clock))
+                 if ct is not None and o.requires_grad]
+        if not pairs:
+            return [None] * 3
+        return list(torch.autograd.grad([o for o, _ in pairs], ops,
+                                        [ct for _, ct in pairs],
+                                        allow_unused=True))
+
+
+def osc_grads_held(what, got, want, rtol) -> tuple:
+    """Gradients ``got`` against ``want``: None in both or neither; a
+    per-sample one <= OSC_REV_DB (max-normalized, ``rtol`` for a sum);
+    returns (max abs error, every one bitwise)."""
+    err, bit = 0.0, True
+    for i, (g, w) in enumerate(zip(got, want)):
+        check((g is None) == (w is None), f"{what}: gradient {i} "
+                                          f"{'missing' if g is None else ''}")
+        if g is None:
+            continue
+        check(g.shape == w.shape, f"{what}: gradient {i} shape")
+        bit &= bits_same(g.reshape(-1), w.reshape(-1))
+        if g.dim():
+            d = dbfs_dev(g, w)
+            check(d <= OSC_REV_DB, f"{what}: gradient {i} {d:.1f} dBFS")
+        else:
+            check(sums_close(g, w, rtol, 1e-12),
+                  f"{what}: gradient {i} {float(g):.9e} vs {float(w):.9e}")
+        err = max(err, float((g.double() - w.double()).abs().max()))
+    return err, bit
+
+
+def oscillator_reverse_checks(dev) -> dict:
+    """The reverse oscillator kernel against its plain version
+    (gen.oscillator_adjoint) on the same cotangents: the four modes under
+    fast, parity and exact, a frequency slider at 0.5 and 997 Hz, a [T]
+    and a [4, T] modulation, the amplitude a slider and a [4, T]
+    modulation, clock0 0.25, T in OSC_T, the final clock's cotangent
+    present and absent (OSC_REV_DB per sample, OSC_REV_RTOL a sum, printed
+    with whether bitwise), its launches the plan's passes and no plain
+    version run; against autograd through oscillator_plain (the route it
+    replaced) at T = 128 and 256 for every case and config5's LFO at
+    T_MAIN (rtol GRAD_RTOL, or where autograd's f32 sum cancels past it,
+    the plain adjoint's float64 sum within OSC_REV_RTOL and autograd
+    farther from it); ten launches bitwise equal."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import gen
+    from dsp_stuff_tpu_torch.ops import oscillator_kernel as ok
+    from dsp_stuff_tpu_torch.ops import oscillator_reverse_kernel as ork
+    rng = np.random.default_rng(160)
+    gen_ = torch.Generator(device=dev).manual_seed(161)
+    c0 = torch.tensor(0.25, device=dev)
+    need = (True, True, True)
+    rec = {"cases": 0, "bitwise": 0, "err": 0.0, "autograd": 0,
+           "autograd_f64": 0, "autograd_worst": 0.0}
+    for T in OSC_T:
+        t = np.arange(T)
+        freqs = {"0.5 Hz": 0.5, "997 Hz": 997.0,
+                 "[T]": (300.0 + 250.0 * np.sin(t / 3000.0)),
+                 "[4, T]": 500.0 + 300.0 * rng.standard_normal((4, T))}
+        amps = {"0.6": 0.6, "[4, T]": rng.uniform(-1.0, 1.0, (4, T))}
+        freqs = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                 for k, v in freqs.items()}
+        amps = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                for k, v in amps.items()}
+        for pol in ("fast", "parity", "exact"):
+            n = n_bit = 0
+            with dst.policy(pol):
+                for mode in OSC_MODES:
+                    for fk, f in freqs.items():
+                        for ak, a in amps.items():
+                            y, c, cl = ok.oscillator_cuda(
+                                mode, a, f, T, c0, pol != "fast")
+                            ct_y = torch.randn(y.shape, generator=gen_,
+                                               device=dev)
+                            ct_c = torch.randn(c.shape, generator=gen_,
+                                               device=dev)
+                            for cc in (None, ct_c):
+                                what = (f"reverse oscillator {mode} {pol} "
+                                        f"T={T}, frequency {fk}, amplitude "
+                                        f"{ak}, final clock's cotangent "
+                                        f"{'absent' if cc is None else 'present'}")
+                                plain = {}
+                                ork.LAUNCHES = 0
+                                with calls_counted(
+                                        [(gen, "oscillator_plain"),
+                                         (gen, "oscillator_adjoint"),
+                                         (gen, "_block_totals")], plain):
+                                    got = ork.oscillator_reverse_cuda(
+                                        mode, a, f, T, c0, ct_y, cc, need,
+                                        cl)
+                                nl = ork.LAUNCHES
+                                want = gen.oscillator_adjoint(
+                                    mode, a, f, T, c0, ct_y, cc, need)
+                                torch.cuda.synchronize()
+                                check(not plain, f"{what}: ran {plain}")
+                                ln = ork.plan_reverse(mode, a, f, T, c0,
+                                                      ct_y, cc, need, cl)
+                                check(nl == ork.passes_of(ln.passes),
+                                      f"{what}: {nl} launches")
+                                err, bit = osc_grads_held(
+                                    what, got, want, OSC_REV_RTOL)
+                                rec["err"] = max(rec["err"], err)
+                                n += 1
+                                n_bit += bit
+                                if T <= 256:
+                                    osc_vs_autograd(what, mode, a, f, T, c0,
+                                                    ct_y, cc, got, want, rec)
+            print(f"  T={T}, {pol}: {n_bit} of {n} calls bitwise (every "
+                  f"gradient) against the plain adjoint on the card")
+            rec["cases"] += n
+            rec["bitwise"] += n_bit
+    # config5's LFO at the main path's length, and ten launches
+    ct = torch.randn((T_MAIN,), generator=gen_, device=dev)
+    a, f = (torch.tensor(v, device=dev) for v in (0.6, 0.5))
+    for pol in ("fast", "parity"):
+        with dst.policy(pol):
+            _, _, cl = ok.oscillator_cuda("Sine", a, f, T_MAIN, c0,
+                                          pol != "fast")
+            got = ork.oscillator_reverse_cuda("Sine", a, f, T_MAIN, c0, ct,
+                                              None, need, cl)
+            want = gen.oscillator_adjoint("Sine", a, f, T_MAIN, c0, ct, None,
+                                          need)
+            osc_vs_autograd(f"config5's LFO {pol} [1, {T_MAIN}]", "Sine", a,
+                            f, T_MAIN, c0, ct, None, got, want, rec)
+            for _ in range(N_REV_LAUNCHES - 1):
+                again = ork.oscillator_reverse_cuda("Sine", a, f, T_MAIN, c0,
+                                                    ct, None, need, cl)
+                check(all(bits_same(g.reshape(-1), h.reshape(-1))
+                          for g, h in zip(again, got)),
+                      f"the reverse oscillator kernel ({pol}) is not "
+                      f"bitwise equal to itself")
+    torch.cuda.synchronize()
+    print(f"  {N_REV_LAUNCHES} launches at config5's LFO [1, {T_MAIN}] "
+          f"bitwise equal (fast, parity); against autograd through "
+          f"oscillator_plain (T = 128 and 256 every case, config5's LFO at "
+          f"{T_MAIN}): {rec['autograd']} gradients, worst "
+          f"{rec['autograd_worst']:.2e} max-normalized (rtol {GRAD_RTOL}), "
+          f"{rec['autograd_f64']} sums held by the float64 rule; max abs "
+          f"error against the plain adjoint over all calls {rec['err']:.3e}")
+    return rec
+
+
+def osc_vs_autograd(what, mode, a, f, T, c0, ct_y, ct_clock, got, want,
+                    rec) -> None:
+    """The kernel's gradients ``got`` against autograd through
+    oscillator_plain: within GRAD_RTOL (max-normalized), or where
+    autograd's f32 sum cancels past it, the plain adjoint's float64 sum
+    (``want``) within OSC_REV_RTOL and autograd's farther from it."""
+    ref = osc_autograd(mode, a, f, T, c0, ct_y, ct_clock)
+    for i, (g, r, p) in enumerate(zip(got, ref, want)):
+        check((g is None) == (r is None), f"{what}: gradient {i} vs "
+                                          f"autograd's")
+        if g is None:
+            continue
+        r = r.reshape(g.shape)
+        e = float((g.double() - r.double()).abs().max()
+                  / r.double().abs().max().clamp_min(1e-30))
+        rec["autograd"] += 1
+        if e <= GRAD_RTOL:
+            rec["autograd_worst"] = max(rec["autograd_worst"], e)
+            continue
+        off_k = float((g.double() - p.double()).abs().max())
+        off_r = float((r.double() - p.double()).abs().max())
+        check(g.dim() == 0 and sums_close(g, p, OSC_REV_RTOL, 1e-12)
+              and off_r >= off_k,
+              f"{what}: gradient {i} {g.flatten()[:3].tolist()} against "
+              f"autograd's {r.flatten()[:3].tolist()}, the float64 sum's "
+              f"{p.flatten()[:3].tolist()}")
+        rec["autograd_f64"] += 1
+        print(f"  {what}: gradient {i} {float(g):.9e} on the card, "
+              f"autograd's f32 sum {float(r):.9e}, the plain adjoint's "
+              f"float64 {float(p):.9e}")
+
+
+def oscillator_reverse_phase(dev, card) -> dict:
+    """The reverse oscillator kernel on the card: oscillator_reverse_checks;
+    config5's LFO (Sine 0.5 Hz, amplitude 0.6, every operand a gradient,
+    the wave's cotangent alone) at [1, T_MAIN] under fast and parity, the
+    kernel and its plain version in turns (CUDA events), its device time
+    by pass (torch.profiler) beside its bound and its dependent-chain
+    floor.  Returns the kernels line's figures."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.ops import gen
+    from dsp_stuff_tpu_torch.ops import oscillator_kernel as ok
+    from dsp_stuff_tpu_torch.ops import oscillator_reverse_kernel as ork
+    t_phase = time.time()
+    print("reverse oscillator kernel vs its plain version on the card:")
+    rec = oscillator_reverse_checks(dev)
+    c0 = torch.tensor(0.25, device=dev)
+    a, f = (torch.tensor(v, device=dev) for v in (0.6, 0.5))
+    ct = torch.randn((T_MAIN,), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(162))
+    need = (True, True, True)
+    rec["times"] = {}
+    for pol in ("fast", "parity"):
+        with dst.policy(pol):
+            _, _, cl = ok.oscillator_cuda("Sine", a, f, T_MAIN, c0,
+                                          pol != "fast")
+
+            def fk():
+                return ork.oscillator_reverse_cuda("Sine", a, f, T_MAIN, c0,
+                                                   ct, None, need, cl)
+
+            def fp():
+                return gen.oscillator_adjoint("Sine", a, f, T_MAIN, c0, ct,
+                                              None, need)
+            tk, tp = in_turns(fk, fp, N_TIMED_SLOW)
+            dev_ms = {p: kernel_device_ms(fk, f"oscillator_reverse_{p}_"
+                                              f"kernel")[0]
+                      for p in ("wave", "sum")}
+        bnd = osc_reverse_bound(1, T_MAIN)
+        floor = osc_reverse_floor_ms(T_MAIN)
+        total = (None if None in dev_ms.values()
+                 else sum(dev_ms.values()))
+        rec["times"][pol] = dict(ms=tk, plain_ms=tp, device_ms=total,
+                                 by_pass=dev_ms, bound=bnd, floor=floor)
+        print(f"  config5's LFO (Sine 0.5 Hz) backward, [1, {T_MAIN}], "
+              f"{pol}: kernel {tk:.4f} ms, plain adjoint {tp:.3f} ms "
+              f"({tp / tk:.1f}x); device ms by pass {dev_ms}; bound "
+              f"{bnd[0] * 1e3:.3f} us by {bnd[1]}, dependent-chain floor "
+              f"{floor * 1e3:.3f} us"
+              + (f" ({floor / total:.1%} of the device time)" if total
+                 else "") + f" [{card}]")
+    print(f"reverse oscillator phase: {time.time() - t_phase:.1f} s")
     return rec
 
 
@@ -7266,7 +7618,9 @@ def fuzz_group_phase(dev, card) -> dict:
                                    dev, card)[0]
     del x, groups
     # the gradient through a Fuzz group: the groups' Function, its
-    # backward group_vjp (no reverse kernel for bmax yet)
+    # backward the reverse kernel's staged build (one call, group_vjp and
+    # interpret not run)
+    from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
     xs = torch.as_tensor(rng.standard_normal((4, SR)).astype(np.float32),
                          device=dev)
     w = torch.as_tensor(rng.standard_normal((4, SR)).astype(np.float32),
@@ -7280,17 +7634,202 @@ def fuzz_group_phase(dev, card) -> dict:
             lv = torch.tensor(2.5, device=dev, requires_grad=True)
             y = (pk.group_call(prog, [xx], [lv], SR, dev)[0]
                  if route == "group" else shaping.fuzz(xx, lv, 128))
-            (y * w).sum().backward()
+            prk.LAUNCHES, ran = 0, {}
+            with calls_counted([(pk, "group_vjp"), (pw, "interpret")], ran):
+                (y * w).sum().backward()
+            if route == "group":
+                check(prk.LAUNCHES == 1 and not ran,
+                      f"a Fuzz group's backward: {prk.LAUNCHES} reverse "
+                      f"calls, ran {ran}")
             (got if route == "group" else want).extend([xx.grad, lv.grad])
     torch.cuda.synchronize()
     errs = [grad_close(f"Fuzz group gradient {i}", g_, w_)
             for i, (g_, w_) in enumerate(zip(got, want))]
     rec["grad_err"] = max(errs)
     print(f"  a Fuzz group's gradient (x and its level) through the "
-          f"groups' Function (group_vjp) against autograd through the "
-          f"eager fuzz, [4, {SR}]: worst {rec['grad_err']:.2e} (rtol "
-          f"{GRAD_RTOL}) [{card}]")
+          f"groups' Function (the reverse kernel, one call) against "
+          f"autograd through the eager fuzz, [4, {SR}]: worst "
+          f"{rec['grad_err']:.2e} (rtol {GRAD_RTOL}) [{card}]")
+    rec["reverse"] = fuzz_reverse_checks(dev, card)
+    rec["graph_grad"] = fuzz_graph_grad(dev, card)
     print(f"Fuzz group phase: {time.time() - t_phase:.1f} s")
+    return rec
+
+
+#: the Fuzz reverse checks' shapes: a float4 shape, three rows, the main
+#: path's
+FUZZ_REV_SHAPES = ((4, 4096), (3, 1024), (B_FUZZ_TIMED, T_MAIN))
+
+
+def fuzz_reverse_inputs(shape, dev, seed):
+    """x [B, T] N(0, 0.5) on ``dev`` with a NaN, an inf and a -inf, an
+    all-zero block and a block of ties (its max at three samples)
+    planted."""
+    import torch
+    B, T = shape
+    x = (np.random.default_rng(seed).standard_normal(shape) * 0.5).astype(
+        np.float32)
+    x[0, 300], x[min(2, B - 1), 700], x[0, 900] = np.nan, np.inf, -np.inf
+    x[1, 128:256] = 0.0
+    x[B - 1, 10], x[B - 1, 40], x[B - 1, 77] = 3.0, -3.0, 3.0
+    return torch.as_tensor(x, device=dev)
+
+
+def fuzz_reverse_checks(dev, card) -> dict:
+    """The reverse kernel's staged build on a Fuzz group (one node, the
+    level a slider and a [B, T] modulation) at FUZZ_REV_SHAPES under fast,
+    parity and exact, NaN, inf, all-zero and tied blocks planted, every
+    operand and x alone needing a gradient: against autograd through
+    interpret (reverse_held: row 43's bounds, the non-finite samples
+    exactly autograd's) and against group_adjoint(sums64=True) (bitwise
+    expected: per element <= PW_REV_DB, a sum rtol 1e-6); ten launches
+    bitwise; the slider case at [B_FUZZ_TIMED, T_MAIN] under fast timed
+    against group_vjp beside its bound (reverse_group_checks).  Returns
+    the counts and the timed record."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import pointwise as pw
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
+    from dsp_stuff_tpu_torch.utils.precision import scalar_on
+    t0 = time.time()
+    print("the reverse pointwise kernel on Fuzz groups (the staged build), "
+          "specials, an all-zero block and ties planted:")
+    out = {"cases": 0, "vjp_bitwise": 0, "plain_bitwise": 0, "held64": 0}
+    for pol in ("fast", "parity", "exact"):
+        with dst.policy(pol):
+            for j, shape in enumerate(FUZZ_REV_SHAPES):
+                B, T = shape
+                x = fuzz_reverse_inputs(shape, dev, 790 + j)
+                for kind in ("slider", "[B, T]"):
+                    b = pw.Builder()
+                    xv = b.sig()
+                    lvv = b.scal() if kind == "slider" else b.sig()
+                    prog = b.program([pw.fuzz(b, xv, lvv, pol)])
+                    if kind == "slider":
+                        sigs, scals = [x], [scalar_on(2.5, dev)]
+                    else:
+                        sigs, scals = [x, torch.rand(
+                            shape, device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(j)) * 4.0], []
+                    cts = reverse_cotangents(prog, sigs, scals, T, dev,
+                                             800 + j)
+                    for need in reverse_needs(prog):
+                        need = list(need)
+                        what = (f"Fuzz reverse {pol} {list(shape)}, level "
+                                f"{kind}, need {sum(need)}")
+                        _, bit, h = reverse_held(what, prog, sigs, scals,
+                                                 cts, need, T, dev)
+                        k = prk.reverse_group(prog, sigs, scals, cts, need,
+                                              T, dev)
+                        p = pk.group_adjoint(prog, sigs, scals, cts, need,
+                                             T, dev, sums64=True)
+                        torch.cuda.synchronize()
+                        same = True
+                        for i, (a, q) in enumerate(zip(k, p)):
+                            check((a is None) == (q is None),
+                                  f"{what}: gradient {i} vs the plain's")
+                            if a is None:
+                                continue
+                            same &= bits_same(a, q)
+                            if a.dim():
+                                d = nonfinite_dbfs(f"{what} vs plain", a, q)
+                                check(d <= PW_REV_DB, f"{what}: gradient {i} "
+                                                      f"{d:.1f} dBFS")
+                            else:
+                                check(sums_close(a, q, 1e-6, 0.0),
+                                      f"{what}: sum {i} vs the plain's")
+                        out["cases"] += 1
+                        out["vjp_bitwise"] += bit
+                        out["plain_bitwise"] += same
+                        out["held64"] += h
+                        del k, p
+                del x, sigs, scals, cts
+                torch.cuda.empty_cache()
+        print(f"  {pol}: {out['cases']} cases so far, bitwise autograd "
+              f"through interpret {out['vjp_bitwise']}, bitwise the plain "
+              f"adjoint {out['plain_bitwise']}, sums by the float64 rule "
+              f"{out['held64']}")
+    b = pw.Builder()
+    prog = b.program([pw.fuzz(b, b.sig(), b.scal(), "fast")])
+    with dst.policy("fast"):
+        reverse_determinism(prog, [fuzz_reverse_inputs((4, 4096), dev, 795)],
+                            [scalar_on(2.5, dev)], 4096, dev)
+        x = torch.as_tensor(np.random.default_rng(796).standard_normal(
+            (B_FUZZ_TIMED, T_MAIN), dtype=np.float32) * np.float32(0.3),
+            device=dev)
+        timed = reverse_group_checks(
+            f"Fuzz group, B={B_FUZZ_TIMED} x 10 s, fast",
+            [(prog, [x], [scalar_on(2.5, dev)], T_MAIN)], dev, card,
+            timed=True)
+    out["times"] = next(r for r in timed if sum(r[0]) > 1)
+    del x, timed
+    torch.cuda.empty_cache()
+    print(f"  Fuzz reverse checks: {time.time() - t0:.1f} s")
+    return out
+
+
+def fuzz_graph_grad(dev, card) -> dict:
+    """gain -> Fuzz -> mix through compile_graph on the card, the loss's
+    gradient with respect to the input and the Fuzz level: at
+    [B_FUZZ_TIMED, T_MAIN] one reverse pointwise call (the group's) and
+    neither interpret nor oscillator_plain run, forward or backward;
+    at [2, SR] against the CPU port (rtol GRAD_RTOL)."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    g = fuzz_group_graphs()["gain -> Fuzz -> mix"]
+    fz = str(next(n for n, v in g.nodes.items() if v.cfg_name == "distort"))
+    rng = np.random.default_rng(797)
+
+    def grads(d, B, T, counted):
+        cg = dst.compile_graph(g, device=d)
+        x = torch.as_tensor(rng.standard_normal((B, 1, T), dtype=np.float32)
+                            * np.float32(0.3), device=d).requires_grad_(True)
+        w = torch.as_tensor(rng.standard_normal((B, 1, T), dtype=np.float32),
+                            device=d)
+        lv = torch.tensor(2.5, device=d, requires_grad=True)
+        plain, vjps = {}, {}
+        reset_launches()
+        t0 = time.time()
+        with (forward_and_vjps_counted(plain, vjps, first_order=False)
+              if counted else contextlib.nullcontext()):
+            y = cg.render(x, batch_shape=(B,), params={fz: {"level": lv}})[0]
+            (y * w).sum().backward()
+        if counted:
+            torch.cuda.synchronize()
+        return x.grad, lv.grad, read_launches(), plain, vjps, time.time() - t0
+
+    rec = {}
+    leaf = (lambda c: {fz: {"level": torch.tensor(2.5, requires_grad=True)}})
+    n_fwd = cpu_group_calls(g, "fast", leaf)
+    n_rev = len(cpu_group_backwards(g, "fast", leaf, True))
+    with dst.policy("fast"):
+        gx, gl, launches, plain, vjps, wall = grads(dev, B_FUZZ_TIMED,
+                                                    T_MAIN, True)
+        check(not vjps and not plain and launches == only_launches(
+            pointwise=n_fwd, pointwise_reverse=n_rev) and n_rev >= 1,
+              f"gain -> Fuzz -> mix gradient: launches {launches} (expected "
+              f"{n_fwd} groups, {n_rev} reverse calls), plain versions "
+              f"{plain}, {vjps}")
+        check(bool(torch.isfinite(gx).all()) and bool(torch.isfinite(gl)),
+              "gain -> Fuzz -> mix gradient not finite")
+        print(f"main path (gain -> Fuzz -> mix gradient, the input and the "
+              f"Fuzz level), [{B_FUZZ_TIMED}, {T_MAIN}]: forward + backward "
+              f"{wall * 1e3:.1f} ms (first call), launches "
+              f"{expect_str(launches)}, no plain version [{card}]")
+        rec["launches"] = launches
+        del gx, gl
+        torch.cuda.empty_cache()
+        seed = rng.bit_generator.state
+        card_ = grads(dev, 2, SR, False)
+        rng.bit_generator.state = seed
+        cpu = grads("cpu", 2, SR, False)
+    rec["cpu_err"] = max(grad_close(f"gain -> Fuzz -> mix gradient {i}, card "
+                                    f"vs CPU", a, b2)
+                         for i, (a, b2) in enumerate(zip(card_[:2], cpu[:2])))
+    print(f"  gain -> Fuzz -> mix gradient [2, {SR}], card vs CPU port: "
+          f"worst {rec['cpu_err']:.2e} (rtol {GRAD_RTOL})")
     return rec
 
 
@@ -7803,6 +8342,9 @@ def main() -> int:
     osc = oscillator_phase(dev, card)
     clock.lap("oscillator")
     torch.cuda.empty_cache()
+    orv = oscillator_reverse_phase(dev, card)
+    clock.lap("reverse oscillator")
+    torch.cuda.empty_cache()
     fzg = fuzz_group_phase(dev, card)
     clock.lap("Fuzz groups")
     torch.cuda.empty_cache()
@@ -7887,7 +8429,8 @@ def main() -> int:
                      floor_ms=m["floor"], shape=list(shape), **extra)
 
     program5 = programs["config5"][0]
-    osc_t = osc["times"]
+    osc_t, orv_t = osc["times"], orv["times"]
+    fzr = fzg["reverse"]["times"]
     pw5, pw5w, pw3 = (pw[(name, b)] for name, b in (
         ("config5", B_C5), ("config5", B_PW_WIDE), ("config3", B_C3)))
     # the reverse kernel: config5's first group (pre -> overdrive ->
@@ -7948,7 +8491,8 @@ def main() -> int:
               fuzz_group_bound_ms=fzg["times"][2][0],
               fuzz_group_device_ms=fzg["times"][5],
               fuzz_group_shape=[B_FUZZ_TIMED, T_MAIN],
-              fuzz_grad_err=fzg["grad_err"]),
+              fuzz_grad_err=fzg["grad_err"],
+              fuzz_graph_grad_launches=fzg["graph_grad"]["launches"]),
         entry("oscillator_kernel", "oscillator_kernel.cu",
               "dsp_stuff_tpu/ops/gen.py:97", c5_launches["oscillator"],
               osc["err"], (osc_t[("fast", T_MAIN)]["ms"],
@@ -8002,7 +8546,29 @@ def main() -> int:
               loop_reverse_sums_us=clg["fit"]["kernel_us"].get(
                   "pointwise_reverse:sums"),
               loop_reverse_bound_us=clg["fit"]["bound_us"],
-              loop_shape=[B_LOOP, 128]),
+              loop_shape=[B_LOOP, 128],
+              fuzz_reverse_ms=fzr[3], fuzz_reverse_plain_ms=fzr[4],
+              fuzz_reverse_bound_ms=fzr[5][0],
+              fuzz_reverse_bound_by=fzr[5][1],
+              fuzz_reverse_device_ms=fzr[6],
+              fuzz_reverse_shape=[B_FUZZ_TIMED, T_MAIN],
+              fuzz_reverse_checks=[fzg["reverse"][k] for k in (
+                  "plain_bitwise", "vjp_bitwise", "cases")]),
+        entry("oscillator_reverse_kernel", "oscillator_reverse_kernel.cu",
+              "dsp_stuff_tpu/ops/gen.py:97", clg["fit"]["osc_reverse"],
+              orv["err"],
+              (orv_t["fast"]["ms"], orv_t["fast"]["plain_ms"]),
+              orv_t["fast"]["bound"], floor_ms=orv_t["fast"]["floor"],
+              device_ms=orv_t["fast"]["device_ms"],
+              device_ms_by_pass=orv_t["fast"]["by_pass"],
+              shape=[1, T_MAIN], ms_parity=orv_t["parity"]["ms"],
+              plain_ms_parity=orv_t["parity"]["plain_ms"],
+              floor_ms_parity=orv_t["parity"]["floor"],
+              device_ms_parity=orv_t["parity"]["device_ms"],
+              device_ms_by_pass_parity=orv_t["parity"]["by_pass"],
+              checks_bitwise=[orv["bitwise"], orv["cases"]],
+              launches_every_slider_card_vs_cpu=gr["c5_every"][
+                  "oscillator_reverse"]),
         entry("cycle_kernel", "cycle_kernel.cu",
               "dsp_stuff_tpu/ops/pallas_cycle.py:220",
               c5_launches["cycle"], cycle_err, times["cycle"],

@@ -38,9 +38,10 @@ A group's backward is another straight-line program over the same IR,
 :func:`adjoint`: the forward's values recomputed from the operands, then
 autograd's formula for each eager op's vjp in reverse order, with a
 ``red`` op wherever autograd sums a gradient to a narrower operand's
-shape.  The values' shapes enter through their *class*
-(:data:`CLASSES`): which axes of the launch's [rows, T] a value spans,
-so the uniform part of the backward is computed once, not once a sample.
+shape (a block max's vjp by two more block ops, ``bsum`` and ``bcnt``).
+The values' shapes enter through their *class* (:data:`CLASSES`): which
+axes of the launch's [rows, T] a value spans, so the uniform part of the
+backward is computed once, not once a sample.
 :func:`interpret_adjoint` is its plain version; the reverse kernel
 (ops/pointwise_reverse_kernel.py, csrc/pointwise_reverse_kernel.cu) runs
 it on the card.
@@ -56,6 +57,7 @@ import torch
 from dsp_stuff_tpu_torch.ops import shaping
 from dsp_stuff_tpu_torch.ops.shaping import BYPASS_EPS
 from dsp_stuff_tpu_torch.utils.precision import div_ieee, scalar_on
+from dsp_stuff_tpu_torch.utils.sums64 import block_sums64
 
 #: every op of the IR: (operand count, result dtype or None for the
 #: operands' dtype)
@@ -65,7 +67,8 @@ OPS = {
     "add": (2, None), "sub": (2, None), "mul": (2, None), "div": (2, None),
     "neg": (1, None), "abs": (1, None), "sign": (1, None),
     "lt": (2, "bool"), "le": (2, "bool"), "gt": (2, "bool"),
-    "ge": (2, "bool"), "and": (2, "bool"), "or": (2, "bool"),
+    "ge": (2, "bool"), "eq": (2, "bool"), "and": (2, "bool"),
+    "or": (2, "bool"),
     "where": (3, None), "clamp": (1, None),
     "f64": (1, "f64"), "f32": (1, "f32"),
     "atan": (1, None), "tanh": (1, None), "sin": (1, None),
@@ -74,9 +77,15 @@ OPS = {
     # over the block: Fuzz's block maxima
     "bmax": (1, None),
     # the adjoint's own: the k-th output's cotangent, and a sum to a
-    # narrower class (imm: (target class, source class))
+    # narrower class (imm: (target class, source class)); bmax's vjp: the
+    # sum of a value over its 128-sample block and the count of the
+    # block's samples where two values are equal, each uniform over the
+    # block
     "ct": (0, "f32"), "red": (1, None),
+    "bsum": (1, None), "bcnt": (2, "f32"),
 }
+#: the ops that are not per sample but per 128-sample block
+BLOCK_OPS = ("bmax", "bsum", "bcnt")
 TRANSCENDENTALS = ("atan", "tanh", "sin", "cos", "exp")
 #: the block of ``bmax`` (the reference's frame, node.rs:257)
 BLOCK = 128
@@ -457,6 +466,8 @@ def _eval(op, dt, a, imm, T: int, device):
         return a[0] > a[1]
     if op == "ge":
         return a[0] >= a[1]
+    if op == "eq":
+        return a[0] == a[1]
     if op == "and":
         return a[0] & a[1]
     if op == "or":
@@ -485,7 +496,32 @@ def _eval(op, dt, a, imm, T: int, device):
         vb = v.reshape(*v.shape[:-1], T // BLOCK, BLOCK)
         return torch.amax(vb, dim=-1, keepdim=True).expand(
             vb.shape).reshape(v.shape)
+    if op == "bcnt":
+        # amax's backward: the count of its ties, mask.sum(dim, keepdim)
+        eq = _blocks(a[0] == a[1], T)
+        return eq.sum(-1, keepdim=True).to(torch.float32).expand(
+            eq.shape).reshape(eq.shape[:-2] + (T,))
     raise ValueError(f"pointwise: unknown op {op!r}")
+
+
+def _blocks(v, T: int):
+    """``v`` [..., T] as [..., T / 128, 128]."""
+    if v.dim() == 0 or v.shape[-1] != T or T % BLOCK:
+        raise ValueError(f"pointwise: a block op of shape {tuple(v.shape)} "
+                         f"needs [..., T] with T % {BLOCK} == 0, T={T}")
+    return v.reshape(*v.shape[:-1], T // BLOCK, BLOCK)
+
+
+def _bsum(v, T: int, sums64: bool):
+    """The sum of ``v`` over each 128-sample block, spread back over it
+    (the expand's backward of bmax's vjp): autograd's f32 sum, or with
+    ``sums64`` the reverse kernel's (pointwise_ops.cuh pw_bsum,
+    utils/sums64.block_sums64), rounded once."""
+    vb = _blocks(v, T)
+    if not sums64:
+        return vb.sum(-1, keepdim=True).expand(vb.shape).reshape(v.shape)
+    s = block_sums64(v, BLOCK).to(vb.dtype)
+    return s.unsqueeze(-1).expand(vb.shape).reshape(v.shape)
 
 
 def shapes(prog: Program, sig_shapes, scal_shapes, T: int) -> list:
@@ -607,13 +643,12 @@ def adjoint(prog: Program, need: tuple, has_ct: tuple,
     appears where autograd computes nothing.  A consumer whose class is
     wider than its operand's sums its contribution with a ``red`` op;
     above it the chain runs at the operand's class.  Values no needed
-    gradient depends on are dropped.  A program with a ``bmax`` (Fuzz)
-    has no adjoint here: its group's backward is autograd through
-    :func:`interpret` (ops/pointwise_kernel.group_vjp)."""
-    if has_bmax(prog):
-        raise ValueError("pointwise adjoint: a program with bmax (a Fuzz "
-                         "group) has no adjoint program; its backward is "
-                         "pointwise_kernel.group_vjp")
+    gradient depends on are dropped.  A block max m = bmax(v) (Fuzz)
+    takes autograd's ``amax(keepdim).expand`` backward: the expand's sum
+    of g over the block, S = bsum(g), then amax's (S / count) * mask with
+    mask = (v == m) and count = bcnt(v, m) its ties (a multiply by the
+    mask, not a where: a NaN or inf S, or a NaN block's count of 0, makes
+    every sample of the block NaN)."""
     n_sig, n_scal = prog.n_sig, prog.n_scal
     classes = tuple(classes[:n_sig]) + ("U",) * n_scal
     fc: list = []               # the forward values' classes
@@ -729,6 +764,13 @@ def _vjp(b, val, prog, i, g):
         return [(0, lambda: b._op("f32", (g,)))]
     if op == "f32":
         return [(0, lambda: b._op("f64", (g,)))]
+    if op == "bmax":
+        def amax_vjp():
+            v, m = x(0), val(i)
+            mask = b.where(b._op("eq", (v, m)), one(), zero())
+            return b.mul(b.div(b._op("bsum", (g,)),
+                               b._op("bcnt", (v, m))), mask)
+        return [(0, amax_vjp)]
     raise ValueError(f"pointwise adjoint: no vjp for op {op!r}")
 
 
@@ -775,8 +817,9 @@ def interpret_adjoint(adj: Adjoint, sigs, scals, cts, rows: int, T: int,
     cotangents likewise (None where ``adj`` reads none): the per-element
     ops as the eager ops, each ``red`` as ``sum_to_size`` of its operand
     broadcast to its source class (autograd's sum of a consumer's
-    gradient), and the reduced tail after it; with ``sums64`` each sum in
-    float64, rounded once to its dtype, as the reverse kernel takes it.
+    gradient), and the reduced tail after it; the block ops over [...,
+    T / 128, 128]; with ``sums64`` each sum in float64, rounded once to
+    its dtype, as the reverse kernel takes it.
     Returns each operand's gradient at its class's 2-D shape, or None.
     The reverse kernel's plain version (ops/pointwise_kernel.
     group_adjoint)."""
@@ -801,6 +844,12 @@ def interpret_adjoint(adj: Adjoint, sigs, scals, cts, rows: int, T: int,
             v = (t.double().sum_to_size(class_shape(imm[0], rows, T)).to(
                 t.dtype) if sums64 else t.sum_to_size(
                     class_shape(imm[0], rows, T)))
+        elif op == "bsum":
+            v = _bsum(a[0].expand(class_shape(adj.cls[i], rows, T)), T,
+                      sums64)
+        elif op in ("bmax", "bcnt"):
+            v = _eval(op, dt, [t.expand(class_shape(adj.cls[i], rows, T))
+                               for t in a], imm, T, device)
         else:
             v = _eval(op, dt, a, imm, T, device)
         vals.append(v)

@@ -63,19 +63,10 @@
 #include <math.h>
 #include <stdint.h>
 
-#define OSC_BLOCK 128              // the reference's block (node.rs:257)
+#include "oscillator_ops.cuh"
+
 #define OSC_CLOCK_THREADS 1024     // threads a CTA of the clock pass
 #define OSC_WAVE_WARPS 8           // warps a CTA of the wave pass
-
-#define OSC_SINE 0
-#define OSC_TRIANGLE 1
-#define OSC_SQUARE 2
-#define OSC_CONSTANT 3
-
-// float32(2 pi), 2 pi and 1 / (2 pi) in f64 (the eager code's constants)
-#define OSC_TAU 0x1.921fb6p+2f
-#define OSC_TWO_PI 0x1.921fb54442d18p+2
-#define OSC_INV_TWO_PI 0x1.45f306dc9c883p-3
 
 struct OscArgs {
   const float* freq;     // the frequency over the clock rows
@@ -93,18 +84,6 @@ struct OscArgs {
   int mode, exact;       // exact: the f32 carry and the f64 sine
   int fused;             // one launch: the clock from c0, lane 31's final
 };
-
-// torch.remainder(x, 1): fmod(x, 1) = x - trunc(x), exact for every finite
-// x, with the sign of x when it is 0 (copysign); then + 1 (rounded) where
-// it is negative.  inf and NaN give NaN, as fmod does.
-__device__ __forceinline__ float osc_rem1(float x) {
-  float m = copysignf(__fsub_rn(x, truncf(x)), x);
-  return m < 0.0f ? __fadd_rn(m, 1.0f) : m;
-}
-__device__ __forceinline__ double osc_rem1(double x) {
-  double m = copysign(__dsub_rn(x, trunc(x)), x);
-  return m < 0.0 ? __dadd_rn(m, 1.0) : m;
-}
 
 __device__ __forceinline__ float osc_step(const OscArgs& a, long long cr,
                                           long long t) {
@@ -280,19 +259,8 @@ oscillator_wave_kernel(const OscArgs a) {
       *reinterpret_cast<float4*>(sm + 4 * lane) =
           make_float4(s[0], s[1], s[2], s[3]);
       __syncwarp();
-      // the total before this lane's samples: the steps of the lanes
-      // before it, in order, from 0
-      float acc = 0.0f;
-      for (int q = 0; q < lane; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(sm + 4 * q);
-        acc = __fadd_rn(acc, v.x);
-        acc = __fadd_rn(acc, v.y);
-        acc = __fadd_rn(acc, v.z);
-        acc = __fadd_rn(acc, v.w);
-      }
       float tot[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) tot[j] = acc = __fadd_rn(acc, s[j]);
+      osc_totals(sm, lane, s, tot);
       float clock;
       if (a.fused) {
         const float c0 = a.c0[cr];

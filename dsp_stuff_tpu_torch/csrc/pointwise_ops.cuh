@@ -124,6 +124,36 @@ __device__ __forceinline__ void pw_bmax(float (&m)[N], const float (&v)[N]) {
   for (int i = 0; i < N; ++i) m[i] = r;
 }
 
+// bmax's vjp in the reverse kernel's staged build (compiler/pointwise.py
+// ``bsum`` and ``bcnt``), as pw_bmax a warp one 128-sample block of a row:
+// the block's sum in float64 from +0.0 (the lane's N samples in order,
+// then the warp's xor tree, lane i adding lane i + o for o = 16 .. 1),
+// rounded once; the count of the block's samples where a == b.  Each
+// spread over the lane's samples.
+template <int N>
+__device__ __forceinline__ void pw_bsum(float (&s)[N], const float (&v)[N]) {
+  double r = 0.0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) r = __dadd_rn(r, (double)v[i]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    r = __dadd_rn(r, __shfl_xor_sync(0xffffffffu, r, o));
+  const float f = __double2float_rn(r);
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = f;
+}
+template <int N>
+__device__ __forceinline__ void pw_bcnt(float (&c)[N], const float (&a)[N],
+                                        const float (&b)[N]) {
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) n += a[i] == b[i];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+#pragma unroll
+  for (int i = 0; i < N; ++i) c[i] = (float)n;
+}
+
 // torch.clamp with constant bounds: NaN propagates
 __device__ __forceinline__ float pw_clamp(float v, float lo, float hi) {
   return v < lo ? lo : (v > hi ? hi : v);

@@ -37,12 +37,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: the kernel sources, by name
 KERNELS = ("chain_kernel", "chain_reverse_kernel", "cycle_kernel",
            "cycle_reverse_kernel", "envelope_kernel", "first_order_kernel",
-           "oscillator_kernel", "pointwise_divide_check", "pointwise_kernel",
+           "oscillator_kernel", "oscillator_reverse_kernel",
+           "pointwise_divide_check", "pointwise_kernel",
            "pointwise_reverse_kernel", "sequential_kernel")
 #: the kernels built without a generated header
 STATIC_KERNELS = ("chain_kernel", "chain_reverse_kernel", "envelope_kernel",
                   "first_order_kernel", "oscillator_kernel",
-                  "sequential_kernel")
+                  "oscillator_reverse_kernel", "sequential_kernel")
 
 
 def _nvcc() -> str:

@@ -114,14 +114,35 @@ def _rows_of(t: torch.Tensor, batch, T: int):
     return t2, (t2.stride(0) if span != "none" else 0), st
 
 
-def plan(mode: str, amp: torch.Tensor, freq: torch.Tensor, T: int,
-         clock0: torch.Tensor) -> OscLaunch:
-    """Lay out a call on f32 tensors of one device: ``amp`` and ``freq``
-    0-d or [..., T] (or [..., 1]), ``clock0`` the clock at the first block
-    (its shape a batch).  The shapes are the plain version's: the wave is
-    the broadcast of the clock batch's [..., T] (the frequency's batch and
-    the clock's) and the amplitude, the final clock the clock batch; for
-    Constant, the amplitude over T and no clock."""
+class OscLayout(NamedTuple):
+    """A call's operands over its rows (:func:`layout`): the frequency
+    over the clock rows and the amplitude over the output rows, each
+    [rows or 1, T or 1] with its row and time strides, the first clock
+    [crows] (for Constant: the amplitude in the frequency's and the
+    clock's place), the counts, the eager shapes of the wave, its batch
+    and the clock batch, and whether one clock row serves every row."""
+    freq: torch.Tensor
+    f_sb: int
+    f_st: int
+    amp: torch.Tensor
+    a_sb: int
+    a_st: int
+    c0: torch.Tensor
+    rows: int
+    crows: int
+    T: int
+    nb: int
+    out_shape: tuple
+    batch: tuple
+    cbatch: tuple
+    one: bool
+
+
+def layout(mode: str, amp: torch.Tensor, freq: torch.Tensor, T: int,
+           clock0: torch.Tensor) -> OscLayout:
+    """Lay a call's operands out over its rows (f32 tensors of one device,
+    as :func:`plan` takes them); allocates nothing but an operand that
+    spans part of the batch, expanded."""
     if mode not in MODES:
         raise ValueError(mode)
     if T < BLOCK or T % BLOCK:
@@ -142,11 +163,8 @@ def plan(mode: str, amp: torch.Tensor, freq: torch.Tensor, T: int,
         batch = out_shape[:-1]
         rows = math.prod(batch)
         a2, a_sb, a_st = _rows_of(amp, batch, T)
-        y = torch.empty((rows, T), dtype=torch.float32, device=dev)
-        return OscLaunch(a2, 0, 0, a2, a_sb, a_st, a2, y, None, None,
-                         y.reshape(out_shape), None, rows, 1, T, nb,
-                         MODES[mode], True,
-                         (min(-(-rows * nb // WAVE_WARPS), MAX_GRID),))
+        return OscLayout(a2, 0, 0, a2, a_sb, a_st, a2, rows, 1, T, nb,
+                         out_shape, batch, (), True)
     fb = tuple(freq.shape[:-1]) if freq.dim() else ()
     cbatch = tuple(torch.broadcast_shapes(fb, clock0.shape))
     out_shape = tuple(torch.broadcast_shapes((*cbatch, T), amp.shape))
@@ -161,23 +179,50 @@ def plan(mode: str, amp: torch.Tensor, freq: torch.Tensor, T: int,
     c2 = clock0.reshape(()) if one else clock0
     c2 = c2.expand(crow_batch).reshape(crows).contiguous()
     a2, a_sb, a_st = _rows_of(amp, batch, T)
+    return OscLayout(f2, f_sb, f_st, a2, a_sb, a_st, c2, rows, crows, T, nb,
+                     out_shape, batch, cbatch, one)
+
+
+def clock_index(batch, cbatch) -> tuple:
+    """The index of the clock batch's rows in the output batch's (a clock
+    batch that spans part of it was expanded to it)."""
+    lead = (1,) * (len(batch) - len(cbatch)) + tuple(cbatch)
+    return tuple(slice(0, 1) if c == 1 and b != 1 else slice(None)
+                 for c, b in zip(lead, batch))
+
+
+def plan(mode: str, amp: torch.Tensor, freq: torch.Tensor, T: int,
+         clock0: torch.Tensor) -> OscLaunch:
+    """Lay out a call on f32 tensors of one device: ``amp`` and ``freq``
+    0-d or [..., T] (or [..., 1]), ``clock0`` the clock at the first block
+    (its shape a batch).  The shapes are the plain version's: the wave is
+    the broadcast of the clock batch's [..., T] (the frequency's batch and
+    the clock's) and the amplitude, the final clock the clock batch; for
+    Constant, the amplitude over T and no clock."""
+    lo = layout(mode, amp, freq, T, clock0)
+    dev, rows, nb = amp.device, lo.rows, lo.nb
     y = torch.empty((rows, T), dtype=torch.float32, device=dev)
+    if mode == "Constant":
+        return OscLaunch(lo.amp, 0, 0, lo.amp, lo.a_sb, lo.a_st, lo.amp, y,
+                         None, None, y.reshape(lo.out_shape), None, rows, 1,
+                         T, nb, MODES[mode], True,
+                         (min(-(-rows * nb // WAVE_WARPS), MAX_GRID),))
+    crows = lo.crows
     final = torch.empty((crows,), dtype=torch.float32, device=dev)
-    if one:
-        out_clock = final.reshape(cbatch)
+    if lo.one:
+        out_clock = final.reshape(lo.cbatch)
     else:
-        lead = (1,) * (len(batch) - len(cbatch)) + cbatch
-        idx = tuple(slice(0, 1) if c == 1 and b != 1 else slice(None)
-                    for c, b in zip(lead, batch))
-        out_clock = final.reshape(batch)[idx].reshape(cbatch)
+        idx = clock_index(lo.batch, lo.cbatch)
+        out_clock = final.reshape(lo.batch)[idx].reshape(lo.cbatch)
     fused = nb == 1
     clocks = None if fused else torch.empty((crows, nb), dtype=torch.float32,
                                             device=dev)
     wave = min(-(-rows * nb // WAVE_WARPS), MAX_GRID)
     grids = (wave,) if fused else (min(crows, MAX_CLOCK_GRID), wave)
-    return OscLaunch(f2, f_sb, f_st, a2, a_sb, a_st, c2, y, clocks, final,
-                     y.reshape(out_shape), out_clock, rows, crows, T, nb,
-                     MODES[mode], fused, grids)
+    return OscLaunch(lo.freq, lo.f_sb, lo.f_st, lo.amp, lo.a_sb, lo.a_st,
+                     lo.c0, y, clocks, final, y.reshape(lo.out_shape),
+                     out_clock, rows, crows, T, nb, MODES[mode], fused,
+                     grids)
 
 
 @functools.lru_cache(maxsize=1)
@@ -223,11 +268,14 @@ def _launch(ln: OscLaunch, passes, exact: bool, sample_rate: float) -> None:
 def oscillator_cuda(mode: str, amp: torch.Tensor, freq: torch.Tensor, T: int,
                     clock0: torch.Tensor, exact: bool,
                     sample_rate: float = 48_000.0):
-    """(wave, final clock) of the signal generator on the card: ``amp``,
-    ``freq`` and ``clock0`` f32 CUDA tensors (see :func:`plan`), ``exact``
-    the parity and exact policies' f32 carry and f64 sine (fast: the f64
-    running sum and sinf).  Constant returns ``clock0`` itself, as the
-    plain version does."""
+    """(wave, final clock, block clocks) of the signal generator on the
+    card: ``amp``, ``freq`` and ``clock0`` f32 CUDA tensors (see
+    :func:`plan`), ``exact`` the parity and exact policies' f32 carry and
+    f64 sine (fast: the f64 running sum and sinf).  Constant returns
+    ``clock0`` itself, as the plain version does.  The block clocks are
+    each block's clock [crows, T / 128] as the clock pass wrote it (None
+    for one block and for Constant), which the reverse kernel reads
+    (ops/oscillator_reverse_kernel.py)."""
     global LAUNCHES
     if not (isinstance(amp, torch.Tensor) and amp.is_cuda):
         raise ValueError("oscillator kernel: operands must be CUDA tensors")
@@ -235,9 +283,8 @@ def oscillator_cuda(mode: str, amp: torch.Tensor, freq: torch.Tensor, T: int,
     passes = (1,) if ln.fused else (0, 1)
     _launch(ln, passes, exact, sample_rate)
     LAUNCHES += len(passes)
-    if ln.out_clock is None:
-        return ln.out, clock0
-    return ln.out, ln.out_clock
+    return (ln.out, clock0 if ln.out_clock is None else ln.out_clock,
+            ln.clocks)
 
 
 def block_clocks_cuda(freq: torch.Tensor, T: int, clock0: torch.Tensor,

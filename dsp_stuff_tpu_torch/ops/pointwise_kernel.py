@@ -28,8 +28,9 @@ registers).  Its plain version is :func:`group_adjoint`;
 :func:`group_vjp`, autograd through the plain interpreter, is the
 reference of the route it replaced (as ``segment_vjp`` is the chain
 segment's) and the Function's backward where none is given.  A group
-with Fuzz (a program with ``bmax``) has no adjoint program yet: its
-backward is :func:`group_vjp`, until the reverse kernel takes ``bmax``.
+with Fuzz (a program with ``bmax``) takes the reverse kernel's staged
+build, every signal operand spanning the launch's rows and time (one of
+a narrower class is expanded and its gradient summed back).
 ``LAUNCHES`` counts the kernel's launches.
 
 A program with ``bmax`` is generated in stages (:func:`source`): the
@@ -55,6 +56,7 @@ from dsp_stuff_tpu_torch.ops import cuda_build
 from dsp_stuff_tpu_torch.ops.chain_segment import fresh, grads_of
 from dsp_stuff_tpu_torch.ops.scan import needs_grad
 from dsp_stuff_tpu_torch.utils.precision import get_policy, on_device
+from dsp_stuff_tpu_torch.utils.sums64 import sum_to64
 
 #: launches of the kernel in this process (a test or a smoke run resets it)
 LAUNCHES = 0
@@ -69,8 +71,8 @@ MAX_GRID_Y = 65535
 
 _CT = {"f32": "float", "f64": "double", "bool": "bool"}
 _BIN = {"add": "add", "sub": "sub", "mul": "mul", "div": "div"}
-_CMP = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "and": "&&",
-        "or": "||"}
+_CMP = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==",
+        "and": "&&", "or": "||"}
 
 
 def _lit(v: float, dt: str) -> str:
@@ -409,12 +411,9 @@ def _to_class(t, c: str, F: tuple, rows: int, T: int) -> torch.Tensor:
 
 def _from_class(g, shape, c: str, F: tuple) -> torch.Tensor:
     """A 2-D gradient of class ``c`` as its operand's ``shape``: summed
-    over the batch an operand that spans part of it was expanded to."""
-    lead = (1,) * (len(F) - len(shape)) + tuple(shape)
-    g = g.reshape(*_batch_of(c, F), lead[-1])
-    if tuple(g.shape) != lead:
-        g = g.sum_to_size(lead)
-    return g.reshape(shape)
+    (in float64, rounded once) over the batch or the time an operand that
+    spans part of it was expanded to."""
+    return sum_to64(g.reshape(*_batch_of(c, F), g.shape[-1]), shape)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -430,10 +429,13 @@ def plan_adjoint(prog: pointwise.Program, sigs, scals, cts, need,
     """Lay out the backward of ``prog`` on its operands and the cotangents
     of its outputs (None: no cotangent) for the operands that ``need`` a
     gradient: the forward's iteration shape, each signal's class, the
-    adjoint program and the 2-D tensors it reads."""
+    adjoint program and the 2-D tensors it reads.  A program with ``bmax``
+    takes every signal as spanning the rows and the time (class "F"), so
+    that its block ops run in the reverse kernel's full world."""
     F, rows, out_shapes = layout(prog, tuple(s.shape for s in sigs),
                                  tuple(s.shape for s in scals), T)
-    classes = tuple(pointwise.class_of(s.shape, F) for s in sigs)
+    classes = tuple("F" if pointwise.has_bmax(prog)
+                    else pointwise.class_of(s.shape, F) for s in sigs)
     adj = adjoint_of(prog, tuple(bool(n) for n in need),
                      tuple(c is not None for c in cts), classes)
     read = {imm for op, _, _, imm in adj.ops if op == "ct"}
@@ -526,9 +528,8 @@ def run(forward, prog, sigs, scals, T: int, device, backward=None) -> list:
 def group_call(prog: pointwise.Program, sigs, scals, T: int,
                device) -> list:
     """The outputs of the group ``prog``: the kernel on the card (its
-    backward the reverse kernel; :func:`group_vjp` for a program with
-    ``bmax``, which has no adjoint program yet), the plain
-    ``pointwise.interpret`` on the CPU."""
+    backward the reverse kernel), the plain ``pointwise.interpret`` on
+    the CPU."""
     device = torch.device(device)
     if device.type == "cpu":
         return pointwise.interpret(prog, list(sigs), list(scals), T, device)
@@ -536,8 +537,7 @@ def group_call(prog: pointwise.Program, sigs, scals, T: int,
         raise ValueError(f"pointwise group: no kernel for device {device}")
     from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel
     return run(_kernel_group, prog, sigs, scals, T, device,
-               None if pointwise.has_bmax(prog)
-               else pointwise_reverse_kernel.reverse_group)
+               pointwise_reverse_kernel.reverse_group)
 
 
 @functools.lru_cache(maxsize=256)

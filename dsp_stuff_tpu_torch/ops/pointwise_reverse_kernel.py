@@ -32,6 +32,13 @@ divide).  A group's backward is at most these two launches, the second
 only where a reduced gradient is left to it; no atomics, so ten calls are
 bitwise equal.
 
+A program with block ops (a Fuzz group: its forward's ``bmax`` and the
+vjp's ``bsum`` and ``bcnt``) is generated in stages (:func:`staged`,
+``pr_block``): a thread's four samples at once, each block op a warp
+reduction between two stages, a warp one 128-sample block of a row.  It
+launches only the float4 build with T % 128 == 0 (anything else raises);
+a stream whose row starts are not 16-byte aligned is copied first.
+
 ``reverse_group`` takes only CUDA tensors (the saved operands and the
 cotangents) and raises on anything else; there is no fallback.  Its plain
 PyTorch version is ops/pointwise_kernel.group_adjoint.  ``LAUNCHES``
@@ -202,12 +209,20 @@ def stream_classes(adj: pointwise.Adjoint) -> tuple:
     return tuple(cls[key] for key in worlds(adj).streams)
 
 
+def staged(adj: pointwise.Adjoint) -> bool:
+    """Whether ``adj`` holds a block op (a Fuzz group's: bmax, bsum,
+    bcnt), which the staged build takes."""
+    return any(op in pointwise.BLOCK_OPS for op, *_ in adj.ops)
+
+
 @functools.lru_cache(maxsize=256)
 def hoisted(adj: pointwise.Adjoint) -> tuple:
     """The full world's statements of class C (a value of the samples
     alone: its operands of class C or U), which pass 1 computes once for
     its samples before its row loop (``pr_col``); its sums stay per
-    element."""
+    element.  None in a staged build."""
+    if staged(adj):
+        return ()
     w = worlds(adj)
     struct, out = set(w.struct), []
     for v in w.stmts["F"]:
@@ -248,22 +263,24 @@ def reverse_source(adj: pointwise.Adjoint) -> str:
     def ref(v, fn=None):
         if v in struct:
             return f"U.v{v}"
+        if fn == "pr_block":
+            return f"v{v}[i]"
         return f"C.v{v}" if fn == "pr_point" and v in col else f"v{v}"
 
-    def load(op, imm, world):
+    def load(op, imm, world, fn=None):
         key = (op, imm)
         if key in ptr_of:
             return f"*p[{ptr_of[key]}]"
         j = stream_of[key]
         if world == "F":
-            return f"x[{j}]"
+            return f"x[i][{j}]" if fn == "pr_block" else f"x[{j}]"
         return (f"in[{j}][row * in_sb[{j}]]" if world == "R"
                 else f"in[{j}][t * in_st[{j}]]")
 
     def expr(v, world, fn=None):
         op, dt, args, imm = ops[v]
         if op in ("sig", "scal", "ct"):
-            return load(op, imm, world)
+            return load(op, imm, world, fn)
         a = [ref(i, fn) for i in args]
         if op == "div" and args[1] in struct and args[0] not in struct:
             inv = _pow2_inverse(*[ops[args[1]][k] for k in (0, 1, 3)])
@@ -309,11 +326,52 @@ def reverse_source(adj: pointwise.Adjoint) -> str:
                 lines.append(f"  out[{j}][{at}] = {ref(g, fn)};")
         return lines
 
+    def block():
+        """pr_block: the full world for a thread's V samples at once (a
+        staged build), each value an array of V, the statements in order
+        in stages, each stage one loop over the samples, a block op
+        between two (pw_bmax, pw_bsum, pw_bcnt: a warp is one block of a
+        row), its operands finished for every sample first."""
+        loop = ["#pragma unroll", f"  for (int i = 0; i < {V}; ++i) {{"]
+        decl, lines = [], list(loop)
+        for v in w.stmts["F"]:
+            op, dt, args, imm = ops[v]
+            if op == "red":
+                lines.append(f"    {'aU' if imm[0] == 'U' else 'aR'}"
+                             f"[{red_slot[v][1]}] += "
+                             f"{dbl(args[0], 'pr_block')};")
+                continue
+            decl.append(f"  {_CT[dt]} v{v}[{V}];")
+            if op in pointwise.BLOCK_OPS:
+                if any(a in struct for a in args):
+                    raise ValueError(f"pointwise reverse: {op} of a uniform "
+                                     f"value")
+                lines += ["  }", f"  pw_{op}(v{v}, "
+                          + ", ".join(f"v{a}" for a in args) + ");", *loop]
+            else:
+                lines.append(f"    v{v}[i] = {expr(v, 'F', 'pr_block')};")
+        lines += [f"    g[i][{j}] = {ref(g, 'pr_block')};"
+                  for j, (k, g) in enumerate(w.outs)
+                  if adj.classes[k] == "F"]
+        lines.append("  }")
+        return ["template <int NS, int NO>",
+                "__device__ __forceinline__ void pr_block(const PrUniform& U,",
+                f"    const float (&x)[{V}][NS], float (&g)[{V}][NO], "
+                "double* aU,", "    double* aR) {", *decl, *lines, "}"]
+
     # the hoisted values pr_point reads (or stores as a gradient)
     used = {a for v in w.stmts["F"] if v not in col for a in ops[v][2]}
     used |= {g for k, g in w.outs if adj.classes[k] == "F"}
     col_out = sorted(v for v in col if v in used)
-    point, colb = body("F", "pr_point"), body("F", "pr_col")
+    stage = staged(adj)
+    if stage and (w.reds[("F", "C")] or w.reds[("F", "R")]):
+        raise ValueError("pointwise reverse: a staged build sums only to "
+                         "uniform values (every signal spans the launch)")
+    point = block() if stage else [
+        "__device__ __forceinline__ void pr_point(const PrUniform& U,",
+        "    const PrCol& C, const float* x, float* g, double* aU, "
+        "double* aR,", "    double* aC) {", *body("F", "pr_point"), "}"]
+    colb = body("F", "pr_col")
     rows, times, tail = body("R", "pr_row"), body("C", "pr_time"), \
         body("U", "pr_tail")
     fields = [f"  {_CT[ops[v][1]]} v{v};" for v in w.struct]
@@ -345,6 +403,7 @@ def reverse_source(adj: pointwise.Adjoint) -> str:
         f"#define PR_ROWS {int(bool(w.stmts['R'] or w.inputs['R']))}",
         f"#define PR_TIMES {int(bool(w.stmts['C'] or w.inputs['C']))}",
         f"#define PR_MIN_CTAS {min_ctas(w)}",
+        *(["#define PR_STAGED 1"] if stage else []),
         "#define PR_STRIDED(k) (" + (" || ".join(
             f"(k) == {j}" for j in strided) or "0") + ")",
         "struct PrUniform {", *(fields or ["  int none;"]), "};",
@@ -358,10 +417,7 @@ def reverse_source(adj: pointwise.Adjoint) -> str:
         "    const float* x) {",
         "  PrCol C;", *colb, *[f"  C.v{v} = v{v};" for v in col_out],
         "  return C;", "}",
-        "__device__ __forceinline__ void pr_point(const PrUniform& U,",
-        "    const PrCol& C, const float* x, float* g, double* aU, "
-        "double* aR,", "    double* aC) {",
-        *point, "}",
+        *point,
         "__device__ __forceinline__ void pr_row(const PrUniform& U,",
         f"    {rest},", "    long long row, const double* rr, double* aU) {",
         *rows, "}",
@@ -488,9 +544,25 @@ def plan_reverse(pl, device) -> ReverseLaunch:
     outs = [torch.empty(pointwise.class_shape(adj.classes[k], rows, T),
                         dtype=torch.float32, device=device)
             for k, _ in w.outs]
+    stage = staged(adj)
+    if stage:
+        # the float4 build alone takes the block ops, a warp one block of
+        # a row: T % 128 == 0, and a stream whose row starts are not
+        # 16-byte aligned copied to a fresh buffer
+        if T % pointwise.BLOCK:
+            raise ValueError(f"pointwise reverse kernel: a program with "
+                             f"bmax (Fuzz) needs T % {pointwise.BLOCK} == "
+                             f"0, got T={T}")
+        for j, (t, sb, st) in enumerate(zip(ins[:w.n_in1], sbs, sts)):
+            if st and (t.data_ptr() % 16 or sb % V):
+                ins[j] = t.clone(memory_format=torch.contiguous_format)
+                sbs[j] = ins[j].stride(0) if sb else 0
     vec = T % V == 0 and all(t.data_ptr() % 16 == 0 and sb % V == 0
                              for t, sb, st in zip(ins[:w.n_in1], sbs, sts)
                              if st)
+    if stage and not vec:
+        raise ValueError("pointwise reverse kernel: a program with bmax "
+                         "(Fuzz) runs only the float4 build")
     rch, gx, gy = launch_shape(adj, rows, T, vec)
     n = workspace_size(w, rows, T, gx, gy)
     part = (torch.empty(n, dtype=torch.float64, device=device) if n

@@ -16,9 +16,10 @@ the CPU, where a group runs its plain version (``pointwise.interpret``):
   Fuzz's eager code not run on the group route;
 * the plan: the Fuzz joins its neighbours' group whatever ``oversample``
   says;
-* the backward: a Fuzz group's is ``group_vjp`` (autograd through
-  ``interpret``), chosen by group_call for a program with ``bmax``, the
-  reverse kernel kept for every other; ``adjoint`` refuses ``bmax``;
+* the backward: PointwiseGroup with no backward given is ``group_vjp``
+  (autograd through ``interpret``, the reference); group_call gives every
+  program the reverse kernel, a Fuzz group too; ``adjoint`` takes
+  ``bmax`` (tests/test_torch_fuzz_reverse.py holds it in full);
 * the launch: a bmax program needs T % 128 == 0 and the float4 build (an
   operand with unaligned rows is copied, never the scalar build).
 """
@@ -284,10 +285,9 @@ def test_cycle_scan_groups_take_fuzz():
 
 
 def test_fuzz_group_gradients_are_group_vjp():
-    """Through PointwiseGroup with no backward given (group_call's choice
-    for a bmax program) the gradients of x and of a modulated level are
-    bitwise group_vjp's; group_call gives a bmax program no reverse
-    kernel and every other program the reverse kernel."""
+    """Through PointwiseGroup with no backward given (the reference route)
+    the gradients of x and of a modulated level are bitwise
+    group_vjp's."""
     rng = np.random.default_rng(2)
     w = torch.from_numpy(rng.standard_normal((B, T)).astype(F32))
     for pol in POLICIES:
@@ -304,8 +304,8 @@ def test_fuzz_group_gradients_are_group_vjp():
 
 
 def test_group_call_picks_the_backward(monkeypatch):
-    """group_call on the card's device passes no backward (group_vjp) for
-    a program with bmax and the reverse kernel for every other."""
+    """group_call on the card's device passes the reverse kernel as the
+    backward for every program, one with bmax too."""
     from dsp_stuff_tpu_torch.ops import pointwise_reverse_kernel as prk
     seen = []
     monkeypatch.setattr(pk, "run", lambda fwd, prog, sigs, scals, Tn, d,
@@ -317,13 +317,24 @@ def test_group_call_picks_the_backward(monkeypatch):
         gain = b.program([pw.gain(b, b.sig(), b.scal())])
         pk.group_call(fz, [x], [torch.tensor(1.0)], 256, "cuda")
         pk.group_call(gain, [x], [torch.tensor(1.0)], 256, "cuda")
-    assert seen == [None, prk.reverse_group] * 3
+    assert seen == [prk.reverse_group] * 6
 
 
 def test_adjoint_refuses_bmax():
+    """The adjoint takes a bmax program (its gradients bitwise autograd's
+    through interpret, group_vjp); bmax still refuses a value that is not
+    an abs."""
     prog = _fuzz_program("fast", "slider")
-    with pytest.raises(ValueError, match="bmax"):
-        pw.adjoint(prog, (True, True), (True,), ("F",))
+    adj = pw.adjoint(prog, (True, True), (True,), ("F",))
+    assert any(op == "bsum" for op, *_ in adj.ops)
+    assert any(op == "bcnt" for op, *_ in adj.ops)
+    x = _x(4)
+    ct = torch.from_numpy(np.random.default_rng(5).standard_normal((B, T))
+                          .astype(F32))
+    lv = [tprec.scalar_on(3.0, CPU)]
+    got = pk.group_adjoint(prog, [x], lv, [ct], (True, True), T, CPU)
+    want = pk.group_vjp(prog, [x], lv, [ct], (True, True), T, CPU)
+    assert all(_same(g, w) for g, w in zip(got, want))
     b = pw.Builder()
     with pytest.raises(ValueError, match="abs"):
         b.bmax(b.sig())

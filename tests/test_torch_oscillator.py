@@ -45,8 +45,9 @@ MODES = ["Sine", "Triangle", "Square", "Constant"]
 B = 3
 CPU = torch.device("cpu")
 F32, F64 = np.float32, np.float64
-SRC = (pathlib.Path(ok.__file__).resolve().parent.parent / "csrc"
-       / "oscillator_kernel.cu").read_text()
+CSRC = pathlib.Path(ok.__file__).resolve().parent.parent / "csrc"
+SRC = ((CSRC / "oscillator_kernel.cu").read_text()
+       + (CSRC / "oscillator_ops.cuh").read_text())
 
 
 @pytest.fixture(autouse=True)

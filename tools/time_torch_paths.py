@@ -2,7 +2,7 @@
 """Time the port's kernel entry points and main paths of one checkout.
 
     python3 tools/time_torch_paths.py [--root DIR] [--renders | --grads |
-                                       --parity]
+                                       --parity | --fit]
     python3 tools/time_torch_paths.py --sass FILE ...
 
 Imports dsp_stuff_tpu_torch and chip_smoke from DIR (default: this
@@ -58,7 +58,15 @@ one on the bench list at B = 128 (CUDA events, in turns: plain, record,
 record, plain), and the bench chain's training step (its reverse
 pointwise kernel's device time a step beside it).  Prints one line per
 measurement
-with the root and the card's name and power limit.  Needs a CUDA device;
+with the root and the card's name and power limit.  ``--fit`` times,
+alone, a make_train_step step of config5 through its feedback cycle with
+every slider a leaf (the LFO's amplitude and frequency among them) at
+B = 128 x 10 s under fast and under parity: CUDA events around the step
+(loss, backward, Adam, clamp) and a synchronize, the median of 3 steps
+after one that captures the per-node loop; the group programs and
+adjoint programs the step builds are built first, one nvcc each, all
+started together (the root's chip_smoke collects them on the CPU port).
+Needs a CUDA device;
 imports nothing of JAX.  ``--sass`` reads pass-1 SASS dumps that
 ``--grads`` wrote (build/sass/) and prints their
 loop_stats, on any machine.
@@ -284,6 +292,7 @@ def main() -> int:
     renders_only = "--renders" in sys.argv
     grads_only = "--grads" in sys.argv
     parity_only = "--parity" in sys.argv
+    fit_only = "--fit" in sys.argv
     sys.path[:0] = [root, os.path.join(root, "tests")]
     import chip_smoke as cs
     import dsp_stuff_tpu_torch as dst
@@ -304,6 +313,10 @@ def main() -> int:
         rng.standard_normal((512, T), dtype=np.float32) * np.float32(0.25),
         device=dev)
     g5 = presets.config5_feedback_16node()[0]
+    if fit_only:
+        del x_all
+        fit_step_times(cs, g5, dev, tag)
+        return 0
     if parity_only:
         cg = dst.compile_graph(g5, device="cuda")
         xr = x_all[:128].reshape(128, 1, T)
@@ -459,6 +472,72 @@ def main() -> int:
         if not renders_only:
             train_step_times(cs, dev, tag)
     return 0
+
+
+def fit_step_times(cs, g5, dev, tag) -> None:
+    """config5's make_train_step step, every slider a leaf, B = 128 x 10 s,
+    fast and parity (``--fit``): its group and adjoint programs built
+    first, all together, then one step (the loop's captures) and three
+    timed, CUDA events around each and a synchronize."""
+    import torch
+    import dsp_stuff_tpu_torch as dst
+    from dsp_stuff_tpu_torch.compiler import compile as comp
+    from dsp_stuff_tpu_torch.ops import cuda_build
+    from dsp_stuff_tpu_torch.ops import pointwise_kernel as pk
+    from dsp_stuff_tpu_torch.train import fit
+
+    def every(cg):
+        return cg.init_params(requires_grad=True)
+    progs, srcs = set(), set()
+    real = pk.group_call
+
+    def spy(prog, *args):
+        progs.add(prog)
+        return real(prog, *args)
+    for pol in ("fast", "parity"):
+        cpu = dst.compile_graph(g5, device="cpu")
+        with dst.policy(pol), cs.swapped_attr(comp, "group_call", spy), \
+                cs.swapped_attr(pk, "group_call", spy):
+            cpu.render(torch.zeros(2, 1, 21 * 128), T=21 * 128,
+                       batch_shape=(2,), params=every(cpu))
+        for T_, route in ((256, "auto"), (21 * 128, "buffers")):
+            srcs.update(cs.cpu_group_backwards(g5, pol, every, False, T=T_,
+                                               route=route))
+    jobs = [(n, (), "") for n in cuda_build.STATIC_KERNELS]
+    jobs.append(("chain_kernel", ("CK_RECORD",), ""))
+    jobs += [("pointwise_kernel", (), pk.source(p)) for p in progs]
+    jobs += [("pointwise_reverse_kernel", (), h) for h in sorted(srcs)]
+    t0 = time.time()
+    cuda_build.build_jobs(jobs)
+    print(f"  {len(jobs)} builds in {time.time() - t0:.1f} s {tag}")
+    inp = str(min(cpu.input_ids))
+    rg = np.random.default_rng(170)
+    x = torch.as_tensor(rg.standard_normal((128, T), dtype=np.float32)
+                        * np.float32(0.3), device=dev)
+    tgt = torch.as_tensor(rg.standard_normal((128, 1, T), dtype=np.float32)
+                          * np.float32(0.1), device=dev)
+    for pol in ("fast", "parity"):
+        with dst.policy(pol):
+            cg = dst.compile_graph(g5, device="cuda")
+            step, init = fit.make_train_step(cg, fit.adam(1e-2))
+            params = every(cg)
+            opt = init(params)
+            ms = []
+            for _ in range(4):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                _, opt, loss = step(params, opt, cg.init_state(), {inp: x},
+                                    tgt)
+                e1.record()
+                torch.cuda.synchronize()
+                ms.append(e0.elapsed_time(e1))
+        print(f"config5 fit step, every slider a leaf, B=128 x 10 s, {pol}: "
+              f"{np.median(ms[1:]):.1f} ms (median of 3 after a first "
+              f"{ms[0]:.1f}; {[round(m, 1) for m in ms[1:]]}), loss "
+              f"{float(loss):.6e} {tag}")
+        del cg, step, params, opt
+        torch.cuda.empty_cache()
 
 
 def train_step_times(cs, dev, tag) -> None:
