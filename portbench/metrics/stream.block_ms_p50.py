@@ -1,0 +1,7 @@
+"""Median process() wall time over the window, ms (host clock)."""
+
+from portbench.harness.common import percentile
+
+
+def read(ctx):
+    return 1e3 * percentile(ctx.window["block_s"], 50)
